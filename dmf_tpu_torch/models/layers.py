@@ -1,0 +1,258 @@
+"""Core building blocks (NCHW), counterparts of ``dmf_tpu/models/layers.py``.
+
+Module and parameter names follow the reference torch layout that
+``dmf_tpu.models.ref_ckpt`` exports (ref_ckpt.py:23-32): ResLite blocks as
+``bottlenecks.{i}.{0,1,4,5,7,8}``, ``skip.{0,1}``, ``se.fc.{1,3}`` (1x1
+convs), ``reconstruct.conv.{0,1,3}``; mask heads as ``pre``/``out``.
+
+The port serves inference only.  Modes are explicit arguments, as in the
+JAX modules: BatchNorm always normalises with its running statistics, and
+``mc=True`` turns dropout on, drawing masks from an explicit
+``torch.Generator``.  Nothing depends on ``module.train()``.
+"""
+
+from __future__ import annotations
+
+from typing import Optional, Tuple
+
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from ..ops.epilogue import se_epilogue
+from ..ops.resize import global_avg_pool, resize_bilinear
+
+
+class BatchNorm2d(nn.BatchNorm2d):
+    """``nn.BatchNorm2d`` that always uses its running statistics.
+
+    Same parameters and buffers (so reference state dicts load unchanged);
+    the forward is the eval-mode normalisation whatever ``module.training``
+    says.  Counterpart of ``TorchBatchNorm`` with ``use_running_average``.
+    """
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var,
+                            self.weight, self.bias, False, 0.0, self.eps)
+
+
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Dropout with an explicit generator: keep with probability ``1-p``,
+    scale kept values by ``1/(1-p)`` (flax ``nn.Dropout`` semantics)."""
+    if p <= 0.0:
+        return x
+    if generator is None:
+        raise ValueError("MC dropout needs a generator")
+    # the mask takes x's memory format, so the select stays one vectorized pass
+    keep = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator) < (1.0 - p)
+    return torch.where(keep, x / (1.0 - p), 0.0)
+
+
+def conv1x1(cin: int, cout: int, stride: int = 1, bias: bool = False,
+            **kw) -> nn.Conv2d:
+    return nn.Conv2d(cin, cout, 1, stride=stride, bias=bias, **kw)
+
+
+def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = False,
+            **kw) -> nn.Conv2d:
+    # explicit pad 1: flax SAME differs from torch only for strided convs on
+    # even inputs, and the JAX modules pad those explicitly too
+    return nn.Conv2d(cin, cout, 3, stride=stride, padding=1, bias=bias, **kw)
+
+
+class SEBlock(nn.Module):
+    """Squeeze-excitation returning ``(x * w, w)`` (reference model_module.py:25-47)."""
+
+    def __init__(self, channels: int, reduction: int = 2, **kw):
+        super().__init__()
+        mid = max(channels // reduction, 1)
+        self.fc = nn.Sequential(
+            nn.AdaptiveAvgPool2d(1), nn.Conv2d(channels, mid, 1, **kw),
+            nn.GELU(), nn.Conv2d(mid, channels, 1, **kw), nn.Sigmoid())
+
+    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        w = self.fc(x)
+        return x * w, w
+
+
+class MaskGuidedSpatialAttention(nn.Module):
+    """``out = x * (1 + gamma * A)``, A from the predicted mask
+    (reference model_module.py:49-97)."""
+
+    def __init__(self, mask_ch: int = 1, hidden_channels: int = 16, **kw):
+        super().__init__()
+        self.gamma = nn.Parameter(torch.tensor(0.1, **kw))
+        self.mask_processor = nn.Sequential(
+            conv1x1(mask_ch, hidden_channels, **kw),
+            nn.GroupNorm(1, hidden_channels, eps=1e-5, **kw), nn.GELU(),
+            conv1x1(hidden_channels, 1, bias=True, **kw), nn.Sigmoid())
+
+    def forward(self, img_features, mask_features):
+        mask_up = resize_bilinear(mask_features, img_features.shape[-2:])
+        a = self.mask_processor(mask_up).clamp(1e-4, 1.0 - 1e-4)
+        return img_features * (1.0 + self.gamma * a), a
+
+
+class ReconHead(nn.Module):
+    """3x3 conv -> BN -> GELU -> 3x3 conv (reference model_module.py:100-125)."""
+
+    def __init__(self, in_ch: int, recon_ch: int = 1, **kw):
+        super().__init__()
+        self.conv = nn.Sequential(
+            conv3x3(in_ch, in_ch, **kw), BatchNorm2d(in_ch, **kw), nn.GELU(),
+            conv3x3(in_ch, recon_ch, bias=True, **kw))
+
+    def forward(self, x):
+        return self.conv(x)
+
+
+class MaskHeadResize(nn.Module):
+    """1x1 proj -> strided-conv chain down to ``out_size`` -> 1x1 out.
+
+    Reference model_module.py:131-215 registers chains for inputs of
+    64/128/256/512; like the JAX module, the port builds only the chain its
+    input size ``in_size`` uses (a bilinear resize covers other sizes).
+    """
+
+    def __init__(self, in_ch: int, in_size: int, mid_ch: int = 64,
+                 out_ch: int = 1, out_size: int = 32, **kw):
+        super().__init__()
+        self.out_size = out_size
+        self.pre = conv1x1(in_ch, mid_ch, bias=True, **kw)
+        self.chain_name = None
+        if in_size in (64, 128, 256, 512) and in_size > out_size:
+            layers = []
+            s = in_size
+            while s > out_size:
+                s //= 2
+                layers += [conv3x3(mid_ch, mid_ch, stride=2, bias=True, **kw),
+                           nn.GELU()]
+            self.chain_name = f"down_{in_size}_to_{out_size}"
+            self.add_module(self.chain_name, nn.Sequential(*layers))
+        self.out = conv1x1(mid_ch, out_ch, bias=True, **kw)
+
+    def forward(self, x):
+        x = self.pre(x)
+        if self.chain_name is not None:
+            x = getattr(self, self.chain_name)(x)
+        else:
+            x = resize_bilinear(x, (self.out_size, self.out_size))
+        return self.out(x)
+
+
+class ResLiteBlock(nn.Module):
+    """Residual bottleneck stack with optional SE and reconstruction head.
+
+    Reference ``ResNetLiteBlock_withRecon`` (model_module.py:220-316).
+    ``forward(x, mc, generator, recon)`` returns ``(features, recon_or_None)``;
+    ``recon=False`` skips the reconstruction head (lean MC passes).  With SE
+    the epilogue ``SE(dropout(gelu(out + identity)))`` is one call to
+    :func:`~dmf_tpu_torch.ops.epilogue.se_epilogue`.
+    """
+
+    def __init__(self, in_ch: int, out_ch: int, downsample: bool = False,
+                 recon_ch: int = 1, use_se: bool = False, se_reduction: int = 2,
+                 dropout: float = 0.4, num_repeats: int = 1,
+                 downsample_each_repeat: bool = False, mid_squeeze: int = 2,
+                 **kw):
+        super().__init__()
+        stride = 2 if downsample else 1
+        mid = max(out_ch // mid_squeeze, 1)
+        self.dropout = dropout
+        if stride > 1 or in_ch != out_ch:
+            self.skip = nn.Sequential(conv1x1(in_ch, out_ch, stride, **kw),
+                                      BatchNorm2d(out_ch, **kw))
+        else:
+            self.skip = None
+        blocks = []
+        for i in range(num_repeats):
+            b_stride = stride if (downsample_each_repeat or i == 0) else 1
+            blocks.append(nn.ModuleDict({
+                "0": conv1x1(in_ch if i == 0 else out_ch, mid, b_stride, **kw),
+                "1": BatchNorm2d(mid, **kw),
+                "4": conv3x3(mid, mid, **kw),
+                "5": BatchNorm2d(mid, **kw),
+                "7": conv1x1(mid, out_ch, **kw),
+                "8": BatchNorm2d(out_ch, **kw),
+            }))
+        self.bottlenecks = nn.ModuleList(blocks)
+        self.se = SEBlock(out_ch, se_reduction, **kw) if use_se else None
+        self.reconstruct = ReconHead(out_ch, recon_ch, **kw) if recon_ch > 0 else None
+
+    def forward(self, x, mc: bool = False,
+                generator: Optional[torch.Generator] = None,
+                recon: bool = True):
+        p = self.dropout if mc else 0.0
+        identity = self.skip(x) if self.skip is not None else x
+        out = x
+        for b in self.bottlenecks:
+            out = dropout(F.gelu(b["1"](b["0"](out))), p, generator)
+            out = F.gelu(b["5"](b["4"](out)))
+            out = b["8"](b["7"](out))
+        if self.se is not None:
+            if out.is_cuda:  # the kernel takes NHWC maps
+                out = out.contiguous(memory_format=torch.channels_last)
+                identity = identity.contiguous(memory_format=torch.channels_last)
+            fc = self.se.fc
+            out = se_epilogue(out, identity, fc[1].weight, fc[1].bias,
+                              fc[3].weight, fc[3].bias, drop_rate=p,
+                              generator=generator)
+        else:
+            out = dropout(F.gelu(out + identity), p, generator)
+        r = self.reconstruct(out) if (recon and self.reconstruct is not None) else None
+        return out, r
+
+
+class Projector(nn.Module):
+    """Two 1x1 conv+BN+GELU stages (reference model_module.py:323-348)."""
+
+    def __init__(self, in_ch: int, proj_dim: int = 64, **kw):
+        super().__init__()
+        self.proj = nn.Sequential(
+            conv1x1(in_ch, proj_dim, **kw), BatchNorm2d(proj_dim, **kw), nn.GELU(),
+            conv1x1(proj_dim, proj_dim, **kw), BatchNorm2d(proj_dim, **kw), nn.GELU())
+
+    def forward(self, x):
+        return self.proj(x)
+
+
+class ClassificationHead(nn.Module):
+    """Global pool -> L2 normalize -> Linear (reference model_module.py:355-369)."""
+
+    def __init__(self, in_ch: int, num_classes: int, **kw):
+        super().__init__()
+        self.fc = nn.Linear(in_ch, num_classes, **kw)
+
+    def forward(self, x):
+        x = global_avg_pool(x)
+        x = x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True), min=1e-12)
+        return self.fc(x)
+
+
+class FeatureDownAlign(nn.Module):
+    """Channel/stride alignment conv+BN+GELU (reference model_module.py:371-396)."""
+
+    def __init__(self, in_ch: int, out_ch: int, downsample: bool = True, **kw):
+        super().__init__()
+        if in_ch == out_ch and not downsample:
+            self.proj = None
+            return
+        conv = (conv3x3(in_ch, out_ch, stride=2, **kw) if downsample
+                else conv1x1(in_ch, out_ch, **kw))
+        self.proj = nn.Sequential(conv, BatchNorm2d(out_ch, **kw), nn.GELU())
+
+    def forward(self, x):
+        return x if self.proj is None else self.proj(x)
+
+
+class FusionReduce(nn.Module):
+    """1x1 conv + BN + GELU channel reduction (reference model_module.py:782-794)."""
+
+    def __init__(self, in_ch: int, out_ch: int, **kw):
+        super().__init__()
+        self.reduce = nn.Sequential(conv1x1(in_ch, out_ch, **kw),
+                                    BatchNorm2d(out_ch, **kw), nn.GELU())
+
+    def forward(self, x):
+        return self.reduce(x)
+

@@ -46,6 +46,12 @@ def pytest_configure(config):
         "fullgeom: full-geometry (256², 14/6ch) parity races vs the genuine "
         "reference — slow; gated behind DMF_FULLGEOM=1, run once per round",
     )
+    config.addinivalue_line(
+        "markers",
+        "cuda: runs the port's hand-written kernels on a CUDA card; skips "
+        "without one (on the card, where jax is absent: python -m pytest "
+        "--noconftest -m cuda tests/test_torch_cuda.py)",
+    )
 
 
 @pytest.fixture
