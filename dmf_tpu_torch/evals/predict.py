@@ -20,7 +20,7 @@ from typing import Callable, Optional
 
 import torch
 
-from dmf_tpu.config import Config
+from ..config import Config
 
 
 def tta_views(x: torch.Tensor) -> torch.Tensor:

@@ -22,7 +22,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dmf_tpu.config import ModelConfig
+from ...config import ModelConfig
 
 from ..layers import BatchNorm2d
 

@@ -4,7 +4,9 @@ Reference ``ModelMaskHeadBackbone`` (model_module.py:481-733): SE modality
 attention on the raw channels -> backbone + adapter -> block1 -> learned
 alpha-blend with the backbone at f2 and f3 -> block2 -> mask head at the
 configured stage with spatial attention -> block3 -> pooled projections ->
-L2-normalized classification head.  Only the non-hybrid path is ported.
+L2-normalized classification head.  With ``use_hybrid_transformer`` the
+final stage is a :class:`~.transformer.TransformerStage` on f2 plus a 1x1
+projection to c3 (encoder.py:206-221) in place of block3.
 
 ``forward`` returns ``(logits, aux, mask_pred)`` with the JAX aux keys.  The
 ``prefix_only``/``prefix`` split (encoder.py:47-121) lets the MC predictor run
@@ -20,7 +22,7 @@ from typing import Optional, Sequence
 import torch
 import torch.nn as nn
 
-from dmf_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from ..ops.resize import adaptive_avg_pool
 from .adapter import BackboneAdapter
@@ -28,6 +30,7 @@ from .backbones.resnet import build_backbone
 from .layers import (ClassificationHead, FeatureDownAlign,
                      MaskGuidedSpatialAttention, MaskHeadResize, Projector,
                      ResLiteBlock, SEBlock)
+from .transformer import TransformerStage
 
 
 def _block_size(size: int, downsample: bool, repeats: int, each: bool) -> int:
@@ -43,8 +46,9 @@ class Encoder(nn.Module):
                  **kw):
         super().__init__()
         cfg = config
-        if cfg.use_hybrid_transformer:
-            raise NotImplementedError("the hybrid transformer encoder is not ported yet")
+        hybrid = cfg.use_hybrid_transformer
+        if hybrid and cfg.mask.enabled and cfg.mask.mask_stage.lower() == "f3":
+            raise ValueError("mask_stage='f3' not supported with hybrid transformer")
         self.method = method
         self.config = cfg
         c1, c2, c3 = cfg.channels
@@ -80,13 +84,25 @@ class Encoder(nn.Module):
         s3 = stage(2, s2)
         self.block1 = block(f1_in, c1, 0, 1)
         self.block2 = block(c1, c2, 1, 1)
-        self.block3 = block(c2, c3, 2, 0)
-        # registered whatever the backbone setting, as in the reference
-        # (model_module.py:593-596)
+        if hybrid:
+            self.block3 = None
+            self.transformer = TransformerStage(
+                c2, cfg.transformer_embed_dim, depth=cfg.transformer_depth,
+                heads=cfg.transformer_heads, patch_size=cfg.transformer_patch_size, **kw)
+            self.trans_out_proj = nn.Conv2d(cfg.transformer_embed_dim, c3, 1, **kw)
+            s3 = s2 // cfg.transformer_patch_size
+        else:
+            self.block3 = block(c2, c3, 2, 0)
+            self.transformer = None
+        # the alpha-blend scalars and norms, as the exporter emits them
+        # (ref_ckpt.py:444-449, 478-486): the reference registers them
+        # whatever the backbone setting (model_module.py:593-596), but the JAX
+        # model with a backbone and the hybrid stage has no f3 blend
         self.f2_weight = nn.Parameter(torch.tensor(0.5, **kw))
-        self.f3_weight = nn.Parameter(torch.tensor(0.5, **kw))
         self.norm_f2 = nn.GroupNorm(c1, c1, eps=1e-5, **kw)
-        self.norm_f3 = nn.GroupNorm(c2, c2, eps=1e-5, **kw)
+        if not (hybrid and cfg.use_backbone):
+            self.f3_weight = nn.Parameter(torch.tensor(0.5, **kw))
+            self.norm_f3 = nn.GroupNorm(c2, c2, eps=1e-5, **kw)
 
         m = cfg.mask
         self.mask_stage = m.mask_stage.lower() if m.enabled else None
@@ -143,15 +159,18 @@ class Encoder(nn.Module):
         if self.mask_stage == "f2":
             mask_pred = self.mask_head(f2 + self.f1_to_f2(f1))
             f2, mask_attn_map = self.mask_spatial_attention(f2, mask_pred)
-        if self.backbone is not None:
-            alpha = torch.sigmoid(self.f3_weight)
-            f3_in = self.norm_f3(alpha * f3_b + (1 - alpha) * f2)
+        if self.transformer is not None:
+            f3 = self.trans_out_proj(self.transformer(f2, mc, generator))
         else:
-            f3_in = f2
-        f3, _ = self.block3(f3_in, mc, generator)
-        if self.mask_stage == "f3":
-            mask_pred = self.mask_head(f3 + self.f2_to_f3(f2))
-            f3, mask_attn_map = self.mask_spatial_attention(f3, mask_pred)
+            if self.backbone is not None:
+                alpha = torch.sigmoid(self.f3_weight)
+                f3_in = self.norm_f3(alpha * f3_b + (1 - alpha) * f2)
+            else:
+                f3_in = f2
+            f3, _ = self.block3(f3_in, mc, generator)
+            if self.mask_stage == "f3":
+                mask_pred = self.mask_head(f3 + self.f2_to_f3(f2))
+                f3, mask_attn_map = self.mask_spatial_attention(f3, mask_pred)
 
         logits = self.classification_head(f3)
         proj_pairs = None

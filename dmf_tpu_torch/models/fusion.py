@@ -15,7 +15,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from dmf_tpu.config import ModelConfig
+from ..config import ModelConfig
 
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.resize import adaptive_avg_pool, global_avg_pool, resize_bilinear

@@ -12,6 +12,7 @@ import torch
 
 from dmf_tpu_torch.ops import conv3x3 as k2
 from dmf_tpu_torch.ops import epilogue as k1
+from dmf_tpu_torch.ops import flash_attention as fa
 
 pytestmark = pytest.mark.cuda
 
@@ -81,3 +82,50 @@ def test_conv3x3_kernel(dev, dtype, shape):
     assert k2.conv3x3_bn_gelu.launches == 1
     with pytest.raises(ValueError, match="channels_last"):
         k2.conv3x3_bn_gelu(x.contiguous(), *args[1:])
+
+
+def _close_rel(got, ref, dtype):
+    """Gradients are far below 1 in magnitude: hold them relative to their
+    own scale, max|plain| (fp32: sums in another order; bf16: one bf16 ulp,
+    covering the output rounding and P, dS rounded to bf16 for the products)."""
+    bound = TOL[dtype] * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("nq,nk", [(128, 128), (64, 192)])
+def test_flash_attention_kernels(dev, dtype, d, nq, nk):
+    g = torch.Generator(device=dev).manual_seed(2)
+    q, k, v = (torch.randn(1, 2, n, d, device=dev, generator=g).to(dtype)
+               for n in (nq, nk, nk))
+    cot = torch.randn(1, 2, nq, d, device=dev, generator=g).to(dtype)
+    fa.flash_attention.launches = fa.flash_attention.launches_dq = 0
+    fa.flash_attention.launches_dkv = 0
+    out, lse = fa.flash_forward(q.view(2, nq, d), k.view(2, nk, d), v.view(2, nk, d),
+                                d ** -0.5)
+    ref_out, ref_lse = fa.flash_attention_ref(q, k, v)
+    _close(out.view_as(q), ref_out, dtype)
+    _close(lse.view(1, 2, nq), ref_lse, dtype)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fa.flash_attention(*leaves).float() * cot.float()).sum().backward()
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fa.flash_attention_ref(*ref_leaves)[0].float() * cot.float()).sum().backward()
+    for a, b in zip(leaves, ref_leaves):
+        _close_rel(a.grad, b.grad, dtype)
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_dq,
+            fa.flash_attention.launches_dkv) == (2, 1, 1)
+
+
+def test_flash_attention_wrapper_raises(dev):
+    q = torch.randn(1, 2, 128, 64, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.flash_attention(q.transpose(2, 3).contiguous().transpose(2, 3), q, q)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fa.flash_attention(q.half(), q.half(), q.half())
+    with pytest.raises(ValueError, match="multiple of 64"):
+        r = torch.randn(1, 2, 100, 64, device=dev)
+        fa.flash_attention(r, r, r)
+    with pytest.raises(ValueError, match="D in"):
+        r = torch.randn(1, 2, 128, 32, device=dev)
+        fa.flash_attention(r, r, r)

@@ -17,6 +17,7 @@ import torch
 
 from dmf_tpu.config import default_parameters, resolve_backbone_config
 from dmf_tpu.models.backbones import importers
+from dmf_tpu_torch import config as pconfig
 
 # several pytest workers share the host: every test_torch_* file that
 # imports this module runs with a torch pool of 2 threads
@@ -91,6 +92,31 @@ def tiny_cfg(dropout=0.2, use_backbone=True, mc_passes=3):
                        fusion_model=dataclasses.replace(mc, fusion_specific=fs))
 
 
+def port_config(cfg):
+    """The port's twin of a JAX ``Config`` (or of one of its dataclasses),
+    through the JAX package's ``to_dict`` and the port's ``from_dict``."""
+    if type(cfg).__name__ == "Config":
+        return pconfig.Config.from_dict(cfg.to_dict())
+    return pconfig._from_dict(getattr(pconfig, type(cfg).__name__),
+                              dataclasses.asdict(cfg))
+
+
+def hybrid_cfg(use_backbone=False, dropout=0.0, mc_passes=3):
+    """Toy ``hybrid-nb`` geometry (``bench.py --encoder hybrid-nb`` cut down):
+    32^2 inputs, narrow widths, a 2-block transformer of embed 32 / 2 heads
+    on f2 (16^2 -> 8^2 = 64 tokens), fusion at f3 8^2 x 32."""
+    cfg = default_parameters(mc_passes=mc_passes)
+    mc = dataclasses.replace(cfg.dwi_model, input_size=32, channels=(8, 16, 32),
+                             proj_dim=8, dropout=dropout, use_backbone=use_backbone,
+                             use_hybrid_transformer=True, transformer_embed_dim=32,
+                             transformer_heads=2, transformer_depth=2)
+    mc = resolve_backbone_config(mc)
+    fs = dataclasses.replace(cfg.fusion_model.fusion_specific, fusion_channels=16,
+                             dwi_out_channels=32, dce_out_channels=32)
+    return cfg.replace(dwi_model=mc, dce_model=mc,
+                       fusion_model=dataclasses.replace(mc, fusion_specific=fs))
+
+
 def jax_encoder(mc, channel_num, x, num_classes=4, seed=0):
     """A JAX Encoder (with a shallow backbone when configured) and random
     variables for it."""
@@ -111,7 +137,7 @@ def port_encoder(mc, channel_num, variables, num_classes=4):
     from dmf_tpu.models.ref_ckpt import export_reference_encoder
     from dmf_tpu_torch.models import Encoder, load_reference_state_dict
 
-    enc = Encoder("dwi", mc, channel_num, num_classes,
+    enc = Encoder("dwi", port_config(mc), channel_num, num_classes,
                   backbone_layers=BACKBONE_LAYERS)
     with resnet_layers(BACKBONE_LAYERS):
         sd = export_reference_encoder(variables)
@@ -133,6 +159,7 @@ def port_fusion(cfg, variables, feature_size):
     from dmf_tpu.models.ref_ckpt import export_reference_fusion
     from dmf_tpu_torch.models import FusionModel, load_reference_state_dict
 
+    cfg = port_config(cfg)
     fus = FusionModel(cfg.fusion_model, cfg.class_num,
                       dwi_channels=cfg.dwi_model.channels[-1],
                       dce_channels=cfg.dce_model.channels[-1],

@@ -13,8 +13,9 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import (assert_close, jax_encoder, jax_fusion,
-                                port_encoder, port_fusion, tiny_cfg, volumes)
+from test_torch_helpers import (assert_close, hybrid_cfg, jax_encoder, jax_fusion,
+                                port_config, port_encoder, port_fusion, tiny_cfg,
+                                volumes)
 
 from dmf_tpu.data import preprocess as jpre
 from dmf_tpu.evals.predict import make_fusion_predictor as jax_predictor
@@ -93,7 +94,7 @@ def test_slice_matches_jax_predictor(slice_pair, mode):
     jpred = jax_predictor(cfg, *jmods, mode=mode)
     jmean, jstd, jaux = jpred(*jvars, jnp.asarray(xd), jnp.asarray(xc),
                               jax.random.PRNGKey(0))
-    ppred = make_fusion_predictor(cfg, *pmods, mode=mode)
+    ppred = make_fusion_predictor(port_config(cfg), *pmods, mode=mode)
     mean, std, aux = ppred(torch.from_numpy(xd), torch.from_numpy(xc),
                            torch.Generator().manual_seed(0))
     assert_close(mean, jmean, what="mean")
@@ -108,7 +109,8 @@ def test_mc_chunking_is_the_same_ensemble(slice_pair):
     """With dropout 0 every pass is identical, so any chunking must give the
     same mean; shapes and pass bookkeeping are exercised for chunk 1 and 2."""
     cfg, (xd, xc), _, _, pmods = slice_pair
-    outs = [make_fusion_predictor(cfg, *pmods, mode="tta_mc", mc_passes=4, mc_chunk=c)(
+    outs = [make_fusion_predictor(port_config(cfg), *pmods, mode="tta_mc", mc_passes=4,
+                                  mc_chunk=c)(
         torch.from_numpy(xd), torch.from_numpy(xc), torch.Generator().manual_seed(0))
         for c in (None, 1, 2)]
     for m, s, _ in outs[1:]:
@@ -120,7 +122,7 @@ def test_mc_dropout_ensemble_statistics():
     another seed changes it, and probabilities stay normalized."""
     from dmf_tpu_torch.models import build_fusion_models
 
-    cfg = tiny_cfg(dropout=0.3, mc_passes=4)
+    cfg = port_config(tiny_cfg(dropout=0.3, mc_passes=4))
     g = torch.Generator().manual_seed(0)
     models = build_fusion_models(cfg, "cpu", torch.float32, g, backbone_layers=(1, 1, 1, 1))
     xd, xc = (torch.from_numpy(a) for a in volumes(1))
@@ -134,3 +136,51 @@ def test_mc_dropout_ensemble_statistics():
     assert torch.allclose(m1.sum(-1), torch.ones(2), atol=1e-5)
     with pytest.raises(ValueError, match="generator"):
         pred(xd, xc)
+
+
+@pytest.fixture(scope="module")
+def hybrid_pair():
+    """``hybrid-nb`` encoders + fusion of both packages on the same weights."""
+    cfg = hybrid_cfg()
+    xd, xc = volumes(7)
+    jd, vd = jax_encoder(cfg.dwi_model, 14, xd, seed=11)
+    jc, vc = jax_encoder(cfg.dce_model, 6, xc, seed=12)
+    _, ad, md = jd.apply(vd, jnp.asarray(xd), train=False)
+    _, ac, mc_ = jc.apply(vc, jnp.asarray(xc), train=False)
+    jf, vf = jax_fusion(cfg, ad["raw_feats"], ac["raw_feats"], md, mc_, seed=13)
+    pd, _ = port_encoder(cfg.dwi_model, 14, vd)
+    pc, _ = port_encoder(cfg.dce_model, 6, vc)
+    pf, _ = port_fusion(cfg, vf, pd.feature_size)
+    return cfg, (xd, xc), (jd, jc, jf), (vd, vc, vf), (pd, pc, pf)
+
+
+@pytest.mark.parametrize("mode", ["normal", "tta"])
+def test_hybrid_nb_matches_jax_predictor(hybrid_pair, mode):
+    """The hybrid-transformer (no backbone) fusion predictor, the slice's
+    serving modes, against the JAX package in fp32."""
+    cfg, (xd, xc), jmods, jvars, pmods = hybrid_pair
+    jmean, jstd, jaux = jax_predictor(cfg, *jmods, mode=mode)(
+        *jvars, jnp.asarray(xd), jnp.asarray(xc), jax.random.PRNGKey(0))
+    mean, std, aux = make_fusion_predictor(port_config(cfg), *pmods, mode=mode)(
+        torch.from_numpy(xd), torch.from_numpy(xc))
+    assert_close(mean, jmean, what="mean")
+    np.testing.assert_allclose(std.numpy(), np.asarray(jstd), rtol=0, atol=1e-5)
+    assert set(aux) == set(jaux)
+    for k, v in jaux.items():
+        assert_close(aux[k], v, what=k)
+
+
+@pytest.mark.parametrize("mode", ["mc", "tta_mc"])
+def test_hybrid_nb_mc_modes_at_toy_size(hybrid_pair, mode):
+    """MC modes on the hybrid encoders take the attention-weights route with
+    the transformer's fixed dropout 0.1, whose masks cannot match the JAX
+    stream: hold the ensemble by its invariants (normalized, finite, spread,
+    the same generator seed repeats it)."""
+    cfg, (xd, xc), _, _, pmods = hybrid_pair
+    pred = make_fusion_predictor(port_config(cfg), *pmods, mode=mode)
+    xd, xc = torch.from_numpy(xd), torch.from_numpy(xc)
+    mean, std, _ = pred(xd, xc, torch.Generator().manual_seed(3))
+    again, _, _ = pred(xd, xc, torch.Generator().manual_seed(3))
+    assert mean.shape == (2, cfg.class_num) and torch.isfinite(std).all()
+    assert torch.allclose(mean.sum(-1), torch.ones(2), atol=1e-5)
+    assert float(std.mean()) > 0.0 and torch.equal(mean, again)
