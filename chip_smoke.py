@@ -11,14 +11,19 @@ Phases, each printing its own lines:
      tolerances and median times beside the plain version's, the bound and
      the one PyTorch call that computes the same function (where there is
      one): 3a SE epilogue (32^2 maps of tta_mc, 128^2 maps of hybrid-nb),
-     3b conv3x3+BN+GELU, 3c flash-attention forward, 3d its backward;
+     3b conv3x3+BN+GELU, 3c flash-attention forward, 3d its backward,
+     3e the DWI z-score, 3f the histogram percentiles (on max-normalised
+     synthetic DCE volumes), 3g the standalone SE;
   4. end-to-end parity, card (kernels) vs CPU (plain versions), fp32,
      seeded random weights at full width: 4 the default ResNet-50 models in
      ``tta`` at B=2, 4b the hybrid-transformer no-backbone models
-     (``hybrid-nb``) in ``normal`` at B=1;
+     (``hybrid-nb``) in ``normal`` at B=1; 4c the data preparation
+     (``prepare_single_data`` + ``export_processed_splits``, dwi and dce,
+     256 + 64 synthetic volumes of 256^2), card vs CPU, with stage times;
   5. serving raw NHWC volumes -> on-card preprocessing -> predictor in bf16,
-     3 requests of B=8 each, with launch counters checked per request: 5 the
-     default models in ``tta_mc``, 5b ``hybrid-nb`` in ``normal`` then ``tta``;
+     3 requests of B=8 each, with launch counters checked per request and
+     the preprocessing timed apart from the predictor: 5 the default models
+     in ``tta_mc``, 5b ``hybrid-nb`` in ``normal`` then ``tta``;
   6. a profiler breakdown of one more ``tta_mc`` and one ``hybrid-nb``
      ``normal`` request.
 The line before the last is the kernels' JSON summary; the last line is
@@ -28,11 +33,13 @@ without a CUDA device the script exits non-zero before printing anything.
 
 import copy
 import dataclasses
+import functools
 import json
 import os
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 import torch
@@ -43,15 +50,25 @@ if not torch.cuda.is_available():
 
 sys.path.insert(0, os.path.dirname(os.path.abspath(__file__)))
 
+import numpy as np  # noqa: E402
+
 from dmf_tpu_torch import default_parameters, resolve_backbone_config  # noqa: E402
-from dmf_tpu_torch.data.preprocess import preprocess_fusion_inputs  # noqa: E402
+from dmf_tpu_torch.data.preprocess import (DEFAULT_LANDMARKS, NyulStandardizer,  # noqa: E402
+                                           dce_global_max_normalize, nyul_transform_fast,
+                                           prep_dwi_adc_maps, preprocess_fusion_inputs)
+from dmf_tpu_torch.data.synthetic import make_synthetic_arrays  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_fusion_predictor  # noqa: E402
 from dmf_tpu_torch.models import build_fusion_models  # noqa: E402
 from dmf_tpu_torch.ops import conv3x3 as k2  # noqa: E402
+from dmf_tpu_torch.ops import dwi_norm  # noqa: E402
 from dmf_tpu_torch.ops import epilogue as k1  # noqa: E402
 from dmf_tpu_torch.ops import epilogue_triton  # noqa: E402
 from dmf_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from dmf_tpu_torch.ops import histogram as hist  # noqa: E402
+from dmf_tpu_torch.ops import se as sek  # noqa: E402
 from dmf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: E402
+from dmf_tpu_torch.pipeline import (export_processed_splits, load_processed_split,  # noqa: E402
+                                    prepare_single_data)
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -70,6 +87,13 @@ NECKS = (("neck_f1_conv0", 256, 128, 64), ("neck_f1_conv1", 128, 128, 64),
 # 128^2 x 128/256; attention over 64^2 = 4096 tokens, 4 heads of 128
 HYB_EPI_CHANNELS = (128, 256)
 SEQ, HEAD_DIM, HEADS = 4096, 128, 4
+# standalone SE maps (N, side, C) of a tta_mc request at B=8: modality
+# attention on the dwi and dce inputs (4 views), fusion_se on the lean chunk
+# (9 passes x 4 views) and on the last pass
+SE_MAPS = ((32, 256, 14), (32, 256, 6), (288, 32, 128), (32, 32, 128))
+LANDMARKS = tuple(float(p) for p in DEFAULT_LANDMARKS)
+# data preparation: the synthetic store at full image size
+N_TRAIN, N_TEST, IMAGE = 256, 64, 256
 # H100 SXM datasheet peaks (dense): the bounds are the larger of bytes over
 # the memory rate and operations over the peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
@@ -98,6 +122,27 @@ def cuda_time(fn, reps=10, trials=5):
         torch.cuda.synchronize()
         times.append(a.elapsed_time(b) / reps)
     return statistics.median(times)
+
+
+def launch_costs(fn, kernels, calls=20):
+    """``fn``'s device ms per call in the kernels whose names contain one of
+    ``kernels`` (profiler), and its host ms per call to enqueue them (host
+    clock over ``calls`` calls, no synchronize inside)."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(calls):
+        fn()
+    host = (time.perf_counter() - t0) / calls * 1e3
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(5):
+            fn()
+        torch.cuda.synchronize()
+    dev = sum(e.self_device_time_total for e in prof.key_averages()
+              if e.device_type.name == "CUDA" and any(k in e.key for k in kernels))
+    return dev / 5 / 1e3, host
 
 
 def check(name, got, ref, dtype):
@@ -138,7 +183,10 @@ COUNTERS = {"se_epilogue": (k1.se_epilogue, "launches"),
             "conv3x3_bn_gelu": (k2.conv3x3_bn_gelu, "launches"),
             "flash_attention_fwd": (fa.flash_attention, "launches"),
             "flash_attention_bwd_dq": (fa.flash_attention, "launches_dq"),
-            "flash_attention_bwd_dkv": (fa.flash_attention, "launches_dkv")}
+            "flash_attention_bwd_dkv": (fa.flash_attention, "launches_dkv"),
+            "se_scale": (sek.se_scale, "launches"),
+            "dwi_normalize": (dwi_norm.dwi_normalize, "launches"),
+            "histogram_percentiles": (hist.histogram_percentiles, "launches")}
 
 
 def reset_counts():
@@ -178,11 +226,12 @@ def phase_build():
     from concurrent.futures import ThreadPoolExecutor
 
     t0 = time.perf_counter()
-    libs = {"conv3x3_bn_gelu": k2._library, "flash_attention": fa._library}
+    libs = {"conv3x3_bn_gelu": k2._library, "flash_attention": fa._library,
+            "histogram_percentiles": hist._library}
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
         for f in [pool.submit(build) for build in libs.values()]:
             f.result()
-    log(f"  conv3x3_bn_gelu + flash_attention (nvcc, sm_90a, in parallel): "
+    log(f"  {' + '.join(libs)} (nvcc, sm_90a, in parallel): "
         f"{time.perf_counter() - t0:.2f} s")
     for name in libs:
         for p in sorted(BUILD_DIR.glob(f"{name}-*/build.log")):
@@ -200,6 +249,15 @@ def phase_build():
         k1.se_epilogue(x, x, w1, b1, w2, b2, drop_rate=drop, generator=gen())
     torch.cuda.synchronize()
     log(f"  se_epilogue (Triton JIT, fp32): {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    for dtype in (torch.float32, torch.bfloat16):
+        sek.se_scale(x.to(dtype), w1, b1, w2, b2)
+        for flags in ((True, True), (True, False), (False, False)):
+            dwi_norm.dwi_normalize(torch.rand(2, 8, 8, 13, device=DEV).to(dtype), (-3.0, 3.0),
+                                   *flags)
+    torch.cuda.synchronize()
+    log(f"  se_scale + dwi_normalize (Triton JIT, fp32 + bf16): "
+        f"{time.perf_counter() - t0:.2f} s")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -420,6 +478,146 @@ def phase_flash_backward():
              "bound_ms": b_dkv, "bound_by": "operations", "library_ms": t_l})
 
 
+def phase_dwi_norm():
+    log(f"== phase 3e: dwi_normalize (Triton) vs plain, (8 served | 256 prepared, "
+        f"{IMAGE}, {IMAGE}, 13), raw intensities 10-2010")
+    g = gen(8)
+    errs, res = [], {}
+    for n in (8, 256):
+        base = torch.rand(n, IMAGE, IMAGE, 13, device=DEV, generator=g) * 2000.0 + 10.0
+        for dtype in (torch.float32, torch.bfloat16):
+            img = base.to(dtype)
+            # outputs in [0, 1]: fp32 sum order, 1e-6 (a ddof=0 std would be
+            # off by ~3.8e-6 at 256^2); bf16 one ulp, 2^-7
+            tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+            tag = f"{str(dtype)[6:]} N={n}"
+            for flags in ((True, True), (True, False), (False, False)):
+                out = dwi_norm.dwi_normalize(img, (-3.0, 3.0), *flags)
+                ref = dwi_norm.dwi_normalize_ref(img, (-3.0, 3.0), *flags)
+                err = (out.float() - ref.float()).abs().max().item()
+                log(f"  {tag} skip_last={flags[0]} zero_last={flags[1]}: max_abs_err "
+                    f"{err:.3e} (tolerance {tol:.3e})")
+                if not err <= tol:
+                    raise AssertionError(f"dwi_normalize {tag} {flags}: error {err} above {tol}")
+                if dtype == torch.float32:
+                    errs.append(err)
+                del out, ref
+            t_k = cuda_time(lambda: dwi_norm.dwi_normalize(img, (-3.0, 3.0), True, True))
+            t_p = cuda_time(lambda: dwi_norm.dwi_normalize_ref(img, (-3.0, 3.0), True, True),
+                            reps=3)
+            # least traffic: read the images, write the output, once each
+            bound = 2 * img.numel() * img.element_size() / HBM_BYTES_PER_S * 1e3
+            log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
+                f"{bound:.4f} ms (bytes, {2 * img.numel() * img.element_size() / 1e6:.1f} MB)")
+            dev, host = launch_costs(lambda: dwi_norm.dwi_normalize(img, (-3.0, 3.0), True, True),
+                                     ("_partials_kernel", "_merge_kernel", "_normalize_kernel"))
+            log(f"  {tag}: device {dev:.4f} ms per call in its 3 kernels (profiler), host "
+                f"{host:.4f} ms per call to enqueue them")
+            res[(n, dtype)] = (t_k, t_p, bound)
+            del img
+        del base
+        torch.cuda.empty_cache()
+    t_k, t_p, bound = res[(8, torch.float32)]  # the served call
+    return {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+
+def phase_histogram(dce_norm):
+    """``dce_norm``: the max-normalised synthetic DCE volumes on the card."""
+    rows = dce_norm.permute(0, 3, 1, 2).reshape(-1, IMAGE * IMAGE).contiguous()
+    log(f"== phase 3f: histogram_percentiles (CUDA) vs plain on max-normalised synthetic "
+        f"DCE rows, (48 served B=8 | {rows.shape[0]} prepared, {rows.shape[1]}) fp32")
+    errs, res = [], {}
+    for g_rows in (48, rows.shape[0]):
+        flat = rows[:g_rows]
+        out = hist.histogram_percentiles(flat, LANDMARKS)
+        ref = hist.histogram_percentiles_ref(flat, LANDMARKS)
+        span = (flat.max(1).values - flat.min(1).values)[:, None]
+        err = (out - ref).abs().max().item()
+        err_bins = ((out - ref).abs() / (span / hist.NBINS)).max().item()
+        # the same bins and the same in-bin interpolation: within 1e-6 * span
+        # (0.004 bins), as the plain version is held to the Pallas kernel;
+        # a kernel without the interpolation or a bin off would be ~1 bin out
+        tol_bins = 1e-6 * hist.NBINS
+        log(f"  G={g_rows}: max_abs_err {err:.3e}, {err_bins:.3e} bins of span/4096 "
+            f"(tolerance {tol_bins:.3e} bins = 1e-6 x span)")
+        if not err_bins <= tol_bins:
+            raise AssertionError(f"histogram_percentiles G={g_rows}: {err_bins} bins apart")
+        errs.append(err)
+        t_k = cuda_time(lambda: hist.histogram_percentiles(flat, LANDMARKS))
+        t_p = cuda_time(lambda: hist.histogram_percentiles_ref(flat, LANDMARKS), reps=3)
+        bound = flat.numel() * 4 / HBM_BYTES_PER_S * 1e3  # one read of the rows
+        log(f"  G={g_rows}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
+            f"{bound:.4f} ms (bytes, {flat.numel() * 4 / 1e6:.1f} MB)")
+        dev, host = launch_costs(lambda: hist.histogram_percentiles(flat, LANDMARKS),
+                                 ("histogram_percentiles_kernel",))
+        log(f"  G={g_rows}: device {dev:.4f} ms per call (profiler), host {host:.4f} ms "
+            f"per call to enqueue it")
+        res[g_rows] = (t_k, t_p, bound)
+    # the path that carries the kernel: nyul_transform_hist on one B=8 batch,
+    # counts set to 0 just before and read just after
+    batch = dce_norm[:B_SERVE].contiguous()
+    lm = torch.tensor(LANDMARKS, device=DEV)
+    scale = torch.linspace(0.0, 1.0, len(LANDMARKS), device=DEV)
+    reset_counts()
+    via_hist = hist.nyul_transform_hist(batch, LANDMARKS, scale)
+    torch.cuda.synchronize()
+    launches = counts()["histogram_percentiles"]
+    via_fast = nyul_transform_fast(batch, lm, scale)
+    diff = (via_hist - via_fast).abs().max().item()
+    log(f"  nyul_transform_hist vs nyul_transform_fast (B={B_SERVE}, information only: "
+        f"two estimators): max |diff| {diff:.3e}; histogram launches {launches}")
+    if launches != 1 or not torch.isfinite(via_hist).all():
+        raise AssertionError("nyul_transform_hist did not run through the kernel once")
+    t_k, t_p, bound = res[48]
+    return {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None, "served": False}, launches
+
+
+def phase_se_scale():
+    log("== phase 3g: se_scale (Triton) vs plain SEBlock, (N, side^2, C) = "
+        + ", ".join(f"({n}, {s}^2, {c})" for n, s, c in SE_MAPS))
+    g = gen(9)
+    errs, ms, plain_ms, nbytes = [], 0.0, 0.0, 0
+    for n, side, c in SE_MAPS:
+        mid = max(c // 2, 1)
+        w1 = torch.randn(mid, c, 1, 1, device=DEV, generator=g) * c ** -0.5
+        w2 = torch.randn(c, mid, 1, 1, device=DEV, generator=g) * mid ** -0.5
+        b1 = torch.randn(mid, device=DEV, generator=g) * 0.1
+        b2 = torch.randn(c, device=DEV, generator=g) * 0.1
+        base = torch.randn(n, c, side, side, device=DEV, generator=g)
+        for dtype in (torch.float32, torch.bfloat16):
+            x = cl(base.to(dtype))
+            args = (x, w1, b1, w2, b2)
+            tag = f"{str(dtype)[6:]} ({n}, {side}^2, {c})"
+            out, s = sek.se_scale(*args)
+            ref_out, ref_s = sek.se_scale_ref(*args)
+            errs.append(check(f"{tag} out", out, ref_out, dtype))
+            errs.append(check(f"{tag} s", s, ref_s, dtype))
+            del out, s, ref_out, ref_s
+            if dtype == torch.bfloat16:
+                t_k = cuda_time(lambda: sek.se_scale(*args))
+                t_p = cuda_time(lambda: sek.se_scale_ref(*args))
+                b = 2 * x.numel() * x.element_size()
+                log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
+                    f"{b / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {b / 1e6:.1f} MB)")
+                dev, host = launch_costs(lambda: sek.se_scale(*args),
+                                         ("_pool_partials_kernel", "_mlp_kernel", "_scale_kernel"))
+                log(f"  {tag}: device {dev:.4f} ms per call in its 3 kernels (profiler), host "
+                    f"{host:.4f} ms per call to enqueue them")
+                ms += t_k
+                plain_ms += t_p
+                nbytes += b
+            del x, args
+        del base
+        torch.cuda.empty_cache()
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    log(f"  bf16 sum over the four calls of a tta_mc request: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None}
+
+
 # ------------------------------------------------------------------ phase 4
 def card_and_cpu_models(cfg):
     cpu_models = build_fusion_models(cfg, "cpu", torch.float32,
@@ -455,7 +653,10 @@ def phase_parity(cfg):
     mean_c, std_c, aux_c = make_fusion_predictor(cfg, *cpu_models, mode="tta")(dwi, dce)
     t_cpu = time.perf_counter() - t0
     log(f"  card {t_dev:.2f} s (launches {launched}), CPU {t_cpu:.2f} s")
-    expect = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 6, "conv3x3_bn_gelu": 12}
+    # 3 ResLite SE epilogues x 2 encoders, 6 necks x 2; modality attention x 2
+    # and fusion_se: standalone SE
+    expect = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 6, "conv3x3_bn_gelu": 12,
+                                           "se_scale": 3}
     if launched != expect:
         raise AssertionError(f"tta forward launched {launched}, expected {expect}")
     # ResNet-50 depth in fp32 on two devices: sums in other orders; hold
@@ -468,9 +669,12 @@ def phase_parity(cfg):
     torch.cuda.empty_cache()
 
 
-# per request of the hybrid-nb path: 6 transformer blocks x 2 encoders of
-# flash attention, 2 SE blocks (block1, block2) x 2 encoders, no neck convs
-HYBRID_EXPECT = dict.fromkeys(COUNTERS, 0) | {"flash_attention_fwd": 12, "se_epilogue": 4}
+# per forward of the hybrid-nb models: 6 transformer blocks x 2 encoders of
+# flash attention, 2 SE epilogues (block1, block2) x 2 encoders, no neck
+# convs, modality attention x 2 and fusion_se; a served request adds the
+# DWI z-score of its preprocessing
+HYBRID_EXPECT = dict.fromkeys(COUNTERS, 0) | {"flash_attention_fwd": 12, "se_epilogue": 4,
+                                              "se_scale": 3}
 
 
 def phase_parity_hybrid(hcfg):
@@ -505,6 +709,99 @@ def phase_parity_hybrid(hcfg):
     torch.cuda.empty_cache()
 
 
+def synced(fn):
+    """``fn()`` and its host seconds, ending in a device synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def phase_prepare(cfg, raw):
+    log(f"== phase 4c: data preparation, card vs CPU: prepare_single_data + "
+        f"export_processed_splits, fold 0, {N_TRAIN} + {N_TEST} synthetic volumes of "
+        f"{IMAGE}^2, reference_compat={cfg.reference_compat}")
+    launches = dict.fromkeys(COUNTERS, 0)
+    for method in ("dwi", "dce"):
+        store = {"imgs": raw[method], "test_imgs": raw[f"{method}_test"],
+                 "labels": raw["labels"], "test_labels": raw["labels_test"],
+                 "masks": raw["masks"]}
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)  # scratch stores inside the checkout
+        with (tempfile.TemporaryDirectory(dir=BUILD_DIR) as d_card,
+              tempfile.TemporaryDirectory(dir=BUILD_DIR) as d_cpu):
+            c_card, c_cpu = cfg.replace(base_path=d_card), cfg.replace(base_path=d_cpu)
+            reset_counts()
+            data, t_prep = synced(lambda: prepare_single_data(c_card, method, 0, raw=store,
+                                                              device=DEV))
+            paths, t_export = synced(lambda: export_processed_splits(c_card, data, gen(31)))
+            got = counts()
+            log(f"  {method} card: prepare {t_prep:.3f} s, export {t_export:.3f} s, launches "
+                + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+            expect = dict.fromkeys(COUNTERS, 0) | ({"dwi_normalize": 3} if method == "dwi"
+                                                   else {})
+            if got != expect:
+                raise AssertionError(f"{method} preparation launched {got}, expected {expect}")
+            launches = {k: launches[k] + got[k] for k in COUNTERS}
+            t0 = time.perf_counter()
+            data_c = prepare_single_data(c_cpu, method, 0, raw=store, device="cpu")
+            if data_c.nyul is not None:  # the card's estimator: fast, not the CPU's exact one
+                data_c.nyul.transform = functools.partial(data_c.nyul.transform, fast=True)
+            paths_c = export_processed_splits(c_cpu, data_c, torch.Generator().manual_seed(31))
+            log(f"  {method} CPU: prepare + export {time.perf_counter() - t0:.3f} s")
+            for split in ("train", "val", "test"):
+                a, b = load_processed_split(paths[split]), load_processed_split(paths_c[split])
+                if a.keys() != b.keys() or a["imgs"].shape != b["imgs"].shape:
+                    raise AssertionError(f"{method} {split}: card and CPU splits differ in form")
+                for k in set(a) - {"imgs"}:
+                    if not np.array_equal(a[k], b[k]):
+                        raise AssertionError(f"{method} {split}: {k} differ")
+                imgs = a["imgs"]
+                if not np.isfinite(imgs).all() or imgs.min() < 0.0 or imgs.max() > 1.0:
+                    raise AssertionError(f"{method} {split}: not finite or outside [0, 1]")
+                if split == "train":  # one frozen augmentation: other generators
+                    log(f"  {method} train {imgs.shape}: finite, in [0, 1] (card and CPU "
+                        f"draw other augmentation streams)")
+                    continue
+                diff = np.abs(imgs - b["imgs"])
+                err = float(diff.max())
+                log(f"  {method} {split} {imgs.shape}: card vs CPU max_abs_err {err:.3e} "
+                    f"(tolerance 1e-05); by channel {diff.max(axis=(0, 1, 2)).tolist()}")
+                if not err <= 1e-5:
+                    raise AssertionError(f"{method} {split}: card vs CPU error {err}")
+            del data_c
+        # stage times on the card, each stage as prepare_single_data and
+        # export_processed_splits run it
+        splits = data.splits
+        if method == "dwi":
+            _, t = synced(lambda: prep_dwi_adc_maps(store["imgs"], store["test_imgs"],
+                                                    cfg.dwi_bvals_to_use,
+                                                    cfg.reference_compat, DEV))
+            log(f"  dwi stage ADC maps: {t * 1e3:.2f} ms")
+        else:
+            _, t = synced(lambda: [dce_global_max_normalize(
+                torch.as_tensor(a, device=DEV)).cpu().numpy()
+                for a in (store["imgs"], store["test_imgs"])])
+            log(f"  dce stage max-normalise (with host-device copies): {t * 1e3:.2f} ms")
+            _, t = synced(lambda: NyulStandardizer().fit(splits["train"]["imgs"]))
+            log(f"  dce stage Nyul fit (host, numpy): {t * 1e3:.2f} ms")
+        procs = data.processors_by_split
+        _, t = synced(lambda: procs["train"].train_batch(
+            gen(32), splits["train"]["imgs"]).cpu().numpy())
+        log(f"  {method} stage train split ({len(splits['train']['imgs'])} volumes, augment + "
+            f"normalise): {t * 1e3:.2f} ms")
+        n_eval, t_eval = 0, 0.0
+        for split in ("val", "test"):
+            _, t = synced(lambda: procs[split].eval_split(splits[split]["imgs"]))
+            n = len(splits[split]["imgs"])
+            log(f"  {method} stage {split} split ({n} volumes, eval_split): {t * 1e3:.2f} ms")
+            n_eval, t_eval = n_eval + n, t_eval + t
+        log(f"  {method} eval_split: {n_eval / t_eval:.1f} volumes/s (host arrays in and out)")
+        del data
+    log(f"  launches of the preparation runs: {launches}")
+    return launches
+
+
 # ------------------------------------------------------------------ phase 5
 def raw_request(cfg, predict, g_data, g_mc=None):
     """One request: B_SERVE raw NHWC volumes -> preprocessing -> predictor."""
@@ -512,16 +809,24 @@ def raw_request(cfg, predict, g_data, g_mc=None):
     adc_map = torch.full((S, S, 1), 0.5, device=DEV)
 
     def request():
+        """Host seconds of the request; the preprocessing's and the
+        predictor's device-stream ms (CUDA events) go to ``split``."""
         dwi_raw = torch.rand(B_SERVE, S, S, cfg.dwi_base_channel_num, device=DEV,
                              generator=g_data) * 1000.0
         dce_raw = torch.rand(B_SERVE, S, S, cfg.dce_channel_num, device=DEV,
                              generator=g_data)
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
+        ev[0].record()
         dx, cx = preprocess_fusion_inputs(dwi_raw, dce_raw, adc_map)
+        ev[1].record()
         mean, std, _ = predict(dx, cx, g_mc)
+        ev[2].record()
         torch.cuda.synchronize()
-        return time.perf_counter() - t0, mean, std
+        dt = time.perf_counter() - t0
+        request.split = (ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]))
+        return dt, mean, std
 
     return request
 
@@ -533,14 +838,17 @@ def serve(name, cfg, request, expect, stochastic):
     log(f"  {name} warm-up request: {t_warm:.3f} s")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    lat = []
+    lat, pre, pred = [], [], []
     for r in range(REQUESTS):
         before = counts()
         dt, mean, std = request()
         rose = {k: v - before[k] for k, v in counts().items()}
         lat.append(dt)
-        log(f"  {name} request {r}: {dt * 1e3:.2f} ms, {B_SERVE / dt:.2f} volumes/s, "
-            f"launches " + ", ".join(f"{k} +{v}" for k, v in rose.items() if v))
+        pre.append(request.split[0])
+        pred.append(request.split[1])
+        log(f"  {name} request {r}: {dt * 1e3:.2f} ms, {B_SERVE / dt:.2f} volumes/s "
+            f"(preprocessing {request.split[0]:.3f} ms, predictor {request.split[1]:.3f} ms "
+            f"by CUDA events), launches " + ", ".join(f"{k} +{v}" for k, v in rose.items() if v))
         if rose != expect:
             raise AssertionError(f"{name} request launched {rose}, expected {expect}")
         if mean.shape != (B_SERVE, cfg.class_num) or not torch.isfinite(mean).all():
@@ -554,7 +862,9 @@ def serve(name, cfg, request, expect, stochastic):
     launched = counts()
     med = statistics.median(lat)
     log(f"  {name}: median latency {med * 1e3:.2f} ms, {B_SERVE / med:.2f} volumes/s; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"median preprocessing {statistics.median(pre):.3f} ms, predictor "
+        f"{statistics.median(pred):.3f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
     log(f"  {name} last request mean probs {mean[0].float().cpu().numpy().round(4).tolist()}, "
         f"std {std[0].float().cpu().numpy().round(4).tolist()}")
     return launched
@@ -566,9 +876,12 @@ def phase_serve(cfg):
     predict = make_fusion_predictor(cfg, *models, mode="tta_mc")
     request = raw_request(cfg, predict, gen(21), gen(22))
     n_suffix = 2  # all lean passes in one chunk (cfg.mc_chunk None) + the full last pass
-    # 3 SE blocks x 2 encoders per suffix; 6 necks x 2
+    # 3 SE epilogues x 2 encoders per suffix; 6 necks x 2; standalone SE:
+    # modality attention x 2 in the prefix, fusion_se once per suffix; the
+    # DWI z-score once in preprocessing
     expect = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 6 * n_suffix,
-                                           "conv3x3_bn_gelu": 12}
+                                           "conv3x3_bn_gelu": 12,
+                                           "se_scale": 2 + n_suffix, "dwi_normalize": 1}
     log(f"  {cfg.mc_passes} MC passes x 4 views")
     launched = serve("tta_mc", cfg, request, expect, stochastic=True)
     return launched, request
@@ -582,8 +895,8 @@ def phase_serve_hybrid(hcfg):
     for mode in ("normal", "tta"):
         predict = make_fusion_predictor(hcfg, *models, mode=mode)
         requests[mode] = raw_request(hcfg, predict, gen(23))
-        launched.append(serve(f"hybrid-nb {mode}", hcfg, requests[mode], HYBRID_EXPECT,
-                              stochastic=False))
+        launched.append(serve(f"hybrid-nb {mode}", hcfg, requests[mode],
+                              HYBRID_EXPECT | {"dwi_normalize": 1}, stochastic=False))
     return launched, requests["normal"]
 
 
@@ -604,6 +917,10 @@ def phase_profile(name, request):
            if e.device_type.name == "CPU" and e.self_device_time_total > 0]
     for e in sorted(ops, key=lambda e: -e.self_device_time_total)[:12]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    log("  host time by op (self CPU time under the profiler):")
+    ops = [e for e in prof.key_averages() if e.device_type.name == "CPU"]
+    for e in sorted(ops, key=lambda e: -e.self_cpu_time_total)[:10]:
+        log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
 def main():
@@ -621,17 +938,32 @@ def main():
     measured["flash_attention_fwd"] = phase_flash_forward()
     (measured["flash_attention_bwd_dq"],
      measured["flash_attention_bwd_dkv"]) = phase_flash_backward()
+    measured["dwi_normalize"] = phase_dwi_norm()
+    t0 = time.perf_counter()
+    raw = make_synthetic_arrays(n_train=N_TRAIN, n_test=N_TEST, image_size=IMAGE,
+                                mask_size=IMAGE, seed=SEED)
+    log(f"== synthetic store: {N_TRAIN} + {N_TEST} volumes of {IMAGE}^2 "
+        f"({time.perf_counter() - t0:.1f} s on the host)")
+    dce_norm = dce_global_max_normalize(torch.as_tensor(raw["dce"], device=DEV))
+    measured["histogram_percentiles"], hist_launches = phase_histogram(dce_norm)
+    del dce_norm
+    torch.cuda.empty_cache()
+    measured["se_scale"] = phase_se_scale()
     phase_parity(cfg)
     phase_parity_hybrid(hcfg)
+    prep_launches = phase_prepare(cfg, raw)
+    del raw
     # each served path: counts set to 0 just before it and read just after
     tta_mc_launches, request = phase_serve(cfg)
     hybrid_launches, hybrid_request = phase_serve_hybrid(hcfg)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
-                for k in COUNTERS}
-    log(f"  launches on the served paths: {launches}")
-    for name in ("se_epilogue", "conv3x3_bn_gelu", "flash_attention_fwd"):
+                + prep_launches[k] for k in COUNTERS}
+    launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
+    log(f"  launches on the served paths and the data preparation: {launches}")
+    for name in ("se_epilogue", "conv3x3_bn_gelu", "flash_attention_fwd", "se_scale",
+                 "dwi_normalize", "histogram_percentiles"):
         if launches[name] <= 0:
-            raise AssertionError(f"{name} was not launched on its served path")
+            raise AssertionError(f"{name} was not launched on its path")
     phase_profile("tta_mc", request)
     phase_profile("hybrid-nb normal", hybrid_request)
     log(f"== total {time.perf_counter() - t_start:.1f} s on {smi}")
@@ -646,6 +978,12 @@ def main():
                                    "dmf_tpu/ops/flash_attention.py:114"),
         "flash_attention_bwd_dkv": ("cuda", "dmf_tpu_torch/csrc/flash_attention.cu",
                                     "dmf_tpu/ops/flash_attention.py:144"),
+        "se_scale": ("triton", "dmf_tpu_torch/ops/se_triton.py",
+                     "dmf_tpu/ops/se_pallas.py:110"),
+        "dwi_normalize": ("triton", "dmf_tpu_torch/ops/dwi_norm_triton.py",
+                          "dmf_tpu/ops/preprocess_pallas.py:28"),
+        "histogram_percentiles": ("cuda", "dmf_tpu_torch/csrc/histogram_percentiles.cu",
+                                  "dmf_tpu/ops/histogram_pallas.py:38"),
     }
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **measured[name]}

@@ -20,6 +20,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.epilogue import se_epilogue
+from ..ops.se import se_scale
 from ..ops.resize import global_avg_pool, resize_bilinear
 
 
@@ -61,7 +62,12 @@ def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = False,
 
 
 class SEBlock(nn.Module):
-    """Squeeze-excitation returning ``(x * w, w)`` (reference model_module.py:25-47)."""
+    """Squeeze-excitation returning ``(x * w, w)`` (reference model_module.py:25-47).
+
+    ``fc`` holds the reference's parameters (``fc.1``/``fc.3`` 1x1 convs);
+    the forward is one call to :func:`~dmf_tpu_torch.ops.se.se_scale`, the
+    hand-written kernel on the card and its plain version on the CPU.
+    """
 
     def __init__(self, channels: int, reduction: int = 2, **kw):
         super().__init__()
@@ -71,8 +77,10 @@ class SEBlock(nn.Module):
             nn.GELU(), nn.Conv2d(mid, channels, 1, **kw), nn.Sigmoid())
 
     def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
-        w = self.fc(x)
-        return x * w, w
+        if x.is_cuda:  # the kernel takes NHWC maps
+            x = x.contiguous(memory_format=torch.channels_last)
+        fc = self.fc
+        return se_scale(x, fc[1].weight, fc[1].bias, fc[3].weight, fc[3].bias)
 
 
 class MaskGuidedSpatialAttention(nn.Module):

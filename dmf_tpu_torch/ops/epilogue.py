@@ -67,7 +67,8 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
     kernel, which takes ``channels_last`` maps in fp32 or bf16 and raises on
     anything else.  ``drop_rate > 0`` needs ``generator`` (on the tensors'
     device): it supplies the mask on the CPU and the kernel's Philox seed on
-    the card.
+    the card.  The kernel has no backward, so on the card a call that
+    autograd would record raises.
     """
     if drop_rate > 0.0 and generator is None:
         raise ValueError("drop_rate > 0 requires a generator")
@@ -77,7 +78,9 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
     if x.device.type != "cuda":
         raise ValueError(f"se_epilogue: unsupported device {x.device}")
     from .epilogue_triton import draw_seed, launch_se_epilogue
+    from .se_triton import check_no_grad
 
+    check_no_grad("se_epilogue", x, identity, w1, b1, w2, b2)
     seed = draw_seed(generator, x.device) if drop_rate > 0.0 else None
     out = launch_se_epilogue(x, identity, w1, b1, w2, b2, drop_rate, seed)
     se_epilogue.launches += 1

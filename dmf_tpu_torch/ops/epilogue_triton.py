@@ -12,7 +12,8 @@ work worth ``wgmma``.  Design, simple first:
 * pass 1 walks the sample's (H*W, C) channels-last map in pixel blocks,
   writes ``y = dropout(gelu(x + identity))`` to the output and accumulates
   the fp32 pool in registers;
-* the SE MLP streams W1 and W2 from global memory (they stay in L2);
+* the SE MLP (``se_triton._se_mlp``, shared with the standalone SE) streams
+  W1 and W2 from global memory (they stay in L2);
 * pass 2 re-reads the output and scales it IN PLACE.
 
 That is 3 reads + 2 writes of the map against the TPU kernel's 2 + 1: a
@@ -41,6 +42,7 @@ from typing import Optional
 
 import torch
 
+from . import se_triton
 from .cuda_build import BUILD_DIR
 
 
@@ -49,15 +51,14 @@ def _kernels():
     """Define the Triton kernels (imports triton; first use only)."""
     # keep Triton's compile cache inside the checkout
     os.environ.setdefault("TRITON_CACHE_DIR", str(BUILD_DIR / "triton"))
-    # the jitted helpers reference each other as module globals
-    global tl, _gelu, _keep, _se_epilogue_kernel, _keep_mask_kernel
+    # the jitted helpers reference each other as module globals; the GELU and
+    # the SE MLP are the standalone SE's (se_triton.py), shared
+    global tl, _gelu, _se_mlp, _keep, _se_epilogue_kernel, _keep_mask_kernel
     import triton
     import triton.language as tl
 
-    @triton.jit
-    def _gelu(v):
-        # exact (erf) GELU in fp32
-        return 0.5 * v * (1.0 + tl.erf(v * 0.7071067811865476))
+    se_triton._kernels()
+    _gelu, _se_mlp = se_triton._gelu, se_triton._se_mlp
 
     @triton.jit
     def _keep(seed, offsets, keep_prob):
@@ -93,23 +94,8 @@ def _kernels():
                              0.0).to(dt)
             tl.store(out_ptr + off, y, mask=m)
             pool += tl.sum(y.to(tl.float32), axis=0)
-        pool = (pool / HW).to(dt).to(tl.float32)
-        # SE MLP: s = sigmoid(W2 gelu(W1 pool + b1) + b2), W1/W2 streamed
-        s = tl.zeros([BLOCK_C], dtype=tl.float32)
-        for j0 in range(0, MID, BLOCK_J):
-            j = j0 + tl.arange(0, BLOCK_J)
-            jm = j < MID
-            wm = jm[:, None] & cmask[None, :]
-            w1 = tl.load(w1_ptr + j[:, None] * C + cols[None, :], mask=wm,
-                         other=0.0).to(tl.float32)
-            b1 = tl.load(b1_ptr + j, mask=jm, other=0.0).to(tl.float32)
-            h = _gelu(tl.sum(w1 * pool[None, :], axis=1) + b1)
-            h = tl.where(jm, h.to(dt).to(tl.float32), 0.0)
-            w2 = tl.load(w2t_ptr + j[:, None] * C + cols[None, :], mask=wm,
-                         other=0.0).to(tl.float32)
-            s += tl.sum(w2 * h[:, None], axis=0)
-        b2 = tl.load(b2_ptr + cols, mask=cmask, other=0.0).to(tl.float32)
-        s = 1.0 / (1.0 + tl.exp(-(s + b2)))
+        # SE MLP: s = sigmoid(W2 gelu(W1 pool + b1) + b2)
+        s = _se_mlp(pool, HW, w1_ptr, b1_ptr, w2t_ptr, b2_ptr, C, MID, BLOCK_C, BLOCK_J)
         tl.debug_barrier()
         # pass 2: scale the output in place
         for p0 in range(0, HW, BLOCK_P):
@@ -162,10 +148,7 @@ def launch_se_epilogue(x: torch.Tensor, identity: torch.Tensor,
     n, c, h, w = x.shape
     mid = w1.numel() // c
     dt = x.dtype
-    w1m = w1.reshape(mid, c).to(dt).contiguous()
-    w2t = w2.reshape(c, mid).t().to(dt).contiguous()
-    b1v = b1.to(dt).contiguous()
-    b2v = b2.to(dt).contiguous()
+    w1m, b1v, w2t, b2v = se_triton.mlp_weights(w1, b1, w2, b2, c, mid, dt)
     drop = drop_rate > 0.0
     if drop:
         if seed is None or seed.device != x.device:

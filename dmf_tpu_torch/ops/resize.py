@@ -1,4 +1,4 @@
-"""Spatial resize and pooling helpers (NCHW).
+"""Spatial resize and pooling helpers (NCHW, except ``resize_nearest``: NHWC).
 
 Counterpart of ``dmf_tpu/ops/resize.py``.  ``resize_bilinear`` is
 ``F.interpolate(mode='bilinear', align_corners=False)``, which the JAX
@@ -22,6 +22,18 @@ def resize_bilinear(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
         return x
     return F.interpolate(x, size=tuple(size), mode="bilinear",
                          align_corners=False)
+
+
+def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
+    """Nearest resize of NHWC (or HWC) images, torch's ``mode='nearest'``
+    index map ``src = floor(dst * in / out)`` (resize.py:35-45)."""
+    h_in, w_in = x.shape[-3], x.shape[-2]
+    h_out, w_out = size
+    if (h_in, w_in) == (h_out, w_out):
+        return x
+    rows = torch.floor(torch.arange(h_out, device=x.device) * (h_in / h_out)).long()
+    cols = torch.floor(torch.arange(w_out, device=x.device) * (w_in / w_out)).long()
+    return x.index_select(-3, rows).index_select(-2, cols)
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_size: Sequence[int]) -> torch.Tensor:

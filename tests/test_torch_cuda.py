@@ -11,6 +11,7 @@ import pytest
 import torch
 
 from dmf_tpu_torch.ops import conv3x3 as k2
+from dmf_tpu_torch.ops import dwi_norm, histogram, se
 from dmf_tpu_torch.ops import epilogue as k1
 from dmf_tpu_torch.ops import flash_attention as fa
 
@@ -129,3 +130,88 @@ def test_flash_attention_wrapper_raises(dev):
     with pytest.raises(ValueError, match="D in"):
         r = torch.randn(1, 2, 128, 32, device=dev)
         fa.flash_attention(r, r, r)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("flags", [(True, True), (True, False), (False, False)])
+@pytest.mark.parametrize("shape", [(3, 37, 29, 13), (2, 64, 64, 14)])
+def test_dwi_normalize_kernel(dev, dtype, flags, shape):
+    g = torch.Generator(device=dev).manual_seed(3)
+    img = (torch.rand(shape, device=dev, generator=g) * 2000.0 + 10.0).to(dtype)
+    dwi_norm.dwi_normalize.launches = 0
+    out = dwi_norm.dwi_normalize(img, skip_last=flags[0], zero_last=flags[1])
+    ref = dwi_norm.dwi_normalize_ref(img, skip_last=flags[0], zero_last=flags[1])
+    assert out.dtype == dtype and out.shape == img.shape
+    # outputs in [0, 1]: fp32 1e-6 (a ddof=0 std is off by far more at these
+    # pixel counts), bf16 one ulp
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert (out[..., :-1].float() - ref[..., :-1].float()).abs().max().item() <= tol
+    if flags[0]:  # the last channel kept or zeroed, exactly
+        assert torch.equal(out[..., -1], ref[..., -1])
+    assert dwi_norm.dwi_normalize.launches == 1
+
+
+@pytest.mark.parametrize("shape", [(5, 10007), (3, 65536)])
+def test_histogram_percentiles_kernel(dev, shape):
+    g = torch.Generator(device=dev).manual_seed(4)
+    flat = torch.rand(shape, device=dev, generator=g) ** 3
+    percents = (1, 10, 25, 30, 40, 50, 60, 75, 80, 90, 99)
+    histogram.histogram_percentiles.launches = 0
+    out = histogram.histogram_percentiles(flat, percents)
+    ref = histogram.histogram_percentiles_ref(flat, percents)
+    span = (flat.max(1).values - flat.min(1).values)[:, None]
+    # the same bins and in-bin interpolation (exact counts): within 1e-6 * span
+    assert ((out - ref).abs() / span).max().item() <= 1e-6
+    assert histogram.histogram_percentiles.launches == 1
+    img = flat[:, : 64 * 64].reshape(-1, 64, 64, 1).expand(-1, -1, -1, 2).contiguous()
+    scale = torch.linspace(0.0, 1.0, len(percents), device=dev)
+    got = histogram.nyul_transform_hist(img, percents, scale)
+    assert torch.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,side", [(6, 40), (14, 33), (128, 16)])
+def test_se_scale_kernel(dev, dtype, c, side):
+    g = torch.Generator(device=dev).manual_seed(5)
+    mid = max(c // 2, 1)
+    x = _cl(torch.randn(4, c, side, side, device=dev, generator=g).to(dtype))
+    w1 = torch.randn(mid, c, 1, 1, device=dev, generator=g) * c ** -0.5
+    w2 = torch.randn(c, mid, 1, 1, device=dev, generator=g) * mid ** -0.5
+    b1 = torch.randn(mid, device=dev, generator=g) * 0.1
+    b2 = torch.randn(c, device=dev, generator=g) * 0.1
+    se.se_scale.launches = 0
+    out, s = se.se_scale(x, w1, b1, w2, b2)
+    ref_out, ref_s = se.se_scale_ref(x, w1, b1, w2, b2)
+    assert out.is_contiguous(memory_format=torch.channels_last) and s.shape == (4, c, 1, 1)
+    _close(out, ref_out, dtype)
+    _close(s, ref_s, dtype)
+    assert se.se_scale.launches == 1
+
+
+def test_new_wrappers_raise(dev):
+    img = torch.rand(2, 8, 8, 13, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        dwi_norm.dwi_normalize(img.transpose(1, 2))
+    with pytest.raises(ValueError, match="device"):
+        dwi_norm.dwi_normalize(img.to("meta"))
+    flat = torch.rand(4, 100, device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        histogram.histogram_percentiles(flat.t().contiguous().t(), (50,))
+    with pytest.raises(ValueError, match="fp32"):
+        histogram.histogram_percentiles(flat.half(), (50,))
+    x = torch.rand(2, 14, 8, 8, device=dev)
+    w1, w2 = torch.rand(7, 14, 1, 1, device=dev), torch.rand(14, 7, 1, 1, device=dev)
+    b1, b2 = torch.zeros(7, device=dev), torch.zeros(14, device=dev)
+    with pytest.raises(ValueError, match="channels_last"):
+        se.se_scale(x, w1, b1, w2, b2)
+    with pytest.raises(ValueError, match="device"):
+        se.se_scale(_cl(x), w1.cpu(), b1, w2, b2)
+    # no backward: a call autograd would record raises, on both SE kernels
+    w1g = w1.clone().requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        se.se_scale(_cl(x), w1g, b1, w2, b2)
+    y = _cl(torch.rand(2, 14, 8, 8, device=dev))
+    with pytest.raises(RuntimeError, match="no backward"):
+        k1.se_epilogue(y, y, w1g, b1, w2, b2)
+    with torch.no_grad():
+        assert se.se_scale(_cl(x), w1g, b1, w2, b2)[0].shape == x.shape
