@@ -4,14 +4,18 @@
 
 Phases, each printing its own lines:
   1. card identity (nvidia-smi name and power limit, torch/triton versions);
-  2. kernel build from the sources in this checkout (the two CUDA libraries
-     by nvcc in parallel, then the Triton JIT), with ptxas registers/spills;
+  2. kernel build from the sources in this checkout (the three CUDA
+     libraries by nvcc in parallel, then the Triton JIT), with ptxas
+     registers/spills and the wgmma kernels' dynamic shared memory;
   3. each hand-written kernel vs its plain PyTorch version at the served
      paths' shapes, fp32 (TF32 off) and bf16, with errors beside stated
      tolerances and median times beside the plain version's, the bound and
      the one PyTorch call that computes the same function (where there is
      one): 3a SE epilogue (32^2 maps of tta_mc, 128^2 maps of hybrid-nb),
      3b conv3x3+BN+GELU, 3c flash-attention forward, 3d its backward,
+     with, for the two wgmma kernels (3b, 3c bf16), the kernel's own device
+     time per call (profiler), its TFLOP/s and share of the bound, and the
+     kernel timed in turns with its library yardstick and their ratio;
      3e the DWI z-score, 3f the histogram percentiles (on max-normalised
      synthetic DCE volumes), 3g the standalone SE;
   4. end-to-end parity, card (kernels) vs CPU (plain versions), fp32,
@@ -145,6 +149,32 @@ def launch_costs(fn, kernels, calls=20):
     return dev / 5 / 1e3, host
 
 
+def in_turns(kernel, library, **kw):
+    """Median ms of ``kernel`` and ``library`` timed in turns (kernel,
+    library, library, kernel), each the mean of its two windows: their
+    ratio, not the raw times, is what compares across chip calls."""
+    k1, l1 = cuda_time(kernel, **kw), cuda_time(library, **kw)
+    l2, k2_ = cuda_time(library, **kw), cuda_time(kernel, **kw)
+    return (k1 + k2_) / 2, (l1 + l2) / 2
+
+
+def device_rate(tag, fn, kernels, flop, bound):
+    """Log and return ``fn``'s device ms per call in ``kernels`` (profiler),
+    with its TFLOP/s and its share of the bound.  A profiler session at times
+    records none of the kernels' launches: it is taken again, up to three
+    sessions, and the time is None ("not measured") if none records one."""
+    for _ in range(3):
+        dev, host = launch_costs(fn, kernels)
+        if dev > 0:
+            log(f"  {tag}: device {dev:.4f} ms per call (profiler), {flop / dev / 1e9:.1f} "
+                f"TFLOP/s, {100 * bound / dev:.1f} % of the bound; host {host:.4f} ms per call "
+                f"to enqueue")
+            return dev
+    log(f"  {tag}: device time not measured (no {'/'.join(kernels)} launch in three "
+        f"profiler sessions)")
+    return None
+
+
 def check(name, got, ref, dtype):
     err = (got.float() - ref.float()).abs().max().item()
     bound = TOL[dtype] * max(1.0, ref.float().abs().max().item())
@@ -239,8 +269,15 @@ def phase_build():
             for line in p.read_text().splitlines():
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1][-60:]
-                elif "registers" in line or "spill" in line:
+                elif ("registers" in line or "spill" in line or "setmaxnreg" in line
+                      or "warning" in line.lower()):
                     log(f"  ptxas {name} {kernel}: {line.strip()}")
+    # ptxas reports static shared memory only; the wgmma kernels' is dynamic
+    flash_smem, conv_smem = fa._library().flash_fwd_wgmma_smem, \
+        k2._library().conv3x3_bn_gelu_wgmma_smem
+    log(f"  dynamic shared memory per block: flash_fwd_wgmma D=128 {flash_smem(128)} B, "
+        f"D=64 {flash_smem(64)} B; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(256)} B, "
+        f"128x128 {conv_smem(128)} B")
     t0 = time.perf_counter()
     x = cl(torch.randn(2, 128, 8, 8, device=DEV))
     w1, w2 = torch.randn(64, 128, device=DEV), torch.randn(128, 64, device=DEV)
@@ -347,7 +384,8 @@ def phase_epilogue_hybrid():
 def phase_conv(n):
     log(f"== phase 3b: conv3x3_bn_gelu (CUDA) vs plain, N={n}, random BN running stats")
     g = gen(3)
-    errs, ms, plain_ms, lib_ms, flop = [], 0.0, 0.0, 0.0, 0
+    errs, ms, plain_ms, lib_ms, flop, devs = [], 0.0, 0.0, 0.0, 0, []
+    turns_k = 0.0
     for dtype in (torch.float32, torch.bfloat16):
         for name, cin, cout, side in NECKS:
             x = cl(torch.randn(n, cin, side, side, device=DEV, generator=g).to(dtype))
@@ -367,19 +405,37 @@ def phase_conv(n):
             if dtype == torch.bfloat16:
                 ms += t_k
                 plain_ms += t_p
+                site_flop = 2 * n * side * side * 9 * cin * cout
+                flop += site_flop
+                bound = site_flop / BF16_FLOP_PER_S * 1e3
                 xb, wb = x, w.to(dtype).contiguous(memory_format=torch.channels_last)
-                t_c = cuda_time(lambda: torch.nn.functional.gelu(
-                    torch.nn.functional.batch_norm(
-                        torch.nn.functional.conv2d(xb, wb, bias.to(dtype), padding=1),
-                        mean, var, gamma, beta, False, 0.0, 1e-5)), reps=5)
-                log(f"  {tag}: cuDNN bf16 conv+BN+GELU chain {t_c:.4f} ms (for reference)")
+                chain = lambda: F.gelu(F.batch_norm(  # noqa: E731
+                    F.conv2d(xb, wb, bias.to(dtype), padding=1),
+                    mean, var, gamma, beta, False, 0.0, 1e-5))
+                t_kt, t_c = in_turns(lambda: k2.conv3x3_bn_gelu(*args), chain, reps=5)
+                log(f"  {tag}: in turns kernel {t_kt:.4f} ms, cuDNN bf16 conv+BN+GELU chain "
+                    f"{t_c:.4f} ms, ratio {t_kt / t_c:.3f}")
+                turns_k += t_kt
                 lib_ms += t_c
-                flop += 2 * n * side * side * 9 * cin * cout
+                devs.append(device_rate(tag, lambda: k2.conv3x3_bn_gelu(*args),
+                                        ("conv3x3_bn_gelu_wgmma",), site_flop, bound))
+                if cout % 256 == 0:  # the channel tile, chosen by this comparison
+                    t256, t128 = in_turns(lambda: k2.conv3x3_bn_gelu(*args, _tile_n=256),
+                                          lambda: k2.conv3x3_bn_gelu(*args, _tile_n=128), reps=5)
+                    log(f"  {tag}: in turns 128x256 tiles {t256:.4f} ms, 128x128 tiles "
+                        f"{t128:.4f} ms (default {k2.tile_n(cout)})")
             del x, w, args
     torch.cuda.empty_cache()
     bound = flop / BF16_FLOP_PER_S * 1e3
+    if None in devs:
+        device = "device not measured"
+    else:
+        dev_ms = sum(devs)
+        device = (f"device {dev_ms:.4f} ms ({flop / dev_ms / 1e9:.1f} TFLOP/s, "
+                  f"{100 * bound / dev_ms:.1f} % of the bound)")
     log(f"  bf16 sum over the six sites: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"cuDNN chain {lib_ms:.4f} ms, bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP)")
+        f"bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP); {device}; in turns "
+        f"kernel {turns_k:.4f} ms vs cuDNN chain {lib_ms:.4f} ms, ratio {turns_k / lib_ms:.3f}")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations", "library_ms": lib_ms}
 
@@ -396,32 +452,41 @@ def phase_flash_forward():
     expect_value_error("unaligned N=100", lambda: fa.flash_attention(r, r, r))
     expect_value_error("fp16", lambda: fa.flash_attention(r.half(), r.half(), r.half()))
     g = gen(6)
-    scale = HEAD_DIM ** -0.5
     errs, res = [], {}
-    for bh in (32, 128):
-        for dtype in (torch.float32, torch.bfloat16):
-            q, k, v = attn_inputs(bh, dtype, g, 3)
-            tag = f"{str(dtype)[6:]} BH={bh}"
-            out, lse = fa.flash_forward(q, k, v, scale)
-            ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale)
-            errs.append(check(f"{tag} out", out, ref_out, dtype))
-            errs.append(check(f"{tag} lse", lse, ref_lse, dtype))
-            del out, lse, ref_out, ref_lse
-            t_k = cuda_time(lambda: fa.flash_forward(q, k, v, scale), reps=3, trials=3)
-            t_p = cuda_time(lambda: fa.flash_attention_ref(q, k, v, scale), reps=1, trials=3)
-            # (B, H, N, D) views: PyTorch's fused backends take 4-D inputs only
-            q4, k4, v4 = (t.view(bh // HEADS, HEADS, SEQ, HEAD_DIM) for t in (q, k, v))
-            t_l = cuda_time(lambda: F.scaled_dot_product_attention(q4, k4, v4),
-                            reps=3, trials=3)
-            flop = 4 * bh * SEQ * SEQ * HEAD_DIM
-            bound = flop / BF16_FLOP_PER_S * 1e3
-            log(f"  {tag}: kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain "
-                f"{t_p:.4f} ms, SDPA {t_l:.4f} ms (median); bf16 bound {bound:.4f} ms "
-                f"({flop / 1e12:.3f} TFLOP, {bh * SEQ * SEQ / 1e6:.0f}M exp)")
-            res[(bh, dtype)] = (t_k, t_p, t_l, bound)
-            del q, k, v, q4, k4, v4
-            torch.cuda.empty_cache()
-    t_k, t_p, t_l, bound = res[(32, torch.bfloat16)]
+    # bf16 at D=64 beside D=128: half the products, the same exponentials
+    for bh, d, dtype in ((32, HEAD_DIM, torch.float32), (32, HEAD_DIM, torch.bfloat16),
+                         (128, HEAD_DIM, torch.float32), (128, HEAD_DIM, torch.bfloat16),
+                         (32, 64, torch.bfloat16)):
+        scale = d ** -0.5
+        q, k, v = (torch.randn(bh, SEQ, d, device=DEV, generator=g).to(dtype) for _ in range(3))
+        tag = f"{str(dtype)[6:]} BH={bh} D={d}"
+        out, lse = fa.flash_forward(q, k, v, scale)
+        ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale)
+        errs.append(check(f"{tag} out", out, ref_out, dtype))
+        errs.append(check(f"{tag} lse", lse, ref_lse, dtype))
+        del out, lse, ref_out, ref_lse
+        t_k = cuda_time(lambda: fa.flash_forward(q, k, v, scale), reps=3, trials=3)
+        t_p = cuda_time(lambda: fa.flash_attention_ref(q, k, v, scale), reps=1, trials=3)
+        # (B, H, N, D) views: PyTorch's fused backends take 4-D inputs only
+        q4, k4, v4 = (t.view(bh // HEADS, HEADS, SEQ, d) for t in (q, k, v))
+        t_l = cuda_time(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps=3, trials=3)
+        flop = 4 * bh * SEQ * SEQ * d
+        bound = flop / BF16_FLOP_PER_S * 1e3
+        log(f"  {tag}: kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain "
+            f"{t_p:.4f} ms, SDPA {t_l:.4f} ms (median); bf16 bound {bound:.4f} ms "
+            f"({flop / 1e12:.3f} TFLOP, {bh * SEQ * SEQ / 1e6:.0f}M exp)")
+        if dtype == torch.bfloat16:
+            t_kt, t_lt = in_turns(lambda: fa.flash_forward(q, k, v, scale),
+                                  lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                                  reps=3, trials=3)
+            log(f"  {tag}: in turns kernel {t_kt:.4f} ms, SDPA {t_lt:.4f} ms, ratio "
+                f"{t_kt / t_lt:.3f}")
+            device_rate(tag, lambda: fa.flash_forward(q, k, v, scale), ("flash_fwd_wgmma",),
+                        flop, bound)
+        res[(bh, d, dtype)] = (t_k, t_p, t_l, bound)
+        del q, k, v, q4, k4, v4
+        torch.cuda.empty_cache()
+    t_k, t_p, t_l, bound = res[(32, HEAD_DIM, torch.bfloat16)]
     return {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": "operations", "library_ms": t_l}
 

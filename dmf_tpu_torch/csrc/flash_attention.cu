@@ -1,7 +1,7 @@
 // Exact blocked (flash) attention over (BH, N, D) tensors: forward, dQ and dK/dV.
 //
 // Replaces the TPU kernels of dmf_tpu/ops/flash_attention.py:
-//   * `_flash_kernel` (:43)    -> flash_fwd_kernel
+//   * `_flash_kernel` (:43)    -> flash_fwd_wgmma (bf16), flash_fwd_kernel (fp32)
 //   * `_bwd_dq_kernel` (:114)  -> flash_bwd_dq_kernel
 //   * `_bwd_dkv_kernel` (:144) -> flash_bwd_dkv_kernel
 // reached through `flash_attention` (:281) and its custom VJP (:261-277).
@@ -19,18 +19,28 @@
 // FLOP on 3*BH*N*D inputs, about N/3 FLOP per byte (1365 at N=4096), far
 // above the H100's ridge of ~295 FLOP/byte; dQ does ~6 and dK/dV ~8 times
 // BH*Nq*Nk*D.  Each pass also takes BH*Nq*Nk exponentials, which run on the
-// SFU at a small fraction of the tensor-core rate.  Design, simple first:
-//   * every product is a block-level product of tiles in shared memory,
-//     written once (block_mma) for two engines: bf16 runs on the tensor
-//     cores through WMMA 16x16x16 fragments (mma.sync, bf16 in, fp32
-//     accumulate), fp32 on the CUDA cores (SIMT FMA, so fp32 results carry
-//     no TF32 rounding);
-//   * the accumulators (O, dQ, dK, dV) and the score tiles live in shared
-//     memory in fp32; the row statistics and the softmax are elementwise
-//     passes over those tiles;
-//   * Q/K/V/dO tiles are staged with plain 16-byte loads, no pipeline.
-//   wgmma, TMA, register-resident accumulators and a multi-stage pipeline
-//   are later work.
+// SFU at a small fraction of the tensor-core rate.
+//
+// The bf16 forward (flash_fwd_wgmma) is the FlashAttention-3 shape, simple
+// first: a block owns 128 query rows, two consumer warpgroups of 64 rows and
+// a producer warpgroup.  One producer thread TMA-loads the Q tile once and
+// K, V tiles of 128 keys into a two-stage ring (full/empty mbarriers, tiles
+// 128-byte swizzled, split into 64-column panels).  Each consumer computes
+// S = Q K^T with wgmma (both K-major in shared memory), runs the online
+// softmax on the accumulator registers (quad shuffles, exp2 with log2(e)
+// folded into the scale), converts P to bf16 in registers and computes
+// O += P V with P as wgmma's register operand and V as the MN-major operand
+// (the transpose bit).  O never leaves registers until the epilogue divides
+// by l and rounds once.  setmaxnreg moves registers from the producer to the
+// consumers.  Later work: ping-pong scheduling of the consumers, so that one
+// softmax overlaps the other's products.
+//
+// The fp32 forward and the backward kernels are block-level products of
+// tiles in shared memory, written once (block_mma) for two engines: bf16 on
+// the tensor cores through WMMA 16x16x16 fragments (mma.sync, bf16 in, fp32
+// accumulate), fp32 on the CUDA cores (SIMT FMA, so fp32 results carry no
+// TF32 rounding); accumulators and score tiles live in fp32 shared memory;
+// tiles are staged with plain 16-byte loads.
 //
 // Rounding points.  bf16: P (forward, dK/dV) and dS (dQ, dK/dV) are rounded
 // to bf16 before they enter a tensor-core product; S, the softmax
@@ -41,12 +51,15 @@
 //
 // Deliberately not carried over from the TPU: the (N, 1) column layout of
 // lse/delta (here (BH, N) fp32 rows), the whole-sequence-in-VMEM K/V blocks
-// and the 256/512 block sizes.  Tiles are 64 queries x 64 keys (dK/dV steps
-// over 32 queries), D is 64 or 128, and N must be a multiple of 64.
+// and the 256/512 block sizes.  D is 64 or 128 and N a multiple of 64; the
+// wgmma forward masks the ragged half of a 128-row query block (rows past
+// N_q are loaded as zeros and not written) and keys past N_k (set to -inf
+// before the row max).
 //
 // Plain C interface for ctypes: each *_launch returns cudaGetLastError()
-// after the launch (or the error of setting the shared-memory size).
-// Offsets are 32-bit: the wrapper rejects tensors of 2^31 elements or more.
+// after the launch (or the error of setting the shared-memory size or of
+// encoding a tensor map).  Offsets are 32-bit: the wrapper rejects tensors
+// of 2^31 elements or more.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -54,6 +67,8 @@
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -180,19 +195,22 @@ __device__ __forceinline__ void block_mma(const bf16* A, int lda, const bf16* B,
   }
 }
 
-// ------------------------------------------------------------------ forward
-template <typename T, int D>
+// ------------------------------------------------------- forward, fp32 (SIMT)
+template <int D>
 constexpr int fwd_smem() {
+  using T = float;
   constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
   constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
   return a128(BQ * LD * sizeof(T)) + 2 * a128(BK * LD * sizeof(T)) +
          a128(BQ * LDP * sizeof(T)) + a128(BQ * LDS * 4) + a128(BQ * LDO * 4) + a128(BQ * 4);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                 T* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, float scale) {
+flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
+                 int Nq, int Nk, float scale) {
+  using T = float;
   constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
   constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
   extern __shared__ __align__(128) unsigned char smem[];
@@ -229,7 +247,7 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
     for (int c = part; c < BK; c += 4) {
       const float p = expf(Ss[r * LDS + c] * scale - m_new);
       sum += p;
-      Ps[r * LDP + c] = from_f<T>(p);  // bf16: P rounded for the tensor cores
+      Ps[r * LDP + c] = p;
     }
     sum += __shfl_xor_sync(0xffffffffu, sum, 1);
     sum += __shfl_xor_sync(0xffffffffu, sum, 2);
@@ -248,9 +266,204 @@ flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __re
   T* ob = out + (bh * Nq + q0) * D;
   for (int e = threadIdx.x; e < BQ * D; e += NT) {
     const int rr = e / D, c = e % D;
-    ob[e] = from_f<T>(Os[rr * LDO + c] / Ls[rr]);
+    ob[e] = Os[rr * LDO + c] / Ls[rr];
   }
 }
+
+// ------------------------------------------------------- forward, bf16 (wgmma)
+namespace wg {
+
+constexpr int BM = 128;       // query rows per block: two consumer warpgroups of 64
+constexpr int BN = 128;       // keys per tile
+constexpr int STAGES = 2;     // K/V ring depth
+constexpr int THREADS = 384;  // warpgroups 0, 1 consume; warpgroup 2 produces
+constexpr int CONSUMERS = 256;
+constexpr float kNegInf = -__builtin_huge_valf();
+
+// Shared memory: Q (D/64 panels of BM x 128 B), the K and V rings (D/64
+// panels of BN x 128 B per stage), then the barriers.
+template <int D>
+struct Smem {
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int KV_BYTES = BN * D * 2;
+  static constexpr int K_OFF = Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * KV_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * KV_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;  // + alignment slack
+};
+static_assert(Smem<128>::BYTES <= SMEM_MAX, "wgmma forward shared memory");
+
+template <int D>
+__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b);
+template <>
+__device__ __forceinline__ void pv_product<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
+  hopper::wgmma_m64n64k16_rs_tb(o, a, b, 1);
+}
+template <>
+__device__ __forceinline__ void pv_product<128>(float (&o)[64], const uint32_t (&a)[4],
+                                                uint64_t b) {
+  hopper::wgmma_m64n128k16_rs_tb(o, a, b, 1);
+}
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
+                float* __restrict__ lse, int Nq, int Nk, float scale) {
+  using namespace hopper;
+  using L = Smem<D>;
+  constexpr int PANELS = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* k_full = q_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
+  const int nkt = (Nk + BN - 1) / BN;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: one thread keeps the ring full
+    reg_dealloc<40>();
+    if (threadIdx.x == CONSUMERS) {
+      mbar_arrive_expect_tx(q_full, L::Q_BYTES);
+      for (int p = 0; p < PANELS; ++p)
+        tma_load_3d(smem + p * BM * 128, &qmap, q_full, p * 64, q0, bh);
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        unsigned char* ks = smem + L::K_OFF + s * L::KV_BYTES;
+        unsigned char* vs = smem + L::V_OFF + s * L::KV_BYTES;
+        mbar_arrive_expect_tx(&k_full[s], L::KV_BYTES);
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_3d(ks + p * BN * 128, &kmap, &k_full[s], p * 64, kt * BN, bh);
+        mbar_arrive_expect_tx(&v_full[s], L::KV_BYTES);
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_3d(vs + p * BN * 128, &vmap, &v_full[s], p * 64, kt * BN, bh);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    reg_alloc<232>();
+    const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int lane = t % 32, quad = lane % 4;
+    const float c = scale * 1.4426950408889634f;  // S -> log2 units
+    float sacc[BN / 2];
+    float o[D / 2];
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sacc[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    const unsigned char* qs = smem + wgi * 64 * 128;  // this warpgroup's rows of each panel
+    mbar_wait(q_full, 0);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int s = kt % STAGES;
+      const uint32_t parity = (kt / STAGES) & 1;
+      const unsigned char* ks = smem + L::K_OFF + s * L::KV_BYTES;
+      const unsigned char* vs = smem + L::V_OFF + s * L::KV_BYTES;
+      // S = Q K^T over D in steps of 16 (32 bytes inside a 64-column panel)
+      mbar_wait(&k_full[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+        const int off = (kk % 4) * 32;
+        wgmma_m64n128k16_ss(sacc, desc_sw128(qs + (kk / 4) * BM * 128 + off, 16, 1024),
+                            desc_sw128(ks + (kk / 4) * BN * 128 + off, 16, 1024), kk > 0);
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sacc);
+      if ((kt + 1) * BN > Nk) {  // the last tile: keys past N_k drop out
+#pragma unroll
+        for (int j = 0; j < BN / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (kt * BN + 8 * j + 2 * quad + e >= Nk)
+              sacc[4 * j + e] = sacc[4 * j + 2 + e] = kNegInf;
+      }
+      // online softmax on the registers: row h of this thread is 16w + l/4 + 8h
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(sacc[4 * j], sacc[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(sacc[4 * j + 2], sacc[4 * j + 3]));
+      }
+      float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f((m[h] - mx[h]) * c);
+        m[h] = mx[h];
+        mc[h] = mx[h] * c;
+      }
+      uint32_t pa[BN / 16][4];  // P in bf16 as wgmma's register operand, 16 keys each
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float p0 = exp2f(fmaf(sacc[4 * j], c, -mc[0]));
+        const float p1 = exp2f(fmaf(sacc[4 * j + 1], c, -mc[0]));
+        const float p2 = exp2f(fmaf(sacc[4 * j + 2], c, -mc[1]));
+        const float p3 = exp2f(fmaf(sacc[4 * j + 3], c, -mc[1]));
+        sum[0] += p0 + p1;
+        sum[1] += p2 + p3;
+        pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * alpha[h] + sum[h];
+      }
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] *= alpha[0];
+        o[4 * j + 1] *= alpha[0];
+        o[4 * j + 2] *= alpha[1];
+        o[4 * j + 3] *= alpha[1];
+      }
+      // O += P V over the keys in steps of 16 (2048 bytes: two 8-row atoms)
+      mbar_wait(&v_full[s], parity);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk)
+        pv_product<D>(o, pa[kk], desc_sw128(vs + kk * 2048, BN * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(o);
+#pragma unroll
+      for (int kk = 0; kk < BN / 16; ++kk) fence_regs(pa[kk]);
+      mbar_arrive(&empty[s]);
+    }
+    // epilogue: out = O / l rounded once, lse = m * scale + log(l)
+    const int row0 = q0 + wgi * 64 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= Nq) continue;  // the ragged half of the last query block
+      const int at = bh * Nq + row;
+      if (quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      bf16* orow = out + at * D + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(o[4 * j + 2 * h] / l[h], o[4 * j + 2 * h + 1] / l[h]);
+    }
+  }
+}
+
+}  // namespace wg
 
 // ------------------------------------------------------------------ dQ
 template <typename T, int D>
@@ -382,7 +595,7 @@ flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* 
   }
 }
 
-static_assert(fwd_smem<float, 128>() <= SMEM_MAX, "forward shared memory");
+static_assert(fwd_smem<128>() <= SMEM_MAX, "forward shared memory");
 static_assert(dq_smem<float, 128>() <= SMEM_MAX, "dQ shared memory");
 static_assert(dkv_smem<float, 128>() <= SMEM_MAX, "dK/dV shared memory");
 
@@ -391,15 +604,37 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-template <typename T, int D>
-int fwd(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int nq,
-        int nk, float scale, cudaStream_t s) {
-  constexpr int bytes = fwd_smem<T, D>();
-  cudaError_t e = allow_smem(flash_fwd_kernel<T, D>, bytes);
+template <int D>
+int fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int nq,
+            int nk, float scale, cudaStream_t s) {
+  constexpr int bytes = fwd_smem<D>();
+  cudaError_t e = allow_smem(flash_fwd_kernel<D>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_kernel<T, D><<<dim3(nq / BQ, bh), NT, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<T*>(out), static_cast<float*>(lse), nq, nk, scale);
+  flash_fwd_kernel<D><<<dim3(nq / BQ, bh), NT, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<float*>(out), static_cast<float*>(lse), nq, nk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int nq,
+              int nk, float scale, cudaStream_t s) {
+  CUtensorMap maps[3];
+  const void* ptrs[3] = {q, k, v};
+  const int rows[3] = {nq, nk, nk};
+  for (int i = 0; i < 3; ++i) {
+    // (BH, N, D) as dims {D, N, BH}: boxes of 64 columns x a tile of rows x 1 head;
+    // rows past N (the ragged tile) read zeros instead of the next head's
+    const cudaError_t e = hopper::tensor_map_3d(
+        &maps[i], ptrs[i], D, rows[i], bh, D * 2ull, static_cast<uint64_t>(rows[i]) * D * 2,
+        64, i == 0 ? wg::BM : wg::BN, 1);
+    if (e != cudaSuccess) return static_cast<int>(e);
+  }
+  constexpr int bytes = wg::Smem<D>::BYTES;
+  cudaError_t e = allow_smem(wg::flash_fwd_wgmma<D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wg::flash_fwd_wgmma<D><<<dim3((nq + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes, s>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), static_cast<float*>(lse), nq, nk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -439,11 +674,16 @@ extern "C" int flash_fwd_launch(int is_bf16, int d, const void* q, const void* k
                                 const void* v, void* out, void* lse, int bh, int nq, int nk,
                                 float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && d == 128) return fwd<bf16, 128>(q, k, v, out, lse, bh, nq, nk, scale, s);
-  if (is_bf16 && d == 64) return fwd<bf16, 64>(q, k, v, out, lse, bh, nq, nk, scale, s);
-  if (!is_bf16 && d == 128) return fwd<float, 128>(q, k, v, out, lse, bh, nq, nk, scale, s);
-  if (!is_bf16 && d == 64) return fwd<float, 64>(q, k, v, out, lse, bh, nq, nk, scale, s);
+  if (is_bf16 && d == 128) return fwd_wgmma<128>(q, k, v, out, lse, bh, nq, nk, scale, s);
+  if (is_bf16 && d == 64) return fwd_wgmma<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
+  if (!is_bf16 && d == 128) return fwd_f32<128>(q, k, v, out, lse, bh, nq, nk, scale, s);
+  if (!is_bf16 && d == 64) return fwd_f32<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
   return BAD_ARGUMENT;
+}
+
+// Dynamic shared memory of the bf16 forward at head width d, for build reports.
+extern "C" int flash_fwd_wgmma_smem(int d) {
+  return d == 128 ? wg::Smem<128>::BYTES : d == 64 ? wg::Smem<64>::BYTES : BAD_ARGUMENT;
 }
 
 extern "C" int flash_bwd_dq_launch(int is_bf16, int d, const void* q, const void* k,

@@ -2,8 +2,9 @@
 
 Sources live in ``dmf_tpu_torch/csrc/`` and expose a plain C interface.  A
 library is compiled for ``sm_90a`` on first use into
-``dmf_tpu_torch/_build/<name>-<hash>/``, keyed by a hash of its sources and
-flags, so a fresh checkout builds itself and an edited source rebuilds.  The
+``dmf_tpu_torch/_build/<name>-<hash>/``, keyed by a hash of its sources, of
+every shared header (``csrc/*.cuh``) and of the flags, so a fresh checkout
+builds itself and an edited source or header rebuilds.  The
 ``-Xptxas -v`` report (registers, shared memory, spills) is kept beside the
 library as ``build.log``.
 """
@@ -34,14 +35,19 @@ def find_nvcc() -> str:
                        "build on the machine with the card")
 
 
+def source_digest(sources: Sequence[str], csrc: Path = CSRC_DIR) -> str:
+    """Hash of the flags, the listed sources and every header under ``csrc``."""
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for p in [csrc / s for s in sources] + sorted(csrc.glob("*.cuh")):
+        digest.update(p.name.encode())
+        digest.update(p.read_bytes())
+    return digest.hexdigest()[:16]
+
+
 def build_library(name: str, sources: Sequence[str]) -> Path:
     """Compile ``csrc/<sources>`` into ``lib<name>.so``; returns its path."""
     paths = [CSRC_DIR / s for s in sources]
-    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for p in paths:
-        digest.update(p.name.encode())
-        digest.update(p.read_bytes())
-    out_dir = BUILD_DIR / f"{name}-{digest.hexdigest()[:16]}"
+    out_dir = BUILD_DIR / f"{name}-{source_digest(sources)}"
     lib = out_dir / f"lib{name}.so"
     if lib.exists():
         return lib

@@ -10,6 +10,10 @@ whose backward computes ``delta = rowsum(dO * O)`` in plain torch (the JAX
 package leaves it to XLA, :189-192) and launches the dQ and dK/dV kernels.
 There is no fallback from one to the other.
 
+The bf16 forward runs on Hopper's ``wgmma`` fed by TMA through a shared-memory
+ring (``flash_fwd_wgmma``); the fp32 forward and the backward kernels are
+block-level products of shared-memory tiles.
+
 Numerics: the plain version computes the scores, the softmax and the value
 product in fp32 from the input-dtype operands and rounds the output once;
 ``lse`` is fp32.  The kernels' rounding points are stated in their source.
@@ -58,6 +62,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch):
         fn.restype = ctypes.c_int
+    lib.flash_fwd_wgmma_smem.argtypes = [i]
+    lib.flash_fwd_wgmma_smem.restype = i
     return lib
 
 

@@ -37,12 +37,12 @@ from __future__ import annotations
 
 import functools
 import os
-import weakref
-from typing import Dict, Tuple
+from typing import Tuple
 
 import torch
 
 from .cuda_build import BUILD_DIR
+from .prepared import prepared
 
 
 @functools.lru_cache(maxsize=None)
@@ -138,36 +138,17 @@ def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
                            f"torch.no_grad() (training is not ported)")
 
 
-# (ids of w1, b1, w2, b2, dtype) -> (weak refs, versions, prepared weights)
-_WEIGHTS: Dict[tuple, tuple] = {}
-
-
-def _stamp(t: torch.Tensor) -> tuple:
-    # an in-place update bumps the version; a move or ``.data =`` the address
-    return t.data_ptr(), t.device, None if t.is_inference() else t._version
-
-
 def mlp_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
                 c: int, mid: int, dt: torch.dtype) -> Tuple[torch.Tensor, ...]:
     """``(W1 (mid, C), b1, W2^T (mid, C), b2)`` in the map dtype, contiguous,
     as the SE MLP reads them; made once per parameter set and reused until a
-    parameter changes, so a call pays only its launches.  Inference tensors
-    carry no version counter and are prepared anew on every call."""
-    params = (w1, b1, w2, b2)
-    key = (*map(id, params), dt)
-    stamps = tuple(map(_stamp, params))
-    hit = _WEIGHTS.get(key)
-    if (hit is not None and all(r() is t for r, t in zip(hit[0], params))
-            and hit[1] == stamps and None not in (s[2] for s in stamps)):
-        return hit[2]
-    prepared = (w1.detach().reshape(mid, c).to(dt, copy=True),
-                b1.detach().reshape(mid).to(dt, copy=True),
-                w2.detach().reshape(c, mid).t().to(dt, copy=True).contiguous(),
-                b2.detach().reshape(c).to(dt, copy=True))
-    for k in [k for k, v in _WEIGHTS.items() if any(r() is None for r in v[0])]:
-        del _WEIGHTS[k]
-    _WEIGHTS[key] = (tuple(weakref.ref(t) for t in params), stamps, prepared)
-    return prepared
+    parameter changes (:func:`~dmf_tpu_torch.ops.prepared.prepared`), so a
+    call pays only its launches."""
+    return prepared((w1, b1, w2, b2), ("se_mlp", dt), lambda: (
+        w1.detach().reshape(mid, c).to(dt, copy=True),
+        b1.detach().reshape(mid).to(dt, copy=True),
+        w2.detach().reshape(c, mid).t().to(dt, copy=True).contiguous(),
+        b2.detach().reshape(c).to(dt, copy=True)))
 
 
 def launch_se_scale(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

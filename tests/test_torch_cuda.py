@@ -66,7 +66,13 @@ def test_se_epilogue_kernel(dev, dtype, c):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("shape", [(2, 9, 7, 136, 24), (1, 16, 16, 64, 128)])
+@pytest.mark.parametrize("shape", [
+    (2, 9, 7, 136, 24),     # Cin not a multiple of 64, Cout under a tile, M = 126 ragged
+    (1, 16, 16, 64, 128),
+    (2, 32, 32, 3072, 256),  # a K loop of 432 steps, many times the ring's depth
+    (3, 5, 1, 64, 200),     # W = 1; Cout not a multiple of the channel tile
+    (1, 64, 64, 128, 128),
+    (2, 6, 5, 16, 16)])     # Cin under one K step: the weight box is wider than Cin
 def test_conv3x3_kernel(dev, dtype, shape):
     n, h, w, cin, cout = shape
     g = torch.Generator(device=dev).manual_seed(1)
@@ -79,8 +85,12 @@ def test_conv3x3_kernel(dev, dtype, shape):
     k2.conv3x3_bn_gelu.launches = 0
     out = k2.conv3x3_bn_gelu(*args)
     assert out.is_contiguous(memory_format=torch.channels_last)
-    _close(out, k2.conv3x3_bn_gelu_ref(*args), dtype)
+    ref = k2.conv3x3_bn_gelu_ref(*args)
+    _close(out, ref, dtype)
     assert k2.conv3x3_bn_gelu.launches == 1
+    if dtype == torch.bfloat16:  # both channel tiles of the wgmma kernel
+        for tile in (128, 256):
+            _close(k2.conv3x3_bn_gelu(*args, _tile_n=tile), ref, dtype)
     with pytest.raises(ValueError, match="channels_last"):
         k2.conv3x3_bn_gelu(x.contiguous(), *args[1:])
 
@@ -95,7 +105,7 @@ def _close_rel(got, ref, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("nq,nk", [(128, 128), (64, 192)])
+@pytest.mark.parametrize("nq,nk", [(128, 128), (64, 192), (4096, 4096)])
 def test_flash_attention_kernels(dev, dtype, d, nq, nk):
     g = torch.Generator(device=dev).manual_seed(2)
     q, k, v = (torch.randn(1, 2, n, d, device=dev, generator=g).to(dtype)

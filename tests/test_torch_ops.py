@@ -162,3 +162,27 @@ class TestConv3x3Plain:
         conv3x3_bn_gelu.launches = 0
         assert torch.equal(conv3x3_bn_gelu(*args), conv3x3_bn_gelu_ref(*args))
         assert conv3x3_bn_gelu.launches == 0
+
+
+def test_build_digest_covers_shared_headers(tmp_path):
+    """A library's build key takes every ``csrc/*.cuh`` beside its own
+    sources, so an edit to a shared header rebuilds both wgmma libraries."""
+    import shutil
+
+    from dmf_tpu_torch.ops.cuda_build import CSRC_DIR, source_digest
+
+    csrc = tmp_path / "csrc"
+    shutil.copytree(CSRC_DIR, csrc)
+    sources = {lib: (f"{lib}.cu",) for lib in ("flash_attention", "conv3x3_bn_gelu")}
+    before = {lib: source_digest(src, csrc) for lib, src in sources.items()}
+    assert before == {lib: source_digest(src, CSRC_DIR) for lib, src in sources.items()}
+    header = csrc / "hopper.cuh"
+    header.write_bytes(header.read_bytes() + b"\n// edited\n")
+    after = {lib: source_digest(src, csrc) for lib, src in sources.items()}
+    assert all(after[lib] != before[lib] for lib in sources)
+    # a source of another library leaves the key alone; a new header does not
+    hist = csrc / "histogram_percentiles.cu"
+    hist.write_bytes(hist.read_bytes() + b"\n")
+    assert source_digest(sources["flash_attention"], csrc) == after["flash_attention"]
+    (csrc / "extra.cuh").write_text("// new\n")
+    assert source_digest(sources["flash_attention"], csrc) != after["flash_attention"]

@@ -202,6 +202,48 @@ def test_se_mlp_weights_prepared_once_per_parameter_set(dtype):
     assert torch.equal(changed[2], w2.reshape(14, 7).t().to(dtype))
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_conv_weights_prepared_once_per_parameter_set(dtype):
+    """Kernel 2's operands: the K-major (Cout, 9*Cin) weight matrix in the map
+    dtype and the folded fp32 (s, t), equal to a fresh preparation, reused
+    while the parameters are unchanged and made anew after an in-place update
+    of the weight or of a BN statistic."""
+    from dmf_tpu_torch.ops import conv3x3
+
+    torch.manual_seed(0)
+    conv, bn = nn.Conv2d(16, 24, 3, padding=1), nn.BatchNorm2d(24)
+    with torch.no_grad():
+        for t in (bn.weight, bn.bias, bn.running_mean):
+            t.normal_(0.0, 0.1)
+        bn.running_var.uniform_(0.5, 1.5)
+    params = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+
+    def fresh():
+        w = conv.weight.detach().permute(0, 2, 3, 1).reshape(24, 9 * 16).to(dtype)
+        return (w, *conv3x3.fold_bn(*(p.detach() for p in params[1:]), bn.eps))
+
+    first = conv3x3.conv_weights(*params, bn.eps, dtype)
+    assert [t.shape for t in first] == [(24, 144), (24,), (24,)]
+    assert [t.dtype for t in first] == [dtype, torch.float32, torch.float32]
+    assert all(t.is_contiguous() and not t.requires_grad for t in first)
+    assert all(torch.equal(a, b) for a, b in zip(first, fresh()))
+    # column k = tap * Cin + c, taps in (ky, kx) row-major order
+    assert torch.equal(first[0][5, 4 * 16 + 3], conv.weight[5, 3, 1, 1].to(dtype))
+    again = conv3x3.conv_weights(*params, bn.eps, dtype)
+    assert all(a is b for a, b in zip(first, again))
+    with torch.no_grad():
+        conv.weight.mul_(2.0)
+    changed = conv3x3.conv_weights(*params, bn.eps, dtype)
+    assert changed[0] is not first[0]
+    assert all(torch.equal(a, b) for a, b in zip(changed, fresh()))
+    bn.running_var.add_(1.0)  # a buffer, updated in place as BN's training step does
+    restat = conv3x3.conv_weights(*params, bn.eps, dtype)
+    assert not torch.equal(restat[1], changed[1])
+    assert all(torch.equal(a, b) for a, b in zip(restat, fresh()))
+    no_bias = conv3x3.conv_weights(conv.weight, None, *params[2:], bn.eps, dtype)
+    assert torch.equal(no_bias[0], restat[0]) and not torch.equal(no_bias[2], restat[2])
+
+
 def test_se_kernels_refuse_autograd():
     """The SE kernels have no backward: a call autograd would record raises."""
     from dmf_tpu_torch.ops import se_triton
