@@ -4,20 +4,25 @@
 
 Phases, each printing its own lines:
   1. card identity (nvidia-smi name and power limit, torch/triton versions);
-  2. kernel build from the sources in this checkout (the three CUDA
+  2. kernel build from the sources in this checkout (the four CUDA
      libraries by nvcc in parallel, then the Triton JIT), with ptxas
      registers/spills and the wgmma kernels' dynamic shared memory;
   3. each hand-written kernel vs its plain PyTorch version at the served
      paths' shapes, fp32 (TF32 off) and bf16, with errors beside stated
      tolerances and median times beside the plain version's, the bound and
      the one PyTorch call that computes the same function (where there is
-     one): 3a SE epilogue (32^2 maps of tta_mc, 128^2 maps of hybrid-nb),
-     3b conv3x3+BN+GELU, 3c flash-attention forward, 3d its backward,
+     one): 3a SE epilogue (its Philox keep bits against the numpy Philox at
+     element indices past 2^31 and 2^32, the largest map of a B=128 tta_mc
+     request, past 2^31 elements, against the plain version on maps at its
+     start, around element 2^31 and at its end, 32^2 maps of tta_mc, 128^2
+     maps of hybrid-nb), 3b conv3x3+BN+GELU, 3c
+     flash-attention forward, 3d its backward,
      with, for the two wgmma kernels (3b, 3c bf16), the kernel's own device
      time per call (profiler), its TFLOP/s and share of the bound, and the
      kernel timed in turns with its library yardstick and their ratio;
      3e the DWI z-score, 3f the histogram percentiles (on max-normalised
-     synthetic DCE volumes), 3g the standalone SE;
+     synthetic DCE volumes), 3g the standalone SE; the memory-bound kernels
+     (3a, 3e-3g) with their device time, GB/s and share of the bytes bound;
   4. end-to-end parity, card (kernels) vs CPU (plain versions), fp32,
      seeded random weights at full width: 4 the default ResNet-50 models in
      ``tta`` at B=2, 4b the hybrid-transformer no-backbone models
@@ -29,7 +34,10 @@ Phases, each printing its own lines:
      the preprocessing timed apart from the predictor: 5 the default models
      in ``tta_mc``, 5b ``hybrid-nb`` in ``normal`` then ``tta``;
   6. a profiler breakdown of one more ``tta_mc`` and one ``hybrid-nb``
-     ``normal`` request.
+     ``normal`` request;
+  5c (run last) one default ``tta_mc`` request at bench.py's default B=128
+     (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
+     with its peak memory.
 The line before the last is the kernels' JSON summary; the last line is
 ``{"ok": true, "device": {...}}``.  Any failure raises and exits non-zero;
 without a CUDA device the script exits non-zero before printing anything.
@@ -40,6 +48,7 @@ import dataclasses
 import functools
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -66,7 +75,7 @@ from dmf_tpu_torch.models import build_fusion_models  # noqa: E402
 from dmf_tpu_torch.ops import conv3x3 as k2  # noqa: E402
 from dmf_tpu_torch.ops import dwi_norm  # noqa: E402
 from dmf_tpu_torch.ops import epilogue as k1  # noqa: E402
-from dmf_tpu_torch.ops import epilogue_triton  # noqa: E402
+from dmf_tpu_torch.ops import epilogue_cuda  # noqa: E402
 from dmf_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from dmf_tpu_torch.ops import histogram as hist  # noqa: E402
 from dmf_tpu_torch.ops import se as sek  # noqa: E402
@@ -77,6 +86,7 @@ from dmf_tpu_torch.pipeline import (export_processed_splits, load_processed_spli
 DEV = torch.device("cuda", 0)
 SEED = 0
 B_SERVE = 8
+B_LARGE = 128  # bench.py's default batch (bench.py:366)
 REQUESTS = 3
 # fp32 sum-order tolerance; bf16: one bf16 ulp (2^-7) after an fp32 sum in
 # another order flips a rounding.  Both relative to max(1, max|plain|).
@@ -90,6 +100,8 @@ NECKS = (("neck_f1_conv0", 256, 128, 64), ("neck_f1_conv1", 128, 128, 64),
 # hybrid-nb geometry at 256^2 inputs: SE epilogue maps of block1/block2 at
 # 128^2 x 128/256; attention over 64^2 = 4096 tokens, 4 heads of 128
 HYB_EPI_CHANNELS = (128, 256)
+# kernel 1's three kernels, as the profiler names them
+EPI_KERNELS = ("epi_y_partials", "epi_mlp", "epi_scale")
 SEQ, HEAD_DIM, HEADS = 4096, 128, 4
 # standalone SE maps (N, side, C) of a tta_mc request at B=8: modality
 # attention on the dwi and dce inputs (4 views), fusion_se on the lean chunk
@@ -130,8 +142,9 @@ def cuda_time(fn, reps=10, trials=5):
 
 def launch_costs(fn, kernels, calls=20):
     """``fn``'s device ms per call in the kernels whose names contain one of
-    ``kernels`` (profiler), and its host ms per call to enqueue them (host
-    clock over ``calls`` calls, no synchronize inside)."""
+    ``kernels`` (profiler), its host ms per call to enqueue them (host clock
+    over ``calls`` calls, no synchronize inside), and the device ms per call
+    of each of ``kernels``."""
     from torch.profiler import ProfilerActivity, profile
     fn()
     torch.cuda.synchronize()
@@ -144,9 +157,9 @@ def launch_costs(fn, kernels, calls=20):
         for _ in range(5):
             fn()
         torch.cuda.synchronize()
-    dev = sum(e.self_device_time_total for e in prof.key_averages()
-              if e.device_type.name == "CUDA" and any(k in e.key for k in kernels))
-    return dev / 5 / 1e3, host
+    each = {k: sum(e.self_device_time_total for e in prof.key_averages()
+                   if e.device_type.name == "CUDA" and k in e.key) / 5 / 1e3 for k in kernels}
+    return sum(each.values()), host, each
 
 
 def in_turns(kernel, library, **kw):
@@ -158,20 +171,27 @@ def in_turns(kernel, library, **kw):
     return (k1 + k2_) / 2, (l1 + l2) / 2
 
 
-def device_rate(tag, fn, kernels, flop, bound):
+def device_rate(tag, fn, kernels, bound, flop=0, nbytes=0):
     """Log and return ``fn``'s device ms per call in ``kernels`` (profiler),
-    with its TFLOP/s and its share of the bound.  A profiler session at times
-    records none of the kernels' launches: it is taken again, up to three
-    sessions, and the time is None ("not measured") if none records one."""
+    with its TFLOP/s (``flop``) or GB/s (``nbytes``) and its share of the
+    bound, beside its host ms per call to enqueue them.  A profiler session
+    at times records only some of the kernels' launches, or none: it is taken
+    again, up to three sessions, and the time is None ("not measured") if
+    none records every one of ``kernels``; a device time of 0 is never
+    printed."""
     for _ in range(3):
-        dev, host = launch_costs(fn, kernels)
-        if dev > 0:
-            log(f"  {tag}: device {dev:.4f} ms per call (profiler), {flop / dev / 1e9:.1f} "
-                f"TFLOP/s, {100 * bound / dev:.1f} % of the bound; host {host:.4f} ms per call "
+        dev, host, each = launch_costs(fn, kernels)
+        if all(t > 0 for t in each.values()):
+            rate = (f"{flop / dev / 1e9:.1f} TFLOP/s" if flop
+                    else f"{nbytes / dev / 1e6:.1f} GB/s")
+            split = (" (" + " + ".join(f"{k} {t:.4f}" for k, t in each.items()) + ")"
+                     if len(kernels) > 1 else "")
+            log(f"  {tag}: device {dev:.4f} ms per call{split} (profiler), {rate}, "
+                f"{100 * bound / dev:.1f} % of the bound; host {host:.4f} ms per call "
                 f"to enqueue")
             return dev
-    log(f"  {tag}: device time not measured (no {'/'.join(kernels)} launch in three "
-        f"profiler sessions)")
+    log(f"  {tag}: device time not measured (no profiler session of three recorded "
+        f"every one of {'/'.join(kernels)}); host {host:.4f} ms per call to enqueue")
     return None
 
 
@@ -257,7 +277,7 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = {"conv3x3_bn_gelu": k2._library, "flash_attention": fa._library,
-            "histogram_percentiles": hist._library}
+            "histogram_percentiles": hist._library, "se_epilogue": epilogue_cuda._library}
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
         for f in [pool.submit(build) for build in libs.values()]:
             f.result()
@@ -282,11 +302,6 @@ def phase_build():
     x = cl(torch.randn(2, 128, 8, 8, device=DEV))
     w1, w2 = torch.randn(64, 128, device=DEV), torch.randn(128, 64, device=DEV)
     b1, b2 = torch.zeros(64, device=DEV), torch.zeros(128, device=DEV)
-    for drop in (0.0, 0.2):
-        k1.se_epilogue(x, x, w1, b1, w2, b2, drop_rate=drop, generator=gen())
-    torch.cuda.synchronize()
-    log(f"  se_epilogue (Triton JIT, fp32): {time.perf_counter() - t0:.2f} s")
-    t0 = time.perf_counter()
     for dtype in (torch.float32, torch.bfloat16):
         sek.se_scale(x.to(dtype), w1, b1, w2, b2)
         for flags in ((True, True), (True, False), (False, False)):
@@ -308,11 +323,65 @@ def epi_inputs(n, c, dtype, g, side=32):
     return x, idn, w1, b1, w2, b2
 
 
+def philox_bits():
+    """Kernel 1's keep bits (its keep-mask entry point) against the plain
+    numpy Philox4x32-10 at element indices that straddle 2^31 and 2^32: the
+    counter and the offsets are 64-bit."""
+    x = cl(torch.zeros(2, 8, 4, 4, device=DEV))
+    for base in (0, 2 ** 31 - 64, 2 ** 32 - 64, 2 ** 40 + 4):
+        for seed in (12345, (0x5EED << 32) | 77):
+            got = epilogue_cuda.keep_mask(x, 0.2, torch.tensor([seed], device=DEV), base=base)
+            flat = got.permute(0, 2, 3, 1).reshape(-1).cpu().numpy()
+            if not (flat == epilogue_cuda.keep_mask_ref(base, x.numel(), 0.2, seed)).all():
+                raise AssertionError(f"keep bits differ from Philox at base {base}, seed {seed}")
+    log(f"  keep bits of {x.numel()} elements from indices 0, 2^31 - 64, 2^32 - 64, 2^40 + 4, "
+        f"two seeds: equal to the numpy Philox4x32-10")
+
+
+def epilogue_past_2_31(n_maps):
+    """Kernel 1 with dropout on the largest map of a ``tta_mc`` request at
+    B_LARGE (``n_maps`` x 32^2 x 512 bf16, past 2^31 elements), against the
+    plain version fed the kernel's own keep bits (the keep mask from the
+    first element of the maps compared) on the first maps, the maps around
+    element 2^31 and the last maps: the tile, offset and scale-pass index
+    math, not only the Philox bits, is held past 2^31."""
+    c, side, p = max(EPI_CHANNELS), 32, 0.2
+    per = side * side * c
+    log(f"  bf16 N={n_maps} C={c} 32^2 drop={p}: {n_maps * per / 2 ** 31:.3f} x 2^31 "
+        f"elements")
+    if n_maps * per <= 2 ** 31:
+        raise AssertionError("the map does not pass 2^31 elements")
+    g = gen(6)
+    # (N, H, W, C) storage seen as channels_last (N, C, H, W): no copy
+    x, idn = (torch.randn(n_maps, side, side, c, device=DEV, generator=g,
+                          dtype=torch.bfloat16).permute(0, 3, 1, 2) for _ in range(2))
+    _, _, w1, b1, w2, b2 = epi_inputs(1, c, torch.bfloat16, g)
+    seed = torch.tensor([(0x5EED << 32) | 2024], device=DEV)
+    out = epilogue_cuda.launch_se_epilogue(x, idn, w1, b1, w2, b2, p, seed)
+    errs = []
+    wrap = 2 ** 31 // per
+    for lo, hi in ((0, 2), (wrap - 2, wrap + 2), (n_maps - 2, n_maps)):
+        keep = epilogue_cuda.keep_mask(x[lo:hi], p, seed, base=lo * per)
+        ref = k1.se_epilogue_ref(x[lo:hi], idn[lo:hi], w1, b1, w2, b2, drop_rate=p, keep=keep)
+        errs.append(check(f"maps {lo}..{hi - 1} (elements from {lo * per})", out[lo:hi], ref,
+                          torch.bfloat16))
+    t_k = cuda_time(lambda: epilogue_cuda.launch_se_epilogue(x, idn, w1, b1, w2, b2, p, seed),
+                    reps=3, trials=3)
+    b_c = 3 * x.numel() * x.element_size()
+    log(f"  N={n_maps}: kernel {t_k:.4f} ms (median), bound {b_c / HBM_BYTES_PER_S * 1e3:.4f} "
+        f"ms (bytes, {b_c / 1e9:.2f} GB)")
+    del x, idn, out, keep, ref
+    torch.cuda.empty_cache()
+    return max(errs)
+
+
 def phase_epilogue(n_passes, n_views):
     n_lean = n_passes * n_views
-    log(f"== phase 3a: se_epilogue (Triton) vs plain, N={n_passes}x{n_views} maps of 32x32xC")
+    log(f"== phase 3a: se_epilogue (CUDA) vs plain, N={n_passes}x{n_views} maps of 32x32xC")
+    philox_bits()
+    errs = [epilogue_past_2_31(n_passes * 4 * B_LARGE)]
+    ms, plain_ms, nbytes, devs = 0.0, 0.0, 0, []
     g = gen(1)
-    errs, ms, plain_ms, nbytes = [], 0.0, 0.0, 0
     p = 0.2
     for i, dtype in enumerate((torch.float32, torch.bfloat16)):
         for j, c in enumerate(EPI_CHANNELS):
@@ -325,8 +394,8 @@ def phase_epilogue(n_passes, n_views):
             mc_seed = 100 + 10 * i + j
             g_mc = gen(mc_seed)
             out = k1.se_epilogue(*args, drop_rate=p, generator=g_mc)
-            keep = epilogue_triton.keep_mask(
-                args[0], p, epilogue_triton.draw_seed(gen(mc_seed), DEV))
+            seed = epilogue_cuda.draw_seed(gen(mc_seed), DEV)
+            keep = epilogue_cuda.keep_mask(args[0], p, seed)
             errs.append(check(f"{tag} drop={p} (kernel's own mask)", out,
                               k1.se_epilogue_ref(*args, drop_rate=p, keep=keep), dtype))
             n = keep.numel()
@@ -346,23 +415,30 @@ def phase_epilogue(n_passes, n_views):
             t_k = cuda_time(lambda: k1.se_epilogue(*args, drop_rate=p, generator=g_mc))
             gp = gen(2)
             t_p = cuda_time(lambda: k1.se_epilogue_ref(*args, drop_rate=p, generator=gp))
-            log(f"  {tag} drop={p}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median)")
+            # least traffic: read x and identity, write out, once each
+            b_c = 3 * args[0].numel() * args[0].element_size()
+            log(f"  {tag} drop={p}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
+                f"{b_c / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {b_c / 1e6:.1f} MB)")
             if dtype == torch.bfloat16:
                 ms += t_k
                 plain_ms += t_p
-                # least traffic: read x and identity, write out, once each
-                nbytes += 3 * args[0].numel() * args[0].element_size()
+                nbytes += b_c
+                devs.append(device_rate(
+                    f"{tag} drop={p}", lambda: k1.se_epilogue(*args, drop_rate=p, generator=g_mc),
+                    EPI_KERNELS, b_c / HBM_BYTES_PER_S * 1e3, nbytes=b_c))
             del args, out, keep, rows
     torch.cuda.empty_cache()
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    device = ("device not measured" if None in devs else
+              f"device {sum(devs):.4f} ms ({100 * bound / sum(devs):.1f} % of the bound)")
     log(f"  bf16 sum over C: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
-        f"{bound:.4f} ms (bytes)")
+        f"{bound:.4f} ms (bytes); {device}")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None}
 
 
 def phase_epilogue_hybrid():
-    log("== phase 3a (hybrid-nb): se_epilogue vs plain at 128x128 maps, drop 0 "
+    log("== phase 3a (hybrid-nb): se_epilogue (CUDA) vs plain at 128x128 maps, drop 0 "
         "(normal: N=8, tta: N=32)")
     g = gen(5)
     for n in (8, 32):
@@ -374,9 +450,12 @@ def phase_epilogue_hybrid():
                 if dtype == torch.bfloat16:
                     t_k = cuda_time(lambda: k1.se_epilogue(*args))
                     t_p = cuda_time(lambda: k1.se_epilogue_ref(*args))
-                    bound = 3 * args[0].numel() * 2 / HBM_BYTES_PER_S * 1e3
+                    b_c = 3 * args[0].numel() * 2
+                    bound = b_c / HBM_BYTES_PER_S * 1e3
                     log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms, bound "
-                        f"{bound:.4f} ms (bytes) (median)")
+                        f"{bound:.4f} ms (bytes, {b_c / 1e6:.1f} MB) (median)")
+                    device_rate(tag, lambda: k1.se_epilogue(*args), EPI_KERNELS, bound,
+                                nbytes=b_c)
                 del args
     torch.cuda.empty_cache()
 
@@ -418,7 +497,7 @@ def phase_conv(n):
                 turns_k += t_kt
                 lib_ms += t_c
                 devs.append(device_rate(tag, lambda: k2.conv3x3_bn_gelu(*args),
-                                        ("conv3x3_bn_gelu_wgmma",), site_flop, bound))
+                                        ("conv3x3_bn_gelu_wgmma",), bound, flop=site_flop))
                 if cout % 256 == 0:  # the channel tile, chosen by this comparison
                     t256, t128 = in_turns(lambda: k2.conv3x3_bn_gelu(*args, _tile_n=256),
                                           lambda: k2.conv3x3_bn_gelu(*args, _tile_n=128), reps=5)
@@ -482,7 +561,7 @@ def phase_flash_forward():
             log(f"  {tag}: in turns kernel {t_kt:.4f} ms, SDPA {t_lt:.4f} ms, ratio "
                 f"{t_kt / t_lt:.3f}")
             device_rate(tag, lambda: fa.flash_forward(q, k, v, scale), ("flash_fwd_wgmma",),
-                        flop, bound)
+                        bound, flop=flop)
         res[(bh, d, dtype)] = (t_k, t_p, t_l, bound)
         del q, k, v, q4, k4, v4
         torch.cuda.empty_cache()
@@ -574,10 +653,10 @@ def phase_dwi_norm():
             bound = 2 * img.numel() * img.element_size() / HBM_BYTES_PER_S * 1e3
             log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
                 f"{bound:.4f} ms (bytes, {2 * img.numel() * img.element_size() / 1e6:.1f} MB)")
-            dev, host = launch_costs(lambda: dwi_norm.dwi_normalize(img, (-3.0, 3.0), True, True),
-                                     ("_partials_kernel", "_merge_kernel", "_normalize_kernel"))
-            log(f"  {tag}: device {dev:.4f} ms per call in its 3 kernels (profiler), host "
-                f"{host:.4f} ms per call to enqueue them")
+            device_rate(f"{tag} (its 3 kernels)",
+                        lambda: dwi_norm.dwi_normalize(img, (-3.0, 3.0), True, True),
+                        ("_partials_kernel", "_merge_kernel", "_normalize_kernel"), bound,
+                        nbytes=2 * img.numel() * img.element_size())
             res[(n, dtype)] = (t_k, t_p, bound)
             del img
         del base
@@ -614,10 +693,8 @@ def phase_histogram(dce_norm):
         bound = flat.numel() * 4 / HBM_BYTES_PER_S * 1e3  # one read of the rows
         log(f"  G={g_rows}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
             f"{bound:.4f} ms (bytes, {flat.numel() * 4 / 1e6:.1f} MB)")
-        dev, host = launch_costs(lambda: hist.histogram_percentiles(flat, LANDMARKS),
-                                 ("histogram_percentiles_kernel",))
-        log(f"  G={g_rows}: device {dev:.4f} ms per call (profiler), host {host:.4f} ms "
-            f"per call to enqueue it")
+        device_rate(f"G={g_rows}", lambda: hist.histogram_percentiles(flat, LANDMARKS),
+                    ("histogram_percentiles_kernel",), bound, nbytes=flat.numel() * 4)
         res[g_rows] = (t_k, t_p, bound)
     # the path that carries the kernel: nyul_transform_hist on one B=8 batch,
     # counts set to 0 just before and read just after
@@ -666,10 +743,9 @@ def phase_se_scale():
                 b = 2 * x.numel() * x.element_size()
                 log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
                     f"{b / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {b / 1e6:.1f} MB)")
-                dev, host = launch_costs(lambda: sek.se_scale(*args),
-                                         ("_pool_partials_kernel", "_mlp_kernel", "_scale_kernel"))
-                log(f"  {tag}: device {dev:.4f} ms per call in its 3 kernels (profiler), host "
-                    f"{host:.4f} ms per call to enqueue them")
+                device_rate(f"{tag} (its 3 kernels)", lambda: sek.se_scale(*args),
+                            ("_pool_partials_kernel", "_mlp_kernel", "_scale_kernel"),
+                            b / HBM_BYTES_PER_S * 1e3, nbytes=b)
                 ms += t_k
                 plain_ms += t_p
                 nbytes += b
@@ -868,18 +944,17 @@ def phase_prepare(cfg, raw):
 
 
 # ------------------------------------------------------------------ phase 5
-def raw_request(cfg, predict, g_data, g_mc=None):
-    """One request: B_SERVE raw NHWC volumes -> preprocessing -> predictor."""
+def raw_request(cfg, predict, g_data, g_mc=None, b=B_SERVE):
+    """One request: ``b`` raw NHWC volumes -> preprocessing -> predictor."""
     S = cfg.dwi_model.input_size
     adc_map = torch.full((S, S, 1), 0.5, device=DEV)
 
     def request():
         """Host seconds of the request; the preprocessing's and the
         predictor's device-stream ms (CUDA events) go to ``split``."""
-        dwi_raw = torch.rand(B_SERVE, S, S, cfg.dwi_base_channel_num, device=DEV,
+        dwi_raw = torch.rand(b, S, S, cfg.dwi_base_channel_num, device=DEV,
                              generator=g_data) * 1000.0
-        dce_raw = torch.rand(B_SERVE, S, S, cfg.dce_channel_num, device=DEV,
-                             generator=g_data)
+        dce_raw = torch.rand(b, S, S, cfg.dce_channel_num, device=DEV, generator=g_data)
         ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
         torch.cuda.synchronize()
         t0 = time.perf_counter()
@@ -894,6 +969,22 @@ def raw_request(cfg, predict, g_data, g_mc=None):
         return dt, mean, std
 
     return request
+
+
+def gate(name, cfg, launched, expect, mean, std, stochastic, b):
+    """The correctness gates of one request: launch counts, probabilities
+    finite, of shape (b, classes) and summing to 1, std finite (and > 0 for
+    MC)."""
+    if launched != expect:
+        raise AssertionError(f"{name} request launched {launched}, expected {expect}")
+    if mean.shape != (b, cfg.class_num) or not torch.isfinite(mean).all():
+        raise AssertionError("probabilities not finite or misshapen")
+    if not torch.isfinite(std).all():
+        raise AssertionError("std not finite")
+    if stochastic and not (std > 0).all():
+        raise AssertionError("MC std not strictly positive")
+    if (mean.sum(-1) - 1).abs().max().item() > 1e-3:
+        raise AssertionError("probabilities do not sum to 1")
 
 
 def serve(name, cfg, request, expect, stochastic):
@@ -914,16 +1005,7 @@ def serve(name, cfg, request, expect, stochastic):
         log(f"  {name} request {r}: {dt * 1e3:.2f} ms, {B_SERVE / dt:.2f} volumes/s "
             f"(preprocessing {request.split[0]:.3f} ms, predictor {request.split[1]:.3f} ms "
             f"by CUDA events), launches " + ", ".join(f"{k} +{v}" for k, v in rose.items() if v))
-        if rose != expect:
-            raise AssertionError(f"{name} request launched {rose}, expected {expect}")
-        if mean.shape != (B_SERVE, cfg.class_num) or not torch.isfinite(mean).all():
-            raise AssertionError("probabilities not finite or misshapen")
-        if not torch.isfinite(std).all():
-            raise AssertionError("std not finite")
-        if stochastic and not (std > 0).all():
-            raise AssertionError("MC std not strictly positive")
-        if (mean.sum(-1) - 1).abs().max().item() > 1e-3:
-            raise AssertionError("probabilities do not sum to 1")
+        gate(name, cfg, rose, expect, mean, std, stochastic, B_SERVE)
     launched = counts()
     med = statistics.median(lat)
     log(f"  {name}: median latency {med * 1e3:.2f} ms, {B_SERVE / med:.2f} volumes/s; "
@@ -949,7 +1031,35 @@ def phase_serve(cfg):
                                            "se_scale": 2 + n_suffix, "dwi_normalize": 1}
     log(f"  {cfg.mc_passes} MC passes x 4 views")
     launched = serve("tta_mc", cfg, request, expect, stochastic=True)
-    return launched, request
+    return launched, request, functools.partial(serve_large, cfg, predict, expect)
+
+
+def serve_large(cfg, predict, expect):
+    """One default ``tta_mc`` request at B_LARGE: the lean passes fold into
+    one batch of (mc_passes - 1) x 4 x B_LARGE maps, so kernel 1's largest
+    map passes 2^31 elements; counts set to 0 just before and read just
+    after."""
+    n_lean = (cfg.mc_passes - 1) * 4 * B_LARGE
+    epi = n_lean * 32 * 32 * max(EPI_CHANNELS)
+    neck = max(4 * B_LARGE * side * side * max(cin, cout) for _, cin, cout, side in NECKS)
+    log(f"== phase 5c: one tta_mc request at B={B_LARGE} in bf16: kernel 1's largest map "
+        f"{n_lean} x 32^2 x {max(EPI_CHANNELS)} = {epi / 2 ** 31:.3f} x 2^31 elements; "
+        f"kernel 2's largest map at {4 * B_LARGE} views {neck / 2 ** 31:.3f} x 2^31 (its "
+        f"32-bit guard {'not ' if neck < 2 ** 31 else ''}reached)")
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    request = raw_request(cfg, predict, gen(24), gen(25), b=B_LARGE)
+    reset_counts()
+    dt, mean, std = request()
+    launched = counts()
+    gate(f"tta_mc B={B_LARGE}", cfg, launched, expect, mean, std, True, B_LARGE)
+    log(f"  tta_mc B={B_LARGE}: {dt * 1e3:.2f} ms (first request at this B: cuDNN "
+        f"plans for new shapes included), preprocessing {request.split[0]:.3f} ms, predictor "
+        f"{request.split[1]:.3f} ms; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB; probabilities finite, "
+        f"summing to 1, std finite and > 0; launches as at B={B_SERVE}")
+    del request, mean, std
+    torch.cuda.empty_cache()
 
 
 def phase_serve_hybrid(hcfg):
@@ -966,6 +1076,17 @@ def phase_serve_hybrid(hcfg):
 
 
 # ------------------------------------------------------------------ phase 6
+# the hand-written kernels as the profiler names them, for phase 6
+PROFILE_KERNELS = {"kernel 1 se_epilogue (3 kernels a call)": EPI_KERNELS,
+                   "kernel 2 conv3x3_bn_gelu": ("conv3x3_bn_gelu",),
+                   "kernel 3 flash forward": ("flash_fwd",),
+                   "kernel 6 se_scale (3 kernels a call)": ("_pool_partials_kernel", "_mlp_kernel",
+                                                            "_scale_kernel"),
+                   "kernel 7 dwi_normalize (3 kernels a call)": ("_partials_kernel",
+                                                                 "_merge_kernel",
+                                                                 "_normalize_kernel")}
+
+
 def phase_profile(name, request):
     log(f"== phase 6: profiler breakdown of one more {name} request (device time by kernel)")
     from torch.profiler import ProfilerActivity, profile
@@ -977,6 +1098,15 @@ def phase_profile(name, request):
         f"{total / 1e3:.2f} ms ({100 * (1 - total / 1e3 / (dt * 1e3)):.1f} % idle)")
     for e in sorted(events, key=lambda e: -e.self_device_time_total)[:15]:
         log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    log("  device time of the hand-written kernels:")
+    for name, keys in PROFILE_KERNELS.items():
+        # a name counts where it starts the key or follows a non-name character
+        # (kernel 7's `_partials_kernel` is not kernel 6's `_pool_partials_kernel`)
+        hits = [e for e in events
+                if any(re.search(rf"(^|[^A-Za-z0-9_]){k}", e.key) for k in keys)]
+        if hits:
+            log(f"  {sum(e.self_device_time_total for e in hits) / 1e3:9.3f} ms "
+                f"{sum(e.count for e in hits):5d}x  {name}")
     log("  device time by the host op that launched it:")
     ops = [e for e in prof.key_averages()
            if e.device_type.name == "CPU" and e.self_device_time_total > 0]
@@ -1019,7 +1149,7 @@ def main():
     prep_launches = phase_prepare(cfg, raw)
     del raw
     # each served path: counts set to 0 just before it and read just after
-    tta_mc_launches, request = phase_serve(cfg)
+    tta_mc_launches, request, large = phase_serve(cfg)
     hybrid_launches, hybrid_request = phase_serve_hybrid(hcfg)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] for k in COUNTERS}
@@ -1031,9 +1161,10 @@ def main():
             raise AssertionError(f"{name} was not launched on its path")
     phase_profile("tta_mc", request)
     phase_profile("hybrid-nb normal", hybrid_request)
+    large()  # last: its maps take most of the card's memory
     log(f"== total {time.perf_counter() - t_start:.1f} s on {smi}")
     where = {
-        "se_epilogue": ("triton", "dmf_tpu_torch/ops/epilogue_triton.py",
+        "se_epilogue": ("cuda", "dmf_tpu_torch/csrc/se_epilogue.cu",
                         "dmf_tpu/ops/epilogue_pallas.py:222"),
         "conv3x3_bn_gelu": ("cuda", "dmf_tpu_torch/csrc/conv3x3_bn_gelu.cu",
                             "dmf_tpu/ops/conv3x3_pallas.py:217"),

@@ -10,8 +10,8 @@ Ported so far: fusion inference (``normal``/``tta``/``mc``/``tta_mc``) with
 two ResNet-50-backed encoders, the fusion head and the TTA x MC predictor;
 and the hybrid CNN->Transformer encoders without a backbone (``hybrid-nb``).
 The TPU kernels on those paths have hand-written Hopper counterparts:
-``ops/epilogue.py`` (Triton), ``ops/conv3x3.py`` and
-``ops/flash_attention.py`` (CUDA C++).
+``ops/epilogue.py``, ``ops/conv3x3.py`` and ``ops/flash_attention.py``
+(CUDA C++).
 """
 
 from .config import Config, default_parameters, resolve_backbone_config

@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import load_library
-from .prepared import prepared
+from .prepared import check_no_grad, prepared
 
 _SOURCES = ("conv3x3_bn_gelu.cu",)
 
@@ -96,8 +96,10 @@ def conv3x3_bn_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias,
 
     CPU tensors take :func:`conv3x3_bn_gelu_ref`; CUDA tensors launch the
     kernel (fp32 or bf16, ``channels_last``; bf16 needs Cin and Cout
-    multiples of 8) and raise on anything else.  ``_tile_n`` (128 or 256)
-    overrides :func:`tile_n` for the bf16 kernel, for measuring both.
+    multiples of 8) and raise on anything else.  The kernel has no backward,
+    so on the card a call that autograd would record raises; on the CPU the
+    plain version carries gradients.  ``_tile_n`` (128 or 256) overrides
+    :func:`tile_n` for the bf16 kernel, for measuring both.
     """
     if x.device.type == "cpu":
         return conv3x3_bn_gelu_ref(x, weight, conv_bias, bn_weight, bn_bias,
@@ -125,6 +127,8 @@ def conv3x3_bn_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias,
     if (max(x.numel(), n * h * w * cout, 9 * cin * cout) >= 2 ** 31
             or max(h, w) >= 2 ** 15):
         raise ValueError("conv3x3_bn_gelu: map too large for 32-bit offsets")
+    params = (weight, conv_bias, bn_weight, bn_bias, bn_mean, bn_var)
+    check_no_grad("conv3x3_bn_gelu", x, *(p for p in params if p is not None))
     wmat, s, t = conv_weights(weight, conv_bias, bn_weight, bn_bias, bn_mean, bn_var, eps,
                               x.dtype)
     out = torch.empty((n, cout, h, w), device=x.device, dtype=x.dtype,

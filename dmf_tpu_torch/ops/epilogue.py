@@ -2,9 +2,9 @@
 
 Counterpart of ``dmf_tpu/ops/epilogue_pallas.py::se_epilogue`` (the Pallas
 kernels ``_epilogue_kernel`` / ``_epilogue_kernel_t``).  The wrapper runs the
-plain version below for tensors on the CPU, and the Triton kernel in
-``epilogue_triton.py`` for tensors on a CUDA device; there is no fallback
-from one to the other.
+plain version below for tensors on the CPU, and the CUDA kernel
+``csrc/se_epilogue.cu`` (through ``epilogue_cuda.py``) for tensors on a CUDA
+device; there is no fallback from one to the other.
 
 Rounding points follow the TPU kernel (epilogue_pallas.py:226-252): the
 residual add and GELU run in fp32 and ``y`` is rounded to the map dtype; the
@@ -63,7 +63,7 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """Fused ``SE(dropout(gelu(x + identity)))``; returns the scaled map.
 
-    CPU tensors take :func:`se_epilogue_ref`.  CUDA tensors launch the Triton
+    CPU tensors take :func:`se_epilogue_ref`.  CUDA tensors launch the CUDA
     kernel, which takes ``channels_last`` maps in fp32 or bf16 and raises on
     anything else.  ``drop_rate > 0`` needs ``generator`` (on the tensors'
     device): it supplies the mask on the CPU and the kernel's Philox seed on
@@ -77,8 +77,8 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
                                generator=generator)
     if x.device.type != "cuda":
         raise ValueError(f"se_epilogue: unsupported device {x.device}")
-    from .epilogue_triton import draw_seed, launch_se_epilogue
-    from .se_triton import check_no_grad
+    from .epilogue_cuda import draw_seed, launch_se_epilogue
+    from .prepared import check_no_grad
 
     check_no_grad("se_epilogue", x, identity, w1, b1, w2, b2)
     seed = draw_seed(generator, x.device) if drop_rate > 0.0 else None

@@ -52,7 +52,8 @@ def se_scale(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
         return se_scale_ref(x, w1, b1, w2, b2)
     if x.device.type != "cuda":
         raise ValueError(f"se_scale: unsupported device {x.device}")
-    from .se_triton import check_no_grad, launch_se_scale
+    from .prepared import check_no_grad
+    from .se_triton import launch_se_scale
 
     check_no_grad("se_scale", x, w1, b1, w2, b2)
 

@@ -26,9 +26,8 @@ a VMEM budget and the ``custom_vmap`` pass folding (the MC passes are a
 batch dimension here).
 
 ``_se_mlp`` (pool rounding, W1 -> GELU -> round -> W2 -> sigmoid) and
-``_gelu`` are the one copy of the SE MLP and its rounding points: the ResLite
-epilogue kernel (``epilogue_triton.py``) calls them too, and
-:func:`mlp_weights` prepares the weights of both, once per parameter set.
+``_gelu`` hold the SE MLP and its rounding points; the weights come from
+:func:`~dmf_tpu_torch.ops.prepared.mlp_weights`, once per parameter set.
 
 ``triton`` is imported, and the kernels are defined, on first use only.
 """
@@ -42,7 +41,7 @@ from typing import Tuple
 import torch
 
 from .cuda_build import BUILD_DIR
-from .prepared import prepared
+from .prepared import mlp_weights
 
 
 @functools.lru_cache(maxsize=None)
@@ -128,27 +127,6 @@ def _kernels():
         tl.store(out_ptr + off, (x * s[None, :]).to(out_ptr.dtype.element_ty), mask=m)
 
     return triton
-
-
-def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
-    """Raise where autograd would record the call: the SE kernels have no
-    backward, and a silent gap in the graph would train nothing."""
-    if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
-        raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it under "
-                           f"torch.no_grad() (training is not ported)")
-
-
-def mlp_weights(w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor, b2: torch.Tensor,
-                c: int, mid: int, dt: torch.dtype) -> Tuple[torch.Tensor, ...]:
-    """``(W1 (mid, C), b1, W2^T (mid, C), b2)`` in the map dtype, contiguous,
-    as the SE MLP reads them; made once per parameter set and reused until a
-    parameter changes (:func:`~dmf_tpu_torch.ops.prepared.prepared`), so a
-    call pays only its launches."""
-    return prepared((w1, b1, w2, b2), ("se_mlp", dt), lambda: (
-        w1.detach().reshape(mid, c).to(dt, copy=True),
-        b1.detach().reshape(mid).to(dt, copy=True),
-        w2.detach().reshape(c, mid).t().to(dt, copy=True).contiguous(),
-        b2.detach().reshape(c).to(dt, copy=True)))
 
 
 def launch_se_scale(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,

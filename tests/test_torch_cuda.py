@@ -42,27 +42,65 @@ def _cl(t):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c", [128, 200])
-def test_se_epilogue_kernel(dev, dtype, c):
-    from dmf_tpu_torch.ops import epilogue_triton
+@pytest.mark.parametrize("n,h,w,c", [
+    (6, 12, 10, 128),   # HW = 120, not a multiple of the pixel block
+    (6, 12, 10, 200),   # C not a power of two
+    (1, 33, 17, 200),   # N = 1, HW = 561
+    (3, 16, 16, 512),
+    (301, 3, 3, 256),   # 3 maps per MLP block on 132 SMs, the last block with one
+    (2, 5, 7, 1002)])   # C not a multiple of the vector: scalar loads, 1024 threads
+def test_se_epilogue_kernel(dev, dtype, n, h, w, c):
+    from dmf_tpu_torch.ops import epilogue_cuda
 
     g = torch.Generator(device=dev).manual_seed(0)
-    x = _cl(torch.randn(6, c, 12, 10, device=dev, generator=g).to(dtype))
-    idn = _cl(torch.randn(6, c, 12, 10, device=dev, generator=g).to(dtype))
+    x = _cl(torch.randn(n, c, h, w, device=dev, generator=g).to(dtype))
+    idn = _cl(torch.randn(n, c, h, w, device=dev, generator=g).to(dtype))
     w1 = torch.randn(c // 2, c, device=dev, generator=g) * c ** -0.5
     w2 = torch.randn(c, c // 2, device=dev, generator=g) * c ** -0.5
     b1 = torch.randn(c // 2, device=dev, generator=g) * 0.1
     b2 = torch.randn(c, device=dev, generator=g) * 0.1
     args = (x, idn, w1, b1, w2, b2)
     k1.se_epilogue.launches = 0
-    _close(k1.se_epilogue(*args), k1.se_epilogue_ref(*args), dtype)
+    ref = k1.se_epilogue_ref(*args)
+    out = k1.se_epilogue(*args)
+    _close(out, ref, dtype)
+    # a second call gives the same bits: the pool's sum order is fixed
+    assert torch.equal(out, k1.se_epilogue(*args))
     out = k1.se_epilogue(*args, drop_rate=0.3, generator=torch.Generator(device=dev).manual_seed(4))
-    seed = epilogue_triton.draw_seed(torch.Generator(device=dev).manual_seed(4), dev)
-    keep = epilogue_triton.keep_mask(x, 0.3, seed)
+    seed = epilogue_cuda.draw_seed(torch.Generator(device=dev).manual_seed(4), dev)
+    keep = epilogue_cuda.keep_mask(x, 0.3, seed)
     _close(out, k1.se_epilogue_ref(*args, drop_rate=0.3, keep=keep), dtype)
-    assert k1.se_epilogue.launches == 2
+    assert k1.se_epilogue.launches == 3
     with pytest.raises(ValueError, match="channels_last"):
         k1.se_epilogue(x.contiguous(), idn.contiguous(), w1, b1, w2, b2)
+
+
+@pytest.mark.parametrize("base", [0, 2 ** 31 - 40, 2 ** 32 - 41, 2 ** 40 + 3])
+def test_keep_mask_bits_match_philox_past_2_31(dev, base):
+    """The kernel's keep bits equal the plain numpy Philox4x32-10 at element
+    indices that straddle 2^31 and 2^32 (64-bit counter and offsets)."""
+    from dmf_tpu_torch.ops import epilogue_cuda
+
+    x = _cl(torch.zeros(2, 5, 3, 7, device=dev))
+    for seed in (12345, (0x5EED << 32) | 77, 2 ** 63 - 2):
+        got = epilogue_cuda.keep_mask(x, 0.2, torch.tensor([seed], device=dev), base=base)
+        flat = got.permute(0, 2, 3, 1).reshape(-1).cpu().numpy()
+        assert (flat == epilogue_cuda.keep_mask_ref(base, x.numel(), 0.2, seed)).all()
+
+
+def test_conv3x3_refuses_autograd(dev):
+    """Kernel 2 has no backward: a call autograd would record raises, and
+    under no_grad it runs."""
+    x = _cl(torch.randn(1, 16, 8, 8, device=dev))
+    wt = (torch.randn(16, 16, 3, 3, device=dev) * 0.1).requires_grad_()
+    ones, zeros = torch.ones(16, device=dev), torch.zeros(16, device=dev)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k2.conv3x3_bn_gelu(x, wt, None, ones, zeros, zeros, ones)
+    with pytest.raises(RuntimeError, match="no backward"):
+        k2.conv3x3_bn_gelu(x.clone().requires_grad_(), wt.detach(), None, ones, zeros,
+                           zeros, ones)
+    with torch.no_grad():
+        assert k2.conv3x3_bn_gelu(x, wt, None, ones, zeros, zeros, ones).shape == x.shape
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

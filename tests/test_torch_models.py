@@ -196,7 +196,7 @@ def test_strict_load_accounting(encoder_pair):
 
 def test_import_is_jax_free():
     code = ("import sys, dmf_tpu_torch, dmf_tpu_torch.models, dmf_tpu_torch.evals.predict, "
-            "dmf_tpu_torch.data.preprocess, dmf_tpu_torch.ops.epilogue_triton, "
+            "dmf_tpu_torch.data.preprocess, dmf_tpu_torch.ops.epilogue_cuda, "
             "dmf_tpu_torch.ops.conv3x3; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'triton'))]; "
             "assert not bad, bad")

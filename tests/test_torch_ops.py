@@ -164,6 +164,93 @@ class TestConv3x3Plain:
         assert conv3x3_bn_gelu.launches == 0
 
 
+    def test_cpu_route_carries_gradients(self, conv):
+        """The other half of the kernel's no-backward contract: on the CPU the
+        wrapper is the plain version, and autograd reaches the weights."""
+        args = list(_port_conv_args(conv))
+        args[1] = args[1].clone().requires_grad_()
+        args[3] = args[3].clone().requires_grad_()
+        conv3x3_bn_gelu(*args).square().sum().backward()
+        ref = [a.detach().clone().requires_grad_() if i in (1, 3) else a
+               for i, a in enumerate(args)]
+        conv3x3_bn_gelu_ref(*ref).square().sum().backward()
+        for i in (1, 3):
+            assert args[i].grad is not None and args[i].grad.abs().max() > 0
+            assert torch.equal(args[i].grad, ref[i].grad)
+
+
+# Random123's known answers for Philox4x32-10 (kat_vectors): counter, key, output
+PHILOX_KAT = [
+    ((0, 0, 0, 0), (0, 0), (0x6627e8d5, 0xe169c58d, 0xbc57ac4c, 0x9b00dbd8)),
+    ((0xffffffff,) * 4, (0xffffffff,) * 2, (0x408f276d, 0x41c83b0e, 0xa20bc7c6, 0x6d5451fd)),
+    ((0x243f6a88, 0x85a308d3, 0x13198a2e, 0x03707344), (0xa4093822, 0x299f31d0),
+     (0xd16cfe09, 0x94fdcceb, 0x5001e420, 0x24126ea1)),
+]
+
+
+@pytest.mark.parametrize("ctr,key,want", PHILOX_KAT)
+def test_philox_known_answers(ctr, key, want):
+    """The plain Philox4x32-10 that the card's keep bits are held against."""
+    from dmf_tpu_torch.ops.epilogue_cuda import philox4x32
+
+    assert philox4x32(ctr, key).tolist() == list(want)
+    batch = philox4x32(np.array([ctr, ctr], dtype=np.uint32), key)
+    assert batch.shape == (2, 4) and batch.tolist() == [list(want)] * 2
+
+
+def test_keep_mask_ref_counter_is_64_bit():
+    """Element e draws word e % 4 of Philox at counter (e/4 lo, e/4 hi, 0, 0)
+    keyed on the seed's two words: bits past 2^31 and 2^32 are their own, a
+    window is a slice of a longer one, and the keep rate is 1 - p."""
+    from dmf_tpu_torch.ops.epilogue_cuda import draw_seed, keep_mask_ref, philox4x32
+
+    p, seed = 0.2, (7 << 32) | 12345
+    for base in (2 ** 31 - 6, 2 ** 32 - 6, 2 ** 40 + 1):
+        got = keep_mask_ref(base, 12, p, seed)
+        assert np.array_equal(got, keep_mask_ref(base - 4, 16, p, seed)[4:])
+        for i in range(12):
+            e = base + i
+            word = philox4x32([e // 4 % 2 ** 32, e // 4 >> 32, 0, 0], (12345, 7))[e % 4]
+            assert got[i] == (np.float32(word >> 8) * np.float32(2.0 ** -24)
+                              < np.float32(1 - p))
+    words = lambda b, s: philox4x32([b % 2 ** 32, b >> 32, 0, 0], (s % 2 ** 32, s >> 32))
+    assert not np.array_equal(words(2 ** 32 + 5, seed), words(5, seed))  # the high word counts
+    assert not np.array_equal(words(5, seed), words(5, 12345))           # so does the seed's
+    n = 200_000
+    frac = keep_mask_ref(2 ** 32 - n // 2, n, p, seed).mean()
+    assert abs(frac - (1 - p)) < 5 * np.sqrt(p * (1 - p) / n)
+    s = draw_seed(torch.Generator().manual_seed(0), "cpu")
+    assert s.dtype == torch.int64 and s.shape == (1,) and 0 <= int(s) < 2 ** 63 - 1
+
+
+@pytest.mark.parametrize("n,hw,c,esize", [
+    (8, 128 * 128, 256, 2), (32, 128 * 128, 128, 2),    # hybrid-nb normal, tta
+    (288, 32 * 32, 512, 2), (288, 32 * 32, 128, 4),     # tta_mc lean passes at B=8
+    (4608, 32 * 32, 512, 2),                            # ... at B=128: 2.4e9 elements
+    (6, 12 * 10, 200, 4), (1, 33 * 17, 200, 2),         # ragged: C=200, HW % P, N=1
+    (2, 7 * 5, 1022, 4), (3, 9, 1002, 2)])              # scalar loads, 1024 threads
+def test_epilogue_plan_fits_the_kernel(n, hw, c, esize):
+    """The launch plan stays inside what ``se_epilogue_launch`` accepts and
+    fills the card: a block's row sums fit its 2048-float buffer, at most
+    1024 threads, 4 pixel blocks per SM wherever the map has the pixels,
+    and an MLP block per SM until the samples outnumber MAX_GROUP x SMs."""
+    from dmf_tpu_torch.ops.epilogue_cuda import BLOCKS_PER_SM, MAX_GROUP, plan
+
+    sms = 132
+    vec, p_blk, group = plan(n, hw, c, esize, True, sms)
+    assert vec == (16 // esize if c % (16 // esize) == 0 else 1)
+    assert plan(n, hw, c, esize, False, sms)[0] == 1
+    groups = c // vec
+    threads = 256 if groups <= 256 else -(-groups // 32) * 32
+    rows = threads // groups
+    assert threads <= 1024 and rows * c <= 2048
+    assert min(rows, hw) <= p_blk <= hw
+    blocks = n * -(-hw // p_blk)
+    assert blocks < 2 ** 31
+    assert blocks >= BLOCKS_PER_SM * sms or p_blk <= rows or p_blk == hw
+    assert 1 <= group <= MAX_GROUP and group * sms >= min(n, MAX_GROUP * sms)
+
+
 def test_build_digest_covers_shared_headers(tmp_path):
     """A library's build key takes every ``csrc/*.cuh`` beside its own
     sources, so an edit to a shared header rebuilds both wgmma libraries."""

@@ -184,20 +184,20 @@ def test_se_scale_wrapper_on_cpu_is_plain_and_uncounted():
 def test_se_mlp_weights_prepared_once_per_parameter_set(dtype):
     """The SE kernels' weights: (W1, b1, W2^T, b2) in the map dtype, reused
     while the parameters are unchanged, made anew after an in-place update."""
-    from dmf_tpu_torch.ops import se_triton
+    from dmf_tpu_torch.ops import prepared
 
     block = SEBlock(14)
     w1, b1, w2, b2 = block.fc[1].weight, block.fc[1].bias, block.fc[3].weight, block.fc[3].bias
-    first = se_triton.mlp_weights(w1, b1, w2, b2, 14, 7, dtype)
+    first = prepared.mlp_weights(w1, b1, w2, b2, 14, 7, dtype)
     assert [t.shape for t in first] == [(7, 14), (7,), (7, 14), (14,)]
     assert all(t.dtype == dtype and t.is_contiguous() for t in first)
     assert torch.equal(first[0], w1.reshape(7, 14).to(dtype))
     assert torch.equal(first[2], w2.reshape(14, 7).t().to(dtype))
-    again = se_triton.mlp_weights(w1, b1, w2, b2, 14, 7, dtype)
+    again = prepared.mlp_weights(w1, b1, w2, b2, 14, 7, dtype)
     assert all(a is b for a, b in zip(first, again))
     with torch.no_grad():
         w2.mul_(2.0)
-    changed = se_triton.mlp_weights(w1, b1, w2, b2, 14, 7, dtype)
+    changed = prepared.mlp_weights(w1, b1, w2, b2, 14, 7, dtype)
     assert changed[2] is not first[2]
     assert torch.equal(changed[2], w2.reshape(14, 7).t().to(dtype))
 
@@ -246,14 +246,14 @@ def test_conv_weights_prepared_once_per_parameter_set(dtype):
 
 def test_se_kernels_refuse_autograd():
     """The SE kernels have no backward: a call autograd would record raises."""
-    from dmf_tpu_torch.ops import se_triton
+    from dmf_tpu_torch.ops import prepared
 
     w = torch.zeros(3, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
-        se_triton.check_no_grad("se_scale", torch.zeros(3), w)
+        prepared.check_no_grad("se_scale", torch.zeros(3), w)
     with torch.no_grad():
-        se_triton.check_no_grad("se_scale", torch.zeros(3), w)
-    se_triton.check_no_grad("se_scale", torch.zeros(3), w.detach())
+        prepared.check_no_grad("se_scale", torch.zeros(3), w)
+    prepared.check_no_grad("se_scale", torch.zeros(3), w.detach())
 
 
 @pytest.mark.parametrize("c", [14, 6])
