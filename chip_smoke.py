@@ -3,10 +3,10 @@
     python3 chip_smoke.py
 
 Phases, each printing its own lines:
-  1. card identity (nvidia-smi name and power limit, torch/triton versions);
-  2. kernel build from the sources in this checkout (the four CUDA
-     libraries by nvcc in parallel, then the Triton JIT), with ptxas
-     registers/spills and the wgmma kernels' dynamic shared memory;
+  1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
+  2. kernel build from the sources in this checkout (the six CUDA
+     libraries by nvcc in parallel), with ptxas registers, spills and static
+     shared memory, and the wgmma kernels' dynamic shared memory;
   3. each hand-written kernel vs its plain PyTorch version at the served
      paths' shapes, fp32 (TF32 off) and bf16, with errors beside stated
      tolerances and median times beside the plain version's, the bound and
@@ -73,7 +73,7 @@ from dmf_tpu_torch.data.synthetic import make_synthetic_arrays  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_fusion_predictor  # noqa: E402
 from dmf_tpu_torch.models import build_fusion_models  # noqa: E402
 from dmf_tpu_torch.ops import conv3x3 as k2  # noqa: E402
-from dmf_tpu_torch.ops import dwi_norm  # noqa: E402
+from dmf_tpu_torch.ops import dwi_norm, dwi_norm_cuda, se_cuda  # noqa: E402
 from dmf_tpu_torch.ops import epilogue as k1  # noqa: E402
 from dmf_tpu_torch.ops import epilogue_cuda  # noqa: E402
 from dmf_tpu_torch.ops import flash_attention as fa  # noqa: E402
@@ -100,8 +100,13 @@ NECKS = (("neck_f1_conv0", 256, 128, 64), ("neck_f1_conv1", 128, 128, 64),
 # hybrid-nb geometry at 256^2 inputs: SE epilogue maps of block1/block2 at
 # 128^2 x 128/256; attention over 64^2 = 4096 tokens, 4 heads of 128
 HYB_EPI_CHANNELS = (128, 256)
-# kernel 1's three kernels, as the profiler names them
-EPI_KERNELS = ("epi_y_partials", "epi_mlp", "epi_scale")
+# the kernels of the SE epilogue (kernel 1), the standalone SE (kernel 6) and
+# the DWI z-score (kernel 7), as the profiler names them; no name is part of
+# another kernel's name (the SE MLP kernel, shared by kernels 1 and 6, carries
+# its caller's tag: se_epilogue_mlp, se_scale_mlp)
+EPI_KERNELS = ("epi_y_partials", "se_epilogue_mlp", "epi_scale")
+SE_KERNELS = ("se_pool_partials", "se_scale_mlp", "se_apply")
+DWI_KERNELS = ("dwi_partials", "dwi_merge", "dwi_apply")
 SEQ, HEAD_DIM, HEADS = 4096, 128, 4
 # standalone SE maps (N, side, C) of a tta_mc request at B=8: modality
 # attention on the dwi and dce inputs (4 views), fusion_se on the lean chunk
@@ -174,7 +179,7 @@ def in_turns(kernel, library, **kw):
 def device_rate(tag, fn, kernels, bound, flop=0, nbytes=0):
     """Log and return ``fn``'s device ms per call in ``kernels`` (profiler),
     with its TFLOP/s (``flop``) or GB/s (``nbytes``) and its share of the
-    bound, beside its host ms per call to enqueue them.  A profiler session
+    bound, and its host ms per call to enqueue them: ``(device, host)``.  A profiler session
     at times records only some of the kernels' launches, or none: it is taken
     again, up to three sessions, and the time is None ("not measured") if
     none records every one of ``kernels``; a device time of 0 is never
@@ -189,10 +194,10 @@ def device_rate(tag, fn, kernels, bound, flop=0, nbytes=0):
             log(f"  {tag}: device {dev:.4f} ms per call{split} (profiler), {rate}, "
                 f"{100 * bound / dev:.1f} % of the bound; host {host:.4f} ms per call "
                 f"to enqueue")
-            return dev
+            return dev, host
     log(f"  {tag}: device time not measured (no profiler session of three recorded "
         f"every one of {'/'.join(kernels)}); host {host:.4f} ms per call to enqueue")
-    return None
+    return None, host
 
 
 def check(name, got, ref, dtype):
@@ -264,8 +269,7 @@ def phase_identity():
                           "--format=csv,noheader"], capture_output=True, text=True,
                          check=True, timeout=60).stdout.strip().splitlines()[0]
     log(smi)
-    import triton
-    log(f"torch {torch.__version__} cuda {torch.version.cuda} triton {triton.__version__} "
+    log(f"torch {torch.__version__} cuda {torch.version.cuda} "
         f"device {torch.cuda.get_device_name(0)} count {torch.cuda.device_count()}")
     return smi
 
@@ -277,7 +281,8 @@ def phase_build():
 
     t0 = time.perf_counter()
     libs = {"conv3x3_bn_gelu": k2._library, "flash_attention": fa._library,
-            "histogram_percentiles": hist._library, "se_epilogue": epilogue_cuda._library}
+            "histogram_percentiles": hist._library, "se_epilogue": epilogue_cuda._library,
+            "se_scale": se_cuda._library, "dwi_norm": dwi_norm_cuda._library}
     with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
         for f in [pool.submit(build) for build in libs.values()]:
             f.result()
@@ -298,18 +303,6 @@ def phase_build():
     log(f"  dynamic shared memory per block: flash_fwd_wgmma D=128 {flash_smem(128)} B, "
         f"D=64 {flash_smem(64)} B; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(256)} B, "
         f"128x128 {conv_smem(128)} B")
-    t0 = time.perf_counter()
-    x = cl(torch.randn(2, 128, 8, 8, device=DEV))
-    w1, w2 = torch.randn(64, 128, device=DEV), torch.randn(128, 64, device=DEV)
-    b1, b2 = torch.zeros(64, device=DEV), torch.zeros(128, device=DEV)
-    for dtype in (torch.float32, torch.bfloat16):
-        sek.se_scale(x.to(dtype), w1, b1, w2, b2)
-        for flags in ((True, True), (True, False), (False, False)):
-            dwi_norm.dwi_normalize(torch.rand(2, 8, 8, 13, device=DEV).to(dtype), (-3.0, 3.0),
-                                   *flags)
-    torch.cuda.synchronize()
-    log(f"  se_scale + dwi_normalize (Triton JIT, fp32 + bf16): "
-        f"{time.perf_counter() - t0:.2f} s")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -425,7 +418,7 @@ def phase_epilogue(n_passes, n_views):
                 nbytes += b_c
                 devs.append(device_rate(
                     f"{tag} drop={p}", lambda: k1.se_epilogue(*args, drop_rate=p, generator=g_mc),
-                    EPI_KERNELS, b_c / HBM_BYTES_PER_S * 1e3, nbytes=b_c))
+                    EPI_KERNELS, b_c / HBM_BYTES_PER_S * 1e3, nbytes=b_c)[0])
             del args, out, keep, rows
     torch.cuda.empty_cache()
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -497,7 +490,7 @@ def phase_conv(n):
                 turns_k += t_kt
                 lib_ms += t_c
                 devs.append(device_rate(tag, lambda: k2.conv3x3_bn_gelu(*args),
-                                        ("conv3x3_bn_gelu_wgmma",), bound, flop=site_flop))
+                                        ("conv3x3_bn_gelu_wgmma",), bound, flop=site_flop)[0])
                 if cout % 256 == 0:  # the channel tile, chosen by this comparison
                     t256, t128 = in_turns(lambda: k2.conv3x3_bn_gelu(*args, _tile_n=256),
                                           lambda: k2.conv3x3_bn_gelu(*args, _tile_n=128), reps=5)
@@ -623,7 +616,7 @@ def phase_flash_backward():
 
 
 def phase_dwi_norm():
-    log(f"== phase 3e: dwi_normalize (Triton) vs plain, (8 served | 256 prepared, "
+    log(f"== phase 3e: dwi_normalize (CUDA) vs plain, (8 served | 256 prepared, "
         f"{IMAGE}, {IMAGE}, 13), raw intensities 10-2010")
     g = gen(8)
     errs, res = [], {}
@@ -653,10 +646,9 @@ def phase_dwi_norm():
             bound = 2 * img.numel() * img.element_size() / HBM_BYTES_PER_S * 1e3
             log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
                 f"{bound:.4f} ms (bytes, {2 * img.numel() * img.element_size() / 1e6:.1f} MB)")
-            device_rate(f"{tag} (its 3 kernels)",
+            device_rate(f"{tag} (its {len(DWI_KERNELS)} kernels)",
                         lambda: dwi_norm.dwi_normalize(img, (-3.0, 3.0), True, True),
-                        ("_partials_kernel", "_merge_kernel", "_normalize_kernel"), bound,
-                        nbytes=2 * img.numel() * img.element_size())
+                        DWI_KERNELS, bound, nbytes=2 * img.numel() * img.element_size())
             res[(n, dtype)] = (t_k, t_p, bound)
             del img
         del base
@@ -717,10 +709,10 @@ def phase_histogram(dce_norm):
 
 
 def phase_se_scale():
-    log("== phase 3g: se_scale (Triton) vs plain SEBlock, (N, side^2, C) = "
+    log("== phase 3g: se_scale (CUDA) vs plain SEBlock, (N, side^2, C) = "
         + ", ".join(f"({n}, {s}^2, {c})" for n, s, c in SE_MAPS))
     g = gen(9)
-    errs, ms, plain_ms, nbytes = [], 0.0, 0.0, 0
+    errs, ms, plain_ms, nbytes, devs, hosts = [], 0.0, 0.0, 0, [], []
     for n, side, c in SE_MAPS:
         mid = max(c // 2, 1)
         w1 = torch.randn(mid, c, 1, 1, device=DEV, generator=g) * c ** -0.5
@@ -743,9 +735,10 @@ def phase_se_scale():
                 b = 2 * x.numel() * x.element_size()
                 log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
                     f"{b / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {b / 1e6:.1f} MB)")
-                device_rate(f"{tag} (its 3 kernels)", lambda: sek.se_scale(*args),
-                            ("_pool_partials_kernel", "_mlp_kernel", "_scale_kernel"),
-                            b / HBM_BYTES_PER_S * 1e3, nbytes=b)
+                dev, host = device_rate(f"{tag} (its 3 kernels)", lambda: sek.se_scale(*args),
+                                        SE_KERNELS, b / HBM_BYTES_PER_S * 1e3, nbytes=b)
+                devs.append(dev)
+                hosts.append(host)
                 ms += t_k
                 plain_ms += t_p
                 nbytes += b
@@ -753,8 +746,11 @@ def phase_se_scale():
         del base
         torch.cuda.empty_cache()
     bound = nbytes / HBM_BYTES_PER_S * 1e3
+    device = ("device not measured" if None in devs else
+              f"device {sum(devs):.4f} ms ({100 * bound / sum(devs):.1f} % of the bound)")
     log(f"  bf16 sum over the four calls of a tta_mc request: kernel {ms:.4f} ms, plain "
-        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes)")
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes); {device}; host {sum(hosts):.4f} ms "
+        f"to enqueue")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None}
 
@@ -1080,11 +1076,8 @@ def phase_serve_hybrid(hcfg):
 PROFILE_KERNELS = {"kernel 1 se_epilogue (3 kernels a call)": EPI_KERNELS,
                    "kernel 2 conv3x3_bn_gelu": ("conv3x3_bn_gelu",),
                    "kernel 3 flash forward": ("flash_fwd",),
-                   "kernel 6 se_scale (3 kernels a call)": ("_pool_partials_kernel", "_mlp_kernel",
-                                                            "_scale_kernel"),
-                   "kernel 7 dwi_normalize (3 kernels a call)": ("_partials_kernel",
-                                                                 "_merge_kernel",
-                                                                 "_normalize_kernel")}
+                   "kernel 6 se_scale (3 kernels a call)": SE_KERNELS,
+                   "kernel 7 dwi_normalize (3 kernels a call)": DWI_KERNELS}
 
 
 def phase_profile(name, request):
@@ -1101,7 +1094,7 @@ def phase_profile(name, request):
     log("  device time of the hand-written kernels:")
     for name, keys in PROFILE_KERNELS.items():
         # a name counts where it starts the key or follows a non-name character
-        # (kernel 7's `_partials_kernel` is not kernel 6's `_pool_partials_kernel`)
+        # (kernel 6's `se_apply` is not part of kernel 7's `dwi_apply`)
         hits = [e for e in events
                 if any(re.search(rf"(^|[^A-Za-z0-9_]){k}", e.key) for k in keys)]
         if hits:
@@ -1174,9 +1167,9 @@ def main():
                                    "dmf_tpu/ops/flash_attention.py:114"),
         "flash_attention_bwd_dkv": ("cuda", "dmf_tpu_torch/csrc/flash_attention.cu",
                                     "dmf_tpu/ops/flash_attention.py:144"),
-        "se_scale": ("triton", "dmf_tpu_torch/ops/se_triton.py",
+        "se_scale": ("cuda", "dmf_tpu_torch/csrc/se_scale.cu",
                      "dmf_tpu/ops/se_pallas.py:110"),
-        "dwi_normalize": ("triton", "dmf_tpu_torch/ops/dwi_norm_triton.py",
+        "dwi_normalize": ("cuda", "dmf_tpu_torch/csrc/dwi_norm.cu",
                           "dmf_tpu/ops/preprocess_pallas.py:28"),
         "histogram_percentiles": ("cuda", "dmf_tpu_torch/csrc/histogram_percentiles.cu",
                                   "dmf_tpu/ops/histogram_pallas.py:38"),

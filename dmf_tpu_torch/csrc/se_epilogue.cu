@@ -26,10 +26,11 @@
 //      as streaming so they leave L2 to y), y written to `out`, and the
 //      block's per-channel fp32 sum written as one row of partials (N, nb, C).
 //      No atomics: the sum order is fixed, so a result is the same run to run.
-//   2. epi_mlp, one block per G samples: sums the sample's nb partial rows in
-//      a fixed order, then pool -> W1 -> GELU -> W2 -> sigmoid into an fp32
-//      scale (N, C), with 16-byte loads of the partials and weights spread
-//      over slices of the rows.  Each row of W1 and W2^T is read once per G
+//   2. epi_mlp (se_mlp.cuh, shared with the standalone SE of se_scale.cu),
+//      one block per G samples: sums the sample's nb partial rows in a fixed
+//      order, then pool -> W1 -> GELU -> W2 -> sigmoid into an fp32 scale
+//      (N, C), with 16-byte loads of the partials and weights spread over
+//      slices of the rows.  Each row of W1 and W2^T is read once per G
 //      samples.
 //   3. epi_scale, one block per (sample, P pixels): out *= s in place.  It
 //      walks the blocks in the reverse of phase 1's order, so that the tiles
@@ -51,38 +52,16 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "se_mlp.cuh"
+
+struct se_epilogue_mlp;  // names this kernel's instance of se_mlp::epi_mlp
+
 namespace {
 
-constexpr int kThreads = 256;     // a block of phases 1 and 3 while C/VEC <= 256; phase 2
-constexpr int kMaxGroup = 8;      // samples per block of phase 2
-constexpr int kRows = 4;          // rows of W1 a warp of phase 2 takes at a time
+using namespace se_mlp;
+
+constexpr int kThreads = 256;     // a block of phases 1 and 3 while C/VEC <= 256
 constexpr int kRedFloats = 2048;  // phase 1's row sums: rows x C <= threads x VEC
-
-// element storage: fp32 as float, bf16 as its 16 bits
-__device__ __forceinline__ float to_f(float v) { return v; }
-__device__ __forceinline__ float to_f(uint16_t v) {
-  return __uint_as_float(static_cast<unsigned>(v) << 16);
-}
-template <typename S> __device__ __forceinline__ S from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ uint16_t from_f<uint16_t>(float v) {
-  return __bfloat16_as_ushort(__float2bfloat16_rn(v));
-}
-// round an fp32 value to the map dtype and back
-template <typename S> __device__ __forceinline__ float round_t(float v) {
-  return to_f(from_f<S>(v));
-}
-
-__device__ __forceinline__ float gelu(float v) {
-  return 0.5f * v * (1.0f + erff(v * 0.7071067811865476f));
-}
-
-// a VEC-element vector of S as one load or store
-template <int BYTES> struct Raw;
-template <> struct Raw<16> { using type = uint4; };
-template <> struct Raw<8> { using type = uint2; };
-template <> struct Raw<4> { using type = unsigned; };
-template <> struct Raw<2> { using type = unsigned short; };
 
 // Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32_R with R = 10)
 __device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
@@ -134,18 +113,6 @@ __device__ __forceinline__ unsigned keep_bits(uint2 key, long long e, float keep
   return bits;
 }
 
-struct Tile {  // the (sample, pixel block) of a block of phases 1 and 3
-  long long n, p0, p1;
-};
-
-__device__ __forceinline__ Tile tile_of(long long blk, long long hw, int p_blk, int nb) {
-  Tile t;
-  t.n = blk / nb;
-  t.p0 = (blk % nb) * p_blk;
-  t.p1 = min(t.p0 + p_blk, hw);
-  return t;
-}
-
 // Phase 1: y -> out, and the block's per-channel fp32 sum -> part[blk].
 template <typename S, int VEC>
 __global__ void __launch_bounds__(VEC == 1 ? 1024 : kThreads)
@@ -187,166 +154,6 @@ epi_y_partials(const S* __restrict__ x, const S* __restrict__ idn, S* __restrict
     float s = 0.0f;
     for (int i = 0; i < rows; ++i) s += red[i * c + ch];
     part[blk * c + ch] = s;
-  }
-}
-
-// N consecutive floats, as 16-byte vectors where N allows
-template <int N>
-__device__ __forceinline__ void load_floats(const float* p, float (&v)[N]) {
-  if constexpr (N % 4 == 0) {
-#pragma unroll
-    for (int q = 0; q < N / 4; ++q) {
-      const float4 t = *reinterpret_cast<const float4*>(p + 4 * q);
-      v[4 * q] = t.x;
-      v[4 * q + 1] = t.y;
-      v[4 * q + 2] = t.z;
-      v[4 * q + 3] = t.w;
-    }
-  } else {
-#pragma unroll
-    for (int k = 0; k < N; ++k) v[k] = p[k];
-  }
-}
-
-// slices of the rows that the threads of phase 2 split between them
-__host__ __device__ __forceinline__ int mlp_slices(int vecs) {
-  return vecs < kThreads ? kThreads / vecs : 1;
-}
-
-// Phase 2: the pool from the partials, then the SE MLP, for `group` samples.
-// A thread takes a vector of VEC channels and a slice of the rows (of the
-// partials, then of W2^T); the slices' sums meet in shared memory and are
-// added in a fixed order.  W1 is read a row per warp.  Each weight row is
-// read once for the group.
-template <typename S, int VEC>
-__global__ void __launch_bounds__(kThreads)
-epi_mlp(const float* __restrict__ part, const S* __restrict__ w1, const S* __restrict__ b1,
-        const S* __restrict__ w2t, const S* __restrict__ b2, float* __restrict__ scale,
-        long long n_samples, long long hw, int c, int mid, int nb, int group) {
-  using R = typename Raw<sizeof(S) * VEC>::type;
-  extern __shared__ float smem[];
-  const int vecs = c / VEC;
-  const int slices = mlp_slices(vecs);
-  float* pool = smem;                // [group][c]
-  float* hid = pool + group * c;     // [group][mid]
-  float* red = hid + group * mid;    // [slices][group][c]
-  const long long n0 = static_cast<long long>(blockIdx.x) * group;
-  const int gn = static_cast<int>(min(static_cast<long long>(group), n_samples - n0));
-  const int step = vecs < kThreads ? vecs : kThreads;
-  const int slice = vecs < kThreads ? threadIdx.x / vecs : 0;
-  const int v0 = threadIdx.x % step;
-  const bool sliced = slice < slices;
-
-  // 1. each slice's sum of the partial rows slice, slice + slices, ...
-  if (sliced) {
-    for (int v = v0; v < vecs; v += step) {
-      for (int g = 0; g < gn; ++g) {
-        const float* src = part + (n0 + g) * nb * c + v * VEC;
-        float acc[VEC];
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
-#pragma unroll 4
-        for (int b = slice; b < nb; b += slices) {
-          float t[VEC];
-          load_floats<VEC>(src + static_cast<long long>(b) * c, t);
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) acc[k] += t[k];
-        }
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) red[(slice * group + g) * c + v * VEC + k] = acc[k];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < gn * c; i += blockDim.x) {
-    const int g = i / c, ch = i % c;
-    float sum = 0.0f;
-    for (int sl = 0; sl < slices; ++sl) sum += red[(sl * group + g) * c + ch];
-    pool[i] = round_t<S>(sum / static_cast<float>(hw));
-  }
-  __syncthreads();
-
-  // 2. hidden: a warp takes kRows rows of W1 at a time (rows j, j + warps,
-  // ...), so that their loads and reductions overlap
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, warps = blockDim.x >> 5;
-  for (int j0 = warp; j0 < mid; j0 += kRows * warps) {
-    float acc[kRows][kMaxGroup];
-#pragma unroll
-    for (int r = 0; r < kRows; ++r)
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) acc[r][g] = 0.0f;
-    for (int v = lane; v < vecs; v += 32) {
-      alignas(sizeof(R)) S w[kRows][VEC];
-#pragma unroll
-      for (int r = 0; r < kRows; ++r) {
-        const int j = min(j0 + r * warps, mid - 1);  // rows past mid: computed, not stored
-        *reinterpret_cast<R*>(w[r]) =
-            *reinterpret_cast<const R*>(w1 + static_cast<long long>(j) * c + v * VEC);
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < gn) {
-          float t[VEC];
-          load_floats<VEC>(pool + g * c + v * VEC, t);
-#pragma unroll
-          for (int r = 0; r < kRows; ++r)
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[r][g] += to_f(w[r][k]) * t[k];
-        }
-      }
-    }
-#pragma unroll
-    for (int r = 0; r < kRows; ++r) {
-      const int j = j0 + r * warps;
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g) {
-        if (g < gn) {
-          float x = acc[r][g];
-          for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-          if (lane == 0 && j < mid) hid[g * mid + j] = round_t<S>(gelu(x + to_f(b1[j])));
-        }
-      }
-    }
-  }
-  __syncthreads();
-
-  // 3. scale: each slice's sum over the rows j of W2^T, then the sigmoid
-  if (sliced) {
-    for (int v = v0; v < vecs; v += step) {
-      float acc[kMaxGroup][VEC];
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-#pragma unroll
-        for (int k = 0; k < VEC; ++k) acc[g][k] = 0.0f;
-#pragma unroll 4
-      for (int j = slice; j < mid; j += slices) {
-        alignas(sizeof(R)) S w[VEC];
-        *reinterpret_cast<R*>(w) =
-            *reinterpret_cast<const R*>(w2t + static_cast<long long>(j) * c + v * VEC);
-#pragma unroll
-        for (int g = 0; g < kMaxGroup; ++g) {
-          if (g < gn) {
-            const float h = hid[g * mid + j];
-#pragma unroll
-            for (int k = 0; k < VEC; ++k) acc[g][k] += to_f(w[k]) * h;
-          }
-        }
-      }
-#pragma unroll
-      for (int g = 0; g < kMaxGroup; ++g)
-        if (g < gn)
-#pragma unroll
-          for (int k = 0; k < VEC; ++k) red[(slice * group + g) * c + v * VEC + k] = acc[g][k];
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < gn * c; i += blockDim.x) {
-    const int g = i / c, ch = i % c;
-    float z = to_f(b2[ch]);
-    float sum = 0.0f;
-    for (int sl = 0; sl < slices; ++sl) sum += red[(sl * group + g) * c + ch];
-    z += sum;
-    scale[(n0 + g) * c + ch] = 1.0f / (1.0f + expf(-z));
   }
 }
 
@@ -398,27 +205,18 @@ int launch(const void* x, const void* idn, void* out, const void* w1, const void
   const int threads = row_threads(groups);
   const int nb = static_cast<int>((hw + p_blk - 1) / p_blk);
   const long long blocks = n * nb;
-  const size_t smem =
-      static_cast<size_t>(group) * ((1 + mlp_slices(groups)) * c + mid) * sizeof(float);
-  if (c % VEC || threads > 1024 || (threads / groups) * c > kRedFloats || group < 1 ||
-      group > kMaxGroup || blocks >= (1LL << 31) || smem > 227 * 1024)
+  if (c % VEC || threads > 1024 || (threads / groups) * c > kRedFloats ||
+      !mlp_fits(c, mid, VEC, group) || blocks >= (1LL << 31))
     return static_cast<int>(cudaErrorInvalidValue);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        epi_mlp<S, VEC>, cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
   epi_y_partials<S, VEC><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(idn), static_cast<S*>(out),
       static_cast<float*>(part), static_cast<const long long*>(seed), hw, c, p_blk, nb,
       keep_prob, drop_scale, drop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
-  epi_mlp<S, VEC><<<static_cast<unsigned>((n + group - 1) / group), kThreads, smem, stream>>>(
-      static_cast<const float*>(part), static_cast<const S*>(w1), static_cast<const S*>(b1),
-      static_cast<const S*>(w2t), static_cast<const S*>(b2), static_cast<float*>(scale), n, hw,
-      c, mid, nb, group);
-  err = cudaGetLastError();
+  err = launch_mlp<se_epilogue_mlp, S, VEC>(static_cast<const float*>(part), w1, b1, w2t, b2,
+                                            static_cast<float*>(scale), nullptr, n, hw, c, mid,
+                                            nb, group, stream);
   if (err != cudaSuccess) return static_cast<int>(err);
   epi_scale<S, VEC><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<S*>(out), static_cast<const float*>(scale), hw, c, p_blk, nb);

@@ -3,9 +3,9 @@
 Counterpart of ``dmf_tpu/ops/preprocess_pallas.py::dwi_normalize_pallas``
 (the Pallas kernel ``_dwi_norm_kernel``) and of the XLA route
 ``dmf_tpu/data/preprocess.py::dwi_normalize``, which computes the same
-function.  The wrapper runs the plain version below for tensors on the CPU
-and the Triton kernels in ``dwi_norm_triton.py`` for tensors on a CUDA
-device; there is no fallback from one to the other.
+function.  The wrapper runs the plain version below for tensors on the CPU,
+and the CUDA kernel ``csrc/dwi_norm.cu`` (through ``dwi_norm_cuda.py``) for
+tensors on a CUDA device; there is no fallback from one to the other.
 
 Numerics follow the TPU kernel (preprocess_pallas.py:30-43): the statistics
 and the normalisation run in fp32 on the upcast input, the unbiased (ddof=1)
@@ -44,14 +44,14 @@ def dwi_normalize(img: torch.Tensor, clip_z: Tuple[float, float] = (-3.0, 3.0),
     """Per-image, per-channel z-score (unbiased std) -> clip -> [0, 1].
 
     CPU tensors take :func:`dwi_normalize_ref`.  CUDA tensors launch the
-    Triton kernels, which take contiguous ``(N, H, W, C)`` fp32, bf16 or
-    fp16 images and raise on anything else; the output has the input's dtype.
+    CUDA kernel, which takes contiguous ``(N, H, W, C)`` fp32, bf16 or fp16
+    images and raises on anything else; the output has the input's dtype.
     """
     if img.device.type == "cpu":
         return dwi_normalize_ref(img, clip_z, skip_last, zero_last)
     if img.device.type != "cuda":
         raise ValueError(f"dwi_normalize: unsupported device {img.device}")
-    from .dwi_norm_triton import launch_dwi_normalize
+    from .dwi_norm_cuda import launch_dwi_normalize
 
     out = launch_dwi_normalize(img, clip_z, skip_last, zero_last)
     dwi_normalize.launches += 1

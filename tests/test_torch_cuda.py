@@ -180,9 +180,10 @@ def test_flash_attention_wrapper_raises(dev):
         fa.flash_attention(r, r, r)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("flags", [(True, True), (True, False), (False, False)])
-@pytest.mark.parametrize("shape", [(3, 37, 29, 13), (2, 64, 64, 14)])
+@pytest.mark.parametrize("shape", [(3, 37, 29, 13), (2, 64, 64, 14),
+                                   (8, 256, 256, 13)])  # the served batch
 def test_dwi_normalize_kernel(dev, dtype, flags, shape):
     g = torch.Generator(device=dev).manual_seed(3)
     img = (torch.rand(shape, device=dev, generator=g) * 2000.0 + 10.0).to(dtype)
@@ -191,12 +192,14 @@ def test_dwi_normalize_kernel(dev, dtype, flags, shape):
     ref = dwi_norm.dwi_normalize_ref(img, skip_last=flags[0], zero_last=flags[1])
     assert out.dtype == dtype and out.shape == img.shape
     # outputs in [0, 1]: fp32 1e-6 (a ddof=0 std is off by far more at these
-    # pixel counts), bf16 one ulp
-    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    # pixel counts), bf16 and fp16 one ulp
+    tol = {torch.float32: 1e-6, torch.bfloat16: 2.0 ** -7, torch.float16: 2.0 ** -10}[dtype]
     assert (out[..., :-1].float() - ref[..., :-1].float()).abs().max().item() <= tol
     if flags[0]:  # the last channel kept or zeroed, exactly
         assert torch.equal(out[..., -1], ref[..., -1])
     assert dwi_norm.dwi_normalize.launches == 1
+    # a second call gives the same bits: the statistics' sum order is fixed
+    assert torch.equal(out, dwi_norm.dwi_normalize(img, skip_last=flags[0], zero_last=flags[1]))
 
 
 @pytest.mark.parametrize("shape", [(5, 10007), (3, 65536)])
@@ -218,7 +221,11 @@ def test_histogram_percentiles_kernel(dev, shape):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("c,side", [(6, 40), (14, 33), (128, 16)])
+@pytest.mark.parametrize("c,side", [
+    (6, 40), (14, 33), (128, 16),
+    (14, 256), (6, 256),   # the modality attention's maps at 256^2
+    (200, 9),              # C not a multiple of the vector, a flat period of 25 or 50
+    (1002, 5)])            # a period past 256 threads: scalar loads, 1002 threads
 def test_se_scale_kernel(dev, dtype, c, side):
     g = torch.Generator(device=dev).manual_seed(5)
     mid = max(c // 2, 1)
@@ -231,9 +238,62 @@ def test_se_scale_kernel(dev, dtype, c, side):
     out, s = se.se_scale(x, w1, b1, w2, b2)
     ref_out, ref_s = se.se_scale_ref(x, w1, b1, w2, b2)
     assert out.is_contiguous(memory_format=torch.channels_last) and s.shape == (4, c, 1, 1)
+    assert s.dtype == dtype
     _close(out, ref_out, dtype)
     _close(s, ref_s, dtype)
     assert se.se_scale.launches == 1
+    # a second call gives the same bits: the pool's sum order is fixed
+    again = se.se_scale(x, w1, b1, w2, b2)
+    assert torch.equal(out, again[0]) and torch.equal(s, again[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_unaligned_inputs_take_scalar_loads(dev, dtype):
+    """Maps and images one element past a 16-byte boundary: both kernels
+    plan vector width 1 and still match their plain versions."""
+    from dmf_tpu_torch.ops import dwi_norm_cuda, se_cuda
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    n, side, c = 2, 48, 14
+    buf = torch.randn(n * side * side * c + 1, device=dev, generator=g).to(dtype)
+    x = buf[1:].view(n, side, side, c).permute(0, 3, 1, 2)  # channels_last, unaligned
+    assert x.is_contiguous(memory_format=torch.channels_last) and x.data_ptr() % 16
+    assert se_cuda.plan(n, side * side, c, x.element_size(), False, 132)[0] == 1
+    w1 = torch.randn(7, c, device=dev, generator=g) * c ** -0.5
+    w2 = torch.randn(c, 7, device=dev, generator=g) * 7 ** -0.5
+    b1, b2 = torch.zeros(7, device=dev), torch.zeros(c, device=dev)
+    out, s = se.se_scale(x, w1, b1, w2, b2)
+    ref_out, ref_s = se.se_scale_ref(x, w1, b1, w2, b2)
+    _close(out, ref_out, dtype)
+    _close(s, ref_s, dtype)
+    img = buf[1:].view(n, side, side, c).abs() * 500.0 + 10.0  # an aligned copy
+    img = buf.clone()[1:].view_as(img).copy_(img)               # unaligned again
+    assert img.is_contiguous() and img.data_ptr() % 16
+    assert dwi_norm_cuda.plan(side * side, c, img.element_size(), False)[0] == 1
+    got = dwi_norm.dwi_normalize(img)
+    ref = dwi_norm.dwi_normalize_ref(img)
+    tol = 1e-6 if dtype == torch.float32 else 2.0 ** -7
+    assert (got.float() - ref.float()).abs().max().item() <= tol
+
+
+def test_no_triton_imported(dev):
+    """Kernels 6 and 7 are CUDA C++: a fresh interpreter that runs both
+    wrappers on the card has not imported triton."""
+    import subprocess
+    import sys
+
+    code = ("import sys, torch\n"
+            "from dmf_tpu_torch.ops import dwi_norm, se\n"
+            "x = torch.rand(2, 14, 8, 8, device='cuda').contiguous("
+            "memory_format=torch.channels_last)\n"
+            "w1, w2 = torch.rand(7, 14, device='cuda'), torch.rand(14, 7, device='cuda')\n"
+            "se.se_scale(x, w1, torch.zeros(7, device='cuda'), w2, "
+            "torch.zeros(14, device='cuda'))\n"
+            "dwi_norm.dwi_normalize(torch.rand(2, 8, 8, 13, device='cuda'))\n"
+            "torch.cuda.synchronize()\n"
+            "assert se.se_scale.launches == 1 and dwi_norm.dwi_normalize.launches == 1\n"
+            "assert 'triton' not in sys.modules, 'triton imported'\n")
+    subprocess.run([sys.executable, "-c", code], check=True, timeout=600)
 
 
 def test_new_wrappers_raise(dev):

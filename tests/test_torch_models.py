@@ -197,7 +197,8 @@ def test_strict_load_accounting(encoder_pair):
 def test_import_is_jax_free():
     code = ("import sys, dmf_tpu_torch, dmf_tpu_torch.models, dmf_tpu_torch.evals.predict, "
             "dmf_tpu_torch.data.preprocess, dmf_tpu_torch.ops.epilogue_cuda, "
-            "dmf_tpu_torch.ops.conv3x3; "
+            "dmf_tpu_torch.ops.conv3x3, dmf_tpu_torch.ops.se_cuda, "
+            "dmf_tpu_torch.ops.dwi_norm_cuda; "
             "bad = [m for m in sys.modules if m == 'jax' or m.startswith(('jax.', 'flax', 'triton'))]; "
             "assert not bad, bad")
     subprocess.run([sys.executable, "-c", code], check=True, timeout=120)

@@ -251,25 +251,112 @@ def test_epilogue_plan_fits_the_kernel(n, hw, c, esize):
     assert 1 <= group <= MAX_GROUP and group * sms >= min(n, MAX_GROUP * sms)
 
 
+def _flat_walk_holds_channels(c, vec, threads, p_blk):
+    """A block's flat walk as the kernels take it: element f of a tile goes
+    to lane slot f mod (vec * threads); the slots' sums, added by channel
+    slot mod C, give each channel's sum over the tile."""
+    x = np.random.RandomState(c).rand(p_blk * c)
+    slots = np.bincount(np.arange(x.size) % (vec * threads), weights=x,
+                        minlength=vec * threads)
+    by_channel = np.bincount(np.arange(slots.size) % c, weights=slots, minlength=c)
+    np.testing.assert_allclose(by_channel, x.reshape(-1, c).sum(0), rtol=1e-12)
+
+
+@pytest.mark.parametrize("n,hw,c,esize", [
+    (32, 256 * 256, 14, 2), (32, 256 * 256, 6, 2),      # tta_mc B=8: modality attention
+    (288, 32 * 32, 128, 2), (32, 32 * 32, 128, 2),      # ... fusion_se, lean and last pass
+    (8, 256 * 256, 14, 4), (8, 256 * 256, 6, 4),        # hybrid-nb normal B=8, fp32
+    (512, 256 * 256, 14, 2), (4608, 32 * 32, 128, 2),   # tta_mc B=128
+    (256, 256 * 256, 13, 4), (4, 33 * 33, 13, 2),       # C=13; HW*C not a multiple of 8
+    (3, 9, 200, 2), (2, 7 * 5, 1002, 4)])               # C=200 flat; C=1002 scalar, 1002 threads
+def test_se_scale_plan_fits_the_kernel(n, hw, c, esize):
+    """The launch plan stays inside what ``se_scale_launch`` accepts: the
+    flat walk's ``vec * threads`` is a multiple of C (each lane keeps its
+    channel), at most 256 threads where vectors are wider than 1 (1024 at
+    most), the lane sums fit phase 1's 2048 floats, a block starts on a
+    vector, blocks < 2^31, the MLP's shared memory fits, a block reads at
+    most BLOCK_BYTES, BLOCKS_PER_SM blocks per SM wherever the map has the
+    pixels; and the vector width falls to 1 on an unaligned map."""
+    from math import gcd
+
+    from dmf_tpu_torch.ops.epilogue_cuda import MAX_GROUP
+    from dmf_tpu_torch.ops.se_cuda import BLOCK_BYTES, BLOCKS_PER_SM, plan
+
+    sms = 132
+    vec, threads, p_blk, group = plan(n, hw, c, esize, True, sms)
+    full = 16 // esize
+    assert vec == (full if (hw * c) % full == 0 and c // gcd(c, full) <= 256 else 1)
+    assert plan(n, hw, c, esize, False, sms)[0] == 1
+    assert (vec * threads) % c == 0 and vec * threads <= 2048
+    assert threads <= (256 if vec > 1 else 1024)
+    rows = vec * threads // c
+    assert p_blk % rows == 0 and (p_blk * c) % vec == 0 and (hw * c) % vec == 0
+    blocks = n * -(-hw // p_blk)
+    assert blocks < 2 ** 31
+    assert blocks >= BLOCKS_PER_SM * sms or p_blk == rows
+    assert p_blk == rows or p_blk * c * esize <= BLOCK_BYTES
+    # epi_mlp: 16-byte vectors where C allows, else 1; its dynamic shared memory
+    mvec = vec if c % vec == 0 else 1
+    slices = 256 // (c // mvec) if c // mvec < 256 else 1
+    assert 1 <= group <= MAX_GROUP and group * ((1 + slices) * c + c // 2) * 4 <= 227 * 1024
+    _flat_walk_holds_channels(c, vec, threads, min(p_blk, 4 * rows))
+
+
+@pytest.mark.parametrize("n,hw,c,esize", [
+    (8, 256 * 256, 13, 4), (8, 256 * 256, 13, 2),       # served B=8, fp32 and bf16
+    (256, 256 * 256, 13, 4), (256, 256 * 256, 14, 2),   # fold preparation
+    (4608, 256 * 256, 13, 2),                           # a large batch: blocks < 2^31
+    (3, 37 * 29, 13, 4), (2, 64 * 64, 6, 4),            # ragged HW; C=6
+    (2, 16 * 16, 128, 2), (5, 3, 1, 4)])                # C=128; C=1
+def test_dwi_norm_plan_fits_the_kernel(n, hw, c, esize):
+    """The launch plan stays inside what ``dwi_norm_launch`` accepts: the
+    flat walk's ``vec * threads`` is a multiple of C, at most 256 threads, a
+    tile is exactly ITEMS vectors a thread (``p_blk * C = ITEMS * vec *
+    threads``), the lane sums fit the 2048-float buffer (with the 2 x 128
+    statistics, under 48 KB of static shared memory), blocks < 2^31; and the
+    vector width falls to 1 on unaligned images or where HW * C is not a
+    multiple of it."""
+    from dmf_tpu_torch.ops.dwi_norm_cuda import ITEMS, plan
+
+    vec, threads, p_blk = plan(hw, c, esize, True)
+    full = 16 // esize
+    assert vec == (full if (hw * c) % full == 0 else 1)
+    assert plan(hw, c, esize, False)[0] == 1
+    assert (vec * threads) % c == 0 and threads <= 256
+    assert p_blk * c == ITEMS * vec * threads
+    assert (2048 + 2 * 128) * 4 <= 48 * 1024 and vec * threads <= 2048
+    assert n * -(-hw // p_blk) < 2 ** 31
+    _flat_walk_holds_channels(c, vec, threads, p_blk)
+
+
 def test_build_digest_covers_shared_headers(tmp_path):
     """A library's build key takes every ``csrc/*.cuh`` beside its own
-    sources, so an edit to a shared header rebuilds both wgmma libraries."""
+    sources, so an edit to a shared header rebuilds every library that
+    includes it: both wgmma libraries (``hopper.cuh``) and both SE kernels,
+    which run one MLP kernel (``se_mlp.cuh``)."""
     import shutil
 
     from dmf_tpu_torch.ops.cuda_build import CSRC_DIR, source_digest
 
     csrc = tmp_path / "csrc"
     shutil.copytree(CSRC_DIR, csrc)
-    sources = {lib: (f"{lib}.cu",) for lib in ("flash_attention", "conv3x3_bn_gelu")}
-    before = {lib: source_digest(src, csrc) for lib, src in sources.items()}
-    assert before == {lib: source_digest(src, CSRC_DIR) for lib, src in sources.items()}
-    header = csrc / "hopper.cuh"
-    header.write_bytes(header.read_bytes() + b"\n// edited\n")
-    after = {lib: source_digest(src, csrc) for lib, src in sources.items()}
-    assert all(after[lib] != before[lib] for lib in sources)
+    for header_name, libs in (("hopper.cuh", ("flash_attention", "conv3x3_bn_gelu")),
+                              ("se_mlp.cuh", ("se_epilogue", "se_scale"))):
+        sources = {lib: (f"{lib}.cu",) for lib in libs}
+        assert all(f'#include "{header_name}"' in (CSRC_DIR / src[0]).read_text()
+                   for src in sources.values())
+        before = {lib: source_digest(src, csrc) for lib, src in sources.items()}
+        assert before == {lib: source_digest(src, CSRC_DIR) for lib, src in sources.items()}
+        header = csrc / header_name
+        header.write_bytes(header.read_bytes() + b"\n// edited\n")
+        after = {lib: source_digest(src, csrc) for lib, src in sources.items()}
+        assert all(after[lib] != before[lib] for lib in sources)
+        shutil.copy(CSRC_DIR / header_name, header)
+    sources = {"flash_attention": ("flash_attention.cu",)}
+    key = source_digest(sources["flash_attention"], csrc)
     # a source of another library leaves the key alone; a new header does not
     hist = csrc / "histogram_percentiles.cu"
     hist.write_bytes(hist.read_bytes() + b"\n")
-    assert source_digest(sources["flash_attention"], csrc) == after["flash_attention"]
+    assert source_digest(sources["flash_attention"], csrc) == key
     (csrc / "extra.cuh").write_text("// new\n")
-    assert source_digest(sources["flash_attention"], csrc) != after["flash_attention"]
+    assert source_digest(sources["flash_attention"], csrc) != key
