@@ -16,13 +16,18 @@ Phases, each printing its own lines:
      request, past 2^31 elements, against the plain version on maps at its
      start, around element 2^31 and at its end, 32^2 maps of tta_mc, 128^2
      maps of hybrid-nb), 3b conv3x3+BN+GELU, 3c
-     flash-attention forward, 3d its backward,
-     with, for the two wgmma kernels (3b, 3c bf16), the kernel's own device
+     flash-attention forward, 3d its backward (dQ, dK/dV; two calls compared
+     bit for bit),
+     with, for the wgmma kernels (3b, 3c, 3d bf16), the kernel's own device
      time per call (profiler), its TFLOP/s and share of the bound, and the
      kernel timed in turns with its library yardstick and their ratio;
      3e the DWI z-score, 3f the histogram percentiles (on max-normalised
      synthetic DCE volumes), 3g the standalone SE; the memory-bound kernels
      (3a, 3e-3g) with their device time, GB/s and share of the bytes bound;
+     3h autograd through the full-width hybrid-nb transformer stage in bf16
+     (the backward kernels' path: 6 launches of dQ and of dK/dV a backward),
+     its gradients against an fp32 copy on the plain route at B=2 and its
+     backward timed at B=8;
   4. end-to-end parity, card (kernels) vs CPU (plain versions), fp32,
      seeded random weights at full width: 4 the default ResNet-50 models in
      ``tta`` at B=2, 4b the hybrid-transformer no-backbone models
@@ -43,6 +48,7 @@ The line before the last is the kernels' JSON summary; the last line is
 without a CUDA device the script exits non-zero before printing anything.
 """
 
+import contextlib
 import copy
 import dataclasses
 import functools
@@ -72,6 +78,8 @@ from dmf_tpu_torch.data.preprocess import (DEFAULT_LANDMARKS, NyulStandardizer, 
 from dmf_tpu_torch.data.synthetic import make_synthetic_arrays  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_fusion_predictor  # noqa: E402
 from dmf_tpu_torch.models import build_fusion_models  # noqa: E402
+from dmf_tpu_torch.models import transformer as transformer_mod  # noqa: E402
+from dmf_tpu_torch.ops import attention as attn  # noqa: E402
 from dmf_tpu_torch.ops import conv3x3 as k2  # noqa: E402
 from dmf_tpu_torch.ops import dwi_norm, dwi_norm_cuda, se_cuda  # noqa: E402
 from dmf_tpu_torch.ops import epilogue as k1  # noqa: E402
@@ -108,6 +116,15 @@ EPI_KERNELS = ("epi_y_partials", "se_epilogue_mlp", "epi_scale")
 SE_KERNELS = ("se_pool_partials", "se_scale_mlp", "se_apply")
 DWI_KERNELS = ("dwi_partials", "dwi_merge", "dwi_apply")
 SEQ, HEAD_DIM, HEADS = 4096, 128, 4
+# the hybrid-nb transformer stage's parity batch: its fp32 plain-route
+# reference holds (B x heads, 4096, 4096) fp32 scores and weights per block
+# for autograd, ~10 GB at B=2 and ~40 GB at B=8
+B_STAGE_PARITY = 2
+# bf16 stage vs the fp32 plain-route copy, relative L2 error per tensor: bf16
+# activations through 6 pre-LN blocks alone put some gradients (the LayerNorm
+# weights') a few percent off fp32; phase 3h prints a bf16 plain-route copy's
+# error beside the kernels'
+STAGE_TOL = 2.0 ** -4
 # standalone SE maps (N, side, C) of a tta_mc request at B=8: modality
 # attention on the dwi and dce inputs (4 views), fusion_se on the lean chunk
 # (9 passes x 4 views) and on the last pass
@@ -295,14 +312,17 @@ def phase_build():
                 if "Compiling entry function" in line:
                     kernel = line.split("'")[1][-60:]
                 elif ("registers" in line or "spill" in line or "setmaxnreg" in line
-                      or "warning" in line.lower()):
+                      or "(C7" in line or "warning" in line.lower()):
                     log(f"  ptxas {name} {kernel}: {line.strip()}")
-    # ptxas reports static shared memory only; the wgmma kernels' is dynamic
-    flash_smem, conv_smem = fa._library().flash_fwd_wgmma_smem, \
+    # ptxas reports static shared memory only, and the launch bound's register
+    # cap for the warp-specialised kernels (setmaxnreg moves registers at run
+    # time); the wgmma kernels' shared memory is dynamic
+    flash_smem, conv_smem = fa._library().flash_wgmma_smem, \
         k2._library().conv3x3_bn_gelu_wgmma_smem
-    log(f"  dynamic shared memory per block: flash_fwd_wgmma D=128 {flash_smem(128)} B, "
-        f"D=64 {flash_smem(64)} B; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(256)} B, "
-        f"128x128 {conv_smem(128)} B")
+    log("  dynamic shared memory per block: " + "; ".join(
+        f"{name} D=128 {flash_smem(i, 128)} B, D=64 {flash_smem(i, 64)} B" for i, name in
+        enumerate(("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")))
+        + f"; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(256)} B, 128x128 {conv_smem(128)} B")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -563,56 +583,241 @@ def phase_flash_forward():
             "bound_by": "operations", "library_ms": t_l}
 
 
+def bwd_bounds(bh, d, el):
+    """The bound (ms) of dQ and of dK/dV at (bh, SEQ, d), element size ``el``:
+    the larger of their bf16 tensor-core operations (6 and 8 BH N^2 D) and
+    their bytes (q, k, v, dout, lse, delta read once; dq, or dk and dv,
+    written once) over the memory rate."""
+    rows = bh * SEQ
+    out = []
+    for mult, outs in ((6, 1), (8, 2)):
+        flop = mult * bh * SEQ * SEQ * d
+        nbytes = (4 + outs) * rows * d * el + 2 * rows * 4
+        out.append((max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, flop))
+    return out
+
+
 def phase_flash_backward():
-    bh = 32
     log(f"== phase 3d: flash_attention backward (CUDA dQ, dK/dV) vs autograd through "
-        f"the plain version, (B*H, N, D) = ({bh}, {SEQ}, {HEAD_DIM}), seeded cotangent")
+        f"the plain version, (B*H, N, D) = (32 | 128 bf16, {SEQ}, {HEAD_DIM} | 64 bf16), "
+        f"seeded cotangent; two calls of each kernel compared bit for bit")
     g = gen(7)
-    scale = HEAD_DIM ** -0.5
     errs = {"dq": [], "dkv": []}
     res = {}
-    for dtype in (torch.float32, torch.bfloat16):
-        q, k, v, dout = attn_inputs(bh, dtype, g)
-        tag = str(dtype)[6:]
+    for bh, d, dtype in ((32, HEAD_DIM, torch.float32), (32, HEAD_DIM, torch.bfloat16),
+                         (128, HEAD_DIM, torch.bfloat16), (32, 64, torch.bfloat16)):
+        scale = d ** -0.5
+        q, k, v, dout = (torch.randn(bh, SEQ, d, device=DEV, generator=g).to(dtype)
+                         for _ in range(4))
+        tag = f"{str(dtype)[6:]} BH={bh} D={d}"
         out, lse = fa.flash_forward(q, k, v, scale)
         delta = fa.backward_delta(out, dout)
-        dq = fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale)
-        dk, dv = fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale)
-        leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
-        ref_out = fa.flash_attention_ref(*leaves, scale)[0]
-        ref = torch.autograd.grad(ref_out, leaves, dout, retain_graph=True)
+
+        def dq_call():
+            return fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale)
+
+        def dkv_call():
+            return fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale)
+
+        dq, (dk, dv) = dq_call(), dkv_call()
+        again = (dq_call(), *dkv_call())
+        if not all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again)):
+            raise AssertionError(f"{tag}: two calls of a backward kernel differ")
+        log(f"  {tag}: two calls of each kernel give the same bits")
+        # the oracle, 32 heads at a time: the plain version materializes the
+        # (heads, N, N) fp32 scores and weights
+        ref = [torch.empty_like(t) for t in (q, k, v)]
+        for h0 in range(0, bh, 32):
+            sl = slice(h0, h0 + 32)
+            leaves = [t[sl].detach().clone().requires_grad_() for t in (q, k, v)]
+            grads = torch.autograd.grad(fa.flash_attention_ref(*leaves, scale)[0], leaves,
+                                        dout[sl])
+            for r, gr in zip(ref, grads):
+                r[sl] = gr
+            del leaves, grads
         errs["dq"].append(check_rel(f"{tag} dq", dq, ref[0], dtype))
         errs["dkv"].append(check_rel(f"{tag} dk", dk, ref[1], dtype))
         errs["dkv"].append(check_rel(f"{tag} dv", dv, ref[2], dtype))
-        del dq, dk, dv, ref
-        t_dq = cuda_time(lambda: fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale),
-                         reps=3, trials=3)
-        t_dkv = cuda_time(lambda: fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale),
-                          reps=3, trials=3)
-        t_pdq = cuda_time(lambda: torch.autograd.grad(ref_out, leaves[0], dout,
-                                                      retain_graph=True), reps=1, trials=3)
-        t_pdkv = cuda_time(lambda: torch.autograd.grad(ref_out, leaves[1:], dout,
-                                                       retain_graph=True), reps=1, trials=3)
-        del ref_out
-        lib_leaves = [t.detach().clone().view(bh // HEADS, HEADS, SEQ, HEAD_DIM)
-                      .requires_grad_() for t in (q, k, v)]
+        del dq, dk, dv, again, ref
+        t_dq = cuda_time(dq_call, reps=3, trials=3)
+        t_dkv = cuda_time(dkv_call, reps=3, trials=3)
+        t_pdq = t_pdkv = None
+        if bh == 32:  # the plain version's autograd at 128 heads would hold ~35 GB
+            leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+            ref_out = fa.flash_attention_ref(*leaves, scale)[0]
+            t_pdq = cuda_time(lambda: torch.autograd.grad(ref_out, leaves[0], dout,
+                                                          retain_graph=True), reps=1, trials=3)
+            t_pdkv = cuda_time(lambda: torch.autograd.grad(ref_out, leaves[1:], dout,
+                                                           retain_graph=True), reps=1, trials=3)
+            del leaves, ref_out
+        lib_leaves = [t.detach().clone().view(bh // HEADS, HEADS, SEQ, d).requires_grad_()
+                      for t in (q, k, v)]
         lib_out = F.scaled_dot_product_attention(*lib_leaves)
         lib_dout = dout.view_as(lib_out)
-        t_l = cuda_time(lambda: torch.autograd.grad(lib_out, lib_leaves, lib_dout,
-                                                    retain_graph=True), reps=3, trials=3)
-        b_dq = 6 * bh * SEQ * SEQ * HEAD_DIM / BF16_FLOP_PER_S * 1e3
-        b_dkv = 8 * bh * SEQ * SEQ * HEAD_DIM / BF16_FLOP_PER_S * 1e3
-        log(f"  {tag}: dQ kernel {t_dq:.4f} ms (plain {t_pdq:.4f}, bf16 bound {b_dq:.4f}); "
-            f"dK/dV kernel {t_dkv:.4f} ms (plain {t_pdkv:.4f}, bf16 bound {b_dkv:.4f}); "
-            f"SDPA backward (dq, dk, dv in one call) {t_l:.4f} ms (median)")
-        res[dtype] = (t_dq, t_pdq, b_dq, t_dkv, t_pdkv, b_dkv, t_l)
-        del q, k, v, dout, out, lse, delta, leaves, lib_leaves, lib_out, lib_dout
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_out, lib_leaves, lib_dout, retain_graph=True)
+
+        t_l = cuda_time(sdpa_bwd, reps=3, trials=3)
+        (b_dq, f_dq), (b_dkv, f_dkv) = bwd_bounds(bh, d, q.element_size())
+        plain = (f"plain {t_pdq:.4f} / {t_pdkv:.4f} ms" if t_pdq is not None
+                 else "plain not timed at this size")
+        log(f"  {tag}: dQ kernel {t_dq:.4f} ms ({f_dq / t_dq / 1e9:.1f} TFLOP/s, bound "
+            f"{b_dq:.4f}); dK/dV kernel {t_dkv:.4f} ms ({f_dkv / t_dkv / 1e9:.1f} TFLOP/s, "
+            f"bound {b_dkv:.4f}); {plain}; SDPA backward (dq, dk, dv in one call) "
+            f"{t_l:.4f} ms (median)")
+        if dtype == torch.bfloat16:
+            t_kt, t_lt = in_turns(lambda: (dq_call(), dkv_call()), sdpa_bwd, reps=3, trials=3)
+            log(f"  {tag}: in turns dQ + dK/dV {t_kt:.4f} ms, SDPA backward {t_lt:.4f} ms, "
+                f"ratio {t_kt / t_lt:.3f}; their bound {b_dq + b_dkv:.4f} ms")
+            device_rate(f"{tag} dQ", dq_call, ("flash_bwd_dq_wgmma",), b_dq, flop=f_dq)
+            device_rate(f"{tag} dK/dV", dkv_call, ("flash_bwd_dkv_wgmma",), b_dkv, flop=f_dkv)
+        res[(bh, d, dtype)] = (t_dq, t_pdq, b_dq, t_dkv, t_pdkv, b_dkv, t_l)
+        del q, k, v, dout, out, lse, delta, lib_leaves, lib_out, lib_dout
         torch.cuda.empty_cache()
-    t_dq, t_pdq, b_dq, t_dkv, t_pdkv, b_dkv, t_l = res[torch.bfloat16]
+    t_dq, t_pdq, b_dq, t_dkv, t_pdkv, b_dkv, t_l = res[(32, HEAD_DIM, torch.bfloat16)]
     return ({"max_abs_err": max(errs["dq"]), "ms": t_dq, "plain_ms": t_pdq,
              "bound_ms": b_dq, "bound_by": "operations", "library_ms": t_l},
             {"max_abs_err": max(errs["dkv"]), "ms": t_dkv, "plain_ms": t_pdkv,
              "bound_ms": b_dkv, "bound_by": "operations", "library_ms": t_l})
+
+
+@contextlib.contextmanager
+def plain_route():
+    """The transformer stage's attention through the plain route (weights
+    materialized), for this script's own reference copies only: the port has
+    no such switch."""
+    bound = transformer_mod.scaled_dot_product_attention
+    transformer_mod.scaled_dot_product_attention = (
+        lambda q, k, v: attn.plain_attention(q, k, v, q.shape[-1] ** -0.5)[0])
+    try:
+        yield
+    finally:
+        transformer_mod.scaled_dot_product_attention = bound
+
+
+def stage_grads(stage, x, cot):
+    """``(out, {name: grad})`` of one forward and backward of ``stage`` on a
+    fresh leaf ``x``; the input's gradient is under ``"x"``."""
+    stage.zero_grad(set_to_none=True)
+    x = x.detach().clone().requires_grad_()
+    out = stage(x)
+    out.backward(cot)
+    return out.detach(), {"x": x.grad, **{n: p.grad for n, p in stage.named_parameters()}}
+
+
+def rel_l2(a, b):
+    return ((a.float() - b.float()).norm() / b.float().norm()).item()
+
+
+def phase_stage_backward(hcfg):
+    mc = hcfg.dwi_model
+    depth, heads = mc.transformer_depth, mc.transformer_heads
+    log(f"== phase 3h: autograd through the hybrid-nb transformer stage at full width "
+        f"({depth} blocks, {heads} heads, {SEQ} tokens x {mc.transformer_embed_dim}), eval "
+        f"mode, bf16 (flash forward, dQ, dK/dV kernels) vs an fp32 copy on the plain "
+        f"route at B={B_STAGE_PARITY}; the backward timed at B={B_SERVE}")
+    enc = build_fusion_models(hcfg, DEV, torch.float32, gen(SEED))[0]
+    stage = enc.transformer.to(torch.bfloat16)
+    side = enc.feature_size * mc.transformer_patch_size
+    cin, embed = stage.patch_embed.proj.in_channels, mc.transformer_embed_dim
+    del enc
+    ref32 = copy.deepcopy(stage).float()  # the same (bf16-rounded) weights in fp32
+    g = gen(41)
+
+    def inputs(b):
+        x = cl(torch.randn(b, cin, side, side, device=DEV, generator=g).to(torch.bfloat16))
+        cot = torch.randn(b, embed, side // mc.transformer_patch_size,
+                          side // mc.transformer_patch_size, device=DEV, generator=g)
+        return x, cot.to(torch.bfloat16)
+
+    x, cot = inputs(B_STAGE_PARITY)
+    reset_counts()
+    out, grads = stage_grads(stage, x, cot)
+    launched = counts()
+    expect = dict.fromkeys(COUNTERS, 0) | {"flash_attention_fwd": depth,
+                                           "flash_attention_bwd_dq": depth,
+                                           "flash_attention_bwd_dkv": depth}
+    if launched != expect:
+        raise AssertionError(f"stage forward + backward launched {launched}, expected {expect}")
+    with plain_route():
+        out_p, grads_p = stage_grads(stage, x, cot)            # bf16, plain route
+        out_r, grads_r = stage_grads(ref32, x.float(), cot.float())  # the reference
+    if counts() != launched:
+        raise AssertionError("the plain-route copies launched a kernel")
+    errs = {"out": (rel_l2(out, out_r), rel_l2(out_p, out_r))}
+    errs |= {n: (rel_l2(grads[n], grads_r[n]), rel_l2(grads_p[n], grads_r[n])) for n in grads}
+    worst = sorted(errs.items(), key=lambda kv: -kv[1][0])
+    log(f"  B={B_STAGE_PARITY}: launches {launched}; relative L2 error against the fp32 "
+        f"plain-route copy, kernels (bf16 plain route beside), tolerance {STAGE_TOL:.4f}, "
+        f"over the output, the input gradient and {len(grads) - 1} parameter gradients:")
+    for n in ["out", "x"] + [n for n, _ in worst if n not in ("out", "x")][:6]:
+        log(f"    {n}: {errs[n][0]:.3e} ({errs[n][1]:.3e})")
+    if not all(e <= STAGE_TOL for e, _ in errs.values()):
+        raise AssertionError(f"stage gradients: {worst[0][0]} off by {worst[0][1][0]:.3e}, "
+                             f"above {STAGE_TOL}")
+    qkv = [n for n in grads if n.endswith("attn.qkv.weight")]
+    log(f"  qkv weight gradients (their q, k, v slices come from dQ, dK, dV): kernels at most "
+        f"{max(errs[n][0] for n in qkv):.3e}, bf16 plain route at most "
+        f"{max(errs[n][1] for n in qkv):.3e}")
+    del ref32, out, grads, out_p, grads_p, out_r, grads_r, x, cot
+    torch.cuda.empty_cache()
+
+    x, cot = inputs(B_SERVE)
+    fwd_ms, bwd_ms = [], []
+    for r in range(3):
+        stage.zero_grad(set_to_none=True)
+        leaf = x.detach().clone().requires_grad_()
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+        reset_counts()
+        torch.cuda.synchronize()
+        ev[0].record()
+        out = stage(leaf)
+        ev[1].record()
+        before = counts()
+        out.backward(cot)
+        ev[2].record()
+        torch.cuda.synchronize()
+        got = counts()
+        if r == 0:
+            launched = got
+        bwd = {k: got[k] - before[k] for k in ("flash_attention_bwd_dq",
+                                               "flash_attention_bwd_dkv")}
+        if got != expect or bwd != {"flash_attention_bwd_dq": depth,
+                                    "flash_attention_bwd_dkv": depth}:
+            raise AssertionError(f"B={B_SERVE} forward + backward launched {got} "
+                                 f"(backward {bwd}), expected {expect}")
+        if not (torch.isfinite(leaf.grad).all() and all(
+                torch.isfinite(p.grad).all() for p in stage.parameters())):
+            raise AssertionError("stage gradients not finite")
+        fwd_ms.append(ev[0].elapsed_time(ev[1]))
+        bwd_ms.append(ev[1].elapsed_time(ev[2]))
+    log(f"  B={B_SERVE}: forward {statistics.median(fwd_ms):.3f} ms, backward "
+        f"{statistics.median(bwd_ms):.3f} ms (median of 3 by CUDA events: "
+        f"{', '.join(f'{t:.3f}' for t in bwd_ms)}); each backward launched dQ and dK/dV "
+        f"{depth} times; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+    from torch.profiler import ProfilerActivity, profile
+    stage.zero_grad(set_to_none=True)
+    leaf = x.detach().clone().requires_grad_()
+    out = stage(leaf)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        out.backward(cot)
+        torch.cuda.synchronize()
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    if total > 0:
+        mine = {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
+                for k in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")}
+        log(f"  one B={B_SERVE} backward under the profiler: {total:.3f} ms of device time, "
+            + ", ".join(f"{k} {t:.3f} ms ({100 * t / total:.1f} %)" for k, t in mine.items()))
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    else:
+        log("  backward device time not measured (the profiler recorded no kernel)")
+    del stage, x, cot, leaf, out
+    torch.cuda.empty_cache()
+    return launched
 
 
 def phase_dwi_norm():
@@ -1126,6 +1331,8 @@ def main():
     measured["flash_attention_fwd"] = phase_flash_forward()
     (measured["flash_attention_bwd_dq"],
      measured["flash_attention_bwd_dkv"]) = phase_flash_backward()
+    # the backward's path: counts set to 0 just before it and read just after
+    stage_launches = phase_stage_backward(hcfg)
     measured["dwi_normalize"] = phase_dwi_norm()
     t0 = time.perf_counter()
     raw = make_synthetic_arrays(n_train=N_TRAIN, n_test=N_TEST, image_size=IMAGE,
@@ -1145,11 +1352,11 @@ def main():
     tta_mc_launches, request, large = phase_serve(cfg)
     hybrid_launches, hybrid_request = phase_serve_hybrid(hcfg)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
-                + prep_launches[k] for k in COUNTERS}
+                + prep_launches[k] + stage_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
-    log(f"  launches on the served paths and the data preparation: {launches}")
-    for name in ("se_epilogue", "conv3x3_bn_gelu", "flash_attention_fwd", "se_scale",
-                 "dwi_normalize", "histogram_percentiles"):
+    log(f"  launches on the served paths, the data preparation and the stage "
+        f"backward: {launches}")
+    for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")
     phase_profile("tta_mc", request)

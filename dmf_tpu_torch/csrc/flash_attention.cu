@@ -1,46 +1,69 @@
 // Exact blocked (flash) attention over (BH, N, D) tensors: forward, dQ and dK/dV.
 //
-// Replaces the TPU kernels of dmf_tpu/ops/flash_attention.py:
-//   * `_flash_kernel` (:43)    -> flash_fwd_wgmma (bf16), flash_fwd_kernel (fp32)
-//   * `_bwd_dq_kernel` (:114)  -> flash_bwd_dq_kernel
-//   * `_bwd_dkv_kernel` (:144) -> flash_bwd_dkv_kernel
-// reached through `flash_attention` (:281) and its custom VJP (:261-277).
+// Replaces the TPU kernels of dmf_tpu/ops/flash_attention.py, reached through
+// `flash_attention` (:281) and its custom VJP (:261-277):
+//   * `_flash_kernel` (:43)    -> wg::flash_fwd_wgmma (bf16), flash_fwd_kernel (fp32)
+//   * `_bwd_dq_kernel` (:114)  -> wg::flash_bwd_dq_wgmma (bf16), flash_bwd_dq_kernel (fp32)
+//   * `_bwd_dkv_kernel` (:144) -> wg::flash_bwd_dkv_wgmma (bf16), flash_bwd_dkv_kernel (fp32)
 //
-// Semantics (the TPU kernel's): S = (Q K^T) * scale with fp32 accumulation,
+// Semantics (the TPU kernels'): S = (Q K^T) * scale with fp32 accumulation,
 // an online softmax with running row max m and row sum l, acc = acc * alpha
 // + P V, then out = acc / l and lse = m + log(l).  The backward is the
-// FlashAttention-2 recompute with no atomics: P = exp(S - lse) is rebuilt
-// from (Q, K, lse); dS = P * (dO V^T - delta) * scale with delta =
-// rowsum(dO * O) computed by the caller; dQ = dS K over key tiles in one
-// kernel (a block per query tile), dK = dS^T Q and dV = P^T dO over query
-// tiles in another (a block per key tile).
+// FlashAttention-2 recompute: P = exp(S - lse) is rebuilt from (Q, K, lse);
+// dS = P * (dO V^T - delta) * scale with delta = rowsum(dO * O) computed by
+// the caller; dQ = dS K summed over keys, dK = dS^T Q and dV = P^T dO summed
+// over queries.
 //
-// What bounds it on the card: operations.  The forward does 4*BH*Nq*Nk*D
-// FLOP on 3*BH*N*D inputs, about N/3 FLOP per byte (1365 at N=4096), far
-// above the H100's ridge of ~295 FLOP/byte; dQ does ~6 and dK/dV ~8 times
-// BH*Nq*Nk*D.  Each pass also takes BH*Nq*Nk exponentials, which run on the
-// SFU at a small fraction of the tensor-core rate.
+// What bounds them on the card: operations.  Per score element the forward
+// does 4 D FLOP, dQ 6 D and dK/dV 8 D on the tensor cores, against inputs
+// of a few bytes per row (N/3 FLOP per byte for the forward, 1365 at N=4096,
+// far above the H100's ridge of ~295).  Each kernel also takes one
+// exponential per score element on the SFU, which issues 16 a clock per SM
+// against ~4096 bf16 tensor-core FLOP: a third of dQ's tensor time at D=128
+// and two thirds at D=64, before the FP32 work around it (scale, subtract,
+// multiply, convert).  So the design keeps the tensor cores fed from
+// registers and shared memory and lets one warpgroup's exponentials run
+// while the other's products do.
 //
-// The bf16 forward (flash_fwd_wgmma) is the FlashAttention-3 shape, simple
-// first: a block owns 128 query rows, two consumer warpgroups of 64 rows and
-// a producer warpgroup.  One producer thread TMA-loads the Q tile once and
-// K, V tiles of 128 keys into a two-stage ring (full/empty mbarriers, tiles
-// 128-byte swizzled, split into 64-column panels).  Each consumer computes
-// S = Q K^T with wgmma (both K-major in shared memory), runs the online
-// softmax on the accumulator registers (quad shuffles, exp2 with log2(e)
-// folded into the scale), converts P to bf16 in registers and computes
-// O += P V with P as wgmma's register operand and V as the MN-major operand
-// (the transpose bit).  O never leaves registers until the epilogue divides
-// by l and rounds once.  setmaxnreg moves registers from the producer to the
-// consumers.  Later work: ping-pong scheduling of the consumers, so that one
-// softmax overlaps the other's products.
+// The bf16 kernels share one shape (FlashAttention-3's, simple first): a
+// block owns 128 rows of its output, two consumer warpgroups of 64 rows
+// each, and a producer warpgroup.  One producer thread TMA-loads the block's
+// own operands once and streams the other side's tiles into a two-stage
+// ring (full/empty mbarriers; tiles 128-byte swizzled, split into 64-column
+// panels).  Consumers issue wgmma with accumulators in registers; setmaxnreg
+// moves registers from the producer to the consumers.
+//   * Forward: Q once, K and V tiles of 128 keys.  S = Q K^T (both K-major),
+//     the online softmax on the accumulator registers (quad shuffles, exp2
+//     with log2(e) folded into the scale), P packed to bf16 in registers as
+//     wgmma's A operand of O += P V with V MN-major (the transpose bit).
+//     Later work: ping-pong scheduling of the consumers.
+//   * dQ: Q, dO, and the block's lse, delta rows once; K and V tiles of 64
+//     keys (64, not 128: dQ's 64 fp32 accumulators per thread at D=128 plus
+//     S and dP of a 128-key tile would not fit the registers).  S = Q K^T and
+//     dP = dO V^T are SS products; P and dS are formed on the accumulator
+//     registers; dS packed to bf16 is the A operand of dQ += dS K with K
+//     MN-major; dQ stays in registers until one rounding in the epilogue.
+//   * dK/dV: K and V once; Q, dO tiles of 64 queries with their lse, delta
+//     entries (a plain bulk copy into the same stage).  The kernel computes
+//     the transposed tiles S^T = K Q^T and dP^T = V dO^T (SS), so that P^T
+//     and dS^T already sit in the A-operand register layout of dV += P^T dO
+//     and dK += dS^T Q (RS, dO and Q MN-major): the same swizzled Q and dO
+//     tiles are the K-major operand of one product and the MN-major operand
+//     of the other.  lse and delta are indexed by column here and read from
+//     the stage.  dK and dV (2 x 64 fp32 registers a thread at D=128) leave
+//     no room for 128-query tiles.
 //
-// The fp32 forward and the backward kernels are block-level products of
-// tiles in shared memory, written once (block_mma) for two engines: bf16 on
-// the tensor cores through WMMA 16x16x16 fragments (mma.sync, bf16 in, fp32
-// accumulate), fp32 on the CUDA cores (SIMT FMA, so fp32 results carry no
-// TF32 rounding); accumulators and score tiles live in fp32 shared memory;
-// tiles are staged with plain 16-byte loads.
+// Why two backward kernels and no atomics: dQ sums over keys, dK and dV over
+// queries.  A single kernel over key blocks (FlashAttention-2/3's) has to
+// add every block's share of dQ into global memory with atomics, in an order
+// that changes from run to run.  Here each block owns its output rows and
+// adds its tiles in a fixed order, so two runs give the same bits.  The
+// price: S, dP and P are computed in both kernels, 14 BH Nq Nk D FLOP and
+// two exponentials per score element against the fused form's 10 and one.
+//
+// The fp32 kernels are block-level products of tiles in shared memory on the
+// CUDA cores (block_mma: SIMT FMA, so fp32 results carry no TF32 rounding),
+// tiles staged with plain 16-byte loads.
 //
 // Rounding points.  bf16: P (forward, dK/dV) and dS (dQ, dK/dV) are rounded
 // to bf16 before they enter a tensor-core product; S, the softmax
@@ -51,10 +74,14 @@
 //
 // Deliberately not carried over from the TPU: the (N, 1) column layout of
 // lse/delta (here (BH, N) fp32 rows), the whole-sequence-in-VMEM K/V blocks
-// and the 256/512 block sizes.  D is 64 or 128 and N a multiple of 64; the
-// wgmma forward masks the ragged half of a 128-row query block (rows past
-// N_q are loaded as zeros and not written) and keys past N_k (set to -inf
-// before the row max).
+// and the 256/512 block sizes.  D is 64 or 128 and N a multiple of 64, so a
+// block's 128 rows, or a forward tile of 128 keys, may be half full.  TMA
+// reads zeros past N within a head (3-D tensor maps), never the next head's
+// rows; rows past N are not written.  Zero rows give S = 0, not -inf, so the
+// kernels mask what such rows would add: keys past N_k (-inf in the
+// forward, P = 0 in dQ) and queries past N_q (P = 0 in dK/dV).  Under the
+// wrapper's multiple of 64 the backward's 64-row ring tiles are always full
+// and those two masks never act; they keep a ragged tile exact.
 //
 // Plain C interface for ctypes: each *_launch returns cudaGetLastError()
 // after the launch (or the error of setting the shared-memory size or of
@@ -63,30 +90,20 @@
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
 #include <stdint.h>
-
-#include <type_traits>
 
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int NT = 256;          // threads per block
-constexpr int NWARPS = NT / 32;
-constexpr int BQ = 64;           // query rows per block (forward, dQ)
-constexpr int BK = 64;           // key rows per step (forward, dQ) and per block (dK/dV)
-constexpr int BQI = 32;          // query rows per step of the dK/dV kernel
+constexpr int NT = 256;          // threads per block of the fp32 kernels
+constexpr int BQ = 64;           // query rows per block (fp32 forward, dQ)
+constexpr int BK = 64;           // key rows per step (fp32 forward, dQ) and per block (dK/dV)
+constexpr int BQI = 32;          // query rows per step of the fp32 dK/dV kernel
+constexpr int PAD = 1;           // fp32 row padding: column walks hit distinct banks
 constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use on sm_90
 
 using bf16 = __nv_bfloat16;
-
-// Row padding, in elements: PAD for operand tiles of T, CPAD for fp32 tiles.
-// bf16 keeps WMMA's alignment (multiples of 8 and 4 elements); fp32 pads by
-// one so that the SIMT engine's column walks hit distinct banks.
-template <typename T> struct Pad;
-template <> struct Pad<float> { static constexpr int OP = 1, ACC = 1; };
-template <> struct Pad<bf16> { static constexpr int OP = 8, ACC = 4; };
 
 __host__ __device__ constexpr int a128(int bytes) { return (bytes + 127) / 128 * 128; }
 
@@ -99,25 +116,17 @@ struct Carve {
   }
 };
 
-template <typename T> __device__ __forceinline__ T from_f(float v);
-template <> __device__ __forceinline__ float from_f<float>(float v) { return v; }
-template <> __device__ __forceinline__ bf16 from_f<bf16>(float v) { return __float2bfloat16(v); }
-
-// R x D tile of T, contiguous in global memory, into shared rows of pitch ld.
-template <typename T, int R, int D>
-__device__ __forceinline__ void load_tile(T* s, int ld, const T* __restrict__ g) {
-  constexpr int V = 16 / sizeof(T);
-  static_assert(D % V == 0, "D must be a multiple of the vector width");
-  for (int e = threadIdx.x * V; e < R * D; e += NT * V) {
-    const uint4 u = *reinterpret_cast<const uint4*>(g + e);
-    const int r = e / D, c = e % D;
-    if constexpr (sizeof(T) == 2) {
-      *reinterpret_cast<uint4*>(s + r * ld + c) = u;
-    } else {
-      const T* src = reinterpret_cast<const T*>(&u);
-#pragma unroll
-      for (int i = 0; i < V; ++i) s[r * ld + c + i] = src[i];
-    }
+// R x D fp32 tile, contiguous in global memory, into shared rows of pitch ld.
+template <int R, int D>
+__device__ __forceinline__ void load_tile(float* s, int ld, const float* __restrict__ g) {
+  static_assert(D % 4 == 0, "D must be a multiple of the vector width");
+  for (int e = threadIdx.x * 4; e < R * D; e += NT * 4) {
+    const float4 u = *reinterpret_cast<const float4*>(g + e);
+    float* d = s + (e / D) * ld + e % D;
+    d[0] = u.x;
+    d[1] = u.y;
+    d[2] = u.z;
+    d[3] = u.w;
   }
 }
 
@@ -127,11 +136,11 @@ __device__ __forceinline__ void load_rows(float* s, const float* __restrict__ g)
   for (int i = threadIdx.x; i < R; i += NT) s[i] = g[i];
 }
 
-// C (+)= A B over shared tiles: A is M x K, B is K x N, C is M x N fp32.
+// C (+)= A B over shared fp32 tiles: A is M x K, B is K x N, C is M x N.
 // A_T: A(m, k) sits at A[k * lda + m] (else A[m * lda + k]).
 // B_T: B(k, n) sits at B[n * ldb + k] (else B[k * ldb + n]).
-// fp32 engine: a 16 x 16 thread grid, thread (ty, tx) owning the strided
-// outputs (ty + 16 i, tx + 16 j), fp32 FMA.
+// A 16 x 16 thread grid, thread (ty, tx) owning the strided outputs
+// (ty + 16 i, tx + 16 j), fp32 FMA.
 template <int M, int N, int K, bool A_T, bool B_T>
 __device__ __forceinline__ void block_mma(const float* A, int lda, const float* B, int ldb,
                                           float* C, int ldc, bool accumulate) {
@@ -165,44 +174,12 @@ __device__ __forceinline__ void block_mma(const float* A, int lda, const float* 
     for (int j = 0; j < TN; ++j) C[(ty + i * TY) * ldc + tx + j * TX] = c[i][j];
 }
 
-// bf16 engine: each warp takes 16 x 16 output tiles in turn; WMMA fragments
-// read A/B in either layout, the fp32 tile is loaded from and stored back to C.
-template <int M, int N, int K, bool A_T, bool B_T>
-__device__ __forceinline__ void block_mma(const bf16* A, int lda, const bf16* B, int ldb,
-                                          float* C, int ldc, bool accumulate) {
-  using namespace nvcuda;
-  using ALay = typename std::conditional<A_T, wmma::col_major, wmma::row_major>::type;
-  using BLay = typename std::conditional<B_T, wmma::col_major, wmma::row_major>::type;
-  static_assert(M % 16 == 0 && N % 16 == 0 && K % 16 == 0, "WMMA tiles are 16x16x16");
-  constexpr int TN = N / 16;
-  const int warp = threadIdx.x / 32;
-  for (int t = warp; t < (M / 16) * TN; t += NWARPS) {
-    const int m0 = (t / TN) * 16, n0 = (t % TN) * 16;
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> c;
-    if (accumulate)
-      wmma::load_matrix_sync(c, C + m0 * ldc + n0, ldc, wmma::mem_row_major);
-    else
-      wmma::fill_fragment(c, 0.f);
-#pragma unroll
-    for (int k0 = 0; k0 < K; k0 += 16) {
-      wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, ALay> a;
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, BLay> b;
-      wmma::load_matrix_sync(a, A_T ? A + k0 * lda + m0 : A + m0 * lda + k0, lda);
-      wmma::load_matrix_sync(b, B_T ? B + n0 * ldb + k0 : B + k0 * ldb + n0, ldb);
-      wmma::mma_sync(c, a, b, c);
-    }
-    wmma::store_matrix_sync(C + m0 * ldc + n0, c, ldc, wmma::mem_row_major);
-  }
-}
-
 // ------------------------------------------------------- forward, fp32 (SIMT)
 template <int D>
 constexpr int fwd_smem() {
-  using T = float;
-  constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
-  constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
-  return a128(BQ * LD * sizeof(T)) + 2 * a128(BK * LD * sizeof(T)) +
-         a128(BQ * LDP * sizeof(T)) + a128(BQ * LDS * 4) + a128(BQ * LDO * 4) + a128(BQ * 4);
+  constexpr int LD = D + PAD, LDP = BK + PAD;
+  return a128(BQ * LD * 4) + 2 * a128(BK * LD * 4) + a128(BQ * LDP * 4) +
+         a128(BQ * LDP * 4) + a128(BQ * LD * 4) + a128(BQ * 4);
 }
 
 template <int D>
@@ -210,42 +187,40 @@ __global__ void __launch_bounds__(NT)
 flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
                  const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
                  int Nq, int Nk, float scale) {
-  using T = float;
-  constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
-  constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
+  constexpr int LD = D + PAD, LDP = BK + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* Qs = cv.take<T>(BQ * LD);
-  T* Ks = cv.take<T>(BK * LD);
-  T* Vs = cv.take<T>(BK * LD);
-  T* Ps = cv.take<T>(BQ * LDP);
-  float* Ss = cv.take<float>(BQ * LDS);
-  float* Os = cv.take<float>(BQ * LDO);
+  float* Qs = cv.take<float>(BQ * LD);
+  float* Ks = cv.take<float>(BK * LD);
+  float* Vs = cv.take<float>(BK * LD);
+  float* Ps = cv.take<float>(BQ * LDP);
+  float* Ss = cv.take<float>(BQ * LDP);
+  float* Os = cv.take<float>(BQ * LD);
   float* Ls = cv.take<float>(BQ);
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const T* kb = k + bh * Nk * D;
-  const T* vb = v + bh * Nk * D;
-  load_tile<T, BQ, D>(Qs, LD, q + (bh * Nq + q0) * D);
-  for (int e = threadIdx.x; e < BQ * LDO; e += NT) Os[e] = 0.f;
+  const float* kb = k + bh * Nk * D;
+  const float* vb = v + bh * Nk * D;
+  load_tile<BQ, D>(Qs, LD, q + (bh * Nq + q0) * D);
+  for (int e = threadIdx.x; e < BQ * LD; e += NT) Os[e] = 0.f;
   // softmax passes: 4 neighbouring lanes share a query row
   const int r = threadIdx.x / 4, part = threadIdx.x % 4;
   float m = -1e30f, l = 0.f;
   for (int k0 = 0; k0 < Nk; k0 += BK) {
     __syncthreads();  // the previous step is done with Ks, Vs, Ps
-    load_tile<T, BK, D>(Ks, LD, kb + k0 * D);
-    load_tile<T, BK, D>(Vs, LD, vb + k0 * D);
+    load_tile<BK, D>(Ks, LD, kb + k0 * D);
+    load_tile<BK, D>(Vs, LD, vb + k0 * D);
     __syncthreads();
-    block_mma<BQ, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDS, false);
+    block_mma<BQ, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDP, false);
     __syncthreads();
     float mx = -1e30f;
-    for (int c = part; c < BK; c += 4) mx = fmaxf(mx, Ss[r * LDS + c] * scale);
+    for (int c = part; c < BK; c += 4) mx = fmaxf(mx, Ss[r * LDP + c] * scale);
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
     mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
     const float m_new = fmaxf(m, mx);
     float sum = 0.f;
     for (int c = part; c < BK; c += 4) {
-      const float p = expf(Ss[r * LDS + c] * scale - m_new);
+      const float p = expf(Ss[r * LDP + c] * scale - m_new);
       sum += p;
       Ps[r * LDP + c] = p;
     }
@@ -254,31 +229,33 @@ flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
     const float alpha = expf(m - m_new);
     l = l * alpha + sum;
     m = m_new;
-    for (int c = part; c < D; c += 4) Os[r * LDO + c] *= alpha;
+    for (int c = part; c < D; c += 4) Os[r * LD + c] *= alpha;
     __syncthreads();
-    block_mma<BQ, D, BK, false, false>(Ps, LDP, Vs, LD, Os, LDO, true);
+    block_mma<BQ, D, BK, false, false>(Ps, LDP, Vs, LD, Os, LD, true);
   }
   if (part == 0) {
     Ls[r] = l;
     lse[bh * Nq + q0 + r] = m + logf(l);
   }
   __syncthreads();
-  T* ob = out + (bh * Nq + q0) * D;
+  float* ob = out + (bh * Nq + q0) * D;
   for (int e = threadIdx.x; e < BQ * D; e += NT) {
     const int rr = e / D, c = e % D;
-    ob[e] = Os[rr * LDO + c] / Ls[rr];
+    ob[e] = Os[rr * LD + c] / Ls[rr];
   }
 }
 
-// ------------------------------------------------------- forward, bf16 (wgmma)
+// ------------------------------------------------------- bf16 (wgmma)
 namespace wg {
 
-constexpr int BM = 128;       // query rows per block: two consumer warpgroups of 64
-constexpr int BN = 128;       // keys per tile
-constexpr int STAGES = 2;     // K/V ring depth
+constexpr int BM = 128;       // output rows per block: two consumer warpgroups of 64
+constexpr int BN = 128;       // keys per tile of the forward
+constexpr int BT = 64;        // keys (dQ) or queries (dK/dV) per tile of the backward
+constexpr int STAGES = 2;     // ring depth
 constexpr int THREADS = 384;  // warpgroups 0, 1 consume; warpgroup 2 produces
 constexpr int CONSUMERS = 256;
 constexpr float kNegInf = -__builtin_huge_valf();
+constexpr float kLog2e = 1.4426950408889634f;
 
 // Shared memory: Q (D/64 panels of BM x 128 B), the K and V rings (D/64
 // panels of BN x 128 B per stage), then the barriers.
@@ -293,14 +270,16 @@ struct Smem {
 };
 static_assert(Smem<128>::BYTES <= SMEM_MAX, "wgmma forward shared memory");
 
+// O (+)= A B with A from registers and B MN-major, N = D: the register-operand
+// product of every kernel here (P V, dS K, P^T dO, dS^T Q).
 template <int D>
-__device__ __forceinline__ void pv_product(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b);
+__device__ __forceinline__ void rs_product(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b);
 template <>
-__device__ __forceinline__ void pv_product<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
+__device__ __forceinline__ void rs_product<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b) {
   hopper::wgmma_m64n64k16_rs_tb(o, a, b, 1);
 }
 template <>
-__device__ __forceinline__ void pv_product<128>(float (&o)[64], const uint32_t (&a)[4],
+__device__ __forceinline__ void rs_product<128>(float (&o)[64], const uint32_t (&a)[4],
                                                 uint64_t b) {
   hopper::wgmma_m64n128k16_rs_tb(o, a, b, 1);
 }
@@ -357,7 +336,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     reg_alloc<232>();
     const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
     const int lane = t % 32, quad = lane % 4;
-    const float c = scale * 1.4426950408889634f;  // S -> log2 units
+    const float c = scale * kLog2e;  // S -> log2 units
     float sacc[BN / 2];
     float o[D / 2];
 #pragma unroll
@@ -438,7 +417,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       wgmma_fence();
 #pragma unroll
       for (int kk = 0; kk < BN / 16; ++kk)
-        pv_product<D>(o, pa[kk], desc_sw128(vs + kk * 2048, BN * 128, 1024));
+        rs_product<D>(o, pa[kk], desc_sw128(vs + kk * 2048, BN * 128, 1024));
       wgmma_commit();
       wgmma_wait<0>();
       fence_regs(o);
@@ -463,145 +442,492 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   }
 }
 
-}  // namespace wg
-
-// ------------------------------------------------------------------ dQ
-template <typename T, int D>
-constexpr int dq_smem() {
-  constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
-  constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
-  return 2 * a128(BQ * LD * sizeof(T)) + 2 * a128(BK * LD * sizeof(T)) +
-         a128(BQ * LDP * sizeof(T)) + 2 * a128(BQ * LDS * 4) + a128(BQ * LDO * 4) +
-         2 * a128(BQ * 4);
+// 64 x 64 score tile (S or dP, or their transposes) of this warpgroup:
+// acc = A B^T over D, A's 64 rows at `a` inside the block's panels of BM
+// rows, B's 64 rows at `b` inside a ring tile's panels of BT rows; both
+// K-major.
+template <int D>
+__device__ __forceinline__ void score_tile(float (&acc)[BT / 2], const unsigned char* a,
+                                           const unsigned char* b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const int off = (kk % 4) * 32;
+    hopper::wgmma_m64n64k16_ss(acc, hopper::desc_sw128(a + (kk / 4) * BM * 128 + off, 16, 1024),
+                               hopper::desc_sw128(b + (kk / 4) * BT * 128 + off, 16, 1024),
+                               kk > 0);
+  }
 }
 
-template <typename T, int D>
+// Rows of this thread in a 64-row accumulator: 16w + l/4 and that + 8.
+__device__ __forceinline__ int acc_row(int t) { return (t / 32) * 16 + (t % 32) / 4; }
+
+// Writes this warpgroup's 64 rows of acc (rows past n dropped), rounded once.
+template <int D>
+__device__ __forceinline__ void store_rows(bf16* __restrict__ dst, const float (&acc)[D / 2],
+                                           int row0, int n, int quad) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    const int row = row0 + 8 * h;
+    if (row >= n) continue;  // the ragged half of the last block
+    bf16* r = dst + row * D + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<uint32_t*>(r + 8 * j) = hopper::pack_bf16(acc[4 * j + 2 * h],
+                                                                   acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// dQ shared memory: Q and dO (D/64 panels of BM x 128 B each), the K and V
+// rings (D/64 panels of BT x 128 B per stage), then the barriers.
+template <int D>
+struct DqSmem {
+  static constexpr int Q_BYTES = BM * D * 2;
+  static constexpr int T_BYTES = BT * D * 2;
+  static constexpr int DO_OFF = Q_BYTES;
+  static constexpr int K_OFF = 2 * Q_BYTES;
+  static constexpr int V_OFF = K_OFF + STAGES * T_BYTES;
+  static constexpr int BAR_OFF = V_OFF + STAGES * T_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+};
+static_assert(DqSmem<128>::BYTES <= SMEM_MAX, "wgmma dQ shared memory");
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
+                   const __grid_constant__ CUtensorMap kmap,
+                   const __grid_constant__ CUtensorMap vmap,
+                   const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                   const float* __restrict__ delta, bf16* __restrict__ dq, int Nq, int Nk,
+                   float scale) {
+  using namespace hopper;
+  using L = DqSmem<D>;
+  constexpr int PANELS = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* qdo_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* k_full = qdo_full + 1;
+  uint64_t* v_full = k_full + STAGES;
+  uint64_t* empty = v_full + STAGES;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
+  const int nkt = (Nk + BT - 1) / BT;
+  if (threadIdx.x == 0) {
+    mbar_init(qdo_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: Q and dO once, then K and V tiles of 64 keys
+    reg_dealloc<40>();
+    if (threadIdx.x == CONSUMERS) {
+      mbar_arrive_expect_tx(qdo_full, 2 * L::Q_BYTES);
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load_3d(smem + p * BM * 128, &qmap, qdo_full, p * 64, q0, bh);
+        tma_load_3d(smem + L::DO_OFF + p * BM * 128, &domap, qdo_full, p * 64, q0, bh);
+      }
+      for (int kt = 0; kt < nkt; ++kt) {
+        const int s = kt % STAGES;
+        mbar_wait(&empty[s], ((kt / STAGES) & 1) ^ 1);
+        unsigned char* ks = smem + L::K_OFF + s * L::T_BYTES;
+        unsigned char* vs = smem + L::V_OFF + s * L::T_BYTES;
+        mbar_arrive_expect_tx(&k_full[s], L::T_BYTES);
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_3d(ks + p * BT * 128, &kmap, &k_full[s], p * 64, kt * BT, bh);
+        mbar_arrive_expect_tx(&v_full[s], L::T_BYTES);
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_3d(vs + p * BT * 128, &vmap, &v_full[s], p * 64, kt * BT, bh);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    reg_alloc<232>();
+    const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int quad = t % 4;
+    const float c = scale * kLog2e;  // S -> log2 units
+    const int row0 = q0 + wgi * 64 + acc_row(t);
+    float lse2[2], dl[2];  // this thread's two rows: lse in log2 units, delta
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      lse2[h] = row < Nq ? lse[bh * Nq + row] * kLog2e : 0.f;
+      dl[h] = row < Nq ? delta[bh * Nq + row] : 0.f;
+    }
+    float s[BT / 2], dp[BT / 2], acc[D / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
+    const unsigned char* qs = smem + wgi * 64 * 128;  // this warpgroup's rows of each panel
+    const unsigned char* dos = smem + L::DO_OFF + wgi * 64 * 128;
+    mbar_wait(qdo_full, 0);
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int st = kt % STAGES;
+      const uint32_t parity = (kt / STAGES) & 1;
+      const unsigned char* ks = smem + L::K_OFF + st * L::T_BYTES;
+      const unsigned char* vs = smem + L::V_OFF + st * L::T_BYTES;
+      // S = Q K^T and dP = dO V^T, two groups in flight
+      mbar_wait(&k_full[st], parity);
+      wgmma_fence();
+      score_tile<D>(s, qs, ks);
+      wgmma_commit();
+      mbar_wait(&v_full[st], parity);
+      score_tile<D>(dp, dos, vs);
+      wgmma_commit();
+      // P = exp(S scale - lse) while dP is in flight
+      wgmma_wait<1>();
+      fence_regs(s);
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i) s[i] = exp2f(fmaf(s[i], c, -lse2[(i / 2) % 2]));
+      if ((kt + 1) * BT > Nk) {  // keys past N_k: zero rows of K give S = 0, not -inf
+#pragma unroll
+        for (int j = 0; j < BT / 8; ++j)
+#pragma unroll
+          for (int e = 0; e < 2; ++e)
+            if (kt * BT + 8 * j + 2 * quad + e >= Nk) s[4 * j + e] = s[4 * j + 2 + e] = 0.f;
+      }
+      wgmma_wait<0>();
+      fence_regs(dp);
+      // dS = P (dP - delta) scale, packed to bf16 as the A operand, 16 keys each
+      uint32_t da[BT / 16][4];
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j) {
+        const float d0 = s[4 * j] * (dp[4 * j] - dl[0]) * scale;
+        const float d1 = s[4 * j + 1] * (dp[4 * j + 1] - dl[0]) * scale;
+        const float d2 = s[4 * j + 2] * (dp[4 * j + 2] - dl[1]) * scale;
+        const float d3 = s[4 * j + 3] * (dp[4 * j + 3] - dl[1]) * scale;
+        da[j / 2][(j % 2) * 2] = pack_bf16(d0, d1);
+        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(d2, d3);
+      }
+      // dQ += dS K, K MN-major: 16 keys are 2048 bytes (two 8-row atoms)
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) fence_regs(da[kk]);  // packed before the fence
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)
+        rs_product<D>(acc, da[kk], desc_sw128(ks + kk * 2048, BT * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) fence_regs(da[kk]);
+      mbar_arrive(&empty[st]);
+    }
+    store_rows<D>(dq + bh * Nq * D, acc, row0, Nq, quad);
+  }
+}
+
+// dK/dV shared memory: K and V (D/64 panels of BM x 128 B each), the Q and
+// dO rings (D/64 panels of BT x 128 B per stage), the lse and delta entries
+// of each stage's queries, then the barriers.
+template <int D>
+struct DkvSmem {
+  static constexpr int KV_BYTES = BM * D * 2;
+  static constexpr int T_BYTES = BT * D * 2;
+  static constexpr int ROW_BYTES = BT * 4;
+  static constexpr int V_OFF = KV_BYTES;
+  static constexpr int Q_OFF = 2 * KV_BYTES;
+  static constexpr int DO_OFF = Q_OFF + STAGES * T_BYTES;
+  static constexpr int LSE_OFF = DO_OFF + STAGES * T_BYTES;
+  static constexpr int DELTA_OFF = LSE_OFF + STAGES * ROW_BYTES;
+  static constexpr int BAR_OFF = DELTA_OFF + STAGES * ROW_BYTES;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 3 * STAGES) + 1024;
+};
+static_assert(DkvSmem<128>::BYTES <= SMEM_MAX, "wgmma dK/dV shared memory");
+
+template <int D>
+__global__ void __launch_bounds__(THREADS, 1)
+flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap kmap,
+                    const __grid_constant__ CUtensorMap vmap,
+                    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
+                    const float* __restrict__ delta, bf16* __restrict__ dk,
+                    bf16* __restrict__ dv, int Nq, int Nk, float scale) {
+  using namespace hopper;
+  using L = DkvSmem<D>;
+  constexpr int PANELS = D / 64;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* kv_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* q_full = kv_full + 1;
+  uint64_t* do_full = q_full + STAGES;
+  uint64_t* empty = do_full + STAGES;
+  float* lse_s = reinterpret_cast<float*>(smem + L::LSE_OFF);
+  float* delta_s = reinterpret_cast<float*>(smem + L::DELTA_OFF);
+  const int bh = blockIdx.y, k0 = blockIdx.x * BM;
+  const int nqt = (Nq + BT - 1) / BT;
+  if (threadIdx.x == 0) {
+    mbar_init(kv_full, 1);
+    for (int s = 0; s < STAGES; ++s) {
+      mbar_init(&q_full[s], 1);
+      mbar_init(&do_full[s], 1);
+      mbar_init(&empty[s], CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= CONSUMERS) {
+    // ---- producer: K and V once, then Q, dO tiles of 64 queries with
+    // their lse and delta entries
+    reg_dealloc<40>();
+    if (threadIdx.x == CONSUMERS) {
+      mbar_arrive_expect_tx(kv_full, 2 * L::KV_BYTES);
+      for (int p = 0; p < PANELS; ++p) {
+        tma_load_3d(smem + p * BM * 128, &kmap, kv_full, p * 64, k0, bh);
+        tma_load_3d(smem + L::V_OFF + p * BM * 128, &vmap, kv_full, p * 64, k0, bh);
+      }
+      for (int qt = 0; qt < nqt; ++qt) {
+        const int s = qt % STAGES;
+        mbar_wait(&empty[s], ((qt / STAGES) & 1) ^ 1);
+        unsigned char* qs = smem + L::Q_OFF + s * L::T_BYTES;
+        unsigned char* dos = smem + L::DO_OFF + s * L::T_BYTES;
+        const int row = bh * Nq + qt * BT;  // 16-byte aligned: N is a multiple of 64
+        mbar_arrive_expect_tx(&q_full[s], L::T_BYTES + L::ROW_BYTES);
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_3d(qs + p * BT * 128, &qmap, &q_full[s], p * 64, qt * BT, bh);
+        bulk_load(lse_s + s * BT, lse + row, L::ROW_BYTES, &q_full[s]);
+        mbar_arrive_expect_tx(&do_full[s], L::T_BYTES + L::ROW_BYTES);
+        for (int p = 0; p < PANELS; ++p)
+          tma_load_3d(dos + p * BT * 128, &domap, &do_full[s], p * 64, qt * BT, bh);
+        bulk_load(delta_s + s * BT, delta + row, L::ROW_BYTES, &do_full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 key rows per warpgroup
+    reg_alloc<232>();
+    const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int quad = t % 4;
+    const float c = scale * kLog2e;  // S -> log2 units
+    float s[BT / 2], dp[BT / 2], acc_k[D / 2], acc_v[D / 2];
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) s[i] = dp[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
+    const unsigned char* ks = smem + wgi * 64 * 128;  // this warpgroup's keys of each panel
+    const unsigned char* vs = smem + L::V_OFF + wgi * 64 * 128;
+    mbar_wait(kv_full, 0);
+    for (int qt = 0; qt < nqt; ++qt) {
+      const int st = qt % STAGES;
+      const uint32_t parity = (qt / STAGES) & 1;
+      const unsigned char* qs = smem + L::Q_OFF + st * L::T_BYTES;
+      const unsigned char* dos = smem + L::DO_OFF + st * L::T_BYTES;
+      const float* ls = lse_s + st * BT;
+      const float* dls = delta_s + st * BT;
+      // S^T = K Q^T and dP^T = V dO^T: rows are keys, columns queries
+      mbar_wait(&q_full[st], parity);
+      wgmma_fence();
+      score_tile<D>(s, ks, qs);
+      wgmma_commit();
+      mbar_wait(&do_full[st], parity);
+      score_tile<D>(dp, vs, dos);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(s);
+      fence_regs(dp);
+      // P^T = exp(S^T scale - lse) and dS^T = P^T (dP^T - delta) scale, both
+      // packed to bf16 as A operands; this thread's columns are the queries
+      // 8j + 2(l%4) + {0, 1}
+      const bool ragged = (qt + 1) * BT > Nq;  // queries past N_q: P = 0
+      uint32_t pa[BT / 16][4], da[BT / 16][4];
+#pragma unroll
+      for (int j = 0; j < BT / 8; ++j) {
+        const int col = 8 * j + 2 * quad;
+        const float2 l2 = *reinterpret_cast<const float2*>(ls + col);
+        const float2 d2 = *reinterpret_cast<const float2*>(dls + col);
+        const float m0 = l2.x * kLog2e, m1 = l2.y * kLog2e;
+        float p[4] = {exp2f(fmaf(s[4 * j], c, -m0)), exp2f(fmaf(s[4 * j + 1], c, -m1)),
+                      exp2f(fmaf(s[4 * j + 2], c, -m0)), exp2f(fmaf(s[4 * j + 3], c, -m1))};
+        if (ragged) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            if (qt * BT + col + (e % 2) >= Nq) p[e] = 0.f;
+        }
+        pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+        da[j / 2][(j % 2) * 2] = pack_bf16(p[0] * (dp[4 * j] - d2.x) * scale,
+                                           p[1] * (dp[4 * j + 1] - d2.y) * scale);
+        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2] * (dp[4 * j + 2] - d2.x) * scale,
+                                               p[3] * (dp[4 * j + 3] - d2.y) * scale);
+      }
+      // dV += P^T dO and dK += dS^T Q, dO and Q MN-major (16 queries: 2048 bytes)
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {  // packed before the fence
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)
+        rs_product<D>(acc_v, pa[kk], desc_sw128(dos + kk * 2048, BT * 128, 1024));
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk)
+        rs_product<D>(acc_k, da[kk], desc_sw128(qs + kk * 2048, BT * 128, 1024));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc_v);
+      fence_regs(acc_k);
+#pragma unroll
+      for (int kk = 0; kk < BT / 16; ++kk) {
+        fence_regs(pa[kk]);
+        fence_regs(da[kk]);
+      }
+      mbar_arrive(&empty[st]);
+    }
+    const int row0 = k0 + wgi * 64 + acc_row(t);
+    store_rows<D>(dk + bh * Nk * D, acc_k, row0, Nk, quad);
+    store_rows<D>(dv + bh * Nk * D, acc_v, row0, Nk, quad);
+  }
+}
+
+}  // namespace wg
+
+// ------------------------------------------------------------------ dQ, fp32 (SIMT)
+template <int D>
+constexpr int dq_smem() {
+  constexpr int LD = D + PAD, LDP = BK + PAD;
+  return 2 * a128(BQ * LD * 4) + 2 * a128(BK * LD * 4) + 3 * a128(BQ * LDP * 4) +
+         a128(BQ * LD * 4) + 2 * a128(BQ * 4);
+}
+
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                    const T* __restrict__ dout, const float* __restrict__ lse,
-                    const float* __restrict__ delta, T* __restrict__ dq, int Nq, int Nk,
-                    float scale) {
-  constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
-  constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
+flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                    const float* __restrict__ v, const float* __restrict__ dout,
+                    const float* __restrict__ lse, const float* __restrict__ delta,
+                    float* __restrict__ dq, int Nq, int Nk, float scale) {
+  constexpr int LD = D + PAD, LDP = BK + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* Qs = cv.take<T>(BQ * LD);
-  T* dOs = cv.take<T>(BQ * LD);
-  T* Ks = cv.take<T>(BK * LD);
-  T* Vs = cv.take<T>(BK * LD);
-  T* dSs = cv.take<T>(BQ * LDP);
-  float* Ss = cv.take<float>(BQ * LDS);
-  float* dPs = cv.take<float>(BQ * LDS);
-  float* dQs = cv.take<float>(BQ * LDO);
+  float* Qs = cv.take<float>(BQ * LD);
+  float* dOs = cv.take<float>(BQ * LD);
+  float* Ks = cv.take<float>(BK * LD);
+  float* Vs = cv.take<float>(BK * LD);
+  float* dSs = cv.take<float>(BQ * LDP);
+  float* Ss = cv.take<float>(BQ * LDP);
+  float* dPs = cv.take<float>(BQ * LDP);
+  float* dQs = cv.take<float>(BQ * LD);
   float* Lse = cv.take<float>(BQ);
   float* Dl = cv.take<float>(BQ);
 
   const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
   const int row0 = bh * Nq + q0;
-  const T* kb = k + bh * Nk * D;
-  const T* vb = v + bh * Nk * D;
-  load_tile<T, BQ, D>(Qs, LD, q + row0 * D);
-  load_tile<T, BQ, D>(dOs, LD, dout + row0 * D);
+  const float* kb = k + bh * Nk * D;
+  const float* vb = v + bh * Nk * D;
+  load_tile<BQ, D>(Qs, LD, q + row0 * D);
+  load_tile<BQ, D>(dOs, LD, dout + row0 * D);
   load_rows<BQ>(Lse, lse + row0);
   load_rows<BQ>(Dl, delta + row0);
-  for (int e = threadIdx.x; e < BQ * LDO; e += NT) dQs[e] = 0.f;
+  for (int e = threadIdx.x; e < BQ * LD; e += NT) dQs[e] = 0.f;
   for (int k0 = 0; k0 < Nk; k0 += BK) {
     __syncthreads();  // the previous step is done with Ks, Vs, dSs
-    load_tile<T, BK, D>(Ks, LD, kb + k0 * D);
-    load_tile<T, BK, D>(Vs, LD, vb + k0 * D);
+    load_tile<BK, D>(Ks, LD, kb + k0 * D);
+    load_tile<BK, D>(Vs, LD, vb + k0 * D);
     __syncthreads();
-    block_mma<BQ, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDS, false);    // S = Q K^T
-    block_mma<BQ, BK, D, false, true>(dOs, LD, Vs, LD, dPs, LDS, false);  // dP = dO V^T
+    block_mma<BQ, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDP, false);    // S = Q K^T
+    block_mma<BQ, BK, D, false, true>(dOs, LD, Vs, LD, dPs, LDP, false);  // dP = dO V^T
     __syncthreads();
     for (int e = threadIdx.x; e < BQ * BK; e += NT) {
       const int rr = e / BK, c = e % BK;
-      const float p = expf(Ss[rr * LDS + c] * scale - Lse[rr]);
-      dSs[rr * LDP + c] = from_f<T>(p * (dPs[rr * LDS + c] - Dl[rr]) * scale);
+      const float p = expf(Ss[rr * LDP + c] * scale - Lse[rr]);
+      dSs[rr * LDP + c] = p * (dPs[rr * LDP + c] - Dl[rr]) * scale;
     }
     __syncthreads();
-    block_mma<BQ, D, BK, false, false>(dSs, LDP, Ks, LD, dQs, LDO, true);  // dQ += dS K
+    block_mma<BQ, D, BK, false, false>(dSs, LDP, Ks, LD, dQs, LD, true);  // dQ += dS K
   }
   __syncthreads();
-  T* ob = dq + row0 * D;
-  for (int e = threadIdx.x; e < BQ * D; e += NT) ob[e] = from_f<T>(dQs[(e / D) * LDO + e % D]);
+  float* ob = dq + row0 * D;
+  for (int e = threadIdx.x; e < BQ * D; e += NT) ob[e] = dQs[(e / D) * LD + e % D];
 }
 
-// ------------------------------------------------------------------ dK / dV
-template <typename T, int D>
+// ------------------------------------------------------------------ dK / dV, fp32 (SIMT)
+template <int D>
 constexpr int dkv_smem() {
-  constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
-  constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
-  return 2 * a128(BK * LD * sizeof(T)) + 2 * a128(BQI * LD * sizeof(T)) +
-         2 * a128(BQI * LDP * sizeof(T)) + 2 * a128(BQI * LDS * 4) +
-         2 * a128(BK * LDO * 4) + 2 * a128(BQI * 4);
+  constexpr int LD = D + PAD, LDP = BK + PAD;
+  return 2 * a128(BK * LD * 4) + 2 * a128(BQI * LD * 4) + 4 * a128(BQI * LDP * 4) +
+         2 * a128(BK * LD * 4) + 2 * a128(BQI * 4);
 }
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse,
-                     const float* __restrict__ delta, T* __restrict__ dk, T* __restrict__ dv,
-                     int Nq, int Nk, float scale) {
-  constexpr int LD = D + Pad<T>::OP, LDP = BK + Pad<T>::OP;
-  constexpr int LDS = BK + Pad<T>::ACC, LDO = D + Pad<T>::ACC;
+flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                     const float* __restrict__ v, const float* __restrict__ dout,
+                     const float* __restrict__ lse, const float* __restrict__ delta,
+                     float* __restrict__ dk, float* __restrict__ dv, int Nq, int Nk,
+                     float scale) {
+  constexpr int LD = D + PAD, LDP = BK + PAD;
   extern __shared__ __align__(128) unsigned char smem[];
   Carve cv{smem};
-  T* Ks = cv.take<T>(BK * LD);
-  T* Vs = cv.take<T>(BK * LD);
-  T* Qs = cv.take<T>(BQI * LD);
-  T* dOs = cv.take<T>(BQI * LD);
-  T* Ps = cv.take<T>(BQI * LDP);
-  T* dSs = cv.take<T>(BQI * LDP);
-  float* Ss = cv.take<float>(BQI * LDS);
-  float* dPs = cv.take<float>(BQI * LDS);
-  float* dKs = cv.take<float>(BK * LDO);
-  float* dVs = cv.take<float>(BK * LDO);
+  float* Ks = cv.take<float>(BK * LD);
+  float* Vs = cv.take<float>(BK * LD);
+  float* Qs = cv.take<float>(BQI * LD);
+  float* dOs = cv.take<float>(BQI * LD);
+  float* Ps = cv.take<float>(BQI * LDP);
+  float* dSs = cv.take<float>(BQI * LDP);
+  float* Ss = cv.take<float>(BQI * LDP);
+  float* dPs = cv.take<float>(BQI * LDP);
+  float* dKs = cv.take<float>(BK * LD);
+  float* dVs = cv.take<float>(BK * LD);
   float* Lse = cv.take<float>(BQI);
   float* Dl = cv.take<float>(BQI);
 
   const int bh = blockIdx.y, k0 = blockIdx.x * BK;
   const int krow0 = bh * Nk + k0;
-  load_tile<T, BK, D>(Ks, LD, k + krow0 * D);
-  load_tile<T, BK, D>(Vs, LD, v + krow0 * D);
-  for (int e = threadIdx.x; e < BK * LDO; e += NT) dKs[e] = dVs[e] = 0.f;
+  load_tile<BK, D>(Ks, LD, k + krow0 * D);
+  load_tile<BK, D>(Vs, LD, v + krow0 * D);
+  for (int e = threadIdx.x; e < BK * LD; e += NT) dKs[e] = dVs[e] = 0.f;
   for (int q0 = 0; q0 < Nq; q0 += BQI) {
     const int row0 = bh * Nq + q0;
     __syncthreads();  // the previous step is done with Qs, dOs, Ps, dSs, Lse, Dl
-    load_tile<T, BQI, D>(Qs, LD, q + row0 * D);
-    load_tile<T, BQI, D>(dOs, LD, dout + row0 * D);
+    load_tile<BQI, D>(Qs, LD, q + row0 * D);
+    load_tile<BQI, D>(dOs, LD, dout + row0 * D);
     load_rows<BQI>(Lse, lse + row0);
     load_rows<BQI>(Dl, delta + row0);
     __syncthreads();
-    block_mma<BQI, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDS, false);    // S = Q K^T
-    block_mma<BQI, BK, D, false, true>(dOs, LD, Vs, LD, dPs, LDS, false);  // dP = dO V^T
+    block_mma<BQI, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDP, false);    // S = Q K^T
+    block_mma<BQI, BK, D, false, true>(dOs, LD, Vs, LD, dPs, LDP, false);  // dP = dO V^T
     __syncthreads();
     for (int e = threadIdx.x; e < BQI * BK; e += NT) {
       const int rr = e / BK, c = e % BK;
-      const float p = expf(Ss[rr * LDS + c] * scale - Lse[rr]);
-      Ps[rr * LDP + c] = from_f<T>(p);
-      dSs[rr * LDP + c] = from_f<T>(p * (dPs[rr * LDS + c] - Dl[rr]) * scale);
+      const float p = expf(Ss[rr * LDP + c] * scale - Lse[rr]);
+      Ps[rr * LDP + c] = p;
+      dSs[rr * LDP + c] = p * (dPs[rr * LDP + c] - Dl[rr]) * scale;
     }
     __syncthreads();
-    block_mma<BK, D, BQI, true, false>(Ps, LDP, dOs, LD, dVs, LDO, true);  // dV += P^T dO
-    block_mma<BK, D, BQI, true, false>(dSs, LDP, Qs, LD, dKs, LDO, true);  // dK += dS^T Q
+    block_mma<BK, D, BQI, true, false>(Ps, LDP, dOs, LD, dVs, LD, true);  // dV += P^T dO
+    block_mma<BK, D, BQI, true, false>(dSs, LDP, Qs, LD, dKs, LD, true);  // dK += dS^T Q
   }
   __syncthreads();
-  T* kout = dk + krow0 * D;
-  T* vout = dv + krow0 * D;
+  float* kout = dk + krow0 * D;
+  float* vout = dv + krow0 * D;
   for (int e = threadIdx.x; e < BK * D; e += NT) {
-    const int at = (e / D) * LDO + e % D;
-    kout[e] = from_f<T>(dKs[at]);
-    vout[e] = from_f<T>(dVs[at]);
+    const int at = (e / D) * LD + e % D;
+    kout[e] = dKs[at];
+    vout[e] = dVs[at];
   }
 }
 
 static_assert(fwd_smem<128>() <= SMEM_MAX, "forward shared memory");
-static_assert(dq_smem<float, 128>() <= SMEM_MAX, "dQ shared memory");
-static_assert(dkv_smem<float, 128>() <= SMEM_MAX, "dK/dV shared memory");
+static_assert(dq_smem<128>() <= SMEM_MAX, "dQ shared memory");
+static_assert(dkv_smem<128>() <= SMEM_MAX, "dK/dV shared memory");
 
+// ------------------------------------------------------------------ host
 template <typename Kernel>
 cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+}
+
+// (BH, rows, D) bf16 as a 3-D tensor map {D, rows, BH}: boxes of 64 columns x
+// box_rows rows x 1 head; rows past the tensor's (a ragged tile) read zeros
+// instead of the next head's.
+template <int D>
+cudaError_t head_map(CUtensorMap* map, const void* p, int rows, int bh, int box_rows) {
+  return hopper::tensor_map_3d(map, p, D, rows, bh, D * 2ull, static_cast<uint64_t>(rows) * D * 2,
+                               64, box_rows, 1);
 }
 
 template <int D>
@@ -623,11 +949,7 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {nq, nk, nk};
   for (int i = 0; i < 3; ++i) {
-    // (BH, N, D) as dims {D, N, BH}: boxes of 64 columns x a tile of rows x 1 head;
-    // rows past N (the ragged tile) read zeros instead of the next head's
-    const cudaError_t e = hopper::tensor_map_3d(
-        &maps[i], ptrs[i], D, rows[i], bh, D * 2ull, static_cast<uint64_t>(rows[i]) * D * 2,
-        64, i == 0 ? wg::BM : wg::BN, 1);
+    const cudaError_t e = head_map<D>(&maps[i], ptrs[i], rows[i], bh, i == 0 ? wg::BM : wg::BN);
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   constexpr int bytes = wg::Smem<D>::BYTES;
@@ -638,35 +960,84 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int dq(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-       const void* delta, void* dq_out, int bh, int nq, int nk, float scale, cudaStream_t s) {
-  constexpr int bytes = dq_smem<T, D>();
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<T, D>, bytes);
+// The four operand maps of a bf16 backward kernel: q, k, v, dout, each with
+// the box of its role (the block's own rows, BM, or a ring tile, BT).
+template <int D>
+cudaError_t bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const void* v,
+                     const void* dout, int bh, int nq, int nk, bool query_blocks) {
+  const int qbox = query_blocks ? wg::BM : wg::BT, kbox = query_blocks ? wg::BT : wg::BM;
+  const void* ptrs[4] = {q, k, v, dout};
+  const int rows[4] = {nq, nk, nk, nq};
+  const int box[4] = {qbox, kbox, kbox, qbox};
+  for (int i = 0; i < 4; ++i) {
+    const cudaError_t e = head_map<D>(&maps[i], ptrs[i], rows[i], bh, box[i]);
+    if (e != cudaSuccess) return e;
+  }
+  return cudaSuccess;
+}
+
+template <int D>
+int dq_wgmma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+             const void* delta, void* dq_out, int bh, int nq, int nk, float scale,
+             cudaStream_t s) {
+  CUtensorMap maps[4];
+  cudaError_t e = bwd_maps<D>(maps, q, k, v, dout, bh, nq, nk, true);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_kernel<T, D><<<dim3(nq / BQ, bh), NT, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dq_out), nq, nk, scale);
+  constexpr int bytes = wg::DqSmem<D>::BYTES;
+  e = allow_smem(wg::flash_bwd_dq_wgmma<D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wg::flash_bwd_dq_wgmma<D><<<dim3((nq + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes, s>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dq_out), nq, nk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int dkv(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-        const void* delta, void* dk, void* dv, int bh, int nq, int nk, float scale,
-        cudaStream_t s) {
-  constexpr int bytes = dkv_smem<T, D>();
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<T, D>, bytes);
+template <int D>
+int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dk, void* dv, int bh, int nq, int nk, float scale,
+              cudaStream_t s) {
+  CUtensorMap maps[4];
+  cudaError_t e = bwd_maps<D>(maps, q, k, v, dout, bh, nq, nk, false);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkv_kernel<T, D><<<dim3(nk / BK, bh), NT, bytes, s>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const T*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<T*>(dk), static_cast<T*>(dv), nq, nk,
+  constexpr int bytes = wg::DkvSmem<D>::BYTES;
+  e = allow_smem(wg::flash_bwd_dkv_wgmma<D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  wg::flash_bwd_dkv_wgmma<D><<<dim3((nk + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes, s>>>(
+      maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk,
       scale);
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int BAD_ARGUMENT = -1;  // a head width or type the kernels do not take
+template <int D>
+int dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+           const void* delta, void* dq_out, int bh, int nq, int nk, float scale, cudaStream_t s) {
+  constexpr int bytes = dq_smem<D>();
+  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dq_kernel<D><<<dim3(nq / BQ, bh), NT, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dq_out), nq, nk, scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+            const void* delta, void* dk, void* dv, int bh, int nq, int nk, float scale,
+            cudaStream_t s) {
+  constexpr int bytes = dkv_smem<D>();
+  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, bytes);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  flash_bwd_dkv_kernel<D><<<dim3(nk / BK, bh), NT, bytes, s>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<const float*>(dout), static_cast<const float*>(lse),
+      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), nq, nk,
+      scale);
+  return static_cast<int>(cudaGetLastError());
+}
+
+constexpr int BAD_ARGUMENT = -1;  // a head width, type or kernel the library does not take
 
 }  // namespace
 
@@ -681,9 +1052,17 @@ extern "C" int flash_fwd_launch(int is_bf16, int d, const void* q, const void* k
   return BAD_ARGUMENT;
 }
 
-// Dynamic shared memory of the bf16 forward at head width d, for build reports.
-extern "C" int flash_fwd_wgmma_smem(int d) {
-  return d == 128 ? wg::Smem<128>::BYTES : d == 64 ? wg::Smem<64>::BYTES : BAD_ARGUMENT;
+// Dynamic shared memory of a bf16 kernel (0 forward, 1 dQ, 2 dK/dV) at head
+// width d, for build reports.
+extern "C" int flash_wgmma_smem(int kernel, int d) {
+  if (d != 64 && d != 128) return BAD_ARGUMENT;
+  const bool w = d == 128;
+  switch (kernel) {
+    case 0: return w ? wg::Smem<128>::BYTES : wg::Smem<64>::BYTES;
+    case 1: return w ? wg::DqSmem<128>::BYTES : wg::DqSmem<64>::BYTES;
+    case 2: return w ? wg::DkvSmem<128>::BYTES : wg::DkvSmem<64>::BYTES;
+    default: return BAD_ARGUMENT;
+  }
 }
 
 extern "C" int flash_bwd_dq_launch(int is_bf16, int d, const void* q, const void* k,
@@ -692,13 +1071,13 @@ extern "C" int flash_bwd_dq_launch(int is_bf16, int d, const void* q, const void
                                    float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && d == 128)
-    return dq<bf16, 128>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
+    return dq_wgmma<128>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
   if (is_bf16 && d == 64)
-    return dq<bf16, 64>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
+    return dq_wgmma<64>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 128)
-    return dq<float, 128>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
+    return dq_f32<128>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 64)
-    return dq<float, 64>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
+    return dq_f32<64>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
   return BAD_ARGUMENT;
 }
 
@@ -708,12 +1087,12 @@ extern "C" int flash_bwd_dkv_launch(int is_bf16, int d, const void* q, const voi
                                     int nk, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && d == 128)
-    return dkv<bf16, 128>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
+    return dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
   if (is_bf16 && d == 64)
-    return dkv<bf16, 64>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
+    return dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 128)
-    return dkv<float, 128>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
+    return dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 64)
-    return dkv<float, 64>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
+    return dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
   return BAD_ARGUMENT;
 }

@@ -1,8 +1,8 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's wgmma kernels:
-// the bf16 flash-attention forward (flash_attention.cu) and the bf16 neck conv
-// (conv3x3_bn_gelu.cu).  Inline PTX keeps an nvcc build at seconds; nothing
-// here links against libcuda (the tensor-map encoder is looked up at run
-// time through the CUDA runtime's entry-point query).
+// the bf16 flash-attention forward and backward (flash_attention.cu) and the
+// bf16 neck conv (conv3x3_bn_gelu.cu).  Inline PTX keeps an nvcc build at
+// seconds; nothing here links against libcuda (the tensor-map encoder is
+// looked up at run time through the CUDA runtime's entry-point query).
 //
 //   * shared-memory matrix descriptors for 128-byte-swizzled tiles and the
 //     swizzle itself (the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes);
@@ -11,7 +11,8 @@
 //   * mbarrier init / arrive / expect-tx / try-wait with phase parity;
 //   * cp.async (16 bytes, zero-fill) and the proxy fence that hands its
 //     writes to wgmma;
-//   * cp.async.bulk.tensor (TMA) loads and host-side tensor maps;
+//   * cp.async.bulk.tensor (TMA) loads and host-side tensor maps, and plain
+//     bulk copies of contiguous bytes;
 //   * setmaxnreg for warp-specialised kernels.
 //
 // Swizzled tiles: a tile is rows of 128 bytes (64 bf16), grouped by eight rows
@@ -116,6 +117,16 @@ __device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map, u
       : "memory");
 }
 
+// Copies `bytes` contiguous bytes from global memory into `dst` and completes
+// them on `bar`.  Both addresses 16-byte aligned, `bytes` a multiple of 16.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t bytes,
+                                          uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes [%0], [%1], %2, [%3];\n"
+      ::"r"(smem_u32(dst)), "l"(src), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ------------------------------------------------------------------ wgmma
 // Descriptor of a 128B-swizzled shared-memory operand.  K-major (K
 // contiguous): sbo = 1024 (the next eight rows), lbo unused; advancing K by
@@ -161,6 +172,25 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // w = t / 32, lane l) holds d[4j + 2h + c] = D(16w + l/4 + 8h, 8j + 2(l%4) + c).
 // The register A operand of m64nNk16 (bf16) is that layout for N = 16:
 // a[2h' + h] packs D(16w + l/4 + 8h, 8h' + 2(l%4) + {0, 1}) as bf16x2.
+
+// D (+)= A B, m64n64k16, A and B from shared memory (K-major, descriptors).
+__device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
+                                                 uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
 
 // D (+)= A B, m64n128k16, A and B from shared memory (K-major, descriptors).
 __device__ __forceinline__ void wgmma_m64n128k16_ss(float (&d)[64], uint64_t desc_a,

@@ -10,9 +10,11 @@ whose backward computes ``delta = rowsum(dO * O)`` in plain torch (the JAX
 package leaves it to XLA, :189-192) and launches the dQ and dK/dV kernels.
 There is no fallback from one to the other.
 
-The bf16 forward runs on Hopper's ``wgmma`` fed by TMA through a shared-memory
-ring (``flash_fwd_wgmma``); the fp32 forward and the backward kernels are
-block-level products of shared-memory tiles.
+The bf16 kernels run on Hopper's ``wgmma`` fed by TMA through a shared-memory
+ring (``flash_fwd_wgmma``, ``flash_bwd_dq_wgmma``, ``flash_bwd_dkv_wgmma``):
+two backward kernels, each owning its output rows, so there are no atomics
+and two calls give the same bits.  The fp32 kernels are block-level products
+of shared-memory tiles on the CUDA cores (no TF32 rounding).
 
 Numerics: the plain version computes the scores, the softmax and the value
 product in fp32 from the input-dtype operands and rounds the output once;
@@ -62,8 +64,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch):
         fn.restype = ctypes.c_int
-    lib.flash_fwd_wgmma_smem.argtypes = [i]
-    lib.flash_fwd_wgmma_smem.restype = i
+    lib.flash_wgmma_smem.argtypes = [i, i]
+    lib.flash_wgmma_smem.restype = i
     return lib
 
 
@@ -129,9 +131,9 @@ def _check_backward(q, k, v, dout, lse, delta) -> None:
         raise ValueError("flash_attention: dout must have q's shape")
     for name, t in (("lse", lse), ("delta", delta)):
         if (t.dtype != torch.float32 or t.shape != q.shape[:2] or not t.is_contiguous()
-                or t.device != q.device):
+                or t.device != q.device or t.data_ptr() % 16):
             raise ValueError(f"flash_attention: {name} must be contiguous fp32 "
-                             f"(BH, N_q) on {q.device}")
+                             f"(BH, N_q) on {q.device}, 16-byte aligned")
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:

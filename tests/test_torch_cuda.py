@@ -166,6 +166,34 @@ def test_flash_attention_kernels(dev, dtype, d, nq, nk):
             fa.flash_attention.launches_dkv) == (2, 1, 1)
 
 
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("nq,nk", [(192, 192), (192, 320), (320, 64), (1024, 448)])
+def test_flash_backward_kernels(dev, d, nq, nk):
+    """The bf16 dQ and dK/dV kernels under autograd through ``flash_attention``
+    at BH = 3: N % 128 = 64 (a block's last 128 rows half full, TMA reading
+    zeros past N instead of the next head's rows), N_q != N_k, D 64 and 128;
+    two backward calls give the same bits (no atomics), one launch of each
+    kernel per backward."""
+    g = torch.Generator(device=dev).manual_seed(8)
+    q, k, v = (torch.randn(1, 3, n, d, device=dev, generator=g).to(torch.bfloat16)
+               for n in (nq, nk, nk))
+    cot = torch.randn(1, 3, nq, d, device=dev, generator=g).to(torch.bfloat16)
+    fa.flash_attention.launches = fa.flash_attention.launches_dq = 0
+    fa.flash_attention.launches_dkv = 0
+    grads = []
+    for _ in range(2):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        (fa.flash_attention(*leaves).float() * cot.float()).sum().backward()
+        grads.append([t.grad for t in leaves])
+    assert (fa.flash_attention.launches, fa.flash_attention.launches_dq,
+            fa.flash_attention.launches_dkv) == (2, 2, 2)
+    ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    (fa.flash_attention_ref(*ref_leaves)[0].float() * cot.float()).sum().backward()
+    for a, b, again in zip(grads[0], ref_leaves, grads[1]):
+        _close_rel(a, b.grad, torch.bfloat16)
+        assert torch.equal(a, again)
+
+
 def test_flash_attention_wrapper_raises(dev):
     q = torch.randn(1, 2, 128, 64, device=dev)
     with pytest.raises(ValueError, match="contiguous"):
