@@ -21,8 +21,11 @@ Phases, each printing its own lines:
      with, for the wgmma kernels (3b, 3c, 3d bf16), the kernel's own device
      time per call (profiler), its TFLOP/s and share of the bound, and the
      kernel timed in turns with its library yardstick and their ratio;
-     3e the DWI z-score, 3f the histogram percentiles (on max-normalised
-     synthetic DCE volumes), 3g the standalone SE; the memory-bound kernels
+     3e the DWI z-score, 3f the histogram percentiles (max-normalised
+     synthetic DCE rows at (48 | 1536, 65536), the same with 60 % of each
+     row at 0, ragged and unaligned rows at (48, 65539) and (7, 10007),
+     rows past the kernel's shared-memory budget at (4, 2^20); two calls
+     compared bit for bit), 3g the standalone SE; the memory-bound kernels
      (3a, 3e-3g) with their device time, GB/s and share of the bytes bound;
      3h autograd through the full-width hybrid-nb transformer stage in bf16
      (the backward kernels' path: 6 launches of dQ and of dK/dV a backward),
@@ -863,36 +866,69 @@ def phase_dwi_norm():
             "bound_by": "bytes", "library_ms": None}
 
 
+def fullest_bin_share(flat):
+    """The largest share of a row that one of its 4096 bins holds."""
+    mn = flat.min(1, keepdim=True).values
+    span = (flat.max(1, keepdim=True).values - mn).clamp(min=1e-12)
+    idx = ((flat - mn) / span * hist.NBINS).clamp(0, hist.NBINS - 1).floor().long()
+    counts = torch.zeros(flat.shape[0], hist.NBINS, dtype=torch.int64, device=flat.device)
+    counts.scatter_add_(1, idx, torch.ones_like(idx))
+    return (counts.max(1).values.float() / flat.shape[1]).max().item()
+
+
 def phase_histogram(dce_norm):
     """``dce_norm``: the max-normalised synthetic DCE volumes on the card."""
     rows = dce_norm.permute(0, 3, 1, 2).reshape(-1, IMAGE * IMAGE).contiguous()
-    log(f"== phase 3f: histogram_percentiles (CUDA) vs plain on max-normalised synthetic "
-        f"DCE rows, (48 served B=8 | {rows.shape[0]} prepared, {rows.shape[1]}) fp32")
+    flat_all = rows.view(-1)
+    crowded = rows[:48].clone()
+    crowded[torch.rand(crowded.shape, device=DEV, generator=gen(10)) < 0.6] = 0.0
+    crowded_all = rows.clone()
+    crowded_all[torch.rand(crowded_all.shape, device=DEV, generator=gen(11)) < 0.6] = 0.0
+    # (tag, rows): the served B=8 batch's 48 rows, the prepared store's rows,
+    # both with 60 % of each row at the background value 0 (a breast slice's
+    # background), ragged and 16-byte-unaligned rows cut from the same values,
+    # and rows whose slices exceed the kernel's shared-memory budget
+    cases = [("synthetic", rows[:48]), ("synthetic", rows), ("crowded", crowded),
+             ("crowded", crowded_all), ("ragged", flat_all[: 48 * 65539].view(48, 65539)),
+             ("ragged", flat_all[: 7 * 10007].view(7, 10007)),
+             ("large", flat_all[: 4 * 2 ** 20].view(4, 2 ** 20))]
+    log(f"== phase 3f: histogram_percentiles (CUDA, one cluster of 8 blocks a row) vs plain "
+        f"on max-normalised synthetic DCE rows, fp32: "
+        + ", ".join(f"{tag} {tuple(f.shape)}" for tag, f in cases))
+    resident = hist._library().histogram_percentiles_resident_clusters
+    log("  clusters of 8 blocks resident at once: " + ", ".join(
+        f"P={p} {resident(p)}" for p in sorted({f.shape[1] for _, f in cases})))
     errs, res = [], {}
-    for g_rows in (48, rows.shape[0]):
-        flat = rows[:g_rows]
+    for tag, flat in cases:
+        name = f"{tag} {tuple(flat.shape)}"
         out = hist.histogram_percentiles(flat, LANDMARKS)
         ref = hist.histogram_percentiles_ref(flat, LANDMARKS)
-        span = (flat.max(1).values - flat.min(1).values)[:, None]
+        span = (flat.max(1).values - flat.min(1).values).clamp(min=1e-12)[:, None]
         err = (out - ref).abs().max().item()
         err_bins = ((out - ref).abs() / (span / hist.NBINS)).max().item()
         # the same bins and the same in-bin interpolation: within 1e-6 * span
         # (0.004 bins), as the plain version is held to the Pallas kernel;
         # a kernel without the interpolation or a bin off would be ~1 bin out
         tol_bins = 1e-6 * hist.NBINS
-        log(f"  G={g_rows}: max_abs_err {err:.3e}, {err_bins:.3e} bins of span/4096 "
-            f"(tolerance {tol_bins:.3e} bins = 1e-6 x span)")
+        same = torch.equal(out, hist.histogram_percentiles(flat, LANDMARKS))
+        log(f"  {name}: max_abs_err {err:.3e}, {err_bins:.3e} bins of span/4096 "
+            f"(tolerance {tol_bins:.3e} bins = 1e-6 x span); two calls bit-equal {same}; "
+            f"fullest bin {100 * fullest_bin_share(flat):.2f} % of its row")
         if not err_bins <= tol_bins:
-            raise AssertionError(f"histogram_percentiles G={g_rows}: {err_bins} bins apart")
+            raise AssertionError(f"histogram_percentiles {name}: {err_bins} bins apart")
+        if not same:
+            raise AssertionError(f"histogram_percentiles {name}: two calls differ")
         errs.append(err)
         t_k = cuda_time(lambda: hist.histogram_percentiles(flat, LANDMARKS))
         t_p = cuda_time(lambda: hist.histogram_percentiles_ref(flat, LANDMARKS), reps=3)
         bound = flat.numel() * 4 / HBM_BYTES_PER_S * 1e3  # one read of the rows
-        log(f"  G={g_rows}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
+        log(f"  {name}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound "
             f"{bound:.4f} ms (bytes, {flat.numel() * 4 / 1e6:.1f} MB)")
-        device_rate(f"G={g_rows}", lambda: hist.histogram_percentiles(flat, LANDMARKS),
-                    ("histogram_percentiles_kernel",), bound, nbytes=flat.numel() * 4)
-        res[g_rows] = (t_k, t_p, bound)
+        device_rate(name, lambda: hist.histogram_percentiles(flat, LANDMARKS),
+                    ("histogram_percentiles",), bound, nbytes=flat.numel() * 4)
+        res[name] = (t_k, t_p, bound)
+        del out, ref
+    del crowded, crowded_all
     # the path that carries the kernel: nyul_transform_hist on one B=8 batch,
     # counts set to 0 just before and read just after
     batch = dce_norm[:B_SERVE].contiguous()
@@ -908,7 +944,7 @@ def phase_histogram(dce_norm):
         f"two estimators): max |diff| {diff:.3e}; histogram launches {launches}")
     if launches != 1 or not torch.isfinite(via_hist).all():
         raise AssertionError("nyul_transform_hist did not run through the kernel once")
-    t_k, t_p, bound = res[48]
+    t_k, t_p, bound = res[f"synthetic (48, {IMAGE * IMAGE})"]
     return {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None, "served": False}, launches
 

@@ -4,8 +4,8 @@ Counterpart of ``dmf_tpu/ops/histogram_pallas.py``: the Pallas kernel
 ``_percentile_kernel`` via ``histogram_percentiles_pallas`` and the transform
 ``nyul_transform_pallas`` built on it.  The wrapper runs the plain version
 below for tensors on the CPU and the CUDA kernel in
-``csrc/histogram_percentiles.cu`` for tensors on a CUDA device; there is no
-fallback from one to the other.  As in the JAX package, no served path
+``csrc/histogram_percentiles.cu`` (one launch, a cluster of 8 blocks a row)
+for tensors on a CUDA device; there is no fallback from one to the other.  As in the JAX package, no served path
 dispatches it: DCE serving runs ``data/preprocess.py::nyul_transform_fast``.
 
 Per row of ``flat`` (G, P): a 4096-bin histogram between the row's min and
@@ -79,6 +79,8 @@ def _library() -> ctypes.CDLL:
     fn.argtypes = ([ctypes.c_void_p] * 3 + [ctypes.c_longlong, ctypes.c_longlong,
                                             ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.histogram_percentiles_resident_clusters.argtypes = [ctypes.c_longlong]
+    lib.histogram_percentiles_resident_clusters.restype = ctypes.c_int
     return lib
 
 

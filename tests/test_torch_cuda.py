@@ -230,22 +230,59 @@ def test_dwi_normalize_kernel(dev, dtype, flags, shape):
     assert torch.equal(out, dwi_norm.dwi_normalize(img, skip_last=flags[0], zero_last=flags[1]))
 
 
-@pytest.mark.parametrize("shape", [(5, 10007), (3, 65536)])
-def test_histogram_percentiles_kernel(dev, shape):
-    g = torch.Generator(device=dev).manual_seed(4)
-    flat = torch.rand(shape, device=dev, generator=g) ** 3
-    percents = (1, 10, 25, 30, 40, 50, 60, 75, 80, 90, 99)
+def _hist_rows(dev, g, p, kind):
+    """(g, p) fp32 rows for kernel 8: ``rand`` cubed, or 60 % of each row set
+    to the background value 0 (``crowded``), every value equal
+    (``constant``: span clamped to 1e-12), one element past a 16-byte
+    boundary (``unaligned``), or values on bin edges and one ulp either side
+    (``edges``)."""
+    gen = torch.Generator(device=dev).manual_seed(4)
+    if kind == "edges":
+        e = torch.arange(4097, device=dev, dtype=torch.float32) / 4096.0
+        e = torch.cat([e, torch.nextafter(e, e + 1), torch.nextafter(e, e - 1)]).clamp(0, 1)
+        e = e * 0.964 + 0.013  # a span that is no power of two
+        idx = torch.randint(0, e.numel(), (g, p), device=dev, generator=gen)
+        flat = e[idx]
+        flat[:, 0], flat[:, 1] = 0.013, 0.977
+        return flat
+    if kind == "constant":
+        return torch.full((g, p), 0.3, device=dev)
+    buf = torch.rand(g * p + 1, device=dev, generator=gen) ** 3
+    flat = buf[1:].view(g, p) if kind == "unaligned" else buf[: g * p].view(g, p)
+    if kind == "unaligned":
+        assert flat.is_contiguous() and flat.data_ptr() % 16
+    if kind == "crowded":
+        flat[torch.rand(g, p, device=dev, generator=gen) < 0.6] = 0.0
+    return flat
+
+
+@pytest.mark.parametrize("g,p,kind", [
+    (5, 10007, "rand"), (3, 65536, "rand"),
+    (1, 2, "rand"), (48, 2, "rand"), (4096, 2, "rand"),
+    (1, 3, "rand"), (48, 3, "rand"), (4096, 3, "rand"),
+    (1, 10007, "rand"), (48, 10007, "rand"), (4096, 10007, "rand"),
+    (1, 65539, "rand"), (48, 65539, "rand"), (4096, 65539, "rand"),
+    (1, 2 ** 20, "rand"), (48, 2 ** 20, "rand"),   # slices past the shared-memory budget
+    (48, 65536, "crowded"), (4, 2 ** 20, "crowded"),
+    (3, 1000, "constant"), (48, 65539, "constant"),
+    (5, 4099, "unaligned"), (3, 65536, "edges")])
+def test_histogram_percentiles_kernel(dev, g, p, kind):
+    flat = _hist_rows(dev, g, p, kind)
+    percents = (0, 1, 10, 25, 30, 40, 50, 60, 75, 80, 90, 99, 100)
     histogram.histogram_percentiles.launches = 0
     out = histogram.histogram_percentiles(flat, percents)
     ref = histogram.histogram_percentiles_ref(flat, percents)
-    span = (flat.max(1).values - flat.min(1).values)[:, None]
+    span = (flat.max(1).values - flat.min(1).values).clamp(min=1e-12)[:, None]
     # the same bins and in-bin interpolation (exact counts): within 1e-6 * span
     assert ((out - ref).abs() / span).max().item() <= 1e-6
     assert histogram.histogram_percentiles.launches == 1
-    img = flat[:, : 64 * 64].reshape(-1, 64, 64, 1).expand(-1, -1, -1, 2).contiguous()
-    scale = torch.linspace(0.0, 1.0, len(percents), device=dev)
-    got = histogram.nyul_transform_hist(img, percents, scale)
-    assert torch.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
+    # a second call gives the same bits: counts are exact in any order
+    assert torch.equal(out, histogram.histogram_percentiles(flat, percents))
+    if p >= 64 * 64:
+        img = flat[:, : 64 * 64].reshape(-1, 64, 64, 1).expand(-1, -1, -1, 2).contiguous()
+        scale = torch.linspace(0.0, 1.0, len(percents), device=dev)
+        got = histogram.nyul_transform_hist(img, percents, scale)
+        assert torch.isfinite(got).all() and got.min() >= 0.0 and got.max() <= 1.0
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -146,6 +146,132 @@ def test_histogram_wrapper_on_cpu_is_plain_and_uncounted():
     assert histogram.histogram_percentiles.launches == 0
 
 
+# The CUDA kernel (csrc/histogram_percentiles.cu) splits a row over a cluster
+# of 8 blocks: block r bins the values [r S, r S + S), S = ceil(P / 8), owns
+# bins [512 r, 512 r + 512), sums them over the 8 histograms, takes the count
+# below them from the blocks' range sums, and reads out the percents whose bin
+# it owns.  The replay below takes the same steps in plain torch on the CPU.
+CLUSTER = 8
+OWN = histogram.NBINS // CLUSTER
+EDGE = 2.0 ** -9  # the kernel's kEdge
+
+
+def _f32(v):
+    return torch.tensor(v, dtype=torch.float32)
+
+
+def _cluster_replay(flat, percents):
+    G, P = flat.shape
+    S = -(-P // CLUSTER)
+    tgts = histogram._fractions(percents, "cpu") * (P - 1) + 1.0
+    out = torch.empty((G, len(percents)), dtype=torch.float32)
+    for g in range(G):
+        slices = [flat[g, min(r * S, P):min(r * S + S, P)] for r in range(CLUSTER)]
+        mn = torch.stack([s.min() if s.numel() else _f32(float("inf")) for s in slices]).min()
+        mx = torch.stack([s.max() if s.numel() else _f32(float("-inf")) for s in slices]).max()
+        span = (mx - mn).clamp(min=1e-12)
+        hists = [torch.bincount(((s - mn) / span * histogram.NBINS).clamp(
+            0, histogram.NBINS - 1).floor().long(), minlength=histogram.NBINS)
+            for s in slices]
+        range_sums = [h.view(CLUSTER, OWN).sum(1) for h in hists]
+        for l, tgt in enumerate(tgts):
+            owners = []
+            for r in range(CLUSTER):
+                own = sum(h[r * OWN:(r + 1) * OWN] for h in hists)  # rank order
+                prefix = int(sum(rs[:r].sum() for rs in range_sums))
+                cdf = prefix + own.cumsum(0)
+                below, upto = _f32(float(prefix)), _f32(float(cdf[-1]))
+                if not ((r == 0 or below < tgt) and (r == CLUSTER - 1 or not upto < tgt)):
+                    continue
+                owners.append(r)
+                i = min(int((cdf.float() < tgt).sum()), OWN - 1)
+                c_hi = cdf[i].float()
+                c_lo = cdf[i - 1].float() if i > 0 else below
+                frac = ((tgt - c_lo) / (c_hi - c_lo).clamp(min=1.0)).clamp(0.0, 1.0)
+                out[g, l] = mn + (_f32(float(r * OWN + i)) + frac) / histogram.NBINS * span
+            assert len(owners) == 1, (g, l, owners)  # one block writes each output
+    return out
+
+
+def _boundary_rows():
+    """P = 101 on [0, 1]: 50 values below bin 400 and one in bin 511, so
+    cdf[511] == 51 == tgt for p = 50 (the last bin of slice 0); one value in
+    bin 512, so p = 51's bin opens slice 1 and its c_lo is slice 0's total;
+    nothing in bins 513-2099 (slices 2 and 3 empty)."""
+    rng = np.random.RandomState(11)
+    row = np.concatenate([rng.uniform(0.0, 400.0 / 4096, 49), [511.5 / 4096, 512.5 / 4096],
+                          rng.uniform(2100.0 / 4096, 1.0, 48), [1.0, 0.0]])
+    return np.stack([rng.permutation(row), rng.permutation(row)]).astype(np.float32)
+
+
+def _crowded_rows(g, p, seed=12):
+    """60 % of each row at the background value 0: bin 0 holds them all."""
+    x = _dce_rows(g, p, seed)
+    x[np.random.RandomState(seed + 1).rand(g, p) < 0.6] = 0.0
+    return x
+
+
+CLUSTER_ROWS = {
+    "boundary": (_boundary_rows, (0, 25, 50, 51, 52, 99, 100)),
+    "crowded": (lambda: _crowded_rows(3, 4099), LANDMARKS),
+    "two_values": (lambda: np.array([[3.0, 1.0], [5.0, 5.0]], np.float32), LANDMARKS),
+    "five_values": (lambda: np.array([[2.0, 2.0, 2.0, 7.0, -1.0]], np.float32), LANDMARKS),
+    "ragged": (lambda: _dce_rows(2, 8 * 517 + 3, seed=13), LANDMARKS),
+    "constant": (lambda: np.full((2, 37), 0.25, np.float32), LANDMARKS),
+}
+
+
+@pytest.mark.parametrize("kind", sorted(CLUSTER_ROWS))
+def test_cluster_replay_matches_ref(kind):
+    """The kernel's slices, reduce-scatter, prefixes and owned readout give
+    the plain version's bits: at targets on a slice's last bin, across a
+    slice boundary, with empty bin slices (boundary), blocks without values
+    (P = 2, 5), a crowded bin 0 and a span clamped to 1e-12 (constant)."""
+    make, percents = CLUSTER_ROWS[kind]
+    x = torch.from_numpy(make())
+    ref = histogram.histogram_percentiles_ref(x, percents)
+    if kind == "boundary":  # p = 50 reads bin 511 with frac 1: 512 / 4096
+        assert ref[0, 2].item() == 0.125 and ref[0, 3].item() > 0.125
+    if kind == "crowded":
+        assert (x == 0).float().mean(1).min() > 0.55
+    assert torch.equal(_cluster_replay(x, percents), ref)
+
+
+def _bin_fast(x, mn, span):
+    """The kernel's binning in numpy fp32 (``t_fast``, ``t_exact``,
+    ``floor_bin``): (x - mn) times 4096 times the rounded reciprocal, the
+    IEEE quotient where that lies within EDGE of an integer k >= 1."""
+    d = (x - mn).astype(np.float32)
+    t = d * ((np.float32(1.0) / span) * np.float32(4096))
+    k = (t + np.float32(2 ** 23)) - np.float32(2 ** 23)  # the nearest integer
+    near = (np.abs(t - k) < EDGE) & (k >= 1)
+    t = np.where(near, (d / span) * np.float32(4096), t)
+    return np.minimum(np.floor(t), 4095).astype(np.int64), d
+
+
+@pytest.mark.parametrize("mn,mx,misses", [
+    (0.0, 1.0, False), (0.013, 0.977, True), (-3.7, 1234.5, True),
+    (1e-3, 1e-3 + 3e-9, False),  # a dozen floats in the range, none near an edge
+    (10.0, 10.0 + 7.0 / 3.0, True)])
+def test_reciprocal_binning_matches_division_at_bin_edges(mn, mx, misses):
+    """Values at every bin edge mn + k span / 4096 and one ulp either side
+    bin as floor((x - mn) / span * 4096) does; so do random values.  Where
+    the reciprocal alone would bin some edge values otherwise (``misses``),
+    the IEEE quotient takes them."""
+    mn, mx = np.float32(mn), np.float32(mx)
+    span = np.maximum(mx - mn, np.float32(1e-12))
+    edges = (mn + np.arange(4097, dtype=np.float32) / np.float32(4096) * span).astype(np.float32)
+    x = np.concatenate([edges, np.nextafter(edges, np.float32(np.inf)),
+                        np.nextafter(edges, np.float32(-np.inf)),
+                        mn + np.random.RandomState(14).rand(100000).astype(np.float32) * span])
+    x = np.clip(x, mn, mx).astype(np.float32)
+    got, d = _bin_fast(x, mn, span)
+    exact = np.floor(np.clip(d / span * np.float32(4096), 0, 4095)).astype(np.int64)
+    np.testing.assert_array_equal(got, exact)
+    naive = np.minimum(np.floor(d * ((np.float32(1.0) / span) * np.float32(4096))), 4095)
+    assert (naive != exact).any() == misses
+
+
 # ------------------------------------------------------------- standalone SE
 
 def _se_inputs(c, seed=0):
