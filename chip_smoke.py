@@ -43,6 +43,21 @@ Phases, each printing its own lines:
      in ``tta_mc``, 5b ``hybrid-nb`` in ``normal`` then ``tta``;
   6. a profiler breakdown of one more ``tta_mc`` and one ``hybrid-nb``
      ``normal`` request;
+  7. single-modality training of the default DWI encoder at full width
+     (dilated ResNet-50, 256^2, fp32 with TF32 off): 7a six train steps at
+     B=2 on the card and on the CPU from the same weights and processed
+     batches, three with the backbone group frozen and three after its
+     unfreeze, the per-step losses and then the parameters and BatchNorm
+     statistics beside their tolerances (against the disagreement of two CPU
+     memory formats), with the launches per train step (none of kernels 1,
+     2, 6), per DWI batch (kernel 7), per validation batch and per ``tta_mc``
+     test batch; 7b ``run_single_model("dwi")`` at B=32 on synthetic volumes
+     for two epochs (the backbone trained in the second), with the step
+     times by CUDA events and the batch preparation apart, epoch,
+     validation and test times, the peak memory, the run's launches, the
+     backbone bit-equal after the frozen epoch and trained after, the best
+     checkpoint's reload, the test ensemble's sums and MC std, and one
+     profiled train step (idle share, top kernels);
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -91,8 +106,18 @@ from dmf_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from dmf_tpu_torch.ops import histogram as hist  # noqa: E402
 from dmf_tpu_torch.ops import se as sek  # noqa: E402
 from dmf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: E402
-from dmf_tpu_torch.pipeline import (export_processed_splits, load_processed_split,  # noqa: E402
-                                    prepare_single_data)
+from dmf_tpu_torch.data.modality import ModalityProcessor  # noqa: E402
+from dmf_tpu_torch.evals.predict import make_single_predictor, to_model  # noqa: E402
+from dmf_tpu_torch.losses import get_classification_loss_fn, get_mask_loss_fn  # noqa: E402
+from dmf_tpu_torch.pipeline import (build_single_model, export_processed_splits,  # noqa: E402
+                                    load_processed_split, prepare_single_data,
+                                    run_single_model, test_single_model)
+from dmf_tpu_torch.train.optim import SingleModelOptController, build_group_spec  # noqa: E402
+from dmf_tpu_torch.train.schedule import aux_loss_weight  # noqa: E402
+from dmf_tpu_torch.train.single import (make_single_eval_step,  # noqa: E402
+                                        make_single_train_step)
+from dmf_tpu_torch.train.state import TrainState  # noqa: E402
+from dmf_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -1352,6 +1377,307 @@ def phase_profile(name, request):
         log(f"  {e.self_cpu_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
 
 
+# ------------------------------------------------------------------ phase 7
+# single-modality training of the default DWI encoder (ResNet-50 at 256^2, fp32)
+B_TRAIN_PARITY = 2
+PARITY_STEPS = 3  # per epoch: 3 steps with the backbone frozen, 3 after its unfreeze
+# card vs CPU after the steps (fp32, TF32 off): per-step losses rel 1e-3 (the
+# ROADMAP's train-step tolerance).  The parameters and BatchNorm statistics are
+# held against the disagreement of two CPU runs that differ only in memory
+# format (contiguous vs channels_last): at full width and B=2 the train-mode
+# forward is ill-conditioned (the two CPU runs' backbone updates differ by
+# about a quarter in L2 after three steps; a bias before a BatchNorm has a
+# gradient of pure rounding noise), and AdamW's first steps move each
+# element by about +-lr whatever its gradient's size.  Bound: each
+# group's card-vs-CPU difference over its update in L2, and the statistics'
+# max error over max(1, max|CPU|), at most twice the two CPU runs' or 1e-3
+TRAIN_LOSS_RTOL, TRAIN_FLOOR = 1e-3, 1e-3
+# phase 7b: the first 158 + 32 volumes of the synthetic store; fold 0 of 5
+# splits them into 128 train (4 full steps of B=32 an epoch) and 30 validation
+RUN_TRAIN, RUN_TEST, RUN_EPOCHS = 158, 32, 2
+
+
+def train_config(cfg, **mc):
+    """The default config for DWI training with the backbone unfrozen at
+    epoch 1 (``foundation_model_unfreeze_timer=1``)."""
+    return cfg.replace(foundation_model_unfreeze_timer=1,
+                       dwi_model=dataclasses.replace(cfg.dwi_model, **mc))
+
+
+def dwi_batches(rcfg, n, b, seed):
+    """``n`` processed DWI batches of ``b`` raw 256^2 volumes (kernel 7 on the
+    card, once a batch) with masks at the mask head's size and labels."""
+    S = rcfg.dwi_model.input_size
+    m = rcfg.dwi_model.mask.mask_target_size[0]
+    proc = ModalityProcessor(rcfg, "dwi", adc_map=torch.full((S, S, 1), 0.5, device=DEV),
+                             device=DEV)
+    g = gen(seed)
+    out = []
+    for i in range(n):
+        raw = torch.rand(b, S, S, rcfg.dwi_base_channel_num, device=DEV, generator=g) * 1000.0
+        out.append({"imgs": proc.train_batch(g, raw),
+                    "masks": (torch.rand(b, m, m, 1, device=DEV, generator=g) > 0.8).float(),
+                    "labels": torch.arange(i, i + b, device=DEV) % rcfg.class_num})
+    return out
+
+
+def disagreement(model_a, model_b, init, spec):
+    """Per group: ||a - b|| / ||b - init|| over the parameters (L2; the
+    excluded group: ||a - b||), and the BatchNorm running statistics' max
+    |a - b| over max(1, max|b|) under the key "stats"."""
+    diff, upd = {}, {}
+    pa = dict(model_a.named_parameters())
+    for name, pb in model_b.named_parameters():
+        g = spec.group_ids[name]
+        a, b = pa[name].detach().double().cpu(), pb.detach().double().cpu()
+        diff[g] = diff.get(g, 0.0) + ((a - b) ** 2).sum().item()
+        upd[g] = upd.get(g, 0.0) + ((b - init[name].double()) ** 2).sum().item()
+    out = {g: (diff[g] / upd[g]) ** 0.5 if upd[g] else diff[g] ** 0.5 for g in sorted(diff)}
+    sa, worst = model_a.state_dict(), 0.0
+    for k, b in model_b.state_dict().items():
+        if k.endswith(("running_mean", "running_var")):
+            b = b.double().cpu()
+            worst = max(worst, (sa[k].double().cpu() - b).abs().max().item()
+                        / max(1.0, b.abs().max().item()))
+    out["stats"] = worst
+    return out
+
+
+def phase_train_parity(cfg):
+    log(f"== phase 7a: train-step parity, card vs CPU: the default DWI encoder at full width "
+        f"(ResNet-50, 256^2, fp32, TF32 off), B={B_TRAIN_PARITY}, dropout 0, {PARITY_STEPS} "
+        f"steps with the backbone frozen then {PARITY_STEPS} after its unfreeze, the same "
+        f"processed batches")
+    cpu_model, rcfg = build_single_model(train_config(cfg, dropout=0.0), "dwi", device="cpu",
+                                         generator=torch.Generator().manual_seed(SEED))
+    models = {"card": copy.deepcopy(cpu_model).to(DEV).to(memory_format=torch.channels_last),
+              "cpu": cpu_model,
+              "cpu channels_last": copy.deepcopy(cpu_model).to(memory_format=torch.channels_last)}
+    init = {n: p.detach().clone() for n, p in cpu_model.named_parameters()}
+    spec = build_group_spec(list(init), True, rcfg.reference_compat)
+    clf = get_classification_loss_fn(rcfg, np.arange(rcfg.class_num), "dwi")
+    step = make_single_train_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"), spec)
+    states = {k: TrainState.create(m) for k, m in models.items()}
+    reset_counts()
+    batches = dwi_batches(rcfg, 2 * PARITY_STEPS, B_TRAIN_PARITY, 41)
+    prep_launches = counts()
+    ctrl = SingleModelOptController(rcfg, "dwi")
+    step_launches = dict.fromkeys(COUNTERS, 0)
+    for i, batch in enumerate(batches):
+        epoch = i // PARITY_STEPS
+        if i % PARITY_STEPS == 0:
+            ctrl.on_epoch_start(epoch)
+            hp = ctrl.hyperparams()
+        aux_w = aux_loss_weight(epoch, rcfg.aux_loss_weight_epoch_limit)
+        before = counts()
+        loss = {}
+        for k, state in states.items():
+            dev_batch = batch if k == "card" else {n: v.cpu() for n, v in batch.items()}
+            loss[k] = float(step(state, dict(dev_batch, aux_w=aux_w), None, hp)["loss"])
+            if k == "card":
+                step_launches = {c: step_launches[c] + v - before[c]
+                                 for c, v in counts().items()}
+        rel = abs(loss["card"] - loss["cpu"]) / abs(loss["cpu"])
+        log(f"  step {i} ({'backbone frozen' if hp.trainable[0] == 0 else 'all groups'}, "
+            f"aux_w {aux_w:.4f}): loss card {loss['card']:.6f} CPU {loss['cpu']:.6f}, rel "
+            f"{rel:.2e} (tolerance {TRAIN_LOSS_RTOL:.0e}; CPU channels_last "
+            f"{loss['cpu channels_last']:.6f})")
+        if not rel <= TRAIN_LOSS_RTOL:
+            raise AssertionError(f"train step {i}: card loss off the CPU's by {rel}")
+        if i == PARITY_STEPS - 1:  # the frozen group untouched on every device
+            for model in models.values():
+                for n, p in model.named_parameters():
+                    if spec.group_ids[n] == 0 and not torch.equal(p.detach().cpu(), init[n]):
+                        raise AssertionError(f"frozen parameter {n} changed")
+            log("  after the frozen steps: every backbone and neck parameter bit-equal to "
+                "its initial value in every run")
+    log(f"  launches: batch preparation {prep_launches['dwi_normalize']} dwi_normalize for "
+        f"{len(batches)} batches; train steps {step_launches}")
+    if prep_launches != dict.fromkeys(COUNTERS, 0) | {"dwi_normalize": len(batches)}:
+        raise AssertionError(f"batch preparation launched {prep_launches}")
+    if step_launches != dict.fromkeys(COUNTERS, 0):
+        raise AssertionError(f"train steps launched kernels: {step_launches}")
+    card = disagreement(models["card"], cpu_model, init, spec)
+    floor = disagreement(models["cpu channels_last"], cpu_model, init, spec)
+    for g in card:
+        what = ("BatchNorm running statistics (max err over max(1, max|CPU|))" if g == "stats"
+                else f"group {spec.names[g] if g >= 0 else 'excluded (classification head)'} "
+                     f"(difference over the update, L2)")
+        tol = 0.0 if g == -1 else max(TRAIN_FLOOR, 2 * floor[g])
+        log(f"  {what}: card vs CPU {card[g]:.3e}, CPU channels_last vs CPU {floor[g]:.3e} "
+            f"(tolerance {tol:.3e})")
+        if not card[g] <= tol:
+            raise AssertionError(f"{what}: card off the CPU by {card[g]}, above {tol}")
+    # one validation batch and one test batch on the card: the served route
+    batch = batches[0]
+    eval_step = make_single_eval_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"))
+    reset_counts()
+    eval_step(states["card"], batch)
+    val_launches = counts()
+    reset_counts()
+    mean, std, _ = make_single_predictor(rcfg, models["card"], mode="tta_mc")(batch["imgs"],
+                                                                               gen(42))
+    test_launches = counts()
+    log(f"  launches per validation batch {val_launches}; per tta_mc test batch "
+        f"{test_launches}")
+    expect_val = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 3, "conv3x3_bn_gelu": 6,
+                                               "se_scale": 1}
+    # tta_mc: the prefix (modality SE, backbone, necks) once, the suffix's three
+    # SE epilogues on the lean chunk and on the full last pass
+    expect_test = expect_val | {"se_epilogue": 6}
+    if val_launches != expect_val or test_launches != expect_test:
+        raise AssertionError(f"eval launches {val_launches} / {test_launches}, expected "
+                             f"{expect_val} / {expect_test}")
+    gate("single tta_mc", rcfg, expect_test, expect_test, mean, std, True, B_TRAIN_PARITY)
+    del states, models, cpu_model, batches
+    torch.cuda.empty_cache()
+
+
+def all_finite(metrics):
+    vals = []
+    for v in metrics.values():
+        vals.extend(v if isinstance(v, list) else [v])
+    return all(np.isfinite(float(x)) for x in vals)
+
+
+def phase_run_single(cfg, raw):
+    B = cfg.batch_size
+    log(f"== phase 7b: run_single_model('dwi') on the card: the default DWI encoder at full "
+        f"width (ResNet-50, 256^2, fp32, TF32 off), B={B}, {RUN_TRAIN} + {RUN_TEST} synthetic "
+        f"volumes, {RUN_EPOCHS} epochs, backbone unfrozen at epoch 1, test in "
+        f"{cfg.test_mode} ({cfg.mc_passes} passes)")
+    store = {"imgs": raw["dwi"][:RUN_TRAIN], "test_imgs": raw["dwi_test"][:RUN_TEST],
+             "labels": raw["labels"][:RUN_TRAIN], "test_labels": raw["labels_test"][:RUN_TEST],
+             "masks": raw["masks"][:RUN_TRAIN]}
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        rcfg0 = train_config(cfg).replace(base_path=os.path.join(tmp, "data"))
+        data = prepare_single_data(rcfg0, "dwi", 0, raw=store, device=DEV)
+        n_tr, n_va = len(data.splits["train"]["labels"]), len(data.splits["val"]["labels"])
+        model, rcfg = build_single_model(rcfg0, "dwi", device=DEV, generator=gen(SEED))
+        init = {k: t.detach().clone() for k, t in model.state_dict().items()
+                if k.startswith("backbone.")}
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        out, t_run = synced(lambda: run_single_model(
+            rcfg, "dwi", 0, data=data, state=TrainState.create(model), num_epochs=RUN_EPOCHS,
+            min_epochs=RUN_EPOCHS, base_dir=os.path.join(tmp, "results"), device=DEV))
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        hist = out["history"]
+        n_steps = -(-n_tr // B)
+        log(f"  splits: train {n_tr} ({n_steps} steps an epoch), validation {n_va}, test "
+            f"{RUN_TEST}; run {t_run:.2f} s (prepare excluded); peak memory {peak:.2f} GiB")
+        for e, h in enumerate(hist):
+            log(f"  epoch {e}: train {h['train_time']:.3f} s, validation "
+                f"{h['epoch_time'] - h['train_time']:.3f} s, epoch {h['epoch_time']:.3f} s; "
+                f"train loss {h['train_loss']:.5f}, val loss {h['val_loss']:.5f}, val acc "
+                f"{h['val_acc']:.4f}, val AUC {h['val_roc_auc']:.4f}; group lrs "
+                f"{[float(f'{x:.3g}') for x in h['group_lrs']]}, trainable "
+                f"{h['group_trainable']}")
+        prep_ms = [p for p, _ in out["step_ms"]]
+        step_ms = [s_ for _, s_ in out["step_ms"]]
+        # full batches of B after the first step (cuDNN plans); a short tail
+        # batch ends each epoch when B does not divide the split
+        full = [t for i, t in enumerate(step_ms)
+                if i and (i % n_steps < n_steps - 1 or n_tr % B == 0)]
+        med = statistics.median(full)
+        log(f"  train steps by CUDA events (ms): {', '.join(f'{t:.2f}' for t in step_ms)}; "
+            f"median of the {len(full)} full batches after the first {med:.2f} ms "
+            f"({min(full):.2f}-{max(full):.2f}), {1e3 / med:.3f} steps/s, "
+            f"{B * 1e3 / med:.2f} volumes/s; batch preparation (augment + kernel 7) median "
+            f"{statistics.median(prep_ms):.3f} ms ({min(prep_ms):.3f}-{max(prep_ms):.3f})")
+        log(f"  test metrics {json.dumps({k: round(v, 5) for k, v in out['test_metrics'].items()})}")
+        if len(hist) != RUN_EPOCHS or not all(all_finite(h) for h in hist) \
+                or not all_finite(out["test_metrics"]):
+            raise AssertionError("a metric is not finite (or an epoch is missing)")
+        if [h["group_trainable"][0] for h in hist] != [0.0, 1.0]:
+            raise AssertionError("the backbone group was not frozen then trained")
+        # launches: kernel 7 once a train batch, once for each eval_split (validation
+        # in the fit, test in the test pass) and 3 times in export_processed_splits;
+        # kernels 1, 2, 6 per validation batch and per tta_mc test batch (phase 7a)
+        n_val, n_test = -(-n_va // B), -(-RUN_TEST // B)
+        expect = dict.fromkeys(COUNTERS, 0) | {
+            "dwi_normalize": RUN_EPOCHS * n_steps + 2 + 3,
+            "se_epilogue": 3 * RUN_EPOCHS * n_val + 6 * n_test,
+            "conv3x3_bn_gelu": 6 * (RUN_EPOCHS * n_val + n_test),
+            "se_scale": RUN_EPOCHS * n_val + n_test}
+        log(f"  launches of the run {launched}")
+        if launched != expect:
+            raise AssertionError(f"run launched {launched}, expected {expect}")
+        # the rolling checkpoint holds the state after epoch 0 (loop.ROLL_EVERY 10)
+        ckdir = os.path.join(tmp, "results", "dwi", "fold_0", "checkpoints")
+        after0 = torch.load(os.path.join(ckdir, "last.pt"), map_location=DEV,
+                            weights_only=True)["model"]
+        final = out["final_state"].model.state_dict()
+        stats = [k for k in init if k.endswith(("running_mean", "running_var"))]
+        params = [n for n, _ in out["final_state"].model.named_parameters()
+                  if n.startswith("backbone.")]
+        if not all(torch.equal(after0[k], init[k]) for k in params):
+            raise AssertionError("a backbone parameter changed in the frozen epoch")
+        if not all(not torch.equal(after0[k], init[k]) and not torch.equal(final[k], after0[k])
+                   for k in stats):
+            raise AssertionError("a backbone BatchNorm statistic did not move in each epoch")
+        n_moved = sum(not torch.equal(final[k], init[k]) for k in params)
+        log(f"  backbone: {len(params)} parameters bit-equal to their initial values after "
+            f"epoch 0, {n_moved} of them changed after epoch 1; its {len(stats)} BatchNorm "
+            f"statistics moved in both epochs")
+        if n_moved != len(params):
+            raise AssertionError("a backbone parameter did not train after the unfreeze")
+        # the best checkpoint reloaded into a model of other weights
+        fresh, _ = build_single_model(rcfg0, "dwi", device=DEV, generator=gen(SEED + 1))
+        load_checkpoint(out["best_checkpoint"], TrainState.create(fresh))
+        val = torch.as_tensor(data.processors_by_split["val"].eval_split(
+            data.splits["val"]["imgs"][:B]), device=DEV)
+        with torch.no_grad():
+            a = fresh(to_model(val, fresh))[0]
+            b = out["state"].model(to_model(val, fresh))[0]
+        err = (a - b).abs().max().item()
+        log(f"  best checkpoint reloaded: eval logits max_abs_err {err:.3e} against the best "
+            f"state's (tolerance 0: {'bit-equal' if err == 0 else 'NOT bit-equal'})")
+        if err != 0:
+            raise AssertionError("reloaded checkpoint gives other logits")
+        probs, std = out["test_probs"], out["test_std"]
+        if not (np.abs(probs.sum(-1) - 1) <= 1e-3).all() or not (std > 0).all():
+            raise AssertionError("test probabilities do not sum to 1, or an MC std is 0")
+        log(f"  test: probabilities finite and summing to 1, MC std > 0 (mean "
+            f"{std.mean():.5f})")
+        # the test pass timed again on its own
+        reset_counts()
+        res, t_test = synced(lambda: test_single_model(rcfg, out["state"], data, seed=1))
+        log(f"  test_single_model again: {t_test:.3f} s for {RUN_TEST} volumes "
+            f"({RUN_TEST / t_test:.2f} volumes/s, eval_split included), launches {counts()}")
+        # one more train step under the profiler, on the final state
+        state = out["final_state"]
+        clf = get_classification_loss_fn(rcfg, data.train_labels, "dwi")
+        spec = build_group_spec([n for n, _ in state.model.named_parameters()], True,
+                                rcfg.reference_compat)
+        step = make_single_train_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"), spec)
+        ctrl = SingleModelOptController(rcfg, "dwi")
+        ctrl.on_epoch_start(1)
+        hp = ctrl.hyperparams()
+        idx = np.arange(B)
+        batch = {"imgs": data.processor.train_batch(gen(43), data.splits["train"]["imgs"][idx]),
+                 "masks": torch.as_tensor(data.splits["train"]["masks"][idx], device=DEV),
+                 "labels": data.splits["train"]["labels"][idx], "aux_w": 1.0}
+        step(state, batch, gen(44), hp)
+        torch.cuda.synchronize()
+        from torch.profiler import ProfilerActivity, profile
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            _, dt = synced(lambda: step(state, batch, gen(44), hp))
+        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+        total = sum(e.self_device_time_total for e in events) / 1e3
+        idle = (f"{100 * (1 - total / (dt * 1e3)):.1f} % idle" if total > 0
+                else "device time not measured: the profiler recorded no kernel")
+        log(f"  one train step under the profiler: {dt * 1e3:.2f} ms, device time {total:.2f} "
+            f"ms ({idle}); top device kernels:")
+        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+            log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+        del out, res, state, data, model, fresh
+    torch.cuda.empty_cache()
+    return launched
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -1383,20 +1709,23 @@ def main():
     phase_parity(cfg)
     phase_parity_hybrid(hcfg)
     prep_launches = phase_prepare(cfg, raw)
-    del raw
+    raw = {k: v[:RUN_TEST if "test" in k else RUN_TRAIN] for k, v in raw.items()}
     # each served path: counts set to 0 just before it and read just after
     tta_mc_launches, request, large = phase_serve(cfg)
     hybrid_launches, hybrid_request = phase_serve_hybrid(hcfg)
+    phase_profile("tta_mc", request)
+    phase_profile("hybrid-nb normal", hybrid_request)
+    phase_train_parity(cfg)
+    run_launches = phase_run_single(cfg, raw)  # counts set to 0 just before, read just after
+    del raw
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
-                + prep_launches[k] + stage_launches[k] for k in COUNTERS}
+                + prep_launches[k] + stage_launches[k] + run_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
-    log(f"  launches on the served paths, the data preparation and the stage "
-        f"backward: {launches}")
+    log(f"  launches on the served paths, the data preparation, the stage backward and "
+        f"the single-modality run: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")
-    phase_profile("tta_mc", request)
-    phase_profile("hybrid-nb normal", hybrid_request)
     large()  # last: its maps take most of the card's memory
     log(f"== total {time.perf_counter() - t_start:.1f} s on {smi}")
     where = {

@@ -4,7 +4,9 @@ The port's own copy of the configuration dataclasses, ``to_dict``/``from_dict``
 and the backbone-derived field resolution, field for field the same as the
 JAX package's ``dmf_tpu/config.py`` (so ``Config.from_dict(jax_cfg.to_dict())``
 gives the same configuration in both packages).  The port imports nothing of
-the JAX package.  The reference-dict migration helpers are not copied.
+the JAX package.  Of the reference-dict migration it copies
+``to_reference_dict`` (the ``parameters`` block of ``metrics.json``);
+``from_reference_dict`` is not copied yet.
 
 ``ServingKernelConfig`` and ``ParallelConfig`` keep the JAX package's TPU
 knobs so both packages serialize the same tree; the port reads none of them.
@@ -497,3 +499,159 @@ def resolve_backbone_config(mc: ModelConfig) -> ModelConfig:
 def default_parameters(**overrides) -> Config:
     """Build the default configuration (mirrors parameters_generate.py)."""
     return Config(**overrides)
+
+
+# ---------------------------------------------------------------------------
+# Reference-style nested-dict view, for users migrating from the reference
+# ---------------------------------------------------------------------------
+
+def to_reference_dict(cfg: Config) -> Dict[str, Any]:
+    """Render a Config as the reference's nested ``parameters`` dict layout
+    (keys per parameters_generate.py) for drop-in inspection/migration."""
+
+    def model_params(mc: ModelConfig) -> Dict[str, Any]:
+        return {
+            "input_size": mc.input_size,
+            "use_hybrid_transformer": mc.use_hybrid_transformer,
+            "transformer_heads": mc.transformer_heads,
+            "transformer_patch_size": mc.transformer_patch_size,
+            "transformer_depth": mc.transformer_depth,
+            "transformer_embed_dim": mc.transformer_embed_dim,
+            "dropout": mc.dropout,
+            "channels": tuple(mc.channels),
+            "repeat_blocks": tuple(mc.repeat_blocks),
+            "downsample": tuple(mc.downsample),
+            "downsample_each_repeat": mc.downsample_each_repeat,
+            "mid_squeeze": mc.mid_squeeze,
+            "backbone_index_lists": [list(c) for c in mc.backbone_index_lists],
+            "backbone_out_channels": tuple(mc.backbone_out_channels),
+            "proj_dim": mc.proj_dim,
+            "use_se": mc.use_se,
+            "grad_clip": mc.grad_clip,
+            "gradient_clip_algorithm": mc.gradient_clip_algorithm,
+            "enable_modality_attention": mc.enable_modality_attention,
+            "use_backbone": mc.use_backbone,
+            "use_input_adapt": mc.use_input_adapt,
+            "use_advanced_adapt": mc.use_advanced_adapt,
+            "transformer_backbone": mc.transformer_backbone,
+            "backbone_str": mc.backbone_str,
+            "label_smoothing_enabled": mc.label_smoothing_enabled,
+            "label_smoothing_alpha": mc.label_smoothing_alpha,
+            "mimic_enabled": mc.mimic_enabled,
+            "lambda_mimic": mc.lambda_mimic,
+            "recon_enabled": mc.recon_enabled,
+            "reconstruction_loss_code": mc.reconstruction_loss_code,
+            "lambda_recon": mc.lambda_recon,
+            "classification_loss_parameters": {
+                "classification_loss_code": mc.classification_loss.loss_code,
+                "gamma": mc.classification_loss.gamma,
+                "alpha": mc.classification_loss.alpha,
+            },
+            "mask_parameters": {
+                "mask": mc.mask.enabled,
+                "mask_stage": mc.mask.mask_stage,
+                "lambda_mask": mc.mask.lambda_mask,
+                "mask_loss_type": mc.mask.mask_loss_type,
+                "mask_target_size": tuple(mc.mask.mask_target_size),
+                "mask_fusion_attention": mc.mask.mask_fusion_attention,
+                "dice_weight": mc.mask.dice_weight,
+                "bce_weight": mc.mask.bce_weight,
+            },
+            "optimizer_parameters": {
+                "name": mc.optimizer.name,
+                "lr": mc.optimizer.lr,
+                "betas": tuple(mc.optimizer.betas),
+                "eps": mc.optimizer.eps,
+                "amsgrad": mc.optimizer.amsgrad,
+                "weight_decay": mc.optimizer.weight_decay,
+                "num_lr_groups": mc.optimizer.num_lr_groups,
+                "discriminative_lr": mc.optimizer.discriminative_lr,
+                "lr_decay_factor": mc.optimizer.lr_decay_factor,
+                "discrim_on": mc.optimizer.discrim_on,
+                "discriminative_reg": mc.optimizer.discriminative_reg,
+                "reg_decay_factor": mc.optimizer.reg_decay_factor,
+                "reg_base": mc.optimizer.reg_base,
+            },
+            "scheduler": {
+                "name": mc.scheduler.name,
+                "factor": mc.scheduler.factor,
+                "patience": mc.scheduler.patience,
+                "min_lr": mc.scheduler.min_lr,
+                "threshold": mc.scheduler.threshold,
+                "monitor": mc.scheduler.monitor,
+                "T_max": mc.scheduler.t_max,
+                "eta_min": mc.scheduler.eta_min,
+                "warmup_steps": mc.scheduler.warmup_steps,
+                "max_steps": mc.scheduler.max_steps,
+            },
+            "attn_reg_enabled": mc.attn_reg_enabled,
+            "lambda_attn_energy": mc.lambda_attn_energy,
+            "lambda_feature_consistency": mc.lambda_feature_consistency,
+            "feat_norm_reg_enabled": mc.feat_norm_reg_enabled,
+            "lambda_feat_norm": mc.lambda_feat_norm,
+        }
+
+    fusion = model_params(cfg.fusion_model)
+    fs = cfg.fusion_model.fusion_specific
+    fusion["fusion_specific_parameters"] = {
+        "mha_heads": fs.mha_heads,
+        "use_cross_attention": fs.use_cross_attention,
+        "use_mask_attention": fs.use_mask_attention,
+        "token_pool": tuple(fs.token_pool),
+        "fusion_channels": fs.fusion_channels,
+        "dwi_out_channels": fs.dwi_out_channels,
+        "dce_out_channels": fs.dce_out_channels,
+        "fusion_recon_ch": fs.fusion_recon_ch,
+    }
+
+    return {
+        "dim": cfg.dim,
+        "compile": cfg.compile,
+        "dataloader_num_workers": cfg.dataloader_num_workers,
+        "debug_training": cfg.debug_training,
+        "debug_val": cfg.debug_val,
+        "backbone_debug": cfg.backbone_debug,
+        "full_debug": cfg.full_debug,
+        "debug_anomaly": cfg.debug_anomaly,
+        "num_epochs": cfg.num_epochs,
+        "batch_size": cfg.batch_size,
+        "segnum": cfg.segnum,
+        "class_num": cfg.class_num,
+        "methods": list(cfg.methods),
+        "namelist": list(cfg.namelist),
+        "control_metric": cfg.control_metric,
+        "early_stop_metric": cfg.early_stop_metric,
+        "patience": cfg.patience,
+        "save_dir": cfg.save_dir,
+        "forced_mask_size": cfg.forced_mask_size,
+        "dwi_model_parameters": model_params(cfg.dwi_model),
+        "dce_model_parameters": model_params(cfg.dce_model),
+        "fusion_model_parameters": fusion,
+        "early_stopping_parameters": {
+            "metric": cfg.early_stopping.metric,
+            "mode": cfg.early_stopping.mode,
+            "patience": cfg.early_stopping.patience,
+            "min_delta": cfg.early_stopping.min_delta,
+        },
+        "precision": cfg.precision,
+        "test_mode": cfg.test_mode,
+        "mc_passes": cfg.mc_passes,
+        "backbone_freeze_on_start": cfg.backbone_freeze_on_start,
+        "backbone_num_groups": cfg.backbone_num_groups,
+        "unfreeze_timer": cfg.unfreeze_timer,
+        "foundation_model_unfreeze_timer": cfg.foundation_model_unfreeze_timer,
+        "backbone_unfreeze_lr": cfg.backbone_unfreeze_lr,
+        "backbone_unfreeze_wd": cfg.backbone_unfreeze_wd,
+        "foundation_model_unfreeze_lr": cfg.foundation_model_unfreeze_lr,
+        "backbone_unfreeze_lr_factor": cfg.backbone_unfreeze_lr_factor,
+        "use_simple_aux_loss_scheduling": cfg.use_simple_aux_loss_scheduling,
+        "aux_loss_weight_epoch_limit": cfg.aux_loss_weight_epoch_limit,
+        "dwi_bvals_to_use": tuple(cfg.dwi_bvals_to_use),
+        "dce_channels_to_use": tuple(cfg.dce_channels_to_use),
+        "dwi_add_adc_map": cfg.dwi_add_adc_map,
+        "dwi_base_channel_num": cfg.dwi_base_channel_num,
+        "dwi_channel_num": cfg.dwi_channel_num,
+        "dce_channel_num": cfg.dce_channel_num,
+        "min_epochs": cfg.min_epochs,
+        "base_path": cfg.base_path,
+    }

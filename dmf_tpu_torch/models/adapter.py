@@ -3,8 +3,10 @@
 Concatenates the selected backbone features per chain and passes each
 through a 2 x (3x3 conv + BN + GELU) neck (reference model_module.py:401-476),
 named ``necks.f{i}.{0,1,3,4}`` as the reference checkpoint has them
-(ref_ckpt.py:516-522).  Every neck stage is one call to
-:func:`~dmf_tpu_torch.ops.conv3x3.conv3x3_bn_gelu`.
+(ref_ckpt.py:516-522).  In eval every neck stage is one call to
+:func:`~dmf_tpu_torch.ops.conv3x3.conv3x3_bn_gelu`; ``train=True`` runs the
+conv, the batch-statistics BatchNorm and the GELU as three modules, the JAX
+adapter's training route (adapter.py:73-76).
 
 Unlike the JAX module, the adapter takes the backbone's features rather than
 the backbone: the encoder owns the backbone once, so the port's state dict
@@ -20,7 +22,7 @@ import torch
 import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3_bn_gelu
-from .layers import BatchNorm2d
+from .layers import BatchNorm2d, run
 
 
 class BackboneAdapter(nn.Module):
@@ -40,13 +42,16 @@ class BackboneAdapter(nn.Module):
                 nn.GELU())
         self.necks = nn.ModuleDict(necks)
 
-    def forward(self, feats: Sequence[torch.Tensor]):
+    def forward(self, feats: Sequence[torch.Tensor], train: bool = False):
         outputs = []
         for i, chain in enumerate(self.chains):
             out = torch.cat([feats[j] for j in chain], dim=1)
             if out.is_cuda:
                 out = out.contiguous(memory_format=torch.channels_last)
             neck = self.necks[f"f{i + 1}"]
+            if train:
+                outputs.append(run(neck, out, True))
+                continue
             for conv, bn in ((neck[0], neck[1]), (neck[3], neck[4])):
                 out = conv3x3_bn_gelu(out, conv.weight, conv.bias, bn.weight,
                                       bn.bias, bn.running_mean, bn.running_var,

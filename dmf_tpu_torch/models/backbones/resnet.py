@@ -24,7 +24,7 @@ import torch.nn.functional as F
 
 from ...config import ModelConfig
 
-from ..layers import BatchNorm2d
+from ..layers import BatchNorm2d, run
 
 OUTPUT_DIMS = (256, 512, 1024, 2048)
 
@@ -58,16 +58,18 @@ class Bottleneck(nn.Module):
         else:
             self.downsample = None
 
-    def forward(self, x):
-        identity = x if self.downsample is None else self.downsample(x)
-        out = F.relu(self.bn1(self.conv1(x)))
-        out = F.relu(self.bn2(self.conv2(out)))
-        out = self.bn3(self.conv3(out))
+    def forward(self, x, train: bool = False):
+        identity = x if self.downsample is None else run(self.downsample, x, train)
+        out = F.relu(self.bn1(self.conv1(x), train))
+        out = F.relu(self.bn2(self.conv2(out), train))
+        out = self.bn3(self.conv3(out), train)
         return F.relu(out + identity)
 
 
 class ResNetFeatures(nn.Module):
-    """Feature-pyramid ResNet: ``forward(x) -> [C2, C3, C4, C5]``."""
+    """Feature-pyramid ResNet: ``forward(x, train) -> [C2, C3, C4, C5]``;
+    ``train=True`` runs its BatchNorm on batch statistics (the JAX encoder
+    applies the whole tree in train mode, the frozen backbone included)."""
 
     def __init__(self, in_channels: int = 3,
                  layers: Sequence[int] = (3, 4, 6, 3),
@@ -110,12 +112,14 @@ class ResNetFeatures(nn.Module):
         self.output_dims = OUTPUT_DIMS
         self.reductions = (4, 8, 8, 8) if output_stride == 8 else (4, 8, 16, 32)
 
-    def forward(self, x) -> List[torch.Tensor]:
-        x = F.relu(self.bn1(self.conv1(x)))
+    def forward(self, x, train: bool = False) -> List[torch.Tensor]:
+        stem = self.conv1 if isinstance(self.conv1, nn.Sequential) else (self.conv1,)
+        x = F.relu(self.bn1(run(stem, x, train), train))
         x = F.max_pool2d(x, 3, 2, 1)
         feats = []
         for stage in (self.layer1, self.layer2, self.layer3, self.layer4):
-            x = stage(x)
+            for block in stage:
+                x = block(x, train)
             feats.append(x)
         return feats
 

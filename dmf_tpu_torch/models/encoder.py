@@ -8,7 +8,10 @@ L2-normalized classification head.  With ``use_hybrid_transformer`` the
 final stage is a :class:`~.transformer.TransformerStage` on f2 plus a 1x1
 projection to c3 (encoder.py:206-221) in place of block3.
 
-``forward`` returns ``(logits, aux, mask_pred)`` with the JAX aux keys.  The
+``forward`` returns ``(logits, aux, mask_pred)`` with the JAX aux keys.
+``train=True`` is the JAX training route: BatchNorm on batch statistics
+everywhere (the frozen backbone included), dropout on, and no kernel wrapper
+called (the SE and neck stages run unfused).  The
 ``prefix_only``/``prefix`` split (encoder.py:47-121) lets the MC predictor run
 the deterministic prefix once; ``lean=True`` skips the reconstruction heads
 and projectors, which a pass that only needs probabilities does not use
@@ -123,7 +126,7 @@ class Encoder(nn.Module):
         self.classification_head = ClassificationHead(c3, num_classes, **kw)
         self.feature_size = s3
 
-    def forward(self, x: torch.Tensor, mc: bool = False,
+    def forward(self, x: torch.Tensor, train: bool = False, mc: bool = False,
                 generator: Optional[torch.Generator] = None,
                 prefix_only: bool = False, prefix=None, lean: bool = False):
         cfg = self.config
@@ -134,11 +137,11 @@ class Encoder(nn.Module):
         else:
             x = x.to(self.f2_weight.dtype)
             if self.modality_attention is not None:
-                x_in, mod_attn_map = self.modality_attention(x)
+                x_in, mod_attn_map = self.modality_attention(x, train)
             else:
                 x_in = x
             if self.backbone is not None:
-                f1_b, f2_b, f3_b = self.backbone_adapter(self.backbone(x_in))
+                f1_b, f2_b, f3_b = self.backbone_adapter(self.backbone(x_in, train), train)
                 bb = (f1_b, f2_b, f3_b)
             else:
                 f1_b = f2_b = f3_b = bb = None
@@ -146,7 +149,7 @@ class Encoder(nn.Module):
                 return x_in, mod_attn_map, bb
         f1_in = f1_b if self.backbone is not None else x_in
 
-        f1, r1 = self.block1(f1_in, mc, generator, recon=not lean)
+        f1, r1 = self.block1(f1_in, train, mc, generator, recon=not lean)
         if self.mask_stage == "f1":
             mask_pred = self.mask_head(f1)
             f1, mask_attn_map = self.mask_spatial_attention(f1, mask_pred)
@@ -155,31 +158,32 @@ class Encoder(nn.Module):
             f2_in = self.norm_f2(alpha * f2_b + (1 - alpha) * f1)
         else:
             f2_in = f1
-        f2, r2 = self.block2(f2_in, mc, generator, recon=not lean)
+        f2, r2 = self.block2(f2_in, train, mc, generator, recon=not lean)
         if self.mask_stage == "f2":
-            mask_pred = self.mask_head(f2 + self.f1_to_f2(f1))
+            mask_pred = self.mask_head(f2 + self.f1_to_f2(f1, train))
             f2, mask_attn_map = self.mask_spatial_attention(f2, mask_pred)
         if self.transformer is not None:
-            f3 = self.trans_out_proj(self.transformer(f2, mc, generator))
+            # dropout is on in training too (transformer.py:36, :70)
+            f3 = self.trans_out_proj(self.transformer(f2, train or mc, generator))
         else:
             if self.backbone is not None:
                 alpha = torch.sigmoid(self.f3_weight)
                 f3_in = self.norm_f3(alpha * f3_b + (1 - alpha) * f2)
             else:
                 f3_in = f2
-            f3, _ = self.block3(f3_in, mc, generator)
+            f3, _ = self.block3(f3_in, train, mc, generator)
             if self.mask_stage == "f3":
-                mask_pred = self.mask_head(f3 + self.f2_to_f3(f2))
+                mask_pred = self.mask_head(f3 + self.f2_to_f3(f2, train))
                 f3, mask_attn_map = self.mask_spatial_attention(f3, mask_pred)
 
         logits = self.classification_head(f3)
         proj_pairs = None
         if not lean:
             pd = (cfg.proj_dim, cfg.proj_dim)
-            proj_pairs = [self.proj_f1(adaptive_avg_pool(f1, pd)),
-                          self.proj_r1(adaptive_avg_pool(r1, pd)),
-                          self.proj_f2(adaptive_avg_pool(f2, pd)),
-                          self.proj_r2(adaptive_avg_pool(r2, pd))]
+            proj_pairs = [self.proj_f1(adaptive_avg_pool(f1, pd), train),
+                          self.proj_r1(adaptive_avg_pool(r1, pd), train),
+                          self.proj_f2(adaptive_avg_pool(f2, pd), train),
+                          self.proj_r2(adaptive_avg_pool(r2, pd), train)]
         aux = {
             "raw_feats": [f1, f2, f3],
             "recon_feats": [r1, r2],

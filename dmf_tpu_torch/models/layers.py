@@ -5,15 +5,18 @@ Module and parameter names follow the reference torch layout that
 ``bottlenecks.{i}.{0,1,4,5,7,8}``, ``skip.{0,1}``, ``se.fc.{1,3}`` (1x1
 convs), ``reconstruct.conv.{0,1,3}``; mask heads as ``pre``/``out``.
 
-The port serves inference only.  Modes are explicit arguments, as in the
-JAX modules: BatchNorm always normalises with its running statistics, and
-``mc=True`` turns dropout on, drawing masks from an explicit
-``torch.Generator``.  Nothing depends on ``module.train()``.
+Modes are explicit arguments, as in the JAX modules, and nothing depends
+on ``module.train()``: ``train=True`` normalises BatchNorm with the batch's
+statistics (updating the running ones) and turns dropout on; ``mc=True``
+turns dropout on with BatchNorm on its running statistics.  Dropout masks
+come from an explicit ``torch.Generator``.  Under ``train=True`` no kernel
+wrapper is called: the SE and the residual epilogue take the unfused route,
+the JAX modules' own training route (layers.py:388-401).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Iterable, Optional, Tuple
 
 import torch
 import torch.nn as nn
@@ -25,16 +28,27 @@ from ..ops.resize import global_avg_pool, resize_bilinear
 
 
 class BatchNorm2d(nn.BatchNorm2d):
-    """``nn.BatchNorm2d`` that always uses its running statistics.
+    """``nn.BatchNorm2d`` whose mode is the ``train`` argument, not
+    ``module.training``; counterpart of ``TorchBatchNorm`` (layers.py:64-131).
 
-    Same parameters and buffers (so reference state dicts load unchanged);
-    the forward is the eval-mode normalisation whatever ``module.training``
-    says.  Counterpart of ``TorchBatchNorm`` with ``use_running_average``.
+    Same parameters and buffers (so reference state dicts load unchanged).
+    ``train=False`` normalises with the running statistics; ``train=True``
+    with the batch's biased variance, and updates the running mean and the
+    Bessel-corrected running variance with momentum 0.1 (torch's semantics,
+    which ``TorchBatchNorm`` reproduces).
     """
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.batch_norm(x, self.running_mean, self.running_var,
-                            self.weight, self.bias, False, 0.0, self.eps)
+    def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
+                            self.bias, train, self.momentum if train else 0.0, self.eps)
+
+
+def run(seq: Iterable[nn.Module], x: torch.Tensor, train: bool) -> torch.Tensor:
+    """Apply the modules of ``seq`` in order, passing ``train`` to the
+    BatchNorm layers."""
+    for m in seq:
+        x = m(x, train) if isinstance(m, BatchNorm2d) else m(x)
+    return x
 
 
 def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
@@ -64,9 +78,10 @@ def conv3x3(cin: int, cout: int, stride: int = 1, bias: bool = False,
 class SEBlock(nn.Module):
     """Squeeze-excitation returning ``(x * w, w)`` (reference model_module.py:25-47).
 
-    ``fc`` holds the reference's parameters (``fc.1``/``fc.3`` 1x1 convs);
-    the forward is one call to :func:`~dmf_tpu_torch.ops.se.se_scale`, the
-    hand-written kernel on the card and its plain version on the CPU.
+    ``fc`` holds the reference's parameters (``fc.1``/``fc.3`` 1x1 convs).
+    The eval forward is one call to :func:`~dmf_tpu_torch.ops.se.se_scale`,
+    the hand-written kernel on the card and its plain version on the CPU;
+    ``train=True`` runs ``fc`` itself, as the JAX module's unfused route.
     """
 
     def __init__(self, channels: int, reduction: int = 2, **kw):
@@ -76,7 +91,11 @@ class SEBlock(nn.Module):
             nn.AdaptiveAvgPool2d(1), nn.Conv2d(channels, mid, 1, **kw),
             nn.GELU(), nn.Conv2d(mid, channels, 1, **kw), nn.Sigmoid())
 
-    def forward(self, x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, train: bool = False
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+        if train:
+            w = self.fc(x)
+            return x * w, w
         if x.is_cuda:  # the kernel takes NHWC maps
             x = x.contiguous(memory_format=torch.channels_last)
         fc = self.fc
@@ -110,8 +129,8 @@ class ReconHead(nn.Module):
             conv3x3(in_ch, in_ch, **kw), BatchNorm2d(in_ch, **kw), nn.GELU(),
             conv3x3(in_ch, recon_ch, bias=True, **kw))
 
-    def forward(self, x):
-        return self.conv(x)
+    def forward(self, x, train: bool = False):
+        return run(self.conv, x, train)
 
 
 class MaskHeadResize(nn.Module):
@@ -152,10 +171,12 @@ class ResLiteBlock(nn.Module):
     """Residual bottleneck stack with optional SE and reconstruction head.
 
     Reference ``ResNetLiteBlock_withRecon`` (model_module.py:220-316).
-    ``forward(x, mc, generator, recon)`` returns ``(features, recon_or_None)``;
-    ``recon=False`` skips the reconstruction head (lean MC passes).  With SE
-    the epilogue ``SE(dropout(gelu(out + identity)))`` is one call to
-    :func:`~dmf_tpu_torch.ops.epilogue.se_epilogue`.
+    ``forward(x, train, mc, generator, recon)`` returns
+    ``(features, recon_or_None)``; ``recon=False`` skips the reconstruction
+    head (lean MC passes).  With SE the eval epilogue
+    ``SE(dropout(gelu(out + identity)))`` is one call to
+    :func:`~dmf_tpu_torch.ops.epilogue.se_epilogue`; ``train=True`` runs it
+    unfused (layers.py:396-401).
     """
 
     def __init__(self, in_ch: int, out_ch: int, downsample: bool = False,
@@ -187,17 +208,17 @@ class ResLiteBlock(nn.Module):
         self.se = SEBlock(out_ch, se_reduction, **kw) if use_se else None
         self.reconstruct = ReconHead(out_ch, recon_ch, **kw) if recon_ch > 0 else None
 
-    def forward(self, x, mc: bool = False,
+    def forward(self, x, train: bool = False, mc: bool = False,
                 generator: Optional[torch.Generator] = None,
                 recon: bool = True):
-        p = self.dropout if mc else 0.0
-        identity = self.skip(x) if self.skip is not None else x
+        p = self.dropout if (train or mc) else 0.0
+        identity = run(self.skip, x, train) if self.skip is not None else x
         out = x
         for b in self.bottlenecks:
-            out = dropout(F.gelu(b["1"](b["0"](out))), p, generator)
-            out = F.gelu(b["5"](b["4"](out)))
-            out = b["8"](b["7"](out))
-        if self.se is not None:
+            out = dropout(F.gelu(b["1"](b["0"](out), train)), p, generator)
+            out = F.gelu(b["5"](b["4"](out), train))
+            out = b["8"](b["7"](out), train)
+        if self.se is not None and not train:
             if out.is_cuda:  # the kernel takes NHWC maps
                 out = out.contiguous(memory_format=torch.channels_last)
                 identity = identity.contiguous(memory_format=torch.channels_last)
@@ -207,7 +228,10 @@ class ResLiteBlock(nn.Module):
                               generator=generator)
         else:
             out = dropout(F.gelu(out + identity), p, generator)
-        r = self.reconstruct(out) if (recon and self.reconstruct is not None) else None
+            if self.se is not None:
+                out, _ = self.se(out, train=True)
+        r = (self.reconstruct(out, train)
+             if (recon and self.reconstruct is not None) else None)
         return out, r
 
 
@@ -220,8 +244,8 @@ class Projector(nn.Module):
             conv1x1(in_ch, proj_dim, **kw), BatchNorm2d(proj_dim, **kw), nn.GELU(),
             conv1x1(proj_dim, proj_dim, **kw), BatchNorm2d(proj_dim, **kw), nn.GELU())
 
-    def forward(self, x):
-        return self.proj(x)
+    def forward(self, x, train: bool = False):
+        return run(self.proj, x, train)
 
 
 class ClassificationHead(nn.Module):
@@ -249,8 +273,8 @@ class FeatureDownAlign(nn.Module):
                 else conv1x1(in_ch, out_ch, **kw))
         self.proj = nn.Sequential(conv, BatchNorm2d(out_ch, **kw), nn.GELU())
 
-    def forward(self, x):
-        return x if self.proj is None else self.proj(x)
+    def forward(self, x, train: bool = False):
+        return x if self.proj is None else run(self.proj, x, train)
 
 
 class FusionReduce(nn.Module):

@@ -70,4 +70,5 @@ def check_no_grad(name: str, *tensors: torch.Tensor) -> None:
     backward, and a silent gap in the graph would train nothing."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in tensors):
         raise RuntimeError(f"{name}: the CUDA kernel has no backward; call it under "
-                           f"torch.no_grad() (training is not ported)")
+                           f"torch.no_grad() (a model trains on its train=True route, "
+                           f"which calls no kernel)")

@@ -1,4 +1,5 @@
-"""Pipelines: the single-modality data preparation (``prepare_single``)."""
+"""Pipelines: the single-modality data preparation (``prepare_single``) and
+the single-modality run of one fold (``run_single``)."""
 
 from .prepare_single import (
     SingleModelData,
@@ -9,6 +10,7 @@ from .prepare_single import (
     prepare_single_data,
     save_processed_split,
 )
+from .run_single import run_single_model, test_single_model
 
 __all__ = [
     "SingleModelData",
@@ -17,5 +19,7 @@ __all__ = [
     "load_processed_split",
     "load_raw_tensors",
     "prepare_single_data",
+    "run_single_model",
     "save_processed_split",
+    "test_single_model",
 ]

@@ -1,0 +1,58 @@
+"""Metric history as JSONL and the final ``metrics.json``.
+
+The port's copy of ``dmf_tpu/utils/logging.py``'s ``MetricLogger`` and
+``save_metrics_json`` (held equal by ``tests/test_torch_train.py``), the
+counterparts of the reference's HistoryCallback and metrics.json
+(run_training.py:338-349, 392-407).  The JSONL history is the record; the
+JAX package's optional TensorBoard mirror of it is not copied.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import time
+from typing import Any, Dict, List, Optional
+
+
+class MetricLogger:
+    def __init__(self, log_dir: str, name: str = "metrics"):
+        self.log_dir = os.path.abspath(log_dir)
+        os.makedirs(self.log_dir, exist_ok=True)
+        self.jsonl_path = os.path.join(self.log_dir, f"{name}.jsonl")
+        self.history: List[Dict[str, Any]] = []
+
+    def log_epoch(self, epoch: int, metrics: Dict[str, float]) -> None:
+        record = {"epoch": epoch, "time": time.time()}
+        # vector metrics (the per-group lrs, the reference's LearningRateMonitor
+        # pg{i} scalars) expand to indexed keys
+        for k, v in metrics.items():
+            if isinstance(v, (list, tuple)):
+                record.update({f"{k}_{i}": float(x) for i, x in enumerate(v)})
+            else:
+                record[k] = float(v)
+        self.history.append(record)
+        with open(self.jsonl_path, "a") as f:
+            f.write(json.dumps(record) + "\n")
+
+
+def save_metrics_json(path: str, train_metrics: Dict[str, Any],
+                      test_metrics: Dict[str, Any],
+                      parameters: Optional[Dict[str, Any]] = None) -> None:
+    """Final per-run metrics file (run_training.py:392-407)."""
+
+    def clean(obj):
+        if isinstance(obj, dict):
+            return {k: clean(v) for k, v in obj.items()}
+        if isinstance(obj, (list, tuple)):
+            return [clean(v) for v in obj]
+        if hasattr(obj, "tolist"):
+            return obj.tolist()
+        return obj
+
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    with open(path, "w") as f:
+        json.dump({"train_metrics": clean(train_metrics),
+                   "test_metrics": clean(test_metrics),
+                   "parameters": clean(parameters) if parameters else None},
+                  f, indent=2)

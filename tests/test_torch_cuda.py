@@ -388,3 +388,48 @@ def test_new_wrappers_raise(dev):
         k1.se_epilogue(y, y, w1g, b1, w2, b2)
     with torch.no_grad():
         assert se.se_scale(_cl(x), w1g, b1, w2, b2)[0].shape == x.shape
+
+
+def test_train_route_launches_no_kernel(dev):
+    """The single-modality train step at toy size on the card: its batch
+    preparation launches kernel 7 once, the step none of kernels 1, 2 and 6
+    (the ``train=True`` route); the eval step takes the served route (3 SE
+    epilogues, 6 neck convs, the modality SE); and the eval route under
+    autograd raises instead of dropping the gradient."""
+    import dataclasses
+
+    from dmf_tpu_torch import default_parameters, resolve_backbone_config
+    from dmf_tpu_torch.data.modality import ModalityProcessor
+    from dmf_tpu_torch.losses import get_classification_loss_fn, get_mask_loss_fn
+    from dmf_tpu_torch.pipeline import build_single_model
+    from dmf_tpu_torch.train.optim import SingleModelOptController, build_group_spec
+    from dmf_tpu_torch.train.single import make_single_eval_step, make_single_train_step
+    from dmf_tpu_torch.train.state import TrainState
+
+    cfg = default_parameters(foundation_model_unfreeze_timer=0)
+    cfg = cfg.replace(dwi_model=resolve_backbone_config(dataclasses.replace(
+        cfg.dwi_model, input_size=32, channels=(8, 16, 32), proj_dim=8)))
+    model, cfg = build_single_model(cfg, "dwi", device=dev, backbone_layers=(1, 1, 1, 1))
+    g = torch.Generator(device=dev).manual_seed(0)
+    proc = ModalityProcessor(cfg, "dwi", adc_map=torch.full((32, 32, 1), 0.5, device=dev),
+                             device=dev)
+    counters = (k1.se_epilogue, k2.conv3x3_bn_gelu, se.se_scale, dwi_norm.dwi_normalize)
+    for f in counters:
+        f.launches = 0
+    batch = {"imgs": proc.train_batch(g, torch.rand(4, 32, 32, 13, device=dev) * 1000),
+             "masks": (torch.rand(4, 32, 32, 1, device=dev) > 0.8).float(),
+             "labels": torch.arange(4, device=dev), "aux_w": 1.0}
+    assert [f.launches for f in counters] == [0, 0, 0, 1]
+    clf = get_classification_loss_fn(cfg, [0, 1, 2, 3], "dwi")
+    spec = build_group_spec([n for n, _ in model.named_parameters()], True)
+    ctrl = SingleModelOptController(cfg, "dwi")
+    ctrl.on_epoch_start(0)
+    state = TrainState.create(model)
+    metrics = make_single_train_step(cfg, "dwi", clf, get_mask_loss_fn(cfg, "dwi"), spec)(
+        state, batch, g, ctrl.hyperparams())
+    assert torch.isfinite(metrics["loss"]) and metrics["grad_nonfinite"].item() == 0
+    assert [f.launches for f in counters] == [0, 0, 0, 1]
+    make_single_eval_step(cfg, "dwi", clf, get_mask_loss_fn(cfg, "dwi"))(state, batch)
+    assert [f.launches for f in counters] == [3, 6, 1, 1]
+    with pytest.raises(RuntimeError, match="no backward"):
+        model(batch["imgs"].permute(0, 3, 1, 2))

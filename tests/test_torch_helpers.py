@@ -69,6 +69,14 @@ def randomize(variables, seed):
     return jax.tree_util.tree_map_with_path(f, variables)
 
 
+def init_shapes(model, *args):
+    """The variables' shapes, traced without running ``model.init`` (which
+    runs op by op on the CPU); :func:`randomize` needs only the shapes."""
+    return jax.eval_shape(lambda: model.init({"params": jax.random.PRNGKey(0),
+                                              "dropout": jax.random.PRNGKey(1)},
+                                             *args, train=False))
+
+
 @contextlib.contextmanager
 def resnet_layers(layers):
     """Let the numpy ResNet exporter walk a shallow test backbone."""
@@ -127,10 +135,7 @@ def jax_encoder(mc, channel_num, x, num_classes=4, seed=0):
                 if mc.use_backbone else None)
     model = Encoder(method="dwi", config=mc, channel_num=channel_num,
                     num_classes=num_classes, backbone=backbone)
-    template = model.init({"params": jax.random.PRNGKey(0),
-                           "dropout": jax.random.PRNGKey(1)},
-                          jnp.asarray(x), train=False)
-    return model, randomize(template, seed)
+    return model, randomize(init_shapes(model, jnp.asarray(x)), seed)
 
 
 def port_encoder(mc, channel_num, variables, num_classes=4):
@@ -149,10 +154,7 @@ def jax_fusion(cfg, feats_dwi, feats_dce, m_dwi, m_dce, seed=5):
     from dmf_tpu.models import FusionModel
 
     model = FusionModel(config=cfg.fusion_model, num_classes=cfg.class_num)
-    template = model.init({"params": jax.random.PRNGKey(0),
-                           "dropout": jax.random.PRNGKey(1)},
-                          feats_dwi, feats_dce, m_dwi, m_dce, train=False)
-    return model, randomize(template, seed)
+    return model, randomize(init_shapes(model, feats_dwi, feats_dce, m_dwi, m_dce), seed)
 
 
 def port_fusion(cfg, variables, feature_size):
