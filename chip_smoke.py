@@ -25,7 +25,10 @@ Phases, each printing its own lines:
      synthetic DCE rows at (48 | 1536, 65536), the same with 60 % of each
      row at 0, ragged and unaligned rows at (48, 65539) and (7, 10007),
      rows past the kernel's shared-memory budget at (4, 2^20); two calls
-     compared bit for bit), 3g the standalone SE; the memory-bound kernels
+     compared bit for bit), 3g the standalone SE; 3a, 3b and 3g also in
+     fp32 at a validation batch's maps (B=32: training builds the models in
+     fp32), kernel 2 there against cuDNN's fp32 chain in turns and the fp32
+     bound (67 TFLOP/s); the memory-bound kernels
      (3a, 3e-3g) with their device time, GB/s and share of the bytes bound;
      3h autograd through the full-width hybrid-nb transformer stage in bf16
      (the backward kernels' path: 6 launches of dQ and of dK/dV a backward),
@@ -43,8 +46,8 @@ Phases, each printing its own lines:
      in ``tta_mc``, 5b ``hybrid-nb`` in ``normal`` then ``tta``;
   6. a profiler breakdown of one more ``tta_mc`` and one ``hybrid-nb``
      ``normal`` request;
-  7. single-modality training of the default DWI encoder at full width
-     (dilated ResNet-50, 256^2, fp32 with TF32 off): 7a six train steps at
+  7. training at full width, a whole fold of the default config (dilated
+     ResNet-50 encoders, 256^2, fp32 with TF32 off): 7a six train steps at
      B=2 on the card and on the CPU from the same weights and processed
      batches, three with the backbone group frozen and three after its
      unfreeze, the per-step losses and then the parameters and BatchNorm
@@ -57,7 +60,16 @@ Phases, each printing its own lines:
      validation and test times, the peak memory, the run's launches, the
      backbone bit-equal after the frozen epoch and trained after, the best
      checkpoint's reload, the test ensemble's sums and MC std, and one
-     profiled train step (idle share, top kernels);
+     profiled train step (idle share, top kernels); 7c four fusion train
+     steps of the default models at full width (two ResNet-50 encoders and
+     the fusion head) at B=4 on the card and on the CPU, two with the
+     encoders frozen and two after group 2's unfreeze (losses, then
+     parameters and statistics against two CPU memory formats, no kernel
+     launched); 7d the rest of the fold: ``run_single_model("dce")`` beside
+     7b's DWI run, then ``run_fusion_model`` over both for three epochs with
+     two unfreezes (step times, epoch / validation / test times, peak memory,
+     launches per validation and test batch, the single-model states left
+     bit-equal, the best reload bit-equal, a profiled step);
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -109,10 +121,15 @@ from dmf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: E402
 from dmf_tpu_torch.data.modality import ModalityProcessor  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_single_predictor, to_model  # noqa: E402
 from dmf_tpu_torch.losses import get_classification_loss_fn, get_mask_loss_fn  # noqa: E402
-from dmf_tpu_torch.pipeline import (build_single_model, export_processed_splits,  # noqa: E402
-                                    load_processed_split, prepare_single_data,
-                                    run_single_model, test_single_model)
-from dmf_tpu_torch.train.optim import SingleModelOptController, build_group_spec  # noqa: E402
+from dmf_tpu_torch.pipeline import (build_fusion_state, build_single_model,  # noqa: E402
+                                    export_processed_splits, load_processed_split,
+                                    prepare_fusion_data, prepare_single_data, run_fusion_model,
+                                    run_single_model, test_fusion_model, test_single_model)
+from dmf_tpu_torch.train.fusion import (FusionNetwork, make_fusion_eval_step,  # noqa: E402
+                                        make_fusion_train_step)
+from dmf_tpu_torch.train.optim import (FusionOptController,  # noqa: E402
+                                       SingleModelOptController, build_fusion_group_spec,
+                                       build_group_spec)
 from dmf_tpu_torch.train.schedule import aux_loss_weight  # noqa: E402
 from dmf_tpu_torch.train.single import (make_single_eval_step,  # noqa: E402
                                         make_single_train_step)
@@ -164,6 +181,17 @@ N_TRAIN, N_TEST, IMAGE = 256, 64, 256
 # the memory rate and operations over the peak rate of their type
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
+FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
+# a validation batch of the default config (batch_size 32): training builds
+# the models in fp32, so validation runs kernels 1, 2 and 6 in fp32, and so
+# does the tta_mc test of B_VAL volumes (4 views, the 9 lean MC passes in one
+# chunk and the last pass, dropout 0.2)
+B_VAL = 32
+N_TEST_VIEWS = 4 * B_VAL
+# standalone SE maps (N, side, C) of that test batch: modality attention on
+# both inputs, fusion_se on the lean chunk and on the last pass
+SE_TEST_MAPS = ((N_TEST_VIEWS, 256, 14), (N_TEST_VIEWS, 256, 6),
+                (9 * N_TEST_VIEWS, 32, 128), (N_TEST_VIEWS, 32, 128))
 
 
 def log(*a):
@@ -474,8 +502,57 @@ def phase_epilogue(n_passes, n_views):
               f"device {sum(devs):.4f} ms ({100 * bound / sum(devs):.1f} % of the bound)")
     log(f"  bf16 sum over C: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, bound "
         f"{bound:.4f} ms (bytes); {device}")
+    errs.append(epilogue_validation_fp32(g))
+    errs.append(epilogue_test_fp32(g, n_passes, p))
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None}
+
+
+def epilogue_test_fp32(g, n_passes, p):
+    """Kernel 1 in fp32 at a tta_mc test batch's maps (the lean chunk of
+    ``n_passes`` passes and the last pass, each of N_TEST_VIEWS maps at 32^2),
+    dropout ``p`` by the kernel's own mask, against the plain version."""
+    log(f"  fp32 at a tta_mc test batch's maps (N={n_passes}x{N_TEST_VIEWS} and "
+        f"{N_TEST_VIEWS}, 32^2, drop {p}):")
+    errs = []
+    for n in (n_passes * N_TEST_VIEWS, N_TEST_VIEWS):
+        for c in EPI_CHANNELS:
+            args = epi_inputs(n, c, torch.float32, g)
+            mc_seed = 300 + c + n
+            out = k1.se_epilogue(*args, drop_rate=p, generator=gen(mc_seed))
+            keep = epilogue_cuda.keep_mask(args[0], p, epilogue_cuda.draw_seed(gen(mc_seed), DEV))
+            errs.append(check(f"float32 N={n} C={c} drop={p} (kernel's own mask)", out,
+                              k1.se_epilogue_ref(*args, drop_rate=p, keep=keep), torch.float32))
+            del args, out, keep
+            torch.cuda.empty_cache()
+    return max(errs)
+
+
+def epilogue_validation_fp32(g):
+    """Kernel 1 in fp32 at a validation batch's maps (B_VAL x 32^2 x C,
+    dropout 0): error, kernel and plain times, bytes bound, device time."""
+    log(f"  fp32 at a validation batch's maps (N={B_VAL}, 32^2, drop 0):")
+    errs, ms, plain_ms, nbytes, devs = [], 0.0, 0.0, 0, []
+    for c in EPI_CHANNELS:
+        args = epi_inputs(B_VAL, c, torch.float32, g)
+        tag = f"float32 N={B_VAL} C={c} drop=0"
+        errs.append(check(tag, k1.se_epilogue(*args), k1.se_epilogue_ref(*args), torch.float32))
+        t_k = cuda_time(lambda: k1.se_epilogue(*args))
+        t_p = cuda_time(lambda: k1.se_epilogue_ref(*args))
+        b_c = 3 * args[0].numel() * args[0].element_size()
+        bound = b_c / HBM_BYTES_PER_S * 1e3
+        log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound {bound:.4f} ms "
+            f"(bytes, {b_c / 1e6:.1f} MB)")
+        devs.append(device_rate(tag, lambda: k1.se_epilogue(*args), EPI_KERNELS, bound,
+                                nbytes=b_c)[0])
+        ms, plain_ms, nbytes = ms + t_k, plain_ms + t_p, nbytes + b_c
+        del args
+    bound = nbytes / HBM_BYTES_PER_S * 1e3
+    device = ("device not measured" if None in devs else
+              f"device {sum(devs):.4f} ms ({100 * bound / sum(devs):.1f} % of the bound)")
+    log(f"  fp32 validation sum over C (one encoder's three blocks): kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes); {device}")
+    return max(errs)
 
 
 def phase_epilogue_hybrid():
@@ -501,27 +578,57 @@ def phase_epilogue_hybrid():
     torch.cuda.empty_cache()
 
 
+def neck_inputs(n, cin, cout, side, dtype, g):
+    """(x, w, bias, gamma, beta, mean, var) of one neck site, random BN
+    running statistics."""
+    x = cl(torch.randn(n, cin, side, side, device=DEV, generator=g).to(dtype))
+    w = torch.randn(cout, cin, 3, 3, device=DEV, generator=g) * (9 * cin) ** -0.5
+    bias = torch.randn(cout, device=DEV, generator=g) * 0.1
+    gamma = torch.rand(cout, device=DEV, generator=g) + 0.5
+    beta = torch.randn(cout, device=DEV, generator=g) * 0.1
+    mean = torch.randn(cout, device=DEV, generator=g) * 0.1
+    var = torch.rand(cout, device=DEV, generator=g) + 0.5
+    return x, w, bias, gamma, beta, mean, var
+
+
 def phase_conv(n):
     log(f"== phase 3b: conv3x3_bn_gelu (CUDA) vs plain, N={n}, random BN running stats")
     g = gen(3)
     errs, ms, plain_ms, lib_ms, flop, devs = [], 0.0, 0.0, 0.0, 0, []
     turns_k = 0.0
+    f32 = dict.fromkeys(("kernel", "plain", "turns", "chain", "flop", "bound"), 0.0)
+    f32["devs"] = []
     for dtype in (torch.float32, torch.bfloat16):
         for name, cin, cout, side in NECKS:
-            x = cl(torch.randn(n, cin, side, side, device=DEV, generator=g).to(dtype))
-            w = torch.randn(cout, cin, 3, 3, device=DEV, generator=g) * (9 * cin) ** -0.5
-            bias = torch.randn(cout, device=DEV, generator=g) * 0.1
-            gamma = torch.rand(cout, device=DEV, generator=g) + 0.5
-            beta = torch.randn(cout, device=DEV, generator=g) * 0.1
-            mean = torch.randn(cout, device=DEV, generator=g) * 0.1
-            var = torch.rand(cout, device=DEV, generator=g) + 0.5
-            args = (x, w, bias, gamma, beta, mean, var)
+            args = neck_inputs(n, cin, cout, side, dtype, g)
+            x, w, bias, gamma, beta, mean, var = args
             tag = f"{str(dtype)[6:]} {name} ({side}^2, {cin}->{cout})"
             errs.append(check(tag, k2.conv3x3_bn_gelu(*args), k2.conv3x3_bn_gelu_ref(*args),
                               dtype))
             t_k = cuda_time(lambda: k2.conv3x3_bn_gelu(*args), reps=5)
             t_p = cuda_time(lambda: k2.conv3x3_bn_gelu_ref(*args), reps=5)
             log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median)")
+            if dtype == torch.float32:
+                # the validation route's dtype: against cuDNN's fp32 chain (TF32
+                # off) and the fp32 bound, operations at 67 TFLOP/s or bytes
+                site_flop = 2 * n * side * side * 9 * cin * cout
+                site_bytes = 4 * (x.numel() + w.numel() + n * cout * side * side)
+                bound = max(site_flop / FP32_FLOP_PER_S, site_bytes / HBM_BYTES_PER_S) * 1e3
+                wc = w.contiguous(memory_format=torch.channels_last)
+                chain = lambda: F.gelu(F.batch_norm(  # noqa: E731
+                    F.conv2d(x, wc, bias, padding=1), mean, var, gamma, beta, False, 0.0, 1e-5))
+                t_kt, t_c = in_turns(lambda: k2.conv3x3_bn_gelu(*args), chain, reps=5)
+                log(f"  {tag}: in turns kernel {t_kt:.4f} ms, cuDNN fp32 conv+BN+GELU chain "
+                    f"{t_c:.4f} ms, ratio {t_kt / t_c:.3f}; bound {bound:.4f} ms (operations)")
+                f32["kernel"] += t_k
+                f32["plain"] += t_p
+                f32["turns"] += t_kt
+                f32["chain"] += t_c
+                f32["flop"] += site_flop
+                f32["bound"] += bound
+                f32["devs"].append(device_rate(tag, lambda: k2.conv3x3_bn_gelu(*args),
+                                               ("conv3x3_bn_gelu_f32",), bound,
+                                               flop=site_flop)[0])
             if dtype == torch.bfloat16:
                 ms += t_k
                 plain_ms += t_p
@@ -546,6 +653,14 @@ def phase_conv(n):
                         f"{t128:.4f} ms (default {k2.tile_n(cout)})")
             del x, w, args
     torch.cuda.empty_cache()
+    # fp32 at a tta_mc test batch's views: the prefix runs the necks once
+    for name, cin, cout, side in NECKS:
+        args = neck_inputs(N_TEST_VIEWS, cin, cout, side, torch.float32, g)
+        errs.append(check(f"float32 {name} at a tta_mc test batch (N={N_TEST_VIEWS}, {side}^2, "
+                          f"{cin}->{cout})", k2.conv3x3_bn_gelu(*args),
+                          k2.conv3x3_bn_gelu_ref(*args), torch.float32))
+        del args
+        torch.cuda.empty_cache()
     bound = flop / BF16_FLOP_PER_S * 1e3
     if None in devs:
         device = "device not measured"
@@ -556,6 +671,17 @@ def phase_conv(n):
     log(f"  bf16 sum over the six sites: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP); {device}; in turns "
         f"kernel {turns_k:.4f} ms vs cuDNN chain {lib_ms:.4f} ms, ratio {turns_k / lib_ms:.3f}")
+    if None in f32["devs"]:
+        device = "device not measured"
+    else:
+        dev_ms = sum(f32["devs"])
+        device = (f"device {dev_ms:.4f} ms ({f32['flop'] / dev_ms / 1e9:.1f} TFLOP/s, "
+                  f"{100 * f32['bound'] / dev_ms:.1f} % of the bound)")
+    log(f"  fp32 sum over the six sites (a validation batch's necks of one encoder): kernel "
+        f"{f32['kernel']:.4f} ms, plain {f32['plain']:.4f} ms, bound {f32['bound']:.4f} ms "
+        f"({f32['flop'] / 1e9:.1f} GFLOP at 67 TFLOP/s); {device}; in turns kernel "
+        f"{f32['turns']:.4f} ms vs cuDNN fp32 chain {f32['chain']:.4f} ms, ratio "
+        f"{f32['turns'] / f32['chain']:.3f}")
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations", "library_ms": lib_ms}
 
@@ -974,17 +1100,24 @@ def phase_histogram(dce_norm):
             "bound_by": "bytes", "library_ms": None, "served": False}, launches
 
 
+def se_weights(c, g):
+    """(w1, b1, w2, b2) of an SE MLP over ``c`` channels, hidden c // 2."""
+    mid = max(c // 2, 1)
+    w1 = torch.randn(mid, c, 1, 1, device=DEV, generator=g) * c ** -0.5
+    w2 = torch.randn(c, mid, 1, 1, device=DEV, generator=g) * mid ** -0.5
+    b1 = torch.randn(mid, device=DEV, generator=g) * 0.1
+    b2 = torch.randn(c, device=DEV, generator=g) * 0.1
+    return w1, b1, w2, b2
+
+
 def phase_se_scale():
     log("== phase 3g: se_scale (CUDA) vs plain SEBlock, (N, side^2, C) = "
         + ", ".join(f"({n}, {s}^2, {c})" for n, s, c in SE_MAPS))
     g = gen(9)
     errs, ms, plain_ms, nbytes, devs, hosts = [], 0.0, 0.0, 0, [], []
+    f32_ms, f32_plain, f32_bytes, f32_devs = 0.0, 0.0, 0, []
     for n, side, c in SE_MAPS:
-        mid = max(c // 2, 1)
-        w1 = torch.randn(mid, c, 1, 1, device=DEV, generator=g) * c ** -0.5
-        w2 = torch.randn(c, mid, 1, 1, device=DEV, generator=g) * mid ** -0.5
-        b1 = torch.randn(mid, device=DEV, generator=g) * 0.1
-        b2 = torch.randn(c, device=DEV, generator=g) * 0.1
+        w1, b1, w2, b2 = se_weights(c, g)
         base = torch.randn(n, c, side, side, device=DEV, generator=g)
         for dtype in (torch.float32, torch.bfloat16):
             x = cl(base.to(dtype))
@@ -995,7 +1128,7 @@ def phase_se_scale():
             errs.append(check(f"{tag} out", out, ref_out, dtype))
             errs.append(check(f"{tag} s", s, ref_s, dtype))
             del out, s, ref_out, ref_s
-            if dtype == torch.bfloat16:
+            if dtype == torch.bfloat16 or n == B_VAL:
                 t_k = cuda_time(lambda: sek.se_scale(*args))
                 t_p = cuda_time(lambda: sek.se_scale_ref(*args))
                 b = 2 * x.numel() * x.element_size()
@@ -1003,11 +1136,15 @@ def phase_se_scale():
                     f"{b / HBM_BYTES_PER_S * 1e3:.4f} ms (bytes, {b / 1e6:.1f} MB)")
                 dev, host = device_rate(f"{tag} (its 3 kernels)", lambda: sek.se_scale(*args),
                                         SE_KERNELS, b / HBM_BYTES_PER_S * 1e3, nbytes=b)
-                devs.append(dev)
-                hosts.append(host)
-                ms += t_k
-                plain_ms += t_p
-                nbytes += b
+                if dtype == torch.bfloat16:
+                    devs.append(dev)
+                    hosts.append(host)
+                    ms += t_k
+                    plain_ms += t_p
+                    nbytes += b
+                else:  # fp32 at a validation batch's maps
+                    f32_devs.append(dev)
+                    f32_ms, f32_plain, f32_bytes = f32_ms + t_k, f32_plain + t_p, f32_bytes + b
             del x, args
         del base
         torch.cuda.empty_cache()
@@ -1017,6 +1154,22 @@ def phase_se_scale():
     log(f"  bf16 sum over the four calls of a tta_mc request: kernel {ms:.4f} ms, plain "
         f"{plain_ms:.4f} ms, bound {bound:.4f} ms (bytes); {device}; host {sum(hosts):.4f} ms "
         f"to enqueue")
+    b32 = f32_bytes / HBM_BYTES_PER_S * 1e3
+    device = ("device not measured" if None in f32_devs else
+              f"device {sum(f32_devs):.4f} ms ({100 * b32 / sum(f32_devs):.1f} % of the bound)")
+    log(f"  fp32 sum over a validation batch's three calls (modality attention x 2, "
+        f"fusion_se): kernel {f32_ms:.4f} ms, plain {f32_plain:.4f} ms, bound {b32:.4f} ms "
+        f"(bytes); {device}")
+    for n, side, c in SE_TEST_MAPS:  # fp32 at the four maps of a tta_mc test batch
+        x = cl(torch.randn(n, c, side, side, device=DEV, generator=g))
+        args = (x, *se_weights(c, g))
+        tag = f"float32 ({n}, {side}^2, {c}) of a tta_mc test batch"
+        out, s = sek.se_scale(*args)
+        ref_out, ref_s = sek.se_scale_ref(*args)
+        errs.append(check(f"{tag} out", out, ref_out, torch.float32))
+        errs.append(check(f"{tag} s", s, ref_s, torch.float32))
+        del x, args, out, s, ref_out, ref_s
+        torch.cuda.empty_cache()
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "bytes", "library_ms": None}
 
@@ -1540,7 +1693,7 @@ def all_finite(metrics):
     return all(np.isfinite(float(x)) for x in vals)
 
 
-def phase_run_single(cfg, raw):
+def phase_run_single(cfg, raw, tmp):
     B = cfg.batch_size
     log(f"== phase 7b: run_single_model('dwi') on the card: the default DWI encoder at full "
         f"width (ResNet-50, 256^2, fp32, TF32 off), B={B}, {RUN_TRAIN} + {RUN_TEST} synthetic "
@@ -1549,133 +1702,404 @@ def phase_run_single(cfg, raw):
     store = {"imgs": raw["dwi"][:RUN_TRAIN], "test_imgs": raw["dwi_test"][:RUN_TEST],
              "labels": raw["labels"][:RUN_TRAIN], "test_labels": raw["labels_test"][:RUN_TEST],
              "masks": raw["masks"][:RUN_TRAIN]}
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
-        rcfg0 = train_config(cfg).replace(base_path=os.path.join(tmp, "data"))
-        data = prepare_single_data(rcfg0, "dwi", 0, raw=store, device=DEV)
-        n_tr, n_va = len(data.splits["train"]["labels"]), len(data.splits["val"]["labels"])
-        model, rcfg = build_single_model(rcfg0, "dwi", device=DEV, generator=gen(SEED))
-        init = {k: t.detach().clone() for k, t in model.state_dict().items()
-                if k.startswith("backbone.")}
-        torch.cuda.reset_peak_memory_stats()
-        reset_counts()
-        out, t_run = synced(lambda: run_single_model(
-            rcfg, "dwi", 0, data=data, state=TrainState.create(model), num_epochs=RUN_EPOCHS,
-            min_epochs=RUN_EPOCHS, base_dir=os.path.join(tmp, "results"), device=DEV))
-        launched = counts()
-        peak = torch.cuda.max_memory_allocated() / 2 ** 30
-        hist = out["history"]
-        n_steps = -(-n_tr // B)
-        log(f"  splits: train {n_tr} ({n_steps} steps an epoch), validation {n_va}, test "
-            f"{RUN_TEST}; run {t_run:.2f} s (prepare excluded); peak memory {peak:.2f} GiB")
-        for e, h in enumerate(hist):
-            log(f"  epoch {e}: train {h['train_time']:.3f} s, validation "
-                f"{h['epoch_time'] - h['train_time']:.3f} s, epoch {h['epoch_time']:.3f} s; "
-                f"train loss {h['train_loss']:.5f}, val loss {h['val_loss']:.5f}, val acc "
-                f"{h['val_acc']:.4f}, val AUC {h['val_roc_auc']:.4f}; group lrs "
-                f"{[float(f'{x:.3g}') for x in h['group_lrs']]}, trainable "
-                f"{h['group_trainable']}")
-        prep_ms = [p for p, _ in out["step_ms"]]
-        step_ms = [s_ for _, s_ in out["step_ms"]]
-        # full batches of B after the first step (cuDNN plans); a short tail
-        # batch ends each epoch when B does not divide the split
-        full = [t for i, t in enumerate(step_ms)
-                if i and (i % n_steps < n_steps - 1 or n_tr % B == 0)]
-        med = statistics.median(full)
-        log(f"  train steps by CUDA events (ms): {', '.join(f'{t:.2f}' for t in step_ms)}; "
-            f"median of the {len(full)} full batches after the first {med:.2f} ms "
-            f"({min(full):.2f}-{max(full):.2f}), {1e3 / med:.3f} steps/s, "
-            f"{B * 1e3 / med:.2f} volumes/s; batch preparation (augment + kernel 7) median "
-            f"{statistics.median(prep_ms):.3f} ms ({min(prep_ms):.3f}-{max(prep_ms):.3f})")
-        log(f"  test metrics {json.dumps({k: round(v, 5) for k, v in out['test_metrics'].items()})}")
-        if len(hist) != RUN_EPOCHS or not all(all_finite(h) for h in hist) \
-                or not all_finite(out["test_metrics"]):
-            raise AssertionError("a metric is not finite (or an epoch is missing)")
-        if [h["group_trainable"][0] for h in hist] != [0.0, 1.0]:
-            raise AssertionError("the backbone group was not frozen then trained")
-        # launches: kernel 7 once a train batch, once for each eval_split (validation
-        # in the fit, test in the test pass) and 3 times in export_processed_splits;
-        # kernels 1, 2, 6 per validation batch and per tta_mc test batch (phase 7a)
-        n_val, n_test = -(-n_va // B), -(-RUN_TEST // B)
-        expect = dict.fromkeys(COUNTERS, 0) | {
-            "dwi_normalize": RUN_EPOCHS * n_steps + 2 + 3,
-            "se_epilogue": 3 * RUN_EPOCHS * n_val + 6 * n_test,
-            "conv3x3_bn_gelu": 6 * (RUN_EPOCHS * n_val + n_test),
-            "se_scale": RUN_EPOCHS * n_val + n_test}
-        log(f"  launches of the run {launched}")
-        if launched != expect:
-            raise AssertionError(f"run launched {launched}, expected {expect}")
-        # the rolling checkpoint holds the state after epoch 0 (loop.ROLL_EVERY 10)
-        ckdir = os.path.join(tmp, "results", "dwi", "fold_0", "checkpoints")
-        after0 = torch.load(os.path.join(ckdir, "last.pt"), map_location=DEV,
-                            weights_only=True)["model"]
-        final = out["final_state"].model.state_dict()
-        stats = [k for k in init if k.endswith(("running_mean", "running_var"))]
-        params = [n for n, _ in out["final_state"].model.named_parameters()
-                  if n.startswith("backbone.")]
-        if not all(torch.equal(after0[k], init[k]) for k in params):
-            raise AssertionError("a backbone parameter changed in the frozen epoch")
-        if not all(not torch.equal(after0[k], init[k]) and not torch.equal(final[k], after0[k])
-                   for k in stats):
-            raise AssertionError("a backbone BatchNorm statistic did not move in each epoch")
-        n_moved = sum(not torch.equal(final[k], init[k]) for k in params)
-        log(f"  backbone: {len(params)} parameters bit-equal to their initial values after "
-            f"epoch 0, {n_moved} of them changed after epoch 1; its {len(stats)} BatchNorm "
-            f"statistics moved in both epochs")
-        if n_moved != len(params):
-            raise AssertionError("a backbone parameter did not train after the unfreeze")
-        # the best checkpoint reloaded into a model of other weights
-        fresh, _ = build_single_model(rcfg0, "dwi", device=DEV, generator=gen(SEED + 1))
-        load_checkpoint(out["best_checkpoint"], TrainState.create(fresh))
-        val = torch.as_tensor(data.processors_by_split["val"].eval_split(
-            data.splits["val"]["imgs"][:B]), device=DEV)
-        with torch.no_grad():
-            a = fresh(to_model(val, fresh))[0]
-            b = out["state"].model(to_model(val, fresh))[0]
-        err = (a - b).abs().max().item()
-        log(f"  best checkpoint reloaded: eval logits max_abs_err {err:.3e} against the best "
-            f"state's (tolerance 0: {'bit-equal' if err == 0 else 'NOT bit-equal'})")
-        if err != 0:
-            raise AssertionError("reloaded checkpoint gives other logits")
-        probs, std = out["test_probs"], out["test_std"]
-        if not (np.abs(probs.sum(-1) - 1) <= 1e-3).all() or not (std > 0).all():
-            raise AssertionError("test probabilities do not sum to 1, or an MC std is 0")
-        log(f"  test: probabilities finite and summing to 1, MC std > 0 (mean "
-            f"{std.mean():.5f})")
-        # the test pass timed again on its own
-        reset_counts()
-        res, t_test = synced(lambda: test_single_model(rcfg, out["state"], data, seed=1))
-        log(f"  test_single_model again: {t_test:.3f} s for {RUN_TEST} volumes "
-            f"({RUN_TEST / t_test:.2f} volumes/s, eval_split included), launches {counts()}")
-        # one more train step under the profiler, on the final state
-        state = out["final_state"]
-        clf = get_classification_loss_fn(rcfg, data.train_labels, "dwi")
-        spec = build_group_spec([n for n, _ in state.model.named_parameters()], True,
-                                rcfg.reference_compat)
-        step = make_single_train_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"), spec)
-        ctrl = SingleModelOptController(rcfg, "dwi")
-        ctrl.on_epoch_start(1)
-        hp = ctrl.hyperparams()
-        idx = np.arange(B)
-        batch = {"imgs": data.processor.train_batch(gen(43), data.splits["train"]["imgs"][idx]),
-                 "masks": torch.as_tensor(data.splits["train"]["masks"][idx], device=DEV),
-                 "labels": data.splits["train"]["labels"][idx], "aux_w": 1.0}
-        step(state, batch, gen(44), hp)
-        torch.cuda.synchronize()
-        from torch.profiler import ProfilerActivity, profile
-        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-            _, dt = synced(lambda: step(state, batch, gen(44), hp))
-        events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
-        total = sum(e.self_device_time_total for e in events) / 1e3
-        idle = (f"{100 * (1 - total / (dt * 1e3)):.1f} % idle" if total > 0
-                else "device time not measured: the profiler recorded no kernel")
-        log(f"  one train step under the profiler: {dt * 1e3:.2f} ms, device time {total:.2f} "
-            f"ms ({idle}); top device kernels:")
-        for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
-            log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
-        del out, res, state, data, model, fresh
+    rcfg0 = train_config(cfg).replace(base_path=os.path.join(tmp, "data"))
+    data = prepare_single_data(rcfg0, "dwi", 0, raw=store, device=DEV)
+    n_tr, n_va = len(data.splits["train"]["labels"]), len(data.splits["val"]["labels"])
+    model, rcfg = build_single_model(rcfg0, "dwi", device=DEV, generator=gen(SEED))
+    init = {k: t.detach().clone() for k, t in model.state_dict().items()
+            if k.startswith("backbone.")}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, t_run = synced(lambda: run_single_model(
+        rcfg, "dwi", 0, data=data, state=TrainState.create(model), num_epochs=RUN_EPOCHS,
+        min_epochs=RUN_EPOCHS, base_dir=os.path.join(tmp, "results"), device=DEV))
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    hist = out["history"]
+    n_steps = -(-n_tr // B)
+    log(f"  splits: train {n_tr} ({n_steps} steps an epoch), validation {n_va}, test "
+        f"{RUN_TEST}; run {t_run:.2f} s (prepare excluded); peak memory {peak:.2f} GiB")
+    for e, h in enumerate(hist):
+        log(f"  epoch {e}: train {h['train_time']:.3f} s, validation "
+            f"{h['epoch_time'] - h['train_time']:.3f} s, epoch {h['epoch_time']:.3f} s; "
+            f"train loss {h['train_loss']:.5f}, val loss {h['val_loss']:.5f}, val acc "
+            f"{h['val_acc']:.4f}, val AUC {h['val_roc_auc']:.4f}; group lrs "
+            f"{[float(f'{x:.3g}') for x in h['group_lrs']]}, trainable "
+            f"{h['group_trainable']}")
+    prep_ms = [p for p, _ in out["step_ms"]]
+    step_ms = [s_ for _, s_ in out["step_ms"]]
+    # full batches of B after the first step (cuDNN plans); a short tail
+    # batch ends each epoch when B does not divide the split
+    full = [t for i, t in enumerate(step_ms)
+            if i and (i % n_steps < n_steps - 1 or n_tr % B == 0)]
+    med = statistics.median(full)
+    log(f"  train steps by CUDA events (ms): {', '.join(f'{t:.2f}' for t in step_ms)}; "
+        f"median of the {len(full)} full batches after the first {med:.2f} ms "
+        f"({min(full):.2f}-{max(full):.2f}), {1e3 / med:.3f} steps/s, "
+        f"{B * 1e3 / med:.2f} volumes/s; batch preparation (augment + kernel 7) median "
+        f"{statistics.median(prep_ms):.3f} ms ({min(prep_ms):.3f}-{max(prep_ms):.3f})")
+    log(f"  test metrics {json.dumps({k: round(v, 5) for k, v in out['test_metrics'].items()})}")
+    if len(hist) != RUN_EPOCHS or not all(all_finite(h) for h in hist) \
+            or not all_finite(out["test_metrics"]):
+        raise AssertionError("a metric is not finite (or an epoch is missing)")
+    if [h["group_trainable"][0] for h in hist] != [0.0, 1.0]:
+        raise AssertionError("the backbone group was not frozen then trained")
+    # launches: kernel 7 once a train batch, once for each eval_split (validation
+    # in the fit, test in the test pass) and 3 times in export_processed_splits;
+    # kernels 1, 2, 6 per validation batch and per tta_mc test batch (phase 7a)
+    n_val, n_test = -(-n_va // B), -(-RUN_TEST // B)
+    expect = dict.fromkeys(COUNTERS, 0) | {
+        "dwi_normalize": RUN_EPOCHS * n_steps + 2 + 3,
+        "se_epilogue": 3 * RUN_EPOCHS * n_val + 6 * n_test,
+        "conv3x3_bn_gelu": 6 * (RUN_EPOCHS * n_val + n_test),
+        "se_scale": RUN_EPOCHS * n_val + n_test}
+    log(f"  launches of the run {launched}")
+    if launched != expect:
+        raise AssertionError(f"run launched {launched}, expected {expect}")
+    # the rolling checkpoint holds the state after epoch 0 (loop.ROLL_EVERY 10)
+    ckdir = os.path.join(tmp, "results", "dwi", "fold_0", "checkpoints")
+    after0 = torch.load(os.path.join(ckdir, "last.pt"), map_location=DEV,
+                        weights_only=True)["model"]
+    final = out["final_state"].model.state_dict()
+    stats = [k for k in init if k.endswith(("running_mean", "running_var"))]
+    params = [n for n, _ in out["final_state"].model.named_parameters()
+              if n.startswith("backbone.")]
+    if not all(torch.equal(after0[k], init[k]) for k in params):
+        raise AssertionError("a backbone parameter changed in the frozen epoch")
+    if not all(not torch.equal(after0[k], init[k]) and not torch.equal(final[k], after0[k])
+               for k in stats):
+        raise AssertionError("a backbone BatchNorm statistic did not move in each epoch")
+    n_moved = sum(not torch.equal(final[k], init[k]) for k in params)
+    log(f"  backbone: {len(params)} parameters bit-equal to their initial values after "
+        f"epoch 0, {n_moved} of them changed after epoch 1; its {len(stats)} BatchNorm "
+        f"statistics moved in both epochs")
+    if n_moved != len(params):
+        raise AssertionError("a backbone parameter did not train after the unfreeze")
+    # the best checkpoint reloaded into a model of other weights
+    fresh, _ = build_single_model(rcfg0, "dwi", device=DEV, generator=gen(SEED + 1))
+    load_checkpoint(out["best_checkpoint"], TrainState.create(fresh))
+    val = torch.as_tensor(data.processors_by_split["val"].eval_split(
+        data.splits["val"]["imgs"][:B]), device=DEV)
+    with torch.no_grad():
+        a = fresh(to_model(val, fresh))[0]
+        b = out["state"].model(to_model(val, fresh))[0]
+    err = (a - b).abs().max().item()
+    log(f"  best checkpoint reloaded: eval logits max_abs_err {err:.3e} against the best "
+        f"state's (tolerance 0: {'bit-equal' if err == 0 else 'NOT bit-equal'})")
+    if err != 0:
+        raise AssertionError("reloaded checkpoint gives other logits")
+    probs, std = out["test_probs"], out["test_std"]
+    if not (np.abs(probs.sum(-1) - 1) <= 1e-3).all() or not (std > 0).all():
+        raise AssertionError("test probabilities do not sum to 1, or an MC std is 0")
+    log(f"  test: probabilities finite and summing to 1, MC std > 0 (mean "
+        f"{std.mean():.5f})")
+    # the test pass timed again on its own
+    reset_counts()
+    res, t_test = synced(lambda: test_single_model(rcfg, out["state"], data, seed=1))
+    log(f"  test_single_model again: {t_test:.3f} s for {RUN_TEST} volumes "
+        f"({RUN_TEST / t_test:.2f} volumes/s, eval_split included), launches {counts()}")
+    # one more train step under the profiler, on the final state
+    state = out["final_state"]
+    clf = get_classification_loss_fn(rcfg, data.train_labels, "dwi")
+    spec = build_group_spec([n for n, _ in state.model.named_parameters()], True,
+                            rcfg.reference_compat)
+    step = make_single_train_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"), spec)
+    ctrl = SingleModelOptController(rcfg, "dwi")
+    ctrl.on_epoch_start(1)
+    hp = ctrl.hyperparams()
+    idx = np.arange(B)
+    batch = {"imgs": data.processor.train_batch(gen(43), data.splits["train"]["imgs"][idx]),
+             "masks": torch.as_tensor(data.splits["train"]["masks"][idx], device=DEV),
+             "labels": data.splits["train"]["labels"][idx], "aux_w": 1.0}
+    step(state, batch, gen(44), hp)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, dt = synced(lambda: step(state, batch, gen(44), hp))
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    idle = (f"{100 * (1 - total / (dt * 1e3)):.1f} % idle" if total > 0
+            else "device time not measured: the profiler recorded no kernel")
+    log(f"  one train step under the profiler: {dt * 1e3:.2f} ms, device time {total:.2f} "
+        f"ms ({idle}); top device kernels:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    del res, state, model, fresh
     torch.cuda.empty_cache()
-    return launched
+    return launched, out, rcfg0
+
+# fusion training of the default models (two ResNet-50 encoders + the fusion
+# head at 256^2, fp32): 7c parity at B=4 (the sample-pair mimic is live from
+# 4 samples), 2 steps an epoch with unfreeze_timer=1, so group 2 (both
+# encoders' block3 + other) joins at step 2; 7d the fold end to end
+B_FUSION_PARITY = 4
+FUSION_PARITY_STEPS = 2
+# card vs CPU after the fusion steps: each group's parameter update (L2) and
+# the statistics within three times the two CPU memory formats'
+# disagreement, or 1e-3 where that is smaller.  Three, not 7a's two: the
+# card's cuDNN algorithms (FFT, split reductions) round further from the CPU
+# than the CPU's two layouts do from each other; two runs on the H100 read
+# the fusion head's update 1.94x its two-layout floor (2.334e-03 and
+# 2.339e-03 against 1.202e-03) and the encoders' block3 group 1.13x
+# (1.032e-02 and 1.030e-02 against 9.134e-03)
+FUSION_FLOOR_MARGIN = 3
+FUSION_EPOCHS = 3  # unfreeze_timer=1: groups 2 and 1 join at epochs 1 and 2
+FUSION_LOSSES = ("loss", "clf_loss", "mask_loss", "recon_loss", "mimic_loss")
+# kernel launches per fusion validation batch and per tta_mc test batch: the
+# SE epilogue 3 x 2 encoders per suffix (validation: one; test: the lean
+# chunk and the last pass), the necks 6 x 2 once (the test's prefix runs
+# once), the standalone SE on both modality attentions and once per suffix
+# at fusion_se
+FUSION_VAL = {"se_epilogue": 6, "conv3x3_bn_gelu": 12, "se_scale": 3}
+FUSION_TEST = {"se_epilogue": 12, "conv3x3_bn_gelu": 12, "se_scale": 4}
+
+
+def fusion_config(cfg, **model):
+    """The default config with the unfreeze every epoch (``unfreeze_timer=1``,
+    the backbone's own timer 1 for the single runs), ``model`` fields on
+    every model config."""
+    return cfg.replace(
+        unfreeze_timer=1, foundation_model_unfreeze_timer=1,
+        **{f"{m}_model": dataclasses.replace(getattr(cfg, f"{m}_model"), **model)
+           for m in ("dwi", "dce", "fusion")})
+
+
+def fusion_batches(fcfg, n, b, seed):
+    """``n`` processed fusion batches of ``b`` volumes on the card: z-scored
+    DWI-like and [0, 1] DCE-like inputs at 256^2, masks at the mask head's
+    size, labels."""
+    S = fcfg.dwi_model.input_size
+    m = fcfg.fusion_model.mask.mask_target_size[0]
+    g = gen(seed)
+    return [{"dwi": torch.randn(b, S, S, fcfg.dwi_channel_num, device=DEV, generator=g),
+             "dce": torch.rand(b, S, S, fcfg.dce_channel_num, device=DEV, generator=g),
+             "masks": (torch.rand(b, m, m, 1, device=DEV, generator=g) > 0.8).float(),
+             "labels": torch.arange(i, i + b, device=DEV) % fcfg.class_num}
+            for i in range(n)]
+
+
+def phase_fusion_parity(cfg):
+    log(f"== phase 7c: fusion train-step parity, card vs CPU: the default models at full width "
+        f"(two ResNet-50 encoders + the fusion head, 256^2, fp32, TF32 off), "
+        f"B={B_FUSION_PARITY}, dropout 0, {FUSION_PARITY_STEPS} steps with the encoders frozen "
+        f"then {FUSION_PARITY_STEPS} after group 2's unfreeze, the same batches")
+    fcfg = fusion_config(cfg, dropout=0.0)
+    cpu_net = FusionNetwork(*build_fusion_models(fcfg, "cpu",
+                                                 generator=torch.Generator().manual_seed(SEED)))
+    nets = {"card": copy.deepcopy(cpu_net).to(DEV).to(memory_format=torch.channels_last),
+            "cpu": cpu_net,
+            "cpu channels_last": copy.deepcopy(cpu_net).to(memory_format=torch.channels_last)}
+    init = {n: p.detach().clone() for n, p in cpu_net.named_parameters()}
+    spec = build_fusion_group_spec(list(init), fcfg)
+    clf = get_classification_loss_fn(fcfg, np.arange(fcfg.class_num), "fusion")
+    step = make_fusion_train_step(fcfg, clf, get_mask_loss_fn(fcfg, "fusion"), spec)
+    states = {k: TrainState.create(m, num_groups=4) for k, m in nets.items()}
+    batches = fusion_batches(fcfg, 2 * FUSION_PARITY_STEPS, B_FUSION_PARITY, 51)
+    ctrl = FusionOptController(fcfg)
+    step_launches = dict.fromkeys(COUNTERS, 0)
+    for i, batch in enumerate(batches):
+        epoch = i // FUSION_PARITY_STEPS
+        if i % FUSION_PARITY_STEPS == 0:
+            ctrl.on_epoch_start(epoch)
+            hp = ctrl.hyperparams()
+        aux_w = aux_loss_weight(epoch, fcfg.aux_loss_weight_epoch_limit)
+        metrics = {}
+        for k, state in states.items():
+            dev_batch = batch if k == "card" else {n: v.cpu() for n, v in batch.items()}
+            reset_counts()
+            t0 = time.perf_counter()
+            metrics[k] = {n: float(v) for n, v in
+                          step(state, dict(dev_batch, aux_w=aux_w), None, hp).items()}
+            dt = time.perf_counter() - t0
+            if k == "card":
+                step_launches = {c: step_launches[c] + v for c, v in counts().items()}
+            else:
+                log(f"  step {i} on the {k}: {dt:.1f} s")
+        rel = {n: abs(metrics["card"][n] - metrics["cpu"][n]) / abs(metrics["cpu"][n])
+               for n in FUSION_LOSSES}
+        log(f"  step {i} (trainable groups {hp.trainable.tolist()}, aux_w {aux_w:.4f}): "
+            + ", ".join(f"{n} card {metrics['card'][n]:.6f} CPU {metrics['cpu'][n]:.6f} rel "
+                        f"{rel[n]:.2e}" for n in FUSION_LOSSES)
+            + f" (tolerance {TRAIN_LOSS_RTOL:.0e}; CPU channels_last loss "
+            f"{metrics['cpu channels_last']['loss']:.6f}); grad norms card "
+            f"{metrics['card']['grad_norm']:.5f} CPU {metrics['cpu']['grad_norm']:.5f}")
+        if not all(r <= TRAIN_LOSS_RTOL for r in rel.values()):
+            raise AssertionError(f"fusion train step {i}: card losses off the CPU's: {rel}")
+        if i == FUSION_PARITY_STEPS - 1:  # the encoders untouched on every device
+            for net in nets.values():
+                for n, p in net.named_parameters():
+                    if spec.group_ids[n] in (0, 1, 2) and not torch.equal(p.detach().cpu(),
+                                                                          init[n]):
+                        raise AssertionError(f"frozen parameter {n} changed")
+            log("  after the frozen steps: every encoder parameter of groups 0-2 bit-equal to "
+                "its initial value in every run")
+    log(f"  launches in the {len(batches)} card train steps: {step_launches}")
+    if step_launches != dict.fromkeys(COUNTERS, 0):
+        raise AssertionError(f"fusion train steps launched kernels: {step_launches}")
+    card = disagreement(nets["card"], cpu_net, init, spec)
+    floor = disagreement(nets["cpu channels_last"], cpu_net, init, spec)
+    for g in card:
+        what = ("BatchNorm running statistics (max err over max(1, max|CPU|))" if g == "stats"
+                else f"group {spec.names[g] if g >= 0 else 'excluded (classification heads)'} "
+                     f"(difference over the update, L2)")
+        tol = 0.0 if g == -1 else max(TRAIN_FLOOR, FUSION_FLOOR_MARGIN * floor[g])
+        log(f"  {what}: card vs CPU {card[g]:.3e}, CPU channels_last vs CPU {floor[g]:.3e} "
+            f"(tolerance {tol:.3e})")
+        if not card[g] <= tol:
+            raise AssertionError(f"{what}: card off the CPU by {card[g]}, above {tol}")
+    del states, nets, cpu_net, batches
+    torch.cuda.empty_cache()
+
+
+def snapshot_model(model):
+    return {k: t.detach().clone() for k, t in model.state_dict().items()}
+
+
+def phase_fold(cfg, raw, tmp, dwi_out, rcfg0):
+    B = cfg.batch_size
+    log(f"== phase 7d: the fold end to end on the card, the default models at full width "
+        f"(256^2, fp32, TF32 off), B={B}: run_single_model('dce') for {RUN_EPOCHS} epochs beside "
+        f"7b's DWI run, then run_fusion_model over both for {FUSION_EPOCHS} epochs with "
+        f"unfreeze_timer=1, test in {cfg.test_mode}")
+    store = {"imgs": raw["dce"][:RUN_TRAIN], "test_imgs": raw["dce_test"][:RUN_TEST],
+             "labels": raw["labels"][:RUN_TRAIN], "test_labels": raw["labels_test"][:RUN_TEST],
+             "masks": raw["masks"][:RUN_TRAIN]}
+    fcfg = rcfg0.replace(unfreeze_timer=1)
+    (data, (model, dcfg)), t_prep = synced(lambda: (
+        prepare_single_data(fcfg, "dce", 0, raw=store, device=DEV),
+        build_single_model(fcfg, "dce", device=DEV, generator=gen(SEED + 2))))
+    reset_counts()
+    dce_out, t_dce = synced(lambda: run_single_model(
+        dcfg, "dce", 0, data=data, state=TrainState.create(model), num_epochs=RUN_EPOCHS,
+        min_epochs=RUN_EPOCHS, base_dir=os.path.join(tmp, "results"), device=DEV))
+    dce_launched = counts()
+    n_va = len(data.splits["val"]["labels"])
+    n_val, n_test = -(-n_va // B), -(-RUN_TEST // B)
+    step_ms = [s_ for _, s_ in dce_out["step_ms"][1:]]
+    log(f"  DCE: prepare {t_prep:.2f} s (the Nyul fit on the host), run {t_dce:.2f} s; train "
+        f"steps median {statistics.median(step_ms):.2f} ms after the first; epochs "
+        + ", ".join(f"{h['epoch_time']:.3f} s (val acc {h['val_acc']:.4f})"
+                    for h in dce_out["history"])
+        + f"; launches {dce_launched}")
+    expect = dict.fromkeys(COUNTERS, 0) | {
+        "se_epilogue": 3 * RUN_EPOCHS * n_val + 6 * n_test,
+        "conv3x3_bn_gelu": 6 * (RUN_EPOCHS * n_val + n_test),
+        "se_scale": RUN_EPOCHS * n_val + n_test}
+    if dce_launched != expect or [h["group_trainable"][0] for h in dce_out["history"]] != [0, 1]:
+        raise AssertionError(f"DCE run launched {dce_launched} (expected {expect}) or its "
+                             f"backbone was not frozen then trained")
+    if not all(all_finite(h) for h in dce_out["history"]) or not all_finite(
+            dce_out["test_metrics"]):
+        raise AssertionError("a DCE metric is not finite")
+
+    singles = {"dwi": dwi_out["state"].model, "dce": dce_out["state"].model}
+    before = {m: snapshot_model(net) for m, net in singles.items()}
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    fus, t_run = synced(lambda: run_fusion_model(
+        fcfg, 0, dwi_out, dce_out, num_epochs=FUSION_EPOCHS, min_epochs=FUSION_EPOCHS,
+        base_dir=os.path.join(tmp, "results")))
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    fdata = prepare_fusion_data(fcfg, 0)
+    n_tr = len(fdata["train"]["labels"])
+    n_steps = -(-n_tr // B)
+    log(f"  fusion: train {n_tr} ({n_steps} steps an epoch), validation {n_va}, test "
+        f"{RUN_TEST}; run {t_run:.2f} s; peak memory {peak:.2f} GiB")
+    hist = fus["history"]
+    for e, h in enumerate(hist):
+        log(f"  epoch {e}: train {h['train_time']:.3f} s, validation "
+            f"{h['epoch_time'] - h['train_time']:.3f} s, epoch {h['epoch_time']:.3f} s; train "
+            f"loss {h['train_loss']:.5f} (mimic {h['train_mimic_loss']:.5f}), val loss "
+            f"{h['val_loss']:.5f}, val acc {h['val_acc']:.4f}; group lrs "
+            f"{[float(f'{x:.3g}') for x in h['group_lrs']]}, trainable {h['group_trainable']}")
+    steps = [s_ for _, s_ in fus["step_ms"]]
+    full = [t for i, t in enumerate(steps) if i and (i % n_steps < n_steps - 1 or n_tr % B == 0)]
+    med = statistics.median(full)
+    log(f"  fusion train steps by CUDA events (ms): {', '.join(f'{t:.2f}' for t in steps)}; "
+        f"median of the {len(full)} full batches after the first {med:.2f} ms "
+        f"({min(full):.2f}-{max(full):.2f}), {1e3 / med:.3f} steps/s, {B * 1e3 / med:.2f} "
+        f"volumes/s")
+    log(f"  test metrics {json.dumps({k: round(v, 5) for k, v in fus['test_metrics'].items()})}")
+    if [h["group_trainable"] for h in hist] != [[0, 0, 0, 1], [0, 0, 1, 1], [0, 1, 1, 1]]:
+        raise AssertionError("the encoder groups were not unfrozen deep to shallow")
+    if not all(all_finite(h) for h in hist) or not all_finite(fus["test_metrics"]):
+        raise AssertionError("a fusion metric is not finite")
+    expect = dict.fromkeys(COUNTERS, 0) | {
+        k: FUSION_VAL[k] * FUSION_EPOCHS * n_val + FUSION_TEST[k] * n_test for k in FUSION_VAL}
+    log(f"  launches of the fusion run {launched}")
+    if launched != expect:
+        raise AssertionError(f"fusion run launched {launched}, expected {expect}")
+    for m, net in singles.items():
+        after = net.state_dict()
+        if not all(torch.equal(after[k], t) for k, t in before[m].items()):
+            raise AssertionError(f"run_fusion_model changed the {m} result's state")
+    log("  both single-model states bit-equal to theirs before the fusion run")
+    root = os.path.join(tmp, "results", "fusion", "fold_0")
+    for rel in ("metrics.json", "checkpoints/best.pt", f"checkpoints/fusion_fold0.pt"):
+        if not os.path.exists(os.path.join(root, rel)):
+            raise AssertionError(f"{rel} not written")
+    probs, std = fus["test_probs"], fus["test_std"]
+    if not (np.abs(probs.sum(-1) - 1) <= 1e-3).all() or not (std > 0).all():
+        raise AssertionError("test probabilities do not sum to 1, or an MC std is 0")
+    log(f"  test: probabilities finite and summing to 1, MC std > 0 (mean {std.mean():.5f}); "
+        f"modality attention {fus['modality_attention'].round(4).tolist()}")
+    # the best checkpoint reloaded into a network of other weights
+    fresh = build_fusion_state(fcfg, dwi_out["state"], dce_out["state"],
+                               generator=gen(SEED + 3))
+    load_checkpoint(fus["best_checkpoint"], fresh)
+    batch = {k: torch.as_tensor(v[:B], device=DEV) for k, v in fdata["val"].items()}
+    with torch.no_grad():
+        a = fresh.model(to_model(batch["dwi"], fresh.model), to_model(batch["dce"], fresh.model),
+                        lean_encoders=True)[0]
+        b = fus["state"].model(to_model(batch["dwi"], fresh.model),
+                               to_model(batch["dce"], fresh.model), lean_encoders=True)[0]
+    err = (a - b).abs().max().item()
+    log(f"  best checkpoint reloaded: eval logits max_abs_err {err:.3e} against the best "
+        f"state's (tolerance 0: {'bit-equal' if err == 0 else 'NOT bit-equal'})")
+    if err != 0:
+        raise AssertionError("reloaded fusion checkpoint gives other logits")
+    # launches per validation batch and per test batch, and the test timed again
+    clf = get_classification_loss_fn(fcfg, fdata["train"]["labels"], "fusion")
+    evaluate = make_fusion_eval_step(fcfg, clf, get_mask_loss_fn(fcfg, "fusion"))
+    reset_counts()
+    evaluate(fus["state"], batch)
+    val_launches = counts()
+    reset_counts()
+    res, t_test = synced(lambda: test_fusion_model(fcfg, fus["state"], fdata["test"], seed=1))
+    test_launches = counts()
+    log(f"  launches per validation batch {val_launches}; per tta_mc test batch "
+        f"{test_launches}; test_fusion_model again {t_test:.3f} s for {RUN_TEST} volumes "
+        f"({RUN_TEST / t_test:.2f} volumes/s)")
+    if (val_launches != dict.fromkeys(COUNTERS, 0) | FUSION_VAL
+            or test_launches != dict.fromkeys(COUNTERS, 0) | FUSION_TEST):
+        raise AssertionError(f"eval launches {val_launches} / {test_launches}")
+    # one more train step under the profiler, on the final state
+    state = fus["final_state"]
+    spec = build_fusion_group_spec([n for n, _ in state.model.named_parameters()], fcfg)
+    step = make_fusion_train_step(fcfg, clf, get_mask_loss_fn(fcfg, "fusion"), spec)
+    ctrl = FusionOptController(fcfg)
+    for e in range(FUSION_EPOCHS):
+        ctrl.on_epoch_start(e)
+    hp = ctrl.hyperparams()
+    batch = {k: torch.as_tensor(v[:B], device=DEV) for k, v in fdata["train"].items()}
+    batch["aux_w"] = 1.0
+    step(state, batch, gen(45), hp)
+    torch.cuda.synchronize()
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        _, dt = synced(lambda: step(state, batch, gen(45), hp))
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    total = sum(e.self_device_time_total for e in events) / 1e3
+    idle = (f"{100 * (1 - total / (dt * 1e3)):.1f} % idle" if total > 0
+            else "device time not measured: the profiler recorded no kernel")
+    log(f"  one fusion train step under the profiler: {dt * 1e3:.2f} ms, device time "
+        f"{total:.2f} ms ({idle}); top device kernels:")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:12]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    del fus, res, state, fresh, dce_out, data, model, fdata, batch
+    torch.cuda.empty_cache()
+    return {k: launched[k] + dce_launched[k] for k in COUNTERS}
 
 
 def main():
@@ -1716,13 +2140,20 @@ def main():
     phase_profile("tta_mc", request)
     phase_profile("hybrid-nb normal", hybrid_request)
     phase_train_parity(cfg)
-    run_launches = phase_run_single(cfg, raw)  # counts set to 0 just before, read just after
+    phase_fusion_parity(cfg)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        # each run: counts set to 0 just before, read just after
+        run_launches, dwi_out, rcfg0 = phase_run_single(cfg, raw, tmp)
+        fold_launches = phase_fold(cfg, raw, tmp, dwi_out, rcfg0)
+        del dwi_out
     del raw
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
-                + prep_launches[k] + stage_launches[k] + run_launches[k] for k in COUNTERS}
+                + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
+                for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
-    log(f"  launches on the served paths, the data preparation, the stage backward and "
-        f"the single-modality run: {launches}")
+    log(f"  launches on the served paths, the data preparation, the stage backward, the "
+        f"single-modality runs and the fusion run: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")

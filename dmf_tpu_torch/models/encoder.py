@@ -52,6 +52,9 @@ class Encoder(nn.Module):
         hybrid = cfg.use_hybrid_transformer
         if hybrid and cfg.mask.enabled and cfg.mask.mask_stage.lower() == "f3":
             raise ValueError("mask_stage='f3' not supported with hybrid transformer")
+        if cfg.remat:
+            raise NotImplementedError("ModelConfig.remat: rematerialised ResLite blocks are "
+                                      "not ported (ROADMAP 1.14)")
         self.method = method
         self.config = cfg
         c1, c2, c3 = cfg.channels

@@ -3,8 +3,9 @@
 Reference ``FusionModel`` + helpers (model_module.py:745-1000): 1x1
 projections of each encoder's deepest features, a softmax modality gate,
 cross-attention over pooled tokens, SE, and mask / classifier / recon /
-projector heads.  The concat + reduce and the residual ``refine`` block are
-held for their weights only: their output is never consumed (see forward).
+projector heads.  The concat + reduce and the residual ``refine`` block
+feed nothing (see forward): the eval route skips them, the train route runs
+them for their BatchNorm statistics, as the JAX train step does.
 """
 
 from __future__ import annotations
@@ -73,12 +74,15 @@ class CrossAttentionBlock(nn.Module):
 
 
 class FusionModel(nn.Module):
-    """``forward(raw_dwi, raw_dce, dwi_mask, dce_mask, lean)`` returns
-    ``(logits, fused_mask_logits, aux)``; aux keys proj_fused / recon_fused /
-    gating_weights / attn_weights / p_dwi / p_dce.  ``lean=True`` computes
-    the logits only (mask, recon and projector heads are skipped).  The only
-    dropout of the JAX model sits in the unconsumed ``refine`` block, so the
-    fused head is deterministic and takes no ``mc`` flag."""
+    """``forward(raw_dwi, raw_dce, dwi_mask, dce_mask, lean, train, generator)``
+    returns ``(logits, fused_mask_logits, aux)``; aux keys proj_fused /
+    recon_fused / gating_weights / attn_weights / p_dwi / p_dce.
+    ``lean=True`` computes the logits only (mask, recon and projector heads
+    are skipped).  The only dropout of the JAX model sits in the unconsumed
+    ``refine`` block, so the fused head is deterministic and takes no ``mc``
+    flag.  ``train=True`` is the JAX training route: BatchNorm on batch
+    statistics, ``refine``'s dropout drawn from ``generator``, and no kernel
+    wrapper called (``fusion_se`` unfused)."""
 
     def __init__(self, config: ModelConfig, num_classes: int,
                  dwi_channels: int, dce_channels: int, feature_size: int,
@@ -109,15 +113,22 @@ class FusionModel(nn.Module):
                 raw_feats_dce: Sequence[torch.Tensor],
                 dwi_mask_pred: Optional[torch.Tensor] = None,
                 dce_mask_pred: Optional[torch.Tensor] = None,
-                lean: bool = False):
+                lean: bool = False, train: bool = False,
+                generator: Optional[torch.Generator] = None):
         fs = self.config.fusion_specific
         f3_dwi, f3_dce = raw_feats_dwi[-1], raw_feats_dce[-1]
         p_dwi = self.proj_in_dwi(f3_dwi) if self.proj_in_dwi is not None else f3_dwi
         p_dce = self.proj_in_dce(f3_dce) if self.proj_in_dce is not None else f3_dce
 
         # fusion_conv_reduce -> refine -> gelu(reduced + residual) is computed
-        # by the JAX model but consumed by nothing (fusion.py:139-147); XLA
-        # drops it as dead code, so the port holds its weights and skips it.
+        # by the JAX model but consumed by nothing (fusion.py:139-147).  At
+        # inference XLA drops it as dead code and so does the port; a JAX
+        # train step still updates its BatchNorm statistics (a mutable output)
+        # and hands its parameters zero gradients, so the train route runs it
+        # and leaves its result unused.
+        if train:
+            reduced = self.fusion_conv_reduce(torch.cat([p_dwi, p_dce], dim=1), train)
+            self.refine(reduced, train, generator=generator)
         if self.use_mask_attention:
             gating_weights = self.gating(global_avg_pool(p_dwi), global_avg_pool(p_dce),
                                          dwi_mask_pred, dce_mask_pred)
@@ -138,13 +149,14 @@ class FusionModel(nn.Module):
             lowres = attn_out.transpose(1, 2).reshape(B, fc, hp, wp)
             fused = fused + resize_bilinear(lowres, fused.shape[-2:])
 
-        fused_refined = self.fusion_se(fused)[0] if self.fusion_se is not None else fused
+        fused_refined = (self.fusion_se(fused, train)[0] if self.fusion_se is not None
+                         else fused)
         logits = self.classifier(fused_refined)
         if lean:
             return logits, None, None
         aux = {
-            "proj_fused": self.projF(fused_refined),
-            "recon_fused": self.fusion_reconstruct(fused_refined),
+            "proj_fused": self.projF(fused_refined, train),
+            "recon_fused": self.fusion_reconstruct(fused_refined, train),
             "gating_weights": gating_weights,
             "attn_weights": attn_weights,
             "p_dwi": p_dwi,

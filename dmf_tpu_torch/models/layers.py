@@ -285,6 +285,6 @@ class FusionReduce(nn.Module):
         self.reduce = nn.Sequential(conv1x1(in_ch, out_ch, **kw),
                                     BatchNorm2d(out_ch, **kw), nn.GELU())
 
-    def forward(self, x):
-        return self.reduce(x)
+    def forward(self, x, train: bool = False):
+        return run(self.reduce, x, train)
 

@@ -1,24 +1,28 @@
-"""Epoch loop of single-modality training, counterpart of
-``dmf_tpu/train/loop.py::fit_single`` (:106-363), without a mesh.
+"""Epoch loops of single-modality and fusion training, counterparts of
+``dmf_tpu/train/loop.py::fit_single`` (:106-363) and ``fit_fusion``
+(:365-593), without a mesh or the native loader.
 
-The reference's ``pl.Trainer.fit`` + ``LightningSingleModel`` orchestration
-(run_training.py:103-131, train.py): train steps on the device, and on the
-host a metric-driven control plane (plateau or warmup-cosine lr, the
-per-group lr and trainable flags per epoch, early stopping with
-``min_epochs``, the aux-loss weight schedule, the best checkpoint, the
-rolling resume checkpoint every ``ROLL_EVERY`` epochs).  The mask
-visualisation the JAX loop draws at the same epochs is not ported.
+The reference's ``pl.Trainer.fit`` orchestration (run_training.py:103-131,
+181-263): train steps on the device, and on the host a metric-driven control
+plane (plateau or warmup-cosine lr, the per-group lr and trainable flags per
+epoch, early stopping with ``min_epochs``, the aux-loss weight schedule, the
+best checkpoint, the rolling resume checkpoint every ``ROLL_EVERY`` epochs).
+Under ``cfg.debug_training`` both print the optimizer groups and the first
+batch's input statistics, as the JAX loops do.  The mask visualisation the
+JAX loops draw at the same epochs waits for ``utils/visualize`` (ROADMAP
+1.7) and is not drawn.
 
 On a CUDA device each train step records three CUDA events (before the batch
 preparation, between it and the step, after the step); their times come back
 in ``FitResult.step_ms``, read at each epoch's end with the step metrics.
+Fusion batches come processed: their preparation is the batch dict alone.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -30,8 +34,10 @@ from ..evals.metrics import MeanMetric, classification_report
 from ..losses import get_classification_loss_fn, get_mask_loss_fn
 from ..models.build import init_weights
 from ..utils.checkpoint import BestCheckpointer, RollingSaver, load_checkpoint
-from ..utils.logging import MetricLogger
-from .optim import SingleModelOptController, build_group_spec
+from ..utils.logging import MetricLogger, input_stats
+from .fusion import make_fusion_eval_step, make_fusion_train_step
+from .optim import (FusionOptController, SingleModelOptController, build_fusion_group_spec,
+                    build_group_spec, describe_groups)
 from .schedule import (EarlyStopping, ReduceLROnPlateau, WarmupCosine, aux_loss_weight,
                        make_scheduler)
 from .single import make_single_eval_step, make_single_train_step
@@ -70,6 +76,12 @@ def _warn_nonfinite(metrics: Dict[str, float], epoch: int, step: int) -> None:
               f"{metrics.get('grad_norm', float('nan')):.3e})")
 
 
+def _check_config(cfg: Config) -> None:
+    if cfg.use_native_loader:
+        raise NotImplementedError("use_native_loader: the native host library is not "
+                                  "ported (ROADMAP 1.4)")
+
+
 def fit_single(cfg: Config, method: str, state: TrainState,
                train_data: Dict[str, Optional[np.ndarray]],
                val_data: Dict[str, Optional[np.ndarray]],
@@ -86,26 +98,15 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     seeded from ``seed``; the shuffle is ``np.random.RandomState(seed)``, the
     JAX loop's order.
     """
+    _check_config(cfg)
     mc = cfg.model_config(method)
     model = state.model
     device = next(model.parameters()).device
-    num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
-    min_epochs = min(min_epochs if min_epochs is not None else cfg.min_epochs, num_epochs)
     if clf_loss_fn is None:
         clf_loss_fn = get_classification_loss_fn(cfg, train_data["labels"], method)
     mask_loss_fn = get_mask_loss_fn(cfg, method)
-
     spec = build_group_spec([n for n, _ in model.named_parameters()], mc.use_backbone,
                             cfg.reference_compat)
-    train_step = make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec)
-    eval_step = make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn)
-
-    scheduler = make_scheduler(mc.scheduler, mc.optimizer.lr)
-    early = EarlyStopping(mode=cfg.early_stopping.mode, patience=cfg.early_stopping.patience,
-                          min_delta=cfg.early_stopping.min_delta)
-    ckpt = BestCheckpointer(f"{workdir}/checkpoints", monitor="val_acc", mode="max")
-    roll = RollingSaver(f"{workdir}/checkpoints")
-    logger = MetricLogger(f"{workdir}/logs")
     if resume_from is not None:
         load_checkpoint(resume_from, state)
 
@@ -115,10 +116,78 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     val_imgs = processor.eval_split(val_data["imgs"], adc=val_data.get("adc"))
     val_ds = ArrayDataset(imgs=val_imgs, masks=val_data.get("masks"),
                           labels=val_data["labels"])
+    aug_gen = torch.Generator(device).manual_seed(seed)
+
+    def prepare(batch):
+        proc = {"imgs": processor.train_batch(aug_gen, batch["imgs"], adc=batch.get("adc")),
+                "labels": batch["labels"]}
+        if "masks" in batch:
+            proc["masks"] = batch["masks"]
+        return proc, proc["imgs"]
+
+    return _fit(cfg, mc.scheduler, mc.optimizer.lr, state, spec, controller,
+                make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec),
+                make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn),
+                train_ds, val_ds, prepare, workdir, num_epochs, min_epochs, seed)
+
+
+def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np.ndarray]],
+               val_data: Dict[str, Optional[np.ndarray]], workdir: str, clf_loss_fn=None,
+               num_epochs: Optional[int] = None, min_epochs: Optional[int] = None,
+               seed: int = 0) -> FitResult:
+    """Train the fusion network (``state.model``, a
+    :class:`~.fusion.FusionNetwork`) with the gradual deep->shallow unfreeze
+    of :class:`~.optim.FusionOptController`; returns the final and best
+    states and the history (run_training.py:181-263).
+
+    ``train_data``/``val_data``: **processed** ``dwi`` and ``dce`` stacks
+    (the splits ``export_processed_splits`` writes), optional ``masks``, and
+    ``labels``.  Dropout draws from a generator on the model's device seeded
+    from ``seed``; the shuffle is ``np.random.RandomState(seed)``.
+    """
+    _check_config(cfg)
+    fp = cfg.fusion_model
+    if clf_loss_fn is None:
+        clf_loss_fn = get_classification_loss_fn(cfg, train_data["labels"], "fusion")
+    mask_loss_fn = get_mask_loss_fn(cfg, "fusion")
+    spec = build_fusion_group_spec([n for n, _ in state.model.named_parameters()], cfg)
+
+    def dataset(split):
+        return ArrayDataset(dwi=split["dwi"], dce=split["dce"], masks=split.get("masks"),
+                            labels=split["labels"])
+
+    def prepare(batch):
+        return batch, batch["dwi"]
+
+    return _fit(cfg, fp.scheduler, fp.optimizer.lr, state, spec, FusionOptController(cfg),
+                make_fusion_train_step(cfg, clf_loss_fn, mask_loss_fn, spec),
+                make_fusion_eval_step(cfg, clf_loss_fn, mask_loss_fn),
+                dataset(train_data), dataset(val_data), prepare, workdir, num_epochs,
+                min_epochs, seed)
+
+
+def _fit(cfg: Config, scheduler_cfg, base_lr: float, state: TrainState, spec, controller,
+         train_step, eval_step, train_ds: ArrayDataset, val_ds: ArrayDataset,
+         prepare: Callable, workdir: str, num_epochs: Optional[int],
+         min_epochs: Optional[int], seed: int) -> FitResult:
+    """The epoch loop both fits share.  ``prepare(batch) -> (step batch,
+    the inputs whose statistics the first batch prints)``."""
+    device = next(state.model.parameters()).device
+    num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
+    min_epochs = min(min_epochs if min_epochs is not None else cfg.min_epochs, num_epochs)
+    if cfg.debug_training:
+        # the optimizer-group dump (selector_helpers.py:336-353)
+        print(describe_groups(dict(state.model.named_parameters()), spec,
+                              controller.hyperparams()))
+    scheduler = make_scheduler(scheduler_cfg, base_lr)
+    early = EarlyStopping(mode=cfg.early_stopping.mode, patience=cfg.early_stopping.patience,
+                          min_delta=cfg.early_stopping.min_delta)
+    ckpt = BestCheckpointer(f"{workdir}/checkpoints", monitor="val_acc", mode="max")
+    roll = RollingSaver(f"{workdir}/checkpoints")
+    logger = MetricLogger(f"{workdir}/logs")
     stage_train = device if device_data_auto(train_ds, device, cfg.device_data) else None
     stage_val = device if device_data_auto(val_ds, device, cfg.device_data) else None
 
-    aug_gen = torch.Generator(device).manual_seed(seed)
     drop_gen = torch.Generator(device).manual_seed(seed + 1)
     np_rng = np.random.RandomState(seed)
     timed = device.type == "cuda"
@@ -146,12 +215,13 @@ def fit_single(cfg: Config, method: str, state: TrainState,
             events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if timed else []
             if timed:
                 events[0].record()
-            proc = {"imgs": processor.train_batch(aug_gen, batch["imgs"], adc=batch.get("adc")),
-                    "labels": batch["labels"], "aux_w": aux_w}
-            if "masks" in batch:
-                proc["masks"] = batch["masks"]
+            proc, inputs = prepare(batch)
+            proc = dict(proc, aux_w=aux_w)
             if timed:
                 events[1].record()
+            if cfg.debug_training and global_step == 1:
+                # the first batch's normalisation check (train.py:1074-1079)
+                print(input_stats(inputs, proc.get("masks")))
             metrics = train_step(state, proc, drop_gen, hp)
             if timed:
                 events[2].record()
@@ -179,7 +249,7 @@ def fit_single(cfg: Config, method: str, state: TrainState,
                                                               weight=len(batch["labels"]))
         epoch_metrics.update({f"val_{k}": m.compute() for k, m in val_meters.items()})
         epoch_metrics.update(classification_report(
-            np.concatenate(all_probs), np.asarray(val_data["labels"]).astype(np.int64),
+            np.concatenate(all_probs), np.asarray(val_ds.arrays["labels"]).astype(np.int64),
             cfg.class_num, "val_"))
         epoch_metrics["lr_scale"] = controller.lr_scale
         epoch_metrics["aux_w"] = aux_w
@@ -191,7 +261,7 @@ def fit_single(cfg: Config, method: str, state: TrainState,
 
         # ---- control plane ----
         if isinstance(scheduler, ReduceLROnPlateau):
-            monitored = epoch_metrics.get(mc.scheduler.monitor, epoch_metrics["val_loss"])
+            monitored = epoch_metrics.get(scheduler_cfg.monitor, epoch_metrics["val_loss"])
             if scheduler.step_reduced(monitored):
                 controller.apply_plateau(scheduler.factor, scheduler.min_lr)
         elif not isinstance(scheduler, WarmupCosine):  # that one steps per step

@@ -78,6 +78,53 @@ def build_group_spec(param_names: Sequence[str], use_backbone: bool,
     return GroupSpec(group_ids=ids, num_groups=num_groups, names=names)
 
 
+def build_fusion_group_spec(param_names: Sequence[str], cfg: Config) -> GroupSpec:
+    """Group ids over the fusion network's ``dwi.*``, ``dce.*`` and
+    ``fusion.*`` parameters (selector_helpers.py:479-490): groups 0-2 are the
+    two encoders' depth groups merged, each encoder's parameter classified
+    by its own name (:func:`build_group_spec`); group 3 is the fusion head,
+    chosen by its prefix (its ``refine`` and ``cross_attn_block`` names would
+    match the encoders' substring tests)."""
+    ids = {n: 3 for n in param_names if n.startswith("fusion.")}
+    for enc in ("dwi", "dce"):
+        own = [n[len(enc) + 1:] for n in param_names if n.startswith(enc + ".")]
+        spec = build_group_spec(own, cfg.model_config(enc).use_backbone, cfg.reference_compat)
+        ids.update({f"{enc}.{n}": g for n, g in spec.group_ids.items()})
+    stray = [n for n in param_names if n not in ids]
+    if stray:
+        raise ValueError(f"not parameters of dwi, dce or fusion: {stray}")
+    return GroupSpec(group_ids={n: ids[n] for n in param_names}, num_groups=4,
+                     names=("enc_backbone", "enc_block1+2", "enc_block3+other", "fusion_head"))
+
+
+def describe_groups(params: Dict[str, torch.Tensor], spec: GroupSpec,
+                    hp: Optional["GroupedHyperParams"] = None, max_examples: int = 3) -> str:
+    """The optimizer-group dump (selector_helpers.py:336-353), the text of
+    ``dmf_tpu/train/optim.py::describe_groups``: per group its tensor and
+    element counts, the lr, wd and trainable flag of ``hp`` when given, and
+    the first ``max_examples`` parameter names."""
+    by_group: Dict[int, list] = {}
+    for name, p in params.items():
+        by_group.setdefault(int(spec.group_ids[name]), []).append((name, p.numel()))
+    first = min((g for g in by_group if g >= 0), default=0)
+    lines = ["optimizer groups:"]
+    for gid in sorted(by_group):
+        entries = by_group[gid]
+        n_params = sum(n for _, n in entries)
+        if gid < 0:
+            head = f"  [excluded] {len(entries)} leaves, {n_params:,} params"
+        else:
+            name = spec.names[gid - first] if gid - first < len(spec.names) else str(gid)
+            head = f"  group {gid} ({name}): {len(entries)} leaves, {n_params:,} params"
+            if hp is not None:
+                head += (f", lr={float(hp.lr[gid]):.2e}"
+                         f" wd={float(hp.wd[gid]):.2e}"
+                         f" trainable={float(hp.trainable[gid]):.0f}")
+        lines.append(head)
+        lines.extend(f"      {path}" for path, _ in entries[:max_examples])
+    return "\n".join(lines)
+
+
 def discriminative_hparams(opt_cfg, num_groups: int) -> Tuple[np.ndarray, np.ndarray]:
     """Per-group (lr, wd) vectors (selector_helpers.py:237-277)."""
     n = num_groups
@@ -251,3 +298,71 @@ class SingleModelOptController:
             lr=np.asarray(self._raw_lrs() * self.group_scales * self.lr_scale, np.float32),
             wd=np.asarray(wds, np.float32),
             trainable=self._present())
+
+
+@dataclasses.dataclass
+class FusionOptController:
+    """Gradual deep->shallow unfreeze across both encoders
+    (LightningFusionOptimizerFactory, selector_helpers.py:357-742; JAX
+    optim.py:382-476).  Groups 0-2 are the merged encoder depth groups,
+    group 3 the fusion head, always trainable.  Every ``unfreeze_timer``
+    epochs the deepest frozen encoder group joins with
+    ``lr = backbone_unfreeze_lr * factor^(k-1)`` and
+    ``wd = reg_base * reg_decay^(k-1)`` for the k-th unfreeze
+    (selector_helpers.py:541-613); the wd reads ``cfg.dwi_model.optimizer``
+    for both encoders, as the JAX controller does.  Plateau reductions act on
+    the groups present at the event; a group unfrozen later joins at its
+    fresh lr."""
+
+    cfg: Config
+    lr_scale: float = 1.0
+
+    def __post_init__(self):
+        self.base_lrs, self.base_wds = discriminative_hparams(
+            self.cfg.fusion_model.optimizer, 4)
+        self.layers_unfrozen = 0
+        self.num_backbone_groups = self.cfg.backbone_num_groups
+        self.frozen = self.cfg.backbone_freeze_on_start
+        # per-group lr/wd captured at the unfreeze
+        self.unfreeze_lrs = self.base_lrs.copy()
+        self.unfreeze_wds = self.base_wds.copy()
+        self.group_scales = np.ones(4)
+
+    def on_epoch_start(self, epoch: int) -> None:
+        t = self.cfg.unfreeze_timer
+        if (not self.frozen or epoch == 0 or t <= 0 or epoch % t != 0
+                or self.layers_unfrozen >= self.num_backbone_groups):
+            return
+        g = self.num_backbone_groups - 1 - self.layers_unfrozen
+        self.layers_unfrozen += 1
+        k = self.layers_unfrozen
+        opt = self.cfg.dwi_model.optimizer
+        self.unfreeze_lrs[g] = (self.cfg.backbone_unfreeze_lr
+                                * self.cfg.backbone_unfreeze_lr_factor ** (k - 1))
+        self.unfreeze_wds[g] = opt.reg_base * opt.reg_decay_factor ** (k - 1)
+        self.group_scales[g] = 1.0  # a fresh param group
+
+    def _raw_lrs_wds(self) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
+        trainable = np.ones(4, np.float32)
+        lrs, wds = self.base_lrs.copy(), self.base_wds.copy()
+        if self.frozen:
+            for g in range(self.num_backbone_groups):
+                if g >= self.num_backbone_groups - self.layers_unfrozen:
+                    lrs[g], wds[g] = self.unfreeze_lrs[g], self.unfreeze_wds[g]
+                else:
+                    trainable[g] = 0.0
+        return lrs, wds, trainable
+
+    def apply_plateau(self, factor: float, min_lr: float) -> None:
+        """One torch ``ReduceLROnPlateau`` event on the groups present."""
+        raw, _, present = self._raw_lrs_wds()
+        for g in range(len(raw)):
+            if present[g] and raw[g] > 0:
+                self.group_scales[g] = max(raw[g] * self.group_scales[g] * factor,
+                                           min_lr) / raw[g]
+
+    def hyperparams(self) -> GroupedHyperParams:
+        lrs, wds, trainable = self._raw_lrs_wds()
+        return GroupedHyperParams(
+            lr=np.asarray(lrs * self.group_scales * self.lr_scale, np.float32),
+            wd=np.asarray(wds, np.float32), trainable=trainable)

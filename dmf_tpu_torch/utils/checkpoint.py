@@ -13,12 +13,14 @@ from __future__ import annotations
 
 import json
 import os
-from typing import Optional
+from typing import TYPE_CHECKING, Optional
 
 import torch
 
 from ..models.weights import load_reference_state_dict
-from ..train.state import TrainState
+
+if TYPE_CHECKING:  # the train package imports this module
+    from ..train.state import TrainState
 
 
 def save_state(path: str, state: TrainState) -> None:

@@ -1,7 +1,9 @@
-"""Metric history as JSONL and the final ``metrics.json``.
+"""Metric history as JSONL, the final ``metrics.json`` and the first batch's
+input statistics.
 
-The port's copy of ``dmf_tpu/utils/logging.py``'s ``MetricLogger`` and
-``save_metrics_json`` (held equal by ``tests/test_torch_train.py``), the
+The port's copy of ``dmf_tpu/utils/logging.py``'s ``MetricLogger``,
+``save_metrics_json`` and ``input_stats`` (held equal by
+``tests/test_torch_train.py`` and ``tests/test_torch_fusion_train.py``), the
 counterparts of the reference's HistoryCallback and metrics.json
 (run_training.py:338-349, 392-407).  The JSONL history is the record; the
 JAX package's optional TensorBoard mirror of it is not copied.
@@ -13,6 +15,9 @@ import json
 import os
 import time
 from typing import Any, Dict, List, Optional
+
+import numpy as np
+import torch
 
 
 class MetricLogger:
@@ -56,3 +61,21 @@ def save_metrics_json(path: str, train_metrics: Dict[str, Any],
                    "test_metrics": clean(test_metrics),
                    "parameters": clean(parameters) if parameters else None},
                   f, indent=2)
+
+
+def input_stats(inputs, masks=None) -> str:
+    """The input-normalisation debug line (train.py:1074-1079), printed for a
+    first batch under ``debug_training``: min, max, mean and std of
+    ``inputs`` (and of ``masks``), read on the host."""
+
+    def host(a):
+        return a.detach().cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)
+
+    x = host(inputs)
+    s = (f"[DEBUG] Input Stats: Min={x.min():.4f}, Max={x.max():.4f}, "
+         f"Mean={x.mean():.4f}, Std={x.std():.4f}")
+    if masks is not None:
+        m = host(masks)
+        s += (f"\n[DEBUG] Mask Stats: Min={m.min():.4f}, Max={m.max():.4f}, "
+              f"Mean={m.mean():.4f}")
+    return s

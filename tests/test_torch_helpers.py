@@ -174,3 +174,21 @@ def volumes(seed, b=2, size=32, c_dwi=14, c_dce=6):
     rng = np.random.RandomState(seed)
     return (rng.rand(b, size, size, c_dwi).astype(np.float32),
             rng.rand(b, size, size, c_dce).astype(np.float32))
+
+
+def fusion_stack(cfg, xd, xc, seeds=(1, 2, 3)):
+    """JAX encoders (DWI 14, DCE 6 channels) and fusion head on random
+    variables from ``seeds``, and the port's twins on the same weights:
+    ``((jd, jc, jf), (vd, vc, vf), (pd, pc, pf))``."""
+    jd, vd = jax_encoder(cfg.dwi_model, xd.shape[-1], xd, seed=seeds[0])
+    jc, vc = jax_encoder(cfg.dce_model, xc.shape[-1], xc, seed=seeds[1])
+    outs = [jax.tree.map(lambda s: jnp.zeros(s.shape, s.dtype),
+                         jax.eval_shape(lambda v, x, m=m: m.apply(v, x, train=False), v,
+                                        jnp.asarray(x)))
+            for m, v, x in ((jd, vd, xd), (jc, vc, xc))]
+    (_, ad, md), (_, ac, mc_) = outs
+    jf, vf = jax_fusion(cfg, ad["raw_feats"], ac["raw_feats"], md, mc_, seed=seeds[2])
+    pd, _ = port_encoder(cfg.dwi_model, xd.shape[-1], vd)
+    pc, _ = port_encoder(cfg.dce_model, xc.shape[-1], vc)
+    pf, _ = port_fusion(cfg, vf, pd.feature_size)
+    return (jd, jc, jf), (vd, vc, vf), (pd, pc, pf)
