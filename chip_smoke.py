@@ -27,8 +27,12 @@ Phases, each printing its own lines:
      rows past the kernel's shared-memory budget at (4, 2^20); two calls
      compared bit for bit), 3g the standalone SE; 3a, 3b and 3g also in
      fp32 at a validation batch's maps (B=32: training builds the models in
-     fp32), kernel 2 there against cuDNN's fp32 chain in turns and the fp32
-     bound (67 TFLOP/s); the memory-bound kernels
+     fp32), kernel 2 (3xTF32) there and at a tta_mc test batch's views
+     (N=128) against cuDNN's fp32 chain in turns (and, for context, the chain
+     with TF32 on), two calls compared bit for bit, its error and the plain
+     version's against a float64 conv at K = 27648, beside the 3xTF32 bound
+     (3x the operations at 495 TFLOP/s) and the CUDA-core fp32 one (67
+     TFLOP/s); the memory-bound kernels
      (3a, 3e-3g) with their device time, GB/s and share of the bytes bound;
      3h autograd through the full-width hybrid-nb transformer stage in bf16
      (the backward kernels' path: 6 launches of dQ and of dK/dV a backward),
@@ -182,6 +186,7 @@ N_TRAIN, N_TEST, IMAGE = 256, 64, 256
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOP_PER_S = 989e12
 FP32_FLOP_PER_S = 67e12  # fp32 outside the tensor cores
+TF32_FLOP_PER_S = 495e12  # TF32 on the tensor cores (3xTF32: three products per fp32 one)
 # a validation batch of the default config (batch_size 32): training builds
 # the models in fp32, so validation runs kernels 1, 2 and 6 in fp32, and so
 # does the tta_mc test of B_VAL volumes (4 views, the 9 lean MC passes in one
@@ -378,7 +383,8 @@ def phase_build():
     log("  dynamic shared memory per block: " + "; ".join(
         f"{name} D=128 {flash_smem(i, 128)} B, D=64 {flash_smem(i, 64)} B" for i, name in
         enumerate(("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")))
-        + f"; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(256)} B, 128x128 {conv_smem(128)} B")
+        + f"; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(1, 256)} B, 128x128 {conv_smem(1, 128)} B"
+        + f"; conv3x3_bn_gelu_tf32x3 128x128 {conv_smem(0, 128)} B")
 
 
 # ------------------------------------------------------------------ phase 3
@@ -591,76 +597,140 @@ def neck_inputs(n, cin, cout, side, dtype, g):
     return x, w, bias, gamma, beta, mean, var
 
 
+def conv_f32(n, g):
+    """Kernel 2 in fp32 (the 3xTF32 kernel) at the six neck sites at N=n:
+    its error against the plain version, two calls bit-equal, kernel and
+    plain ms, the kernel against cuDNN's fp32 chain (TF32 off) in turns,
+    cuDNN's chain with TF32 on (context: the one-product accuracy class the
+    kernel avoids) with its error, the device time and its share of the
+    3xTF32 bound (3x the operations at 495 TFLOP/s, the kernel's bound) and
+    of the CUDA-core fp32 bound (67 TFLOP/s).  Returns the sites' errors."""
+    tot = dict.fromkeys(("kernel", "plain", "turns", "chain", "tf32", "flop", "bound",
+                         "bound_f32"), 0.0)
+    devs, errs = [], []
+    for name, cin, cout, side in NECKS:
+        args = neck_inputs(n, cin, cout, side, torch.float32, g)
+        x, w, bias, gamma, beta, mean, var = args
+        tag = f"float32 {name} N={n} ({side}^2, {cin}->{cout})"
+        kernel = lambda: k2.conv3x3_bn_gelu(*args)  # noqa: E731
+        ref, out = k2.conv3x3_bn_gelu_ref(*args), kernel()
+        errs.append(check(tag, out, ref, torch.float32))
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"{tag}: two calls differ")
+        t_k = cuda_time(kernel, reps=5)
+        t_p = cuda_time(lambda: k2.conv3x3_bn_gelu_ref(*args), reps=5)
+        flop = 2 * n * side * side * 9 * cin * cout
+        bytes_ms = 4 * (x.numel() + w.numel() + n * cout * side * side) / HBM_BYTES_PER_S * 1e3
+        bound = max(3 * flop / TF32_FLOP_PER_S * 1e3, bytes_ms)
+        bound_f32 = max(flop / FP32_FLOP_PER_S * 1e3, bytes_ms)
+        wc = w.contiguous(memory_format=torch.channels_last)
+        chain = lambda: F.gelu(F.batch_norm(  # noqa: E731
+            F.conv2d(x, wc, bias, padding=1), mean, var, gamma, beta, False, 0.0, 1e-5))
+        t_kt, t_c = in_turns(kernel, chain, reps=5)
+        torch.backends.cudnn.allow_tf32 = True
+        try:
+            tf32_err = (chain() - ref).abs().max().item()
+            t_tf32 = cuda_time(chain, reps=5)
+        finally:
+            torch.backends.cudnn.allow_tf32 = False
+        log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median); in turns kernel "
+            f"{t_kt:.4f} ms, cuDNN fp32 conv+BN+GELU chain (TF32 off) {t_c:.4f} ms, ratio "
+            f"{t_kt / t_c:.3f}; cuDNN chain with TF32 on {t_tf32:.4f} ms, max_abs_err "
+            f"{tf32_err:.3e}; bound {bound:.4f} ms (3xTF32 operations), fp32 bound "
+            f"{bound_f32:.4f} ms (67 TFLOP/s)")
+        dev = device_rate(tag, kernel, ("conv3x3_bn_gelu_tf32x3",), bound, flop=flop)[0]
+        if dev is not None:
+            log(f"  {tag}: device {100 * bound_f32 / dev:.1f} % of the fp32 bound")
+        devs.append(dev)
+        for k, v in (("kernel", t_k), ("plain", t_p), ("turns", t_kt), ("chain", t_c),
+                     ("tf32", t_tf32), ("flop", flop), ("bound", bound),
+                     ("bound_f32", bound_f32)):
+            tot[k] += v
+        del x, w, args, ref, out
+        torch.cuda.empty_cache()
+    if None in devs:
+        device = "device not measured"
+    else:
+        dev_ms = sum(devs)
+        device = (f"device {dev_ms:.4f} ms ({tot['flop'] / dev_ms / 1e9:.1f} TFLOP/s, "
+                  f"{100 * tot['bound'] / dev_ms:.1f} % of the 3xTF32 bound, "
+                  f"{100 * tot['bound_f32'] / dev_ms:.1f} % of the fp32 bound)")
+    log(f"  fp32 sum over the six sites at N={n} (one encoder's necks): kernel "
+        f"{tot['kernel']:.4f} ms, plain {tot['plain']:.4f} ms, bound {tot['bound']:.4f} ms "
+        f"(3x {tot['flop'] / 1e9:.1f} GFLOP at 495 TFLOP/s), fp32 bound "
+        f"{tot['bound_f32']:.4f} ms (67 TFLOP/s); {device}; in turns kernel "
+        f"{tot['turns']:.4f} ms vs cuDNN fp32 chain {tot['chain']:.4f} ms, ratio "
+        f"{tot['turns'] / tot['chain']:.3f}; cuDNN chain with TF32 on {tot['tf32']:.4f} ms")
+    return errs
+
+
+def conv_f64(g):
+    """Kernel 2 in fp32 and the plain version (cuDNN, TF32 off) against a
+    float64 conv at ``neck_f3_conv0``'s K = 27648 (N=2), on random operands
+    and on operands exact in TF32, where only the sums differ: the 3xTF32
+    kernel adds each step's products into an fp32 sum and has to hold fp32
+    accuracy over the whole K."""
+    name, cin, cout, side = NECKS[4]
+    x, w, bias, gamma, beta, mean, var = neck_inputs(2, cin, cout, side, torch.float32, g)
+    s = gamma.double() / torch.sqrt(var.double() + 1e-5)
+    t = (bias.double() - mean.double()) * s + beta.double()
+    errs = []
+    for what in ("random", "TF32-exact"):
+        if what == "TF32-exact":
+            x, w = cl(k2.rna_tf32(x)), k2.rna_tf32(w)
+        args = (x, w, bias, gamma, beta, mean, var)
+        exact = F.gelu(F.conv2d(x.double(), w.double(), padding=1) * s[:, None, None]
+                       + t[:, None, None])
+        plain = (k2.conv3x3_bn_gelu_ref(*args).double() - exact).abs().max().item()
+        errs.append(check(f"float32 {name} N=2, {what} operands, kernel against float64",
+                          k2.conv3x3_bn_gelu(*args), exact, torch.float32))
+        log(f"  float32 {name} N=2, {what} operands: plain version against float64 "
+            f"max_abs_err {plain:.3e}")
+    return errs
+
+
 def phase_conv(n):
     log(f"== phase 3b: conv3x3_bn_gelu (CUDA) vs plain, N={n}, random BN running stats")
+    r = cl(torch.randn(1, 6, 4, 4, device=DEV))
+    ones = torch.ones(8, device=DEV)
+    expect_value_error("fp32 Cin=6", lambda: k2.conv3x3_bn_gelu(
+        r, torch.randn(8, 6, 3, 3, device=DEV), None, ones, ones, ones, ones))
     g = gen(3)
     errs, ms, plain_ms, lib_ms, flop, devs = [], 0.0, 0.0, 0.0, 0, []
     turns_k = 0.0
-    f32 = dict.fromkeys(("kernel", "plain", "turns", "chain", "flop", "bound"), 0.0)
-    f32["devs"] = []
-    for dtype in (torch.float32, torch.bfloat16):
-        for name, cin, cout, side in NECKS:
-            args = neck_inputs(n, cin, cout, side, dtype, g)
-            x, w, bias, gamma, beta, mean, var = args
-            tag = f"{str(dtype)[6:]} {name} ({side}^2, {cin}->{cout})"
-            errs.append(check(tag, k2.conv3x3_bn_gelu(*args), k2.conv3x3_bn_gelu_ref(*args),
-                              dtype))
-            t_k = cuda_time(lambda: k2.conv3x3_bn_gelu(*args), reps=5)
-            t_p = cuda_time(lambda: k2.conv3x3_bn_gelu_ref(*args), reps=5)
-            log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median)")
-            if dtype == torch.float32:
-                # the validation route's dtype: against cuDNN's fp32 chain (TF32
-                # off) and the fp32 bound, operations at 67 TFLOP/s or bytes
-                site_flop = 2 * n * side * side * 9 * cin * cout
-                site_bytes = 4 * (x.numel() + w.numel() + n * cout * side * side)
-                bound = max(site_flop / FP32_FLOP_PER_S, site_bytes / HBM_BYTES_PER_S) * 1e3
-                wc = w.contiguous(memory_format=torch.channels_last)
-                chain = lambda: F.gelu(F.batch_norm(  # noqa: E731
-                    F.conv2d(x, wc, bias, padding=1), mean, var, gamma, beta, False, 0.0, 1e-5))
-                t_kt, t_c = in_turns(lambda: k2.conv3x3_bn_gelu(*args), chain, reps=5)
-                log(f"  {tag}: in turns kernel {t_kt:.4f} ms, cuDNN fp32 conv+BN+GELU chain "
-                    f"{t_c:.4f} ms, ratio {t_kt / t_c:.3f}; bound {bound:.4f} ms (operations)")
-                f32["kernel"] += t_k
-                f32["plain"] += t_p
-                f32["turns"] += t_kt
-                f32["chain"] += t_c
-                f32["flop"] += site_flop
-                f32["bound"] += bound
-                f32["devs"].append(device_rate(tag, lambda: k2.conv3x3_bn_gelu(*args),
-                                               ("conv3x3_bn_gelu_f32",), bound,
-                                               flop=site_flop)[0])
-            if dtype == torch.bfloat16:
-                ms += t_k
-                plain_ms += t_p
-                site_flop = 2 * n * side * side * 9 * cin * cout
-                flop += site_flop
-                bound = site_flop / BF16_FLOP_PER_S * 1e3
-                xb, wb = x, w.to(dtype).contiguous(memory_format=torch.channels_last)
-                chain = lambda: F.gelu(F.batch_norm(  # noqa: E731
-                    F.conv2d(xb, wb, bias.to(dtype), padding=1),
-                    mean, var, gamma, beta, False, 0.0, 1e-5))
-                t_kt, t_c = in_turns(lambda: k2.conv3x3_bn_gelu(*args), chain, reps=5)
-                log(f"  {tag}: in turns kernel {t_kt:.4f} ms, cuDNN bf16 conv+BN+GELU chain "
-                    f"{t_c:.4f} ms, ratio {t_kt / t_c:.3f}")
-                turns_k += t_kt
-                lib_ms += t_c
-                devs.append(device_rate(tag, lambda: k2.conv3x3_bn_gelu(*args),
-                                        ("conv3x3_bn_gelu_wgmma",), bound, flop=site_flop)[0])
-                if cout % 256 == 0:  # the channel tile, chosen by this comparison
-                    t256, t128 = in_turns(lambda: k2.conv3x3_bn_gelu(*args, _tile_n=256),
-                                          lambda: k2.conv3x3_bn_gelu(*args, _tile_n=128), reps=5)
-                    log(f"  {tag}: in turns 128x256 tiles {t256:.4f} ms, 128x128 tiles "
-                        f"{t128:.4f} ms (default {k2.tile_n(cout)})")
-            del x, w, args
-    torch.cuda.empty_cache()
-    # fp32 at a tta_mc test batch's views: the prefix runs the necks once
     for name, cin, cout, side in NECKS:
-        args = neck_inputs(N_TEST_VIEWS, cin, cout, side, torch.float32, g)
-        errs.append(check(f"float32 {name} at a tta_mc test batch (N={N_TEST_VIEWS}, {side}^2, "
-                          f"{cin}->{cout})", k2.conv3x3_bn_gelu(*args),
-                          k2.conv3x3_bn_gelu_ref(*args), torch.float32))
-        del args
-        torch.cuda.empty_cache()
+        dtype = torch.bfloat16
+        args = neck_inputs(n, cin, cout, side, dtype, g)
+        x, w, bias, gamma, beta, mean, var = args
+        tag = f"{str(dtype)[6:]} {name} ({side}^2, {cin}->{cout})"
+        errs.append(check(tag, k2.conv3x3_bn_gelu(*args), k2.conv3x3_bn_gelu_ref(*args),
+                          dtype))
+        t_k = cuda_time(lambda: k2.conv3x3_bn_gelu(*args), reps=5)
+        t_p = cuda_time(lambda: k2.conv3x3_bn_gelu_ref(*args), reps=5)
+        log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median)")
+        ms += t_k
+        plain_ms += t_p
+        site_flop = 2 * n * side * side * 9 * cin * cout
+        flop += site_flop
+        bound = site_flop / BF16_FLOP_PER_S * 1e3
+        xb, wb = x, w.to(dtype).contiguous(memory_format=torch.channels_last)
+        chain = lambda: F.gelu(F.batch_norm(  # noqa: E731
+            F.conv2d(xb, wb, bias.to(dtype), padding=1),
+            mean, var, gamma, beta, False, 0.0, 1e-5))
+        t_kt, t_c = in_turns(lambda: k2.conv3x3_bn_gelu(*args), chain, reps=5)
+        log(f"  {tag}: in turns kernel {t_kt:.4f} ms, cuDNN bf16 conv+BN+GELU chain "
+            f"{t_c:.4f} ms, ratio {t_kt / t_c:.3f}")
+        turns_k += t_kt
+        lib_ms += t_c
+        devs.append(device_rate(tag, lambda: k2.conv3x3_bn_gelu(*args),
+                                ("conv3x3_bn_gelu_wgmma",), bound, flop=site_flop)[0])
+        if cout % 256 == 0:  # the channel tile, chosen by this comparison
+            t256, t128 = in_turns(lambda: k2.conv3x3_bn_gelu(*args, _tile_n=256),
+                                  lambda: k2.conv3x3_bn_gelu(*args, _tile_n=128), reps=5)
+            log(f"  {tag}: in turns 128x256 tiles {t256:.4f} ms, 128x128 tiles "
+                f"{t128:.4f} ms (default {k2.tile_n(cout, dtype)})")
+        del x, w, args
+    torch.cuda.empty_cache()
     bound = flop / BF16_FLOP_PER_S * 1e3
     if None in devs:
         device = "device not measured"
@@ -671,17 +741,12 @@ def phase_conv(n):
     log(f"  bf16 sum over the six sites: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
         f"bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP); {device}; in turns "
         f"kernel {turns_k:.4f} ms vs cuDNN chain {lib_ms:.4f} ms, ratio {turns_k / lib_ms:.3f}")
-    if None in f32["devs"]:
-        device = "device not measured"
-    else:
-        dev_ms = sum(f32["devs"])
-        device = (f"device {dev_ms:.4f} ms ({f32['flop'] / dev_ms / 1e9:.1f} TFLOP/s, "
-                  f"{100 * f32['bound'] / dev_ms:.1f} % of the bound)")
-    log(f"  fp32 sum over the six sites (a validation batch's necks of one encoder): kernel "
-        f"{f32['kernel']:.4f} ms, plain {f32['plain']:.4f} ms, bound {f32['bound']:.4f} ms "
-        f"({f32['flop'] / 1e9:.1f} GFLOP at 67 TFLOP/s); {device}; in turns kernel "
-        f"{f32['turns']:.4f} ms vs cuDNN fp32 chain {f32['chain']:.4f} ms, ratio "
-        f"{f32['turns'] / f32['chain']:.3f}")
+    # fp32, the validation route's dtype: its accuracy against float64, then a
+    # validation batch (N=B_VAL) and a tta_mc test batch's views (the prefix
+    # runs the necks once on 4 x B_VAL)
+    errs += conv_f64(g)
+    for n_f32 in (B_VAL, N_TEST_VIEWS):
+        errs += conv_f32(n_f32, g)
     return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
             "bound_by": "operations", "library_ms": lib_ms}
 
@@ -720,7 +785,8 @@ def phase_flash_forward():
         bound = flop / BF16_FLOP_PER_S * 1e3
         log(f"  {tag}: kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain "
             f"{t_p:.4f} ms, SDPA {t_l:.4f} ms (median); bf16 bound {bound:.4f} ms "
-            f"({flop / 1e12:.3f} TFLOP, {bh * SEQ * SEQ / 1e6:.0f}M exp)")
+            f"({flop / 1e12:.3f} TFLOP, {bh * SEQ * SEQ / 1e6:.0f}M exp)"
+            + (f"; {f32_bounds(flop)}" if dtype == torch.float32 else ""))
         if dtype == torch.bfloat16:
             t_kt, t_lt = in_turns(lambda: fa.flash_forward(q, k, v, scale),
                                   lambda: F.scaled_dot_product_attention(q4, k4, v4),
@@ -735,6 +801,13 @@ def phase_flash_forward():
     t_k, t_p, t_l, bound = res[(32, HEAD_DIM, torch.bfloat16)]
     return {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
             "bound_by": "operations", "library_ms": t_l}
+
+
+def f32_bounds(flop):
+    """The fp32 operation bounds of ``flop``: on the CUDA cores (67 TFLOP/s)
+    and as 3xTF32 on the tensor cores (3x the operations at 495 TFLOP/s)."""
+    return (f"fp32 bounds {flop / FP32_FLOP_PER_S * 1e3:.4f} ms (67 TFLOP/s), "
+            f"{3 * flop / TF32_FLOP_PER_S * 1e3:.4f} ms (3xTF32)")
 
 
 def bwd_bounds(bh, d, el):
@@ -819,7 +892,9 @@ def phase_flash_backward():
         log(f"  {tag}: dQ kernel {t_dq:.4f} ms ({f_dq / t_dq / 1e9:.1f} TFLOP/s, bound "
             f"{b_dq:.4f}); dK/dV kernel {t_dkv:.4f} ms ({f_dkv / t_dkv / 1e9:.1f} TFLOP/s, "
             f"bound {b_dkv:.4f}); {plain}; SDPA backward (dq, dk, dv in one call) "
-            f"{t_l:.4f} ms (median)")
+            f"{t_l:.4f} ms (median)"
+            + (f"; dQ {f32_bounds(f_dq)}; dK/dV {f32_bounds(f_dkv)}"
+               if dtype == torch.float32 else ""))
         if dtype == torch.bfloat16:
             t_kt, t_lt = in_turns(lambda: (dq_call(), dkv_call()), sdpa_bwd, reps=3, trials=3)
             log(f"  {tag}: in turns dQ + dK/dV {t_kt:.4f} ms, SDPA backward {t_lt:.4f} ms, "

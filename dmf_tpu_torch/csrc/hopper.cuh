@@ -1,13 +1,15 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's wgmma kernels:
 // the bf16 flash-attention forward and backward (flash_attention.cu) and the
-// bf16 neck conv (conv3x3_bn_gelu.cu).  Inline PTX keeps an nvcc build at
-// seconds; nothing here links against libcuda (the tensor-map encoder is
-// looked up at run time through the CUDA runtime's entry-point query).
+// bf16 and 3xTF32 neck conv (conv3x3_bn_gelu.cu).  Inline PTX keeps an nvcc
+// build at seconds; nothing here links against libcuda (the tensor-map
+// encoder is looked up at run time through the CUDA runtime's entry-point
+// query).
 //
 //   * shared-memory matrix descriptors for 128-byte-swizzled tiles and the
 //     swizzle itself (the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes);
 //   * wgmma.fence / commit_group / wait_group, register fences, and
-//     wgmma.mma_async at the shapes the kernels use;
+//     wgmma.mma_async at the shapes the kernels use (bf16 k16, TF32 k8),
+//     and the TF32 rounding that splits an fp32 operand;
 //   * mbarrier init / arrive / expect-tx / try-wait with phase parity;
 //   * cp.async (16 bytes, zero-fill) and the proxy fence that hands its
 //     writes to wgmma;
@@ -15,10 +17,10 @@
 //     bulk copies of contiguous bytes;
 //   * setmaxnreg for warp-specialised kernels.
 //
-// Swizzled tiles: a tile is rows of 128 bytes (64 bf16), grouped by eight rows
-// into 1024-byte atoms; the 16-byte chunk c of row r sits at chunk c ^ (r % 8).
-// A tile's base is 1024-byte aligned.  Wider rows are split into panels of 64
-// columns, one tile each.
+// Swizzled tiles: a tile is rows of 128 bytes (64 bf16, 32 fp32), grouped by
+// eight rows into 1024-byte atoms; the 16-byte chunk c of row r sits at chunk
+// c ^ (r % 8).  A tile's base is 1024-byte aligned.  Wider rows are split into
+// panels of 64 columns, one tile each.
 
 #pragma once
 
@@ -130,9 +132,10 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 // ------------------------------------------------------------------ wgmma
 // Descriptor of a 128B-swizzled shared-memory operand.  K-major (K
 // contiguous): sbo = 1024 (the next eight rows), lbo unused; advancing K by
-// 16 bf16 adds 32 bytes to the address.  MN-major (MN contiguous, the
-// transpose bit): sbo = 1024 (the next eight K rows), lbo = the panel stride
-// (the next 64 MN columns); advancing K by 16 adds 2048 bytes.
+// 16 bf16 (a k16 step) or 8 TF32 (a k8 step) adds 32 bytes to the address.
+// MN-major (MN contiguous, the transpose bit; bf16 only): sbo = 1024 (the
+// next eight K rows), lbo = the panel stride (the next 64 MN columns);
+// advancing K by 16 adds 2048 bytes.
 __device__ __forceinline__ uint64_t desc_sw128(const void* p, uint32_t lbo, uint32_t sbo) {
   uint64_t d = (smem_u32(p) & 0x3FFFFu) >> 4;
   d |= static_cast<uint64_t>((lbo >> 4) & 0x3FFFu) << 16;
@@ -262,6 +265,34 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 
+// D (+)= A B, m64n128k8, TF32 operands (fp32 words whose low 13 bits are
+// zero), A and B from shared memory (K-major, descriptors); D fp32.
+__device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]), "+f"(d[16]), "+f"(d[17]),
+        "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), "+f"(d[40]), "+f"(d[41]),
+        "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
+        "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
 // D (+)= A B, m64n64k16, A from registers (four bf16x2 per thread), B from
 // shared memory MN-major (the transpose bit).
 __device__ __forceinline__ void wgmma_m64n64k16_rs_tb(float (&d)[32], const uint32_t (&a)[4],
@@ -321,6 +352,15 @@ __device__ __forceinline__ void reg_dealloc() {
   asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(R));
 }
 
+// fp32 -> TF32, round to nearest with ties away from zero (cvt.rna), as an
+// fp32 word with the low 13 mantissa bits cleared explicitly: what the tensor
+// cores read of it is then exactly its value.
+__device__ __forceinline__ float tf32_rna(float a) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(r) : "f"(a));
+  return __uint_as_float(r & 0xffffe000u);
+}
+
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<const uint32_t*>(&v);
@@ -351,18 +391,20 @@ inline EncodeTiledFn encode_tiled() {
   return fn;
 }
 
-// A 3-D bf16 tensor map: dims innermost first, byte strides of dims 1 and 2,
-// box b0 x b1 x b2 (b0 * 2 <= 128 bytes), 128-byte swizzle, zeros past the edges.
+// A 3-D tensor map of bf16 (or `type`) elements: dims innermost first, byte
+// strides of dims 1 and 2, box b0 x b1 x b2 (b0 elements <= 128 bytes), 128-byte
+// swizzle, zeros past the edges.
 inline cudaError_t tensor_map_3d(CUtensorMap* map, const void* base, uint64_t d0, uint64_t d1,
                                  uint64_t d2, uint64_t stride1, uint64_t stride2, uint32_t b0,
-                                 uint32_t b1, uint32_t b2) {
+                                 uint32_t b1, uint32_t b2,
+                                 CUtensorMapDataType type = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16) {
   const EncodeTiledFn fn = encode_tiled();
   if (fn == nullptr) return cudaErrorNotSupported;
   const cuuint64_t dims[3] = {d0, d1, d2};
   const cuuint64_t strides[2] = {stride1, stride2};
   const cuuint32_t box[3] = {b0, b1, b2};
   const cuuint32_t unit[3] = {1, 1, 1};
-  const CUresult r = fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 3, const_cast<void*>(base), dims,
+  const CUresult r = fn(map, type, 3, const_cast<void*>(base), dims,
                         strides, box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE,
                         CU_TENSOR_MAP_SWIZZLE_128B, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
                         CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE);

@@ -126,11 +126,31 @@ def test_conv3x3_kernel(dev, dtype, shape):
     ref = k2.conv3x3_bn_gelu_ref(*args)
     _close(out, ref, dtype)
     assert k2.conv3x3_bn_gelu.launches == 1
-    if dtype == torch.bfloat16:  # both channel tiles of the wgmma kernel
+    # two calls give the same bits: no split-K, a fixed K order
+    assert torch.equal(out, k2.conv3x3_bn_gelu(*args))
+    if dtype == torch.bfloat16:  # both channel tiles of the bf16 kernel
         for tile in (128, 256):
             _close(k2.conv3x3_bn_gelu(*args, _tile_n=tile), ref, dtype)
+    else:  # 3xTF32: a step's accumulator fits beside the sum at 128 channels only
+        _close(k2.conv3x3_bn_gelu(*args, _tile_n=128), ref, dtype)
+        with pytest.raises(ValueError, match="128-channel"):
+            k2.conv3x3_bn_gelu(*args, _tile_n=256)
     with pytest.raises(ValueError, match="channels_last"):
         k2.conv3x3_bn_gelu(x.contiguous(), *args[1:])
+
+
+@pytest.mark.parametrize("dtype,cin,cout", [(torch.float32, 6, 8), (torch.float32, 8, 12),
+                                            (torch.bfloat16, 12, 8)])
+def test_conv3x3_shape_rule(dev, dtype, cin, cout):
+    """The 16-byte chunks and TMA rows need Cin % 4 (fp32) or % 8 (bf16) and
+    Cout % 8: the wrapper raises on anything else, launching nothing."""
+    x = _cl(torch.randn(1, cin, 5, 5, device=dev).to(dtype))
+    ones = torch.ones(cout, device=dev)
+    k2.conv3x3_bn_gelu.launches = 0
+    with pytest.raises(ValueError, match="multiple"):
+        k2.conv3x3_bn_gelu(x, torch.randn(cout, cin, 3, 3, device=dev), None, ones, ones,
+                           ones, ones)
+    assert k2.conv3x3_bn_gelu.launches == 0
 
 
 def _close_rel(got, ref, dtype):

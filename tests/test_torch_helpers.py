@@ -9,6 +9,7 @@ comparisons run fp32 (bf16 on XLA:CPU is not stable across compilations).
 
 import contextlib
 import dataclasses
+import os
 
 import jax
 import jax.numpy as jnp
@@ -19,6 +20,14 @@ from dmf_tpu.config import default_parameters, resolve_backbone_config
 from dmf_tpu.models.backbones import importers
 from dmf_tpu_torch import config as pconfig
 
+# torch's CPU exp runs MKL's vector math.  Its AVX-512 and AVX2 code paths
+# are not reproducible on a multi-core host: in about one process of six
+# (never with the process pinned to one core) whole chunks of a tensor came
+# out with exps off by up to 1.5e-4 relative (a logsumexp of 256 scores ~4e-5
+# off against a float64 numpy one), and two calls on the same input differed.
+# MKL's compatible (SSE2) path gave the same, accurate bits in every process.
+# MKL reads this at its first call (torch.set_num_threads below is one).
+os.environ.setdefault("MKL_CBWR", "COMPATIBLE")
 # several pytest workers share the host: every test_torch_* file that
 # imports this module runs with a torch pool of 2 threads
 torch.set_num_threads(2)

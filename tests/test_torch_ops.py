@@ -5,7 +5,9 @@ JAX tests run them on the CPU (``interpret=True``).  The interpreter stubs
 the TPU's random bits to zeros, which the kernel reads as keep-everything, so
 with dropout its output is exactly ``undropped / (1 - p)``: the port's plain
 version is fed an all-ones ``keep`` mask for that check.  On CPU tensors the
-wrappers run the plain versions and never count a launch.
+wrappers run the plain versions and never count a launch.  The fp32 conv
+kernel's 3xTF32 arithmetic is replayed in plain torch and held against the
+JAX kernel at ``neck_f3_conv0``'s K.
 """
 
 import jax
@@ -14,14 +16,16 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import assert_close, nchw, nhwc
+import torch.nn.functional as F
+from test_torch_helpers import RTOL, assert_close, nchw, nhwc
 
 from dmf_tpu.ops import attention as jattn
 from dmf_tpu.ops import resize as jresize
 from dmf_tpu.ops.conv3x3_pallas import conv3x3_bn_gelu as jax_conv3x3
 from dmf_tpu.ops.epilogue_pallas import se_epilogue as jax_se_epilogue
 from dmf_tpu_torch.ops import attention, resize
-from dmf_tpu_torch.ops.conv3x3 import conv3x3_bn_gelu, conv3x3_bn_gelu_ref
+from dmf_tpu_torch.ops.conv3x3 import (conv3x3_bn_gelu, conv3x3_bn_gelu_ref, conv_weights,
+                                       fold_bn, rna_tf32)
 from dmf_tpu_torch.ops.epilogue import se_epilogue, se_epilogue_ref
 
 # fp32 kernel parity, the JAX kernel tests' own tolerance (2e-5)
@@ -177,6 +181,75 @@ class TestConv3x3Plain:
         for i in (1, 3):
             assert args[i].grad is not None and args[i].grad.abs().max() > 0
             assert torch.equal(args[i].grad, ref[i].grad)
+
+
+def _tf32x3_replay(x, weight, conv_bias, bn_weight, bn_bias, bn_mean, bn_var, eps=1e-5,
+                   products=3):
+    """The fp32 kernel's arithmetic (``conv3x3_bn_gelu_tf32x3``) in plain torch.
+
+    Both operands split into ``hi = rna_tf32(a)`` and ``lo = rna_tf32(a - hi)``
+    (the weights by ``conv_weights``, the pixels in the kernel); each product of
+    two 11-bit significands is exact in fp32, so the three products ``hi*hi +
+    hi*lo + lo*hi`` are fp32 convolutions of the split operands, summed in
+    fp32; then the epilogue ``gelu(acc * s + t)``.  ``products=1`` replays one
+    TF32 product (``hi*hi``), what a plain TF32 kernel would compute.
+    """
+    s, t = fold_bn(conv_bias, bn_weight, bn_bias, bn_mean, bn_var, eps)
+    xh, wh = rna_tf32(x), rna_tf32(weight)
+    xl, wl = rna_tf32(x - xh), rna_tf32(weight - wh)
+
+    def conv(a, w):
+        return F.conv2d(a, w, padding=1)
+
+    acc = conv(xh, wh)
+    if products == 3:
+        acc = acc + conv(xh, wl) + conv(xl, wh)
+    return F.gelu(acc * s[:, None, None] + t[:, None, None])
+
+
+def test_tf32x3_replay_matches_pallas_interpret():
+    """At ``neck_f3_conv0``'s K (Cin 3072 -> Cout 256, K = 27648) on an 8x8
+    map, the 3xTF32 replay agrees with the JAX kernel within the port's fp32
+    tolerance; one TF32 product does not come near it."""
+    rng = np.random.RandomState(4)
+    cin, cout = 3072, 256
+    s = dict(x=rng.randn(1, 8, 8, cin).astype(np.float32),
+             k=(rng.randn(3, 3, cin, cout) * (9 * cin) ** -0.5).astype(np.float32),
+             b=rng.randn(cout).astype(np.float32) * 0.1,
+             g=rng.rand(cout).astype(np.float32) + 0.5,
+             beta=rng.randn(cout).astype(np.float32) * 0.1,
+             mu=rng.randn(cout).astype(np.float32) * 0.1,
+             var=rng.rand(cout).astype(np.float32) + 0.5)
+    ref = np.asarray(jax_conv3x3(*(jnp.asarray(s[k]) for k in
+                                   ("x", "k", "b", "g", "beta", "mu", "var")), interpret=True))
+    scale = max(1.0, float(np.abs(ref).max()))
+    errs = {p: float(np.abs(nhwc(_tf32x3_replay(*_port_conv_args(s), products=p)) - ref).max())
+            / scale for p in (3, 1)}
+    print(f"K = {9 * cin}: max error / max(1, max|ref|): 3xTF32 {errs[3]:.3e}, one TF32 "
+          f"product {errs[1]:.3e} (tolerance {RTOL:.0e})")
+    assert_close(nhwc(_tf32x3_replay(*_port_conv_args(s))), ref, rtol=RTOL)
+    assert errs[1] > 10 * errs[3]
+
+
+def test_rna_tf32_and_weight_halves():
+    """``rna_tf32`` rounds to 10 mantissa bits, ties away from zero (where
+    round-to-even would go down), low 13 bits zero; ``conv_weights`` in fp32
+    gives halves on that grid whose sum is within 2^-22 relative of the
+    weight matrix."""
+    one = 1.0 + 2.0 ** -11  # a tie between 1 and 1 + 2^-10
+    got = rna_tf32(torch.tensor([one, -one, one - 2.0 ** -23, 3.0, float("inf")]))
+    assert got.tolist() == [1.0 + 2.0 ** -10, -1.0 - 2.0 ** -10, 1.0, 3.0, float("inf")]
+    rng = np.random.RandomState(5)
+    weight = torch.from_numpy(rng.randn(24, 16, 3, 3).astype(np.float32) * 0.1)
+    stats = [torch.from_numpy(rng.rand(24).astype(np.float32) + 0.5) for _ in range(5)]
+    hi, lo = conv_weights(weight, *stats, 1e-5, torch.float32)[:2]
+    for half in (hi, lo):
+        assert half.dtype == torch.float32
+        assert not (half.view(torch.int32) & 0x1FFF).any()
+    wmat = weight.permute(0, 2, 3, 1).reshape(24, 144).double()
+    err = (hi.double() + lo.double() - wmat).abs()
+    assert (err <= 2.0 ** -22 * wmat.abs()).all()
+    assert (lo != 0).any() and ((hi.double() - wmat).abs() > err).any()
 
 
 # Random123's known answers for Philox4x32-10 (kat_vectors): counter, key, output

@@ -330,10 +330,10 @@ def test_se_mlp_weights_prepared_once_per_parameter_set(dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_conv_weights_prepared_once_per_parameter_set(dtype):
-    """Kernel 2's operands: the K-major (Cout, 9*Cin) weight matrix in the map
-    dtype and the folded fp32 (s, t), equal to a fresh preparation, reused
-    while the parameters are unchanged and made anew after an in-place update
-    of the weight or of a BN statistic."""
+    """Kernel 2's operands: the K-major (Cout, 9*Cin) weight matrix (in bf16,
+    or as its two 3xTF32 halves in fp32) and the folded fp32 (s, t), equal to
+    a fresh preparation, reused while the parameters are unchanged and made
+    anew after an in-place update of the weight or of a BN statistic."""
     from dmf_tpu_torch.ops import conv3x3
 
     torch.manual_seed(0)
@@ -343,31 +343,44 @@ def test_conv_weights_prepared_once_per_parameter_set(dtype):
             t.normal_(0.0, 0.1)
         bn.running_var.uniform_(0.5, 1.5)
     params = (conv.weight, conv.bias, bn.weight, bn.bias, bn.running_mean, bn.running_var)
+    tf32x3 = dtype == torch.float32
+
+    def halves(m):
+        if not tf32x3:
+            return m, None
+        hi = conv3x3.rna_tf32(m)
+        return hi, conv3x3.rna_tf32(m - hi)
 
     def fresh():
         w = conv.weight.detach().permute(0, 2, 3, 1).reshape(24, 9 * 16).to(dtype)
-        return (w, *conv3x3.fold_bn(*(p.detach() for p in params[1:]), bn.eps))
+        return (*halves(w), *conv3x3.fold_bn(*(p.detach() for p in params[1:]), bn.eps))
+
+    def same(a, b):
+        return all(x is y if x is None else torch.equal(x, y) for x, y in zip(a, b))
 
     first = conv3x3.conv_weights(*params, bn.eps, dtype)
-    assert [t.shape for t in first] == [(24, 144), (24,), (24,)]
-    assert [t.dtype for t in first] == [dtype, torch.float32, torch.float32]
-    assert all(t.is_contiguous() and not t.requires_grad for t in first)
-    assert all(torch.equal(a, b) for a, b in zip(first, fresh()))
+    tensors = [t for t in first if t is not None]
+    assert (first[1] is None) == (not tf32x3)
+    assert [t.shape for t in tensors] == [(24, 144)] * (1 + tf32x3) + [(24,), (24,)]
+    assert [t.dtype for t in tensors] == [dtype] * (1 + tf32x3) + [torch.float32] * 2
+    assert all(t.is_contiguous() and not t.requires_grad for t in tensors)
+    assert same(first, fresh())
     # column k = tap * Cin + c, taps in (ky, kx) row-major order
-    assert torch.equal(first[0][5, 4 * 16 + 3], conv.weight[5, 3, 1, 1].to(dtype))
+    assert torch.equal(first[0][5, 4 * 16 + 3],
+                       halves(conv.weight[5, 3, 1, 1].detach().to(dtype))[0])
     again = conv3x3.conv_weights(*params, bn.eps, dtype)
     assert all(a is b for a, b in zip(first, again))
     with torch.no_grad():
         conv.weight.mul_(2.0)
     changed = conv3x3.conv_weights(*params, bn.eps, dtype)
     assert changed[0] is not first[0]
-    assert all(torch.equal(a, b) for a, b in zip(changed, fresh()))
+    assert same(changed, fresh())
     bn.running_var.add_(1.0)  # a buffer, updated in place as BN's training step does
     restat = conv3x3.conv_weights(*params, bn.eps, dtype)
-    assert not torch.equal(restat[1], changed[1])
-    assert all(torch.equal(a, b) for a, b in zip(restat, fresh()))
+    assert not torch.equal(restat[2], changed[2])
+    assert same(restat, fresh())
     no_bias = conv3x3.conv_weights(conv.weight, None, *params[2:], bn.eps, dtype)
-    assert torch.equal(no_bias[0], restat[0]) and not torch.equal(no_bias[2], restat[2])
+    assert torch.equal(no_bias[0], restat[0]) and not torch.equal(no_bias[3], restat[3])
 
 
 def test_se_kernels_refuse_autograd():
