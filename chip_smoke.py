@@ -16,11 +16,14 @@ Phases, each printing its own lines:
      request, past 2^31 elements, against the plain version on maps at its
      start, around element 2^31 and at its end, 32^2 maps of tta_mc, 128^2
      maps of hybrid-nb), 3b conv3x3+BN+GELU, 3c
-     flash-attention forward, 3d its backward (dQ, dK/dV; two calls compared
-     bit for bit),
+     flash-attention forward (fp32 on the 3xTF32 kernel at (32 | 128, 4096,
+     128) and (32, 4096, 64), two calls compared bit for bit, its error and
+     the plain version's against a float64 attention; bf16 beside it), 3d its backward (dQ, dK/dV; two calls
+     compared bit for bit),
      with, for the wgmma kernels (3b, 3c, 3d bf16), the kernel's own device
      time per call (profiler), its TFLOP/s and share of the bound, and the
-     kernel timed in turns with its library yardstick and their ratio;
+     kernel timed in turns with its library yardstick (SDPA in fp32 with
+     TF32 off for the fp32 forward) and their ratio;
      3e the DWI z-score, 3f the histogram percentiles (max-normalised
      synthetic DCE rows at (48 | 1536, 65536), the same with 60 % of each
      row at 0, ragged and unaligned rows at (48, 65539) and (7, 10007),
@@ -73,7 +76,14 @@ Phases, each printing its own lines:
      7b's DWI run, then ``run_fusion_model`` over both for three epochs with
      two unfreezes (step times, epoch / validation / test times, peak memory,
      launches per validation and test batch, the single-model states left
-     bit-equal, the best reload bit-equal, a profiled step);
+     bit-equal, the best reload bit-equal, a profiled step); 7e the
+     validation route of a full-width ``hybrid-nb`` DWI model
+     (``make_single_eval_step`` at B=32, fp32 with TF32 off: 6 launches of
+     the fp32 flash forward at (128, 4096, 128) a batch, none of the
+     backward), its peak memory beside the fp32 forward's K/V scratch, its
+     batch time by CUDA events, one profiled batch (the flash
+     forward's device time, the idle share) and the first two volumes'
+     logits against the same eval step on the CPU (rel 1e-4);
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -382,7 +392,8 @@ def phase_build():
         k2._library().conv3x3_bn_gelu_wgmma_smem
     log("  dynamic shared memory per block: " + "; ".join(
         f"{name} D=128 {flash_smem(i, 128)} B, D=64 {flash_smem(i, 64)} B" for i, name in
-        enumerate(("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")))
+        enumerate(("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
+                   "flash_fwd_tf32x3")))
         + f"; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(1, 256)} B, 128x128 {conv_smem(1, 128)} B"
         + f"; conv3x3_bn_gelu_tf32x3 128x128 {conv_smem(0, 128)} B")
 
@@ -756,9 +767,54 @@ def attn_inputs(bh, dtype, g, n=4):
             for _ in range(n)]
 
 
+# the fp32 forward's kernels (the K/V pre-pass and the 3xTF32 kernel), as the
+# profiler names them
+F32_FWD_KERNELS = ("flash_fwd_split_kv", "flash_fwd_tf32x3")
+
+
+def attention_f64(q, k, v, scale, heads=4):
+    """``(out, lse)`` of attention in float64 over (BH, N, D), ``heads`` at a time."""
+    out = torch.empty(q.shape, device=DEV, dtype=torch.float64)
+    lse = torch.empty(q.shape[:2], device=DEV, dtype=torch.float64)
+    for h0 in range(0, q.shape[0], heads):
+        sl = slice(h0, h0 + heads)
+        s = torch.einsum("bqd,bkd->bqk", q[sl].double(), k[sl].double()) * scale
+        lse[sl] = torch.logsumexp(s, -1)
+        out[sl] = torch.exp(s - lse[sl, :, None]) @ v[sl].double()
+        del s
+    return out, lse
+
+
+def flash_f64(g):
+    """The fp32 forward (3xTF32, each key tile's P V into a sum of its own)
+    and the plain version against a float64 attention at (32, SEQ,
+    HEAD_DIM), on unit-scale operands and with q, k scaled by 1.5 (scores of
+    standard deviation 2.25, where one TF32 product would miss the
+    tolerance: tests/test_torch_flash_f32.py).  Returns the kernel's errors."""
+    errs = []
+    scale = HEAD_DIM ** -0.5
+    for what, qk_scale in (("unit operands", 1.0), ("q, k x 1.5", 1.5)):
+        q, k = (torch.randn(32, SEQ, HEAD_DIM, device=DEV, generator=g) * qk_scale
+                for _ in range(2))
+        v = torch.randn(32, SEQ, HEAD_DIM, device=DEV, generator=g)
+        out64, lse64 = attention_f64(q, k, v, scale)
+        tag = f"float32 BH=32 D={HEAD_DIM}, {what}"
+        out, lse = fa.flash_forward(q, k, v, scale)
+        errs.append(check(f"{tag}, kernel out against float64", out, out64, torch.float32))
+        errs.append(check(f"{tag}, kernel lse against float64", lse, lse64, torch.float32))
+        o, l_ = fa.flash_attention_ref(q, k, v, scale)
+        log(f"  {tag}, plain version against float64: out max_abs_err "
+            f"{(o.double() - out64).abs().max().item():.3e}, lse "
+            f"{(l_.double() - lse64).abs().max().item():.3e}")
+        del q, k, v, out64, lse64, out, lse, o, l_
+        torch.cuda.empty_cache()
+    return errs
+
+
 def phase_flash_forward():
     log(f"== phase 3c: flash_attention forward (CUDA) vs plain, (B*H, N, D) = "
-        f"(32 normal B=8 | 128 tta B=8, {SEQ}, {HEAD_DIM})")
+        f"(32 normal B=8 | 128 tta B=8 and a hybrid-nb validation batch B=32, {SEQ}, "
+        f"{HEAD_DIM} | 64); fp32 (3xTF32) and bf16 against SDPA in turns")
     r = torch.randn(1, 1, 100, HEAD_DIM, device=DEV)
     expect_value_error("unaligned N=100", lambda: fa.flash_attention(r, r, r))
     expect_value_error("fp16", lambda: fa.flash_attention(r.half(), r.half(), r.half()))
@@ -767,14 +823,18 @@ def phase_flash_forward():
     # bf16 at D=64 beside D=128: half the products, the same exponentials
     for bh, d, dtype in ((32, HEAD_DIM, torch.float32), (32, HEAD_DIM, torch.bfloat16),
                          (128, HEAD_DIM, torch.float32), (128, HEAD_DIM, torch.bfloat16),
-                         (32, 64, torch.bfloat16)):
+                         (32, 64, torch.float32), (32, 64, torch.bfloat16)):
         scale = d ** -0.5
         q, k, v = (torch.randn(bh, SEQ, d, device=DEV, generator=g).to(dtype) for _ in range(3))
         tag = f"{str(dtype)[6:]} BH={bh} D={d}"
+        f32 = dtype == torch.float32
         out, lse = fa.flash_forward(q, k, v, scale)
         ref_out, ref_lse = fa.flash_attention_ref(q, k, v, scale)
         errs.append(check(f"{tag} out", out, ref_out, dtype))
         errs.append(check(f"{tag} lse", lse, ref_lse, dtype))
+        if f32 and not all(torch.equal(a, b) for a, b in
+                           zip((out, lse), fa.flash_forward(q, k, v, scale))):
+            raise AssertionError(f"{tag}: two calls differ")
         del out, lse, ref_out, ref_lse
         t_k = cuda_time(lambda: fa.flash_forward(q, k, v, scale), reps=3, trials=3)
         t_p = cuda_time(lambda: fa.flash_attention_ref(q, k, v, scale), reps=1, trials=3)
@@ -782,25 +842,33 @@ def phase_flash_forward():
         q4, k4, v4 = (t.view(bh // HEADS, HEADS, SEQ, d) for t in (q, k, v))
         t_l = cuda_time(lambda: F.scaled_dot_product_attention(q4, k4, v4), reps=3, trials=3)
         flop = 4 * bh * SEQ * SEQ * d
-        bound = flop / BF16_FLOP_PER_S * 1e3
+        # the bound of the kernel's own route: bf16 tensor cores, or 3xTF32
+        bound = (3 * flop / TF32_FLOP_PER_S if f32 else flop / BF16_FLOP_PER_S) * 1e3
         log(f"  {tag}: kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s), plain "
-            f"{t_p:.4f} ms, SDPA {t_l:.4f} ms (median); bf16 bound {bound:.4f} ms "
-            f"({flop / 1e12:.3f} TFLOP, {bh * SEQ * SEQ / 1e6:.0f}M exp)"
-            + (f"; {f32_bounds(flop)}" if dtype == torch.float32 else ""))
-        if dtype == torch.bfloat16:
-            t_kt, t_lt = in_turns(lambda: fa.flash_forward(q, k, v, scale),
-                                  lambda: F.scaled_dot_product_attention(q4, k4, v4),
-                                  reps=3, trials=3)
-            log(f"  {tag}: in turns kernel {t_kt:.4f} ms, SDPA {t_lt:.4f} ms, ratio "
-                f"{t_kt / t_lt:.3f}")
-            device_rate(tag, lambda: fa.flash_forward(q, k, v, scale), ("flash_fwd_wgmma",),
-                        bound, flop=flop)
+            f"{t_p:.4f} ms, SDPA {t_l:.4f} ms (median); "
+            + (f"{f32_bounds(flop)}" if f32 else f"bf16 bound {bound:.4f} ms")
+            + f" ({flop / 1e12:.3f} TFLOP, {bh * SEQ * SEQ / 1e6:.0f}M exp)")
+        t_kt, t_lt = in_turns(lambda: fa.flash_forward(q, k, v, scale),
+                              lambda: F.scaled_dot_product_attention(q4, k4, v4),
+                              reps=3, trials=3)
+        log(f"  {tag}: in turns kernel {t_kt:.4f} ms, SDPA {t_lt:.4f} ms "
+            f"({'fp32, TF32 off' if f32 else 'bf16'}), ratio {t_kt / t_lt:.3f}")
+        device_rate(tag + (" (pre-pass + 3xTF32 kernel)" if f32 else ""),
+                    lambda: fa.flash_forward(q, k, v, scale),
+                    F32_FWD_KERNELS if f32 else ("flash_fwd_wgmma",), bound, flop=flop)
         res[(bh, d, dtype)] = (t_k, t_p, t_l, bound)
         del q, k, v, q4, k4, v4
         torch.cuda.empty_cache()
+    errs += flash_f64(g)
+    # the entry's times are bf16 at (32, SEQ, HEAD_DIM), the served shape;
+    # "fp32" holds the 3xTF32 kernel's at (128, SEQ, HEAD_DIM), a hybrid-nb
+    # validation batch's
     t_k, t_p, t_l, bound = res[(32, HEAD_DIM, torch.bfloat16)]
+    f_k, f_p, f_l, f_bound = res[(128, HEAD_DIM, torch.float32)]
     return {"max_abs_err": max(errs), "ms": t_k, "plain_ms": t_p, "bound_ms": bound,
-            "bound_by": "operations", "library_ms": t_l}
+            "bound_by": "operations", "library_ms": t_l,
+            "fp32": {"bh": 128, "ms": f_k, "plain_ms": f_p, "bound_ms": f_bound,
+                     "library_ms": f_l}}
 
 
 def f32_bounds(flop):
@@ -1761,6 +1829,84 @@ def phase_train_parity(cfg):
     torch.cuda.empty_cache()
 
 
+# phase 7e: a hybrid-nb single model's validation batch (the fold builds its
+# models in fp32, so the transformer stage's 6 blocks take the flash route in
+# fp32, each at (B_VAL x 4 heads, 4096, 128)); its SE epilogues (block1,
+# block2) and modality attention run kernels 1 and 6 in fp32
+HYBRID_VAL_EXPECT = dict.fromkeys(COUNTERS, 0) | {"flash_attention_fwd": 6, "se_epilogue": 2,
+                                                  "se_scale": 1}
+HYBRID_VAL_RTOL = 1e-4  # card vs CPU logits over max|CPU logits|, fp32 both
+
+
+def phase_hybrid_validation(hcfg):
+    """The validation route of a full-width ``hybrid-nb`` DWI model:
+    ``make_single_eval_step`` on one batch of B_VAL processed 256^2 volumes
+    in fp32 (TF32 off), its launches and peak memory, its time by CUDA
+    events, one profiled batch (the flash forward's device time, the idle
+    share) and the first two volumes' logits against the same eval step on
+    the CPU.  Returns the batch's launches and a summary of the times."""
+    log(f"== phase 7e: hybrid-nb validation route at full width: make_single_eval_step on "
+        f"the DWI encoder (transformer stage, 6 blocks, {HEADS} heads of {HEAD_DIM}, {SEQ} "
+        f"tokens), B={B_VAL}, fp32 (TF32 off)")
+    model, rcfg = build_single_model(hcfg, "dwi", device=DEV, generator=gen(SEED))
+    clf = get_classification_loss_fn(rcfg, np.arange(rcfg.class_num), "dwi")
+    eval_step = make_single_eval_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"))
+    state = TrainState.create(model)
+    batch = dwi_batches(rcfg, 1, B_VAL, 43)[0]
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    logits, probs, _ = eval_step(state, batch)
+    torch.cuda.synchronize()
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated()
+    scratch = 4 * B_VAL * HEADS * SEQ * HEAD_DIM * 4  # fa.flash_forward's, one call at a time
+    log(f"  launches per validation batch {launched}; peak memory {peak / 2 ** 30:.3f} GiB, "
+        f"{(peak - base) / 2 ** 30:.3f} GiB above the model and batch, of which the fp32 "
+        f"flash forward's K/V scratch takes {scratch / 2 ** 30:.3f} GiB a call")
+    if launched != HYBRID_VAL_EXPECT:
+        raise AssertionError(f"hybrid-nb validation batch launched {launched}, expected "
+                             f"{HYBRID_VAL_EXPECT}")
+    if logits.shape != (B_VAL, rcfg.class_num) or not torch.isfinite(logits).all() \
+            or (probs.sum(-1) - 1).abs().max().item() > 1e-3:
+        raise AssertionError("validation logits not finite or misshapen, or probabilities "
+                             "not summing to 1")
+    batch_ms = cuda_time(lambda: eval_step(state, batch), reps=1, trials=5)
+    from torch.profiler import ProfilerActivity, profile
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        eval_step(state, batch)
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
+    device = sum(e.self_device_time_total for e in events) / 1e3
+    flash = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
+    log(f"  validation batch {batch_ms:.3f} ms (median of 5 by CUDA events), "
+        f"{B_VAL * 1e3 / batch_ms:.2f} volumes/s; one batch under the profiler {wall:.3f} ms, "
+        f"device time {device:.3f} ms ({100 * (1 - device / wall):.1f} % idle), flash "
+        f"forward {flash:.3f} ms ({100 * flash / device:.1f} % of the device time)")
+    for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
+        log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
+    cpu_model = copy.deepcopy(model).cpu().to(memory_format=torch.contiguous_format)
+    t0 = time.perf_counter()
+    cpu_logits = eval_step(TrainState.create(cpu_model),
+                           {k: v[:2].cpu() for k, v in batch.items()})[0]
+    err = (logits[:2].cpu() - cpu_logits).abs().max().item()
+    rel = err / cpu_logits.abs().max().item()
+    log(f"  first two volumes' logits, card vs CPU ({time.perf_counter() - t0:.1f} s): "
+        f"max_abs_err {err:.3e}, over max|CPU| {rel:.3e} (tolerance "
+        f"{HYBRID_VAL_RTOL:.0e}); CPU logits {cpu_logits.numpy().round(5).tolist()}")
+    if not rel <= HYBRID_VAL_RTOL:
+        raise AssertionError(f"hybrid-nb validation logits off the CPU's by {rel}")
+    del cpu_model, model, state, batch
+    torch.cuda.empty_cache()
+    return launched, {"val_batch_ms": batch_ms, "profiled_ms": wall, "device_ms": device,
+                      "flash_device_ms": flash, "peak_gib": peak / 2 ** 30,
+                      "peak_above_gib": (peak - base) / 2 ** 30}
+
+
 def all_finite(metrics):
     vals = []
     for v in metrics.values():
@@ -2223,12 +2369,13 @@ def main():
         fold_launches = phase_fold(cfg, raw, tmp, dwi_out, rcfg0)
         del dwi_out
     del raw
+    val_launches = phase_hybrid_validation(hcfg)[0]
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
-                for k in COUNTERS}
+                + val_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
-        f"single-modality runs and the fusion run: {launches}")
+        f"single-modality runs, the fusion run and the hybrid-nb validation batch: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")

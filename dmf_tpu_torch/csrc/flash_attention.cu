@@ -2,7 +2,7 @@
 //
 // Replaces the TPU kernels of dmf_tpu/ops/flash_attention.py, reached through
 // `flash_attention` (:281) and its custom VJP (:261-277):
-//   * `_flash_kernel` (:43)    -> wg::flash_fwd_wgmma (bf16), flash_fwd_kernel (fp32)
+//   * `_flash_kernel` (:43)    -> wg::flash_fwd_wgmma (bf16), tf::flash_fwd_tf32x3 (fp32)
 //   * `_bwd_dq_kernel` (:114)  -> wg::flash_bwd_dq_wgmma (bf16), flash_bwd_dq_kernel (fp32)
 //   * `_bwd_dkv_kernel` (:144) -> wg::flash_bwd_dkv_wgmma (bf16), flash_bwd_dkv_kernel (fp32)
 //
@@ -61,16 +61,60 @@
 // price: S, dP and P are computed in both kernels, 14 BH Nq Nk D FLOP and
 // two exponentials per score element against the fused form's 10 and one.
 //
-// The fp32 kernels are block-level products of tiles in shared memory on the
-// CUDA cores (block_mma: SIMT FMA, so fp32 results carry no TF32 rounding),
-// tiles staged with plain 16-byte loads.
+// The fp32 forward runs on the tensor cores as 3xTF32 (tf::flash_fwd_tf32x3,
+// the bf16 forward's shape).  The tensor cores take fp32 only as TF32 (10
+// mantissa bits), so every operand is split into hi = tf32(a) and lo =
+// tf32(a - hi) and each k8 step sums hi*hi + hi*lo + lo*hi (lo*lo, ~2^-22
+// relative, dropped): S = Q K^T and O += P V at fp32 accuracy for three
+// times the TF32 work (bound: 3 x 4 BH Nq Nk D FLOP at 495 TFLOP/s).
+//   * Shared memory decides the tiles.  Q's halves for 128 rows at D=128
+//     take 128 KB, so K and V^T tiles of 32 keys (64 at D=64; 32 KB with
+//     both halves) share one three-slot ring: K_0, V_0, K_1, ... (228 KB in
+//     all).  A product of 32 keys reads 3 KB of shared memory for 16
+//     tensor-core clocks, above the 128 bytes a clock it can take, so S
+//     runs as two products a k8 step, not three: Q_hi [K_hi; K_lo]^T at
+//     m64n64 (K's hi and lo rows stacked in the tile) and Q_lo K_hi^T at
+//     m64n32, 7 KB instead of 9 (7-9 % off the forward's time on the H100).
+//   * The consumers take turns issuing S (named barriers): one warpgroup's
+//     softmax runs while the other's products do, where warpgroups in step
+//     would leave the tensor cores idle through both softmaxes (10-11 %
+//     off the forward's time on the H100).
+//   * TF32 wgmma has no transpose bit: B must be K-major, so P V needs V^T
+//     (keys contiguous).  A pre-pass (flash_fwd_split_kv, launched by the
+//     same entry point) writes each key tile's K and V^T halves into the
+//     caller's scratch as the slot's image, swizzled, so the forward streams
+//     a slot with one bulk copy: every K/V tile is read by N_q/128 query
+//     blocks, and a split (and a transpose) inside the loop would repeat it
+//     that often, where the pre-pass reads K and V once and writes 4 BH N_k
+//     D x 4 bytes (0.58 ms at BH=128, N=4096, D=128 on the H100, against ~9
+//     ms for the forward).  Q is read once per block and split in shared
+//     memory by the consumers.
+//   * P is the register A operand of O += P V, split into hi and lo in
+//     registers.  The accumulator of S gives a thread keys 2(l%4) and
+//     2(l%4)+1 of each k8 step, the A operand wants positions l%4 and
+//     l%4+4: V^T's keys are stored in the order tf::perm8 so that the two
+//     agree without shuffles.
+//   * The tensor cores' own sum is coarser than an fp32 add (the 3xTF32
+//     conv missed the fp32 tolerance with one accumulator over K = 27648),
+//     so each tile's P V goes into an accumulator of its own, added into the
+//     fp32 O after the rescale: the JAX kernel's acc * alpha + P V (one
+//     accumulator across the key tiles, measured once on the H100, was
+//     within the fp32 tolerance at N=4096 but 8-25x further from float64).
+//     Each thread holds O and that sum (2 x D/2 registers) and P's halves
+//     (2 x BN/2), or O and S's two accumulators (BN + BN/2): 160 values of
+//     its 232 registers at D=128 (ptxas: 168 used, no spills).
+// The fp32 backward kernels are block-level products of tiles in shared
+// memory on the CUDA cores (block_mma: SIMT FMA, so fp32 results carry no
+// TF32 rounding), tiles staged with plain 16-byte loads.
 //
 // Rounding points.  bf16: P (forward, dK/dV) and dS (dQ, dK/dV) are rounded
 // to bf16 before they enter a tensor-core product; S, the softmax
 // statistics, every accumulator and lse stay fp32; outputs are rounded once.
-// fp32: nothing is rounded below fp32.  The plain version
-// (ops/flash_attention.py::flash_attention_ref) computes everything in fp32
-// from the input-dtype operands and rounds the output once.
+// fp32: the forward's products are 3xTF32 (fp32-class, ~2^-22 relative per
+// product), its sums fp32; the backward rounds nothing below fp32.  The
+// plain version (ops/flash_attention.py::flash_attention_ref) computes
+// everything in fp32 from the input-dtype operands and rounds the output
+// once.
 //
 // Deliberately not carried over from the TPU: the (N, 1) column layout of
 // lse/delta (here (BH, N) fp32 rows), the whole-sequence-in-VMEM K/V blocks
@@ -78,10 +122,12 @@
 // block's 128 rows, or a forward tile of 128 keys, may be half full.  TMA
 // reads zeros past N within a head (3-D tensor maps), never the next head's
 // rows; rows past N are not written.  Zero rows give S = 0, not -inf, so the
-// kernels mask what such rows would add: keys past N_k (-inf in the
+// kernels mask what such rows would add: keys past N_k (-inf in the bf16
 // forward, P = 0 in dQ) and queries past N_q (P = 0 in dK/dV).  Under the
 // wrapper's multiple of 64 the backward's 64-row ring tiles are always full
-// and those two masks never act; they keep a ragged tile exact.
+// and those two masks never act; they keep a ragged tile exact.  The fp32
+// forward's key tiles (32 or 64 keys) are always full: its launcher refuses
+// an N_k they do not divide.
 //
 // Plain C interface for ctypes: each *_launch returns cudaGetLastError()
 // after the launch (or the error of setting the shared-memory size or of
@@ -96,12 +142,13 @@
 
 namespace {
 
-constexpr int NT = 256;          // threads per block of the fp32 kernels
-constexpr int BQ = 64;           // query rows per block (fp32 forward, dQ)
-constexpr int BK = 64;           // key rows per step (fp32 forward, dQ) and per block (dK/dV)
+constexpr int NT = 256;          // threads per block of the fp32 backward kernels
+constexpr int BQ = 64;           // query rows per block (fp32 dQ)
+constexpr int BK = 64;           // key rows per step (fp32 dQ) and per block (fp32 dK/dV)
 constexpr int BQI = 32;          // query rows per step of the fp32 dK/dV kernel
 constexpr int PAD = 1;           // fp32 row padding: column walks hit distinct banks
 constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use on sm_90
+constexpr int BAD_ARGUMENT = -1; // a head width, type, length or kernel the library does not take
 
 using bf16 = __nv_bfloat16;
 
@@ -172,77 +219,6 @@ __device__ __forceinline__ void block_mma(const float* A, int lda, const float* 
   for (int i = 0; i < TM; ++i)
 #pragma unroll
     for (int j = 0; j < TN; ++j) C[(ty + i * TY) * ldc + tx + j * TX] = c[i][j];
-}
-
-// ------------------------------------------------------- forward, fp32 (SIMT)
-template <int D>
-constexpr int fwd_smem() {
-  constexpr int LD = D + PAD, LDP = BK + PAD;
-  return a128(BQ * LD * 4) + 2 * a128(BK * LD * 4) + a128(BQ * LDP * 4) +
-         a128(BQ * LDP * 4) + a128(BQ * LD * 4) + a128(BQ * 4);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_fwd_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                 const float* __restrict__ v, float* __restrict__ out, float* __restrict__ lse,
-                 int Nq, int Nk, float scale) {
-  constexpr int LD = D + PAD, LDP = BK + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  float* Qs = cv.take<float>(BQ * LD);
-  float* Ks = cv.take<float>(BK * LD);
-  float* Vs = cv.take<float>(BK * LD);
-  float* Ps = cv.take<float>(BQ * LDP);
-  float* Ss = cv.take<float>(BQ * LDP);
-  float* Os = cv.take<float>(BQ * LD);
-  float* Ls = cv.take<float>(BQ);
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const float* kb = k + bh * Nk * D;
-  const float* vb = v + bh * Nk * D;
-  load_tile<BQ, D>(Qs, LD, q + (bh * Nq + q0) * D);
-  for (int e = threadIdx.x; e < BQ * LD; e += NT) Os[e] = 0.f;
-  // softmax passes: 4 neighbouring lanes share a query row
-  const int r = threadIdx.x / 4, part = threadIdx.x % 4;
-  float m = -1e30f, l = 0.f;
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    __syncthreads();  // the previous step is done with Ks, Vs, Ps
-    load_tile<BK, D>(Ks, LD, kb + k0 * D);
-    load_tile<BK, D>(Vs, LD, vb + k0 * D);
-    __syncthreads();
-    block_mma<BQ, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDP, false);
-    __syncthreads();
-    float mx = -1e30f;
-    for (int c = part; c < BK; c += 4) mx = fmaxf(mx, Ss[r * LDP + c] * scale);
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-    const float m_new = fmaxf(m, mx);
-    float sum = 0.f;
-    for (int c = part; c < BK; c += 4) {
-      const float p = expf(Ss[r * LDP + c] * scale - m_new);
-      sum += p;
-      Ps[r * LDP + c] = p;
-    }
-    sum += __shfl_xor_sync(0xffffffffu, sum, 1);
-    sum += __shfl_xor_sync(0xffffffffu, sum, 2);
-    const float alpha = expf(m - m_new);
-    l = l * alpha + sum;
-    m = m_new;
-    for (int c = part; c < D; c += 4) Os[r * LD + c] *= alpha;
-    __syncthreads();
-    block_mma<BQ, D, BK, false, false>(Ps, LDP, Vs, LD, Os, LD, true);
-  }
-  if (part == 0) {
-    Ls[r] = l;
-    lse[bh * Nq + q0 + r] = m + logf(l);
-  }
-  __syncthreads();
-  float* ob = out + (bh * Nq + q0) * D;
-  for (int e = threadIdx.x; e < BQ * D; e += NT) {
-    const int rr = e / D, c = e % D;
-    ob[e] = Os[rr * LD + c] / Ls[rr];
-  }
 }
 
 // ------------------------------------------------------- bf16 (wgmma)
@@ -786,6 +762,323 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
 
 }  // namespace wg
 
+// ------------------------------------------------------- fp32 forward (3xTF32 wgmma)
+namespace tf {
+
+constexpr int BM = 128;             // query rows per block: two consumer warpgroups of 64
+constexpr int SLOT = 32768;         // a ring slot: one K or V^T tile, hi half then lo half
+constexpr int SLOTS = 3;            // ring depth; K and V tiles take turns
+constexpr int SPLIT_THREADS = 256;  // threads per block of the K/V pre-pass
+
+// Key order inside each group of 8 keys of a V^T tile: position c holds key
+// perm8(c).  The accumulator of S = Q K^T gives thread (lane l) the keys
+// 2(l%4) and 2(l%4)+1 of each k8 step, and the register A operand of P V
+// wants positions l%4 and l%4 + 4 (hopper.cuh); with V^T's keys in this
+// order P's registers are the A operand as they lie, no shuffles.
+__host__ __device__ constexpr int perm8(int c) { return c < 4 ? 2 * c : 2 * (c - 4) + 1; }
+
+// Shared memory: Q_hi and Q_lo (D/32 panels of BM x 128 B each), the ring,
+// then the barriers.  A K tile holds BN keys x D as D/32 panels of 2 BN
+// rows, the keys' hi rows then their lo rows, so that Q_hi [K_hi; K_lo]^T is
+// one m64n(2BN)k8 product per k8 step; a V^T tile holds D x BN keys as BN/32
+// panels of D rows, hi half then lo half.  Each half of a slot is 16 KB, so
+// BN = 32 at D=128 and 64 at D=64.
+template <int D>
+struct Layout {
+  static constexpr int BN = SLOT / (2 * D * 4);  // keys per tile
+  static constexpr int PANELS = D / 32;           // 128-byte column panels of a Q or K row
+  static constexpr int Q_HALF = BM * D * 4;
+  static constexpr int RING_OFF = 2 * Q_HALF;
+  static constexpr int BAR_OFF = RING_OFF + SLOTS * SLOT;
+  static constexpr int BYTES = BAR_OFF + 8 * (1 + 2 * SLOTS) + 1024;  // + alignment slack
+};
+static_assert(Layout<128>::BYTES <= SMEM_MAX, "3xTF32 forward shared memory");
+
+// Four fp32 values as their TF32 halves: hi = rna(x) at `hi`, lo = rna(x - hi) at `lo`.
+__device__ __forceinline__ void split4(float4 x, unsigned char* hi, unsigned char* lo) {
+  using hopper::tf32_rna;
+  const float4 h = make_float4(tf32_rna(x.x), tf32_rna(x.y), tf32_rna(x.z), tf32_rna(x.w));
+  *reinterpret_cast<float4*>(hi) = h;
+  *reinterpret_cast<float4*>(lo) = make_float4(tf32_rna(x.x - h.x), tf32_rna(x.y - h.y),
+                                               tf32_rna(x.z - h.z), tf32_rna(x.w - h.w));
+}
+
+// The pre-pass: key tile t of head bh becomes two slot images, in the order
+// the forward streams them, ((bh * N_k/BN + t) * 2 + {0: K, 1: V^T}) * SLOT
+// bytes into `img`: byte for byte what the slot holds, 128B-swizzled, so the
+// forward fetches each with one bulk copy.
+template <int D>
+__global__ void __launch_bounds__(SPLIT_THREADS)
+flash_fwd_split_kv(const float* __restrict__ k, const float* __restrict__ v,
+                   unsigned char* __restrict__ img, int Nk) {
+  using L = Layout<D>;
+  constexpr int BN = L::BN;
+  __shared__ float vs[BN][D + 1];
+  const int t = blockIdx.x, bh = blockIdx.y;
+  unsigned char* kimg = img + (static_cast<size_t>(bh) * (Nk / BN) + t) * 2 * SLOT;
+  unsigned char* vimg = kimg + SLOT;
+  const size_t first = (static_cast<size_t>(bh) * Nk + t * BN) * D;
+  const float4* kt = reinterpret_cast<const float4*>(k + first);
+  const float* vt = v + first;
+  // K: chunk c4 (4 columns) of key r -> panel c4/8, row r (hi) and BN + r
+  // (lo), swizzled chunk c4%8
+  for (int e = threadIdx.x; e < BN * D / 4; e += SPLIT_THREADS) {
+    const int r = e / (D / 4), c4 = e % (D / 4);
+    const uint32_t off = (c4 / 8) * 2 * BN * 128 + hopper::sw128(r, c4 % 8);
+    split4(kt[e], kimg + off, kimg + BN * 128 + off);
+  }
+  for (int e = threadIdx.x; e < BN * D; e += SPLIT_THREADS) vs[e / D][e % D] = vt[e];
+  __syncthreads();
+  // V^T: key positions 4c4..4c4+3 of row d -> panel c4/8, row d, swizzled chunk c4%8
+  for (int e = threadIdx.x; e < D * BN / 4; e += SPLIT_THREADS) {
+    const int d = e / (BN / 4), c4 = e % (BN / 4);
+    const int g = 4 * c4 - (4 * c4) % 8, c = (4 * c4) % 8;  // group of 8 keys, first position
+    const float4 x = make_float4(vs[g + perm8(c)][d], vs[g + perm8(c + 1)][d],
+                                 vs[g + perm8(c + 2)][d], vs[g + perm8(c + 3)][d]);
+    const uint32_t off = (c4 / 8) * D * 128 + hopper::sw128(d, c4 % 8);
+    split4(x, vimg + off, vimg + SLOT / 2 + off);
+  }
+}
+
+// S (+)= A B^T over one k8 step, N rows of B.
+template <int N>
+__device__ __forceinline__ void score_step(float (&s)[N / 2], uint64_t a, uint64_t b, int acc);
+template <>
+__device__ __forceinline__ void score_step<32>(float (&s)[16], uint64_t a, uint64_t b, int acc) {
+  hopper::wgmma_m64n32k8_tf32_ss(s, a, b, acc);
+}
+template <>
+__device__ __forceinline__ void score_step<64>(float (&s)[32], uint64_t a, uint64_t b, int acc) {
+  hopper::wgmma_m64n64k8_tf32_ss(s, a, b, acc);
+}
+template <>
+__device__ __forceinline__ void score_step<128>(float (&s)[64], uint64_t a, uint64_t b,
+                                                int acc) {
+  hopper::wgmma_m64n128k8_tf32_ss(s, a, b, acc);
+}
+
+// O (+)= P V over one k8 step, N = D, P from registers.
+template <int D>
+__device__ __forceinline__ void value_step(float (&o)[D / 2], const uint32_t (&a)[4], uint64_t b,
+                                           int acc);
+template <>
+__device__ __forceinline__ void value_step<64>(float (&o)[32], const uint32_t (&a)[4], uint64_t b,
+                                               int acc) {
+  hopper::wgmma_m64n64k8_tf32_rs(o, a, b, acc);
+}
+template <>
+__device__ __forceinline__ void value_step<128>(float (&o)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int acc) {
+  hopper::wgmma_m64n128k8_tf32_rs(o, a, b, acc);
+}
+
+// acc = P V over a V^T tile (the tile's own sum: the first product
+// overwrites acc): per k8 step hi*hi + lo*hi + hi*lo.
+template <int D, int BN>
+__device__ __forceinline__ void value_tile(float (&acc)[D / 2], const uint32_t (&ph)[BN / 8][4],
+                                           const uint32_t (&pl)[BN / 8][4],
+                                           const unsigned char* vs) {
+  using hopper::desc_sw128;
+#pragma unroll
+  for (int j = 0; j < BN / 8; ++j) {
+    const int off = (j / 4) * D * 128 + (j % 4) * 32;  // panel of 32 keys, k8 step in it
+    const uint64_t vh = desc_sw128(vs + off, 16, 1024);
+    value_step<D>(acc, ph[j], vh, j > 0);
+    value_step<D>(acc, pl[j], vh, 1);
+    value_step<D>(acc, ph[j], desc_sw128(vs + SLOT / 2 + off, 16, 1024), 1);
+  }
+}
+
+// Each tile's P V goes into an accumulator of its own, added into the fp32 O
+// after the rescale (the JAX kernel's acc * alpha + P V).
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* __restrict__ img,
+                 float* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, float scale) {
+  using namespace hopper;
+  using L = Layout<D>;
+  constexpr int BN = L::BN, PANELS = L::PANELS;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  unsigned char* ring = smem + L::RING_OFF;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = q_full + 1;
+  uint64_t* empty = full + SLOTS;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BM;
+  const int nkt = Nk / BN;  // the launcher takes N_k a multiple of BN: no ragged key tile
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < SLOTS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], wg::CONSUMERS);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= wg::CONSUMERS) {
+    // ---- producer: Q once (TMA, zeros past N_q), then K_0, V_0, K_1, ... one
+    // bulk copy of a slot image each
+    reg_dealloc<40>();
+    if (threadIdx.x == wg::CONSUMERS) {
+      mbar_arrive_expect_tx(q_full, L::Q_HALF);
+      for (int p = 0; p < PANELS; ++p)
+        tma_load_3d(smem + p * BM * 128, &qmap, q_full, p * 32, q0, bh);
+      const unsigned char* src = img + static_cast<size_t>(bh) * nkt * 2 * SLOT;
+      for (int i = 0; i < 2 * nkt; ++i) {
+        const int s = i % SLOTS;
+        mbar_wait(&empty[s], ((i / SLOTS) & 1) ^ 1);
+        mbar_arrive_expect_tx(&full[s], SLOT);
+        bulk_load(ring + s * SLOT, src + static_cast<size_t>(i) * SLOT, SLOT, &full[s]);
+      }
+    }
+  } else {
+    // ---- consumers: 64 query rows per warpgroup
+    reg_alloc<232>();
+    const int wgi = threadIdx.x / 128, t = threadIdx.x % 128;
+    const int lane = t % 32, quad = lane % 4;
+    const float c = scale * wg::kLog2e;  // S -> log2 units
+    unsigned char* qh = smem + wgi * 64 * 128;  // this warpgroup's rows of each panel
+    const unsigned char* ql = qh + L::Q_HALF;
+    // Q is read by every key tile: split once, hi in place and lo into Q_lo
+    mbar_wait(q_full, 0);
+#pragma unroll
+    for (int p = 0; p < PANELS; ++p)
+#pragma unroll
+      for (int j = t; j < 64 * 8; j += 128) {  // 16-byte chunks of 64 rows of the panel
+        unsigned char* at = qh + p * BM * 128 + 16 * j;
+        split4(*reinterpret_cast<const float4*>(at), at, at + L::Q_HALF);
+      }
+    fence_proxy_async();
+    named_barrier(1 + wgi, 128);  // the warpgroup's split is visible to its wgmma
+    // The warpgroups take turns issuing S (barriers 3 + w): warpgroup 1's S
+    // queues behind warpgroup 0's on the tensor cores, so one warpgroup's
+    // softmax runs while the other's products do, instead of both at once.
+    // Warpgroup 0 goes first; warpgroup 1 skips its last signal, so every
+    // arrival is waited on.
+    if (wgi == 1) named_barrier_arrive(3, 256);
+
+    float sa[BN], sb[BN / 2], o[D / 2], part[D / 2];
+#pragma unroll
+    for (int i = 0; i < BN; ++i) sa[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BN / 2; ++i) sb[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
+    float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    for (int kt = 0; kt < nkt; ++kt) {
+      const int ik = 2 * kt, iv = ik + 1;  // ring items of this tile's K and V^T
+      const unsigned char* ks = ring + (ik % SLOTS) * SLOT;
+      const unsigned char* vs = ring + (iv % SLOTS) * SLOT;
+      // S = Q K^T over D in k8 steps (32 bytes inside a 32-column panel):
+      // sa = Q_hi [K_hi; K_lo]^T (hi*hi in its first BN columns, hi*lo in
+      // the next BN) and sb = Q_lo K_hi^T, two products a step where three
+      // would each read Q_hi or K_hi again
+      mbar_wait(&full[ik % SLOTS], (ik / SLOTS) & 1);
+      named_barrier(3 + wgi, 256);  // this warpgroup's turn
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < D / 8; ++kk) {
+        const int qo = (kk / 4) * BM * 128 + (kk % 4) * 32;
+        const uint64_t kd = desc_sw128(ks + (kk / 4) * 2 * BN * 128 + (kk % 4) * 32, 16, 1024);
+        score_step<2 * BN>(sa, desc_sw128(qh + qo, 16, 1024), kd, kk > 0);
+        score_step<BN>(sb, desc_sw128(ql + qo, 16, 1024), kd, kk > 0);
+      }
+      wgmma_commit();
+      if (wgi == 0 || kt + 1 < nkt) named_barrier_arrive(4 - wgi, 256);  // the other's turn
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(sb);
+      mbar_arrive(&empty[ik % SLOTS]);  // K's slot refills while the softmax runs
+      float s[BN / 2];  // hi*hi + hi*lo + lo*hi of this thread's keys
+#pragma unroll
+      for (int i = 0; i < BN / 2; ++i) s[i] = sa[i] + sa[i + BN / 2] + sb[i];
+      // online softmax on the registers: row h of this thread is 16w + l/4 + 8h
+      float mx[2] = {m[0], m[1]};
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
+        mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
+      }
+      float alpha[2], mc[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 1));
+        mx[h] = fmaxf(mx[h], __shfl_xor_sync(0xffffffffu, mx[h], 2));
+        alpha[h] = exp2f((m[h] - mx[h]) * c);
+        m[h] = mx[h];
+        mc[h] = mx[h] * c;
+      }
+      // P and its TF32 halves as the A operand of each k8 step: positions
+      // (l%4, l%4 + 4) x rows (g, g + 8) are s[4j + {0, 2, 1, 3}] (perm8)
+      uint32_t ph[BN / 8][4], pl[BN / 8][4];
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        const float p[4] = {exp2f(fmaf(s[4 * j], c, -mc[0])), exp2f(fmaf(s[4 * j + 2], c, -mc[1])),
+                            exp2f(fmaf(s[4 * j + 1], c, -mc[0])),
+                            exp2f(fmaf(s[4 * j + 3], c, -mc[1]))};
+        sum[0] += p[0] + p[2];
+        sum[1] += p[1] + p[3];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float hi = tf32_rna(p[e]);
+          ph[j][e] = __float_as_uint(hi);
+          pl[j][e] = __float_as_uint(tf32_rna(p[e] - hi));
+        }
+      }
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 1);
+        sum[h] += __shfl_xor_sync(0xffffffffu, sum[h], 2);
+        l[h] = l[h] * alpha[h] + sum[h];
+      }
+      // O += P V, V^T K-major (keys contiguous): 8 keys are 32 bytes of a panel
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {  // packed before the fence
+        fence_regs(ph[j]);
+        fence_regs(pl[j]);
+      }
+      mbar_wait(&full[iv % SLOTS], (iv / SLOTS) & 1);
+      wgmma_fence();
+      value_tile<D, BN>(part, ph, pl, vs);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int j = 0; j < BN / 8; ++j) {
+        fence_regs(ph[j]);
+        fence_regs(pl[j]);
+      }
+      mbar_arrive(&empty[iv % SLOTS]);
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j] = fmaf(o[4 * j], alpha[0], part[4 * j]);
+        o[4 * j + 1] = fmaf(o[4 * j + 1], alpha[0], part[4 * j + 1]);
+        o[4 * j + 2] = fmaf(o[4 * j + 2], alpha[1], part[4 * j + 2]);
+        o[4 * j + 3] = fmaf(o[4 * j + 3], alpha[1], part[4 * j + 3]);
+      }
+    }
+    // epilogue: out = O / l, lse = m * scale + log(l); rows past N_q not written
+    const int row0 = q0 + wgi * 64 + (t / 32) * 16 + lane / 4;
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int row = row0 + 8 * h;
+      if (row >= Nq) continue;
+      const int at = bh * Nq + row;
+      if (quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      float* orow = out + at * D + 2 * quad;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j)
+        *reinterpret_cast<float2*>(orow + 8 * j) =
+            make_float2(o[4 * j + 2 * h] / l[h], o[4 * j + 2 * h + 1] / l[h]);
+    }
+  }
+}
+
+}  // namespace tf
+
 // ------------------------------------------------------------------ dQ, fp32 (SIMT)
 template <int D>
 constexpr int dq_smem() {
@@ -911,7 +1204,6 @@ flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
   }
 }
 
-static_assert(fwd_smem<128>() <= SMEM_MAX, "forward shared memory");
 static_assert(dq_smem<128>() <= SMEM_MAX, "dQ shared memory");
 static_assert(dkv_smem<128>() <= SMEM_MAX, "dK/dV shared memory");
 
@@ -921,24 +1213,38 @@ cudaError_t allow_smem(Kernel kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
 }
 
-// (BH, rows, D) bf16 as a 3-D tensor map {D, rows, BH}: boxes of 64 columns x
-// box_rows rows x 1 head; rows past the tensor's (a ragged tile) read zeros
-// instead of the next head's.
-template <int D>
+// (BH, rows, D) bf16 or fp32 as a 3-D tensor map {D, rows, BH}: boxes of one
+// 128-byte row of columns (64 bf16, 32 fp32) x box_rows rows x 1 head; rows
+// past the tensor's (a ragged tile) read zeros instead of the next head's.
+template <int D, typename T = bf16>
 cudaError_t head_map(CUtensorMap* map, const void* p, int rows, int bh, int box_rows) {
-  return hopper::tensor_map_3d(map, p, D, rows, bh, D * 2ull, static_cast<uint64_t>(rows) * D * 2,
-                               64, box_rows, 1);
+  constexpr uint64_t es = sizeof(T);
+  return hopper::tensor_map_3d(map, p, D, rows, bh, D * es, static_cast<uint64_t>(rows) * D * es,
+                               128 / es, box_rows, 1,
+                               es == 4 ? CU_TENSOR_MAP_DATA_TYPE_FLOAT32
+                                       : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
+// The fp32 forward: the K/V pre-pass into `img` (4 x BH x N_k x D floats, the
+// caller's scratch), then the 3xTF32 kernel.
 template <int D>
-int fwd_f32(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int nq,
-            int nk, float scale, cudaStream_t s) {
-  constexpr int bytes = fwd_smem<D>();
-  cudaError_t e = allow_smem(flash_fwd_kernel<D>, bytes);
+int fwd_tf32x3(const void* q, const void* k, const void* v, void* out, void* lse, void* img,
+               int bh, int nq, int nk, float scale, cudaStream_t s) {
+  using L = tf::Layout<D>;
+  if (nk % L::BN) return BAD_ARGUMENT;
+  tf::flash_fwd_split_kv<D><<<dim3(nk / L::BN, bh), tf::SPLIT_THREADS, 0, s>>>(
+      static_cast<const float*>(k), static_cast<const float*>(v),
+      static_cast<unsigned char*>(img), nk);
+  cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_fwd_kernel<D><<<dim3(nq / BQ, bh), NT, bytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), static_cast<float*>(lse), nq, nk, scale);
+  CUtensorMap qmap;
+  e = head_map<D, float>(&qmap, q, nq, bh, tf::BM);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  e = allow_smem(tf::flash_fwd_tf32x3<D>, L::BYTES);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  tf::flash_fwd_tf32x3<D><<<dim3((nq + tf::BM - 1) / tf::BM, bh), wg::THREADS, L::BYTES, s>>>(
+      qmap, static_cast<const unsigned char*>(img), static_cast<float*>(out),
+      static_cast<float*>(lse), nq, nk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1037,23 +1343,25 @@ int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const
   return static_cast<int>(cudaGetLastError());
 }
 
-constexpr int BAD_ARGUMENT = -1;  // a head width, type or kernel the library does not take
-
 }  // namespace
 
+// fp32 takes `scratch`, 4 x BH x N_k x D floats (16-byte aligned) for the
+// split K/V images; bf16 does not read it.
 extern "C" int flash_fwd_launch(int is_bf16, int d, const void* q, const void* k,
-                                const void* v, void* out, void* lse, int bh, int nq, int nk,
-                                float scale, void* stream) {
+                                const void* v, void* out, void* lse, void* scratch, int bh,
+                                int nq, int nk, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && d == 128) return fwd_wgmma<128>(q, k, v, out, lse, bh, nq, nk, scale, s);
   if (is_bf16 && d == 64) return fwd_wgmma<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
-  if (!is_bf16 && d == 128) return fwd_f32<128>(q, k, v, out, lse, bh, nq, nk, scale, s);
-  if (!is_bf16 && d == 64) return fwd_f32<64>(q, k, v, out, lse, bh, nq, nk, scale, s);
+  if (!is_bf16 && d == 128)
+    return fwd_tf32x3<128>(q, k, v, out, lse, scratch, bh, nq, nk, scale, s);
+  if (!is_bf16 && d == 64)
+    return fwd_tf32x3<64>(q, k, v, out, lse, scratch, bh, nq, nk, scale, s);
   return BAD_ARGUMENT;
 }
 
-// Dynamic shared memory of a bf16 kernel (0 forward, 1 dQ, 2 dK/dV) at head
-// width d, for build reports.
+// Dynamic shared memory of a wgmma kernel (0 bf16 forward, 1 dQ, 2 dK/dV, 3
+// the 3xTF32 forward) at head width d, for build reports.
 extern "C" int flash_wgmma_smem(int kernel, int d) {
   if (d != 64 && d != 128) return BAD_ARGUMENT;
   const bool w = d == 128;
@@ -1061,6 +1369,7 @@ extern "C" int flash_wgmma_smem(int kernel, int d) {
     case 0: return w ? wg::Smem<128>::BYTES : wg::Smem<64>::BYTES;
     case 1: return w ? wg::DqSmem<128>::BYTES : wg::DqSmem<64>::BYTES;
     case 2: return w ? wg::DkvSmem<128>::BYTES : wg::DkvSmem<64>::BYTES;
+    case 3: return w ? tf::Layout<128>::BYTES : tf::Layout<64>::BYTES;
     default: return BAD_ARGUMENT;
   }
 }

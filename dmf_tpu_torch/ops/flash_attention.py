@@ -13,8 +13,13 @@ There is no fallback from one to the other.
 The bf16 kernels run on Hopper's ``wgmma`` fed by TMA through a shared-memory
 ring (``flash_fwd_wgmma``, ``flash_bwd_dq_wgmma``, ``flash_bwd_dkv_wgmma``):
 two backward kernels, each owning its output rows, so there are no atomics
-and two calls give the same bits.  The fp32 kernels are block-level products
-of shared-memory tiles on the CUDA cores (no TF32 rounding).
+and two calls give the same bits.  The fp32 forward runs on the same shape as
+3xTF32 ``wgmma`` (``flash_fwd_tf32x3``: every operand split into TF32 halves,
+three products a k8 step, each key tile's P V added into an fp32 sum), after
+a pre-pass that writes K and V^T split and swizzled into a scratch tensor
+the wrapper allocates (4 x the size of k).  The fp32 backward kernels are
+block-level products of shared-memory tiles on the CUDA cores (no TF32
+rounding).
 
 Numerics: the plain version computes the scores, the softmax and the value
 product in fp32 from the input-dtype operands and rounds the output once;
@@ -59,7 +64,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention", _SOURCES)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-    lib.flash_fwd_launch.argtypes = [i, i] + [p] * 5 + [i, i, i, f, p]
+    lib.flash_fwd_launch.argtypes = [i, i] + [p] * 6 + [i, i, i, f, p]
     lib.flash_bwd_dq_launch.argtypes = [i, i] + [p] * 7 + [i, i, i, f, p]
     lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch):
@@ -114,12 +119,18 @@ def _launch(fn, q: torch.Tensor, *ptrs, nq: int, nk: int, scale: float) -> None:
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Launch the forward kernel on (BH, N, D) CUDA tensors: ``(out, lse)``."""
+    """Launch the forward kernel on (BH, N, D) CUDA tensors: ``(out, lse)``.
+
+    fp32 takes a scratch tensor of 4 x k's size for the split K/V tiles.
+    """
     _check_operands(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], device=q.device, dtype=torch.float32)
+    f32 = q.dtype == torch.float32
+    scratch = torch.empty(4 * k.numel() if f32 else 0, device=q.device, dtype=torch.float32)
     _launch(_library().flash_fwd_launch, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), lse.data_ptr(), nq=q.shape[1], nk=k.shape[1], scale=scale)
+            out.data_ptr(), lse.data_ptr(), scratch.data_ptr(), nq=q.shape[1], nk=k.shape[1],
+            scale=scale)
     flash_attention.launches += 1
     return out, lse
 

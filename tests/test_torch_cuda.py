@@ -163,19 +163,35 @@ def _close_rel(got, ref, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("nq,nk", [(128, 128), (64, 192), (4096, 4096)])
+@pytest.mark.parametrize("nq,nk", [(128, 128), (64, 192), (4096, 4096), (192, 192),
+                                   (192, 320), (320, 64), (1024, 448)])
 def test_flash_attention_kernels(dev, dtype, d, nq, nk):
+    """The forward at BH = 2 against the plain version (out, lse), then
+    autograd through ``flash_attention`` against the plain version's: N % 128
+    = 64 (the last query block half full), N_q != N_k, D 64 and 128.  fp32
+    (the 3xTF32 forward) also: q and k scaled by 1.5, where one TF32 product
+    would miss the tolerance (tests/test_torch_flash_f32.py), out and lse
+    within TOL[float32] of a float64 attention, two calls the same bits."""
+    f32 = dtype == torch.float32
     g = torch.Generator(device=dev).manual_seed(2)
-    q, k, v = (torch.randn(1, 2, n, d, device=dev, generator=g).to(dtype)
-               for n in (nq, nk, nk))
+    q, k, v = (torch.randn(1, 2, n, d, device=dev, generator=g) * s
+               for n, s in ((nq, 1.5 if f32 else 1.0), (nk, 1.5 if f32 else 1.0), (nk, 1.0)))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
     cot = torch.randn(1, 2, nq, d, device=dev, generator=g).to(dtype)
     fa.flash_attention.launches = fa.flash_attention.launches_dq = 0
     fa.flash_attention.launches_dkv = 0
-    out, lse = fa.flash_forward(q.view(2, nq, d), k.view(2, nk, d), v.view(2, nk, d),
-                                d ** -0.5)
+    heads = (q.view(2, nq, d), k.view(2, nk, d), v.view(2, nk, d))
+    out, lse = fa.flash_forward(*heads, d ** -0.5)
     ref_out, ref_lse = fa.flash_attention_ref(q, k, v)
     _close(out.view_as(q), ref_out, dtype)
     _close(lse.view(1, 2, nq), ref_lse, dtype)
+    if f32:
+        again = fa.flash_forward(*heads, d ** -0.5)
+        assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
+        s64 = torch.einsum("bqd,bkd->bqk", heads[0].double(), heads[1].double()) * d ** -0.5
+        lse64 = torch.logsumexp(s64, -1)
+        _close(out, torch.exp(s64 - lse64[..., None]) @ heads[2].double(), dtype)
+        _close(lse, lse64, dtype)
     leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     (fa.flash_attention(*leaves).float() * cot.float()).sum().backward()
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
@@ -183,7 +199,7 @@ def test_flash_attention_kernels(dev, dtype, d, nq, nk):
     for a, b in zip(leaves, ref_leaves):
         _close_rel(a.grad, b.grad, dtype)
     assert (fa.flash_attention.launches, fa.flash_attention.launches_dq,
-            fa.flash_attention.launches_dkv) == (2, 1, 1)
+            fa.flash_attention.launches_dkv) == (3 if f32 else 2, 1, 1)
 
 
 @pytest.mark.parametrize("d", [64, 128])
