@@ -18,12 +18,16 @@ Phases, each printing its own lines:
      maps of hybrid-nb), 3b conv3x3+BN+GELU, 3c
      flash-attention forward (fp32 on the 3xTF32 kernel at (32 | 128, 4096,
      128) and (32, 4096, 64), two calls compared bit for bit, its error and
-     the plain version's against a float64 attention; bf16 beside it), 3d its backward (dQ, dK/dV; two calls
-     compared bit for bit),
-     with, for the wgmma kernels (3b, 3c, 3d bf16), the kernel's own device
-     time per call (profiler), its TFLOP/s and share of the bound, and the
-     kernel timed in turns with its library yardstick (SDPA in fp32 with
-     TF32 off for the fp32 forward) and their ratio;
+     the plain version's against a float64 attention; bf16 beside it), 3d
+     its backward (dQ, dK/dV; fp32 on the 3xTF32 kernels at (32 | 128,
+     4096, 128) and (32, 4096, 64), bf16 beside it; two calls compared bit
+     for bit; the fp32 kernels' error and the plain version's against a
+     float64 backward at (32, 4096, 128)), with, for the wgmma kernels (3b,
+     3c, 3d), the kernel's own device
+     time per call (profiler; fp32 flash: its pre-pass included), its TFLOP/s
+     and share of the bound, and the kernel timed in turns with its library
+     yardstick (SDPA in fp32 with TF32 off for the fp32 flash kernels) and
+     their ratio;
      3e the DWI z-score, 3f the histogram percentiles (max-normalised
      synthetic DCE rows at (48 | 1536, 65536), the same with 60 % of each
      row at 0, ragged and unaligned rows at (48, 65539) and (7, 10007),
@@ -38,9 +42,10 @@ Phases, each printing its own lines:
      TFLOP/s); the memory-bound kernels
      (3a, 3e-3g) with their device time, GB/s and share of the bytes bound;
      3h autograd through the full-width hybrid-nb transformer stage in bf16
-     (the backward kernels' path: 6 launches of dQ and of dK/dV a backward),
-     its gradients against an fp32 copy on the plain route at B=2 and its
-     backward timed at B=8;
+     and in fp32 (the backward kernels' path: 6 launches of dQ and of dK/dV
+     a backward), its gradients against an fp32 copy on the plain route at
+     B=2 and its backward timed at B=8 (CUDA events, peak memory, one
+     profiled backward with the flash backward kernels' share);
   4. end-to-end parity, card (kernels) vs CPU (plain versions), fp32,
      seeded random weights at full width: 4 the default ResNet-50 models in
      ``tta`` at B=2, 4b the hybrid-transformer no-backbone models
@@ -183,7 +188,9 @@ B_STAGE_PARITY = 2
 # activations through 6 pre-LN blocks alone put some gradients (the LayerNorm
 # weights') a few percent off fp32; phase 3h prints a bf16 plain-route copy's
 # error beside the kernels'
-STAGE_TOL = 2.0 ** -4
+STAGE_TOL = {torch.bfloat16: 2.0 ** -4,
+             # fp32 (the 3xTF32 flash kernels): sums in other orders
+             torch.float32: 1e-4}
 # standalone SE maps (N, side, C) of a tta_mc request at B=8: modality
 # attention on the dwi and dce inputs (4 views), fusion_se on the lean chunk
 # (9 passes x 4 views) and on the last pass
@@ -767,9 +774,9 @@ def attn_inputs(bh, dtype, g, n=4):
             for _ in range(n)]
 
 
-# the fp32 forward's kernels (the K/V pre-pass and the 3xTF32 kernel), as the
-# profiler names them
-F32_FWD_KERNELS = ("flash_fwd_split_kv", "flash_fwd_tf32x3")
+# the fp32 forward's kernels (the K/V pre-pass, twice a call, and the 3xTF32
+# kernel), as the profiler names them
+F32_FWD_KERNELS = ("flash_split", "flash_fwd_tf32x3")
 
 
 def attention_f64(q, k, v, scale, heads=4):
@@ -880,27 +887,84 @@ def f32_bounds(flop):
 
 def bwd_bounds(bh, d, el):
     """The bound (ms) of dQ and of dK/dV at (bh, SEQ, d), element size ``el``:
-    the larger of their bf16 tensor-core operations (6 and 8 BH N^2 D) and
-    their bytes (q, k, v, dout, lse, delta read once; dq, or dk and dv,
-    written once) over the memory rate."""
+    the larger of their tensor-core operations (6 and 8 BH N^2 D; bf16, or
+    fp32 as 3xTF32: 3x the operations at the TF32 rate) and their bytes (q,
+    k, v, dout, lse, delta read once; dq, or dk and dv, written once) over
+    the memory rate."""
     rows = bh * SEQ
     out = []
     for mult, outs in ((6, 1), (8, 2)):
         flop = mult * bh * SEQ * SEQ * d
+        ops = 3 * flop / TF32_FLOP_PER_S if el == 4 else flop / BF16_FLOP_PER_S
         nbytes = (4 + outs) * rows * d * el + 2 * rows * 4
-        out.append((max(flop / BF16_FLOP_PER_S, nbytes / HBM_BYTES_PER_S) * 1e3, flop))
+        out.append((max(ops, nbytes / HBM_BYTES_PER_S) * 1e3, flop))
     return out
+
+
+# the fp32 backward's kernels as the profiler names them: the pre-pass that
+# writes the streamed operands' images (twice a call) and each 3xTF32 kernel
+F32_DQ_KERNELS = ("flash_split", "flash_bwd_dq_tf32x3")
+F32_DKV_KERNELS = ("flash_split", "flash_bwd_dkv_tf32x3")
+
+
+def attention_grads_f64(q, k, v, dout, scale, heads=4):
+    """``(dq, dk, dv)`` of attention in float64 over (BH, N, D), ``heads`` at
+    a time (autograd through the materialized softmax)."""
+    grads = [torch.empty(t.shape, device=DEV, dtype=torch.float64) for t in (q, k, v)]
+    for h0 in range(0, q.shape[0], heads):
+        sl = slice(h0, h0 + heads)
+        leaves = [t[sl].double().requires_grad_() for t in (q, k, v)]
+        s = torch.einsum("bqd,bkd->bqk", leaves[0], leaves[1]) * scale
+        got = torch.autograd.grad(torch.softmax(s, -1) @ leaves[2], leaves, dout[sl].double())
+        for r, gr in zip(grads, got):
+            r[sl] = gr
+        del leaves, s, got
+    return grads
+
+
+def flash_bwd_f64(g):
+    """The fp32 backward (3xTF32, each tile's product into a sum of its own)
+    and autograd through the plain version against a float64 backward at
+    (32, SEQ, HEAD_DIM) with q, k scaled by 1.5 (where one TF32 product
+    would miss the tolerance: tests/test_torch_flash_f32.py), each error
+    over max|float64|.  Returns the kernels' errors: ``(dq, dkv)``."""
+    scale = HEAD_DIM ** -0.5
+    q, k = (torch.randn(32, SEQ, HEAD_DIM, device=DEV, generator=g) * 1.5 for _ in range(2))
+    v, dout = (torch.randn(32, SEQ, HEAD_DIM, device=DEV, generator=g) for _ in range(2))
+    ref = attention_grads_f64(q, k, v, dout, scale)
+    out, lse = fa.flash_forward(q, k, v, scale)
+    delta = fa.backward_delta(out, dout)
+    got = (fa.flash_bwd_dq(q, k, v, dout, lse, delta, scale),
+           *fa.flash_bwd_dkv(q, k, v, dout, lse, delta, scale))
+    plain = torch.empty_like(ref[0]), torch.empty_like(ref[1]), torch.empty_like(ref[2])
+    for h0 in range(0, 32, 8):
+        sl = slice(h0, h0 + 8)
+        leaves = [t[sl].clone().requires_grad_() for t in (q, k, v)]
+        for r, gr in zip(plain, torch.autograd.grad(fa.flash_attention_ref(*leaves, scale)[0],
+                                                    leaves, dout[sl])):
+            r[sl] = gr
+    tag = f"float32 BH=32 D={HEAD_DIM}, q, k x 1.5"
+    errs = []
+    for name, a, p, r in zip(("dq", "dk", "dv"), got, plain, ref):
+        errs.append(check_rel(f"{tag}, kernel {name} against float64", a, r, torch.float32))
+        log(f"  {tag}, plain version {name} against float64: max_abs_err "
+            f"{(p.double() - r).abs().max().item():.3e}")
+    del q, k, v, dout, ref, out, lse, delta, got, plain
+    torch.cuda.empty_cache()
+    return errs[0], max(errs[1:])
 
 
 def phase_flash_backward():
     log(f"== phase 3d: flash_attention backward (CUDA dQ, dK/dV) vs autograd through "
-        f"the plain version, (B*H, N, D) = (32 | 128 bf16, {SEQ}, {HEAD_DIM} | 64 bf16), "
-        f"seeded cotangent; two calls of each kernel compared bit for bit")
+        f"the plain version, (B*H, N, D) = (32 | 128, {SEQ}, {HEAD_DIM} | 64), fp32 "
+        f"(3xTF32) and bf16, seeded cotangent; two calls of each kernel compared bit for "
+        f"bit; against SDPA's backward in turns (fp32: TF32 off); fp32 against float64")
     g = gen(7)
     errs = {"dq": [], "dkv": []}
     res = {}
     for bh, d, dtype in ((32, HEAD_DIM, torch.float32), (32, HEAD_DIM, torch.bfloat16),
-                         (128, HEAD_DIM, torch.bfloat16), (32, 64, torch.bfloat16)):
+                         (128, HEAD_DIM, torch.float32), (128, HEAD_DIM, torch.bfloat16),
+                         (32, 64, torch.float32), (32, 64, torch.bfloat16)):
         scale = d ** -0.5
         q, k, v, dout = (torch.randn(bh, SEQ, d, device=DEV, generator=g).to(dtype)
                          for _ in range(4))
@@ -954,6 +1018,7 @@ def phase_flash_backward():
             return torch.autograd.grad(lib_out, lib_leaves, lib_dout, retain_graph=True)
 
         t_l = cuda_time(sdpa_bwd, reps=3, trials=3)
+        f32 = dtype == torch.float32
         (b_dq, f_dq), (b_dkv, f_dkv) = bwd_bounds(bh, d, q.element_size())
         plain = (f"plain {t_pdq:.4f} / {t_pdkv:.4f} ms" if t_pdq is not None
                  else "plain not timed at this size")
@@ -961,22 +1026,34 @@ def phase_flash_backward():
             f"{b_dq:.4f}); dK/dV kernel {t_dkv:.4f} ms ({f_dkv / t_dkv / 1e9:.1f} TFLOP/s, "
             f"bound {b_dkv:.4f}); {plain}; SDPA backward (dq, dk, dv in one call) "
             f"{t_l:.4f} ms (median)"
-            + (f"; dQ {f32_bounds(f_dq)}; dK/dV {f32_bounds(f_dkv)}"
-               if dtype == torch.float32 else ""))
-        if dtype == torch.bfloat16:
-            t_kt, t_lt = in_turns(lambda: (dq_call(), dkv_call()), sdpa_bwd, reps=3, trials=3)
-            log(f"  {tag}: in turns dQ + dK/dV {t_kt:.4f} ms, SDPA backward {t_lt:.4f} ms, "
-                f"ratio {t_kt / t_lt:.3f}; their bound {b_dq + b_dkv:.4f} ms")
-            device_rate(f"{tag} dQ", dq_call, ("flash_bwd_dq_wgmma",), b_dq, flop=f_dq)
-            device_rate(f"{tag} dK/dV", dkv_call, ("flash_bwd_dkv_wgmma",), b_dkv, flop=f_dkv)
+            + (f"; dQ {f32_bounds(f_dq)}; dK/dV {f32_bounds(f_dkv)}" if f32 else ""))
+        t_kt, t_lt = in_turns(lambda: (dq_call(), dkv_call()), sdpa_bwd, reps=3, trials=3)
+        log(f"  {tag}: in turns dQ + dK/dV {t_kt:.4f} ms, SDPA backward {t_lt:.4f} ms "
+            f"({'fp32, TF32 off' if f32 else 'bf16'}), ratio {t_kt / t_lt:.3f}; their bound "
+            f"{b_dq + b_dkv:.4f} ms")
+        device_rate(f"{tag} dQ" + (" (pre-pass + 3xTF32 kernel)" if f32 else ""), dq_call,
+                    F32_DQ_KERNELS if f32 else ("flash_bwd_dq_wgmma",), b_dq, flop=f_dq)
+        device_rate(f"{tag} dK/dV" + (" (pre-pass + 3xTF32 kernel)" if f32 else ""), dkv_call,
+                    F32_DKV_KERNELS if f32 else ("flash_bwd_dkv_wgmma",), b_dkv, flop=f_dkv)
         res[(bh, d, dtype)] = (t_dq, t_pdq, b_dq, t_dkv, t_pdkv, b_dkv, t_l)
         del q, k, v, dout, out, lse, delta, lib_leaves, lib_out, lib_dout
         torch.cuda.empty_cache()
+    e_dq, e_dkv = flash_bwd_f64(g)
+    errs["dq"].append(e_dq)
+    errs["dkv"].append(e_dkv)
+    # the entries' times are bf16 at (32, SEQ, HEAD_DIM), the served shape;
+    # "fp32" holds the 3xTF32 kernels' at the same shape, the fp32 stage
+    # backward's at B=8 (phase 3h)
     t_dq, t_pdq, b_dq, t_dkv, t_pdkv, b_dkv, t_l = res[(32, HEAD_DIM, torch.bfloat16)]
+    f_dq, f_pdq, fb_dq, f_dkv, f_pdkv, fb_dkv, f_l = res[(32, HEAD_DIM, torch.float32)]
     return ({"max_abs_err": max(errs["dq"]), "ms": t_dq, "plain_ms": t_pdq,
-             "bound_ms": b_dq, "bound_by": "operations", "library_ms": t_l},
+             "bound_ms": b_dq, "bound_by": "operations", "library_ms": t_l,
+             "fp32": {"bh": 32, "ms": f_dq, "plain_ms": f_pdq, "bound_ms": fb_dq,
+                      "library_ms": f_l}},
             {"max_abs_err": max(errs["dkv"]), "ms": t_dkv, "plain_ms": t_pdkv,
-             "bound_ms": b_dkv, "bound_by": "operations", "library_ms": t_l})
+             "bound_ms": b_dkv, "bound_by": "operations", "library_ms": t_l,
+             "fp32": {"bh": 32, "ms": f_dkv, "plain_ms": f_pdkv, "bound_ms": fb_dkv,
+                      "library_ms": f_l}})
 
 
 @contextlib.contextmanager
@@ -1007,60 +1084,14 @@ def rel_l2(a, b):
     return ((a.float() - b.float()).norm() / b.float().norm()).item()
 
 
-def phase_stage_backward(hcfg):
-    mc = hcfg.dwi_model
-    depth, heads = mc.transformer_depth, mc.transformer_heads
-    log(f"== phase 3h: autograd through the hybrid-nb transformer stage at full width "
-        f"({depth} blocks, {heads} heads, {SEQ} tokens x {mc.transformer_embed_dim}), eval "
-        f"mode, bf16 (flash forward, dQ, dK/dV kernels) vs an fp32 copy on the plain "
-        f"route at B={B_STAGE_PARITY}; the backward timed at B={B_SERVE}")
-    enc = build_fusion_models(hcfg, DEV, torch.float32, gen(SEED))[0]
-    stage = enc.transformer.to(torch.bfloat16)
-    side = enc.feature_size * mc.transformer_patch_size
-    cin, embed = stage.patch_embed.proj.in_channels, mc.transformer_embed_dim
-    del enc
-    ref32 = copy.deepcopy(stage).float()  # the same (bf16-rounded) weights in fp32
-    g = gen(41)
-
-    def inputs(b):
-        x = cl(torch.randn(b, cin, side, side, device=DEV, generator=g).to(torch.bfloat16))
-        cot = torch.randn(b, embed, side // mc.transformer_patch_size,
-                          side // mc.transformer_patch_size, device=DEV, generator=g)
-        return x, cot.to(torch.bfloat16)
-
-    x, cot = inputs(B_STAGE_PARITY)
-    reset_counts()
-    out, grads = stage_grads(stage, x, cot)
-    launched = counts()
-    expect = dict.fromkeys(COUNTERS, 0) | {"flash_attention_fwd": depth,
-                                           "flash_attention_bwd_dq": depth,
-                                           "flash_attention_bwd_dkv": depth}
-    if launched != expect:
-        raise AssertionError(f"stage forward + backward launched {launched}, expected {expect}")
-    with plain_route():
-        out_p, grads_p = stage_grads(stage, x, cot)            # bf16, plain route
-        out_r, grads_r = stage_grads(ref32, x.float(), cot.float())  # the reference
-    if counts() != launched:
-        raise AssertionError("the plain-route copies launched a kernel")
-    errs = {"out": (rel_l2(out, out_r), rel_l2(out_p, out_r))}
-    errs |= {n: (rel_l2(grads[n], grads_r[n]), rel_l2(grads_p[n], grads_r[n])) for n in grads}
-    worst = sorted(errs.items(), key=lambda kv: -kv[1][0])
-    log(f"  B={B_STAGE_PARITY}: launches {launched}; relative L2 error against the fp32 "
-        f"plain-route copy, kernels (bf16 plain route beside), tolerance {STAGE_TOL:.4f}, "
-        f"over the output, the input gradient and {len(grads) - 1} parameter gradients:")
-    for n in ["out", "x"] + [n for n, _ in worst if n not in ("out", "x")][:6]:
-        log(f"    {n}: {errs[n][0]:.3e} ({errs[n][1]:.3e})")
-    if not all(e <= STAGE_TOL for e, _ in errs.values()):
-        raise AssertionError(f"stage gradients: {worst[0][0]} off by {worst[0][1][0]:.3e}, "
-                             f"above {STAGE_TOL}")
-    qkv = [n for n in grads if n.endswith("attn.qkv.weight")]
-    log(f"  qkv weight gradients (their q, k, v slices come from dQ, dK, dV): kernels at most "
-        f"{max(errs[n][0] for n in qkv):.3e}, bf16 plain route at most "
-        f"{max(errs[n][1] for n in qkv):.3e}")
-    del ref32, out, grads, out_p, grads_p, out_r, grads_r, x, cot
+def stage_backward_timed(stage, x, cot, expect, tag):
+    """Three forward + backward runs of ``stage`` on ``x`` by CUDA events,
+    each backward's launches checked, the peak memory from just before, and
+    one backward under the profiler with the flash backward kernels' share.
+    Returns the first run's launches and ``{"bwd_ms", "peak_gib"}``."""
+    depth = expect["flash_attention_bwd_dq"]
     torch.cuda.empty_cache()
-
-    x, cot = inputs(B_SERVE)
+    torch.cuda.reset_peak_memory_stats()
     fwd_ms, bwd_ms = [], []
     for r in range(3):
         stage.zero_grad(set_to_none=True)
@@ -1082,17 +1113,18 @@ def phase_stage_backward(hcfg):
                                                "flash_attention_bwd_dkv")}
         if got != expect or bwd != {"flash_attention_bwd_dq": depth,
                                     "flash_attention_bwd_dkv": depth}:
-            raise AssertionError(f"B={B_SERVE} forward + backward launched {got} "
+            raise AssertionError(f"{tag}: forward + backward launched {got} "
                                  f"(backward {bwd}), expected {expect}")
         if not (torch.isfinite(leaf.grad).all() and all(
                 torch.isfinite(p.grad).all() for p in stage.parameters())):
-            raise AssertionError("stage gradients not finite")
+            raise AssertionError(f"{tag}: stage gradients not finite")
         fwd_ms.append(ev[0].elapsed_time(ev[1]))
         bwd_ms.append(ev[1].elapsed_time(ev[2]))
-    log(f"  B={B_SERVE}: forward {statistics.median(fwd_ms):.3f} ms, backward "
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    log(f"  {tag}: forward {statistics.median(fwd_ms):.3f} ms, backward "
         f"{statistics.median(bwd_ms):.3f} ms (median of 3 by CUDA events: "
         f"{', '.join(f'{t:.3f}' for t in bwd_ms)}); each backward launched dQ and dK/dV "
-        f"{depth} times; peak memory {torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB")
+        f"{depth} times; peak memory {peak:.2f} GiB")
     from torch.profiler import ProfilerActivity, profile
     stage.zero_grad(set_to_none=True)
     leaf = x.detach().clone().requires_grad_()
@@ -1104,17 +1136,106 @@ def phase_stage_backward(hcfg):
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     total = sum(e.self_device_time_total for e in events) / 1e3
     if total > 0:
+        # names of either tree's kernels: dQ, dK/dV and (3xTF32) their pre-pass
         mine = {k: sum(e.self_device_time_total for e in events if k in e.key) / 1e3
-                for k in ("flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma")}
-        log(f"  one B={B_SERVE} backward under the profiler: {total:.3f} ms of device time, "
-            + ", ".join(f"{k} {t:.3f} ms ({100 * t / total:.1f} %)" for k, t in mine.items()))
+                for k in ("flash_bwd_dq", "flash_bwd_dkv", "flash_split")}
+        log(f"  {tag}, one backward under the profiler: {total:.3f} ms of device time, "
+            + ", ".join(f"{k}* {t:.3f} ms ({100 * t / total:.1f} %)" for k, t in mine.items()))
         for e in sorted(events, key=lambda e: -e.self_device_time_total)[:8]:
             log(f"  {e.self_device_time_total / 1e3:9.3f} ms {e.count:5d}x  {e.key[:90]}")
     else:
-        log("  backward device time not measured (the profiler recorded no kernel)")
-    del stage, x, cot, leaf, out
+        log(f"  {tag}: backward device time not measured (the profiler recorded no kernel)")
+    del leaf, out
+    return launched, {"bwd_ms": statistics.median(bwd_ms), "peak_gib": peak}
+
+
+def phase_stage_backward(hcfg, dtypes=(torch.bfloat16, torch.float32)):
+    """Autograd through the full-width hybrid-nb transformer stage on the
+    flash kernels (the backward kernels' path), in each of ``dtypes``: its
+    gradients against an fp32 copy on the plain route at B_STAGE_PARITY, then
+    the backward timed at B_SERVE.  Returns the launches of the first timed
+    run of each dtype, summed, and ``{dtype: times}``."""
+    mc = hcfg.dwi_model
+    depth, heads = mc.transformer_depth, mc.transformer_heads
+    log(f"== phase 3h: autograd through the hybrid-nb transformer stage at full width "
+        f"({depth} blocks, {heads} heads, {SEQ} tokens x {mc.transformer_embed_dim}), eval "
+        f"mode, {' and '.join(str(d)[6:] for d in dtypes)} (flash forward, dQ, dK/dV "
+        f"kernels) vs an fp32 copy on the plain route at B={B_STAGE_PARITY}; the backward "
+        f"timed at B={B_SERVE}")
+    enc = build_fusion_models(hcfg, DEV, torch.float32, gen(SEED))[0]
+    stages = {torch.bfloat16: enc.transformer.to(torch.bfloat16)}
+    side = enc.feature_size * mc.transformer_patch_size
+    cin, embed = stages[torch.bfloat16].patch_embed.proj.in_channels, mc.transformer_embed_dim
+    del enc
+    # the same (bf16-rounded) weights in fp32: the reference's and the fp32 stage's
+    ref32 = stages[torch.float32] = copy.deepcopy(stages[torch.bfloat16]).float()
+    g = gen(41)
+
+    def inputs(b):
+        x = cl(torch.randn(b, cin, side, side, device=DEV, generator=g).to(torch.bfloat16))
+        cot = torch.randn(b, embed, side // mc.transformer_patch_size,
+                          side // mc.transformer_patch_size, device=DEV, generator=g)
+        return x, cot.to(torch.bfloat16)
+
+    expect = dict.fromkeys(COUNTERS, 0) | {"flash_attention_fwd": depth,
+                                           "flash_attention_bwd_dq": depth,
+                                           "flash_attention_bwd_dkv": depth}
+    x, cot = inputs(B_STAGE_PARITY)
+    reset_counts()
+    with plain_route():
+        out_r, grads_r = stage_grads(ref32, x.float(), cot.float())  # the reference
+    if counts() != dict.fromkeys(COUNTERS, 0):
+        raise AssertionError("the plain-route reference launched a kernel")
+    for dtype in dtypes:
+        stage = stages[dtype]
+        reset_counts()
+        out, grads = stage_grads(stage, x.to(dtype), cot.to(dtype))
+        launched = counts()
+        if launched != expect:
+            raise AssertionError(f"{dtype} stage forward + backward launched {launched}, "
+                                 f"expected {expect}")
+        errs = {"out": rel_l2(out, out_r)} | {n: rel_l2(grads[n], grads_r[n]) for n in grads}
+        beside = {}
+        if dtype == torch.bfloat16:  # the bf16 plain route's own error, for context
+            with plain_route():
+                out_p, grads_p = stage_grads(stage, x, cot)
+            if counts() != launched:
+                raise AssertionError("the plain-route copy launched a kernel")
+            beside = {"out": rel_l2(out_p, out_r)} | {n: rel_l2(grads_p[n], grads_r[n])
+                                                       for n in grads_p}
+            del out_p, grads_p
+        tol = STAGE_TOL[dtype]
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])
+        log(f"  {str(dtype)[6:]}, B={B_STAGE_PARITY}: launches {launched}; relative L2 error "
+            f"against the fp32 plain-route copy"
+            + (", kernels (bf16 plain route beside)" if beside else "")
+            + f", tolerance {tol:.4g}, over the output, the input gradient and "
+            f"{len(grads) - 1} parameter gradients:")
+        for n in ["out", "x"] + [n for n, _ in worst if n not in ("out", "x")][:6]:
+            log(f"    {n}: {errs[n]:.3e}" + (f" ({beside[n]:.3e})" if beside else ""))
+        if not all(e <= tol for e in errs.values()):
+            raise AssertionError(f"{dtype} stage gradients: {worst[0][0]} off by "
+                                 f"{worst[0][1]:.3e}, above {tol}")
+        qkv = [n for n in grads if n.endswith("attn.qkv.weight")]
+        log(f"  qkv weight gradients (their q, k, v slices come from dQ, dK, dV): kernels at "
+            f"most {max(errs[n] for n in qkv):.3e}"
+            + (f", bf16 plain route at most {max(beside[n] for n in qkv):.3e}"
+               if beside else ""))
+        del out, grads
+    del out_r, grads_r, x, cot
     torch.cuda.empty_cache()
-    return launched
+
+    x, cot = inputs(B_SERVE)
+    total = dict.fromkeys(COUNTERS, 0)
+    times = {}
+    for dtype in dtypes:
+        launched, times[dtype] = stage_backward_timed(
+            stages[dtype], x.to(dtype), cot.to(dtype), expect,
+            f"{str(dtype)[6:]} B={B_SERVE}")
+        total = {k: total[k] + launched[k] for k in COUNTERS}
+    del stages, ref32, x, cot
+    torch.cuda.empty_cache()
+    return total, times
 
 
 def phase_dwi_norm():
@@ -1882,7 +2003,9 @@ def phase_hybrid_validation(hcfg):
         wall = (time.perf_counter() - t0) * 1e3
     events = [e for e in prof.key_averages() if e.device_type.name == "CUDA"]
     device = sum(e.self_device_time_total for e in events) / 1e3
-    flash = sum(e.self_device_time_total for e in events if "flash_fwd" in e.key) / 1e3
+    # the fp32 forward and its pre-pass, under either tree's names
+    flash = sum(e.self_device_time_total for e in events
+                if any(k in e.key for k in ("flash_fwd", "flash_split"))) / 1e3
     log(f"  validation batch {batch_ms:.3f} ms (median of 5 by CUDA events), "
         f"{B_VAL * 1e3 / batch_ms:.2f} volumes/s; one batch under the profiler {wall:.3f} ms, "
         f"device time {device:.3f} ms ({100 * (1 - device / wall):.1f} % idle), flash "
@@ -2339,7 +2462,7 @@ def main():
     (measured["flash_attention_bwd_dq"],
      measured["flash_attention_bwd_dkv"]) = phase_flash_backward()
     # the backward's path: counts set to 0 just before it and read just after
-    stage_launches = phase_stage_backward(hcfg)
+    stage_launches = phase_stage_backward(hcfg)[0]
     measured["dwi_normalize"] = phase_dwi_norm()
     t0 = time.perf_counter()
     raw = make_synthetic_arrays(n_train=N_TRAIN, n_test=N_TEST, image_size=IMAGE,

@@ -3,8 +3,8 @@
 // Replaces the TPU kernels of dmf_tpu/ops/flash_attention.py, reached through
 // `flash_attention` (:281) and its custom VJP (:261-277):
 //   * `_flash_kernel` (:43)    -> wg::flash_fwd_wgmma (bf16), tf::flash_fwd_tf32x3 (fp32)
-//   * `_bwd_dq_kernel` (:114)  -> wg::flash_bwd_dq_wgmma (bf16), flash_bwd_dq_kernel (fp32)
-//   * `_bwd_dkv_kernel` (:144) -> wg::flash_bwd_dkv_wgmma (bf16), flash_bwd_dkv_kernel (fp32)
+//   * `_bwd_dq_kernel` (:114)  -> wg::flash_bwd_dq_wgmma (bf16), tf::flash_bwd_dq_tf32x3 (fp32)
+//   * `_bwd_dkv_kernel` (:144) -> wg::flash_bwd_dkv_wgmma (bf16), tf::flash_bwd_dkv_tf32x3 (fp32)
 //
 // Semantics (the TPU kernels'): S = (Q K^T) * scale with fp32 accumulation,
 // an online softmax with running row max m and row sum l, acc = acc * alpha
@@ -80,15 +80,15 @@
 //     would leave the tensor cores idle through both softmaxes (10-11 %
 //     off the forward's time on the H100).
 //   * TF32 wgmma has no transpose bit: B must be K-major, so P V needs V^T
-//     (keys contiguous).  A pre-pass (flash_fwd_split_kv, launched by the
-//     same entry point) writes each key tile's K and V^T halves into the
-//     caller's scratch as the slot's image, swizzled, so the forward streams
-//     a slot with one bulk copy: every K/V tile is read by N_q/128 query
-//     blocks, and a split (and a transpose) inside the loop would repeat it
-//     that often, where the pre-pass reads K and V once and writes 4 BH N_k
-//     D x 4 bytes (0.58 ms at BH=128, N=4096, D=128 on the H100, against ~9
-//     ms for the forward).  Q is read once per block and split in shared
-//     memory by the consumers.
+//     (keys contiguous).  A pre-pass (tf::flash_split on K, then on V,
+//     launched by the same entry point) writes each key tile's K and V^T
+//     halves into the caller's scratch as the slot's image, swizzled, so the
+//     forward streams a slot with one bulk copy: every K/V tile is read by
+//     N_q/128 query blocks, and a split (and a transpose) inside the loop
+//     would repeat it that often, where the pre-pass reads K and V once and
+//     writes 4 BH N_k D x 4 bytes (0.58 ms at BH=128, N=4096, D=128 on the
+//     H100, against ~9 ms for the forward).  Q is read once per block and
+//     split in shared memory by the consumers.
 //   * P is the register A operand of O += P V, split into hi and lo in
 //     registers.  The accumulator of S gives a thread keys 2(l%4) and
 //     2(l%4)+1 of each k8 step, the A operand wants positions l%4 and
@@ -103,15 +103,64 @@
 //     Each thread holds O and that sum (2 x D/2 registers) and P's halves
 //     (2 x BN/2), or O and S's two accumulators (BN + BN/2): 160 values of
 //     its 232 registers at D=128 (ptxas: 168 used, no spills).
-// The fp32 backward kernels are block-level products of tiles in shared
-// memory on the CUDA cores (block_mma: SIMT FMA, so fp32 results carry no
-// TF32 rounding), tiles staged with plain 16-byte loads.
+//
+// The fp32 backward runs as 3xTF32 too (tf::flash_bwd_dq_tf32x3,
+// tf::flash_bwd_dkv_tf32x3; bounds 3 x 6 and 3 x 8 BH Nq Nk D FLOP at 495
+// TFLOP/s: 2.499 and 3.332 ms at (32, 4096, 128)).
+//   * No transpose bit.  S = Q K^T and dP = dO V^T take Q, K, dO and V as
+//     they are stored (K-major over D), but dQ += dS K contracts over keys
+//     (B = K^T), dV += P^T dO and dK += dS^T Q over queries (B = dO^T, Q^T).
+//     The pre-pass (tf::flash_split, twice a call) writes each streamed tile
+//     of BT rows as a row image (D/32 panels of 2 BT rows, hi rows then lo
+//     rows: the forward's K layout) and, where a product contracts over its
+//     rows, a transposed image (tcol: D rows of 2 BT values, hi then lo),
+//     16 KB each, 128B-swizzled, into the caller's scratch: K, V and K^T for
+//     dQ (6 x k's size, 1.5 GiB at (128, 4096, 128)); Q, dO, Q^T and dO^T
+//     for dK/dV (8 x q's, 2 GiB), freed after the call.  The block's own
+//     operands arrive by TMA and the consumers split them in shared memory.
+//   * Shared memory binds.  Two own operands' halves take 2 KB a row at
+//     D=128, so a block owns 64 rows (128 KB; the bf16 kernels' 128 rows
+//     would need 256), and the other 99 KB hold six 16 KB slots: streamed
+//     tiles of BT = 16 rows (32 at D=64, 64 KB own, ten slots).  Each of the
+//     two consumer warpgroups has its own ring of three (five) slots and its
+//     own producer thread.  dQ's warpgroups hold the same 64 query rows and
+//     take the key tiles in turn, each with its own fp32 sum, added at the
+//     end in a fixed order.  dK/dV's split the work: warpgroup 0 S^T, P^T
+//     and dV, warpgroup 1 dP^T, dS^T and dK, P^T handed over through the
+//     slot of the Q tile it came from; a thread then holds one output and
+//     one tile sum (2 x D/2 registers), where dK, dV and a tile sum would
+//     take 192 of its 232 registers before S^T.
+//   * Shared-memory rate.  At BT=16 an S-type product runs as A_hi [B_hi;
+//     B_lo]^T (m64n32k8) and A_lo B_hi^T (m64n16k8): 5.5 KB per 24
+//     tensor-core clocks, 1.8x the 128 bytes a clock; the register-operand
+//     products read 4 KB per 64 clocks.  That caps dQ (two S-type products
+//     and one other a tile) near 74 % of its bound and dK/dV (two and two)
+//     near 88 %.
+//   * L2.  Every 64-row block streams its head's images: 12.6 MB (dQ) and
+//     16.8 MB (dK/dV) at N=4096, D=128, 25.8 and 34.4 GB a call at BH=32
+//     (5.0-5.6 TB/s at the kernels' times on the H100; ~10 TB/s at the
+//     bounds).  Halving that (clusters of two row blocks, each image
+//     multicast to both) did not make them faster on the H100: dK/dV took as
+//     long, dQ longer.  L2 is not what holds them.
+//   * P, P^T, dS and dS^T are the register A operand (m64nDk8 TF32, RS),
+//     split into hi and lo in registers; transposed images keep each group
+//     of 8 rows in perm8 order, as V^T in the forward, so the accumulator's
+//     registers are the operand as they lie.  dK/dV computes the transposed
+//     tiles S^T = K Q^T and dP^T = V dO^T (as the bf16 dK/dV does), so P^T
+//     and dS^T sit in that layout already.
+//   * Each tile's dS K, P^T dO or dS^T Q goes into a sum of its own (the
+//     first product overwrites it), added into the fp32 dQ, dV or dK: the
+//     JAX acc + dot, over 4096 keys or queries at N=4096 (one accumulator
+//     inside the tensor cores is what missed the fp32 tolerance in the conv).
+//   * Two kernels, each owning its output rows, no atomics, a fixed order of
+//     sums: two calls give the same bits.
 //
 // Rounding points.  bf16: P (forward, dK/dV) and dS (dQ, dK/dV) are rounded
 // to bf16 before they enter a tensor-core product; S, the softmax
 // statistics, every accumulator and lse stay fp32; outputs are rounded once.
-// fp32: the forward's products are 3xTF32 (fp32-class, ~2^-22 relative per
-// product), its sums fp32; the backward rounds nothing below fp32.  The
+// fp32: every product is 3xTF32 (fp32-class, ~2^-22 relative per product);
+// P, dS and every sum across tiles are fp32 (within a tile the tensor cores
+// sum; P and dS are split into TF32 halves as they enter a product).  The
 // plain version (ops/flash_attention.py::flash_attention_ref) computes
 // everything in fp32 from the input-dtype operands and rounds the output
 // once.
@@ -126,8 +175,8 @@
 // forward, P = 0 in dQ) and queries past N_q (P = 0 in dK/dV).  Under the
 // wrapper's multiple of 64 the backward's 64-row ring tiles are always full
 // and those two masks never act; they keep a ragged tile exact.  The fp32
-// forward's key tiles (32 or 64 keys) are always full: its launcher refuses
-// an N_k they do not divide.
+// kernels' blocks and tiles (64-row blocks, 16-64 row tiles) are always
+// full: their launchers refuse an N they do not divide.
 //
 // Plain C interface for ctypes: each *_launch returns cudaGetLastError()
 // after the launch (or the error of setting the shared-memory size or of
@@ -142,84 +191,10 @@
 
 namespace {
 
-constexpr int NT = 256;          // threads per block of the fp32 backward kernels
-constexpr int BQ = 64;           // query rows per block (fp32 dQ)
-constexpr int BK = 64;           // key rows per step (fp32 dQ) and per block (fp32 dK/dV)
-constexpr int BQI = 32;          // query rows per step of the fp32 dK/dV kernel
-constexpr int PAD = 1;           // fp32 row padding: column walks hit distinct banks
 constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use on sm_90
 constexpr int BAD_ARGUMENT = -1; // a head width, type, length or kernel the library does not take
 
 using bf16 = __nv_bfloat16;
-
-__host__ __device__ constexpr int a128(int bytes) { return (bytes + 127) / 128 * 128; }
-
-struct Carve {
-  unsigned char* p;
-  template <typename U> __device__ U* take(int n) {
-    U* r = reinterpret_cast<U*>(p);
-    p += a128(n * static_cast<int>(sizeof(U)));
-    return r;
-  }
-};
-
-// R x D fp32 tile, contiguous in global memory, into shared rows of pitch ld.
-template <int R, int D>
-__device__ __forceinline__ void load_tile(float* s, int ld, const float* __restrict__ g) {
-  static_assert(D % 4 == 0, "D must be a multiple of the vector width");
-  for (int e = threadIdx.x * 4; e < R * D; e += NT * 4) {
-    const float4 u = *reinterpret_cast<const float4*>(g + e);
-    float* d = s + (e / D) * ld + e % D;
-    d[0] = u.x;
-    d[1] = u.y;
-    d[2] = u.z;
-    d[3] = u.w;
-  }
-}
-
-// R rows of fp32 vector g (row statistics) into shared memory.
-template <int R>
-__device__ __forceinline__ void load_rows(float* s, const float* __restrict__ g) {
-  for (int i = threadIdx.x; i < R; i += NT) s[i] = g[i];
-}
-
-// C (+)= A B over shared fp32 tiles: A is M x K, B is K x N, C is M x N.
-// A_T: A(m, k) sits at A[k * lda + m] (else A[m * lda + k]).
-// B_T: B(k, n) sits at B[n * ldb + k] (else B[k * ldb + n]).
-// A 16 x 16 thread grid, thread (ty, tx) owning the strided outputs
-// (ty + 16 i, tx + 16 j), fp32 FMA.
-template <int M, int N, int K, bool A_T, bool B_T>
-__device__ __forceinline__ void block_mma(const float* A, int lda, const float* B, int ldb,
-                                          float* C, int ldc, bool accumulate) {
-  constexpr int TX = 16, TY = NT / TX;
-  static_assert(M % TY == 0 && N % TX == 0, "tile does not fit the thread grid");
-  constexpr int TM = M / TY, TN = N / TX;
-  const int tx = threadIdx.x % TX, ty = threadIdx.x / TX;
-  float c[TM][TN];
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      c[i][j] = accumulate ? C[(ty + i * TY) * ldc + tx + j * TX] : 0.f;
-#pragma unroll 4
-  for (int k = 0; k < K; ++k) {
-    float a[TM], b[TN];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-      a[i] = A_T ? A[k * lda + ty + i * TY] : A[(ty + i * TY) * lda + k];
-#pragma unroll
-    for (int j = 0; j < TN; ++j)
-      b[j] = B_T ? B[(tx + j * TX) * ldb + k] : B[k * ldb + tx + j * TX];
-#pragma unroll
-    for (int i = 0; i < TM; ++i)
-#pragma unroll
-      for (int j = 0; j < TN; ++j) c[i][j] = fmaf(a[i], b[j], c[i][j]);
-  }
-#pragma unroll
-  for (int i = 0; i < TM; ++i)
-#pragma unroll
-    for (int j = 0; j < TN; ++j) C[(ty + i * TY) * ldc + tx + j * TX] = c[i][j];
-}
 
 // ------------------------------------------------------- bf16 (wgmma)
 namespace wg {
@@ -768,7 +743,7 @@ namespace tf {
 constexpr int BM = 128;             // query rows per block: two consumer warpgroups of 64
 constexpr int SLOT = 32768;         // a ring slot: one K or V^T tile, hi half then lo half
 constexpr int SLOTS = 3;            // ring depth; K and V tiles take turns
-constexpr int SPLIT_THREADS = 256;  // threads per block of the K/V pre-pass
+constexpr int SPLIT_THREADS = 256;  // threads per block of the pre-pass (flash_split)
 
 // Key order inside each group of 8 keys of a V^T tile: position c holds key
 // perm8(c).  The accumulator of S = Q K^T gives thread (lane l) the keys
@@ -803,46 +778,68 @@ __device__ __forceinline__ void split4(float4 x, unsigned char* hi, unsigned cha
                                                tf32_rna(x.z - h.z), tf32_rna(x.w - h.w));
 }
 
-// The pre-pass: key tile t of head bh becomes two slot images, in the order
-// the forward streams them, ((bh * N_k/BN + t) * 2 + {0: K, 1: V^T}) * SLOT
-// bytes into `img`: byte for byte what the slot holds, 128B-swizzled, so the
-// forward fetches each with one bulk copy.
+// A transposed tile image (V^T in the forward, K^T, Q^T and dO^T in the
+// backward): D rows of 2 BN values, the hi halves of the tile's BN rows
+// (keys or queries, in perm8 order within each group of 8) then their lo
+// halves, in 128-byte panels of D rows.  Byte offset of value u of row 0 (u
+// a multiple of 4).
 template <int D>
+__host__ __device__ constexpr int tcol(int u) {
+  return (u / 32) * D * 128 + (u % 32) * 4;
+}
+
+// The fp32 kernels' pre-pass: tile t (BT rows) of head bh of x (BH, N, D)
+// becomes, unless null, its row image at `rows` (D/32 panels of 2 BT rows,
+// the hi rows then the lo rows: the B operand of S = Q K^T-type products)
+// and its transposed image at `cols` (tcol: the B operand of the products
+// that contract over the tile's rows), both (bh * N/BT + t) * stride bytes
+// on and 128B-swizzled: byte for byte what a ring slot holds, so a kernel
+// fetches each with one bulk copy.  Every tile is read by every block of
+// the other side; the pre-pass splits (and transposes) it once.
+template <int D, int BT>
 __global__ void __launch_bounds__(SPLIT_THREADS)
-flash_fwd_split_kv(const float* __restrict__ k, const float* __restrict__ v,
-                   unsigned char* __restrict__ img, int Nk) {
-  using L = Layout<D>;
-  constexpr int BN = L::BN;
-  __shared__ float vs[BN][D + 1];
+flash_split(const float* __restrict__ x, unsigned char* __restrict__ rows,
+            unsigned char* __restrict__ cols, int N, int stride) {
+  __shared__ float xs[BT][D + 1];
   const int t = blockIdx.x, bh = blockIdx.y;
-  unsigned char* kimg = img + (static_cast<size_t>(bh) * (Nk / BN) + t) * 2 * SLOT;
-  unsigned char* vimg = kimg + SLOT;
-  const size_t first = (static_cast<size_t>(bh) * Nk + t * BN) * D;
-  const float4* kt = reinterpret_cast<const float4*>(k + first);
-  const float* vt = v + first;
-  // K: chunk c4 (4 columns) of key r -> panel c4/8, row r (hi) and BN + r
-  // (lo), swizzled chunk c4%8
-  for (int e = threadIdx.x; e < BN * D / 4; e += SPLIT_THREADS) {
+  const size_t at = (static_cast<size_t>(bh) * (N / BT) + t) * stride;
+  const float4* xt =
+      reinterpret_cast<const float4*>(x + (static_cast<size_t>(bh) * N + t * BT) * D);
+  // chunk c4 (4 columns) of row r -> panel c4/8, rows r (hi) and BT + r (lo), swizzled chunk c4%8
+  for (int e = threadIdx.x; e < BT * D / 4; e += SPLIT_THREADS) {
     const int r = e / (D / 4), c4 = e % (D / 4);
-    const uint32_t off = (c4 / 8) * 2 * BN * 128 + hopper::sw128(r, c4 % 8);
-    split4(kt[e], kimg + off, kimg + BN * 128 + off);
+    const float4 v = xt[e];
+    if (rows != nullptr) {
+      const uint32_t off = (c4 / 8) * 2 * BT * 128 + hopper::sw128(r, c4 % 8);
+      split4(v, rows + at + off, rows + at + BT * 128 + off);
+    }
+    xs[r][4 * c4] = v.x;
+    xs[r][4 * c4 + 1] = v.y;
+    xs[r][4 * c4 + 2] = v.z;
+    xs[r][4 * c4 + 3] = v.w;
   }
-  for (int e = threadIdx.x; e < BN * D; e += SPLIT_THREADS) vs[e / D][e % D] = vt[e];
+  if (cols == nullptr) return;
   __syncthreads();
-  // V^T: key positions 4c4..4c4+3 of row d -> panel c4/8, row d, swizzled chunk c4%8
-  for (int e = threadIdx.x; e < D * BN / 4; e += SPLIT_THREADS) {
-    const int d = e / (BN / 4), c4 = e % (BN / 4);
-    const int g = 4 * c4 - (4 * c4) % 8, c = (4 * c4) % 8;  // group of 8 keys, first position
-    const float4 x = make_float4(vs[g + perm8(c)][d], vs[g + perm8(c + 1)][d],
-                                 vs[g + perm8(c + 2)][d], vs[g + perm8(c + 3)][d]);
-    const uint32_t off = (c4 / 8) * D * 128 + hopper::sw128(d, c4 % 8);
-    split4(x, vimg + off, vimg + SLOT / 2 + off);
+  // positions u..u+3 of column d (rows g + perm8(u%8..), g = u - u%8): hi at value u, lo at BT + u
+  for (int e = threadIdx.x; e < D * BT / 4; e += SPLIT_THREADS) {
+    const int d = e / (BT / 4), u = 4 * (e % (BT / 4));
+    const int g = u - u % 8, c = u % 8;
+    const float4 v = make_float4(xs[g + perm8(c)][d], xs[g + perm8(c + 1)][d],
+                                 xs[g + perm8(c + 2)][d], xs[g + perm8(c + 3)][d]);
+    const auto pos = [d](int w) {  // value w of row d: panel w/32, swizzled chunk (w%32)/4
+      return (w / 32) * D * 128 + hopper::sw128(d, (w % 32) / 4);
+    };
+    split4(v, cols + at + pos(u), cols + at + pos(BT + u));
   }
 }
 
 // S (+)= A B^T over one k8 step, N rows of B.
 template <int N>
 __device__ __forceinline__ void score_step(float (&s)[N / 2], uint64_t a, uint64_t b, int acc);
+template <>
+__device__ __forceinline__ void score_step<16>(float (&s)[8], uint64_t a, uint64_t b, int acc) {
+  hopper::wgmma_m64n16k8_tf32_ss(s, a, b, acc);
+}
 template <>
 __device__ __forceinline__ void score_step<32>(float (&s)[16], uint64_t a, uint64_t b, int acc) {
   hopper::wgmma_m64n32k8_tf32_ss(s, a, b, acc);
@@ -872,8 +869,29 @@ __device__ __forceinline__ void value_step<128>(float (&o)[64], const uint32_t (
   hopper::wgmma_m64n128k8_tf32_rs(o, a, b, acc);
 }
 
-// acc = P V over a V^T tile (the tile's own sum: the first product
-// overwrites acc): per k8 step hi*hi + lo*hi + hi*lo.
+// sa = A_hi [B_hi; B_lo]^T (hi*hi in its first BN columns, hi*lo in the next
+// BN) and sb = A_lo B_hi^T over D in k8 steps, each the tile's own sum: two
+// products a step where three would each read A_hi or B_hi again.  A: 64
+// rows of resident panels of ROWS rows (hi at ah, lo at al); B: a row image
+// of BN rows, D/32 panels of 2 BN rows (hi rows, then lo rows).
+template <int D, int BN, int ROWS>
+__device__ __forceinline__ void score_tile(float (&sa)[BN], float (&sb)[BN / 2],
+                                           const unsigned char* ah, const unsigned char* al,
+                                           const unsigned char* b) {
+  using hopper::desc_sw128;
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+    const int ao = (kk / 4) * ROWS * 128 + (kk % 4) * 32;  // 32 bytes inside a 32-column panel
+    const uint64_t bd = desc_sw128(b + (kk / 4) * 2 * BN * 128 + (kk % 4) * 32, 16, 1024);
+    score_step<2 * BN>(sa, desc_sw128(ah + ao, 16, 1024), bd, kk > 0);
+    score_step<BN>(sb, desc_sw128(al + ao, 16, 1024), bd, kk > 0);
+  }
+}
+
+// acc = A B over a transposed image of BN rows (the tile's own sum: the first
+// product overwrites acc), A's TF32 halves from registers: per k8 step
+// hi*hi + lo*hi + hi*lo.  P V in the forward; dS K, P^T dO and dS^T Q in the
+// backward.
 template <int D, int BN>
 __device__ __forceinline__ void value_tile(float (&acc)[D / 2], const uint32_t (&ph)[BN / 8][4],
                                            const uint32_t (&pl)[BN / 8][4],
@@ -881,11 +899,26 @@ __device__ __forceinline__ void value_tile(float (&acc)[D / 2], const uint32_t (
   using hopper::desc_sw128;
 #pragma unroll
   for (int j = 0; j < BN / 8; ++j) {
-    const int off = (j / 4) * D * 128 + (j % 4) * 32;  // panel of 32 keys, k8 step in it
-    const uint64_t vh = desc_sw128(vs + off, 16, 1024);
+    const uint64_t vh = desc_sw128(vs + tcol<D>(8 * j), 16, 1024);
     value_step<D>(acc, ph[j], vh, j > 0);
     value_step<D>(acc, pl[j], vh, 1);
-    value_step<D>(acc, ph[j], desc_sw128(vs + SLOT / 2 + off, 16, 1024), 1);
+    value_step<D>(acc, ph[j], desc_sw128(vs + tcol<D>(BN + 8 * j), 16, 1024), 1);
+  }
+}
+
+// The TF32 halves of four accumulator values as one k8 step's register A
+// operand, in the order of an operand stored in perm8 order: a thread's
+// values {x0, x1} (row g) and {x2, x3} (row g + 8) of keys 2(l%4) and
+// 2(l%4)+1 are positions (row g, l%4), (g + 8, l%4), (g, l%4 + 4), (g + 8,
+// l%4 + 4): a = {x0, x2, x1, x3}.
+__device__ __forceinline__ void a_halves(float x0, float x1, float x2, float x3, uint32_t (&hi)[4],
+                                         uint32_t (&lo)[4]) {
+  const float x[4] = {x0, x2, x1, x3};
+#pragma unroll
+  for (int e = 0; e < 4; ++e) {
+    const float h = hopper::tf32_rna(x[e]);
+    hi[e] = __float_as_uint(h);
+    lo[e] = __float_as_uint(hopper::tf32_rna(x[e] - h));
   }
 }
 
@@ -979,13 +1012,7 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
       mbar_wait(&full[ik % SLOTS], (ik / SLOTS) & 1);
       named_barrier(3 + wgi, 256);  // this warpgroup's turn
       wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < D / 8; ++kk) {
-        const int qo = (kk / 4) * BM * 128 + (kk % 4) * 32;
-        const uint64_t kd = desc_sw128(ks + (kk / 4) * 2 * BN * 128 + (kk % 4) * 32, 16, 1024);
-        score_step<2 * BN>(sa, desc_sw128(qh + qo, 16, 1024), kd, kk > 0);
-        score_step<BN>(sb, desc_sw128(ql + qo, 16, 1024), kd, kk > 0);
-      }
+      score_tile<D, BN, BM>(sa, sb, qh, ql, ks);
       wgmma_commit();
       if (wgi == 0 || kt + 1 < nkt) named_barrier_arrive(4 - wgi, 256);  // the other's turn
       wgmma_wait<0>();
@@ -1011,22 +1038,16 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
         m[h] = mx[h];
         mc[h] = mx[h] * c;
       }
-      // P and its TF32 halves as the A operand of each k8 step: positions
-      // (l%4, l%4 + 4) x rows (g, g + 8) are s[4j + {0, 2, 1, 3}] (perm8)
+      // P and its TF32 halves as the A operand of each k8 step (perm8)
       uint32_t ph[BN / 8][4], pl[BN / 8][4];
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const float p[4] = {exp2f(fmaf(s[4 * j], c, -mc[0])), exp2f(fmaf(s[4 * j + 2], c, -mc[1])),
-                            exp2f(fmaf(s[4 * j + 1], c, -mc[0])),
+        const float p[4] = {exp2f(fmaf(s[4 * j], c, -mc[0])), exp2f(fmaf(s[4 * j + 1], c, -mc[0])),
+                            exp2f(fmaf(s[4 * j + 2], c, -mc[1])),
                             exp2f(fmaf(s[4 * j + 3], c, -mc[1]))};
-        sum[0] += p[0] + p[2];
-        sum[1] += p[1] + p[3];
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float hi = tf32_rna(p[e]);
-          ph[j][e] = __float_as_uint(hi);
-          pl[j][e] = __float_as_uint(tf32_rna(p[e] - hi));
-        }
+        sum[0] += p[0] + p[1];
+        sum[1] += p[2] + p[3];
+        a_halves(p[0], p[1], p[2], p[3], ph[j], pl[j]);
       }
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
@@ -1077,135 +1098,367 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
   }
 }
 
+// ------------------------------------------------------- fp32 backward (3xTF32 wgmma)
+constexpr int BWD_ROWS = 64;     // output rows a backward block owns: queries (dQ) or keys (dK/dV)
+constexpr int ITEM = 16384;      // a backward ring slot: one streamed tile's image, both halves
+
+// Backward shared memory: the block's two resident operands (Q and dO for
+// dQ, K and V for dK/dV), each hi then lo in D/32 panels of 64 rows, then a
+// ring of SPW slots per consumer warpgroup, then the barriers.  A streamed
+// tile of BT rows is 16 KB as either image, so BT = 16 at D=128 and 32 at
+// D=64; what is left of the 227 KB after the 128 (64) KB resident operands
+// holds 6 (10) slots.
+template <int D>
+struct BwdLayout {
+  static constexpr int BT = ITEM / (8 * D);        // rows of a streamed tile
+  static constexpr int SPW = D == 128 ? 3 : 5;     // ring slots per consumer warpgroup, odd
+  static constexpr int HALF = BWD_ROWS * D * 4;    // one TF32 half of a resident operand
+  static constexpr int RING_OFF = 4 * HALF;
+  static constexpr int BAR_OFF = RING_OFF + 2 * SPW * ITEM;
+  // the resident operands'; full and empty per slot; P handed over, per slot of warpgroup 0
+  static constexpr int BARS = 1 + 5 * SPW;
+  static constexpr int BYTES = BAR_OFF + 8 * BARS + 1024;  // + alignment slack
+};
+static_assert(BwdLayout<128>::BYTES <= SMEM_MAX && BwdLayout<64>::BYTES <= SMEM_MAX,
+              "3xTF32 backward shared memory");
+
+// The consumers split a resident operand once: hi in place, lo HALF bytes on
+// (chunks j0, j0 + step, ... of the 16-byte chunks at `base`).
+template <int D>
+__device__ __forceinline__ void split_resident(unsigned char* base, int j0, int step) {
+  for (int j = j0; j < BwdLayout<D>::HALF / 16; j += step) {
+    unsigned char* at = base + 16 * j;
+    split4(*reinterpret_cast<const float4*>(at), at, at + BwdLayout<D>::HALF);
+  }
+}
+
+// Writes 64 rows of an fp32 accumulator (this thread's rows row0, row0 + 8).
+template <int D>
+__device__ __forceinline__ void store_acc(float* __restrict__ dst, const float (&acc)[D / 2],
+                                          int row0, int quad) {
+#pragma unroll
+  for (int h = 0; h < 2; ++h) {
+    float* r = dst + (row0 + 8 * h) * D + 2 * quad;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(r + 8 * j) =
+          make_float2(acc[4 * j + 2 * h], acc[4 * j + 2 * h + 1]);
+  }
+}
+
+// dQ for 64 query rows.  The two consumer warpgroups hold the same rows and
+// take the key tiles in turn (warpgroup w the tiles t = w mod 2), each with
+// its own ring fed by its own producer thread: K's row image (S = Q K^T),
+// V's (dP = dO V^T), K's transposed image (dQ += dS K).  Each warpgroup adds
+// each tile's dS K into its fp32 sum; at the end warpgroup 0 adds warpgroup
+// 1's sum into its own.  img: the planes of K rows, V rows and K^T, each
+// BH x N_k/BT tiles.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap qmap,
+                    const __grid_constant__ CUtensorMap domap,
+                    const unsigned char* __restrict__ img, const float* __restrict__ lse,
+                    const float* __restrict__ delta, float* __restrict__ dq, int Nq, int Nk,
+                    float scale) {
+  using namespace hopper;
+  using L = BwdLayout<D>;
+  constexpr int BT = L::BT, SPW = L::SPW, PANELS = D / 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = res_full + 1;  // [warpgroup][slot]
+  uint64_t* empty = full + 2 * SPW;
+  const int bh = blockIdx.y, q0 = blockIdx.x * BWD_ROWS;
+  const int nkt = Nk / BT;  // even: N_k is a multiple of 64
+  const size_t plane = static_cast<size_t>(gridDim.y) * nkt * ITEM;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < 2 * SPW; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= wg::CONSUMERS) {
+    // ---- producer: Q and dO once; thread 32w feeds warpgroup w's ring
+    reg_dealloc<40>();
+    const int p = threadIdx.x - wg::CONSUMERS;
+    if (p == 0) {
+      mbar_arrive_expect_tx(res_full, 2 * L::HALF);
+      for (int c = 0; c < PANELS; ++c) {
+        tma_load_3d(smem + c * BWD_ROWS * 128, &qmap, res_full, c * 32, q0, bh);
+        tma_load_3d(smem + 2 * L::HALF + c * BWD_ROWS * 128, &domap, res_full, c * 32, q0, bh);
+      }
+    }
+    if (p == 0 || p == 32) {
+      const int w = p / 32;
+      unsigned char* ring = smem + L::RING_OFF + w * SPW * ITEM;
+      for (int j = 0; j < nkt / 2; ++j) {
+        const size_t tile = static_cast<size_t>(bh) * nkt + 2 * j + w;
+        for (int op = 0; op < 3; ++op) {  // K rows, V rows, K^T
+          const int i = 3 * j + op, s = i % SPW;
+          mbar_wait(&empty[w * SPW + s], ((i / SPW) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[w * SPW + s], ITEM);
+          bulk_load(ring + s * ITEM, img + op * plane + tile * ITEM, ITEM, &full[w * SPW + s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers
+    reg_alloc<232>();
+    const int w = threadIdx.x / 128, t = threadIdx.x % 128, quad = t % 4;
+    const float c = scale * wg::kLog2e;  // S -> log2 units
+    const unsigned char* qs = smem;      // Q_hi, Q_lo at + HALF
+    const unsigned char* dos = smem + 2 * L::HALF;
+    const unsigned char* ring = smem + L::RING_OFF + w * SPW * ITEM;
+    uint64_t* wfull = full + w * SPW;
+    uint64_t* wempty = empty + w * SPW;
+    mbar_wait(res_full, 0);
+    split_resident<D>(smem, threadIdx.x, wg::CONSUMERS);
+    split_resident<D>(smem + 2 * L::HALF, threadIdx.x, wg::CONSUMERS);
+    fence_proxy_async();
+    named_barrier(1, wg::CONSUMERS);  // both splits are visible to both warpgroups' wgmma
+    const int row0 = q0 + wg::acc_row(t);
+    float lse2[2], dl[2];  // this thread's rows: lse in log2 units, delta
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      lse2[h] = lse[bh * Nq + row0 + 8 * h] * wg::kLog2e;
+      dl[h] = delta[bh * Nq + row0 + 8 * h];
+    }
+    float sa[BT], sb[BT / 2], pa[BT], pb[BT / 2], acc[D / 2], part[D / 2];
+#pragma unroll
+    for (int i = 0; i < BT; ++i) sa[i] = pa[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) sb[i] = pb[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = part[i] = 0.f;
+    for (int j = 0; j < nkt / 2; ++j) {
+      const int ik = 3 * j, iv = ik + 1, it = ik + 2;  // ring items: K rows, V rows, K^T
+      // S = Q K^T and dP = dO V^T, both in flight
+      mbar_wait(&wfull[ik % SPW], (ik / SPW) & 1);
+      wgmma_fence();
+      score_tile<D, BT, BWD_ROWS>(sa, sb, qs, qs + L::HALF, ring + (ik % SPW) * ITEM);
+      wgmma_commit();
+      mbar_wait(&wfull[iv % SPW], (iv / SPW) & 1);
+      score_tile<D, BT, BWD_ROWS>(pa, pb, dos, dos + L::HALF, ring + (iv % SPW) * ITEM);
+      wgmma_commit();
+      // P = exp(S scale - lse) while dP is in flight
+      wgmma_wait<1>();
+      fence_regs(sa);
+      fence_regs(sb);
+      mbar_arrive(&wempty[ik % SPW]);
+      float p[BT / 2];
+#pragma unroll
+      for (int i = 0; i < BT / 2; ++i)
+        p[i] = exp2f(fmaf(sa[i] + sa[i + BT / 2] + sb[i], c, -lse2[(i / 2) % 2]));
+      wgmma_wait<0>();
+      fence_regs(pa);
+      fence_regs(pb);
+      mbar_arrive(&wempty[iv % SPW]);
+      // dS = P (dP - delta) scale and its TF32 halves as the A operand
+      uint32_t dh[BT / 8][4], dlo[BT / 8][4];
+#pragma unroll
+      for (int k = 0; k < BT / 8; ++k) {
+        float ds[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int i = 4 * k + e;
+          ds[e] = p[i] * (pa[i] + pa[i + BT / 2] + pb[i] - dl[e / 2]) * scale;
+        }
+        a_halves(ds[0], ds[1], ds[2], ds[3], dh[k], dlo[k]);
+      }
+      // dQ += dS K over K^T's image (keys in perm8 order): the tile's own sum, added in fp32
+#pragma unroll
+      for (int k = 0; k < BT / 8; ++k) {  // packed before the fence
+        fence_regs(dh[k]);
+        fence_regs(dlo[k]);
+      }
+      mbar_wait(&wfull[it % SPW], (it / SPW) & 1);
+      wgmma_fence();
+      value_tile<D, BT>(part, dh, dlo, ring + (it % SPW) * ITEM);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int k = 0; k < BT / 8; ++k) {
+        fence_regs(dh[k]);
+        fence_regs(dlo[k]);
+      }
+      mbar_arrive(&wempty[it % SPW]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+    }
+    // warpgroup 1's sum through its own ring (all its items consumed), into warpgroup 0's
+    float* xfer = reinterpret_cast<float*>(smem + L::RING_OFF + SPW * ITEM);
+    if (w == 1) {
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) xfer[i * 128 + t] = acc[i];
+      named_barrier_arrive(2, wg::CONSUMERS);
+    } else {
+      named_barrier(2, wg::CONSUMERS);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += xfer[i * 128 + t];
+      store_acc<D>(dq + static_cast<size_t>(bh) * Nq * D, acc, row0, quad);
+    }
+  }
+}
+
+// dK and dV for 64 keys.  The transposed tiles S^T = K Q^T and dP^T = V dO^T
+// put P^T and dS^T in the register layout of the A operand of dV += P^T dO
+// and dK += dS^T Q.  Warpgroup 0 computes S^T, P^T and dV; warpgroup 1 dP^T,
+// dS^T and dK, with P^T handed over through warpgroup 0's ring slot of the
+// Q tile it came from (warpgroup 1 frees that slot).  Ring items: warpgroup
+// 0 Q rows, dO^T; warpgroup 1 dO rows, Q^T.  lse and delta are indexed by
+// column (query) and read from global memory.  img: the planes of Q rows,
+// dO rows, Q^T and dO^T, each BH x N_q/BT tiles.
+template <int D>
+__global__ void __launch_bounds__(wg::THREADS, 1)
+flash_bwd_dkv_tf32x3(const __grid_constant__ CUtensorMap kmap,
+                     const __grid_constant__ CUtensorMap vmap,
+                     const unsigned char* __restrict__ img, const float* __restrict__ lse,
+                     const float* __restrict__ delta, float* __restrict__ dk,
+                     float* __restrict__ dv, int Nq, int Nk, float scale) {
+  using namespace hopper;
+  using L = BwdLayout<D>;
+  constexpr int BT = L::BT, SPW = L::SPW, PANELS = D / 32;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = align1024(smem_raw);
+  uint64_t* res_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
+  uint64_t* full = res_full + 1;  // [warpgroup][slot]
+  uint64_t* empty = full + 2 * SPW;
+  uint64_t* p_full = empty + 2 * SPW;  // [slot of warpgroup 0]
+  const int bh = blockIdx.y, k0 = blockIdx.x * BWD_ROWS;
+  const int nqt = Nq / BT;
+  const size_t plane = static_cast<size_t>(gridDim.y) * nqt * ITEM;
+  if (threadIdx.x == 0) {
+    mbar_init(res_full, 1);
+    for (int s = 0; s < 2 * SPW; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], 128);
+    }
+    for (int s = 0; s < SPW; ++s) mbar_init(&p_full[s], 128);
+    mbar_fence_init();
+  }
+  __syncthreads();
+
+  if (threadIdx.x >= wg::CONSUMERS) {
+    // ---- producer: K and V once; thread 32w feeds warpgroup w's ring
+    reg_dealloc<40>();
+    const int p = threadIdx.x - wg::CONSUMERS;
+    if (p == 0) {
+      mbar_arrive_expect_tx(res_full, 2 * L::HALF);
+      for (int c = 0; c < PANELS; ++c) {
+        tma_load_3d(smem + c * BWD_ROWS * 128, &kmap, res_full, c * 32, k0, bh);
+        tma_load_3d(smem + 2 * L::HALF + c * BWD_ROWS * 128, &vmap, res_full, c * 32, k0, bh);
+      }
+    }
+    if (p == 0 || p == 32) {
+      const int w = p / 32;
+      unsigned char* ring = smem + L::RING_OFF + w * SPW * ITEM;
+      const unsigned char* src[2] = {img + (w == 0 ? 0 : 1) * plane,    // Q rows | dO rows
+                                     img + (w == 0 ? 3 : 2) * plane};   // dO^T | Q^T
+      for (int qt = 0; qt < nqt; ++qt) {
+        const size_t tile = static_cast<size_t>(bh) * nqt + qt;
+        for (int op = 0; op < 2; ++op) {
+          const int i = 2 * qt + op, s = i % SPW;
+          mbar_wait(&empty[w * SPW + s], ((i / SPW) & 1) ^ 1);
+          mbar_arrive_expect_tx(&full[w * SPW + s], ITEM);
+          bulk_load(ring + s * ITEM, src[op] + tile * ITEM, ITEM, &full[w * SPW + s]);
+        }
+      }
+    }
+  } else {
+    // ---- consumers: warpgroup 0 S^T, P^T, dV; warpgroup 1 dP^T, dS^T, dK
+    reg_alloc<232>();
+    const int w = threadIdx.x / 128, t = threadIdx.x % 128, quad = t % 4;
+    const float c = scale * wg::kLog2e;  // S -> log2 units
+    unsigned char* res = smem + w * 2 * L::HALF;  // K (warpgroup 0) or V (warpgroup 1)
+    unsigned char* ring0 = smem + L::RING_OFF;    // warpgroup 0's slots
+    const unsigned char* ring = ring0 + w * SPW * ITEM;
+    uint64_t* wfull = full + w * SPW;
+    uint64_t* wempty = empty + w * SPW;
+    mbar_wait(res_full, 0);
+    split_resident<D>(res, t, 128);
+    fence_proxy_async();
+    named_barrier(1 + w, 128);  // this warpgroup's split is visible to its wgmma
+    const float* rowstat = (w == 0 ? lse : delta) + bh * Nq;  // indexed by query
+    float sa[BT], sb[BT / 2], acc[D / 2], part[D / 2];
+#pragma unroll
+    for (int i = 0; i < BT; ++i) sa[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < BT / 2; ++i) sb[i] = 0.f;
+#pragma unroll
+    for (int i = 0; i < D / 2; ++i) acc[i] = part[i] = 0.f;
+    for (int qt = 0; qt < nqt; ++qt) {
+      const int ia = 2 * qt, ib = ia + 1;  // ring items: Q | dO rows, then dO^T | Q^T
+      // this thread's columns are the queries qt BT + 8k + 2(l%4) + {0, 1}
+      float2 st[BT / 8];
+#pragma unroll
+      for (int k = 0; k < BT / 8; ++k)
+        st[k] = *reinterpret_cast<const float2*>(rowstat + qt * BT + 8 * k + 2 * quad);
+      // S^T = K Q^T (warpgroup 0) or dP^T = V dO^T (warpgroup 1)
+      mbar_wait(&wfull[ia % SPW], (ia / SPW) & 1);
+      wgmma_fence();
+      score_tile<D, BT, BWD_ROWS>(sa, sb, res, res + L::HALF, ring + (ia % SPW) * ITEM);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(sa);
+      fence_regs(sb);
+      float x[BT / 2];  // P^T (warpgroup 0) or dS^T (warpgroup 1)
+      float* handed = reinterpret_cast<float*>(ring0 + (ia % SPW) * ITEM);  // Q tile's slot
+      if (w == 0) {
+#pragma unroll
+        for (int i = 0; i < BT / 2; ++i) {
+          const float2 l2 = st[i / 4];
+          x[i] = exp2f(fmaf(sa[i] + sa[i + BT / 2] + sb[i], c,
+                            -(i % 2 ? l2.y : l2.x) * wg::kLog2e));
+          handed[i * 128 + t] = x[i];
+        }
+        fence_proxy_async();  // the slot goes back to TMA after warpgroup 1 has read it
+        mbar_arrive(&p_full[ia % SPW]);
+      } else {
+        mbar_wait(&p_full[ia % SPW], (qt / SPW) & 1);
+#pragma unroll
+        for (int i = 0; i < BT / 2; ++i) {
+          const float2 d2 = st[i / 4];
+          x[i] = handed[i * 128 + t] * (sa[i] + sa[i + BT / 2] + sb[i] - (i % 2 ? d2.y : d2.x)) *
+                 scale;
+        }
+        fence_proxy_async();
+        mbar_arrive(&empty[ia % SPW]);   // warpgroup 0's Q slot
+        mbar_arrive(&wempty[ia % SPW]);  // this warpgroup's dO slot
+      }
+      uint32_t xh[BT / 8][4], xl[BT / 8][4];
+#pragma unroll
+      for (int k = 0; k < BT / 8; ++k) {
+        a_halves(x[4 * k], x[4 * k + 1], x[4 * k + 2], x[4 * k + 3], xh[k], xl[k]);
+        fence_regs(xh[k]);  // packed before the fence
+        fence_regs(xl[k]);
+      }
+      // dV += P^T dO (over dO^T) or dK += dS^T Q (over Q^T): the tile's own sum, added in fp32
+      mbar_wait(&wfull[ib % SPW], (ib / SPW) & 1);
+      wgmma_fence();
+      value_tile<D, BT>(part, xh, xl, ring + (ib % SPW) * ITEM);
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(part);
+#pragma unroll
+      for (int k = 0; k < BT / 8; ++k) {
+        fence_regs(xh[k]);
+        fence_regs(xl[k]);
+      }
+      mbar_arrive(&wempty[ib % SPW]);
+#pragma unroll
+      for (int i = 0; i < D / 2; ++i) acc[i] += part[i];
+    }
+    store_acc<D>((w == 0 ? dv : dk) + static_cast<size_t>(bh) * Nk * D, acc,
+                 k0 + wg::acc_row(t), quad);
+  }
+}
+
 }  // namespace tf
-
-// ------------------------------------------------------------------ dQ, fp32 (SIMT)
-template <int D>
-constexpr int dq_smem() {
-  constexpr int LD = D + PAD, LDP = BK + PAD;
-  return 2 * a128(BQ * LD * 4) + 2 * a128(BK * LD * 4) + 3 * a128(BQ * LDP * 4) +
-         a128(BQ * LD * 4) + 2 * a128(BQ * 4);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                    const float* __restrict__ v, const float* __restrict__ dout,
-                    const float* __restrict__ lse, const float* __restrict__ delta,
-                    float* __restrict__ dq, int Nq, int Nk, float scale) {
-  constexpr int LD = D + PAD, LDP = BK + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  float* Qs = cv.take<float>(BQ * LD);
-  float* dOs = cv.take<float>(BQ * LD);
-  float* Ks = cv.take<float>(BK * LD);
-  float* Vs = cv.take<float>(BK * LD);
-  float* dSs = cv.take<float>(BQ * LDP);
-  float* Ss = cv.take<float>(BQ * LDP);
-  float* dPs = cv.take<float>(BQ * LDP);
-  float* dQs = cv.take<float>(BQ * LD);
-  float* Lse = cv.take<float>(BQ);
-  float* Dl = cv.take<float>(BQ);
-
-  const int bh = blockIdx.y, q0 = blockIdx.x * BQ;
-  const int row0 = bh * Nq + q0;
-  const float* kb = k + bh * Nk * D;
-  const float* vb = v + bh * Nk * D;
-  load_tile<BQ, D>(Qs, LD, q + row0 * D);
-  load_tile<BQ, D>(dOs, LD, dout + row0 * D);
-  load_rows<BQ>(Lse, lse + row0);
-  load_rows<BQ>(Dl, delta + row0);
-  for (int e = threadIdx.x; e < BQ * LD; e += NT) dQs[e] = 0.f;
-  for (int k0 = 0; k0 < Nk; k0 += BK) {
-    __syncthreads();  // the previous step is done with Ks, Vs, dSs
-    load_tile<BK, D>(Ks, LD, kb + k0 * D);
-    load_tile<BK, D>(Vs, LD, vb + k0 * D);
-    __syncthreads();
-    block_mma<BQ, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDP, false);    // S = Q K^T
-    block_mma<BQ, BK, D, false, true>(dOs, LD, Vs, LD, dPs, LDP, false);  // dP = dO V^T
-    __syncthreads();
-    for (int e = threadIdx.x; e < BQ * BK; e += NT) {
-      const int rr = e / BK, c = e % BK;
-      const float p = expf(Ss[rr * LDP + c] * scale - Lse[rr]);
-      dSs[rr * LDP + c] = p * (dPs[rr * LDP + c] - Dl[rr]) * scale;
-    }
-    __syncthreads();
-    block_mma<BQ, D, BK, false, false>(dSs, LDP, Ks, LD, dQs, LD, true);  // dQ += dS K
-  }
-  __syncthreads();
-  float* ob = dq + row0 * D;
-  for (int e = threadIdx.x; e < BQ * D; e += NT) ob[e] = dQs[(e / D) * LD + e % D];
-}
-
-// ------------------------------------------------------------------ dK / dV, fp32 (SIMT)
-template <int D>
-constexpr int dkv_smem() {
-  constexpr int LD = D + PAD, LDP = BK + PAD;
-  return 2 * a128(BK * LD * 4) + 2 * a128(BQI * LD * 4) + 4 * a128(BQI * LDP * 4) +
-         2 * a128(BK * LD * 4) + 2 * a128(BQI * 4);
-}
-
-template <int D>
-__global__ void __launch_bounds__(NT)
-flash_bwd_dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                     const float* __restrict__ v, const float* __restrict__ dout,
-                     const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dk, float* __restrict__ dv, int Nq, int Nk,
-                     float scale) {
-  constexpr int LD = D + PAD, LDP = BK + PAD;
-  extern __shared__ __align__(128) unsigned char smem[];
-  Carve cv{smem};
-  float* Ks = cv.take<float>(BK * LD);
-  float* Vs = cv.take<float>(BK * LD);
-  float* Qs = cv.take<float>(BQI * LD);
-  float* dOs = cv.take<float>(BQI * LD);
-  float* Ps = cv.take<float>(BQI * LDP);
-  float* dSs = cv.take<float>(BQI * LDP);
-  float* Ss = cv.take<float>(BQI * LDP);
-  float* dPs = cv.take<float>(BQI * LDP);
-  float* dKs = cv.take<float>(BK * LD);
-  float* dVs = cv.take<float>(BK * LD);
-  float* Lse = cv.take<float>(BQI);
-  float* Dl = cv.take<float>(BQI);
-
-  const int bh = blockIdx.y, k0 = blockIdx.x * BK;
-  const int krow0 = bh * Nk + k0;
-  load_tile<BK, D>(Ks, LD, k + krow0 * D);
-  load_tile<BK, D>(Vs, LD, v + krow0 * D);
-  for (int e = threadIdx.x; e < BK * LD; e += NT) dKs[e] = dVs[e] = 0.f;
-  for (int q0 = 0; q0 < Nq; q0 += BQI) {
-    const int row0 = bh * Nq + q0;
-    __syncthreads();  // the previous step is done with Qs, dOs, Ps, dSs, Lse, Dl
-    load_tile<BQI, D>(Qs, LD, q + row0 * D);
-    load_tile<BQI, D>(dOs, LD, dout + row0 * D);
-    load_rows<BQI>(Lse, lse + row0);
-    load_rows<BQI>(Dl, delta + row0);
-    __syncthreads();
-    block_mma<BQI, BK, D, false, true>(Qs, LD, Ks, LD, Ss, LDP, false);    // S = Q K^T
-    block_mma<BQI, BK, D, false, true>(dOs, LD, Vs, LD, dPs, LDP, false);  // dP = dO V^T
-    __syncthreads();
-    for (int e = threadIdx.x; e < BQI * BK; e += NT) {
-      const int rr = e / BK, c = e % BK;
-      const float p = expf(Ss[rr * LDP + c] * scale - Lse[rr]);
-      Ps[rr * LDP + c] = p;
-      dSs[rr * LDP + c] = p * (dPs[rr * LDP + c] - Dl[rr]) * scale;
-    }
-    __syncthreads();
-    block_mma<BK, D, BQI, true, false>(Ps, LDP, dOs, LD, dVs, LD, true);  // dV += P^T dO
-    block_mma<BK, D, BQI, true, false>(dSs, LDP, Qs, LD, dKs, LD, true);  // dK += dS^T Q
-  }
-  __syncthreads();
-  float* kout = dk + krow0 * D;
-  float* vout = dv + krow0 * D;
-  for (int e = threadIdx.x; e < BK * D; e += NT) {
-    const int at = (e / D) * LD + e % D;
-    kout[e] = dKs[at];
-    vout[e] = dVs[at];
-  }
-}
-
-static_assert(dq_smem<128>() <= SMEM_MAX, "dQ shared memory");
-static_assert(dkv_smem<128>() <= SMEM_MAX, "dK/dV shared memory");
 
 // ------------------------------------------------------------------ host
 template <typename Kernel>
@@ -1225,6 +1478,17 @@ cudaError_t head_map(CUtensorMap* map, const void* p, int rows, int bh, int box_
                                        : CU_TENSOR_MAP_DATA_TYPE_BFLOAT16);
 }
 
+// The fp32 pre-pass over x (BH, n, D) in tiles of BT rows: row images into
+// `rows` and transposed images into `cols`, either may be null, `stride`
+// bytes a tile.
+template <int D, int BT>
+cudaError_t split_images(const void* x, unsigned char* rows, unsigned char* cols, int bh, int n,
+                         int stride, cudaStream_t s) {
+  tf::flash_split<D, BT><<<dim3(n / BT, bh), tf::SPLIT_THREADS, 0, s>>>(
+      static_cast<const float*>(x), rows, cols, n, stride);
+  return cudaGetLastError();
+}
+
 // The fp32 forward: the K/V pre-pass into `img` (4 x BH x N_k x D floats, the
 // caller's scratch), then the 3xTF32 kernel.
 template <int D>
@@ -1232,10 +1496,11 @@ int fwd_tf32x3(const void* q, const void* k, const void* v, void* out, void* lse
                int bh, int nq, int nk, float scale, cudaStream_t s) {
   using L = tf::Layout<D>;
   if (nk % L::BN) return BAD_ARGUMENT;
-  tf::flash_fwd_split_kv<D><<<dim3(nk / L::BN, bh), tf::SPLIT_THREADS, 0, s>>>(
-      static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<unsigned char*>(img), nk);
-  cudaError_t e = cudaGetLastError();
+  // each key tile's K then V^T image, the order the kernel streams them
+  unsigned char* im = static_cast<unsigned char*>(img);
+  cudaError_t e = split_images<D, L::BN>(k, im, nullptr, bh, nk, 2 * tf::SLOT, s);
+  if (e == cudaSuccess)
+    e = split_images<D, L::BN>(v, nullptr, im + tf::SLOT, bh, nk, 2 * tf::SLOT, s);
   if (e != cudaSuccess) return static_cast<int>(e);
   CUtensorMap qmap;
   e = head_map<D, float>(&qmap, q, nq, bh, tf::BM);
@@ -1315,31 +1580,53 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout, con
   return static_cast<int>(cudaGetLastError());
 }
 
+
+// The fp32 dQ: the pre-pass writes K's row and transposed images and V's row
+// images into `img` (planes K rows, V rows, K^T: 6 x BH x N_k x D floats),
+// then the 3xTF32 kernel.
 template <int D>
-int dq_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-           const void* delta, void* dq_out, int bh, int nq, int nk, float scale, cudaStream_t s) {
-  constexpr int bytes = dq_smem<D>();
-  cudaError_t e = allow_smem(flash_bwd_dq_kernel<D>, bytes);
+int dq_tf32x3(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+              const void* delta, void* dq_out, void* img, int bh, int nq, int nk, float scale,
+              cudaStream_t s) {
+  using L = tf::BwdLayout<D>;
+  if (nq % tf::BWD_ROWS || nk % (2 * L::BT)) return BAD_ARGUMENT;
+  unsigned char* im = static_cast<unsigned char*>(img);
+  const size_t plane = static_cast<size_t>(bh) * nk * D * 8;
+  CUtensorMap maps[2];
+  cudaError_t e = split_images<D, L::BT>(k, im, im + 2 * plane, bh, nk, tf::ITEM, s);
+  if (e == cudaSuccess) e = split_images<D, L::BT>(v, im + plane, nullptr, bh, nk, tf::ITEM, s);
+  if (e == cudaSuccess) e = head_map<D, float>(&maps[0], q, nq, bh, tf::BWD_ROWS);
+  if (e == cudaSuccess) e = head_map<D, float>(&maps[1], dout, nq, bh, tf::BWD_ROWS);
+  if (e == cudaSuccess) e = allow_smem(tf::flash_bwd_dq_tf32x3<D>, L::BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dq_kernel<D><<<dim3(nq / BQ, bh), NT, bytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dq_out), nq, nk, scale);
+  tf::flash_bwd_dq_tf32x3<D><<<dim3(nq / tf::BWD_ROWS, bh), wg::THREADS, L::BYTES, s>>>(
+      maps[0], maps[1], im, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dq_out), nq, nk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
+// The fp32 dK/dV: the pre-pass writes Q's and dO's row and transposed images
+// into `img` (planes Q rows, dO rows, Q^T, dO^T: 8 x BH x N_q x D floats),
+// then the 3xTF32 kernel.
 template <int D>
-int dkv_f32(const void* q, const void* k, const void* v, const void* dout, const void* lse,
-            const void* delta, void* dk, void* dv, int bh, int nq, int nk, float scale,
-            cudaStream_t s) {
-  constexpr int bytes = dkv_smem<D>();
-  cudaError_t e = allow_smem(flash_bwd_dkv_kernel<D>, bytes);
+int dkv_tf32x3(const void* q, const void* k, const void* v, const void* dout, const void* lse,
+               const void* delta, void* dk, void* dv, void* img, int bh, int nq, int nk,
+               float scale, cudaStream_t s) {
+  using L = tf::BwdLayout<D>;
+  if (nk % tf::BWD_ROWS || nq % (2 * L::BT)) return BAD_ARGUMENT;
+  unsigned char* im = static_cast<unsigned char*>(img);
+  const size_t plane = static_cast<size_t>(bh) * nq * D * 8;
+  CUtensorMap maps[2];
+  cudaError_t e = split_images<D, L::BT>(q, im, im + 2 * plane, bh, nq, tf::ITEM, s);
+  if (e == cudaSuccess)
+    e = split_images<D, L::BT>(dout, im + plane, im + 3 * plane, bh, nq, tf::ITEM, s);
+  if (e == cudaSuccess) e = head_map<D, float>(&maps[0], k, nk, bh, tf::BWD_ROWS);
+  if (e == cudaSuccess) e = head_map<D, float>(&maps[1], v, nk, bh, tf::BWD_ROWS);
+  if (e == cudaSuccess) e = allow_smem(tf::flash_bwd_dkv_tf32x3<D>, L::BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  flash_bwd_dkv_kernel<D><<<dim3(nk / BK, bh), NT, bytes, s>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<const float*>(dout), static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<float*>(dk), static_cast<float*>(dv), nq, nk,
-      scale);
+  tf::flash_bwd_dkv_tf32x3<D><<<dim3(nk / tf::BWD_ROWS, bh), wg::THREADS, L::BYTES, s>>>(
+      maps[0], maps[1], im, static_cast<const float*>(lse), static_cast<const float*>(delta),
+      static_cast<float*>(dk), static_cast<float*>(dv), nq, nk, scale);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1361,7 +1648,8 @@ extern "C" int flash_fwd_launch(int is_bf16, int d, const void* q, const void* k
 }
 
 // Dynamic shared memory of a wgmma kernel (0 bf16 forward, 1 dQ, 2 dK/dV, 3
-// the 3xTF32 forward) at head width d, for build reports.
+// the 3xTF32 forward, 4 the 3xTF32 dQ and dK/dV) at head width d, for build
+// reports.
 extern "C" int flash_wgmma_smem(int kernel, int d) {
   if (d != 64 && d != 128) return BAD_ARGUMENT;
   const bool w = d == 128;
@@ -1370,38 +1658,41 @@ extern "C" int flash_wgmma_smem(int kernel, int d) {
     case 1: return w ? wg::DqSmem<128>::BYTES : wg::DqSmem<64>::BYTES;
     case 2: return w ? wg::DkvSmem<128>::BYTES : wg::DkvSmem<64>::BYTES;
     case 3: return w ? tf::Layout<128>::BYTES : tf::Layout<64>::BYTES;
+    case 4: return w ? tf::BwdLayout<128>::BYTES : tf::BwdLayout<64>::BYTES;
     default: return BAD_ARGUMENT;
   }
 }
 
+// fp32 takes `scratch` for the pre-pass's images (16-byte aligned): 6 x BH x
+// N_k x D floats for dQ, 8 x BH x N_q x D for dK/dV; bf16 does not read it.
 extern "C" int flash_bwd_dq_launch(int is_bf16, int d, const void* q, const void* k,
                                    const void* v, const void* dout, const void* lse,
-                                   const void* delta, void* dq_out, int bh, int nq, int nk,
-                                   float scale, void* stream) {
+                                   const void* delta, void* dq_out, void* scratch, int bh,
+                                   int nq, int nk, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && d == 128)
     return dq_wgmma<128>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
   if (is_bf16 && d == 64)
     return dq_wgmma<64>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 128)
-    return dq_f32<128>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
+    return dq_tf32x3<128>(q, k, v, dout, lse, delta, dq_out, scratch, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 64)
-    return dq_f32<64>(q, k, v, dout, lse, delta, dq_out, bh, nq, nk, scale, s);
+    return dq_tf32x3<64>(q, k, v, dout, lse, delta, dq_out, scratch, bh, nq, nk, scale, s);
   return BAD_ARGUMENT;
 }
 
 extern "C" int flash_bwd_dkv_launch(int is_bf16, int d, const void* q, const void* k,
                                     const void* v, const void* dout, const void* lse,
-                                    const void* delta, void* dk, void* dv, int bh, int nq,
-                                    int nk, float scale, void* stream) {
+                                    const void* delta, void* dk, void* dv, void* scratch,
+                                    int bh, int nq, int nk, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_bf16 && d == 128)
     return dkv_wgmma<128>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
   if (is_bf16 && d == 64)
     return dkv_wgmma<64>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 128)
-    return dkv_f32<128>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
+    return dkv_tf32x3<128>(q, k, v, dout, lse, delta, dk, dv, scratch, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 64)
-    return dkv_f32<64>(q, k, v, dout, lse, delta, dk, dv, bh, nq, nk, scale, s);
+    return dkv_tf32x3<64>(q, k, v, dout, lse, delta, dk, dv, scratch, bh, nq, nk, scale, s);
   return BAD_ARGUMENT;
 }

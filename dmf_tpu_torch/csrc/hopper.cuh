@@ -1,5 +1,5 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's wgmma kernels:
-// the bf16 flash-attention forward and backward and the 3xTF32 (fp32) forward
+// the bf16 and the 3xTF32 (fp32) flash-attention forward and backward
 // (flash_attention.cu), and the bf16 and 3xTF32 neck conv (conv3x3_bn_gelu.cu).
 // Inline PTX keeps an nvcc build at seconds; nothing here links against
 // libcuda (the tensor-map encoder is looked up at run time through the CUDA
@@ -304,6 +304,19 @@ __device__ __forceinline__ void wgmma_m64n128k8_tf32_ss(float (&d)[64], uint64_t
         "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]),
         "+f"(d[54]), "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
         "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (+)= A B, m64n16k8, TF32 operands, A and B from shared memory (K-major).
+__device__ __forceinline__ void wgmma_m64n16k8_tf32_ss(float (&d)[8], uint64_t desc_a,
+                                                    uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7"
+      "}, %8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]),
+        "+f"(d[6]), "+f"(d[7])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

@@ -13,13 +13,15 @@ There is no fallback from one to the other.
 The bf16 kernels run on Hopper's ``wgmma`` fed by TMA through a shared-memory
 ring (``flash_fwd_wgmma``, ``flash_bwd_dq_wgmma``, ``flash_bwd_dkv_wgmma``):
 two backward kernels, each owning its output rows, so there are no atomics
-and two calls give the same bits.  The fp32 forward runs on the same shape as
-3xTF32 ``wgmma`` (``flash_fwd_tf32x3``: every operand split into TF32 halves,
-three products a k8 step, each key tile's P V added into an fp32 sum), after
-a pre-pass that writes K and V^T split and swizzled into a scratch tensor
-the wrapper allocates (4 x the size of k).  The fp32 backward kernels are
-block-level products of shared-memory tiles on the CUDA cores (no TF32
-rounding).
+and two calls give the same bits.  fp32 runs on the tensor cores as 3xTF32
+``wgmma``: every operand split into TF32 halves, three products a k8 step
+(hi*hi + hi*lo + lo*hi), each tile's P V, dS K, P^T dO or dS^T Q added into
+an fp32 sum.  TF32 ``wgmma`` has no transpose bit, so a pre-pass writes the
+streamed operands split, swizzled and, where a product contracts over their
+rows, transposed, into a scratch tensor the wrapper allocates for the call:
+K and V^T for the forward (``flash_fwd_tf32x3``, 4 x the size of k); K, V
+and K^T for dQ (``flash_bwd_dq_tf32x3``, 6 x k); Q, dO, Q^T and dO^T for
+dK/dV (``flash_bwd_dkv_tf32x3``, 8 x q).
 
 Numerics: the plain version computes the scores, the softmax and the value
 product in fp32 from the input-dtype operands and rounds the output once;
@@ -65,8 +67,8 @@ def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention", _SOURCES)
     p, i, f = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
     lib.flash_fwd_launch.argtypes = [i, i] + [p] * 6 + [i, i, i, f, p]
-    lib.flash_bwd_dq_launch.argtypes = [i, i] + [p] * 7 + [i, i, i, f, p]
-    lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
+    lib.flash_bwd_dq_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
+    lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 9 + [i, i, i, f, p]
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch):
         fn.restype = ctypes.c_int
     lib.flash_wgmma_smem.argtypes = [i, i]
@@ -117,6 +119,13 @@ def _launch(fn, q: torch.Tensor, *ptrs, nq: int, nk: int, scale: float) -> None:
         raise RuntimeError(f"flash_attention: {fn.__name__} failed (CUDA error {rc})")
 
 
+def _scratch(like: torch.Tensor, images: int) -> torch.Tensor:
+    """The fp32 kernels' pre-pass images: ``images`` x like's size, freed
+    after the call; none for bf16."""
+    n = images * like.numel() if like.dtype == torch.float32 else 0
+    return torch.empty(n, device=like.device, dtype=torch.float32)
+
+
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on (BH, N, D) CUDA tensors: ``(out, lse)``.
@@ -126,8 +135,7 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _check_operands(q, k, v)
     out = torch.empty_like(q)
     lse = torch.empty(q.shape[:2], device=q.device, dtype=torch.float32)
-    f32 = q.dtype == torch.float32
-    scratch = torch.empty(4 * k.numel() if f32 else 0, device=q.device, dtype=torch.float32)
+    scratch = _scratch(k, 4)
     _launch(_library().flash_fwd_launch, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), scratch.data_ptr(), nq=q.shape[1], nk=k.shape[1],
             scale=scale)
@@ -148,23 +156,32 @@ def _check_backward(q, k, v, dout, lse, delta) -> None:
 
 
 def flash_bwd_dq(q, k, v, dout, lse, delta, scale: float) -> torch.Tensor:
-    """Launch the dQ kernel; ``lse``, ``delta`` are fp32 (BH, N_q)."""
+    """Launch the dQ kernel; ``lse``, ``delta`` are fp32 (BH, N_q).
+
+    fp32 takes a scratch tensor of 6 x k's size for K's, V's and K^T's images.
+    """
     _check_backward(q, k, v, dout, lse, delta)
     dq = torch.empty_like(q)
+    scratch = _scratch(k, 6)
     _launch(_library().flash_bwd_dq_launch, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
-            nq=q.shape[1], nk=k.shape[1], scale=scale)
+            scratch.data_ptr(), nq=q.shape[1], nk=k.shape[1], scale=scale)
     flash_attention.launches_dq += 1
     return dq
 
 
 def flash_bwd_dkv(q, k, v, dout, lse, delta, scale: float):
-    """Launch the dK/dV kernel; returns ``(dk, dv)``."""
+    """Launch the dK/dV kernel; returns ``(dk, dv)``.
+
+    fp32 takes a scratch tensor of 8 x q's size for Q's, dO's, Q^T's and
+    dO^T's images.
+    """
     _check_backward(q, k, v, dout, lse, delta)
     dk, dv = torch.empty_like(k), torch.empty_like(v)
+    scratch = _scratch(q, 8)
     _launch(_library().flash_bwd_dkv_launch, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dk.data_ptr(),
-            dv.data_ptr(), nq=q.shape[1], nk=k.shape[1], scale=scale)
+            dv.data_ptr(), scratch.data_ptr(), nq=q.shape[1], nk=k.shape[1], scale=scale)
     flash_attention.launches_dkv += 1
     return dk, dv
 

@@ -202,18 +202,24 @@ def test_flash_attention_kernels(dev, dtype, d, nq, nk):
             fa.flash_attention.launches_dkv) == (3 if f32 else 2, 1, 1)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("d", [64, 128])
-@pytest.mark.parametrize("nq,nk", [(192, 192), (192, 320), (320, 64), (1024, 448)])
-def test_flash_backward_kernels(dev, d, nq, nk):
-    """The bf16 dQ and dK/dV kernels under autograd through ``flash_attention``
-    at BH = 3: N % 128 = 64 (a block's last 128 rows half full, TMA reading
+@pytest.mark.parametrize("nq,nk", [(192, 192), (192, 320), (320, 64), (1024, 448),
+                                   (4096, 4096)])
+def test_flash_backward_kernels(dev, dtype, d, nq, nk):
+    """The dQ and dK/dV kernels under autograd through ``flash_attention`` at
+    BH = 3: N % 128 = 64 (a bf16 block's last 128 rows half full, TMA reading
     zeros past N instead of the next head's rows), N_q != N_k, D 64 and 128;
     two backward calls give the same bits (no atomics), one launch of each
-    kernel per backward."""
+    kernel per backward.  fp32 (the 3xTF32 kernels): q and k scaled by 1.5,
+    where one TF32 product would miss the tolerance
+    (tests/test_torch_flash_f32.py)."""
+    f32 = dtype == torch.float32
     g = torch.Generator(device=dev).manual_seed(8)
-    q, k, v = (torch.randn(1, 3, n, d, device=dev, generator=g).to(torch.bfloat16)
-               for n in (nq, nk, nk))
-    cot = torch.randn(1, 3, nq, d, device=dev, generator=g).to(torch.bfloat16)
+    q, k, v = (torch.randn(1, 3, n, d, device=dev, generator=g) * s
+               for n, s in ((nq, 1.5 if f32 else 1.0), (nk, 1.5 if f32 else 1.0), (nk, 1.0)))
+    q, k, v = (t.to(dtype) for t in (q, k, v))
+    cot = torch.randn(1, 3, nq, d, device=dev, generator=g).to(dtype)
     fa.flash_attention.launches = fa.flash_attention.launches_dq = 0
     fa.flash_attention.launches_dkv = 0
     grads = []
@@ -226,7 +232,7 @@ def test_flash_backward_kernels(dev, d, nq, nk):
     ref_leaves = [t.clone().requires_grad_() for t in (q, k, v)]
     (fa.flash_attention_ref(*ref_leaves)[0].float() * cot.float()).sum().backward()
     for a, b, again in zip(grads[0], ref_leaves, grads[1]):
-        _close_rel(a, b.grad, torch.bfloat16)
+        _close_rel(a, b.grad, dtype)
         assert torch.equal(a, again)
 
 
