@@ -89,6 +89,21 @@ Phases, each printing its own lines:
      batch time by CUDA events, one profiled batch (the flash
      forward's device time, the idle share) and the first two volumes'
      logits against the same eval step on the CPU (rel 1e-4);
+  8. the command line on the card: 7b's 158 + 32 volumes written as a tensor
+     store (``dwi_tensordata.npz``, ``dce_tensordata.npz``), a seeded
+     ResNet-50 written in the Lab-Rasool layout and a resnet50d in timm's,
+     the default config at full width as JSON; the imports (host seconds)
+     held bit-equal to ``build_single_model(..., pretrained_path=)`` on the
+     card at 14 and 6 channels and to ``build_backbone`` for resnet50d; then
+     ``cli.main(["run", "--fusion", ...])`` in-process for fold 0, two
+     epochs a stage with the backbone frozen: stage wall seconds, peak
+     memory, a finite three-stage summary, each ``metrics.json``, the
+     backbone parameters of both single runs' final and best states
+     bit-equal to the import, kernels 1, 2, 6 and 7 launched by 7b's and
+     7d's formulas; ``export-ckpt --method fusion`` in its own process, each
+     file loaded strictly into fresh models and equal to the trained ones;
+     ``debug-suite --fusion`` on the card (kernels 1 and 6 at 8-32
+     channels), and its models with dropout off, card against CPU;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -101,6 +116,7 @@ import contextlib
 import copy
 import dataclasses
 import functools
+import io
 import json
 import os
 import re
@@ -154,6 +170,14 @@ from dmf_tpu_torch.train.single import (make_single_eval_step,  # noqa: E402
                                         make_single_train_step)
 from dmf_tpu_torch.train.state import TrainState  # noqa: E402
 from dmf_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
+from dmf_tpu_torch import cli, debug_suite  # noqa: E402
+from dmf_tpu_torch.models import init_weights, load_reference_state_dict  # noqa: E402
+from dmf_tpu_torch.models.backbones import (ResNetFeatures, build_backbone,  # noqa: E402
+                                            import_resnet50, pretrained_state_dict)
+from dmf_tpu_torch.models.backbones.importers import map_rasool_to_timm_keys  # noqa: E402
+from dmf_tpu_torch.models.weights import load_lightning_ckpt  # noqa: E402
+from dmf_tpu_torch.pipeline import run_fusion as run_fusion_mod  # noqa: E402
+from dmf_tpu_torch.pipeline import run_single as run_single_mod  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -2446,6 +2470,252 @@ def phase_fold(cfg, raw, tmp, dwi_out, rcfg0):
     return {k: launched[k] + dce_launched[k] for k in COUNTERS}
 
 
+# ------------------------------------------------------------------ phase 8
+# the command line on the card: 7b's volumes as a tensor store, two epochs a
+# stage (the backbone frozen throughout: foundation_model_unfreeze_timer=2)
+CLI_EPOCHS = 2
+RASOOL_STAGES = {"conv1.": "0.", "bn1.": "1.", "layer1.": "4.", "layer2.": "5.",
+                 "layer3.": "6.", "layer4.": "7."}
+
+
+def seeded_resnet(deep_stem, seed):
+    """A timm-layout ResNet-50 (resnet50d with ``deep_stem``) state dict for 3
+    input channels on seeded random weights and BatchNorm statistics, with
+    timm's 1000-class ``fc`` head."""
+    g = torch.Generator().manual_seed(seed)
+    net = ResNetFeatures(3, deep_stem=deep_stem, avg_down=deep_stem)
+    init_weights(net, g)
+    with torch.no_grad():
+        for m in net.modules():
+            if isinstance(m, torch.nn.BatchNorm2d):
+                m.running_mean.normal_(0.0, 0.1, generator=g)
+                m.running_var.uniform_(0.5, 1.5, generator=g)
+    sd = dict(net.state_dict())
+    sd["fc.weight"] = torch.randn(1000, 2048, generator=g) * 0.02
+    sd["fc.bias"] = torch.zeros(1000)
+    return sd
+
+
+def rasool_layout(sd):
+    """The Lab-Rasool layout: a ``backbone.`` prefix, the stem as ``0.``/``1.``,
+    the stages as ``4.``-``7.``, and the ``fc.`` head."""
+    out = {}
+    for k, v in sd.items():
+        for timm, rasool in RASOOL_STAGES.items():
+            if k.startswith(timm):
+                k = rasool + k[len(timm):]
+                break
+        out["backbone." + k] = v
+    return out
+
+
+def bit_equal(name, got, ref):
+    """Every tensor of ``ref`` (CPU) equal, bit for bit, to ``got``'s."""
+    bad = [k for k, v in ref.items() if not torch.equal(got[k].detach().cpu(), v)]
+    if sorted(got) != sorted(ref) or bad:
+        raise AssertionError(f"{name}: {len(bad)} tensors differ (first {bad[:3]}) or the "
+                             f"key sets differ")
+    log(f"  {name}: {len(ref)} tensors bit-equal")
+
+
+class Spy:
+    """Wraps a pipeline function the CLI looks up at call time: records each
+    call's result and wall seconds (to a synchronize)."""
+
+    def __init__(self, module, name):
+        self.module, self.name, self.fn = module, name, getattr(module, name)
+        self.calls = []
+
+    def __enter__(self):
+        def wrapped(*a, **kw):
+            t0 = time.perf_counter()
+            out = self.fn(*a, **kw)
+            torch.cuda.synchronize()
+            self.calls.append((out, time.perf_counter() - t0))
+            return out
+
+        setattr(self.module, self.name, wrapped)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.module, self.name, self.fn)
+
+
+def phase_cli(cfg, raw, tmp, smi):
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "cli")
+    base, results = os.path.join(root, "data"), os.path.join(root, "results")
+    os.makedirs(base)
+    log(f"== phase 8: python -m dmf_tpu_torch.cli on the card: run --fusion (fold 0, "
+        f"{CLI_EPOCHS} epochs a stage) on a tensor store of {RUN_TRAIN} + {RUN_TEST} "
+        f"volumes of {IMAGE}^2, the default config at full width (ResNet-50, fp32, TF32 "
+        f"off, B={cfg.batch_size}) with RadImageNet-layout backbones from a seeded "
+        f"checkpoint; export-ckpt; debug-suite")
+    t0 = time.perf_counter()
+    for m in ("dwi", "dce"):
+        np.savez(os.path.join(base, f"{m}_tensordata.npz"), imgs=raw[m],
+                 test_imgs=raw[f"{m}_test"], labels=raw["labels"],
+                 test_labels=raw["labels_test"], masks=raw["masks"])
+    rasool = os.path.join(root, "radimagenet_resnet50.pt")
+    torch.save({"state_dict": rasool_layout(seeded_resnet(False, SEED + 80))}, rasool)
+    r50d = os.path.join(root, "resnet50d.pth")
+    torch.save(seeded_resnet(True, SEED + 81), r50d)
+    ccfg = cfg.replace(foundation_model_unfreeze_timer=2)
+    config = os.path.join(root, "config.json")
+    ccfg.save(config)
+    log(f"  tensor store, two checkpoints and the config written in "
+        f"{time.perf_counter() - t0:.2f} s")
+
+    # the imports on the host, then build_single_model on the card at 14 and 6 channels
+    imports = {}
+    for method in ("dwi", "dce"):
+        mc, ch = ccfg.model_config(method), ccfg.channel_num(method)
+        t0 = time.perf_counter()
+        imports[method] = pretrained_state_dict(mc, ch, rasool)
+        t_imp = time.perf_counter() - t0
+        direct = import_resnet50(map_rasool_to_timm_keys(
+            torch.load(rasool, weights_only=True)["state_dict"]), ch,
+            use_advanced_adapt=resolve_backbone_config(mc).use_advanced_adapt)
+        bit_equal(f"RadImageNet import at {ch} channels (host {t_imp:.3f} s) against "
+                  f"import_resnet50", imports[method], direct)
+        model, _ = build_single_model(ccfg, method, pretrained_path=rasool, device=DEV)
+        bit_equal(f"build_single_model('{method}', pretrained_path=) backbone on the card",
+                  model.backbone.state_dict(), imports[method])
+        del model
+    mc_d = dataclasses.replace(ccfg.dwi_model, backbone_str="resnet50d")
+    t0 = time.perf_counter()
+    sd_d = pretrained_state_dict(mc_d, 14, r50d)
+    t_imp = time.perf_counter() - t0
+    net = build_backbone(mc_d, 14, pretrained_path=r50d, device=DEV)
+    bit_equal(f"resnet50d through build_backbone on the card (import host {t_imp:.3f} s)",
+              net.state_dict(), sd_d)
+    del net, sd_d
+    torch.cuda.empty_cache()
+
+    argv = ["run", "--config", config, "--base-path", base, "--results-dir", results,
+            "--folds", "0", "--fusion", "--epochs", str(CLI_EPOCHS), "--min-epochs",
+            str(CLI_EPOCHS), "--pretrained-dwi", rasool, "--pretrained-dce", rasool]
+    log("  cli.main: " + " ".join(a.replace(root, "<tmp>") for a in argv))
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    reset_counts()
+    with Spy(run_single_mod, "run_single_model") as singles, \
+            Spy(run_fusion_mod, "run_fusion_model") as fusions, \
+            contextlib.redirect_stdout(text):
+        rc = cli.main(argv)
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = text.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli run returned {rc}")
+    summary = json.loads(text[text.rindex("\n{\n") + 1:])
+    (dwi_out, t_dwi), (dce_out, t_dce) = singles.calls
+    (fus_out, t_fus), = fusions.calls
+    log(f"  stages (wall s, prepare and test included): DWI {t_dwi:.2f}, DCE {t_dce:.2f}, "
+        f"fusion {t_fus:.2f}; peak memory {peak:.2f} GiB; {smi}")
+    for key, metrics in summary.items():
+        log(f"  summary {key}: {json.dumps({k: round(v, 5) for k, v in metrics.items()})}")
+    if sorted(summary) != ["fold0_dce", "fold0_dwi", "fold0_fusion"] or not all(
+            all_finite(m) for m in summary.values()):
+        raise AssertionError(f"summary {sorted(summary)} incomplete or not finite")
+    for stage in ("dwi", "dce", "fusion"):
+        if not os.path.exists(os.path.join(results, stage, "fold_0", "metrics.json")):
+            raise AssertionError(f"{stage} metrics.json not written")
+    # the backbone stayed frozen for both epochs: its parameters are the import
+    for method, out in (("dwi", dwi_out), ("dce", dce_out)):
+        if [h["group_trainable"][0] for h in out["history"]] != [0.0] * CLI_EPOCHS:
+            raise AssertionError(f"{method}: the backbone group was trained")
+        for which in ("final_state", "state"):
+            params = dict(out[which].model.backbone.named_parameters())
+            bit_equal(f"{method} {which} backbone parameters against the import",
+                      params, {k: imports[method][k] for k in params})
+    # launches by 7b's and 7d's formulas
+    B = ccfg.batch_size
+    n_tr = len(dwi_out["data"].splits["train"]["labels"])
+    n_va = len(dwi_out["data"].splits["val"]["labels"])
+    n_steps, n_val, n_test = -(-n_tr // B), -(-n_va // B), -(-RUN_TEST // B)
+    single = {"se_epilogue": 3 * CLI_EPOCHS * n_val + 6 * n_test,
+              "conv3x3_bn_gelu": 6 * (CLI_EPOCHS * n_val + n_test),
+              "se_scale": CLI_EPOCHS * n_val + n_test}
+    expect = dict.fromkeys(COUNTERS, 0) | {
+        k: 2 * single[k] + FUSION_VAL[k] * CLI_EPOCHS * n_val + FUSION_TEST[k] * n_test
+        for k in single} | {"dwi_normalize": CLI_EPOCHS * n_steps + 2 + 3}
+    log(f"  launches of the run {launched}")
+    if launched != expect:
+        raise AssertionError(f"cli run launched {launched}, expected {expect}")
+
+    # export-ckpt in its own process, each file strictly into a fresh model
+    best = os.path.join(results, "fusion", "fold_0", "checkpoints", "best.pt")
+    stem = os.path.join(root, "fold0.ckpt")
+    del dwi_out, dce_out, singles, fusions
+    torch.cuda.empty_cache()
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dmf_tpu_torch.cli", "export-ckpt",
+                           "--config", config, "--base-path", base, "--method", "fusion",
+                           "--checkpoint", best, "--out", stem], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"export-ckpt exited {proc.returncode}: {proc.stderr[-2000:]}")
+    log(f"  export-ckpt --method fusion: {time.perf_counter() - t0:.2f} s in its own "
+        f"process; {'; '.join(proc.stdout.replace(root, '<tmp>').strip().splitlines())}")
+    dwi_m, _ = build_single_model(ccfg, "dwi", device=DEV, generator=gen(SEED + 5))
+    dce_m, _ = build_single_model(ccfg, "dce", device=DEV, generator=gen(SEED + 6))
+    fresh = build_fusion_state(ccfg, TrainState.create(dwi_m), TrainState.create(dce_m),
+                               generator=gen(SEED + 7)).model
+    trained = fus_out["state"].model
+    for part in ("dwi", "dce", "fusion"):
+        report = load_reference_state_dict(getattr(fresh, part),
+                                           load_lightning_ckpt(f"{root}/fold0_{part}.ckpt"))
+        bit_equal(f"fold0_{part}.ckpt loaded strictly ({len(report['dropped'])} reference "
+                  f"slots dropped) against the trained {part}",
+                  getattr(fresh, part).state_dict(),
+                  {k: v.detach().cpu() for k, v in getattr(trained, part).state_dict().items()})
+    del fus_out, fresh, trained, dwi_m, dce_m
+    torch.cuda.empty_cache()
+
+    # debug-suite on the card (kernels 1 and 6 at 8-32 channels)
+    text = io.StringIO()
+    reset_counts()
+    with contextlib.redirect_stdout(text):
+        rc = cli.main(["debug-suite", "--config", config, "--fusion"])
+    dbg_launched = counts()
+    text = text.getvalue()
+    log(f"  debug-suite --fusion on the card: exit {rc}, {text.count('ALL PASS')} suites "
+        f"passed, launches {dbg_launched}")
+    if rc != 0 or text.count("ALL PASS") != 3:
+        raise AssertionError("debug-suite failed on the card:\n" + text)
+    if not (dbg_launched["se_epilogue"] > 0 and dbg_launched["se_scale"] > 0):
+        raise AssertionError("debug-suite did not launch kernels 1 and 6")
+    # its models with dropout off: the MC outputs on the card against the CPU's
+    # plain route (the same weights: the suite draws them on the host)
+    dcfg = ccfg.replace(**{f"{m}_model": dataclasses.replace(ccfg.model_config(m), dropout=0.0)
+                           for m in ("dwi", "dce", "fusion")})
+    rng = np.random.RandomState(SEED)
+    S = 64
+    xs = {m: torch.as_tensor(rng.rand(4, S, S, dcfg.channel_num(m)).astype(np.float32))
+          for m in ("dwi", "dce")}
+    outs = {}
+    for dev in ("cpu", DEV):
+        dwi, dce, fusion = debug_suite.debug_fusion_models(dcfg, 0, dev)
+        g = torch.Generator(dev).manual_seed(3)
+        outs[str(dev)] = (
+            make_single_predictor(dcfg, dwi, mode="mc", mc_passes=8)(xs["dwi"].to(dev), g)[:2],
+            make_single_predictor(dcfg, dce, mode="mc", mc_passes=8)(xs["dce"].to(dev), g)[:2],
+            make_fusion_predictor(dcfg, dwi, dce, fusion, mode="tta_mc", mc_passes=4)(
+                xs["dwi"].to(dev), xs["dce"].to(dev), g)[:2])
+    for name, (cpu, card) in zip(("dwi mc", "dce mc", "fusion tta_mc"),
+                                 zip(outs["cpu"], outs[str(DEV)])):
+        check(f"debug {name} mean, card vs CPU, dropout off", card[0].cpu(), cpu[0],
+              torch.float32)
+        check(f"debug {name} std, card vs CPU, dropout off", card[1].cpu(), cpu[1],
+              torch.float32)
+    torch.cuda.empty_cache()
+    log(f"  phase 8: {time.perf_counter() - t_phase:.1f} s")
+    return {k: launched[k] + dbg_launched[k] for k in COUNTERS}
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2491,14 +2761,16 @@ def main():
         run_launches, dwi_out, rcfg0 = phase_run_single(cfg, raw, tmp)
         fold_launches = phase_fold(cfg, raw, tmp, dwi_out, rcfg0)
         del dwi_out
+        cli_launches = phase_cli(cfg, raw, tmp, smi)
     del raw
     val_launches = phase_hybrid_validation(hcfg)[0]
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
-                + val_launches[k] for k in COUNTERS}
+                + val_launches[k] + cli_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
-        f"single-modality runs, the fusion run and the hybrid-nb validation batch: {launches}")
+        f"single-modality runs, the fusion run, the hybrid-nb validation batch and the "
+        f"CLI: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")

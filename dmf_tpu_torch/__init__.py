@@ -10,12 +10,14 @@ each counterpart is easy to find.  It imports ``torch`` and nothing of
 Ported so far: fusion inference (``normal``/``tta``/``mc``/``tta_mc``) with
 two ResNet-50-backed encoders, the fusion head and the TTA x MC predictor;
 the hybrid CNN->Transformer encoders without a backbone (``hybrid-nb``); the
-single-modality data preparation; and single-modality training
-(``pipeline.run_single.run_single_model``).  Every TPU kernel has a
-hand-written Hopper counterpart in ``csrc/`` (CUDA C++), behind a wrapper in
-``ops/``.
+single-modality data preparation; single-modality and fusion training
+(``pipeline.run_single.run_single_model``, ``pipeline.run_fusion.run_fusion_model``)
+with ResNet-50 backbones from local checkpoints; and the command line
+(``python -m dmf_tpu_torch.cli run|debug-suite|export-ckpt``).  Every TPU
+kernel has a hand-written Hopper counterpart in ``csrc/`` (CUDA C++), behind
+a wrapper in ``ops/``.
 """
 
-from .config import Config, default_parameters, resolve_backbone_config
+from .config import Config, default_parameters, from_reference_dict, resolve_backbone_config
 
-__all__ = ["Config", "default_parameters", "resolve_backbone_config"]
+__all__ = ["Config", "default_parameters", "from_reference_dict", "resolve_backbone_config"]

@@ -4,9 +4,9 @@ The port's own copy of the configuration dataclasses, ``to_dict``/``from_dict``
 and the backbone-derived field resolution, field for field the same as the
 JAX package's ``dmf_tpu/config.py`` (so ``Config.from_dict(jax_cfg.to_dict())``
 gives the same configuration in both packages).  The port imports nothing of
-the JAX package.  Of the reference-dict migration it copies
-``to_reference_dict`` (the ``parameters`` block of ``metrics.json``);
-``from_reference_dict`` is not copied yet.
+the JAX package.  It copies the reference-dict migration both ways:
+``to_reference_dict`` (the ``parameters`` block of ``metrics.json``) and
+``from_reference_dict`` (the CLI's ``--ref-params``).
 
 ``ServingKernelConfig`` and ``ParallelConfig`` keep the JAX package's TPU
 knobs so both packages serialize the same tree; the port reads none of them.
@@ -655,3 +655,170 @@ def to_reference_dict(cfg: Config) -> Dict[str, Any]:
         "min_epochs": cfg.min_epochs,
         "base_path": cfg.base_path,
     }
+
+
+# ---------------------------------------------------------------------------
+# Inverse: build a Config FROM the reference's ``parameters`` dict
+# ---------------------------------------------------------------------------
+
+# keys the reference computes from other keys (parameters_generate.py:262-283);
+# ours are @property-derived, so they are ignored on import
+_REF_DERIVED_KEYS = frozenset({
+    "dwi_base_channel_num", "dwi_channel_num", "dce_channel_num",
+    "min_epochs", "aux_loss_weight_epoch_limit",
+})
+
+# environment bookkeeping the reference stores alongside the hyperparameters
+# (parameters_generate.py:285-304): artifact paths + a dataloader key suffix
+_REF_ENV_KEYS = frozenset({
+    "masks_path", "nyul_path", "data_path", "model_dict_path",
+    "fusion_model_dict", "data_key_mod", "finetune_num_epochs",
+    "dwi_tensordata", "dce_tensordata", "labels_tensordata",
+    "dwi_test_tensordata", "dce_test_tensordata", "labels_test_tensordata",
+})
+
+
+def _take(dst_kw: Dict[str, Any], src: Any, field_name: str,
+          src_key: Optional[str] = None, conv=None) -> None:
+    key = src_key or field_name
+    if isinstance(src, dict) and key in src:
+        v = src[key]
+        dst_kw[field_name] = conv(v) if conv is not None else v
+
+
+def _model_from_reference(mp: Dict[str, Any]) -> ModelConfig:
+    kw: Dict[str, Any] = {}
+    for name in (
+        "input_size", "use_hybrid_transformer", "transformer_heads",
+        "transformer_patch_size", "transformer_depth", "transformer_embed_dim",
+        "dropout", "downsample_each_repeat", "mid_squeeze", "proj_dim",
+        "use_se", "grad_clip", "gradient_clip_algorithm",
+        "enable_modality_attention", "use_backbone", "use_input_adapt",
+        "use_advanced_adapt", "transformer_backbone", "backbone_str",
+        "label_smoothing_enabled", "label_smoothing_alpha",
+        "mimic_enabled", "lambda_mimic", "recon_enabled",
+        "reconstruction_loss_code", "lambda_recon",
+        "attn_reg_enabled", "lambda_attn_energy",
+        "lambda_feature_consistency", "feat_norm_reg_enabled",
+        "lambda_feat_norm",
+    ):
+        _take(kw, mp, name)
+    for name in ("channels", "repeat_blocks", "downsample",
+                 "backbone_out_channels"):
+        _take(kw, mp, name, conv=tuple)
+    _take(kw, mp, "backbone_index_lists",
+          conv=lambda v: tuple(tuple(x) for x in v))
+
+    cl = mp.get("classification_loss_parameters")
+    if isinstance(cl, dict):
+        ckw: Dict[str, Any] = {}
+        _take(ckw, cl, "loss_code", src_key="classification_loss_code")
+        _take(ckw, cl, "gamma")
+        _take(ckw, cl, "alpha")
+        kw["classification_loss"] = ClassificationLossConfig(**ckw)
+
+    mk = mp.get("mask_parameters")
+    if isinstance(mk, dict):
+        mkw: Dict[str, Any] = {}
+        _take(mkw, mk, "enabled", src_key="mask")
+        for name in ("mask_stage", "lambda_mask", "mask_loss_type",
+                     "mask_fusion_attention", "dice_weight", "bce_weight"):
+            _take(mkw, mk, name)
+        _take(mkw, mk, "mask_target_size", conv=tuple)
+        kw["mask"] = MaskConfig(**mkw)
+
+    op = mp.get("optimizer_parameters")
+    if isinstance(op, dict):
+        okw: Dict[str, Any] = {}
+        # the reference spells it 'adamW' (parameters_generate.py:134)
+        _take(okw, op, "name", conv=lambda s: str(s).lower())
+        for name in ("lr", "eps", "amsgrad", "weight_decay", "num_lr_groups",
+                     "discriminative_lr", "lr_decay_factor", "discrim_on",
+                     "discriminative_reg", "reg_decay_factor", "reg_base"):
+            _take(okw, op, name)
+        _take(okw, op, "betas", conv=tuple)
+        kw["optimizer"] = OptimizerConfig(**okw)
+
+    sc = mp.get("scheduler")
+    if isinstance(sc, dict):
+        skw: Dict[str, Any] = {}
+        for name in ("name", "factor", "patience", "min_lr", "threshold",
+                     "monitor", "eta_min", "warmup_steps", "max_steps"):
+            _take(skw, sc, name)
+        _take(skw, sc, "t_max", src_key="T_max")
+        kw["scheduler"] = SchedulerConfig(**skw)
+
+    fs = mp.get("fusion_specific_parameters")
+    if isinstance(fs, dict):
+        fkw: Dict[str, Any] = {}
+        for name in ("mha_heads", "use_cross_attention", "use_mask_attention",
+                     "fusion_channels", "dwi_out_channels",
+                     "dce_out_channels", "fusion_recon_ch"):
+            _take(fkw, fs, name)
+        _take(fkw, fs, "token_pool", conv=tuple)
+        kw["fusion_specific"] = FusionSpecificConfig(**fkw)
+
+    return ModelConfig(**kw)
+
+
+def from_reference_dict(d: Dict[str, Any], **overrides) -> Config:
+    """Build a :class:`Config` from the reference's nested ``parameters``
+    dict — the exact layout ``parameters_generate.py`` builds and
+    ``torch.save``\\ s to ``parameters/parameters.pth``
+    (parameters_generate.py:1-304).  Inverse of
+    :func:`to_reference_dict`.
+
+    Migration semantics:
+
+    * **Derived keys are ignored** (``dwi_channel_num``, ``min_epochs``,
+      ``aux_loss_weight_epoch_limit``, ...): the reference computes them
+      imperatively from other keys; here they are ``@property``-derived
+      from the same inputs, so they always agree by construction.
+    * **Environment bookkeeping is ignored** (tensor-store paths,
+      ``data_key_mod``): only ``base_path``/``save_dir`` carry over; the
+      data layout under ``base_path`` is read by
+      :func:`~dmf_tpu_torch.pipeline.prepare_single.load_raw_tensors`.
+    * **Aliasing is dissolved**: the reference's dwi/dce/fusion sub-dicts
+      are one mutable object (parameters_generate.py:174, 183); each is
+      read independently into its own frozen :class:`ModelConfig`.
+    * ``precision`` ``'16-mixed'`` (fp16 AMP) maps to ``'bf16-mixed'`` —
+      the JAX package's mixed precision, which the port keeps.
+    * Unknown keys are ignored, missing keys keep our defaults, and
+      ``**overrides`` (Config field names) are applied last.
+    """
+    kw: Dict[str, Any] = {}
+    for name in (
+        "dim", "compile", "dataloader_num_workers", "debug_training",
+        "debug_val", "backbone_debug", "full_debug", "debug_anomaly",
+        "num_epochs", "batch_size", "segnum", "class_num",
+        "control_metric", "early_stop_metric", "patience", "save_dir",
+        "forced_mask_size", "test_mode", "mc_passes",
+        "backbone_freeze_on_start", "backbone_num_groups", "unfreeze_timer",
+        "foundation_model_unfreeze_timer", "backbone_unfreeze_lr",
+        "backbone_unfreeze_wd", "foundation_model_unfreeze_lr",
+        "backbone_unfreeze_lr_factor", "use_simple_aux_loss_scheduling",
+        "dwi_add_adc_map", "base_path",
+    ):
+        _take(kw, d, name)
+    for name in ("methods", "namelist", "dwi_bvals_to_use",
+                 "dce_channels_to_use"):
+        _take(kw, d, name, conv=tuple)
+    _take(kw, d, "precision",
+          conv=lambda p: "bf16-mixed" if str(p).endswith("-mixed") else p)
+
+    for field_name, key in (("dwi_model", "dwi_model_parameters"),
+                            ("dce_model", "dce_model_parameters"),
+                            ("fusion_model", "fusion_model_parameters")):
+        mp = d.get(key)
+        if isinstance(mp, dict):
+            kw[field_name] = _model_from_reference(mp)
+
+    es = d.get("early_stopping_parameters")
+    if isinstance(es, dict):
+        ekw: Dict[str, Any] = {}
+        for name in ("metric", "mode", "patience", "min_delta"):
+            _take(ekw, es, name)
+        kw["early_stopping"] = EarlyStoppingConfig(**ekw)
+
+    kw.update(overrides)
+    return Config(**kw)

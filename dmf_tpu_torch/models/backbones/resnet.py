@@ -1,7 +1,7 @@
 """ResNet-50/50d feature backbones (NCHW, dilated output stride 8).
 
-Counterpart of ``dmf_tpu/models/backbones/resnet.py`` and the resnet branch
-of ``registry.py::build_backbone`` (:67-84).  Returns ``[C2, C3, C4, C5]`` at
+Counterpart of ``dmf_tpu/models/backbones/resnet.py``; the port's
+``registry.py::build_backbone`` builds it.  Returns ``[C2, C3, C4, C5]`` at
 strides (4, 8, 8, 8) with (256, 512, 1024, 2048) channels: layers 3 and 4
 trade stride for dilation, and the first block of a newly dilated stage keeps
 the previous stage's dilation (``first_dilation``, resnet.py:69-80).
@@ -10,8 +10,7 @@ Parameter names are timm's (``conv1``, ``bn1``,
 ``layer{1..4}.{i}.conv{1,2,3}``/``bn{1,2,3}``/``downsample.{0,1}``; the
 resnet50d layout puts its deep stem under ``conv1.{0,1,3,4,6}`` and its
 shortcut under ``downsample.{1,2}`` behind an average pool), so timm and
-RadImageNet checkpoints map onto it by name.  Pretrained weights are not in
-the repository yet: models are built on seeded random weights.
+RadImageNet checkpoints map onto it by name (``importers.py``).
 """
 
 from __future__ import annotations
@@ -21,8 +20,6 @@ from typing import List, Sequence
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
-
-from ...config import ModelConfig
 
 from ..layers import BatchNorm2d, run
 
@@ -123,16 +120,3 @@ class ResNetFeatures(nn.Module):
             feats.append(x)
         return feats
 
-
-def build_backbone(mc: ModelConfig, in_channels: int,
-                   layers: Sequence[int] = (3, 4, 6, 3), **kw) -> ResNetFeatures:
-    """The resnet branch of ``registry.py::build_backbone``; ``layers`` lets
-    tests build a shallow (1, 1, 1, 1) network."""
-    name = mc.backbone_str.lower()
-    if name in ("resnet50", "radimagenet", "radimagenet_resnet50"):
-        return ResNetFeatures(in_channels, layers, **kw)
-    if name == "resnet50d":
-        return ResNetFeatures(in_channels, layers, deep_stem=True,
-                              avg_down=True, **kw)
-    raise NotImplementedError(
-        f"backbone {mc.backbone_str!r} is not ported yet (ResNet-50/50d only)")

@@ -29,7 +29,7 @@ from ..config import ModelConfig
 
 from ..ops.resize import adaptive_avg_pool
 from .adapter import BackboneAdapter
-from .backbones.resnet import build_backbone
+from .backbones.registry import build_backbone
 from .layers import (ClassificationHead, FeatureDownAlign,
                      MaskGuidedSpatialAttention, MaskHeadResize, Projector,
                      ResLiteBlock, SEBlock)
@@ -62,7 +62,7 @@ class Encoder(nn.Module):
                                    if cfg.enable_modality_attention else None)
         size = cfg.input_size
         if cfg.use_backbone:
-            self.backbone = build_backbone(cfg, channel_num, backbone_layers, **kw)
+            self.backbone = build_backbone(cfg, channel_num, layers=backbone_layers, **kw)
             self.backbone_adapter = BackboneAdapter(
                 self.backbone.output_dims, cfg.backbone_index_lists,
                 (c1, c1, c2), **kw)

@@ -24,6 +24,7 @@ from ..data.modality import ModalityProcessor
 from ..data.preprocess import NyulStandardizer, dce_global_max_normalize, prep_dwi_adc_maps
 from ..data.splits import train_val_indices
 from ..data.synthetic import make_synthetic_arrays
+from ..models.backbones.registry import pretrained_state_dict
 from ..models.build import init_weights
 from ..models.encoder import Encoder
 from ..ops.resize import resize_nearest
@@ -158,15 +159,16 @@ def build_single_model(cfg: Config, method: str, pretrained_path: Optional[str] 
                        dtype: torch.dtype = torch.float32, device="cuda",
                        generator: Optional[torch.Generator] = None,
                        backbone_layers: Sequence[int] = (3, 4, 6, 3)):
-    """The single-modality encoder on seeded random weights.
+    """The single-modality encoder on seeded random weights, its backbone
+    from ``pretrained_path`` when one is given (a local timm / resnet50d /
+    RadImageNet checkpoint, imported by
+    :func:`~dmf_tpu_torch.models.backbones.registry.pretrained_state_dict`).
 
     Returns ``(model, resolved_cfg)``; the module holds its weights (the JAX
-    function returns its variables beside the module).  Pretrained backbone
-    weights are not loaded: the RadImageNet files are not in the repository.
-    ``generator`` lives on ``device`` (default: seeded with ``cfg.seed``).
+    function returns its variables beside the module).  ``generator`` lives
+    on ``device`` (default: seeded with ``cfg.seed``).  The import is loaded
+    after the seeded draw, which redraws every conv and BatchNorm.
     """
-    if pretrained_path is not None:
-        raise NotImplementedError("pretrained backbone loading is not ported")
     mc = cfg.model_config(method)
     if mc.use_backbone:
         mc = resolve_backbone_config(mc)
@@ -175,6 +177,9 @@ def build_single_model(cfg: Config, method: str, pretrained_path: Optional[str] 
     model = Encoder(method, mc, cfg.channel_num(method), cfg.class_num, backbone_layers,
                     device=device, dtype=dtype)
     init_weights(model, generator)
+    if mc.use_backbone and pretrained_path:
+        model.backbone.load_state_dict(
+            pretrained_state_dict(mc, cfg.channel_num(method), pretrained_path))
     if torch.device(device).type == "cuda":
         model.to(memory_format=torch.channels_last)
     resolved = (dataclasses.replace(cfg, **{f"{method}_model": mc})

@@ -92,3 +92,38 @@ def test_import_scan_sees_the_forbidden_forms(tmp_path):
                      "from dmf_tpu_torch.ops import attention\nfrom .config import Config\n")
     assert [m for m in _imports(probe) if m.split(".")[0] in FORBIDDEN] == [
         "jax.numpy", "dmf_tpu.config", "flax"]
+
+
+def _reference_dicts():
+    """The reference layouts ``from_reference_dict`` is held on: the default
+    config's own, one with fp16 AMP, derived, environment and unknown keys,
+    and the ``hybrid-nb`` geometry's."""
+    base = jconfig.to_reference_dict(jconfig.default_parameters())
+    odd = jconfig.to_reference_dict(jconfig.default_parameters())
+    odd.update(precision="16-mixed", dwi_channel_num=99, min_epochs=-1,
+               data_key_mod="_fold", nyul_path="store/nyul.npy", no_such_key=3,
+               batch_size=16, methods=["dce"])
+    odd["dwi_model_parameters"] = dict(odd["dwi_model_parameters"], input_size=128,
+                                       unknown_model_key=1, channels=[16, 32, 64])
+    odd["dwi_model_parameters"]["optimizer_parameters"] = dict(
+        odd["dwi_model_parameters"]["optimizer_parameters"], name="adamW", lr=3e-4)
+    odd["early_stopping_parameters"] = {"metric": "val_loss", "mode": "min"}
+    del odd["fusion_model_parameters"]
+    return {"default": base, "odd": odd,
+            "hybrid-nb": jconfig.to_reference_dict(_hybrid_nb(jconfig))}
+
+
+@pytest.mark.parametrize("name", ["default", "odd", "hybrid-nb"])
+@pytest.mark.parametrize("overrides", [{}, {"seed": 7, "batch_size": 4, "base_path": "b"}],
+                         ids=["plain", "overrides"])
+def test_from_reference_dict_matches_jax(name, overrides):
+    d = _reference_dicts()[name]
+    ours = pconfig.from_reference_dict(d, **overrides)
+    theirs = jconfig.from_reference_dict(d, **overrides)
+    assert isinstance(ours, pconfig.Config)
+    assert ours.to_dict() == theirs.to_dict()
+    if name == "odd":
+        assert ours.precision == "bf16-mixed" and ours.dwi_channel_num != 99
+        assert ours.dwi_model.optimizer.name == "adamw"
+    for k, v in overrides.items():
+        assert getattr(ours, k) == v

@@ -292,5 +292,6 @@ def test_build_single_model_runs_on_cpu():
     with torch.no_grad():
         logits, aux, mask = model(x)
     assert logits.shape == (2, cfg.class_num) and torch.isfinite(logits).all()
-    with pytest.raises(NotImplementedError):
+    # a pretrained path is read (tests/test_torch_backbones.py loads real ones)
+    with pytest.raises(FileNotFoundError):
         pprep.build_single_model(cfg, "dce", pretrained_path="x.pth", device=CPU)
