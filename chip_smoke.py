@@ -5,8 +5,9 @@
 Phases, each printing its own lines:
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
   2. kernel build from the sources in this checkout (the six CUDA
-     libraries by nvcc in parallel), with ptxas registers, spills and static
-     shared memory, and the wgmma kernels' dynamic shared memory;
+     libraries by nvcc and the native host library by g++, in parallel),
+     with ptxas registers, spills and static shared memory, and the wgmma
+     kernels' dynamic shared memory;
   3. each hand-written kernel vs its plain PyTorch version at the served
      paths' shapes, fp32 (TF32 off) and bf16, with errors beside stated
      tolerances and median times beside the plain version's, the bound and
@@ -51,7 +52,9 @@ Phases, each printing its own lines:
      ``tta`` at B=2, 4b the hybrid-transformer no-backbone models
      (``hybrid-nb``) in ``normal`` at B=1; 4c the data preparation
      (``prepare_single_data`` + ``export_processed_splits``, dwi and dce,
-     256 + 64 synthetic volumes of 256^2), card vs CPU, with stage times;
+     256 + 64 synthetic volumes of 256^2), card vs CPU, with stage times
+     (the DCE Nyul fit by the native threaded C++ beside the plain numpy
+     fit on the same volumes, and their landmarks' largest difference);
   5. serving raw NHWC volumes -> on-card preprocessing -> predictor in bf16,
      3 requests of B=8 each, with launch counters checked per request and
      the preprocessing timed apart from the predictor: 5 the default models
@@ -104,6 +107,22 @@ Phases, each printing its own lines:
      file loaded strictly into fresh models and equal to the trained ones;
      ``debug-suite --fusion`` on the card (kernels 1 and 6 at 8-32
      channels), and its models with dropout off, card against CPU;
+  9. the ViT-backed path (``dino_vitbase16_pretrain`` for both encoders,
+     256^2, full ViT-B/16 width: 768 wide, 12 blocks, 12 heads): 9a kernels
+     2 and 1 at its shapes against their plain versions (kernel 2 at the six
+     neck sites, Cin 2304 / 3072 / 3840 / 768 -> 768 at 16^2, N=32 bf16 with
+     cuDNN's chain in turns and N=32 fp32 on the 3xTF32 kernel, its error
+     and the plain version's against a float64 conv at K = 34560; kernel 1
+     at 16^2 x 768, N=32 fp32 drop 0 and N=288 bf16 drop 0.2), with bounds
+     and device times; 9b the seeded ViT-backed fusion models in ``tta`` at
+     B=2, fp32, card vs CPU; 9c three ``tta_mc`` requests of B=8 raw volumes
+     in bf16 with their launch counts and the preprocessing timed apart; 9d
+     seeded ViT-B/16 checkpoints in timm's layout on the 224 grid imported
+     at 14 and 6 channels (bit-equal to ``build_single_model(...,
+     pretrained_path=)`` on the card), then ``cli.main(["run", "--fusion",
+     ...])`` for fold 0 on phase 8's tensor store, two epochs a stage, the
+     backbone frozen, ``use_native_loader=True`` (every train epoch's batches
+     from the native loader), with 8's checks;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -138,8 +157,9 @@ import numpy as np  # noqa: E402
 
 from dmf_tpu_torch import default_parameters, resolve_backbone_config  # noqa: E402
 from dmf_tpu_torch.data.preprocess import (DEFAULT_LANDMARKS, NyulStandardizer,  # noqa: E402
-                                           dce_global_max_normalize, nyul_transform_fast,
-                                           prep_dwi_adc_maps, preprocess_fusion_inputs)
+                                           dce_global_max_normalize, nyul_fit_plain,
+                                           nyul_transform_fast, prep_dwi_adc_maps,
+                                           preprocess_fusion_inputs)
 from dmf_tpu_torch.data.synthetic import make_synthetic_arrays  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_fusion_predictor  # noqa: E402
 from dmf_tpu_torch.models import build_fusion_models  # noqa: E402
@@ -172,8 +192,11 @@ from dmf_tpu_torch.train.state import TrainState  # noqa: E402
 from dmf_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
 from dmf_tpu_torch import cli, debug_suite  # noqa: E402
 from dmf_tpu_torch.models import init_weights, load_reference_state_dict  # noqa: E402
-from dmf_tpu_torch.models.backbones import (ResNetFeatures, build_backbone,  # noqa: E402
-                                            import_resnet50, pretrained_state_dict)
+from dmf_tpu_torch.models.backbones import (ResNetFeatures, ViTFeatures,  # noqa: E402
+                                            build_backbone, import_resnet50,
+                                            import_vit_base, pretrained_state_dict)
+from dmf_tpu_torch.data import pipeline as data_pipeline  # noqa: E402
+from dmf_tpu_torch.utils import native  # noqa: E402
 from dmf_tpu_torch.models.backbones.importers import map_rasool_to_timm_keys  # noqa: E402
 from dmf_tpu_torch.models.weights import load_lightning_ckpt  # noqa: E402
 from dmf_tpu_torch.pipeline import run_fusion as run_fusion_mod  # noqa: E402
@@ -402,10 +425,11 @@ def phase_build():
     libs = {"conv3x3_bn_gelu": k2._library, "flash_attention": fa._library,
             "histogram_percentiles": hist._library, "se_epilogue": epilogue_cuda._library,
             "se_scale": se_cuda._library, "dwi_norm": dwi_norm_cuda._library}
-    with ThreadPoolExecutor(len(libs)) as pool:  # one nvcc per source, together
-        for f in [pool.submit(build) for build in libs.values()]:
+    # one nvcc per source and the host library's g++, all together
+    with ThreadPoolExecutor(len(libs) + 1) as pool:
+        for f in [pool.submit(build) for build in (*libs.values(), native.load)]:
             f.result()
-    log(f"  {' + '.join(libs)} (nvcc, sm_90a, in parallel): "
+    log(f"  {' + '.join(libs)} (nvcc, sm_90a) and dmf_native (g++), in parallel: "
         f"{time.perf_counter() - t0:.2f} s")
     for name in libs:
         for p in sorted(BUILD_DIR.glob(f"{name}-*/build.log")):
@@ -639,8 +663,8 @@ def neck_inputs(n, cin, cout, side, dtype, g):
     return x, w, bias, gamma, beta, mean, var
 
 
-def conv_f32(n, g):
-    """Kernel 2 in fp32 (the 3xTF32 kernel) at the six neck sites at N=n:
+def conv_f32(n, g, necks):
+    """Kernel 2 in fp32 (the 3xTF32 kernel) at ``necks``' sites at N=n:
     its error against the plain version, two calls bit-equal, kernel and
     plain ms, the kernel against cuDNN's fp32 chain (TF32 off) in turns,
     cuDNN's chain with TF32 on (context: the one-product accuracy class the
@@ -650,7 +674,7 @@ def conv_f32(n, g):
     tot = dict.fromkeys(("kernel", "plain", "turns", "chain", "tf32", "flop", "bound",
                          "bound_f32"), 0.0)
     devs, errs = [], []
-    for name, cin, cout, side in NECKS:
+    for name, cin, cout, side in necks:
         args = neck_inputs(n, cin, cout, side, torch.float32, g)
         x, w, bias, gamma, beta, mean, var = args
         tag = f"float32 {name} N={n} ({side}^2, {cin}->{cout})"
@@ -706,13 +730,14 @@ def conv_f32(n, g):
     return errs
 
 
-def conv_f64(g):
+def conv_f64(g, site):
     """Kernel 2 in fp32 and the plain version (cuDNN, TF32 off) against a
-    float64 conv at ``neck_f3_conv0``'s K = 27648 (N=2), on random operands
-    and on operands exact in TF32, where only the sums differ: the 3xTF32
-    kernel adds each step's products into an fp32 sum and has to hold fp32
-    accuracy over the whole K."""
-    name, cin, cout, side = NECKS[4]
+    float64 conv at ``site`` (N=2; ``neck_f3_conv0``: K = 27648 behind a
+    ResNet-50, 34560 behind a ViT-B/16), on random operands and on operands
+    exact in TF32, where only the sums differ: the 3xTF32 kernel adds each
+    step's products into an fp32 sum and has to hold fp32 accuracy over the
+    whole K."""
+    name, cin, cout, side = site
     x, w, bias, gamma, beta, mean, var = neck_inputs(2, cin, cout, side, torch.float32, g)
     s = gamma.double() / torch.sqrt(var.double() + 1e-5)
     t = (bias.double() - mean.double()) * s + beta.double()
@@ -724,27 +749,26 @@ def conv_f64(g):
         exact = F.gelu(F.conv2d(x.double(), w.double(), padding=1) * s[:, None, None]
                        + t[:, None, None])
         plain = (k2.conv3x3_bn_gelu_ref(*args).double() - exact).abs().max().item()
-        errs.append(check(f"float32 {name} N=2, {what} operands, kernel against float64",
-                          k2.conv3x3_bn_gelu(*args), exact, torch.float32))
-        log(f"  float32 {name} N=2, {what} operands: plain version against float64 "
-            f"max_abs_err {plain:.3e}")
+        errs.append(check(f"float32 {name} N=2, K={9 * cin}, {what} operands, kernel "
+                          f"against float64", k2.conv3x3_bn_gelu(*args), exact, torch.float32))
+        log(f"  float32 {name} N=2, K={9 * cin}, {what} operands: plain version against "
+            f"float64 max_abs_err {plain:.3e}")
     return errs
 
 
-def phase_conv(n):
-    log(f"== phase 3b: conv3x3_bn_gelu (CUDA) vs plain, N={n}, random BN running stats")
-    r = cl(torch.randn(1, 6, 4, 4, device=DEV))
-    ones = torch.ones(8, device=DEV)
-    expect_value_error("fp32 Cin=6", lambda: k2.conv3x3_bn_gelu(
-        r, torch.randn(8, 6, 3, 3, device=DEV), None, ones, ones, ones, ones))
-    g = gen(3)
+def conv_bf16(n, g, necks):
+    """Kernel 2 in bf16 at ``necks``' sites at N=n: its error against the
+    plain version, kernel and plain ms, the kernel against cuDNN's bf16
+    chain in turns, the device time and its share of the bound, and at a
+    Cout of 256s both channel tiles in turns.  Returns the errors and the
+    sums over the sites."""
     errs, ms, plain_ms, lib_ms, flop, devs = [], 0.0, 0.0, 0.0, 0, []
     turns_k = 0.0
-    for name, cin, cout, side in NECKS:
+    for name, cin, cout, side in necks:
         dtype = torch.bfloat16
         args = neck_inputs(n, cin, cout, side, dtype, g)
         x, w, bias, gamma, beta, mean, var = args
-        tag = f"{str(dtype)[6:]} {name} ({side}^2, {cin}->{cout})"
+        tag = f"{str(dtype)[6:]} {name} N={n} ({side}^2, {cin}->{cout})"
         errs.append(check(tag, k2.conv3x3_bn_gelu(*args), k2.conv3x3_bn_gelu_ref(*args),
                           dtype))
         t_k = cuda_time(lambda: k2.conv3x3_bn_gelu(*args), reps=5)
@@ -780,17 +804,27 @@ def phase_conv(n):
         dev_ms = sum(devs)
         device = (f"device {dev_ms:.4f} ms ({flop / dev_ms / 1e9:.1f} TFLOP/s, "
                   f"{100 * bound / dev_ms:.1f} % of the bound)")
-    log(f"  bf16 sum over the six sites: kernel {ms:.4f} ms, plain {plain_ms:.4f} ms, "
-        f"bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP); {device}; in turns "
-        f"kernel {turns_k:.4f} ms vs cuDNN chain {lib_ms:.4f} ms, ratio {turns_k / lib_ms:.3f}")
+    log(f"  bf16 sum over the six sites at N={n}: kernel {ms:.4f} ms, plain {plain_ms:.4f} "
+        f"ms, bound {bound:.4f} ms ({flop / 1e9:.1f} GFLOP); {device}; in turns kernel "
+        f"{turns_k:.4f} ms vs cuDNN chain {lib_ms:.4f} ms, ratio {turns_k / lib_ms:.3f}")
+    return errs, {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound, "library_ms": lib_ms}
+
+
+def phase_conv(n):
+    log(f"== phase 3b: conv3x3_bn_gelu (CUDA) vs plain, N={n}, random BN running stats")
+    r = cl(torch.randn(1, 6, 4, 4, device=DEV))
+    ones = torch.ones(8, device=DEV)
+    expect_value_error("fp32 Cin=6", lambda: k2.conv3x3_bn_gelu(
+        r, torch.randn(8, 6, 3, 3, device=DEV), None, ones, ones, ones, ones))
+    g = gen(3)
+    errs, sums = conv_bf16(n, g, NECKS)
     # fp32, the validation route's dtype: its accuracy against float64, then a
     # validation batch (N=B_VAL) and a tta_mc test batch's views (the prefix
     # runs the necks once on 4 x B_VAL)
-    errs += conv_f64(g)
+    errs += conv_f64(g, NECKS[4])
     for n_f32 in (B_VAL, N_TEST_VIEWS):
-        errs += conv_f32(n_f32, g)
-    return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
-            "bound_by": "operations", "library_ms": lib_ms}
+        errs += conv_f32(n_f32, g, NECKS)
+    return {"max_abs_err": max(errs), **sums, "bound_by": "operations"}
 
 
 def attn_inputs(bh, dtype, g, n=4):
@@ -1479,8 +1513,8 @@ def compare_card_cpu(pairs):
             raise AssertionError(f"card-vs-CPU {name} error {err} above {tol}")
 
 
-def phase_parity(cfg):
-    log("== phase 4: end-to-end parity, tta, B=2, fp32: card (kernels) vs CPU (plain)")
+def phase_parity(cfg, title="4: end-to-end parity"):
+    log(f"== phase {title}, tta, B=2, fp32: card (kernels) vs CPU (plain)")
     cpu_models, dev_models = card_and_cpu_models(cfg)
     g = torch.Generator().manual_seed(11)
     S = cfg.dwi_model.input_size
@@ -1503,7 +1537,7 @@ def phase_parity(cfg):
                                            "se_scale": 3}
     if launched != expect:
         raise AssertionError(f"tta forward launched {launched}, expected {expect}")
-    # ResNet-50 depth in fp32 on two devices: sums in other orders; hold
+    # ResNet-50 or ViT-B/16 depth in fp32 on two devices: sums in other orders; hold
     # probabilities to 1e-4 absolute and the gate to 1e-4 relative
     compare_card_cpu((("mean", mean_d, mean_c, 1e-4), ("std", std_d, std_c, 1e-4),
                       ("gating_weights", aux_d["gating_weights"],
@@ -1627,8 +1661,16 @@ def phase_prepare(cfg, raw):
                 torch.as_tensor(a, device=DEV)).cpu().numpy()
                 for a in (store["imgs"], store["test_imgs"])])
             log(f"  dce stage max-normalise (with host-device copies): {t * 1e3:.2f} ms")
-            _, t = synced(lambda: NyulStandardizer().fit(splits["train"]["imgs"]))
-            log(f"  dce stage Nyul fit (host, numpy): {t * 1e3:.2f} ms")
+            train_imgs = splits["train"]["imgs"]
+            ny, t = synced(lambda: fitted(train_imgs))
+            lm_plain, t_plain = synced(lambda: nyul_fit_plain(train_imgs, ny.landmarks))
+            diff = float(np.abs(ny.channel_landmarks - lm_plain).max())
+            log(f"  dce stage Nyul fit on {len(train_imgs)} volumes (host): native threaded "
+                f"C++ {t * 1e3:.2f} ms ({os.cpu_count()} host cores), plain numpy "
+                f"{t_plain * 1e3:.2f} ms; landmarks' largest difference {diff:.3e} "
+                f"(tolerance 1e-05)")
+            if not diff <= 1e-5:
+                raise AssertionError(f"native Nyul fit {diff} off the numpy fit")
         procs = data.processors_by_split
         _, t = synced(lambda: procs["train"].train_batch(
             gen(32), splits["train"]["imgs"]).cpu().numpy())
@@ -1644,6 +1686,12 @@ def phase_prepare(cfg, raw):
         del data
     log(f"  launches of the preparation runs: {launches}")
     return launches
+
+
+def fitted(imgs):
+    ny = NyulStandardizer()
+    ny.fit(imgs)
+    return ny
 
 
 # ------------------------------------------------------------------ phase 5
@@ -2541,6 +2589,65 @@ class Spy:
         setattr(self.module, self.name, self.fn)
 
 
+def cli_fold(argv, root, results, ccfg, imports, smi):
+    """``cli.main(argv)``, a ``run --fusion`` of fold 0 for CLI_EPOCHS epochs a
+    stage with the backbone frozen, in-process: the stage wall seconds, the
+    peak memory, a finite three-stage summary, each ``metrics.json``, both
+    single runs' backbones (final and best state) bit-equal to ``imports``,
+    and the launches by 7b's and 7d's formulas (counts set to 0 just before
+    the run and read just after).  Returns the launches and the stages'
+    results."""
+    log("  cli.main: " + " ".join(a.replace(root, "<tmp>") for a in argv))
+    torch.cuda.reset_peak_memory_stats()
+    text = io.StringIO()
+    reset_counts()
+    with Spy(run_single_mod, "run_single_model") as singles, \
+            Spy(run_fusion_mod, "run_fusion_model") as fusions, \
+            contextlib.redirect_stdout(text):
+        rc = cli.main(argv)
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    text = text.getvalue()
+    if rc != 0:
+        raise AssertionError(f"cli run returned {rc}")
+    summary = json.loads(text[text.rindex("\n{\n") + 1:])
+    (dwi_out, t_dwi), (dce_out, t_dce) = singles.calls
+    (fus_out, t_fus), = fusions.calls
+    log(f"  stages (wall s, prepare and test included): DWI {t_dwi:.2f}, DCE {t_dce:.2f}, "
+        f"fusion {t_fus:.2f}; peak memory {peak:.2f} GiB; {smi}")
+    for key, metrics in summary.items():
+        log(f"  summary {key}: {json.dumps({k: round(v, 5) for k, v in metrics.items()})}")
+    if sorted(summary) != ["fold0_dce", "fold0_dwi", "fold0_fusion"] or not all(
+            all_finite(m) for m in summary.values()):
+        raise AssertionError(f"summary {sorted(summary)} incomplete or not finite")
+    for stage in ("dwi", "dce", "fusion"):
+        if not os.path.exists(os.path.join(results, stage, "fold_0", "metrics.json")):
+            raise AssertionError(f"{stage} metrics.json not written")
+    # the backbone stayed frozen for both epochs: its parameters are the import
+    for method, out in (("dwi", dwi_out), ("dce", dce_out)):
+        if [h["group_trainable"][0] for h in out["history"]] != [0.0] * CLI_EPOCHS:
+            raise AssertionError(f"{method}: the backbone group was trained")
+        for which in ("final_state", "state"):
+            params = dict(out[which].model.backbone.named_parameters())
+            bit_equal(f"{method} {which} backbone parameters against the import",
+                      params, {k: imports[method][k] for k in params})
+    # launches by 7b's and 7d's formulas
+    B = ccfg.batch_size
+    n_tr = len(dwi_out["data"].splits["train"]["labels"])
+    n_va = len(dwi_out["data"].splits["val"]["labels"])
+    n_steps, n_val, n_test = -(-n_tr // B), -(-n_va // B), -(-RUN_TEST // B)
+    single = {"se_epilogue": 3 * CLI_EPOCHS * n_val + 6 * n_test,
+              "conv3x3_bn_gelu": 6 * (CLI_EPOCHS * n_val + n_test),
+              "se_scale": CLI_EPOCHS * n_val + n_test}
+    expect = dict.fromkeys(COUNTERS, 0) | {
+        k: 2 * single[k] + FUSION_VAL[k] * CLI_EPOCHS * n_val + FUSION_TEST[k] * n_test
+        for k in single} | {"dwi_normalize": CLI_EPOCHS * n_steps + 2 + 3}
+    log(f"  launches of the run {launched}")
+    if launched != expect:
+        raise AssertionError(f"cli run launched {launched}, expected {expect}")
+    return launched, dwi_out, dce_out, fus_out
+
+
 def phase_cli(cfg, raw, tmp, smi):
     t_phase = time.perf_counter()
     root = os.path.join(tmp, "cli")
@@ -2595,59 +2702,12 @@ def phase_cli(cfg, raw, tmp, smi):
     argv = ["run", "--config", config, "--base-path", base, "--results-dir", results,
             "--folds", "0", "--fusion", "--epochs", str(CLI_EPOCHS), "--min-epochs",
             str(CLI_EPOCHS), "--pretrained-dwi", rasool, "--pretrained-dce", rasool]
-    log("  cli.main: " + " ".join(a.replace(root, "<tmp>") for a in argv))
-    torch.cuda.reset_peak_memory_stats()
-    text = io.StringIO()
-    reset_counts()
-    with Spy(run_single_mod, "run_single_model") as singles, \
-            Spy(run_fusion_mod, "run_fusion_model") as fusions, \
-            contextlib.redirect_stdout(text):
-        rc = cli.main(argv)
-    launched = counts()
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    text = text.getvalue()
-    if rc != 0:
-        raise AssertionError(f"cli run returned {rc}")
-    summary = json.loads(text[text.rindex("\n{\n") + 1:])
-    (dwi_out, t_dwi), (dce_out, t_dce) = singles.calls
-    (fus_out, t_fus), = fusions.calls
-    log(f"  stages (wall s, prepare and test included): DWI {t_dwi:.2f}, DCE {t_dce:.2f}, "
-        f"fusion {t_fus:.2f}; peak memory {peak:.2f} GiB; {smi}")
-    for key, metrics in summary.items():
-        log(f"  summary {key}: {json.dumps({k: round(v, 5) for k, v in metrics.items()})}")
-    if sorted(summary) != ["fold0_dce", "fold0_dwi", "fold0_fusion"] or not all(
-            all_finite(m) for m in summary.values()):
-        raise AssertionError(f"summary {sorted(summary)} incomplete or not finite")
-    for stage in ("dwi", "dce", "fusion"):
-        if not os.path.exists(os.path.join(results, stage, "fold_0", "metrics.json")):
-            raise AssertionError(f"{stage} metrics.json not written")
-    # the backbone stayed frozen for both epochs: its parameters are the import
-    for method, out in (("dwi", dwi_out), ("dce", dce_out)):
-        if [h["group_trainable"][0] for h in out["history"]] != [0.0] * CLI_EPOCHS:
-            raise AssertionError(f"{method}: the backbone group was trained")
-        for which in ("final_state", "state"):
-            params = dict(out[which].model.backbone.named_parameters())
-            bit_equal(f"{method} {which} backbone parameters against the import",
-                      params, {k: imports[method][k] for k in params})
-    # launches by 7b's and 7d's formulas
-    B = ccfg.batch_size
-    n_tr = len(dwi_out["data"].splits["train"]["labels"])
-    n_va = len(dwi_out["data"].splits["val"]["labels"])
-    n_steps, n_val, n_test = -(-n_tr // B), -(-n_va // B), -(-RUN_TEST // B)
-    single = {"se_epilogue": 3 * CLI_EPOCHS * n_val + 6 * n_test,
-              "conv3x3_bn_gelu": 6 * (CLI_EPOCHS * n_val + n_test),
-              "se_scale": CLI_EPOCHS * n_val + n_test}
-    expect = dict.fromkeys(COUNTERS, 0) | {
-        k: 2 * single[k] + FUSION_VAL[k] * CLI_EPOCHS * n_val + FUSION_TEST[k] * n_test
-        for k in single} | {"dwi_normalize": CLI_EPOCHS * n_steps + 2 + 3}
-    log(f"  launches of the run {launched}")
-    if launched != expect:
-        raise AssertionError(f"cli run launched {launched}, expected {expect}")
+    launched, dwi_out, dce_out, fus_out = cli_fold(argv, root, results, ccfg, imports, smi)
 
     # export-ckpt in its own process, each file strictly into a fresh model
     best = os.path.join(results, "fusion", "fold_0", "checkpoints", "best.pt")
     stem = os.path.join(root, "fold0.ckpt")
-    del dwi_out, dce_out, singles, fusions
+    del dwi_out, dce_out
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
@@ -2716,6 +2776,182 @@ def phase_cli(cfg, raw, tmp, smi):
     return {k: launched[k] + dbg_launched[k] for k in COUNTERS}
 
 
+# ------------------------------------------------------------------ phase 9
+VIT_NAME = "dino_vitbase16_pretrain"
+# the ViT-backed encoders at 256^2: 16^2 token maps of 768 channels, chained
+# [0-2] / [3-6] / [7-11] into the necks (Cin, Cout, side), channels (768, 768,
+# 768) and no block downsampling (config.py's backbone-derived fields)
+VIT_NECKS = (("neck_f1_conv0", 2304, 768, 16), ("neck_f1_conv1", 768, 768, 16),
+             ("neck_f2_conv0", 3072, 768, 16), ("neck_f2_conv1", 768, 768, 16),
+             ("neck_f3_conv0", 3840, 768, 16), ("neck_f3_conv1", 768, 768, 16))
+VIT_EPI = (768, 16)  # kernel 1's maps: C and side
+
+
+def vit_config(cfg):
+    """The default config with the DINO ViT-B/16 backbone for both encoders,
+    at full width (768 wide, 12 blocks, 12 heads, 256^2 inputs)."""
+    return cfg.replace(**{f"{m}_model": dataclasses.replace(cfg.model_config(m),
+                                                            backbone_str=VIT_NAME)
+                          for m in ("dwi", "dce")})
+
+
+def seeded_vit(seed):
+    """A timm-layout ViT-B/16 state dict for 3 input channels on the 224 grid
+    (pos_embed 1 + 14^2), seeded with the JAX module's initialisers, with
+    timm's final norm and 1000-class head."""
+    g = torch.Generator().manual_seed(seed)
+    net = ViTFeatures(3, 224)
+    net.reset_parameters(g)
+    sd = dict(net.state_dict())
+    sd["norm.weight"], sd["norm.bias"] = torch.ones(768), torch.zeros(768)
+    sd["head.weight"] = torch.randn(1000, 768, generator=g) * 0.02
+    sd["head.bias"] = torch.zeros(1000)
+    return sd
+
+
+def phase_vit_kernels(cfg):
+    """9a: kernels 2 and 1 at the ViT-backed models' shapes against their
+    plain versions (a tta_mc request at B=8: the prefix's necks on 4 x 8
+    views, the lean passes' ResLite maps; a validation batch at B=32)."""
+    n_views = 4 * B_SERVE
+    n_lean = (cfg.mc_passes - 1) * n_views
+    c, side = VIT_EPI
+    log(f"== phase 9a: kernels 2 and 1 at the ViT-B/16 encoders' shapes: the six necks "
+        f"at 16^2 (Cin 2304 / 3072 / 3840 / 768 -> 768) at N={n_views} in bf16 and "
+        f"N={B_VAL} in fp32; kernel 1 at {side}^2 x {c}, N={B_VAL} fp32 drop 0 and "
+        f"N={n_lean} bf16 drop 0.2")
+    g = gen(90)
+    errs, sums = conv_bf16(n_views, g, VIT_NECKS)
+    errs += conv_f64(g, VIT_NECKS[4])
+    errs += conv_f32(B_VAL, g, VIT_NECKS)
+    p = 0.2
+    for n, dtype, drop in ((B_VAL, torch.float32, 0.0), (n_lean, torch.bfloat16, p)):
+        args = epi_inputs(n, c, dtype, g, side=side)
+        tag = f"kernel 1 {str(dtype)[6:]} N={n} {side}^2 x {c} drop={drop}"
+        if drop:
+            # the kernel's own mask: a twin generator gives its Philox seed back
+            g_mc = gen(91)
+            out = k1.se_epilogue(*args, drop_rate=drop, generator=g_mc)
+            keep = epilogue_cuda.keep_mask(args[0], drop, epilogue_cuda.draw_seed(gen(91), DEV))
+            ref = k1.se_epilogue_ref(*args, drop_rate=drop, keep=keep)
+            kernel = lambda: k1.se_epilogue(*args, drop_rate=drop, generator=g_mc)  # noqa
+            gp = gen(92)
+            plain = lambda: k1.se_epilogue_ref(*args, drop_rate=drop, generator=gp)  # noqa
+        else:
+            out, ref = k1.se_epilogue(*args), k1.se_epilogue_ref(*args)
+            kernel = lambda: k1.se_epilogue(*args)  # noqa: E731
+            plain = lambda: k1.se_epilogue_ref(*args)  # noqa: E731
+        errs.append(check(tag, out, ref, dtype))
+        t_k, t_p = cuda_time(kernel), cuda_time(plain)
+        b_c = 3 * args[0].numel() * args[0].element_size()
+        bound = b_c / HBM_BYTES_PER_S * 1e3
+        log(f"  {tag}: kernel {t_k:.4f} ms, plain {t_p:.4f} ms (median), bound {bound:.4f} ms "
+            f"(bytes, {b_c / 1e6:.1f} MB)")
+        device_rate(tag, kernel, EPI_KERNELS, bound, nbytes=b_c)
+        del args, out, ref
+    torch.cuda.empty_cache()
+    log(f"  phase 9a largest error {max(errs):.3e}; kernel 2 bf16 sums at N={n_views}: "
+        f"{json.dumps({k: round(v, 4) for k, v in sums.items()})}")
+
+
+def phase_serve_vit(vcfg):
+    """9c: three tta_mc requests of B=8 raw volumes in bf16 through the
+    ViT-backed models, the preprocessing timed apart; counts set to 0 just
+    before and read just after."""
+    log(f"== phase 9c: serve the ViT-backed ({VIT_NAME}) models in tta_mc, bf16, "
+        f"{REQUESTS} requests of B={B_SERVE} raw volumes")
+    models = build_fusion_models(vcfg, DEV, torch.bfloat16, gen(SEED + 90))
+    predict = make_fusion_predictor(vcfg, *models, mode="tta_mc")
+    n_suffix = 2  # the lean passes in one chunk + the full last pass
+    # per request, as phase 5: 3 ResLite SE epilogues x 2 encoders per suffix,
+    # 6 necks x 2 encoders in the prefix (once), modality attention x 2 in the
+    # prefix and fusion_se once per suffix, the DWI z-score once
+    expect = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 6 * n_suffix,
+                                           "conv3x3_bn_gelu": 12,
+                                           "se_scale": 2 + n_suffix, "dwi_normalize": 1}
+    log(f"  expected launches a request: se_epilogue 3 blocks x 2 encoders x {n_suffix} "
+        f"suffixes = {expect['se_epilogue']}, conv3x3_bn_gelu 6 necks x 2 encoders = 12, "
+        f"se_scale 2 + {n_suffix} = {expect['se_scale']}, dwi_normalize 1; the ViT's "
+        f"attention at N=257 tokens takes the plain route (no flash launch)")
+    launched = serve("ViT tta_mc", vcfg, raw_request(vcfg, predict, gen(93), gen(94)),
+                     expect, stochastic=True)
+    del models, predict
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_vit_cli(vcfg, tmp, smi):
+    """9d: seeded ViT-B/16 checkpoints in timm's layout on the 224 grid
+    imported at 14 and 6 channels (the position embedding resized to 16^2),
+    held bit-equal to ``build_single_model(..., pretrained_path=)`` on the
+    card; then a ``run --fusion`` fold through the CLI on phase 8's tensor
+    store with the backbone frozen and ``use_native_loader=True`` (the
+    splits kept on the host, so that the train batches come from the native
+    loader); counts set to 0 just before the run and read just after."""
+    t_phase = time.perf_counter()
+    root = os.path.join(tmp, "vit")
+    base, results = os.path.join(tmp, "cli", "data"), os.path.join(root, "results")
+    os.makedirs(root)
+    log(f"== phase 9d: python -m dmf_tpu_torch.cli run --fusion with {VIT_NAME} backbones "
+        f"(fold 0, {CLI_EPOCHS} epochs a stage, frozen, use_native_loader=True) on phase 8's "
+        f"tensor store of {RUN_TRAIN} + {RUN_TEST} volumes of {IMAGE}^2")
+    ckpt = os.path.join(root, "dino_vitb16.pth")
+    torch.save({"model": seeded_vit(SEED + 95)}, ckpt)
+    ccfg = vcfg.replace(foundation_model_unfreeze_timer=2, use_native_loader=True,
+                        device_data=False)
+    config = os.path.join(root, "config.json")
+    ccfg.save(config)
+    imports = {}
+    for method in ("dwi", "dce"):
+        mc, ch = ccfg.model_config(method), ccfg.channel_num(method)
+        t0 = time.perf_counter()
+        imports[method] = pretrained_state_dict(mc, ch, ckpt)
+        t_imp = time.perf_counter() - t0
+        direct = import_vit_base(torch.load(ckpt, weights_only=True)["model"], ch,
+                                 img_size=mc.input_size,
+                                 use_advanced_adapt=resolve_backbone_config(mc).use_advanced_adapt)
+        bit_equal(f"ViT import at {ch} channels, pos_embed {tuple(direct['pos_embed'].shape)} "
+                  f"(host {t_imp:.3f} s) against import_vit_base", imports[method], direct)
+        model, _ = build_single_model(ccfg, method, pretrained_path=ckpt, device=DEV)
+        bit_equal(f"build_single_model('{method}', pretrained_path=) ViT backbone on the card",
+                  model.backbone.state_dict(), imports[method])
+        del model
+    torch.cuda.empty_cache()
+    argv = ["run", "--config", config, "--base-path", base, "--results-dir", results,
+            "--folds", "0", "--fusion", "--epochs", str(CLI_EPOCHS), "--min-epochs",
+            str(CLI_EPOCHS), "--pretrained-dwi", ckpt, "--pretrained-dce", ckpt]
+    loads = []
+    real = data_pipeline.native_batches
+
+    def counted(*a, **kw):
+        loads.append(a[1])
+        yield from real(*a, **kw)
+
+    data_pipeline.native_batches = counted
+    try:
+        launched, dwi_out, dce_out, fus_out = cli_fold(argv, tmp, results, ccfg, imports, smi)
+    finally:
+        data_pipeline.native_batches = real
+    if len(loads) != 3 * CLI_EPOCHS:
+        raise AssertionError(f"{len(loads)} train epochs took the native loader, expected "
+                             f"{3 * CLI_EPOCHS}")
+    log(f"  the native loader gave the train batches of all {len(loads)} epochs "
+        f"(B={loads[0]}); phase 9d {time.perf_counter() - t_phase:.1f} s")
+    del dwi_out, dce_out, fus_out
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_vit(cfg, tmp, smi):
+    """Phase 9, the ViT-backed path; returns the launches of 9c and 9d."""
+    vcfg = vit_config(cfg)
+    phase_vit_kernels(cfg)
+    phase_parity(vcfg, title=f"9b: ViT-backed ({VIT_NAME}) end-to-end parity")
+    serve_launches = phase_serve_vit(vcfg)
+    cli_launches = phase_vit_cli(vcfg, tmp, smi)
+    return {k: serve_launches[k] + cli_launches[k] for k in COUNTERS}
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -2762,15 +2998,17 @@ def main():
         fold_launches = phase_fold(cfg, raw, tmp, dwi_out, rcfg0)
         del dwi_out
         cli_launches = phase_cli(cfg, raw, tmp, smi)
-    del raw
-    val_launches = phase_hybrid_validation(hcfg)[0]
+        del raw
+        val_launches = phase_hybrid_validation(hcfg)[0]
+        # phase 9d trains on phase 8's tensor store
+        vit_launches = phase_vit(cfg, tmp, smi)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
-                + val_launches[k] + cli_launches[k] for k in COUNTERS}
+                + val_launches[k] + cli_launches[k] + vit_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
-        f"single-modality runs, the fusion run, the hybrid-nb validation batch and the "
-        f"CLI: {launches}")
+        f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
+        f"CLI and the ViT path: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")

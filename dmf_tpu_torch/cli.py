@@ -12,9 +12,11 @@ Usage:
         --checkpoint results/fusion/fold_0/checkpoints/best.pt --out fold0.ckpt
 
 The subcommands take the JAX CLI's arguments, plus ``--device`` (default
-``cuda``; ``cpu`` only when asked, never as a fallback).  ``--mesh`` and
-``--parallel-folds`` raise ``NotImplementedError`` (ROADMAP 1.13, 1.6);
-``bench`` and ``export-serving`` are not ported yet (ROADMAP 1.1, 1.12).
+``cuda``; ``cpu`` only when asked, never as a fallback).  ``--mesh`` raises
+``NotImplementedError`` (ROADMAP 1.13); so does ``run --parallel-folds``
+over more than one fold (ROADMAP 1.6), while over one fold it runs the
+per-fold loop, as the JAX CLI does (cli.py:157).  ``bench`` and
+``export-serving`` are not ported yet (ROADMAP 1.1, 1.12).
 """
 
 from __future__ import annotations
@@ -48,8 +50,10 @@ def _add_common(p):
                    help="disable reference_compat quirks")
     p.add_argument("--results-dir", default="results")
     p.add_argument("--pretrained-dwi", default=None,
-                   help="local ResNet-50 checkpoint for the DWI backbone (timm, "
-                        "resnet50d or RadImageNet layout, per backbone_str)")
+                   help="local checkpoint for the DWI backbone, per backbone_str: "
+                        "a ResNet-50 (timm, resnet50d or RadImageNet layout) or a "
+                        "ViT-B/16 (timm vit_base_patch16_224 or DINO ViT-B/16 "
+                        "layout, its position embedding resized to input_size)")
     p.add_argument("--pretrained-dce", default=None,
                    help="the same for the DCE backbone")
     p.add_argument("--debug-training", action="store_true")
@@ -62,7 +66,8 @@ def _add_common(p):
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                    help="not ported (ROADMAP 1.13): raises")
     p.add_argument("--parallel-folds", action="store_true",
-                   help="not ported (ROADMAP 1.6): raises")
+                   help="not ported over more than one fold (ROADMAP 1.6): "
+                        "raises; over one fold it runs the per-fold loop")
     p.add_argument("--mc-chunk", type=int, default=None,
                    help="run the MC uncertainty passes in sequential chunks "
                         "of this size (same ensemble, bounds activation "
@@ -106,9 +111,6 @@ def load_config(args):
     if args.mesh:
         raise NotImplementedError("--mesh: the SPMD device mesh is not ported "
                                   "(ROADMAP 1.13)")
-    if args.parallel_folds:
-        raise NotImplementedError("--parallel-folds: fold-parallel training "
-                                  "(run_single_model_multifold) is not ported (ROADMAP 1.6)")
     if args.ref_params:
         cfg = _load_reference_params(args.ref_params)
     elif args.config:
@@ -157,6 +159,10 @@ def cmd_run(args) -> int:
 
     folds = args.folds if args.folds is not None else list(range(cfg.segnum))
     methods = args.methods if args.methods else list(cfg.methods)
+    if args.parallel_folds and len(folds) > 1:
+        raise NotImplementedError("--parallel-folds over several folds: fold-parallel "
+                                  "training (run_single_model_multifold) is not ported "
+                                  "(ROADMAP 1.6)")
 
     from .pipeline.run_fusion import run_fusion_model
     from .pipeline.run_single import run_single_model

@@ -8,7 +8,8 @@ Images are channels-last ``(..., H, W, C)`` tensors, as in the JAX package:
 * DCE: the per-sample global max normalisation and the Nyul transform,
   exact (``torch.quantile``, linear interpolation as ``jnp.percentile``) or
   fast (the two-round CDF estimator below), through
-  :class:`NyulStandardizer`, whose fit runs on the host in numpy;
+  :class:`NyulStandardizer`, whose fit runs on the host in the native
+  library's threaded C++ (``utils/native.py``);
 * :func:`preprocess_fusion_inputs`, serving's composition of the two
   (bench.py:616-625).
 
@@ -27,6 +28,7 @@ import torch
 from ..ops.dwi_norm import dwi_normalize
 from ..ops.histogram import piecewise_map
 from ..ops.resize import resize_bilinear
+from ..utils import native
 
 DEFAULT_LANDMARKS = (1, 10, 25, 30, 40, 50, 60, 75, 80, 90, 99)
 
@@ -108,8 +110,10 @@ def dce_global_max_normalize(imgs: torch.Tensor) -> torch.Tensor:
 class NyulStandardizer:
     """Percentile-landmark intensity standardization for DCE.
 
-    ``fit`` runs once on the host in numpy (the formula of the JAX package's
-    numpy branch, preprocess.py:168-171); ``save``/``load`` use the JAX
+    ``fit`` runs once on the host, through the native library's threaded
+    exact fit as in the JAX package (preprocess.py:161-166; the numpy formula
+    of its other branch is :func:`nyul_fit_plain`, the tests' reference);
+    ``save``/``load`` use the JAX
     package's ``.npy`` dict format, so each package reads the other's file.
     ``transform`` runs where the image lies: fast (the histogram estimator
     and one piecewise map) on a CUDA tensor, exact on a CPU tensor, unless
@@ -129,9 +133,7 @@ class NyulStandardizer:
             images = images.cpu().numpy()
         images = np.asarray(images)
         C = num_channels or images.shape[-1]
-        flat = images.reshape(images.shape[0], -1, C)
-        perc = np.percentile(flat, self.landmarks, axis=1)  # (L, N, C)
-        self.channel_landmarks = perc.mean(axis=1).T[:C]  # (C, L)
+        self.channel_landmarks = native.nyul_fit(images[..., :C], self.landmarks)
         self.fitted = True
 
     def save(self, path: str) -> None:
@@ -165,6 +167,14 @@ class NyulStandardizer:
 
     def __call__(self, img: torch.Tensor) -> torch.Tensor:
         return self.transform(img)
+
+
+def nyul_fit_plain(images: np.ndarray, landmarks: np.ndarray) -> np.ndarray:
+    """The numpy formula of the Nyul fit, (N, H, W, C) -> (C, L): the JAX
+    package's fallback branch (preprocess.py:168-171), the plain version the
+    native fit is held against."""
+    flat = images.reshape(images.shape[0], -1, images.shape[-1])
+    return np.percentile(flat, landmarks, axis=1).mean(axis=1).T  # (L, N, C) -> (C, L)
 
 
 def _interp_rows(x: torch.Tensor, xp: torch.Tensor, fp: torch.Tensor) -> torch.Tensor:

@@ -1,7 +1,10 @@
 """Backbone feature adapter (NCHW), counterpart of ``dmf_tpu/models/adapter.py``.
 
 Concatenates the selected backbone features per chain and passes each
-through a 2 x (3x3 conv + BN + GELU) neck (reference model_module.py:401-476),
+through a 2 x (3x3 conv + BN + GELU) neck (reference model_module.py:401-476);
+a transformer backbone's (B, N, C) tokens are first laid out as a
+(B, C, sqrt(N), sqrt(N)) map, token ``r * sqrt(N) + c`` at pixel (r, c) as
+the JAX adapter's reshape puts it (adapter.py:37-40),
 named ``necks.f{i}.{0,1,3,4}`` as the reference checkpoint has them
 (ref_ckpt.py:516-522).  In eval every neck stage is one call to
 :func:`~dmf_tpu_torch.ops.conv3x3.conv3x3_bn_gelu`; ``train=True`` runs the
@@ -16,6 +19,7 @@ under ``backbone_adapter.backbone.``).
 
 from __future__ import annotations
 
+import math
 from typing import Sequence, Tuple
 
 import torch
@@ -23,6 +27,15 @@ import torch.nn as nn
 
 from ..ops.conv3x3 import conv3x3_bn_gelu
 from .layers import BatchNorm2d, run
+
+
+def token_map(tokens: torch.Tensor) -> torch.Tensor:
+    """(B, N, C) tokens -> a (B, C, s, s) map with s = sqrt(N), token
+    ``r * s + c`` at pixel (r, c).  A view: the token rows are already the
+    map's NHWC (channels_last) memory."""
+    B, N, C = tokens.shape
+    s = math.isqrt(N)
+    return tokens.reshape(B, s, s, C).permute(0, 3, 1, 2)
 
 
 class BackboneAdapter(nn.Module):
@@ -45,7 +58,8 @@ class BackboneAdapter(nn.Module):
     def forward(self, feats: Sequence[torch.Tensor], train: bool = False):
         outputs = []
         for i, chain in enumerate(self.chains):
-            out = torch.cat([feats[j] for j in chain], dim=1)
+            out = torch.cat([token_map(feats[j]) if feats[j].dim() == 3 else feats[j]
+                             for j in chain], dim=1)
             if out.is_cuda:
                 out = out.contiguous(memory_format=torch.channels_last)
             neck = self.necks[f"f{i + 1}"]

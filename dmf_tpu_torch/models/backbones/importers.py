@@ -1,30 +1,38 @@
-"""Checkpoint import: a torch ResNet-50 state dict -> a state dict of the
-port's :class:`~.resnet.ResNetFeatures`.
+"""Checkpoint import: a torch ResNet-50 or ViT-B/16 state dict -> a state
+dict of the port's :class:`~.resnet.ResNetFeatures` or
+:class:`~.vit.ViTFeatures`.
 
 Counterpart of the import side of ``dmf_tpu/models/backbones/importers.py``
-(:36-186), the reference's weight plumbing:
+(:36-186, :249-299), the reference's weight plumbing:
 
 * RadImageNet (Lab-Rasool) key remapping (foundation_model.py:180-218);
 * first-conv channel adaptation for N-channel grayscale medical input:
   simple mean-replicate (foundation_model.py:99-124) and the advanced
   BT.601-luminance + deterministic linspace scaling variant
-  (foundation_model.py:128-176).
+  (foundation_model.py:128-176);
+* the ViT position embedding's bicubic resize from the checkpoint's grid to
+  the module's (the reference builds its 224-trained ViTs at
+  ``img_size=256``, foundation_model.py:321-369).
 
-The adaptation and the remap are numpy, bit for bit the JAX package's
-arithmetic.  ``ResNetFeatures`` is in timm's key layout, so the import
-adapts the stem conv and checks the checkpoint against the module: every
-key it needs, its shape, and the count of imported tensors.  No network
-access: callers supply a loaded state dict.
+The adaptation, the remap and the resize are numpy, the JAX package's
+arithmetic (the resize is ``jax.image.resize``'s formula written out).  Both
+modules are in timm's key layout, so an import adapts the first conv and
+checks the checkpoint against the module: every key it needs and its shape
+(and for ResNet-50 the count of imported tensors).  The export direction
+needs no converter: the module's state dict is already the timm layout
+(``models/weights.py``).  No network access: callers supply a loaded state
+dict.
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping
+from typing import Dict, Mapping, Optional
 
 import numpy as np
 import torch
 
 from .resnet import ResNetFeatures
+from .vit import ViTFeatures, ViTSize
 
 
 def _np(t) -> np.ndarray:
@@ -143,4 +151,87 @@ def import_resnet50(
             f"suspiciously few tensors imported ({n_loaded} < {min_tensors}) "
             "— checkpoint layout mismatch (foundation_model.py:297-301)"
         )
+    return out
+
+
+# ---------------------------------------------------------------------------
+# ViT import
+# ---------------------------------------------------------------------------
+
+
+def _keys_cubic(x: np.ndarray) -> np.ndarray:
+    """Keys' cubic convolution kernel with a = -0.5 (jax.image's
+    ``_fill_keys_cubic_kernel``; torch's bicubic uses a = -0.75)."""
+    out = ((1.5 * x - 2.5) * x) * x + 1.0
+    out = np.where(x >= 1.0, ((-0.5 * x + 2.5) * x - 4.0) * x + 2.0, out)
+    return np.where(x >= 2.0, 0.0, out)
+
+
+def _cubic_weights(n_in: int, n_out: int) -> np.ndarray:
+    """The (n_in, n_out) float32 resampling matrix of ``jax.image.resize``'s
+    ``"bicubic"`` along one axis (its ``compute_weight_mat``, antialiased):
+    half-pixel centres; when shrinking, the kernel is widened by the scale;
+    each output's weights are renormalised to sum to one over the input
+    taps (so taps outside the grid are dropped, not clamped)."""
+    f32 = np.float32
+    inv_scale = f32(1.0 / (n_out / n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = _keys_cubic(x).astype(f32)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps,
+                 w / np.where(total != 0, total, f32(1.0)), f32(0.0))
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, f32(0.0)).astype(f32)
+
+
+def resize_pos_embed(pos: np.ndarray, new_grid: int) -> np.ndarray:
+    """Bicubically resize the (1, 1 + G*G, C) position embedding to a
+    ``new_grid`` x ``new_grid`` grid, the cls token kept, as
+    ``jax.image.resize(..., "bicubic")`` does it (importers.py:254-269)."""
+    pos = np.asarray(pos, np.float32)
+    cls_tok, grid = pos[:, :1], pos[:, 1:]
+    g = int(round(np.sqrt(grid.shape[1])))
+    if g == new_grid:
+        return pos
+    w = _cubic_weights(g, new_grid).astype(np.float64)
+    grid = grid.reshape(g, g, -1).astype(np.float64)
+    resized = np.einsum("hwc,hH,wW->HWc", grid, w, w).astype(np.float32)
+    return np.concatenate([cls_tok, resized.reshape(1, new_grid * new_grid, -1)], axis=1)
+
+
+def import_vit_base(state_dict: Mapping[str, object], in_channels: int,
+                    img_size: int = 256, patch_size: int = 16, depth: Optional[int] = None,
+                    use_advanced_adapt: bool = True) -> Dict[str, torch.Tensor]:
+    """A timm ``vit_base_patch16``-layout state dict -> the state dict of
+    ``ViTFeatures(in_channels, img_size, patch_size)`` (CPU tensors).
+
+    The patch embedding is adapted to ``in_channels`` and the position
+    embedding resized to the module's grid ``img_size // patch_size``.  The
+    width comes from the checkpoint; ``depth`` (default: the checkpoint's
+    block count) is the number of blocks imported.  Keys the module does not
+    hold (timm's ``norm``, ``head``) are ignored.  Raises ``KeyError`` on a
+    missing tensor and ``ValueError`` on a shape mismatch.
+    """
+    sd = {k: _np(v) for k, v in state_dict.items()}
+    if depth is None:
+        depth = len({k.split(".")[1] for k in sd if k.startswith("blocks.")})
+    adapt = advanced_adapt_first_conv if use_advanced_adapt else adapt_first_conv
+    if "patch_embed.proj.weight" in sd:
+        sd["patch_embed.proj.weight"] = adapt(sd["patch_embed.proj.weight"], in_channels)
+    if "pos_embed" in sd:
+        sd["pos_embed"] = resize_pos_embed(sd["pos_embed"], img_size // patch_size)
+    width = int(sd["cls_token"].shape[-1]) if "cls_token" in sd else 768
+    template = ViTFeatures(in_channels, img_size, patch_size, ViTSize(width, depth, 1),
+                           device="meta").state_dict()
+    out: Dict[str, torch.Tensor] = {}
+    for key, ref in template.items():
+        if key not in sd:
+            raise KeyError(f"ViT checkpoint has no tensor {key!r}")
+        arr = sd[key]
+        if tuple(arr.shape) != tuple(ref.shape):
+            raise ValueError(f"shape mismatch importing {key!r}: checkpoint "
+                             f"{tuple(arr.shape)} vs module {tuple(ref.shape)}")
+        out[key] = torch.from_numpy(np.array(arr, np.float32))
     return out

@@ -5,19 +5,21 @@ foundation_model.py:490-573).
 No config mutation (derived fields come from ``resolve_backbone_config``)
 and no network downloads: pretrained weights are local files supplied as
 ``pretrained_path`` (the reference pulled them from the HF Hub at build
-time, foundation_model.py:72-97).  The ResNet-50 names are ported; the ViT
-and DINO ones are not yet (ROADMAP 1.9).
+time, foundation_model.py:72-97).  The ResNet-50 names build a
+:class:`~.resnet.ResNetFeatures`, the ViT-B/16 and DINO ones a
+:class:`~.vit.ViTFeatures` (registry.py:86-97).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, Optional, Sequence, Union
 
 import torch
 
 from ...config import ModelConfig, resolve_backbone_config
-from .importers import import_resnet50, map_rasool_to_timm_keys
+from .importers import import_resnet50, import_vit_base, map_rasool_to_timm_keys
 from .resnet import ResNetFeatures
+from .vit import ViTFeatures, ViTSize, vit_base_patch16
 
 RESNET_NAMES = ("resnet50", "resnet50d", "radimagenet", "radimagenet_resnet50")
 VIT_NAMES = ("vit_base_patch16_224", "dino_vitbase16_pretrain")
@@ -38,11 +40,8 @@ def _load_state_dict(path: str):
 
 
 def _check_name(name: str) -> None:
-    if name in RESNET_NAMES:
+    if name in RESNET_NAMES or name in VIT_NAMES:
         return
-    if name in VIT_NAMES:
-        raise NotImplementedError(
-            f"backbone {name!r} is not ported yet (ROADMAP 1.9: ViT/DINO backbones)")
     if name in ("uni2-h", "uni2h"):
         # declared but never dispatched in the reference either
         # (foundation_model.py:437-483: "not implemented")
@@ -55,17 +54,21 @@ def _check_name(name: str) -> None:
 
 def pretrained_state_dict(mc: ModelConfig, in_channels: int,
                           pretrained_path: str) -> Dict[str, torch.Tensor]:
-    """The state dict of the backbone named by ``mc.backbone_str``
-    (``ResNetFeatures(in_channels)``, CPU tensors) imported from the local
-    checkpoint ``pretrained_path``: timm ResNet-50 / resnet50d, or a
-    RadImageNet (Lab-Rasool) one for the ``radimagenet*`` names.  The stem
-    conv is adapted to ``in_channels`` as ``mc.use_advanced_adapt`` says
-    (imagenet resnets honor use_input_adapt, foundation_model.py:40;
-    radimagenet always adapts, foundation_model.py:277-281)."""
+    """The state dict of the backbone named by ``mc.backbone_str`` imported
+    from the local checkpoint ``pretrained_path`` (CPU tensors): timm
+    ResNet-50 / resnet50d, a RadImageNet (Lab-Rasool) one for the
+    ``radimagenet*`` names, or a timm ViT-B/16 / DINO one whose position
+    embedding is resized to ``mc.input_size``.  The first conv is adapted
+    to ``in_channels`` as ``mc.use_advanced_adapt`` says (imagenet resnets
+    honor use_input_adapt, foundation_model.py:40; radimagenet always
+    adapts, foundation_model.py:277-281)."""
     name = mc.backbone_str.lower()
     _check_name(name)
     mc = resolve_backbone_config(mc)
     sd = _load_state_dict(pretrained_path)
+    if name in VIT_NAMES:
+        return import_vit_base(sd, in_channels, img_size=mc.input_size,
+                               use_advanced_adapt=mc.use_advanced_adapt)
     if name.startswith("radimagenet"):
         sd = map_rasool_to_timm_keys(sd)
     return import_resnet50(sd, in_channels, use_advanced_adapt=mc.use_advanced_adapt,
@@ -74,16 +77,23 @@ def pretrained_state_dict(mc: ModelConfig, in_channels: int,
 
 def build_backbone(mc: ModelConfig, in_channels: int,
                    pretrained_path: Optional[str] = None,
-                   layers: Sequence[int] = (3, 4, 6, 3), **kw) -> ResNetFeatures:
+                   layers: Union[Sequence[int], ViTSize] = (3, 4, 6, 3),
+                   **kw) -> Union[ResNetFeatures, ViTFeatures]:
     """The backbone named by ``mc.backbone_str``, with ``**kw`` (``device``,
     ``dtype``) passed to its layers.  Without ``pretrained_path`` it holds
     torch's default initialisation (``build_single_model`` redraws it);
     with one, the checkpoint's weights (:func:`pretrained_state_dict`).
-    ``layers`` lets tests build a shallow (1, 1, 1, 1) network."""
+    ``layers`` lets tests build a shallow network: a ResNet's blocks per
+    stage, e.g. (1, 1, 1, 1), or a narrow :class:`~.vit.ViTSize` for a ViT
+    name (any other value builds ViT-B/16's 768 x 12 blocks x 12 heads)."""
     name = mc.backbone_str.lower()
     _check_name(name)
-    deep = name == "resnet50d"
-    module = ResNetFeatures(in_channels, layers, deep_stem=deep, avg_down=deep, **kw)
+    if name in VIT_NAMES:
+        module = vit_base_patch16(in_channels, mc.input_size,
+                                  layers if isinstance(layers, ViTSize) else ViTSize(), **kw)
+    else:
+        deep = name == "resnet50d"
+        module = ResNetFeatures(in_channels, layers, deep_stem=deep, avg_down=deep, **kw)
     if pretrained_path:
         module.load_state_dict(pretrained_state_dict(mc, in_channels, pretrained_path))
     return module

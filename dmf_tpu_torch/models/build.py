@@ -13,13 +13,14 @@ format, the layout the kernels take.
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
 
 from ..config import Config, resolve_backbone_config
 
+from .backbones.vit import ViTFeatures, ViTSize
 from .encoder import Encoder
 from .fusion import FusionModel
 from .transformer import TransformerBlock
@@ -30,8 +31,17 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Re-draw every weight from ``generator`` with the JAX initializers
     (models/layers.py:20-30): conv kernels U(+-sqrt(1/fan_in)), dense kernels
     U(+-sqrt(6/fan_in)), BN scale N(1, 0.02), biases zero, norms identity,
-    LayerScale gammas constant (transformer.py:94-99)."""
+    LayerScale gammas constant (transformer.py:94-99).  A ViT backbone draws
+    from its own module's initialisers instead
+    (:meth:`~.backbones.vit.ViTFeatures.reset_parameters`)."""
+    vit_parts = set()
     for m in module.modules():
+        if isinstance(m, ViTFeatures):
+            m.reset_parameters(generator)
+            vit_parts.update(m.modules())
+    for m in module.modules():
+        if m in vit_parts:
+            continue
         if isinstance(m, TransformerBlock):
             m.gamma1.fill_(m.init_scale)
             m.gamma2.fill_(m.init_scale)
@@ -61,13 +71,14 @@ def init_weights(module: nn.Module, generator: torch.Generator) -> None:
 
 def build_fusion_models(cfg: Config, device="cuda", dtype: torch.dtype = torch.float32,
                         generator: Optional[torch.Generator] = None,
-                        backbone_layers: Sequence[int] = (3, 4, 6, 3)
+                        backbone_layers: Union[Sequence[int], ViTSize] = (3, 4, 6, 3)
                         ) -> Tuple[Encoder, Encoder, FusionModel]:
     """``(dwi_encoder, dce_encoder, fusion)`` on ``device`` in ``dtype``.
 
     ``generator`` must live on ``device`` (default: one seeded with
-    ``cfg.seed``).  ``backbone_layers`` cuts the ResNet depth for small
-    tests; widths always come from ``cfg``.
+    ``cfg.seed``).  ``backbone_layers`` cuts the backbone for small tests
+    (``registry.build_backbone``'s ``layers``: ResNet blocks per stage, or
+    a :class:`~.backbones.vit.ViTSize`); the other widths come from ``cfg``.
     """
     if generator is None:
         generator = torch.Generator(device).manual_seed(cfg.seed)

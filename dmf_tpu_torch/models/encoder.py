@@ -8,6 +8,11 @@ L2-normalized classification head.  With ``use_hybrid_transformer`` the
 final stage is a :class:`~.transformer.TransformerStage` on f2 plus a 1x1
 projection to c3 (encoder.py:206-221) in place of block3.
 
+With a ViT/DINO backbone (``transformer_backbone``) the adapter lays its
+16 x 16 token grids out as maps, so f1-f3 are 16^2 for a 256^2 input; its
+``backbone_layers`` is a :class:`~.backbones.vit.ViTSize` for a narrow test
+ViT, as ``(1, 1, 1, 1)`` is a shallow ResNet.
+
 ``forward`` returns ``(logits, aux, mask_pred)`` with the JAX aux keys.
 ``train=True`` is the JAX training route: BatchNorm on batch statistics
 everywhere (the frozen backbone included), dropout on, and no kernel wrapper
@@ -20,7 +25,7 @@ and projectors, which a pass that only needs probabilities does not use
 
 from __future__ import annotations
 
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
@@ -30,6 +35,7 @@ from ..config import ModelConfig
 from ..ops.resize import adaptive_avg_pool
 from .adapter import BackboneAdapter
 from .backbones.registry import build_backbone
+from .backbones.vit import ViTSize
 from .layers import (ClassificationHead, FeatureDownAlign,
                      MaskGuidedSpatialAttention, MaskHeadResize, Projector,
                      ResLiteBlock, SEBlock)
@@ -45,8 +51,8 @@ def _block_size(size: int, downsample: bool, repeats: int, each: bool) -> int:
 
 class Encoder(nn.Module):
     def __init__(self, method: str, config: ModelConfig, channel_num: int,
-                 num_classes: int, backbone_layers: Sequence[int] = (3, 4, 6, 3),
-                 **kw):
+                 num_classes: int,
+                 backbone_layers: Union[Sequence[int], ViTSize] = (3, 4, 6, 3), **kw):
         super().__init__()
         cfg = config
         hybrid = cfg.use_hybrid_transformer

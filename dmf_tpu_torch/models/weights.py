@@ -5,7 +5,11 @@ turn JAX variables into the reference torch key layout, and reference
 Lightning checkpoints use the same layout.  :func:`load_reference_state_dict`
 loads either with full accounting: every parameter and buffer of the module
 must be filled, and a key the module does not hold is dropped only if it
-matches :data:`DROPPED_KEY_PATTERNS`; anything else is an error.
+matches :data:`DROPPED_KEY_PATTERNS`; anything else is an error.  A ViT/DINO
+backbone (the state dict has ``backbone.patch_embed.proj.weight``) goes
+through ``import_vit_base``, which resizes the checkpoint's position
+embedding to the module's grid (ref_ckpt.py:552-566); it has no BatchNorm
+statistics.
 
 The export direction (:func:`export_reference_encoder`,
 :func:`export_reference_fusion`, :func:`save_lightning_ckpt`) mirrors
@@ -20,12 +24,16 @@ the JAX package's export of the same weights.
 
 from __future__ import annotations
 
+import math
 import re
 from typing import Any, Dict, List, Mapping
 
 import numpy as np
 import torch
 import torch.nn as nn
+
+from .backbones.importers import import_vit_base
+from .backbones.vit import ViTFeatures
 
 # Keys of the reference layout that the port does not hold, each with why.
 DROPPED_KEY_PATTERNS = (
@@ -69,6 +77,9 @@ def load_reference_state_dict(module: nn.Module,
         if ck in src:
             raise ValueError(f"state dict gives {ck!r} twice")
         src[ck] = value
+    vit = getattr(module, "backbone", None)
+    if isinstance(vit, ViTFeatures) and "backbone.patch_embed.proj.weight" in src:
+        src = _import_vit_backbone(vit, src)
     new: Dict[str, torch.Tensor] = {}
     dropped, unexpected = [], []
     for key, value in src.items():
@@ -89,6 +100,20 @@ def load_reference_state_dict(module: nn.Module,
                        f"unexpected {sorted(unexpected)[:8]} ({len(unexpected)})")
     module.load_state_dict(new, strict=True)
     return {"loaded": sorted(new), "dropped": sorted(dropped)}
+
+
+def _import_vit_backbone(vit: ViTFeatures, src: Dict[str, Any]) -> Dict[str, Any]:
+    """``src`` with its ``backbone.`` tensors imported into ``vit``'s
+    geometry: the patch embedding adapted to its channels and the position
+    embedding resized to its grid.  Keys the import does not take stay as
+    they were, for the caller's accounting."""
+    sub = {k[len("backbone."):]: v for k, v in src.items() if k.startswith("backbone.")}
+    proj = vit.patch_embed.proj
+    patch = proj.kernel_size[0]
+    grid = math.isqrt(vit.pos_embed.shape[1] - 1)
+    imported = import_vit_base(sub, proj.in_channels, img_size=grid * patch,
+                               patch_size=patch, depth=len(vit.blocks))
+    return {**src, **{"backbone." + k: v for k, v in imported.items()}}
 
 
 # ---------------------------------------------------------------------------
@@ -171,7 +196,9 @@ def export_reference_encoder(model: nn.Module, seed: int = 0) -> Dict[str, np.nd
     ``load_state_dict(strict=True)``, bit-equal to
     ``dmf_tpu.models.ref_ckpt.export_reference_encoder`` on the same weights.
 
-    The backbone goes under both paths the reference serializes
+    The backbone, ResNet-50 or ViT (whose state dict is timm's layout, the
+    position embedding at the module's own grid), goes under both paths the
+    reference serializes
     (``backbone._orig_mod.`` and ``backbone_adapter.backbone._orig_mod.``,
     model_module.py:539-546); the unused mask-head chains and the feature
     aligns the port does not build (registered unconditionally,

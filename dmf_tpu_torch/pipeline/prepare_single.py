@@ -14,7 +14,7 @@ import dataclasses
 import os
 import pickle
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Union
 
 import numpy as np
 import torch
@@ -25,6 +25,7 @@ from ..data.preprocess import NyulStandardizer, dce_global_max_normalize, prep_d
 from ..data.splits import train_val_indices
 from ..data.synthetic import make_synthetic_arrays
 from ..models.backbones.registry import pretrained_state_dict
+from ..models.backbones.vit import ViTSize
 from ..models.build import init_weights
 from ..models.encoder import Encoder
 from ..ops.resize import resize_nearest
@@ -158,10 +159,10 @@ def prepare_single_data(cfg: Config, method: str, fold: int,
 def build_single_model(cfg: Config, method: str, pretrained_path: Optional[str] = None,
                        dtype: torch.dtype = torch.float32, device="cuda",
                        generator: Optional[torch.Generator] = None,
-                       backbone_layers: Sequence[int] = (3, 4, 6, 3)):
+                       backbone_layers: Union[Sequence[int], ViTSize] = (3, 4, 6, 3)):
     """The single-modality encoder on seeded random weights, its backbone
     from ``pretrained_path`` when one is given (a local timm / resnet50d /
-    RadImageNet checkpoint, imported by
+    RadImageNet ResNet-50 or timm ViT-B/16 / DINO checkpoint, imported by
     :func:`~dmf_tpu_torch.models.backbones.registry.pretrained_state_dict`).
 
     Returns ``(model, resolved_cfg)``; the module holds its weights (the JAX

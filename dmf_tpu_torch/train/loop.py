@@ -1,6 +1,8 @@
 """Epoch loops of single-modality and fusion training, counterparts of
 ``dmf_tpu/train/loop.py::fit_single`` (:106-363) and ``fit_fusion``
-(:365-593), without a mesh or the native loader.
+(:365-593), without a mesh.  ``cfg.use_native_loader`` takes the train
+batches of a split that is not staged on the card from the native loader, as
+the JAX loops do (:225, :466).
 
 The reference's ``pl.Trainer.fit`` orchestration (run_training.py:103-131,
 181-263): train steps on the device, and on the host a metric-driven control
@@ -76,12 +78,6 @@ def _warn_nonfinite(metrics: Dict[str, float], epoch: int, step: int) -> None:
               f"{metrics.get('grad_norm', float('nan')):.3e})")
 
 
-def _check_config(cfg: Config) -> None:
-    if cfg.use_native_loader:
-        raise NotImplementedError("use_native_loader: the native host library is not "
-                                  "ported (ROADMAP 1.4)")
-
-
 def fit_single(cfg: Config, method: str, state: TrainState,
                train_data: Dict[str, Optional[np.ndarray]],
                val_data: Dict[str, Optional[np.ndarray]],
@@ -98,7 +94,6 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     seeded from ``seed``; the shuffle is ``np.random.RandomState(seed)``, the
     JAX loop's order.
     """
-    _check_config(cfg)
     mc = cfg.model_config(method)
     model = state.model
     device = next(model.parameters()).device
@@ -145,7 +140,6 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     ``labels``.  Dropout draws from a generator on the model's device seeded
     from ``seed``; the shuffle is ``np.random.RandomState(seed)``.
     """
-    _check_config(cfg)
     fp = cfg.fusion_model
     if clf_loss_fn is None:
         clf_loss_fn = get_classification_loss_fn(cfg, train_data["labels"], "fusion")
@@ -206,7 +200,7 @@ def _fit(cfg: Config, scheduler_cfg, base_lr: float, state: TrainState, spec, co
         pending = []  # (device metrics, batch size, events) per step
         epoch_step0 = global_step
         for batch in iterate_batches(train_ds, cfg.batch_size, shuffle=True, rng=np_rng,
-                                     device=stage_train):
+                                     device=stage_train, native=cfg.use_native_loader):
             if isinstance(scheduler, WarmupCosine):
                 # stepped per step (selector_helpers.py:319-330)
                 controller.lr_scale = scheduler.step_scale(global_step)

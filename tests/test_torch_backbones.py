@@ -203,10 +203,19 @@ def test_build_backbone_resnet50d_from_file(checkpoints, tmp_path):
 
 @pytest.mark.parametrize("name", ["vit_base_patch16_224", "dino_vitbase16_pretrain"])
 def test_vit_backbones_raise(name):
+    """The ViT names raised NotImplementedError until the ViT/DINO backbone
+    was ported (ROADMAP 1.9); now ``build_single_model`` builds the
+    full-width ViT-B/16 encoder for both (test_torch_vit.py holds it
+    against JAX)."""
+    from dmf_tpu_torch.models.backbones import ViTFeatures
+
     cfg = default_parameters()
     cfg = cfg.replace(dwi_model=dataclasses.replace(cfg.dwi_model, backbone_str=name))
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.9"):
-        build_single_model(cfg, "dwi", device="cpu")
+    model, resolved = build_single_model(cfg, "dwi", device="cpu")
+    vit = model.backbone
+    assert isinstance(vit, ViTFeatures) and len(vit.blocks) == 12
+    assert vit.pos_embed.shape == (1, 257, 768) and vit.blocks[0].attn.num_heads == 12
+    assert resolved.dwi_model.channels == (768, 768, 768) and model.feature_size == 16
 
 
 @pytest.fixture(scope="module", params=[True, False], ids=["backbone", "no_backbone"])

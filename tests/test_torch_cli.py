@@ -205,10 +205,24 @@ def test_device_defaults_to_cuda_without_fallback(monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [(["--mesh", "8"], "1.13"),
-                                       (["--parallel-folds"], "1.6")])
+                                       (["--parallel-folds", "--folds", "0", "1"], "1.6")])
 def test_unported_options_raise(argv, item):
+    """``--parallel-folds`` raises over more than one fold only (the last
+    ``--folds`` wins)."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["run", "--tiny", "--device", "cpu", "--folds", "0"] + argv)
+
+
+def test_parallel_folds_over_one_fold_runs(tmp_path):
+    """``run --parallel-folds --folds 0`` takes the per-fold loop, as the JAX
+    CLI does for one fold (cli.py:157); it raised before."""
+    text = run_cli(cli.main, ["run", "--tiny", "--device", "cpu", "--parallel-folds",
+                              "--folds", "0", "--methods", "dwi", "--epochs", "1",
+                              "--base-path", str(tmp_path / "data"),
+                              "--results-dir", str(tmp_path / "results")])
+    summary = summary_of(text)
+    assert list(summary) == ["fold0_dwi"]
+    assert all(np.isfinite(v) for v in summary["fold0_dwi"].values())
 
 
 @pytest.mark.parametrize("command", ["bench", "export-serving"])

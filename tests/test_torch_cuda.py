@@ -48,7 +48,8 @@ def _cl(t):
     (1, 33, 17, 200),   # N = 1, HW = 561
     (3, 16, 16, 512),
     (301, 3, 3, 256),   # 3 maps per MLP block on 132 SMs, the last block with one
-    (2, 5, 7, 1002)])   # C not a multiple of the vector: scalar loads, 1024 threads
+    (2, 5, 7, 1002),    # C not a multiple of the vector: scalar loads, 1024 threads
+    (32, 16, 16, 768)])  # a ViT-backed ResLite block's map (768 channels on 16^2)
 def test_se_epilogue_kernel(dev, dtype, n, h, w, c):
     from dmf_tpu_torch.ops import epilogue_cuda
 
@@ -110,7 +111,9 @@ def test_conv3x3_refuses_autograd(dev):
     (2, 32, 32, 3072, 256),  # a K loop of 432 steps, many times the ring's depth
     (3, 5, 1, 64, 200),     # W = 1; Cout not a multiple of the channel tile
     (1, 64, 64, 128, 128),
-    (2, 6, 5, 16, 16)])     # Cin under one K step: the weight box is wider than Cin
+    (2, 6, 5, 16, 16),      # Cin under one K step: the weight box is wider than Cin
+    (4, 16, 16, 3840, 768),  # the ViT's neck_f3_conv0: K = 34560, five token maps
+    (4, 16, 16, 768, 768)])  # the ViT's second neck convs
 def test_conv3x3_kernel(dev, dtype, shape):
     n, h, w, cin, cout = shape
     g = torch.Generator(device=dev).manual_seed(1)

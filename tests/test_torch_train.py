@@ -9,7 +9,9 @@
 * the train step follows ``make_single_train_step`` over 6 steps (3 with
   the backbone group frozen, 3 after its unfreeze; and without a backbone):
   loss, classification loss and gradient norms to rel 1e-3 per step, then
-  the BatchNorm running statistics, the parameters and the eval logits.
+  the BatchNorm running statistics, the parameters and the eval logits;
+  a toy ``hybrid-nb`` encoder's steps follow it too, with the transformer
+  stage's fixed dropout on the same injected keep masks in both packages.
   Weights go JAX -> port through ``export_reference_encoder`` and
   ``load_reference_state_dict``, and back through
   ``import_reference_encoder``.  Dropout is 0 and both steps get the same
@@ -26,8 +28,8 @@ import numpy as np
 import pytest
 import torch
 
-from test_torch_helpers import (assert_close, jax_encoder, port_config, port_encoder,
-                                resnet_layers, tiny_cfg, BACKBONE_LAYERS)
+from test_torch_helpers import (assert_close, hybrid_cfg, jax_encoder, port_config,
+                                port_encoder, resnet_layers, tiny_cfg, BACKBONE_LAYERS)
 
 from dmf_tpu import config as jconfig
 from dmf_tpu import train as jtrain
@@ -36,7 +38,7 @@ from dmf_tpu.evals import metrics as jmetrics
 from dmf_tpu.losses import get_classification_loss_fn as j_clf, get_mask_loss_fn as j_mask
 from dmf_tpu.models.ref_ckpt import export_reference_encoder
 from dmf_tpu.pipeline import paths as jpaths
-from dmf_tpu.train import schedule as jsched
+from dmf_tpu.train import optim as joptim, schedule as jsched
 from dmf_tpu.train.single import make_single_train_step as j_step
 from dmf_tpu.utils import logging as jlog
 
@@ -45,6 +47,7 @@ from dmf_tpu_torch.data import pipeline as ppipe
 from dmf_tpu_torch.evals import metrics as pmetrics
 from dmf_tpu_torch.losses import get_classification_loss_fn as p_clf, get_mask_loss_fn as p_mask
 from dmf_tpu_torch.models import adapter as padapter, layers as players
+from dmf_tpu_torch.models import transformer as ptransformer
 from dmf_tpu_torch.models.weights import DROPPED_KEY_PATTERNS, canonical_key
 from dmf_tpu_torch.pipeline import paths as ppaths
 from dmf_tpu_torch.train import optim as poptim, schedule as psched
@@ -312,9 +315,12 @@ def run_jax(jcfg, model, variables, data, train_labels):
     return state, records
 
 
-def run_port(jcfg, variables, data, train_labels):
+def run_port(jcfg, variables, data, train_labels, enc=None):
+    """The port's steps from ``variables`` (or from ``enc``, a port encoder
+    already holding them)."""
     pcfg = port_config(jcfg)
-    enc, _ = port_encoder(jcfg.dwi_model, CHANNELS, variables)
+    if enc is None:
+        enc, _ = port_encoder(jcfg.dwi_model, CHANNELS, variables)
     state = PState.create(enc)
     spec = poptim.build_group_spec([n for n, _ in enc.named_parameters()],
                                    pcfg.dwi_model.use_backbone)
@@ -460,3 +466,92 @@ def test_init_single_state_is_seeded(models):
     assert not torch.equal(sa["block1.bottlenecks.0.0.weight"], ref["block1.bottlenecks.0.0.weight"])
     assert a.step == 0 and a.opt_state.count.tolist() == [0, 0, 0]
     assert all(float(t.abs().sum()) == 0 for t in a.opt_state.mu.values())
+
+
+# ---------------------------------------------------------------- hybrid-nb
+def keep_mask(site, shape, p=0.1):
+    """The keep mask of dropout site ``site`` of a forward, from numpy."""
+    return np.random.RandomState(100 + site).rand(*shape) < (1.0 - p)
+
+
+@pytest.fixture(scope="module")
+def hybrid_trajectories():
+    """A toy ``hybrid-nb`` encoder (``hybrid_cfg``: no backbone, two
+    transformer blocks of embed 32 on 64 tokens) trained 6 steps by both
+    packages.  The ResLite dropout is 0 through the config; the stage's
+    attention, projection and MLP dropout is fixed at 0.1
+    (transformer.py:28-29, :45-56) and no config field reaches it, so both
+    packages get the same keep masks: the k-th dropout call of a forward
+    (4 per block: the attention weights, the projection, the MLP's two) takes
+    ``keep_mask(k)`` of its shape, through ``jax.random.bernoulli`` as flax's
+    Dropout calls it (the jitted step traces one forward, so its masks are
+    constants of the trace) and through the port's ``transformer.dropout``,
+    patched here only.  The weights route (no flash kernel) in both.
+
+    The JAX grouping is patched too: its substring rule puts the stage's
+    second block (Flax path ``transformer/block1``) in the ``block1`` group,
+    where the reference's module names (``transformer.layers.1``) and the
+    port put it in group 2 (:func:`test_hybrid_groups_follow_the_reference_names`)."""
+    jcfg = hybrid_cfg(dropout=0.0).replace(foundation_model_unfreeze_timer=1, batch_size=B)
+    sites = 4 * jcfg.dwi_model.transformer_depth
+    calls = {"jax": 0, "port": 0}
+
+    def bernoulli(key, p=0.5, shape=None):
+        assert abs(float(p) - 0.9) < 1e-6
+        calls["jax"] += 1
+        return jnp.asarray(keep_mask((calls["jax"] - 1) % sites, shape))
+
+    def dropout(x, p, generator):
+        if p <= 0.0:
+            return x
+        calls["port"] += 1
+        keep = torch.from_numpy(keep_mask((calls["port"] - 1) % sites, tuple(x.shape), p))
+        return torch.where(keep, x / (1.0 - p), 0.0)
+
+    data = batches()
+    train_labels = np.concatenate([b["labels"] for b in data])
+    jm, v = jax_encoder(jcfg.dwi_model, CHANNELS, data[0]["imgs"], seed=9)
+    jax_classify = joptim.classify_param
+
+    def reference_groups(name, use_backbone):
+        return 2 if name.startswith("transformer/block") else jax_classify(name, use_backbone)
+
+    with pytest.MonkeyPatch.context() as mp:
+        mp.setattr(jax.random, "bernoulli", bernoulli)
+        mp.setattr(ptransformer, "dropout", dropout)
+        mp.setattr(joptim, "classify_param", reference_groups)
+        jstate, jrec = run_jax(jcfg, jm, v, data, train_labels)
+        pstate, prec = run_port(jcfg, v, data, train_labels)
+    return sites, calls, jrec, prec
+
+
+def test_hybrid_loss_trajectory_matches_jax(hybrid_trajectories):
+    """ROADMAP fault 3.8: losses and per-group gradient norms to rel 1e-3
+    per step; the masks were drawn at every site of every forward."""
+    sites, calls, jrec, prec = hybrid_trajectories
+    assert calls["jax"] % sites == 0 and calls["jax"] > 0
+    assert calls["port"] == sites * len(prec)
+    keys = ["loss", "clf_loss", "mask_loss", "recon_loss", "mimic_loss", "grad_norm"]
+    keys += [k for k in jrec[0] if k.startswith("grad_norm_")]
+    for k in keys:
+        np.testing.assert_allclose([r[k] for r in prec], [r[k] for r in jrec], rtol=1e-3,
+                                   err_msg=k)
+    assert all(r["grad_nonfinite"] == 0 for r in prec)
+
+
+def test_hybrid_groups_follow_the_reference_names():
+    """The port groups the hybrid stage by the reference's names: both
+    transformer blocks in group 2 (``block3+other``).  The JAX package's
+    substring rule on Flax paths puts ``transformer/block1`` (the second
+    block) in the ``block1`` group instead, the first block in group 2."""
+    jcfg = hybrid_cfg(dropout=0.0)
+    jm, v = jax_encoder(jcfg.dwi_model, CHANNELS, volumes(0)[0], seed=9)
+    jspec = jtrain.build_group_spec(v["params"], False, True)
+    jgroups = {(path[0].key, int(g)) for path, g in
+               jax.tree_util.tree_flatten_with_path(jspec.group_ids["transformer"])[0]
+               if path[0].key.startswith("block")}
+    assert jgroups == {("block0", 2), ("block1", 0)}
+    enc, _ = port_encoder(jcfg.dwi_model, CHANNELS, v)
+    pspec = poptim.build_group_spec([n for n, _ in enc.named_parameters()], False)
+    stage = {g for n, g in pspec.group_ids.items() if n.startswith("transformer.")}
+    assert stage == {2}
