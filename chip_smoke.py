@@ -123,6 +123,21 @@ Phases, each printing its own lines:
      ...])`` for fold 0 on phase 8's tensor store, two epochs a stage, the
      backbone frozen, ``use_native_loader=True`` (every train epoch's batches
      from the native loader), with 8's checks;
+  10. training options under deterministic algorithms (cuDNN's and
+     torch's): 10a ``ModelConfig.remat`` on the default DWI encoder at full
+     width, B=32, fp32: three train steps plain, with remat and plain again
+     from the same weights, batches and dropout seed (losses, parameters,
+     BatchNorm statistics and the dropout generator bit-equal across the
+     three), their CUDA-event step times, peak memory and the GiB autograd
+     keeps (and the plain and remat steps' again with the default
+     algorithms), and a fusion train step at B=32 plain and with remat on both
+     encoders (step time, peak memory); 10b ``cli.main(["run",
+     "--parallel-folds", "--folds", "0", "1", "--methods", "dwi", "dce",
+     ...])`` on phase 8's store and checkpoint, two epochs, the backbone
+     frozen, against the same folds run one after another: each fold's
+     ``metrics.json`` and best checkpoint bit-equal, both runs' wall seconds
+     per modality, peak memory, raw loads and model builds, and the
+     launches by phase 8's formulas per fold;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -201,6 +216,7 @@ from dmf_tpu_torch.models.backbones.importers import map_rasool_to_timm_keys  # 
 from dmf_tpu_torch.models.weights import load_lightning_ckpt  # noqa: E402
 from dmf_tpu_torch.pipeline import run_fusion as run_fusion_mod  # noqa: E402
 from dmf_tpu_torch.pipeline import run_single as run_single_mod  # noqa: E402
+from dmf_tpu_torch.pipeline import prepare_single as prepare_single_mod  # noqa: E402
 
 DEV = torch.device("cuda", 0)
 SEED = 0
@@ -2952,6 +2968,319 @@ def phase_vit(cfg, tmp, smi):
     return {k: serve_launches[k] + cli_launches[k] for k in COUNTERS}
 
 
+# ------------------------------------------------------------------ phase 10
+# 10a: REMAT_STEPS train steps of the default DWI encoder at full width and
+# B=32 with ModelConfig.remat off, on, then off again (the same weights,
+# batches and dropout seed), under deterministic algorithms: the two plain
+# runs bit-equal (no run-to-run floor), and the remat run bit-equal to them;
+# then a fusion train step at B=32 plain and with remat on both encoders (two
+# steps each, the second timed).  10b: ``run --parallel-folds`` over PF_FOLDS
+# through the CLI on phase 8's store, bit-equal to the same folds run one
+# after another
+REMAT_STEPS = 3
+PF_FOLDS = (0, 1)
+PF_EPOCHS = 2
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's deterministic algorithms and torch's deterministic
+    implementations (warn-only: an op without one warns).  The recon loss's
+    bilinear upsample then takes torch's decomposition, whose backward
+    accumulates by a sorted ``index_put`` where the kernel's adds by atomics."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = old
+
+
+def tensor_gap(got, ref):
+    """The largest max|got - ref| / max(1, max|ref|) over the float tensors
+    of two state dicts (0.0: bit-equal)."""
+    worst = 0.0
+    for k, b in ref.items():
+        a = got[k]
+        if not torch.equal(a, b) and b.is_floating_point():
+            b = b.double()
+            worst = max(worst, (a.double() - b).abs().max().item()
+                        / max(1.0, b.abs().max().item()))
+        elif not torch.equal(a, b):
+            worst = max(worst, float("inf"))
+    return worst
+
+
+def saved_bytes():
+    """A saved-tensor hook pair that sums the bytes autograd keeps for the
+    backward (outside checkpointed regions; a view counts whole)."""
+    total = [0]
+
+    def pack(t):
+        total[0] += t.numel() * t.element_size()
+        return t
+
+    return total, torch.autograd.graph.saved_tensors_hooks(pack, lambda t: t)
+
+
+def remat_run(cfg, remat, batches):
+    """DWI train steps on ``batches`` from the seeded weights; returns the
+    losses, the model, the dropout generator's state, the peak memory (GiB)
+    and the peak above the memory held before the first step, the CUDA-event
+    step times (ms), and the GiB autograd kept for the first step's
+    backward."""
+    model, rcfg = build_single_model(train_config(cfg, remat=remat), "dwi", device=DEV,
+                                     generator=gen(SEED))
+    state = TrainState.create(model)
+    spec = build_group_spec([n for n, _ in model.named_parameters()], True,
+                            rcfg.reference_compat)
+    step = make_single_train_step(rcfg, "dwi", get_classification_loss_fn(
+        rcfg, np.arange(rcfg.class_num), "dwi"), get_mask_loss_fn(rcfg, "dwi"), spec)
+    ctrl = SingleModelOptController(rcfg, "dwi")
+    ctrl.on_epoch_start(1)  # every group trainable
+    hp = ctrl.hyperparams()
+    drop = gen(SEED + 50)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    losses, ms = [], []
+    kept, hooks = saved_bytes()
+    for i, b in enumerate(batches):
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        ev[0].record()
+        with hooks if i == 0 else contextlib.nullcontext():
+            losses.append(step(state, dict(b, aux_w=1.0), drop, hp)["loss"])
+        ev[1].record()
+        torch.cuda.synchronize()
+        ms.append(ev[0].elapsed_time(ev[1]))
+    peak = torch.cuda.max_memory_allocated()
+    return (torch.stack(losses).cpu(), model, drop.get_state(), peak / 2 ** 30,
+            (peak - base) / 2 ** 30, ms, kept[0] / 2 ** 30)
+
+
+def nondeterministic_ops(model, rcfg, batch):
+    """The ops of one DWI train forward and backward that have no
+    deterministic implementation on the card (torch's warn-only list)."""
+    import warnings
+
+    step = make_single_train_step(rcfg, "dwi", get_classification_loss_fn(
+        rcfg, np.arange(rcfg.class_num), "dwi"), get_mask_loss_fn(rcfg, "dwi"),
+        build_group_spec([n for n, _ in model.named_parameters()], True,
+                         rcfg.reference_compat))
+    ctrl = SingleModelOptController(rcfg, "dwi")
+    ctrl.on_epoch_start(1)
+    with warnings.catch_warnings(record=True) as caught, deterministic():
+        warnings.simplefilter("always")
+        step(TrainState.create(model), dict(batch, aux_w=1.0), gen(SEED + 53),
+             ctrl.hyperparams())
+        torch.cuda.synchronize()
+    return sorted({str(w.message).split(" does not have a deterministic")[0]
+                   for w in caught if "deterministic" in str(w.message)})
+
+
+def phase_remat(cfg):
+    B = cfg.batch_size
+    log(f"== phase 10a: ModelConfig.remat on the card: the default DWI encoder at full width "
+        f"(ResNet-50, 256^2, fp32, TF32 off), B={B}, {REMAT_STEPS} train steps plain, with "
+        f"remat, plain again, from the same weights, batches and dropout seed "
+        f"(dropout {cfg.dwi_model.dropout}), deterministic algorithms (cuDNN's and torch's)")
+    rcfg = train_config(cfg)
+    with deterministic():
+        batches = dwi_batches(rcfg, REMAT_STEPS, B, 60)
+        runs = {name: remat_run(cfg, remat, batches)
+                for name, remat in (("plain", False), ("remat", True), ("plain again", False))}
+    (l0, m0, g0, *_), (l1, m1, g1, *_), (l2, m2, g2, *_) = runs.values()
+    for name, (losses, _, _, peak, above, ms, kept) in runs.items():
+        log(f"  {name}: losses {[f'{x:.7f}' for x in losses.tolist()]}; step ms by CUDA "
+            f"events {', '.join(f'{t:.2f}' for t in ms)} (median after the first "
+            f"{statistics.median(ms[1:]):.2f}); peak memory {peak:.2f} GiB, {above:.2f} GiB "
+            f"above the state and batches; autograd kept {kept:.2f} GiB for the first "
+            f"step's backward")
+    sd0, sd1, sd2 = (m.state_dict() for m in (m0, m1, m2))
+    if not (torch.equal(l0, l2) and tensor_gap(sd2, sd0) == 0.0 and torch.equal(g0, g2)):
+        ops = nondeterministic_ops(m0, rcfg.replace(dwi_model=m0.config), batches[0])
+        raise AssertionError(f"two plain runs differ under deterministic algorithms (ops "
+                             f"without a deterministic implementation: {ops})")
+    gap = tensor_gap(sd1, sd0)
+    if not (torch.equal(l0, l1) and gap == 0.0 and torch.equal(g0, g1)):
+        raise AssertionError(f"remat differs from the plain steps (worst tensor {gap:.3e})")
+    log(f"  remat vs plain: losses, {len(sd0)} parameters and BatchNorm statistics and the "
+        f"dropout generator's state bit-equal; the two plain runs bit-equal too (no "
+        f"run-to-run floor)")
+    del runs, m0, m1, m2, sd0, sd1, sd2
+    torch.cuda.empty_cache()
+    # the same steps as a user trains them, without the deterministic algorithms
+    for name, remat in (("plain", False), ("remat", True)):
+        _, _, _, peak, above, ms, kept = remat_run(cfg, remat, batches)
+        log(f"  {name}, default algorithms: step ms {', '.join(f'{t:.2f}' for t in ms)} "
+            f"(median after the first {statistics.median(ms[1:]):.2f}); peak memory "
+            f"{peak:.2f} GiB, {above:.2f} GiB above the state and batches; autograd kept "
+            f"{kept:.2f} GiB")
+        torch.cuda.empty_cache()
+    del batches
+
+    # one fusion train step at B=32, plain and with remat on both encoders
+    fb = fusion_batches(fusion_config(cfg), 2, B, 61)
+    for remat in (False, True):
+        fcfg = fusion_config(cfg, remat=remat)
+        dwi, fcfg = build_single_model(fcfg, "dwi", device=DEV, generator=gen(SEED))
+        dce, fcfg = build_single_model(fcfg, "dce", device=DEV, generator=gen(SEED + 2))
+        state = build_fusion_state(fcfg, TrainState.create(dwi), TrainState.create(dce))
+        del dwi, dce
+        spec = build_fusion_group_spec([n for n, _ in state.model.named_parameters()], fcfg)
+        step = make_fusion_train_step(fcfg, get_classification_loss_fn(
+            fcfg, np.arange(fcfg.class_num), "fusion"), get_mask_loss_fn(fcfg, "fusion"), spec)
+        ctrl = FusionOptController(fcfg)
+        for e in range(FUSION_EPOCHS):
+            ctrl.on_epoch_start(e)
+        hp = ctrl.hyperparams()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        with deterministic():
+            losses = [float(step(state, dict(b, aux_w=1.0), gen(SEED + 51), hp)["loss"])
+                      for b in fb[:1]]
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            losses.append(float(step(state, dict(fb[1], aux_w=1.0), gen(SEED + 52), hp)["loss"]))
+            ev[1].record()
+            torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        log(f"  fusion train step, B={B}, {'remat on both encoders' if remat else 'plain'}: "
+            f"losses {[f'{x:.6f}' for x in losses]}, the second step "
+            f"{ev[0].elapsed_time(ev[1]):.2f} ms by CUDA events; peak memory "
+            f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above the state and "
+            f"batches; phase 7d printed its whole fusion run's peak)")
+        if not all(np.isfinite(x) for x in losses):
+            raise AssertionError("fusion remat step: loss not finite")
+        del state, step
+        torch.cuda.empty_cache()
+    del fb
+
+
+def read_run(results, method, fold):
+    """A run's ``metrics.json`` without wall times, its best checkpoint (on
+    the host) and the best checkpoint's epoch."""
+    root = os.path.join(results, method, f"fold_{fold}")
+    with open(os.path.join(root, "metrics.json")) as f:
+        metrics = json.load(f)
+    metrics["train_metrics"] = {k: v for k, v in metrics["train_metrics"].items()
+                                if not k.endswith("_time")}
+    best = torch.load(os.path.join(root, "checkpoints", "best.pt"), map_location="cpu",
+                      weights_only=True)
+    with open(os.path.join(root, "checkpoints", "best.json")) as f:
+        return metrics, best, json.load(f)["epoch"]
+
+
+def phase_parallel_folds(cfg, tmp, smi):
+    """Phase 10b; returns the fold-parallel run's launches."""
+    root = os.path.join(tmp, "cli")
+    base, config = os.path.join(root, "data"), os.path.join(root, "config.json")
+    rasool = os.path.join(root, "radimagenet_resnet50.pt")
+    ccfg = cfg.replace(foundation_model_unfreeze_timer=2)
+    folds = [str(f) for f in PF_FOLDS]
+    log(f"== phase 10b: run --parallel-folds --folds {' '.join(folds)} --methods dwi dce "
+        f"through the CLI on the card, phase 8's store and RadImageNet-layout checkpoint, "
+        f"{PF_EPOCHS} epochs, the backbone frozen, deterministic algorithms; then the same folds "
+        f"one after another")
+    out = {}
+    for name, extra in (("parallel", ["--parallel-folds"]), ("sequential", [])):
+        results = os.path.join(root, f"results_{name}")
+        argv = (["run", "--config", config, "--base-path", base, "--results-dir", results,
+                 "--folds", *folds, "--methods", "dwi", "dce", "--epochs", str(PF_EPOCHS),
+                 "--min-epochs", str(PF_EPOCHS), "--pretrained-dwi", rasool,
+                 "--pretrained-dce", rasool] + extra)
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        text = io.StringIO()
+        reset_counts()
+        with deterministic(), \
+                Spy(run_single_mod, "run_single_model_multifold") as multi, \
+                Spy(run_single_mod, "run_single_model") as single, \
+                Spy(run_single_mod, "build_single_model") as builds, \
+                Spy(run_single_mod, "load_raw_tensors") as loads_multi, \
+                Spy(prepare_single_mod, "load_raw_tensors") as loads_single, \
+                contextlib.redirect_stdout(text):
+            (rc, t_run) = synced(lambda: cli.main(argv))
+        launched = counts()
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        text = text.getvalue()
+        if rc != 0:
+            raise AssertionError(f"cli run ({name}) returned {rc}")
+        summary = json.loads(text[text.rindex("\n{\n") + 1:])
+        if name == "parallel":
+            per_modality = [t for _, t in multi.calls]
+            results_by = {(m, f): r for m, (res, _) in zip(("dwi", "dce"), multi.calls)
+                          for f, r in res.items()}
+            if single.calls:
+                raise AssertionError("the fold-parallel run called run_single_model")
+        else:
+            per_modality = [sum(t for _, t in single.calls[i::2]) for i in range(2)]
+            results_by = {(m, f): r for (r, _), (f, m) in zip(
+                single.calls, [(f, m) for f in PF_FOLDS for m in ("dwi", "dce")])}
+            if multi.calls:
+                raise AssertionError("the sequential run called run_single_model_multifold")
+        loads = [t for _, t in loads_multi.calls + loads_single.calls]
+        out[name] = dict(summary=summary, launched=launched, t=t_run, peak=peak,
+                         per_modality=per_modality, loads=loads,
+                         builds=[t for _, t in builds.calls], results=results,
+                         by=results_by)
+        log(f"  {name}: {t_run:.2f} s wall (DWI {per_modality[0]:.2f} s, DCE "
+            f"{per_modality[1]:.2f} s, prepare and test included); peak memory {peak:.2f} GiB; "
+            f"{len(loads)} raw loads ({sum(loads):.3f} s), {len(builds.calls)} model builds "
+            f"({sum(out[name]['builds']):.3f} s, the import included); launches {launched}; "
+            f"{smi}")
+    par, seq = out["parallel"], out["sequential"]
+    log(f"  the parallel path saved {len(seq['loads']) - len(par['loads'])} raw loads and "
+        f"{len(seq['builds']) - len(par['builds'])} model builds: "
+        f"{sum(seq['loads']) - sum(par['loads']):.3f} s and "
+        f"{sum(seq['builds']) - sum(par['builds']):.3f} s")
+    if par["summary"] != seq["summary"]:
+        bad = [k for k in seq["summary"] if par["summary"].get(k) != seq["summary"][k]]
+        log(f"  summaries differ at {bad}")
+    for method in ("dwi", "dce"):
+        for fold in PF_FOLDS:
+            (mp, bp, ep), (ms, bs, es) = (read_run(r["results"], method, fold)
+                                          for r in (par, seq))
+            gap = max(tensor_gap(bp[k], bs[k]) for k in ("model", "mu", "nu"))
+            if not (mp == ms and gap == 0.0 and ep == es and bp["step"] == bs["step"]
+                    and torch.equal(bp["count"], bs["count"])):
+                raise AssertionError(f"{method} fold {fold}: the fold-parallel run differs "
+                                     f"from the sequential one (checkpoint worst tensor "
+                                     f"{gap:.3e}, metrics.json equal: {mp == ms}, best epochs "
+                                     f"{ep} / {es})")
+            log(f"  {method} fold {fold}: metrics.json (wall times aside) equal, best "
+                f"checkpoint bit-equal (best epoch {ep}, {bp['step']} steps)")
+    if par["summary"] != seq["summary"]:
+        raise AssertionError("the runs' summaries differ")
+    log("  every fold's summary, metrics.json and best checkpoint bit-equal to the "
+        "sequential run's")
+    # launches by phase 8's formulas, summed over the folds
+    B = ccfg.batch_size
+    expect = dict.fromkeys(COUNTERS, 0)
+    for (method, fold), r in par["by"].items():
+        n_tr = len(r["data"].splits["train"]["labels"])
+        n_val = -(-len(r["data"].splits["val"]["labels"]) // B)
+        n_test = -(-len(r["data"].splits["test"]["labels"]) // B)
+        expect["se_epilogue"] += 3 * PF_EPOCHS * n_val + 6 * n_test
+        expect["conv3x3_bn_gelu"] += 6 * (PF_EPOCHS * n_val + n_test)
+        expect["se_scale"] += PF_EPOCHS * n_val + n_test
+        if method == "dwi":
+            expect["dwi_normalize"] += PF_EPOCHS * -(-n_tr // B) + 2 + 3
+    for name in ("parallel", "sequential"):
+        if out[name]["launched"] != expect:
+            raise AssertionError(f"{name} run launched {out[name]['launched']}, expected "
+                                 f"{expect}")
+    log(f"  launches of each run by phase 8's formulas summed over {len(PF_FOLDS)} folds: "
+        f"{expect}")
+    for r in (par, seq):
+        r["by"].clear()
+    torch.cuda.empty_cache()
+    return par["launched"]
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3000,15 +3329,20 @@ def main():
         cli_launches = phase_cli(cfg, raw, tmp, smi)
         del raw
         val_launches = phase_hybrid_validation(hcfg)[0]
-        # phase 9d trains on phase 8's tensor store
+        # phases 9d and 10b train on phase 8's tensor store
         vit_launches = phase_vit(cfg, tmp, smi)
+        t0 = time.perf_counter()
+        phase_remat(cfg)
+        pf_launches = phase_parallel_folds(cfg, tmp, smi)
+        log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
-                + val_launches[k] + cli_launches[k] + vit_launches[k] for k in COUNTERS}
+                + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
+                for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
-        f"CLI and the ViT path: {launches}")
+        f"CLI, the ViT path and the fold-parallel run: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -12,10 +12,11 @@ Usage:
         --checkpoint results/fusion/fold_0/checkpoints/best.pt --out fold0.ckpt
 
 The subcommands take the JAX CLI's arguments, plus ``--device`` (default
-``cuda``; ``cpu`` only when asked, never as a fallback).  ``--mesh`` raises
-``NotImplementedError`` (ROADMAP 1.13); so does ``run --parallel-folds``
-over more than one fold (ROADMAP 1.6), while over one fold it runs the
-per-fold loop, as the JAX CLI does (cli.py:157).  ``bench`` and
+``cuda``; ``cpu`` only when asked, never as a fallback).  ``run
+--parallel-folds`` over several folds trains each modality's folds in one
+call (``run_single_model_multifold``), then runs fusion per fold; over one
+fold it runs the per-fold loop, as the JAX CLI does (cli.py:157).
+``--mesh`` raises ``NotImplementedError`` (ROADMAP 1.13).  ``bench`` and
 ``export-serving`` are not ported yet (ROADMAP 1.1, 1.12).
 """
 
@@ -66,8 +67,10 @@ def _add_common(p):
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                    help="not ported (ROADMAP 1.13): raises")
     p.add_argument("--parallel-folds", action="store_true",
-                   help="not ported over more than one fold (ROADMAP 1.6): "
-                        "raises; over one fold it runs the per-fold loop")
+                   help="train each modality's folds in one call (one raw "
+                        "load and one model build; each fold's results equal "
+                        "its sequential run's), then fusion per fold; over "
+                        "one fold it runs the per-fold loop")
     p.add_argument("--mc-chunk", type=int, default=None,
                    help="run the MC uncertainty passes in sequential chunks "
                         "of this size (same ensemble, bounds activation "
@@ -159,30 +162,47 @@ def cmd_run(args) -> int:
 
     folds = args.folds if args.folds is not None else list(range(cfg.segnum))
     methods = args.methods if args.methods else list(cfg.methods)
-    if args.parallel_folds and len(folds) > 1:
-        raise NotImplementedError("--parallel-folds over several folds: fold-parallel "
-                                  "training (run_single_model_multifold) is not ported "
-                                  "(ROADMAP 1.6)")
 
     from .pipeline.run_fusion import run_fusion_model
-    from .pipeline.run_single import run_single_model
+    from .pipeline.run_single import run_single_model, run_single_model_multifold
+
+    def debug_suite(method):
+        if args.debug_training:
+            from .debug_suite import run_debug_suite_single
+
+            run_debug_suite_single(cfg, method, device=device)
+
+    def pretrained(method):
+        return args.pretrained_dwi if method == "dwi" else args.pretrained_dce
+
+    parallel = args.parallel_folds and len(folds) > 1
+    per_method = {}
+    if parallel:
+        # every fold of a modality in one call; fusion, which chains each
+        # fold's encoder results, then runs per fold
+        for method in methods:
+            debug_suite(method)
+            print(f"[dmf_tpu_torch] folds {folds} method {method}: fold-parallel "
+                  f"training...")
+            per_method[method] = run_single_model_multifold(
+                cfg, method, folds, num_epochs=args.epochs, min_epochs=args.min_epochs,
+                base_dir=args.results_dir, pretrained_path=pretrained(method), device=device)
 
     summary = {}
     for fold in folds:
         results = {}
         for method in methods:
-            if args.debug_training:
-                from .debug_suite import run_debug_suite_single
-
-                run_debug_suite_single(cfg, method, device=device)
-            pretrained = (args.pretrained_dwi if method == "dwi"
-                          else args.pretrained_dce)
-            print(f"[dmf_tpu_torch] fold {fold} method {method}: training...")
-            results[method] = run_single_model(
-                cfg, method, fold,
-                num_epochs=args.epochs, min_epochs=args.min_epochs,
-                base_dir=args.results_dir, pretrained_path=pretrained, device=device,
-            )
+            if parallel:
+                results[method] = per_method[method][fold]
+            else:
+                debug_suite(method)
+                print(f"[dmf_tpu_torch] fold {fold} method {method}: training...")
+                results[method] = run_single_model(
+                    cfg, method, fold,
+                    num_epochs=args.epochs, min_epochs=args.min_epochs,
+                    base_dir=args.results_dir, pretrained_path=pretrained(method),
+                    device=device,
+                )
             print(f"[dmf_tpu_torch] fold {fold} {method} test:",
                   json.dumps(results[method]["test_metrics"], indent=None))
         if args.fusion and "dwi" in results and "dce" in results:

@@ -21,14 +21,25 @@ called (the SE and neck stages run unfused).  The
 the deterministic prefix once; ``lean=True`` skips the reconstruction heads
 and projectors, which a pass that only needs probabilities does not use
 (XLA drops them by dead-code elimination; eager PyTorch has to be told).
+
+``config.remat`` runs each ResLite block call under activation
+checkpointing when autograd records it (the JAX encoder wraps
+``ResLiteBlock`` in ``nn.remat``, encoder.py:78-81): the backward recomputes
+the block's activations from its input, on the same dropout masks and
+without a second BatchNorm statistics update (:func:`remat_block`), so a
+step's numbers are those of the plain step.  The backbone, the adapter and
+the transformer stage are not checkpointed; the eval, MC and serving
+routes never are.
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Sequence, Union
 
 import torch
 import torch.nn as nn
+from torch.utils.checkpoint import checkpoint
 
 from ..config import ModelConfig
 
@@ -36,7 +47,7 @@ from ..ops.resize import adaptive_avg_pool
 from .adapter import BackboneAdapter
 from .backbones.registry import build_backbone
 from .backbones.vit import ViTSize
-from .layers import (ClassificationHead, FeatureDownAlign,
+from .layers import (BatchNorm2d, ClassificationHead, FeatureDownAlign,
                      MaskGuidedSpatialAttention, MaskHeadResize, Projector,
                      ResLiteBlock, SEBlock)
 from .transformer import TransformerStage
@@ -49,6 +60,47 @@ def _block_size(size: int, downsample: bool, repeats: int, each: bool) -> int:
     return size
 
 
+def remat_block(block: nn.Module, x: torch.Tensor, train: bool, mc: bool,
+                generator: Optional[torch.Generator], recon: bool = True):
+    """``block(x, train, mc, generator, recon=recon)`` under
+    ``torch.utils.checkpoint``: the block's activations are not kept for the
+    backward, which recomputes them from ``x``.
+
+    The recomputation replays the forward exactly.  ``checkpoint`` restores
+    only the default CPU and CUDA generators, while the block's dropout draws
+    from ``generator``: the replay sets that generator to its state before
+    the forward, and afterwards back to the state it finds (the forward's
+    draws and any since), so the same masks are drawn and the stream goes on
+    as without remat.  The replay's train-mode BatchNorm would update the
+    running statistics a second time: it updates throwaway copies, so they
+    end as after a plain step (JAX's recomputation discards its
+    ``batch_stats`` too).
+    """
+    start = generator.get_state() if generator is not None else None
+
+    @contextlib.contextmanager
+    def replay():
+        found = generator.get_state() if generator is not None else None
+        norms = [(bn, bn.running_mean, bn.running_var) for bn in block.modules()
+                 if isinstance(bn, BatchNorm2d)]
+        if generator is not None:
+            generator.set_state(start)
+        for bn, mean, var in norms:
+            bn.running_mean, bn.running_var = mean.clone(), var.clone()
+        try:
+            yield
+        finally:
+            for bn, mean, var in norms:
+                bn.running_mean, bn.running_var = mean, var
+            if generator is not None:
+                generator.set_state(found)
+
+    # preserve_rng_state=False: the block draws from ``generator`` alone
+    return checkpoint(lambda t: block(t, train, mc, generator, recon=recon), x,
+                      use_reentrant=False, preserve_rng_state=False,
+                      context_fn=lambda: (contextlib.nullcontext(), replay()))
+
+
 class Encoder(nn.Module):
     def __init__(self, method: str, config: ModelConfig, channel_num: int,
                  num_classes: int,
@@ -58,9 +110,6 @@ class Encoder(nn.Module):
         hybrid = cfg.use_hybrid_transformer
         if hybrid and cfg.mask.enabled and cfg.mask.mask_stage.lower() == "f3":
             raise ValueError("mask_stage='f3' not supported with hybrid transformer")
-        if cfg.remat:
-            raise NotImplementedError("ModelConfig.remat: rematerialised ResLite blocks are "
-                                      "not ported (ROADMAP 1.14)")
         self.method = method
         self.config = cfg
         c1, c2, c3 = cfg.channels
@@ -158,7 +207,9 @@ class Encoder(nn.Module):
                 return x_in, mod_attn_map, bb
         f1_in = f1_b if self.backbone is not None else x_in
 
-        f1, r1 = self.block1(f1_in, train, mc, generator, recon=not lean)
+        run_block = (remat_block if cfg.remat and train and torch.is_grad_enabled()
+                     else lambda block, *a, **kw: block(*a, **kw))
+        f1, r1 = run_block(self.block1, f1_in, train, mc, generator, recon=not lean)
         if self.mask_stage == "f1":
             mask_pred = self.mask_head(f1)
             f1, mask_attn_map = self.mask_spatial_attention(f1, mask_pred)
@@ -167,7 +218,7 @@ class Encoder(nn.Module):
             f2_in = self.norm_f2(alpha * f2_b + (1 - alpha) * f1)
         else:
             f2_in = f1
-        f2, r2 = self.block2(f2_in, train, mc, generator, recon=not lean)
+        f2, r2 = run_block(self.block2, f2_in, train, mc, generator, recon=not lean)
         if self.mask_stage == "f2":
             mask_pred = self.mask_head(f2 + self.f1_to_f2(f1, train))
             f2, mask_attn_map = self.mask_spatial_attention(f2, mask_pred)
@@ -180,7 +231,7 @@ class Encoder(nn.Module):
                 f3_in = self.norm_f3(alpha * f3_b + (1 - alpha) * f2)
             else:
                 f3_in = f2
-            f3, _ = self.block3(f3_in, train, mc, generator)
+            f3, _ = run_block(self.block3, f3_in, train, mc, generator)
             if self.mask_stage == "f3":
                 mask_pred = self.mask_head(f3 + self.f2_to_f3(f2, train))
                 f3, mask_attn_map = self.mask_spatial_attention(f3, mask_pred)

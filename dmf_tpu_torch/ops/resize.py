@@ -37,10 +37,21 @@ def resize_nearest(x: torch.Tensor, size: Tuple[int, int]) -> torch.Tensor:
 
 
 def adaptive_avg_pool(x: torch.Tensor, out_size: Sequence[int]) -> torch.Tensor:
-    """``AdaptiveAvgPool2d`` over the last two dims."""
-    if tuple(x.shape[-2:]) == tuple(out_size):
+    """``AdaptiveAvgPool2d`` over the last two dims.
+
+    Where the output is an integer multiple of the input in both dims (the
+    projectors' 32 -> 64), each output pixel's window is one input pixel:
+    that is the nearest upsample, the same values.  Its backward sums each
+    input pixel's gradients in a fixed order, where the card's
+    ``adaptive_avg_pool2d`` backward adds them by atomics, so a train step
+    would not repeat bit for bit."""
+    size = tuple(out_size)
+    h, w = x.shape[-2:]
+    if (h, w) == size:
         return x
-    return F.adaptive_avg_pool2d(x, tuple(out_size))
+    if size[0] % h == 0 and size[1] % w == 0:
+        return F.interpolate(x, size=size, mode="nearest")
+    return F.adaptive_avg_pool2d(x, size)
 
 
 def global_avg_pool(x: torch.Tensor) -> torch.Tensor:

@@ -1,6 +1,6 @@
 """Pipelines: the single-modality data preparation (``prepare_single``), the
-single-modality run of one fold (``run_single``) and the fusion run of one
-fold (``run_fusion``)."""
+single-modality run of one fold or of several in one call (``run_single``)
+and the fusion run of one fold (``run_fusion``)."""
 
 from .prepare_single import (
     SingleModelData,
@@ -13,7 +13,7 @@ from .prepare_single import (
 )
 from .run_fusion import (build_fusion_state, fusion_model_test, prepare_fusion_data,
                          run_fusion_model, test_fusion_model)
-from .run_single import run_single_model, test_single_model
+from .run_single import run_single_model, run_single_model_multifold, test_single_model
 
 __all__ = [
     "SingleModelData",
@@ -27,6 +27,7 @@ __all__ = [
     "prepare_single_data",
     "run_fusion_model",
     "run_single_model",
+    "run_single_model_multifold",
     "save_processed_split",
     "test_fusion_model",
     "test_single_model",

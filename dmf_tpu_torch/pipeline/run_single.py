@@ -3,14 +3,15 @@ TTA x MC test -> ``metrics.json``.
 
 Counterpart of ``dmf_tpu/pipeline/run_single.py`` (:39-172; the reference's
 ``run_single_model``, run_training.py:20-178, and its test path,
-train.py:736-823).  The work runs on ``device``, the card unless the caller
-asks for the CPU.  The fold-parallel ``run_single_model_multifold`` is not
-ported.
+train.py:736-823), and of its fold-parallel ``run_single_model_multifold``
+(:175-249).  The work runs on ``device``, the card unless the caller asks
+for the CPU.
 """
 
 from __future__ import annotations
 
-from typing import Any, Dict, Optional
+import copy
+from typing import Any, Dict, Optional, Sequence
 
 import numpy as np
 import torch
@@ -20,13 +21,14 @@ from ..data.pipeline import ArrayDataset, iterate_batches
 from ..evals.metrics import classification_report
 from ..evals.predict import make_single_predictor
 from ..losses import get_classification_loss_fn
-from ..train.loop import fit_single
+from ..train.loop import FitResult, fit_single
+from ..train.multifold_loop import fit_single_multifold
 from ..train.optim import SingleModelOptController
 from ..train.state import TrainState
 from ..utils.logging import save_metrics_json
 from .paths import prepare_output_paths
 from .prepare_single import (SingleModelData, build_single_model, export_processed_splits,
-                             prepare_single_data)
+                             load_raw_tensors, prepare_single_data)
 
 
 def test_single_model(cfg: Config, state: TrainState, data: SingleModelData,
@@ -88,6 +90,49 @@ def run_single_model(cfg: Config, method: str, fold: int,
                      num_epochs=num_epochs, min_epochs=min_epochs, seed=seed,
                      resume_from=resume_from)
 
+    return _finish_single(cfg, paths, data, fit, export_splits, seed)
+
+
+def run_single_model_multifold(cfg: Config, method: str, folds: Sequence[int],
+                               num_epochs: Optional[int] = None,
+                               min_epochs: Optional[int] = None, base_dir: str = "results",
+                               pretrained_path: Optional[str] = None,
+                               export_splits: bool = True, seed: int = 0,
+                               device="cuda") -> Dict[int, Dict[str, Any]]:
+    """Every requested fold of one modality in one call
+    (``train/multifold_loop.py``), then each fold's test; returns ``{fold:
+    result}``, each result with exactly :func:`run_single_model`'s keys, so
+    that ``run_fusion_model`` and the CLI summary take either path.
+
+    The raw tensors load once and each fold prepares its splits from them;
+    the model is built once and each fold trains a deep copy of it.  Every
+    sequential run builds from the same seed (the pretrained import is the
+    costly part), so the copies equal K builds.  Each fold's result equals
+    its :func:`run_single_model` run with the same arguments.
+    """
+    folds = list(folds)
+    raw = load_raw_tensors(cfg, method)
+    datas = [prepare_single_data(cfg, method, f, raw=raw, device=device) for f in folds]
+    del raw
+    model, cfg = build_single_model(cfg, method, pretrained_path=pretrained_path,
+                                    device=device)
+    states = [TrainState.create(copy.deepcopy(model)) for _ in folds]
+    del model
+    pathss = [prepare_output_paths(method, f, base_dir) for f in folds]
+    fits = fit_single_multifold(
+        cfg, method, states, fold_train=[d.splits["train"] for d in datas],
+        fold_val=[d.splits["val"] for d in datas], processors=[d.processor for d in datas],
+        controllers=[SingleModelOptController(cfg, method) for _ in folds],
+        workdirs=[p["root"] for p in pathss], num_epochs=num_epochs, min_epochs=min_epochs,
+        seed=seed)
+    return {fold: _finish_single(cfg, paths, data, fit, export_splits, seed)
+            for fold, paths, data, fit in zip(folds, pathss, datas, fits)}
+
+
+def _finish_single(cfg: Config, paths: Dict[str, str], data: SingleModelData,
+                   fit: FitResult, export_splits: bool, seed: int) -> Dict[str, Any]:
+    """A fitted fold's best reload, test, ``metrics.json`` and processed
+    splits; returns the reference's result dict."""
     # best-checkpoint reload for testing (run_training.py:123-131)
     best_state = fit.best_state if fit.best_state is not None else fit.state
     test_result = test_single_model(cfg, best_state, data, seed=seed)

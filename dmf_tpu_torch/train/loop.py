@@ -24,7 +24,7 @@ from __future__ import annotations
 
 import dataclasses
 import time
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, Iterator, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -94,6 +94,21 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     seeded from ``seed``; the shuffle is ``np.random.RandomState(seed)``, the
     JAX loop's order.
     """
+    run = single_fit_run(cfg, method, state, train_data, val_data, processor, controller,
+                         workdir, clf_loss_fn, num_epochs, min_epochs, seed, resume_from)
+    return drive_lockstep([run])[0]
+
+
+def single_fit_run(cfg: Config, method: str, state: TrainState,
+                   train_data: Dict[str, Optional[np.ndarray]],
+                   val_data: Dict[str, Optional[np.ndarray]],
+                   processor: ModalityProcessor, controller: SingleModelOptController,
+                   workdir: str, clf_loss_fn=None, num_epochs: Optional[int] = None,
+                   min_epochs: Optional[int] = None, seed: int = 0,
+                   resume_from: Optional[str] = None) -> "FitRun":
+    """The :class:`FitRun` of :func:`fit_single` (same arguments), not yet
+    driven.  ``clf_loss_fn`` defaults to the classification loss with the
+    class weights of ``train_data``'s labels."""
     mc = cfg.model_config(method)
     model = state.model
     device = next(model.parameters()).device
@@ -120,10 +135,10 @@ def fit_single(cfg: Config, method: str, state: TrainState,
             proc["masks"] = batch["masks"]
         return proc, proc["imgs"]
 
-    return _fit(cfg, mc.scheduler, mc.optimizer.lr, state, spec, controller,
-                make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec),
-                make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn),
-                train_ds, val_ds, prepare, workdir, num_epochs, min_epochs, seed)
+    return FitRun(cfg, mc.scheduler, mc.optimizer.lr, state, spec, controller,
+                  make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec),
+                  make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn),
+                  train_ds, val_ds, prepare, workdir, num_epochs, min_epochs, seed)
 
 
 def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np.ndarray]],
@@ -153,124 +168,185 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     def prepare(batch):
         return batch, batch["dwi"]
 
-    return _fit(cfg, fp.scheduler, fp.optimizer.lr, state, spec, FusionOptController(cfg),
-                make_fusion_train_step(cfg, clf_loss_fn, mask_loss_fn, spec),
-                make_fusion_eval_step(cfg, clf_loss_fn, mask_loss_fn),
-                dataset(train_data), dataset(val_data), prepare, workdir, num_epochs,
-                min_epochs, seed)
+    run = FitRun(cfg, fp.scheduler, fp.optimizer.lr, state, spec, FusionOptController(cfg),
+                 make_fusion_train_step(cfg, clf_loss_fn, mask_loss_fn, spec),
+                 make_fusion_eval_step(cfg, clf_loss_fn, mask_loss_fn),
+                 dataset(train_data), dataset(val_data), prepare, workdir, num_epochs,
+                 min_epochs, seed)
+    return drive_lockstep([run])[0]
 
 
-def _fit(cfg: Config, scheduler_cfg, base_lr: float, state: TrainState, spec, controller,
-         train_step, eval_step, train_ds: ArrayDataset, val_ds: ArrayDataset,
-         prepare: Callable, workdir: str, num_epochs: Optional[int],
-         min_epochs: Optional[int], seed: int) -> FitResult:
-    """The epoch loop both fits share.  ``prepare(batch) -> (step batch,
-    the inputs whose statistics the first batch prints)``."""
-    device = next(state.model.parameters()).device
-    num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
-    min_epochs = min(min_epochs if min_epochs is not None else cfg.min_epochs, num_epochs)
-    if cfg.debug_training:
-        # the optimizer-group dump (selector_helpers.py:336-353)
-        print(describe_groups(dict(state.model.named_parameters()), spec,
-                              controller.hyperparams()))
-    scheduler = make_scheduler(scheduler_cfg, base_lr)
-    early = EarlyStopping(mode=cfg.early_stopping.mode, patience=cfg.early_stopping.patience,
-                          min_delta=cfg.early_stopping.min_delta)
-    ckpt = BestCheckpointer(f"{workdir}/checkpoints", monitor="val_acc", mode="max")
-    roll = RollingSaver(f"{workdir}/checkpoints")
-    logger = MetricLogger(f"{workdir}/logs")
-    stage_train = device if device_data_auto(train_ds, device, cfg.device_data) else None
-    stage_val = device if device_data_auto(val_ds, device, cfg.device_data) else None
+class FitRun:
+    """One fit's streams, state and control plane: the epoch body that both
+    fits share, driven by :func:`drive_lockstep` (alone by ``fit_single``
+    and ``fit_fusion``, K at a time by ``fit_single_multifold``).
 
-    drop_gen = torch.Generator(device).manual_seed(seed + 1)
-    np_rng = np.random.RandomState(seed)
-    timed = device.type == "cuda"
-    history, step_ms = [], []
-    best_state = None
-    global_step = 0
+    ``prepare(batch) -> (step batch, the inputs whose statistics the first
+    batch prints)``.  Dropout draws from a generator on the model's device
+    seeded with ``seed + 1``; the shuffle is ``np.random.RandomState(seed)``.
+    """
 
-    for epoch in range(num_epochs):
-        t0 = time.time()
-        controller.on_epoch_start(epoch)
-        hp = controller.hyperparams()
-        aux_w = aux_loss_weight(epoch, cfg.aux_loss_weight_epoch_limit,
-                                cfg.use_simple_aux_loss_scheduling)
+    def __init__(self, cfg: Config, scheduler_cfg, base_lr: float, state: TrainState, spec,
+                 controller, train_step, eval_step, train_ds: ArrayDataset,
+                 val_ds: ArrayDataset, prepare: Callable, workdir: str,
+                 num_epochs: Optional[int], min_epochs: Optional[int], seed: int):
+        self.cfg, self.scheduler_cfg, self.state, self.controller = (cfg, scheduler_cfg,
+                                                                      state, controller)
+        self.train_step, self.eval_step, self.prepare = train_step, eval_step, prepare
+        self.train_ds, self.val_ds = train_ds, val_ds
+        device = next(state.model.parameters()).device
+        self.num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
+        self.min_epochs = min(min_epochs if min_epochs is not None else cfg.min_epochs,
+                              self.num_epochs)
+        if cfg.debug_training:
+            # the optimizer-group dump (selector_helpers.py:336-353)
+            print(describe_groups(dict(state.model.named_parameters()), spec,
+                                  controller.hyperparams()))
+        self.scheduler = make_scheduler(scheduler_cfg, base_lr)
+        self.early = EarlyStopping(mode=cfg.early_stopping.mode,
+                                   patience=cfg.early_stopping.patience,
+                                   min_delta=cfg.early_stopping.min_delta)
+        self.ckpt = BestCheckpointer(f"{workdir}/checkpoints", monitor="val_acc", mode="max")
+        self.roll = RollingSaver(f"{workdir}/checkpoints")
+        self.logger = MetricLogger(f"{workdir}/logs")
+        self.stage_train = device if device_data_auto(train_ds, device, cfg.device_data) else None
+        self.stage_val = device if device_data_auto(val_ds, device, cfg.device_data) else None
+        self.drop_gen = torch.Generator(device).manual_seed(seed + 1)
+        self.np_rng = np.random.RandomState(seed)
+        self.timed = device.type == "cuda"
+        self.history: list = []
+        self.step_ms: List[Tuple[float, float]] = []
+        self.best_state: Optional[TrainState] = None
+        self.global_step = 0
+        self.done = False
 
-        # ---- train: the tail batch runs at its short size ----
-        pending = []  # (device metrics, batch size, events) per step
-        epoch_step0 = global_step
-        for batch in iterate_batches(train_ds, cfg.batch_size, shuffle=True, rng=np_rng,
-                                     device=stage_train, native=cfg.use_native_loader):
-            if isinstance(scheduler, WarmupCosine):
-                # stepped per step (selector_helpers.py:319-330)
-                controller.lr_scale = scheduler.step_scale(global_step)
-                hp = controller.hyperparams()
-            global_step += 1
-            events = [torch.cuda.Event(enable_timing=True) for _ in range(3)] if timed else []
-            if timed:
-                events[0].record()
-            proc, inputs = prepare(batch)
-            proc = dict(proc, aux_w=aux_w)
-            if timed:
-                events[1].record()
-            if cfg.debug_training and global_step == 1:
-                # the first batch's normalisation check (train.py:1074-1079)
-                print(input_stats(inputs, proc.get("masks")))
-            metrics = train_step(state, proc, drop_gen, hp)
-            if timed:
-                events[2].record()
-            pending.append((metrics, len(batch["labels"]), events))
+    def start_epoch(self, epoch: int) -> Iterator:
+        """Open ``epoch``: the controller's groups, the aux weight; returns its
+        train batches (the tail batch at its short size)."""
+        cfg = self.cfg
+        self.epoch, self.t0 = epoch, time.time()
+        self.controller.on_epoch_start(epoch)
+        self.hp = self.controller.hyperparams()
+        self.aux_w = aux_loss_weight(epoch, cfg.aux_loss_weight_epoch_limit,
+                                     cfg.use_simple_aux_loss_scheduling)
+        self.pending = []  # (device metrics, batch size, events) per step
+        self.epoch_step0 = self.global_step
+        return iter(iterate_batches(self.train_ds, cfg.batch_size, shuffle=True,
+                                    rng=self.np_rng, device=self.stage_train,
+                                    native=cfg.use_native_loader))
+
+    def step(self, batch) -> None:
+        """One train step on ``batch``; its metrics are read at the epoch's end."""
+        if isinstance(self.scheduler, WarmupCosine):
+            # stepped per step (selector_helpers.py:319-330)
+            self.controller.lr_scale = self.scheduler.step_scale(self.global_step)
+            self.hp = self.controller.hyperparams()
+        self.global_step += 1
+        events = ([torch.cuda.Event(enable_timing=True) for _ in range(3)]
+                  if self.timed else [])
+        if events:
+            events[0].record()
+        proc, inputs = self.prepare(batch)
+        proc = dict(proc, aux_w=self.aux_w)
+        if events:
+            events[1].record()
+        if self.cfg.debug_training and self.global_step == 1:
+            # the first batch's normalisation check (train.py:1074-1079)
+            print(input_stats(inputs, proc.get("masks")))
+        metrics = self.train_step(self.state, proc, self.drop_gen, self.hp)
+        if events:
+            events[2].record()
+        self.pending.append((metrics, len(batch["labels"]), events))
+
+    def end_epoch(self) -> None:
+        """Read the epoch's step metrics, validate, and run the control plane
+        (lr, best and rolling checkpoints, logs, early stopping: sets
+        ``done``)."""
+        cfg, epoch, hp = self.cfg, self.epoch, self.hp
         train_meters: Dict[str, MeanMetric] = {}
-        for i, (metrics, n, events) in enumerate(pending):
+        for i, (metrics, n, events) in enumerate(self.pending):
             values = {k: float(v) for k, v in metrics.items()}
-            _warn_nonfinite(values, epoch, epoch_step0 + i + 1)
+            _warn_nonfinite(values, epoch, self.epoch_step0 + i + 1)
             for k, v in values.items():
                 train_meters.setdefault(k, MeanMetric()).update(v, weight=n)
             if events:
-                step_ms.append((events[0].elapsed_time(events[1]),
-                                events[1].elapsed_time(events[2])))
+                self.step_ms.append((events[0].elapsed_time(events[1]),
+                                     events[1].elapsed_time(events[2])))
+        self.pending = []
         epoch_metrics = {f"train_{k}": m.compute() for k, m in train_meters.items()}
-        epoch_metrics["train_time"] = time.time() - t0
+        epoch_metrics["train_time"] = time.time() - self.t0
 
         # ---- validation ----
         val_meters: Dict[str, MeanMetric] = {}
         all_probs = []
-        for batch in iterate_batches(val_ds, cfg.batch_size, device=stage_val):
-            _, probs, metrics = eval_step(state, batch)
+        for batch in iterate_batches(self.val_ds, cfg.batch_size, device=self.stage_val):
+            _, probs, metrics = self.eval_step(self.state, batch)
             all_probs.append(probs.cpu().numpy())
             for k, v in metrics.items():
                 val_meters.setdefault(k, MeanMetric()).update(float(v),
                                                               weight=len(batch["labels"]))
         epoch_metrics.update({f"val_{k}": m.compute() for k, m in val_meters.items()})
         epoch_metrics.update(classification_report(
-            np.concatenate(all_probs), np.asarray(val_ds.arrays["labels"]).astype(np.int64),
-            cfg.class_num, "val_"))
-        epoch_metrics["lr_scale"] = controller.lr_scale
-        epoch_metrics["aux_w"] = aux_w
-        epoch_metrics["epoch_time"] = time.time() - t0
+            np.concatenate(all_probs),
+            np.asarray(self.val_ds.arrays["labels"]).astype(np.int64), cfg.class_num, "val_"))
+        epoch_metrics["lr_scale"] = self.controller.lr_scale
+        epoch_metrics["aux_w"] = self.aux_w
+        epoch_metrics["epoch_time"] = time.time() - self.t0
         # the per-group lr and trainable flag of this epoch (the reference's
         # LearningRateMonitor(logging_interval='epoch'), run_training.py:36)
         epoch_metrics["group_lrs"] = hp.lr.tolist()
         epoch_metrics["group_trainable"] = hp.trainable.tolist()
 
         # ---- control plane ----
+        scheduler = self.scheduler
         if isinstance(scheduler, ReduceLROnPlateau):
-            monitored = epoch_metrics.get(scheduler_cfg.monitor, epoch_metrics["val_loss"])
+            monitored = epoch_metrics.get(self.scheduler_cfg.monitor, epoch_metrics["val_loss"])
             if scheduler.step_reduced(monitored):
-                controller.apply_plateau(scheduler.factor, scheduler.min_lr)
+                self.controller.apply_plateau(scheduler.factor, scheduler.min_lr)
         elif not isinstance(scheduler, WarmupCosine):  # that one steps per step
-            controller.lr_scale = scheduler.step_scale(epoch)
+            self.controller.lr_scale = scheduler.step_scale(epoch)
 
-        if ckpt.maybe_save(state, epoch_metrics, epoch):
-            best_state = state.copy()
+        if self.ckpt.maybe_save(self.state, epoch_metrics, epoch):
+            self.best_state = self.state.copy()
         if epoch % ROLL_EVERY == 0:
-            roll.save(state)
+            self.roll.save(self.state)
 
-        history.append(epoch_metrics)
-        logger.log_epoch(epoch, epoch_metrics)
+        self.history.append(epoch_metrics)
+        self.logger.log_epoch(epoch, epoch_metrics)
         stop_metric = epoch_metrics.get(cfg.early_stopping.metric)
-        if stop_metric is not None and early.step(stop_metric) and epoch + 1 >= min_epochs:
-            break
+        self.done = (stop_metric is not None and self.early.step(stop_metric)
+                     and epoch + 1 >= self.min_epochs)
 
-    return FitResult(state=state, best_state=best_state, history=history,
-                     train_metrics=history[-1] if history else {}, step_ms=step_ms)
+    def result(self) -> FitResult:
+        return FitResult(state=self.state, best_state=self.best_state, history=self.history,
+                         train_metrics=self.history[-1] if self.history else {},
+                         step_ms=self.step_ms)
+
+
+def drive_lockstep(runs: Sequence[FitRun]) -> List[FitResult]:
+    """Drive fits epoch by epoch in lockstep: each epoch, one train step of
+    each live fit in turn until every live fit has used up its epoch, then
+    each live fit's validation and control plane.  A fit that has stopped
+    (early stopping, or past its ``num_epochs``) is skipped in train and
+    validation;
+    a fit whose epoch is shorter draws nothing once its batches are used
+    up.  Fits share nothing (streams, state, checkpoints), so each result
+    equals its fit driven alone."""
+    epoch = 0
+    while True:
+        live = [r for r in runs if not r.done and epoch < r.num_epochs]
+        if not live:
+            break
+        iters = [(r, r.start_epoch(epoch)) for r in live]
+        while iters:
+            left = []
+            for r, batches in iters:
+                batch = next(batches, None)
+                if batch is not None:
+                    r.step(batch)
+                    left.append((r, batches))
+            iters = left
+        for r in live:
+            r.end_epoch()
+        epoch += 1
+    return [r.result() for r in runs]

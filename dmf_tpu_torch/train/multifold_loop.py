@@ -1,0 +1,60 @@
+"""Fold-parallel training loop: K folds of one encoder in one call.
+
+Counterpart of ``dmf_tpu/train/multifold_loop.py`` (:77-315).  The JAX loop
+vmaps one step over the stacked folds; the port keeps one model and one
+:class:`~.state.TrainState` per fold and steps the folds one after another
+on one stream (``parallel/multifold.py`` says why).  Each fold is the
+:class:`~.loop.FitRun` that ``fit_single`` builds, with its own streams
+(augmentation from ``seed``, dropout from ``seed + 1``, the shuffle from
+``np.random.RandomState(seed)``), its own ``wfl`` class weights from its
+train labels and its own control plane (plateau or warmup-cosine lr, early
+stopping with ``min_epochs``, the aux-loss weight, the best and rolling
+checkpoints, the logs under its workdir).  :func:`~.loop.drive_lockstep`
+runs them epoch by epoch: a fold whose epoch has fewer batches draws
+nothing once they are used up, its tail batch runs at its short size, and
+a fold that has stopped is skipped in train and validation (the JAX loop
+computes and discards those steps).  So each fold's result equals its
+``fit_single`` run, bit for bit on the CPU.
+
+Two things differ from the JAX loop, which the port does not follow: it
+steps ``WarmupCosine`` once an epoch (:289-290) where its ``fit_single``
+steps it once a step, and it writes no rolling checkpoint (ROADMAP 3.6).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, List, Optional, Sequence
+
+import numpy as np
+
+from ..config import Config
+from ..data.modality import ModalityProcessor
+from .loop import FitResult, drive_lockstep, single_fit_run
+from .optim import SingleModelOptController
+from .state import TrainState
+
+
+def fit_single_multifold(cfg: Config, method: str, states: Sequence[TrainState],
+                         fold_train: Sequence[Dict[str, Optional[np.ndarray]]],
+                         fold_val: Sequence[Dict[str, Optional[np.ndarray]]],
+                         processors: Sequence[ModalityProcessor],
+                         controllers: Sequence[SingleModelOptController],
+                         workdirs: Sequence[str], num_epochs: Optional[int] = None,
+                         min_epochs: Optional[int] = None, seed: int = 0) -> List[FitResult]:
+    """Train K folds of one encoder in lockstep; returns one
+    :class:`~.loop.FitResult` per fold, equal to K sequential
+    :func:`~.loop.fit_single` runs with the same arguments.  ``states``
+    carry their models (one per fold, not shared); the other sequences hold
+    each fold's own data, processor, controller and workdir."""
+    k = len(states)
+    if not k == len(fold_train) == len(fold_val) == len(processors) == len(controllers) \
+            == len(workdirs):
+        raise ValueError("fit_single_multifold: one state, split pair, processor, "
+                         "controller and workdir per fold")
+    if len({id(s.model) for s in states}) != k:
+        raise ValueError("fit_single_multifold: each fold needs its own model")
+    return drive_lockstep([
+        single_fit_run(cfg, method, states[i], fold_train[i], fold_val[i], processors[i],
+                       controllers[i], workdirs[i], num_epochs=num_epochs,
+                       min_epochs=min_epochs, seed=seed)
+        for i in range(k)])

@@ -11,9 +11,10 @@ geometry (32^2, channels (8, 16, 32), no backbone, batch 8).
 * ``export-ckpt`` on the port's fusion and DWI checkpoints writes files that
   load strictly back into fresh port models, and that
   ``dmf_tpu.models.ref_ckpt``'s importers read back to the port's weights.
+* ``run --parallel-folds --folds 0 1`` gives the sequential run's summary,
+  ``metrics.json`` (wall times aside) and best checkpoints, bit for bit.
 * ``--device`` defaults to ``cuda`` and does not fall back to the CPU;
-  ``--mesh`` and ``--parallel-folds`` raise; ``bench`` and
-  ``export-serving`` are not registered.
+  ``--mesh`` raises; ``bench`` and ``export-serving`` are not registered.
 """
 
 import contextlib
@@ -204,13 +205,54 @@ def test_device_defaults_to_cuda_without_fallback(monkeypatch):
         cli.main(["debug-suite", "--tiny"])
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh", "8"], "1.13"),
-                                       (["--parallel-folds", "--folds", "0", "1"], "1.6")])
+@pytest.mark.parametrize("argv,item", [(["--mesh", "8"], "1.13")])
 def test_unported_options_raise(argv, item):
-    """``--parallel-folds`` raises over more than one fold only (the last
-    ``--folds`` wins)."""
+    """``--mesh`` raises.  ``--parallel-folds`` over several folds raised
+    here (ROADMAP 1.6) until fold-parallel training was ported: it runs in
+    ``test_parallel_folds_equal_sequential_folds``."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["run", "--tiny", "--device", "cpu", "--folds", "0"] + argv)
+
+
+def test_parallel_folds_equal_sequential_folds(tmp_path):
+    """``run --parallel-folds --folds 0 1`` (each modality's folds in one
+    call) against ``run --folds 0 1``, each on its own store: the same
+    summary, and per fold and modality the same ``metrics.json`` (wall
+    times and the store's path aside) and best checkpoint, bit for bit."""
+    out, texts = {}, {}
+    for name, extra in (("par", ["--parallel-folds"]), ("seq", [])):
+        texts[name] = run_cli(cli.main, [
+            "run", "--tiny", "--device", "cpu", "--folds", "0", "1", "--epochs", "2",
+            "--base-path", str(tmp_path / name / "data"),
+            "--results-dir", str(tmp_path / name / "results")] + extra)
+        out[name] = summary_of(texts[name])
+    assert texts["par"].count("fold-parallel training") == 2
+    assert "fold-parallel" not in texts["seq"]
+    assert out["par"] == out["seq"]
+    assert sorted(out["par"]) == ["fold0_dce", "fold0_dwi", "fold1_dce", "fold1_dwi"]
+
+    def comparable(tree):
+        """Without the wall times and the store's path."""
+        if isinstance(tree, dict):
+            return {k: comparable(v) for k, v in tree.items()
+                    if not k.endswith("_time") and k != "base_path"}
+        return tree
+
+    for method in ("dwi", "dce"):
+        for fold in (0, 1):
+            run = {name: tmp_path / name / "results" / method / f"fold_{fold}"
+                   for name in ("par", "seq")}
+            par, seq = (json.loads((run[n] / "metrics.json").read_text()) for n in ("par", "seq"))
+            assert "train_time" in par["train_metrics"]
+            assert comparable(par) == comparable(seq), (method, fold)
+            best = {n: torch.load(run[n] / "checkpoints" / "best.pt", weights_only=True)
+                    for n in ("par", "seq")}
+            for k in ("model", "mu", "nu"):
+                assert best["par"][k].keys() == best["seq"][k].keys()
+                for key, t in best["par"][k].items():
+                    assert torch.equal(t, best["seq"][k][key]), (method, fold, k, key)
+            assert torch.equal(best["par"]["count"], best["seq"]["count"])
+            assert best["par"]["step"] == best["seq"]["step"] > 0
 
 
 def test_parallel_folds_over_one_fold_runs(tmp_path):

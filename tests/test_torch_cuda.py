@@ -478,3 +478,120 @@ def test_train_route_launches_no_kernel(dev):
     assert [f.launches for f in counters] == [3, 6, 1, 1]
     with pytest.raises(RuntimeError, match="no backward"):
         model(batch["imgs"].permute(0, 3, 1, 2))
+
+
+def _toy_cfg(remat=False):
+    import dataclasses
+
+    from dmf_tpu_torch import default_parameters
+
+    cfg = default_parameters(batch_size=4)
+    mc = dataclasses.replace(cfg.dwi_model, input_size=32, channels=(8, 16, 32), proj_dim=8,
+                             use_backbone=False, dropout=0.2, remat=remat)
+    return cfg.replace(dwi_model=mc, debug_training=False)
+
+
+def _deterministic(fn):
+    """``fn()`` with cuDNN's and torch's deterministic algorithms (warn-only);
+    the flags restored."""
+    old = torch.backends.cudnn.deterministic
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        return fn()
+    finally:
+        torch.use_deterministic_algorithms(False)
+        torch.backends.cudnn.deterministic = old
+
+
+def test_remat_train_step_on_card(dev):
+    """Two train steps at toy width with remat on and off from the same
+    weights, batches and generator seed, deterministic algorithms: the
+    losses, parameters, BatchNorm statistics and the dropout generator's
+    state bit-equal."""
+    from dmf_tpu_torch.losses import get_classification_loss_fn, get_mask_loss_fn
+    from dmf_tpu_torch.pipeline import build_single_model
+    from dmf_tpu_torch.train.optim import SingleModelOptController, build_group_spec
+    from dmf_tpu_torch.train.single import make_single_train_step
+    from dmf_tpu_torch.train.state import TrainState
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    batches = [{"imgs": torch.rand(4, 32, 32, 14, device=dev, generator=g),
+                "masks": (torch.rand(4, 32, 32, 1, device=dev, generator=g) > 0.7).float(),
+                "labels": torch.arange(4, device=dev), "aux_w": 1.0} for _ in range(2)]
+
+    def run(remat):
+        cfg = _toy_cfg(remat)
+        model, cfg = build_single_model(cfg, "dwi", device=dev)
+        state = TrainState.create(model)
+        spec = build_group_spec([n for n, _ in model.named_parameters()], False)
+        step = make_single_train_step(cfg, "dwi", get_classification_loss_fn(
+            cfg, [0, 1, 2, 3], "dwi"), get_mask_loss_fn(cfg, "dwi"), spec)
+        ctrl = SingleModelOptController(cfg, "dwi")
+        ctrl.on_epoch_start(0)
+        drop = torch.Generator(device=dev).manual_seed(2)
+        losses = [step(state, b, drop, ctrl.hyperparams())["loss"] for b in batches]
+        return torch.stack(losses), model.state_dict(), drop.get_state()
+
+    (l0, s0, g0), (l1, s1, g1) = (_deterministic(lambda r=r: run(r)) for r in (False, True))
+    assert torch.equal(l1, l0)
+    for k in s0:
+        assert torch.equal(s1[k], s0[k]), k
+    assert torch.equal(g0, g1)
+
+
+def test_multifold_epoch_on_card(dev, tmp_path):
+    """One epoch of K=2 folds through ``fit_single_multifold`` at toy width
+    against ``fit_single`` per fold, deterministic algorithms: the histories
+    (wall times aside) and the final parameters bit-equal, the train steps
+    timed per fold by CUDA events, and the validation on the served route
+    (kernels 1 and 6 launched)."""
+    import copy
+
+    import numpy as np
+
+    from dmf_tpu_torch.pipeline import build_single_model
+    from dmf_tpu_torch.train import SingleModelOptController, TrainState, fit_single
+    from dmf_tpu_torch.train.multifold_loop import fit_single_multifold
+
+    class Noisy:
+        def train_batch(self, generator, imgs, adc=None):
+            x = torch.as_tensor(imgs, device=dev)
+            return x + (torch.rand(x.shape, device=dev, generator=generator) - 0.5) * 0.1
+
+        def eval_split(self, imgs, adc=None):
+            return np.asarray(imgs)
+
+    r = np.random.RandomState(0)
+    folds = [{name: {"imgs": r.rand(n, 32, 32, 14).astype(np.float32),
+                     "masks": (r.rand(n, 32, 32, 1) > 0.7).astype(np.float32),
+                     "labels": np.arange(n) % 4} for name, n in (("train", nt), ("val", 6))}
+             for nt in (10, 14)]
+    cfg = _toy_cfg()
+    model, cfg = build_single_model(cfg, "dwi", device=dev)
+
+    def seq():
+        return [fit_single(cfg, "dwi", TrainState.create(copy.deepcopy(model)), f["train"],
+                           f["val"], Noisy(), SingleModelOptController(cfg, "dwi"),
+                           str(tmp_path / f"seq{i}"), num_epochs=1, seed=0)
+                for i, f in enumerate(folds)]
+
+    def par():
+        return fit_single_multifold(
+            cfg, "dwi", [TrainState.create(copy.deepcopy(model)) for _ in folds],
+            [f["train"] for f in folds], [f["val"] for f in folds], [Noisy(), Noisy()],
+            [SingleModelOptController(cfg, "dwi") for _ in folds],
+            [str(tmp_path / f"par{i}") for i in range(2)], num_epochs=1, seed=0)
+
+    ours, theirs = _deterministic(par), _deterministic(seq)
+    k1.se_epilogue.launches = se.se_scale.launches = 0
+    for o, t in zip(ours, theirs):
+        assert len(o.step_ms) == len(t.step_ms) == o.state.step
+        untimed = [{k: v for k, v in r.history[0].items() if not k.endswith("_time")}
+                   for r in (o, t)]
+        assert untimed[0] == untimed[1]
+        so, st = o.state.model.state_dict(), t.state.model.state_dict()
+        assert all(torch.equal(so[k], st[k]) for k in st)
+    assert [o.state.step for o in ours] == [3, 4]
+    _deterministic(par)
+    assert k1.se_epilogue.launches == 2 * 3 * 2 and se.se_scale.launches == 2 * 2

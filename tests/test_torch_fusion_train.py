@@ -194,13 +194,23 @@ def test_input_stats_matches_jax():
 
 
 def test_unported_knobs_raise():
-    """``remat`` is still unported.  ``use_native_loader`` raised here until
-    the native host library was ported (ROADMAP 1.4); its fits run in
-    test_torch_native.py."""
+    """The knobs that raised here now build.  ``remat`` raised until the
+    rematerialised ResLite blocks were ported (ROADMAP 1.14): an encoder
+    built with it evaluates as one built without it, on the same weights
+    (its train steps are held in test_torch_remat.py).  ``use_native_loader``
+    raised until the native host library was ported (ROADMAP 1.4); its fits
+    run in test_torch_native.py."""
     cfg = port_config(fusion_cfg())
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.14"):
-        pencoder.Encoder("dwi", dataclasses.replace(cfg.dwi_model, remat=True), 14, 4,
-                         (1, 1, 1, 1))
+    encs = [pencoder.Encoder("dwi", dataclasses.replace(cfg.dwi_model, remat=remat), 14, 4,
+                             (1, 1, 1, 1)) for remat in (False, True)]
+    encs[1].load_state_dict(encs[0].state_dict())
+    x = torch.rand(2, 14, 32, 32, generator=torch.Generator().manual_seed(0))
+    with torch.no_grad():
+        plain, remat = (enc(x) for enc in encs)
+    assert encs[1].config.remat and not encs[0].config.remat
+    assert torch.equal(plain[0], remat[0])
+    for a, b in zip(plain[1]["raw_feats"], remat[1]["raw_feats"]):
+        assert torch.equal(a, b)
 
 
 @pytest.mark.parametrize("freeze", [True, False])

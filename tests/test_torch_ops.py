@@ -48,6 +48,23 @@ class TestResize:
         ref = jresize.adaptive_avg_pool(jnp.asarray(x), dst)
         assert_close(nhwc(resize.adaptive_avg_pool(nchw(x), dst)), ref, rtol=1e-5)
 
+    @pytest.mark.parametrize("src,dst", [((32, 32), (64, 64)), ((16, 16), (64, 64)),
+                                         ((8, 6), (16, 18))])
+    @pytest.mark.parametrize("channels_last", [False, True])
+    def test_adaptive_avg_pool_upsample_is_torch_pool(self, src, dst, channels_last):
+        """An integer upsample takes the nearest route: torch's adaptive pool's
+        values bit for bit, the memory format kept, and its gradient."""
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        x = torch.randn(2, 5, *src, generator=torch.Generator().manual_seed(4)).contiguous(
+            memory_format=fmt).requires_grad_()
+        got, ref = resize.adaptive_avg_pool(x, dst), F.adaptive_avg_pool2d(x, dst)
+        assert torch.equal(got, ref)
+        assert got.is_contiguous(memory_format=fmt)
+        cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(5))
+        g_got, = torch.autograd.grad(got, x, cot)
+        g_ref, = torch.autograd.grad(ref, x, cot)
+        torch.testing.assert_close(g_got, g_ref, rtol=1e-6, atol=1e-6)
+
     def test_global_avg_pool(self):
         x = np.random.RandomState(2).randn(2, 5, 6, 3).astype(np.float32)
         assert_close(resize.global_avg_pool(nchw(x)),
