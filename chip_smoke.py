@@ -102,9 +102,12 @@ Phases, each printing its own lines:
      epochs a stage with the backbone frozen: stage wall seconds, peak
      memory, a finite three-stage summary, each ``metrics.json``, the
      backbone parameters of both single runs' final and best states
-     bit-equal to the import, kernels 1, 2, 6 and 7 launched by 7b's and
-     7d's formulas; ``export-ckpt --method fusion`` in its own process, each
-     file loaded strictly into fresh models and equal to the trained ones;
+     bit-equal to the import, one decodable mask triptych a stage (epoch 0),
+     kernels 1, 2, 6 and 7 launched by 7b's and 7d's formulas (one more
+     validation batch's launches for each triptych); ``export-ckpt --method
+     fusion`` in its own process, each file loaded strictly into fresh
+     models and equal to the trained ones; ``export-serving --mode tta_mc
+     --batch 8`` on the fold's checkpoint in its own process (served in 11);
      ``debug-suite --fusion`` on the card (kernels 1 and 6 at 8-32
      channels), and its models with dropout off, card against CPU;
   9. the ViT-backed path (``dino_vitbase16_pretrain`` for both encoders,
@@ -138,6 +141,25 @@ Phases, each printing its own lines:
      ``metrics.json`` and best checkpoint bit-equal, both runs' wall seconds
      per modality, peak memory, raw loads and model builds, and the
      launches by phase 8's formulas per fold;
+  11. the serving artifact (``serving.py``, ``torch.export`` with the
+     weights as arguments): the default config in ``tta_mc`` bf16 and in
+     ``normal`` fp32 at B=8 and ``hybrid-nb`` ``normal`` bf16 at B=2, each
+     run once eagerly on the seed route (its launches), exported (seconds,
+     graph nodes, each kernel operator's nodes equal to the eager launches,
+     the nodes preparing weights in the graph, no parameter, buffer or
+     constant held, artifact bytes beside the state dicts'), saved, loaded
+     in the parent for one profiled request (each kernel's own symbol among
+     the profiler's kernel names); then one fresh process that imports
+     ``torch`` and ``dmf_tpu_torch.ops.library`` and nothing else of the
+     package serves each artifact and phase 8's CLI artifact (the fold's
+     weights read from its ``best.pt`` with torch alone) 5 requests (seeds
+     7, 7, 8, 9, 10): load seconds, CUDA-event ms, launches equal to 5x the
+     nodes, probabilities finite and summing to 1, ``tta_mc`` bit-equal for
+     one seed and not for two with std > 0, the deterministic artifacts
+     within 1e-6 (fp32) or 2^-7 (bf16) of the eager seed-route predictor;
+     the ``tta_mc`` program in fp32 at B=1 exported on the card and on the
+     CPU (the same weights, seed and masks) within 1e-4; the operator
+     layer's host microseconds per call against the ``ctypes`` launch;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -177,6 +199,9 @@ from dmf_tpu_torch.data.preprocess import (DEFAULT_LANDMARKS, NyulStandardizer, 
                                            preprocess_fusion_inputs)
 from dmf_tpu_torch.data.synthetic import make_synthetic_arrays  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_fusion_predictor  # noqa: E402
+from dmf_tpu_torch.serving import (export_program, export_serving, load_serving,  # noqa: E402
+                                   make_serving_fn, operator_nodes, serving_variables)
+from dmf_tpu_torch.ops.dropout import SeedStream  # noqa: E402
 from dmf_tpu_torch.models import build_fusion_models  # noqa: E402
 from dmf_tpu_torch.models import transformer as transformer_mod  # noqa: E402
 from dmf_tpu_torch.ops import attention as attn  # noqa: E402
@@ -185,6 +210,7 @@ from dmf_tpu_torch.ops import dwi_norm, dwi_norm_cuda, se_cuda  # noqa: E402
 from dmf_tpu_torch.ops import epilogue as k1  # noqa: E402
 from dmf_tpu_torch.ops import epilogue_cuda  # noqa: E402
 from dmf_tpu_torch.ops import flash_attention as fa  # noqa: E402
+from dmf_tpu_torch.ops import library  # noqa: E402
 from dmf_tpu_torch.ops import histogram as hist  # noqa: E402
 from dmf_tpu_torch.ops import se as sek  # noqa: E402
 from dmf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: E402
@@ -1900,6 +1926,15 @@ TRAIN_LOSS_RTOL, TRAIN_FLOOR = 1e-3, 1e-3
 # phase 7b: the first 158 + 32 volumes of the synthetic store; fold 0 of 5
 # splits them into 128 train (4 full steps of B=32 an epoch) and 30 validation
 RUN_TRAIN, RUN_TEST, RUN_EPOCHS = 158, 32, 2
+# every fit draws the mask triptych of one validation sample at the epochs
+# that are multiples of its viz_every (default 10: epoch 0 of these runs), one
+# more eval forward on the served route: a validation batch's launches
+VIZ_EVERY = 10
+
+
+def drawn(epochs):
+    """The triptychs a fit of ``epochs`` epochs draws."""
+    return -(-epochs // VIZ_EVERY)
 
 
 def train_config(cfg, **mc):
@@ -2178,13 +2213,15 @@ def phase_run_single(cfg, raw, tmp):
         raise AssertionError("the backbone group was not frozen then trained")
     # launches: kernel 7 once a train batch, once for each eval_split (validation
     # in the fit, test in the test pass) and 3 times in export_processed_splits;
-    # kernels 1, 2, 6 per validation batch and per tta_mc test batch (phase 7a)
+    # kernels 1, 2, 6 per validation batch (and triptych) and per tta_mc test
+    # batch (phase 7a)
     n_val, n_test = -(-n_va // B), -(-RUN_TEST // B)
+    n_eval = RUN_EPOCHS * n_val + drawn(RUN_EPOCHS)
     expect = dict.fromkeys(COUNTERS, 0) | {
         "dwi_normalize": RUN_EPOCHS * n_steps + 2 + 3,
-        "se_epilogue": 3 * RUN_EPOCHS * n_val + 6 * n_test,
-        "conv3x3_bn_gelu": 6 * (RUN_EPOCHS * n_val + n_test),
-        "se_scale": RUN_EPOCHS * n_val + n_test}
+        "se_epilogue": 3 * n_eval + 6 * n_test,
+        "conv3x3_bn_gelu": 6 * (n_eval + n_test),
+        "se_scale": n_eval + n_test}
     log(f"  launches of the run {launched}")
     if launched != expect:
         raise AssertionError(f"run launched {launched}, expected {expect}")
@@ -2413,10 +2450,11 @@ def phase_fold(cfg, raw, tmp, dwi_out, rcfg0):
         + ", ".join(f"{h['epoch_time']:.3f} s (val acc {h['val_acc']:.4f})"
                     for h in dce_out["history"])
         + f"; launches {dce_launched}")
+    n_eval = RUN_EPOCHS * n_val + drawn(RUN_EPOCHS)
     expect = dict.fromkeys(COUNTERS, 0) | {
-        "se_epilogue": 3 * RUN_EPOCHS * n_val + 6 * n_test,
-        "conv3x3_bn_gelu": 6 * (RUN_EPOCHS * n_val + n_test),
-        "se_scale": RUN_EPOCHS * n_val + n_test}
+        "se_epilogue": 3 * n_eval + 6 * n_test,
+        "conv3x3_bn_gelu": 6 * (n_eval + n_test),
+        "se_scale": n_eval + n_test}
     if dce_launched != expect or [h["group_trainable"][0] for h in dce_out["history"]] != [0, 1]:
         raise AssertionError(f"DCE run launched {dce_launched} (expected {expect}) or its "
                              f"backbone was not frozen then trained")
@@ -2458,7 +2496,8 @@ def phase_fold(cfg, raw, tmp, dwi_out, rcfg0):
     if not all(all_finite(h) for h in hist) or not all_finite(fus["test_metrics"]):
         raise AssertionError("a fusion metric is not finite")
     expect = dict.fromkeys(COUNTERS, 0) | {
-        k: FUSION_VAL[k] * FUSION_EPOCHS * n_val + FUSION_TEST[k] * n_test for k in FUSION_VAL}
+        k: FUSION_VAL[k] * (FUSION_EPOCHS * n_val + drawn(FUSION_EPOCHS))
+        + FUSION_TEST[k] * n_test for k in FUSION_VAL}
     log(f"  launches of the fusion run {launched}")
     if launched != expect:
         raise AssertionError(f"fusion run launched {launched}, expected {expect}")
@@ -2605,6 +2644,27 @@ class Spy:
         setattr(self.module, self.name, self.fn)
 
 
+def decode_png(path):
+    """``(height, width, title)`` of an 8-bit grayscale PNG, its rows
+    decompressed with ``zlib`` and checked against its header."""
+    import struct
+    import zlib
+
+    data = open(path, "rb").read()
+    if data[:8] != b"\x89PNG\r\n\x1a\n":
+        raise AssertionError(f"{path}: not a PNG")
+    pos, chunks = 8, {}
+    while pos < len(data):
+        n, = struct.unpack(">I", data[pos:pos + 4])
+        chunks.setdefault(data[pos + 4:pos + 8], b"")
+        chunks[data[pos + 4:pos + 8]] += data[pos + 8:pos + 8 + n]
+        pos += 12 + n
+    w, h, depth, color = struct.unpack(">IIBB", chunks[b"IHDR"][:10])
+    if (depth, color) != (8, 0) or len(zlib.decompress(chunks[b"IDAT"])) != h * (w + 1):
+        raise AssertionError(f"{path}: not an 8-bit gray image of {h} x {w}")
+    return h, w, chunks.get(b"tEXt", b"").split(b"\x00", 1)[-1].decode("latin-1")
+
+
 def cli_fold(argv, root, results, ccfg, imports, smi):
     """``cli.main(argv)``, a ``run --fusion`` of fold 0 for CLI_EPOCHS epochs a
     stage with the backbone frozen, in-process: the stage wall seconds, the
@@ -2639,6 +2699,15 @@ def cli_fold(argv, root, results, ccfg, imports, smi):
     for stage in ("dwi", "dce", "fusion"):
         if not os.path.exists(os.path.join(results, stage, "fold_0", "metrics.json")):
             raise AssertionError(f"{stage} metrics.json not written")
+    # one mask triptych a stage, at epoch 0 (viz_every 10)
+    shapes = {}
+    for stage in ("dwi", "dce", "fusion"):
+        viz = os.path.join(results, stage, "fold_0", "viz")
+        names = sorted(os.listdir(viz)) if os.path.isdir(viz) else []
+        if names != [f"epoch_{e:04d}.png" for e in range(0, CLI_EPOCHS, VIZ_EVERY)]:
+            raise AssertionError(f"{stage}: triptychs {names}")
+        shapes[stage] = decode_png(os.path.join(viz, names[0]))
+    log(f"  mask triptychs: one a stage at epoch 0, decoded (height, width, title): {shapes}")
     # the backbone stayed frozen for both epochs: its parameters are the import
     for method, out in (("dwi", dwi_out), ("dce", dce_out)):
         if [h["group_trainable"][0] for h in out["history"]] != [0.0] * CLI_EPOCHS:
@@ -2652,11 +2721,12 @@ def cli_fold(argv, root, results, ccfg, imports, smi):
     n_tr = len(dwi_out["data"].splits["train"]["labels"])
     n_va = len(dwi_out["data"].splits["val"]["labels"])
     n_steps, n_val, n_test = -(-n_tr // B), -(-n_va // B), -(-RUN_TEST // B)
-    single = {"se_epilogue": 3 * CLI_EPOCHS * n_val + 6 * n_test,
-              "conv3x3_bn_gelu": 6 * (CLI_EPOCHS * n_val + n_test),
-              "se_scale": CLI_EPOCHS * n_val + n_test}
+    n_eval = CLI_EPOCHS * n_val + drawn(CLI_EPOCHS)
+    single = {"se_epilogue": 3 * n_eval + 6 * n_test,
+              "conv3x3_bn_gelu": 6 * (n_eval + n_test),
+              "se_scale": n_eval + n_test}
     expect = dict.fromkeys(COUNTERS, 0) | {
-        k: 2 * single[k] + FUSION_VAL[k] * CLI_EPOCHS * n_val + FUSION_TEST[k] * n_test
+        k: 2 * single[k] + FUSION_VAL[k] * n_eval + FUSION_TEST[k] * n_test
         for k in single} | {"dwi_normalize": CLI_EPOCHS * n_steps + 2 + 3}
     log(f"  launches of the run {launched}")
     if launched != expect:
@@ -2736,6 +2806,19 @@ def phase_cli(cfg, raw, tmp, smi):
         raise AssertionError(f"export-ckpt exited {proc.returncode}: {proc.stderr[-2000:]}")
     log(f"  export-ckpt --method fusion: {time.perf_counter() - t0:.2f} s in its own "
         f"process; {'; '.join(proc.stdout.replace(root, '<tmp>').strip().splitlines())}")
+    # export-serving in its own process; phase 11 serves the artifact
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "dmf_tpu_torch.cli", "export-serving",
+                           "--config", config, "--base-path", base, "--checkpoint", best,
+                           "--mode", "tta_mc", "--batch", str(B_SERVE), "--out",
+                           os.path.join(root, f"fold0_tta_mc_b{B_SERVE}.pt2")], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"export-serving exited {proc.returncode}: "
+                             f"{proc.stderr[-2000:]}")
+    log(f"  export-serving --mode tta_mc --batch {B_SERVE}: {time.perf_counter() - t0:.2f} s "
+        f"in its own process; {proc.stdout.replace(root, '<tmp>').strip()}")
     dwi_m, _ = build_single_model(ccfg, "dwi", device=DEV, generator=gen(SEED + 5))
     dce_m, _ = build_single_model(ccfg, "dce", device=DEV, generator=gen(SEED + 6))
     fresh = build_fusion_state(ccfg, TrainState.create(dwi_m), TrainState.create(dce_m),
@@ -3264,9 +3347,10 @@ def phase_parallel_folds(cfg, tmp, smi):
         n_tr = len(r["data"].splits["train"]["labels"])
         n_val = -(-len(r["data"].splits["val"]["labels"]) // B)
         n_test = -(-len(r["data"].splits["test"]["labels"]) // B)
-        expect["se_epilogue"] += 3 * PF_EPOCHS * n_val + 6 * n_test
-        expect["conv3x3_bn_gelu"] += 6 * (PF_EPOCHS * n_val + n_test)
-        expect["se_scale"] += PF_EPOCHS * n_val + n_test
+        n_eval = PF_EPOCHS * n_val + drawn(PF_EPOCHS)
+        expect["se_epilogue"] += 3 * n_eval + 6 * n_test
+        expect["conv3x3_bn_gelu"] += 6 * (n_eval + n_test)
+        expect["se_scale"] += n_eval + n_test
         if method == "dwi":
             expect["dwi_normalize"] += PF_EPOCHS * -(-n_tr // B) + 2 + 3
     for name in ("parallel", "sequential"):
@@ -3279,6 +3363,317 @@ def phase_parallel_folds(cfg, tmp, smi):
         r["by"].clear()
     torch.cuda.empty_cache()
     return par["launched"]
+
+
+# ------------------------------------------------------------------ phase 11
+# the serving artifacts: (name, config, mode, dtype, B)
+ARTIFACT_REQUESTS = 5
+ARTIFACT_SEEDS = (7, 7, 8, 9, 10)  # requests 0 and 1 share a seed
+# an artifact request's kernels as the profiler names them, by operator
+OPERATOR_KERNELS = {"se_epilogue": EPI_KERNELS, "keep_mask": ("keep_mask_kernel",),
+                    "conv3x3_bn_gelu": ("conv3x3_bn_gelu",), "se_scale": SE_KERNELS,
+                    "flash_forward": ("flash_fwd",)}
+# the operators' counts under the names of the kernels line
+OPERATOR_COUNTERS = {"se_epilogue": "se_epilogue", "conv3x3_bn_gelu": "conv3x3_bn_gelu",
+                     "se_scale": "se_scale", "flash_forward": "flash_attention_fwd"}
+# a process that imports torch and the kernels' operators and nothing else of
+# the package: loads each artifact, serves its requests, prints one JSON line
+SERVE_CHILD = r"""
+import json, sys, time
+import torch
+# fp32 as the parent runs it: cuDNN's default would take TF32 for fp32 convolutions
+torch.backends.cudnn.allow_tf32 = False
+torch.backends.cuda.matmul.allow_tf32 = False
+t0 = time.perf_counter()
+from dmf_tpu_torch.ops import library
+t_import = time.perf_counter() - t0
+if "dmf_tpu_torch.models" in sys.modules:
+    sys.exit("the serving process imported the model code")
+print(json.dumps({"modules": sorted(m for m in sys.modules if m.startswith("dmf_tpu_torch")),
+                  "import_s": t_import}), flush=True)
+for job in json.loads(sys.argv[1]):
+    t0 = time.perf_counter()
+    program = torch.export.load(job["artifact"]).module()
+    t_load = time.perf_counter() - t0
+    inputs = torch.load(job["inputs"], map_location="cuda", weights_only=True)
+    variables = inputs.get("variables")
+    if variables is None:  # a fusion run's best.pt: the weights by their prefix
+        variables = {"dwi": {}, "dce": {}, "fusion": {}}
+        state = torch.load(job["checkpoint"], map_location="cuda", weights_only=True)
+        for key, t in state["model"].items():
+            part, rest = key.split(".", 1)
+            variables[part][rest] = t
+    library.reset_launch_counts()
+    ms, host_ms, outs = [], [], []
+    for seed in job["seeds"]:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        seed = torch.tensor(seed, dtype=torch.int64, device="cuda")
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ev[0].record()
+        mean, std = program(variables, inputs["dwi_x"], inputs["dce_x"], seed)
+        ev[1].record()
+        torch.cuda.synchronize()
+        host_ms.append((time.perf_counter() - t0) * 1e3)
+        ms.append(ev[0].elapsed_time(ev[1]))
+        outs.append((mean.float().cpu().tolist(), std.float().cpu().tolist()))
+    print(json.dumps({"name": job["name"], "load_s": t_load, "counts": library.launch_counts(),
+                      "ms": ms, "host_ms": host_ms, "outputs": outs}), flush=True)
+    del program, variables, inputs
+    torch.cuda.empty_cache()
+"""
+
+
+def prep_nodes(ep):
+    """The graph nodes between a weight placeholder and a kernel operator's
+    weight arguments (the in-graph weight preparation: a cast, transpose or
+    BatchNorm fold traced into the program)."""
+    weights = {"se_epilogue": slice(2, 6), "conv3x3_bn_gelu": slice(1, 7),
+               "se_scale": slice(1, 5)}
+    found = set()
+    for node in ep.graph.nodes:
+        name = getattr(node.target, "name", lambda: "")()
+        op = name.split("::")[-1].split(".")[0]
+        if node.op == "call_function" and name.startswith("dmf::") and op in weights:
+            found |= {a for a in node.args[weights[op]]
+                      if hasattr(a, "op") and a.op != "placeholder"}
+    return len(found)
+
+
+def profiled_kernels(run, want):
+    """The CUDA kernel names of one ``run()`` under the profiler that hold
+    each name of ``want`` (up to three sessions: one at times records only
+    some kernels)."""
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            run()
+            torch.cuda.synchronize()
+        names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
+        hits = {w: sorted(n for n in names if w in n) for w in want}
+        if all(hits.values()):
+            return hits
+    raise AssertionError(f"kernels {[w for w, h in hits.items() if not h]} not in the "
+                         f"profile of an artifact request")
+
+
+def artifact_case(name, c, mode, dtype, b, art_dir, seed_data):
+    """Build, run eagerly (the seed route), export and save one artifact;
+    returns its record for the serving process and the parent's checks."""
+    models = build_fusion_models(c, DEV, dtype, gen(SEED))
+    fn = make_serving_fn(c, *models, mode=mode)
+    S = c.dwi_model.input_size
+    g = gen(seed_data)
+    adc_map = torch.full((S, S, 1), 0.5, device=DEV)
+    dx, cx = preprocess_fusion_inputs(
+        torch.rand(b, S, S, c.dwi_base_channel_num, device=DEV, generator=g) * 1000.0,
+        torch.rand(b, S, S, c.dce_channel_num, device=DEV, generator=g), adc_map)
+    variables = serving_variables(*models)
+    args = (variables, dx, cx, torch.tensor(ARTIFACT_SEEDS[0], device=DEV))
+    fn(*args)  # warm-up: cuDNN plans, prepared weights
+    torch.cuda.synchronize()
+    library.reset_launch_counts()
+    eager = fn(*args)
+    torch.cuda.synchronize()
+    eager_launches = library.launch_counts()
+    # the eager seed-route predictor, and the same under functional_call (the
+    # weights swapped in per call, as the traced function runs it)
+    predict = make_fusion_predictor(c, *models, mode=mode)
+    stream = (lambda: SeedStream(args[3])) if mode in ("mc", "tta_mc") else (lambda: None)
+    eager_ms = cuda_time(lambda: predict(dx, cx, stream()), reps=1, trials=5)
+    functional_ms = cuda_time(lambda: fn(*args), reps=1, trials=5)
+    (ep, t_export) = synced(lambda: export_program(fn, args))
+    nodes = operator_nodes(ep)
+    path = os.path.join(art_dir, name.replace(" ", "_").replace("=", "") + ".pt2")
+    torch.export.save(ep, path)
+    inputs = os.path.join(art_dir, name.replace(" ", "_").replace("=", "") + ".inputs.pt")
+    torch.save({"variables": variables, "dwi_x": dx, "dce_x": cx}, inputs)
+    weight_bytes = sum(t.numel() * t.element_size() for sd in variables.values()
+                       for t in sd.values())
+    n_prep = prep_nodes(ep)
+    log(f"  {name}: export {t_export:.2f} s, {len(ep.graph.nodes)} graph nodes, operator "
+        f"nodes {nodes}, in-graph weight preparation nodes {n_prep}; artifact "
+        f"{os.path.getsize(path)} bytes beside {weight_bytes} bytes of state dicts (held: "
+        f"{len(ep.state_dict)} parameters or buffers, {len(ep.constants)} constants); eager "
+        f"seed-route predictor {eager_ms:.3f} ms a request (CUDA events; {functional_ms:.3f} "
+        f"under functional_call), launches {eager_launches}")
+    if nodes != eager_launches:
+        raise AssertionError(f"{name}: operator nodes {nodes} differ from the eager "
+                             f"launches {eager_launches}")
+    served = load_serving(path)
+    want = [k for w, n in nodes.items() if n for k in OPERATOR_KERNELS[w]]
+    hits = profiled_kernels(lambda: served(*args), want)
+    log(f"  {name}: profiler kernel names of one artifact request: "
+        + "; ".join(f"{w}: {h[0][:60]}" for w, h in hits.items()))
+    del served, models, fn, ep
+    return {"name": name, "artifact": path, "inputs": inputs,
+            "seeds": list(ARTIFACT_SEEDS)}, {
+        "dtype": dtype, "mode": mode, "b": b, "nodes": nodes, "eager": eager,
+        "eager_ms": eager_ms, "class_num": c.class_num}
+
+
+def operator_layer_cost():
+    """Host microseconds per call of each kernel operator against its
+    ``ctypes`` launch called directly, on small maps (the host bounds them),
+    over 200 calls each in turns."""
+    from dmf_tpu_torch.ops import conv3x3, epilogue_cuda, se_cuda
+    g = gen(61)
+    x = cl(torch.randn(4, 128, 8, 8, device=DEV, generator=g))
+    w1, b1, w2, b2 = se_weights(128, g)
+    wc = torch.randn(128, 128, 3, 3, device=DEV, generator=g) * 0.03
+    bn = (torch.ones(128, device=DEV), torch.zeros(128, device=DEV),
+          torch.zeros(128, device=DEV), torch.ones(128, device=DEV))
+    seed = torch.tensor(3, device=DEV)
+    pairs = {
+        "se_epilogue": (lambda: torch.ops.dmf.se_epilogue(x, x, w1, b1, w2, b2, 0.2, seed, 0),
+                        lambda: epilogue_cuda.launch_se_epilogue(x, x, w1, b1, w2, b2, 0.2,
+                                                                 seed, 0)),
+        "keep_mask": (lambda: torch.ops.dmf.keep_mask(x, 0.2, seed, 0),
+                      lambda: epilogue_cuda.keep_mask(x, 0.2, seed, 0)),
+        "conv3x3_bn_gelu": (lambda: torch.ops.dmf.conv3x3_bn_gelu(x, wc, None, *bn, 1e-5, 0),
+                            lambda: conv3x3.launch_conv3x3_bn_gelu(x, wc, None, *bn, 1e-5)),
+        "se_scale": (lambda: torch.ops.dmf.se_scale(x, w1, b1, w2, b2),
+                     lambda: se_cuda.launch_se_scale(x, w1, b1, w2, b2))}
+
+    def host_us(fn, calls=200):
+        fn()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fn()
+        dt = (time.perf_counter() - t0) / calls * 1e6
+        torch.cuda.synchronize()
+        return dt
+
+    cost = {}
+    with torch.no_grad():
+        for name, (op, direct) in pairs.items():
+            a1, d1 = host_us(op), host_us(direct)
+            d2, a2 = host_us(direct), host_us(op)
+            cost[name] = ((a1 + a2) / 2, (d1 + d2) / 2)
+    return cost
+
+
+def phase_serving(cfg, hcfg, tmp, smi):
+    """Phase 11: the serving artifacts; returns the serving process's launches."""
+    t_phase = time.perf_counter()
+    log(f"== phase 11: the serving artifact: export (torch.export, weights as arguments) the "
+        f"default config in tta_mc bf16 and normal fp32 at B={B_SERVE} and hybrid-nb normal "
+        f"bf16 at B=2; save; load and serve {ARTIFACT_REQUESTS} requests each (seeds "
+        f"{ARTIFACT_SEEDS}) in a fresh process that imports torch and "
+        f"dmf_tpu_torch.ops.library only, with phase 8's CLI artifact (export-serving tta_mc "
+        f"B={B_SERVE} fp32 on the fold's checkpoint); the tta_mc program in fp32 at B=1 on the "
+        f"card against its CPU export")
+    art_dir = os.path.join(tmp, "serving")
+    os.makedirs(art_dir)
+    jobs, checks = [], {}
+    for name, c, mode, dtype, b in (
+            (f"tta_mc bf16 B={B_SERVE}", cfg, "tta_mc", torch.bfloat16, B_SERVE),
+            (f"normal fp32 B={B_SERVE}", cfg, "normal", torch.float32, B_SERVE),
+            ("hybrid-nb normal bf16 B=2", hcfg, "normal", torch.bfloat16, 2)):
+        job, checks[name] = artifact_case(name, c, mode, dtype, b, art_dir, 71)
+        jobs.append(job)
+        torch.cuda.empty_cache()
+    cli_art = os.path.join(tmp, "cli", f"fold0_tta_mc_b{B_SERVE}.pt2")
+    cli_inputs = os.path.join(art_dir, "cli.inputs.pt")
+    S = cfg.dwi_model.input_size
+    g = gen(72)
+    dx, cx = preprocess_fusion_inputs(
+        torch.rand(B_SERVE, S, S, cfg.dwi_base_channel_num, device=DEV, generator=g) * 1000.0,
+        torch.rand(B_SERVE, S, S, cfg.dce_channel_num, device=DEV, generator=g),
+        torch.full((S, S, 1), 0.5, device=DEV))
+    torch.save({"dwi_x": dx, "dce_x": cx}, cli_inputs)
+    jobs.append({"name": "cli tta_mc fp32", "artifact": cli_art, "inputs": cli_inputs,
+                 "checkpoint": os.path.join(tmp, "cli", "results", "fusion", "fold_0",
+                                            "checkpoints", "best.pt"),
+                 "seeds": list(ARTIFACT_SEEDS)})
+    checks["cli tta_mc fp32"] = {"dtype": torch.float32, "mode": "tta_mc", "b": B_SERVE,
+                                 "nodes": None, "eager": None, "class_num": cfg.class_num}
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, json.dumps(jobs)], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                          text=True, timeout=600)
+    t_child = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"serving process exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    head, results = lines[0], {r["name"]: r for r in lines[1:]}
+    log(f"  serving process: {t_child:.1f} s in all; imported "
+        f"{', '.join(head['modules'])} (ops.library in {head['import_s']:.2f} s); "
+        f"{smi}")
+    launched = dict.fromkeys(COUNTERS, 0)
+    for name, ck in checks.items():
+        r = results[name]
+        ms = r["ms"]
+        log(f"  {name}: load {r['load_s']:.2f} s; requests by CUDA events (ms) "
+            + ", ".join(f"{t:.3f}" for t in ms) + f", median after the first "
+            f"{statistics.median(ms[1:]):.3f} ms ({statistics.median(r['host_ms'][1:]):.3f} ms "
+            f"on the host clock)"
+            + (f" against {ck['eager_ms']:.3f} ms of the eager predictor in the parent"
+               if ck.get("eager_ms") else "")
+            + f"; launches {r['counts']}")
+        for op, n in r["counts"].items():
+            if op in OPERATOR_COUNTERS:
+                launched[OPERATOR_COUNTERS[op]] += n
+        if ck["nodes"] is not None and r["counts"] != {
+                k: ARTIFACT_REQUESTS * v for k, v in ck["nodes"].items()}:
+            raise AssertionError(f"{name}: the serving process launched {r['counts']}, "
+                                 f"expected {ARTIFACT_REQUESTS} x {ck['nodes']}")
+        means = [torch.tensor(m) for m, _ in r["outputs"]]
+        stds = [torch.tensor(sd) for _, sd in r["outputs"]]
+        for mean, std in zip(means, stds):
+            gate(name, cfg, {}, {}, mean, std, ck["mode"] == "tta_mc", ck["b"])
+        if ck["mode"] == "tta_mc":
+            if not (torch.equal(means[0], means[1]) and torch.equal(stds[0], stds[1])):
+                raise AssertionError(f"{name}: one seed, two results")
+            if torch.equal(means[1], means[2]):
+                raise AssertionError(f"{name}: two seeds, one result")
+            log(f"  {name}: seed {ARTIFACT_SEEDS[0]} twice bit-equal, seed "
+                f"{ARTIFACT_SEEDS[2]} other numbers, std > 0 (mean {stds[0].mean():.5f})")
+        if ck["eager"] is not None:
+            tol = 1e-6 if ck["dtype"] == torch.float32 else TOL[torch.bfloat16]
+            for what, got, ref in (("mean", means[0], ck["eager"][0]),
+                                   ("std", stds[0], ck["eager"][1])):
+                err = (got - ref.float().cpu()).abs().max().item()
+                log(f"  {name}: artifact {what} against the eager seed-route predictor: "
+                    f"max_abs_err {err:.3e} (tolerance {tol:.1e})")
+                if not err <= tol:
+                    raise AssertionError(f"{name}: artifact {what} off the eager one by {err}")
+
+    # the tta_mc program in fp32 at B=1: the card's export against the CPU's
+    cpu_models, dev_models = card_and_cpu_models(cfg)
+    g = torch.Generator().manual_seed(73)
+    dx = torch.rand(1, S, S, cfg.dwi_channel_num, generator=g)
+    cx = torch.rand(1, S, S, cfg.dce_channel_num, generator=g)
+    outs = {}
+    for where, models in (("card", dev_models), ("cpu", cpu_models)):
+        dev = DEV if where == "card" else torch.device("cpu")
+        a = (serving_variables(*models), dx.to(dev), cx.to(dev),
+             torch.tensor(ARTIFACT_SEEDS[0], device=dev))
+        fn = make_serving_fn(cfg, *models, mode="tta_mc")
+        (served, t_exp) = synced(lambda: load_serving(export_serving(fn, a)))
+        (outs[where], t_run) = synced(lambda: served(*a))
+        log(f"  tta_mc fp32 B=1 on the {where}: export + save + load {t_exp:.2f} s, "
+            f"request {t_run:.2f} s")
+    compare_card_cpu((("tta_mc fp32 B=1 artifact mean, card vs CPU", outs["card"][0],
+                       outs["cpu"][0], 1e-4),
+                      ("tta_mc fp32 B=1 artifact std, card vs CPU", outs["card"][1],
+                       outs["cpu"][1], 1e-4)))
+    del cpu_models, dev_models, outs
+    torch.cuda.empty_cache()
+    cost = operator_layer_cost()
+    nodes = checks[f"tta_mc bf16 B={B_SERVE}"]["nodes"]
+    extra_ms = sum((op - direct) * nodes[k] for k, (op, direct) in cost.items()) / 1e3
+    log("  operator layer, host us per call (through torch.ops.dmf / the ctypes launch "
+        "called directly, in turns): "
+        + ", ".join(f"{k} {a:.1f} / {d:.1f}" for k, (a, d) in cost.items())
+        + f"; a tta_mc request's {sum(nodes.values())} operator calls: {extra_ms:.3f} ms "
+        f"of host time more")
+    log(f"  phase 11: {time.perf_counter() - t_phase:.1f} s")
+    return launched
 
 
 def main():
@@ -3335,14 +3730,16 @@ def main():
         phase_remat(cfg)
         pf_launches = phase_parallel_folds(cfg, tmp, smi)
         log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+        # phase 11 serves phase 8's CLI artifact; its launches are the serving process's
+        serving_launches = phase_serving(cfg, hcfg, tmp, smi)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
-                for k in COUNTERS}
+                + serving_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
-        f"CLI, the ViT path and the fold-parallel run: {launches}")
+        f"CLI, the ViT path, the fold-parallel run and the serving artifacts: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")

@@ -12,10 +12,13 @@ two ResNet-50-backed encoders, the fusion head and the TTA x MC predictor;
 the hybrid CNN->Transformer encoders without a backbone (``hybrid-nb``); the
 single-modality data preparation; single-modality and fusion training
 (``pipeline.run_single.run_single_model``, ``pipeline.run_fusion.run_fusion_model``)
-with ResNet-50 backbones from local checkpoints; and the command line
-(``python -m dmf_tpu_torch.cli run|debug-suite|export-ckpt``).  Every TPU
+with ResNet-50 backbones from local checkpoints; the command line
+(``python -m dmf_tpu_torch.cli run|debug-suite|export-ckpt|export-serving``);
+the weights-free ``torch.export`` serving artifact (``serving.py``); and the
+mask triptych, profiling and introspection utilities (``utils/``).  Every TPU
 kernel has a hand-written Hopper counterpart in ``csrc/`` (CUDA C++), behind
-a wrapper in ``ops/``.
+a wrapper in ``ops/``; those of the served paths are ``torch.library``
+operators too (``ops/library.py``).
 """
 
 from .config import Config, default_parameters, from_reference_dict, resolve_backbone_config

@@ -10,14 +10,18 @@ Usage:
     python -m dmf_tpu_torch.cli debug-suite --fusion
     python -m dmf_tpu_torch.cli export-ckpt --method fusion \\
         --checkpoint results/fusion/fold_0/checkpoints/best.pt --out fold0.ckpt
+    python -m dmf_tpu_torch.cli export-serving --mode tta_mc --batch 8 \\
+        --checkpoint results/fusion/fold_0/checkpoints/best.pt --out tta_mc_b8.pt2
 
 The subcommands take the JAX CLI's arguments, plus ``--device`` (default
 ``cuda``; ``cpu`` only when asked, never as a fallback).  ``run
 --parallel-folds`` over several folds trains each modality's folds in one
 call (``run_single_model_multifold``), then runs fusion per fold; over one
 fold it runs the per-fold loop, as the JAX CLI does (cli.py:157).
-``--mesh`` raises ``NotImplementedError`` (ROADMAP 1.13).  ``bench`` and
-``export-serving`` are not ported yet (ROADMAP 1.1, 1.12).
+``--mesh`` raises ``NotImplementedError`` (ROADMAP 1.13).  ``export-serving``
+writes the weights-free ``torch.export`` serving program (``serving.py``) on
+``--device``, in place of the JAX CLI's ``--platforms``.  ``bench`` is not
+ported yet (ROADMAP 1.1).
 """
 
 from __future__ import annotations
@@ -282,6 +286,43 @@ def cmd_export_ckpt(args) -> int:
     return 0
 
 
+def cmd_export_serving(args) -> int:
+    """Write the fusion serving program as a ``torch.export`` artifact
+    (``serving.py``) traced on ``--device`` at ``--batch``, in fp32 as the
+    fusion run's checkpoint holds the weights: it runs without the model
+    code, and the weights ride as arguments (ship the checkpoint beside it;
+    ``serving.checkpoint_variables`` reads it).  ``--checkpoint`` (a fusion
+    run's ``best.pt``) gives the traced weights, else seeded random ones of
+    the configured geometry.
+    """
+    cfg = load_config(args)
+    device = _device(args)
+    from .pipeline.prepare_single import build_single_model
+    from .pipeline.run_fusion import build_fusion_state
+    from .serving import export_serving, make_serving_fn, serving_variables
+    from .train.state import TrainState
+    from .utils.checkpoint import load_checkpoint
+
+    dwi_model, _ = build_single_model(cfg, "dwi", device=device)
+    dce_model, _ = build_single_model(cfg, "dce", device=device)
+    state = build_fusion_state(cfg, TrainState.create(dwi_model),
+                               TrainState.create(dce_model))
+    if args.checkpoint:
+        state = load_checkpoint(args.checkpoint, state)
+    net = state.model
+    models = (net.dwi, net.dce, net.fusion)
+    fn = make_serving_fn(cfg, *models, mode=args.mode, mc_chunk=cfg.mc_chunk)
+    B, S = args.batch, cfg.dwi_model.input_size
+    example = (serving_variables(*models),
+               torch.zeros((B, S, S, cfg.dwi_channel_num), device=device),
+               torch.zeros((B, S, S, cfg.dce_channel_num), device=device),
+               torch.zeros((), dtype=torch.int64, device=device))
+    data = export_serving(fn, example, path=args.out)
+    print(f"[dmf_tpu_torch] wrote {args.out} ({len(data)} bytes, mode={args.mode}, "
+          f"batch={B}, device={device})")
+    return 0
+
+
 def build_parser() -> argparse.ArgumentParser:
     parser = argparse.ArgumentParser(prog="dmf_tpu_torch")
     sub = parser.add_subparsers(dest="command", required=True)
@@ -305,13 +346,28 @@ def build_parser() -> argparse.ArgumentParser:
                             "reference .ckpt also works for single encoders, "
                             "which round-trips it through the loader)")
     p_exp.add_argument("--out", required=True)
+
+    p_srv = sub.add_parser(
+        "export-serving",
+        help="write the fusion serving program as a weights-free torch.export "
+             "artifact that runs without the model code (serving.py)")
+    _add_common(p_srv)
+    p_srv.add_argument("--checkpoint", default=None,
+                       help="a fusion run's checkpoint (best.pt) to trace with (the "
+                            "weights still ride as arguments at serving time)")
+    p_srv.add_argument("--out", required=True)
+    p_srv.add_argument("--mode", default="normal",
+                       choices=["normal", "tta", "mc", "tta_mc"])
+    p_srv.add_argument("--batch", type=int, default=32,
+                       help="served batch size (fixed shapes; export one artifact "
+                            "per batch size)")
     return parser
 
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     commands = {"run": cmd_run, "debug-suite": cmd_debug_suite,
-                "export-ckpt": cmd_export_ckpt}
+                "export-ckpt": cmd_export_ckpt, "export-serving": cmd_export_serving}
     return commands[args.command](args)
 
 

@@ -41,11 +41,13 @@
 // The partials add 2 x 4 / (P x sizeof(T)) of the map's bytes.
 //
 // Dropout: Philox4x32-10 (Random123) written into the kernel.  Key = the
-// 64-bit seed (lo, hi); counter = (e/4 lo, e/4 hi, 0, 0), where e is the
-// element's int64 index in the folded channels-last batch, so one call gives
-// the bits of 4 neighbouring elements.  keep = (bits >> 8) * 2^-24 < 1 - p,
-// exact in fp32.  `keep4` is the one keep test: the epilogue and the
-// test-only keep-mask entry point both call it.  Every offset is 64-bit.
+// 64-bit seed (lo, hi); counter = (e/4 lo, e/4 hi, 0, 0), where e is `base`
+// (a multiple of 4) plus the element's int64 index in the folded
+// channels-last batch, so one call gives the bits of 4 neighbouring elements
+// and a seed stream's dropout sites each take their own range of counters.
+// keep = (bits >> 8) * 2^-24 < 1 - p, exact in fp32.  `keep4` is the one
+// keep test: the epilogue and the keep-mask entry point (the seed route's
+// dropout outside the epilogue) both call it.  Every offset is 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -117,8 +119,9 @@ __device__ __forceinline__ unsigned keep_bits(uint2 key, long long e, float keep
 template <typename S, int VEC>
 __global__ void __launch_bounds__(VEC == 1 ? 1024 : kThreads)
 epi_y_partials(const S* __restrict__ x, const S* __restrict__ idn, S* __restrict__ out,
-               float* __restrict__ part, const long long* __restrict__ seed, long long hw,
-               int c, int p_blk, int nb, float keep_prob, float drop_scale, int drop) {
+               float* __restrict__ part, const long long* __restrict__ seed, long long base,
+               long long hw, int c, int p_blk, int nb, float keep_prob, float drop_scale,
+               int drop) {
   using R = typename Raw<sizeof(S) * VEC>::type;
   __shared__ float red[kRedFloats];
   const int groups = c / VEC;              // vectors per pixel
@@ -136,7 +139,7 @@ epi_y_partials(const S* __restrict__ x, const S* __restrict__ idn, S* __restrict
       alignas(sizeof(R)) S xv[VEC], iv[VEC], yv[VEC];
       *reinterpret_cast<R*>(xv) = __ldcs(reinterpret_cast<const R*>(x + e));
       *reinterpret_cast<R*>(iv) = __ldcs(reinterpret_cast<const R*>(idn + e));
-      const unsigned keep = drop ? keep_bits<VEC>(key, e, keep_prob) : ~0u;
+      const unsigned keep = drop ? keep_bits<VEC>(key, base + e, keep_prob) : ~0u;
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
         float y = round_t<S>(gelu(to_f(xv[k]) + to_f(iv[k])));
@@ -199,8 +202,8 @@ int row_threads(int groups) { return groups <= kThreads ? kThreads : (groups + 3
 template <typename S, int VEC>
 int launch(const void* x, const void* idn, void* out, const void* w1, const void* b1,
            const void* w2t, const void* b2, void* part, void* scale, const void* seed,
-           long long n, long long hw, int c, int mid, int p_blk, int group, float keep_prob,
-           float drop_scale, int drop, cudaStream_t stream) {
+           long long base, long long n, long long hw, int c, int mid, int p_blk, int group,
+           float keep_prob, float drop_scale, int drop, cudaStream_t stream) {
   const int groups = c / VEC;
   const int threads = row_threads(groups);
   const int nb = static_cast<int>((hw + p_blk - 1) / p_blk);
@@ -210,7 +213,7 @@ int launch(const void* x, const void* idn, void* out, const void* w1, const void
     return static_cast<int>(cudaErrorInvalidValue);
   epi_y_partials<S, VEC><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(idn), static_cast<S*>(out),
-      static_cast<float*>(part), static_cast<const long long*>(seed), hw, c, p_blk, nb,
+      static_cast<float*>(part), static_cast<const long long*>(seed), base, hw, c, p_blk, nb,
       keep_prob, drop_scale, drop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -228,19 +231,21 @@ int launch(const void* x, const void* idn, void* out, const void* w1, const void
 // x, identity, out: (N, HW, C) channels-last maps of fp32 (bf16 = 0) or bf16
 // (bf16 = 1); w1, w2t: (mid, C) and b1 (mid), b2 (C) in the map dtype; part:
 // (N, ceil(HW / p_blk), C) fp32 scratch; scale: (N, C) fp32 scratch; seed: one
-// int64 on the device, read only when `drop`.  vec: elements per vector load,
+// int64 on the device, read only when `drop`; base: the Philox counter of the
+// batch's first element, a multiple of 4.  vec: elements per vector load,
 // the full 16 bytes (8 bf16, 4 fp32; C a multiple, 16-byte aligned maps) or 1.
 // Enqueues the three kernels on `stream`; returns the first CUDA error, or 0.
 extern "C" int se_epilogue_launch(int bf16, int vec, const void* x, const void* idn, void* out,
                                   const void* w1, const void* b1, const void* w2t,
                                   const void* b2, void* part, void* scale, const void* seed,
-                                  long long n, long long hw, int c, int mid, int p_blk,
-                                  int group, float keep_prob, float drop_scale, int drop,
-                                  void* stream) {
+                                  long long base, long long n, long long hw, int c, int mid,
+                                  int p_blk, int group, float keep_prob, float drop_scale,
+                                  int drop, void* stream) {
   if (n <= 0 || hw <= 0) return 0;
+  if (base < 0 || base % 4) return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE_EPILOGUE_ARGS \
-  x, idn, out, w1, b1, w2t, b2, part, scale, seed, n, hw, c, mid, p_blk, group, keep_prob, \
+  x, idn, out, w1, b1, w2t, b2, part, scale, seed, base, n, hw, c, mid, p_blk, group, keep_prob, \
       drop_scale, drop, s
   if (bf16) {
     if (vec == 8) return launch<uint16_t, 8>(SE_EPILOGUE_ARGS);

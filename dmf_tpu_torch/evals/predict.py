@@ -11,7 +11,11 @@ The MC passes are a batch dimension: the deterministic prefix (modality SE,
 backbone, adapter) runs once and is repeated along the batch for the
 suffix.  ``mc_chunk`` passes go through the suffix together (default: all);
 passes 0..P-2 are lean (probabilities only) and the last pass runs in full
-and supplies ``aux``.  The public function keeps the JAX layout: NHWC volumes
+and supplies ``aux``.  The MC modes draw their dropout masks from a
+``torch.Generator``, or from a :class:`~..ops.dropout.SeedStream` passed in
+its place (the seed route of the exported serving program, ``serving.py``):
+its dropout sites take their Philox counters in the order the passes run
+them, the same on the CPU and the card.  The public function keeps the JAX layout: NHWC volumes
 in, ``(mean, std, aux)`` out, with aux maps returned NHWC.
 """
 
@@ -124,7 +128,8 @@ def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
     """Returns ``predict(dwi_imgs, dce_imgs, generator=None) -> (mean, std, aux)``.
 
     ``dwi_imgs``/``dce_imgs`` are NHWC.  ``generator`` (on the models'
-    device) drives every dropout draw and is required in ``mc``/``tta_mc``.
+    device; or a :class:`~..ops.dropout.SeedStream`) drives every dropout
+    draw and is required in ``mc``/``tta_mc``.
     ``mc_chunk`` defaults to ``cfg.mc_chunk``.
     """
 

@@ -9,19 +9,22 @@ Modes are explicit arguments, as in the JAX modules, and nothing depends
 on ``module.train()``: ``train=True`` normalises BatchNorm with the batch's
 statistics (updating the running ones) and turns dropout on; ``mc=True``
 turns dropout on with BatchNorm on its running statistics.  Dropout masks
-come from an explicit ``torch.Generator``.  Under ``train=True`` no kernel
+come from an explicit ``torch.Generator``, or, on the seed route that the
+exported serving program takes, from a :class:`~..ops.dropout.SeedStream`
+passed in its place (the same masks on the CPU and the card).  Under ``train=True`` no kernel
 wrapper is called: the SE and the residual epilogue take the unfused route,
 the JAX modules' own training route (layers.py:388-401).
 """
 
 from __future__ import annotations
 
-from typing import Iterable, Optional, Tuple
+from typing import Iterable, Optional, Tuple, Union
 
 import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from ..ops.dropout import SeedStream, seeded_dropout
 from ..ops.epilogue import se_epilogue
 from ..ops.se import se_scale
 from ..ops.resize import global_avg_pool, resize_bilinear
@@ -51,13 +54,18 @@ def run(seq: Iterable[nn.Module], x: torch.Tensor, train: bool) -> torch.Tensor:
     return x
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+def dropout(x: torch.Tensor, p: float,
+            generator: Union[torch.Generator, SeedStream, None]) -> torch.Tensor:
     """Dropout with an explicit generator: keep with probability ``1-p``,
-    scale kept values by ``1/(1-p)`` (flax ``nn.Dropout`` semantics)."""
+    scale kept values by ``1/(1-p)`` (flax ``nn.Dropout`` semantics).  A
+    :class:`~..ops.dropout.SeedStream` draws the mask of its next site
+    (:func:`~..ops.dropout.seeded_dropout`)."""
     if p <= 0.0:
         return x
     if generator is None:
         raise ValueError("MC dropout needs a generator")
+    if isinstance(generator, SeedStream):
+        return seeded_dropout(x, p, generator)
     # the mask takes x's memory format, so the select stays one vectorized pass
     keep = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator) < (1.0 - p)
     return torch.where(keep, x / (1.0 - p), 0.0)

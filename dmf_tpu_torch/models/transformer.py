@@ -9,7 +9,9 @@ the reference layout that ``ref_ckpt.py:166-183`` emits:
 attn.proj, norm2, mlp.fc1, mlp.fc2, gamma1, gamma2}``.
 
 Modes are explicit arguments, as in the JAX modules: ``mc=True`` turns every
-dropout on, drawing its masks from an explicit ``torch.Generator``, and then
+dropout on, drawing its masks from an explicit ``torch.Generator`` (or from a
+:class:`~..ops.dropout.SeedStream`, the serving program's seed route, passed
+in its place), and then
 attention takes the weights route (dropout on the materialized weights, then
 the value product, transformer.py:45-49); otherwise attention goes through
 :func:`~dmf_tpu_torch.ops.attention.scaled_dot_product_attention`, which

@@ -33,7 +33,7 @@ import torch
 import torch.nn.functional as F
 
 from .cuda_build import load_library
-from .prepared import check_no_grad, prepared
+from .prepared import check_no_grad, prepared, records_grad
 
 _SOURCES = ("conv3x3_bn_gelu.cu",)
 
@@ -110,25 +110,12 @@ def tile_n(cout: int, dtype: torch.dtype) -> int:
     return 256 if dtype == torch.bfloat16 and cout % 256 == 0 else 128
 
 
-def conv3x3_bn_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias,
-                    bn_weight: torch.Tensor, bn_bias: torch.Tensor,
-                    bn_mean: torch.Tensor, bn_var: torch.Tensor,
-                    eps: float = 1e-5, *, _tile_n: int = 0) -> torch.Tensor:
-    """``gelu(batchnorm(conv3x3(x) + bias))`` with BN running statistics.
-
-    CPU tensors take :func:`conv3x3_bn_gelu_ref`; CUDA tensors launch the
-    kernel (``channels_last``; bf16 needs Cin and Cout multiples of 8, fp32
-    (3xTF32) Cin a multiple of 4 and Cout of 8; a 16-byte aligned map) and
-    raise on anything else.  The kernel has no backward, so on the card a
-    call that autograd would record raises; on the CPU the plain version
-    carries gradients.  ``_tile_n`` (128 or 256; fp32 has 128 only)
-    overrides :func:`tile_n`, for measuring both.
-    """
-    if x.device.type == "cpu":
-        return conv3x3_bn_gelu_ref(x, weight, conv_bias, bn_weight, bn_bias,
-                                   bn_mean, bn_var, eps)
-    if x.device.type != "cuda":
-        raise ValueError(f"conv3x3_bn_gelu: unsupported device {x.device}")
+def launch_conv3x3_bn_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias,
+                           bn_weight: torch.Tensor, bn_bias: torch.Tensor,
+                           bn_mean: torch.Tensor, bn_var: torch.Tensor, eps: float,
+                           tile: int = 0) -> torch.Tensor:
+    """Launch the kernel on a channels_last CUDA map (the checks of
+    :func:`conv3x3_bn_gelu`); ``tile`` 0 takes :func:`tile_n`."""
     if x.dim() != 4 or x.dtype not in (torch.float32, torch.bfloat16):
         raise ValueError(f"conv3x3_bn_gelu: need a 4-D fp32/bf16 map, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -148,13 +135,11 @@ def conv3x3_bn_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias,
         raise ValueError("conv3x3_bn_gelu: bf16 needs Cin, Cout multiples of 8, fp32 Cin a "
                          "multiple of 4 and Cout of 8, both a 16-byte aligned map; got "
                          f"{x.dtype} Cin={cin} Cout={cout}")
-    if not bf16 and _tile_n not in (0, 128):
+    if not bf16 and tile not in (0, 128):
         raise ValueError("conv3x3_bn_gelu: the fp32 (3xTF32) kernel has 128-channel tiles only")
     if (max(x.numel(), n * h * w * cout, 9 * cin * cout) >= 2 ** 31
             or max(h, w) >= 2 ** 15):
         raise ValueError("conv3x3_bn_gelu: map too large for 32-bit offsets")
-    params = (weight, conv_bias, bn_weight, bn_bias, bn_mean, bn_var)
-    check_no_grad("conv3x3_bn_gelu", x, *(p for p in params if p is not None))
     wmat, w_lo, s, t = conv_weights(weight, conv_bias, bn_weight, bn_bias, bn_mean, bn_var,
                                     eps, x.dtype)
     out = torch.empty((n, cout, h, w), device=x.device, dtype=x.dtype,
@@ -165,11 +150,34 @@ def conv3x3_bn_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias,
         rc = lib.conv3x3_bn_gelu_launch(int(bf16), x.data_ptr(), wmat.data_ptr(),
                                         None if bf16 else w_lo.data_ptr(), s.data_ptr(),
                                         t.data_ptr(), out.data_ptr(), n, h, w, cin, cout,
-                                        _tile_n or tile_n(cout, x.dtype), stream)
+                                        tile or tile_n(cout, x.dtype), stream)
     if rc != 0:
         raise RuntimeError(f"conv3x3_bn_gelu: kernel launch failed (CUDA error {rc})")
-    conv3x3_bn_gelu.launches += 1
     return out
+
+
+def conv3x3_bn_gelu(x: torch.Tensor, weight: torch.Tensor, conv_bias,
+                    bn_weight: torch.Tensor, bn_bias: torch.Tensor,
+                    bn_mean: torch.Tensor, bn_var: torch.Tensor,
+                    eps: float = 1e-5, *, _tile_n: int = 0) -> torch.Tensor:
+    """``gelu(batchnorm(conv3x3(x) + bias))`` with BN running statistics.
+
+    Goes through the ``conv3x3_bn_gelu`` operator (``ops/library.py``): CPU
+    tensors take :func:`conv3x3_bn_gelu_ref`; CUDA tensors launch the kernel
+    (``channels_last``; bf16 needs Cin and Cout multiples of 8, fp32
+    (3xTF32) Cin a multiple of 4 and Cout of 8; a 16-byte aligned map) and
+    raise on anything else.  The kernel has no backward, so on the card a
+    call that autograd would record raises; on the CPU such a call takes the
+    plain version directly, which carries gradients.  ``_tile_n`` (128 or
+    256; fp32 has 128 only) overrides :func:`tile_n`, for measuring both.
+    """
+    params = (weight, conv_bias, bn_weight, bn_bias, bn_mean, bn_var)
+    if x.device.type == "cpu" and records_grad(x, *params):
+        return conv3x3_bn_gelu_ref(x, *params, eps)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"conv3x3_bn_gelu: unsupported device {x.device}")
+    check_no_grad("conv3x3_bn_gelu", x, *(p for p in params if p is not None))
+    return torch.ops.dmf.conv3x3_bn_gelu(x, *params, eps, _tile_n)
 
 
 conv3x3_bn_gelu.launches = 0

@@ -1,10 +1,11 @@
 """ResLite-block epilogue ``SE(dropout(gelu(x + identity)))``: wrapper and plain version.
 
 Counterpart of ``dmf_tpu/ops/epilogue_pallas.py::se_epilogue`` (the Pallas
-kernels ``_epilogue_kernel`` / ``_epilogue_kernel_t``).  The wrapper runs the
-plain version below for tensors on the CPU, and the CUDA kernel
-``csrc/se_epilogue.cu`` (through ``epilogue_cuda.py``) for tensors on a CUDA
-device; there is no fallback from one to the other.
+kernels ``_epilogue_kernel`` / ``_epilogue_kernel_t``).  The wrapper calls the
+``se_epilogue`` operator (``ops/library.py``), which runs the plain version
+below for tensors on the CPU, and the CUDA kernel ``csrc/se_epilogue.cu``
+(through ``epilogue_cuda.py``) for tensors on a CUDA device; there is no
+fallback from one to the other.
 
 Rounding points follow the TPU kernel (epilogue_pallas.py:226-252): the
 residual add and GELU run in fp32 and ``y`` is rounded to the map dtype; the
@@ -19,10 +20,12 @@ reference's ``se.fc.1``/``se.fc.3`` 1x1 convs: ``w1`` (C/2, C), ``w2`` (C, C/2).
 
 from __future__ import annotations
 
-from typing import Optional
+from typing import Optional, Union
 
 import torch
 import torch.nn.functional as F
+
+from .dropout import SeedStream, keep_mask_plain
 
 
 def se_epilogue_ref(x: torch.Tensor, identity: torch.Tensor,
@@ -60,31 +63,42 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
                 w1: torch.Tensor, b1: torch.Tensor,
                 w2: torch.Tensor, b2: torch.Tensor,
                 drop_rate: float = 0.0,
-                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+                generator: Union[torch.Generator, SeedStream, None] = None) -> torch.Tensor:
     """Fused ``SE(dropout(gelu(x + identity)))``; returns the scaled map.
 
-    CPU tensors take :func:`se_epilogue_ref`.  CUDA tensors launch the CUDA
+    Goes through the ``se_epilogue`` operator (``ops/library.py``): CPU
+    tensors take :func:`se_epilogue_ref`, CUDA tensors launch the CUDA
     kernel, which takes ``channels_last`` maps in fp32 or bf16 and raises on
-    anything else.  ``drop_rate > 0`` needs ``generator`` (on the tensors'
-    device): it supplies the mask on the CPU and the kernel's Philox seed on
-    the card.  The kernel has no backward, so on the card a call that
-    autograd would record raises.
+    anything else.  ``drop_rate > 0`` needs ``generator``: a
+    ``torch.Generator`` on the tensors' device supplies the mask on the CPU
+    (the plain version, called directly) and the kernel's Philox seed on the
+    card; a :class:`~.dropout.SeedStream` (the seed route) supplies the seed
+    and the site's counter base on both devices, so both draw the same mask.
+    The kernel has no backward, so on the card a call that autograd would
+    record raises; on the CPU such a call takes the plain version directly.
     """
+    from .prepared import check_no_grad, records_grad
+
     if drop_rate > 0.0 and generator is None:
         raise ValueError("drop_rate > 0 requires a generator")
-    if x.device.type == "cpu":
-        return se_epilogue_ref(x, identity, w1, b1, w2, b2, drop_rate,
-                               generator=generator)
-    if x.device.type != "cuda":
-        raise ValueError(f"se_epilogue: unsupported device {x.device}")
-    from .epilogue_cuda import draw_seed, launch_se_epilogue
-    from .prepared import check_no_grad
+    params = (w1, b1, w2, b2)
+    seed, base = None, 0
+    if drop_rate > 0.0 and isinstance(generator, SeedStream):
+        seed, base = generator.seed, generator.take(x.numel())
+    elif drop_rate > 0.0:
+        if x.device.type == "cpu":
+            return se_epilogue_ref(x, identity, *params, drop_rate, generator=generator)
+        if x.device.type == "cuda":
+            from .epilogue_cuda import draw_seed
 
-    check_no_grad("se_epilogue", x, identity, w1, b1, w2, b2)
-    seed = draw_seed(generator, x.device) if drop_rate > 0.0 else None
-    out = launch_se_epilogue(x, identity, w1, b1, w2, b2, drop_rate, seed)
-    se_epilogue.launches += 1
-    return out
+            seed = draw_seed(generator, x.device)
+    if x.device.type == "cpu" and records_grad(x, identity, *params):
+        keep = keep_mask_plain(x.shape, drop_rate, seed, base) if seed is not None else None
+        return se_epilogue_ref(x, identity, *params, drop_rate, keep=keep)
+    if x.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"se_epilogue: unsupported device {x.device}")
+    check_no_grad("se_epilogue", x, identity, *params)
+    return torch.ops.dmf.se_epilogue(x, identity, *params, drop_rate, seed, base)
 
 
 se_epilogue.launches = 0

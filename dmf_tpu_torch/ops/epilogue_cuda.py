@@ -6,7 +6,8 @@ kernel is ``csrc/se_epilogue.cu`` (its note gives the design): a split pool
 over (sample, pixel block) in three kernels that one ctypes call enqueues.
 This module plans the launch (vector width, pixels per block, samples per
 MLP block), checks the maps, allocates the output and the scratch, and keeps
-the dropout's seed and keep mask beside a plain numpy Philox4x32-10 that the
+the dropout's seed and the keep-mask launch (the seed route's dropout outside
+the epilogue, ``ops/dropout.py``) beside a plain numpy Philox4x32-10 that the
 tests hold the kernel's bits against.
 
 Deliberately not carried over from the TPU: the ``(H, W, B, C)`` layout
@@ -39,7 +40,7 @@ def _library() -> ctypes.CDLL:
     lib = load_library("se_epilogue", _SOURCES)
     fn = lib.se_epilogue_launch
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                   + [ctypes.c_longlong] * 2 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     km = lib.keep_mask_launch
@@ -102,8 +103,10 @@ def plan(n: int, hw: int, c: int, esize: int, aligned: bool,
 def launch_se_epilogue(x: torch.Tensor, identity: torch.Tensor,
                        w1: torch.Tensor, b1: torch.Tensor,
                        w2: torch.Tensor, b2: torch.Tensor,
-                       drop_rate: float, seed: Optional[torch.Tensor]) -> torch.Tensor:
-    """Launch the kernel on channels_last (N, C, H, W) fp32/bf16 maps."""
+                       drop_rate: float, seed: Optional[torch.Tensor],
+                       base: int = 0) -> torch.Tensor:
+    """Launch the kernel on channels_last (N, C, H, W) fp32/bf16 maps; the
+    dropout's Philox counters start at ``base`` (a multiple of 4)."""
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:
         raise ValueError(f"se_epilogue: need a 4-D fp32/bf16 map, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -124,6 +127,8 @@ def launch_se_epilogue(x: torch.Tensor, identity: torch.Tensor,
     drop = drop_rate > 0.0
     if drop and (seed is None or seed.device != x.device or seed.dtype != torch.int64):
         raise ValueError("se_epilogue: dropout needs an int64 seed on x's device")
+    if base < 0 or base % 4:
+        raise ValueError(f"se_epilogue: counter base {base} is not a multiple of 4")
     scale = _drop_scale(drop_rate, dt) if drop else 1.0
     out = torch.empty_like(x)
     hw = h * w
@@ -138,24 +143,35 @@ def launch_se_epilogue(x: torch.Tensor, identity: torch.Tensor,
         rc = lib.se_epilogue_launch(
             int(dt == torch.bfloat16), vec, x.data_ptr(), identity.data_ptr(), out.data_ptr(),
             w1m.data_ptr(), b1v.data_ptr(), w2t.data_ptr(), b2v.data_ptr(), scratch.data_ptr(),
-            scratch.data_ptr() + n * nb * c * 4, seed.data_ptr() if drop else None, n, hw, c,
-            mid, p_blk, group, 1.0 - drop_rate, scale, int(drop), stream)
+            scratch.data_ptr() + n * nb * c * 4, seed.data_ptr() if drop else None, base, n, hw,
+            c, mid, p_blk, group, 1.0 - drop_rate, scale, int(drop), stream)
     if rc != 0:
         raise RuntimeError(f"se_epilogue: kernel launch failed (CUDA error {rc})")
     return out
 
 
+def seed_order_empty(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
+    """An empty tensor shaped like ``x`` whose memory order is the seed
+    route's element order: channels-last for a 4-D tensor (the epilogue
+    kernel's NHWC index), row-major otherwise."""
+    fmt = torch.channels_last if x.dim() == 4 else torch.contiguous_format
+    return torch.empty(x.shape, dtype=dtype, device=x.device, memory_format=fmt)
+
+
 def keep_mask(x: torch.Tensor, drop_rate: float, seed: torch.Tensor,
               base: int = 0) -> torch.Tensor:
-    """Test-only: the keep mask the epilogue kernel draws for ``x`` and ``seed``.
-
-    Emitted by a small kernel through the same keep test, element for element
-    in ``x``'s channels-last order, the first element taken as element
-    ``base`` of the folded batch; returns a bool tensor shaped like ``x``.
-    It is not a launch of the epilogue kernel and is not counted.
-    """
-    _check_map(x, x, "x")
-    mask = torch.empty_like(x, dtype=torch.int8)
+    """The keep mask the epilogue kernel draws for ``x``'s elements under
+    ``seed``, element ``i`` of the seed order (:func:`seed_order_empty`)
+    taking Philox counter ``base + i``: a bool tensor shaped like ``x`` in
+    that memory order, written by a small kernel through the epilogue's keep
+    test.  It is not a launch of the epilogue kernel."""
+    if not 0.0 <= drop_rate < 1.0:
+        raise ValueError(f"keep_mask: drop_rate {drop_rate} outside [0, 1)")
+    if seed.device != x.device or seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError("keep_mask: need one int64 seed on x's device")
+    if base < 0:
+        raise ValueError(f"keep_mask: negative counter base {base}")
+    mask = seed_order_empty(x, torch.bool)  # the kernel writes 0 / 1 bytes
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
@@ -163,7 +179,7 @@ def keep_mask(x: torch.Tensor, drop_rate: float, seed: torch.Tensor,
                                   1.0 - drop_rate, stream)
     if rc != 0:
         raise RuntimeError(f"keep_mask: kernel launch failed (CUDA error {rc})")
-    return mask.bool()
+    return mask
 
 
 # ------------------------------------------------------- plain numpy Philox

@@ -5,8 +5,9 @@ and its custom VJP (:261-277): the forward kernel ``_flash_kernel`` and the
 backward kernels ``_bwd_dq_kernel`` / ``_bwd_dkv_kernel``.  The wrapper runs
 the plain version below for tensors on the CPU, and the CUDA kernels in
 ``csrc/flash_attention.cu`` for tensors on a CUDA device, as a
-``torch.autograd.Function`` whose forward launches the forward kernel and
-whose backward computes ``delta = rowsum(dO * O)`` in plain torch (the JAX
+``torch.autograd.Function`` whose forward launches the forward kernel through
+its ``torch.library`` operator (``ops/library.py``, so that ``torch.export``
+traces it) and whose backward computes ``delta = rowsum(dO * O)`` in plain torch (the JAX
 package leaves it to XLA, :189-192) and launches the dQ and dK/dV kernels.
 There is no fallback from one to the other.
 
@@ -126,8 +127,8 @@ def _scratch(like: torch.Tensor, images: int) -> torch.Tensor:
     return torch.empty(n, device=like.device, dtype=torch.float32)
 
 
-def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward kernel on (BH, N, D) CUDA tensors: ``(out, lse)``.
 
     fp32 takes a scratch tensor of 4 x k's size for the split K/V tiles.
@@ -139,8 +140,16 @@ def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     _launch(_library().flash_fwd_launch, q, q.data_ptr(), k.data_ptr(), v.data_ptr(),
             out.data_ptr(), lse.data_ptr(), scratch.data_ptr(), nq=q.shape[1], nk=k.shape[1],
             scale=scale)
-    flash_attention.launches += 1
     return out, lse
+
+
+def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                  scale: float) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The forward over (BH, N, D) tensors, ``(out, lse)``, through the
+    ``flash_forward`` operator (``ops/library.py``): the kernel for CUDA
+    tensors (counted in ``flash_attention.launches``), the plain version for
+    CPU ones."""
+    return torch.ops.dmf.flash_forward(q, k, v, scale)
 
 
 def _check_backward(q, k, v, dout, lse, delta) -> None:

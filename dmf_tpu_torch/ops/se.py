@@ -1,10 +1,11 @@
 """Standalone squeeze-excitation ``(x * s, s)``: wrapper and plain version.
 
 Counterpart of ``dmf_tpu/ops/se_pallas.py::se_scale`` (the Pallas kernel
-``_se_kernel``), which ``SEBlock(fused=True)`` reaches.  The wrapper runs the
-plain version below for tensors on the CPU, and the CUDA kernel
-``csrc/se_scale.cu`` (through ``se_cuda.py``) for tensors on a CUDA device;
-there is no fallback from one to the other.
+``_se_kernel``), which ``SEBlock(fused=True)`` reaches.  The wrapper calls the
+``se_scale`` operator (``ops/library.py``), which runs the plain version below
+for tensors on the CPU, and the CUDA kernel ``csrc/se_scale.cu`` (through
+``se_cuda.py``) for tensors on a CUDA device; there is no fallback from one to
+the other.
 
 Rounding points follow the TPU kernel (se_pallas.py:112-127): weights and
 biases are cast to the map dtype; the pool is an fp32 sum rounded to the map
@@ -43,23 +44,21 @@ def se_scale(x: torch.Tensor, w1: torch.Tensor, b1: torch.Tensor,
              w2: torch.Tensor, b2: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """``(x * sigmoid(W2 gelu(W1 pool(x) + b1) + b2), s)``.
 
-    CPU tensors take :func:`se_scale_ref`.  CUDA tensors launch the CUDA
-    kernel, which takes ``channels_last`` fp32 or bf16 maps and raises on
-    anything else; the output is ``channels_last``.  The kernel has no
-    backward, so on the card a call that autograd would record raises.
+    Goes through the ``se_scale`` operator (``ops/library.py``): CPU tensors
+    take :func:`se_scale_ref` (directly where autograd would record the
+    call).  CUDA tensors launch the CUDA kernel, which takes
+    ``channels_last`` fp32 or bf16 maps and raises on anything else; the
+    output is ``channels_last``.  The kernel has no backward, so on the card
+    a call that autograd would record raises.
     """
-    if x.device.type == "cpu":
+    from .prepared import check_no_grad, records_grad
+
+    if x.device.type == "cpu" and records_grad(x, w1, b1, w2, b2):
         return se_scale_ref(x, w1, b1, w2, b2)
-    if x.device.type != "cuda":
+    if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"se_scale: unsupported device {x.device}")
-    from .prepared import check_no_grad
-    from .se_cuda import launch_se_scale
-
     check_no_grad("se_scale", x, w1, b1, w2, b2)
-
-    out = launch_se_scale(x, w1, b1, w2, b2)
-    se_scale.launches += 1
-    return out
+    return torch.ops.dmf.se_scale(x, w1, b1, w2, b2)
 
 
 se_scale.launches = 0

@@ -10,9 +10,12 @@ plane (plateau or warmup-cosine lr, the per-group lr and trainable flags per
 epoch, early stopping with ``min_epochs``, the aux-loss weight schedule, the
 best checkpoint, the rolling resume checkpoint every ``ROLL_EVERY`` epochs).
 Under ``cfg.debug_training`` both print the optimizer groups and the first
-batch's input statistics, as the JAX loops do.  The mask visualisation the
-JAX loops draw at the same epochs waits for ``utils/visualize`` (ROADMAP
-1.7) and is not drawn.
+batch's input statistics, as the JAX loops do.  Every ``viz_every`` epochs
+(JAX's epochs: 0, 10, ...) where the mask head is on and the validation
+split has masks, both draw the mask triptych of one validation sample
+(``utils/visualize.py``, the JAX loops' :314-338 and :544-575) to
+``{workdir}/viz/epoch_{epoch:04d}.png``, after the epoch's timed steps and
+validation; a failure to draw raises.
 
 On a CUDA device each train step records three CUDA events (before the batch
 preparation, between it and the step, after the step); their times come back
@@ -33,10 +36,12 @@ from ..config import Config
 from ..data.modality import ModalityProcessor
 from ..data.pipeline import ArrayDataset, device_data_auto, iterate_batches
 from ..evals.metrics import MeanMetric, classification_report
+from ..evals.predict import to_model
 from ..losses import get_classification_loss_fn, get_mask_loss_fn
 from ..models.build import init_weights
 from ..utils.checkpoint import BestCheckpointer, RollingSaver, load_checkpoint
 from ..utils.logging import MetricLogger, input_stats
+from ..utils.visualize import visualize_mask_triplet
 from .fusion import make_fusion_eval_step, make_fusion_train_step
 from .optim import (FusionOptController, SingleModelOptController, build_fusion_group_spec,
                     build_group_spec, describe_groups)
@@ -46,8 +51,9 @@ from .single import make_single_eval_step, make_single_train_step
 from .state import TrainState
 
 
-# epochs between rolling resume checkpoints (the JAX loop's ``viz_every``
-# default, which paces both its mask figure and its rolling save)
+# epochs between rolling resume checkpoints: the JAX loop's ``viz_every``
+# default, which paces both its mask figure and its rolling save; here the
+# figure has its own ``viz_every`` and the save keeps these epochs
 ROLL_EVERY = 10
 
 
@@ -84,7 +90,7 @@ def fit_single(cfg: Config, method: str, state: TrainState,
                processor: ModalityProcessor, controller: SingleModelOptController,
                workdir: str, clf_loss_fn=None, num_epochs: Optional[int] = None,
                min_epochs: Optional[int] = None, seed: int = 0,
-               resume_from: Optional[str] = None) -> FitResult:
+               resume_from: Optional[str] = None, viz_every: int = 10) -> FitResult:
     """Train one encoder; returns the final and best states and the history.
 
     ``train_data``/``val_data``: raw (unprocessed) ``imgs``, optional
@@ -92,10 +98,12 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     ``resume_from``: a checkpoint to restore first (``load_checkpoint``).
     Augmentation and dropout draw from generators on the model's device
     seeded from ``seed``; the shuffle is ``np.random.RandomState(seed)``, the
-    JAX loop's order.
+    JAX loop's order.  Every ``viz_every`` epochs (0: never) the mask
+    triptych of the first validation sample is drawn.
     """
     run = single_fit_run(cfg, method, state, train_data, val_data, processor, controller,
-                         workdir, clf_loss_fn, num_epochs, min_epochs, seed, resume_from)
+                         workdir, clf_loss_fn, num_epochs, min_epochs, seed, resume_from,
+                         viz_every)
     return drive_lockstep([run])[0]
 
 
@@ -105,7 +113,7 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
                    processor: ModalityProcessor, controller: SingleModelOptController,
                    workdir: str, clf_loss_fn=None, num_epochs: Optional[int] = None,
                    min_epochs: Optional[int] = None, seed: int = 0,
-                   resume_from: Optional[str] = None) -> "FitRun":
+                   resume_from: Optional[str] = None, viz_every: int = 10) -> "FitRun":
     """The :class:`FitRun` of :func:`fit_single` (same arguments), not yet
     driven.  ``clf_loss_fn`` defaults to the classification loss with the
     class weights of ``train_data``'s labels."""
@@ -135,16 +143,25 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
             proc["masks"] = batch["masks"]
         return proc, proc["imgs"]
 
+    def draw(path: str, title: str) -> None:
+        with torch.no_grad():
+            _, _, mask_pred = model(to_model(val_imgs[:1], model))
+        visualize_mask_triplet(_host(val_imgs[0]), _host(val_data["masks"][0]),
+                               _host(mask_pred[0].permute(1, 2, 0)), path,
+                               title_prefix=f"{title}, sample: ")
+
+    drawn = viz_every if mc.mask.enabled and val_data.get("masks") is not None else 0
     return FitRun(cfg, mc.scheduler, mc.optimizer.lr, state, spec, controller,
                   make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec),
                   make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn),
-                  train_ds, val_ds, prepare, workdir, num_epochs, min_epochs, seed)
+                  train_ds, val_ds, prepare, workdir, num_epochs, min_epochs, seed,
+                  draw, drawn)
 
 
 def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np.ndarray]],
                val_data: Dict[str, Optional[np.ndarray]], workdir: str, clf_loss_fn=None,
                num_epochs: Optional[int] = None, min_epochs: Optional[int] = None,
-               seed: int = 0) -> FitResult:
+               seed: int = 0, viz_every: int = 10) -> FitResult:
     """Train the fusion network (``state.model``, a
     :class:`~.fusion.FusionNetwork`) with the gradual deep->shallow unfreeze
     of :class:`~.optim.FusionOptController`; returns the final and best
@@ -153,7 +170,10 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     ``train_data``/``val_data``: **processed** ``dwi`` and ``dce`` stacks
     (the splits ``export_processed_splits`` writes), optional ``masks``, and
     ``labels``.  Dropout draws from a generator on the model's device seeded
-    from ``seed``; the shuffle is ``np.random.RandomState(seed)``.
+    from ``seed``; the shuffle is ``np.random.RandomState(seed)``.  Every
+    ``viz_every`` epochs (0: never) the fused mask head's triptych of the
+    first validation sample is drawn (the hook the reference leaves
+    single-model-only, train.py:706-714).
     """
     fp = cfg.fusion_model
     if clf_loss_fn is None:
@@ -168,11 +188,21 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     def prepare(batch):
         return batch, batch["dwi"]
 
+    def draw(path: str, title: str) -> None:
+        net = state.model
+        with torch.no_grad():
+            _, fused_mask, _, _ = net(to_model(val_data["dwi"][:1], net),
+                                      to_model(val_data["dce"][:1], net))
+        visualize_mask_triplet(_host(val_data["dwi"][0]), _host(val_data["masks"][0]),
+                               _host(fused_mask[0].permute(1, 2, 0)), path,
+                               title_prefix=f"{title}, fused mask: ")
+
+    drawn = viz_every if fp.mask.enabled and val_data.get("masks") is not None else 0
     run = FitRun(cfg, fp.scheduler, fp.optimizer.lr, state, spec, FusionOptController(cfg),
                  make_fusion_train_step(cfg, clf_loss_fn, mask_loss_fn, spec),
                  make_fusion_eval_step(cfg, clf_loss_fn, mask_loss_fn),
                  dataset(train_data), dataset(val_data), prepare, workdir, num_epochs,
-                 min_epochs, seed)
+                 min_epochs, seed, draw, drawn)
     return drive_lockstep([run])[0]
 
 
@@ -184,14 +214,18 @@ class FitRun:
     ``prepare(batch) -> (step batch, the inputs whose statistics the first
     batch prints)``.  Dropout draws from a generator on the model's device
     seeded with ``seed + 1``; the shuffle is ``np.random.RandomState(seed)``.
+    ``draw(path, title)`` writes the mask triptych at the epochs that are
+    multiples of ``viz_every`` (0: never).
     """
 
     def __init__(self, cfg: Config, scheduler_cfg, base_lr: float, state: TrainState, spec,
                  controller, train_step, eval_step, train_ds: ArrayDataset,
                  val_ds: ArrayDataset, prepare: Callable, workdir: str,
-                 num_epochs: Optional[int], min_epochs: Optional[int], seed: int):
+                 num_epochs: Optional[int], min_epochs: Optional[int], seed: int,
+                 draw: Optional[Callable[[str, str], None]] = None, viz_every: int = 0):
         self.cfg, self.scheduler_cfg, self.state, self.controller = (cfg, scheduler_cfg,
                                                                       state, controller)
+        self.workdir, self.draw, self.viz_every = workdir, draw, viz_every
         self.train_step, self.eval_step, self.prepare = train_step, eval_step, prepare
         self.train_ds, self.val_ds = train_ds, val_ds
         device = next(state.model.parameters()).device
@@ -306,6 +340,10 @@ class FitRun:
         elif not isinstance(scheduler, WarmupCosine):  # that one steps per step
             self.controller.lr_scale = scheduler.step_scale(epoch)
 
+        # ---- the mask triptych (train.py:706-714), outside the timed steps ----
+        if self.draw is not None and self.viz_every and epoch % self.viz_every == 0:
+            self.draw(f"{self.workdir}/viz/epoch_{epoch:04d}.png", f"Epoch {epoch}")
+
         if self.ckpt.maybe_save(self.state, epoch_metrics, epoch):
             self.best_state = self.state.copy()
         if epoch % ROLL_EVERY == 0:
@@ -321,6 +359,13 @@ class FitRun:
         return FitResult(state=self.state, best_state=self.best_state, history=self.history,
                          train_metrics=self.history[-1] if self.history else {},
                          step_ms=self.step_ms)
+
+
+def _host(x) -> np.ndarray:
+    """A tensor (on any device) or array as a float32 numpy array."""
+    if isinstance(x, torch.Tensor):
+        return x.detach().float().cpu().numpy()
+    return np.asarray(x, np.float32)
 
 
 def drive_lockstep(runs: Sequence[FitRun]) -> List[FitResult]:

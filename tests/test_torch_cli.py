@@ -14,7 +14,8 @@ geometry (32^2, channels (8, 16, 32), no backbone, batch 8).
 * ``run --parallel-folds --folds 0 1`` gives the sequential run's summary,
   ``metrics.json`` (wall times aside) and best checkpoints, bit for bit.
 * ``--device`` defaults to ``cuda`` and does not fall back to the CPU;
-  ``--mesh`` raises; ``bench`` and ``export-serving`` are not registered.
+  ``--mesh`` raises; ``bench`` is not registered, ``export-serving`` needs
+  its ``--out`` (its runs are in ``test_torch_serving.py``).
 """
 
 import contextlib
@@ -59,8 +60,8 @@ def runs(tmp_path_factory):
     """Both packages' ``run`` of fold 0 with the fusion stage, one after the
     other on one base path (each run's processed splits and Nyul landmarks
     removed before the next).  The JAX loops' mask triptychs are not drawn:
-    the port draws none (ROADMAP 1.7), and matplotlib's first layout takes
-    tens of seconds."""
+    matplotlib's first layout takes tens of seconds (the port's triptychs
+    are held against JAX's panels in ``test_torch_utils.py``)."""
     tmp = tmp_path_factory.mktemp("cli")
     with pytest.MonkeyPatch.context() as mp:
         mp.setattr(visualize, "visualize_mask_triplet", lambda *a, **k: None)
@@ -269,8 +270,14 @@ def test_parallel_folds_over_one_fold_runs(tmp_path):
 
 @pytest.mark.parametrize("command", ["bench", "export-serving"])
 def test_unported_commands_are_not_registered(command):
-    with pytest.raises(SystemExit), contextlib.redirect_stderr(io.StringIO()):
+    """``bench`` is not registered (ROADMAP 1.1); ``export-serving`` is
+    ported and exits without its required ``--out``."""
+    err = io.StringIO()
+    with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
         cli.main([command])
+    expect = ("invalid choice" if command == "bench"
+              else "the following arguments are required: --out")
+    assert expect in err.getvalue()
 
 
 def test_ref_params_json_and_pth(tmp_path):

@@ -544,8 +544,8 @@ def test_multifold_epoch_on_card(dev, tmp_path):
     """One epoch of K=2 folds through ``fit_single_multifold`` at toy width
     against ``fit_single`` per fold, deterministic algorithms: the histories
     (wall times aside) and the final parameters bit-equal, the train steps
-    timed per fold by CUDA events, and the validation on the served route
-    (kernels 1 and 6 launched)."""
+    timed per fold by CUDA events, and the validation and the epoch-0 mask
+    triptych on the served route (kernels 1 and 6 launched)."""
     import copy
 
     import numpy as np
@@ -594,4 +594,60 @@ def test_multifold_epoch_on_card(dev, tmp_path):
         assert all(torch.equal(so[k], st[k]) for k in st)
     assert [o.state.step for o in ours] == [3, 4]
     _deterministic(par)
-    assert k1.se_epilogue.launches == 2 * 3 * 2 and se.se_scale.launches == 2 * 2
+    # per fold: 2 validation batches and the triptych's forward of one sample
+    assert k1.se_epilogue.launches == 2 * 3 * 3 and se.se_scale.launches == 2 * 3
+
+
+def test_serving_artifact_on_card(dev, tmp_path):
+    """The fusion serving program exported on the card (toy widths, a
+    (1, 1, 1, 1) ResNet-50, fp32, ``tta_mc``), saved and reloaded: one
+    request launches each kernel operator as often as the graph holds its
+    node; the same seed gives the same bits, another seed other numbers; and
+    the request agrees with the CPU export of the same weights and seed
+    (the same dropout masks) within 1e-4."""
+    import copy
+    import dataclasses
+
+    from dmf_tpu_torch import default_parameters, resolve_backbone_config
+    from dmf_tpu_torch.models import build_fusion_models
+    from dmf_tpu_torch.ops import library
+    from dmf_tpu_torch.serving import (export_program, export_serving, load_serving,
+                                       make_serving_fn, operator_nodes, serving_variables)
+
+    cfg = default_parameters(mc_passes=3)
+    mc = resolve_backbone_config(dataclasses.replace(
+        cfg.dwi_model, input_size=32, channels=(8, 16, 32), proj_dim=8, dropout=0.3))
+    fs = dataclasses.replace(cfg.fusion_model.fusion_specific, fusion_channels=16,
+                             dwi_out_channels=32, dce_out_channels=32)
+    cfg = cfg.replace(dwi_model=mc, dce_model=mc,
+                      fusion_model=dataclasses.replace(mc, fusion_specific=fs))
+    cpu = build_fusion_models(cfg, "cpu", torch.float32, torch.Generator().manual_seed(0),
+                              backbone_layers=(1, 1, 1, 1))
+    card = [copy.deepcopy(m).to(dev).to(memory_format=torch.channels_last) for m in cpu]
+    g = torch.Generator().manual_seed(1)
+    xd = torch.rand(2, 32, 32, cfg.dwi_channel_num, generator=g)
+    xc = torch.rand(2, 32, 32, cfg.dce_channel_num, generator=g)
+
+    def args(models, device, seed=5):
+        return (serving_variables(*models), xd.to(device), xc.to(device),
+                torch.tensor(seed, dtype=torch.int64, device=device))
+
+    fn = make_serving_fn(cfg, *card, mode="tta_mc")
+    nodes = operator_nodes(export_program(fn, args(card, dev)))
+    assert nodes == dict.fromkeys(library.OPERATORS, 0) | {
+        "se_epilogue": 12, "keep_mask": 12, "conv3x3_bn_gelu": 12, "se_scale": 4}
+    path = str(tmp_path / "tta_mc.pt2")
+    export_serving(fn, args(card, dev), path=path)
+    served = load_serving(path)
+    library.reset_launch_counts()
+    mean, std = served(*args(card, dev))
+    torch.cuda.synchronize()
+    assert library.launch_counts() == nodes
+    again = served(*args(card, dev))
+    assert torch.equal(mean, again[0]) and torch.equal(std, again[1])
+    assert not torch.equal(mean, served(*args(card, dev, seed=6))[0])
+    assert torch.isfinite(mean).all() and (std > 0).all()
+    on_cpu = load_serving(export_serving(make_serving_fn(cfg, *cpu, mode="tta_mc"),
+                                         args(cpu, "cpu")))(*args(cpu, "cpu"))
+    for got, ref in zip((mean, std), on_cpu):
+        assert (got.cpu() - ref).abs().max().item() <= 1e-4
