@@ -4,7 +4,7 @@
 
 Phases, each printing its own lines:
   1. card identity (nvidia-smi name and power limit, torch and CUDA versions);
-  2. kernel build from the sources in this checkout (the six CUDA
+  2. kernel build from the sources in this checkout (the eight CUDA
      libraries by nvcc and the native host library by g++, in parallel),
      with ptxas registers, spills and static shared memory, and the wgmma
      kernels' dynamic shared memory;
@@ -62,9 +62,9 @@ Phases, each printing its own lines:
   6. a profiler breakdown of one more ``tta_mc`` and one ``hybrid-nb``
      ``normal`` request;
   7. training at full width, a whole fold of the default config (dilated
-     ResNet-50 encoders, 256^2, fp32 with TF32 off): 7a six train steps at
+     ResNet-50 encoders, 256^2, fp32 with TF32 off): 7a four train steps at
      B=2 on the card and on the CPU from the same weights and processed
-     batches, three with the backbone group frozen and three after its
+     batches, two with the backbone group frozen and two after its
      unfreeze, the per-step losses and then the parameters and BatchNorm
      statistics beside their tolerances (against the disagreement of two CPU
      memory formats), with the launches per train step (none of kernels 1,
@@ -160,6 +160,24 @@ Phases, each printing its own lines:
      the ``tta_mc`` program in fp32 at B=1 exported on the card and on the
      CPU (the same weights, seed and masks) within 1e-4; the operator
      layer's host microseconds per call against the ``ctypes`` launch;
+  12. int8 serving (``ops/quant.py``) of the default config at full width in
+     bf16, its QuantSets from the fp32 weights (the copies' scales and biases
+     checked fp32), calibrated with MC dropout on 4 preprocessed volumes of a
+     separate draw: 12a the int8 conv (``csrc/int8_conv.cu``) at every distinct
+     quantized conv shape of a ``tta_mc`` request at B=8 (the prefix at 32
+     views, the suffix at the lean chunk's 288 maps and the last pass's 32),
+     int32 and dequantized bf16 bit-equal to the plain version, with its time,
+     TOP/s, bound, the plain version's, cuDNN's bf16 conv's and, at the 1x1
+     stride-1 sites, ``torch._int_mm``'s, and ptxas's registers; 12b the
+     quantize and abs-max kernels (``csrc/int8_quantize.cu``) bit-equal at
+     every distinct conv input; 12c int8, fp and int8-prefix hybrid
+     ``tta_mc`` requests of B=8 raw volumes in turns on the same inputs and
+     masks (5 each): median latency, argmax agreement, mean and std errors
+     against fp, launches per request; 12d int8 ``tta`` at B=1 in fp32 with
+     dynamic scales, card vs CPU; 12e ``test_fusion_model(int8=True,
+     calibration_data=val)`` on phase 8's trained fold; 12f the int8
+     ``tta_mc`` serving artifact in a fresh process, bit-equal to the eager
+     int8 seed-route predictor;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -213,6 +231,8 @@ from dmf_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from dmf_tpu_torch.ops import library  # noqa: E402
 from dmf_tpu_torch.ops import histogram as hist  # noqa: E402
 from dmf_tpu_torch.ops import se as sek  # noqa: E402
+from dmf_tpu_torch.ops import quant as int8q  # noqa: E402
+from dmf_tpu_torch.ops import quant_cuda as int8_cuda  # noqa: E402
 from dmf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: E402
 from dmf_tpu_torch.data.modality import ModalityProcessor  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_single_predictor, to_model  # noqa: E402
@@ -425,7 +445,10 @@ COUNTERS = {"se_epilogue": (k1.se_epilogue, "launches"),
             "flash_attention_bwd_dkv": (fa.flash_attention, "launches_dkv"),
             "se_scale": (sek.se_scale, "launches"),
             "dwi_normalize": (dwi_norm.dwi_normalize, "launches"),
-            "histogram_percentiles": (hist.histogram_percentiles, "launches")}
+            "histogram_percentiles": (hist.histogram_percentiles, "launches"),
+            "int8_conv": (int8q.int8_conv, "launches"),
+            "int8_quantize": (int8q.quantize, "launches"),
+            "int8_abs_max": (int8q.abs_max, "launches")}
 
 
 def reset_counts():
@@ -466,7 +489,8 @@ def phase_build():
     t0 = time.perf_counter()
     libs = {"conv3x3_bn_gelu": k2._library, "flash_attention": fa._library,
             "histogram_percentiles": hist._library, "se_epilogue": epilogue_cuda._library,
-            "se_scale": se_cuda._library, "dwi_norm": dwi_norm_cuda._library}
+            "se_scale": se_cuda._library, "dwi_norm": dwi_norm_cuda._library,
+            "int8_conv": int8_cuda._conv_library, "int8_quantize": int8_cuda._quant_library}
     # one nvcc per source and the host library's g++, all together
     with ThreadPoolExecutor(len(libs) + 1) as pool:
         for f in [pool.submit(build) for build in (*libs.values(), native.load)]:
@@ -1911,7 +1935,7 @@ def phase_profile(name, request):
 # ------------------------------------------------------------------ phase 7
 # single-modality training of the default DWI encoder (ResNet-50 at 256^2, fp32)
 B_TRAIN_PARITY = 2
-PARITY_STEPS = 3  # per epoch: 3 steps with the backbone frozen, 3 after its unfreeze
+PARITY_STEPS = 2  # per epoch: 2 steps with the backbone frozen, 2 after its unfreeze
 # card vs CPU after the steps (fp32, TF32 off): per-step losses rel 1e-3 (the
 # ROADMAP's train-step tolerance).  The parameters and BatchNorm statistics are
 # held against the disagreement of two CPU runs that differ only in memory
@@ -3676,6 +3700,420 @@ def phase_serving(cfg, hcfg, tmp, smi):
     return launched
 
 
+# ------------------------------------------------------------------ phase 12
+INT8_REQUESTS = 5
+INT8_CALIB = 4  # preprocessed volumes of a draw apart from the requests' (bench.py:641-652)
+INT8_TOP_S = 1979e12  # H100 SXM dense int8 tensor-core rate
+INT8_CPU_TOL = 5e-3   # 12d: card vs CPU probabilities, fp32, dynamic scales
+INT8_KERNELS = ("int8_conv", "int8_quantize", "int8_abs_max")
+
+
+def int8_registers():
+    """``{(tile, vec): "R registers, S spill"}`` of the int8 conv's
+    instantiations, from ptxas's report in build.log."""
+    out, key = {}, None
+    for p in sorted(BUILD_DIR.glob("int8_conv-*/build.log")):
+        for line in p.read_text().splitlines():
+            m = re.search(r"int8_conv_kernelILi(\d+)ELb([01])E", line)
+            if m:
+                key = (int(m.group(1)), int(m.group(2)))
+            elif key and "spill stores" in line:
+                out[key] = line.strip().split(",")[1].strip()
+            elif key and "registers" in line:
+                out[key] = line.split("Used")[1].split(",")[0].strip() + ", " + out.get(key, "")
+    return out
+
+
+def conv_sites(predict, dx, cx, g_mc, modules):
+    """The int8 convs one request runs: ``{shape: calls}`` with shape
+    ``(N, Cin, H, W, O, kh, kw, stride, padding, dilation)``, and one module
+    of each shape (its int8 weight, scales and bias)."""
+    sites, mods, hooks = {}, {}, []
+
+    def hook(m, args):
+        n, c, h, w = args[0].shape
+        key = (n, c, h, w, m.out_channels, *m.kernel_size, tuple(m.stride), tuple(m.padding),
+               tuple(m.dilation))
+        sites[key] = sites.get(key, 0) + 1
+        mods.setdefault(key, m)
+
+    for model in modules:
+        hooks += [m.register_forward_pre_hook(hook) for m in model.modules()
+                  if isinstance(m, int8q.QuantConv2d)]
+    predict(dx, cx, g_mc)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return sites, mods
+
+
+def int8_conv_bound(key):
+    """``(operations, bytes, bound ms)`` of one int8 conv with a bf16 output."""
+    n, c, h, w, o, kh, kw, s, p, d = key
+    ho = int8_cuda.conv_out_size(h, kh, s[0], p[0], d[0])
+    wo = int8_cuda.conv_out_size(w, kw, s[1], p[1], d[1])
+    m, k = n * ho * wo, kh * kw * c
+    ops = 2 * m * o * k
+    nbytes = n * h * w * c + o * k + 2 * m * o + 4 * o
+    return ops, nbytes, max(ops / INT8_TOP_S, nbytes / HBM_BYTES_PER_S) * 1e3
+
+
+def phase_int8_kernels(sites, mods):
+    """12a and 12b: the int8 conv at every distinct shape of the request and
+    the quantize kernels at every distinct conv input, against their plain
+    versions (bit for bit), with times, bounds and yardsticks; returns the
+    kernels line's entries (times per request: each shape's time x its calls)."""
+    regs = int8_registers()
+    g = gen(91)
+    tot = dict.fromkeys(("ms", "plain", "bound", "bound_ops", "bound_bytes", "cudnn", "ops"), 0.0)
+    mm = dict.fromkeys(("ms", "lib", "bound"), 0.0)
+    log(f"  12a: {len(sites)} distinct int8 conv shapes, {sum(sites.values())} calls a request "
+        f"(N, Cin, HxW -> Cout, kernel, stride, padding, dilation; bf16 out)")
+    for key, calls in sorted(sites.items(), key=lambda kv: -int8_conv_bound(kv[0])[0]):
+        n, c, h, w, o, kh, kw, s, p, d = key
+        m = mods[key]
+        xq = cl(torch.randint(-127, 128, (n, c, h, w), device=DEV, generator=g, dtype=torch.int8))
+        xs = m.x_scale if m.x_scale is not None else torch.tensor(0.01, device=DEV)
+        args = (xq, m.weight_q, m.w_scale)
+        geo = (s, p, d)
+        acc = int8_cuda.launch_int8_conv(*args, None, None, *geo, torch.int32)
+        acc_ref = int8q.int8_conv_ref(*args, None, None, *geo, torch.int32)
+        y = int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo, torch.bfloat16)
+        y_ref = int8q.int8_conv_ref(*args, xs, m.bias, *geo, torch.bfloat16)
+        torch.cuda.synchronize()
+        if not (torch.equal(acc, acc_ref) and torch.equal(y, y_ref)):
+            raise AssertionError(f"int8 conv {key}: int32 equal {torch.equal(acc, acc_ref)}, "
+                                 f"bf16 equal {torch.equal(y, y_ref)}")
+        ops, nbytes, bound = int8_conv_bound(key)
+        t_k = cuda_time(lambda: int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo,
+                                                          torch.bfloat16))
+        t_p = cuda_time(lambda: int8q.int8_conv_ref(*args, xs, m.bias, *geo, torch.bfloat16),
+                        reps=1, trials=1)
+        xb = cl(xq.to(torch.bfloat16))
+        wb = m.weight_q.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
+            memory_format=torch.channels_last)
+        t_c = cuda_time(lambda: F.conv2d(xb, wb, None, s, p, d))
+        lib = ""
+        if kh == kw == 1 and s == (1, 1) and p == (0, 0):
+            a = xq.permute(0, 2, 3, 1).reshape(-1, c)
+            b = m.weight_q.reshape(o, c).t()
+            if not torch.equal(torch._int_mm(a, b), acc.permute(0, 2, 3, 1).reshape(-1, o)):
+                raise AssertionError(f"torch._int_mm disagrees with the int8 conv at {key}")
+            t_l = cuda_time(lambda: torch._int_mm(a, b))
+            mm["ms"] += t_k * calls
+            mm["lib"] += t_l * calls
+            mm["bound"] += bound * calls
+            lib = f", torch._int_mm {t_l:.4f} ({t_k / t_l:.2f}x)"
+        tot["ms"] += t_k * calls
+        tot["plain"] += t_p * calls
+        tot["bound"] += bound * calls
+        tot["bound_ops"] += ops / INT8_TOP_S * 1e3 * calls
+        tot["bound_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3 * calls
+        tot["cudnn"] += t_c * calls
+        tot["ops"] += ops * calls
+        tile = (int8_cuda.conv_tile(o), int(c % 16 == 0))
+        log(f"  12a ({n}, {c}, {h}x{w} -> {o}, {kh}x{kw}, s{s[0]}, p{p[0]}, d{d[0]}) x{calls}: "
+            f"int32 and bf16 bit-equal; kernel {t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s, "
+            f"{100 * bound / t_k:.1f} % of the bound {bound:.4f}), plain (float64) {t_p:.3f}, "
+            f"cuDNN bf16 conv {t_c:.4f} ({t_k / t_c:.2f}x){lib}; tile {tile[0]}"
+            f"{' cp.async' if tile[1] else ' byte gather'}: {regs.get(tile, 'no ptxas report')}")
+    log(f"  12a per request (each shape's time x its calls): int8 conv {tot['ms']:.3f} ms "
+        f"({tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, {100 * tot['bound'] / tot['ms']:.1f} % of "
+        f"the bound {tot['bound']:.3f}: operations {tot['bound_ops']:.3f}, bytes "
+        f"{tot['bound_bytes']:.3f}), plain {tot['plain']:.1f}, cuDNN's bf16 convs "
+        f"{tot['cudnn']:.3f} ({tot['ms'] / tot['cudnn']:.2f}x); at the 1x1 stride-1 sites "
+        f"{mm['ms']:.3f} against torch._int_mm's {mm['lib']:.3f} (bound {mm['bound']:.3f})")
+
+    # 12b: the quantize kernels at each distinct conv input of the request (bf16)
+    inputs = {}
+    for (n, c, h, w, *_), calls in sites.items():
+        inputs[(n, c, h, w)] = inputs.get((n, c, h, w), 0) + calls
+    q = dict.fromkeys(("ms", "plain", "bound", "amax_ms", "amax_plain", "amax_bound",
+                       "amax_lib"), 0.0)
+    for shape, calls in sorted(inputs.items()):
+        x = cl(torch.randn(*shape, device=DEV, generator=g).to(torch.bfloat16) * 3)
+        amax = int8_cuda.launch_abs_max(x)
+        scale = torch.clamp_min(amax, 1e-12) / 127.0
+        checks = [torch.equal(amax, int8q.abs_max_ref(x))]
+        for divide, sc in ((True, scale), (False, scale * 0.9)):
+            checks.append(torch.equal(int8_cuda.launch_quantize(x, sc, divide),
+                                      int8q.quantize_ref(x, sc, divide)))
+        if not all(checks):
+            raise AssertionError(f"int8 quantize at {shape}: abs_max, dynamic, static equal "
+                                 f"{checks}")
+        numel = x.numel()
+        t_q = cuda_time(lambda: int8_cuda.launch_quantize(x, scale, False))
+        t_qp = cuda_time(lambda: int8q.quantize_ref(x, scale, False))
+        t_a = cuda_time(lambda: int8_cuda.launch_abs_max(x))
+        t_ap = cuda_time(lambda: int8q.abs_max_ref(x))
+        t_al = cuda_time(lambda: torch.linalg.vector_norm(x, float("inf")))
+        b_q = (3 * numel + 8) / HBM_BYTES_PER_S * 1e3
+        b_a = (2 * numel + 4) / HBM_BYTES_PER_S * 1e3
+        for k_, v in (("ms", t_q), ("plain", t_qp), ("bound", b_q), ("amax_ms", t_a),
+                      ("amax_plain", t_ap), ("amax_bound", b_a), ("amax_lib", t_al)):
+            q[k_] += v * calls
+        log(f"  12b {shape} x{calls}: abs_max, dynamic and static quantize bit-equal; "
+            f"static quantize {t_q:.4f} ms ({3 * numel / t_q / 1e6:.1f} GB/s, "
+            f"{100 * b_q / t_q:.1f} % of the bound), plain {t_qp:.4f}; abs_max {t_a:.4f} "
+            f"({100 * b_a / t_a:.1f} %), plain {t_ap:.4f}, vector_norm(inf) {t_al:.4f}")
+    log(f"  12b per request: static quantize {q['ms']:.3f} ms (bound {q['bound']:.3f}, plain "
+        f"{q['plain']:.3f}); abs_max (the dynamic route) {q['amax_ms']:.3f} (bound "
+        f"{q['amax_bound']:.3f}, vector_norm {q['amax_lib']:.3f})")
+    bound_by = "operations" if tot["bound_ops"] >= tot["bound_bytes"] else "bytes"
+    return {
+        "int8_conv": {"ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": tot["bound"],
+                      "bound_by": bound_by, "library_ms": None, "max_abs_err": 0.0,
+                      "per": "int8 tta_mc request at B=8, bf16 (each shape x its calls)",
+                      "int_mm_sites": {"ms": mm["ms"], "library_ms": mm["lib"],
+                                       "bound_ms": mm["bound"]},
+                      "cudnn_bf16_ms": tot["cudnn"]},
+        "int8_quantize": {"ms": q["ms"], "plain_ms": q["plain"], "bound_ms": q["bound"],
+                          "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
+                          "per": "int8 tta_mc request at B=8, bf16 (static scales)"},
+        "int8_abs_max": {"ms": q["amax_ms"], "plain_ms": q["amax_plain"],
+                         "bound_ms": q["amax_bound"], "bound_by": "bytes",
+                         "library_ms": q["amax_lib"], "max_abs_err": 0.0,
+                         "per": "the same inputs, as the dynamic route would run it"},
+    }
+
+
+def int8_request(cfg, predict, seed):
+    """A raw request as phase 5's, its data and MC generators from ``seed``:
+    the same seed gives two predictors the same volumes and masks."""
+    return raw_request(cfg, predict, gen(seed), gen(seed + 1000))
+
+
+def phase_int8_serve(cfg, models, qfwd, hfwd, expect):
+    """12c: int8, fp and hybrid tta_mc requests of B=8 raw volumes, in turns,
+    on the same inputs and MC seeds; launches of each set to 0 just before
+    and read just after."""
+    preds = {name: make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=f)
+             for name, f in (("int8", qfwd), ("fp", None), ("int8-prefix", hfwd))}
+    for name, p in preds.items():  # warm-up: cuDNN plans, prepared weights
+        int8_request(cfg, p, 99)()
+    lat = {k: [] for k in preds}
+    split = {k: [] for k in preds}
+    outs = {k: [] for k in preds}
+    launched = dict.fromkeys(COUNTERS, 0)
+    for r in range(INT8_REQUESTS):
+        for name, p in preds.items():
+            request = int8_request(cfg, p, 200 + r)
+            reset_counts()
+            dt, mean, std = request()
+            rose = counts()
+            gate(f"12c {name}", cfg, rose, expect[name], mean, std, True, B_SERVE)
+            if name != "fp":
+                launched = {k: launched[k] + rose[k] for k in COUNTERS}
+            lat[name].append(dt * 1e3)
+            split[name].append(request.split[1])
+            outs[name].append((mean.float(), std.float()))
+    fp_ms = statistics.median(lat["fp"])
+    for name in preds:
+        log(f"  12c {name} tta_mc B={B_SERVE} bf16: median latency "
+            f"{statistics.median(lat[name]):.2f} ms over {INT8_REQUESTS} requests "
+            f"({B_SERVE * 1e3 / statistics.median(lat[name]):.2f} volumes/s; predictor "
+            f"{statistics.median(split[name]):.3f} ms by CUDA events); "
+            f"{statistics.median(lat[name]) / fp_ms:.3f}x the fp predictor's; launches a "
+            f"request {expect[name]}")
+    agree = {}
+    for name in ("int8", "int8-prefix"):
+        mean_q = torch.cat([m for m, _ in outs[name]])
+        mean_f = torch.cat([m for m, _ in outs["fp"]])
+        std_q = torch.cat([s for _, s in outs[name]])
+        std_f = torch.cat([s for _, s in outs["fp"]])
+        same = (mean_q.argmax(-1) == mean_f.argmax(-1)).float().mean().item()
+        e_mean = (mean_q - mean_f).abs().max().item()
+        e_std = (std_q - std_f).abs().max().item()
+        agree[name] = (same, e_mean, e_std)
+        log(f"  12c {name} against fp on the same inputs and masks "
+            f"({INT8_REQUESTS * B_SERVE} volumes): argmax agreement {same:.4f}, max mean-prob "
+            f"error {e_mean:.3e}, max std error {e_std:.3e}")
+        if not (same >= 0.9 and e_mean <= 0.05 and e_std <= 0.05):
+            raise AssertionError(f"{name} strays from the fp ensemble: {agree[name]}")
+    log(f"  12c launches (the int8 and hybrid requests): {launched}")
+    return launched, {k: statistics.median(v) for k, v in lat.items()}
+
+
+def phase_int8_cpu(cfg):
+    """12d: the int8 tta forward at B=1 in fp32 with dynamic scales (the
+    abs-max route), card against CPU; launches set to 0 just before the
+    card's run and read just after."""
+    cpu_models, dev_models = card_and_cpu_models(cfg)
+    qsets = {k: int8q.build_quant_set(m) for k, m in zip(("dwi", "dce", "fusion"), cpu_models)}
+    g = torch.Generator().manual_seed(93)
+    S = cfg.dwi_model.input_size
+    dwi = torch.rand(1, S, S, cfg.dwi_channel_num, generator=g)
+    dce = torch.rand(1, S, S, cfg.dce_channel_num, generator=g)
+    card_fwd = int8q.make_quantized_fusion_fwd(*dev_models, qsets)
+    cpu_fwd = int8q.make_quantized_fusion_fwd(*cpu_models, qsets)
+    reset_counts()
+    (mean_d, std_d, _), t_dev = synced(lambda: make_fusion_predictor(
+        cfg, *dev_models, mode="tta", fwd_override=card_fwd)(dwi.to(DEV), dce.to(DEV)))
+    launched = counts()
+    (mean_c, std_c, _), t_cpu = synced(lambda: make_fusion_predictor(
+        cfg, *cpu_models, mode="tta", fwd_override=cpu_fwd)(dwi, dce))
+    n_q = sum(len(s) for s in qsets.values())
+    log(f"  12d int8 tta B=1 fp32, dynamic scales: card {t_dev:.2f} s (launches {launched}), "
+        f"CPU {t_cpu:.2f} s; {n_q} quantized convs")
+    if not (launched["int8_abs_max"] == launched["int8_quantize"] == launched["int8_conv"] > 0
+            and launched["conv3x3_bn_gelu"] == 0):
+        raise AssertionError(f"12d launches {launched}")
+    compare_card_cpu((("12d int8 mean, card vs CPU", mean_d, mean_c, INT8_CPU_TOL),
+                      ("12d int8 std, card vs CPU", std_d, std_c, INT8_CPU_TOL)))
+    del cpu_models, dev_models, card_fwd, cpu_fwd
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_int8_fold(cfg, tmp):
+    """12e: test_fusion_model(int8=True, calibration_data=val) on phase 8's
+    trained fp32 fusion state and processed splits; launches set to 0 just
+    before and read just after."""
+    base = os.path.join(tmp, "cli", "data")
+    ccfg = cfg.replace(foundation_model_unfreeze_timer=2, base_path=base)
+    best = os.path.join(tmp, "cli", "results", "fusion", "fold_0", "checkpoints", "best.pt")
+    # the fold's state as cli export-serving rebuilds it
+    dwi_model, _ = build_single_model(ccfg, "dwi", device=DEV)
+    dce_model, _ = build_single_model(ccfg, "dce", device=DEV)
+    state = load_checkpoint(best, build_fusion_state(ccfg, TrainState.create(dwi_model),
+                                                     TrainState.create(dce_model)))
+    fd = prepare_fusion_data(ccfg, 0)
+    reset_counts()
+    res, t = synced(lambda: test_fusion_model(ccfg, state, fd["test"], seed=0, int8=True,
+                                              calibration_data=fd["val"]))
+    launched = counts()
+    ref, t_fp = synced(lambda: test_fusion_model(ccfg, state, fd["test"], seed=0))
+    if not all_finite(res["metrics"]) or not np.isfinite(res["probs"]).all():
+        raise AssertionError(f"12e: int8 test metrics not finite: {res['metrics']}")
+    same = float((res["probs"].argmax(-1) == ref["probs"].argmax(-1)).mean())
+    log(f"  12e test_fusion_model(int8=True, calibration_data=val) on phase 8's fold "
+        f"({len(fd['test']['labels'])} test volumes, {len(fd['val']['labels'])} validation, "
+        f"fp32 {ccfg.test_mode}): {t:.2f} s (fp {t_fp:.2f} s), metrics finite: "
+        + ", ".join(f"{k} {v:.4f}" for k, v in sorted(res["metrics"].items())
+                    if isinstance(v, float) and "per_class" not in k)
+        + f"; argmax agreement with the fp test {same:.4f}; launches {launched}")
+    if launched["int8_conv"] <= 0 or launched["conv3x3_bn_gelu"] != 0:
+        raise AssertionError(f"12e launches {launched}")
+    del dwi_model, dce_model, state
+    torch.cuda.empty_cache()
+    return launched
+
+
+def phase_int8_artifact(cfg, models, qfwd, tmp):
+    """12f: the int8 tta_mc serving artifact, exported on the card, served in
+    a fresh process (torch and ops.library only) against the eager int8
+    seed-route predictor, bit for bit; returns the serving process's launches."""
+    art_dir = os.path.join(tmp, "int8")
+    os.makedirs(art_dir)
+    S = cfg.dwi_model.input_size
+    g = gen(94)
+    dx, cx = preprocess_fusion_inputs(
+        torch.rand(B_SERVE, S, S, cfg.dwi_base_channel_num, device=DEV, generator=g) * 1000.0,
+        torch.rand(B_SERVE, S, S, cfg.dce_channel_num, device=DEV, generator=g),
+        torch.full((S, S, 1), 0.5, device=DEV))
+    fn = make_serving_fn(cfg, *models, mode="tta_mc", fwd_override=qfwd)
+    variables = serving_variables(*models, fwd_override=qfwd)
+    args = (variables, dx, cx, torch.tensor(ARTIFACT_SEEDS[0], device=DEV))
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=qfwd)
+    eager = predict(dx, cx, SeedStream(args[3]))
+    eager_ms = cuda_time(lambda: predict(dx, cx, SeedStream(args[3])), reps=1, trials=5)
+    (ep, t_export) = synced(lambda: export_program(fn, args))
+    nodes = operator_nodes(ep)
+    path = os.path.join(art_dir, "int8_tta_mc_bf16.pt2")
+    torch.export.save(ep, path)
+    inputs = os.path.join(art_dir, "int8.inputs.pt")
+    torch.save({"variables": variables, "dwi_x": dx, "dce_x": cx}, inputs)
+    q_bytes = sum(t.numel() * t.element_size() for k, sd in variables.items()
+                  if k.startswith("int8_") for t in sd.values())
+    log(f"  12f int8 tta_mc bf16 B={B_SERVE}: export {t_export:.2f} s, operator nodes {nodes}, "
+        f"artifact {os.path.getsize(path)} bytes (held: {len(ep.state_dict)} parameters or "
+        f"buffers, {len(ep.constants)} constants) beside {q_bytes} bytes of the quantized "
+        f"copies' state dicts; eager seed-route predictor {eager_ms:.3f} ms")
+    del ep
+    job = {"name": "int8", "artifact": path, "inputs": inputs, "seeds": list(ARTIFACT_SEEDS)}
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", SERVE_CHILD, json.dumps([job])], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here), capture_output=True,
+                          text=True, timeout=600)
+    if proc.returncode != 0:
+        raise AssertionError(f"int8 serving process exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    lines = [json.loads(x) for x in proc.stdout.splitlines() if x.startswith("{")]
+    r = lines[1]
+    if r["counts"] != {k: ARTIFACT_REQUESTS * v for k, v in nodes.items()}:
+        raise AssertionError(f"12f: launched {r['counts']}, expected {ARTIFACT_REQUESTS} x "
+                             f"{nodes}")
+    mean, std = (torch.tensor(v) for v in r["outputs"][0])
+    if not (torch.equal(mean, eager[0].float().cpu()) and torch.equal(std, eager[1].float().cpu())):
+        raise AssertionError(f"12f: the artifact's (mean, std) differ from the eager int8 "
+                             f"predictor's by {(mean - eager[0].float().cpu()).abs().max()}")
+    log(f"  12f fresh process ({', '.join(lines[0]['modules'])}): load {r['load_s']:.2f} s; "
+        f"requests (ms, CUDA events) " + ", ".join(f"{t:.3f}" for t in r["ms"])
+        + f", median after the first {statistics.median(r['ms'][1:]):.3f} ms against "
+        f"{eager_ms:.3f} eager; seed {ARTIFACT_SEEDS[0]} bit-equal to the eager int8 seed-route "
+        f"predictor; launches {r['counts']}")
+    names = {"int8_conv": "int8_conv", "quantize": "int8_quantize", "abs_max": "int8_abs_max"}
+    return {names[k]: v for k, v in r["counts"].items() if k in names}
+
+
+def phase_int8(cfg, tmp):
+    """Phase 12: int8 post-training quantization (ops/quant.py) at full width;
+    returns the launches of its served paths and the kernels line's entries."""
+    t_phase = time.perf_counter()
+    log(f"== phase 12: int8 serving (ops/quant.py): the default config at full width in bf16, "
+        f"calibrated with MC dropout on {INT8_CALIB} preprocessed volumes of a separate draw")
+    # the fp32 weights are quantized (as JAX quantizes its fp32 params), the
+    # bf16 models calibrated and served
+    weights = build_fusion_models(cfg, DEV, torch.float32, gen(SEED))
+    models = [copy.deepcopy(m).to(torch.bfloat16) for m in weights]
+    S = cfg.dwi_model.input_size
+    g = gen(81)
+    calib = preprocess_fusion_inputs(
+        torch.rand(INT8_CALIB, S, S, cfg.dwi_base_channel_num, device=DEV, generator=g) * 1000.0,
+        torch.rand(INT8_CALIB, S, S, cfg.dce_channel_num, device=DEV, generator=g),
+        torch.full((S, S, 1), 0.5, device=DEV))
+    (_, qsets), t_cal = synced(lambda: int8q.make_quantized_fusion_apply(
+        *models, calibration=calib, calibration_mc=True, calibration_rng=gen(82),
+        weights=weights))
+    del weights
+    qfwd = int8q.make_quantized_fusion_fwd(*models, qsets)
+    hfwd = int8q.make_hybrid_fusion_fwd(*models, qsets)
+    kept = {(n, b.dtype) for f in (qfwd, hfwd) for mod in f.modules.values()
+            for m in mod.modules() if isinstance(m, int8q.QuantConv2d)
+            for n, b in m.named_buffers() if n != "weight_q"}
+    if {d for _, d in kept} != {torch.float32}:
+        raise AssertionError(f"12: the quantized copies' scales and biases are not fp32: {kept}")
+    log(f"  quantize (fp32 weights) + calibrate (bf16 models): {t_cal:.2f} s; quantized convs "
+        + ", ".join(f"{k} {len(v)}" for k, v in qsets.items())
+        + f"; the copies' scales and biases fp32 ({', '.join(sorted({n for n, _ in kept}))})")
+    g_req = gen(83)
+    dx, cx = preprocess_fusion_inputs(
+        torch.rand(B_SERVE, S, S, cfg.dwi_base_channel_num, device=DEV, generator=g_req) * 1e3,
+        torch.rand(B_SERVE, S, S, cfg.dce_channel_num, device=DEV, generator=g_req),
+        torch.full((S, S, 1), 0.5, device=DEV))
+    pred = make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=qfwd)
+    sites, mods = conv_sites(pred, dx, cx, gen(84), qfwd.modules.values())
+    hpred = make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=hfwd)
+    hsites, _ = conv_sites(hpred, dx, cx, gen(84), hfwd.modules.values())
+    measured = phase_int8_kernels(sites, mods)
+    n_conv, n_hyb = sum(sites.values()), sum(hsites.values())
+    base = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "se_scale": 4, "dwi_normalize": 1}
+    expect = {"int8": base | {"int8_conv": n_conv, "int8_quantize": n_conv},
+              "fp": base | {"conv3x3_bn_gelu": 12},
+              "int8-prefix": base | {"int8_conv": n_hyb, "int8_quantize": n_hyb}}
+    launched, lat = phase_int8_serve(cfg, models, qfwd, hfwd, expect)
+    for k, v in phase_int8_cpu(cfg).items():
+        launched[k] += v
+    for k, v in phase_int8_fold(cfg, tmp).items():
+        launched[k] += v
+    for k, v in phase_int8_artifact(cfg, models, qfwd, tmp).items():
+        launched[k] += v
+    del models, qfwd, hfwd, pred, hpred, mods
+    torch.cuda.empty_cache()
+    log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
+    return launched, measured
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3732,14 +4170,18 @@ def main():
         log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
         # phase 11 serves phase 8's CLI artifact; its launches are the serving process's
         serving_launches = phase_serving(cfg, hcfg, tmp, smi)
+        # phase 12 tests phase 8's fold on the int8 path
+        int8_launches, int8_measured = phase_int8(cfg, tmp)
+        measured.update(int8_measured)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
-                + serving_launches[k] for k in COUNTERS}
+                + serving_launches[k] + int8_launches.get(k, 0) for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
-        f"CLI, the ViT path, the fold-parallel run and the serving artifacts: {launches}")
+        f"CLI, the ViT path, the fold-parallel run, the serving artifacts and the int8 "
+        f"path: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -3762,6 +4204,12 @@ def main():
                           "dmf_tpu/ops/preprocess_pallas.py:28"),
         "histogram_percentiles": ("cuda", "dmf_tpu_torch/csrc/histogram_percentiles.cu",
                                   "dmf_tpu/ops/histogram_pallas.py:38"),
+        # no Pallas kernel: XLA lowers the JAX package's int8 conv and quantize
+        "int8_conv": ("cuda", "dmf_tpu_torch/csrc/int8_conv.cu", "dmf_tpu/ops/quant.py:127"),
+        "int8_quantize": ("cuda", "dmf_tpu_torch/csrc/int8_quantize.cu",
+                          "dmf_tpu/ops/quant.py:90"),
+        "int8_abs_max": ("cuda", "dmf_tpu_torch/csrc/int8_quantize.cu",
+                         "dmf_tpu/ops/quant.py:84"),
     }
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **measured[name]}

@@ -16,12 +16,14 @@ and supplies ``aux``.  The MC modes draw their dropout masks from a
 its place (the seed route of the exported serving program, ``serving.py``):
 its dropout sites take their Philox counters in the order the passes run
 them, the same on the CPU and the card.  The public function keeps the JAX layout: NHWC volumes
-in, ``(mean, std, aux)`` out, with aux maps returned NHWC.
+in, ``(mean, std, aux)`` out, with aux maps returned NHWC.  A pass is a
+:class:`PassForward`; ``fwd_override`` swaps in another (the int8 forwards of
+``ops/quant.py``), as JAX's ``make_fusion_predictor(fwd_override=)``.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional, Sequence
 
 import torch
 
@@ -71,17 +73,48 @@ def _repeat_prefix(pre, k: int):
     return None, mod_attn_map, tuple(rep(t) for t in bb)
 
 
-def _ensemble(encoders, head: Callable, mode: str, passes: int,
+class PassForward:
+    """One pass of the fusion forward: ``fwd(xs, mc, generator, prefixes,
+    lean) -> (logits, aux)`` over the encoders ``encoders`` and the head
+    ``fusion``, and ``fwd.compute_prefixes(xs)``, the hoisted deterministic
+    prefix of each encoder on ``prefix_encoders``.
+
+    The fp predictor's is ``PassForward((dwi, dce), (dwi, dce), fusion)``;
+    ``make_fusion_predictor(fwd_override=...)`` takes another, the JAX
+    package's ``fusion_fwd`` with its ``compute_prefixes`` (predict.py:263-300):
+    ``ops/quant.py``'s int8 forward and its int8-prefix hybrid.  ``modules``
+    names the models the forward holds beside the fp three (the serving
+    program registers them, so their tensors ride as arguments).
+    """
+
+    def __init__(self, prefix_encoders: Sequence[torch.nn.Module],
+                 encoders: Sequence[torch.nn.Module], fusion: torch.nn.Module,
+                 modules: Optional[Dict[str, torch.nn.Module]] = None):
+        self.prefix_encoders = tuple(prefix_encoders)
+        self.encoders = tuple(encoders)
+        self.fusion = fusion
+        self.modules = dict(modules or {})
+
+    def __call__(self, xs, mc: bool = False, generator=None, prefixes=None,
+                 lean: bool = False):
+        prefixes = prefixes if prefixes is not None else (None,) * len(self.encoders)
+        (_, dwi_aux, dwi_mask), (_, dce_aux, dce_mask) = (
+            m(x, mc=mc, generator=generator, prefix=p, lean=lean)
+            for m, x, p in zip(self.encoders, xs, prefixes))
+        logits, _, aux = self.fusion(dwi_aux["raw_feats"], dce_aux["raw_feats"],
+                                     dwi_mask, dce_mask, lean=lean)
+        return logits, aux
+
+    def compute_prefixes(self, xs):
+        return tuple(m(x, prefix_only=True) for m, x in zip(self.prefix_encoders, xs))
+
+
+def _ensemble(encoders, fwd: Callable, prefix: Callable, mode: str, passes: int,
               mc_chunk: Optional[int]) -> Callable:
     """``run(imgs, generator) -> (mean, std, aux)`` over ``encoders`` (one
-    NHWC batch each), with ``head(outs, lean) -> (logits, aux)`` on their
-    ``(logits, aux, mask)`` outputs."""
-
-    def fwd(xs, mc=False, generator=None, prefixes=None, lean=False):
-        prefixes = prefixes if prefixes is not None else (None,) * len(encoders)
-        outs = [m(x, mc=mc, generator=generator, prefix=p, lean=lean)
-                for m, x, p in zip(encoders, xs, prefixes)]
-        return head(outs, lean)
+    NHWC batch each; they set each input's device and dtype), with
+    ``fwd(xs, mc, generator, prefixes, lean) -> (logits, aux)`` a pass and
+    ``prefix(xs)`` the encoders' hoisted prefixes."""
 
     def inputs(imgs, views):
         return [to_model(tta_views(x) if views else x, m) for x, m in zip(imgs, encoders)]
@@ -89,6 +122,7 @@ def _ensemble(encoders, head: Callable, mode: str, passes: int,
     @torch.no_grad()
     def run(imgs, generator: Optional[torch.Generator]):
         B = imgs[0].shape[0]
+        none = (None,) * len(encoders)
         if mode == "normal":
             logits, aux = fwd(inputs(imgs, False))
             probs = torch.softmax(logits.float(), dim=-1)
@@ -100,19 +134,16 @@ def _ensemble(encoders, head: Callable, mode: str, passes: int,
         if mode in ("mc", "tta_mc"):
             if generator is None:
                 raise ValueError(f"mode {mode!r} needs a generator")
-            xs = inputs(imgs, mode == "tta_mc")
             # the prefix holds no dropout: run it once for every pass
-            pre = tuple(m(x, prefix_only=True) for m, x in zip(encoders, xs))
+            pre = prefix(inputs(imgs, mode == "tta_mc"))
             n_lean = passes - 1
             chunk = max(1, n_lean if mc_chunk is None else min(mc_chunk, n_lean))
             probs = []
             for start in range(0, n_lean, chunk):
                 pre_k = tuple(_repeat_prefix(p, min(chunk, n_lean - start)) for p in pre)
-                logits, _ = fwd((None,) * len(encoders), mc=True, generator=generator,
-                                prefixes=pre_k, lean=True)
+                logits, _ = fwd(none, mc=True, generator=generator, prefixes=pre_k, lean=True)
                 probs.append(torch.softmax(logits.float(), dim=-1))
-            logits, aux = fwd((None,) * len(encoders), mc=True, generator=generator,
-                              prefixes=pre)
+            logits, aux = fwd(none, mc=True, generator=generator, prefixes=pre)
             probs.append(torch.softmax(logits.float(), dim=-1))
             probs = torch.cat(probs).reshape(passes * (probs[-1].shape[0] // B), B, -1)
             return probs.mean(0), _std(probs, 0), _to_nhwc(aux)
@@ -124,22 +155,24 @@ def _ensemble(encoders, head: Callable, mode: str, passes: int,
 def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
                           mode: Optional[str] = None,
                           mc_passes: Optional[int] = None,
-                          mc_chunk: Optional[int] = None) -> Callable:
+                          mc_chunk: Optional[int] = None,
+                          fwd_override: Optional[PassForward] = None) -> Callable:
     """Returns ``predict(dwi_imgs, dce_imgs, generator=None) -> (mean, std, aux)``.
 
     ``dwi_imgs``/``dce_imgs`` are NHWC.  ``generator`` (on the models'
     device; or a :class:`~..ops.dropout.SeedStream`) drives every dropout
     draw and is required in ``mc``/``tta_mc``.
-    ``mc_chunk`` defaults to ``cfg.mc_chunk``.
+    ``mc_chunk`` defaults to ``cfg.mc_chunk``.  ``fwd_override`` (a
+    :class:`PassForward`, e.g. ``ops/quant.py``'s ``make_quantized_fusion_fwd``
+    or ``make_hybrid_fusion_fwd``) replaces the per-pass forward and the
+    hoisted prefix.
     """
-
-    def head(outs, lean):
-        (_, dwi_aux, dwi_mask), (_, dce_aux, dce_mask) = outs
-        logits, _, aux = fusion_model(dwi_aux["raw_feats"], dce_aux["raw_feats"],
-                                      dwi_mask, dce_mask, lean=lean)
-        return logits, aux
-
-    run = _ensemble((dwi_model, dce_model), head, mode or cfg.test_mode,
+    if fwd_override is not None and not isinstance(fwd_override, PassForward):
+        raise TypeError(f"fwd_override must be a PassForward (ops/quant.py's int8 forwards "
+                        f"make one), got {type(fwd_override).__name__}")
+    fwd = fwd_override or PassForward((dwi_model, dce_model), (dwi_model, dce_model),
+                                      fusion_model)
+    run = _ensemble((dwi_model, dce_model), fwd, fwd.compute_prefixes, mode or cfg.test_mode,
                     mc_passes if mc_passes is not None else cfg.mc_passes,
                     cfg.mc_chunk if mc_chunk is None else mc_chunk)
 
@@ -155,8 +188,12 @@ def make_single_predictor(cfg: Config, model, mode: Optional[str] = None,
     """Returns ``predict(imgs, generator=None) -> (mean, std, aux)`` for one
     encoder (predict.py:186-262), with the prefix split and lean passes of the
     fusion predictor; ``imgs`` NHWC, ``generator`` as there."""
-    run = _ensemble((model,), lambda outs, lean: outs[0][:2], mode or cfg.test_mode,
-                    mc_passes if mc_passes is not None else cfg.mc_passes,
+    def fwd(xs, mc=False, generator=None, prefixes=None, lean=False):
+        p = prefixes[0] if prefixes is not None else None
+        return model(xs[0], mc=mc, generator=generator, prefix=p, lean=lean)[:2]
+
+    run = _ensemble((model,), fwd, lambda xs: (model(xs[0], prefix_only=True),),
+                    mode or cfg.test_mode, mc_passes if mc_passes is not None else cfg.mc_passes,
                     cfg.mc_chunk if mc_chunk is None else mc_chunk)
 
     def predict(imgs, generator: Optional[torch.Generator] = None):

@@ -9,7 +9,12 @@ named ``necks.f{i}.{0,1,3,4}`` as the reference checkpoint has them
 (ref_ckpt.py:516-522).  In eval every neck stage is one call to
 :func:`~dmf_tpu_torch.ops.conv3x3.conv3x3_bn_gelu`; ``train=True`` runs the
 conv, the batch-statistics BatchNorm and the GELU as three modules, the JAX
-adapter's training route (adapter.py:73-76).
+adapter's training route (adapter.py:73-76).  A neck conv that is not an
+``nn.Conv2d`` (the int8 :class:`~dmf_tpu_torch.ops.quant.QuantConv2d` of a
+quantized copy, or a calibration recorder) takes the JAX adapter's XLA route
+in eval too: the conv module, eval BatchNorm, exact GELU (adapter.py:70-73),
+so kernel 2 is not launched at a quantized neck.  (On the CPU JAX quantizes
+all six neck convs; on a TPU its Pallas neck would bypass the interceptor.)
 
 Unlike the JAX module, the adapter takes the backbone's features rather than
 the backbone: the encoder owns the backbone once, so the port's state dict
@@ -24,6 +29,7 @@ from typing import Sequence, Tuple
 
 import torch
 import torch.nn as nn
+import torch.nn.functional as F
 
 from ..ops.conv3x3 import conv3x3_bn_gelu
 from .layers import BatchNorm2d, run
@@ -67,6 +73,9 @@ class BackboneAdapter(nn.Module):
                 outputs.append(run(neck, out, True))
                 continue
             for conv, bn in ((neck[0], neck[1]), (neck[3], neck[4])):
+                if not isinstance(conv, nn.Conv2d):  # int8, or a calibration probe
+                    out = F.gelu(bn(conv(out), False))
+                    continue
                 out = conv3x3_bn_gelu(out, conv.weight, conv.bias, bn.weight,
                                       bn.bias, bn.running_mean, bn.running_var,
                                       bn.eps)

@@ -14,7 +14,13 @@ operator            CUDA implementation                                kernel
 ``conv3x3_bn_gelu`` ``conv3x3.launch_conv3x3_bn_gelu``                  2
 ``se_scale``        ``se_cuda.launch_se_scale``                         6
 ``flash_forward``   ``flash_attention.launch_flash_forward``            3
+``int8_conv``       ``quant_cuda.launch_int8_conv``                     int8 conv
+``quantize``        ``quant_cuda.launch_quantize``                      int8 quantize
+``abs_max``         ``quant_cuda.launch_abs_max``                       int8 quantize
 ==================  =================================================  =======
+
+The last three are the int8 serving path's kernels (``ops/quant.py``),
+which replace no Pallas kernel: XLA lowers JAX's int8 conv and quantize.
 
 Each operator has three implementations:
 
@@ -45,10 +51,12 @@ from typing import Optional
 
 import torch
 
-from . import conv3x3, dropout, epilogue, epilogue_cuda, flash_attention, se, se_cuda
+from . import (conv3x3, dropout, epilogue, epilogue_cuda, flash_attention, quant, quant_cuda,
+               se, se_cuda)
 
 NAMESPACE = "dmf"
-OPERATORS = ("se_epilogue", "keep_mask", "conv3x3_bn_gelu", "se_scale", "flash_forward")
+OPERATORS = ("se_epilogue", "keep_mask", "conv3x3_bn_gelu", "se_scale", "flash_forward",
+             "int8_conv", "quantize", "abs_max")
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("se_epilogue(Tensor x, Tensor identity, Tensor w1, Tensor b1, Tensor w2, "
@@ -59,6 +67,10 @@ _LIB.define("conv3x3_bn_gelu(Tensor x, Tensor weight, Tensor? conv_bias, Tensor 
 _LIB.define("se_scale(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "
             "-> (Tensor, Tensor)")
 _LIB.define("flash_forward(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)")
+_LIB.define("int8_conv(Tensor x, Tensor weight, Tensor w_scale, Tensor? x_scale, Tensor? bias, "
+            "int[] stride, int[] padding, int[] dilation, ScalarType out_dtype) -> Tensor")
+_LIB.define("quantize(Tensor x, Tensor scale, bool divide) -> Tensor")
+_LIB.define("abs_max(Tensor x) -> Tensor")
 
 
 def launch_counts() -> dict:
@@ -67,13 +79,17 @@ def launch_counts() -> dict:
             "keep_mask": dropout.keep_mask.launches,
             "conv3x3_bn_gelu": conv3x3.conv3x3_bn_gelu.launches,
             "se_scale": se.se_scale.launches,
-            "flash_forward": flash_attention.flash_attention.launches}
+            "flash_forward": flash_attention.flash_attention.launches,
+            "int8_conv": quant.int8_conv.launches,
+            "quantize": quant.quantize.launches,
+            "abs_max": quant.abs_max.launches}
 
 
 def reset_launch_counts() -> None:
     """Set every count of :func:`launch_counts` to 0."""
     for fn in (epilogue.se_epilogue, dropout.keep_mask, conv3x3.conv3x3_bn_gelu,
-               se.se_scale, flash_attention.flash_attention):
+               se.se_scale, flash_attention.flash_attention, quant.int8_conv, quant.quantize,
+               quant.abs_max):
         fn.launches = 0
 
 
@@ -186,12 +202,75 @@ def _flash_fake(q, k, v, scale):
             q.new_empty(q.shape[:-1], dtype=torch.float32))
 
 
+# ------------------------------------------------------------- int8_conv
+def _int8_conv_cuda(x, weight, w_scale, x_scale, bias, stride, padding, dilation, out_dtype):
+    out = quant_cuda.launch_int8_conv(x, weight, w_scale, x_scale, bias, stride, padding,
+                                      dilation, out_dtype)
+    quant.int8_conv.launches += 1
+    return out
+
+
+def _int8_conv_shape(x, weight, stride, padding, dilation):
+    _, kh, kw, _ = weight.shape
+    return (x.shape[0], weight.shape[0],
+            quant_cuda.conv_out_size(x.shape[2], kh, stride[0], padding[0], dilation[0]),
+            quant_cuda.conv_out_size(x.shape[3], kw, stride[1], padding[1], dilation[1]))
+
+
+def _int8_conv_out(x, weight, stride, padding, dilation, out_dtype):
+    return torch.empty(_int8_conv_shape(x, weight, stride, padding, dilation), dtype=out_dtype,
+                       device=x.device, memory_format=_map_format(x))
+
+
+def _int8_conv_cpu(x, weight, w_scale, x_scale, bias, stride, padding, dilation, out_dtype):
+    out = quant.int8_conv_ref(x, weight, w_scale, x_scale, bias, stride, padding, dilation,
+                              out_dtype)
+    return _int8_conv_out(x, weight, stride, padding, dilation, out_dtype).copy_(out)
+
+
+def _int8_conv_fake(x, weight, w_scale, x_scale, bias, stride, padding, dilation, out_dtype):
+    return _int8_conv_out(x, weight, stride, padding, dilation, out_dtype)
+
+
+# -------------------------------------------------------------- quantize
+def _quantize_cuda(x, scale, divide: bool):
+    out = quant_cuda.launch_quantize(x, scale, divide)
+    quant.quantize.launches += 1
+    return out
+
+
+def _quantize_cpu(x, scale, divide: bool):
+    return torch.empty_like(x, dtype=torch.int8).copy_(quant.quantize_ref(x, scale, divide))
+
+
+def _quantize_fake(x, scale, divide):
+    return torch.empty_like(x, dtype=torch.int8)
+
+
+# --------------------------------------------------------------- abs_max
+def _abs_max_cuda(x):
+    out = quant_cuda.launch_abs_max(x)
+    quant.abs_max.launches += 1
+    return out
+
+
+def _abs_max_cpu(x):
+    return quant.abs_max_ref(x)
+
+
+def _abs_max_fake(x):
+    return x.new_empty((), dtype=torch.float32)
+
+
 for _name, _cuda, _cpu, _fake in (
         ("se_epilogue", _se_epilogue_cuda, _se_epilogue_cpu, _se_epilogue_fake),
         ("keep_mask", _keep_mask_cuda, _keep_mask_cpu, _keep_mask_fake),
         ("conv3x3_bn_gelu", _conv_cuda, _conv_cpu, _conv_fake),
         ("se_scale", _se_scale_cuda, _se_scale_cpu, _se_scale_fake),
-        ("flash_forward", _flash_cuda, _flash_cpu, _flash_fake)):
+        ("flash_forward", _flash_cuda, _flash_cpu, _flash_fake),
+        ("int8_conv", _int8_conv_cuda, _int8_conv_cpu, _int8_conv_fake),
+        ("quantize", _quantize_cuda, _quantize_cpu, _quantize_fake),
+        ("abs_max", _abs_max_cuda, _abs_max_cpu, _abs_max_fake)):
     _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _cpu, "CPU")
     torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)

@@ -6,7 +6,8 @@ Counterpart of ``dmf_tpu/pipeline/run_fusion.py`` (the reference's
 ``prepare_fusion_model``, prepare_fusion_model.py:13-113, and
 ``run_fusion_model``, run_training.py:181-333).  The work runs where the
 trained encoders live: the card, unless the single-modality runs were asked
-for the CPU.  The int8 serving path (``ops/quant.py``) is not ported.
+for the CPU.  ``int8=True`` serves the test on the post-training-quantized
+convs (``ops/quant.py``), calibrated on the validation split.
 """
 
 from __future__ import annotations
@@ -32,8 +33,6 @@ from ..train.state import TrainState
 from ..utils.logging import save_metrics_json
 from .paths import prepare_output_paths
 from .prepare_single import load_processed_split
-
-INT8_MESSAGE = "int8 serving (ops/quant.py) is not ported (ROADMAP 1.11)"
 
 
 def prepare_fusion_data(cfg: Config, fold: int, processed_dir: Optional[str] = None
@@ -75,18 +74,38 @@ def build_fusion_state(cfg: Config, dwi_state: TrainState, dce_state: TrainState
 
 
 def test_fusion_model(cfg: Config, state: TrainState, test_data: Dict[str, np.ndarray],
-                      seed: int = 0, int8: bool = False) -> Dict[str, Any]:
+                      seed: int = 0, int8: bool = False,
+                      calibration_data: Optional[Dict[str, np.ndarray]] = None
+                      ) -> Dict[str, Any]:
     """The ``cfg.test_mode`` ensemble over the test split in batches of
     ``cfg.batch_size`` (train_fusion.py:342-434): macro metrics, per-class
     accuracy, the mean uncertainty, the wall time, and the gating weights
     averaged per batch as the modality attention.  Dropout draws come from a
-    generator seeded with ``seed`` on the models' device."""
-    if int8:
-        raise NotImplementedError(INT8_MESSAGE)
+    generator seeded with ``seed`` on the models' device.
+
+    ``int8=True`` serves the ensemble on the int8 convs (``ops/quant.py``),
+    an opt-in deployment mode, not reference behaviour: activation scales are
+    calibrated on at most 8 volumes of ``calibration_data`` (pass held-out
+    volumes, so the test split never shapes the served model's quantization;
+    the test split is the last resort), with MC dropout on in ``mc`` /
+    ``tta_mc`` from a generator seeded ``seed + 1`` (run_fusion.py:110-165)."""
     t_start = time.time()
     net = state.model
     device = next(net.parameters()).device
-    predictor = make_fusion_predictor(cfg, net.dwi, net.dce, net.fusion)
+    fwd_override = None
+    if int8:
+        from ..ops.quant import make_quantized_fusion_apply, make_quantized_fusion_fwd
+
+        calib = calibration_data if calibration_data is not None else test_data
+        nc = min(len(calib["dwi"]), 8)
+        _, qsets = make_quantized_fusion_apply(
+            net.dwi, net.dce, net.fusion,
+            calibration=(np.asarray(calib["dwi"][:nc]), np.asarray(calib["dce"][:nc])),
+            calibration_mc=cfg.test_mode in ("mc", "tta_mc"),
+            calibration_rng=torch.Generator(device).manual_seed(seed + 1))
+        fwd_override = make_quantized_fusion_fwd(net.dwi, net.dce, net.fusion, qsets)
+    predictor = make_fusion_predictor(cfg, net.dwi, net.dce, net.fusion,
+                                      fwd_override=fwd_override)
     ds = ArrayDataset(dwi=test_data["dwi"], dce=test_data["dce"], labels=test_data["labels"])
     generator = torch.Generator(device).manual_seed(seed)
     all_probs, all_std, gating = [], [], []
@@ -131,7 +150,9 @@ def run_fusion_model(cfg: Config, fold: int, dwi_results: Dict[str, Any],
                      num_epochs=num_epochs, min_epochs=min_epochs, seed=seed)
     # best-checkpoint reload for testing
     best_state = fit.best_state if fit.best_state is not None else fit.state
-    test_result = test_fusion_model(cfg, best_state, fusion_data["test"], seed=seed)
+    # int8 calibration (when enabled downstream) must never see test data
+    test_result = test_fusion_model(cfg, best_state, fusion_data["test"], seed=seed,
+                                    calibration_data=fusion_data["val"])
     save_metrics_json(paths["metrics"], fit.train_metrics, test_result["metrics"],
                       parameters=to_reference_dict(cfg))
     # the per-fold store of the best parameters (run_training.py:317-326)
@@ -156,7 +177,10 @@ def run_fusion_model(cfg: Config, fold: int, dwi_results: Dict[str, Any],
 
 
 def fusion_model_test(cfg: Config, state: TrainState, test_data: Dict[str, np.ndarray],
-                      seed: int = 0, int8: bool = False) -> Dict[str, Any]:
+                      seed: int = 0, int8: bool = False,
+                      calibration_data: Optional[Dict[str, np.ndarray]] = None
+                      ) -> Dict[str, Any]:
     """The standalone fusion evaluation (model_test.py:99-202): the test pass
-    of :func:`test_fusion_model`."""
-    return test_fusion_model(cfg, state, test_data, seed, int8=int8)
+    of :func:`test_fusion_model`, optionally on the int8 convs."""
+    return test_fusion_model(cfg, state, test_data, seed, int8=int8,
+                             calibration_data=calibration_data)

@@ -47,9 +47,12 @@ class _Program(torch.nn.Module):
     """The three models (registered, for ``functional_call``) and the
     predictor that runs them."""
 
-    def __init__(self, dwi_model, dce_model, fusion_model, run: Callable):
+    def __init__(self, dwi_model, dce_model, fusion_model, run: Callable,
+                 extra: Optional[Dict[str, torch.nn.Module]] = None):
         super().__init__()
         self.dwi, self.dce, self.fusion = dwi_model, dce_model, fusion_model
+        for name, m in (extra or {}).items():
+            self.add_module(name, m)
         self._run = run
 
     def forward(self, dwi_x, dce_x, seed):
@@ -62,25 +65,29 @@ def make_serving_fn(cfg, dwi_model, dce_model, fusion_model, mode: str = "normal
     """The uniform serving function ``(variables, dwi_x, dce_x, seed) ->
     (mean, std)`` over preprocessed inputs; ``mode`` selects plain softmax
     inference or the TTA / MC uncertainty ensemble (``evals/predict.py``),
-    ``mc_chunk`` its MC chunking.  ``fwd_override`` (the JAX package's int8
-    forward) raises: ``ops/quant.py`` is not ported (ROADMAP 1.11)."""
-    if fwd_override is not None:
-        raise NotImplementedError("fwd_override: the int8 forward (ops/quant.py) is not "
-                                  "ported (ROADMAP 1.11)")
+    ``mc_chunk`` its MC chunking.  ``fwd_override`` plugs in the int8 forward
+    (``ops/quant.py``: ``make_quantized_fusion_fwd`` or the int8-prefix
+    ``make_hybrid_fusion_fwd``) in any mode.  Its quantized copies become
+    modules of the program, so ``variables`` then also holds their state
+    dicts (the int8 weights, scales and calibrated ``x_scale`` values) under the
+    names of ``fwd_override.modules`` (:func:`serving_variables` with the
+    same override): unlike JAX's, whose forward closes over the QuantSets,
+    the artifact holds no tensor."""
     if mode not in MODES:
         raise ValueError(f"Unknown serving mode: {mode}")
     from .evals.predict import make_fusion_predictor
     from .ops.dropout import SeedStream
 
     predictor = make_fusion_predictor(cfg, dwi_model, dce_model, fusion_model, mode=mode,
-                                      mc_chunk=mc_chunk)
+                                      mc_chunk=mc_chunk, fwd_override=fwd_override)
     stochastic = mode in ("mc", "tta_mc")
 
     def run(dwi_x, dce_x, seed):
         mean, std, _ = predictor(dwi_x, dce_x, SeedStream(seed) if stochastic else None)
         return mean, std
 
-    program = _Program(dwi_model, dce_model, fusion_model, run)
+    program = _Program(dwi_model, dce_model, fusion_model, run,
+                       fwd_override.modules if fwd_override is not None else None)
 
     def fn(variables: Dict[str, Dict[str, torch.Tensor]], dwi_x, dce_x, seed):
         flat = {f"{m}.{k}": v for m, sd in variables.items() for k, v in sd.items()}
@@ -89,10 +96,14 @@ def make_serving_fn(cfg, dwi_model, dce_model, fusion_model, mode: str = "normal
     return fn
 
 
-def serving_variables(dwi_model, dce_model, fusion_model) -> Dict[str, Dict[str, torch.Tensor]]:
-    """The models' state dicts (detached), as the serving function takes them."""
-    return {name: {k: v.detach() for k, v in m.state_dict().items()}
-            for name, m in (("dwi", dwi_model), ("dce", dce_model), ("fusion", fusion_model))}
+def serving_variables(dwi_model, dce_model, fusion_model,
+                      fwd_override=None) -> Dict[str, Dict[str, torch.Tensor]]:
+    """The models' state dicts (detached), as the serving function takes them;
+    with ``fwd_override`` also those of its quantized copies."""
+    named = [("dwi", dwi_model), ("dce", dce_model), ("fusion", fusion_model)]
+    if fwd_override is not None:
+        named += list(fwd_override.modules.items())
+    return {name: {k: v.detach() for k, v in m.state_dict().items()} for name, m in named}
 
 
 def checkpoint_variables(path: str, device="cuda",

@@ -651,3 +651,135 @@ def test_serving_artifact_on_card(dev, tmp_path):
                                          args(cpu, "cpu")))(*args(cpu, "cpu"))
     for got, ref in zip((mean, std), on_cpu):
         assert (got.cpu() - ref).abs().max().item() <= 1e-4
+
+
+# ------------------------------------------------------- the int8 serving path
+# (Cin, Cout, kernel, stride, padding, dilation, side, N): the served shape
+# classes (1x1, the strided downsample, 3x3 at strides 1 and 2, dilations 2
+# and 4, the 7x7 stems at Cin 14 and 6, resnet50d's deep-stem 3x3, the ViT
+# patch conv), Cout from 32 (the 64-wide channel tile) to 2048, and output
+# pixels that leave a ragged last tile
+INT8_CONVS = [
+    (64, 256, 1, 1, 0, 1, 17, 3), (256, 512, 1, 2, 0, 1, 18, 2), (64, 64, 3, 1, 1, 1, 15, 2),
+    (128, 128, 3, 2, 1, 1, 17, 2), (256, 256, 3, 1, 2, 2, 12, 2), (512, 512, 3, 1, 4, 4, 10, 1),
+    (14, 64, 7, 2, 3, 1, 35, 2), (6, 64, 7, 2, 3, 1, 33, 2), (32, 32, 3, 1, 1, 1, 20, 2),
+    (14, 768, 16, 16, 0, 1, 48, 2), (512, 2048, 1, 1, 0, 1, 9, 2), (48, 40, 3, 1, 1, 1, 9, 3),
+]
+
+
+def _int8_inputs(dev, cin, cout, k, side, n, g):
+    xq = torch.randint(-127, 128, (n, cin, side, side), device=dev, generator=g,
+                       dtype=torch.int8)
+    wq = torch.randint(-127, 128, (cout, k, k, cin), device=dev, generator=g, dtype=torch.int8)
+    ws = torch.rand(cout, device=dev, generator=g) * 1e-3 + 1e-5
+    return _cl(xq), wq, ws
+
+
+@pytest.mark.parametrize("shape", INT8_CONVS)
+def test_int8_conv_kernel(dev, shape):
+    """int32 accumulators and the dequantized fp32 / bf16 outputs (with and
+    without bias) bit-equal to the plain version; the shapes reach both
+    channel tiles, each with the cp.async and the byte gather."""
+    from dmf_tpu_torch.ops import quant, quant_cuda
+
+    cin, cout, k, s, p, d, side, n = shape
+    g = torch.Generator(device=dev).manual_seed(sum(shape))
+    xq, wq, ws = _int8_inputs(dev, cin, cout, k, side, n, g)
+    xs = torch.tensor(0.0137, device=dev)
+    bias = torch.randn(cout, device=dev, generator=g)
+    geo = ((s, s), (p, p), (d, d))
+    ref = quant.int8_conv_ref(xq, wq, ws, xs, None, *geo, torch.int32)
+    got = quant_cuda.launch_int8_conv(xq, wq, ws, xs, None, *geo, torch.int32)
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert torch.equal(got, ref)
+    for dtype, b in ((torch.float32, bias), (torch.bfloat16, None), (torch.bfloat16, bias)):
+        ref = quant.int8_conv_ref(xq, wq, ws, xs, b, *geo, dtype)
+        with torch.no_grad():
+            got = quant.int8_conv(xq, wq, ws, xs, b, *geo, dtype)
+        assert got.dtype == dtype and torch.equal(got, ref), dtype
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cl,offset", [((3, 14, 37, 29), True, 0), ((2, 64, 16, 16), False, 0),
+                                            ((4099,), False, 1), ((2, 256, 64, 64), True, 0)])
+def test_int8_quantize_kernels(dev, dtype, shape, cl, offset):
+    """The static (reciprocal) and dynamic (division) quantize and the
+    abs-max bit-equal to the plain versions: ragged sizes, an unaligned
+    start (scalar loads), channels_last."""
+    from dmf_tpu_torch.ops import quant, quant_cuda
+
+    g = torch.Generator(device=dev).manual_seed(5)
+    x = (torch.randn(offset + int(torch.tensor(shape).prod()), device=dev, generator=g)
+         * 3).to(dtype)[offset:].reshape(shape)
+    if cl:
+        x = _cl(x)
+    amax = quant_cuda.launch_abs_max(x)
+    assert torch.equal(amax, quant.abs_max_ref(x))
+    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    for divide, sc in ((True, scale), (False, scale * 0.7)):  # 0.7: the clamp too
+        got = quant_cuda.launch_quantize(x, sc, divide)
+        ref = quant.quantize_ref(x, sc, divide)
+        assert got.stride() == x.stride() and torch.equal(got, ref), divide
+        assert got.abs().max() <= 127
+
+
+def test_int8_wrappers_raise(dev):
+    """A CUDA tensor the kernels cannot take raises; nothing falls back."""
+    from dmf_tpu_torch.ops import quant
+
+    g = torch.Generator(device=dev).manual_seed(1)
+    xq, wq, ws = _int8_inputs(dev, 16, 32, 3, 8, 2, g)
+    xs = torch.tensor(0.01, device=dev)
+    geo = ((1, 1), (1, 1), (1, 1))
+    with pytest.raises(ValueError, match="channels_last"):
+        quant.int8_conv(xq.contiguous(), wq, ws, xs, None, *geo, torch.float32)
+    with pytest.raises(ValueError, match="input channels"):
+        quant.int8_conv(xq, wq[..., :8].contiguous(), ws, xs, None, *geo, torch.float32)
+    with pytest.raises(ValueError, match="x_scale"):
+        quant.int8_conv(xq, wq, ws, None, None, *geo, torch.float32)
+    with pytest.raises(ValueError, match="device"):
+        quant.int8_conv(xq, wq.cpu(), ws, xs, None, *geo, torch.float32)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        quant.quantize(torch.rand(8, device=dev, dtype=torch.float64), xs)
+    with pytest.raises(ValueError, match="scale"):
+        quant.quantize(torch.rand(8, device=dev), xs.cpu())
+    with pytest.raises(RuntimeError, match="no backward"):
+        quant.int8_conv(xq, wq, ws, xs, torch.zeros(32, device=dev, requires_grad=True),
+                        *geo, torch.float32)
+
+
+def test_int8_copy_launches_the_int8_kernels(dev):
+    """A quantized toy encoder's prefix on the card: one int8 conv and one
+    quantize a quantized conv (static scales), no kernel 2 at the necks, and
+    its logits against the same copy on the CPU."""
+    import dataclasses
+
+    from dmf_tpu_torch import default_parameters, resolve_backbone_config
+    from dmf_tpu_torch.models import Encoder
+    from dmf_tpu_torch.models.build import init_weights
+    from dmf_tpu_torch.ops import quant
+
+    cfg = default_parameters()
+    mc = resolve_backbone_config(dataclasses.replace(
+        cfg.dwi_model, input_size=32, channels=(32, 32, 64), proj_dim=8, dropout=0.0))
+    enc = Encoder("dwi", mc, 14, 4, backbone_layers=(1, 1, 1, 1))
+    init_weights(enc, torch.Generator().manual_seed(0))
+    x = torch.rand(2, 14, 32, 32, generator=torch.Generator().manual_seed(1))
+    qset = quant.build_quant_set(enc)
+    quant.calibrate_act_scales(enc, qset, x)
+    cpu = quant.quantized_copy(enc, qset)
+    card = quant.quantized_copy(enc, qset).to(dev).to(memory_format=torch.channels_last)
+    calls = []
+    for m in card.modules():
+        if isinstance(m, quant.QuantConv2d):
+            assert m.weight_q.is_contiguous()
+            m.register_forward_pre_hook(lambda *a: calls.append(1))
+    for f in (quant.int8_conv, quant.quantize, quant.abs_max, k2.conv3x3_bn_gelu):
+        f.launches = 0
+    with torch.no_grad():
+        got = card(_cl(x.to(dev)))[0]
+        ref = cpu(x)[0]
+    torch.cuda.synchronize()
+    assert quant.int8_conv.launches == quant.quantize.launches == len(calls) > 20
+    assert quant.abs_max.launches == 0 and k2.conv3x3_bn_gelu.launches == 0
+    assert (got.cpu() - ref).abs().max() <= 1e-2 * max(1.0, ref.abs().max().item())

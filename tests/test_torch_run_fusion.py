@@ -223,7 +223,8 @@ def test_test_fusion_model_matches_jax(nb_stack, mode):
 def test_test_fusion_model_tta_mc(nb_stack):
     """``tta_mc`` with dropout 0.2: probabilities finite and summing to 1, MC
     std > 0, the modality attention in JAX's shape (a row a batch, one
-    column a modality); int8 serving raises, naming its queue item."""
+    column a modality); the same with int8 serving, calibrated on the
+    validation split (``tests/test_torch_quant.py`` holds it against JAX)."""
     cfg, fd, _, _, pmods = nb_stack
     pcfg = port_config(cfg.replace(test_mode="tta_mc"))
     state = PState.create(FusionNetwork(*pmods))
@@ -232,8 +233,11 @@ def test_test_fusion_model_tta_mc(nb_stack):
     np.testing.assert_allclose(res["probs"].sum(-1), 1.0, rtol=1e-5)
     assert (res["std"] > 0).all() and res["metrics"]["test_uncertainty_mean"] > 0
     assert res["modality_attention"].shape == (3, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
-        prun_fusion.test_fusion_model(pcfg, state, fd["test"], int8=True)
+    res8 = prun_fusion.test_fusion_model(pcfg, state, fd["test"], seed=1, int8=True,
+                                         calibration_data=fd["val"])
+    assert np.isfinite(res8["probs"]).all() and res8["probs"].shape == res["probs"].shape
+    np.testing.assert_allclose(res8["probs"].sum(-1), 1.0, rtol=1e-5)
+    assert (res8["std"] > 0).all()
 
 
 def run_beside(jax_run, port_run):

@@ -265,8 +265,11 @@ def test_operator_fake_matches_cpu(case):
 
 
 def test_fwd_override_raises(stack):
+    """An override that is not a ``PassForward`` (the int8 forwards of
+    ``ops/quant.py`` make one; ``tests/test_torch_quant.py`` serves them)
+    raises: the program could not register its models."""
     _, pcfg, _, _, pmods, _, _ = stack
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.11"):
+    with pytest.raises(TypeError, match="PassForward"):
         make_serving_fn(pcfg, *pmods, fwd_override=lambda *a: None)
 
 
