@@ -166,11 +166,12 @@ Phases, each printing its own lines:
      separate draw: 12a the int8 conv (``csrc/int8_conv.cu``) at every distinct
      quantized conv shape of a ``tta_mc`` request at B=8 (the prefix at 32
      views, the suffix at the lean chunk's 288 maps and the last pass's 32),
-     int32 and dequantized bf16 bit-equal to the plain version, with its time,
-     TOP/s, bound, the plain version's, cuDNN's bf16 conv's and, at the 1x1
-     stride-1 sites, ``torch._int_mm``'s, and ptxas's registers; 12b the
-     quantize and abs-max kernels (``csrc/int8_quantize.cu``) bit-equal at
-     every distinct conv input; 12c int8, fp and int8-prefix hybrid
+     int32 and dequantized bf16 bit-equal to the plain version and across
+     two calls, with its time, TOP/s, bound, the plain version's, cuDNN's
+     bf16 conv's and, at the 1x1 stride-1 sites, ``torch._int_mm``'s, and
+     ptxas's registers (a spill fails); 12b the quantize and abs-max kernels
+     (``csrc/int8_quantize.cu``) bit-equal at every distinct conv input, and
+     the static route a request (quantize + conv) against cuDNN's bf16 convs; 12c int8, fp and int8-prefix hybrid
      ``tta_mc`` requests of B=8 raw volumes in turns on the same inputs and
      masks (5 each): median latency, argmax agreement, mean and std errors
      against fp, launches per request; 12d int8 ``tta`` at B=1 in fp32 with
@@ -511,12 +512,14 @@ def phase_build():
     # time); the wgmma kernels' shared memory is dynamic
     flash_smem, conv_smem = fa._library().flash_wgmma_smem, \
         k2._library().conv3x3_bn_gelu_wgmma_smem
+    int8_smem = int8_cuda._conv_library().int8_conv_smem
     log("  dynamic shared memory per block: " + "; ".join(
         f"{name} D=128 {flash_smem(i, 128)} B, D=64 {flash_smem(i, 64)} B" for i, name in
         enumerate(("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
                    "flash_fwd_tf32x3")))
         + f"; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(1, 256)} B, 128x128 {conv_smem(1, 128)} B"
-        + f"; conv3x3_bn_gelu_tf32x3 128x128 {conv_smem(0, 128)} B")
+        + f"; conv3x3_bn_gelu_tf32x3 128x128 {conv_smem(0, 128)} B"
+        + "; int8_conv_wgmma " + ", ".join(f"128x{t} {int8_smem(t)} B" for t in (64, 128, 256)))
 
 
 # ------------------------------------------------------------------ phase 3
@@ -3705,22 +3708,28 @@ INT8_REQUESTS = 5
 INT8_CALIB = 4  # preprocessed volumes of a draw apart from the requests' (bench.py:641-652)
 INT8_TOP_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 INT8_CPU_TOL = 5e-3   # 12d: card vs CPU probabilities, fp32, dynamic scales
-INT8_KERNELS = ("int8_conv", "int8_quantize", "int8_abs_max")
+INT8_SOURCES = ("cp.async", "byte gather")  # csrc/int8_conv.cu ``Src``
 
 
 def int8_registers():
-    """``{(tile, vec): "R registers, S spill"}`` of the int8 conv's
-    instantiations, from ptxas's report in build.log."""
+    """``{(tile, source): "R registers, S bytes spill stores"}`` of the int8
+    conv's instantiations, from ptxas's report in build.log; raises on any
+    spill."""
     out, key = {}, None
     for p in sorted(BUILD_DIR.glob("int8_conv-*/build.log")):
         for line in p.read_text().splitlines():
-            m = re.search(r"int8_conv_kernelILi(\d+)ELb([01])E", line)
+            m = re.search(r"int8_conv_wgmmaILi(\d+)ELi(\d)E", line)
             if m:
                 key = (int(m.group(1)), int(m.group(2)))
             elif key and "spill stores" in line:
+                spills = [int(v) for v in re.findall(r"(\d+) bytes spill", line)]
+                if any(spills):
+                    raise AssertionError(f"int8 conv {key}: ptxas spills ({line.strip()})")
                 out[key] = line.strip().split(",")[1].strip()
             elif key and "registers" in line:
                 out[key] = line.split("Used")[1].split(",")[0].strip() + ", " + out.get(key, "")
+    if len(out) != 3 * len(INT8_SOURCES):
+        raise AssertionError(f"int8 conv: ptxas reported {len(out)} instantiations: {out}")
     return out
 
 
@@ -3781,9 +3790,11 @@ def phase_int8_kernels(sites, mods):
         y = int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo, torch.bfloat16)
         y_ref = int8q.int8_conv_ref(*args, xs, m.bias, *geo, torch.bfloat16)
         torch.cuda.synchronize()
-        if not (torch.equal(acc, acc_ref) and torch.equal(y, y_ref)):
+        y2 = int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo, torch.bfloat16)
+        if not (torch.equal(acc, acc_ref) and torch.equal(y, y_ref) and torch.equal(y, y2)):
             raise AssertionError(f"int8 conv {key}: int32 equal {torch.equal(acc, acc_ref)}, "
-                                 f"bf16 equal {torch.equal(y, y_ref)}")
+                                 f"bf16 equal {torch.equal(y, y_ref)}, two calls equal "
+                                 f"{torch.equal(y, y2)}")
         ops, nbytes, bound = int8_conv_bound(key)
         t_k = cuda_time(lambda: int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo,
                                                           torch.bfloat16))
@@ -3811,18 +3822,20 @@ def phase_int8_kernels(sites, mods):
         tot["bound_bytes"] += nbytes / HBM_BYTES_PER_S * 1e3 * calls
         tot["cudnn"] += t_c * calls
         tot["ops"] += ops * calls
-        tile = (int8_cuda.conv_tile(o), int(c % 16 == 0))
+        tile = (int8_cuda.conv_tile(o), int8_cuda.pixel_source(xq))
         log(f"  12a ({n}, {c}, {h}x{w} -> {o}, {kh}x{kw}, s{s[0]}, p{p[0]}, d{d[0]}) x{calls}: "
-            f"int32 and bf16 bit-equal; kernel {t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s, "
-            f"{100 * bound / t_k:.1f} % of the bound {bound:.4f}), plain (float64) {t_p:.3f}, "
-            f"cuDNN bf16 conv {t_c:.4f} ({t_k / t_c:.2f}x){lib}; tile {tile[0]}"
-            f"{' cp.async' if tile[1] else ' byte gather'}: {regs.get(tile, 'no ptxas report')}")
+            f"int32 and bf16 bit-equal, two calls bit-equal; kernel {t_k:.4f} ms "
+            f"({ops / t_k / 1e9:.1f} TOP/s, {100 * bound / t_k:.1f} % of the bound "
+            f"{bound:.4f}), plain (float64) {t_p:.3f}, cuDNN bf16 conv {t_c:.4f} "
+            f"({t_k / t_c:.2f}x){lib}; tile {tile[0]} {INT8_SOURCES[tile[1]]}: "
+            f"{regs.get(tile, 'no ptxas report')}")
     log(f"  12a per request (each shape's time x its calls): int8 conv {tot['ms']:.3f} ms "
         f"({tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, {100 * tot['bound'] / tot['ms']:.1f} % of "
         f"the bound {tot['bound']:.3f}: operations {tot['bound_ops']:.3f}, bytes "
         f"{tot['bound_bytes']:.3f}), plain {tot['plain']:.1f}, cuDNN's bf16 convs "
         f"{tot['cudnn']:.3f} ({tot['ms'] / tot['cudnn']:.2f}x); at the 1x1 stride-1 sites "
-        f"{mm['ms']:.3f} against torch._int_mm's {mm['lib']:.3f} (bound {mm['bound']:.3f})")
+        f"{mm['ms']:.3f} against torch._int_mm's {mm['lib']:.3f} ({mm['ms'] / mm['lib']:.2f}x; "
+        f"bound {mm['bound']:.3f})")
 
     # 12b: the quantize kernels at each distinct conv input of the request (bf16)
     inputs = {}
@@ -3859,6 +3872,10 @@ def phase_int8_kernels(sites, mods):
     log(f"  12b per request: static quantize {q['ms']:.3f} ms (bound {q['bound']:.3f}, plain "
         f"{q['plain']:.3f}); abs_max (the dynamic route) {q['amax_ms']:.3f} (bound "
         f"{q['amax_bound']:.3f}, vector_norm {q['amax_lib']:.3f})")
+    log(f"  12a/12b per request: the static route (quantize + int8 conv) "
+        f"{q['ms'] + tot['ms']:.3f} ms ({q['ms']:.3f} + {tot['ms']:.3f}; bound "
+        f"{q['bound'] + tot['bound']:.3f}) against cuDNN's bf16 convs {tot['cudnn']:.3f} "
+        f"({(q['ms'] + tot['ms']) / tot['cudnn']:.2f}x)")
     bound_by = "operations" if tot["bound_ops"] >= tot["bound_bytes"] else "bytes"
     return {
         "int8_conv": {"ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": tot["bound"],
@@ -3866,7 +3883,8 @@ def phase_int8_kernels(sites, mods):
                       "per": "int8 tta_mc request at B=8, bf16 (each shape x its calls)",
                       "int_mm_sites": {"ms": mm["ms"], "library_ms": mm["lib"],
                                        "bound_ms": mm["bound"]},
-                      "cudnn_bf16_ms": tot["cudnn"]},
+                      "cudnn_bf16_ms": tot["cudnn"],
+                      "with_quantize_ms": tot["ms"] + q["ms"]},
         "int8_quantize": {"ms": q["ms"], "plain_ms": q["plain"], "bound_ms": q["bound"],
                           "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
                           "per": "int8 tta_mc request at B=8, bf16 (static scales)"},

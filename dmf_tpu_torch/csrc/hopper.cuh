@@ -1,6 +1,7 @@
 // Hopper (sm_90a) primitives as inline PTX, shared by the port's wgmma kernels:
 // the bf16 and the 3xTF32 (fp32) flash-attention forward and backward
-// (flash_attention.cu), and the bf16 and 3xTF32 neck conv (conv3x3_bn_gelu.cu).
+// (flash_attention.cu), the bf16 and 3xTF32 neck conv (conv3x3_bn_gelu.cu) and
+// the int8 conv (int8_conv.cu).
 // Inline PTX keeps an nvcc build at seconds; nothing here links against
 // libcuda (the tensor-map encoder is looked up at run time through the CUDA
 // runtime's entry-point query).
@@ -8,18 +9,18 @@
 //   * shared-memory matrix descriptors for 128-byte-swizzled tiles and the
 //     swizzle itself (the layout TMA's CU_TENSOR_MAP_SWIZZLE_128B writes);
 //   * wgmma.fence / commit_group / wait_group, register fences, and
-//     wgmma.mma_async at the shapes the kernels use (bf16 k16, TF32 k8; A
-//     from shared memory or registers), and the TF32 rounding that splits an
-//     fp32 operand;
+//     wgmma.mma_async at the shapes the kernels use (bf16 k16, TF32 k8, s8
+//     k32 with s32 sums; A from shared memory or registers), and the TF32
+//     rounding that splits an fp32 operand;
 //   * named barriers over some of a block's warps;
 //   * mbarrier init / arrive / expect-tx / try-wait with phase parity;
-//   * cp.async (16 bytes, zero-fill) and the proxy fence that hands its
-//     writes to wgmma;
+//   * cp.async (16 bytes, zero-fill), an mbarrier arrival on its
+//     completion, and the proxy fence that hands its writes to wgmma;
 //   * cp.async.bulk.tensor (TMA) loads and host-side tensor maps, and plain
 //     bulk copies of contiguous bytes;
 //   * setmaxnreg for warp-specialised kernels.
 //
-// Swizzled tiles: a tile is rows of 128 bytes (64 bf16, 32 fp32), grouped by
+// Swizzled tiles: a tile is rows of 128 bytes (64 bf16, 32 fp32, 128 int8), grouped by
 // eight rows into 1024-byte atoms; the 16-byte chunk c of row r sits at chunk
 // c ^ (r % 8).  A tile's base is 1024-byte aligned.  Wider rows are split into
 // panels of one 128-byte row each (64 bf16 or 32 fp32 columns), one tile each.
@@ -94,6 +95,13 @@ __device__ __forceinline__ void cp_async_16(void* dst, const void* src, bool val
                : "memory");
 }
 
+// An arrival on `bar` once every cp.async this thread has issued so far has
+// landed (the barrier's count includes it: noinc).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];\n" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
@@ -146,7 +154,8 @@ __device__ __forceinline__ void bulk_load(void* dst, const void* src, uint32_t b
 // ------------------------------------------------------------------ wgmma
 // Descriptor of a 128B-swizzled shared-memory operand.  K-major (K
 // contiguous): sbo = 1024 (the next eight rows), lbo unused; advancing K by
-// 16 bf16 (a k16 step) or 8 TF32 (a k8 step) adds 32 bytes to the address.
+// 16 bf16 (a k16 step), 8 TF32 (a k8 step) or 32 int8 (a k32 step) adds 32
+// bytes to the address.
 // MN-major (MN contiguous, the transpose bit; bf16 only): sbo = 1024 (the
 // next eight K rows), lbo = the panel stride (the next 64 MN columns);
 // advancing K by 16 adds 2048 bytes.
@@ -189,6 +198,7 @@ __device__ __forceinline__ void fence_regs(uint32_t (&r)[N]) {
 // w = t / 32, lane l) holds d[4j + 2h + c] = D(16w + l/4 + 8h, 8j + 2(l%4) + c).
 // The register A operand of m64nNk16 (bf16) is that layout for N = 16:
 // a[2h' + h] packs D(16w + l/4 + 8h, 8h' + 2(l%4) + {0, 1}) as bf16x2.
+// The s32 accumulator of m64nNk32 (s8) has the same layout.
 
 // D (+)= A B, m64n64k16, A and B from shared memory (K-major, descriptors).
 __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint64_t desc_a,
@@ -276,6 +286,98 @@ __device__ __forceinline__ void wgmma_m64n256k16_ss(float (&d)[128], uint64_t de
         "+f"(d[114]), "+f"(d[115]), "+f"(d[116]), "+f"(d[117]), "+f"(d[118]), "+f"(d[119]),
         "+f"(d[120]), "+f"(d[121]), "+f"(d[122]), "+f"(d[123]), "+f"(d[124]), "+f"(d[125]),
         "+f"(d[126]), "+f"(d[127])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (+)= A B, m64n64k32, s8 x s8 -> s32, A and B from shared memory (K-major,
+// descriptors; 8-bit wgmma takes no transpose).
+__device__ __forceinline__ void wgmma_m64n64k32_s8_ss(uint32_t (&d)[32], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31"
+      "}, %32, %33, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (+)= A B, m64n128k32, s8 x s8 -> s32, A and B from shared memory (K-major,
+// descriptors; 8-bit wgmma takes no transpose).
+__device__ __forceinline__ void wgmma_m64n128k32_s8_ss(uint32_t (&d)[64], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63"
+      "}, %64, %65, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63])
+      : "l"(desc_a), "l"(desc_b), "r"(accumulate));
+}
+
+// D (+)= A B, m64n256k32, s8 x s8 -> s32, A and B from shared memory (K-major,
+// descriptors; 8-bit wgmma takes no transpose).
+__device__ __forceinline__ void wgmma_m64n256k32_s8_ss(uint32_t (&d)[128], uint64_t desc_a,
+                                                     uint64_t desc_b, int accumulate) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %130, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n256k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, "
+      "%12, %13, %14, %15, %16, %17, %18, %19, %20, %21, %22, %23, "
+      "%24, %25, %26, %27, %28, %29, %30, %31, %32, %33, %34, %35, "
+      "%36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, "
+      "%60, %61, %62, %63, %64, %65, %66, %67, %68, %69, %70, %71, "
+      "%72, %73, %74, %75, %76, %77, %78, %79, %80, %81, %82, %83, "
+      "%84, %85, %86, %87, %88, %89, %90, %91, %92, %93, %94, %95, "
+      "%96, %97, %98, %99, %100, %101, %102, %103, %104, %105, %106, %107, "
+      "%108, %109, %110, %111, %112, %113, %114, %115, %116, %117, %118, %119, "
+      "%120, %121, %122, %123, %124, %125, %126, %127"
+      "}, %128, %129, p;\n}\n"
+      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3]), "+r"(d[4]), "+r"(d[5]),
+        "+r"(d[6]), "+r"(d[7]), "+r"(d[8]), "+r"(d[9]), "+r"(d[10]), "+r"(d[11]),
+        "+r"(d[12]), "+r"(d[13]), "+r"(d[14]), "+r"(d[15]), "+r"(d[16]), "+r"(d[17]),
+        "+r"(d[18]), "+r"(d[19]), "+r"(d[20]), "+r"(d[21]), "+r"(d[22]), "+r"(d[23]),
+        "+r"(d[24]), "+r"(d[25]), "+r"(d[26]), "+r"(d[27]), "+r"(d[28]), "+r"(d[29]),
+        "+r"(d[30]), "+r"(d[31]), "+r"(d[32]), "+r"(d[33]), "+r"(d[34]), "+r"(d[35]),
+        "+r"(d[36]), "+r"(d[37]), "+r"(d[38]), "+r"(d[39]), "+r"(d[40]), "+r"(d[41]),
+        "+r"(d[42]), "+r"(d[43]), "+r"(d[44]), "+r"(d[45]), "+r"(d[46]), "+r"(d[47]),
+        "+r"(d[48]), "+r"(d[49]), "+r"(d[50]), "+r"(d[51]), "+r"(d[52]), "+r"(d[53]),
+        "+r"(d[54]), "+r"(d[55]), "+r"(d[56]), "+r"(d[57]), "+r"(d[58]), "+r"(d[59]),
+        "+r"(d[60]), "+r"(d[61]), "+r"(d[62]), "+r"(d[63]), "+r"(d[64]), "+r"(d[65]),
+        "+r"(d[66]), "+r"(d[67]), "+r"(d[68]), "+r"(d[69]), "+r"(d[70]), "+r"(d[71]),
+        "+r"(d[72]), "+r"(d[73]), "+r"(d[74]), "+r"(d[75]), "+r"(d[76]), "+r"(d[77]),
+        "+r"(d[78]), "+r"(d[79]), "+r"(d[80]), "+r"(d[81]), "+r"(d[82]), "+r"(d[83]),
+        "+r"(d[84]), "+r"(d[85]), "+r"(d[86]), "+r"(d[87]), "+r"(d[88]), "+r"(d[89]),
+        "+r"(d[90]), "+r"(d[91]), "+r"(d[92]), "+r"(d[93]), "+r"(d[94]), "+r"(d[95]),
+        "+r"(d[96]), "+r"(d[97]), "+r"(d[98]), "+r"(d[99]), "+r"(d[100]), "+r"(d[101]),
+        "+r"(d[102]), "+r"(d[103]), "+r"(d[104]), "+r"(d[105]), "+r"(d[106]), "+r"(d[107]),
+        "+r"(d[108]), "+r"(d[109]), "+r"(d[110]), "+r"(d[111]), "+r"(d[112]), "+r"(d[113]),
+        "+r"(d[114]), "+r"(d[115]), "+r"(d[116]), "+r"(d[117]), "+r"(d[118]), "+r"(d[119]),
+        "+r"(d[120]), "+r"(d[121]), "+r"(d[122]), "+r"(d[123]), "+r"(d[124]), "+r"(d[125]),
+        "+r"(d[126]), "+r"(d[127])
       : "l"(desc_a), "l"(desc_b), "r"(accumulate));
 }
 

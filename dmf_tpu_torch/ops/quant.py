@@ -35,14 +35,14 @@ adapter necks a :class:`QuantConv2d` runs the int8 conv, then eval
 BatchNorm, then exact GELU (the JAX adapter's XLA route): kernel 2
 (``conv3x3_bn_gelu``) is not launched at a quantized neck.
 
-The kernels: ``int8_conv`` (``csrc/int8_conv.cu``, an implicit-GEMM conv on
-``mma.sync`` s8 with a dequantizing epilogue), ``quantize`` and ``abs_max``
-(``csrc/int8_quantize.cu``), through the ``dmf::`` operators of
-``ops/library.py``.  Each wrapper below takes the plain version for CPU
-tensors and launches its kernel for CUDA tensors, with no fallback from one
-to the other.  The plain conv runs in float64 on the int8 values, which is
-exact (|acc| <= 127^2 K, far below 2^53), with cuDNN off (its FFT and
-Winograd algorithms are not).
+The kernels: ``int8_conv`` (``csrc/int8_conv.cu``, a warp-specialised
+implicit-GEMM conv on ``wgmma`` s8 with a dequantizing epilogue),
+``quantize`` and ``abs_max`` (``csrc/int8_quantize.cu``), through the
+``dmf::`` operators of ``ops/library.py``.  Each wrapper below takes the
+plain version for CPU tensors and launches its kernel for CUDA tensors,
+with no fallback from one to the other.  The plain conv runs in float64 on
+the int8 values, which is exact (|acc| <= 127^2 K, far below 2^53), with
+cuDNN off (its FFT and Winograd algorithms are not).
 
 Calibration with ``calibration_mc`` draws its dropout masks from the
 generator kind serving draws from: a ``torch.Generator`` on the models'

@@ -6,8 +6,9 @@ They replace no Pallas kernel: the JAX package leaves its int8 conv
 result) and its quantize passes to XLA, and PyTorch has no int8 convolution
 on CUDA.  The kernels are ``csrc/int8_conv.cu`` and ``csrc/int8_quantize.cu``
 (their notes give the design).  This module checks the operands, picks the
-launch (channel tile, vector width) and allocates the outputs.  The
-libraries are built on first use, never on import.
+launch (channel tile, pixel source), lays the weight out as the kernel's
+tensor map reads it and allocates the outputs.  The libraries are built on
+first use, never on import.
 """
 
 from __future__ import annotations
@@ -31,8 +32,11 @@ OUT_MODES = {torch.int32: 0, torch.float32: 1, torch.bfloat16: 2}
 def _conv_library() -> ctypes.CDLL:
     lib = load_library("int8_conv", _CONV_SOURCES)
     fn = lib.int8_conv_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 18 + [ctypes.c_void_p]
+    fn.argtypes = ([ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int]
+                   + [ctypes.c_void_p] * 4 + [ctypes.c_int] * 17 + [ctypes.c_void_p])
     fn.restype = ctypes.c_int
+    lib.int8_conv_smem.argtypes = [ctypes.c_int]
+    lib.int8_conv_smem.restype = ctypes.c_int
     return lib
 
 
@@ -55,13 +59,40 @@ def conv_out_size(size: int, k: int, stride: int, pad: int, dil: int) -> int:
 
 
 def conv_tile(o: int) -> int:
-    """The block's channel tile for ``o`` output channels: 64 up to 64, else
-    128."""
-    return 64 if o <= 64 else 128
+    """The tiles' channel width for ``o`` output channels: 64 up to 64, 128
+    up to 128, else 256."""
+    return 64 if o <= 64 else (128 if o <= 128 else 256)
+
+
+def pixel_source(xq: torch.Tensor) -> int:
+    """The kernel's pixel source (``csrc/int8_conv.cu``'s ``Src``) for the
+    NHWC int8 map ``xq``: 0, 16-byte copies, where C % 16 == 0 and ``xq`` is
+    16-byte aligned; else 1, element by element."""
+    return 0 if xq.shape[1] % 16 == 0 and xq.data_ptr() % 16 == 0 else 1
 
 
 def _stream(t: torch.Tensor) -> int:
     return torch.cuda.current_stream(t.device).cuda_stream
+
+
+def weight_rows(wq: torch.Tensor) -> torch.Tensor:
+    """The OHWI int8 weight as the (O, K) rows the kernel's tensor map reads:
+    ``wq`` itself where K is a multiple of 16 and it is 16-byte aligned, else
+    a copy with rows padded to a multiple of 16 bytes (the 7x7 stems' K = 686
+    and 294), made once per weight (:func:`~.prepared.prepared`)."""
+    from .prepared import prepared
+
+    o, k = wq.shape[0], wq[0].numel()
+    if k % 16 == 0 and wq.data_ptr() % 16 == 0:
+        return wq.reshape(o, k)
+    ld = -(-k // 16) * 16
+
+    def make():
+        rows = torch.zeros((o, ld), dtype=torch.int8, device=wq.device)
+        rows[:, :k] = wq.reshape(o, k)
+        return rows
+
+    return prepared((wq,), ("int8_conv_rows",), make)
 
 
 def launch_int8_conv(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
@@ -93,8 +124,8 @@ def launch_int8_conv(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
         raise ValueError(f"int8_conv: no output for {tuple(xq.shape)} with kernel {kh}x{kw}, "
                          f"stride {tuple(stride)}, padding {tuple(padding)}, dilation "
                          f"{tuple(dilation)}")
-    if max(n * h * w * c, o * kh * kw * c, n * ho * wo * o) >= 2 ** 62:
-        raise ValueError("int8_conv: tensor too large")
+    if max(n * h * w * c, n * ho * wo) >= 2 ** 31 or o * kh * kw * c >= 2 ** 62:
+        raise ValueError("int8_conv: tensor too large (the kernel's offsets are 32-bit)")
     dequant = out_dtype != torch.int32
     if dequant:
         if x_scale is None or x_scale.numel() != 1 or x_scale.dtype != torch.float32:
@@ -106,18 +137,22 @@ def launch_int8_conv(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
     for t in (wq, w_scale, x_scale, bias):
         if t is not None and t.device != xq.device:
             raise ValueError("int8_conv: operands must be on x's device")
-    vec = int(c % 16 == 0 and xq.data_ptr() % 16 == 0 and wq.data_ptr() % 16 == 0)
+    rows = weight_rows(wq)
     out = torch.empty((n, o, ho, wo), dtype=out_dtype, device=xq.device,
                       memory_format=torch.channels_last)
     ws = w_scale.contiguous()
     xs = x_scale.reshape(1).contiguous() if dequant else None
     b = bias.float().contiguous() if (dequant and bias is not None) else None
+    args = (pixel_source(xq), xq.data_ptr(), rows.data_ptr(), rows.stride(0), ws.data_ptr(),
+            xs.data_ptr() if xs is not None else None, b.data_ptr() if b is not None else None,
+            out.data_ptr(), OUT_MODES[out_dtype], conv_tile(o), n, h, w, c, o, kh, kw, ho, wo,
+            sh, sw, ph, pw, dh, dw, _stream(xq))
     lib = _conv_library()
-    with torch.cuda.device(xq.device):
-        rc = lib.int8_conv_launch(
-            xq.data_ptr(), wq.data_ptr(), ws.data_ptr(), xs.data_ptr() if xs is not None else None,
-            b.data_ptr() if b is not None else None, out.data_ptr(), OUT_MODES[out_dtype], vec,
-            conv_tile(o), n, h, w, c, o, kh, kw, ho, wo, sh, sw, ph, pw, dh, dw, _stream(xq))
+    if xq.device.index == torch.cuda.current_device():
+        rc = lib.int8_conv_launch(*args)
+    else:
+        with torch.cuda.device(xq.device):
+            rc = lib.int8_conv_launch(*args)
     if rc != 0:
         raise RuntimeError(f"int8_conv: kernel launch failed (CUDA error {rc})")
     return out

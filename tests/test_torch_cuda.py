@@ -657,13 +657,16 @@ def test_serving_artifact_on_card(dev, tmp_path):
 # (Cin, Cout, kernel, stride, padding, dilation, side, N): the served shape
 # classes (1x1, the strided downsample, 3x3 at strides 1 and 2, dilations 2
 # and 4, the 7x7 stems at Cin 14 and 6, resnet50d's deep-stem 3x3, the ViT
-# patch conv), Cout from 32 (the 64-wide channel tile) to 2048, and output
-# pixels that leave a ragged last tile
+# patch conv), each channel tile (Cout up to 64, 128, above), Cout tails of
+# each tile (40, 96, 160), C % 16 != 0 off the stems (24, and 3, odd), and
+# output pixels that leave a ragged last tile
 INT8_CONVS = [
     (64, 256, 1, 1, 0, 1, 17, 3), (256, 512, 1, 2, 0, 1, 18, 2), (64, 64, 3, 1, 1, 1, 15, 2),
     (128, 128, 3, 2, 1, 1, 17, 2), (256, 256, 3, 1, 2, 2, 12, 2), (512, 512, 3, 1, 4, 4, 10, 1),
     (14, 64, 7, 2, 3, 1, 35, 2), (6, 64, 7, 2, 3, 1, 33, 2), (32, 32, 3, 1, 1, 1, 20, 2),
     (14, 768, 16, 16, 0, 1, 48, 2), (512, 2048, 1, 1, 0, 1, 9, 2), (48, 40, 3, 1, 1, 1, 9, 3),
+    (64, 96, 3, 1, 1, 1, 11, 2), (128, 160, 1, 1, 0, 1, 13, 3), (24, 48, 3, 2, 1, 1, 19, 2),
+    (3, 40, 3, 1, 1, 1, 10, 2),
 ]
 
 
@@ -678,8 +681,9 @@ def _int8_inputs(dev, cin, cout, k, side, n, g):
 @pytest.mark.parametrize("shape", INT8_CONVS)
 def test_int8_conv_kernel(dev, shape):
     """int32 accumulators and the dequantized fp32 / bf16 outputs (with and
-    without bias) bit-equal to the plain version; the shapes reach both
-    channel tiles, each with the cp.async and the byte gather."""
+    without bias) bit-equal to the plain version, two calls bit-equal; the
+    shapes reach every channel tile, each with the cp.async and the byte
+    gather."""
     from dmf_tpu_torch.ops import quant, quant_cuda
 
     cin, cout, k, s, p, d, side, n = shape
@@ -692,6 +696,7 @@ def test_int8_conv_kernel(dev, shape):
     got = quant_cuda.launch_int8_conv(xq, wq, ws, xs, None, *geo, torch.int32)
     assert got.is_contiguous(memory_format=torch.channels_last)
     assert torch.equal(got, ref)
+    assert torch.equal(quant_cuda.launch_int8_conv(xq, wq, ws, xs, None, *geo, torch.int32), got)
     for dtype, b in ((torch.float32, bias), (torch.bfloat16, None), (torch.bfloat16, bias)):
         ref = quant.int8_conv_ref(xq, wq, ws, xs, b, *geo, dtype)
         with torch.no_grad():
