@@ -133,8 +133,10 @@ Phases, each printing its own lines:
      BatchNorm statistics and the dropout generator bit-equal across the
      three), their CUDA-event step times, peak memory and the GiB autograd
      keeps (and the plain and remat steps' again with the default
-     algorithms), and a fusion train step at B=32 plain and with remat on both
-     encoders (step time, peak memory); 10b ``cli.main(["run",
+     algorithms), and fusion train steps at B=32 plain, with remat on both
+     encoders and plain again (step time, peak memory; the two plain runs'
+     parameters bit-equal and no op warning that it has no deterministic
+     implementation); 10b ``cli.main(["run",
      "--parallel-folds", "--folds", "0", "1", "--methods", "dwi", "dce",
      ...])`` on phase 8's store and checkpoint, two epochs, the backbone
      frozen, against the same folds run one after another: each fold's
@@ -169,13 +171,18 @@ Phases, each printing its own lines:
      int32 and dequantized bf16 bit-equal to the plain version and across
      two calls, with its time, TOP/s, bound, the plain version's, cuDNN's
      bf16 conv's and, at the 1x1 stride-1 sites, ``torch._int_mm``'s, and
-     ptxas's registers (a spill fails); 12b the quantize and abs-max kernels
-     (``csrc/int8_quantize.cu``) bit-equal at every distinct conv input, and
-     the static route a request (quantize + conv) against cuDNN's bf16 convs; 12c int8, fp and int8-prefix hybrid
-     ``tta_mc`` requests of B=8 raw volumes in turns on the same inputs and
-     masks (5 each): median latency, argmax agreement, mean and std errors
-     against fp, launches per request; 12d int8 ``tta`` at B=1 in fp32 with
-     dynamic scales, card vs CPU; 12e ``test_fusion_model(int8=True,
+     ptxas's registers (a spill fails); 12b the static and the dynamic
+     quantize (``csrc/int8_quantize.cu``; the dynamic one abs-max, scale and
+     quantize in one launch) bit-equal to their plain versions at every
+     distinct conv input, timed beside their bounds (the dynamic one's with
+     one read and with two reads of x) and ``vector_norm(x, inf)``, a NaN
+     input's scale NaN, one ``_dynamic_quantize`` call one CUDA kernel under
+     the profiler, and the static route a request (quantize + conv) against
+     cuDNN's bf16 convs; 12c int8 (static scales), int8 with dynamic scales,
+     fp and int8-prefix hybrid ``tta_mc`` requests of B=8 raw volumes in
+     turns on the same inputs and masks (5 each): median latency, argmax
+     agreement, mean and std errors against fp, launches per request; 12d
+     int8 ``tta`` at B=1 in fp32 with dynamic scales, card vs CPU; 12e ``test_fusion_model(int8=True,
      calibration_data=val)`` on phase 8's trained fold; 12f the int8
      ``tta_mc`` serving artifact in a fresh process, bit-equal to the eager
      int8 seed-route predictor;
@@ -439,26 +446,28 @@ def cl(t):
     return t.contiguous(memory_format=torch.channels_last)
 
 
-COUNTERS = {"se_epilogue": (k1.se_epilogue, "launches"),
-            "conv3x3_bn_gelu": (k2.conv3x3_bn_gelu, "launches"),
-            "flash_attention_fwd": (fa.flash_attention, "launches"),
-            "flash_attention_bwd_dq": (fa.flash_attention, "launches_dq"),
-            "flash_attention_bwd_dkv": (fa.flash_attention, "launches_dkv"),
-            "se_scale": (sek.se_scale, "launches"),
-            "dwi_normalize": (dwi_norm.dwi_normalize, "launches"),
-            "histogram_percentiles": (hist.histogram_percentiles, "launches"),
-            "int8_conv": (int8q.int8_conv, "launches"),
-            "int8_quantize": (int8q.quantize, "launches"),
-            "int8_abs_max": (int8q.abs_max, "launches")}
+# name: (module, wrapper, counter), read at each use: a probe of another tree
+# (scripts/int8_turns.py) imports this file whatever wrappers that tree has
+COUNTERS = {"se_epilogue": (k1, "se_epilogue", "launches"),
+            "conv3x3_bn_gelu": (k2, "conv3x3_bn_gelu", "launches"),
+            "flash_attention_fwd": (fa, "flash_attention", "launches"),
+            "flash_attention_bwd_dq": (fa, "flash_attention", "launches_dq"),
+            "flash_attention_bwd_dkv": (fa, "flash_attention", "launches_dkv"),
+            "se_scale": (sek, "se_scale", "launches"),
+            "dwi_normalize": (dwi_norm, "dwi_normalize", "launches"),
+            "histogram_percentiles": (hist, "histogram_percentiles", "launches"),
+            "int8_conv": (int8q, "int8_conv", "launches"),
+            "int8_quantize": (int8q, "quantize", "launches"),
+            "int8_dynamic_quantize": (int8q, "dynamic_quantize", "launches")}
 
 
 def reset_counts():
-    for fn, attr in COUNTERS.values():
-        setattr(fn, attr, 0)
+    for mod, fn, attr in COUNTERS.values():
+        setattr(getattr(mod, fn), attr, 0)
 
 
 def counts():
-    return {name: getattr(fn, attr) for name, (fn, attr) in COUNTERS.items()}
+    return {name: getattr(getattr(mod, fn), attr) for name, (mod, fn, attr) in COUNTERS.items()}
 
 
 def hybrid_nb_config(cfg):
@@ -3231,9 +3240,14 @@ def phase_remat(cfg):
         torch.cuda.empty_cache()
     del batches
 
-    # one fusion train step at B=32, plain and with remat on both encoders
+    # fusion train steps at B=32, plain, with remat on both encoders, plain
+    # again: the two plain runs bit-equal, and no op without a deterministic
+    # implementation (the head's 32 -> 4 token pool is avg_pool2d)
+    import warnings
+
     fb = fusion_batches(fusion_config(cfg), 2, B, 61)
-    for remat in (False, True):
+    runs = []
+    for remat in (False, True, False):
         fcfg = fusion_config(cfg, remat=remat)
         dwi, fcfg = build_single_model(fcfg, "dwi", device=DEV, generator=gen(SEED))
         dce, fcfg = build_single_model(fcfg, "dce", device=DEV, generator=gen(SEED + 2))
@@ -3249,7 +3263,8 @@ def phase_remat(cfg):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         base = torch.cuda.memory_allocated()
-        with deterministic():
+        with warnings.catch_warnings(record=True) as caught, deterministic():
+            warnings.simplefilter("always")
             losses = [float(step(state, dict(b, aux_w=1.0), gen(SEED + 51), hp)["loss"])
                       for b in fb[:1]]
             ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
@@ -3258,16 +3273,34 @@ def phase_remat(cfg):
             ev[1].record()
             torch.cuda.synchronize()
         peak = torch.cuda.max_memory_allocated()
+        nondet = sorted({str(w.message)[:160] for w in caught
+                         if "deterministic" in str(w.message)})
+        other = sorted({f"{w.category.__name__}: {str(w.message)[:120]}" for w in caught
+                        if "deterministic" not in str(w.message)})
         log(f"  fusion train step, B={B}, {'remat on both encoders' if remat else 'plain'}: "
             f"losses {[f'{x:.6f}' for x in losses]}, the second step "
             f"{ev[0].elapsed_time(ev[1]):.2f} ms by CUDA events; peak memory "
             f"{peak / 2 ** 30:.2f} GiB ({(peak - base) / 2 ** 30:.2f} GiB above the state and "
-            f"batches; phase 7d printed its whole fusion run's peak)")
+            f"batches; phase 7d printed its whole fusion run's peak); nondeterminism warnings "
+            f"{len(nondet)}" + (f"; other warnings {other}" if other else ""))
+        if nondet:
+            raise AssertionError(f"fusion step under deterministic algorithms: ops without a "
+                                 f"deterministic implementation: {nondet}")
         if not all(np.isfinite(x) for x in losses):
             raise AssertionError("fusion remat step: loss not finite")
+        runs.append((losses, {k: v.detach().clone() for k, v in state.model.state_dict().items()}))
         del state, step
         torch.cuda.empty_cache()
-    del fb
+    (l0, sd0), (l1, sd1), (l2, sd2) = runs
+    gap = tensor_gap(sd2, sd0)
+    if not (l0 == l2 and gap == 0.0):
+        raise AssertionError(f"two plain fusion steps differ under deterministic algorithms "
+                             f"(losses {l0} / {l2}, worst tensor {gap:.3e})")
+    log(f"  fusion: the two plain runs' losses and {len(sd0)} parameters and BatchNorm "
+        f"statistics bit-equal, no nondeterminism warning; remat against plain: losses "
+        f"{'equal' if l0 == l1 else 'differ'}, worst tensor {tensor_gap(sd1, sd0):.3e}")
+    del fb, runs, sd0, sd1, sd2
+    torch.cuda.empty_cache()
 
 
 def read_run(results, method, fold):
@@ -3841,41 +3874,75 @@ def phase_int8_kernels(sites, mods):
     inputs = {}
     for (n, c, h, w, *_), calls in sites.items():
         inputs[(n, c, h, w)] = inputs.get((n, c, h, w), 0) + calls
-    q = dict.fromkeys(("ms", "plain", "bound", "amax_ms", "amax_plain", "amax_bound",
-                       "amax_lib"), 0.0)
+    q = dict.fromkeys(("ms", "plain", "bound", "dyn_ms", "dyn_plain", "dyn_bound", "dyn_bound2",
+                       "dyn_norm", "dyn_dev"), 0.0)
     for shape, calls in sorted(inputs.items()):
         x = cl(torch.randn(*shape, device=DEV, generator=g).to(torch.bfloat16) * 3)
-        amax = int8_cuda.launch_abs_max(x)
-        scale = torch.clamp_min(amax, 1e-12) / 127.0
-        checks = [torch.equal(amax, int8q.abs_max_ref(x))]
-        for divide, sc in ((True, scale), (False, scale * 0.9)):
-            checks.append(torch.equal(int8_cuda.launch_quantize(x, sc, divide),
-                                      int8q.quantize_ref(x, sc, divide)))
+        xq, scale = int8_cuda.launch_dynamic_quantize(x)
+        xq_ref, scale_ref = int8q.dynamic_quantize_ref(x)
+        xq2, scale2 = int8_cuda.launch_dynamic_quantize(x)
+        sc = scale * 0.9  # the static route at a scale that clips
+        checks = [torch.equal(xq, xq_ref) and torch.equal(scale, scale_ref),
+                  torch.equal(xq2, xq) and torch.equal(scale2, scale),
+                  torch.equal(int8_cuda.launch_quantize(x, sc, False),
+                              int8q.quantize_ref(x, sc, False))]
         if not all(checks):
-            raise AssertionError(f"int8 quantize at {shape}: abs_max, dynamic, static equal "
-                                 f"{checks}")
+            raise AssertionError(f"int8 quantize at {shape}: dynamic equal to its plain version, "
+                                 f"two dynamic calls equal, static equal: {checks}")
         numel = x.numel()
         t_q = cuda_time(lambda: int8_cuda.launch_quantize(x, scale, False))
         t_qp = cuda_time(lambda: int8q.quantize_ref(x, scale, False))
-        t_a = cuda_time(lambda: int8_cuda.launch_abs_max(x))
-        t_ap = cuda_time(lambda: int8q.abs_max_ref(x))
-        t_al = cuda_time(lambda: torch.linalg.vector_norm(x, float("inf")))
+        t_d = cuda_time(lambda: int8_cuda.launch_dynamic_quantize(x))
+        t_dp = cuda_time(lambda: int8q.dynamic_quantize_ref(x))
+        t_dn = cuda_time(lambda: torch.linalg.vector_norm(x, float("inf")))
         b_q = (3 * numel + 8) / HBM_BYTES_PER_S * 1e3
-        b_a = (2 * numel + 4) / HBM_BYTES_PER_S * 1e3
-        for k_, v in (("ms", t_q), ("plain", t_qp), ("bound", b_q), ("amax_ms", t_a),
-                      ("amax_plain", t_ap), ("amax_bound", b_a), ("amax_lib", t_al)):
+        # the dynamic quantize: x read once (twice, where pass 2 misses L2),
+        # the int8 copy and the scale written
+        b_d = (3 * numel + 4) / HBM_BYTES_PER_S * 1e3
+        b_d2 = (5 * numel + 4) / HBM_BYTES_PER_S * 1e3
+        for k_, v in (("ms", t_q), ("plain", t_qp), ("bound", b_q), ("dyn_ms", t_d),
+                      ("dyn_plain", t_dp), ("dyn_bound", b_d), ("dyn_bound2", b_d2),
+                      ("dyn_norm", t_dn)):
             q[k_] += v * calls
-        log(f"  12b {shape} x{calls}: abs_max, dynamic and static quantize bit-equal; "
-            f"static quantize {t_q:.4f} ms ({3 * numel / t_q / 1e6:.1f} GB/s, "
-            f"{100 * b_q / t_q:.1f} % of the bound), plain {t_qp:.4f}; abs_max {t_a:.4f} "
-            f"({100 * b_a / t_a:.1f} %), plain {t_ap:.4f}, vector_norm(inf) {t_al:.4f}")
-    log(f"  12b per request: static quantize {q['ms']:.3f} ms (bound {q['bound']:.3f}, plain "
-        f"{q['plain']:.3f}); abs_max (the dynamic route) {q['amax_ms']:.3f} (bound "
-        f"{q['amax_bound']:.3f}, vector_norm {q['amax_lib']:.3f})")
+        log(f"  12b {shape} x{calls}: dynamic quantize bit-equal to its plain version (codes "
+            f"and scale) and across two calls, static quantize bit-equal; dynamic {t_d:.4f} ms "
+            f"({(3 * numel + 4) / t_d / 1e6:.1f} GB/s of one read, {100 * b_d / t_d:.1f} % of "
+            f"the one-read bound {b_d:.4f}, {100 * b_d2 / t_d:.1f} % of the two-read bound "
+            f"{b_d2:.4f}), plain {t_dp:.4f}, vector_norm(inf) (pass 1's yardstick) {t_dn:.4f}; "
+            f"static quantize {t_q:.4f} ({3 * numel / t_q / 1e6:.1f} GB/s, "
+            f"{100 * b_q / t_q:.1f} % of the bound), plain {t_qp:.4f}")
+        # the kernel's own device time: the CUDA-event time of a small input is
+        # the wrapper's host time
+        t_dd = device_rate(f"12b {shape} dynamic quantize, one-read bound",
+                           lambda: int8_cuda.launch_dynamic_quantize(x),
+                           ("dynamic_quantize_kernel",), b_d, nbytes=3 * numel + 4)[0]
+        q["dyn_dev"] = None if None in (t_dd, q["dyn_dev"]) else q["dyn_dev"] + t_dd * calls
+    # a NaN in the largest input: the scale NaN, as the plain version's (and
+    # JAX's) max keeps it
+    shape = max(inputs, key=lambda s_: s_[0] * s_[1] * s_[2] * s_[3])
+    x = cl(torch.randn(*shape, device=DEV, generator=g).to(torch.bfloat16))
+    x.permute(0, 2, 3, 1).view(-1)[x.numel() // 3] = float("nan")
+    xq, scale = int8_cuda.launch_dynamic_quantize(x)
+    xq_ref, scale_ref = int8q.dynamic_quantize_ref(x)
+    if not (torch.isnan(scale) and torch.isnan(scale_ref) and torch.equal(xq, xq_ref)):
+        raise AssertionError(f"12b NaN at {shape}: scale {scale.item()} (plain "
+                             f"{scale_ref.item()}), codes equal {torch.equal(xq, xq_ref)}")
+    names = dynamic_quantize_names(shape)
+    if len(names) != 1 or "dynamic_quantize_kernel" not in names[0]:
+        raise AssertionError(f"12b: one _dynamic_quantize call ran {names}")
+    log(f"  12b NaN in a {shape} input: scale NaN, as the plain version's; codes equal. One "
+        f"_dynamic_quantize call's CUDA work (profiler, a process of its own): {names}")
+    dyn_dev = "not measured" if q["dyn_dev"] is None else f"{q['dyn_dev']:.3f} ms"
+    log(f"  12b per request: the dynamic route (one launch a conv) {q['dyn_ms']:.3f} ms, the "
+        f"kernel's device time {dyn_dev} (bound "
+        f"{q['dyn_bound']:.3f} with one read of x, {q['dyn_bound2']:.3f} with two; plain "
+        f"{q['dyn_plain']:.3f}; vector_norm(inf) alone {q['dyn_norm']:.3f}); static quantize "
+        f"{q['ms']:.3f} (bound {q['bound']:.3f}, plain {q['plain']:.3f})")
     log(f"  12a/12b per request: the static route (quantize + int8 conv) "
         f"{q['ms'] + tot['ms']:.3f} ms ({q['ms']:.3f} + {tot['ms']:.3f}; bound "
         f"{q['bound'] + tot['bound']:.3f}) against cuDNN's bf16 convs {tot['cudnn']:.3f} "
-        f"({(q['ms'] + tot['ms']) / tot['cudnn']:.2f}x)")
+        f"({(q['ms'] + tot['ms']) / tot['cudnn']:.2f}x); the dynamic route "
+        f"{q['dyn_ms'] + tot['ms']:.3f}")
     bound_by = "operations" if tot["bound_ops"] >= tot["bound_bytes"] else "bytes"
     return {
         "int8_conv": {"ms": tot["ms"], "plain_ms": tot["plain"], "bound_ms": tot["bound"],
@@ -3888,11 +3955,51 @@ def phase_int8_kernels(sites, mods):
         "int8_quantize": {"ms": q["ms"], "plain_ms": q["plain"], "bound_ms": q["bound"],
                           "bound_by": "bytes", "library_ms": None, "max_abs_err": 0.0,
                           "per": "int8 tta_mc request at B=8, bf16 (static scales)"},
-        "int8_abs_max": {"ms": q["amax_ms"], "plain_ms": q["amax_plain"],
-                         "bound_ms": q["amax_bound"], "bound_by": "bytes",
-                         "library_ms": q["amax_lib"], "max_abs_err": 0.0,
-                         "per": "the same inputs, as the dynamic route would run it"},
+        # no one PyTorch call computes the whole function; vector_norm(x, inf)
+        # computes pass 1's abs-max alone
+        "int8_dynamic_quantize": {"ms": q["dyn_ms"], "plain_ms": q["dyn_plain"],
+                                  "bound_ms": q["dyn_bound"], "bound_by": "bytes",
+                                  "library_ms": None, "max_abs_err": 0.0,
+                                  "bound_two_reads_ms": q["dyn_bound2"],
+                                  "device_ms": q["dyn_dev"],
+                                  "vector_norm_inf_ms": q["dyn_norm"],
+                                  "per": "the same inputs, as the dynamic route runs them"},
     }
+
+
+# a process of its own that prints the names of the CUDA work (kernels,
+# memsets, copies) one ``_dynamic_quantize`` call on a bf16 channels_last map
+# of the given shape puts on the device, under the profiler: late in this
+# script's process a profiler session often records nothing
+NAMES_CHILD = r"""
+import json, sys
+import torch
+from torch.profiler import ProfilerActivity, profile
+from dmf_tpu_torch.ops import library, quant  # noqa: F401  (registers the dmf:: operators)
+x = torch.randn(*json.loads(sys.argv[1]), device="cuda").to(torch.bfloat16).contiguous(
+    memory_format=torch.channels_last)
+quant._dynamic_quantize(x)
+torch.cuda.synchronize()
+for _ in range(5):  # a session at times records nothing
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        quant._dynamic_quantize(x)
+        torch.cuda.synchronize()
+    names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+    if names:
+        break
+print(json.dumps(names))
+"""
+
+
+def dynamic_quantize_names(shape):
+    here = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run([sys.executable, "-c", NAMES_CHILD, json.dumps(list(shape))], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here), capture_output=True, text=True,
+                          timeout=300)
+    if proc.returncode != 0:
+        raise AssertionError(f"12b profiling process exited {proc.returncode}: "
+                             f"{proc.stderr[-3000:]}")
+    return json.loads(proc.stdout.splitlines()[-1])
 
 
 def int8_request(cfg, predict, seed):
@@ -3901,12 +4008,13 @@ def int8_request(cfg, predict, seed):
     return raw_request(cfg, predict, gen(seed), gen(seed + 1000))
 
 
-def phase_int8_serve(cfg, models, qfwd, hfwd, expect):
-    """12c: int8, fp and hybrid tta_mc requests of B=8 raw volumes, in turns,
-    on the same inputs and MC seeds; launches of each set to 0 just before
-    and read just after."""
+def phase_int8_serve(cfg, models, qfwd, dfwd, hfwd, expect):
+    """12c: int8 (static scales), int8 with dynamic scales, fp and hybrid
+    tta_mc requests of B=8 raw volumes, in turns, on the same inputs and MC
+    seeds; launches of each set to 0 just before and read just after."""
     preds = {name: make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=f)
-             for name, f in (("int8", qfwd), ("fp", None), ("int8-prefix", hfwd))}
+             for name, f in (("int8", qfwd), ("int8-dynamic", dfwd), ("fp", None),
+                             ("int8-prefix", hfwd))}
     for name, p in preds.items():  # warm-up: cuDNN plans, prepared weights
         int8_request(cfg, p, 99)()
     lat = {k: [] for k in preds}
@@ -3933,8 +4041,11 @@ def phase_int8_serve(cfg, models, qfwd, hfwd, expect):
             f"{statistics.median(split[name]):.3f} ms by CUDA events); "
             f"{statistics.median(lat[name]) / fp_ms:.3f}x the fp predictor's; launches a "
             f"request {expect[name]}")
+    log(f"  12c int8 with dynamic scales against static: median latency "
+        f"{statistics.median(lat['int8-dynamic']):.2f} ms against "
+        f"{statistics.median(lat['int8']):.2f} ms")
     agree = {}
-    for name in ("int8", "int8-prefix"):
+    for name in ("int8", "int8-dynamic", "int8-prefix"):
         mean_q = torch.cat([m for m, _ in outs[name]])
         mean_f = torch.cat([m for m, _ in outs["fp"]])
         std_q = torch.cat([s for _, s in outs[name]])
@@ -3948,14 +4059,14 @@ def phase_int8_serve(cfg, models, qfwd, hfwd, expect):
             f"error {e_mean:.3e}, max std error {e_std:.3e}")
         if not (same >= 0.9 and e_mean <= 0.05 and e_std <= 0.05):
             raise AssertionError(f"{name} strays from the fp ensemble: {agree[name]}")
-    log(f"  12c launches (the int8 and hybrid requests): {launched}")
+    log(f"  12c launches (the int8, dynamic int8 and hybrid requests): {launched}")
     return launched, {k: statistics.median(v) for k, v in lat.items()}
 
 
 def phase_int8_cpu(cfg):
     """12d: the int8 tta forward at B=1 in fp32 with dynamic scales (the
-    abs-max route), card against CPU; launches set to 0 just before the
-    card's run and read just after."""
+    dynamic quantize route), card against CPU; launches set to 0 just before
+    the card's run and read just after."""
     cpu_models, dev_models = card_and_cpu_models(cfg)
     qsets = {k: int8q.build_quant_set(m) for k, m in zip(("dwi", "dce", "fusion"), cpu_models)}
     g = torch.Generator().manual_seed(93)
@@ -3973,8 +4084,8 @@ def phase_int8_cpu(cfg):
     n_q = sum(len(s) for s in qsets.values())
     log(f"  12d int8 tta B=1 fp32, dynamic scales: card {t_dev:.2f} s (launches {launched}), "
         f"CPU {t_cpu:.2f} s; {n_q} quantized convs")
-    if not (launched["int8_abs_max"] == launched["int8_quantize"] == launched["int8_conv"] > 0
-            and launched["conv3x3_bn_gelu"] == 0):
+    if not (launched["int8_dynamic_quantize"] == launched["int8_conv"] > 0
+            and launched["int8_quantize"] == 0 and launched["conv3x3_bn_gelu"] == 0):
         raise AssertionError(f"12d launches {launched}")
     compare_card_cpu((("12d int8 mean, card vs CPU", mean_d, mean_c, INT8_CPU_TOL),
                       ("12d int8 std, card vs CPU", std_d, std_c, INT8_CPU_TOL)))
@@ -4070,7 +4181,8 @@ def phase_int8_artifact(cfg, models, qfwd, tmp):
         + f", median after the first {statistics.median(r['ms'][1:]):.3f} ms against "
         f"{eager_ms:.3f} eager; seed {ARTIFACT_SEEDS[0]} bit-equal to the eager int8 seed-route "
         f"predictor; launches {r['counts']}")
-    names = {"int8_conv": "int8_conv", "quantize": "int8_quantize", "abs_max": "int8_abs_max"}
+    names = {"int8_conv": "int8_conv", "quantize": "int8_quantize",
+             "dynamic_quantize": "int8_dynamic_quantize"}
     return {names[k]: v for k, v in r["counts"].items() if k in names}
 
 
@@ -4096,7 +4208,11 @@ def phase_int8(cfg, tmp):
     del weights
     qfwd = int8q.make_quantized_fusion_fwd(*models, qsets)
     hfwd = int8q.make_hybrid_fusion_fwd(*models, qsets)
-    kept = {(n, b.dtype) for f in (qfwd, hfwd) for mod in f.modules.values()
+    # the calibration-free route: the same QuantSets without their static scales
+    dfwd = int8q.make_quantized_fusion_fwd(*models, {
+        k: {name: {kk: v for kk, v in e.items() if kk != "x_scale"} for name, e in qs.items()}
+        for k, qs in qsets.items()})
+    kept = {(n, b.dtype) for f in (qfwd, dfwd, hfwd) for mod in f.modules.values()
             for m in mod.modules() if isinstance(m, int8q.QuantConv2d)
             for n, b in m.named_buffers() if n != "weight_q"}
     if {d for _, d in kept} != {torch.float32}:
@@ -4117,16 +4233,17 @@ def phase_int8(cfg, tmp):
     n_conv, n_hyb = sum(sites.values()), sum(hsites.values())
     base = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "se_scale": 4, "dwi_normalize": 1}
     expect = {"int8": base | {"int8_conv": n_conv, "int8_quantize": n_conv},
+              "int8-dynamic": base | {"int8_conv": n_conv, "int8_dynamic_quantize": n_conv},
               "fp": base | {"conv3x3_bn_gelu": 12},
               "int8-prefix": base | {"int8_conv": n_hyb, "int8_quantize": n_hyb}}
-    launched, lat = phase_int8_serve(cfg, models, qfwd, hfwd, expect)
+    launched, lat = phase_int8_serve(cfg, models, qfwd, dfwd, hfwd, expect)
     for k, v in phase_int8_cpu(cfg).items():
         launched[k] += v
     for k, v in phase_int8_fold(cfg, tmp).items():
         launched[k] += v
     for k, v in phase_int8_artifact(cfg, models, qfwd, tmp).items():
         launched[k] += v
-    del models, qfwd, hfwd, pred, hpred, mods
+    del models, qfwd, dfwd, hfwd, pred, hpred, mods
     torch.cuda.empty_cache()
     log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
     return launched, measured
@@ -4226,8 +4343,8 @@ def main():
         "int8_conv": ("cuda", "dmf_tpu_torch/csrc/int8_conv.cu", "dmf_tpu/ops/quant.py:127"),
         "int8_quantize": ("cuda", "dmf_tpu_torch/csrc/int8_quantize.cu",
                           "dmf_tpu/ops/quant.py:90"),
-        "int8_abs_max": ("cuda", "dmf_tpu_torch/csrc/int8_quantize.cu",
-                         "dmf_tpu/ops/quant.py:84"),
+        "int8_dynamic_quantize": ("cuda", "dmf_tpu_torch/csrc/int8_quantize.cu",
+                                  "dmf_tpu/ops/quant.py:76"),
     }
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **measured[name]}

@@ -6,18 +6,18 @@ registered here as an operator in the ``dmf`` namespace, so that a traced
 program holds one node per kernel call and runs the kernel when the program
 runs, in a process that holds none of the model code:
 
-==================  =================================================  =======
-operator            CUDA implementation                                kernel
-==================  =================================================  =======
-``se_epilogue``     ``epilogue_cuda.launch_se_epilogue``                1
-``keep_mask``       ``epilogue_cuda.keep_mask`` (kernel 1's keep test)  1
-``conv3x3_bn_gelu`` ``conv3x3.launch_conv3x3_bn_gelu``                  2
-``se_scale``        ``se_cuda.launch_se_scale``                         6
-``flash_forward``   ``flash_attention.launch_flash_forward``            3
-``int8_conv``       ``quant_cuda.launch_int8_conv``                     int8 conv
-``quantize``        ``quant_cuda.launch_quantize``                      int8 quantize
-``abs_max``         ``quant_cuda.launch_abs_max``                       int8 quantize
-==================  =================================================  =======
+====================  ==================================================  =============
+operator              CUDA implementation                                 kernel
+====================  ==================================================  =============
+``se_epilogue``       ``epilogue_cuda.launch_se_epilogue``                1
+``keep_mask``         ``epilogue_cuda.keep_mask`` (kernel 1's keep test)  1
+``conv3x3_bn_gelu``   ``conv3x3.launch_conv3x3_bn_gelu``                  2
+``se_scale``          ``se_cuda.launch_se_scale``                         6
+``flash_forward``     ``flash_attention.launch_flash_forward``            3
+``int8_conv``         ``quant_cuda.launch_int8_conv``                     int8 conv
+``quantize``          ``quant_cuda.launch_quantize``                      int8 quantize
+``dynamic_quantize``  ``quant_cuda.launch_dynamic_quantize``              int8 quantize
+====================  ==================================================  =============
 
 The last three are the int8 serving path's kernels (``ops/quant.py``),
 which replace no Pallas kernel: XLA lowers JAX's int8 conv and quantize.
@@ -56,7 +56,7 @@ from . import (conv3x3, dropout, epilogue, epilogue_cuda, flash_attention, quant
 
 NAMESPACE = "dmf"
 OPERATORS = ("se_epilogue", "keep_mask", "conv3x3_bn_gelu", "se_scale", "flash_forward",
-             "int8_conv", "quantize", "abs_max")
+             "int8_conv", "quantize", "dynamic_quantize")
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("se_epilogue(Tensor x, Tensor identity, Tensor w1, Tensor b1, Tensor w2, "
@@ -70,7 +70,7 @@ _LIB.define("flash_forward(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor
 _LIB.define("int8_conv(Tensor x, Tensor weight, Tensor w_scale, Tensor? x_scale, Tensor? bias, "
             "int[] stride, int[] padding, int[] dilation, ScalarType out_dtype) -> Tensor")
 _LIB.define("quantize(Tensor x, Tensor scale, bool divide) -> Tensor")
-_LIB.define("abs_max(Tensor x) -> Tensor")
+_LIB.define("dynamic_quantize(Tensor x) -> (Tensor, Tensor)")
 
 
 def launch_counts() -> dict:
@@ -82,14 +82,14 @@ def launch_counts() -> dict:
             "flash_forward": flash_attention.flash_attention.launches,
             "int8_conv": quant.int8_conv.launches,
             "quantize": quant.quantize.launches,
-            "abs_max": quant.abs_max.launches}
+            "dynamic_quantize": quant.dynamic_quantize.launches}
 
 
 def reset_launch_counts() -> None:
     """Set every count of :func:`launch_counts` to 0."""
     for fn in (epilogue.se_epilogue, dropout.keep_mask, conv3x3.conv3x3_bn_gelu,
                se.se_scale, flash_attention.flash_attention, quant.int8_conv, quant.quantize,
-               quant.abs_max):
+               quant.dynamic_quantize):
         fn.launches = 0
 
 
@@ -247,19 +247,20 @@ def _quantize_fake(x, scale, divide):
     return torch.empty_like(x, dtype=torch.int8)
 
 
-# --------------------------------------------------------------- abs_max
-def _abs_max_cuda(x):
-    out = quant_cuda.launch_abs_max(x)
-    quant.abs_max.launches += 1
+# ------------------------------------------------------ dynamic_quantize
+def _dynamic_quantize_cuda(x):
+    out = quant_cuda.launch_dynamic_quantize(x)
+    quant.dynamic_quantize.launches += 1
     return out
 
 
-def _abs_max_cpu(x):
-    return quant.abs_max_ref(x)
+def _dynamic_quantize_cpu(x):
+    xq, scale = quant.dynamic_quantize_ref(x)
+    return torch.empty_like(x, dtype=torch.int8).copy_(xq), scale
 
 
-def _abs_max_fake(x):
-    return x.new_empty((), dtype=torch.float32)
+def _dynamic_quantize_fake(x):
+    return torch.empty_like(x, dtype=torch.int8), x.new_empty((), dtype=torch.float32)
 
 
 for _name, _cuda, _cpu, _fake in (
@@ -270,7 +271,8 @@ for _name, _cuda, _cpu, _fake in (
         ("flash_forward", _flash_cuda, _flash_cpu, _flash_fake),
         ("int8_conv", _int8_conv_cuda, _int8_conv_cpu, _int8_conv_fake),
         ("quantize", _quantize_cuda, _quantize_cpu, _quantize_fake),
-        ("abs_max", _abs_max_cuda, _abs_max_cpu, _abs_max_fake)):
+        ("dynamic_quantize", _dynamic_quantize_cuda, _dynamic_quantize_cpu,
+         _dynamic_quantize_fake)):
     _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _cpu, "CPU")
     torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)

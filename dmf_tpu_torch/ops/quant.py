@@ -37,7 +37,8 @@ BatchNorm, then exact GELU (the JAX adapter's XLA route): kernel 2
 
 The kernels: ``int8_conv`` (``csrc/int8_conv.cu``, a warp-specialised
 implicit-GEMM conv on ``wgmma`` s8 with a dequantizing epilogue),
-``quantize`` and ``abs_max`` (``csrc/int8_quantize.cu``), through the
+``quantize`` (the static route) and ``dynamic_quantize`` (abs-max, scale and
+quantize in one cooperative launch; ``csrc/int8_quantize.cu``), through the
 ``dmf::`` operators of ``ops/library.py``.  Each wrapper below takes the
 plain version for CPU tensors and launches its kernel for CUDA tensors,
 with no fallback from one to the other.  The plain conv runs in float64 on
@@ -93,8 +94,18 @@ def quantize_ref(x: torch.Tensor, scale: torch.Tensor, divide: bool) -> torch.Te
 
 
 def abs_max_ref(x: torch.Tensor) -> torch.Tensor:
-    """``max |x|`` in fp32, an fp32 scalar."""
+    """``max |x|`` in fp32, an fp32 scalar (NaN where ``x`` holds one)."""
     return x.float().abs().amax()
+
+
+def dynamic_quantize_ref(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x_q, scale)``: ``scale = max(max|x|, 1e-12) / 127`` in fp32, NaN
+    kept (quant.py:84-85), and ``x_q = quantize_ref(x, scale, True)``.  The
+    127 is a tensor on ``x``'s device: torch divides by a Python number as a
+    product with its reciprocal on the card."""
+    amax = abs_max_ref(x)
+    scale = torch.clamp_min(amax, 1e-12) / amax.new_tensor(127.0)
+    return quantize_ref(x, scale, True), scale
 
 
 def int8_conv_ref(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
@@ -138,10 +149,13 @@ def quantize(x: torch.Tensor, scale: torch.Tensor, divide: bool = False) -> torc
     return torch.ops.dmf.quantize(x.detach(), scale, bool(divide))
 
 
-def abs_max(x: torch.Tensor) -> torch.Tensor:
-    """``max |x|`` (:func:`abs_max_ref`): the ``abs_max`` operator."""
-    _checked("abs_max", x)
-    return torch.ops.dmf.abs_max(x.detach())
+def dynamic_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """``(x_q, scale)`` at the tensor's own abs-max (:func:`dynamic_quantize_ref`):
+    the ``dynamic_quantize`` operator, the plain version on the CPU and one
+    launch of ``csrc/int8_quantize.cu`` on the card (fp32 or bf16, contiguous
+    or channels_last; the int8 copy keeps the memory format)."""
+    _checked("dynamic_quantize", x)
+    return torch.ops.dmf.dynamic_quantize(x.detach())
 
 
 def int8_conv(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
@@ -157,15 +171,14 @@ def int8_conv(xq: torch.Tensor, wq: torch.Tensor, w_scale: torch.Tensor,
 
 
 quantize.launches = 0
-abs_max.launches = 0
+dynamic_quantize.launches = 0
 int8_conv.launches = 0
 
 
 def _dynamic_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
     """Per-tensor symmetric dynamic int8: ``(x_q, scale)`` with ``scale =
     max(amax, 1e-12) / 127`` in fp32 (quant.py:76-87)."""
-    scale = torch.clamp_min(abs_max(x), 1e-12) / 127.0
-    return quantize(x, scale, divide=True), scale
+    return dynamic_quantize(x)
 
 
 def _static_quantize(x: torch.Tensor, scale: torch.Tensor) -> torch.Tensor:

@@ -1,5 +1,6 @@
-"""CUDA kernels of the int8 serving path: the implicit-GEMM conv, the
-activation quantize and its abs-max.
+"""CUDA kernels of the int8 serving path: the implicit-GEMM conv, the static
+activation quantize and the dynamic one (abs-max, scale and quantize in one
+launch).
 
 They replace no Pallas kernel: the JAX package leaves its int8 conv
 (``dmf_tpu/ops/quant.py:127-135``, ``lax.conv_general_dilated`` with an int32
@@ -15,7 +16,7 @@ from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Optional, Sequence
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -47,10 +48,12 @@ def _quant_library() -> ctypes.CDLL:
     q.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_int, ctypes.c_void_p,
                                                                 ctypes.c_longlong, ctypes.c_void_p])
     q.restype = ctypes.c_int
-    a = lib.int8_abs_max_launch
-    a.argtypes = [ctypes.c_int] * 2 + [ctypes.c_void_p] * 2 + [ctypes.c_longlong,
-                                                              ctypes.c_void_p]
-    a.restype = ctypes.c_int
+    d = lib.int8_dynamic_quantize_launch
+    d.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p, ctypes.c_longlong, ctypes.c_void_p,
+                                        ctypes.c_int] + [ctypes.c_void_p] * 3)
+    d.restype = ctypes.c_int
+    lib.int8_dynamic_quantize_capacity.argtypes = [ctypes.c_int] * 2
+    lib.int8_dynamic_quantize_capacity.restype = ctypes.c_int
     return lib
 
 
@@ -193,14 +196,39 @@ def launch_quantize(x: torch.Tensor, scale: torch.Tensor, divide: bool) -> torch
     return out
 
 
-def launch_abs_max(x: torch.Tensor) -> torch.Tensor:
-    """Launch the abs-max on a dense fp32 / bf16 tensor: an fp32 scalar."""
-    _check_float("abs_max", x)
-    out = torch.empty((), dtype=torch.float32, device=x.device)
-    lib = _quant_library()
-    with torch.cuda.device(x.device):
-        rc = lib.int8_abs_max_launch(_FLOAT_DTYPES[x.dtype], _vec(x), x.data_ptr(),
-                                     out.data_ptr(), x.numel(), _stream(x))
+@functools.lru_cache(maxsize=None)
+def _dynamic_capacity(device: int, dtype: int, vec: int) -> int:
+    """The dynamic quantize's co-resident blocks on ``device``: its grid's
+    cap and the size of its partials' workspace."""
+    with torch.cuda.device(device):
+        cap = _quant_library().int8_dynamic_quantize_capacity(dtype, vec)
+    if cap <= 0:
+        raise RuntimeError(f"dynamic_quantize: occupancy query failed (CUDA error {-cap})")
+    return cap
+
+
+def launch_dynamic_quantize(x: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dynamic quantize on a dense fp32 / bf16 tensor: ``(x_q,
+    scale)`` with ``scale = max(max|x|, 1e-12) / 127`` an fp32 scalar (NaN
+    where ``x`` holds one) and ``x_q = clip(rne(x / scale), -127, 127)``,
+    int8 in ``x``'s memory format; one cooperative launch."""
+    _check_float("dynamic_quantize", x)
+    if x.numel() == 0:
+        raise ValueError("dynamic_quantize: an empty tensor has no abs-max")
+    out = torch.empty_like(x, dtype=torch.int8)
+    scale = torch.empty((), dtype=torch.float32, device=x.device)
+    vec = int(x.data_ptr() % 16 == 0 and out.data_ptr() % 16 == 0)
+    dtype = _FLOAT_DTYPES[x.dtype]
+    cap = _dynamic_capacity(x.device.index, dtype, vec)
+    partial = torch.empty(cap, dtype=torch.int32, device=x.device)
+    args = (dtype, vec, x.data_ptr(), x.numel(), partial.data_ptr(), cap, scale.data_ptr(),
+            out.data_ptr(), _stream(x))
+    launch = _quant_library().int8_dynamic_quantize_launch
+    if x.device.index == torch.cuda.current_device():
+        rc = launch(*args)
+    else:
+        with torch.cuda.device(x.device):
+            rc = launch(*args)
     if rc != 0:
-        raise RuntimeError(f"abs_max: kernel launch failed (CUDA error {rc})")
-    return out
+        raise RuntimeError(f"dynamic_quantize: kernel launch failed (CUDA error {rc})")
+    return out, scale

@@ -41,16 +41,21 @@ def adaptive_avg_pool(x: torch.Tensor, out_size: Sequence[int]) -> torch.Tensor:
 
     Where the output is an integer multiple of the input in both dims (the
     projectors' 32 -> 64), each output pixel's window is one input pixel:
-    that is the nearest upsample, the same values.  Its backward sums each
-    input pixel's gradients in a fixed order, where the card's
-    ``adaptive_avg_pool2d`` backward adds them by atomics, so a train step
-    would not repeat bit for bit."""
+    that is the nearest upsample, the same values.  Where the input is an
+    integer multiple of the output (the fusion head's 32 -> 4), the windows
+    tile the input: that is ``avg_pool2d`` with kernel = stride = the ratio,
+    the same values.  Both backwards sum each input pixel's gradients in a
+    fixed order, where the card's ``adaptive_avg_pool2d`` backward adds them
+    by atomics, so a train step would not repeat bit for bit."""
     size = tuple(out_size)
     h, w = x.shape[-2:]
     if (h, w) == size:
         return x
     if size[0] % h == 0 and size[1] % w == 0:
         return F.interpolate(x, size=size, mode="nearest")
+    if h % size[0] == 0 and w % size[1] == 0:
+        ratio = (h // size[0], w // size[1])
+        return F.avg_pool2d(x, ratio, ratio)
     return F.adaptive_avg_pool2d(x, size)
 
 

@@ -13,9 +13,12 @@ default config at full width, QuantSets from the fp32 weights, bf16 copies
 calibrated with MC dropout), finds the quantized convs of an int8 ``tta_mc``
 request at B=8 (``chip_smoke.conv_sites``) and times, by CUDA events, each
 distinct shape's ``QuantConv2d`` forward on a bf16 map (the static route: a
-quantize and the int8 conv), the int8 conv on an int8 map and the static
-quantize alone, each summed over the request's calls; then 12c's int8 and
-fp ``tta_mc`` requests of B=8 raw volumes, in turns, 5 each (median ms).
+quantize and the int8 conv), the int8 conv on an int8 map, the static
+quantize alone and the dynamic route's ``quant._dynamic_quantize`` (a name
+both trees have, whatever kernels are behind it), each summed over the
+request's calls; then 12c's int8 (static scales), int8 with dynamic scales
+(the same QuantSets without their static scales) and fp ``tta_mc`` requests
+of B=8 raw volumes, in turns, 5 each (median ms).
 The turns run other, this, this, other; the script prints each turn's
 numbers and the mean of each tree's two.
 """
@@ -57,7 +60,8 @@ qfwd = c.int8q.make_quantized_fusion_fwd(*models, qsets)
 pred = c.make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=qfwd)
 dx, cx = volumes(c.gen(83), c.B_SERVE)
 sites, mods = c.conv_sites(pred, dx, cx, c.gen(84), qfwd.modules.values())
-res = dict.fromkeys(("static_route_ms", "int8_conv_ms", "quantize_ms"), 0.0)
+res = dict.fromkeys(("static_route_ms", "int8_conv_ms", "quantize_ms", "dynamic_quantize_ms"),
+                    0.0)
 g = c.gen(91)
 for key, calls in sites.items():
     n, ch, h, w, o, kh, kw, s, p, d = key
@@ -71,7 +75,14 @@ for key, calls in sites.items():
         xq, m.weight_q, m.w_scale, m.x_scale, m.bias, s, p, d, torch.bfloat16)) * calls
     res["quantize_ms"] += c.cuda_time(
         lambda: c.int8_cuda.launch_quantize(xb, m.x_scale, False)) * calls
-preds = {"int8": pred, "fp": c.make_fusion_predictor(cfg, *models, mode="tta_mc")}
+    with torch.no_grad():
+        res["dynamic_quantize_ms"] += c.cuda_time(lambda: c.int8q._dynamic_quantize(xb)) * calls
+dfwd = c.int8q.make_quantized_fusion_fwd(*models, {
+    k: {name: {kk: v for kk, v in e.items() if kk != "x_scale"} for name, e in qs.items()}
+    for k, qs in qsets.items()})
+preds = {"int8": pred,
+         "int8_dynamic": c.make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=dfwd),
+         "fp": c.make_fusion_predictor(cfg, *models, mode="tta_mc")}
 for p_ in preds.values():  # warm-up
     c.int8_request(cfg, p_, 99)()
 lat = {k: [] for k in preds}

@@ -708,9 +708,9 @@ def test_int8_conv_kernel(dev, shape):
 @pytest.mark.parametrize("shape,cl,offset", [((3, 14, 37, 29), True, 0), ((2, 64, 16, 16), False, 0),
                                             ((4099,), False, 1), ((2, 256, 64, 64), True, 0)])
 def test_int8_quantize_kernels(dev, dtype, shape, cl, offset):
-    """The static (reciprocal) and dynamic (division) quantize and the
-    abs-max bit-equal to the plain versions: ragged sizes, an unaligned
-    start (scalar loads), channels_last."""
+    """The static (reciprocal) quantize and its division form bit-equal to
+    the plain version: ragged sizes, an unaligned start (scalar loads),
+    channels_last."""
     from dmf_tpu_torch.ops import quant, quant_cuda
 
     g = torch.Generator(device=dev).manual_seed(5)
@@ -718,14 +718,76 @@ def test_int8_quantize_kernels(dev, dtype, shape, cl, offset):
          * 3).to(dtype)[offset:].reshape(shape)
     if cl:
         x = _cl(x)
-    amax = quant_cuda.launch_abs_max(x)
-    assert torch.equal(amax, quant.abs_max_ref(x))
-    scale = torch.clamp_min(amax, 1e-12) / 127.0
+    scale = quant.dynamic_quantize_ref(x)[1]
     for divide, sc in ((True, scale), (False, scale * 0.7)):  # 0.7: the clamp too
         got = quant_cuda.launch_quantize(x, sc, divide)
         ref = quant.quantize_ref(x, sc, divide)
         assert got.stride() == x.stride() and torch.equal(got, ref), divide
         assert got.abs().max() <= 127
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape,cl,offset", [
+    ((1,), False, 0), ((17,), False, 0), ((4097,), False, 0),  # the tail, one unit
+    ((4097,), False, 1), ((2, 64, 16, 16), False, 1),  # unaligned: element by element
+    ((3, 14, 37, 29), True, 0), ((2, 64, 16, 16), False, 0),
+    ((32, 256, 64, 64), True, 0),  # a tta_mc request's 64^2 conv input
+    ((8, 256, 128, 128), True, 0)])  # past the 50 MB L2 (67 MB bf16, 134 MB fp32)
+def test_int8_dynamic_quantize_kernel(dev, dtype, shape, cl, offset):
+    """The dynamic quantize (abs-max, scale, quantize in one launch) bit-equal
+    to its plain version in codes and scale, and across two calls."""
+    from dmf_tpu_torch.ops import quant, quant_cuda
+
+    g = torch.Generator(device=dev).manual_seed(6)
+    n = int(torch.tensor(shape).prod())
+    x = (torch.randn(offset + n, device=dev, generator=g) * 3).to(dtype)[offset:].reshape(shape)
+    if cl:
+        x = _cl(x)
+    got, scale = quant_cuda.launch_dynamic_quantize(x)
+    ref, ref_scale = quant.dynamic_quantize_ref(x)
+    assert got.stride() == x.stride() and got.dtype == torch.int8
+    assert torch.equal(scale, ref_scale) and torch.equal(got, ref)
+    again, scale2 = quant_cuda.launch_dynamic_quantize(x)
+    assert torch.equal(again, got) and torch.equal(scale2, scale)
+    if n > 1:
+        assert got.abs().max() == 127
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("at", [0, 4096, 2 * 63 * 33 * 33 - 1])
+def test_int8_dynamic_quantize_nan(dev, dtype, at):
+    """A NaN anywhere (a vector's first element, a block's span, the tail)
+    gives a NaN scale, as the plain version's and JAX's max do; the codes
+    as the plain version's."""
+    from dmf_tpu_torch.ops import quant, quant_cuda
+
+    g = torch.Generator(device=dev).manual_seed(7)
+    x = torch.randn(2, 63, 33, 33, device=dev, generator=g).to(dtype)  # n % 16 == 14
+    x.view(-1)[at] = float("nan")
+    got, scale = quant_cuda.launch_dynamic_quantize(x)
+    ref, ref_scale = quant.dynamic_quantize_ref(x)
+    assert torch.isnan(scale) and torch.isnan(ref_scale)
+    assert torch.equal(got, ref)
+
+
+def test_int8_dynamic_quantize_is_one_kernel(dev):
+    """One ``_dynamic_quantize`` call runs one CUDA kernel, the dynamic
+    quantize, and no memset or scalar kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from dmf_tpu_torch.ops import quant
+
+    x = _cl(torch.randn(8, 256, 32, 32, device=dev).to(torch.bfloat16))
+    quant._dynamic_quantize(x)
+    torch.cuda.synchronize()
+    for _ in range(3):  # a profiler session at times records nothing
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            quant._dynamic_quantize(x)
+            torch.cuda.synchronize()
+        names = [e.name for e in prof.events() if e.device_type.name == "CUDA"]
+        if names:
+            break
+    assert len(names) == 1 and "dynamic_quantize_kernel" in names[0], names
 
 
 def test_int8_wrappers_raise(dev):
@@ -779,12 +841,12 @@ def test_int8_copy_launches_the_int8_kernels(dev):
         if isinstance(m, quant.QuantConv2d):
             assert m.weight_q.is_contiguous()
             m.register_forward_pre_hook(lambda *a: calls.append(1))
-    for f in (quant.int8_conv, quant.quantize, quant.abs_max, k2.conv3x3_bn_gelu):
+    for f in (quant.int8_conv, quant.quantize, quant.dynamic_quantize, k2.conv3x3_bn_gelu):
         f.launches = 0
     with torch.no_grad():
         got = card(_cl(x.to(dev)))[0]
         ref = cpu(x)[0]
     torch.cuda.synchronize()
     assert quant.int8_conv.launches == quant.quantize.launches == len(calls) > 20
-    assert quant.abs_max.launches == 0 and k2.conv3x3_bn_gelu.launches == 0
+    assert quant.dynamic_quantize.launches == 0 and k2.conv3x3_bn_gelu.launches == 0
     assert (got.cpu() - ref).abs().max() <= 1e-2 * max(1.0, ref.abs().max().item())

@@ -9,8 +9,8 @@ runs the int8 conv (``int8_conv``).  At toy size:
   2, dilation 2, the 7x7 stems at Cin 6 and 14, Cout 32 / 96 / 160, a
   ragged last pixel tile);
 * an exported int8 forward holds one ``dmf::quantize`` and one
-  ``dmf::int8_conv`` node a static conv; a dynamic one abs_max, quantize
-  and int8_conv a conv;
+  ``dmf::int8_conv`` node a static conv; a dynamic one a
+  ``dmf::dynamic_quantize`` and an int8_conv node a conv, and no abs-max;
 * the two operators' fake implementations give the CPU results' shape,
   dtype and strides on float maps (``torch.library.opcheck`` and a
   fake-mode call).
@@ -119,14 +119,14 @@ def _quant_stack(static):
 @pytest.mark.parametrize("static", [True, False])
 def test_exported_int8_forward_operators(static):
     """A static QuantConv2d is one ``dmf::quantize`` and one
-    ``dmf::int8_conv`` node; a dynamic one abs_max, quantize and int8_conv."""
+    ``dmf::int8_conv`` node; a dynamic one dynamic_quantize and int8_conv."""
     qnet, x, n = _quant_stack(static)
     with torch.no_grad():
         nodes = operator_nodes(torch.export.export(qnet, (x,)))
     if static:
         expect = {"quantize": n, "int8_conv": n}
     else:
-        expect = {"abs_max": n, "quantize": n, "int8_conv": n}
+        expect = {"dynamic_quantize": n, "int8_conv": n}
     assert nodes == dict.fromkeys(library.OPERATORS, 0) | expect
 
 

@@ -65,6 +65,24 @@ class TestResize:
         g_ref, = torch.autograd.grad(ref, x, cot)
         torch.testing.assert_close(g_got, g_ref, rtol=1e-6, atol=1e-6)
 
+    @pytest.mark.parametrize("src,dst", [((32, 32), (4, 4)),   # the fusion head's token pool
+                                         ((32, 32), (8, 8)), ((12, 10), (4, 5))])
+    @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+    @pytest.mark.parametrize("channels_last", [False, True])
+    def test_adaptive_avg_pool_downsample_is_torch_pool(self, src, dst, dtype, channels_last):
+        """An integer downsample takes ``avg_pool2d``: torch's adaptive pool's
+        values bit for bit, the memory format kept, and its gradient."""
+        fmt = torch.channels_last if channels_last else torch.contiguous_format
+        x = torch.randn(3, 8, *src, generator=torch.Generator().manual_seed(6)).to(
+            dtype).contiguous(memory_format=fmt).requires_grad_()
+        got, ref = resize.adaptive_avg_pool(x, dst), F.adaptive_avg_pool2d(x, dst)
+        assert torch.equal(got, ref)
+        assert got.is_contiguous(memory_format=fmt)
+        cot = torch.randn(got.shape, generator=torch.Generator().manual_seed(7)).to(dtype)
+        g_got, = torch.autograd.grad(got, x, cot)
+        g_ref, = torch.autograd.grad(ref, x, cot)
+        assert torch.equal(g_got, g_ref)
+
     def test_global_avg_pool(self):
         x = np.random.RandomState(2).randn(2, 5, 6, 3).astype(np.float32)
         assert_close(resize.global_avg_pool(nchw(x)),

@@ -320,7 +320,7 @@ def test_quantize_rounds_as_jax_at_ties(dtype, static):
 
 def test_wrappers_refuse_other_devices():
     with pytest.raises(ValueError, match="unsupported device"):
-        quant.abs_max(torch.zeros(3, device="meta"))
+        quant.dynamic_quantize(torch.zeros(3, device="meta"))
 
 
 # --------------------------------------------------------------- calibration
@@ -533,8 +533,8 @@ def test_int8_neck_takes_the_conv_bn_gelu_route(mc_stack):
         qd(xd.permute(0, 3, 1, 2), prefix_only=True)
     assert calls.calls.get("conv3x3_bn_gelu", 0) == 0
     prefix = sum(k.startswith("backbone") for k in qset)  # backbone and adapter
-    assert calls.calls["int8_conv"] == calls.calls["abs_max"] == prefix
-    assert calls.calls["quantize"] == prefix
+    assert calls.calls["int8_conv"] == calls.calls["dynamic_quantize"] == prefix
+    assert calls.calls.get("quantize", 0) == 0
     assert all(isinstance(models[0].get_submodule(k), torch.nn.Conv2d) for k in qset)
 
 
@@ -652,7 +652,7 @@ def _opcheck_cases():
                                          torch.bfloat16)),
         "quantize": ("quantize", (x, xs, False)),
         "quantize_cl_div": ("quantize", (x.contiguous(memory_format=cl), xs, True)),
-        "abs_max": ("abs_max", (x.to(torch.bfloat16),)),
+        "dynamic_quantize": ("dynamic_quantize", (x.to(torch.bfloat16),)),
     }
 
 
@@ -663,6 +663,6 @@ def test_opcheck(case):
 
 
 def test_operators_registered():
-    assert {"int8_conv", "quantize", "abs_max"} <= set(library.OPERATORS)
+    assert {"int8_conv", "quantize", "dynamic_quantize"} <= set(library.OPERATORS)
     counts = library.launch_counts()
-    assert {"int8_conv", "quantize", "abs_max"} <= set(counts)
+    assert {"int8_conv", "quantize", "dynamic_quantize"} <= set(counts)
