@@ -186,6 +186,22 @@ Phases, each printing its own lines:
      calibration_data=val)`` on phase 8's trained fold; 12f the int8
      ``tta_mc`` serving artifact in a fresh process, bit-equal to the eager
      int8 seed-route predictor;
+  13. the data mesh (``parallel/mesh.py``, ``parallel/sharding.py``): two
+     ranks pinned to the one card with gloo, each a process of its own
+     (``python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
+     --mesh-rank OUT`` runs one rank): 13a three full-width fusion train
+     steps at global B=32 (16 a rank), fp32, dropout 0, through
+     ``make_spmd_step``, their losses and parameters against one process's
+     steps at phase 7c's bound (over the larger of two floors: one process
+     in another memory format, and 13d's run), with each rank's step ms,
+     peak memory and the ms of its all-reduces; 13b data-parallel ``tta_mc``
+     bf16 requests of B=8 raw volumes (4 a rank), each rank's launches of
+     kernels 1, 2, 6 and 7 a request and its latency beside one process's
+     (two ranks sharing one card: no scaling figure), ``tta`` fp32 against
+     one process's at phase 4's tolerance; 13c two DWI folds of
+     ``make_multifold_step(mesh=)``, one a rank, bit-equal to one process's
+     fold step; 13d 13a's steps on a 1x1 mesh over NCCL in this process, and
+     ``run --mesh 2`` raising its "needs 2 cards" error;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -4248,6 +4264,341 @@ def phase_int8(cfg, tmp):
     log(f"  phase 12: {time.perf_counter() - t_phase:.1f} s")
     return launched, measured
 
+# ------------------------------------------------------------------ phase 13
+# the data mesh (parallel/mesh.py) on the one card: two ranks pinned to it
+# with gloo (NCCL refuses two ranks on one card), each a process of its own
+# started by torch.distributed.run, running this file with --mesh-rank
+MESH_RANKS = 2
+MESH_B, MESH_STEPS = 32, 3  # 13a: global B=32, 16 a rank
+MESH_FOLD_B, MESH_FOLD_STEPS = 2, 2  # 13c: the DWI encoder, one fold a rank
+MESH_STEP_SEED, MESH_DROP_SEED = 61, 62
+MESH_SERVE_SEEDS = (81, 82, 83)
+
+
+def mesh_fusion_setup(cfg):
+    """13a's full-width fusion network (dropout 0, as phase 7c: its bound
+    reads a run in another memory format; every group trainable), its step,
+    hyperparameters and global batches, the same in every process (seeded
+    generators on the card)."""
+    fcfg = fusion_config(cfg, dropout=0.0)
+    net = FusionNetwork(*build_fusion_models(fcfg, DEV, generator=gen(SEED)))
+    init = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
+    spec = build_fusion_group_spec(list(init), fcfg)
+    clf = get_classification_loss_fn(fcfg, np.arange(fcfg.class_num), "fusion")
+    step = make_fusion_train_step(fcfg, clf, get_mask_loss_fn(fcfg, "fusion"), spec)
+    ctrl = FusionOptController(fcfg)
+    ctrl.on_epoch_start(3)
+    aux_w = aux_loss_weight(3, fcfg.aux_loss_weight_epoch_limit)
+    batches = [dict(b, aux_w=aux_w)
+               for b in fusion_batches(fcfg, MESH_STEPS, MESH_B, MESH_STEP_SEED)]
+    return fcfg, net, init, spec, step, ctrl.hyperparams(), batches
+
+
+def mesh_fold_setup(cfg):
+    """13c's two folds of the full-width DWI encoder (one build copied, as
+    ``run_single_model_multifold`` does), its raw step and each fold's
+    batches (kernel 7 and the augmentation on the card)."""
+    rcfg = train_config(cfg)
+    model, rcfg = build_single_model(rcfg, "dwi", device=DEV)
+    models = [model, copy.deepcopy(model)]
+    names = [n for n, _ in model.named_parameters()]
+    spec = build_group_spec(names, rcfg.dwi_model.use_backbone, rcfg.reference_compat)
+    clf = get_classification_loss_fn(rcfg, np.arange(rcfg.class_num), "dwi")
+    raw = make_single_train_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"), spec)
+    ctrl = SingleModelOptController(rcfg, "dwi")
+    ctrl.on_epoch_start(1)
+    batches = [[dict(b, aux_w=1.0) for b in dwi_batches(rcfg, MESH_FOLD_STEPS, MESH_FOLD_B,
+                                                          90 + f)] for f in range(2)]
+    return models, raw, ctrl.hyperparams(), batches
+
+
+def state_digest(model):
+    """A digest of a model's parameters and buffers, bit for bit."""
+    import hashlib
+
+    h = hashlib.sha256()
+    for k, t in model.state_dict().items():
+        h.update(k.encode())
+        h.update(t.detach().cpu().contiguous().reshape(-1).view(torch.uint8).numpy().tobytes())
+    return h.hexdigest()
+
+
+def mesh_fold_steps(cfg, mesh=None):
+    """13c: the two folds' steps (``make_multifold_step``, deterministic
+    algorithms); the digest of each fold this process stepped."""
+    from dmf_tpu_torch.parallel import make_multifold_step
+
+    models, raw, hp, batches = mesh_fold_setup(cfg)
+    states = [TrainState.create(m) for m in models]
+    step = make_multifold_step(raw, mesh=mesh)
+    with deterministic():
+        for i in range(MESH_FOLD_STEPS):
+            step(states, [b[i] for b in batches], [gen(95 + f + 10 * i) for f in range(2)], hp)
+    owned = mesh.folds(2) if mesh is not None else range(2)
+    return {f: state_digest(models[f]) for f in owned}
+
+
+def mesh_request(cfg, predict, b=B_SERVE):
+    """One request of ``b`` raw volumes from 13b's seeded draws (the same in
+    every process): preprocessing (kernel 7) then the predictor."""
+    S = cfg.dwi_model.input_size
+    g = gen(MESH_SERVE_SEEDS[0])
+    dwi_raw = torch.rand(b, S, S, cfg.dwi_base_channel_num, device=DEV, generator=g) * 1000.0
+    dce_raw = torch.rand(b, S, S, cfg.dce_channel_num, device=DEV, generator=g)
+    dx, cx = preprocess_fusion_inputs(dwi_raw, dce_raw, torch.full((S, S, 1), 0.5, device=DEV))
+    return predict(dx, cx, gen(MESH_SERVE_SEEDS[1]))
+
+
+def mesh_rank_main(out):
+    """One rank of phase 13 (``python -m torch.distributed.run --nproc-per-node
+    2 chip_smoke.py --mesh-rank OUT``): 13a, 13b and 13c on this rank's rows
+    or folds; its results into ``OUT/rank<r>.json``."""
+    from dmf_tpu_torch.parallel import make_mesh, make_spmd_step, shard_state
+    from dmf_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(MESH_RANKS, 1, devices=[DEV] * MESH_RANKS)
+    cfg = default_parameters()
+    res = {"rank": mesh.rank, "backend": mesh.backend}
+    # 13a
+    fcfg, net, init, spec, step, hp, batches = mesh_fusion_setup(cfg)
+    state = TrainState.create(net, num_groups=4)
+    shard_state(state, mesh)
+    dp = make_spmd_step(step, mesh)
+    g = gen(MESH_DROP_SEED)
+    torch.cuda.reset_peak_memory_stats()
+    res["metrics"], res["step_ms"] = [], []
+    for b in batches:
+        ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+        mesh.barrier()
+        ev[0].record()
+        m = dp(state, b, g, hp)
+        ev[1].record()
+        torch.cuda.synchronize()
+        res["metrics"].append({k: float(v) for k, v in m.items()})
+        res["step_ms"].append(ev[0].elapsed_time(ev[1]))
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    single = copy.deepcopy(net)
+    single.load_state_dict(torch.load(os.path.join(out, "single_fusion.pt"), map_location=DEV,
+                                      weights_only=True))
+    res["gaps"] = {str(k): v for k, v in disagreement(net, single, init, spec).items()}
+    del single
+    # one more step with every collective timed apart (synchronised around it)
+    spent = []
+    plain = mesh_mod.Mesh.all_reduce
+
+    def timed(self, t):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        plain(self, t)
+        torch.cuda.synchronize()
+        spent.append(time.perf_counter() - t0)
+        return t
+
+    mesh_mod.Mesh.all_reduce = timed
+    try:
+        mesh.barrier()
+        t0 = time.perf_counter()
+        dp(state, batches[0], g, hp)
+        torch.cuda.synchronize()
+        res["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    finally:
+        mesh_mod.Mesh.all_reduce = plain
+    res["collective_ms"], res["collectives"] = sum(spent) * 1e3, len(spent)
+    del state, net, dp, batches
+    torch.cuda.empty_cache()
+    # 13b
+    models = build_fusion_models(cfg, DEV, torch.bfloat16, gen(SEED))
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc", mesh=mesh)
+    mesh_request(cfg, predict)  # warm-up
+    res["requests"] = []
+    for _ in range(REQUESTS):
+        reset_counts()
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, std, _ = mesh_request(cfg, predict)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gate("mesh tta_mc", cfg, counts(), MESH_SERVE_EXPECT, mean, std, True, B_SERVE)
+        res["requests"].append({"ms": dt * 1e3, "counts": counts()})
+    del models, predict
+    models = build_fusion_models(cfg, DEV, torch.float32, gen(SEED))
+    mean, std, _ = mesh_request(cfg, make_fusion_predictor(cfg, *models, mode="tta", mesh=mesh))
+    ref = torch.load(os.path.join(out, "single_tta.pt"), map_location=DEV, weights_only=True)
+    res["tta_err"] = [(mean - ref["mean"]).abs().max().item(),
+                      (std - ref["std"]).abs().max().item()]
+    del models
+    torch.cuda.empty_cache()
+    # 13c
+    res["folds"] = mesh_fold_steps(cfg, mesh)
+    with open(os.path.join(out, f"rank{mesh.rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+# per rank and request: the same launches as one process's request (phase 5)
+MESH_SERVE_EXPECT = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "conv3x3_bn_gelu": 12,
+                                                   "se_scale": 4, "dwi_normalize": 1}
+
+
+def phase_mesh(cfg, tmp, smi):
+    """Phase 13: the data mesh; returns the ranks' launches."""
+    from dmf_tpu_torch.parallel import local_mesh, make_spmd_step, shard_state
+
+    t_phase = time.perf_counter()
+    log(f"== phase 13: the data mesh (parallel/mesh.py) on the one card: {MESH_RANKS} ranks "
+        f"pinned to it with gloo, each a process of its own (torch.distributed.run); 13a "
+        f"{MESH_STEPS} full-width fusion train steps at global B={MESH_B} fp32 (dropout 0, "
+        f"every group trainable) against one process's at phase 7c's bound, 13b tta_mc bf16 "
+        f"requests of B={B_SERVE} served data parallel, tta fp32 against one process's, 13c "
+        f"two DWI folds on the two ranks against one process's, 13d 13a's steps on a 1x1 mesh "
+        f"over NCCL")
+    out = os.path.join(tmp, "mesh")
+    os.makedirs(out)
+    # one process's runs first, the references the ranks read
+    fcfg, net, init, spec, step, hp, batches = mesh_fusion_setup(cfg)
+
+    def steps(model, mesh=None):
+        state, g = TrainState.create(model, num_groups=4), gen(MESH_DROP_SEED)
+        run = step
+        if mesh is not None:
+            shard_state(state, mesh)
+            run = make_spmd_step(step, mesh)
+        return [{k: float(v) for k, v in run(state, b, g, hp).items()} for b in batches]
+
+    alt = copy.deepcopy(net).to(memory_format=torch.contiguous_format)
+    nccl = copy.deepcopy(net)
+    single = steps(net)
+    # phase 7c's floor: the same steps in another memory format
+    steps(alt)
+    layout = {str(k): v for k, v in disagreement(alt, net, init, spec).items()}
+    del alt
+    # 13d: the same steps on a 1x1 mesh over NCCL, one process: the mesh
+    # route's BatchNorm (two passes over the group's sums) and gradient sum,
+    # every collective through NCCL; a floor of the route beside the layout's
+    mesh = local_mesh(DEV)
+    if mesh.backend != "nccl":
+        raise AssertionError(f"13d: the 1x1 mesh runs {mesh.backend}")
+    one_rank = steps(nccl, mesh)
+    route = {str(k): v for k, v in disagreement(nccl, net, init, spec).items()}
+    for i, (a, b) in enumerate(zip(one_rank, single)):
+        rel = {n: abs(a[n] - b[n]) / max(abs(b[n]), 1e-12) for n in FUSION_LOSSES}
+        if not all(v <= TRAIN_LOSS_RTOL for v in rel.values()):
+            raise AssertionError(f"13d step {i}: losses off one process's: {rel}")
+    if route["-1"] != 0.0:
+        raise AssertionError("13d: the excluded group moved")
+    log(f"  13d: a 1x1 mesh on {mesh.backend}: the {MESH_STEPS} steps of 13a through "
+        f"make_spmd_step (BatchNorm's sums, the gradient sum and the metrics by NCCL's "
+        f"all-reduce): losses " + "; ".join(
+            ", ".join(f"{n} {a[n]:.6f}" for n in FUSION_LOSSES) for a in one_rank)
+        + f" within rel {TRAIN_LOSS_RTOL:.0e} of one process's; against one process's "
+        f"parameters per group " + ", ".join(f"{k} {v:.3e}" for k, v in route.items())
+        + "; one process in contiguous memory format against channels_last (phase 7c's "
+        f"floor): " + ", ".join(f"{k} {v:.3e}" for k, v in layout.items()))
+    tols = {g_: 0.0 if g_ == "-1" else
+            max(TRAIN_FLOOR, FUSION_FLOOR_MARGIN * max(layout[g_], route[g_]))
+            for g_ in layout}
+    torch.save(net.state_dict(), os.path.join(out, "single_fusion.pt"))
+    del net, nccl, batches
+    torch.cuda.empty_cache()
+    models = build_fusion_models(cfg, DEV, torch.bfloat16, gen(SEED))
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc")
+    mesh_request(cfg, predict)
+    one = []
+    for _ in range(REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_request(cfg, predict)
+        torch.cuda.synchronize()
+        one.append((time.perf_counter() - t0) * 1e3)
+    del models, predict
+    models = build_fusion_models(cfg, DEV, torch.float32, gen(SEED))
+    mean, std, _ = mesh_request(cfg, make_fusion_predictor(cfg, *models, mode="tta"))
+    torch.save({"mean": mean, "std": std}, os.path.join(out, "single_tta.pt"))
+    tta_scale = max(1.0, mean.abs().max().item())
+    del models
+    torch.cuda.empty_cache()
+    single_folds = mesh_fold_steps(cfg)
+    torch.cuda.empty_cache()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(MESH_RANKS), os.path.abspath(__file__),
+                           "--mesh-rank", out], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="4"),
+                          capture_output=True, text=True, timeout=600)
+    t_ranks = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"mesh ranks exited {proc.returncode}: {proc.stderr[-4000:]}")
+    ranks = []
+    for r in range(MESH_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"  {MESH_RANKS} ranks: {t_ranks:.1f} s in all (start, build, 13a-13c); backend "
+        f"{ranks[0]['backend']}; {smi}")
+    # 13a
+    for i, ref in enumerate(single):
+        for r in ranks:
+            got = r["metrics"][i]
+            rel = {n: abs(got[n] - ref[n]) / max(abs(ref[n]), 1e-12) for n in FUSION_LOSSES}
+            if not all(v <= TRAIN_LOSS_RTOL for v in rel.values()):
+                raise AssertionError(f"13a step {i} rank {r['rank']}: losses off one "
+                                     f"process's: {rel}")
+        log(f"  13a step {i}: " + ", ".join(
+            f"{n} one process {ref[n]:.6f} ranks "
+            + "/".join(f"{r['metrics'][i][n]:.6f}" for r in ranks) for n in FUSION_LOSSES)
+            + f" (tolerance rel {TRAIN_LOSS_RTOL:.0e}); grad norm one process "
+            f"{ref['grad_norm']:.5f} ranks "
+            + "/".join(f"{r['metrics'][i]['grad_norm']:.5f}" for r in ranks))
+    for r in ranks:
+        for g_, gap in r["gaps"].items():
+            if not gap <= tols[g_]:
+                raise AssertionError(f"13a rank {r['rank']} group {g_}: off one process's "
+                                     f"step by {gap}, above {tols[g_]}")
+        log(f"  13a rank {r['rank']}: parameters and statistics against one process's, per "
+            f"group (difference over the update, L2; stats: max err over max(1, max|one|)) "
+            + ", ".join(f"{k} {v:.3e} (tolerance {tols[k]:.3e})" for k, v in r["gaps"].items())
+            + "; step ms by CUDA "
+            f"events " + ", ".join(f"{t:.1f}" for t in r["step_ms"])
+            + f"; peak {r['peak_gib']:.2f} GiB; one more step with every collective timed "
+            f"apart: {r['timed_step_ms']:.1f} ms, of which {r['collective_ms']:.1f} ms in "
+            f"{r['collectives']} all-reduces; {smi}")
+    # 13b
+    bound = TOL[torch.float32] * tta_scale
+    launched = dict.fromkeys(COUNTERS, 0)
+    for r in ranks:
+        if not max(r["tta_err"]) <= bound:
+            raise AssertionError(f"13b rank {r['rank']}: tta off one process's by "
+                                 f"{r['tta_err']}, above {bound}")
+        for q in r["requests"]:
+            for k, v in q["counts"].items():
+                launched[k] += v
+        log(f"  13b rank {r['rank']}: tta fp32 B={B_SERVE} against one process's: mean "
+            f"max_abs_err {r['tta_err'][0]:.3e}, std {r['tta_err'][1]:.3e} (tolerance "
+            f"{bound:.3e}); tta_mc bf16 requests (ms, host clock, two ranks sharing one card: "
+            f"no scaling figure) " + ", ".join(f"{q['ms']:.2f}" for q in r["requests"])
+            + f"; launches a request {r['requests'][-1]['counts']}")
+    log(f"  13b one process: tta_mc bf16 requests (ms, host clock) "
+        + ", ".join(f"{t:.2f}" for t in one) + f"; {smi}")
+    # 13c
+    for r in ranks:
+        for f, digest in r["folds"].items():
+            if digest != single_folds[int(f)]:
+                raise AssertionError(f"13c fold {f} on rank {r['rank']} differs from one "
+                                     f"process's")
+    owners = ", ".join(f"fold {f} on rank {r['rank']}" for r in ranks for f in r["folds"])
+    log(f"  13c: {owners}: bit-equal to one process's multifold step ({MESH_FOLD_STEPS} "
+        f"steps, B={MESH_FOLD_B}, deterministic algorithms)")
+    # 13d: a mesh the card cannot hold
+    expect_value_error("13d: run --mesh 2 on the one card",
+                       lambda: cli.main(["run", "--mesh", "2", "--folds", "0"]))
+    torch.distributed.destroy_process_group()
+    log(f"  phase 13: {time.perf_counter() - t_phase:.1f} s")
+    return launched
+
 
 def main():
     torch.backends.cudnn.allow_tf32 = False
@@ -4308,10 +4659,13 @@ def main():
         # phase 12 tests phase 8's fold on the int8 path
         int8_launches, int8_measured = phase_int8(cfg, tmp)
         measured.update(int8_measured)
+        # phase 13: the data mesh; its launches are the ranks'
+        mesh_launches = phase_mesh(cfg, tmp, smi)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
-                + serving_launches[k] + int8_launches.get(k, 0) for k in COUNTERS}
+                + serving_launches[k] + int8_launches.get(k, 0) + mesh_launches[k]
+                for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
@@ -4357,4 +4711,7 @@ def main():
 
 
 if __name__ == "__main__":
-    main()
+    if sys.argv[1:2] == ["--mesh-rank"]:
+        mesh_rank_main(sys.argv[2])
+    else:
+        main()

@@ -18,7 +18,11 @@ The subcommands take the JAX CLI's arguments, plus ``--device`` (default
 --parallel-folds`` over several folds trains each modality's folds in one
 call (``run_single_model_multifold``), then runs fusion per fold; over one
 fold it runs the per-fold loop, as the JAX CLI does (cli.py:157).
-``--mesh`` raises ``NotImplementedError`` (ROADMAP 1.13).  ``export-serving``
+``--mesh DATA`` trains and tests over a data mesh of DATA ranks, one process
+a rank (``python -m torch.distributed.run --nproc-per-node DATA -m
+dmf_tpu_torch.cli run --mesh DATA ...``: NCCL with a card a rank, gloo with
+``--device cpu``); rank 0 prints and writes.  A model axis (``--mesh 4x2``)
+raises ``NotImplementedError`` (ROADMAP 1.13b).  ``export-serving``
 writes the weights-free ``torch.export`` serving program (``serving.py``) on
 ``--device``, in place of the JAX CLI's ``--platforms``.  ``bench`` is not
 ported yet (ROADMAP 1.1).
@@ -69,7 +73,10 @@ def _add_common(p):
                    help="shrink the models/geometry for smoke runs "
                         "(CPU-friendly)")
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
-                   help="not ported (ROADMAP 1.13): raises")
+                   help="device mesh, e.g. '2' (2-way data parallel: launch 2 "
+                        "processes with python -m torch.distributed.run "
+                        "--nproc-per-node 2); a model axis ('4x2') is not "
+                        "ported (ROADMAP 1.13b)")
     p.add_argument("--parallel-folds", action="store_true",
                    help="train each modality's folds in one call (one raw "
                         "load and one model build; each fold's results equal "
@@ -115,9 +122,6 @@ def _load_reference_params(path: str):
 def load_config(args):
     from .config import Config, default_parameters
 
-    if args.mesh:
-        raise NotImplementedError("--mesh: the SPMD device mesh is not ported "
-                                  "(ROADMAP 1.13)")
     if args.ref_params:
         cfg = _load_reference_params(args.ref_params)
     elif args.config:
@@ -135,6 +139,11 @@ def load_config(args):
         updates["debug_anomaly"] = True
     if args.mc_chunk:
         updates["mc_chunk"] = args.mc_chunk
+    if args.mesh:
+        part = args.mesh.lower().split("x")
+        n_data = int(part[0])
+        n_model = int(part[1]) if len(part) > 1 else 1
+        updates["parallel"] = dataclasses.replace(cfg.parallel, mesh_shape=(n_data, n_model))
     if args.tiny:
         def shrink(mc):
             return dataclasses.replace(
@@ -161,6 +170,15 @@ def load_config(args):
 def cmd_run(args) -> int:
     cfg = load_config(args)
     device = _device(args)
+    from .parallel.mesh import mesh_from_config
+
+    # the runs build the same mesh; built here first, so that a mesh that
+    # cannot form fails before any work
+    mesh = mesh_from_config(cfg, device)
+    if mesh is not None:
+        device = mesh.device
+    # rank 0 alone prints
+    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
     if cfg.debug_anomaly:
         torch.autograd.set_detect_anomaly(True)
 
@@ -186,7 +204,7 @@ def cmd_run(args) -> int:
         # fold's encoder results, then runs per fold
         for method in methods:
             debug_suite(method)
-            print(f"[dmf_tpu_torch] folds {folds} method {method}: fold-parallel "
+            say(f"[dmf_tpu_torch] folds {folds} method {method}: fold-parallel "
                   f"training...")
             per_method[method] = run_single_model_multifold(
                 cfg, method, folds, num_epochs=args.epochs, min_epochs=args.min_epochs,
@@ -200,28 +218,28 @@ def cmd_run(args) -> int:
                 results[method] = per_method[method][fold]
             else:
                 debug_suite(method)
-                print(f"[dmf_tpu_torch] fold {fold} method {method}: training...")
+                say(f"[dmf_tpu_torch] fold {fold} method {method}: training...")
                 results[method] = run_single_model(
                     cfg, method, fold,
                     num_epochs=args.epochs, min_epochs=args.min_epochs,
                     base_dir=args.results_dir, pretrained_path=pretrained(method),
                     device=device,
                 )
-            print(f"[dmf_tpu_torch] fold {fold} {method} test:",
+            say(f"[dmf_tpu_torch] fold {fold} {method} test:",
                   json.dumps(results[method]["test_metrics"], indent=None))
         if args.fusion and "dwi" in results and "dce" in results:
-            print(f"[dmf_tpu_torch] fold {fold} fusion: training...")
+            say(f"[dmf_tpu_torch] fold {fold} fusion: training...")
             fusion_res = run_fusion_model(
                 cfg, fold, results["dwi"], results["dce"],
                 num_epochs=args.epochs, min_epochs=args.min_epochs,
                 base_dir=args.results_dir,
             )
-            print(f"[dmf_tpu_torch] fold {fold} fusion test:",
+            say(f"[dmf_tpu_torch] fold {fold} fusion test:",
                   json.dumps(fusion_res["test_metrics"], indent=None))
             summary[f"fold{fold}_fusion"] = fusion_res["test_metrics"]
         for m, r in results.items():
             summary[f"fold{fold}_{m}"] = r["test_metrics"]
-    print(json.dumps(summary, indent=2))
+    say(json.dumps(summary, indent=2))
     return 0
 
 

@@ -9,7 +9,9 @@ prepare_single_model.py:107-114).  The whole batch is warped in one gather.
 Randomness comes from an explicit ``torch.Generator`` on the images' device
 in place of ``jax.random`` keys; the two give different streams, so the
 augmentation agrees with the JAX package in distribution, and exactly for
-fixed parameters (:func:`affine_nearest`).
+fixed parameters (:func:`affine_nearest`).  Under a data mesh's step each
+rank draws the whole global batch's parameters and keeps its rows
+(``parallel/mesh.py``).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from typing import Tuple
 import torch
 
 from ..ops.resize import resize_bilinear
+from ..parallel.mesh import active_shard
 
 
 def _resize_nhwc(x: torch.Tensor, size: int) -> torch.Tensor:
@@ -80,11 +83,18 @@ def random_affine_flip(generator: torch.Generator, imgs: torch.Tensor,
     single = imgs.dim() == 3
     x = imgs[None] if single else imgs
     N, H, W, _ = x.shape
-    u = torch.rand((N, 3), generator=generator, device=x.device)
+    shard = active_shard()
+    if shard is not None:  # a data mesh's step: this rank's rows of the global draws
+        if N != shard.n:
+            raise ValueError(f"augmenting {N} images under a shard of {shard.n} rows")
+        u = shard.rand_rows(3, generator, x.device)
+        flips = shard.rand_rows(2, generator, x.device) < 0.5
+    else:
+        u = torch.rand((N, 3), generator=generator, device=x.device)
+        flips = torch.rand((N, 2), generator=generator, device=x.device) < 0.5
     angle = -degrees + 2.0 * degrees * u[:, 0]
     tx = (2.0 * u[:, 1] - 1.0) * (translate[0] * W)
     ty = (2.0 * u[:, 2] - 1.0) * (translate[1] * H)
-    flips = torch.rand((N, 2), generator=generator, device=x.device) < 0.5
     # torchvision shear=(0.1, 0.1) is the (min, max) range of the x-shear only
     out = affine_nearest(x, angle, (tx, ty), ((shear[0] + shear[1]) * 0.5, 0.0))
     out = torch.where(flips[:, 0, None, None, None], out.flip(2), out)

@@ -7,13 +7,16 @@ that the native library's threaded loader gathers ahead of the consumer
 JAX package's: one ``np.random.RandomState`` permutation per epoch; the
 native loader shuffles in C++ from a seed that the same ``rng`` draws, as the
 JAX package's native route does.  The tail is one short batch (the
-reference's ``DataLoader(drop_last=False)``); the JAX package's padded tails
-exist for its mesh, which the port has not.
+reference's ``DataLoader(drop_last=False)``).  Under a data mesh each rank
+takes its rows of every global batch (``rows=``, ``parallel/mesh.py``): the
+same permutation on every rank, so no data moves between ranks, and the
+tail split unevenly (a share may be empty) where the JAX package pads it
+with validity weights (``dmf_tpu/train/loop.py:206-245``).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Iterator, Optional, Tuple, Union
+from typing import Callable, Dict, Iterator, Optional, Tuple, Union
 
 import numpy as np
 import torch
@@ -99,17 +102,26 @@ def native_batches(dataset: ArrayDataset, batch_size: int, shuffle: bool,
 
 def iterate_batches(dataset: ArrayDataset, batch_size: int, shuffle: bool = False,
                     rng: Optional[np.random.RandomState] = None,
-                    device=None, native: bool = False) -> Iterator[Batch]:
+                    device=None, native: bool = False,
+                    rows: Optional[Callable[[int], slice]] = None) -> Iterator[Batch]:
     """Batches of every array of ``dataset``: numpy arrays, or tensors
     gathered on ``device`` from the staged copy when one is given.  Without
     a staged copy, ``native=True`` takes the native loader
     (:func:`native_batches`); the staged copy wins, as in the JAX package
-    (pipeline.py:163-191)."""
+    (pipeline.py:163-191).  ``rows`` (a data mesh's ``Mesh.rows``) maps a
+    global batch's size to this rank's slice of it: each batch is then this
+    rank's rows (possibly none) of the global one."""
     if device is None and native:
-        yield from native_batches(dataset, batch_size, shuffle, rng)
+        for batch in native_batches(dataset, batch_size, shuffle, rng):
+            if rows is not None:
+                sl = rows(len(batch["labels"]))
+                batch = {k: v[sl] for k, v in batch.items()}
+            yield batch
         return
     staged = stage_dataset_to_device(dataset, device) if device is not None else None
     for idx in batch_indices(len(dataset), batch_size, shuffle, rng):
+        if rows is not None:
+            idx = idx[rows(len(idx))]
         if staged is None:
             yield {k: v[idx] for k, v in dataset.arrays.items()}
         else:

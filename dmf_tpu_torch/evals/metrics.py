@@ -71,6 +71,20 @@ def _prf(cm: np.ndarray):
     return prec, rec, f1
 
 
+def multiclass_f1(preds, labels, num_classes) -> float:
+    cm = confusion_matrix(preds, labels, num_classes)
+    return float(_prf(cm)[2].mean())
+
+
+def multiclass_precision(preds, labels, num_classes) -> float:
+    cm = confusion_matrix(preds, labels, num_classes)
+    return float(_prf(cm)[0].mean())
+
+
+def multiclass_recall(preds, labels, num_classes) -> float:
+    cm = confusion_matrix(preds, labels, num_classes)
+    return float(_prf(cm)[1].mean())
+
 
 def classification_report(
     probs: np.ndarray,

@@ -19,6 +19,15 @@ them, the same on the CPU and the card.  The public function keeps the JAX layou
 in, ``(mean, std, aux)`` out, with aux maps returned NHWC.  A pass is a
 :class:`PassForward`; ``fwd_override`` swaps in another (the int8 forwards of
 ``ops/quant.py``), as JAX's ``make_fusion_predictor(fwd_override=)``.
+
+``mesh=`` (a data mesh, ``parallel/mesh.py``) serves each request data
+parallel, the counterpart of JAX's ``_shard_map_predictor`` (:95-172): every
+rank runs the single-process predictor on its rows of the batch (its kernels
+included), and the ``(mean, std, aux)`` are gathered back into the unsharded
+layout, the ``(views x B, ...)`` aux leaves view by view.  The MC masks come
+from a generator per rank, seeded from a draw of the caller's generator and
+the rank, as JAX folds the shard index into its key: each sample's ensemble
+is a correct MC-dropout sample whose masks differ from one process's.
 """
 
 from __future__ import annotations
@@ -152,11 +161,66 @@ def _ensemble(encoders, fwd: Callable, prefix: Callable, mode: str, passes: int,
     return run
 
 
+def _rank_generator(generator, mesh) -> Optional[torch.Generator]:
+    """This rank's MC generator: seeded from one draw of the caller's
+    ``generator`` (which every rank advances alike) and the rank."""
+    if generator is None:
+        return None
+    if not isinstance(generator, torch.Generator):
+        raise TypeError("a mesh predictor draws its masks from a torch.Generator, got "
+                        f"{type(generator).__name__}")
+    seed = int(torch.randint(0, 2 ** 62, (1,), generator=generator,
+                             device=generator.device).item())
+    return torch.Generator(generator.device).manual_seed(
+        (seed * mesh.n_data + mesh.rank) % 2 ** 63)
+
+
+def _map_tree(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _map_tree(fn, v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_map_tree(fn, v) for v in tree)
+    return fn(tree)
+
+
+def _mesh_predictor(run: Callable, mesh, n_views: int) -> Callable:
+    """``run(imgs, generator)`` served over the data mesh: this rank's rows
+    of each input, its own generator, the outputs gathered back (a rank
+    without rows runs the first row and gathers none)."""
+
+    def predict(imgs, generator):
+        B = imgs[0].shape[0]
+        rows = mesh.rows(B)
+        n = rows.stop - rows.start
+        local = [torch.as_tensor(x)[rows if n else slice(0, 1)] for x in imgs]
+        mean, std, aux = run(local, _rank_generator(generator, mesh))
+        nl = mean.shape[0]
+
+        def gather(a):
+            if not isinstance(a, torch.Tensor) or a.dim() == 0:
+                return a  # the same on every rank
+            if n_views > 1 and a.shape[0] == n_views * nl:
+                a = a.reshape(n_views, nl, *a.shape[1:])
+                return mesh.gather_rows(a[:, :n], B, dim=1).reshape(n_views * B, *a.shape[2:])
+            if a.shape[0] == nl:
+                return mesh.gather_rows(a[:n], B)
+            return a
+
+        return gather(mean), gather(std), _map_tree(gather, aux)
+
+    return predict
+
+
+def _views(mode: str) -> int:
+    return 4 if mode in ("tta", "tta_mc") else 1
+
+
 def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
                           mode: Optional[str] = None,
                           mc_passes: Optional[int] = None,
                           mc_chunk: Optional[int] = None,
-                          fwd_override: Optional[PassForward] = None) -> Callable:
+                          fwd_override: Optional[PassForward] = None,
+                          mesh=None) -> Callable:
     """Returns ``predict(dwi_imgs, dce_imgs, generator=None) -> (mean, std, aux)``.
 
     ``dwi_imgs``/``dce_imgs`` are NHWC.  ``generator`` (on the models'
@@ -165,16 +229,21 @@ def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
     ``mc_chunk`` defaults to ``cfg.mc_chunk``.  ``fwd_override`` (a
     :class:`PassForward`, e.g. ``ops/quant.py``'s ``make_quantized_fusion_fwd``
     or ``make_hybrid_fusion_fwd``) replaces the per-pass forward and the
-    hoisted prefix.
+    hoisted prefix.  ``mesh`` serves each request over a data mesh (the
+    module's docstring); every rank passes the whole batch and the same
+    generator state.
     """
     if fwd_override is not None and not isinstance(fwd_override, PassForward):
         raise TypeError(f"fwd_override must be a PassForward (ops/quant.py's int8 forwards "
                         f"make one), got {type(fwd_override).__name__}")
     fwd = fwd_override or PassForward((dwi_model, dce_model), (dwi_model, dce_model),
                                       fusion_model)
-    run = _ensemble((dwi_model, dce_model), fwd, fwd.compute_prefixes, mode or cfg.test_mode,
+    mode = mode or cfg.test_mode
+    run = _ensemble((dwi_model, dce_model), fwd, fwd.compute_prefixes, mode,
                     mc_passes if mc_passes is not None else cfg.mc_passes,
                     cfg.mc_chunk if mc_chunk is None else mc_chunk)
+    if mesh is not None:
+        run = _mesh_predictor(run, mesh, _views(mode))
 
     def predict(dwi_imgs, dce_imgs, generator: Optional[torch.Generator] = None):
         return run((dwi_imgs, dce_imgs), generator)
@@ -184,17 +253,20 @@ def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
 
 def make_single_predictor(cfg: Config, model, mode: Optional[str] = None,
                           mc_passes: Optional[int] = None,
-                          mc_chunk: Optional[int] = None) -> Callable:
+                          mc_chunk: Optional[int] = None, mesh=None) -> Callable:
     """Returns ``predict(imgs, generator=None) -> (mean, std, aux)`` for one
     encoder (predict.py:186-262), with the prefix split and lean passes of the
-    fusion predictor; ``imgs`` NHWC, ``generator`` as there."""
+    fusion predictor; ``imgs`` NHWC, ``generator`` and ``mesh`` as there."""
     def fwd(xs, mc=False, generator=None, prefixes=None, lean=False):
         p = prefixes[0] if prefixes is not None else None
         return model(xs[0], mc=mc, generator=generator, prefix=p, lean=lean)[:2]
 
+    mode = mode or cfg.test_mode
     run = _ensemble((model,), fwd, lambda xs: (model(xs[0], prefix_only=True),),
-                    mode or cfg.test_mode, mc_passes if mc_passes is not None else cfg.mc_passes,
+                    mode, mc_passes if mc_passes is not None else cfg.mc_passes,
                     cfg.mc_chunk if mc_chunk is None else mc_chunk)
+    if mesh is not None:
+        run = _mesh_predictor(run, mesh, _views(mode))
 
     def predict(imgs, generator: Optional[torch.Generator] = None):
         return run((imgs,), generator)

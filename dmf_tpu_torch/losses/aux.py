@@ -74,8 +74,8 @@ def proj_cosine_loss(a: torch.Tensor, b: torch.Tensor, eps: float = 1e-8) -> tor
 def mimic_feat_loss(s_feat: torch.Tensor, t_feat: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
     """Cosine distance of the flattened, L2-normalised features; the
     teacher (second argument) is detached (train.py:1033-1038)."""
-    s = s_feat.reshape(s_feat.shape[0], -1)
-    t = t_feat.detach().reshape(t_feat.shape[0], -1)
+    s = s_feat.flatten(1)
+    t = t_feat.detach().flatten(1)
     s = s / torch.linalg.vector_norm(s, dim=1, keepdim=True).clamp(min=1e-12)
     t = t / torch.linalg.vector_norm(t, dim=1, keepdim=True).clamp(min=1e-12)
     return (1.0 - (s * t).sum(dim=1).clamp(-1.0 + eps, 1.0 - eps)).mean()

@@ -35,8 +35,8 @@ class GatingAttention(nn.Module):
     def forward(self, pvec_dwi, pvec_dce, dwi_mask=None, dce_mask=None):
         parts = [pvec_dwi, pvec_dce]
         if dwi_mask is not None and dce_mask is not None:
-            parts += [dwi_mask.mean(dim=(-2, -1)).reshape(dwi_mask.shape[0], -1),
-                      dce_mask.mean(dim=(-2, -1)).reshape(dce_mask.shape[0], -1)]
+            parts += [dwi_mask.mean(dim=(-2, -1)).flatten(1),
+                      dce_mask.mean(dim=(-2, -1)).flatten(1)]
         return torch.softmax(self.fc(torch.cat(parts, dim=1)), dim=1)
 
 

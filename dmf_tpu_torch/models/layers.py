@@ -25,6 +25,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.dropout import SeedStream, seeded_dropout
+from ..parallel.mesh import RowShard, active_shard
 from ..ops.epilogue import se_epilogue
 from ..ops.se import se_scale
 from ..ops.resize import global_avg_pool, resize_bilinear
@@ -38,12 +39,39 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``train=False`` normalises with the running statistics; ``train=True``
     with the batch's biased variance, and updates the running mean and the
     Bessel-corrected running variance with momentum 0.1 (torch's semantics,
-    which ``TorchBatchNorm`` reproduces).
+    which ``TorchBatchNorm`` reproduces).  Under a data mesh's
+    :class:`~..parallel.mesh.RowShard` the batch is the global one: see
+    :func:`batch_norm_over_group`.
     """
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        shard = active_shard() if train else None
+        if shard is not None:
+            return batch_norm_over_group(self, x, shard)
         return F.batch_norm(x, self.running_mean, self.running_var, self.weight,
                             self.bias, train, self.momentum if train else 0.0, self.eps)
+
+
+def batch_norm_over_group(bn: BatchNorm2d, x: torch.Tensor, shard: RowShard) -> torch.Tensor:
+    """Train-mode BatchNorm over the global batch of which ``x`` holds this
+    rank's rows, as GSPMD runs JAX's ``TorchBatchNorm`` (layers.py:115-126,
+    its means over the sharded batch axis): two passes, the mean and then the
+    mean of the squared deviations from it, each summed over the data group
+    by a differentiable all-reduce; the global element count normalises both
+    and Bessel-corrects the running variance.  A rank may hold no rows."""
+    count = shard.total * x.shape[2] * x.shape[3]
+    xf = x.float()
+    mean = shard.all_reduce(xf.sum(dim=(0, 2, 3))) / count
+    d = xf - mean[None, :, None, None]
+    var = shard.all_reduce((d * d).sum(dim=(0, 2, 3))) / count
+    y = d * torch.rsqrt(var + bn.eps)[None, :, None, None]
+    y = y * bn.weight[None, :, None, None] + bn.bias[None, :, None, None]
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean.detach().to(bn.running_mean.dtype), alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(
+            (var.detach() * (count / max(count - 1, 1))).to(bn.running_var.dtype), alpha=m)
+    return y.to(x.dtype)
 
 
 def run(seq: Iterable[nn.Module], x: torch.Tensor, train: bool) -> torch.Tensor:
@@ -66,8 +94,12 @@ def dropout(x: torch.Tensor, p: float,
         raise ValueError("MC dropout needs a generator")
     if isinstance(generator, SeedStream):
         return seeded_dropout(x, p, generator)
-    # the mask takes x's memory format, so the select stays one vectorized pass
-    keep = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator) < (1.0 - p)
+    shard = active_shard()
+    if shard is not None:  # a data mesh's step: this rank's rows of the global draw
+        keep = shard.uniform_rows(x, generator) < (1.0 - p)
+    else:
+        # the mask takes x's memory format, so the select stays one vectorized pass
+        keep = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator) < (1.0 - p)
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

@@ -16,8 +16,15 @@ step, for two reasons:
 
 So a "stacked" state or batch is the list of the per-fold ones, and
 indexing it is indexing the list.  Metrics come back stacked on a leading
-``(K,)`` axis, as the vmapped step returns them.  ``mesh=`` (the fold axis
-over a device mesh) is not ported (ROADMAP 1.13).
+``(K,)`` axis, as the vmapped step returns them.
+
+``mesh=`` (a data mesh, ``parallel/mesh.py``) puts the fold axis over the
+data ranks, as JAX's ``shard_map`` over the data axis (:27-33): rank ``r``
+steps (or serves) folds ``r*K/n .. (r+1)*K/n - 1`` of the K it is given
+(``Mesh.folds``; K must be a multiple of the data axis's size) and no
+others, with no collective: folds never communicate.  A fold's state,
+metrics and outputs are those of its owner rank (``Mesh.fold_owner``); the
+other ranks' entries for it are NaN, as an inactive fold's metrics.
 """
 
 from __future__ import annotations
@@ -25,6 +32,8 @@ from __future__ import annotations
 from typing import Any, Callable, Dict, List, Optional, Sequence
 
 import torch
+
+from .mesh import Mesh
 
 
 def stack_fold_states(states: Sequence) -> List:
@@ -59,6 +68,18 @@ def _stack_tree(trees: Sequence[Any]) -> Any:
     return torch.stack(list(trees))
 
 
+def _nan_like(tree: Any) -> Any:
+    """``tree`` with every floating tensor NaN and every other one 0."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: _nan_like(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_nan_like(v) for v in tree)
+    return (torch.full_like(tree, float("nan")) if tree.is_floating_point()
+            else torch.zeros_like(tree))
+
+
 def make_multifold_step(raw_step: Callable, per_fold_hp: bool = False,
                         with_active: bool = False, mesh=None) -> Callable:
     """A train step over K folds from the port's one-fold step.
@@ -76,12 +97,10 @@ def make_multifold_step(raw_step: Callable, per_fold_hp: bool = False,
     ``active[i] == 0`` is not stepped, so its state (parameters, BatchNorm
     statistics, AdamW moments, step) and its generator stay bit-identical,
     as the JAX step's select of the pre-step state leaves them.  No step
-    computed its metrics: they are NaN (counts 0).  ``mesh`` raises: the fold
-    axis over a device mesh is not ported (ROADMAP 1.13).
+    computed its metrics: they are NaN (counts 0).  With ``mesh`` each rank
+    steps its own folds alone (the module's docstring).
     """
-    if mesh is not None:
-        raise NotImplementedError("make_multifold_step(mesh=...): the fold axis over a "
-                                  "device mesh is not ported (ROADMAP 1.13)")
+    _check_mesh(mesh)
 
     def step(states: Sequence, batches: Sequence[dict], generators: Sequence,
              hp, active: Optional[Sequence] = None) -> Dict[str, torch.Tensor]:
@@ -94,22 +113,27 @@ def make_multifold_step(raw_step: Callable, per_fold_hp: bool = False,
             raise ValueError("make_multifold_step: one batch, generator (and active flag) "
                              "per fold state")
         hps = list(hp) if per_fold_hp else [hp] * k
+        owned = mesh.folds(k) if mesh is not None else range(k)
         out: List[Optional[Dict[str, torch.Tensor]]] = [
             raw_step(states[i], batches[i], generators[i], hps[i])
-            if active is None or float(active[i]) else None
+            if i in owned and (active is None or float(active[i])) else None
             for i in range(k)]
         stepped = [m for m in out if m is not None]
         if not stepped:
             return {}
-        unstepped = {key: torch.full_like(v, float("nan")) if v.is_floating_point()
-                     else torch.zeros_like(v) for key, v in stepped[0].items()}
+        unstepped = _nan_like(stepped[0])
         filled = [m if m is not None else unstepped for m in out]
         return _stack_tree(filled)
 
     return step
 
 
-def make_multifold_predictor(predictors: Sequence[Callable]) -> Callable:
+def _check_mesh(mesh) -> None:
+    if mesh is not None and not isinstance(mesh, Mesh):
+        raise TypeError(f"mesh must be a parallel.mesh.Mesh, got {type(mesh).__name__}")
+
+
+def make_multifold_predictor(predictors: Sequence[Callable], mesh=None) -> Callable:
     """The K-fold test phase from per-fold predictors.
 
     ``predictors[i]`` is fold ``i``'s ``make_single_predictor`` or
@@ -119,8 +143,11 @@ def make_multifold_predictor(predictors: Sequence[Callable]) -> Callable:
     predictor on ``inputs[i]`` (a sequence of K batches, or one tensor with
     a leading fold axis; a tuple of such per batch input for the fusion
     predictor) with ``generators[i]``, and stacks the outputs on a leading
-    ``(K,)`` axis.
+    ``(K,)`` axis.  With ``mesh`` each rank serves its own folds alone (the
+    module's docstring; every fold's outputs must have one shape, as the JAX
+    function's stacked ones).
     """
+    _check_mesh(mesh)
     predictors = list(predictors)
 
     def predict(inputs, generators: Sequence):
@@ -128,9 +155,11 @@ def make_multifold_predictor(predictors: Sequence[Callable]) -> Callable:
         if len(inputs) != k or len(generators) != k:
             raise ValueError("make_multifold_predictor: one input and one generator per "
                              "fold predictor")
+        owned = mesh.folds(k) if mesh is not None else range(k)
         outs = [predictors[i](*(inputs[i] if isinstance(inputs[i], tuple) else (inputs[i],)),
-                              generators[i])
+                              generators[i]) if i in owned else None
                 for i in range(k)]
-        return _stack_tree(outs)
+        mine = outs[owned[0]]
+        return _stack_tree([o if o is not None else _nan_like(mine) for o in outs])
 
     return predict

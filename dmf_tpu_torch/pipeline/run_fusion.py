@@ -7,7 +7,10 @@ Counterpart of ``dmf_tpu/pipeline/run_fusion.py`` (the reference's
 ``run_fusion_model``, run_training.py:181-333).  The work runs where the
 trained encoders live: the card, unless the single-modality runs were asked
 for the CPU.  ``int8=True`` serves the test on the post-training-quantized
-convs (``ops/quant.py``), calibrated on the validation split.
+convs (``ops/quant.py``), calibrated on the validation split.  Where
+``cfg.parallel.mesh_shape`` asks for a data mesh, the run builds it
+(``mesh_from_config``, as the JAX one does) and trains and tests over it;
+rank 0 writes ``metrics.json`` and the per-fold store.
 """
 
 from __future__ import annotations
@@ -27,6 +30,7 @@ from ..evals.predict import make_fusion_predictor
 from ..losses import get_classification_loss_fn
 from ..models.build import init_weights
 from ..models.fusion import FusionModel
+from ..parallel.mesh import Mesh, mesh_from_config
 from ..train.fusion import FusionNetwork
 from ..train.loop import fit_fusion
 from ..train.state import TrainState
@@ -75,8 +79,8 @@ def build_fusion_state(cfg: Config, dwi_state: TrainState, dce_state: TrainState
 
 def test_fusion_model(cfg: Config, state: TrainState, test_data: Dict[str, np.ndarray],
                       seed: int = 0, int8: bool = False,
-                      calibration_data: Optional[Dict[str, np.ndarray]] = None
-                      ) -> Dict[str, Any]:
+                      calibration_data: Optional[Dict[str, np.ndarray]] = None,
+                      mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The ``cfg.test_mode`` ensemble over the test split in batches of
     ``cfg.batch_size`` (train_fusion.py:342-434): macro metrics, per-class
     accuracy, the mean uncertainty, the wall time, and the gating weights
@@ -88,7 +92,9 @@ def test_fusion_model(cfg: Config, state: TrainState, test_data: Dict[str, np.nd
     calibrated on at most 8 volumes of ``calibration_data`` (pass held-out
     volumes, so the test split never shapes the served model's quantization;
     the test split is the last resort), with MC dropout on in ``mc`` /
-    ``tta_mc`` from a generator seeded ``seed + 1`` (run_fusion.py:110-165)."""
+    ``tta_mc`` from a generator seeded ``seed + 1`` (run_fusion.py:110-165).
+    ``mesh``: each batch served over the data mesh (``evals/predict.py``),
+    the int8 forward included (the calibration runs on every rank alike)."""
     t_start = time.time()
     net = state.model
     device = next(net.parameters()).device
@@ -105,7 +111,7 @@ def test_fusion_model(cfg: Config, state: TrainState, test_data: Dict[str, np.nd
             calibration_rng=torch.Generator(device).manual_seed(seed + 1))
         fwd_override = make_quantized_fusion_fwd(net.dwi, net.dce, net.fusion, qsets)
     predictor = make_fusion_predictor(cfg, net.dwi, net.dce, net.fusion,
-                                      fwd_override=fwd_override)
+                                      fwd_override=fwd_override, mesh=mesh)
     ds = ArrayDataset(dwi=test_data["dwi"], dce=test_data["dce"], labels=test_data["labels"])
     generator = torch.Generator(device).manual_seed(seed)
     all_probs, all_std, gating = [], [], []
@@ -139,6 +145,7 @@ def run_fusion_model(cfg: Config, fold: int, dwi_results: Dict[str, Any],
     """The whole fusion flow of one fold (run_training.py:181-333) over the
     results of :func:`~.run_single.run_single_model` for DWI and DCE, which it
     leaves unchanged; returns the reference's result dict."""
+    mesh = mesh_from_config(cfg, next(dwi_results["state"].model.parameters()).device)
     paths = prepare_output_paths("fusion", fold, base_dir)
     if fusion_data is None:
         fusion_data = prepare_fusion_data(cfg, fold)
@@ -147,17 +154,20 @@ def run_fusion_model(cfg: Config, fold: int, dwi_results: Dict[str, Any],
                      workdir=paths["root"],
                      clf_loss_fn=get_classification_loss_fn(
                          cfg, fusion_data["train"]["labels"], "fusion"),
-                     num_epochs=num_epochs, min_epochs=min_epochs, seed=seed)
+                     num_epochs=num_epochs, min_epochs=min_epochs, seed=seed, mesh=mesh)
     # best-checkpoint reload for testing
     best_state = fit.best_state if fit.best_state is not None else fit.state
     # int8 calibration (when enabled downstream) must never see test data
     test_result = test_fusion_model(cfg, best_state, fusion_data["test"], seed=seed,
-                                    calibration_data=fusion_data["val"])
+                                    calibration_data=fusion_data["val"], mesh=mesh)
     save_metrics_json(paths["metrics"], fit.train_metrics, test_result["metrics"],
-                      parameters=to_reference_dict(cfg))
+                      parameters=to_reference_dict(cfg), mesh=mesh)
     # the per-fold store of the best parameters (run_training.py:317-326)
-    torch.save({n: p.detach() for n, p in best_state.model.named_parameters()},
-               os.path.join(paths["checkpoints"], f"fusion_fold{fold}.pt"))
+    if mesh is None or mesh.rank == 0:
+        torch.save({n: p.detach() for n, p in best_state.model.named_parameters()},
+                   os.path.join(paths["checkpoints"], f"fusion_fold{fold}.pt"))
+    if mesh is not None:
+        mesh.barrier()
     net = best_state.model
     return {
         "best_checkpoint": f"{paths['checkpoints']}/best.pt",

@@ -5,7 +5,10 @@ Counterpart of ``dmf_tpu/pipeline/run_single.py`` (:39-172; the reference's
 ``run_single_model``, run_training.py:20-178, and its test path,
 train.py:736-823), and of its fold-parallel ``run_single_model_multifold``
 (:175-249).  The work runs on ``device``, the card unless the caller asks
-for the CPU.
+for the CPU.  Where ``cfg.parallel.mesh_shape`` asks for a data mesh, the
+runs build it (``mesh_from_config``, as the JAX ones do) and train and test
+over it, each rank on its own device; rank 0 writes ``metrics.json`` and the
+processed splits.
 """
 
 from __future__ import annotations
@@ -21,6 +24,7 @@ from ..data.pipeline import ArrayDataset, iterate_batches
 from ..evals.metrics import classification_report
 from ..evals.predict import make_single_predictor
 from ..losses import get_classification_loss_fn
+from ..parallel.mesh import Mesh, mesh_from_config
 from ..train.loop import FitResult, fit_single
 from ..train.multifold_loop import fit_single_multifold
 from ..train.optim import SingleModelOptController
@@ -32,15 +36,16 @@ from .prepare_single import (SingleModelData, build_single_model, export_process
 
 
 def test_single_model(cfg: Config, state: TrainState, data: SingleModelData,
-                      seed: int = 0) -> Dict[str, Any]:
+                      seed: int = 0, mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """The uncertainty-aware test pass (train.py:736-823): the
     ``cfg.test_mode`` ensemble over the test split in batches of
     ``cfg.batch_size``, macro metrics, per-class accuracy, the mean
     uncertainty, the modality attention averaged per batch.  Dropout draws
-    come from a generator seeded with ``seed`` on the model's device."""
+    come from a generator seeded with ``seed`` on the model's device.
+    ``mesh``: each batch served over the data mesh (``evals/predict.py``)."""
     model = state.model
     device = next(model.parameters()).device
-    predictor = make_single_predictor(cfg, model)
+    predictor = make_single_predictor(cfg, model, mesh=mesh)
     test = data.splits["test"]
     imgs = data.processors_by_split["test"].eval_split(test["imgs"], adc=test.get("adc"))
     ds = ArrayDataset(imgs=imgs, labels=test["labels"])
@@ -75,7 +80,10 @@ def run_single_model(cfg: Config, method: str, fold: int,
     result dict (run_training.py:173-178): the best checkpoint path, the best
     and final states, the train and test metrics, and the data and history
     the fusion stage consumes.  ``state`` (with its model) replaces the
-    built one; ``device`` is where the model and the data's work live."""
+    built one; ``device`` is where the model and the data's work live (each
+    rank's own device under a data mesh)."""
+    mesh = mesh_from_config(cfg, device)
+    device = mesh.device if mesh is not None else device
     paths = prepare_output_paths(method, fold, base_dir)
     if data is None:
         data = prepare_single_data(cfg, method, fold, device=device)
@@ -88,9 +96,9 @@ def run_single_model(cfg: Config, method: str, fold: int,
                      controller=SingleModelOptController(cfg, method), workdir=paths["root"],
                      clf_loss_fn=get_classification_loss_fn(cfg, data.train_labels, method),
                      num_epochs=num_epochs, min_epochs=min_epochs, seed=seed,
-                     resume_from=resume_from)
+                     resume_from=resume_from, mesh=mesh)
 
-    return _finish_single(cfg, paths, data, fit, export_splits, seed)
+    return _finish_single(cfg, paths, data, fit, export_splits, seed, mesh)
 
 
 def run_single_model_multifold(cfg: Config, method: str, folds: Sequence[int],
@@ -108,8 +116,13 @@ def run_single_model_multifold(cfg: Config, method: str, folds: Sequence[int],
     the model is built once and each fold trains a deep copy of it.  Every
     sequential run builds from the same seed (the pretrained import is the
     costly part), so the copies equal K builds.  Each fold's result equals
-    its :func:`run_single_model` run with the same arguments.
+    its :func:`run_single_model` run with the same arguments.  Under a data
+    mesh the folds train on the data ranks (``fit_single_multifold(mesh=)``:
+    their number must be a multiple of the mesh's size) and each fold tests
+    over the whole mesh.
     """
+    mesh = mesh_from_config(cfg, device)
+    device = mesh.device if mesh is not None else device
     folds = list(folds)
     raw = load_raw_tensors(cfg, method)
     datas = [prepare_single_data(cfg, method, f, raw=raw, device=device) for f in folds]
@@ -124,23 +137,28 @@ def run_single_model_multifold(cfg: Config, method: str, folds: Sequence[int],
         fold_val=[d.splits["val"] for d in datas], processors=[d.processor for d in datas],
         controllers=[SingleModelOptController(cfg, method) for _ in folds],
         workdirs=[p["root"] for p in pathss], num_epochs=num_epochs, min_epochs=min_epochs,
-        seed=seed)
-    return {fold: _finish_single(cfg, paths, data, fit, export_splits, seed)
+        seed=seed, mesh=mesh)
+    return {fold: _finish_single(cfg, paths, data, fit, export_splits, seed, mesh)
             for fold, paths, data, fit in zip(folds, pathss, datas, fits)}
 
 
 def _finish_single(cfg: Config, paths: Dict[str, str], data: SingleModelData,
-                   fit: FitResult, export_splits: bool, seed: int) -> Dict[str, Any]:
+                   fit: FitResult, export_splits: bool, seed: int,
+                   mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """A fitted fold's best reload, test, ``metrics.json`` and processed
-    splits; returns the reference's result dict."""
+    splits (rank 0's under a data mesh); returns the reference's result
+    dict."""
     # best-checkpoint reload for testing (run_training.py:123-131)
     best_state = fit.best_state if fit.best_state is not None else fit.state
-    test_result = test_single_model(cfg, best_state, data, seed=seed)
+    test_result = test_single_model(cfg, best_state, data, seed=seed, mesh=mesh)
     save_metrics_json(paths["metrics"], fit.train_metrics, test_result["metrics"],
-                      parameters=to_reference_dict(cfg))
+                      parameters=to_reference_dict(cfg), mesh=mesh)
     if export_splits:
-        export_processed_splits(cfg, data, torch.Generator(data.processor.device)
-                                .manual_seed(seed))
+        if mesh is None or mesh.rank == 0:
+            export_processed_splits(cfg, data, torch.Generator(data.processor.device)
+                                    .manual_seed(seed))
+        if mesh is not None:
+            mesh.barrier()
     return {
         "best_checkpoint": f"{paths['checkpoints']}/best.pt",
         "model": best_state.model,

@@ -36,6 +36,8 @@ import torch.nn as nn
 from ..config import Config
 from ..evals.predict import to_model
 from ..losses import compute_recon_list_loss, label_smoothing, mimic_feat_loss, safe_mask_loss
+from ..parallel.mesh import RowShard, active_shard
+from ..parallel.sharding import reduce_gradients
 from .optim import GroupSpec, GroupedHyperParams, adamw_update, count_nonfinite, global_norm
 from .state import TrainState
 
@@ -81,9 +83,17 @@ def fusion_sample_pair_mimic(proj_fused: torch.Tensor) -> torch.Tensor:
 
 
 def compute_fusion_losses(cfg: Config, clf_loss_fn, mask_loss_fn, logits, fused_mask, aux,
-                          parts, dwi_x, dce_x, masks, labels, aux_w: float, is_train: bool):
+                          parts, dwi_x, dce_x, masks, labels, aux_w: float, is_train: bool,
+                          shard: Optional[RowShard] = None):
     """Total loss and per-term metrics of one batch (train_fusion.py:204-321);
-    ``dwi_x``, ``dce_x`` and ``masks`` are NCHW."""
+    ``dwi_x``, ``dce_x`` and ``masks`` are NCHW.
+
+    With ``shard`` (a data mesh's step on this rank's rows) the loss is this
+    rank's share of the global batch's: the per-sample terms' share of their
+    global means, and ``1 / n_data`` of the pair mimic, which reads samples
+    0-3 of the *global* batch (gathered, with their gradient, from the
+    ranks that hold them; 0 below four global samples, as JAX gates it on
+    ``valid.sum() >= 4``, train/fusion.py:184-194)."""
     fp = cfg.fusion_model
     zero = torch.zeros((), device=logits.device)
     targets = (label_smoothing(labels, cfg.class_num, fp.label_smoothing_alpha)
@@ -107,10 +117,17 @@ def compute_fusion_losses(cfg: Config, clf_loss_fn, mask_loss_fn, logits, fused_
                      + compute_recon_list_loss(parts["dce_aux"]["recon_feats"], dce_in)
                      + compute_recon_list_loss(aux["recon_fused"], fused_in)) / 3.0
         loss = loss + fp.lambda_recon * recon_val * aux_w
+        if shard is not None:
+            loss = shard.share(loss)
         if fp.mimic_enabled and aux.get("proj_fused") is not None:
             if cfg.reference_compat:
-                mimic_val = fusion_sample_pair_mimic(aux["proj_fused"])
-            loss = loss + fp.lambda_mimic * mimic_val * aux_w
+                proj = aux["proj_fused"]
+                if shard is not None:
+                    proj = shard.gather_head(proj, 4) if shard.total >= 4 else proj[:0]
+                mimic_val = fusion_sample_pair_mimic(proj)
+            loss = loss + fp.lambda_mimic * mimic_val * aux_w / (shard.size if shard else 1)
+    elif shard is not None:
+        loss = shard.share(loss)
     metrics["recon_loss"] = recon_val
     metrics["mimic_loss"] = mimic_val
     metrics["acc"] = (logits.argmax(dim=-1) == labels).float().mean()
@@ -133,7 +150,9 @@ def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
     :class:`FusionNetwork` state: both encoders and the head in train mode
     (dropout masks from ``generator``), the gradient of every parameter
     (zeros where the loss does not reach), the norms of all of them and of
-    each part, the grouped AdamW update in place."""
+    each part, the grouped AdamW update in place.  Under a data mesh's
+    :class:`~..parallel.mesh.RowShard` the step is the global batch's, as
+    ``make_single_train_step``'s."""
     opt = cfg.fusion_model.optimizer
     b1, b2 = opt.betas
 
@@ -142,12 +161,18 @@ def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
         net = state.model
         dwi_x, dce_x, masks, labels = _inputs(net, batch)
         logits, fused_mask, aux, parts = net(dwi_x, dce_x, train=True, generator=generator)
+        shard = active_shard()
         loss, metrics = compute_fusion_losses(
             cfg, clf_loss_fn, mask_loss_fn, logits, fused_mask, aux, parts, dwi_x, dce_x,
-            masks, labels, batch["aux_w"], is_train=True)
+            masks, labels, batch["aux_w"], is_train=True, shard=shard)
         params = dict(net.named_parameters())
         grads = dict(zip(params, torch.autograd.grad(
             loss, list(params.values()), allow_unused=True, materialize_grads=True)))
+        if shard is not None:
+            reduce_gradients(list(grads.values()), shard.mesh)
+            # the loss is already this rank's share; the pair mimic is global
+            metrics = shard.reduce_metrics(metrics, summed=("loss",),
+                                           replicated=("mimic_loss",))
         metrics["grad_norm"] = global_norm(list(grads.values()))
         for part in PARTS:
             metrics[f"{part}_grad_norm"] = global_norm(

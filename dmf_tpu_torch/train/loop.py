@@ -1,6 +1,7 @@
 """Epoch loops of single-modality and fusion training, counterparts of
 ``dmf_tpu/train/loop.py::fit_single`` (:106-363) and ``fit_fusion``
-(:365-593), without a mesh.  ``cfg.use_native_loader`` takes the train
+(:365-593), on one process or over a data mesh (``mesh=``, JAX's
+``_setup_spmd``, :60-92).  ``cfg.use_native_loader`` takes the train
 batches of a split that is not staged on the card from the native loader, as
 the JAX loops do (:225, :466).
 
@@ -21,6 +22,17 @@ On a CUDA device each train step records three CUDA events (before the batch
 preparation, between it and the step, after the step); their times come back
 in ``FitResult.step_ms``, read at each epoch's end with the step metrics.
 Fusion batches come processed: their preparation is the batch dict alone.
+
+With ``mesh=`` (a :class:`~..parallel.mesh.Mesh`; ``cfg.batch_size`` must
+divide over its data axis) the state is replicated from rank 0, each rank
+takes and prepares its rows of every global batch and steps them under a
+:class:`~..parallel.mesh.RowShard` (the global batch's step,
+``parallel/mesh.py``); the validation metrics are the global ones (loss and
+accuracy sums over the data group, the AUC and the report on the gathered
+probabilities), so the control plane (early stopping, plateau, unfreeze,
+scheduler, best checkpoint) decides alike on every rank.  Only rank 0
+writes checkpoints, logs and triptychs (a barrier after each); every rank
+keeps the best state.
 """
 
 from __future__ import annotations
@@ -39,6 +51,8 @@ from ..evals.metrics import MeanMetric, classification_report
 from ..evals.predict import to_model
 from ..losses import get_classification_loss_fn, get_mask_loss_fn
 from ..models.build import init_weights
+from ..parallel.mesh import Mesh, shard_rows
+from ..parallel.sharding import shard_state
 from ..utils.checkpoint import BestCheckpointer, RollingSaver, load_checkpoint
 from ..utils.logging import MetricLogger, input_stats
 from ..utils.visualize import visualize_mask_triplet
@@ -90,7 +104,8 @@ def fit_single(cfg: Config, method: str, state: TrainState,
                processor: ModalityProcessor, controller: SingleModelOptController,
                workdir: str, clf_loss_fn=None, num_epochs: Optional[int] = None,
                min_epochs: Optional[int] = None, seed: int = 0,
-               resume_from: Optional[str] = None, viz_every: int = 10) -> FitResult:
+               resume_from: Optional[str] = None, viz_every: int = 10,
+               mesh: Optional[Mesh] = None) -> FitResult:
     """Train one encoder; returns the final and best states and the history.
 
     ``train_data``/``val_data``: raw (unprocessed) ``imgs``, optional
@@ -99,11 +114,12 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     Augmentation and dropout draw from generators on the model's device
     seeded from ``seed``; the shuffle is ``np.random.RandomState(seed)``, the
     JAX loop's order.  Every ``viz_every`` epochs (0: never) the mask
-    triptych of the first validation sample is drawn.
+    triptych of the first validation sample is drawn.  ``mesh``: train over
+    a data mesh (the module's docstring).
     """
     run = single_fit_run(cfg, method, state, train_data, val_data, processor, controller,
                          workdir, clf_loss_fn, num_epochs, min_epochs, seed, resume_from,
-                         viz_every)
+                         viz_every, mesh)
     return drive_lockstep([run])[0]
 
 
@@ -113,7 +129,8 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
                    processor: ModalityProcessor, controller: SingleModelOptController,
                    workdir: str, clf_loss_fn=None, num_epochs: Optional[int] = None,
                    min_epochs: Optional[int] = None, seed: int = 0,
-                   resume_from: Optional[str] = None, viz_every: int = 10) -> "FitRun":
+                   resume_from: Optional[str] = None, viz_every: int = 10,
+                   mesh: Optional[Mesh] = None) -> "FitRun":
     """The :class:`FitRun` of :func:`fit_single` (same arguments), not yet
     driven.  ``clf_loss_fn`` defaults to the classification loss with the
     class weights of ``train_data``'s labels."""
@@ -155,13 +172,13 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
                   make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec),
                   make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn),
                   train_ds, val_ds, prepare, workdir, num_epochs, min_epochs, seed,
-                  draw, drawn)
+                  draw, drawn, mesh)
 
 
 def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np.ndarray]],
                val_data: Dict[str, Optional[np.ndarray]], workdir: str, clf_loss_fn=None,
                num_epochs: Optional[int] = None, min_epochs: Optional[int] = None,
-               seed: int = 0, viz_every: int = 10) -> FitResult:
+               seed: int = 0, viz_every: int = 10, mesh: Optional[Mesh] = None) -> FitResult:
     """Train the fusion network (``state.model``, a
     :class:`~.fusion.FusionNetwork`) with the gradual deep->shallow unfreeze
     of :class:`~.optim.FusionOptController`; returns the final and best
@@ -173,7 +190,8 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     from ``seed``; the shuffle is ``np.random.RandomState(seed)``.  Every
     ``viz_every`` epochs (0: never) the fused mask head's triptych of the
     first validation sample is drawn (the hook the reference leaves
-    single-model-only, train.py:706-714).
+    single-model-only, train.py:706-714).  ``mesh``: train over a data mesh
+    (the module's docstring).
     """
     fp = cfg.fusion_model
     if clf_loss_fn is None:
@@ -202,7 +220,7 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
                  make_fusion_train_step(cfg, clf_loss_fn, mask_loss_fn, spec),
                  make_fusion_eval_step(cfg, clf_loss_fn, mask_loss_fn),
                  dataset(train_data), dataset(val_data), prepare, workdir, num_epochs,
-                 min_epochs, seed, draw, drawn)
+                 min_epochs, seed, draw, drawn, mesh)
     return drive_lockstep([run])[0]
 
 
@@ -215,24 +233,38 @@ class FitRun:
     batch prints)``.  Dropout draws from a generator on the model's device
     seeded with ``seed + 1``; the shuffle is ``np.random.RandomState(seed)``.
     ``draw(path, title)`` writes the mask triptych at the epochs that are
-    multiples of ``viz_every`` (0: never).
+    multiples of ``viz_every`` (0: never).  ``mesh``: train over a data
+    mesh (the module's docstring).
     """
 
     def __init__(self, cfg: Config, scheduler_cfg, base_lr: float, state: TrainState, spec,
                  controller, train_step, eval_step, train_ds: ArrayDataset,
                  val_ds: ArrayDataset, prepare: Callable, workdir: str,
                  num_epochs: Optional[int], min_epochs: Optional[int], seed: int,
-                 draw: Optional[Callable[[str, str], None]] = None, viz_every: int = 0):
+                 draw: Optional[Callable[[str, str], None]] = None, viz_every: int = 0,
+                 mesh: Optional[Mesh] = None):
         self.cfg, self.scheduler_cfg, self.state, self.controller = (cfg, scheduler_cfg,
                                                                       state, controller)
+        self.mesh = mesh
+        # the rank that writes checkpoints, logs and triptychs
+        self.writer = mesh is None or mesh.rank == 0
         self.workdir, self.draw, self.viz_every = workdir, draw, viz_every
         self.train_step, self.eval_step, self.prepare = train_step, eval_step, prepare
         self.train_ds, self.val_ds = train_ds, val_ds
         device = next(state.model.parameters()).device
+        if mesh is not None:
+            n_data = mesh.shape[cfg.parallel.data_axis]
+            if cfg.batch_size % n_data:
+                raise ValueError(f"batch_size={cfg.batch_size} must divide over the "
+                                 f"{n_data}-way data axis")
+            if device != mesh.device:
+                raise ValueError(f"the model lives on {device}, the mesh rank on "
+                                 f"{mesh.device}")
+            shard_state(state, mesh)
         self.num_epochs = num_epochs if num_epochs is not None else cfg.num_epochs
         self.min_epochs = min(min_epochs if min_epochs is not None else cfg.min_epochs,
                               self.num_epochs)
-        if cfg.debug_training:
+        if cfg.debug_training and self.writer:
             # the optimizer-group dump (selector_helpers.py:336-353)
             print(describe_groups(dict(state.model.named_parameters()), spec,
                                   controller.hyperparams()))
@@ -240,9 +272,10 @@ class FitRun:
         self.early = EarlyStopping(mode=cfg.early_stopping.mode,
                                    patience=cfg.early_stopping.patience,
                                    min_delta=cfg.early_stopping.min_delta)
-        self.ckpt = BestCheckpointer(f"{workdir}/checkpoints", monitor="val_acc", mode="max")
-        self.roll = RollingSaver(f"{workdir}/checkpoints")
-        self.logger = MetricLogger(f"{workdir}/logs")
+        self.ckpt = BestCheckpointer(f"{workdir}/checkpoints", monitor="val_acc", mode="max",
+                                     mesh=mesh)
+        self.roll = RollingSaver(f"{workdir}/checkpoints", mesh=mesh)
+        self.logger = MetricLogger(f"{workdir}/logs", mesh=mesh)
         self.stage_train = device if device_data_auto(train_ds, device, cfg.device_data) else None
         self.stage_val = device if device_data_auto(val_ds, device, cfg.device_data) else None
         self.drop_gen = torch.Generator(device).manual_seed(seed + 1)
@@ -251,12 +284,22 @@ class FitRun:
         self.history: list = []
         self.step_ms: List[Tuple[float, float]] = []
         self.best_state: Optional[TrainState] = None
+        self.val_keys: Optional[List[str]] = None  # the eval step's metric names
         self.global_step = 0
         self.done = False
 
+    def _batches(self, dataset: ArrayDataset, **kw) -> Iterator[Tuple[int, dict]]:
+        """``(global batch size, this rank's batch)`` per batch of
+        ``dataset`` (the whole batch without a mesh)."""
+        n, b = len(dataset), self.cfg.batch_size
+        totals = [min(b, n - s) for s in range(0, n, b)]
+        rows = self.mesh.rows if self.mesh is not None else None
+        return zip(totals, iterate_batches(dataset, b, rows=rows, **kw))
+
     def start_epoch(self, epoch: int) -> Iterator:
         """Open ``epoch``: the controller's groups, the aux weight; returns its
-        train batches (the tail batch at its short size)."""
+        train batches as ``(global size, batch)`` pairs (the tail batch at its
+        short size)."""
         cfg = self.cfg
         self.epoch, self.t0 = epoch, time.time()
         self.controller.on_epoch_start(epoch)
@@ -265,12 +308,13 @@ class FitRun:
                                      cfg.use_simple_aux_loss_scheduling)
         self.pending = []  # (device metrics, batch size, events) per step
         self.epoch_step0 = self.global_step
-        return iter(iterate_batches(self.train_ds, cfg.batch_size, shuffle=True,
-                                    rng=self.np_rng, device=self.stage_train,
-                                    native=cfg.use_native_loader))
+        return iter(self._batches(self.train_ds, shuffle=True, rng=self.np_rng,
+                                  device=self.stage_train, native=cfg.use_native_loader))
 
-    def step(self, batch) -> None:
-        """One train step on ``batch``; its metrics are read at the epoch's end."""
+    def step(self, item: Tuple[int, dict]) -> None:
+        """One train step on ``item``, a ``(global size, batch)`` pair of
+        :meth:`start_epoch`; its metrics are read at the epoch's end."""
+        total, batch = item
         if isinstance(self.scheduler, WarmupCosine):
             # stepped per step (selector_helpers.py:319-330)
             self.controller.lr_scale = self.scheduler.step_scale(self.global_step)
@@ -280,17 +324,24 @@ class FitRun:
                   if self.timed else [])
         if events:
             events[0].record()
-        proc, inputs = self.prepare(batch)
-        proc = dict(proc, aux_w=self.aux_w)
-        if events:
-            events[1].record()
-        if self.cfg.debug_training and self.global_step == 1:
-            # the first batch's normalisation check (train.py:1074-1079)
-            print(input_stats(inputs, proc.get("masks")))
-        metrics = self.train_step(self.state, proc, self.drop_gen, self.hp)
+        with shard_rows(self.mesh, total) as shard:
+            proc, inputs = self.prepare(batch)
+            proc = dict(proc, aux_w=self.aux_w)
+            if events:
+                events[1].record()
+            if self.cfg.debug_training and self.global_step == 1:
+                # the first batch's normalisation check (train.py:1074-1079)
+                masks = proc.get("masks")
+                if shard is not None:  # the global batch's statistics
+                    inputs, masks = (None if t is None else
+                                     shard.gather(torch.as_tensor(t, device=self.mesh.device))
+                                     for t in (inputs, masks))
+                if self.writer:
+                    print(input_stats(inputs, masks))
+            metrics = self.train_step(self.state, proc, self.drop_gen, self.hp)
         if events:
             events[2].record()
-        self.pending.append((metrics, len(batch["labels"]), events))
+        self.pending.append((metrics, total, events))
 
     def end_epoch(self) -> None:
         """Read the epoch's step metrics, validate, and run the control plane
@@ -313,12 +364,11 @@ class FitRun:
         # ---- validation ----
         val_meters: Dict[str, MeanMetric] = {}
         all_probs = []
-        for batch in iterate_batches(self.val_ds, cfg.batch_size, device=self.stage_val):
-            _, probs, metrics = self.eval_step(self.state, batch)
+        for total, batch in self._batches(self.val_ds, device=self.stage_val):
+            probs, metrics = self._validate(total, batch)
             all_probs.append(probs.cpu().numpy())
             for k, v in metrics.items():
-                val_meters.setdefault(k, MeanMetric()).update(float(v),
-                                                              weight=len(batch["labels"]))
+                val_meters.setdefault(k, MeanMetric()).update(float(v), weight=total)
         epoch_metrics.update({f"val_{k}": m.compute() for k, m in val_meters.items()})
         epoch_metrics.update(classification_report(
             np.concatenate(all_probs),
@@ -342,7 +392,10 @@ class FitRun:
 
         # ---- the mask triptych (train.py:706-714), outside the timed steps ----
         if self.draw is not None and self.viz_every and epoch % self.viz_every == 0:
-            self.draw(f"{self.workdir}/viz/epoch_{epoch:04d}.png", f"Epoch {epoch}")
+            if self.writer:
+                self.draw(f"{self.workdir}/viz/epoch_{epoch:04d}.png", f"Epoch {epoch}")
+            if self.mesh is not None:
+                self.mesh.barrier()
 
         if self.ckpt.maybe_save(self.state, epoch_metrics, epoch):
             self.best_state = self.state.copy()
@@ -354,6 +407,29 @@ class FitRun:
         stop_metric = epoch_metrics.get(cfg.early_stopping.metric)
         self.done = (stop_metric is not None and self.early.step(stop_metric)
                      and epoch + 1 >= self.min_epochs)
+
+    def _validate(self, total: int, batch: dict) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+        """The eval step on one validation batch of global size ``total``:
+        its probabilities and metrics (means over the batch); under a mesh
+        the global batch's, from each rank's rows (a rank without rows runs
+        no step)."""
+        if self.mesh is None:
+            _, probs, metrics = self.eval_step(self.state, batch)
+            return probs, metrics
+        n = len(batch["labels"])
+        device = self.mesh.device
+        metrics = {}
+        probs = torch.zeros((0, self.cfg.class_num), device=device)
+        if n:
+            _, probs, metrics = self.eval_step(self.state, batch)
+        if self.val_keys is None:  # rank 0 holds rows of every batch
+            self.val_keys = self.mesh.broadcast_object(sorted(metrics))
+        keys = self.val_keys
+        vec = (torch.stack([metrics[k].detach().float().reshape(()).to(device) * n
+                            for k in keys]) if n else torch.zeros(len(keys), device=device))
+        self.mesh.all_reduce(vec)
+        return (self.mesh.gather_rows(probs.float(), total),
+                {k: vec[i] / total for i, k in enumerate(keys)})
 
     def result(self) -> FitResult:
         return FitResult(state=self.state, best_state=self.best_state, history=self.history,

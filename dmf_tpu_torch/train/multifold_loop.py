@@ -19,6 +19,11 @@ computes and discards those steps).  So each fold's result equals its
 Two things differ from the JAX loop, which the port does not follow: it
 steps ``WarmupCosine`` once an epoch (:289-290) where its ``fit_single``
 steps it once a step, and it writes no rolling checkpoint (ROADMAP 3.6).
+
+``mesh=`` puts the folds on the data ranks (``parallel/multifold.py``): each
+rank drives its own folds alone, writing their files, then every fold's
+result (final and best states, history) is broadcast from its owner, so
+that every rank returns all K.
 """
 
 from __future__ import annotations
@@ -29,6 +34,8 @@ import numpy as np
 
 from ..config import Config
 from ..data.modality import ModalityProcessor
+from ..parallel.mesh import Mesh
+from ..parallel.sharding import shard_state
 from .loop import FitResult, drive_lockstep, single_fit_run
 from .optim import SingleModelOptController
 from .state import TrainState
@@ -40,12 +47,15 @@ def fit_single_multifold(cfg: Config, method: str, states: Sequence[TrainState],
                          processors: Sequence[ModalityProcessor],
                          controllers: Sequence[SingleModelOptController],
                          workdirs: Sequence[str], num_epochs: Optional[int] = None,
-                         min_epochs: Optional[int] = None, seed: int = 0) -> List[FitResult]:
+                         min_epochs: Optional[int] = None, seed: int = 0,
+                         mesh: Optional[Mesh] = None) -> List[FitResult]:
     """Train K folds of one encoder in lockstep; returns one
     :class:`~.loop.FitResult` per fold, equal to K sequential
     :func:`~.loop.fit_single` runs with the same arguments.  ``states``
     carry their models (one per fold, not shared); the other sequences hold
-    each fold's own data, processor, controller and workdir."""
+    each fold's own data, processor, controller and workdir.  ``mesh``: the
+    folds over its data ranks (K a multiple of its size; the module's
+    docstring)."""
     k = len(states)
     if not k == len(fold_train) == len(fold_val) == len(processors) == len(controllers) \
             == len(workdirs):
@@ -53,8 +63,26 @@ def fit_single_multifold(cfg: Config, method: str, states: Sequence[TrainState],
                          "controller and workdir per fold")
     if len({id(s.model) for s in states}) != k:
         raise ValueError("fit_single_multifold: each fold needs its own model")
-    return drive_lockstep([
+    owned = mesh.folds(k) if mesh is not None else range(k)
+    mine = drive_lockstep([
         single_fit_run(cfg, method, states[i], fold_train[i], fold_val[i], processors[i],
                        controllers[i], workdirs[i], num_epochs=num_epochs,
                        min_epochs=min_epochs, seed=seed)
-        for i in range(k)])
+        for i in owned])
+    if mesh is None:
+        return mine
+    results = []
+    for i in range(k):
+        src = mesh.fold_owner(i, k)
+        fit = mine[owned.index(i)] if i in owned else None
+        history, step_ms, has_best = mesh.broadcast_object(
+            (fit.history, fit.step_ms, fit.best_state is not None) if fit else None, src)
+        if fit is None:
+            best = states[i].copy() if has_best else None
+            fit = FitResult(state=states[i], best_state=best, history=history,
+                            train_metrics=history[-1] if history else {}, step_ms=step_ms)
+        shard_state(fit.state, mesh, src)
+        if has_best:
+            shard_state(fit.best_state, mesh, src)
+        results.append(fit)
+    return results

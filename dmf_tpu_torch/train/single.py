@@ -24,6 +24,8 @@ import torch
 
 from ..config import Config
 from ..evals.predict import to_model
+from ..parallel.mesh import active_shard
+from ..parallel.sharding import reduce_gradients
 from ..losses import (compute_attn_energy_loss, compute_feat_norm_loss,
                       compute_feature_consistency_loss, label_smoothing,
                       mimic_feat_loss, single_model_recon_loss)
@@ -106,7 +108,12 @@ def make_single_train_step(cfg: Config, method: str, clf_loss_fn: Callable,
                            mask_loss_fn: Optional[Callable], spec: GroupSpec):
     """``train_step(state, batch, generator, hp) -> metrics``: one forward
     in train mode (dropout masks from ``generator``, on the model's device),
-    gradients of every parameter, the grouped AdamW update in place."""
+    gradients of every parameter, the grouped AdamW update in place.
+
+    Under a data mesh's :class:`~..parallel.mesh.RowShard` (``batch`` this
+    rank's rows) the loss is this rank's share of the global batch's mean,
+    the gradients are summed over the data group before the norms, the clip
+    and the update, and the metrics are the global batch's."""
     mc = cfg.model_config(method)
     use_clip = (not cfg.reference_compat) and mc.grad_clip and mc.grad_clip > 0
     b1, b2 = mc.optimizer.betas
@@ -119,12 +126,18 @@ def make_single_train_step(cfg: Config, method: str, clf_loss_fn: Callable,
         loss, metrics = compute_single_losses(
             cfg, method, clf_loss_fn, mask_loss_fn, logits, aux, mask_pred, x, masks,
             labels, batch["aux_w"], is_train=True)
+        shard = active_shard()
+        if shard is not None:
+            loss = shard.share(loss)
         params = dict(model.named_parameters())
         # every parameter's gradient, as the JAX step takes them (the frozen
         # and the excluded ones count in the norms)
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
                                                      allow_unused=True)))
         present = [g for g in grads.values() if g is not None]
+        if shard is not None:
+            reduce_gradients(present, shard.mesh)
+            metrics = shard.reduce_metrics(metrics)
         metrics["grad_norm"] = global_norm(present)
         metrics.update(group_grad_norms(grads, spec))
         metrics["grad_nonfinite"] = count_nonfinite(present)

@@ -6,7 +6,9 @@ step); counterpart of ``dmf_tpu/utils/checkpoint.py``.
 mode='max')`` with its best reload (run_training.py:93-99, 123-131);
 ``RollingSaver`` the rolling resume file; ``load_checkpoint`` restores either,
 or the weights of a reference PyTorch/Lightning checkpoint (whose optimizer
-state stays fresh, prepare_single_model.py:208-218).
+state stays fresh, prepare_single_model.py:208-218).  Over a data mesh
+(``mesh=``) only rank 0 writes, and every rank waits for the file at a
+barrier.
 """
 
 from __future__ import annotations
@@ -27,12 +29,25 @@ def save_state(path: str, state: TrainState) -> None:
     torch.save(state.state_dict(), path)
 
 
+def _writes(mesh) -> bool:
+    """Whether this process writes: always alone, rank 0 over a data mesh."""
+    return mesh is None or mesh.rank == 0
+
+
+def _wait(mesh) -> None:
+    if mesh is not None:
+        mesh.barrier()
+
+
 class BestCheckpointer:
     """Keep the single best checkpoint (``best.pt``) by a monitored metric."""
 
-    def __init__(self, directory: str, monitor: str = "val_acc", mode: str = "max"):
+    def __init__(self, directory: str, monitor: str = "val_acc", mode: str = "max",
+                 mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        if _writes(mesh):
+            os.makedirs(self.directory, exist_ok=True)
         self.monitor = monitor
         self.mode = mode
         self.best: Optional[float] = None
@@ -48,22 +63,28 @@ class BestCheckpointer:
         if value is None or not self._improved(float(value)):
             return False
         self.best = float(value)
-        save_state(self.best_path, state)
-        with open(os.path.join(self.directory, "best.json"), "w") as f:
-            json.dump({"epoch": epoch, self.monitor: self.best}, f)
+        if _writes(self.mesh):
+            save_state(self.best_path, state)
+            with open(os.path.join(self.directory, "best.json"), "w") as f:
+                json.dump({"epoch": epoch, self.monitor: self.best}, f)
+        _wait(self.mesh)
         return True
 
 
 class RollingSaver:
     """The rolling resume checkpoint ``last.pt``, written synchronously."""
 
-    def __init__(self, directory: str, name: str = "last"):
+    def __init__(self, directory: str, name: str = "last", mesh=None):
         self.directory = os.path.abspath(directory)
-        os.makedirs(self.directory, exist_ok=True)
+        self.mesh = mesh
+        if _writes(mesh):
+            os.makedirs(self.directory, exist_ok=True)
         self.path = os.path.join(self.directory, f"{name}.pt")
 
     def save(self, state: TrainState) -> None:
-        save_state(self.path, state)
+        if _writes(self.mesh):
+            save_state(self.path, state)
+        _wait(self.mesh)
 
 
 def load_checkpoint(path: str, state: TrainState) -> TrainState:

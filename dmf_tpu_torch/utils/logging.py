@@ -6,7 +6,8 @@ The port's copy of ``dmf_tpu/utils/logging.py``'s ``MetricLogger``,
 ``tests/test_torch_train.py`` and ``tests/test_torch_fusion_train.py``), the
 counterparts of the reference's HistoryCallback and metrics.json
 (run_training.py:338-349, 392-407).  The JSONL history is the record; the
-JAX package's optional TensorBoard mirror of it is not copied.
+JAX package's optional TensorBoard mirror of it is not copied.  Over a data
+mesh (``mesh=``) only rank 0 writes, and every rank waits at a barrier.
 """
 
 from __future__ import annotations
@@ -21,9 +22,11 @@ import torch
 
 
 class MetricLogger:
-    def __init__(self, log_dir: str, name: str = "metrics"):
+    def __init__(self, log_dir: str, name: str = "metrics", mesh=None):
         self.log_dir = os.path.abspath(log_dir)
-        os.makedirs(self.log_dir, exist_ok=True)
+        self.mesh = mesh
+        if mesh is None or mesh.rank == 0:
+            os.makedirs(self.log_dir, exist_ok=True)
         self.jsonl_path = os.path.join(self.log_dir, f"{name}.jsonl")
         self.history: List[Dict[str, Any]] = []
 
@@ -37,14 +40,21 @@ class MetricLogger:
             else:
                 record[k] = float(v)
         self.history.append(record)
-        with open(self.jsonl_path, "a") as f:
-            f.write(json.dumps(record) + "\n")
+        if self.mesh is None or self.mesh.rank == 0:
+            with open(self.jsonl_path, "a") as f:
+                f.write(json.dumps(record) + "\n")
+        if self.mesh is not None:
+            self.mesh.barrier()
 
 
 def save_metrics_json(path: str, train_metrics: Dict[str, Any],
                       test_metrics: Dict[str, Any],
-                      parameters: Optional[Dict[str, Any]] = None) -> None:
-    """Final per-run metrics file (run_training.py:392-407)."""
+                      parameters: Optional[Dict[str, Any]] = None, mesh=None) -> None:
+    """Final per-run metrics file (run_training.py:392-407), written by
+    rank 0 alone over a data ``mesh``."""
+    if mesh is not None and mesh.rank != 0:
+        mesh.barrier()
+        return
 
     def clean(obj):
         if isinstance(obj, dict):
@@ -61,6 +71,8 @@ def save_metrics_json(path: str, train_metrics: Dict[str, Any],
                    "test_metrics": clean(test_metrics),
                    "parameters": clean(parameters) if parameters else None},
                   f, indent=2)
+    if mesh is not None:
+        mesh.barrier()
 
 
 def input_stats(inputs, masks=None) -> str:

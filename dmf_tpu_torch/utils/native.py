@@ -73,6 +73,15 @@ def load() -> ctypes.CDLL:
     return lib
 
 
+def available() -> bool:
+    """Whether the library builds and loads here (``load`` raises why not)."""
+    try:
+        load()
+    except (RuntimeError, OSError):
+        return False
+    return True
+
+
 def _fptr(a: np.ndarray):
     return a.ctypes.data_as(_fp)
 

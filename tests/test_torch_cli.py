@@ -14,7 +14,7 @@ geometry (32^2, channels (8, 16, 32), no backbone, batch 8).
 * ``run --parallel-folds --folds 0 1`` gives the sequential run's summary,
   ``metrics.json`` (wall times aside) and best checkpoints, bit for bit.
 * ``--device`` defaults to ``cuda`` and does not fall back to the CPU;
-  ``--mesh`` raises; ``bench`` is not registered, ``export-serving`` needs
+  a ``--mesh`` with a model axis raises; ``bench`` is not registered, ``export-serving`` needs
   its ``--out`` (its runs are in ``test_torch_serving.py``).
 """
 
@@ -206,11 +206,12 @@ def test_device_defaults_to_cuda_without_fallback(monkeypatch):
         cli.main(["debug-suite", "--tiny"])
 
 
-@pytest.mark.parametrize("argv,item", [(["--mesh", "8"], "1.13")])
+@pytest.mark.parametrize("argv,item", [(["--mesh", "2x2"], "1.13")])
 def test_unported_options_raise(argv, item):
-    """``--mesh`` raises.  ``--parallel-folds`` over several folds raised
-    here (ROADMAP 1.6) until fold-parallel training was ported: it runs in
-    ``test_parallel_folds_equal_sequential_folds``."""
+    """A mesh with a model axis raises (ROADMAP 1.13b); ``--mesh N`` with a
+    data axis alone runs (``test_torch_mesh_run.py``).  ``--parallel-folds``
+    over several folds raised here (ROADMAP 1.6) until fold-parallel training
+    was ported: it runs in ``test_parallel_folds_equal_sequential_folds``."""
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         cli.main(["run", "--tiny", "--device", "cpu", "--folds", "0"] + argv)
 

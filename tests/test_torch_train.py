@@ -109,6 +109,26 @@ def test_classification_report_matches_jax(seed):
     assert pm.compute() == jm.compute()
 
 
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("name", ["multiclass_f1", "multiclass_precision",
+                                  "multiclass_recall"])
+def test_multiclass_metrics_match_jax(name, seed):
+    """The macro F1 / precision / recall functions, a class absent at seed 1."""
+    r = np.random.RandomState(seed)
+    preds = r.randint(0, 4, size=37)
+    labels = r.randint(0, 4 if seed == 0 else 3, size=37)
+    assert getattr(pmetrics, name)(preds, labels, 4) == getattr(jmetrics, name)(preds, labels, 4)
+
+
+def test_native_available_matches_jax():
+    """``available()`` says whether the host library loads, in both packages
+    (each builds its own copy with g++)."""
+    from dmf_tpu.utils import native as jnative
+    from dmf_tpu_torch.utils import native as pnative
+
+    assert pnative.available() == jnative.available()
+
+
 def test_logs_and_paths_match_jax(tmp_path):
     assert (ppaths.prepare_output_paths("dwi", 2, str(tmp_path / "p"))
             == {k: v.replace("/j/", "/p/") for k, v in
