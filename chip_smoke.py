@@ -202,6 +202,25 @@ Phases, each printing its own lines:
      ``make_multifold_step(mesh=)``, one a rank, bit-equal to one process's
      fold step; 13d 13a's steps on a 1x1 mesh over NCCL in this process, and
      ``run --mesh 2`` raising its "needs 2 cards" error;
+  14. the mesh's model axis (tensor parallelism: ``parallel/tensor.py``,
+     ``parallel/sharding.py``) on a 1x2 mesh at full width: two ranks pinned
+     to the one card with gloo (``python -m torch.distributed.run
+     --nproc-per-node 2 chip_smoke.py --tp-rank OUT`` runs one rank), the
+     wide convs on output-channel shards and the attention on head shards:
+     14a (this process) kernel 2 against its plain version at the six neck
+     sites' shard shapes (half of each Cout, the whole Cin), N=32, bf16 and
+     fp32 (3xTF32), with its time, its share of the bound and cuDNN's chain
+     in turns; 14b the default fusion predictor sharded over the two ranks:
+     a ``tta`` fp32 request of B=8 against one process's at phase 4's
+     tolerance, ``tta_mc`` bf16 requests of B=8 raw volumes (each rank's
+     launches a request: kernel 2 on its shards), their ms, the ms in
+     collectives, each rank's peak memory and parameter bytes; 14c a
+     ``hybrid-nb`` ``tta`` fp32 request of B=2, the flash forward on two of
+     the four heads a rank, against one process's; 14d two full-width
+     fusion train steps at global B=8, fp32, dropout 0, against one
+     process's (losses at rel 1e-3, parameters per group at 13a's bound over
+     floors at this B), the replicated parameters' gradients bit-equal on
+     the two ranks, step ms, ms in collectives and both ranks' peaks;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -4275,13 +4294,15 @@ MESH_STEP_SEED, MESH_DROP_SEED = 61, 62
 MESH_SERVE_SEEDS = (81, 82, 83)
 
 
-def mesh_fusion_setup(cfg):
+def mesh_fusion_setup(cfg, n_steps=MESH_STEPS, b=MESH_B, seed=MESH_STEP_SEED, net=None):
     """13a's full-width fusion network (dropout 0, as phase 7c: its bound
-    reads a run in another memory format; every group trainable), its step,
-    hyperparameters and global batches, the same in every process (seeded
-    generators on the card)."""
+    reads a run in another memory format; every group trainable; ``net``
+    given: that one), its step, hyperparameters and ``n_steps`` global
+    batches of ``b``, the same in every process (seeded generators on the
+    card)."""
     fcfg = fusion_config(cfg, dropout=0.0)
-    net = FusionNetwork(*build_fusion_models(fcfg, DEV, generator=gen(SEED)))
+    if net is None:
+        net = FusionNetwork(*build_fusion_models(fcfg, DEV, generator=gen(SEED)))
     init = {n: p.detach().cpu().clone() for n, p in net.named_parameters()}
     spec = build_fusion_group_spec(list(init), fcfg)
     clf = get_classification_loss_fn(fcfg, np.arange(fcfg.class_num), "fusion")
@@ -4289,8 +4310,7 @@ def mesh_fusion_setup(cfg):
     ctrl = FusionOptController(fcfg)
     ctrl.on_epoch_start(3)
     aux_w = aux_loss_weight(3, fcfg.aux_loss_weight_epoch_limit)
-    batches = [dict(b, aux_w=aux_w)
-               for b in fusion_batches(fcfg, MESH_STEPS, MESH_B, MESH_STEP_SEED)]
+    batches = [dict(x, aux_w=aux_w) for x in fusion_batches(fcfg, n_steps, b, seed)]
     return fcfg, net, init, spec, step, ctrl.hyperparams(), batches
 
 
@@ -4349,12 +4369,45 @@ def mesh_request(cfg, predict, b=B_SERVE):
     return predict(dx, cx, gen(MESH_SERVE_SEEDS[1]))
 
 
+class CollectiveTimer:
+    """Within ``with``: the mesh's collectives timed apart (the stream
+    synchronised around each), their ms and count."""
+
+    NAMES = ("all_reduce", "model_all_reduce", "model_gather")
+
+    def __init__(self):
+        from dmf_tpu_torch.parallel import mesh as mesh_mod
+
+        self.cls, self.ms, self.n = mesh_mod.Mesh, 0.0, 0
+
+    def __enter__(self):
+        self.plain = {n: getattr(self.cls, n) for n in self.NAMES}
+
+        def timed(fn):
+            def wrapped(*a, **k):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = fn(*a, **k)
+                torch.cuda.synchronize()
+                self.ms += (time.perf_counter() - t0) * 1e3
+                self.n += 1
+                return out
+            return wrapped
+
+        for n, fn in self.plain.items():
+            setattr(self.cls, n, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.plain.items():
+            setattr(self.cls, n, fn)
+
+
 def mesh_rank_main(out):
     """One rank of phase 13 (``python -m torch.distributed.run --nproc-per-node
     2 chip_smoke.py --mesh-rank OUT``): 13a, 13b and 13c on this rank's rows
     or folds; its results into ``OUT/rank<r>.json``."""
     from dmf_tpu_torch.parallel import make_mesh, make_spmd_step, shard_state
-    from dmf_tpu_torch.parallel import mesh as mesh_mod
 
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4385,27 +4438,13 @@ def mesh_rank_main(out):
     res["gaps"] = {str(k): v for k, v in disagreement(net, single, init, spec).items()}
     del single
     # one more step with every collective timed apart (synchronised around it)
-    spent = []
-    plain = mesh_mod.Mesh.all_reduce
-
-    def timed(self, t):
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        plain(self, t)
-        torch.cuda.synchronize()
-        spent.append(time.perf_counter() - t0)
-        return t
-
-    mesh_mod.Mesh.all_reduce = timed
-    try:
+    with CollectiveTimer() as timer:
         mesh.barrier()
         t0 = time.perf_counter()
         dp(state, batches[0], g, hp)
         torch.cuda.synchronize()
         res["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
-    finally:
-        mesh_mod.Mesh.all_reduce = plain
-    res["collective_ms"], res["collectives"] = sum(spent) * 1e3, len(spent)
+    res["collective_ms"], res["collectives"] = timer.ms, timer.n
     del state, net, dp, batches
     torch.cuda.empty_cache()
     # 13b
@@ -4600,6 +4639,349 @@ def phase_mesh(cfg, tmp, smi):
     return launched
 
 
+# ------------------------------------------------------------------ phase 14
+# the model axis (tensor parallelism) on the one card: a 1x2 mesh, two ranks
+# pinned to it with gloo, each a process of its own started by
+# torch.distributed.run, running this file with --tp-rank
+TP_RANKS = 2
+TP_B, TP_STEPS = 8, 2  # 14d: global B=8, both ranks on the same rows
+TP_HYB_B = 2  # 14c
+TP_REQUESTS = 1  # 14b's tta_mc requests (no warm-up): each gathers ~14 GB over gloo
+TP_STEP_SEED, TP_DROP_SEED = 71, 72
+# kernel 2 at each neck site's shard: half of Cout, the whole (gathered) Cin
+TP_NECKS = tuple((f"{name} shard", cin, cout // TP_RANKS, side)
+                 for name, cin, cout, side in NECKS)
+# a rank's launches a request: as one process's (phases 5 and 5b; the
+# request's preprocessing launches kernel 7), kernel 2 on its shards
+TP_HYBRID_EXPECT = HYBRID_EXPECT | {"dwi_normalize": 1}
+
+
+def param_bytes(*models):
+    return sum(p.numel() * p.element_size() for m in models for p in m.parameters())
+
+
+def tp_train_steps(cfg, net, mesh=None, digests=None, peak=False):
+    """14d: ``TP_STEPS`` fusion steps at global B=``TP_B`` on ``net`` (over
+    ``mesh``: sharded, through ``make_spmd_step``); each step's metrics and
+    CUDA-event ms.  ``digests`` collects each step's digests of the
+    replicated parameters' gradients (AdamW's input)."""
+    from dmf_tpu_torch.parallel import make_spmd_step, shard_state
+    from dmf_tpu_torch.parallel.tensor import parameter_shards
+    from dmf_tpu_torch.train import fusion as fusion_mod
+
+    fcfg, _, _, spec, step, hp, batches = mesh_fusion_setup(cfg, TP_STEPS, TP_B, TP_STEP_SEED,
+                                                            net=net)
+    state, g = TrainState.create(net, num_groups=4), gen(TP_DROP_SEED)
+    run = step
+    if mesh is not None:
+        shard_state(state, mesh)
+        run = make_spmd_step(step, mesh)
+    plain = fusion_mod.adamw_update
+    if digests is not None:
+        import hashlib
+
+        def recorded(params, grads, *a, **k):
+            shards = parameter_shards(net)
+            digests.append({n: hashlib.sha256(g.detach().float().cpu().contiguous().numpy()
+                                              .tobytes()).hexdigest()
+                            for n, g in grads.items() if g is not None and n not in shards})
+            return plain(params, grads, *a, **k)
+
+        fusion_mod.adamw_update = recorded
+    if peak:
+        torch.cuda.reset_peak_memory_stats()
+    metrics, ms = [], []
+    # deterministic algorithms (as phase 10): the bilinear upsample's
+    # backward adds by atomics otherwise, and the two ranks' replicated
+    # gradients would differ by rounding
+    try:
+        with deterministic():
+            for b in batches:
+                ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+                if mesh is not None:
+                    mesh.barrier()
+                ev[0].record()
+                m = run(state, b, g, hp)
+                ev[1].record()
+                torch.cuda.synchronize()
+                metrics.append({k: float(v) for k, v in m.items()})
+                ms.append(ev[0].elapsed_time(ev[1]))
+    finally:
+        fusion_mod.adamw_update = plain
+    return metrics, ms, state, (run, batches[0], g, hp)
+
+
+def tp_rank_main(out):
+    """One rank of phase 14 (``python -m torch.distributed.run
+    --nproc-per-node 2 chip_smoke.py --tp-rank OUT``): 14b-14d on a 1x2
+    mesh; its results into ``OUT/rank<r>.json``."""
+    from dmf_tpu_torch.parallel import make_mesh
+    from dmf_tpu_torch.parallel.sharding import full_state_dict
+    from dmf_tpu_torch.parallel.tensor import parameter_shards
+
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = make_mesh(1, TP_RANKS, devices=[DEV] * TP_RANKS)
+    cfg = default_parameters()
+    hcfg = hybrid_nb_config(cfg)
+    res = {"rank": mesh.model_rank, "backend": mesh.backend, "seconds": {}}
+    t_sub = time.perf_counter()
+    # 14b: tta fp32 against one process's
+    models = build_fusion_models(cfg, DEV, torch.float32, gen(SEED))
+    whole = param_bytes(*models)
+    predict = make_fusion_predictor(cfg, *models, mode="tta", mesh=mesh)
+    res["param_bytes"] = [whole, param_bytes(*models)]
+    res["sharded"] = sum(len(parameter_shards(m)) for m in models)
+    mean, std, _ = mesh_request(cfg, predict)
+    ref = torch.load(os.path.join(out, "single_tta.pt"), map_location=DEV, weights_only=True)
+    res["tta_err"] = [(mean - ref["mean"]).abs().max().item(),
+                      (std - ref["std"]).abs().max().item()]
+    del models, predict
+    torch.cuda.empty_cache()
+    # 14b: tta_mc bf16 requests, launches counted per request
+    models = build_fusion_models(cfg, DEV, torch.bfloat16, gen(SEED))
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc", mesh=mesh)
+    res["param_bytes_bf16"] = param_bytes(*models)
+    torch.cuda.reset_peak_memory_stats()
+    res["requests"] = []
+    for _ in range(TP_REQUESTS):
+        reset_counts()
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, std, _ = mesh_request(cfg, predict)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+        gate("tp tta_mc", cfg, counts(), MESH_SERVE_EXPECT, mean, std, True, B_SERVE)
+        res["requests"].append({"ms": dt * 1e3, "counts": counts()})
+    res["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    with CollectiveTimer() as timer:
+        mesh.barrier()
+        t0 = time.perf_counter()
+        mesh_request(cfg, predict)
+        torch.cuda.synchronize()
+        res["timed_request_ms"] = (time.perf_counter() - t0) * 1e3
+    res["request_collective_ms"], res["request_collectives"] = timer.ms, timer.n
+    del models, predict
+    torch.cuda.empty_cache()
+    res["seconds"]["14b"], t_sub = time.perf_counter() - t_sub, time.perf_counter()
+    # 14c: hybrid-nb tta fp32 at B=2, the flash forward on this rank's heads
+    models = build_fusion_models(hcfg, DEV, torch.float32, gen(SEED))
+    predict = make_fusion_predictor(hcfg, *models, mode="tta", mesh=mesh)
+    res["hybrid_heads"] = models[0].transformer.transformer.layers[0].attn.qkv.weight.shape[0]
+    reset_counts()
+    mean, std, _ = mesh_request(hcfg, predict, b=TP_HYB_B)
+    res["hybrid_counts"] = counts()
+    gate("tp hybrid-nb tta", hcfg, res["hybrid_counts"], TP_HYBRID_EXPECT, mean, std, False,
+         TP_HYB_B)
+    ref = torch.load(os.path.join(out, "single_hybrid.pt"), map_location=DEV, weights_only=True)
+    res["hybrid_err"] = [(mean - ref["mean"]).abs().max().item(),
+                         (std - ref["std"]).abs().max().item()]
+    del models, predict
+    torch.cuda.empty_cache()
+    res["seconds"]["14c"], t_sub = time.perf_counter() - t_sub, time.perf_counter()
+    # 14d: the fusion train steps, sharded
+    fcfg, net, init, spec, *_ = mesh_fusion_setup(cfg, TP_STEPS, TP_B, TP_STEP_SEED)
+    whole = copy.deepcopy(net)
+    digests = []
+    res["metrics"], res["step_ms"], state, again = tp_train_steps(cfg, net, mesh, digests,
+                                                                  peak=True)
+    res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    res["train_param_bytes"] = [param_bytes(whole), param_bytes(net)]
+    res["digests"] = digests
+    whole.load_state_dict(full_state_dict(state)["model"])
+    single = copy.deepcopy(whole)
+    single.load_state_dict(torch.load(os.path.join(out, "single_fusion.pt"), map_location=DEV,
+                                      weights_only=True))
+    res["gaps"] = {str(k): v for k, v in disagreement(whole, single, init, spec).items()}
+    del single, whole
+    with CollectiveTimer() as timer, deterministic():
+        mesh.barrier()
+        t0 = time.perf_counter()
+        again[0](state, *again[1:])
+        torch.cuda.synchronize()
+        res["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
+    res["step_collective_ms"], res["step_collectives"] = timer.ms, timer.n
+    res["seconds"]["14d"] = time.perf_counter() - t_sub
+    with open(os.path.join(out, f"rank{mesh.model_rank}.json"), "w") as f:
+        json.dump(res, f)
+    torch.distributed.destroy_process_group()
+
+
+def phase_tp_kernels():
+    """14a: kernel 2 at the neck sites' shard shapes."""
+    log(f"== phase 14a: conv3x3_bn_gelu (CUDA) vs plain at the neck sites' shard shapes on a "
+        f"{TP_RANKS}-way model axis (Cout halved, the whole Cin), N={B_VAL}")
+    g = gen(14)
+    errs, sums = conv_bf16(B_VAL, g, TP_NECKS)
+    errs += conv_f32(B_VAL, g, TP_NECKS)
+    return max(errs), sums
+
+
+def phase_tp(cfg, tmp, smi):
+    """Phase 14: the model axis on a 1x2 mesh; returns the ranks' launches."""
+    from dmf_tpu_torch.parallel import local_mesh
+
+    t_phase = time.perf_counter()
+    log(f"== phase 14: the model axis (parallel/tensor.py) on a 1x{TP_RANKS} mesh at full "
+        f"width: {TP_RANKS} ranks pinned to the one card with gloo; 14b the default fusion "
+        f"predictor sharded (tta fp32 against one process's, tta_mc bf16 B={B_SERVE}), 14c "
+        f"hybrid-nb tta fp32 B={TP_HYB_B}, 14d {TP_STEPS} fusion train steps at global "
+        f"B={TP_B} fp32 (dropout 0)")
+    err14a, sums14a = phase_tp_kernels()
+    hcfg = hybrid_nb_config(cfg)
+    out = os.path.join(tmp, "tp")
+    os.makedirs(out)
+    # one process's runs first, the references the ranks read
+    models = build_fusion_models(cfg, DEV, torch.float32, gen(SEED))
+    mean, std, _ = mesh_request(cfg, make_fusion_predictor(cfg, *models, mode="tta"))
+    torch.save({"mean": mean, "std": std}, os.path.join(out, "single_tta.pt"))
+    tta_scale = max(1.0, mean.abs().max().item())
+    del models
+    models = build_fusion_models(hcfg, DEV, torch.float32, gen(SEED))
+    mean, std, _ = mesh_request(hcfg, make_fusion_predictor(hcfg, *models, mode="tta"),
+                                b=TP_HYB_B)
+    torch.save({"mean": mean, "std": std}, os.path.join(out, "single_hybrid.pt"))
+    hyb_scale = max(1.0, mean.abs().max().item())
+    del models
+    torch.cuda.empty_cache()
+    one_ms = []
+    models = build_fusion_models(cfg, DEV, torch.bfloat16, gen(SEED))
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc")
+    mesh_request(cfg, predict)
+    torch.cuda.reset_peak_memory_stats()
+    for _ in range(REQUESTS):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mesh_request(cfg, predict)
+        torch.cuda.synchronize()
+        one_ms.append((time.perf_counter() - t0) * 1e3)
+    one_serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    one_bytes = param_bytes(*models)
+    del models, predict
+    torch.cuda.empty_cache()
+    # 14d's references: one process, the same in another memory format
+    # (phase 7c's floor), and a 1x1 mesh over NCCL (13d's floor)
+    _, net, init, spec, *_ = mesh_fusion_setup(cfg, TP_STEPS, TP_B, TP_STEP_SEED)
+    alt = copy.deepcopy(net).to(memory_format=torch.contiguous_format)
+    nccl = copy.deepcopy(net)
+    single, single_ms, *_ = tp_train_steps(cfg, net, peak=True)
+    one_train_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    tp_train_steps(cfg, alt)
+    layout = {str(k): v for k, v in disagreement(alt, net, init, spec).items()}
+    del alt
+    tp_train_steps(cfg, nccl, local_mesh(DEV), peak=True)
+    # the mesh route's peak alone (BatchNorm's two passes over the group's
+    # sums in fp32, no sharding), beside one process's and the ranks'
+    route_peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    route = {str(k): v for k, v in disagreement(nccl, net, init, spec).items()}
+    del nccl
+    tols = {g_: 0.0 if g_ == "-1" else
+            max(TRAIN_FLOOR, FUSION_FLOOR_MARGIN * max(layout[g_], route[g_]))
+            for g_ in layout}
+    torch.save(net.state_dict(), os.path.join(out, "single_fusion.pt"))
+    del net
+    torch.cuda.empty_cache()
+    torch.distributed.destroy_process_group()
+
+    here = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "torch.distributed.run", "--standalone",
+                           "--nproc-per-node", str(TP_RANKS), os.path.abspath(__file__),
+                           "--tp-rank", out], cwd=here,
+                          env=dict(os.environ, PYTHONPATH=here, OMP_NUM_THREADS="4",
+                                   CUBLAS_WORKSPACE_CONFIG=":4096:8"),
+                          capture_output=True, text=True, timeout=600)
+    t_ranks = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"tp ranks exited {proc.returncode}: {proc.stderr[-4000:]}")
+    ranks = []
+    for r in range(TP_RANKS):
+        with open(os.path.join(out, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    log(f"  {TP_RANKS} ranks: {t_ranks:.1f} s in all (start, build, 14b-14d); backend "
+        f"{ranks[0]['backend']}; seconds a sub-phase (rank 0) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in ranks[0]["seconds"].items()) + f"; {smi}")
+    # 14b
+    launched = dict.fromkeys(COUNTERS, 0)
+    bound = TOL[torch.float32] * tta_scale
+    for r in ranks:
+        if not max(r["tta_err"]) <= bound:
+            raise AssertionError(f"14b rank {r['rank']}: tta off one process's by "
+                                 f"{r['tta_err']}, above {bound}")
+        for q in r["requests"]:
+            for k, v in q["counts"].items():
+                launched[k] += v
+        whole, mine = r["param_bytes"]
+        log(f"  14b rank {r['rank']}: {r['sharded']} parameters sharded; fp32 parameter bytes "
+            f"{mine / 2 ** 20:.1f} MiB of the whole {whole / 2 ** 20:.1f} MiB (bf16 "
+            f"{r['param_bytes_bf16'] / 2 ** 20:.1f} MiB); tta fp32 B={B_SERVE} against one "
+            f"process's: mean max_abs_err {r['tta_err'][0]:.3e}, std {r['tta_err'][1]:.3e} "
+            f"(tolerance {bound:.3e}); tta_mc bf16 request (ms, host clock, no warm-up, two "
+            f"ranks sharing one card) " + ", ".join(f"{q['ms']:.2f}" for q in r["requests"])
+            + f"; one more request with every collective timed apart: "
+            f"{r['timed_request_ms']:.1f} ms, of which {r['request_collective_ms']:.1f} ms in "
+            f"{r['request_collectives']} collectives; peak {r['serve_peak_gib']:.2f} GiB; "
+            f"launches a request {r['requests'][-1]['counts']}")
+    log(f"  14b one process: tta_mc bf16 requests (ms, host clock) "
+        + ", ".join(f"{t:.2f}" for t in one_ms) + f"; peak {one_serve_peak:.2f} GiB; bf16 "
+        f"parameter bytes {one_bytes / 2 ** 20:.1f} MiB; {smi}")
+    # 14c
+    bound = TOL[torch.float32] * hyb_scale
+    for r in ranks:
+        if not max(r["hybrid_err"]) <= bound:
+            raise AssertionError(f"14c rank {r['rank']}: hybrid-nb tta off one process's by "
+                                 f"{r['hybrid_err']}, above {bound}")
+        for k, v in r["hybrid_counts"].items():
+            launched[k] += v
+        log(f"  14c rank {r['rank']}: hybrid-nb tta fp32 B={TP_HYB_B}: qkv rows "
+            f"{r['hybrid_heads']} of {3 * hcfg.dwi_model.transformer_embed_dim} (the q, k and "
+            f"v of {r['hybrid_heads'] // 3 // (hcfg.dwi_model.transformer_embed_dim // hcfg.dwi_model.transformer_heads)} "
+            f"heads); against one process's: mean max_abs_err {r['hybrid_err'][0]:.3e}, std "
+            f"{r['hybrid_err'][1]:.3e} (tolerance {bound:.3e}); launches {r['hybrid_counts']}")
+    # 14d
+    for i, ref in enumerate(single):
+        for r in ranks:
+            got = r["metrics"][i]
+            rel = {n: abs(got[n] - ref[n]) / max(abs(ref[n]), 1e-12) for n in FUSION_LOSSES}
+            if not all(v <= TRAIN_LOSS_RTOL for v in rel.values()):
+                raise AssertionError(f"14d step {i} rank {r['rank']}: losses off one "
+                                     f"process's: {rel}")
+        log(f"  14d step {i}: " + ", ".join(
+            f"{n} one process {ref[n]:.6f} ranks "
+            + "/".join(f"{r['metrics'][i][n]:.6f}" for r in ranks) for n in FUSION_LOSSES)
+            + f" (tolerance rel {TRAIN_LOSS_RTOL:.0e}); grad norm one process "
+            f"{ref['grad_norm']:.5f} ranks "
+            + "/".join(f"{r['metrics'][i]['grad_norm']:.5f}" for r in ranks))
+    for a, b in zip(ranks[0]["digests"], ranks[1]["digests"]):
+        if not a or a != b:
+            raise AssertionError("14d: the replicated parameters' gradients differ between "
+                                 "the model ranks: "
+                                 + str([k for k in a if a[k] != b.get(k)][:5]))
+    for r in ranks:
+        for g_, gap in r["gaps"].items():
+            if not gap <= tols[g_]:
+                raise AssertionError(f"14d rank {r['rank']} group {g_}: off one process's "
+                                     f"steps by {gap}, above {tols[g_]}")
+        whole, mine = r["train_param_bytes"]
+        log(f"  14d rank {r['rank']}: parameters and statistics against one process's, per "
+            f"group " + ", ".join(f"{k} {v:.3e} (tolerance {tols[k]:.3e})"
+                                  for k, v in r["gaps"].items())
+            + f"; the gradients of {len(r['digests'][0])} replicated parameters bit-equal on "
+            f"both ranks at each step; step ms by CUDA events "
+            + ", ".join(f"{t:.1f}" for t in r["step_ms"]) + f"; peak {r['train_peak_gib']:.2f} "
+            f"GiB; parameter bytes {mine / 2 ** 20:.1f} of {whole / 2 ** 20:.1f} MiB; one more "
+            f"step with every collective timed apart: {r['timed_step_ms']:.1f} ms, of which "
+            f"{r['step_collective_ms']:.1f} ms in {r['step_collectives']} collectives; {smi}")
+    log(f"  14d one process: step ms by CUDA events " + ", ".join(f"{t:.1f}" for t in single_ms)
+        + f"; peak {one_train_peak:.2f} GiB (the 1x1 NCCL mesh's route: {route_peak:.2f} "
+        f"GiB); floors: one process in contiguous memory format "
+        + ", ".join(f"{k} {v:.3e}" for k, v in layout.items()) + "; a 1x1 mesh over NCCL "
+        + ", ".join(f"{k} {v:.3e}" for k, v in route.items()))
+    log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
+    return launched, err14a, sums14a
+
+
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4661,16 +5043,18 @@ def main():
         measured.update(int8_measured)
         # phase 13: the data mesh; its launches are the ranks'
         mesh_launches = phase_mesh(cfg, tmp, smi)
+        # phase 14: the model axis; its launches are the ranks'
+        tp_launches = phase_tp(cfg, tmp, smi)[0]
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
                 + serving_launches[k] + int8_launches.get(k, 0) + mesh_launches[k]
-                for k in COUNTERS}
+                + tp_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
-        f"CLI, the ViT path, the fold-parallel run, the serving artifacts and the int8 "
-        f"path: {launches}")
+        f"CLI, the ViT path, the fold-parallel run, the serving artifacts, the int8 "
+        f"path and the data and model meshes: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")
@@ -4713,5 +5097,7 @@ def main():
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--mesh-rank"]:
         mesh_rank_main(sys.argv[2])
+    elif sys.argv[1:2] == ["--tp-rank"]:
+        tp_rank_main(sys.argv[2])
     else:
         main()

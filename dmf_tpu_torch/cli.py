@@ -18,11 +18,11 @@ The subcommands take the JAX CLI's arguments, plus ``--device`` (default
 --parallel-folds`` over several folds trains each modality's folds in one
 call (``run_single_model_multifold``), then runs fusion per fold; over one
 fold it runs the per-fold loop, as the JAX CLI does (cli.py:157).
-``--mesh DATA`` trains and tests over a data mesh of DATA ranks, one process
-a rank (``python -m torch.distributed.run --nproc-per-node DATA -m
-dmf_tpu_torch.cli run --mesh DATA ...``: NCCL with a card a rank, gloo with
-``--device cpu``); rank 0 prints and writes.  A model axis (``--mesh 4x2``)
-raises ``NotImplementedError`` (ROADMAP 1.13b).  ``export-serving``
+``--mesh DATA[xMODEL]`` trains and tests over a mesh of DATA x MODEL ranks,
+one process a rank (``python -m torch.distributed.run --nproc-per-node
+DATA*MODEL -m dmf_tpu_torch.cli run --mesh DATAxMODEL ...``: NCCL with a
+card a rank, gloo with ``--device cpu``); the model axis shards the models
+(``parallel/sharding.py``); global rank 0 prints and writes.  ``export-serving``
 writes the weights-free ``torch.export`` serving program (``serving.py``) on
 ``--device``, in place of the JAX CLI's ``--platforms``.  ``bench`` is not
 ported yet (ROADMAP 1.1).
@@ -75,8 +75,8 @@ def _add_common(p):
     p.add_argument("--mesh", default=None, metavar="DATAxMODEL",
                    help="device mesh, e.g. '2' (2-way data parallel: launch 2 "
                         "processes with python -m torch.distributed.run "
-                        "--nproc-per-node 2); a model axis ('4x2') is not "
-                        "ported (ROADMAP 1.13b)")
+                        "--nproc-per-node 2) or '2x2' (a 2-way model axis "
+                        "too: 4 processes)")
     p.add_argument("--parallel-folds", action="store_true",
                    help="train each modality's folds in one call (one raw "
                         "load and one model build; each fold's results equal "
@@ -178,7 +178,7 @@ def cmd_run(args) -> int:
     if mesh is not None:
         device = mesh.device
     # rank 0 alone prints
-    say = print if mesh is None or mesh.rank == 0 else (lambda *a, **k: None)
+    say = print if mesh is None or mesh.writer else (lambda *a, **k: None)
     if cfg.debug_anomaly:
         torch.autograd.set_detect_anomaly(True)
 

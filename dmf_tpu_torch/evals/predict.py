@@ -20,14 +20,19 @@ in, ``(mean, std, aux)`` out, with aux maps returned NHWC.  A pass is a
 :class:`PassForward`; ``fwd_override`` swaps in another (the int8 forwards of
 ``ops/quant.py``), as JAX's ``make_fusion_predictor(fwd_override=)``.
 
-``mesh=`` (a data mesh, ``parallel/mesh.py``) serves each request data
-parallel, the counterpart of JAX's ``_shard_map_predictor`` (:95-172): every
-rank runs the single-process predictor on its rows of the batch (its kernels
+``mesh=`` (``parallel/mesh.py``) serves each request data parallel, the
+counterpart of JAX's ``_shard_map_predictor`` (:95-172): every data rank
+runs the single-process predictor on its rows of the batch (its kernels
 included), and the ``(mean, std, aux)`` are gathered back into the unsharded
-layout, the ``(views x B, ...)`` aux leaves view by view.  The MC masks come
-from a generator per rank, seeded from a draw of the caller's generator and
-the rank, as JAX folds the shard index into its key: each sample's ensemble
-is a correct MC-dropout sample whose masks differ from one process's.
+layout, the ``(views x B, ...)`` aux leaves view by view.  With more than
+one data rank the MC masks come from a generator per data rank, seeded from
+a draw of the caller's generator and the rank, as JAX folds the shard index
+into its key: each sample's ensemble is a correct MC-dropout sample whose
+masks differ from one process's; with one data rank they are the caller's.
+Over a model axis (JAX's GSPMD route, :175-183) the models are sharded in
+place by ``parallel/sharding.py::param_spec`` (``parallel/tensor.py``) and
+the model ranks of each data rank run its rows together, with the same
+masks (a dropout on a shard keeps that shard of the whole mask).
 """
 
 from __future__ import annotations
@@ -162,10 +167,11 @@ def _ensemble(encoders, fwd: Callable, prefix: Callable, mode: str, passes: int,
 
 
 def _rank_generator(generator, mesh) -> Optional[torch.Generator]:
-    """This rank's MC generator: seeded from one draw of the caller's
-    ``generator`` (which every rank advances alike) and the rank."""
-    if generator is None:
-        return None
+    """This data rank's MC generator: seeded from one draw of the caller's
+    ``generator`` (which every rank advances alike) and the rank; the
+    caller's own where the data axis has one rank."""
+    if generator is None or mesh.n_data == 1:
+        return generator
     if not isinstance(generator, torch.Generator):
         raise TypeError("a mesh predictor draws its masks from a torch.Generator, got "
                         f"{type(generator).__name__}")
@@ -184,9 +190,9 @@ def _map_tree(fn, tree):
 
 
 def _mesh_predictor(run: Callable, mesh, n_views: int) -> Callable:
-    """``run(imgs, generator)`` served over the data mesh: this rank's rows
-    of each input, its own generator, the outputs gathered back (a rank
-    without rows runs the first row and gathers none)."""
+    """``run(imgs, generator)`` served over the mesh: this data rank's rows
+    of each input, its own generator, the outputs gathered back over the
+    data axis (a rank without rows runs the first row and gathers none)."""
 
     def predict(imgs, generator):
         B = imgs[0].shape[0]
@@ -215,6 +221,16 @@ def _views(mode: str) -> int:
     return 4 if mode in ("tta", "tta_mc") else 1
 
 
+def _place(models, mesh) -> None:
+    """Shard ``models`` in place over ``mesh``'s model axis (identical whole
+    weights on every rank; layers already sharded stay)."""
+    if mesh is not None and mesh.n_model > 1:
+        from ..parallel.tensor import tensor_parallel
+
+        for m in models:
+            tensor_parallel(m, mesh)
+
+
 def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
                           mode: Optional[str] = None,
                           mc_passes: Optional[int] = None,
@@ -229,13 +245,18 @@ def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
     ``mc_chunk`` defaults to ``cfg.mc_chunk``.  ``fwd_override`` (a
     :class:`PassForward`, e.g. ``ops/quant.py``'s ``make_quantized_fusion_fwd``
     or ``make_hybrid_fusion_fwd``) replaces the per-pass forward and the
-    hoisted prefix.  ``mesh`` serves each request over a data mesh (the
-    module's docstring); every rank passes the whole batch and the same
-    generator state.
+    hoisted prefix.  ``mesh`` serves each request over a mesh (the
+    module's docstring; over a model axis the models are sharded in place);
+    every rank passes the whole batch and the same generator state.
     """
     if fwd_override is not None and not isinstance(fwd_override, PassForward):
         raise TypeError(f"fwd_override must be a PassForward (ops/quant.py's int8 forwards "
                         f"make one), got {type(fwd_override).__name__}")
+    if fwd_override is not None and mesh is not None and mesh.n_model > 1:
+        from ..ops.quant import INT8_TP_TODO
+
+        raise NotImplementedError(f"fwd_override over a model axis: {INT8_TP_TODO}")
+    _place((dwi_model, dce_model, fusion_model), mesh)
     fwd = fwd_override or PassForward((dwi_model, dce_model), (dwi_model, dce_model),
                                       fusion_model)
     mode = mode or cfg.test_mode
@@ -261,6 +282,7 @@ def make_single_predictor(cfg: Config, model, mode: Optional[str] = None,
         p = prefixes[0] if prefixes is not None else None
         return model(xs[0], mc=mc, generator=generator, prefix=p, lean=lean)[:2]
 
+    _place((model,), mesh)
     mode = mode or cfg.test_mode
     run = _ensemble((model,), fwd, lambda xs: (model(xs[0], prefix_only=True),),
                     mode, mc_passes if mc_passes is not None else cfg.mc_passes,

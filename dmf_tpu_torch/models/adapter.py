@@ -13,7 +13,10 @@ adapter's training route (adapter.py:73-76).  A neck conv that is not an
 ``nn.Conv2d`` (the int8 :class:`~dmf_tpu_torch.ops.quant.QuantConv2d` of a
 quantized copy, or a calibration recorder) takes the JAX adapter's XLA route
 in eval too: the conv module, eval BatchNorm, exact GELU (adapter.py:70-73),
-so kernel 2 is not launched at a quantized neck.  (On the CPU JAX quantizes
+so kernel 2 is not launched at a quantized neck.  A neck conv sharded over a
+mesh's model axis (``parallel/tensor.py::ShardedConv2d``) runs kernel 2 on
+its output-channel shard, BatchNorm's statistics and shift sliced to the
+shard (both are per channel), then gathers the channels.  (On the CPU JAX quantizes
 all six neck convs; on a TPU its Pallas neck would bypass the interceptor.)
 
 Unlike the JAX module, the adapter takes the backbone's features rather than
@@ -32,6 +35,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.conv3x3 import conv3x3_bn_gelu
+from ..parallel.tensor import ShardedConv2d
 from .layers import BatchNorm2d, run
 
 
@@ -73,6 +77,12 @@ class BackboneAdapter(nn.Module):
                 outputs.append(run(neck, out, True))
                 continue
             for conv, bn in ((neck[0], neck[1]), (neck[3], neck[4])):
+                if isinstance(conv, ShardedConv2d):  # kernel 2 on this rank's channels
+                    out = conv.gather(conv3x3_bn_gelu(
+                        out, conv.weight, *conv.channels(conv.bias, bn.weight, bn.bias,
+                                                         bn.running_mean, bn.running_var),
+                        bn.eps))
+                    continue
                 if not isinstance(conv, nn.Conv2d):  # int8, or a calibration probe
                     out = F.gelu(bn(conv(out), False))
                     continue

@@ -28,6 +28,7 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ...ops.attention import scaled_dot_product_attention
+from ...parallel.tensor import local_heads
 
 
 class ViTSize(NamedTuple):
@@ -47,10 +48,11 @@ class ViTSelfAttention(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, N, C = x.shape
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, C // self.num_heads)
-        q, k, v = qkv.permute(2, 0, 3, 1, 4)
+        D = C // self.num_heads
+        H = local_heads(self.qkv, self.num_heads)  # this rank's, over a model axis
+        q, k, v = self.qkv(x).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
         out = scaled_dot_product_attention(q, k, v)
-        return self.proj(out.transpose(1, 2).reshape(B, N, C))
+        return self.proj(out.transpose(1, 2).reshape(B, N, H * D))
 
 
 class Mlp(nn.Module):

@@ -20,6 +20,7 @@ from ..config import ModelConfig
 
 from ..ops.attention import scaled_dot_product_attention
 from ..ops.resize import adaptive_avg_pool, global_avg_pool, resize_bilinear
+from ..parallel.tensor import copy_to_model, model_mesh, reduce_from_model
 from .layers import (FusionReduce, MaskHeadResize, Projector, ReconHead,
                      ResLiteBlock, SEBlock, conv1x1)
 
@@ -58,19 +59,30 @@ class CrossAttentionBlock(nn.Module):
     def forward(self, query_tokens, key_value_tokens):
         B, Nq, C = query_tokens.shape
         Nk = key_value_tokens.shape[1]
-        H = self.num_heads
+        D = C // self.num_heads
         wq, wk, wv = self.cross_attn.in_proj_weight.chunk(3)
         bq, bk, bv = self.cross_attn.in_proj_bias.chunk(3)
+        # over a model axis in_proj holds this rank's heads of q, k and v
+        # and out_proj is row-parallel (parallel/tensor.py)
+        mesh = model_mesh(self.cross_attn.out_proj)
+        H = wq.shape[0] // D
+        if mesh is not None:
+            query_tokens = copy_to_model(query_tokens, mesh)
+            key_value_tokens = copy_to_model(key_value_tokens, mesh)
 
         def split(t, n):
-            return t.reshape(B, n, H, C // H).transpose(1, 2)
+            return t.reshape(B, n, H, D).transpose(1, 2)
 
         q = split(F.linear(query_tokens, wq, bq), Nq)
         k = split(F.linear(key_value_tokens, wk, bk), Nk)
         v = split(F.linear(key_value_tokens, wv, bv), Nk)
         out, weights = scaled_dot_product_attention(q, k, v, return_weights=True)
-        out = self.cross_attn.out_proj(out.transpose(1, 2).reshape(B, Nq, C))
-        return out + self.attn_ffn(out), weights.mean(dim=1)
+        out = self.cross_attn.out_proj(out.transpose(1, 2).reshape(B, Nq, H * D))
+        if mesh is None:
+            return out + self.attn_ffn(out), weights.mean(dim=1)
+        # the head average of every rank's heads (fusion.py:80-88)
+        avg = reduce_from_model(weights.sum(dim=1), mesh) / self.num_heads
+        return out + self.attn_ffn(out), avg
 
 
 class FusionModel(nn.Module):

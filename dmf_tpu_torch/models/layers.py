@@ -82,24 +82,43 @@ def run(seq: Iterable[nn.Module], x: torch.Tensor, train: bool) -> torch.Tensor:
     return x
 
 
+def _uniform(like: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+    """Uniform [0, 1) fp32 draws in ``like``'s shape and memory format (so
+    the select stays one vectorized pass); under a data mesh's step this
+    rank's rows of the global batch's draw."""
+    shard = active_shard()
+    if shard is not None:
+        return shard.uniform_rows(like, generator)
+    return torch.empty_like(like, dtype=torch.float32).uniform_(generator=generator)
+
+
 def dropout(x: torch.Tensor, p: float,
-            generator: Union[torch.Generator, SeedStream, None]) -> torch.Tensor:
+            generator: Union[torch.Generator, SeedStream, None],
+            mesh=None, dim: int = -1) -> torch.Tensor:
     """Dropout with an explicit generator: keep with probability ``1-p``,
     scale kept values by ``1/(1-p)`` (flax ``nn.Dropout`` semantics).  A
     :class:`~..ops.dropout.SeedStream` draws the mask of its next site
-    (:func:`~..ops.dropout.seeded_dropout`)."""
+    (:func:`~..ops.dropout.seeded_dropout`).  ``mesh``: ``x`` is this model
+    rank's contiguous slice along ``dim`` of a tensor sharded over the
+    mesh's model axis; its mask is that slice of the whole tensor's mask,
+    the one process draws (every model rank draws the same)."""
     if p <= 0.0:
         return x
     if generator is None:
         raise ValueError("MC dropout needs a generator")
+    if mesh is not None and mesh.n_model > 1:
+        if isinstance(generator, SeedStream) or not x.is_contiguous():
+            raise ValueError("a sharded dropout draws from a torch.Generator on a "
+                             "contiguous slice")
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * mesh.n_model
+        whole = torch.empty(shape, dtype=torch.float32, device=x.device)
+        u = _uniform(whole, generator).narrow(dim, mesh.model_rank * n, n)
+        return torch.where(u < (1.0 - p), x / (1.0 - p), 0.0)
     if isinstance(generator, SeedStream):
         return seeded_dropout(x, p, generator)
-    shard = active_shard()
-    if shard is not None:  # a data mesh's step: this rank's rows of the global draw
-        keep = shard.uniform_rows(x, generator) < (1.0 - p)
-    else:
-        # the mask takes x's memory format, so the select stays one vectorized pass
-        keep = torch.empty_like(x, dtype=torch.float32).uniform_(generator=generator) < (1.0 - p)
+    keep = _uniform(x, generator) < (1.0 - p)
     return torch.where(keep, x / (1.0 - p), 0.0)
 
 

@@ -16,6 +16,10 @@ attention takes the weights route (dropout on the materialized weights, then
 the value product, transformer.py:45-49); otherwise attention goes through
 :func:`~dmf_tpu_torch.ops.attention.scaled_dot_product_attention`, which
 takes the flash kernels on the card at the hybrid stage's 4096 tokens.
+Over a mesh's model axis (``parallel/tensor.py``) ``qkv`` and ``fc1`` are
+column-parallel and ``proj`` and ``fc2`` row-parallel: attention runs on
+this rank's heads, and a dropout on a shard keeps that shard of the mask
+one process draws.
 """
 
 from __future__ import annotations
@@ -27,7 +31,18 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from ..ops.attention import scaled_dot_product_attention
+from ..parallel.tensor import local_heads, model_mesh
 from .layers import dropout
+
+
+def _dropout_of(layer: nn.Module, x: torch.Tensor, p: float, generator, dim: int):
+    """Dropout of ``x``, computed from ``layer``'s output: on a layer sharded
+    over a model axis, ``x`` is this rank's slice along ``dim`` and its mask
+    that slice of the whole one (``layers.dropout``)."""
+    mesh = model_mesh(layer)
+    if mesh is None:
+        return dropout(x, p, generator)
+    return dropout(x, p, generator, mesh, dim)
 
 
 class MultiHeadSelfAttention(nn.Module):
@@ -45,18 +60,20 @@ class MultiHeadSelfAttention(nn.Module):
     def forward(self, x: torch.Tensor, mc: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         B, N, C = x.shape
-        H = self.num_heads
+        D = C // self.num_heads
+        # this rank's heads under tensor parallelism (qkv and proj sharded)
+        H = local_heads(self.qkv, self.num_heads)
         # (B, N, 3, H, D) -> (3, B, H, N, D), as transformer.py:41-43; the
         # flash route copies q, k and v into contiguous tensors
-        q, k, v = self.qkv(x).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
+        q, k, v = self.qkv(x).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
         if mc and self.attn_drop > 0.0:
             # attention-weight dropout needs the materialized weights
             _, w = scaled_dot_product_attention(q, k, v, return_weights=True)
-            w = dropout(w, self.attn_drop, generator)
+            w = _dropout_of(self.qkv, w, self.attn_drop, generator, dim=1)
             out = torch.einsum("bhqk,bhkd->bhqd", w, v)
         else:
             out = scaled_dot_product_attention(q, k, v)
-        out = self.proj(out.transpose(1, 2).reshape(B, N, C))
+        out = self.proj(out.transpose(1, 2).reshape(B, N, H * D))
         return dropout(out, self.proj_drop if mc else 0.0, generator)
 
 
@@ -72,7 +89,9 @@ class MLP(nn.Module):
 
     def forward(self, x, mc: bool = False, generator: Optional[torch.Generator] = None):
         p = self.drop if mc else 0.0
-        x = dropout(F.gelu(self.fc1(x)), p, generator)
+        # fc1's output is this rank's slice of the hidden features under
+        # tensor parallelism: its mask is that slice of the whole one
+        x = _dropout_of(self.fc1, F.gelu(self.fc1(x)), p, generator, dim=-1)
         return dropout(self.fc2(x), p, generator)
 
 

@@ -22,7 +22,9 @@ kernels do.
 What is quantized: every ``nn.Conv2d`` with ``groups == 1``, at least
 ``min_fan_in`` inputs (kh * kw * Cin) and ``min_out`` outputs, except the SE
 blocks' 1x1 convs, which stand for the JAX model's Dense layers
-(``dmf_tpu/models/layers.py:187-189``).
+(``dmf_tpu/models/layers.py:187-189``).  A model sharded over a mesh's model
+axis is not quantized: a :class:`QuantConv2d` has no shard route yet
+(:data:`INT8_TP_TODO`).
 
 Where JAX swaps convs at trace time with a Flax method interceptor, the port
 swaps modules: :func:`quantized_copy` deep-copies a model and puts a
@@ -72,6 +74,10 @@ import torch.nn.functional as F
 #                                "bias": (O,) fp32 where the conv has one,
 #                                "x_scale": () fp32 once calibrated}}
 QuantSet = Dict[str, Dict[str, torch.Tensor]]
+
+# a QuantConv2d has no shard route over a mesh's model axis
+INT8_TP_TODO = ("int8 serving over a mesh's model axis is not ported (ROADMAP 1.13c): "
+                "serve int8 on a data mesh")
 
 
 # ------------------------------------------------------------ plain versions
@@ -205,7 +211,10 @@ def build_quant_set(model: nn.Module, min_fan_in: int = 256, min_out: int = 32) 
     (quant.py:152-153).  The weights must be fp32 (JAX's params are); an
     entry also holds the conv's bias in fp32."""
     from ..models.layers import SEBlock
+    from ..parallel.tensor import parameter_shards
 
+    if parameter_shards(model):
+        raise NotImplementedError(f"a model sharded over a model axis: {INT8_TP_TODO}")
     dense = {id(m) for se in model.modules() if isinstance(se, SEBlock)
              for m in se.fc.modules()}
     out: QuantSet = {}

@@ -1,4 +1,4 @@
-"""The device mesh of the port: the data axis of a ``('data', 'model')`` mesh.
+"""The device mesh of the port: the ``('data', 'model')`` mesh.
 
 Counterpart of ``dmf_tpu/parallel/mesh.py`` (:1-76).  JAX runs one process
 that drives every chip and lets GSPMD insert the collectives; the port runs
@@ -6,8 +6,13 @@ one process a rank (``python -m torch.distributed.run``), a
 ``torch.distributed`` process group and a
 ``torch.distributed.device_mesh.DeviceMesh`` named ``('data', 'model')``.
 Backends: NCCL where every rank has a card of its own, gloo on the CPU and
-where the caller pins several ranks to one card (NCCL refuses that).  Only
-the data axis is ported: a model axis greater than 1 raises (ROADMAP 1.13b).
+where the caller pins several ranks to one card (NCCL refuses that).  The
+ranks are laid out as JAX's ``reshape(n_data, n_model)`` (:34-35): global
+rank ``d * n_model + m`` is data index ``d`` and model index ``m``.  The
+ranks of one data index form its model group (tensor parallelism,
+``parallel/tensor.py``); the ranks of one model index form its data group,
+over which the data axis below runs.  Global rank 0 alone writes files
+(:attr:`Mesh.writer`).
 
 A global batch of ``n`` rows is split over the data ranks in contiguous
 shares of ``ceil(n / n_data)`` rows, the last ones short or empty
@@ -20,7 +25,9 @@ kept (so a mesh run draws what one process draws), each rank's loss as its
 share of the global mean, and the gradients summed over the data group
 (``train/single.py``, ``train/fusion.py``).  The collectives are
 ``all_reduce`` and ``broadcast`` alone, the ones gloo also runs on CUDA
-tensors.
+tensors; the model group's channel gather (:meth:`Mesh.model_gather`) is
+NCCL's all-gather, or under gloo an all-reduce of zeros and each rank's
+slice.
 """
 
 from __future__ import annotations
@@ -36,9 +43,6 @@ import torch.distributed as dist
 DATA_AXIS = "data"
 MODEL_AXIS = "model"
 
-_MODEL_AXIS_TODO = "the model axis (tensor parallelism) is not ported (ROADMAP 1.13b)"
-
-
 def row_shares(n: int, n_data: int) -> List[Tuple[int, int]]:
     """``(start, stop)`` of every data rank's rows of a global batch of
     ``n``: contiguous shares of ``ceil(n / n_data)``, the last short or
@@ -49,11 +53,13 @@ def row_shares(n: int, n_data: int) -> List[Tuple[int, int]]:
 
 
 class Mesh:
-    """A ``('data', 'model')`` mesh of this process group, the model axis 1.
+    """A ``('data', 'model')`` mesh of this process group.
 
-    ``rank`` is this process's index on the data axis, ``device`` its
-    device, ``group`` the data axis's process group, ``shape`` the axes'
-    sizes by name (as ``jax.sharding.Mesh.shape``).
+    ``rank`` is this process's index on the data axis and ``model_rank`` on
+    the model axis, ``device`` its device, ``group`` the data group of its
+    model index (the ranks with the same ``model_rank``), ``model_group``
+    the model group of its data index, ``shape`` the axes' sizes by name (as
+    ``jax.sharding.Mesh.shape``).
     """
 
     def __init__(self, device_mesh, device: torch.device):
@@ -62,12 +68,24 @@ class Mesh:
         self.n_data, self.n_model = (device_mesh.size(0), device_mesh.size(1))
         self.shape = {DATA_AXIS: self.n_data, MODEL_AXIS: self.n_model}
         self.group = device_mesh.get_group(DATA_AXIS)
+        self.model_group = device_mesh.get_group(MODEL_AXIS)
         self.rank = device_mesh.get_local_rank(DATA_AXIS)
+        self.model_rank = device_mesh.get_local_rank(MODEL_AXIS)
         self.backend = dist.get_backend(self.group)
 
     def __repr__(self) -> str:
         return (f"Mesh(data={self.n_data}, model={self.n_model}, rank={self.rank}, "
-                f"device={self.device}, backend={self.backend})")
+                f"model_rank={self.model_rank}, device={self.device}, "
+                f"backend={self.backend})")
+
+    def __deepcopy__(self, memo):
+        # modules hold the mesh: a copy of a model shares its process groups
+        return self
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes files: global rank 0 alone."""
+        return self.rank == 0 and self.model_rank == 0
 
     # ---- rows of a global batch
     def shares(self, n: int) -> List[Tuple[int, int]]:
@@ -98,9 +116,9 @@ class Mesh:
         return t
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-        """``t`` from data rank ``src`` on every rank, in place."""
-        dist.broadcast(t, group_src=src, group=self.group)
-        return t
+        """``t`` from data rank ``src`` on every rank, in place, whatever its
+        dtype."""
+        return exact_broadcast(t, src, self.group)
 
     def broadcast_object(self, obj, src: int = 0):
         """A picklable object from data rank ``src``."""
@@ -110,16 +128,11 @@ class Mesh:
         return box[0]
 
     def barrier(self) -> None:
+        """Every rank of the mesh (the writer's files are then there)."""
         if self.backend == "nccl":
-            dist.barrier(group=self.group, device_ids=[self.device.index])
+            dist.barrier(device_ids=[self.device.index])
         else:
-            dist.barrier(group=self.group)
-
-    def broadcast_module(self, module: torch.nn.Module, src: int = 0) -> None:
-        """Every parameter and buffer of ``module`` from data rank ``src``."""
-        with torch.no_grad():
-            for t in list(module.parameters()) + list(module.buffers()):
-                broadcast_exact(self, t, src)
+            dist.barrier()
 
     def gather_rows(self, t: torch.Tensor, total: int, dim: int = 0) -> torch.Tensor:
         """The global tensor of which ``t`` holds this rank's rows along
@@ -134,6 +147,63 @@ class Mesh:
         full.narrow(dim, start, stop - start).copy_(t)
         return self.all_reduce(full).to(t.dtype)
 
+    # ---- the model group (no autograd: parallel/tensor.py wraps them)
+    def model_all_reduce(self, t: torch.Tensor) -> torch.Tensor:
+        """The sum of ``t`` over the model group, in place."""
+        if self.n_model > 1:
+            dist.all_reduce(t, group=self.model_group)
+        return t
+
+    def model_broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
+        """``t`` from model rank ``src`` on every rank of the model group,
+        in place, whatever its dtype."""
+        if self.n_model > 1:
+            exact_broadcast(t, src, self.model_group)
+        return t
+
+    def model_broadcast_object(self, obj, src: int = 0):
+        """A picklable object from model rank ``src``."""
+        if self.n_model == 1:
+            return obj
+        box = [obj if self.model_rank == src else None]
+        dist.broadcast_object_list(box, group_src=src, group=self.model_group,
+                                   device=self.device if self.backend == "nccl" else None)
+        return box[0]
+
+    def model_gather(self, t: torch.Tensor, dim: int = 1) -> torch.Tensor:
+        """The tensor of which each model rank holds an equal slice along
+        ``dim`` (rank ``m`` the ``m``-th), on every rank, exactly: NCCL's
+        all-gather, or under gloo (which gathers no CUDA tensor) an
+        all-reduce of zeros and each rank's slice.  Keeps ``t``'s memory
+        format."""
+        if self.n_model == 1:
+            return t
+        n = t.shape[dim]
+        shape = list(t.shape)
+        shape[dim] = n * self.n_model
+        fmt = memory_format_of(t)
+        if self.backend == "nccl":
+            parts = t.movedim(dim, 0).contiguous()
+            full = torch.empty((n * self.n_model,) + tuple(parts.shape[1:]), dtype=t.dtype,
+                               device=t.device)
+            dist.all_gather_into_tensor(full, parts, group=self.model_group)
+            out = full.movedim(0, dim)
+        else:
+            out = torch.zeros(shape, dtype=_wire_dtype(t.dtype),
+                              device=t.device).contiguous(memory_format=fmt)
+            out.narrow(dim, self.model_rank * n, n).copy_(t)
+            dist.all_reduce(out, group=self.model_group)
+            out = out.to(t.dtype)
+        return out.contiguous(memory_format=fmt)
+
+
+def memory_format_of(t: torch.Tensor) -> torch.memory_format:
+    """``channels_last`` for a 4-D tensor in that layout (NHWC memory),
+    else the contiguous format."""
+    return (torch.channels_last if t.dim() == 4 and not t.is_contiguous()
+            and t.is_contiguous(memory_format=torch.channels_last)
+            else torch.contiguous_format)
+
 
 def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
     """The dtype a tensor of ``dtype`` is summed in exactly (every rank but
@@ -143,13 +213,14 @@ def _wire_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.int64
 
 
-def broadcast_exact(mesh: Mesh, t: torch.Tensor, src: int = 0) -> torch.Tensor:
-    """``t`` from data rank ``src``, in place, whatever its dtype (a wire
-    copy where the backend has no collective of that dtype)."""
+def exact_broadcast(t: torch.Tensor, src: int, group) -> torch.Tensor:
+    """``t`` from rank ``src`` of ``group``, in place, whatever its dtype (a
+    wire copy where the backend has no collective of that dtype)."""
     if t.dtype == _wire_dtype(t.dtype) and t.is_contiguous():
-        return mesh.broadcast(t, src)
+        dist.broadcast(t, group_src=src, group=group)
+        return t
     buf = t.detach().to(_wire_dtype(t.dtype)).contiguous()
-    mesh.broadcast(buf, src)
+    dist.broadcast(buf, group_src=src, group=group)
     t.copy_(buf)
     return t
 
@@ -242,9 +313,7 @@ class RowShard:
         rank keeps its rows."""
         if like.shape[0] != self.n:
             raise ValueError(f"a draw for {like.shape[0]} rows under a shard of {self.n}")
-        fmt = (torch.channels_last if like.dim() == 4 and not like.is_contiguous()
-               and like.is_contiguous(memory_format=torch.channels_last)
-               else torch.contiguous_format)
+        fmt = memory_format_of(like)
         full = torch.empty((self.total,) + tuple(like.shape[1:]), dtype=torch.float32,
                            device=like.device, memory_format=fmt)
         return full.uniform_(generator=generator)[self.start:self.stop]
@@ -298,7 +367,7 @@ def _rank_device(devices, rank: int, local_rank: int, local_world: int) -> torch
     return torch.device(devices[rank])
 
 
-_MESHES: Dict[tuple, Mesh] = {}
+_MESHES: Dict[tuple, Tuple[object, Mesh]] = {}
 
 
 def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
@@ -313,11 +382,8 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     The process group is initialised from the environment that
     ``torch.distributed.run`` sets, unless it already is.  Raises
     ``ValueError`` when the host has fewer cards than ranks (``devices=None``)
-    or the world size is not ``n_data * n_model``, and ``NotImplementedError``
-    for a model axis greater than 1.
+    or the world size is not ``n_data * n_model``.
     """
-    if n_model != 1:
-        raise NotImplementedError(f"mesh (data {n_data}, model {n_model}): {_MODEL_AXIS_TODO}")
     world = dist.get_world_size() if dist.is_initialized() else _env_int("WORLD_SIZE", 1)
     rank = dist.get_rank() if dist.is_initialized() else _env_int("RANK", 0)
     n_data = world // n_model if n_data is None else n_data
@@ -350,15 +416,19 @@ def make_mesh(n_data: Optional[int] = None, n_model: int = 1,
     if backend == "nccl" and not own_cards:
         raise ValueError("NCCL needs a card of its own for every rank; pin several ranks to "
                          "one card with backend='gloo'")
-    key = (n_data, n_model, str(device), backend)
-    if key in _MESHES:
-        return _MESHES[key]
     if not dist.is_initialized():
         dist.init_process_group(backend, rank=rank, world_size=world)
+    # one mesh per shape, device and process group (a group destroyed and
+    # made anew gets a mesh of its own)
+    key = (n_data, n_model, str(device), backend)
+    hit = _MESHES.get(key)
+    if hit is not None and hit[0] is dist.group.WORLD:
+        return hit[1]
     from torch.distributed.device_mesh import init_device_mesh
 
     dm = init_device_mesh(device.type, (n_data, n_model), mesh_dim_names=(DATA_AXIS, MODEL_AXIS))
-    mesh = _MESHES[key] = Mesh(dm, device)
+    mesh = Mesh(dm, device)
+    _MESHES[key] = (dist.group.WORLD, mesh)
     return mesh
 
 
@@ -385,9 +455,8 @@ def mesh_from_config(cfg, device="cuda") -> Optional[Mesh]:
     kind (a card per rank on ``cuda``; every rank on the CPU on ``cpu``).
 
     ``None`` (the single-process path) for no shape or a 1x1 shape, as the
-    JAX function; raises ``NotImplementedError`` for a model axis greater
-    than 1 and ``ValueError`` when more ranks (or cards) are asked for than
-    exist.
+    JAX function; raises ``ValueError`` when more ranks (or cards) are asked
+    for than exist.
     """
     shape = cfg.parallel.mesh_shape
     if shape is None or shape[0] * shape[1] <= 1:

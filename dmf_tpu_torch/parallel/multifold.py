@@ -18,11 +18,13 @@ So a "stacked" state or batch is the list of the per-fold ones, and
 indexing it is indexing the list.  Metrics come back stacked on a leading
 ``(K,)`` axis, as the vmapped step returns them.
 
-``mesh=`` (a data mesh, ``parallel/mesh.py``) puts the fold axis over the
-data ranks, as JAX's ``shard_map`` over the data axis (:27-33): rank ``r``
-steps (or serves) folds ``r*K/n .. (r+1)*K/n - 1`` of the K it is given
+``mesh=`` (``parallel/mesh.py``) puts the fold axis over the data ranks, as
+JAX's ``shard_map`` over the data axis (:27-33): data rank ``r`` steps (or
+serves) folds ``r*K/n .. (r+1)*K/n - 1`` of the K it is given
 (``Mesh.folds``; K must be a multiple of the data axis's size) and no
-others, with no collective: folds never communicate.  A fold's state,
+others, with no collective: folds never communicate.  Over a model axis the
+model ranks of a data rank step its folds alike, whole (``P('data')``
+replicates them over the model axis).  A fold's state,
 metrics and outputs are those of its owner rank (``Mesh.fold_owner``); the
 other ranks' entries for it are NaN, as an inactive fold's metrics.
 """

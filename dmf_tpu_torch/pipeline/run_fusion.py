@@ -8,9 +8,10 @@ Counterpart of ``dmf_tpu/pipeline/run_fusion.py`` (the reference's
 trained encoders live: the card, unless the single-modality runs were asked
 for the CPU.  ``int8=True`` serves the test on the post-training-quantized
 convs (``ops/quant.py``), calibrated on the validation split.  Where
-``cfg.parallel.mesh_shape`` asks for a data mesh, the run builds it
-(``mesh_from_config``, as the JAX one does) and trains and tests over it;
-rank 0 writes ``metrics.json`` and the per-fold store.
+``cfg.parallel.mesh_shape`` asks for a mesh, the run builds it
+(``mesh_from_config``, as the JAX one does) and trains and tests over it
+(sharded over a model axis); global rank 0 writes ``metrics.json`` and the
+per-fold store (the whole parameters).
 """
 
 from __future__ import annotations
@@ -31,6 +32,7 @@ from ..losses import get_classification_loss_fn
 from ..models.build import init_weights
 from ..models.fusion import FusionModel
 from ..parallel.mesh import Mesh, mesh_from_config
+from ..parallel.sharding import full_parameters
 from ..train.fusion import FusionNetwork
 from ..train.loop import fit_fusion
 from ..train.state import TrainState
@@ -93,8 +95,10 @@ def test_fusion_model(cfg: Config, state: TrainState, test_data: Dict[str, np.nd
     volumes, so the test split never shapes the served model's quantization;
     the test split is the last resort), with MC dropout on in ``mc`` /
     ``tta_mc`` from a generator seeded ``seed + 1`` (run_fusion.py:110-165).
-    ``mesh``: each batch served over the data mesh (``evals/predict.py``),
-    the int8 forward included (the calibration runs on every rank alike)."""
+    ``mesh``: each batch served over the mesh (``evals/predict.py``; over a
+    model axis the state's models are sharded in place), the int8 forward
+    included on a data mesh (the calibration runs on every rank alike); int8
+    over a model axis raises ``NotImplementedError`` (ROADMAP 1.13c)."""
     t_start = time.time()
     net = state.model
     device = next(net.parameters()).device
@@ -162,10 +166,11 @@ def run_fusion_model(cfg: Config, fold: int, dwi_results: Dict[str, Any],
                                     calibration_data=fusion_data["val"], mesh=mesh)
     save_metrics_json(paths["metrics"], fit.train_metrics, test_result["metrics"],
                       parameters=to_reference_dict(cfg), mesh=mesh)
-    # the per-fold store of the best parameters (run_training.py:317-326)
-    if mesh is None or mesh.rank == 0:
-        torch.save({n: p.detach() for n, p in best_state.model.named_parameters()},
-                   os.path.join(paths["checkpoints"], f"fusion_fold{fold}.pt"))
+    # the per-fold store of the best parameters (run_training.py:317-326),
+    # whole (gathered by every rank over a model axis)
+    params = full_parameters(best_state.model)
+    if mesh is None or mesh.writer:
+        torch.save(params, os.path.join(paths["checkpoints"], f"fusion_fold{fold}.pt"))
     if mesh is not None:
         mesh.barrier()
     net = best_state.model

@@ -5,10 +5,10 @@ Counterpart of ``dmf_tpu/pipeline/run_single.py`` (:39-172; the reference's
 ``run_single_model``, run_training.py:20-178, and its test path,
 train.py:736-823), and of its fold-parallel ``run_single_model_multifold``
 (:175-249).  The work runs on ``device``, the card unless the caller asks
-for the CPU.  Where ``cfg.parallel.mesh_shape`` asks for a data mesh, the
-runs build it (``mesh_from_config``, as the JAX ones do) and train and test
-over it, each rank on its own device; rank 0 writes ``metrics.json`` and the
-processed splits.
+for the CPU.  Where ``cfg.parallel.mesh_shape`` asks for a mesh, the runs
+build it (``mesh_from_config``, as the JAX ones do) and train and test over
+it (sharded over a model axis), each rank on its device; global rank 0
+writes ``metrics.json`` and the processed splits.
 """
 
 from __future__ import annotations
@@ -42,7 +42,7 @@ def test_single_model(cfg: Config, state: TrainState, data: SingleModelData,
     ``cfg.batch_size``, macro metrics, per-class accuracy, the mean
     uncertainty, the modality attention averaged per batch.  Dropout draws
     come from a generator seeded with ``seed`` on the model's device.
-    ``mesh``: each batch served over the data mesh (``evals/predict.py``)."""
+    ``mesh``: each batch served over the mesh (``evals/predict.py``)."""
     model = state.model
     device = next(model.parameters()).device
     predictor = make_single_predictor(cfg, model, mesh=mesh)
@@ -81,7 +81,7 @@ def run_single_model(cfg: Config, method: str, fold: int,
     and final states, the train and test metrics, and the data and history
     the fusion stage consumes.  ``state`` (with its model) replaces the
     built one; ``device`` is where the model and the data's work live (each
-    rank's own device under a data mesh)."""
+    rank's own device under a mesh)."""
     mesh = mesh_from_config(cfg, device)
     device = mesh.device if mesh is not None else device
     paths = prepare_output_paths(method, fold, base_dir)
@@ -146,7 +146,7 @@ def _finish_single(cfg: Config, paths: Dict[str, str], data: SingleModelData,
                    fit: FitResult, export_splits: bool, seed: int,
                    mesh: Optional[Mesh] = None) -> Dict[str, Any]:
     """A fitted fold's best reload, test, ``metrics.json`` and processed
-    splits (rank 0's under a data mesh); returns the reference's result
+    splits (global rank 0's under a mesh); returns the reference's result
     dict."""
     # best-checkpoint reload for testing (run_training.py:123-131)
     best_state = fit.best_state if fit.best_state is not None else fit.state
@@ -154,7 +154,7 @@ def _finish_single(cfg: Config, paths: Dict[str, str], data: SingleModelData,
     save_metrics_json(paths["metrics"], fit.train_metrics, test_result["metrics"],
                       parameters=to_reference_dict(cfg), mesh=mesh)
     if export_splits:
-        if mesh is None or mesh.rank == 0:
+        if mesh is None or mesh.writer:
             export_processed_splits(cfg, data, torch.Generator(data.processor.device)
                                     .manual_seed(seed))
         if mesh is not None:

@@ -38,7 +38,8 @@ from ..evals.predict import to_model
 from ..losses import compute_recon_list_loss, label_smoothing, mimic_feat_loss, safe_mask_loss
 from ..parallel.mesh import RowShard, active_shard
 from ..parallel.sharding import reduce_gradients
-from .optim import GroupSpec, GroupedHyperParams, adamw_update, count_nonfinite, global_norm
+from .optim import (GroupSpec, GroupedHyperParams, adamw_update, count_nonfinite, global_norm,
+                    model_shards)
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -151,8 +152,9 @@ def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
     (dropout masks from ``generator``), the gradient of every parameter
     (zeros where the loss does not reach), the norms of all of them and of
     each part, the grouped AdamW update in place.  Under a data mesh's
-    :class:`~..parallel.mesh.RowShard` the step is the global batch's, as
-    ``make_single_train_step``'s."""
+    :class:`~..parallel.mesh.RowShard` the step is the global batch's, and
+    on a model sharded over a model axis the norms are the whole model's,
+    as ``make_single_train_step``'s."""
     opt = cfg.fusion_model.optimizer
     b1, b2 = opt.betas
 
@@ -173,11 +175,12 @@ def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
             # the loss is already this rank's share; the pair mimic is global
             metrics = shard.reduce_metrics(metrics, summed=("loss",),
                                            replicated=("mimic_loss",))
-        metrics["grad_norm"] = global_norm(list(grads.values()))
+        shards = model_shards(net)
+        metrics["grad_norm"] = global_norm(grads, shards)
         for part in PARTS:
             metrics[f"{part}_grad_norm"] = global_norm(
-                [g for n, g in grads.items() if n.startswith(part + ".")])
-        metrics["grad_nonfinite"] = count_nonfinite(list(grads.values()))
+                {n: g for n, g in grads.items() if n.startswith(part + ".")}, shards)
+        metrics["grad_nonfinite"] = count_nonfinite(grads, shards)
         adamw_update(params, grads, state.opt_state, spec, hp, b1=b1, b2=b2, eps=opt.eps)
         state.step += 1
         return {k: v.detach() for k, v in metrics.items()}

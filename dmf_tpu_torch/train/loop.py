@@ -1,6 +1,6 @@
 """Epoch loops of single-modality and fusion training, counterparts of
 ``dmf_tpu/train/loop.py::fit_single`` (:106-363) and ``fit_fusion``
-(:365-593), on one process or over a data mesh (``mesh=``, JAX's
+(:365-593), on one process or over a mesh (``mesh=``, JAX's
 ``_setup_spmd``, :60-92).  ``cfg.use_native_loader`` takes the train
 batches of a split that is not staged on the card from the native loader, as
 the JAX loops do (:225, :466).
@@ -24,15 +24,17 @@ in ``FitResult.step_ms``, read at each epoch's end with the step metrics.
 Fusion batches come processed: their preparation is the batch dict alone.
 
 With ``mesh=`` (a :class:`~..parallel.mesh.Mesh`; ``cfg.batch_size`` must
-divide over its data axis) the state is replicated from rank 0, each rank
-takes and prepares its rows of every global batch and steps them under a
-:class:`~..parallel.mesh.RowShard` (the global batch's step,
-``parallel/mesh.py``); the validation metrics are the global ones (loss and
-accuracy sums over the data group, the AUC and the report on the gathered
-probabilities), so the control plane (early stopping, plateau, unfreeze,
-scheduler, best checkpoint) decides alike on every rank.  Only rank 0
-writes checkpoints, logs and triptychs (a barrier after each); every rank
-keeps the best state.
+divide over its data axis) the state is placed on the mesh
+(``parallel/sharding.py::shard_state``: replicated from data rank 0, and
+sharded over a model axis), each rank takes and prepares its rows of every
+global batch and steps them under a :class:`~..parallel.mesh.RowShard`
+(the global batch's step, ``parallel/mesh.py``); the validation metrics are
+the global ones (loss and accuracy sums over the data group, the AUC and
+the report on the gathered probabilities), so the control plane (early
+stopping, plateau, unfreeze, scheduler, best checkpoint) decides alike on
+every rank.  Only global rank 0 writes checkpoints (the whole state,
+gathered over the model axis), logs and triptychs (a barrier after each);
+every rank keeps the best state, in its shards.
 """
 
 from __future__ import annotations
@@ -115,7 +117,7 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     seeded from ``seed``; the shuffle is ``np.random.RandomState(seed)``, the
     JAX loop's order.  Every ``viz_every`` epochs (0: never) the mask
     triptych of the first validation sample is drawn.  ``mesh``: train over
-    a data mesh (the module's docstring).
+    a mesh (the module's docstring).
     """
     run = single_fit_run(cfg, method, state, train_data, val_data, processor, controller,
                          workdir, clf_loss_fn, num_epochs, min_epochs, seed, resume_from,
@@ -160,12 +162,13 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
             proc["masks"] = batch["masks"]
         return proc, proc["imgs"]
 
-    def draw(path: str, title: str) -> None:
+    def draw(path: str, title: str, write: bool = True) -> None:
         with torch.no_grad():
             _, _, mask_pred = model(to_model(val_imgs[:1], model))
-        visualize_mask_triplet(_host(val_imgs[0]), _host(val_data["masks"][0]),
-                               _host(mask_pred[0].permute(1, 2, 0)), path,
-                               title_prefix=f"{title}, sample: ")
+        if write:
+            visualize_mask_triplet(_host(val_imgs[0]), _host(val_data["masks"][0]),
+                                   _host(mask_pred[0].permute(1, 2, 0)), path,
+                                   title_prefix=f"{title}, sample: ")
 
     drawn = viz_every if mc.mask.enabled and val_data.get("masks") is not None else 0
     return FitRun(cfg, mc.scheduler, mc.optimizer.lr, state, spec, controller,
@@ -190,8 +193,8 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     from ``seed``; the shuffle is ``np.random.RandomState(seed)``.  Every
     ``viz_every`` epochs (0: never) the fused mask head's triptych of the
     first validation sample is drawn (the hook the reference leaves
-    single-model-only, train.py:706-714).  ``mesh``: train over a data mesh
-    (the module's docstring).
+    single-model-only, train.py:706-714).  ``mesh``: train over a mesh (the
+    module's docstring).
     """
     fp = cfg.fusion_model
     if clf_loss_fn is None:
@@ -206,14 +209,15 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     def prepare(batch):
         return batch, batch["dwi"]
 
-    def draw(path: str, title: str) -> None:
+    def draw(path: str, title: str, write: bool = True) -> None:
         net = state.model
         with torch.no_grad():
             _, fused_mask, _, _ = net(to_model(val_data["dwi"][:1], net),
                                       to_model(val_data["dce"][:1], net))
-        visualize_mask_triplet(_host(val_data["dwi"][0]), _host(val_data["masks"][0]),
-                               _host(fused_mask[0].permute(1, 2, 0)), path,
-                               title_prefix=f"{title}, fused mask: ")
+        if write:
+            visualize_mask_triplet(_host(val_data["dwi"][0]), _host(val_data["masks"][0]),
+                                   _host(fused_mask[0].permute(1, 2, 0)), path,
+                                   title_prefix=f"{title}, fused mask: ")
 
     drawn = viz_every if fp.mask.enabled and val_data.get("masks") is not None else 0
     run = FitRun(cfg, fp.scheduler, fp.optimizer.lr, state, spec, FusionOptController(cfg),
@@ -232,8 +236,9 @@ class FitRun:
     ``prepare(batch) -> (step batch, the inputs whose statistics the first
     batch prints)``.  Dropout draws from a generator on the model's device
     seeded with ``seed + 1``; the shuffle is ``np.random.RandomState(seed)``.
-    ``draw(path, title)`` writes the mask triptych at the epochs that are
-    multiples of ``viz_every`` (0: never).  ``mesh``: train over a data
+    ``draw(path, title, write)`` runs the forward of the mask triptych at the
+    epochs that are multiples of ``viz_every`` (0: never) on every rank and
+    writes it where ``write``.  ``mesh``: train over a data
     mesh (the module's docstring).
     """
 
@@ -247,7 +252,7 @@ class FitRun:
                                                                       state, controller)
         self.mesh = mesh
         # the rank that writes checkpoints, logs and triptychs
-        self.writer = mesh is None or mesh.rank == 0
+        self.writer = mesh is None or mesh.writer
         self.workdir, self.draw, self.viz_every = workdir, draw, viz_every
         self.train_step, self.eval_step, self.prepare = train_step, eval_step, prepare
         self.train_ds, self.val_ds = train_ds, val_ds
@@ -392,8 +397,10 @@ class FitRun:
 
         # ---- the mask triptych (train.py:706-714), outside the timed steps ----
         if self.draw is not None and self.viz_every and epoch % self.viz_every == 0:
-            if self.writer:
-                self.draw(f"{self.workdir}/viz/epoch_{epoch:04d}.png", f"Epoch {epoch}")
+            # every rank runs the forward (a sharded model's needs its model
+            # group), the writer draws
+            self.draw(f"{self.workdir}/viz/epoch_{epoch:04d}.png", f"Epoch {epoch}",
+                      self.writer)
             if self.mesh is not None:
                 self.mesh.barrier()
 

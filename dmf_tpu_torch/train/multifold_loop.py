@@ -21,9 +21,11 @@ steps ``WarmupCosine`` once an epoch (:289-290) where its ``fit_single``
 steps it once a step, and it writes no rolling checkpoint (ROADMAP 3.6).
 
 ``mesh=`` puts the folds on the data ranks (``parallel/multifold.py``): each
-rank drives its own folds alone, writing their files, then every fold's
-result (final and best states, history) is broadcast from its owner, so
-that every rank returns all K.
+data rank drives its own folds alone (on model rank 0, writing their files),
+then every fold's result (final and best states, history) is broadcast from
+its owner over the data axis and from model rank 0 over the model axis, so
+that every rank returns all K, whole (a fold is not sharded over the model
+axis, as JAX's ``shard_map`` over ``P('data')`` replicates it there).
 """
 
 from __future__ import annotations
@@ -34,8 +36,8 @@ import numpy as np
 
 from ..config import Config
 from ..data.modality import ModalityProcessor
-from ..parallel.mesh import Mesh
-from ..parallel.sharding import shard_state
+from ..parallel.mesh import DATA_AXIS, MODEL_AXIS, Mesh
+from ..parallel.sharding import replicate_state
 from .loop import FitResult, drive_lockstep, single_fit_run
 from .optim import SingleModelOptController
 from .state import TrainState
@@ -63,26 +65,37 @@ def fit_single_multifold(cfg: Config, method: str, states: Sequence[TrainState],
                          "controller and workdir per fold")
     if len({id(s.model) for s in states}) != k:
         raise ValueError("fit_single_multifold: each fold needs its own model")
+    # model rank 0 of each data rank drives its folds
+    lead = mesh is None or mesh.model_rank == 0
     owned = mesh.folds(k) if mesh is not None else range(k)
     mine = drive_lockstep([
         single_fit_run(cfg, method, states[i], fold_train[i], fold_val[i], processors[i],
                        controllers[i], workdirs[i], num_epochs=num_epochs,
                        min_epochs=min_epochs, seed=seed)
-        for i in owned])
+        for i in (owned if lead else ())])
     if mesh is None:
         return mine
-    results = []
-    for i in range(k):
-        src = mesh.fold_owner(i, k)
-        fit = mine[owned.index(i)] if i in owned else None
-        history, step_ms, has_best = mesh.broadcast_object(
+
+    def spread(i, fit, src, axis, bcast_object):
+        """Fold ``i``'s result from rank ``src`` of ``axis`` (``fit`` there,
+        ``None`` elsewhere)."""
+        history, step_ms, has_best = bcast_object(
             (fit.history, fit.step_ms, fit.best_state is not None) if fit else None, src)
         if fit is None:
             best = states[i].copy() if has_best else None
             fit = FitResult(state=states[i], best_state=best, history=history,
                             train_metrics=history[-1] if history else {}, step_ms=step_ms)
-        shard_state(fit.state, mesh, src)
+        replicate_state(fit.state, mesh, src, axis)
         if has_best:
-            shard_state(fit.best_state, mesh, src)
+            replicate_state(fit.best_state, mesh, src, axis)
+        return fit
+
+    results = []
+    for i in range(k):
+        fit = mine[owned.index(i)] if lead and i in owned else None
+        if lead:
+            fit = spread(i, fit, mesh.fold_owner(i, k), DATA_AXIS, mesh.broadcast_object)
+        if mesh.n_model > 1:
+            fit = spread(i, fit if lead else None, 0, MODEL_AXIS, mesh.model_broadcast_object)
         results.append(fit)
     return results

@@ -29,6 +29,7 @@ import numpy as np
 import torch
 
 from ..config import Config
+from ..parallel.tensor import parameter_shards, sharding_mesh
 
 # ---------------------------------------------------------------------------
 # Param grouping (selector_helpers.py:156-181)
@@ -200,38 +201,69 @@ def adamw_update(params: Dict[str, torch.Tensor], grads: Dict[str, Optional[torc
         torch._foreach_add_(p, upd, alpha=-lr)
 
 
-def _sq_norms(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
-    return torch.stack(torch._foreach_norm([t.float() for t in tensors])) ** 2
+class ModelShards(NamedTuple):
+    """The parameters of a model that are shards over a mesh's model axis:
+    the norms and counts below sum their gradients' terms over the model
+    group and count the replicated ones once (``parallel/tensor.py``)."""
+
+    mesh: object
+    names: frozenset
 
 
-def global_norm(grads: Sequence[torch.Tensor]) -> torch.Tensor:
-    """L2 norm over every gradient (a device scalar)."""
-    return _sq_norms(grads).sum().sqrt()
+def model_shards(model: torch.nn.Module) -> Optional[ModelShards]:
+    """The :class:`ModelShards` of a model sharded over a mesh's model axis,
+    ``None`` for a whole one."""
+    mesh = sharding_mesh(model)
+    return None if mesh is None else ModelShards(mesh, frozenset(parameter_shards(model)))
 
 
-def group_grad_norms(grads: Dict[str, Optional[torch.Tensor]],
-                     spec: GroupSpec) -> Dict[str, torch.Tensor]:
+def _total(per_leaf: torch.Tensor, names: Sequence[str],
+           shards: Optional[ModelShards]) -> torch.Tensor:
+    """The sum of per-gradient terms: the shards' summed over the model
+    group, the replicated gradients' once."""
+    sharded = [n in shards.names for n in names] if shards is not None else []
+    if not any(sharded):
+        return per_leaf.sum()
+    flags = torch.tensor(sharded, device=per_leaf.device)
+    part = torch.where(flags, per_leaf, 0).sum()
+    shards.mesh.model_all_reduce(part)
+    return torch.where(flags, 0, per_leaf).sum() + part
+
+
+def global_norm(grads: Dict[str, torch.Tensor],
+                shards: Optional[ModelShards] = None) -> torch.Tensor:
+    """L2 norm over every gradient, by parameter name (a device scalar)."""
+    sq = torch.stack(torch._foreach_norm([t.float() for t in grads.values()])) ** 2
+    return _total(sq, list(grads), shards).sqrt()
+
+
+def group_grad_norms(grads: Dict[str, Optional[torch.Tensor]], spec: GroupSpec,
+                     shards: Optional[ModelShards] = None) -> Dict[str, torch.Tensor]:
     """Per-group gradient norms, keyed ``grad_norm_<group name>`` (the
     reference's backbone-only norm, train.py:825-862); excluded parameters
     count in no group."""
     out = {}
     for gid in range(spec.num_groups):
-        g = [grads[n] for n in spec.members(gid) if grads.get(n) is not None]
+        g = {n: grads[n] for n in spec.members(gid) if grads.get(n) is not None}
         if g:
-            out[f"grad_norm_{spec.names[gid]}"] = global_norm(g)
+            out[f"grad_norm_{spec.names[gid]}"] = global_norm(g, shards)
     return out
 
 
-def count_nonfinite(grads: Sequence[torch.Tensor]) -> torch.Tensor:
+def count_nonfinite(grads: Dict[str, torch.Tensor],
+                    shards: Optional[ModelShards] = None) -> torch.Tensor:
     """Non-finite gradient entries (train.py:229-233)."""
-    return sum((~torch.isfinite(g)).sum() for g in grads)
+    return _total(torch.stack([(~torch.isfinite(g)).sum() for g in grads.values()]),
+                  list(grads), shards)
 
 
-def clip_by_global_norm(grads: Sequence[torch.Tensor], max_norm: float) -> torch.Tensor:
+def clip_by_global_norm(grads: Dict[str, torch.Tensor], max_norm: float,
+                        shards: Optional[ModelShards] = None) -> torch.Tensor:
     """Scale ``grads`` in place to a global norm of at most ``max_norm``;
     returns the norm before clipping."""
-    norm = global_norm(grads)
-    torch._foreach_mul_(list(grads), torch.clamp(max_norm / norm.clamp(min=1e-12), max=1.0))
+    norm = global_norm(grads, shards)
+    torch._foreach_mul_(list(grads.values()),
+                        torch.clamp(max_norm / norm.clamp(min=1e-12), max=1.0))
     return norm
 
 

@@ -30,7 +30,7 @@ from ..losses import (compute_attn_energy_loss, compute_feat_norm_loss,
                       compute_feature_consistency_loss, label_smoothing,
                       mimic_feat_loss, single_model_recon_loss)
 from .optim import (GroupSpec, GroupedHyperParams, adamw_update, clip_by_global_norm,
-                    count_nonfinite, global_norm, group_grad_norms)
+                    count_nonfinite, global_norm, group_grad_norms, model_shards)
 from .state import TrainState
 
 Metrics = Dict[str, torch.Tensor]
@@ -113,7 +113,10 @@ def make_single_train_step(cfg: Config, method: str, clf_loss_fn: Callable,
     Under a data mesh's :class:`~..parallel.mesh.RowShard` (``batch`` this
     rank's rows) the loss is this rank's share of the global batch's mean,
     the gradients are summed over the data group before the norms, the clip
-    and the update, and the metrics are the global batch's."""
+    and the update, and the metrics are the global batch's.  On a model
+    sharded over a mesh's model axis (``parallel/tensor.py``) the update
+    runs on this rank's shards and the norms, the clip and the non-finite
+    count sum the shards over the model group."""
     mc = cfg.model_config(method)
     use_clip = (not cfg.reference_compat) and mc.grad_clip and mc.grad_clip > 0
     b1, b2 = mc.optimizer.betas
@@ -134,15 +137,16 @@ def make_single_train_step(cfg: Config, method: str, clf_loss_fn: Callable,
         # and the excluded ones count in the norms)
         grads = dict(zip(params, torch.autograd.grad(loss, list(params.values()),
                                                      allow_unused=True)))
-        present = [g for g in grads.values() if g is not None]
+        present = {n: g for n, g in grads.items() if g is not None}
         if shard is not None:
-            reduce_gradients(present, shard.mesh)
+            reduce_gradients(list(present.values()), shard.mesh)
             metrics = shard.reduce_metrics(metrics)
-        metrics["grad_norm"] = global_norm(present)
-        metrics.update(group_grad_norms(grads, spec))
-        metrics["grad_nonfinite"] = count_nonfinite(present)
+        shards = model_shards(model)
+        metrics["grad_norm"] = global_norm(present, shards)
+        metrics.update(group_grad_norms(grads, spec, shards))
+        metrics["grad_nonfinite"] = count_nonfinite(present, shards)
         if use_clip:
-            clip_by_global_norm(present, mc.grad_clip)
+            clip_by_global_norm(present, mc.grad_clip, shards)
         adamw_update(params, grads, state.opt_state, spec, hp, b1=b1, b2=b2,
                      eps=mc.optimizer.eps)
         state.step += 1

@@ -6,9 +6,11 @@ step); counterpart of ``dmf_tpu/utils/checkpoint.py``.
 mode='max')`` with its best reload (run_training.py:93-99, 123-131);
 ``RollingSaver`` the rolling resume file; ``load_checkpoint`` restores either,
 or the weights of a reference PyTorch/Lightning checkpoint (whose optimizer
-state stays fresh, prepare_single_model.py:208-218).  Over a data mesh
-(``mesh=``) only rank 0 writes, and every rank waits for the file at a
-barrier.
+state stays fresh, prepare_single_model.py:208-218).  Over a mesh
+(``mesh=``) only global rank 0 writes, and every rank waits for the file at
+a barrier.  A file holds the whole state: a state sharded over a model axis
+is gathered first (every rank takes part), and is cut to its shards again
+when it is loaded.
 """
 
 from __future__ import annotations
@@ -20,18 +22,24 @@ from typing import TYPE_CHECKING, Optional
 import torch
 
 from ..models.weights import load_reference_state_dict
+from ..parallel.sharding import full_state_dict, shard_state_dict
 
 if TYPE_CHECKING:  # the train package imports this module
     from ..train.state import TrainState
 
 
-def save_state(path: str, state: TrainState) -> None:
-    torch.save(state.state_dict(), path)
+def save_state(path: str, state: TrainState, write: bool = True) -> None:
+    """Write the whole state (``parallel/sharding.py::full_state_dict``:
+    a collective for a sharded state, so every rank calls it) where
+    ``write``."""
+    sd = full_state_dict(state)
+    if write:
+        torch.save(sd, path)
 
 
 def _writes(mesh) -> bool:
-    """Whether this process writes: always alone, rank 0 over a data mesh."""
-    return mesh is None or mesh.rank == 0
+    """Whether this process writes: always alone, global rank 0 over a mesh."""
+    return mesh is None or mesh.writer
 
 
 def _wait(mesh) -> None:
@@ -63,8 +71,8 @@ class BestCheckpointer:
         if value is None or not self._improved(float(value)):
             return False
         self.best = float(value)
+        save_state(self.best_path, state, _writes(self.mesh))
         if _writes(self.mesh):
-            save_state(self.best_path, state)
             with open(os.path.join(self.directory, "best.json"), "w") as f:
                 json.dump({"epoch": epoch, self.monitor: self.best}, f)
         _wait(self.mesh)
@@ -82,8 +90,7 @@ class RollingSaver:
         self.path = os.path.join(self.directory, f"{name}.pt")
 
     def save(self, state: TrainState) -> None:
-        if _writes(self.mesh):
-            save_state(self.path, state)
+        save_state(self.path, state, _writes(self.mesh))
         _wait(self.mesh)
 
 
@@ -96,5 +103,5 @@ def load_checkpoint(path: str, state: TrainState) -> TrainState:
     if path.endswith((".ckpt", ".pth")):
         load_reference_state_dict(state.model, obj.get("state_dict", obj))
     else:
-        state.load_state_dict(obj)
+        state.load_state_dict(shard_state_dict(obj, state.model))
     return state

@@ -25,7 +25,7 @@ class MetricLogger:
     def __init__(self, log_dir: str, name: str = "metrics", mesh=None):
         self.log_dir = os.path.abspath(log_dir)
         self.mesh = mesh
-        if mesh is None or mesh.rank == 0:
+        if mesh is None or mesh.writer:
             os.makedirs(self.log_dir, exist_ok=True)
         self.jsonl_path = os.path.join(self.log_dir, f"{name}.jsonl")
         self.history: List[Dict[str, Any]] = []
@@ -40,7 +40,7 @@ class MetricLogger:
             else:
                 record[k] = float(v)
         self.history.append(record)
-        if self.mesh is None or self.mesh.rank == 0:
+        if self.mesh is None or self.mesh.writer:
             with open(self.jsonl_path, "a") as f:
                 f.write(json.dumps(record) + "\n")
         if self.mesh is not None:
@@ -51,8 +51,8 @@ def save_metrics_json(path: str, train_metrics: Dict[str, Any],
                       test_metrics: Dict[str, Any],
                       parameters: Optional[Dict[str, Any]] = None, mesh=None) -> None:
     """Final per-run metrics file (run_training.py:392-407), written by
-    rank 0 alone over a data ``mesh``."""
-    if mesh is not None and mesh.rank != 0:
+    global rank 0 alone over a ``mesh``."""
+    if mesh is not None and not mesh.writer:
         mesh.barrier()
         return
 

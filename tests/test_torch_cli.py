@@ -14,8 +14,9 @@ geometry (32^2, channels (8, 16, 32), no backbone, batch 8).
 * ``run --parallel-folds --folds 0 1`` gives the sequential run's summary,
   ``metrics.json`` (wall times aside) and best checkpoints, bit for bit.
 * ``--device`` defaults to ``cuda`` and does not fall back to the CPU;
-  a ``--mesh`` with a model axis raises; ``bench`` is not registered, ``export-serving`` needs
-  its ``--out`` (its runs are in ``test_torch_serving.py``).
+  ``bench`` is not registered, ``export-serving`` needs its ``--out`` (its
+  runs are in ``test_torch_serving.py``); ``--mesh`` runs in
+  ``test_torch_mesh_run.py`` and ``test_torch_tp_fit.py``.
 """
 
 import contextlib
@@ -204,16 +205,6 @@ def test_device_defaults_to_cuda_without_fallback(monkeypatch):
         cli.main(["run", "--tiny", "--folds", "0"])
     with pytest.raises(RuntimeError, match="no CUDA device"):
         cli.main(["debug-suite", "--tiny"])
-
-
-@pytest.mark.parametrize("argv,item", [(["--mesh", "2x2"], "1.13")])
-def test_unported_options_raise(argv, item):
-    """A mesh with a model axis raises (ROADMAP 1.13b); ``--mesh N`` with a
-    data axis alone runs (``test_torch_mesh_run.py``).  ``--parallel-folds``
-    over several folds raised here (ROADMAP 1.6) until fold-parallel training
-    was ported: it runs in ``test_parallel_folds_equal_sequential_folds``."""
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        cli.main(["run", "--tiny", "--device", "cpu", "--folds", "0"] + argv)
 
 
 def test_parallel_folds_equal_sequential_folds(tmp_path):

@@ -4,7 +4,8 @@ fp32 at toy geometry (32^2, channels (8, 16, 32), no backbone), held against
 the port's single-process runs and the JAX package's mesh on the 8 virtual
 devices of ``tests/conftest.py``:
 
-* ``mesh_from_config``, the row shares and the CLI's mesh errors;
+* ``mesh_from_config``, the row shares and the CLI's mesh errors (a model
+  axis forms where the ranks are: ``test_torch_tp*.py``);
 * the data-parallel fusion step (``make_spmd_step``) at 2 and 4 ranks, ResLite
   dropout 0.2, batches of 8, 8 and a tail of 2 (shares 1, 1, 0, 0 at 4
   ranks): the global batch's step, the pair mimic across ranks and 0 on the
@@ -76,7 +77,8 @@ def test_mesh_from_config_and_shares():
     assert mesh_from_config(shaped((1, 1)), "cpu") is None
     with pytest.raises(ValueError, match="needs 2 ranks, have 1"):
         mesh_from_config(shaped((2, 1)), "cpu")
-    with pytest.raises(NotImplementedError, match="ROADMAP 1.13b"):
+    # a model axis forms where the ranks are (test_torch_tp*.py)
+    with pytest.raises(ValueError, match="needs 4 ranks, have 1"):
         mesh_from_config(shaped((2, 2)), "cpu")
     if not torch.cuda.is_available():
         with pytest.raises(ValueError, match="needs 2 cards on this host, have 0"):
@@ -90,7 +92,7 @@ def test_mesh_from_config_and_shares():
 
 
 @pytest.mark.parametrize("mesh,error,match", [("8", ValueError, "needs 8 ranks, have 1"),
-                                              ("4x2", NotImplementedError, "ROADMAP 1.13b")])
+                                              ("4x2", ValueError, "needs 8 ranks, have 1")])
 def test_cli_mesh_that_cannot_form_raises(mesh, error, match):
     with pytest.raises(error, match=match):
         cli.main(["run", "--tiny", "--device", "cpu", "--folds", "0", "--mesh", mesh])

@@ -1,12 +1,14 @@
-"""Rank programs of the data-mesh tests (``test_torch_mesh*.py``).
+"""Rank programs of the mesh tests (``test_torch_mesh*.py``,
+``test_torch_tp*.py``).
 
 :func:`spawn` runs one of :data:`JOBS` on N gloo ranks on the CPU, each a
 process of its own (``torch.multiprocessing.spawn``) that joins a process
 group through a ``file://`` store under the test's temporary directory (so
 that pytest-xdist workers never share a port) and builds
-``make_mesh(N, 1, devices="cpu")``.  The jobs import the port alone; each
-also runs with ``mesh=None``, the single-process run the tests hold the
-mesh's against.
+``make_mesh(N / M, M, devices="cpu")`` (M the model axis, 1 by default).
+The jobs import the port alone; each also runs with ``mesh=None``, the
+single-process run the tests hold the mesh's against.  States come back
+whole (a model sharded over the model axis is gathered).
 """
 
 import os
@@ -17,18 +19,18 @@ import torch.distributed as dist
 import torch.multiprocessing as mp
 
 
-def spawn(tmp, world, job, **payload):
-    """``JOBS[job](mesh, **payload)`` on ``world`` ranks; returns each
-    rank's result."""
+def spawn(tmp, world, job, n_model=1, **payload):
+    """``JOBS[job](mesh, **payload)`` on ``world`` ranks, ``n_model`` on the
+    model axis; returns each (global) rank's result."""
     tmp = str(tmp)
     os.makedirs(tmp, exist_ok=True)
     torch.save(payload, os.path.join(tmp, "payload.pt"))
-    mp.spawn(_rank_main, args=(world, tmp, job), nprocs=world, join=True)
+    mp.spawn(_rank_main, args=(world, tmp, job, n_model), nprocs=world, join=True)
     return [torch.load(os.path.join(tmp, f"out{r}.pt"), weights_only=False)
             for r in range(world)]
 
 
-def _rank_main(rank, world, tmp, job):
+def _rank_main(rank, world, tmp, job, n_model=1):
     # the parent's pool (test_torch_helpers): the CPU convs' sums then run in
     # the same order, and a fold stepped here is bit-equal to the parent's
     torch.set_num_threads(2)
@@ -37,7 +39,7 @@ def _rank_main(rank, world, tmp, job):
     try:
         from dmf_tpu_torch.parallel import make_mesh
 
-        mesh = make_mesh(world, 1, devices="cpu")
+        mesh = make_mesh(world // n_model, n_model, devices="cpu")
         payload = torch.load(os.path.join(tmp, "payload.pt"), weights_only=False)
         out = JOBS[job](mesh, **payload)
         torch.save(out, os.path.join(tmp, f"out{rank}.pt"))
@@ -50,7 +52,13 @@ def floats(metrics):
 
 
 def model_state(model):
-    return {k: v.detach().clone() for k, v in model.state_dict().items()}
+    """The whole state dict (a collective over the model group where the
+    model is sharded: every rank of the group calls it)."""
+    from dmf_tpu_torch.parallel.sharding import full_parameters
+
+    sd = {k: v.detach().clone() for k, v in model.state_dict().items()}
+    sd.update({k: v.clone() for k, v in full_parameters(model).items()})
+    return sd
 
 
 def tensors(batch):
@@ -150,11 +158,13 @@ class IdentityProcessor:
         return np.asarray(imgs)
 
 
-def fit(mesh, kind, cfg, model, train, val, workdir, epochs=2, processor=None):
+def fit(mesh, kind, cfg, model, train, val, workdir, epochs=2, processor=None, reload=False):
     """``fit_fusion`` (``kind="fusion"``, a ``FusionNetwork``) or
     ``fit_single("dwi")`` with ``mesh=``, ``viz_every=0``: the history
     (wall times aside), the final model state and the files rank 0 wrote;
-    also the error of a batch size that does not divide over the mesh."""
+    also the error of a batch size that does not divide over the mesh, and
+    with ``reload`` the final state after ``load_checkpoint`` of the best
+    checkpoint (``reloaded``)."""
     from dmf_tpu_torch.train import SingleModelOptController, TrainState, fit_fusion, fit_single
 
     workdir = os.path.join(workdir, "mesh" if mesh is not None else "single")
@@ -172,12 +182,18 @@ def fit(mesh, kind, cfg, model, train, val, workdir, epochs=2, processor=None):
                        train, val, workdir, **kw)
         except ValueError as e:
             error = str(e)
+    final, reloaded = model_state(res.state.model), None
+    if reload:
+        from dmf_tpu_torch.utils.checkpoint import load_checkpoint
+
+        load_checkpoint(os.path.join(workdir, "checkpoints", "best.pt"), res.state)
+        reloaded = model_state(res.state.model)
     history = [{k: v for k, v in h.items() if not k.endswith("_time")} for h in res.history]
     files = sorted(os.path.relpath(os.path.join(r, f), workdir)
                    for r, _, fs in os.walk(workdir) for f in fs)
     with open(os.path.join(workdir, "logs", "metrics.jsonl")) as fh:
         log_lines = len(fh.readlines())
-    return {"history": history, "state": model_state(res.state.model), "error": error,
+    return {"history": history, "state": final, "error": error, "reloaded": reloaded,
             "files": files, "log_lines": log_lines,
             "best": None if res.best_state is None else model_state(res.best_state.model)}
 
@@ -203,10 +219,115 @@ def multifold_fit(mesh, cfg, models, folds, workdir, epochs=2):
             for f in fits]
 
 
+# ---------------------------------------------------------------- the model axis
+def _nchw(a):
+    return torch.as_tensor(a).permute(0, 3, 1, 2).contiguous()
+
+
+def _digest(t):
+    import hashlib
+
+    return hashlib.sha256(t.detach().contiguous().reshape(-1).view(torch.uint8)
+                          .numpy().tobytes()).hexdigest()
+
+
+def tp_forward(mesh, encoder, x, net, dwi, dce):
+    """Eval forwards of an encoder and a fusion network, sharded over the
+    mesh's model axis: the encoder's logits, the network's logits and
+    head-averaged cross-attention weights, and the local shapes of the
+    network's sharded parameters."""
+    from dmf_tpu_torch.parallel.tensor import parameter_shards, tensor_parallel
+
+    if mesh is not None:
+        tensor_parallel(encoder, mesh)
+        tensor_parallel(net, mesh)
+    shards = parameter_shards(net)
+    with torch.no_grad():
+        enc = encoder(_nchw(x))[0]
+        logits, _, aux, _ = net(_nchw(dwi), _nchw(dce))
+    return {"encoder": enc, "fusion": logits, "attn": aux["attn_weights"],
+            "shapes": {n: tuple(p.shape) for n, p in net.named_parameters() if n in shards}}
+
+
+def tp_steps(mesh, **kw):
+    """:func:`steps`, with each step's gradients of the replicated
+    parameters digested bit for bit (the AdamW update's input) and the
+    names of the sharded ones."""
+    import dmf_tpu_torch.train.fusion as tf
+    import dmf_tpu_torch.train.single as ts
+    from dmf_tpu_torch.parallel.tensor import parameter_shards
+
+    digests = []
+
+    def record(update):
+        def wrapped(params, grads, state, *a, **k):
+            shards = parameter_shards(kw["model"])
+            digests.append({n: _digest(g) for n, g in grads.items()
+                            if g is not None and n not in shards})
+            return update(params, grads, state, *a, **k)
+        return wrapped
+
+    plain = tf.adamw_update, ts.adamw_update
+    tf.adamw_update, ts.adamw_update = record(plain[0]), record(plain[1])
+    try:
+        out = steps(mesh, **kw)
+    finally:
+        tf.adamw_update, ts.adamw_update = plain
+    out["digests"] = digests
+    out["sharded"] = sorted(parameter_shards(kw["model"]))
+    return out
+
+
+def tp_test_fusion(mesh, cfg, models, test_data, chunks=(None, 2)):
+    """``test_fusion_model(mesh=)`` on a fusion network's state, per
+    ``mc_chunk`` in ``chunks``: probabilities, std, the modality attention
+    and the metrics; and the error of ``int8=True``."""
+    from dmf_tpu_torch.pipeline.run_fusion import test_fusion_model
+    from dmf_tpu_torch.train import TrainState
+    from dmf_tpu_torch.train.fusion import FusionNetwork
+
+    state = TrainState.create(FusionNetwork(*models), num_groups=4)
+    out = {}
+    for c in chunks:
+        r = test_fusion_model(cfg.replace(mc_chunk=c), state, test_data, seed=0, mesh=mesh)
+        out[c] = {k: r[k] for k in ("probs", "std", "labels", "modality_attention", "metrics")}
+    if mesh is not None:
+        try:
+            test_fusion_model(cfg, state, test_data, seed=0, int8=True, mesh=mesh)
+        except NotImplementedError as e:
+            out["int8"] = str(e)
+    return out
+
+
+def tp_neck(mesh, adapter, feats):
+    """The adapter's necks on backbone features, sharded over the model
+    axis: the eval route (kernel 2's plain version on the CPU) and the train
+    route's outputs, and the train route's gradients of the features and of
+    every parameter (whole)."""
+    from dmf_tpu_torch.parallel.tensor import gather_full, parameter_shards, tensor_parallel
+
+    if mesh is not None:
+        tensor_parallel(adapter, mesh)
+    xs = [torch.as_tensor(f) for f in feats]
+    with torch.no_grad():
+        evals = adapter(xs, train=False)
+    xs = [x.clone().requires_grad_(True) for x in xs]
+    outs = adapter(xs, train=True)
+    loss = sum((o * o).mean() for o in outs)
+    params = dict(adapter.named_parameters())
+    grads = torch.autograd.grad(loss, xs + list(params.values()))
+    shards = parameter_shards(adapter)
+    pgrads = {n: gather_full(g, shards[n], mesh) if n in shards else g
+              for n, g in zip(params, grads[len(xs):])}
+    return {"eval": evals, "train": [o.detach() for o in outs],
+            "input_grads": grads[:len(xs)], "grads": pgrads, "sharded": sorted(shards)}
+
+
 def several(mesh, jobs):
     """Several jobs in one spawn: ``[(name, kwargs), ...]`` -> their results."""
     return [JOBS[name](mesh, **kw) for name, kw in jobs]
 
 
 JOBS = {"steps": steps, "predict": predict, "multifold": multifold, "fit": fit,
-        "multifold_fit": multifold_fit, "several": several}
+        "multifold_fit": multifold_fit, "tp_forward": tp_forward, "tp_steps": tp_steps,
+        "tp_test_fusion": tp_test_fusion, "tp_neck": tp_neck, "several": several}
