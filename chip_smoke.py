@@ -212,15 +212,27 @@ Phases, each printing its own lines:
      fp32 (3xTF32), with its time, its share of the bound and cuDNN's chain
      in turns; 14b the default fusion predictor sharded over the two ranks:
      a ``tta`` fp32 request of B=8 against one process's at phase 4's
-     tolerance, ``tta_mc`` bf16 requests of B=8 raw volumes (each rank's
-     launches a request: kernel 2 on its shards), their ms, the ms in
+     tolerance, one ``tta_mc`` bf16 request of B=8 raw volumes (each rank's
+     launches: kernel 2 on its shards), its ms and the ms in its
      collectives, each rank's peak memory and parameter bytes; 14c a
      ``hybrid-nb`` ``tta`` fp32 request of B=2, the flash forward on two of
      the four heads a rank, against one process's; 14d two full-width
      fusion train steps at global B=8, fp32, dropout 0, against one
      process's (losses at rel 1e-3, parameters per group at 13a's bound over
      floors at this B), the replicated parameters' gradients bit-equal on
-     the two ranks, step ms, ms in collectives and both ranks' peaks;
+     the two ranks, step ms, the last step's ms in collectives and both
+     ranks' peaks; 14e
+     int8 serving over the model axis (the models sharded, then quantized
+     and calibrated): (a, this process) the int8 conv at every distinct
+     shard shape of an int8 ``tta_mc`` request at B=8 bit-equal to its plain
+     version in int32 and bf16, its ms, TOP/s and share of the bound beside
+     the whole conv's ms and cuDNN's bf16 conv at the shard; on each rank
+     (b) an int8 ``tta`` fp32 request of B=2 against one process's at 12d's
+     tolerance, the calibrated scales against one process's, and (c) one
+     int8 ``tta_mc`` bf16 request of B=8 raw volumes (no warm-up): launches
+     as one process's (kernel 2 none), ms and ms in collectives, argmax
+     agreement with one process's on the same masks, peak memory, parameter
+     and int8-conv bytes;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -3835,6 +3847,36 @@ def int8_conv_bound(key):
     return ops, nbytes, max(ops / INT8_TOP_S, nbytes / HBM_BYTES_PER_S) * 1e3
 
 
+def int8_conv_case(key, wq, w_scale, x_scale, bias, g):
+    """The int8 conv at ``key``'s shape on a random int8 map and the weight
+    ``wq`` (its scales and bias): int32 and dequantized bf16 outputs held
+    bit-equal to the plain version and across two calls (raises), then the
+    kernel's, the plain version's and cuDNN's bf16 conv's CUDA-event ms; the
+    int8 map and the int32 accumulators."""
+    n, c, h, w, o, kh, kw, s, p, d = key
+    xq = cl(torch.randint(-127, 128, (n, c, h, w), device=DEV, generator=g, dtype=torch.int8))
+    xs = x_scale if x_scale is not None else torch.tensor(0.01, device=DEV)
+    args = (xq, wq, w_scale)
+    geo = (s, p, d)
+    acc = int8_cuda.launch_int8_conv(*args, None, None, *geo, torch.int32)
+    acc_ref = int8q.int8_conv_ref(*args, None, None, *geo, torch.int32)
+    y = int8_cuda.launch_int8_conv(*args, xs, bias, *geo, torch.bfloat16)
+    y_ref = int8q.int8_conv_ref(*args, xs, bias, *geo, torch.bfloat16)
+    torch.cuda.synchronize()
+    y2 = int8_cuda.launch_int8_conv(*args, xs, bias, *geo, torch.bfloat16)
+    if not (torch.equal(acc, acc_ref) and torch.equal(y, y_ref) and torch.equal(y, y2)):
+        raise AssertionError(f"int8 conv {key}: int32 equal {torch.equal(acc, acc_ref)}, "
+                             f"bf16 equal {torch.equal(y, y_ref)}, two calls equal "
+                             f"{torch.equal(y, y2)}")
+    t_k = cuda_time(lambda: int8_cuda.launch_int8_conv(*args, xs, bias, *geo, torch.bfloat16))
+    t_p = cuda_time(lambda: int8q.int8_conv_ref(*args, xs, bias, *geo, torch.bfloat16),
+                    reps=1, trials=1)
+    xb = cl(xq.to(torch.bfloat16))
+    wb = wq.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(memory_format=torch.channels_last)
+    t_c = cuda_time(lambda: F.conv2d(xb, wb, None, s, p, d))
+    return t_k, t_p, t_c, xq, acc
+
+
 def phase_int8_kernels(sites, mods):
     """12a and 12b: the int8 conv at every distinct shape of the request and
     the quantize kernels at every distinct conv input, against their plain
@@ -3849,29 +3891,8 @@ def phase_int8_kernels(sites, mods):
     for key, calls in sorted(sites.items(), key=lambda kv: -int8_conv_bound(kv[0])[0]):
         n, c, h, w, o, kh, kw, s, p, d = key
         m = mods[key]
-        xq = cl(torch.randint(-127, 128, (n, c, h, w), device=DEV, generator=g, dtype=torch.int8))
-        xs = m.x_scale if m.x_scale is not None else torch.tensor(0.01, device=DEV)
-        args = (xq, m.weight_q, m.w_scale)
-        geo = (s, p, d)
-        acc = int8_cuda.launch_int8_conv(*args, None, None, *geo, torch.int32)
-        acc_ref = int8q.int8_conv_ref(*args, None, None, *geo, torch.int32)
-        y = int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo, torch.bfloat16)
-        y_ref = int8q.int8_conv_ref(*args, xs, m.bias, *geo, torch.bfloat16)
-        torch.cuda.synchronize()
-        y2 = int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo, torch.bfloat16)
-        if not (torch.equal(acc, acc_ref) and torch.equal(y, y_ref) and torch.equal(y, y2)):
-            raise AssertionError(f"int8 conv {key}: int32 equal {torch.equal(acc, acc_ref)}, "
-                                 f"bf16 equal {torch.equal(y, y_ref)}, two calls equal "
-                                 f"{torch.equal(y, y2)}")
+        t_k, t_p, t_c, xq, acc = int8_conv_case(key, m.weight_q, m.w_scale, m.x_scale, m.bias, g)
         ops, nbytes, bound = int8_conv_bound(key)
-        t_k = cuda_time(lambda: int8_cuda.launch_int8_conv(*args, xs, m.bias, *geo,
-                                                          torch.bfloat16))
-        t_p = cuda_time(lambda: int8q.int8_conv_ref(*args, xs, m.bias, *geo, torch.bfloat16),
-                        reps=1, trials=1)
-        xb = cl(xq.to(torch.bfloat16))
-        wb = m.weight_q.permute(0, 3, 1, 2).to(torch.bfloat16).contiguous(
-            memory_format=torch.channels_last)
-        t_c = cuda_time(lambda: F.conv2d(xb, wb, None, s, p, d))
         lib = ""
         if kh == kw == 1 and s == (1, 1) and p == (0, 0):
             a = xq.permute(0, 2, 3, 1).reshape(-1, c)
@@ -4646,7 +4667,7 @@ def phase_mesh(cfg, tmp, smi):
 TP_RANKS = 2
 TP_B, TP_STEPS = 8, 2  # 14d: global B=8, both ranks on the same rows
 TP_HYB_B = 2  # 14c
-TP_REQUESTS = 1  # 14b's tta_mc requests (no warm-up): each gathers ~14 GB over gloo
+TP_INT8_TTA_B = 2  # 14e(b): B cut from 8 to keep the script inside its time limit
 TP_STEP_SEED, TP_DROP_SEED = 71, 72
 # kernel 2 at each neck site's shard: half of Cout, the whole (gathered) Cin
 TP_NECKS = tuple((f"{name} shard", cin, cout // TP_RANKS, side)
@@ -4660,11 +4681,12 @@ def param_bytes(*models):
     return sum(p.numel() * p.element_size() for m in models for p in m.parameters())
 
 
-def tp_train_steps(cfg, net, mesh=None, digests=None, peak=False):
+def tp_train_steps(cfg, net, mesh=None, digests=None, peak=False, time_collectives=False):
     """14d: ``TP_STEPS`` fusion steps at global B=``TP_B`` on ``net`` (over
     ``mesh``: sharded, through ``make_spmd_step``); each step's metrics and
-    CUDA-event ms.  ``digests`` collects each step's digests of the
-    replicated parameters' gradients (AdamW's input)."""
+    CUDA-event ms, and a :class:`CollectiveTimer` that timed the last step's
+    collectives apart where ``time_collectives``.  ``digests`` collects each
+    step's digests of the replicated parameters' gradients (AdamW's input)."""
     from dmf_tpu_torch.parallel import make_spmd_step, shard_state
     from dmf_tpu_torch.parallel.tensor import parameter_shards
     from dmf_tpu_torch.train import fusion as fusion_mod
@@ -4691,24 +4713,137 @@ def tp_train_steps(cfg, net, mesh=None, digests=None, peak=False):
     if peak:
         torch.cuda.reset_peak_memory_stats()
     metrics, ms = [], []
+    timer = CollectiveTimer() if time_collectives else None
     # deterministic algorithms (as phase 10): the bilinear upsample's
     # backward adds by atomics otherwise, and the two ranks' replicated
     # gradients would differ by rounding
     try:
         with deterministic():
-            for b in batches:
+            for i, b in enumerate(batches):
                 ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
                 if mesh is not None:
                     mesh.barrier()
-                ev[0].record()
-                m = run(state, b, g, hp)
-                ev[1].record()
-                torch.cuda.synchronize()
+                last = timer is not None and i == len(batches) - 1
+                with timer if last else contextlib.nullcontext():
+                    ev[0].record()
+                    m = run(state, b, g, hp)
+                    ev[1].record()
+                    torch.cuda.synchronize()
                 metrics.append({k: float(v) for k, v in m.items()})
                 ms.append(ev[0].elapsed_time(ev[1]))
     finally:
         fusion_mod.adamw_update = plain
-    return metrics, ms, state, (run, batches[0], g, hp)
+    return metrics, ms, state, timer
+
+
+# 14e: int8 serving over the model axis, built as test_fusion_model builds it
+# (the models sharded, then quantized and calibrated on INT8_CALIB volumes of
+# their own draw; in bf16 with MC dropout on, for tta_mc).  A rank's
+# calibrated x_scale against one process's, relative: the scales are
+# abs-maxes of the whole conv inputs, which differ from one process's only by
+# the rounding of the sharded fp convs before them (cuDNN may pick another
+# algorithm at half the channels), in bf16 by a few ulps (2^-8) grown through
+# the layers; a wrong shard, or MC masks drawn in another memory order, is off
+# by far more (10 % at block3's convs, before the shards kept their weights'
+# strides)
+TP_INT8_SEED = 141
+TP_SCALE_RTOL = {"fp32": 1e-5, "bf16": 2.0 ** -5}
+TP_AGREE = 0.75  # 14e(c): argmax agreement with one process's int8 request, 8 volumes
+
+
+def tp_int8_forward(cfg, dtype, mesh=None):
+    """14e's int8 serving: the default fusion models from ``SEED`` in
+    ``dtype``, sharded over ``mesh``'s model axis first, their convs
+    quantized from the fp32 weights (fp32: from the models themselves, on a
+    mesh from the shards; bf16: from whole fp32 twins, cut to the shards)
+    and calibrated on 14e's volumes; ``(models, qsets, fwd)``."""
+    from dmf_tpu_torch.parallel.tensor import tensor_parallel
+
+    weights = build_fusion_models(cfg, DEV, torch.float32, gen(SEED))
+    fp32 = dtype == torch.float32
+    models = weights if fp32 else [copy.deepcopy(m).to(dtype) for m in weights]
+    if mesh is not None:
+        for m in models:
+            tensor_parallel(m, mesh)
+    S = cfg.dwi_model.input_size
+    g = gen(TP_INT8_SEED)
+    calib = preprocess_fusion_inputs(
+        torch.rand(INT8_CALIB, S, S, cfg.dwi_base_channel_num, device=DEV, generator=g) * 1000.0,
+        torch.rand(INT8_CALIB, S, S, cfg.dce_channel_num, device=DEV, generator=g),
+        torch.full((S, S, 1), 0.5, device=DEV))
+    _, qsets = int8q.make_quantized_fusion_apply(
+        *models, calibration=calib, calibration_mc=not fp32,
+        calibration_rng=None if fp32 else gen(TP_INT8_SEED + 1),
+        weights=None if fp32 else weights)
+    del weights, calib
+    return models, qsets, int8q.make_quantized_fusion_fwd(*models, qsets)
+
+
+def x_scales(qsets):
+    """The calibrated scales (convs the calibration forward did not reach have none)."""
+    return {f"{k}:{n}": float(e["x_scale"]) for k, qs in qsets.items() for n, e in qs.items()
+            if "x_scale" in e}
+
+
+def scale_gap(mine, ref):
+    """The largest relative gap of a rank's calibrated scales to one process's."""
+    if mine.keys() != ref.keys():
+        raise AssertionError(f"14e: the rank quantized other convs: "
+                             f"{sorted(mine.keys() ^ ref.keys())[:5]}")
+    return max(abs(mine[k] - ref[k]) / ref[k] for k in ref)
+
+
+def int8_bytes(fwd):
+    """``(parameter bytes, int8-conv buffer bytes)`` of an int8 forward's copies."""
+    mods = list(fwd.modules.values())
+    q = sum(b.numel() * b.element_size() for mod in mods for m in mod.modules()
+            if isinstance(m, int8q.QuantConv2d) for b in m.buffers())
+    return param_bytes(*mods), q
+
+
+def tp_int8_rank(cfg, mesh, out, res):
+    """14e(b) and (c) on this rank: an int8 tta fp32 request and one int8
+    tta_mc bf16 request on the sharded, quantized and calibrated models."""
+    # (b) tta fp32, static scales calibrated on the shards
+    models, qsets, fwd = tp_int8_forward(cfg, torch.float32, mesh)
+    ref = torch.load(os.path.join(out, "single_int8_tta.pt"), map_location=DEV,
+                     weights_only=True)
+    res["int8_scale_gap"] = scale_gap(x_scales(qsets), ref["scales"])
+    shards = [(m.weight_q.shape[0], m.out_channels) for mod in fwd.modules.values()
+              for m in mod.modules() if isinstance(m, int8q.ShardedQuantConv2d)]
+    res["int8_shards"] = [len(shards), sum(o * TP_RANKS == whole for o, whole in shards)]
+    predict = make_fusion_predictor(cfg, *models, mode="tta", fwd_override=fwd, mesh=mesh)
+    reset_counts()
+    mean, std, _ = mesh_request(cfg, predict, b=TP_INT8_TTA_B)
+    res["int8_tta_counts"] = counts()
+    res["int8_tta_err"] = [(mean - ref["mean"]).abs().max().item(),
+                           (std - ref["std"]).abs().max().item()]
+    del models, qsets, fwd, predict
+    torch.cuda.empty_cache()
+    # (c) one tta_mc bf16 request, no warm-up, the MC dropout's calibration
+    models, qsets, fwd = tp_int8_forward(cfg, torch.bfloat16, mesh)
+    ref = torch.load(os.path.join(out, "single_int8_tta_mc.pt"), map_location=DEV,
+                     weights_only=True)
+    res["int8_mc_scale_gap"] = scale_gap(x_scales(qsets), ref["scales"])
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=fwd, mesh=mesh)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with CollectiveTimer() as timer:
+        mesh.barrier()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        mean, std, _ = mesh_request(cfg, predict)
+        torch.cuda.synchronize()
+        dt = time.perf_counter() - t0
+    launched = counts()
+    gate("tp int8 tta_mc", cfg, launched, ref["counts"], mean, std, True, B_SERVE)
+    res["int8_request"] = {
+        "ms": dt * 1e3, "collective_ms": timer.ms, "collectives": timer.n, "counts": launched,
+        "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "bytes": int8_bytes(fwd),
+        "agree": (mean.argmax(-1) == ref["mean"].argmax(-1)).float().mean().item(),
+        "mean_err": (mean.float() - ref["mean"].float()).abs().max().item()}
+    del models, qsets, fwd, predict
+    torch.cuda.empty_cache()
 
 
 def tp_rank_main(out):
@@ -4743,24 +4878,18 @@ def tp_rank_main(out):
     predict = make_fusion_predictor(cfg, *models, mode="tta_mc", mesh=mesh)
     res["param_bytes_bf16"] = param_bytes(*models)
     torch.cuda.reset_peak_memory_stats()
-    res["requests"] = []
-    for _ in range(TP_REQUESTS):
-        reset_counts()
+    reset_counts()
+    # one request (no warm-up: each gathers ~14 GB over gloo), its collectives timed apart
+    with CollectiveTimer() as timer:
         mesh.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         mean, std, _ = mesh_request(cfg, predict)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-        gate("tp tta_mc", cfg, counts(), MESH_SERVE_EXPECT, mean, std, True, B_SERVE)
-        res["requests"].append({"ms": dt * 1e3, "counts": counts()})
+    gate("tp tta_mc", cfg, counts(), MESH_SERVE_EXPECT, mean, std, True, B_SERVE)
+    res["requests"] = [{"ms": dt * 1e3, "counts": counts()}]
     res["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
-    with CollectiveTimer() as timer:
-        mesh.barrier()
-        t0 = time.perf_counter()
-        mesh_request(cfg, predict)
-        torch.cuda.synchronize()
-        res["timed_request_ms"] = (time.perf_counter() - t0) * 1e3
     res["request_collective_ms"], res["request_collectives"] = timer.ms, timer.n
     del models, predict
     torch.cuda.empty_cache()
@@ -4784,8 +4913,9 @@ def tp_rank_main(out):
     fcfg, net, init, spec, *_ = mesh_fusion_setup(cfg, TP_STEPS, TP_B, TP_STEP_SEED)
     whole = copy.deepcopy(net)
     digests = []
-    res["metrics"], res["step_ms"], state, again = tp_train_steps(cfg, net, mesh, digests,
-                                                                  peak=True)
+    res["metrics"], res["step_ms"], state, timer = tp_train_steps(
+        cfg, net, mesh, digests, peak=True, time_collectives=True)
+    res["step_collective_ms"], res["step_collectives"] = timer.ms, timer.n
     res["train_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     res["train_param_bytes"] = [param_bytes(whole), param_bytes(net)]
     res["digests"] = digests
@@ -4794,15 +4924,12 @@ def tp_rank_main(out):
     single.load_state_dict(torch.load(os.path.join(out, "single_fusion.pt"), map_location=DEV,
                                       weights_only=True))
     res["gaps"] = {str(k): v for k, v in disagreement(whole, single, init, spec).items()}
-    del single, whole
-    with CollectiveTimer() as timer, deterministic():
-        mesh.barrier()
-        t0 = time.perf_counter()
-        again[0](state, *again[1:])
-        torch.cuda.synchronize()
-        res["timed_step_ms"] = (time.perf_counter() - t0) * 1e3
-    res["step_collective_ms"], res["step_collectives"] = timer.ms, timer.n
-    res["seconds"]["14d"] = time.perf_counter() - t_sub
+    del single, whole, state
+    torch.cuda.empty_cache()
+    res["seconds"]["14d"], t_sub = time.perf_counter() - t_sub, time.perf_counter()
+    # 14e: int8 serving over the model axis
+    tp_int8_rank(cfg, mesh, out, res)
+    res["seconds"]["14e"] = time.perf_counter() - t_sub
     with open(os.path.join(out, f"rank{mesh.model_rank}.json"), "w") as f:
         json.dump(res, f)
     torch.distributed.destroy_process_group()
@@ -4818,6 +4945,116 @@ def phase_tp_kernels():
     return max(errs), sums
 
 
+def shard_sites(cfg, predict, modules):
+    """The int8 convs of one request that a ``TP_RANKS``-way model axis
+    shards (``param_spec`` on the conv's name and whole shape): ``{shard
+    shape: calls}``, the shape's Cout a shard's, and a whole module of each."""
+    from dmf_tpu_torch.parallel.sharding import param_spec
+
+    sites, mods, hooks = {}, {}, []
+
+    def hook_for(name):
+        def hook(m, args):
+            n, c, h, w = args[0].shape
+            whole = torch.empty((m.out_channels, c, *m.kernel_size), device="meta")
+            if param_spec(f"{name}.weight", whole, TP_RANKS) is None:
+                return
+            key = (n, c, h, w, m.out_channels // TP_RANKS, *m.kernel_size, tuple(m.stride),
+                   tuple(m.padding), tuple(m.dilation))
+            sites[key] = sites.get(key, 0) + 1
+            mods.setdefault(key, m)
+        return hook
+
+    for model in modules:
+        hooks += [m.register_forward_pre_hook(hook_for(name))
+                  for name, m in model.named_modules() if isinstance(m, int8q.QuantConv2d)]
+    mesh_request(cfg, predict)
+    torch.cuda.synchronize()
+    for h in hooks:
+        h.remove()
+    return sites, mods
+
+
+def phase_tp_int8_kernels(sites, mods):
+    """14e(a): the int8 conv at every distinct shard shape (model rank 0's
+    rows of the weight, its scales and bias) against its plain version,
+    beside the whole conv's time and cuDNN's bf16 conv at the shard shape;
+    the sums over a request (each shape x its calls)."""
+    regs = int8_registers()
+    g = gen(142)
+    tot = dict.fromkeys(("ms", "whole_ms", "plain", "bound", "cudnn", "ops"), 0.0)
+    log(f"  14e(a): {len(sites)} distinct shard shapes of the sharded int8 convs, "
+        f"{sum(sites.values())} calls a request (N, Cin, HxW -> a shard's Cout, kernel, "
+        f"stride, padding, dilation; bf16 out)")
+    for key, calls in sorted(sites.items(), key=lambda kv: -int8_conv_bound(kv[0])[0]):
+        n, c, h, w, o, kh, kw, st, p, d = key
+        m = mods[key]
+        rows = (m.weight_q[:o].contiguous(), m.w_scale[:o].contiguous(),
+                None if m.bias is None else m.bias[:o].contiguous())
+        t_k, t_p, t_c, xq, _ = int8_conv_case(key, rows[0], rows[1], m.x_scale, rows[2], g)
+        xs = m.x_scale if m.x_scale is not None else torch.tensor(0.01, device=DEV)
+        t_w = cuda_time(lambda: int8_cuda.launch_int8_conv(
+            xq, m.weight_q, m.w_scale, xs, m.bias, st, p, d, torch.bfloat16))
+        ops, _, bound = int8_conv_bound(key)
+        for k_, v in (("ms", t_k), ("whole_ms", t_w), ("plain", t_p), ("bound", bound),
+                      ("cudnn", t_c), ("ops", ops)):
+            tot[k_] += v * calls
+        tile = (int8_cuda.conv_tile(o), int8_cuda.pixel_source(xq))
+        log(f"  14e(a) ({n}, {c}, {h}x{w} -> {o} of {2 * o}, {kh}x{kw}, s{st[0]}, p{p[0]}, "
+            f"d{d[0]}) x{calls}: int32 and bf16 bit-equal, two calls bit-equal; shard "
+            f"{t_k:.4f} ms ({ops / t_k / 1e9:.1f} TOP/s, {100 * bound / t_k:.1f} % of the bound "
+            f"{bound:.4f}), whole conv {t_w:.4f} ({t_k / t_w:.3f}x), plain (float64) "
+            f"{t_p:.3f}, cuDNN bf16 conv at the shard {t_c:.4f} ({t_k / t_c:.2f}x); tile "
+            f"{tile[0]} {INT8_SOURCES[tile[1]]}: {regs.get(tile, 'no ptxas report')}")
+    log(f"  14e(a) per request and rank (each shape's time x its calls): int8 conv on the shards "
+        f"{tot['ms']:.3f} ms ({tot['ops'] / tot['ms'] / 1e9:.1f} TOP/s, "
+        f"{100 * tot['bound'] / tot['ms']:.1f} % of the bound {tot['bound']:.3f}) against the "
+        f"whole convs' {tot['whole_ms']:.3f} ms in one process; plain {tot['plain']:.1f}; cuDNN's "
+        f"bf16 convs at the shards {tot['cudnn']:.3f} ({tot['ms'] / tot['cudnn']:.2f}x)")
+    return {"ms": tot["ms"], "whole_ms": tot["whole_ms"], "plain_ms": tot["plain"],
+            "bound_ms": tot["bound"], "cudnn_bf16_ms": tot["cudnn"],
+            "per": f"the int8 convs a {TP_RANKS}-way model axis shards, one rank's shards, an "
+                   f"int8 tta_mc request at B={B_SERVE}, bf16"}
+
+
+def tp_int8_references(cfg, out):
+    """14e's one-process runs: the int8 tta fp32 request and the int8
+    tta_mc bf16 one (no warm-up; its launches, ms, peak and bytes) that the
+    ranks are held against; then 14e(a) on that request's shard sites."""
+    models, qsets, fwd = tp_int8_forward(cfg, torch.float32)
+    mean, std, _ = mesh_request(cfg, make_fusion_predictor(cfg, *models, mode="tta",
+                                                           fwd_override=fwd), b=TP_INT8_TTA_B)
+    torch.save({"mean": mean, "std": std, "scales": x_scales(qsets)},
+               os.path.join(out, "single_int8_tta.pt"))
+    tta_scale = max(1.0, mean.abs().max().item())
+    del models, qsets, fwd
+    torch.cuda.empty_cache()
+    models, qsets, fwd = tp_int8_forward(cfg, torch.bfloat16)
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=fwd)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, std, _ = mesh_request(cfg, predict)
+    torch.cuda.synchronize()
+    ms = (time.perf_counter() - t0) * 1e3
+    launched = counts()
+    one = {"ms": ms, "counts": launched, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "bytes": int8_bytes(fwd), "tta_scale": tta_scale}
+    base = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "se_scale": 4, "dwi_normalize": 1}
+    n = launched["int8_conv"]
+    if not (n > 0 and launched == base | {"int8_conv": n, "int8_quantize": n}):
+        raise AssertionError(f"14e one process's int8 tta_mc request launched {launched}")
+    gate("14e one process int8 tta_mc", cfg, launched, launched, mean, std, True, B_SERVE)
+    torch.save({"mean": mean, "counts": launched, "scales": x_scales(qsets)},
+               os.path.join(out, "single_int8_tta_mc.pt"))
+    sites, mods = shard_sites(cfg, predict, fwd.modules.values())
+    one["sums"] = phase_tp_int8_kernels(sites, mods)
+    del models, qsets, fwd, predict, mods
+    torch.cuda.empty_cache()
+    return one
+
+
 def phase_tp(cfg, tmp, smi):
     """Phase 14: the model axis on a 1x2 mesh; returns the ranks' launches."""
     from dmf_tpu_torch.parallel import local_mesh
@@ -4827,7 +5064,7 @@ def phase_tp(cfg, tmp, smi):
         f"width: {TP_RANKS} ranks pinned to the one card with gloo; 14b the default fusion "
         f"predictor sharded (tta fp32 against one process's, tta_mc bf16 B={B_SERVE}), 14c "
         f"hybrid-nb tta fp32 B={TP_HYB_B}, 14d {TP_STEPS} fusion train steps at global "
-        f"B={TP_B} fp32 (dropout 0)")
+        f"B={TP_B} fp32 (dropout 0), 14e int8 serving")
     err14a, sums14a = phase_tp_kernels()
     hcfg = hybrid_nb_config(cfg)
     out = os.path.join(tmp, "tp")
@@ -4883,6 +5120,11 @@ def phase_tp(cfg, tmp, smi):
     del net
     torch.cuda.empty_cache()
     torch.distributed.destroy_process_group()
+    log(f"== phase 14e: int8 serving over the model axis (ops/quant.py's shard route): the "
+        f"models sharded, quantized and calibrated on {INT8_CALIB} volumes; (a) here, (b) a "
+        f"tta fp32 request of B={TP_INT8_TTA_B} and (c) one tta_mc bf16 request of "
+        f"B={B_SERVE} on each rank")
+    one = tp_int8_references(cfg, out)
 
     here = os.path.dirname(os.path.abspath(__file__))
     t0 = time.perf_counter()
@@ -4917,10 +5159,9 @@ def phase_tp(cfg, tmp, smi):
             f"{mine / 2 ** 20:.1f} MiB of the whole {whole / 2 ** 20:.1f} MiB (bf16 "
             f"{r['param_bytes_bf16'] / 2 ** 20:.1f} MiB); tta fp32 B={B_SERVE} against one "
             f"process's: mean max_abs_err {r['tta_err'][0]:.3e}, std {r['tta_err'][1]:.3e} "
-            f"(tolerance {bound:.3e}); tta_mc bf16 request (ms, host clock, no warm-up, two "
-            f"ranks sharing one card) " + ", ".join(f"{q['ms']:.2f}" for q in r["requests"])
-            + f"; one more request with every collective timed apart: "
-            f"{r['timed_request_ms']:.1f} ms, of which {r['request_collective_ms']:.1f} ms in "
+            f"(tolerance {bound:.3e}); tta_mc bf16 request (host clock, no warm-up, two "
+            f"ranks sharing one card, every collective timed apart) "
+            f"{r['requests'][0]['ms']:.2f} ms, of which {r['request_collective_ms']:.1f} ms in "
             f"{r['request_collectives']} collectives; peak {r['serve_peak_gib']:.2f} GiB; "
             f"launches a request {r['requests'][-1]['counts']}")
     log(f"  14b one process: tta_mc bf16 requests (ms, host clock) "
@@ -4970,16 +5211,55 @@ def phase_tp(cfg, tmp, smi):
             + f"; the gradients of {len(r['digests'][0])} replicated parameters bit-equal on "
             f"both ranks at each step; step ms by CUDA events "
             + ", ".join(f"{t:.1f}" for t in r["step_ms"]) + f"; peak {r['train_peak_gib']:.2f} "
-            f"GiB; parameter bytes {mine / 2 ** 20:.1f} of {whole / 2 ** 20:.1f} MiB; one more "
-            f"step with every collective timed apart: {r['timed_step_ms']:.1f} ms, of which "
-            f"{r['step_collective_ms']:.1f} ms in {r['step_collectives']} collectives; {smi}")
+            f"GiB; parameter bytes {mine / 2 ** 20:.1f} of {whole / 2 ** 20:.1f} MiB; the last "
+            f"step's collectives timed apart: {r['step_collective_ms']:.1f} ms in "
+            f"{r['step_collectives']} collectives; {smi}")
     log(f"  14d one process: step ms by CUDA events " + ", ".join(f"{t:.1f}" for t in single_ms)
         + f"; peak {one_train_peak:.2f} GiB (the 1x1 NCCL mesh's route: {route_peak:.2f} "
         f"GiB); floors: one process in contiguous memory format "
         + ", ".join(f"{k} {v:.3e}" for k, v in layout.items()) + "; a 1x1 mesh over NCCL "
         + ", ".join(f"{k} {v:.3e}" for k, v in route.items()))
+    # 14e
+    bound = INT8_CPU_TOL * one["tta_scale"]
+    for r in ranks:
+        n_sh, n_rows = r["int8_shards"]
+        if not (n_sh > 0 and n_rows == n_sh):
+            raise AssertionError(f"14e rank {r['rank']}: {n_rows} of {n_sh} int8 shards hold "
+                                 f"1/{TP_RANKS} of their conv's rows")
+        if not max(r["int8_tta_err"]) <= bound:
+            raise AssertionError(f"14e(b) rank {r['rank']}: int8 tta off one process's by "
+                                 f"{r['int8_tta_err']}, above {bound}")
+        if not (r["int8_scale_gap"] <= TP_SCALE_RTOL["fp32"]
+                and r["int8_mc_scale_gap"] <= TP_SCALE_RTOL["bf16"]):
+            raise AssertionError(f"14e rank {r['rank']}: calibrated scales off one process's by "
+                                 f"rel {r['int8_scale_gap']} (fp32), {r['int8_mc_scale_gap']} "
+                                 f"(bf16), above {TP_SCALE_RTOL}")
+        q = r["int8_request"]
+        if not (q["agree"] >= TP_AGREE and q["mean_err"] <= 0.05):
+            raise AssertionError(f"14e(c) rank {r['rank']}: argmax agreement {q['agree']}, max "
+                                 f"mean-prob error {q['mean_err']} against one process's")
+        tta = r["int8_tta_counts"]
+        if not (tta["int8_conv"] > 0 and tta["conv3x3_bn_gelu"] == 0):
+            raise AssertionError(f"14e(b) rank {r['rank']}: launches {tta}")
+        for k in COUNTERS:
+            launched[k] += tta[k] + q["counts"][k]
+        (p_b, q_b), (one_p, one_q) = q["bytes"], one["bytes"]
+        log(f"  14e rank {r['rank']}: {n_sh} int8 convs on their shards (weight_q rows 1/"
+            f"{TP_RANKS} of the conv's); calibrated x_scale against one process's: max rel "
+            f"{r['int8_scale_gap']:.3e} (fp32), {r['int8_mc_scale_gap']:.3e} (bf16, MC on) "
+            f"(tolerances {TP_SCALE_RTOL}); (b) int8 tta fp32 B={TP_INT8_TTA_B}: mean max_abs_err "
+            f"{r['int8_tta_err'][0]:.3e}, std {r['int8_tta_err'][1]:.3e} (tolerance "
+            f"{bound:.3e}); (c) int8 tta_mc bf16 B={B_SERVE}, no warm-up: {q['ms']:.1f} ms (host "
+            f"clock, collectives timed apart: {q['collective_ms']:.1f} ms in "
+            f"{q['collectives']} collectives), argmax agreement with one process's on the same "
+            f"masks {q['agree']:.3f} (gate {TP_AGREE}), max mean-prob error {q['mean_err']:.3e}; "
+            f"peak {q['peak_gib']:.2f} GiB; parameters {p_b / 2 ** 20:.1f} MiB + int8 convs "
+            f"{q_b / 2 ** 20:.1f} MiB (one process {one_p / 2 ** 20:.1f} + "
+            f"{one_q / 2 ** 20:.1f}); launches {q['counts']}")
+    log(f"  14e one process: int8 tta_mc bf16 B={B_SERVE}, no warm-up: {one['ms']:.1f} ms (host "
+        f"clock), peak {one['peak_gib']:.2f} GiB; launches {one['counts']}; {smi}")
     log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
-    return launched, err14a, sums14a
+    return launched, err14a, sums14a, one["sums"]
 
 
 def main():
@@ -5044,7 +5324,7 @@ def main():
         # phase 13: the data mesh; its launches are the ranks'
         mesh_launches = phase_mesh(cfg, tmp, smi)
         # phase 14: the model axis; its launches are the ranks'
-        tp_launches = phase_tp(cfg, tmp, smi)[0]
+        tp_launches, _, _, measured["int8_conv"]["model_axis_shards"] = phase_tp(cfg, tmp, smi)
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]

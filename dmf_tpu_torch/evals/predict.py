@@ -32,7 +32,11 @@ masks differ from one process's; with one data rank they are the caller's.
 Over a model axis (JAX's GSPMD route, :175-183) the models are sharded in
 place by ``parallel/sharding.py::param_spec`` (``parallel/tensor.py``) and
 the model ranks of each data rank run its rows together, with the same
-masks (a dropout on a shard keeps that shard of the whole mask).
+masks (a dropout on a shard keeps that shard of the whole mask).  The int8
+forwards serve there too, built from the sharded models (their quantized
+copies hold :class:`~..ops.quant.ShardedQuantConv2d` shards): the models are
+sharded before they are quantized, and a forward that holds a whole int8
+conv that the model axis would shard is refused.
 """
 
 from __future__ import annotations
@@ -221,14 +225,32 @@ def _views(mode: str) -> int:
     return 4 if mode in ("tta", "tta_mc") else 1
 
 
-def _place(models, mesh) -> None:
+def _place(models, mesh, fwd: Optional[PassForward] = None) -> None:
     """Shard ``models`` in place over ``mesh``'s model axis (identical whole
-    weights on every rank; layers already sharded stay)."""
-    if mesh is not None and mesh.n_model > 1:
-        from ..parallel.tensor import tensor_parallel
+    weights on every rank; layers already sharded stay).  ``fwd``'s models
+    are not sharded here: a whole :class:`~..ops.quant.QuantConv2d` that
+    ``param_spec`` would shard (by its name and whole weight shape) raises,
+    as it would run unsharded on every rank."""
+    if mesh is None or mesh.n_model == 1:
+        return
+    from ..ops.quant import QuantConv2d, ShardedQuantConv2d
+    from ..parallel.sharding import param_spec
+    from ..parallel.tensor import tensor_parallel
 
-        for m in models:
-            tensor_parallel(m, mesh)
+    held = () if fwd is None else (*fwd.prefix_encoders, *fwd.encoders, fwd.fusion,
+                                   *fwd.modules.values())
+    for model in {id(m): m for m in held}.values():
+        for name, m in model.named_modules():
+            if isinstance(m, QuantConv2d) and not isinstance(m, ShardedQuantConv2d):
+                shape = (m.out_channels, m.in_channels, *m.kernel_size)
+                if param_spec(f"{name}.weight", torch.empty(shape, device="meta"),
+                              mesh.n_model) is not None:
+                    raise ValueError(
+                        f"fwd_override holds a whole int8 conv {name} {shape} that the "
+                        f"{mesh.n_model}-way model axis shards: shard the models first "
+                        f"(parallel/tensor.py::tensor_parallel), then quantize them")
+    for m in models:
+        tensor_parallel(m, mesh)
 
 
 def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
@@ -246,17 +268,14 @@ def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
     :class:`PassForward`, e.g. ``ops/quant.py``'s ``make_quantized_fusion_fwd``
     or ``make_hybrid_fusion_fwd``) replaces the per-pass forward and the
     hoisted prefix.  ``mesh`` serves each request over a mesh (the
-    module's docstring; over a model axis the models are sharded in place);
+    module's docstring; over a model axis the models are sharded in place,
+    and an int8 ``fwd_override`` must be built from the sharded models);
     every rank passes the whole batch and the same generator state.
     """
     if fwd_override is not None and not isinstance(fwd_override, PassForward):
         raise TypeError(f"fwd_override must be a PassForward (ops/quant.py's int8 forwards "
                         f"make one), got {type(fwd_override).__name__}")
-    if fwd_override is not None and mesh is not None and mesh.n_model > 1:
-        from ..ops.quant import INT8_TP_TODO
-
-        raise NotImplementedError(f"fwd_override over a model axis: {INT8_TP_TODO}")
-    _place((dwi_model, dce_model, fusion_model), mesh)
+    _place((dwi_model, dce_model, fusion_model), mesh, fwd_override)
     fwd = fwd_override or PassForward((dwi_model, dce_model), (dwi_model, dce_model),
                                       fusion_model)
     mode = mode or cfg.test_mode

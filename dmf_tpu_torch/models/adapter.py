@@ -16,7 +16,10 @@ in eval too: the conv module, eval BatchNorm, exact GELU (adapter.py:70-73),
 so kernel 2 is not launched at a quantized neck.  A neck conv sharded over a
 mesh's model axis (``parallel/tensor.py::ShardedConv2d``) runs kernel 2 on
 its output-channel shard, BatchNorm's statistics and shift sliced to the
-shard (both are per channel), then gathers the channels.  (On the CPU JAX quantizes
+shard (both are per channel), then gathers the channels; a quantized shard
+(``ShardedQuantConv2d``, no ``ShardedConv2d``) takes the quantized neck's
+route: the int8 conv on the shard and the gather, then eval BatchNorm and
+GELU on the whole map.  (On the CPU JAX quantizes
 all six neck convs; on a TPU its Pallas neck would bypass the interceptor.)
 
 Unlike the JAX module, the adapter takes the backbone's features rather than

@@ -22,9 +22,19 @@ kernels do.
 What is quantized: every ``nn.Conv2d`` with ``groups == 1``, at least
 ``min_fan_in`` inputs (kh * kw * Cin) and ``min_out`` outputs, except the SE
 blocks' 1x1 convs, which stand for the JAX model's Dense layers
-(``dmf_tpu/models/layers.py:187-189``).  A model sharded over a mesh's model
-axis is not quantized: a :class:`QuantConv2d` has no shard route yet
-(:data:`INT8_TP_TODO`).
+(``dmf_tpu/models/layers.py:187-189``).
+
+Over a mesh's model axis (``parallel/tensor.py``) the models are sharded
+first, then quantized, as JAX shards its state before it builds the int8
+forward (``dmf_tpu/pipeline/run_fusion.py:130-166``).  A
+:class:`~..parallel.tensor.ShardedConv2d` is quantized from its shard: the
+weight scheme is per output channel, so its QuantSet entry is bit for bit
+rows ``[lo:hi]`` of one process's, and the size test is made on the whole
+conv, as JAX tests the global leaf.  Its int8 stand-in
+(:class:`ShardedQuantConv2d`) quantizes the whole (replicated) input, whose
+scale is then the same on every rank, runs the int8 conv on its rows with
+the bias in the dequantizing epilogue, and gathers the channels: the map is
+bit-equal to one process's.
 
 Where JAX swaps convs at trace time with a Flax method interceptor, the port
 swaps modules: :func:`quantized_copy` deep-copies a model and puts a
@@ -74,10 +84,6 @@ import torch.nn.functional as F
 #                                "bias": (O,) fp32 where the conv has one,
 #                                "x_scale": () fp32 once calibrated}}
 QuantSet = Dict[str, Dict[str, torch.Tensor]]
-
-# a QuantConv2d has no shard route over a mesh's model axis
-INT8_TP_TODO = ("int8 serving over a mesh's model axis is not ported (ROADMAP 1.13c): "
-                "serve int8 on a data mesh")
 
 
 # ------------------------------------------------------------ plain versions
@@ -205,24 +211,42 @@ def quantize_kernel_per_channel(weight: torch.Tensor) -> Tuple[torch.Tensor, tor
     return q.permute(0, 2, 3, 1).contiguous(), scale
 
 
+def _sharded(conv: nn.Module) -> bool:
+    """Whether ``conv`` is an output-channel shard (imported here: a serving
+    process imports the operators of ``ops`` alone)."""
+    from ..parallel.tensor import ShardedConv2d
+
+    return isinstance(conv, ShardedConv2d)
+
+
+def _quantizable(conv: nn.Module) -> bool:
+    """An ungrouped ``nn.Conv2d``, or the output-channel shard of one."""
+    return (type(conv) is nn.Conv2d and conv.groups == 1) or _sharded(conv)
+
+
+def _rank_bias(conv: nn.Module) -> Optional[torch.Tensor]:
+    """The conv's bias, this rank's channels of it for a sharded conv (whose
+    bias is replicated whole)."""
+    return conv.channels(conv.bias)[0] if _sharded(conv) else conv.bias
+
+
 def build_quant_set(model: nn.Module, min_fan_in: int = 256, min_out: int = 32) -> QuantSet:
     """Pre-quantize every conv of ``model`` big enough to win on the tensor
     cores (quant.py:48-73), keyed by module name; ``groups == 1`` only
     (quant.py:152-153).  The weights must be fp32 (JAX's params are); an
-    entry also holds the conv's bias in fp32."""
+    entry also holds the conv's bias in fp32.  A conv sharded over a model
+    axis is tested on its whole size and quantized from its shard: its
+    entry is this rank's rows of one process's."""
     from ..models.layers import SEBlock
-    from ..parallel.tensor import parameter_shards
 
-    if parameter_shards(model):
-        raise NotImplementedError(f"a model sharded over a model axis: {INT8_TP_TODO}")
     dense = {id(m) for se in model.modules() if isinstance(se, SEBlock)
              for m in se.fc.modules()}
     out: QuantSet = {}
     for name, conv in model.named_modules():
-        if type(conv) is not nn.Conv2d or id(conv) in dense or conv.groups != 1:
+        if not _quantizable(conv) or id(conv) in dense:
             continue
-        o, i, kh, kw = conv.weight.shape
-        if kh * kw * i < min_fan_in or o < min_out:
+        _, i, kh, kw = conv.weight.shape
+        if kh * kw * i < min_fan_in or conv.out_channels < min_out:
             continue
         if isinstance(conv.padding, str):
             raise ValueError(f"{name}: padding {conv.padding!r} is not explicit")
@@ -231,8 +255,24 @@ def build_quant_set(model: nn.Module, min_fan_in: int = 256, min_out: int = 32) 
                              f"(a bf16 model's weights are rounded)")
         q, scale = quantize_kernel_per_channel(conv.weight)
         out[name] = {"kernel_q": q, "scale": scale}
-        if conv.bias is not None:
-            out[name]["bias"] = conv.bias.detach().to("cpu", torch.float32, copy=True)
+        bias = _rank_bias(conv)
+        if bias is not None:
+            out[name]["bias"] = bias.detach().to("cpu", torch.float32, copy=True)
+    return out
+
+
+def shard_quant_set(qset: QuantSet, model: nn.Module) -> QuantSet:
+    """``qset`` with each whole entry of a conv that ``model`` holds sharded
+    cut to this rank's rows (``kernel_q``, ``scale`` and ``bias``; the
+    per-tensor ``x_scale`` stays); entries already of the shard's size, and
+    those of whole convs, as they are.  A QuantSet of a model's fp32
+    original, or of one process, then serves the sharded model."""
+    out: QuantSet = {}
+    for name, e in qset.items():
+        conv = model.get_submodule(name)
+        if _sharded(conv) and e["kernel_q"].shape[0] == conv.out_channels:
+            e = {k: v[conv.lo:conv.hi].clone() if k != "x_scale" else v for k, v in e.items()}
+        out[name] = e
     return out
 
 
@@ -254,15 +294,15 @@ class QuantConv2d(nn.Module):
             raise ValueError(f"QuantSet weight {tuple(q['kernel_q'].shape)} for a conv of "
                              f"{(o, kh, kw, c)} (O, kh, kw, C)")
         dev = conv.weight.device
-        xs, bias = q.get("x_scale"), q.get("bias", conv.bias)
+        xs, bias = q.get("x_scale"), q.get("bias", _rank_bias(conv))
         self.register_buffer("weight_q", q["kernel_q"].to(dev))
         self.register_buffer("w_scale", q["scale"].to(dev, torch.float32))
         self.register_buffer("x_scale", None if xs is None else
                              torch.as_tensor(xs, dtype=torch.float32).reshape(()).to(dev))
         self.register_buffer("bias", None if bias is None else
                              bias.detach().to(dev, torch.float32, copy=True))
-        self.in_channels, self.out_channels = conv.in_channels, conv.out_channels
-        self.kernel_size = conv.kernel_size
+        self.in_channels, self.out_channels = c, conv.out_channels
+        self.kernel_size = (kh, kw)
         self.stride, self.padding, self.dilation = conv.stride, conv.padding, conv.dilation
 
     def _apply(self, fn, recurse=True):
@@ -289,6 +329,24 @@ class QuantConv2d(nn.Module):
                          self.padding, self.dilation, x.dtype)
 
 
+class ShardedQuantConv2d(QuantConv2d):
+    """The int8 stand-in of a :class:`~..parallel.tensor.ShardedConv2d`:
+    :class:`QuantConv2d`'s buffers hold this rank's rows ``[lo:hi]`` of the
+    weight, its scale and the bias (``q`` the shard's QuantSet entry); the
+    activation scale is per tensor and whole.  The forward quantizes the
+    whole input (the same on every model rank, so is a dynamic scale), runs
+    the int8 conv on the shard with the bias in its epilogue, and gathers
+    the channels over the model group: bit-equal to one process's conv.
+    ``out_channels`` is the whole conv's."""
+
+    def __init__(self, conv: nn.Module, q: Dict[str, torch.Tensor]):
+        super().__init__(conv, q)
+        self.mesh, self.lo, self.hi = conv.mesh, conv.lo, conv.hi
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return self.mesh.model_gather(super().forward(x), 1)
+
+
 def _replace(model: nn.Module, name: str, new: nn.Module) -> None:
     parent, _, leaf = name.rpartition(".")
     setattr(model.get_submodule(parent) if parent else model, leaf, new)
@@ -296,13 +354,15 @@ def _replace(model: nn.Module, name: str, new: nn.Module) -> None:
 
 def quantized_copy(module: nn.Module, qset: QuantSet) -> nn.Module:
     """A deep copy of ``module`` (its own tensors) with each conv named in
-    ``qset`` replaced by a :class:`QuantConv2d`."""
+    ``qset`` replaced by a :class:`QuantConv2d` (a :class:`ShardedQuantConv2d`
+    for a sharded conv: the copy shares the mesh)."""
     out = copy.deepcopy(module)
     for name, q in qset.items():
         conv = out.get_submodule(name)
-        if type(conv) is not nn.Conv2d:
-            raise ValueError(f"{name}: not an nn.Conv2d ({type(conv).__name__})")
-        _replace(out, name, QuantConv2d(conv, q))
+        if not _quantizable(conv):
+            raise ValueError(f"{name}: not an ungrouped nn.Conv2d ({type(conv).__name__})")
+        cls = ShardedQuantConv2d if _sharded(conv) else QuantConv2d
+        _replace(out, name, cls(conv, q))
     return out
 
 
@@ -357,7 +417,9 @@ def calibrate_act_scales(module: nn.Module, qset: QuantSet, *args,
     its calls, stored as ``x_scale = float32(max(amax, 1e-12) / 127)`` with
     the division in float64.  The forward runs on a copy sharing ``module``'s
     tensors, with a recorder around each conv (the adapter necks on the
-    conv / BatchNorm / GELU route).  Returns the forward's outputs."""
+    conv / BatchNorm / GELU route).  A sharded conv's input is whole, so
+    every model rank records the same scale (up to the rounding of its
+    sharded activations).  Returns the forward's outputs."""
     seen: Dict[str, torch.Tensor] = {}
     shared = {id(t): t for t in (*module.parameters(), *module.buffers())}
     probe = copy.deepcopy(module, memo=dict(shared))
@@ -386,7 +448,10 @@ def make_quantized_fusion_apply(dwi_model: nn.Module, dce_model: nn.Module,
     and returns ``(logits, fused_mask, aux, parts, None)`` (maps NCHW).
     ``weights`` are the fp32 models whose convs are quantized, where the
     models compute in bf16 (JAX quantizes its fp32 params whatever the
-    compute dtype); by default the models themselves.  ``calibration`` is
+    compute dtype); by default the models themselves.  Models sharded over
+    a model axis are quantized from their shards; whole ``weights`` of
+    sharded models give QuantSets cut to the shards (:func:`shard_quant_set`).
+    ``calibration`` is
     ``(dwi_x, dce_x)``, preprocessed NHWC volumes as served, run through the
     models (in their dtype, as JAX calibrates in its compute dtype);
     ``calibration_mc=True`` calibrates with MC dropout on, its masks from
@@ -397,8 +462,8 @@ def make_quantized_fusion_apply(dwi_model: nn.Module, dce_model: nn.Module,
     from ..evals.predict import to_model
 
     models = (dwi_model, dce_model, fusion_model)
-    qsets = {k: build_quant_set(m, **quant_kw)
-             for k, m in zip(("dwi", "dce", "fusion"), weights or models)}
+    qsets = {k: shard_quant_set(build_quant_set(w, **quant_kw), m)
+             for k, w, m in zip(("dwi", "dce", "fusion"), weights or models, models)}
     if calibration is not None:
         dwi_x, dce_x = (to_model(x, m) for x, m in zip(calibration, (dwi_model, dce_model)))
         gen = calibration_rng

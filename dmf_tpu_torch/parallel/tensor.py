@@ -121,8 +121,11 @@ def gather_from_model(x: torch.Tensor, mesh, dim: int) -> torch.Tensor:
 def _shard_param(p: nn.Parameter, spec: ShardSpec, mesh) -> nn.Parameter:
     idx = shard_index(spec, p.shape[spec.dim], mesh.n_model, mesh.model_rank)
     local = p.detach().index_select(spec.dim, idx.to(p.device))
-    if p.dim() == 4 and p.is_contiguous(memory_format=torch.channels_last):
-        local = local.contiguous(memory_format=torch.channels_last)
+    if p.dim() == 4:
+        # a conv weight keeps its strides, those of its size-1 dims too: a
+        # 1x1 weight's are ambiguous, and cuDNN picks the output's memory
+        # format (the order of the next dropout's draws) from them
+        local = torch.empty_like(p.detach().narrow(spec.dim, 0, len(idx))).copy_(local)
     return nn.Parameter(local, requires_grad=p.requires_grad)
 
 

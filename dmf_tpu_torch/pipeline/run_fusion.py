@@ -33,6 +33,7 @@ from ..models.build import init_weights
 from ..models.fusion import FusionModel
 from ..parallel.mesh import Mesh, mesh_from_config
 from ..parallel.sharding import full_parameters
+from ..parallel.tensor import tensor_parallel
 from ..train.fusion import FusionNetwork
 from ..train.loop import fit_fusion
 from ..train.state import TrainState
@@ -97,13 +98,18 @@ def test_fusion_model(cfg: Config, state: TrainState, test_data: Dict[str, np.nd
     ``tta_mc`` from a generator seeded ``seed + 1`` (run_fusion.py:110-165).
     ``mesh``: each batch served over the mesh (``evals/predict.py``; over a
     model axis the state's models are sharded in place), the int8 forward
-    included on a data mesh (the calibration runs on every rank alike); int8
-    over a model axis raises ``NotImplementedError`` (ROADMAP 1.13c)."""
+    included: over a model axis the models are sharded before they are
+    quantized (JAX's order, run_fusion.py:130-166), and each rank's int8
+    convs hold its output-channel shard; the calibration runs on every rank
+    alike."""
     t_start = time.time()
     net = state.model
     device = next(net.parameters()).device
     fwd_override = None
     if int8:
+        if mesh is not None:
+            for m in (net.dwi, net.dce, net.fusion):
+                tensor_parallel(m, mesh)
         from ..ops.quant import make_quantized_fusion_apply, make_quantized_fusion_fwd
 
         calib = calibration_data if calibration_data is not None else test_data

@@ -225,3 +225,21 @@ def test_param_spec_rules():
         ShardSpec(0, 3)
     with pytest.raises(ValueError, match="head-aligned"):
         param_spec("x.attn.qkv.weight", z(12, 4), 3)
+
+
+@pytest.mark.parametrize("kernel", [1, 3])
+@pytest.mark.parametrize("fmt", [torch.channels_last, torch.contiguous_format])
+def test_conv_shard_keeps_the_weights_strides(kernel, fmt):
+    """A conv shard keeps its weight's strides, those of a 1x1 kernel's
+    size-1 dims too, which ``is_contiguous`` does not tell apart: cuDNN picks
+    the conv's output format from them, and a dropout after the conv draws
+    its mask in that format's memory order."""
+    from dmf_tpu_torch.parallel.tensor import ShardedConv2d
+
+    conv = torch.nn.Conv2d(64, 128, kernel, bias=False).to(memory_format=fmt)
+    whole = conv.weight.detach().clone()
+    for r in range(M):
+        shard = ShardedConv2d(conv, types.SimpleNamespace(n_model=M, model_rank=r), ShardSpec(0))
+        want = torch.empty((64, 64, kernel, kernel), memory_format=fmt).stride()
+        assert shard.weight.stride() == want
+        assert torch.equal(shard.weight, whole[64 * r:64 * (r + 1)])

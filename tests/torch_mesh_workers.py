@@ -11,6 +11,7 @@ single-process run the tests hold the mesh's against.  States come back
 whole (a model sharded over the model axis is gathered).
 """
 
+import copy
 import os
 
 import numpy as np
@@ -278,10 +279,12 @@ def tp_steps(mesh, **kw):
     return out
 
 
-def tp_test_fusion(mesh, cfg, models, test_data, chunks=(None, 2)):
+def tp_test_fusion(mesh, cfg, models, test_data, chunks=(None, 2), int8=False,
+                   calibration_data=None):
     """``test_fusion_model(mesh=)`` on a fusion network's state, per
     ``mc_chunk`` in ``chunks``: probabilities, std, the modality attention
-    and the metrics; and the error of ``int8=True``."""
+    and the metrics (``int8=True``: on the int8 convs, calibrated on
+    ``calibration_data``)."""
     from dmf_tpu_torch.pipeline.run_fusion import test_fusion_model
     from dmf_tpu_torch.train import TrainState
     from dmf_tpu_torch.train.fusion import FusionNetwork
@@ -289,13 +292,9 @@ def tp_test_fusion(mesh, cfg, models, test_data, chunks=(None, 2)):
     state = TrainState.create(FusionNetwork(*models), num_groups=4)
     out = {}
     for c in chunks:
-        r = test_fusion_model(cfg.replace(mc_chunk=c), state, test_data, seed=0, mesh=mesh)
+        r = test_fusion_model(cfg.replace(mc_chunk=c), state, test_data, seed=0, mesh=mesh,
+                              int8=int8, calibration_data=calibration_data)
         out[c] = {k: r[k] for k in ("probs", "std", "labels", "modality_attention", "metrics")}
-    if mesh is not None:
-        try:
-            test_fusion_model(cfg, state, test_data, seed=0, int8=True, mesh=mesh)
-        except NotImplementedError as e:
-            out["int8"] = str(e)
     return out
 
 
@@ -323,6 +322,106 @@ def tp_neck(mesh, adapter, feats):
             "input_grads": grads[:len(xs)], "grads": pgrads, "sharded": sorted(shards)}
 
 
+# ---------------------------------------------------------------- int8 on the model axis
+def _quant_shapes(*models):
+    """``{name: (class, weight_q shape)}`` of every int8 conv of ``models``."""
+    from dmf_tpu_torch.ops.quant import QuantConv2d
+
+    return {f"{i}.{n}": (type(m).__name__, tuple(m.weight_q.shape))
+            for i, model in enumerate(models) for n, m in model.named_modules()
+            if isinstance(m, QuantConv2d)}
+
+
+def tp_int8_conv(mesh, convs, x, adapter, feats, neck_qset):
+    """The int8 convs of ``convs`` (a ModuleDict of whole ``nn.Conv2d``),
+    sharded over the model axis where ``param_spec`` says so: their QuantSet
+    (from the shards), and the outputs of the quantized copies on ``x`` with
+    static (x's abs-max) and dynamic scales, in fp32 and bf16; and the
+    adapter's necks on the int8 convs of ``neck_qset`` (one process's, cut
+    to the shards) in fp32 and bf16, with kernel 2's calls."""
+    import dmf_tpu_torch.models.adapter as adapter_mod
+    from dmf_tpu_torch.ops import quant
+    from dmf_tpu_torch.parallel.tensor import tensor_parallel
+
+    if mesh is not None:
+        tensor_parallel(convs, mesh)
+        tensor_parallel(adapter, mesh)
+    qset = quant.build_quant_set(convs, min_fan_in=64, min_out=8)
+    x = torch.as_tensor(x)
+    # the size test on the whole conv: Cout 128 passes, a shard's 64 would not
+    wide = sorted(quant.build_quant_set(convs, min_fan_in=64, min_out=100))
+    xs = torch.tensor(float(x.abs().max()) / 127.0)
+    out = {"qset": qset, "y": {}, "selected_at_min_out_100": wide}
+    for static in (True, False):
+        q = {n: dict(e, x_scale=xs) if static else e for n, e in qset.items()}
+        copies = {dt: quant.quantized_copy(convs, q).to(dt) for dt in (torch.float32,
+                                                                       torch.bfloat16)}
+        out["shapes"] = _quant_shapes(copies[torch.float32])
+        with torch.no_grad():
+            for dt, qm in copies.items():
+                for n in qset:
+                    out["y"][(n, static, str(dt))] = qm[n](x.to(dt))
+    neck = quant.quantized_copy(adapter, quant.shard_quant_set(neck_qset, adapter))
+    out["neck_shapes"] = _quant_shapes(neck)
+    calls, plain = [], adapter_mod.conv3x3_bn_gelu
+
+    def counted(*a, **k):
+        calls.append(1)
+        return plain(*a, **k)
+
+    adapter_mod.conv3x3_bn_gelu = counted
+    try:
+        with torch.no_grad():
+            out["neck"] = {str(dt): copy.deepcopy(neck).to(dt)([torch.as_tensor(f).to(dt)
+                                                                for f in feats])
+                           for dt in (torch.float32, torch.bfloat16)}
+    finally:
+        adapter_mod.conv3x3_bn_gelu = plain
+    out["neck_kernel_2"] = len(calls)
+    return out
+
+
+def tp_int8_predict(mesh, cfg, models, calibration, requests, qsets=None, cases=()):
+    """Int8 serving over the model axis on the models sharded first: the
+    QuantSets that ``make_quantized_fusion_apply`` builds and calibrates
+    (``calibration_mc=False``) on the shards, and, on ``qsets`` (one
+    process's, cut to the shards), the predictors of ``make_quantized_fusion_fwd``
+    ("int8") and ``make_hybrid_fusion_fwd`` ("hybrid") in each case ``(kind,
+    mode)`` on each request, MC masks from a generator seeded 3; the int8
+    weights' shapes; and the error of a predictor over the mesh on a whole
+    int8 forward."""
+    from dmf_tpu_torch.evals.predict import make_fusion_predictor
+    from dmf_tpu_torch.ops import quant
+    from dmf_tpu_torch.parallel.tensor import tensor_parallel
+
+    whole = copy.deepcopy(models)
+    if mesh is not None:
+        for m in models:
+            tensor_parallel(m, mesh)
+    _, own = quant.make_quantized_fusion_apply(*models, calibration=calibration,
+                                               calibration_mc=False)
+    out = {"qsets": own, "y": {}}
+    qsets = qsets or own
+    cut = {k: quant.shard_quant_set(qsets[k], m)
+           for k, m in zip(("dwi", "dce", "fusion"), models)}
+    fwds = {"int8": quant.make_quantized_fusion_fwd(*models, cut),
+            "hybrid": quant.make_hybrid_fusion_fwd(*models, cut)}
+    out["shapes"] = _quant_shapes(*fwds["int8"].modules.values())
+    for kind, mode in cases:
+        predictor = make_fusion_predictor(cfg, *models, mode=mode, fwd_override=fwds[kind],
+                                          mesh=mesh)
+        g = torch.Generator().manual_seed(3)
+        out["y"][(kind, mode)] = [predictor(torch.as_tensor(a), torch.as_tensor(b), g)[:2]
+                                  for a, b in requests]
+    if mesh is not None:
+        try:
+            make_fusion_predictor(cfg, *whole, mode="tta", mesh=mesh,
+                                  fwd_override=quant.make_quantized_fusion_fwd(*whole, qsets))
+        except ValueError as e:
+            out["refused"] = str(e)
+    return out
+
+
 def several(mesh, jobs):
     """Several jobs in one spawn: ``[(name, kwargs), ...]`` -> their results."""
     return [JOBS[name](mesh, **kw) for name, kw in jobs]
@@ -330,4 +429,5 @@ def several(mesh, jobs):
 
 JOBS = {"steps": steps, "predict": predict, "multifold": multifold, "fit": fit,
         "multifold_fit": multifold_fit, "tp_forward": tp_forward, "tp_steps": tp_steps,
-        "tp_test_fusion": tp_test_fusion, "tp_neck": tp_neck, "several": several}
+        "tp_test_fusion": tp_test_fusion, "tp_neck": tp_neck, "tp_int8_conv": tp_int8_conv,
+        "tp_int8_predict": tp_int8_predict, "several": several}
