@@ -62,9 +62,9 @@ Phases, each printing its own lines:
   6. a profiler breakdown of one more ``tta_mc`` and one ``hybrid-nb``
      ``normal`` request;
   7. training at full width, a whole fold of the default config (dilated
-     ResNet-50 encoders, 256^2, fp32 with TF32 off): 7a four train steps at
+     ResNet-50 encoders, 256^2, fp32 with TF32 off): 7a two train steps at
      B=2 on the card and on the CPU from the same weights and processed
-     batches, two with the backbone group frozen and two after its
+     batches, one with the backbone group frozen and one after its
      unfreeze, the per-step losses and then the parameters and BatchNorm
      statistics beside their tolerances (against the disagreement of two CPU
      memory formats), with the launches per train step (none of kernels 1,
@@ -75,10 +75,10 @@ Phases, each printing its own lines:
      validation and test times, the peak memory, the run's launches, the
      backbone bit-equal after the frozen epoch and trained after, the best
      checkpoint's reload, the test ensemble's sums and MC std, and one
-     profiled train step (idle share, top kernels); 7c four fusion train
+     profiled train step (idle share, top kernels); 7c two fusion train
      steps of the default models at full width (two ResNet-50 encoders and
-     the fusion head) at B=4 on the card and on the CPU, two with the
-     encoders frozen and two after group 2's unfreeze (losses, then
+     the fusion head) at B=4 on the card and on the CPU, one with the
+     encoders frozen and one after group 2's unfreeze (losses, then
      parameters and statistics against two CPU memory formats, no kernel
      launched); 7d the rest of the fold: ``run_single_model("dce")`` beside
      7b's DWI run, then ``run_fusion_model`` over both for three epochs with
@@ -98,8 +98,8 @@ Phases, each printing its own lines:
      the default config at full width as JSON; the imports (host seconds)
      held bit-equal to ``build_single_model(..., pretrained_path=)`` on the
      card at 14 and 6 channels and to ``build_backbone`` for resnet50d; then
-     ``cli.main(["run", "--fusion", ...])`` in-process for fold 0, two
-     epochs a stage with the backbone frozen: stage wall seconds, peak
+     ``cli.main(["run", "--fusion", ...])`` in-process for fold 0, one
+     epoch a stage with the backbone frozen: stage wall seconds, peak
      memory, a finite three-stage summary, each ``metrics.json``, the
      backbone parameters of both single runs' final and best states
      bit-equal to the import, one decodable mask triptych a stage (epoch 0),
@@ -107,7 +107,8 @@ Phases, each printing its own lines:
      validation batch's launches for each triptych); ``export-ckpt --method
      fusion`` in its own process, each file loaded strictly into fresh
      models and equal to the trained ones; ``export-serving --mode tta_mc
-     --batch 8`` on the fold's checkpoint in its own process (served in 11);
+     --batch 8`` on the fold's checkpoint in its own process (served in 11),
+     the two processes at once;
      ``debug-suite --fusion`` on the card (kernels 1 and 6 at 8-32
      channels), and its models with dropout off, card against CPU;
   9. the ViT-backed path (``dino_vitbase16_pretrain`` for both encoders,
@@ -123,7 +124,7 @@ Phases, each printing its own lines:
      seeded ViT-B/16 checkpoints in timm's layout on the 224 grid imported
      at 14 and 6 channels (bit-equal to ``build_single_model(...,
      pretrained_path=)`` on the card), then ``cli.main(["run", "--fusion",
-     ...])`` for fold 0 on phase 8's tensor store, two epochs a stage, the
+     ...])`` for fold 0 on phase 8's tensor store, one epoch a stage, the
      backbone frozen, ``use_native_loader=True`` (every train epoch's batches
      from the native loader), with 8's checks;
   10. training options under deterministic algorithms (cuDNN's and
@@ -138,7 +139,7 @@ Phases, each printing its own lines:
      parameters bit-equal and no op warning that it has no deterministic
      implementation); 10b ``cli.main(["run",
      "--parallel-folds", "--folds", "0", "1", "--methods", "dwi", "dce",
-     ...])`` on phase 8's store and checkpoint, two epochs, the backbone
+     ...])`` on phase 8's store and checkpoint, one epoch, the backbone
      frozen, against the same folds run one after another: each fold's
      ``metrics.json`` and best checkpoint bit-equal, both runs' wall seconds
      per modality, peak memory, raw loads and model builds, and the
@@ -211,13 +212,13 @@ Phases, each printing its own lines:
      sites' shard shapes (half of each Cout, the whole Cin), N=32, bf16 and
      fp32 (3xTF32), with its time, its share of the bound and cuDNN's chain
      in turns; 14b the default fusion predictor sharded over the two ranks:
-     a ``tta`` fp32 request of B=8 against one process's at phase 4's
-     tolerance, one ``tta_mc`` bf16 request of B=8 raw volumes (each rank's
+     a ``tta`` fp32 request of B=2 against one process's at phase 4's
+     tolerance, one ``tta_mc`` bf16 request of B=2 raw volumes (each rank's
      launches: kernel 2 on its shards), its ms and the ms in its
      collectives, each rank's peak memory and parameter bytes; 14c a
      ``hybrid-nb`` ``tta`` fp32 request of B=2, the flash forward on two of
      the four heads a rank, against one process's; 14d two full-width
-     fusion train steps at global B=8, fp32, dropout 0, against one
+     fusion train steps at global B=4, fp32, dropout 0, against one
      process's (losses at rel 1e-3, parameters per group at 13a's bound over
      floors at this B), the replicated parameters' gradients bit-equal on
      the two ranks, step ms, the last step's ms in collectives and both
@@ -229,10 +230,24 @@ Phases, each printing its own lines:
      the whole conv's ms and cuDNN's bf16 conv at the shard; on each rank
      (b) an int8 ``tta`` fp32 request of B=2 against one process's at 12d's
      tolerance, the calibrated scales against one process's, and (c) one
-     int8 ``tta_mc`` bf16 request of B=8 raw volumes (no warm-up): launches
+     int8 ``tta_mc`` bf16 request of B=4 raw volumes (no warm-up): launches
      as one process's (kernel 2 none), ms and ms in collectives, argmax
      agreement with one process's on the same masks, peak memory, parameter
      and int8-conv bytes;
+  15 (run after 2, so that a fault there ends the run early) the port's
+     bench (``dmf_tpu_torch/bench.py``, ``bench.py``'s counterpart): the
+     CLI's default ``bench`` in its own process (``normal``, B=128, 256^2,
+     bf16), then in-process runs of ``bench.main(argv)``, the launch counts
+     set to 0 just before and read just after each: the default ``tta_mc`` at
+     B=8 (kernels 1, 2, 6, 7 per request, exactly), ``--encoder hybrid`` and
+     ``hybrid-nb`` ``tta_mc`` at full width (B=8; B=2 with ``--mc-chunk 1``:
+     kernels 1, 6, 7, no flash forward), ``--int8-prefix --mode tta_mc``
+     (its agreement with the fp ensemble), ``--train`` at B=32 and with two
+     folds at B=8 (bf16 compute on fp32 parameters, no kernel), ``--train-e2e
+     single`` at B=32 for two epochs and ``--numerics`` (20 steps, 64 test
+     volumes; its AUC delta and agreement gated); each run's one JSON line
+     parsed, its value finite, ``mfu`` printed exactly on a card of the peak
+     table, with its seconds and peak memory;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -306,7 +321,7 @@ from dmf_tpu_torch.train.single import (make_single_eval_step,  # noqa: E402
                                         make_single_train_step)
 from dmf_tpu_torch.train.state import TrainState  # noqa: E402
 from dmf_tpu_torch.utils.checkpoint import load_checkpoint  # noqa: E402
-from dmf_tpu_torch import cli, debug_suite  # noqa: E402
+from dmf_tpu_torch import bench, cli, debug_suite  # noqa: E402
 from dmf_tpu_torch.models import init_weights, load_reference_state_dict  # noqa: E402
 from dmf_tpu_torch.models.backbones import (ResNetFeatures, ViTFeatures,  # noqa: E402
                                             build_backbone, import_resnet50,
@@ -1994,7 +2009,7 @@ def phase_profile(name, request):
 # ------------------------------------------------------------------ phase 7
 # single-modality training of the default DWI encoder (ResNet-50 at 256^2, fp32)
 B_TRAIN_PARITY = 2
-PARITY_STEPS = 2  # per epoch: 2 steps with the backbone frozen, 2 after its unfreeze
+PARITY_STEPS = 1  # per epoch: a step with the backbone frozen, one after its unfreeze
 # card vs CPU after the steps (fp32, TF32 off): per-step losses rel 1e-3 (the
 # ROADMAP's train-step tolerance).  The parameters and BatchNorm statistics are
 # held against the disagreement of two CPU runs that differ only in memory
@@ -2385,7 +2400,7 @@ def phase_run_single(cfg, raw, tmp):
 # 4 samples), 2 steps an epoch with unfreeze_timer=1, so group 2 (both
 # encoders' block3 + other) joins at step 2; 7d the fold end to end
 B_FUSION_PARITY = 4
-FUSION_PARITY_STEPS = 2
+FUSION_PARITY_STEPS = 1
 # card vs CPU after the fusion steps: each group's parameter update (L2) and
 # the statistics within three times the two CPU memory formats'
 # disagreement, or 1e-3 where that is smaller.  Three, not 7a's two: the
@@ -2657,9 +2672,9 @@ def phase_fold(cfg, raw, tmp, dwi_out, rcfg0):
 
 
 # ------------------------------------------------------------------ phase 8
-# the command line on the card: 7b's volumes as a tensor store, two epochs a
+# the command line on the card: 7b's volumes as a tensor store, one epoch a
 # stage (the backbone frozen throughout: foundation_model_unfreeze_timer=2)
-CLI_EPOCHS = 2
+CLI_EPOCHS = 1
 RASOOL_STAGES = {"conv1.": "0.", "bn1.": "1.", "layer1.": "4.", "layer2.": "5.",
                  "layer3.": "6.", "layer4.": "7."}
 
@@ -2873,35 +2888,45 @@ def phase_cli(cfg, raw, tmp, smi):
             str(CLI_EPOCHS), "--pretrained-dwi", rasool, "--pretrained-dce", rasool]
     launched, dwi_out, dce_out, fus_out = cli_fold(argv, root, results, ccfg, imports, smi)
 
-    # export-ckpt in its own process, each file strictly into a fresh model
+    # export-ckpt (each file then loaded strictly into a fresh model) and
+    # export-serving (phase 11 serves the artifact), each in its own process,
+    # the two at once
     best = os.path.join(results, "fusion", "fold_0", "checkpoints", "best.pt")
     stem = os.path.join(root, "fold0.ckpt")
     del dwi_out, dce_out
     torch.cuda.empty_cache()
     here = os.path.dirname(os.path.abspath(__file__))
+    cli_run = [sys.executable, "-m", "dmf_tpu_torch.cli"]
+    commands = {
+        "export-ckpt --method fusion": cli_run + [
+            "export-ckpt", "--config", config, "--base-path", base, "--method", "fusion",
+            "--checkpoint", best, "--out", stem],
+        f"export-serving --mode tta_mc --batch {B_SERVE}": cli_run + [
+            "export-serving", "--config", config, "--base-path", base, "--checkpoint", best,
+            "--mode", "tta_mc", "--batch", str(B_SERVE), "--out",
+            os.path.join(root, f"fold0_tta_mc_b{B_SERVE}.pt2")]}
     t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "dmf_tpu_torch.cli", "export-ckpt",
-                           "--config", config, "--base-path", base, "--method", "fusion",
-                           "--checkpoint", best, "--out", stem], cwd=here,
-                          env=dict(os.environ, PYTHONPATH=here), capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"export-ckpt exited {proc.returncode}: {proc.stderr[-2000:]}")
-    log(f"  export-ckpt --method fusion: {time.perf_counter() - t0:.2f} s in its own "
-        f"process; {'; '.join(proc.stdout.replace(root, '<tmp>').strip().splitlines())}")
-    # export-serving in its own process; phase 11 serves the artifact
-    t0 = time.perf_counter()
-    proc = subprocess.run([sys.executable, "-m", "dmf_tpu_torch.cli", "export-serving",
-                           "--config", config, "--base-path", base, "--checkpoint", best,
-                           "--mode", "tta_mc", "--batch", str(B_SERVE), "--out",
-                           os.path.join(root, f"fold0_tta_mc_b{B_SERVE}.pt2")], cwd=here,
-                          env=dict(os.environ, PYTHONPATH=here), capture_output=True,
-                          text=True, timeout=600)
-    if proc.returncode != 0:
-        raise AssertionError(f"export-serving exited {proc.returncode}: "
-                             f"{proc.stderr[-2000:]}")
-    log(f"  export-serving --mode tta_mc --batch {B_SERVE}: {time.perf_counter() - t0:.2f} s "
-        f"in its own process; {proc.stdout.replace(root, '<tmp>').strip()}")
+    with contextlib.ExitStack() as stack:
+        runs = {}
+        for name, cmd in commands.items():
+            out, err = (stack.enter_context(tempfile.TemporaryFile("w+")) for _ in range(2))
+            runs[name] = (stack.enter_context(subprocess.Popen(
+                cmd, cwd=here, env=dict(os.environ, PYTHONPATH=here), stdout=out,
+                stderr=err)), out, err)
+        try:
+            for name, (proc, out, err) in runs.items():
+                if proc.wait(timeout=600) != 0:
+                    err.seek(0)
+                    raise AssertionError(f"{name} exited {proc.returncode}: "
+                                         f"{err.read()[-2000:]}")
+                out.seek(0)
+                text = out.read().replace(root, "<tmp>").strip()
+                log(f"  {name}: {time.perf_counter() - t0:.2f} s in its own process (the "
+                    f"two at once); {'; '.join(text.splitlines())}")
+        except BaseException:
+            for proc, _, _ in runs.values():
+                proc.kill()
+            raise
     dwi_m, _ = build_single_model(ccfg, "dwi", device=DEV, generator=gen(SEED + 5))
     dce_m, _ = build_single_model(ccfg, "dce", device=DEV, generator=gen(SEED + 6))
     fresh = build_fusion_state(ccfg, TrainState.create(dwi_m), TrainState.create(dce_m),
@@ -3145,7 +3170,7 @@ def phase_vit(cfg, tmp, smi):
 # after another
 REMAT_STEPS = 3
 PF_FOLDS = (0, 1)
-PF_EPOCHS = 2
+PF_EPOCHS = 1
 
 
 @contextlib.contextmanager
@@ -4665,7 +4690,9 @@ def phase_mesh(cfg, tmp, smi):
 # pinned to it with gloo, each a process of its own started by
 # torch.distributed.run, running this file with --tp-rank
 TP_RANKS = 2
-TP_B, TP_STEPS = 8, 2  # 14d: global B=8, both ranks on the same rows
+TP_B, TP_STEPS = 4, 2  # 14d: global B=4, both ranks on the same rows
+TP_MC_B = 2  # 14b's requests: each gather moves maps of B x views (x passes)
+TP_INT8_MC_B = 4  # 14e(c): one argmax flip of 4 still meets TP_AGREE
 TP_HYB_B = 2  # 14c
 TP_INT8_TTA_B = 2  # 14e(b): B cut from 8 to keep the script inside its time limit
 TP_STEP_SEED, TP_DROP_SEED = 71, 72
@@ -4748,7 +4775,7 @@ def tp_train_steps(cfg, net, mesh=None, digests=None, peak=False, time_collectiv
 # strides)
 TP_INT8_SEED = 141
 TP_SCALE_RTOL = {"fp32": 1e-5, "bf16": 2.0 ** -5}
-TP_AGREE = 0.75  # 14e(c): argmax agreement with one process's int8 request, 8 volumes
+TP_AGREE = 0.75  # 14e(c): argmax agreement with one process's int8 request
 
 
 def tp_int8_forward(cfg, dtype, mesh=None):
@@ -4832,11 +4859,11 @@ def tp_int8_rank(cfg, mesh, out, res):
         mesh.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mean, std, _ = mesh_request(cfg, predict)
+        mean, std, _ = mesh_request(cfg, predict, b=TP_INT8_MC_B)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
     launched = counts()
-    gate("tp int8 tta_mc", cfg, launched, ref["counts"], mean, std, True, B_SERVE)
+    gate("tp int8 tta_mc", cfg, launched, ref["counts"], mean, std, True, TP_INT8_MC_B)
     res["int8_request"] = {
         "ms": dt * 1e3, "collective_ms": timer.ms, "collectives": timer.n, "counts": launched,
         "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30, "bytes": int8_bytes(fwd),
@@ -4867,7 +4894,7 @@ def tp_rank_main(out):
     predict = make_fusion_predictor(cfg, *models, mode="tta", mesh=mesh)
     res["param_bytes"] = [whole, param_bytes(*models)]
     res["sharded"] = sum(len(parameter_shards(m)) for m in models)
-    mean, std, _ = mesh_request(cfg, predict)
+    mean, std, _ = mesh_request(cfg, predict, b=TP_MC_B)
     ref = torch.load(os.path.join(out, "single_tta.pt"), map_location=DEV, weights_only=True)
     res["tta_err"] = [(mean - ref["mean"]).abs().max().item(),
                       (std - ref["std"]).abs().max().item()]
@@ -4879,15 +4906,16 @@ def tp_rank_main(out):
     res["param_bytes_bf16"] = param_bytes(*models)
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    # one request (no warm-up: each gathers ~14 GB over gloo), its collectives timed apart
+    # one request at B=TP_MC_B (no warm-up: each gathers ~3.5 GB over gloo), its
+    # collectives timed apart
     with CollectiveTimer() as timer:
         mesh.barrier()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mean, std, _ = mesh_request(cfg, predict)
+        mean, std, _ = mesh_request(cfg, predict, b=TP_MC_B)
         torch.cuda.synchronize()
         dt = time.perf_counter() - t0
-    gate("tp tta_mc", cfg, counts(), MESH_SERVE_EXPECT, mean, std, True, B_SERVE)
+    gate("tp tta_mc", cfg, counts(), MESH_SERVE_EXPECT, mean, std, True, TP_MC_B)
     res["requests"] = [{"ms": dt * 1e3, "counts": counts()}]
     res["serve_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
     res["request_collective_ms"], res["request_collectives"] = timer.ms, timer.n
@@ -5035,7 +5063,7 @@ def tp_int8_references(cfg, out):
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    mean, std, _ = mesh_request(cfg, predict)
+    mean, std, _ = mesh_request(cfg, predict, b=TP_INT8_MC_B)
     torch.cuda.synchronize()
     ms = (time.perf_counter() - t0) * 1e3
     launched = counts()
@@ -5045,7 +5073,7 @@ def tp_int8_references(cfg, out):
     n = launched["int8_conv"]
     if not (n > 0 and launched == base | {"int8_conv": n, "int8_quantize": n}):
         raise AssertionError(f"14e one process's int8 tta_mc request launched {launched}")
-    gate("14e one process int8 tta_mc", cfg, launched, launched, mean, std, True, B_SERVE)
+    gate("14e one process int8 tta_mc", cfg, launched, launched, mean, std, True, TP_INT8_MC_B)
     torch.save({"mean": mean, "counts": launched, "scales": x_scales(qsets)},
                os.path.join(out, "single_int8_tta_mc.pt"))
     sites, mods = shard_sites(cfg, predict, fwd.modules.values())
@@ -5062,7 +5090,7 @@ def phase_tp(cfg, tmp, smi):
     t_phase = time.perf_counter()
     log(f"== phase 14: the model axis (parallel/tensor.py) on a 1x{TP_RANKS} mesh at full "
         f"width: {TP_RANKS} ranks pinned to the one card with gloo; 14b the default fusion "
-        f"predictor sharded (tta fp32 against one process's, tta_mc bf16 B={B_SERVE}), 14c "
+        f"predictor sharded (tta fp32 against one process's, tta_mc bf16 B={TP_MC_B}), 14c "
         f"hybrid-nb tta fp32 B={TP_HYB_B}, 14d {TP_STEPS} fusion train steps at global "
         f"B={TP_B} fp32 (dropout 0), 14e int8 serving")
     err14a, sums14a = phase_tp_kernels()
@@ -5071,7 +5099,7 @@ def phase_tp(cfg, tmp, smi):
     os.makedirs(out)
     # one process's runs first, the references the ranks read
     models = build_fusion_models(cfg, DEV, torch.float32, gen(SEED))
-    mean, std, _ = mesh_request(cfg, make_fusion_predictor(cfg, *models, mode="tta"))
+    mean, std, _ = mesh_request(cfg, make_fusion_predictor(cfg, *models, mode="tta"), b=TP_MC_B)
     torch.save({"mean": mean, "std": std}, os.path.join(out, "single_tta.pt"))
     tta_scale = max(1.0, mean.abs().max().item())
     del models
@@ -5085,12 +5113,12 @@ def phase_tp(cfg, tmp, smi):
     one_ms = []
     models = build_fusion_models(cfg, DEV, torch.bfloat16, gen(SEED))
     predict = make_fusion_predictor(cfg, *models, mode="tta_mc")
-    mesh_request(cfg, predict)
+    mesh_request(cfg, predict, b=TP_MC_B)
     torch.cuda.reset_peak_memory_stats()
     for _ in range(REQUESTS):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
-        mesh_request(cfg, predict)
+        mesh_request(cfg, predict, b=TP_MC_B)
         torch.cuda.synchronize()
         one_ms.append((time.perf_counter() - t0) * 1e3)
     one_serve_peak = torch.cuda.max_memory_allocated() / 2 ** 30
@@ -5123,7 +5151,7 @@ def phase_tp(cfg, tmp, smi):
     log(f"== phase 14e: int8 serving over the model axis (ops/quant.py's shard route): the "
         f"models sharded, quantized and calibrated on {INT8_CALIB} volumes; (a) here, (b) a "
         f"tta fp32 request of B={TP_INT8_TTA_B} and (c) one tta_mc bf16 request of "
-        f"B={B_SERVE} on each rank")
+        f"B={TP_INT8_MC_B} on each rank")
     one = tp_int8_references(cfg, out)
 
     here = os.path.dirname(os.path.abspath(__file__))
@@ -5157,14 +5185,14 @@ def phase_tp(cfg, tmp, smi):
         whole, mine = r["param_bytes"]
         log(f"  14b rank {r['rank']}: {r['sharded']} parameters sharded; fp32 parameter bytes "
             f"{mine / 2 ** 20:.1f} MiB of the whole {whole / 2 ** 20:.1f} MiB (bf16 "
-            f"{r['param_bytes_bf16'] / 2 ** 20:.1f} MiB); tta fp32 B={B_SERVE} against one "
+            f"{r['param_bytes_bf16'] / 2 ** 20:.1f} MiB); tta fp32 B={TP_MC_B} against one "
             f"process's: mean max_abs_err {r['tta_err'][0]:.3e}, std {r['tta_err'][1]:.3e} "
-            f"(tolerance {bound:.3e}); tta_mc bf16 request (host clock, no warm-up, two "
-            f"ranks sharing one card, every collective timed apart) "
+            f"(tolerance {bound:.3e}); tta_mc bf16 request of B={TP_MC_B} (host clock, no "
+            f"warm-up, two ranks sharing one card, every collective timed apart) "
             f"{r['requests'][0]['ms']:.2f} ms, of which {r['request_collective_ms']:.1f} ms in "
             f"{r['request_collectives']} collectives; peak {r['serve_peak_gib']:.2f} GiB; "
             f"launches a request {r['requests'][-1]['counts']}")
-    log(f"  14b one process: tta_mc bf16 requests (ms, host clock) "
+    log(f"  14b one process: tta_mc bf16 requests of B={TP_MC_B} (ms, host clock) "
         + ", ".join(f"{t:.2f}" for t in one_ms) + f"; peak {one_serve_peak:.2f} GiB; bf16 "
         f"parameter bytes {one_bytes / 2 ** 20:.1f} MiB; {smi}")
     # 14c
@@ -5249,27 +5277,147 @@ def phase_tp(cfg, tmp, smi):
             f"{r['int8_scale_gap']:.3e} (fp32), {r['int8_mc_scale_gap']:.3e} (bf16, MC on) "
             f"(tolerances {TP_SCALE_RTOL}); (b) int8 tta fp32 B={TP_INT8_TTA_B}: mean max_abs_err "
             f"{r['int8_tta_err'][0]:.3e}, std {r['int8_tta_err'][1]:.3e} (tolerance "
-            f"{bound:.3e}); (c) int8 tta_mc bf16 B={B_SERVE}, no warm-up: {q['ms']:.1f} ms (host "
+            f"{bound:.3e}); (c) int8 tta_mc bf16 B={TP_INT8_MC_B}, no warm-up: {q['ms']:.1f} ms (host "
             f"clock, collectives timed apart: {q['collective_ms']:.1f} ms in "
             f"{q['collectives']} collectives), argmax agreement with one process's on the same "
             f"masks {q['agree']:.3f} (gate {TP_AGREE}), max mean-prob error {q['mean_err']:.3e}; "
             f"peak {q['peak_gib']:.2f} GiB; parameters {p_b / 2 ** 20:.1f} MiB + int8 convs "
             f"{q_b / 2 ** 20:.1f} MiB (one process {one_p / 2 ** 20:.1f} + "
             f"{one_q / 2 ** 20:.1f}); launches {q['counts']}")
-    log(f"  14e one process: int8 tta_mc bf16 B={B_SERVE}, no warm-up: {one['ms']:.1f} ms (host "
+    log(f"  14e one process: int8 tta_mc bf16 B={TP_INT8_MC_B}, no warm-up: {one['ms']:.1f} ms (host "
         f"clock), peak {one['peak_gib']:.2f} GiB; launches {one['counts']}; {smi}")
     log(f"  phase 14: {time.perf_counter() - t_phase:.1f} s")
     return launched, err14a, sums14a, one["sums"]
+
+
+# ------------------------------------------------------------------ phase 15
+# the port's bench (dmf_tpu_torch/bench.py) on the card: its argv beside
+# bench.py's defaults (B=128, 20 steps after 3 warm-up calls, 256^2); the
+# full-width hybrid-nb MC request is cut to 3 steps after 1
+BENCH_RUNS = (
+    ("tta_mc", ["--mode", "tta_mc", "--batch", "8"]),
+    ("hybrid tta_mc", ["--encoder", "hybrid", "--mode", "tta_mc", "--batch", "8"]),
+    ("hybrid-nb tta_mc", ["--encoder", "hybrid-nb", "--mode", "tta_mc", "--batch", "2",
+                          "--mc-chunk", "1", "--warmup", "1", "--steps", "3"]),
+    ("int8-prefix tta_mc", ["--int8-prefix", "--mode", "tta_mc", "--batch", "8"]),
+    ("train", ["--train", "--batch", "32", "--steps", "3"]),
+    ("train 2 folds", ["--train", "--parallel-folds", "2", "--batch", "8", "--steps", "2"]),
+    ("train-e2e single", ["--train-e2e", "single", "--train-e2e-epochs", "2", "--batch", "32"]),
+    ("numerics", ["--numerics", "--numerics-train-steps", "20", "--numerics-test-n", "64"]),
+)
+# a tta_mc request of the default models (phase 5's count)
+BENCH_TTA_MC = {"se_epilogue": 12, "conv3x3_bn_gelu": 12, "se_scale": 4, "dwi_normalize": 1}
+BENCH_AGREE, BENCH_PROB_ERR = 0.875, 0.05  # int8-prefix against fp: one of 8 may flip
+BENCH_NUMERICS = {"argmax_agreement": 0.75, "auc_delta": 0.05}
+
+
+def bench_line(name, out, result):
+    """The one JSON line a bench run printed, equal to what it returned, with
+    a finite value (> 0 but for the AUC delta)."""
+    lines = [ln for ln in out.splitlines() if ln.startswith("{")]
+    if len(lines) != 1 or json.loads(lines[0]) != result:
+        raise AssertionError(f"15 {name}: printed {lines}, returned {result}")
+    value = result["value"]
+    if not (np.isfinite(value) and (value > 0 or result["metric"] == "bf16_vs_fp32_numerics")):
+        raise AssertionError(f"15 {name}: value {value}")
+    peak = torch.cuda.get_device_name(0) in bench.PEAK_TFLOPS
+    if "achieved_tflops" in result and ("mfu" in result) != peak:
+        raise AssertionError(f"15 {name}: mfu printed {'mfu' in result}, the card in the "
+                             f"peak table {peak}")
+    return lines[0]
+
+
+def bench_gate(name, result, launched, calls):
+    """Phase 15's gates on one in-process run of ``calls`` requests or steps:
+    launches by its path, the agreement lines, a finite loss."""
+    served = all(launched[k] > 0 for k in ("se_epilogue", "se_scale", "dwi_normalize"))
+    if name == "tta_mc":
+        ok = launched == dict.fromkeys(COUNTERS, 0) | {k: v * calls
+                                                       for k, v in BENCH_TTA_MC.items()}
+    elif name.startswith("hybrid"):
+        # kernel 3 never: 256 tokens (hybrid), the MC weights route (hybrid-nb)
+        ok = served and launched["flash_attention_fwd"] == 0 and launched["int8_conv"] == 0
+    elif name.startswith("int8-prefix"):
+        ok = (served and launched["int8_conv"] > 0
+              and launched["int8_quantize"] == launched["int8_conv"]
+              and launched["int8_dynamic_quantize"] == 0
+              and result["hybrid_agreement"] >= BENCH_AGREE
+              and result["max_prob_err"] <= BENCH_PROB_ERR
+              and result["max_std_err"] <= BENCH_PROB_ERR)
+    elif name.startswith("train-e2e"):
+        # kernel 7 on every DWI train batch, kernels 1 and 6 in validation
+        ok = (served and launched["flash_attention_fwd"] == 0
+              and len(result["epoch_times_s"]) == result["epochs"])
+    elif name.startswith("train"):
+        ok = not any(launched.values())  # the train route calls no kernel
+    else:  # numerics: the bf16 and fp32 test passes run kernels 1, 2 and 6
+        ok = (launched["se_epilogue"] > 0 and launched["conv3x3_bn_gelu"] > 0
+              and launched["dwi_normalize"] == 0 and np.isfinite(result["final_train_loss"])
+              and result["argmax_agreement"] >= BENCH_NUMERICS["argmax_agreement"]
+              and result["value"] <= BENCH_NUMERICS["auc_delta"])
+    if not ok:
+        raise AssertionError(f"15 {name}: launches {launched}, line {result}")
+
+
+def phase_bench(smi):
+    """Phase 15: the CLI's default ``bench`` in its own process, then each run
+    of BENCH_RUNS in-process through ``bench.main(argv)``, the launch counts
+    set to 0 just before and read just after each; returns their sum."""
+    t_phase = time.perf_counter()
+    log(f"== phase 15: the port's bench (dmf_tpu_torch/bench.py) on {smi}")
+    root = os.path.dirname(os.path.abspath(__file__))
+    t0 = time.perf_counter()
+    run = subprocess.run([sys.executable, "-m", "dmf_tpu_torch", "bench"], cwd=root,
+                         env=dict(os.environ, PYTHONPATH=root), capture_output=True,
+                         text=True, timeout=600)
+    if run.returncode != 0:
+        raise AssertionError(f"15 cli bench: exit {run.returncode}: {run.stderr[-2000:]}")
+    result = json.loads([ln for ln in run.stdout.splitlines() if ln.startswith("{")][-1])
+    line = bench_line("cli bench", run.stdout, result)
+    if result["metric"] != "fusion_inference_throughput":
+        raise AssertionError(f"15 cli bench: {line}")
+    log(f"  15 cli bench (its own process, bench.py's defaults: normal, B=128, 256^2, bf16): "
+        f"{time.perf_counter() - t0:.1f} s: {line}")
+    total = dict.fromkeys(COUNTERS, 0)
+    for name, argv in BENCH_RUNS:
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        out = io.StringIO()
+        reset_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            result = bench.main(argv)
+        dt = time.perf_counter() - t0
+        launched = counts()
+        args = bench.parse_args(argv)
+        line = bench_line(name, out.getvalue(), result)
+        log(f"  15 {name} ({' '.join(argv)}): {dt:.1f} s, peak "
+            f"{torch.cuda.max_memory_allocated() / 2 ** 30:.2f} GiB: {line}")
+        log(f"  15 {name} launches " + ", ".join(f"{k} {v}" for k, v in launched.items() if v))
+        bench_gate(name, result, launched, 1 + args.warmup + args.steps)
+        for k, v in launched.items():
+            total[k] += v
+    torch.cuda.empty_cache()
+    log(f"  phase 15: {time.perf_counter() - t_phase:.1f} s")
+    return total
 
 
 def main():
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cuda.matmul.allow_tf32 = False
     t_start = time.perf_counter()
+
+    def mark(what):  # the script's clock after each phase
+        log(f"  [{time.perf_counter() - t_start:.1f} s] {what} done")
+
     cfg = default_parameters()
     hcfg = hybrid_nb_config(cfg)
     smi = phase_identity()
     phase_build()
+    mark("2")
+    # the bench first: its runs' launches are counted each on its own
+    bench_launches = phase_bench(smi)
+    mark("15")
     n_views = 4 * B_SERVE
     measured = {"se_epilogue": phase_epilogue(cfg.mc_passes - 1, n_views)}
     phase_epilogue_hybrid()
@@ -5280,6 +5428,7 @@ def main():
     # the backward's path: counts set to 0 just before it and read just after
     stage_launches = phase_stage_backward(hcfg)[0]
     measured["dwi_normalize"] = phase_dwi_norm()
+    mark("3a-3e")
     t0 = time.perf_counter()
     raw = make_synthetic_arrays(n_train=N_TRAIN, n_test=N_TEST, image_size=IMAGE,
                                 mask_size=IMAGE, seed=SEED)
@@ -5290,51 +5439,65 @@ def main():
     del dce_norm
     torch.cuda.empty_cache()
     measured["se_scale"] = phase_se_scale()
+    mark("3f-3g")
     phase_parity(cfg)
     phase_parity_hybrid(hcfg)
     prep_launches = phase_prepare(cfg, raw)
+    mark("4")
     raw = {k: v[:RUN_TEST if "test" in k else RUN_TRAIN] for k, v in raw.items()}
     # each served path: counts set to 0 just before it and read just after
     tta_mc_launches, request, large = phase_serve(cfg)
     hybrid_launches, hybrid_request = phase_serve_hybrid(hcfg)
     phase_profile("tta_mc", request)
     phase_profile("hybrid-nb normal", hybrid_request)
+    mark("5-6")
     phase_train_parity(cfg)
     phase_fusion_parity(cfg)
+    mark("7a, 7c")
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
         # each run: counts set to 0 just before, read just after
         run_launches, dwi_out, rcfg0 = phase_run_single(cfg, raw, tmp)
         fold_launches = phase_fold(cfg, raw, tmp, dwi_out, rcfg0)
         del dwi_out
+        mark("7b, 7d")
         cli_launches = phase_cli(cfg, raw, tmp, smi)
         del raw
+        mark("8")
         val_launches = phase_hybrid_validation(hcfg)[0]
+        mark("7e")
         # phases 9d and 10b train on phase 8's tensor store
         vit_launches = phase_vit(cfg, tmp, smi)
+        mark("9")
         t0 = time.perf_counter()
         phase_remat(cfg)
+        mark("10a")
         pf_launches = phase_parallel_folds(cfg, tmp, smi)
         log(f"  phase 10: {time.perf_counter() - t0:.1f} s")
+        mark("10b")
         # phase 11 serves phase 8's CLI artifact; its launches are the serving process's
         serving_launches = phase_serving(cfg, hcfg, tmp, smi)
+        mark("11")
         # phase 12 tests phase 8's fold on the int8 path
         int8_launches, int8_measured = phase_int8(cfg, tmp)
         measured.update(int8_measured)
+        mark("12")
         # phase 13: the data mesh; its launches are the ranks'
         mesh_launches = phase_mesh(cfg, tmp, smi)
+        mark("13")
         # phase 14: the model axis; its launches are the ranks'
         tp_launches, _, _, measured["int8_conv"]["model_axis_shards"] = phase_tp(cfg, tmp, smi)
+        mark("14")
     launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
                 + serving_launches[k] + int8_launches.get(k, 0) + mesh_launches[k]
-                + tp_launches[k] for k in COUNTERS}
+                + tp_launches[k] + bench_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the data preparation, the stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
         f"CLI, the ViT path, the fold-parallel run, the serving artifacts, the int8 "
-        f"path and the data and model meshes: {launches}")
+        f"path, the data and model meshes and the bench: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0:
             raise AssertionError(f"{name} was not launched on its path")

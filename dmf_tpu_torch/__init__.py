@@ -13,7 +13,8 @@ the hybrid CNN->Transformer encoders without a backbone (``hybrid-nb``); the
 single-modality data preparation; single-modality and fusion training
 (``pipeline.run_single.run_single_model``, ``pipeline.run_fusion.run_fusion_model``)
 with ResNet-50 backbones from local checkpoints; the command line
-(``python -m dmf_tpu_torch.cli run|debug-suite|export-ckpt|export-serving``);
+(``python -m dmf_tpu_torch run|debug-suite|bench|export-ckpt|export-serving``);
+the benchmark entry point, ``bench.py``'s counterpart (``bench.py``);
 the weights-free ``torch.export`` serving artifact (``serving.py``); and the
 mask triptych, profiling and introspection utilities (``utils/``).  Every TPU
 kernel has a hand-written Hopper counterpart in ``csrc/`` (CUDA C++), behind

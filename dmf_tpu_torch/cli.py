@@ -12,6 +12,7 @@ Usage:
         --checkpoint results/fusion/fold_0/checkpoints/best.pt --out fold0.ckpt
     python -m dmf_tpu_torch.cli export-serving --mode tta_mc --batch 8 \\
         --checkpoint results/fusion/fold_0/checkpoints/best.pt --out tta_mc_b8.pt2
+    python -m dmf_tpu_torch bench --quick --device cpu
 
 The subcommands take the JAX CLI's arguments, plus ``--device`` (default
 ``cuda``; ``cpu`` only when asked, never as a fallback).  ``run
@@ -24,8 +25,10 @@ DATA*MODEL -m dmf_tpu_torch.cli run --mesh DATAxMODEL ...``: NCCL with a
 card a rank, gloo with ``--device cpu``); the model axis shards the models
 (``parallel/sharding.py``); global rank 0 prints and writes.  ``export-serving``
 writes the weights-free ``torch.export`` serving program (``serving.py``) on
-``--device``, in place of the JAX CLI's ``--platforms``.  ``bench`` is not
-ported yet (ROADMAP 1.1).
+``--device``, in place of the JAX CLI's ``--platforms``.  ``bench`` runs
+``python -m dmf_tpu_torch.bench`` (``bench.py``'s counterpart, every mode:
+``python -m dmf_tpu_torch.bench --help``) in a subprocess with ``--quick``
+and ``--device``, as the JAX CLI runs ``bench.py``.
 """
 
 from __future__ import annotations
@@ -257,6 +260,20 @@ def cmd_debug_suite(args) -> int:
     return 0 if ok else 1
 
 
+def cmd_bench(args) -> int:
+    """The default bench (``bench.py``'s counterpart) in a subprocess, as the
+    JAX CLI runs ``bench.py`` (cli.py:240-245); its exit code."""
+    import os
+    import subprocess
+
+    cmd = [sys.executable, "-m", "dmf_tpu_torch.bench", "--device", args.device]
+    if args.quick:
+        cmd.append("--quick")
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    path = os.pathsep.join(p for p in (root, os.environ.get("PYTHONPATH")) if p)
+    return subprocess.call(cmd, env=dict(os.environ, PYTHONPATH=path))
+
+
 def cmd_export_ckpt(args) -> int:
     """Reverse migration: a checkpoint of the port -> reference Lightning
     ckpt(s) the genuine torch modules load with ``strict=True``
@@ -351,6 +368,12 @@ def build_parser() -> argparse.ArgumentParser:
     p_dbg = sub.add_parser("debug-suite", help="pre-training smoke harness")
     _add_common(p_dbg)
 
+    p_bench = sub.add_parser("bench", help="fusion inference benchmark")
+    p_bench.add_argument("--quick", action="store_true")
+    p_bench.add_argument("--device", default="cuda",
+                         help="torch device the bench uses (default cuda; cpu only when "
+                              "asked)")
+
     p_exp = sub.add_parser(
         "export-ckpt",
         help="export a trained checkpoint of the port to reference Lightning "
@@ -384,7 +407,7 @@ def build_parser() -> argparse.ArgumentParser:
 
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
-    commands = {"run": cmd_run, "debug-suite": cmd_debug_suite,
+    commands = {"run": cmd_run, "debug-suite": cmd_debug_suite, "bench": cmd_bench,
                 "export-ckpt": cmd_export_ckpt, "export-serving": cmd_export_serving}
     return commands[args.command](args)
 

@@ -8,12 +8,24 @@ on seeded random weights drawn from an explicit generator with the JAX
 package's initializers.  The models go to the card unless the caller asks
 for the CPU; on a CUDA device they are put in ``channels_last`` memory
 format, the layout the kernels take.
+
+``build_fusion_models(dtype=)`` casts whole modules, parameters and
+statistics included: the serving route.  :func:`forward_in` is the other
+route, a Flax module built with ``dtype=bfloat16`` and the default fp32
+``param_dtype`` (bench.py:537-557): fp32 master parameters cast
+differentiably to the compute dtype for one call (``torch.func.
+functional_call``), so that the gradients, the AdamW moments and the
+parameters stay fp32.  BatchNorm keeps its fp32 scale, bias and statistics
+and normalises in fp32 (``layers.BatchNorm2d``; JAX's ``TorchBatchNorm``,
+layers.py:82-110).  The other norms' scales are cast with the rest and
+normalise in fp32 inside torch's kernels, as Flax's do; only their
+parameters' rounding to bf16 differs.
 """
 
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple, Union
+from typing import Dict, Optional, Sequence, Tuple, Union
 
 import torch
 import torch.nn as nn
@@ -99,3 +111,25 @@ def build_fusion_models(cfg: Config, device="cuda", dtype: torch.dtype = torch.f
         if torch.device(device).type == "cuda":
             m.to(memory_format=torch.channels_last)
     return models
+
+
+def compute_params(module: nn.Module, dtype: torch.dtype) -> Dict[str, torch.Tensor]:
+    """``module``'s parameters for a call in ``dtype``: each floating one cast
+    differentiably (its gradient lands on the master in the master's dtype),
+    BatchNorm's scale and bias as they are."""
+    kept = {f"{name}.{p}" if name else p
+            for name, m in module.named_modules() if isinstance(m, nn.BatchNorm2d)
+            for p, _ in m.named_parameters(recurse=False)}
+    return {name: p if name in kept or not p.is_floating_point() else p.to(dtype)
+            for name, p in module.named_parameters()}
+
+
+def forward_in(module: nn.Module, dtype: Optional[torch.dtype], *args, **kwargs):
+    """``module(*args, **kwargs)`` computed in ``dtype`` on its own
+    parameters (the module's docstring): the floating tensor arguments are
+    cast too.  ``dtype=None`` is the plain call."""
+    if dtype is None:
+        return module(*args, **kwargs)
+    args = tuple(a.to(dtype) if isinstance(a, torch.Tensor) and a.is_floating_point() else a
+                 for a in args)
+    return torch.func.functional_call(module, compute_params(module, dtype), args, kwargs)

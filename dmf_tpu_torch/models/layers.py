@@ -39,12 +39,18 @@ class BatchNorm2d(nn.BatchNorm2d):
     ``train=False`` normalises with the running statistics; ``train=True``
     with the batch's biased variance, and updates the running mean and the
     Bessel-corrected running variance with momentum 0.1 (torch's semantics,
-    which ``TorchBatchNorm`` reproduces).  Under a data mesh's
+    which ``TorchBatchNorm`` reproduces).  A map in another dtype than fp32
+    parameters (``build.py::forward_in``) is normalised in fp32 and returned
+    in its own dtype, as ``TorchBatchNorm`` does.  Under a data mesh's
     :class:`~..parallel.mesh.RowShard` the batch is the global one: see
     :func:`batch_norm_over_group`.
     """
 
     def forward(self, x: torch.Tensor, train: bool = False) -> torch.Tensor:
+        if self.weight.dtype == torch.float32 and x.dtype != torch.float32:
+            # the compute route on fp32 parameters (build.py::forward_in):
+            # fp32 normalisation and statistics, the map back in its dtype
+            return self.forward(x.float(), train).to(x.dtype)
         shard = active_shard() if train else None
         if shard is not None:
             return batch_norm_over_group(self, x, shard)

@@ -22,6 +22,13 @@ operator              CUDA implementation                                 kernel
 The last three are the int8 serving path's kernels (``ops/quant.py``),
 which replace no Pallas kernel: XLA lowers JAX's int8 conv and quantize.
 
+The products among them carry FLOP formulas for
+``torch.utils.flop_counter.FlopCounterMode`` (registered on the operator
+packets here, so a count over a call that reaches the kernels sees them):
+``conv3x3_bn_gelu`` 2 N H W Cout 9 Cin, ``flash_forward`` 4 BH Nq Nk D,
+``int8_conv`` twice its multiply-adds.  The others do elementwise work,
+which the counter leaves out everywhere.
+
 Each operator has three implementations:
 
 * CUDA: the ``ctypes`` launch with its checks, on the current stream; it
@@ -50,6 +57,7 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
+from torch.utils.flop_counter import register_flop_formula
 
 from . import (conv3x3, dropout, epilogue, epilogue_cuda, flash_attention, quant, quant_cuda,
                se, se_cuda)
@@ -276,3 +284,22 @@ for _name, _cuda, _cpu, _fake in (
     _LIB.impl(_name, _cuda, "CUDA")
     _LIB.impl(_name, _cpu, "CPU")
     torch.library.register_fake(f"{NAMESPACE}::{_name}", _fake, lib=_LIB)
+
+
+# ------------------------------------------------------------ FLOP formulas
+@register_flop_formula(torch.ops.dmf.conv3x3_bn_gelu)
+def _conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    n, cout, h, w = out_shape
+    return 2 * n * h * w * cout * w_shape[1] * w_shape[2] * w_shape[3]
+
+
+@register_flop_formula(torch.ops.dmf.flash_forward)
+def _flash_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    bh, nq, d = q_shape
+    return 4 * bh * nq * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.dmf.int8_conv)
+def _int8_conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
+    _, kh, kw, cin = w_shape  # OHWI
+    return 2 * out_shape[0] * out_shape[1] * out_shape[2] * out_shape[3] * kh * kw * cin

@@ -35,6 +35,7 @@ import torch.nn as nn
 
 from ..config import Config
 from ..evals.predict import to_model
+from ..models.build import forward_in
 from ..losses import compute_recon_list_loss, label_smoothing, mimic_feat_loss, safe_mask_loss
 from ..parallel.mesh import RowShard, active_shard
 from ..parallel.sharding import reduce_gradients
@@ -146,7 +147,8 @@ def _inputs(net: FusionNetwork, batch):
 
 
 def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
-                           mask_loss_fn: Optional[Callable], spec: GroupSpec):
+                           mask_loss_fn: Optional[Callable], spec: GroupSpec,
+                           compute_dtype: Optional[torch.dtype] = None):
     """``train_step(state, batch, generator, hp) -> metrics`` on a
     :class:`FusionNetwork` state: both encoders and the head in train mode
     (dropout masks from ``generator``), the gradient of every parameter
@@ -154,7 +156,8 @@ def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
     each part, the grouped AdamW update in place.  Under a data mesh's
     :class:`~..parallel.mesh.RowShard` the step is the global batch's, and
     on a model sharded over a model axis the norms are the whole model's,
-    as ``make_single_train_step``'s."""
+    as ``make_single_train_step``'s, whose ``compute_dtype`` this takes
+    too."""
     opt = cfg.fusion_model.optimizer
     b1, b2 = opt.betas
 
@@ -162,7 +165,8 @@ def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
                    hp: GroupedHyperParams) -> Metrics:
         net = state.model
         dwi_x, dce_x, masks, labels = _inputs(net, batch)
-        logits, fused_mask, aux, parts = net(dwi_x, dce_x, train=True, generator=generator)
+        logits, fused_mask, aux, parts = forward_in(net, compute_dtype, dwi_x, dce_x,
+                                                    train=True, generator=generator)
         shard = active_shard()
         loss, metrics = compute_fusion_losses(
             cfg, clf_loss_fn, mask_loss_fn, logits, fused_mask, aux, parts, dwi_x, dce_x,
@@ -188,16 +192,19 @@ def make_fusion_train_step(cfg: Config, clf_loss_fn: Callable,
     return train_step
 
 
-def make_fusion_eval_step(cfg: Config, clf_loss_fn: Callable, mask_loss_fn: Optional[Callable]):
+def make_fusion_eval_step(cfg: Config, clf_loss_fn: Callable, mask_loss_fn: Optional[Callable],
+                          compute_dtype: Optional[torch.dtype] = None):
     """``eval_step(state, batch) -> (logits, probs, metrics)`` on the served
-    eval route (kernels 1, 2 and 6 on the card), without autograd; the loss
-    metric is the classification loss alone."""
+    eval route (kernels 1, 2 and 6 on the card), without autograd, in
+    ``compute_dtype`` as the train step; the loss metric is the
+    classification loss alone."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         net = state.model
         dwi_x, dce_x, masks, labels = _inputs(net, batch)
-        logits, fused_mask, aux, parts = net(dwi_x, dce_x, lean_encoders=True)
+        logits, fused_mask, aux, parts = forward_in(net, compute_dtype, dwi_x, dce_x,
+                                                    lean_encoders=True)
         _, metrics = compute_fusion_losses(cfg, clf_loss_fn, mask_loss_fn, logits, fused_mask,
                                            aux, parts, dwi_x, dce_x, masks, labels, 1.0,
                                            is_train=False)

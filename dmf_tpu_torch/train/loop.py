@@ -107,7 +107,8 @@ def fit_single(cfg: Config, method: str, state: TrainState,
                workdir: str, clf_loss_fn=None, num_epochs: Optional[int] = None,
                min_epochs: Optional[int] = None, seed: int = 0,
                resume_from: Optional[str] = None, viz_every: int = 10,
-               mesh: Optional[Mesh] = None) -> FitResult:
+               mesh: Optional[Mesh] = None,
+               compute_dtype: Optional[torch.dtype] = None) -> FitResult:
     """Train one encoder; returns the final and best states and the history.
 
     ``train_data``/``val_data``: raw (unprocessed) ``imgs``, optional
@@ -117,11 +118,12 @@ def fit_single(cfg: Config, method: str, state: TrainState,
     seeded from ``seed``; the shuffle is ``np.random.RandomState(seed)``, the
     JAX loop's order.  Every ``viz_every`` epochs (0: never) the mask
     triptych of the first validation sample is drawn.  ``mesh``: train over
-    a mesh (the module's docstring).
+    a mesh (the module's docstring).  ``compute_dtype``: the train and eval
+    steps compute in it on the fp32 parameters (``make_single_train_step``).
     """
     run = single_fit_run(cfg, method, state, train_data, val_data, processor, controller,
                          workdir, clf_loss_fn, num_epochs, min_epochs, seed, resume_from,
-                         viz_every, mesh)
+                         viz_every, mesh, compute_dtype)
     return drive_lockstep([run])[0]
 
 
@@ -132,7 +134,8 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
                    workdir: str, clf_loss_fn=None, num_epochs: Optional[int] = None,
                    min_epochs: Optional[int] = None, seed: int = 0,
                    resume_from: Optional[str] = None, viz_every: int = 10,
-                   mesh: Optional[Mesh] = None) -> "FitRun":
+                   mesh: Optional[Mesh] = None,
+                   compute_dtype: Optional[torch.dtype] = None) -> "FitRun":
     """The :class:`FitRun` of :func:`fit_single` (same arguments), not yet
     driven.  ``clf_loss_fn`` defaults to the classification loss with the
     class weights of ``train_data``'s labels."""
@@ -172,8 +175,9 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
 
     drawn = viz_every if mc.mask.enabled and val_data.get("masks") is not None else 0
     return FitRun(cfg, mc.scheduler, mc.optimizer.lr, state, spec, controller,
-                  make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec),
-                  make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn),
+                  make_single_train_step(cfg, method, clf_loss_fn, mask_loss_fn, spec,
+                                         compute_dtype),
+                  make_single_eval_step(cfg, method, clf_loss_fn, mask_loss_fn, compute_dtype),
                   train_ds, val_ds, prepare, workdir, num_epochs, min_epochs, seed,
                   draw, drawn, mesh)
 
@@ -181,7 +185,8 @@ def single_fit_run(cfg: Config, method: str, state: TrainState,
 def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np.ndarray]],
                val_data: Dict[str, Optional[np.ndarray]], workdir: str, clf_loss_fn=None,
                num_epochs: Optional[int] = None, min_epochs: Optional[int] = None,
-               seed: int = 0, viz_every: int = 10, mesh: Optional[Mesh] = None) -> FitResult:
+               seed: int = 0, viz_every: int = 10, mesh: Optional[Mesh] = None,
+               compute_dtype: Optional[torch.dtype] = None) -> FitResult:
     """Train the fusion network (``state.model``, a
     :class:`~.fusion.FusionNetwork`) with the gradual deep->shallow unfreeze
     of :class:`~.optim.FusionOptController`; returns the final and best
@@ -194,7 +199,7 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
     ``viz_every`` epochs (0: never) the fused mask head's triptych of the
     first validation sample is drawn (the hook the reference leaves
     single-model-only, train.py:706-714).  ``mesh``: train over a mesh (the
-    module's docstring).
+    module's docstring).  ``compute_dtype`` as :func:`fit_single`'s.
     """
     fp = cfg.fusion_model
     if clf_loss_fn is None:
@@ -221,8 +226,8 @@ def fit_fusion(cfg: Config, state: TrainState, train_data: Dict[str, Optional[np
 
     drawn = viz_every if fp.mask.enabled and val_data.get("masks") is not None else 0
     run = FitRun(cfg, fp.scheduler, fp.optimizer.lr, state, spec, FusionOptController(cfg),
-                 make_fusion_train_step(cfg, clf_loss_fn, mask_loss_fn, spec),
-                 make_fusion_eval_step(cfg, clf_loss_fn, mask_loss_fn),
+                 make_fusion_train_step(cfg, clf_loss_fn, mask_loss_fn, spec, compute_dtype),
+                 make_fusion_eval_step(cfg, clf_loss_fn, mask_loss_fn, compute_dtype),
                  dataset(train_data), dataset(val_data), prepare, workdir, num_epochs,
                  min_epochs, seed, draw, drawn, mesh)
     return drive_lockstep([run])[0]

@@ -24,6 +24,7 @@ import torch
 
 from ..config import Config
 from ..evals.predict import to_model
+from ..models.build import forward_in
 from ..parallel.mesh import active_shard
 from ..parallel.sharding import reduce_gradients
 from ..losses import (compute_attn_energy_loss, compute_feat_norm_loss,
@@ -105,10 +106,15 @@ def _inputs(model, batch):
 
 
 def make_single_train_step(cfg: Config, method: str, clf_loss_fn: Callable,
-                           mask_loss_fn: Optional[Callable], spec: GroupSpec):
+                           mask_loss_fn: Optional[Callable], spec: GroupSpec,
+                           compute_dtype: Optional[torch.dtype] = None):
     """``train_step(state, batch, generator, hp) -> metrics``: one forward
     in train mode (dropout masks from ``generator``, on the model's device),
     gradients of every parameter, the grouped AdamW update in place.
+    ``compute_dtype`` (e.g. ``torch.bfloat16``) runs the forward in that
+    dtype on the fp32 parameters (``models/build.py::forward_in``, JAX's
+    modules built with ``dtype=bfloat16``); the losses read the fp32 inputs,
+    and the gradients, the moments and the update stay fp32.
 
     Under a data mesh's :class:`~..parallel.mesh.RowShard` (``batch`` this
     rank's rows) the loss is this rank's share of the global batch's mean,
@@ -125,7 +131,8 @@ def make_single_train_step(cfg: Config, method: str, clf_loss_fn: Callable,
                    hp: GroupedHyperParams) -> Metrics:
         model = state.model
         x, masks, labels = _inputs(model, batch)
-        logits, aux, mask_pred = model(x, train=True, generator=generator)
+        logits, aux, mask_pred = forward_in(model, compute_dtype, x, train=True,
+                                            generator=generator)
         loss, metrics = compute_single_losses(
             cfg, method, clf_loss_fn, mask_loss_fn, logits, aux, mask_pred, x, masks,
             labels, batch["aux_w"], is_train=True)
@@ -156,16 +163,18 @@ def make_single_train_step(cfg: Config, method: str, clf_loss_fn: Callable,
 
 
 def make_single_eval_step(cfg: Config, method: str, clf_loss_fn: Callable,
-                          mask_loss_fn: Optional[Callable]):
+                          mask_loss_fn: Optional[Callable],
+                          compute_dtype: Optional[torch.dtype] = None):
     """``eval_step(state, batch) -> (logits, probs, metrics)`` on the served
-    eval route (the kernels on the card), without autograd; the loss metric
-    is the classification loss alone."""
+    eval route (the kernels on the card), without autograd, in
+    ``compute_dtype`` as the train step; the loss metric is the
+    classification loss alone."""
 
     @torch.no_grad()
     def eval_step(state: TrainState, batch):
         model = state.model
         x, masks, labels = _inputs(model, batch)
-        logits, aux, mask_pred = model(x)
+        logits, aux, mask_pred = forward_in(model, compute_dtype, x)
         _, metrics = compute_single_losses(
             cfg, method, clf_loss_fn, mask_loss_fn, logits, aux, mask_pred, x, masks,
             labels, 1.0, is_train=False)

@@ -262,14 +262,19 @@ def test_parallel_folds_over_one_fold_runs(tmp_path):
 
 @pytest.mark.parametrize("command", ["bench", "export-serving"])
 def test_unported_commands_are_not_registered(command):
-    """``bench`` is not registered (ROADMAP 1.1); ``export-serving`` is
-    ported and exits without its required ``--out``."""
+    """Both commands once unported are registered now: ``bench`` takes the
+    JAX CLI's ``--quick`` and the port's ``--device`` (its runs are in
+    ``test_torch_bench.py``); ``export-serving`` exits without its required
+    ``--out``."""
+    if command == "bench":
+        args = cli.build_parser().parse_args(["bench", "--quick", "--device", "cpu"])
+        assert (args.command, args.quick, args.device) == ("bench", True, "cpu")
+        assert cli.build_parser().parse_args(["bench"]).device == "cuda"
+        return
     err = io.StringIO()
     with pytest.raises(SystemExit), contextlib.redirect_stderr(err):
         cli.main([command])
-    expect = ("invalid choice" if command == "bench"
-              else "the following arguments are required: --out")
-    assert expect in err.getvalue()
+    assert "the following arguments are required: --out" in err.getvalue()
 
 
 def test_ref_params_json_and_pth(tmp_path):
