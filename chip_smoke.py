@@ -13,10 +13,12 @@ Phases, each printing its own lines:
      tolerances and median times beside the plain version's, the bound and
      the one PyTorch call that computes the same function (where there is
      one): 3a SE epilogue (its Philox keep bits against the numpy Philox at
-     element indices past 2^31 and 2^32, the largest map of a B=128 tta_mc
-     request, past 2^31 elements, against the plain version on maps at its
-     start, around element 2^31 and at its end, 32^2 maps of tta_mc, 128^2
-     maps of hybrid-nb), 3b conv3x3+BN+GELU, 3c
+     element indices past 2^31 and 2^32, in one pass and with pass words, the
+     largest map of a B=128 tta_mc request, past 2^31 elements, against the
+     plain version on maps at its start, around element 2^31 and at its end,
+     32^2 maps of tta_mc's lean chunk with its 9 pass words, the keep-mask
+     kernel's bits equal to the plain mask's and kernel 1's drops to them,
+     128^2 maps of hybrid-nb), 3b conv3x3+BN+GELU, 3c
      flash-attention forward (fp32 on the 3xTF32 kernel at (32 | 128, 4096,
      128) and (32, 4096, 64), two calls compared bit for bit, its error and
      the plain version's against a float64 attention; bf16 beside it), 3d
@@ -160,9 +162,11 @@ Phases, each printing its own lines:
      nodes, probabilities finite and summing to 1, ``tta_mc`` bit-equal for
      one seed and not for two with std > 0, the deterministic artifacts
      within 1e-6 (fp32) or 2^-7 (bf16) of the eager seed-route predictor;
-     the ``tta_mc`` program in fp32 at B=1 exported on the card and on the
-     CPU (the same weights, seed and masks) within 1e-4; the operator
-     layer's host microseconds per call against the ``ctypes`` launch;
+     the ``tta_mc`` program in fp32 at B=1 exported on the card at
+     ``mc_chunk`` 3 and on the CPU unchunked, and the eager predictor
+     (unchunked) on both, one seed: every (pass, site) mask bit-equal across
+     the four, the outputs within 1e-4; the operator layer's host
+     microseconds per call against the ``ctypes`` launch;
   12. int8 serving (``ops/quant.py``) of the default config at full width in
      bf16, its QuantSets from the fp32 weights (the copies' scales and biases
      checked fp32), calibrated with MC dropout on 4 preprocessed volumes of a
@@ -248,6 +252,20 @@ Phases, each printing its own lines:
      volumes; its AUC delta and agreement gated); each run's one JSON line
      parsed, its value finite, ``mfu`` printed exactly on a card of the peak
      table, with its seconds and peak memory;
+  16 (run after 6) the ``tta_mc`` ensemble across ``mc_chunk`` None, 1 and
+     3 (every pass draws its masks from its own pass word of the request
+     seed, ``ops/dropout.py``), each request's launches counted from 0 and
+     gated: 16b the default models in bf16 at B=8, every (pass, site) mask
+     bit-equal across the chunkings, mean and std within 3x the floor the
+     same requests with dropout off show; 16a each distinct kernel 1 and
+     keep-mask call of that request on synthetic inputs of its shape with
+     its pass words (the keep-mask kernel bit-equal to the plain mask, kernel
+     1's drops equal to it and its output within tolerance), the keep-mask
+     kernel's ms summed over the request beside the plain version's, a
+     ``torch.rand < keep`` draw of the same size and the bytes bound, its
+     device time; 16c ``hybrid-nb`` in bf16 at B=2 (unchunked where it fits
+     the card), each mask's digest equal across the chunkings, mean and std
+     within 2^-7, ms and peak memory;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -256,6 +274,7 @@ The line before the last is the kernels' JSON summary; the last line is
 without a CUDA device the script exits non-zero before printing anything.
 """
 
+import collections
 import contextlib
 import copy
 import dataclasses
@@ -294,6 +313,7 @@ from dmf_tpu_torch.models import build_fusion_models  # noqa: E402
 from dmf_tpu_torch.models import transformer as transformer_mod  # noqa: E402
 from dmf_tpu_torch.ops import attention as attn  # noqa: E402
 from dmf_tpu_torch.ops import conv3x3 as k2  # noqa: E402
+from dmf_tpu_torch.ops import dropout as seed_route  # noqa: E402
 from dmf_tpu_torch.ops import dwi_norm, dwi_norm_cuda, se_cuda  # noqa: E402
 from dmf_tpu_torch.ops import epilogue as k1  # noqa: E402
 from dmf_tpu_torch.ops import epilogue_cuda  # noqa: E402
@@ -511,6 +531,7 @@ def cl(t):
 # name: (module, wrapper, counter), read at each use: a probe of another tree
 # (scripts/int8_turns.py) imports this file whatever wrappers that tree has
 COUNTERS = {"se_epilogue": (k1, "se_epilogue", "launches"),
+            "keep_mask": (seed_route, "keep_mask", "launches"),
             "conv3x3_bn_gelu": (k2, "conv3x3_bn_gelu", "launches"),
             "flash_attention_fwd": (fa, "flash_attention", "launches"),
             "flash_attention_bwd_dq": (fa, "flash_attention", "launches_dq"),
@@ -606,17 +627,25 @@ def epi_inputs(n, c, dtype, g, side=32):
 
 def philox_bits():
     """Kernel 1's keep bits (its keep-mask entry point) against the plain
-    numpy Philox4x32-10 at element indices that straddle 2^31 and 2^32: the
-    counter and the offsets are 64-bit."""
-    x = cl(torch.zeros(2, 8, 4, 4, device=DEV))
-    for base in (0, 2 ** 31 - 64, 2 ** 32 - 64, 2 ** 40 + 4):
-        for seed in (12345, (0x5EED << 32) | 77):
-            got = epilogue_cuda.keep_mask(x, 0.2, torch.tensor([seed], device=DEV), base=base)
-            flat = got.permute(0, 2, 3, 1).reshape(-1).cpu().numpy()
-            if not (flat == epilogue_cuda.keep_mask_ref(base, x.numel(), 0.2, seed)).all():
-                raise AssertionError(f"keep bits differ from Philox at base {base}, seed {seed}")
-    log(f"  keep bits of {x.numel()} elements from indices 0, 2^31 - 64, 2^32 - 64, 2^40 + 4, "
-        f"two seeds: equal to the numpy Philox4x32-10")
+    numpy Philox4x32-10 at element indices that straddle 2^31 and 2^32 (the
+    counter and the offsets are 64-bit), in one pass and in two passes from
+    pass words 0 and 2^31 - 1 (a per-pass count that is not a multiple of 4
+    among them)."""
+    for shape in ((2, 8, 4, 4), (2, 5, 3, 3)):
+        x = cl(torch.zeros(*shape, device=DEV))
+        for base in (0, 2 ** 31 - 64, 2 ** 32 - 64, 2 ** 40 + 4):
+            for seed in (12345, (0x5EED << 32) | 77):
+                for first, passes in ((0, 1), (0, 2), (2 ** 31 - 1, 2)):
+                    got = epilogue_cuda.keep_mask(x, 0.2, torch.tensor([seed], device=DEV),
+                                                  base, first, passes)
+                    flat = got.permute(0, 2, 3, 1).reshape(-1).cpu().numpy()
+                    ref = epilogue_cuda.keep_mask_ref(base, x.numel(), 0.2, seed, first, passes)
+                    if not (flat == ref).all():
+                        raise AssertionError(f"keep bits differ from Philox at base {base}, "
+                                             f"seed {seed}, passes {first}+{passes}")
+    log("  keep bits of 2 x 8 x 4^2 and 2 x 5 x 3^2 elements from indices 0, 2^31 - 64, "
+        "2^32 - 64, 2^40 + 4, two seeds, one pass and two from pass words 0 and 2^31 - 1: "
+        "equal to the numpy Philox4x32-10")
 
 
 def epilogue_past_2_31(n_maps):
@@ -656,6 +685,17 @@ def epilogue_past_2_31(n_maps):
     return max(errs)
 
 
+def drops_match(tag, out, keep, x, idn):
+    """Kernel 1's own mask, bit for bit: its output is 0 exactly where
+    ``keep`` drops, wherever gelu(x + identity) is not within 1e-6 of 0 (fp32
+    GELU is 0 below about -5.5, where a kept output is 0 too)."""
+    live = F.gelu(x.float() + idn.float()).abs() > 1e-6
+    off = int(((out == 0) != ~keep)[live].sum())
+    if off:
+        raise AssertionError(f"{tag}: kernel 1 drops {off} elements otherwise than the plain "
+                             f"mask")
+
+
 def phase_epilogue(n_passes, n_views):
     n_lean = n_passes * n_views
     log(f"== phase 3a: se_epilogue (CUDA) vs plain, N={n_passes}x{n_views} maps of 32x32xC")
@@ -670,15 +710,25 @@ def phase_epilogue(n_passes, n_views):
             tag = f"{str(dtype)[6:]} C={c}"
             out = k1.se_epilogue(*args)
             errs.append(check(f"{tag} drop=0", out, k1.se_epilogue_ref(*args), dtype))
-            # the wrapper draws its Philox seed from g_mc; a twin generator on
-            # the same seed gives that seed back for the kernel's own mask
-            mc_seed = 100 + 10 * i + j
-            g_mc = gen(mc_seed)
-            out = k1.se_epilogue(*args, drop_rate=p, generator=g_mc)
-            seed = epilogue_cuda.draw_seed(gen(mc_seed), DEV)
-            keep = epilogue_cuda.keep_mask(args[0], p, seed)
-            errs.append(check(f"{tag} drop={p} (kernel's own mask)", out,
+            # the served call: the lean chunk's n_passes passes pass-major, each
+            # drawing from its pass word (a SeedStream, as the predictor makes)
+            seed = torch.tensor([(0x5EED << 32) | (100 + 10 * i + j)], device=DEV)
+
+            def served():
+                return k1.se_epilogue(*args, drop_rate=p,
+                                      generator=SeedStream(seed, passes=n_passes))
+
+            out = served()
+            keep = epilogue_cuda.keep_mask(args[0], p, seed, 0, 0, n_passes)
+            plain_keep = seed_route.keep_mask_plain(args[0].shape, p, seed, 0, 0, n_passes)
+            if not torch.equal(keep, plain_keep):
+                raise AssertionError(f"{tag}: the keep-mask kernel's pass-word bits differ "
+                                     f"from the plain version's")
+            drops_match(tag, out, keep, *args[:2])
+            errs.append(check(f"{tag} drop={p} over {n_passes} pass words (kernel's mask "
+                              f"bit-equal to the plain one)", out,
                               k1.se_epilogue_ref(*args, drop_rate=p, keep=keep), dtype))
+            del plain_keep
             n = keep.numel()
             frac = keep.float().mean().item()
             bound = 5 * ((p * (1 - p)) / n) ** 0.5
@@ -693,7 +743,7 @@ def phase_epilogue(n_passes, n_views):
             log(f"  {tag} pass-0/pass-1 mask correlation {corr:+.2e} (bound {cb:.2e})")
             if abs(corr) > cb:
                 raise AssertionError("MC pass masks are correlated")
-            t_k = cuda_time(lambda: k1.se_epilogue(*args, drop_rate=p, generator=g_mc))
+            t_k = cuda_time(served)
             gp = gen(2)
             t_p = cuda_time(lambda: k1.se_epilogue_ref(*args, drop_rate=p, generator=gp))
             # least traffic: read x and identity, write out, once each
@@ -704,9 +754,8 @@ def phase_epilogue(n_passes, n_views):
                 ms += t_k
                 plain_ms += t_p
                 nbytes += b_c
-                devs.append(device_rate(
-                    f"{tag} drop={p}", lambda: k1.se_epilogue(*args, drop_rate=p, generator=g_mc),
-                    EPI_KERNELS, b_c / HBM_BYTES_PER_S * 1e3, nbytes=b_c)[0])
+                devs.append(device_rate(f"{tag} drop={p}", served, EPI_KERNELS,
+                                        b_c / HBM_BYTES_PER_S * 1e3, nbytes=b_c)[0])
             del args, out, keep, rows
     torch.cuda.empty_cache()
     bound = nbytes / HBM_BYTES_PER_S * 1e3
@@ -722,17 +771,20 @@ def phase_epilogue(n_passes, n_views):
 
 def epilogue_test_fp32(g, n_passes, p):
     """Kernel 1 in fp32 at a tta_mc test batch's maps (the lean chunk of
-    ``n_passes`` passes and the last pass, each of N_TEST_VIEWS maps at 32^2),
-    dropout ``p`` by the kernel's own mask, against the plain version."""
+    ``n_passes`` passes and the last pass, each of N_TEST_VIEWS maps at 32^2,
+    with their pass words), dropout ``p`` by the kernel's own mask, against
+    the plain version."""
     log(f"  fp32 at a tta_mc test batch's maps (N={n_passes}x{N_TEST_VIEWS} and "
         f"{N_TEST_VIEWS}, 32^2, drop {p}):")
     errs = []
-    for n in (n_passes * N_TEST_VIEWS, N_TEST_VIEWS):
+    for first, passes in ((0, n_passes), (n_passes, 1)):
+        n = passes * N_TEST_VIEWS
         for c in EPI_CHANNELS:
             args = epi_inputs(n, c, torch.float32, g)
-            mc_seed = 300 + c + n
-            out = k1.se_epilogue(*args, drop_rate=p, generator=gen(mc_seed))
-            keep = epilogue_cuda.keep_mask(args[0], p, epilogue_cuda.draw_seed(gen(mc_seed), DEV))
+            seed = torch.tensor([300 + c + n], device=DEV)
+            out = k1.se_epilogue(*args, drop_rate=p, generator=SeedStream(
+                seed, first_pass=first, passes=passes))
+            keep = epilogue_cuda.keep_mask(args[0], p, seed, 0, first, passes)
             errs.append(check(f"float32 N={n} C={c} drop={p} (kernel's own mask)", out,
                               k1.se_epilogue_ref(*args, drop_rate=p, keep=keep), torch.float32))
             del args, out, keep
@@ -1918,6 +1970,7 @@ def phase_serve(cfg):
     # modality attention x 2 in the prefix, fusion_se once per suffix; the
     # DWI z-score once in preprocessing
     expect = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 6 * n_suffix,
+                                           "keep_mask": 6 * n_suffix,
                                            "conv3x3_bn_gelu": 12,
                                            "se_scale": 2 + n_suffix, "dwi_normalize": 1}
     log(f"  {cfg.mc_passes} MC passes x 4 views")
@@ -1964,6 +2017,280 @@ def phase_serve_hybrid(hcfg):
         launched.append(serve(f"hybrid-nb {mode}", hcfg, requests[mode],
                               HYBRID_EXPECT | {"dwi_normalize": 1}, stochastic=False))
     return launched, requests["normal"]
+
+
+# ------------------------------------------------------------------ phase 16
+# the MC ensemble across mc_chunk: every pass draws its masks from its own
+# pass word of the request seed (ops/dropout.py), whatever chunk it runs in
+MC_CHUNKS = (None, 1, 3)
+MC_FLOOR_MARGIN = 3  # 16b: dropout-on gaps across chunkings within 3x the dropout-off floor
+MC_HYB_B = 2         # 16c: bench.py --encoder hybrid-nb's MC batch
+KEEP_KERNELS = ("keep_mask_kernel",)
+
+
+def mask_digest(keep):
+    """A positional digest of a bool mask, on its device: its bytes in the
+    seed order read as int64 words (copied and zero-padded where they do not
+    align), each times an odd weight of its index, summed with int64
+    wrap-around."""
+    flat = (keep.permute(0, 2, 3, 1) if keep.dim() == 4 else keep).reshape(-1).view(torch.uint8)
+    if flat.numel() % 8 or flat.storage_offset() % 8:
+        flat = torch.cat([flat, flat.new_zeros(-flat.numel() % 8)])
+    words = flat.view(torch.int64)
+    return (words * torch.arange(1, 2 * words.numel(), 2, device=words.device)).sum()
+
+
+@contextlib.contextmanager
+def recorded_masks(digest=False):
+    """``(masks, calls)``: the seed-route keep mask of every dropout site run
+    under the context, split into its passes, ``{pass: [mask, ...]}`` in the
+    order the sites draw them (``digest``: :func:`mask_digest` of each), and
+    each site's call ``(kind, shape, dtype, drop_rate, base, first_pass,
+    passes)``.  On the card a keep-mask site's mask is the kernel's output
+    and a kernel 1 site's the keep-mask kernel on its arguments (phase 3a and
+    16a hold the two bit-equal; a direct call, which no count sees); on the
+    CPU ``keep_mask_plain``'s output."""
+    masks, calls = collections.defaultdict(list), []
+    kernel, launch, plain = (epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue,
+                             seed_route.keep_mask_plain)
+
+    def record(kind, keep, drop_rate, base, first_pass, passes, dtype):
+        calls.append((kind, tuple(keep.shape), dtype, drop_rate, base, first_pass, passes))
+        for p, part in enumerate(keep.chunk(passes)):
+            masks[first_pass + p].append(mask_digest(part) if digest else part)
+
+    def keep_mask(x, drop_rate, seed, base=0, first_pass=0, passes=1):
+        keep = kernel(x, drop_rate, seed, base, first_pass, passes)
+        record("keep_mask", keep, drop_rate, base, first_pass, passes, x.dtype)
+        return keep
+
+    def launch_se_epilogue(x, identity, w1, b1, w2, b2, drop_rate, seed, base=0,
+                           first_pass=0, passes=1):
+        if drop_rate > 0.0:
+            record("se_epilogue", kernel(x, drop_rate, seed, base, first_pass, passes),
+                   drop_rate, base, first_pass, passes, x.dtype)
+        return launch(x, identity, w1, b1, w2, b2, drop_rate, seed, base, first_pass, passes)
+
+    def keep_mask_plain(shape, drop_rate, seed, base=0, first_pass=0, passes=1):
+        keep = plain(shape, drop_rate, seed, base, first_pass, passes)
+        record("plain", keep, drop_rate, base, first_pass, passes, None)
+        return keep
+
+    epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue = keep_mask, launch_se_epilogue
+    seed_route.keep_mask_plain = keep_mask_plain
+    try:
+        yield masks, calls
+    finally:
+        epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue = kernel, launch
+        seed_route.keep_mask_plain = plain
+
+
+def same_masks(tag, runs):
+    """Every run's masks (or digests) equal the first run's, pass by pass and
+    site by site; returns the (pass, site) masks of a run."""
+    (ref_name, ref), *rest = runs.items()
+    for name, masks in rest:
+        if sorted(masks) != sorted(ref) or any(len(masks[p]) != len(ref[p]) for p in ref):
+            raise AssertionError(f"{tag}: {name} drew other passes or sites than {ref_name}")
+        for p, sites in ref.items():
+            for i, (got, want) in enumerate(zip(masks[p], sites)):
+                if not torch.equal(got.to(want.device), want):
+                    raise AssertionError(f"{tag}: pass {p} site {i}: the mask of {name} differs "
+                                         f"from {ref_name}'s")
+    return sum(len(v) for v in ref.values())
+
+
+def mc_expect(models, chunk, passes, prefix):
+    """The launches of one ``tta_mc`` request of the fusion ``models`` at
+    ``mc_chunk`` ``chunk``: per suffix forward (each lean chunk, then the last
+    pass) and encoder, kernel 1 once a ResLite block and the keep-mask kernel
+    once a bottleneck and four times a transformer block (the attention
+    weights, the projection, the MLP's two); kernel 6 on the modality
+    attention twice and on fusion_se once a suffix; ``prefix`` the rest."""
+    n_lean = passes - 1
+    n_suffix = -(-n_lean // (n_lean if chunk is None else min(chunk, n_lean))) + 1
+    n_epi = n_keep = 0
+    for enc in models[:2]:
+        blocks = [b for b in (enc.block1, enc.block2, enc.block3) if b is not None]
+        n_epi += len(blocks)
+        n_keep += sum(len(b.bottlenecks) for b in blocks)
+        if enc.transformer is not None:
+            n_keep += 4 * len(enc.transformer.transformer.layers)
+    return dict.fromkeys(COUNTERS, 0) | prefix | {
+        "se_epilogue": n_epi * n_suffix, "keep_mask": n_keep * n_suffix, "se_scale": 2 + n_suffix}
+
+
+def mc_inputs(cfg, b, seed):
+    S = cfg.dwi_model.input_size
+    g = gen(seed)
+    return preprocess_fusion_inputs(
+        torch.rand(b, S, S, cfg.dwi_base_channel_num, device=DEV, generator=g) * 1000.0,
+        torch.rand(b, S, S, cfg.dce_channel_num, device=DEV, generator=g),
+        torch.full((S, S, 1), 0.5, device=DEV))
+
+
+def mc_run(name, cfg, models, chunk, dx, cx, seed, prefix, record=None):
+    """One ``tta_mc`` request of preprocessed ``(dx, cx)`` at ``mc_chunk``
+    ``chunk`` on the seed tensor ``seed``: ``(mean, std, launches, s, peak
+    GiB)``, the launches counted from 0 and gated (``prefix``: the launches
+    beside the suffixes'; None: not gated); ``record`` (False or True for
+    digests): also the masks, under :func:`recorded_masks`."""
+    predict = make_fusion_predictor(cfg, *models, mode="tta_mc", mc_chunk=chunk)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    with (recorded_masks(record) if record is not None
+          else contextlib.nullcontext((None, None))) as (masks, calls):
+        (mean, std, _), dt = synced(lambda: predict(dx, cx, seed))
+    launched = counts()
+    if prefix is not None:
+        gate(name, cfg, launched, mc_expect(models, chunk, cfg.mc_passes, prefix), mean, std,
+             True, dx.shape[0])
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    return mean, std, launched, dt, peak, masks, calls
+
+
+def gaps(runs):
+    """Max |mean| and |std| differences of each run from the first."""
+    (m0, s0), *rest = runs.values()
+    return max([0.0] + [max((m - m0).abs().max().item(), (s - s0).abs().max().item())
+                        for m, s in rest])
+
+
+def mc_kernels(calls, seed):
+    """16a: each distinct seed-route call of a request (kernel 1 and the
+    keep-mask kernel, with their pass words) on synthetic inputs of its shape:
+    the keep-mask kernel bit-equal to ``keep_mask_plain``, kernel 1's zeros
+    exactly its drops and its output within TOL of the plain version on that
+    mask; the keep-mask kernel's ms summed over the request's calls beside
+    the plain version's, a same-size ``torch.rand < keep`` draw and the bytes
+    bound (one byte written an element), and its device time."""
+    g = gen(162)
+    distinct = {}
+    for call in calls:
+        distinct[call] = distinct.get(call, 0) + 1
+    ms = plain_ms = draw_ms = bound = 0.0
+    devs = []
+    for (kind, shape, dtype, p, base, first, passes), n in distinct.items():
+        tag = (f"{kind} {shape} {str(dtype)[6:]} drop {p} base {base} passes {first}.."
+               f"{first + passes - 1} (x{n} a request)")
+        x = torch.randn(*shape, device=DEV, generator=g).to(dtype)
+        x = cl(x) if x.dim() == 4 else x
+        keep = epilogue_cuda.keep_mask(x, p, seed, base, first, passes)
+        if not torch.equal(keep, seed_route.keep_mask_plain(shape, p, seed, base, first, passes)):
+            raise AssertionError(f"16a {tag}: the keep-mask kernel differs from the plain mask")
+        if kind == "se_epilogue":
+            c = shape[1]
+            idn = cl(torch.randn(*shape, device=DEV, generator=g).to(dtype))
+            w = se_weights(c, g)
+            out = k1.se_epilogue(x, idn, *w, drop_rate=p, generator=SeedStream(
+                seed, counter=base, first_pass=first, passes=passes))
+            drops_match(f"16a {tag}", out, keep, x, idn)
+            check(f"16a {tag}: kernel 1 (its drops bit-equal to the plain mask)", out,
+                  k1.se_epilogue_ref(x, idn, *w, drop_rate=p, keep=keep), dtype)
+            continue
+        t_k = cuda_time(lambda: epilogue_cuda.keep_mask(x, p, seed, base, first, passes))
+        t_p = cuda_time(lambda: seed_route.keep_mask_plain(shape, p, seed, base, first, passes),
+                        reps=3, trials=3)
+        t_d = cuda_time(lambda: torch.rand(shape, device=DEV) < (1.0 - p))
+        b = keep.numel() / HBM_BYTES_PER_S * 1e3
+        log(f"  16a {tag}: bit-equal to the plain mask; kernel {t_k:.4f} ms, plain "
+            f"{t_p:.4f} ms, torch.rand < keep {t_d:.4f} ms, bound {b:.4f} ms (bytes, "
+            f"{keep.numel() / 1e6:.1f} MB written)")
+        devs.append(device_rate(f"16a {tag}", lambda: epilogue_cuda.keep_mask(
+            x, p, seed, base, first, passes), KEEP_KERNELS, b, nbytes=keep.numel())[0])
+        if devs[-1] is not None:
+            devs[-1] *= n
+        ms, plain_ms, draw_ms, bound = ms + n * t_k, plain_ms + n * t_p, draw_ms + n * t_d, \
+            bound + n * b
+    device = ("device not measured" if None in devs else
+              f"device {sum(devs):.4f} ms ({100 * bound / sum(devs):.1f} % of the bound)")
+    n_keep = sum(n for call, n in distinct.items() if call[0] == "keep_mask")
+    log(f"  16a keep-mask kernel, a request's {n_keep} calls summed: kernel {ms:.4f} ms, plain "
+        f"{plain_ms:.4f} ms, torch.rand < keep {draw_ms:.4f} ms, bound {bound:.4f} ms (bytes); "
+        f"{device}")
+    return {"max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms, "bound_ms": bound,
+            "bound_by": "bytes", "library_ms": None, "draw_ms": draw_ms}
+
+
+def phase_mc_chunks(cfg, hcfg):
+    """Phase 16: the MC ensemble across ``mc_chunk``; returns the dropout-on
+    requests' launches and the keep-mask kernel's numbers."""
+    t_phase = time.perf_counter()
+    log(f"== phase 16: the tta_mc ensemble across mc_chunk {MC_CHUNKS} (every pass's masks "
+        f"from its own pass word): 16a kernel 1 and the keep-mask kernel with pass words at a "
+        f"request's calls, 16b the default models bf16 B={B_SERVE}, 16c hybrid-nb bf16 "
+        f"B={MC_HYB_B}")
+    launched = dict.fromkeys(COUNTERS, 0)
+    seed = torch.tensor([(0x5EED << 32) | 16], device=DEV)
+    # 16b: the default models, masks kept whole; the dropout-off floor first
+    models = build_fusion_models(cfg, DEV, torch.bfloat16, gen(SEED))
+    dx, cx = mc_inputs(cfg, B_SERVE, 161)
+    blocks = [b for m in models for b in m.modules() if hasattr(b, "bottlenecks")]
+    rates = [b.dropout for b in blocks]
+    for b in blocks:
+        b.dropout = 0.0
+    mc_run("16b warm-up", cfg, models, None, dx, cx, seed, None)
+    off = {c: mc_run("16b drop 0", cfg, models, c, dx, cx, seed, None)[:2] for c in MC_CHUNKS}
+    for b, r in zip(blocks, rates):
+        b.dropout = r
+    floor = gaps(off)
+    on, masks, calls = {}, {}, None
+    for c in MC_CHUNKS:
+        mean, std, got, dt, peak, _, _ = mc_run(f"16b chunk {c}", cfg, models, c, dx, cx, seed,
+                                                {"conv3x3_bn_gelu": 12})
+        launched = {k: launched[k] + got[k] for k in COUNTERS}
+        on[c] = (mean, std)
+        _, _, _, _, _, masks[f"mc_chunk {c}"], rec = mc_run(
+            f"16b chunk {c} recorded", cfg, models, c, dx, cx, seed, None, record=False)
+        calls = rec if c is None else calls
+        log(f"  16b mc_chunk {c}: {dt * 1e3:.2f} ms, peak {peak:.2f} GiB, launches "
+            + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+    n = same_masks("16b", masks)
+    gap, bound = gaps(on), max(MC_FLOOR_MARGIN * floor, 1e-6)
+    log(f"  16b: {n} (pass, site) masks a request bit-equal across mc_chunk {MC_CHUNKS}; mean "
+        f"and std across the chunkings within {gap:.3e} of the unchunked (dropout-off floor "
+        f"{floor:.3e}; bound {bound:.3e})")
+    if not gap <= bound:
+        raise AssertionError(f"16b: the chunked ensembles stray {gap} from the unchunked")
+    del masks, on, off, models, dx, cx
+    torch.cuda.empty_cache()
+    measured = mc_kernels(calls, seed)
+    torch.cuda.empty_cache()
+    # 16c: hybrid-nb, the masks as digests (each pass holds 4 x 4096^2 weights a
+    # view, layer and encoder); unchunked where it fits the card
+    models = build_fusion_models(hcfg, DEV, torch.bfloat16, gen(SEED))
+    dx, cx = mc_inputs(hcfg, MC_HYB_B, 163)
+    mc_run("16c warm-up", hcfg, models, 1, dx, cx, seed, None)
+    on, digests = {}, {}
+    for c in (1, 3, None):
+        try:
+            mean, std, got, dt, peak, _, _ = mc_run(f"16c chunk {c}", hcfg, models, c, dx, cx,
+                                                    seed, {})
+            d = mc_run(f"16c chunk {c} recorded", hcfg, models, c, dx, cx, seed, None,
+                       record=True)[5]
+        except torch.cuda.OutOfMemoryError:
+            log(f"  16c mc_chunk {c}: out of device memory (not run)")
+            torch.cuda.empty_cache()
+            continue
+        launched = {k: launched[k] + got[k] for k in COUNTERS}
+        on[c] = (mean, std)
+        digests[f"mc_chunk {c}"] = {p: [t.cpu() for t in v] for p, v in d.items()}
+        log(f"  16c mc_chunk {c}: {dt * 1e3:.2f} ms, peak {peak:.2f} GiB, launches "
+            + ", ".join(f"{k} {v}" for k, v in got.items() if v))
+        del d
+        torch.cuda.empty_cache()
+    n = same_masks("16c", digests)
+    gap = gaps(on)
+    log(f"  16c: {n} (pass, site) mask digests a request equal across mc_chunk "
+        f"{tuple(on)}; mean and std within {gap:.3e} of chunk 1's (bound "
+        f"{TOL[torch.bfloat16]:.3e}, one bf16 ulp at 1)")
+    if len(on) < 2 or not gap <= TOL[torch.bfloat16]:
+        raise AssertionError(f"16c: chunkings {tuple(on)}, gap {gap}")
+    del models, dx, cx
+    torch.cuda.empty_cache()
+    log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
+    return launched, measured
 
 
 # ------------------------------------------------------------------ phase 6
@@ -2161,7 +2488,8 @@ def phase_train_parity(cfg):
     expect_val = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 3, "conv3x3_bn_gelu": 6,
                                                "se_scale": 1}
     # tta_mc: the prefix (modality SE, backbone, necks) once, the suffix's three
-    # SE epilogues on the lean chunk and on the full last pass
+    # SE epilogues on the lean chunk and on the full last pass (dropout 0 here:
+    # no keep-mask launch)
     expect_test = expect_val | {"se_epilogue": 6}
     if val_launches != expect_val or test_launches != expect_test:
         raise AssertionError(f"eval launches {val_launches} / {test_launches}, expected "
@@ -2317,7 +2645,7 @@ def phase_run_single(cfg, raw, tmp):
     n_eval = RUN_EPOCHS * n_val + drawn(RUN_EPOCHS)
     expect = dict.fromkeys(COUNTERS, 0) | {
         "dwi_normalize": RUN_EPOCHS * n_steps + 2 + 3,
-        "se_epilogue": 3 * n_eval + 6 * n_test,
+        "se_epilogue": 3 * n_eval + 6 * n_test, "keep_mask": 6 * n_test,
         "conv3x3_bn_gelu": 6 * (n_eval + n_test),
         "se_scale": n_eval + n_test}
     log(f"  launches of the run {launched}")
@@ -2417,8 +2745,8 @@ FUSION_LOSSES = ("loss", "clf_loss", "mask_loss", "recon_loss", "mimic_loss")
 # chunk and the last pass), the necks 6 x 2 once (the test's prefix runs
 # once), the standalone SE on both modality attentions and once per suffix
 # at fusion_se
-FUSION_VAL = {"se_epilogue": 6, "conv3x3_bn_gelu": 12, "se_scale": 3}
-FUSION_TEST = {"se_epilogue": 12, "conv3x3_bn_gelu": 12, "se_scale": 4}
+FUSION_VAL = {"se_epilogue": 6, "keep_mask": 0, "conv3x3_bn_gelu": 12, "se_scale": 3}
+FUSION_TEST = {"se_epilogue": 12, "keep_mask": 12, "conv3x3_bn_gelu": 12, "se_scale": 4}
 
 
 def fusion_config(cfg, **model):
@@ -2550,7 +2878,7 @@ def phase_fold(cfg, raw, tmp, dwi_out, rcfg0):
         + f"; launches {dce_launched}")
     n_eval = RUN_EPOCHS * n_val + drawn(RUN_EPOCHS)
     expect = dict.fromkeys(COUNTERS, 0) | {
-        "se_epilogue": 3 * n_eval + 6 * n_test,
+        "se_epilogue": 3 * n_eval + 6 * n_test, "keep_mask": 6 * n_test,
         "conv3x3_bn_gelu": 6 * (n_eval + n_test),
         "se_scale": n_eval + n_test}
     if dce_launched != expect or [h["group_trainable"][0] for h in dce_out["history"]] != [0, 1]:
@@ -2820,7 +3148,7 @@ def cli_fold(argv, root, results, ccfg, imports, smi):
     n_va = len(dwi_out["data"].splits["val"]["labels"])
     n_steps, n_val, n_test = -(-n_tr // B), -(-n_va // B), -(-RUN_TEST // B)
     n_eval = CLI_EPOCHS * n_val + drawn(CLI_EPOCHS)
-    single = {"se_epilogue": 3 * n_eval + 6 * n_test,
+    single = {"se_epilogue": 3 * n_eval + 6 * n_test, "keep_mask": 6 * n_test,
               "conv3x3_bn_gelu": 6 * (n_eval + n_test),
               "se_scale": n_eval + n_test}
     expect = dict.fromkeys(COUNTERS, 0) | {
@@ -3074,9 +3402,11 @@ def phase_serve_vit(vcfg):
     # 6 necks x 2 encoders in the prefix (once), modality attention x 2 in the
     # prefix and fusion_se once per suffix, the DWI z-score once
     expect = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 6 * n_suffix,
+                                           "keep_mask": 6 * n_suffix,
                                            "conv3x3_bn_gelu": 12,
                                            "se_scale": 2 + n_suffix, "dwi_normalize": 1}
-    log(f"  expected launches a request: se_epilogue 3 blocks x 2 encoders x {n_suffix} "
+    log(f"  expected launches a request: se_epilogue and keep_mask 3 blocks x 2 encoders x "
+        f"{n_suffix} "
         f"suffixes = {expect['se_epilogue']}, conv3x3_bn_gelu 6 necks x 2 encoders = 12, "
         f"se_scale 2 + {n_suffix} = {expect['se_scale']}, dwi_normalize 1; the ViT's "
         f"attention at N=257 tokens takes the plain route (no flash launch)")
@@ -3481,6 +3811,7 @@ def phase_parallel_folds(cfg, tmp, smi):
         n_test = -(-len(r["data"].splits["test"]["labels"]) // B)
         n_eval = PF_EPOCHS * n_val + drawn(PF_EPOCHS)
         expect["se_epilogue"] += 3 * n_eval + 6 * n_test
+        expect["keep_mask"] += 6 * n_test
         expect["conv3x3_bn_gelu"] += 6 * (n_eval + n_test)
         expect["se_scale"] += n_eval + n_test
         if method == "dwi":
@@ -3506,7 +3837,8 @@ OPERATOR_KERNELS = {"se_epilogue": EPI_KERNELS, "keep_mask": ("keep_mask_kernel"
                     "conv3x3_bn_gelu": ("conv3x3_bn_gelu",), "se_scale": SE_KERNELS,
                     "flash_forward": ("flash_fwd",)}
 # the operators' counts under the names of the kernels line
-OPERATOR_COUNTERS = {"se_epilogue": "se_epilogue", "conv3x3_bn_gelu": "conv3x3_bn_gelu",
+OPERATOR_COUNTERS = {"se_epilogue": "se_epilogue", "keep_mask": "keep_mask",
+                     "conv3x3_bn_gelu": "conv3x3_bn_gelu",
                      "se_scale": "se_scale", "flash_forward": "flash_attention_fwd"}
 # a process that imports torch and the kernels' operators and nothing else of
 # the package: loads each artifact, serves its requests, prints one JSON line
@@ -3611,8 +3943,8 @@ def artifact_case(name, c, mode, dtype, b, art_dir, seed_data):
     # the eager seed-route predictor, and the same under functional_call (the
     # weights swapped in per call, as the traced function runs it)
     predict = make_fusion_predictor(c, *models, mode=mode)
-    stream = (lambda: SeedStream(args[3])) if mode in ("mc", "tta_mc") else (lambda: None)
-    eager_ms = cuda_time(lambda: predict(dx, cx, stream()), reps=1, trials=5)
+    seed = args[3] if mode in ("mc", "tta_mc") else None
+    eager_ms = cuda_time(lambda: predict(dx, cx, seed), reps=1, trials=5)
     functional_ms = cuda_time(lambda: fn(*args), reps=1, trials=5)
     (ep, t_export) = synced(lambda: export_program(fn, args))
     nodes = operator_nodes(ep)
@@ -3686,6 +4018,54 @@ def operator_layer_cost():
     return cost
 
 
+def artifact_chunk_parity(cfg):
+    """11: the tta_mc program in fp32 at B=1, the card's export at mc_chunk 3
+    against the CPU's (unchunked), and the eager predictor (unchunked) on
+    both, one seed: the same masks everywhere, the outputs within 1e-4."""
+    S = cfg.dwi_model.input_size
+    cpu_models, dev_models = card_and_cpu_models(cfg)
+    g = torch.Generator().manual_seed(73)
+    dx = torch.rand(1, S, S, cfg.dwi_channel_num, generator=g)
+    cx = torch.rand(1, S, S, cfg.dce_channel_num, generator=g)
+    outs, masks = {}, {}
+    for where, models in (("card", dev_models), ("cpu", cpu_models)):
+        dev = DEV if where == "card" else torch.device("cpu")
+        a = (serving_variables(*models), dx.to(dev), cx.to(dev),
+             torch.tensor(ARTIFACT_SEEDS[0], device=dev))
+        chunk = 3 if where == "card" else None
+        fn = make_serving_fn(cfg, *models, mode="tta_mc", mc_chunk=chunk)
+        (served, t_exp) = synced(lambda: load_serving(export_serving(fn, a)))
+        with recorded_masks() as (masks[f"{where} artifact"], _):
+            (outs[f"{where} artifact"], t_run) = synced(lambda: served(*a))
+        predict = make_fusion_predictor(cfg, *models, mode="tta_mc")
+        with recorded_masks() as (masks[f"{where} eager"], _):
+            (eager, t_eager) = synced(lambda: predict(a[1], a[2], a[3]))
+        outs[f"{where} eager"] = eager[:2]
+        log(f"  tta_mc fp32 B=1 on the {where}: export at mc_chunk {chunk} + save + load "
+            f"{t_exp:.2f} s, request {t_run:.2f} s; the eager predictor (unchunked) "
+            f"{t_eager:.2f} s")
+    n = same_masks("tta_mc fp32 B=1", {k: masks[k] for k in (
+        "card eager", "card artifact", "cpu eager", "cpu artifact")})
+    log(f"  tta_mc fp32 B=1: {n} (pass, site) masks bit-equal across the card's eager "
+        f"predictor (unchunked), its artifact (mc_chunk 3), the CPU's eager predictor and "
+        f"its artifact (unchunked)")
+    ref = {k: tuple(t.cpu() for t in v) for k, v in outs.items() if k.startswith("card")}
+    compare_card_cpu((("tta_mc fp32 B=1 artifact mean, card vs CPU", outs["card artifact"][0],
+                       outs["cpu artifact"][0], 1e-4),
+                      ("tta_mc fp32 B=1 artifact std, card vs CPU", outs["card artifact"][1],
+                       outs["cpu artifact"][1], 1e-4),
+                      ("tta_mc fp32 B=1 eager mean, card vs CPU", outs["card eager"][0],
+                       outs["cpu eager"][0], 1e-4),
+                      ("tta_mc fp32 B=1 eager std, card vs CPU", outs["card eager"][1],
+                       outs["cpu eager"][1], 1e-4),
+                      ("tta_mc fp32 B=1 card mean, artifact at mc_chunk 3 vs eager",
+                       outs["card artifact"][0], ref["card eager"][0], 1e-4),
+                      ("tta_mc fp32 B=1 card std, artifact at mc_chunk 3 vs eager",
+                       outs["card artifact"][1], ref["card eager"][1], 1e-4)))
+    del cpu_models, dev_models, outs, masks, ref
+    torch.cuda.empty_cache()
+
+
 def phase_serving(cfg, hcfg, tmp, smi):
     """Phase 11: the serving artifacts; returns the serving process's launches."""
     t_phase = time.perf_counter()
@@ -3694,8 +4074,9 @@ def phase_serving(cfg, hcfg, tmp, smi):
         f"bf16 at B=2; save; load and serve {ARTIFACT_REQUESTS} requests each (seeds "
         f"{ARTIFACT_SEEDS}) in a fresh process that imports torch and "
         f"dmf_tpu_torch.ops.library only, with phase 8's CLI artifact (export-serving tta_mc "
-        f"B={B_SERVE} fp32 on the fold's checkpoint); the tta_mc program in fp32 at B=1 on the "
-        f"card against its CPU export")
+        f"B={B_SERVE} fp32 on the fold's checkpoint); the tta_mc program in fp32 at B=1 "
+        f"exported on the card at mc_chunk 3 against its CPU export and the eager predictor "
+        f"on both")
     art_dir = os.path.join(tmp, "serving")
     os.makedirs(art_dir)
     jobs, checks = [], {}
@@ -3775,27 +4156,7 @@ def phase_serving(cfg, hcfg, tmp, smi):
                 if not err <= tol:
                     raise AssertionError(f"{name}: artifact {what} off the eager one by {err}")
 
-    # the tta_mc program in fp32 at B=1: the card's export against the CPU's
-    cpu_models, dev_models = card_and_cpu_models(cfg)
-    g = torch.Generator().manual_seed(73)
-    dx = torch.rand(1, S, S, cfg.dwi_channel_num, generator=g)
-    cx = torch.rand(1, S, S, cfg.dce_channel_num, generator=g)
-    outs = {}
-    for where, models in (("card", dev_models), ("cpu", cpu_models)):
-        dev = DEV if where == "card" else torch.device("cpu")
-        a = (serving_variables(*models), dx.to(dev), cx.to(dev),
-             torch.tensor(ARTIFACT_SEEDS[0], device=dev))
-        fn = make_serving_fn(cfg, *models, mode="tta_mc")
-        (served, t_exp) = synced(lambda: load_serving(export_serving(fn, a)))
-        (outs[where], t_run) = synced(lambda: served(*a))
-        log(f"  tta_mc fp32 B=1 on the {where}: export + save + load {t_exp:.2f} s, "
-            f"request {t_run:.2f} s")
-    compare_card_cpu((("tta_mc fp32 B=1 artifact mean, card vs CPU", outs["card"][0],
-                       outs["cpu"][0], 1e-4),
-                      ("tta_mc fp32 B=1 artifact std, card vs CPU", outs["card"][1],
-                       outs["cpu"][1], 1e-4)))
-    del cpu_models, dev_models, outs
-    torch.cuda.empty_cache()
+    artifact_chunk_parity(cfg)
     cost = operator_layer_cost()
     nodes = checks[f"tta_mc bf16 B={B_SERVE}"]["nodes"]
     extra_ms = sum((op - direct) * nodes[k] for k, (op, direct) in cost.items()) / 1e3
@@ -4225,8 +4586,8 @@ def phase_int8_artifact(cfg, models, qfwd, tmp):
     variables = serving_variables(*models, fwd_override=qfwd)
     args = (variables, dx, cx, torch.tensor(ARTIFACT_SEEDS[0], device=DEV))
     predict = make_fusion_predictor(cfg, *models, mode="tta_mc", fwd_override=qfwd)
-    eager = predict(dx, cx, SeedStream(args[3]))
-    eager_ms = cuda_time(lambda: predict(dx, cx, SeedStream(args[3])), reps=1, trials=5)
+    eager = predict(dx, cx, args[3])
+    eager_ms = cuda_time(lambda: predict(dx, cx, args[3]), reps=1, trials=5)
     (ep, t_export) = synced(lambda: export_program(fn, args))
     nodes = operator_nodes(ep)
     path = os.path.join(art_dir, "int8_tta_mc_bf16.pt2")
@@ -4263,7 +4624,7 @@ def phase_int8_artifact(cfg, models, qfwd, tmp):
         f"{eager_ms:.3f} eager; seed {ARTIFACT_SEEDS[0]} bit-equal to the eager int8 seed-route "
         f"predictor; launches {r['counts']}")
     names = {"int8_conv": "int8_conv", "quantize": "int8_quantize",
-             "dynamic_quantize": "int8_dynamic_quantize"}
+             "dynamic_quantize": "int8_dynamic_quantize", "keep_mask": "keep_mask"}
     return {names[k]: v for k, v in r["counts"].items() if k in names}
 
 
@@ -4312,7 +4673,8 @@ def phase_int8(cfg, tmp):
     hsites, _ = conv_sites(hpred, dx, cx, gen(84), hfwd.modules.values())
     measured = phase_int8_kernels(sites, mods)
     n_conv, n_hyb = sum(sites.values()), sum(hsites.values())
-    base = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "se_scale": 4, "dwi_normalize": 1}
+    base = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "keep_mask": 12, "se_scale": 4,
+                                         "dwi_normalize": 1}
     expect = {"int8": base | {"int8_conv": n_conv, "int8_quantize": n_conv},
               "int8-dynamic": base | {"int8_conv": n_conv, "int8_dynamic_quantize": n_conv},
               "fp": base | {"conv3x3_bn_gelu": 12},
@@ -4524,8 +4886,9 @@ def mesh_rank_main(out):
 
 
 # per rank and request: the same launches as one process's request (phase 5)
-MESH_SERVE_EXPECT = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "conv3x3_bn_gelu": 12,
-                                                   "se_scale": 4, "dwi_normalize": 1}
+MESH_SERVE_EXPECT = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "keep_mask": 12,
+                                                  "conv3x3_bn_gelu": 12,
+                                                  "se_scale": 4, "dwi_normalize": 1}
 
 
 def phase_mesh(cfg, tmp, smi):
@@ -5069,7 +5432,8 @@ def tp_int8_references(cfg, out):
     launched = counts()
     one = {"ms": ms, "counts": launched, "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
            "bytes": int8_bytes(fwd), "tta_scale": tta_scale}
-    base = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "se_scale": 4, "dwi_normalize": 1}
+    base = dict.fromkeys(COUNTERS, 0) | {"se_epilogue": 12, "keep_mask": 12, "se_scale": 4,
+                                         "dwi_normalize": 1}
     n = launched["int8_conv"]
     if not (n > 0 and launched == base | {"int8_conv": n, "int8_quantize": n}):
         raise AssertionError(f"14e one process's int8 tta_mc request launched {launched}")
@@ -5306,7 +5670,8 @@ BENCH_RUNS = (
     ("numerics", ["--numerics", "--numerics-train-steps", "20", "--numerics-test-n", "64"]),
 )
 # a tta_mc request of the default models (phase 5's count)
-BENCH_TTA_MC = {"se_epilogue": 12, "conv3x3_bn_gelu": 12, "se_scale": 4, "dwi_normalize": 1}
+BENCH_TTA_MC = {"se_epilogue": 12, "keep_mask": 12, "conv3x3_bn_gelu": 12, "se_scale": 4,
+                "dwi_normalize": 1}
 BENCH_AGREE, BENCH_PROB_ERR = 0.875, 0.05  # int8-prefix against fp: one of 8 may flip
 BENCH_NUMERICS = {"argmax_agreement": 0.75, "auc_delta": 0.05}
 
@@ -5451,6 +5816,8 @@ def main():
     phase_profile("tta_mc", request)
     phase_profile("hybrid-nb normal", hybrid_request)
     mark("5-6")
+    mc_launches, measured["keep_mask"] = phase_mc_chunks(cfg, hcfg)
+    mark("16")
     phase_train_parity(cfg)
     phase_fusion_parity(cfg)
     mark("7a, 7c")
@@ -5488,13 +5855,14 @@ def main():
         # phase 14: the model axis; its launches are the ranks'
         tp_launches, _, _, measured["int8_conv"]["model_axis_shards"] = phase_tp(cfg, tmp, smi)
         mark("14")
-    launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches)
+    launches = {k: tta_mc_launches[k] + sum(h[k] for h in hybrid_launches) + mc_launches[k]
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
                 + serving_launches[k] + int8_launches.get(k, 0) + mesh_launches[k]
                 + tp_launches[k] + bench_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
-    log(f"  launches on the served paths, the data preparation, the stage backward, the "
+    log(f"  launches on the served paths, the chunked MC requests, the data preparation, the "
+        f"stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
         f"CLI, the ViT path, the fold-parallel run, the serving artifacts, the int8 "
         f"path, the data and model meshes and the bench: {launches}")
@@ -5506,6 +5874,9 @@ def main():
     where = {
         "se_epilogue": ("cuda", "dmf_tpu_torch/csrc/se_epilogue.cu",
                         "dmf_tpu/ops/epilogue_pallas.py:222"),
+        # no Pallas kernel: XLA lowers flax's Dropout (its bernoulli draw)
+        "keep_mask": ("cuda", "dmf_tpu_torch/csrc/se_epilogue.cu",
+                      "dmf_tpu/models/layers.py:337"),
         "conv3x3_bn_gelu": ("cuda", "dmf_tpu_torch/csrc/conv3x3_bn_gelu.cu",
                             "dmf_tpu/ops/conv3x3_pallas.py:217"),
         "flash_attention_fwd": ("cuda", "dmf_tpu_torch/csrc/flash_attention.cu",

@@ -85,8 +85,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "hybrid without a backbone (4096 tokens)")
     p.add_argument("--no-preprocess", action="store_true")
     p.add_argument("--mc-chunk", type=int, default=None,
-                   help="MC passes per chunk (bounds activation memory; the same passes, "
-                        "their masks drawn chunk by chunk)")
+                   help="MC passes per chunk (bounds activation memory; each pass draws "
+                        "its masks from its own pass word, so the ensemble is the same "
+                        "at any chunking)")
     p.add_argument("--profile", default=None, metavar="DIR",
                    help="write a Chrome trace of the timed calls into DIR")
     p.add_argument("--int8", action="store_true",

@@ -87,8 +87,9 @@ def _add_common(p):
                         "one fold it runs the per-fold loop")
     p.add_argument("--mc-chunk", type=int, default=None,
                    help="run the MC uncertainty passes in sequential chunks "
-                        "of this size (same ensemble, bounds activation "
-                        "memory; evals/predict.py)")
+                        "of this size (bounds activation memory; the same "
+                        "masks and ensemble at any chunking: each pass "
+                        "draws from its own pass word; evals/predict.py)")
     p.add_argument("--device", default="cuda",
                    help="torch device the run uses (default cuda; cpu only "
                         "when asked)")

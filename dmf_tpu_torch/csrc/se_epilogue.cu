@@ -41,10 +41,15 @@
 // The partials add 2 x 4 / (P x sizeof(T)) of the map's bytes.
 //
 // Dropout: Philox4x32-10 (Random123) written into the kernel.  Key = the
-// 64-bit seed (lo, hi); counter = (e/4 lo, e/4 hi, 0, 0), where e is `base`
-// (a multiple of 4) plus the element's int64 index in the folded
-// channels-last batch, so one call gives the bits of 4 neighbouring elements
-// and a seed stream's dropout sites each take their own range of counters.
+// 64-bit seed (lo, hi); counter = (e/4 lo, e/4 hi, pass, 0).  The folded
+// batch holds `passes` MC passes pass-major (N / passes maps each): an
+// element's pass word is pass0 plus its map's n / (N / passes), and e is
+// `base` (a multiple of 4) plus the element's int64 index within its pass's
+// maps in channels-last order.  One call gives the bits of 4 neighbouring
+// elements of one pass (a pass's element count is a multiple of C, and the
+// vector paths' C of 4 or 8), a seed stream's dropout sites each take their
+// own range of counters, and a pass draws the same bits whatever other
+// passes share the call: the MC ensemble does not depend on its chunking.
 // keep = (bits >> 8) * 2^-24 < 1 - p, exact in fp32.  `keep4` is the one
 // keep test: the epilogue and the keep-mask entry point (the seed route's
 // dropout outside the epilogue) both call it.  Every offset is 64-bit.
@@ -89,27 +94,31 @@ __device__ __forceinline__ unsigned keep_bit(unsigned bits, float keep_prob) {
   return static_cast<float>(bits >> 8) * 5.9604644775390625e-08f < keep_prob;  // 2^-24
 }
 
-// The keep test of elements 4q .. 4q+3: bit k of the result keeps element 4q+k.
-__device__ __forceinline__ unsigned keep4(uint2 key, unsigned long long q, float keep_prob) {
+// The keep test of elements 4q .. 4q+3 of pass `pass`: bit k of the result
+// keeps element 4q+k.
+__device__ __forceinline__ unsigned keep4(uint2 key, unsigned long long q, unsigned pass,
+                                          float keep_prob) {
   const uint4 r = philox4x32_10(
-      make_uint4(static_cast<unsigned>(q), static_cast<unsigned>(q >> 32), 0u, 0u), key);
+      make_uint4(static_cast<unsigned>(q), static_cast<unsigned>(q >> 32), pass, 0u), key);
   return keep_bit(r.x, keep_prob) | keep_bit(r.y, keep_prob) << 1 |
          keep_bit(r.z, keep_prob) << 2 | keep_bit(r.w, keep_prob) << 3;
 }
 
-// bit k keeps element e + k, k < VEC
+// bit k keeps element e + k of pass `pass`, k < VEC
 template <int VEC>
-__device__ __forceinline__ unsigned keep_bits(uint2 key, long long e, float keep_prob) {
+__device__ __forceinline__ unsigned keep_bits(uint2 key, long long e, unsigned pass,
+                                              float keep_prob) {
   unsigned bits = 0;
   if constexpr (VEC % 4 == 0) {  // e is a multiple of 4 (C % VEC == 0)
 #pragma unroll
     for (int q = 0; q < VEC / 4; ++q)
-      bits |= keep4(key, static_cast<unsigned long long>(e >> 2) + q, keep_prob) << (4 * q);
+      bits |= keep4(key, static_cast<unsigned long long>(e >> 2) + q, pass, keep_prob)
+              << (4 * q);
   } else {
 #pragma unroll
     for (int k = 0; k < VEC; ++k) {
       const unsigned long long i = static_cast<unsigned long long>(e + k);
-      bits |= (keep4(key, i >> 2, keep_prob) >> (i & 3) & 1u) << k;
+      bits |= (keep4(key, i >> 2, pass, keep_prob) >> (i & 3) & 1u) << k;
     }
   }
   return bits;
@@ -120,8 +129,8 @@ template <typename S, int VEC>
 __global__ void __launch_bounds__(VEC == 1 ? 1024 : kThreads)
 epi_y_partials(const S* __restrict__ x, const S* __restrict__ idn, S* __restrict__ out,
                float* __restrict__ part, const long long* __restrict__ seed, long long base,
-               long long hw, int c, int p_blk, int nb, float keep_prob, float drop_scale,
-               int drop) {
+               unsigned pass0, long long maps_per_pass, long long hw, int c, int p_blk, int nb,
+               float keep_prob, float drop_scale, int drop) {
   using R = typename Raw<sizeof(S) * VEC>::type;
   __shared__ float red[kRedFloats];
   const int groups = c / VEC;              // vectors per pixel
@@ -130,6 +139,11 @@ epi_y_partials(const S* __restrict__ x, const S* __restrict__ idn, S* __restrict
   const long long blk = blockIdx.x;
   const Tile t = tile_of(blk, hw, p_blk, nb);
   const uint2 key = drop ? seed_key(seed) : make_uint2(0u, 0u);
+  // the tile's map lies in one pass: its pass word, and the shift from an
+  // element's index in the batch to its counter within the pass
+  const long long pass_i = t.n / maps_per_pass;
+  const unsigned pass = pass0 + static_cast<unsigned>(pass_i);
+  const long long shift = base - pass_i * maps_per_pass * hw * c;
   float acc[VEC];
 #pragma unroll
   for (int k = 0; k < VEC; ++k) acc[k] = 0.0f;
@@ -139,7 +153,7 @@ epi_y_partials(const S* __restrict__ x, const S* __restrict__ idn, S* __restrict
       alignas(sizeof(R)) S xv[VEC], iv[VEC], yv[VEC];
       *reinterpret_cast<R*>(xv) = __ldcs(reinterpret_cast<const R*>(x + e));
       *reinterpret_cast<R*>(iv) = __ldcs(reinterpret_cast<const R*>(idn + e));
-      const unsigned keep = drop ? keep_bits<VEC>(key, base + e, keep_prob) : ~0u;
+      const unsigned keep = drop ? keep_bits<VEC>(key, shift + e, pass, keep_prob) : ~0u;
 #pragma unroll
       for (int k = 0; k < VEC; ++k) {
         float y = round_t<S>(gelu(to_f(xv[k]) + to_f(iv[k])));
@@ -185,13 +199,30 @@ epi_scale(S* __restrict__ out, const float* __restrict__ scale, long long hw, in
   }
 }
 
+// blockIdx.y is the pass; a thread takes one Philox call, counters 4q ..
+// 4q+3, and writes the bytes of those that fall in the pass's range
+// [base, base + per_pass): one 32-bit store where all four do and the bytes
+// are aligned, else byte by byte (a site's first and last group, or a
+// per-pass count that is not a multiple of 4).
 __global__ void keep_mask_kernel(int8_t* __restrict__ mask, const long long* __restrict__ seed,
-                                 long long base, long long numel, float keep_prob) {
+                                 long long base, long long per_pass, unsigned pass0,
+                                 float keep_prob) {
   const uint2 key = seed_key(seed);
-  for (long long i = static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x; i < numel;
-       i += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const unsigned long long e = static_cast<unsigned long long>(base + i);
-    mask[i] = static_cast<int8_t>(keep4(key, e >> 2, keep_prob) >> (e & 3) & 1u);
+  const unsigned pass = pass0 + blockIdx.y;
+  int8_t* m = mask + static_cast<long long>(blockIdx.y) * per_pass;
+  const long long q_end = (base + per_pass + 3) >> 2;
+  for (long long q = (base >> 2) + static_cast<long long>(blockIdx.x) * blockDim.x + threadIdx.x;
+       q < q_end; q += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const unsigned bits = keep4(key, static_cast<unsigned long long>(q), pass, keep_prob);
+    const long long j = 4 * q - base;  // the pass's element of counter 4q
+    if (j >= 0 && j + 4 <= per_pass && (reinterpret_cast<uintptr_t>(m + j) & 3) == 0) {
+      *reinterpret_cast<uint32_t*>(m + j) = (bits & 1u) | (bits >> 1 & 1u) << 8 |
+                                            (bits >> 2 & 1u) << 16 | (bits >> 3 & 1u) << 24;
+    } else {
+#pragma unroll
+      for (int k = 0; k < 4; ++k)
+        if (j + k >= 0 && j + k < per_pass) m[j + k] = static_cast<int8_t>(bits >> k & 1u);
+    }
   }
 }
 
@@ -202,8 +233,9 @@ int row_threads(int groups) { return groups <= kThreads ? kThreads : (groups + 3
 template <typename S, int VEC>
 int launch(const void* x, const void* idn, void* out, const void* w1, const void* b1,
            const void* w2t, const void* b2, void* part, void* scale, const void* seed,
-           long long base, long long n, long long hw, int c, int mid, int p_blk, int group,
-           float keep_prob, float drop_scale, int drop, cudaStream_t stream) {
+           long long base, long long pass0, long long passes, long long n, long long hw, int c,
+           int mid, int p_blk, int group, float keep_prob, float drop_scale, int drop,
+           cudaStream_t stream) {
   const int groups = c / VEC;
   const int threads = row_threads(groups);
   const int nb = static_cast<int>((hw + p_blk - 1) / p_blk);
@@ -213,8 +245,8 @@ int launch(const void* x, const void* idn, void* out, const void* w1, const void
     return static_cast<int>(cudaErrorInvalidValue);
   epi_y_partials<S, VEC><<<static_cast<unsigned>(blocks), threads, 0, stream>>>(
       static_cast<const S*>(x), static_cast<const S*>(idn), static_cast<S*>(out),
-      static_cast<float*>(part), static_cast<const long long*>(seed), base, hw, c, p_blk, nb,
-      keep_prob, drop_scale, drop);
+      static_cast<float*>(part), static_cast<const long long*>(seed), base,
+      static_cast<unsigned>(pass0), n / passes, hw, c, p_blk, nb, keep_prob, drop_scale, drop);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
   err = launch_mlp<se_epilogue_mlp, S, VEC>(static_cast<const float*>(part), w1, b1, w2t, b2,
@@ -231,22 +263,25 @@ int launch(const void* x, const void* idn, void* out, const void* w1, const void
 // x, identity, out: (N, HW, C) channels-last maps of fp32 (bf16 = 0) or bf16
 // (bf16 = 1); w1, w2t: (mid, C) and b1 (mid), b2 (C) in the map dtype; part:
 // (N, ceil(HW / p_blk), C) fp32 scratch; scale: (N, C) fp32 scratch; seed: one
-// int64 on the device, read only when `drop`; base: the Philox counter of the
-// batch's first element, a multiple of 4.  vec: elements per vector load,
+// int64 on the device, read only when `drop`; base: the Philox counter of
+// each pass's first element, a multiple of 4; the N maps hold `passes` passes
+// from pass0 pass-major (N a multiple of passes).  vec: elements per vector load,
 // the full 16 bytes (8 bf16, 4 fp32; C a multiple, 16-byte aligned maps) or 1.
 // Enqueues the three kernels on `stream`; returns the first CUDA error, or 0.
 extern "C" int se_epilogue_launch(int bf16, int vec, const void* x, const void* idn, void* out,
                                   const void* w1, const void* b1, const void* w2t,
                                   const void* b2, void* part, void* scale, const void* seed,
-                                  long long base, long long n, long long hw, int c, int mid,
-                                  int p_blk, int group, float keep_prob, float drop_scale,
-                                  int drop, void* stream) {
+                                  long long base, long long pass0, long long passes, long long n,
+                                  long long hw, int c, int mid, int p_blk, int group,
+                                  float keep_prob, float drop_scale, int drop, void* stream) {
   if (n <= 0 || hw <= 0) return 0;
-  if (base < 0 || base % 4) return static_cast<int>(cudaErrorInvalidValue);
+  if (base < 0 || base % 4 || passes < 1 || n % passes || pass0 < 0 ||
+      pass0 + passes > (1LL << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define SE_EPILOGUE_ARGS \
-  x, idn, out, w1, b1, w2t, b2, part, scale, seed, base, n, hw, c, mid, p_blk, group, keep_prob, \
-      drop_scale, drop, s
+  x, idn, out, w1, b1, w2t, b2, part, scale, seed, base, pass0, passes, n, hw, c, mid, p_blk, \
+      group, keep_prob, drop_scale, drop, s
   if (bf16) {
     if (vec == 8) return launch<uint16_t, 8>(SE_EPILOGUE_ARGS);
     if (vec == 1) return launch<uint16_t, 1>(SE_EPILOGUE_ARGS);
@@ -258,15 +293,21 @@ extern "C" int se_epilogue_launch(int bf16, int vec, const void* x, const void* 
   return static_cast<int>(cudaErrorInvalidValue);
 }
 
-// mask[i] = the epilogue's keep bit of element base + i of the folded batch,
-// for `seed` (one int64 on the device) and keep probability keep_prob.
-extern "C" int keep_mask_launch(void* mask, const void* seed, long long base, long long numel,
-                                float keep_prob, void* stream) {
-  if (numel <= 0) return 0;
-  const long long want = (numel + kThreads - 1) / kThreads;
-  const long long blocks = want < 65536 ? want : 65536;
-  keep_mask_kernel<<<static_cast<unsigned>(blocks), kThreads, 0,
-                     static_cast<cudaStream_t>(stream)>>>(
-      static_cast<int8_t*>(mask), static_cast<const long long*>(seed), base, numel, keep_prob);
+// mask[p * per_pass + i] = the epilogue's keep bit of element i of pass
+// pass0 + p (p < passes), at counter base + i, for `seed` (one int64 on the
+// device) and keep probability keep_prob.
+extern "C" int keep_mask_launch(void* mask, const void* seed, long long base, long long per_pass,
+                                long long pass0, long long passes, float keep_prob,
+                                void* stream) {
+  if (per_pass <= 0 || passes <= 0) return 0;
+  if (base < 0 || passes > 65535 || pass0 < 0 || pass0 + passes > (1LL << 32))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long groups = ((base + per_pass + 3) >> 2) - (base >> 2);
+  const long long want = (groups + kThreads - 1) / kThreads;
+  const long long cap = (65536 + passes - 1) / passes;  // about 65536 blocks in all
+  const dim3 grid(static_cast<unsigned>(want < cap ? want : cap), static_cast<unsigned>(passes));
+  keep_mask_kernel<<<grid, kThreads, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<int8_t*>(mask), static_cast<const long long*>(seed), base, per_pass,
+      static_cast<unsigned>(pass0), keep_prob);
   return static_cast<int>(cudaGetLastError());
 }

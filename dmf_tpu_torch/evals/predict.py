@@ -10,12 +10,16 @@ Counterpart of ``dmf_tpu/evals/predict.py`` (:31-92, :186-383).  Semantics:
 The MC passes are a batch dimension: the deterministic prefix (modality SE,
 backbone, adapter) runs once and is repeated along the batch for the
 suffix.  ``mc_chunk`` passes go through the suffix together (default: all);
-passes 0..P-2 are lean (probabilities only) and the last pass runs in full
-and supplies ``aux``.  The MC modes draw their dropout masks from a
-``torch.Generator``, or from a :class:`~..ops.dropout.SeedStream` passed in
-its place (the seed route of the exported serving program, ``serving.py``):
-its dropout sites take their Philox counters in the order the passes run
-them, the same on the CPU and the card.  The public function keeps the JAX layout: NHWC volumes
+passes 0..P-2 are lean (probabilities only) and the last pass, P-1, runs in
+full and supplies ``aux``.  The MC modes take one request seed, an int64
+Philox key: drawn from the caller's ``torch.Generator``, or given as a seed
+tensor (the exported serving program's argument, ``serving.py``).  Every
+chunk runs on a :class:`~..ops.dropout.SeedStream` of that seed over its
+passes, so each pass draws its masks from its own pass word, as JAX's
+predictor draws each pass from its own key (``dmf_tpu/evals/predict.py:349``):
+``mc_chunk`` is a memory setting and leaves the masks, and so the ensemble,
+unchanged; one seed gives the same masks on the CPU and on the card.  The
+public function keeps the JAX layout: NHWC volumes
 in, ``(mean, std, aux)`` out, with aux maps returned NHWC.  A pass is a
 :class:`PassForward`; ``fwd_override`` swaps in another (the int8 forwards of
 ``ops/quant.py``), as JAX's ``make_fusion_predictor(fwd_override=)``.
@@ -25,10 +29,11 @@ counterpart of JAX's ``_shard_map_predictor`` (:95-172): every data rank
 runs the single-process predictor on its rows of the batch (its kernels
 included), and the ``(mean, std, aux)`` are gathered back into the unsharded
 layout, the ``(views x B, ...)`` aux leaves view by view.  With more than
-one data rank the MC masks come from a generator per data rank, seeded from
-a draw of the caller's generator and the rank, as JAX folds the shard index
-into its key: each sample's ensemble is a correct MC-dropout sample whose
-masks differ from one process's; with one data rank they are the caller's.
+one data rank each data rank draws its request seed from a generator of its
+own, seeded from a draw of the caller's generator and the rank, as JAX folds
+the shard index into its key: each sample's ensemble is a correct MC-dropout
+sample whose masks differ from one process's; with one data rank the seed is
+the one process draws.
 Over a model axis (JAX's GSPMD route, :175-183) the models are sharded in
 place by ``parallel/sharding.py::param_spec`` (``parallel/tensor.py``) and
 the model ranks of each data rank run its rows together, with the same
@@ -127,12 +132,31 @@ class PassForward:
         return tuple(m(x, prefix_only=True) for m, x in zip(self.prefix_encoders, xs))
 
 
+def request_seed(generator, device) -> torch.Tensor:
+    """The MC request's Philox key on ``device``: one int64 drawn from a
+    ``torch.Generator`` (on its own device, then moved), or the int64 seed
+    tensor given in its place."""
+    from ..ops.epilogue_cuda import draw_seed
+
+    if isinstance(generator, torch.Generator):
+        return draw_seed(generator, generator.device).to(device)
+    if (not isinstance(generator, torch.Tensor) or generator.dtype != torch.int64
+            or generator.numel() != 1):
+        raise TypeError("an MC predictor takes a torch.Generator or one int64 seed tensor, "
+                        f"got {type(generator).__name__}")
+    return generator.to(device)
+
+
 def _ensemble(encoders, fwd: Callable, prefix: Callable, mode: str, passes: int,
               mc_chunk: Optional[int]) -> Callable:
     """``run(imgs, generator) -> (mean, std, aux)`` over ``encoders`` (one
     NHWC batch each; they set each input's device and dtype), with
     ``fwd(xs, mc, generator, prefixes, lean) -> (logits, aux)`` a pass and
-    ``prefix(xs)`` the encoders' hoisted prefixes."""
+    ``prefix(xs)`` the encoders' hoisted prefixes.  In the MC modes every
+    pass's dropout draws from a :class:`~..ops.dropout.SeedStream` of the
+    request seed (:func:`request_seed`) and its pass index, whatever the
+    chunk it runs in."""
+    from ..ops.dropout import SeedStream
 
     def inputs(imgs, views):
         return [to_model(tta_views(x) if views else x, m) for x, m in zip(imgs, encoders)]
@@ -153,15 +177,20 @@ def _ensemble(encoders, fwd: Callable, prefix: Callable, mode: str, passes: int,
             if generator is None:
                 raise ValueError(f"mode {mode!r} needs a generator")
             # the prefix holds no dropout: run it once for every pass
-            pre = prefix(inputs(imgs, mode == "tta_mc"))
+            xs = inputs(imgs, mode == "tta_mc")
+            seed = request_seed(generator, xs[0].device)
+            pre = prefix(xs)
             n_lean = passes - 1
             chunk = max(1, n_lean if mc_chunk is None else min(mc_chunk, n_lean))
             probs = []
             for start in range(0, n_lean, chunk):
-                pre_k = tuple(_repeat_prefix(p, min(chunk, n_lean - start)) for p in pre)
-                logits, _ = fwd(none, mc=True, generator=generator, prefixes=pre_k, lean=True)
+                k = min(chunk, n_lean - start)
+                pre_k = tuple(_repeat_prefix(p, k) for p in pre)
+                stream = SeedStream(seed, first_pass=start, passes=k)
+                logits, _ = fwd(none, mc=True, generator=stream, prefixes=pre_k, lean=True)
                 probs.append(torch.softmax(logits.float(), dim=-1))
-            logits, aux = fwd(none, mc=True, generator=generator, prefixes=pre)
+            logits, aux = fwd(none, mc=True, generator=SeedStream(seed, first_pass=n_lean),
+                              prefixes=pre)
             probs.append(torch.softmax(logits.float(), dim=-1))
             probs = torch.cat(probs).reshape(passes * (probs[-1].shape[0] // B), B, -1)
             return probs.mean(0), _std(probs, 0), _to_nhwc(aux)
@@ -171,9 +200,11 @@ def _ensemble(encoders, fwd: Callable, prefix: Callable, mode: str, passes: int,
 
 
 def _rank_generator(generator, mesh) -> Optional[torch.Generator]:
-    """This data rank's MC generator: seeded from one draw of the caller's
-    ``generator`` (which every rank advances alike) and the rank; the
-    caller's own where the data axis has one rank."""
+    """This data rank's MC generator, from which the predictor draws the
+    rank's request seed: seeded from one draw of the caller's ``generator``
+    (which every rank advances alike) and the data rank, so the model ranks
+    of a data rank draw the same seed; the caller's own where the data axis
+    has one rank."""
     if generator is None or mesh.n_data == 1:
         return generator
     if not isinstance(generator, torch.Generator):
@@ -261,9 +292,9 @@ def make_fusion_predictor(cfg: Config, dwi_model, dce_model, fusion_model,
                           mesh=None) -> Callable:
     """Returns ``predict(dwi_imgs, dce_imgs, generator=None) -> (mean, std, aux)``.
 
-    ``dwi_imgs``/``dce_imgs`` are NHWC.  ``generator`` (on the models'
-    device; or a :class:`~..ops.dropout.SeedStream`) drives every dropout
-    draw and is required in ``mc``/``tta_mc``.
+    ``dwi_imgs``/``dce_imgs`` are NHWC.  ``generator`` (a
+    ``torch.Generator``, or one int64 seed tensor) gives the request seed of
+    every dropout draw and is required in ``mc``/``tta_mc``.
     ``mc_chunk`` defaults to ``cfg.mc_chunk``.  ``fwd_override`` (a
     :class:`PassForward`, e.g. ``ops/quant.py``'s ``make_quantized_fusion_fwd``
     or ``make_hybrid_fusion_fwd``) replaces the per-pass forward and the

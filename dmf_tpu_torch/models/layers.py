@@ -9,9 +9,10 @@ Modes are explicit arguments, as in the JAX modules, and nothing depends
 on ``module.train()``: ``train=True`` normalises BatchNorm with the batch's
 statistics (updating the running ones) and turns dropout on; ``mc=True``
 turns dropout on with BatchNorm on its running statistics.  Dropout masks
-come from an explicit ``torch.Generator``, or, on the seed route that the
-exported serving program takes, from a :class:`~..ops.dropout.SeedStream`
-passed in its place (the same masks on the CPU and the card).  Under ``train=True`` no kernel
+come from an explicit ``torch.Generator``, or, on the seed route that every
+MC predictor and the exported serving program take, from a
+:class:`~..ops.dropout.SeedStream` passed in its place (the same masks on
+the CPU and the card, whatever the passes' chunking).  Under ``train=True`` no kernel
 wrapper is called: the SE and the residual epilogue take the unfused route,
 the JAX modules' own training route (layers.py:388-401).
 """
@@ -24,7 +25,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.dropout import SeedStream, seeded_dropout
+from ..ops.dropout import SeedStream, seeded_dropout, stream_mask
 from ..parallel.mesh import RowShard, active_shard
 from ..ops.epilogue import se_epilogue
 from ..ops.se import se_scale
@@ -105,23 +106,31 @@ def dropout(x: torch.Tensor, p: float,
     scale kept values by ``1/(1-p)`` (flax ``nn.Dropout`` semantics).  A
     :class:`~..ops.dropout.SeedStream` draws the mask of its next site
     (:func:`~..ops.dropout.seeded_dropout`).  ``mesh``: ``x`` is this model
-    rank's contiguous slice along ``dim`` of a tensor sharded over the
-    mesh's model axis; its mask is that slice of the whole tensor's mask,
-    the one process draws (every model rank draws the same)."""
+    rank's slice along ``dim`` of a tensor sharded over the mesh's model
+    axis; its mask is that slice of the whole tensor's mask, the one process
+    draws (every model rank draws the same).  On the seed route no site's
+    slice is a contiguous block of the seed order (``dim`` is never the
+    first dimension), so the whole mask is drawn and narrowed."""
     if p <= 0.0:
         return x
     if generator is None:
         raise ValueError("MC dropout needs a generator")
     if mesh is not None and mesh.n_model > 1:
-        if isinstance(generator, SeedStream) or not x.is_contiguous():
-            raise ValueError("a sharded dropout draws from a torch.Generator on a "
-                             "contiguous slice")
         n = x.shape[dim]
         shape = list(x.shape)
         shape[dim] = n * mesh.n_model
-        whole = torch.empty(shape, dtype=torch.float32, device=x.device)
-        u = _uniform(whole, generator).narrow(dim, mesh.model_rank * n, n)
-        return torch.where(u < (1.0 - p), x / (1.0 - p), 0.0)
+        if isinstance(generator, SeedStream):
+            # the operator reads the whole tensor's shape and device, no values
+            whole = x.new_empty(()).expand(shape)
+            keep = stream_mask(whole, p, generator)
+        else:
+            if not x.is_contiguous():
+                raise ValueError("a sharded dropout draws from a torch.Generator on a "
+                                 "contiguous slice")
+            whole = torch.empty(shape, dtype=torch.float32, device=x.device)
+            keep = _uniform(whole, generator) < (1.0 - p)
+        keep = keep.narrow(dim, mesh.model_rank * n, n)
+        return torch.where(keep, x / (1.0 - p), 0.0)
     if isinstance(generator, SeedStream):
         return seeded_dropout(x, p, generator)
     keep = _uniform(x, generator) < (1.0 - p)

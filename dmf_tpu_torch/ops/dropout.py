@@ -1,26 +1,35 @@
 """The seed route of MC dropout: keep masks from a seed tensor, not a generator.
 
 ``torch.export`` can neither take a ``torch.Generator`` as an input nor trace
-one, so the serving program (``serving.py``) draws its dropout masks from a
-:class:`SeedStream`: an int64 seed tensor on the device and a Python counter
-that each dropout site advances by its element count, rounded up to a
-multiple of 4.  The JAX serving program takes a ``uint32`` seed and derives
-its key inside the program (``dmf_tpu/serving.py:18-21``); here the seed is
-the Philox key.
+one, and an MC ensemble should not depend on how its passes are chunked, so
+every MC route draws its dropout masks from a :class:`SeedStream`: an int64
+seed tensor on the device (the request's Philox key), the passes the current
+forward holds, and a Python counter that each dropout site advances by its
+element count *per pass*, rounded up to a multiple of 4.  The MC predictor
+(``evals/predict.py``) makes the streams: the serving program's seed is its
+argument (the JAX serving program takes a ``uint32`` seed and derives its
+key inside the program, ``dmf_tpu/serving.py:18-21``), the eager predictor
+draws one from the caller's generator per request.
 
 Every keep bit is Philox4x32-10 (Random123) of the key ``(seed lo, seed hi)``
-and the counter ``(e/4 lo, e/4 hi, 0, 0)``, word ``e mod 4``, where ``e`` is
-the site's counter base plus the element's index in the *seed order*:
-channels-last (NHWC) for a 4-D tensor, row-major otherwise.  Kernel 1
-(``csrc/se_epilogue.cu``) computes exactly these bits for the epilogue's
-dropout, and its keep-mask kernel for the other sites; on the CPU
-:func:`keep_mask_plain` computes them with torch integer ops, so one seed
-gives the same masks on the CPU and on the card whatever the maps' memory
-format (the CPU's maps are NCHW-contiguous, the card's channels_last).  A
-site keeps an element when ``(word >> 8) * 2^-24 < 1 - p`` in fp32.
+and the counter ``(e/4 lo, e/4 hi, pass, 0)``, word ``e mod 4``, where
+``pass`` is the MC pass the element belongs to and ``e`` the site's counter
+base plus the element's index within its pass, in the *seed order*:
+channels-last (NHWC) for a 4-D tensor, row-major otherwise.  A forward of
+``k`` passes holds them pass-major along the first dimension (``passes *
+rows``), so a pass's masks are the same bits whether it runs alone or in a
+chunk of any size: the counterpart of JAX's one key per pass
+(``dmf_tpu/evals/predict.py:349``).  Kernel 1 (``csrc/se_epilogue.cu``)
+computes exactly these bits for the epilogue's dropout, and its keep-mask
+kernel for the other sites; on the CPU :func:`keep_mask_plain` computes them
+with torch integer ops, so one seed gives the same masks on the CPU and on
+the card whatever the maps' memory format (the CPU's maps are
+NCHW-contiguous, the card's channels_last).  A site keeps an element when
+``(word >> 8) * 2^-24 < 1 - p`` in fp32.  At pass 0 of a one-pass stream the
+bits are those of the counter ``(e/4 lo, e/4 hi, 0, 0)``.
 
-The generator route (a ``torch.Generator``) stays for training, the eager
-predictor and every earlier test.
+The generator route (a ``torch.Generator``) stays for training and for a
+model called directly with ``mc=True``.
 """
 
 from __future__ import annotations
@@ -37,20 +46,32 @@ _WEYL = (0x9E3779B9, 0xBB67AE85)
 
 
 class SeedStream:
-    """A seed tensor (int64, one element, on the maps' device) and the Philox
-    counter of the next dropout site.  Pass it where a dropout takes a
-    ``generator``: each site calls :meth:`take` for its counter base."""
+    """A seed tensor (int64, one element, on the maps' device), the MC passes
+    ``first_pass .. first_pass + passes - 1`` that the forward holds
+    pass-major along each site's first dimension, and the Philox counter of
+    the next dropout site.  Pass it where a dropout takes a ``generator``:
+    each site calls :meth:`take` for its counter base."""
 
-    def __init__(self, seed: torch.Tensor, counter: int = 0):
+    def __init__(self, seed: torch.Tensor, counter: int = 0, first_pass: int = 0,
+                 passes: int = 1):
+        if passes < 1 or first_pass < 0 or first_pass + passes > 2 ** 32:
+            raise ValueError(f"SeedStream: passes {first_pass}..{first_pass + passes - 1} "
+                             f"outside the 32-bit pass word")
         self.seed = seed
         self.counter = counter
+        self.first_pass = first_pass
+        self.passes = passes
 
     def take(self, numel: int) -> int:
-        """The counter base of a site of ``numel`` elements; advances past
-        it to the next multiple of 4 (the epilogue kernel's vector loads
-        take 4 counters' words at once)."""
+        """The counter base of a site of ``numel`` elements over the
+        stream's passes; advances past one pass's elements to the next
+        multiple of 4 (the epilogue kernel's vector loads take 4 counters'
+        words at once), so a site's base does not depend on ``passes``."""
+        if numel % self.passes:
+            raise ValueError(f"SeedStream: {numel} elements do not split into "
+                             f"{self.passes} passes")
         base = self.counter
-        self.counter += -(-numel // 4) * 4
+        self.counter += -(-(numel // self.passes) // 4) * 4
         return base
 
 
@@ -92,33 +113,49 @@ def keep_threshold(drop_rate: float) -> int:
     return math.ceil(float(np.float32(1.0 - drop_rate)) * 2.0 ** 24)
 
 
+def per_pass(shape: Sequence[int], passes: int) -> int:
+    """Elements of one pass of a site of ``shape`` that holds ``passes``
+    passes pass-major along its first dimension."""
+    if passes < 1 or not shape or shape[0] % passes:
+        raise ValueError(f"keep_mask: shape {tuple(shape)} does not split into {passes} "
+                         f"passes along its first dimension")
+    return math.prod(shape) // passes
+
+
 def keep_mask_plain(shape: Sequence[int], drop_rate: float, seed: torch.Tensor,
-                    base: int = 0) -> torch.Tensor:
+                    base: int = 0, first_pass: int = 0, passes: int = 1) -> torch.Tensor:
     """Plain version of the seed route's keep mask: a bool tensor of
-    ``shape`` on ``seed``'s device whose element ``i`` of the seed order
-    keeps with Philox counter ``base + i``.  A 4-D mask comes back with
+    ``shape`` on ``seed``'s device for ``passes`` passes from ``first_pass``
+    (pass-major along the first dimension), whose element ``i`` of pass
+    ``p``'s part of the seed order keeps with Philox counter ``base + i``
+    and pass word ``first_pass + p``.  A 4-D mask comes back with
     channels_last strides (its seed order is its memory order), as the
     kernel writes it."""
-    numel = math.prod(shape)
+    per = per_pass(shape, passes)
     dev = seed.device
-    q = torch.arange(base >> 2, ((base + numel - 1) >> 2) + 1, dtype=torch.int64, device=dev)
-    zero = torch.zeros_like(q)
+    q = torch.arange(base >> 2, ((base + per - 1) >> 2) + 1, dtype=torch.int64, device=dev)
+    n_q = q.numel()
+    q = q.repeat(passes)
+    word = torch.arange(first_pass, first_pass + passes, dtype=torch.int64,
+                        device=dev).repeat_interleave(n_q)
     s = seed.reshape(()).to(torch.int64)
-    words = philox4x32(q & _MASK32, q >> 32, zero, zero, s & _MASK32, (s >> 32) & _MASK32)
+    words = philox4x32(q & _MASK32, q >> 32, word, torch.zeros_like(q), s & _MASK32,
+                       (s >> 32) & _MASK32)
     start = base & 3
-    flat = torch.stack(words, dim=-1).reshape(-1)[start:start + numel]
-    keep = (flat >> 8) < keep_threshold(drop_rate)
+    flat = torch.stack(words, dim=-1).reshape(passes, -1)[:, start:start + per]
+    keep = (flat.reshape(-1) >> 8) < keep_threshold(drop_rate)
     keep = keep.reshape(seed_order_shape(shape))
     return keep.permute(0, 3, 1, 2) if len(shape) == 4 else keep
 
 
-def keep_mask(x: torch.Tensor, drop_rate: float, seed: torch.Tensor, base: int = 0
-              ) -> torch.Tensor:
+def keep_mask(x: torch.Tensor, drop_rate: float, seed: torch.Tensor, base: int = 0,
+              first_pass: int = 0, passes: int = 1) -> torch.Tensor:
     """The seed route's keep mask for ``x``'s elements (shape and device of
-    ``x``): the ``keep_mask`` operator (``ops/library.py``), which runs
-    kernel 1's keep-mask kernel for a CUDA tensor and :func:`keep_mask_plain`
-    for a CPU one.  The kernel's launches count in ``keep_mask.launches``."""
-    return torch.ops.dmf.keep_mask(x, drop_rate, seed, base)
+    ``x``; its values are not read): the ``keep_mask`` operator
+    (``ops/library.py``), which runs kernel 1's keep-mask kernel for a CUDA
+    tensor and :func:`keep_mask_plain` for a CPU one.  The kernel's launches
+    count in ``keep_mask.launches``."""
+    return torch.ops.dmf.keep_mask(x, drop_rate, seed, base, first_pass, passes)
 
 
 keep_mask.launches = 0
@@ -127,5 +164,10 @@ keep_mask.launches = 0
 def seeded_dropout(x: torch.Tensor, p: float, stream: SeedStream) -> torch.Tensor:
     """Dropout with the keep mask of the stream's next site: kept values
     scaled by ``1/(1-p)``, as the generator route."""
-    keep = keep_mask(x, p, stream.seed, stream.take(x.numel()))
-    return torch.where(keep, x / (1.0 - p), 0.0)
+    return torch.where(stream_mask(x, p, stream), x / (1.0 - p), 0.0)
+
+
+def stream_mask(x: torch.Tensor, p: float, stream: SeedStream) -> torch.Tensor:
+    """The keep mask of the stream's next site, of ``x``'s shape."""
+    return keep_mask(x, p, stream.seed, stream.take(x.numel()), stream.first_pass,
+                     stream.passes)

@@ -72,8 +72,9 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
     anything else.  ``drop_rate > 0`` needs ``generator``: a
     ``torch.Generator`` on the tensors' device supplies the mask on the CPU
     (the plain version, called directly) and the kernel's Philox seed on the
-    card; a :class:`~.dropout.SeedStream` (the seed route) supplies the seed
-    and the site's counter base on both devices, so both draw the same mask.
+    card; a :class:`~.dropout.SeedStream` (the seed route, which every MC
+    predictor takes) supplies the seed, the site's counter base and the
+    stream's passes on both devices, so both draw the same mask.
     The kernel has no backward, so on the card a call that autograd would
     record raises; on the CPU such a call takes the plain version directly.
     """
@@ -82,9 +83,10 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
     if drop_rate > 0.0 and generator is None:
         raise ValueError("drop_rate > 0 requires a generator")
     params = (w1, b1, w2, b2)
-    seed, base = None, 0
+    seed, base, first_pass, passes = None, 0, 0, 1
     if drop_rate > 0.0 and isinstance(generator, SeedStream):
         seed, base = generator.seed, generator.take(x.numel())
+        first_pass, passes = generator.first_pass, generator.passes
     elif drop_rate > 0.0:
         if x.device.type == "cpu":
             return se_epilogue_ref(x, identity, *params, drop_rate, generator=generator)
@@ -93,12 +95,14 @@ def se_epilogue(x: torch.Tensor, identity: torch.Tensor,
 
             seed = draw_seed(generator, x.device)
     if x.device.type == "cpu" and records_grad(x, identity, *params):
-        keep = keep_mask_plain(x.shape, drop_rate, seed, base) if seed is not None else None
+        keep = (keep_mask_plain(x.shape, drop_rate, seed, base, first_pass, passes)
+                if seed is not None else None)
         return se_epilogue_ref(x, identity, *params, drop_rate, keep=keep)
     if x.device.type not in ("cpu", "cuda"):
         raise ValueError(f"se_epilogue: unsupported device {x.device}")
     check_no_grad("se_epilogue", x, identity, *params)
-    return torch.ops.dmf.se_epilogue(x, identity, *params, drop_rate, seed, base)
+    return torch.ops.dmf.se_epilogue(x, identity, *params, drop_rate, seed, base, first_pass,
+                                     passes)
 
 
 se_epilogue.launches = 0

@@ -26,6 +26,7 @@ import numpy as np
 import torch
 
 from .cuda_build import load_library
+from .dropout import per_pass
 from .prepared import mlp_weights
 
 _SOURCES = ("se_epilogue.cu",)
@@ -40,12 +41,12 @@ def _library() -> ctypes.CDLL:
     lib = load_library("se_epilogue", _SOURCES)
     fn = lib.se_epilogue_launch
     fn.argtypes = ([ctypes.c_int] * 2 + [ctypes.c_void_p] * 10
-                   + [ctypes.c_longlong] * 3 + [ctypes.c_int] * 4
+                   + [ctypes.c_longlong] * 5 + [ctypes.c_int] * 4
                    + [ctypes.c_float] * 2 + [ctypes.c_int, ctypes.c_void_p])
     fn.restype = ctypes.c_int
     km = lib.keep_mask_launch
-    km.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_longlong, ctypes.c_longlong,
-                   ctypes.c_float, ctypes.c_void_p]
+    km.argtypes = ([ctypes.c_void_p] * 2 + [ctypes.c_longlong] * 4
+                   + [ctypes.c_float, ctypes.c_void_p])
     km.restype = ctypes.c_int
     return lib
 
@@ -104,9 +105,11 @@ def launch_se_epilogue(x: torch.Tensor, identity: torch.Tensor,
                        w1: torch.Tensor, b1: torch.Tensor,
                        w2: torch.Tensor, b2: torch.Tensor,
                        drop_rate: float, seed: Optional[torch.Tensor],
-                       base: int = 0) -> torch.Tensor:
+                       base: int = 0, first_pass: int = 0, passes: int = 1) -> torch.Tensor:
     """Launch the kernel on channels_last (N, C, H, W) fp32/bf16 maps; the
-    dropout's Philox counters start at ``base`` (a multiple of 4)."""
+    dropout's Philox counters start at ``base`` (a multiple of 4) in each of
+    the ``passes`` passes from ``first_pass`` that the N maps hold
+    pass-major (``ops/dropout.py``)."""
     if x.dtype not in (torch.float32, torch.bfloat16) or x.dim() != 4:
         raise ValueError(f"se_epilogue: need a 4-D fp32/bf16 map, got "
                          f"{tuple(x.shape)} {x.dtype}")
@@ -129,6 +132,8 @@ def launch_se_epilogue(x: torch.Tensor, identity: torch.Tensor,
         raise ValueError("se_epilogue: dropout needs an int64 seed on x's device")
     if base < 0 or base % 4:
         raise ValueError(f"se_epilogue: counter base {base} is not a multiple of 4")
+    per_pass(x.shape, passes)
+    _check_passes("se_epilogue", first_pass, passes)
     scale = _drop_scale(drop_rate, dt) if drop else 1.0
     out = torch.empty_like(x)
     hw = h * w
@@ -143,11 +148,18 @@ def launch_se_epilogue(x: torch.Tensor, identity: torch.Tensor,
         rc = lib.se_epilogue_launch(
             int(dt == torch.bfloat16), vec, x.data_ptr(), identity.data_ptr(), out.data_ptr(),
             w1m.data_ptr(), b1v.data_ptr(), w2t.data_ptr(), b2v.data_ptr(), scratch.data_ptr(),
-            scratch.data_ptr() + n * nb * c * 4, seed.data_ptr() if drop else None, base, n, hw,
-            c, mid, p_blk, group, 1.0 - drop_rate, scale, int(drop), stream)
+            scratch.data_ptr() + n * nb * c * 4, seed.data_ptr() if drop else None, base,
+            first_pass, passes, n, hw, c, mid, p_blk, group, 1.0 - drop_rate, scale, int(drop),
+            stream)
     if rc != 0:
         raise RuntimeError(f"se_epilogue: kernel launch failed (CUDA error {rc})")
     return out
+
+
+def _check_passes(name: str, first_pass: int, passes: int) -> None:
+    if first_pass < 0 or first_pass + passes > 2 ** 32:
+        raise ValueError(f"{name}: passes {first_pass}..{first_pass + passes - 1} outside "
+                         f"the 32-bit pass word")
 
 
 def seed_order_empty(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
@@ -159,24 +171,29 @@ def seed_order_empty(x: torch.Tensor, dtype: torch.dtype) -> torch.Tensor:
 
 
 def keep_mask(x: torch.Tensor, drop_rate: float, seed: torch.Tensor,
-              base: int = 0) -> torch.Tensor:
+              base: int = 0, first_pass: int = 0, passes: int = 1) -> torch.Tensor:
     """The keep mask the epilogue kernel draws for ``x``'s elements under
-    ``seed``, element ``i`` of the seed order (:func:`seed_order_empty`)
-    taking Philox counter ``base + i``: a bool tensor shaped like ``x`` in
-    that memory order, written by a small kernel through the epilogue's keep
-    test.  It is not a launch of the epilogue kernel."""
+    ``seed``: ``x`` holds ``passes`` passes from ``first_pass`` pass-major
+    along its first dimension, and element ``i`` of a pass's part of the
+    seed order (:func:`seed_order_empty`) takes Philox counter ``base + i``
+    and the pass's word.  A bool tensor shaped like ``x`` in that memory
+    order, written by a small kernel through the epilogue's keep test (one
+    Philox call a thread for 4 elements); it is not a launch of the epilogue
+    kernel.  ``x``'s values are not read."""
     if not 0.0 <= drop_rate < 1.0:
         raise ValueError(f"keep_mask: drop_rate {drop_rate} outside [0, 1)")
     if seed.device != x.device or seed.dtype != torch.int64 or seed.numel() != 1:
         raise ValueError("keep_mask: need one int64 seed on x's device")
     if base < 0:
         raise ValueError(f"keep_mask: negative counter base {base}")
+    per = per_pass(x.shape, passes)
+    _check_passes("keep_mask", first_pass, passes)
     mask = seed_order_empty(x, torch.bool)  # the kernel writes 0 / 1 bytes
     lib = _library()
     with torch.cuda.device(x.device):
         stream = torch.cuda.current_stream(x.device).cuda_stream
-        rc = lib.keep_mask_launch(mask.data_ptr(), seed.data_ptr(), base, x.numel(),
-                                  1.0 - drop_rate, stream)
+        rc = lib.keep_mask_launch(mask.data_ptr(), seed.data_ptr(), base, per, first_pass,
+                                  passes, 1.0 - drop_rate, stream)
     if rc != 0:
         raise RuntimeError(f"keep_mask: kernel launch failed (CUDA error {rc})")
     return mask
@@ -203,13 +220,18 @@ def philox4x32(ctr, key) -> np.ndarray:
     return np.stack([v.astype(np.uint32) for v in c], axis=-1)
 
 
-def keep_mask_ref(base: int, numel: int, drop_rate: float, seed: int) -> np.ndarray:
-    """Plain version of :func:`keep_mask`: the keep bits of elements
-    ``base .. base + numel - 1`` of the folded batch for the int64 ``seed``."""
+def keep_mask_ref(base: int, numel: int, drop_rate: float, seed: int, first_pass: int = 0,
+                  passes: int = 1) -> np.ndarray:
+    """Plain version of :func:`keep_mask` in the seed order: the keep bits of
+    ``numel`` elements, ``passes`` passes from ``first_pass`` one after
+    another, each pass's elements ``base .. base + numel / passes - 1`` of
+    its counters, for the int64 ``seed``."""
     s = seed & (2 ** 64 - 1)
-    e = np.arange(base, base + numel, dtype=np.uint64)
+    per = numel // passes
+    e = np.tile(np.arange(base, base + per, dtype=np.uint64), passes)
+    word = np.repeat(np.arange(first_pass, first_pass + passes, dtype=np.uint64), per)
     q = e >> np.uint64(2)
-    ctr = np.stack([q & _LO, q >> np.uint64(32), 0 * q, 0 * q], axis=-1).astype(np.uint32)
+    ctr = np.stack([q & _LO, q >> np.uint64(32), word, 0 * q], axis=-1).astype(np.uint32)
     bits = philox4x32(ctr, (s & 0xFFFFFFFF, s >> 32))
     word = np.take_along_axis(bits, (e & np.uint64(3)).astype(np.int64)[:, None], 1)[:, 0]
     u = (word >> np.uint32(8)).astype(np.float32) * np.float32(2.0 ** -24)

@@ -68,8 +68,12 @@ OPERATORS = ("se_epilogue", "keep_mask", "conv3x3_bn_gelu", "se_scale", "flash_f
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("se_epilogue(Tensor x, Tensor identity, Tensor w1, Tensor b1, Tensor w2, "
-            "Tensor b2, float drop_rate, Tensor? seed, int base) -> Tensor")
-_LIB.define("keep_mask(Tensor x, float drop_rate, Tensor seed, int base) -> Tensor")
+            "Tensor b2, float drop_rate, Tensor? seed, int base, int first_pass=0, "
+            "int passes=1) -> Tensor")
+_LIB.define("keep_mask(Tensor x, float drop_rate, Tensor seed, int base, int first_pass=0, "
+            "int passes=1) -> Tensor")
+# (the dispatcher leaves out an argument equal to its schema default, so the
+# implementations below repeat the defaults)
 _LIB.define("conv3x3_bn_gelu(Tensor x, Tensor weight, Tensor? conv_bias, Tensor bn_weight, "
             "Tensor bn_bias, Tensor bn_mean, Tensor bn_var, float eps, int tile_n) -> Tensor")
 _LIB.define("se_scale(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "
@@ -117,39 +121,45 @@ def _map_like(x: torch.Tensor, shape=None) -> torch.Tensor:
 
 # ----------------------------------------------------------- se_epilogue
 def _se_epilogue_cuda(x, identity, w1, b1, w2, b2, drop_rate: float,
-                      seed: Optional[torch.Tensor], base: int):
-    out = epilogue_cuda.launch_se_epilogue(x, identity, w1, b1, w2, b2, drop_rate, seed, base)
+                      seed: Optional[torch.Tensor], base: int, first_pass: int = 0,
+                      passes: int = 1):
+    out = epilogue_cuda.launch_se_epilogue(x, identity, w1, b1, w2, b2, drop_rate, seed, base,
+                                           first_pass, passes)
     epilogue.se_epilogue.launches += 1
     return out
 
 
 def _se_epilogue_cpu(x, identity, w1, b1, w2, b2, drop_rate: float,
-                     seed: Optional[torch.Tensor], base: int):
+                     seed: Optional[torch.Tensor], base: int, first_pass: int = 0,
+                     passes: int = 1):
     keep = None
     if drop_rate > 0.0:
         if seed is None:
             raise ValueError("se_epilogue: drop_rate > 0 needs a seed")
-        keep = dropout.keep_mask_plain(x.shape, drop_rate, seed, base)
+        keep = dropout.keep_mask_plain(x.shape, drop_rate, seed, base, first_pass, passes)
     out = epilogue.se_epilogue_ref(x, identity, w1, b1, w2, b2, drop_rate, keep=keep)
     return _map_like(x).copy_(out)
 
 
-def _se_epilogue_fake(x, identity, w1, b1, w2, b2, drop_rate, seed, base):
+def _se_epilogue_fake(x, identity, w1, b1, w2, b2, drop_rate, seed, base, first_pass=0,
+                      passes=1):
     return _map_like(x)
 
 
 # ------------------------------------------------------------- keep_mask
-def _keep_mask_cuda(x, drop_rate: float, seed: torch.Tensor, base: int):
-    mask = epilogue_cuda.keep_mask(x, drop_rate, seed, base)
+def _keep_mask_cuda(x, drop_rate: float, seed: torch.Tensor, base: int, first_pass: int = 0,
+                    passes: int = 1):
+    mask = epilogue_cuda.keep_mask(x, drop_rate, seed, base, first_pass, passes)
     dropout.keep_mask.launches += 1
     return mask
 
 
-def _keep_mask_cpu(x, drop_rate: float, seed: torch.Tensor, base: int):
-    return dropout.keep_mask_plain(x.shape, drop_rate, seed, base)
+def _keep_mask_cpu(x, drop_rate: float, seed: torch.Tensor, base: int, first_pass: int = 0,
+                   passes: int = 1):
+    return dropout.keep_mask_plain(x.shape, drop_rate, seed, base, first_pass, passes)
 
 
-def _keep_mask_fake(x, drop_rate, seed, base):
+def _keep_mask_fake(x, drop_rate, seed, base, first_pass=0, passes=1):
     return epilogue_cuda.seed_order_empty(x, torch.bool)
 
 

@@ -21,8 +21,9 @@ Design, as in JAX:
   inputs' device, and ``std = 0`` in the deterministic modes.
 * Shapes are fixed: export one artifact per served batch size.
 * MC dropout takes the seed route (``ops/dropout.py``): every keep mask is
-  Philox4x32-10 of the seed and a counter fixed at trace time, so the same
-  seed gives the same masks, and the same bits on the CPU and on the card.
+  Philox4x32-10 of the seed, the pass and a counter fixed at trace time, so
+  the same seed gives the same masks, the same bits on the CPU and on the
+  card, and the eager predictor's masks for that seed at any ``mc_chunk``.
 
 There is no ``platforms`` / ``allow_tpu_kernels`` counterpart.  An artifact
 exported on the card holds the kernels' operators and runs them there; the
@@ -76,14 +77,13 @@ def make_serving_fn(cfg, dwi_model, dce_model, fusion_model, mode: str = "normal
     if mode not in MODES:
         raise ValueError(f"Unknown serving mode: {mode}")
     from .evals.predict import make_fusion_predictor
-    from .ops.dropout import SeedStream
 
     predictor = make_fusion_predictor(cfg, dwi_model, dce_model, fusion_model, mode=mode,
                                       mc_chunk=mc_chunk, fwd_override=fwd_override)
     stochastic = mode in ("mc", "tta_mc")
 
     def run(dwi_x, dce_x, seed):
-        mean, std, _ = predictor(dwi_x, dce_x, SeedStream(seed) if stochastic else None)
+        mean, std, _ = predictor(dwi_x, dce_x, seed if stochastic else None)
         return mean, std
 
     program = _Program(dwi_model, dce_model, fusion_model, run,

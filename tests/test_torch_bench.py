@@ -8,7 +8,8 @@ as ``bench.py`` composes them, on the same weights (the exporters):
 * the FLOP formulas of the kernels' operators equal their closed forms;
 * the serving inference in fp32 equals JAX's preprocessing + apply /
   predictor (bench.py:616-689) at rel 1e-4 in ``normal`` and ``tta``; a
-  chunked ``tta_mc`` ensemble equals the unchunked one;
+  chunked ``tta_mc`` ensemble equals the unchunked one, with dropout off
+  and on;
 * (``test_torch_bench_train.py``: the bf16-compute train steps against
   JAX's, apart so that the two files' XLA compiles run on two workers);
 * each mode prints one JSON line whose metric and keys are those of the JAX
@@ -202,10 +203,11 @@ def test_inference_matches_jax(serving_stack, mode):
 
 def test_mc_chunked_ensemble_matches_unchunked(serving_stack):
     """``--mc-chunk``: without dropout every pass is the same, so chunks of
-    1 and 2 give the unchunked ensemble exactly (pass bookkeeping, views,
-    order); with dropout on, each chunk draws its passes' masks site by
-    site, so the masks differ from one chunk's and the ensembles agree to
-    their MC noise."""
+    1 and 2 give the unchunked ensemble (pass bookkeeping, views, order);
+    with dropout on, each pass draws its masks from its own pass word of the
+    request seed whatever chunk it runs in, so the chunked ensembles are
+    the unchunked one to the same tolerance (only the convs' batch sizes
+    differ)."""
     _, arr, _, _, pmods = serving_stack
     request = (torch.from_numpy(arr["dwi"]), torch.from_numpy(arr["dce"]))
 
@@ -230,7 +232,8 @@ def test_mc_chunked_ensemble_matches_unchunked(serving_stack):
     (m0, s0), *rest = ensembles(pmods, bench.bench_config)
     for m, s in rest:
         assert (s > 0).all() and (s0 > 0).all()
-        torch.testing.assert_close(m, m0, rtol=0, atol=1e-2)
+        torch.testing.assert_close(m, m0, rtol=1e-5, atol=1e-6)
+        torch.testing.assert_close(s, s0, rtol=1e-5, atol=1e-6)
 
 
 # ---------------------------------------------------------------- the modes

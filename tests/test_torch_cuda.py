@@ -89,6 +89,35 @@ def test_keep_mask_bits_match_philox_past_2_31(dev, base):
         assert (flat == epilogue_cuda.keep_mask_ref(base, x.numel(), 0.2, seed)).all()
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", [(6, 24, 5, 3), (6, 1002, 2, 3), (6, 5, 7)])
+def test_pass_words_match_the_plain_masks(dev, dtype, shape):
+    """With pass words: kernel 1's dropout and its keep-mask kernel give the
+    plain version's bits for 3 passes from pass 2^31 - 1 (a per-pass count
+    that is not a multiple of 4 among them), each pass the bits it draws
+    alone, and kernel 1 the plain epilogue on those masks."""
+    from dmf_tpu_torch.ops import dropout, epilogue_cuda
+
+    seed = torch.tensor([(0x5EED << 32) | 3], device=dev)
+    x = torch.randn(*shape, device=dev).to(dtype)
+    x = _cl(x) if x.dim() == 4 else x
+    first, base = 2 ** 31 - 1, 2 ** 32 - 8
+    keep = epilogue_cuda.keep_mask(x, 0.3, seed, base, first, 3)
+    ref = dropout.keep_mask_plain(x.shape, 0.3, seed.cpu(), base, first, 3)
+    assert torch.equal(keep.cpu(), ref)
+    for p in range(3):
+        one = epilogue_cuda.keep_mask(x[2 * p:2 * p + 2], 0.3, seed, base, first + p)
+        assert torch.equal(one, keep[2 * p:2 * p + 2])
+    if x.dim() == 4:
+        c = x.shape[1]
+        idn = _cl(torch.randn(*shape, device=dev).to(dtype))
+        w = (torch.randn(c // 2, c, device=dev) * c ** -0.5, torch.zeros(c // 2, device=dev),
+             torch.randn(c, c // 2, device=dev) * c ** -0.5, torch.zeros(c, device=dev))
+        stream = dropout.SeedStream(seed, counter=base, first_pass=first, passes=3)
+        out = k1.se_epilogue(x, idn, *w, drop_rate=0.3, generator=stream)
+        _close(out, k1.se_epilogue_ref(x, idn, *w, drop_rate=0.3, keep=keep), dtype)
+
+
 def test_conv3x3_refuses_autograd(dev):
     """Kernel 2 has no backward: a call autograd would record raises, and
     under no_grad it runs."""

@@ -613,8 +613,6 @@ def test_int8_artifact_equals_eager_seed_route(mc_stack):
     """An int8 ``tta_mc`` artifact exported on the CPU (the int8 weights and
     scales as arguments, no tensor held) against the eager int8 predictor on
     the seed route: bit for bit."""
-    from dmf_tpu_torch.ops.dropout import SeedStream
-
     pcfg, models, xd, xc = mc_stack
     _, psets = quant.make_quantized_fusion_apply(*models, calibration=(xd, xc),
                                                  calibration_mc=True, **LOW)
@@ -627,7 +625,7 @@ def test_int8_artifact_equals_eager_seed_route(mc_stack):
     served = load_serving(export_serving(fn, args))
     got = served(*args)
     eager = make_fusion_predictor(pcfg, *models, mode="tta_mc", fwd_override=fwd)(
-        xd, xc, SeedStream(torch.tensor(11)))
+        xd, xc, torch.tensor(11))
     assert torch.equal(got[0], eager[0]) and torch.equal(got[1], eager[1])
     # fresh int8 weights ride in as arguments: other scales, other numbers
     bumped = {k: dict(v) for k, v in variables.items()}

@@ -11,6 +11,8 @@ single-process run the tests hold the mesh's against.  States come back
 whole (a model sharded over the model axis is gathered).
 """
 
+import collections
+import contextlib
 import copy
 import os
 
@@ -119,6 +121,46 @@ def predict(mesh, cfg, models, requests, cases, seed=3):
         g = torch.Generator().manual_seed(seed)
         out[(mode, int8)] = [predictor(torch.as_tensor(x), torch.as_tensor(y), g)
                              for x, y in requests]
+    return out
+
+
+@contextlib.contextmanager
+def recorded_masks():
+    """``{pass: [mask, ...]}``: every seed-route keep mask drawn on the CPU
+    under the context (``ops/dropout.py::keep_mask_plain``, which kernel 1's
+    and the keep-mask operator's CPU implementations call), split into its
+    passes, in the order the sites draw them; a sharded site's is the whole
+    tensor's."""
+    from dmf_tpu_torch.ops import dropout
+
+    plain = dropout.keep_mask_plain
+    by_pass = collections.defaultdict(list)
+
+    def hook(shape, drop_rate, seed, base=0, first_pass=0, passes=1):
+        keep = plain(shape, drop_rate, seed, base, first_pass, passes)
+        for p, part in enumerate(keep.chunk(passes)):
+            by_pass[first_pass + p].append(part.clone())
+        return keep
+
+    dropout.keep_mask_plain = hook
+    try:
+        yield by_pass
+    finally:
+        dropout.keep_mask_plain = plain
+
+
+def mc_chunks(mesh, cfg, models, request, chunks, seed=5):
+    """``tta_mc`` over ``mesh`` at each ``mc_chunk`` of ``chunks``, the
+    caller's generator seeded ``seed``: ``{chunk: ((mean, std), masks)}``,
+    with the masks this rank drew by pass (:func:`recorded_masks`)."""
+    from dmf_tpu_torch.evals.predict import make_fusion_predictor
+
+    out = {}
+    for c in chunks:
+        predictor = make_fusion_predictor(cfg, *models, mode="tta_mc", mc_chunk=c, mesh=mesh)
+        with recorded_masks() as masks:
+            mean, std, _ = predictor(*request, torch.Generator().manual_seed(seed))
+        out[c] = ((mean, std), dict(masks))
     return out
 
 
@@ -430,4 +472,4 @@ def several(mesh, jobs):
 JOBS = {"steps": steps, "predict": predict, "multifold": multifold, "fit": fit,
         "multifold_fit": multifold_fit, "tp_forward": tp_forward, "tp_steps": tp_steps,
         "tp_test_fusion": tp_test_fusion, "tp_neck": tp_neck, "tp_int8_conv": tp_int8_conv,
-        "tp_int8_predict": tp_int8_predict, "several": several}
+        "tp_int8_predict": tp_int8_predict, "several": several, "mc_chunks": mc_chunks}
