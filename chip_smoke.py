@@ -25,8 +25,16 @@ Phases, each printing its own lines:
      its backward (dQ, dK/dV; fp32 on the 3xTF32 kernels at (32 | 128,
      4096, 128) and (32, 4096, 64), bf16 beside it; two calls compared bit
      for bit; the fp32 kernels' error and the plain version's against a
-     float64 backward at (32, 4096, 128)), with, for the wgmma kernels (3b,
-     3c, 3d), the kernel's own device
+     float64 backward at (32, 4096, 128)), 3i the flash forward with
+     attention dropout (the MC attention of ``hybrid-nb`` on the seed route,
+     bf16 and fp32 at a ``tta_mc`` B=2 suffix's (8, 4, 4096, 128) at
+     mc_chunk 1, D=64, and mc_chunk 3's (24, ...) with 3 pass words) against
+     its plain version, beside the same kernel at p = 0 and SDPA with
+     ``dropout_p`` (never on the path), and 3i(b) its keep bits (q = 0 and V
+     one-hot over the first and the last 128-key window: ``out != 0`` is the
+     mask) bit-equal to the keep-mask kernel's at pass words, counter bases
+     and a head shard's h0, with, for the wgmma kernels (3b,
+     3c, 3d, 3i), the kernel's own device
      time per call (profiler; fp32 flash: its pre-pass included), its TFLOP/s
      and share of the bound, and the kernel timed in turns with its library
      yardstick (SDPA in fp32 with TF32 off for the fp32 flash kernels) and
@@ -245,7 +253,8 @@ Phases, each printing its own lines:
      set to 0 just before and read just after each: the default ``tta_mc`` at
      B=8 (kernels 1, 2, 6, 7 per request, exactly), ``--encoder hybrid`` and
      ``hybrid-nb`` ``tta_mc`` at full width (B=8; B=2 with ``--mc-chunk 1``:
-     kernels 1, 6, 7, no flash forward), ``--int8-prefix --mode tta_mc``
+     kernels 1, 6, 7 and, for hybrid-nb only, the flash forward with dropout
+     12 times a suffix), ``--int8-prefix --mode tta_mc``
      (its agreement with the fp ensemble), ``--train`` at B=32 and with two
      folds at B=8 (bf16 compute on fp32 parameters, no kernel), ``--train-e2e
      single`` at B=32 for two epochs and ``--numerics`` (20 steps, 64 test
@@ -264,8 +273,15 @@ Phases, each printing its own lines:
      kernel's ms summed over the request beside the plain version's, a
      ``torch.rand < keep`` draw of the same size and the bytes bound, its
      device time; 16c ``hybrid-nb`` in bf16 at B=2 (unchunked where it fits
-     the card), each mask's digest equal across the chunkings, mean and std
-     within 2^-7, ms and peak memory;
+     the card; the attention dropout on the fused forward, 12 launches a
+     suffix), each keep-mask site's digest equal across the chunkings, mean
+     and std within 2^-7, ms and peak memory, a profile at mc_chunk 1; 16d
+     the same request on the weights route (called explicitly) at mc_chunk
+     1, its ms, peak and launches (gated on their own, not counted in the
+     kernels line: the program does not take that route here), its dropout
+     sites taking the fused request's shapes, counter bases and passes in
+     order, its mean and std within 3x the two attention routes'
+     dropout-off floor of the fused route's;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -534,6 +550,7 @@ COUNTERS = {"se_epilogue": (k1, "se_epilogue", "launches"),
             "keep_mask": (seed_route, "keep_mask", "launches"),
             "conv3x3_bn_gelu": (k2, "conv3x3_bn_gelu", "launches"),
             "flash_attention_fwd": (fa, "flash_attention", "launches"),
+            "flash_attention_fwd_dropout": (fa, "flash_attention_dropout", "launches"),
             "flash_attention_bwd_dq": (fa, "flash_attention", "launches_dq"),
             "flash_attention_bwd_dkv": (fa, "flash_attention", "launches_dkv"),
             "se_scale": (sek, "se_scale", "launches"),
@@ -1306,6 +1323,161 @@ def phase_flash_backward():
                       "library_ms": f_l}})
 
 
+# ------------------------------------------------------------------ phase 3i
+ATTN_DROP = 0.1  # the hybrid stage's attention dropout (models/transformer.py)
+# the dropout forward's cases: (dtype, D, rows, first pass, passes, counter
+# base). The served shape is a hybrid-nb tta_mc B=2 request's suffix at
+# mc_chunk 1: 2 volumes x 4 views of one pass, 4 heads (BH = 32); then D=64,
+# and mc_chunk 3's three passes (BH = 96)
+DROP_CASES = ((torch.bfloat16, HEAD_DIM, 8, 4, 1, 2 ** 33),
+              (torch.float32, HEAD_DIM, 8, 4, 1, 2 ** 33),
+              (torch.bfloat16, 64, 8, 0, 1, 0), (torch.float32, 64, 8, 0, 1, 0),
+              (torch.bfloat16, HEAD_DIM, 24, 3, 3, 4 * 10 ** 9))
+# the mask windows of 3i(b): (first pass, passes, counter base, heads of the
+# call, first head) on rows of 2 volumes a pass, 4 heads in all
+MASK_CASES = ((0, 1, 0, HEADS, 0), (5, 2, 2 ** 33 + 4, HEADS, 0), (3, 1, 1000, 2, 2),
+              (0, 2, 2 ** 32 - 2, 2, 0))
+
+
+def flash_dropout_ref_by_pass(q, k, v, scale, seed, base, first, passes):
+    """The plain version a pass at a time: pass i's mask is its own pass
+    word's, so the passes' outputs stack to the whole call's.  The oracle
+    of a bf16 kernel takes the operands in fp32: the plain version in bf16
+    is the weights route, which rounds the logits to bf16 as JAX's XLA route
+    does, where the kernel keeps S in fp32 (as flash_attention_ref does)."""
+    rows = q.shape[0] // passes
+    return torch.cat([fa.flash_attention_dropout_ref(
+        q[i * rows:(i + 1) * rows], k[i * rows:(i + 1) * rows], v[i * rows:(i + 1) * rows],
+        scale, ATTN_DROP, seed, base, first + i, 1) for i in range(passes)])
+
+
+def flash_dropout_mask_bits(seed):
+    """3i(b): with q = 0 every score is 0, P is uniform and l = N_k; with V
+    one-hot over a window of 128 keys (V[k, d] = 1 for k = w + d), out[q, d] =
+    keep(q, w + d) / (N_k (1 - p)).  So ``out != 0`` is the kernel's mask of
+    that window, held bit for bit against the keep-mask kernel's mask of the
+    whole (B, H, N, N) weights, at the first and the last window, in bf16 and
+    fp32; the kept values against 1 / (N_k (1 - p)).  Returns the windows."""
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for first, passes, base, local, h0 in MASK_CASES:
+            b = 2 * passes
+            q = torch.zeros(b, local, SEQ, HEAD_DIM, device=DEV, dtype=dtype)
+            k = torch.randn(b, local, SEQ, HEAD_DIM, device=DEV, generator=gen(31)).to(dtype)
+            whole = q.new_empty(()).expand(b, HEADS, SEQ, SEQ)
+            keep = epilogue_cuda.keep_mask(whole, ATTN_DROP, seed, base, first, passes)
+            for w in (0, SEQ - HEAD_DIM):
+                v = torch.zeros(b, local, SEQ, HEAD_DIM, device=DEV, dtype=dtype)
+                v[:, :, w:w + HEAD_DIM] = torch.eye(HEAD_DIM, device=DEV, dtype=dtype)
+                out = fa.launch_flash_forward_dropout(q, k, v, HEAD_DIM ** -0.5, ATTN_DROP,
+                                                      seed, base, first, passes, HEADS, h0)
+                want = keep[:, h0:h0 + local, :, w:w + HEAD_DIM]
+                tag = (f"3i(b) {str(dtype)[6:]} passes {first}..{first + passes - 1} base "
+                       f"{base} heads {h0}..{h0 + local - 1} of {HEADS}, keys {w}..{w + 127}")
+                if not torch.equal(out != 0, want):
+                    raise AssertionError(f"{tag}: {(out != 0).ne(want).sum().item()} keep "
+                                         f"bits differ from the keep-mask kernel's")
+                kept = out[want].float()
+                value = 1.0 / (SEQ * (1.0 - ATTN_DROP))
+                err = (kept - value).abs().max().item() / value
+                if not err <= TOL[dtype]:
+                    raise AssertionError(f"{tag}: kept values {err} off 1/(N(1-p))")
+                n += 1
+            del q, k, v, out, keep, want
+    log(f"  3i(b): the kernels' keep bits equal the keep-mask kernel's in {n} windows of "
+        f"{SEQ} queries x 128 keys x heads x rows (first and last window; pass words 0..6; "
+        f"counter bases 0, 1000, 2^32 - 2, 2^33 + 4; whole heads and a 2-way shard's h0 = "
+        f"0, 2), bf16 and fp32; kept values within TOL of 1/(N_k (1-p))")
+    return n
+
+
+def phase_flash_dropout():
+    """Phase 3i: the forward kernels' dropout variant (the MC attention of the
+    seed route) against its plain version at the served shapes, its time
+    beside the same kernel at p = 0, the plain version, SDPA with
+    ``dropout_p`` (a yardstick, never on the path; its own mask) and the
+    bound; then the keep bits (3i(b))."""
+    log(f"== phase 3i: flash forward with attention dropout {ATTN_DROP} (CUDA) vs plain, "
+        f"(B, {HEADS}, {SEQ}, D): a hybrid-nb tta_mc B=2 suffix at mc_chunk 1 (B = 8) and 3 "
+        f"(B = 24, 3 pass words), bf16 and fp32 (3xTF32)")
+    seed = torch.tensor([(0x5EED << 32) | 39], device=DEV)
+    r = torch.randn(2, 2, 128, 64, device=DEV)
+    expect_value_error("p = 0", lambda: fa.launch_flash_forward_dropout(
+        r, r, r, 0.125, 0.0, seed, 0, 0, 1, 2, 0))
+    expect_value_error("a head past the whole count", lambda: fa.launch_flash_forward_dropout(
+        r, r, r, 0.125, ATTN_DROP, seed, 0, 0, 1, 2, 1))
+    g = gen(39)
+    errs, res = [], {}
+    for dtype, d, b, first, passes, base in DROP_CASES:
+        scale = d ** -0.5
+        q, k, v = (torch.randn(b, HEADS, SEQ, d, device=DEV, generator=g).to(dtype)
+                   for _ in range(3))
+        tag = (f"{str(dtype)[6:]} B={b} (BH={b * HEADS}) D={d} passes {first}.."
+               f"{first + passes - 1} base {base}")
+        f32 = dtype == torch.float32
+
+        def kernel():
+            return fa.launch_flash_forward_dropout(q, k, v, scale, ATTN_DROP, seed, base, first,
+                                                   passes, HEADS, 0)
+
+        out = kernel()
+        errs.append(check(f"3i {tag} out against the plain version on fp32 operands", out,
+                          flash_dropout_ref_by_pass(q.float(), k.float(), v.float(), scale,
+                                                    seed, base, first, passes), dtype))
+        if not f32:
+            gap = (out.float() - flash_dropout_ref_by_pass(q, k, v, scale, seed, base, first,
+                                                           passes).float()).abs().max().item()
+            log(f"  3i {tag}: against the plain version in bf16 (the weights route, logits "
+                f"rounded to bf16) {gap:.3e}")
+        if not torch.equal(out, kernel()):
+            raise AssertionError(f"3i {tag}: two calls differ")
+        del out
+        q3, k3, v3 = (t.view(b * HEADS, SEQ, d) for t in (q, k, v))
+        t_k = cuda_time(kernel, reps=3, trials=3)
+        t_0 = cuda_time(lambda: fa.flash_forward(q3, k3, v3, scale), reps=3, trials=3)
+        t_p = cuda_time(lambda: flash_dropout_ref_by_pass(q, k, v, scale, seed, base, first,
+                                                          passes), reps=1, trials=3)
+        t_l = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=ATTN_DROP),
+                        reps=3, trials=3)
+        flop = 4 * b * HEADS * SEQ * SEQ * d
+        bound = (3 * flop / TF32_FLOP_PER_S if f32 else flop / BF16_FLOP_PER_S) * 1e3
+        log(f"  3i {tag}: kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s, "
+            f"{100 * bound / t_k:.1f} % of the bound), the kernel at p = 0 {t_0:.4f} ms "
+            f"(x{t_k / t_0:.2f}), plain {t_p:.4f} ms, SDPA dropout_p={ATTN_DROP} {t_l:.4f} "
+            f"ms (median); bound {bound:.4f} ms (operations: "
+            + ("3x the products at 495 TFLOP/s" if f32 else "bf16 at 989 TFLOP/s")
+            + f"; {b * HEADS * SEQ * SEQ / 1e6:.0f}M keep bits, one Philox call each)")
+        dev, _ = device_rate(f"3i {tag}" + (" (pre-pass + 3xTF32 kernel)" if f32 else ""),
+                             kernel, F32_FWD_KERNELS if f32 else ("flash_fwd_wgmma",), bound,
+                             flop=flop)
+        res[(dtype, d, b)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "library_ms": t_l,
+                              "p0_ms": t_0, "device_ms": dev}
+        del q, k, v, q3, k3, v3
+        torch.cuda.empty_cache()
+    windows = flash_dropout_mask_bits(seed)
+    torch.cuda.empty_cache()
+    # the entry's times: bf16 at the served (8, 4, 4096, 128); "fp32" the 3xTF32 kernel's
+    served = res[(torch.bfloat16, HEAD_DIM, 8)]
+    return {"max_abs_err": max(errs), **{k: served[k] for k in
+                                         ("ms", "plain_ms", "bound_ms", "library_ms")},
+            "bound_by": "operations", "p0_ms": served["p0_ms"], "mask_windows": windows,
+            "fp32": res[(torch.float32, HEAD_DIM, 8)]}
+
+
+@contextlib.contextmanager
+def weights_route():
+    """The MC attention through the weights route (materialized weights, the
+    keep-mask kernel, the value product) at every shape, for this script's
+    comparisons only: ``models/transformer.py`` takes the fused route where
+    the flash shape rule holds."""
+    bound = transformer_mod.use_flash
+    transformer_mod.use_flash = lambda *a: False
+    try:
+        yield
+    finally:
+        transformer_mod.use_flash = bound
+
+
 @contextlib.contextmanager
 def plain_route():
     """The transformer stage's attention through the plain route (weights
@@ -2049,10 +2221,12 @@ def recorded_masks(digest=False):
     passes)``.  On the card a keep-mask site's mask is the kernel's output
     and a kernel 1 site's the keep-mask kernel on its arguments (phase 3a and
     16a hold the two bit-equal; a direct call, which no count sees); on the
-    CPU ``keep_mask_plain``'s output."""
+    CPU ``keep_mask_plain``'s output.  A fused attention site (the dropout
+    forward) records its call alone, with the shape of the whole (B, H, N_q,
+    N_k) weights whose counters it takes; its bits are phase 3i(b)'s."""
     masks, calls = collections.defaultdict(list), []
-    kernel, launch, plain = (epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue,
-                             seed_route.keep_mask_plain)
+    kernel, launch, plain, fused = (epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue,
+                                    seed_route.keep_mask_plain, fa.launch_flash_forward_dropout)
 
     def record(kind, keep, drop_rate, base, first_pass, passes, dtype):
         calls.append((kind, tuple(keep.shape), dtype, drop_rate, base, first_pass, passes))
@@ -2076,13 +2250,24 @@ def recorded_masks(digest=False):
         record("plain", keep, drop_rate, base, first_pass, passes, None)
         return keep
 
+    def launch_flash_forward_dropout(q, k, v, scale, p, seed, base, first_pass, passes, heads,
+                                     h0):
+        if h0 != 0 or heads != q.shape[1]:
+            raise AssertionError(f"a fused attention site of one process at heads {h0}.. of "
+                                 f"{heads}, {q.shape[1]} a call")
+        calls.append(("fused", (q.shape[0], heads, q.shape[2], k.shape[2]), q.dtype, p, base,
+                      first_pass, passes))
+        return fused(q, k, v, scale, p, seed, base, first_pass, passes, heads, h0)
+
     epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue = keep_mask, launch_se_epilogue
     seed_route.keep_mask_plain = keep_mask_plain
+    fa.launch_flash_forward_dropout = launch_flash_forward_dropout
     try:
         yield masks, calls
     finally:
         epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue = kernel, launch
         seed_route.keep_mask_plain = plain
+        fa.launch_flash_forward_dropout = fused
 
 
 def same_masks(tag, runs):
@@ -2100,24 +2285,30 @@ def same_masks(tag, runs):
     return sum(len(v) for v in ref.values())
 
 
-def mc_expect(models, chunk, passes, prefix):
+def mc_expect(models, chunk, passes, prefix, fused=True):
     """The launches of one ``tta_mc`` request of the fusion ``models`` at
     ``mc_chunk`` ``chunk``: per suffix forward (each lean chunk, then the last
     pass) and encoder, kernel 1 once a ResLite block and the keep-mask kernel
-    once a bottleneck and four times a transformer block (the attention
-    weights, the projection, the MLP's two); kernel 6 on the modality
-    attention twice and on fusion_se once a suffix; ``prefix`` the rest."""
+    once a bottleneck and three times a transformer block (the projection,
+    the MLP's two), and its attention dropout once a block: the fused
+    forward (``fused``: at the flash shapes, hybrid-nb's 4096 tokens), or
+    the weights route's keep-mask kernel; kernel 6 on the modality attention
+    twice and on fusion_se once a suffix; ``prefix`` the rest."""
     n_lean = passes - 1
     n_suffix = -(-n_lean // (n_lean if chunk is None else min(chunk, n_lean))) + 1
-    n_epi = n_keep = 0
+    n_epi = n_keep = n_attn = 0
     for enc in models[:2]:
         blocks = [b for b in (enc.block1, enc.block2, enc.block3) if b is not None]
         n_epi += len(blocks)
         n_keep += sum(len(b.bottlenecks) for b in blocks)
         if enc.transformer is not None:
-            n_keep += 4 * len(enc.transformer.transformer.layers)
+            n_keep += 3 * len(enc.transformer.transformer.layers)
+            n_attn += len(enc.transformer.transformer.layers)
+    if not fused:
+        n_keep, n_attn = n_keep + n_attn, 0
     return dict.fromkeys(COUNTERS, 0) | prefix | {
-        "se_epilogue": n_epi * n_suffix, "keep_mask": n_keep * n_suffix, "se_scale": 2 + n_suffix}
+        "se_epilogue": n_epi * n_suffix, "keep_mask": n_keep * n_suffix, "se_scale": 2 + n_suffix,
+        "flash_attention_fwd_dropout": n_attn * n_suffix}
 
 
 def mc_inputs(cfg, b, seed):
@@ -2129,12 +2320,13 @@ def mc_inputs(cfg, b, seed):
         torch.full((S, S, 1), 0.5, device=DEV))
 
 
-def mc_run(name, cfg, models, chunk, dx, cx, seed, prefix, record=None):
+def mc_run(name, cfg, models, chunk, dx, cx, seed, prefix, record=None, fused=True):
     """One ``tta_mc`` request of preprocessed ``(dx, cx)`` at ``mc_chunk``
     ``chunk`` on the seed tensor ``seed``: ``(mean, std, launches, s, peak
     GiB)``, the launches counted from 0 and gated (``prefix``: the launches
-    beside the suffixes'; None: not gated); ``record`` (False or True for
-    digests): also the masks, under :func:`recorded_masks`."""
+    beside the suffixes'; None: not gated; ``fused``: attention dropout on the
+    fused forward); ``record`` (False or True for digests): also the masks,
+    under :func:`recorded_masks`."""
     predict = make_fusion_predictor(cfg, *models, mode="tta_mc", mc_chunk=chunk)
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -2144,8 +2336,8 @@ def mc_run(name, cfg, models, chunk, dx, cx, seed, prefix, record=None):
         (mean, std, _), dt = synced(lambda: predict(dx, cx, seed))
     launched = counts()
     if prefix is not None:
-        gate(name, cfg, launched, mc_expect(models, chunk, cfg.mc_passes, prefix), mean, std,
-             True, dx.shape[0])
+        gate(name, cfg, launched, mc_expect(models, chunk, cfg.mc_passes, prefix, fused), mean,
+             std, True, dx.shape[0])
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     return mean, std, launched, dt, peak, masks, calls
 
@@ -2214,13 +2406,15 @@ def mc_kernels(calls, seed):
 
 
 def phase_mc_chunks(cfg, hcfg):
-    """Phase 16: the MC ensemble across ``mc_chunk``; returns the dropout-on
-    requests' launches and the keep-mask kernel's numbers."""
+    """Phase 16: the MC ensemble across ``mc_chunk``, and 16d the fused
+    attention against the weights route; returns the dropout-on requests'
+    launches and the keep-mask kernel's numbers."""
     t_phase = time.perf_counter()
     log(f"== phase 16: the tta_mc ensemble across mc_chunk {MC_CHUNKS} (every pass's masks "
         f"from its own pass word): 16a kernel 1 and the keep-mask kernel with pass words at a "
         f"request's calls, 16b the default models bf16 B={B_SERVE}, 16c hybrid-nb bf16 "
-        f"B={MC_HYB_B}")
+        f"B={MC_HYB_B} (its attention dropout on the fused forward), 16d against the weights "
+        f"route")
     launched = dict.fromkeys(COUNTERS, 0)
     seed = torch.tensor([(0x5EED << 32) | 16], device=DEV)
     # 16b: the default models, masks kept whole; the dropout-off floor first
@@ -2262,13 +2456,13 @@ def phase_mc_chunks(cfg, hcfg):
     models = build_fusion_models(hcfg, DEV, torch.bfloat16, gen(SEED))
     dx, cx = mc_inputs(hcfg, MC_HYB_B, 163)
     mc_run("16c warm-up", hcfg, models, 1, dx, cx, seed, None)
-    on, digests = {}, {}
+    on, digests, sites = {}, {}, {}
     for c in (1, 3, None):
         try:
             mean, std, got, dt, peak, _, _ = mc_run(f"16c chunk {c}", hcfg, models, c, dx, cx,
                                                     seed, {})
-            d = mc_run(f"16c chunk {c} recorded", hcfg, models, c, dx, cx, seed, None,
-                       record=True)[5]
+            d, sites[c] = mc_run(f"16c chunk {c} recorded", hcfg, models, c, dx, cx, seed,
+                                 None, record=True)[5:]
         except torch.cuda.OutOfMemoryError:
             log(f"  16c mc_chunk {c}: out of device memory (not run)")
             torch.cuda.empty_cache()
@@ -2282,28 +2476,79 @@ def phase_mc_chunks(cfg, hcfg):
         torch.cuda.empty_cache()
     n = same_masks("16c", digests)
     gap = gaps(on)
-    log(f"  16c: {n} (pass, site) mask digests a request equal across mc_chunk "
-        f"{tuple(on)}; mean and std within {gap:.3e} of chunk 1's (bound "
-        f"{TOL[torch.bfloat16]:.3e}, one bf16 ulp at 1)")
+    log(f"  16c: {n} (pass, site) mask digests a request (the keep-mask sites; the fused "
+        f"attention sites' bits are 3i(b)'s) equal across mc_chunk {tuple(on)}; mean and std "
+        f"within {gap:.3e} of chunk 1's (bound {TOL[torch.bfloat16]:.3e}, one bf16 ulp at 1)")
     if len(on) < 2 or not gap <= TOL[torch.bfloat16]:
         raise AssertionError(f"16c: chunkings {tuple(on)}, gap {gap}")
+    predict = make_fusion_predictor(hcfg, *models, mode="tta_mc", mc_chunk=1)
+    phase_profile(f"hybrid-nb tta_mc B={MC_HYB_B} mc_chunk 1",
+                  lambda: (synced(lambda: predict(dx, cx, seed))[1], None, None), "16c")
+    # 16d's launches are the weights route's, which the program does not take
+    # here: gated in 16d and kept out of the main path's counts
+    mc_fused_against_weights(hcfg, models, dx, cx, seed, on[1], sites[1])
     del models, dx, cx
     torch.cuda.empty_cache()
     log(f"  phase 16: {time.perf_counter() - t_phase:.1f} s")
     return launched, measured
 
 
+def mc_fused_against_weights(hcfg, models, dx, cx, seed, fused, fused_sites):
+    """16d: the hybrid-nb ``tta_mc`` request of 16c on the weights route
+    (called explicitly, :func:`weights_route`) at mc_chunk 1 on the same seed:
+    its ms, peak and launches, gated on their own (the keep-mask kernel at the
+    attention sites, no fused forward); every dropout site of the request, in
+    order, takes the same (shape, dtype, rate, counter base, passes) on both
+    routes (``fused_sites``: 16c's chunk 1 calls, each fused site's with the
+    whole weights' shape); and the mean and std within 3x the floor that the
+    two attention routes show with dropout off (a ``tta`` request through the
+    flash forward and through the plain attention) of the fused route's
+    ``fused`` (16c's chunk 1)."""
+    with weights_route():
+        mean, std, got, dt, peak, _, _ = mc_run("16d weights route", hcfg, models, 1, dx, cx,
+                                                seed, {}, fused=False)
+        sites = mc_run("16d weights route recorded", hcfg, models, 1, dx, cx, seed, None,
+                       record=True)[6]
+    n_fused = sum(c[0] == "fused" for c in fused_sites)
+    if n_fused == 0 or [c[1:] for c in sites] != [c[1:] for c in fused_sites]:
+        raise AssertionError("16d: the fused request's dropout sites differ from the weights "
+                             "route's in shape, rate, counter base or passes")
+    predict = make_fusion_predictor(hcfg, *models, mode="tta")
+    flash = predict(dx, cx, None)[:2]
+    with plain_route():
+        plain = predict(dx, cx, None)[:2]
+    floor = gaps({"flash": flash, "plain": plain})
+    gap = gaps({"fused": fused, "weights": (mean, std)})
+    bound = MC_FLOOR_MARGIN * floor
+    log(f"  16d hybrid-nb B={MC_HYB_B} on the weights route (materialized weights, the "
+        f"keep-mask kernel), mc_chunk 1: {dt * 1e3:.2f} ms, peak {peak:.2f} GiB, launches "
+        + ", ".join(f"{k} {v}" for k, v in got.items() if v)
+        + f" (not the main path's: kept out of the kernels line); its {len(sites)} dropout "
+        f"sites take the fused request's shapes, rates, counter bases and passes ({n_fused} "
+        f"of them fused there); mean and std within {gap:.3e} of the fused route's (the "
+        f"attention routes' dropout-off floor {floor:.3e}; bound {MC_FLOOR_MARGIN}x, "
+        f"{bound:.3e})")
+    if not gap <= bound:
+        raise AssertionError(f"16d: the fused ensemble strays {gap} from the weights route's")
+    torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------------------ phase 6
-# the hand-written kernels as the profiler names them, for phase 6
+# the hand-written kernels as the profiler names them (regular expressions),
+# for phase 6: the forward kernels' p = 0 and dropout instances apart, by
+# their template's DROP argument
+FLASH_FWD_P0 = (r"flash_fwd_\w+<\d+, false>",)
+FLASH_FWD_DROP = (r"flash_fwd_\w+<\d+, true>",)
 PROFILE_KERNELS = {"kernel 1 se_epilogue (3 kernels a call)": EPI_KERNELS,
                    "kernel 2 conv3x3_bn_gelu": ("conv3x3_bn_gelu",),
-                   "kernel 3 flash forward": ("flash_fwd",),
+                   "kernel 3 flash forward (p = 0)": FLASH_FWD_P0,
+                   "flash forward with attention dropout": FLASH_FWD_DROP,
                    "kernel 6 se_scale (3 kernels a call)": SE_KERNELS,
                    "kernel 7 dwi_normalize (3 kernels a call)": DWI_KERNELS}
 
 
-def phase_profile(name, request):
-    log(f"== phase 6: profiler breakdown of one more {name} request (device time by kernel)")
+def phase_profile(name, request, phase="phase 6"):
+    log(f"== {phase}: profiler breakdown of one more {name} request (device time by kernel)")
     from torch.profiler import ProfilerActivity, profile
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         dt, _, _ = request()
@@ -3832,14 +4077,16 @@ def phase_parallel_folds(cfg, tmp, smi):
 # the serving artifacts: (name, config, mode, dtype, B)
 ARTIFACT_REQUESTS = 5
 ARTIFACT_SEEDS = (7, 7, 8, 9, 10)  # requests 0 and 1 share a seed
-# an artifact request's kernels as the profiler names them, by operator
+# an artifact request's kernels as the profiler names them (regular
+# expressions), by operator
 OPERATOR_KERNELS = {"se_epilogue": EPI_KERNELS, "keep_mask": ("keep_mask_kernel",),
                     "conv3x3_bn_gelu": ("conv3x3_bn_gelu",), "se_scale": SE_KERNELS,
-                    "flash_forward": ("flash_fwd",)}
+                    "flash_forward": FLASH_FWD_P0, "flash_forward_dropout": FLASH_FWD_DROP}
 # the operators' counts under the names of the kernels line
 OPERATOR_COUNTERS = {"se_epilogue": "se_epilogue", "keep_mask": "keep_mask",
                      "conv3x3_bn_gelu": "conv3x3_bn_gelu",
-                     "se_scale": "se_scale", "flash_forward": "flash_attention_fwd"}
+                     "se_scale": "se_scale", "flash_forward": "flash_attention_fwd",
+                     "flash_forward_dropout": "flash_attention_fwd_dropout"}
 # a process that imports torch and the kernels' operators and nothing else of
 # the package: loads each artifact, serves its requests, prints one JSON line
 SERVE_CHILD = r"""
@@ -3905,8 +4152,8 @@ def prep_nodes(ep):
 
 
 def profiled_kernels(run, want):
-    """The CUDA kernel names of one ``run()`` under the profiler that hold
-    each name of ``want`` (up to three sessions: one at times records only
+    """The CUDA kernel names of one ``run()`` under the profiler that match
+    each pattern of ``want`` (up to three sessions: one at times records only
     some kernels)."""
     from torch.profiler import ProfilerActivity, profile
     for _ in range(3):
@@ -3914,7 +4161,7 @@ def profiled_kernels(run, want):
             run()
             torch.cuda.synchronize()
         names = {e.key for e in prof.key_averages() if e.device_type.name == "CUDA"}
-        hits = {w: sorted(n for n in names if w in n) for w in want}
+        hits = {w: sorted(n for n in names if re.search(w, n)) for w in want}
         if all(hits.values()):
             return hits
     raise AssertionError(f"kernels {[w for w, h in hits.items() if not h]} not in the "
@@ -5673,6 +5920,10 @@ BENCH_RUNS = (
 BENCH_TTA_MC = {"se_epilogue": 12, "keep_mask": 12, "conv3x3_bn_gelu": 12, "se_scale": 4,
                 "dwi_normalize": 1}
 BENCH_AGREE, BENCH_PROB_ERR = 0.875, 0.05  # int8-prefix against fp: one of 8 may flip
+# a hybrid-nb tta_mc request at --mc-chunk 1 (10 suffix forwards: 9 lean chunks
+# and the last pass): the fused forward at its 12 attention sites (6 blocks x
+# 2 encoders), the keep-mask kernel at its 40 other sites, a suffix
+BENCH_HYB_NB = {"flash_attention_fwd_dropout": 12 * 10, "keep_mask": 40 * 10}
 BENCH_NUMERICS = {"argmax_agreement": 0.75, "auc_delta": 0.05}
 
 
@@ -5700,8 +5951,13 @@ def bench_gate(name, result, launched, calls):
         ok = launched == dict.fromkeys(COUNTERS, 0) | {k: v * calls
                                                        for k, v in BENCH_TTA_MC.items()}
     elif name.startswith("hybrid"):
-        # kernel 3 never: 256 tokens (hybrid), the MC weights route (hybrid-nb)
-        ok = served and launched["flash_attention_fwd"] == 0 and launched["int8_conv"] == 0
+        # kernel 3 without dropout never; its dropout variant on hybrid-nb's
+        # 4096 tokens only (hybrid: 256 tokens, the weights route)
+        nb = name.startswith("hybrid-nb")
+        ok = (served and launched["flash_attention_fwd"] == 0 and launched["int8_conv"] == 0
+              and launched["flash_attention_fwd_dropout"]
+              == (BENCH_HYB_NB["flash_attention_fwd_dropout"] * calls if nb else 0)
+              and (not nb or launched["keep_mask"] == BENCH_HYB_NB["keep_mask"] * calls))
     elif name.startswith("int8-prefix"):
         ok = (served and launched["int8_conv"] > 0
               and launched["int8_quantize"] == launched["int8_conv"]
@@ -5790,6 +6046,7 @@ def main():
     measured["flash_attention_fwd"] = phase_flash_forward()
     (measured["flash_attention_bwd_dq"],
      measured["flash_attention_bwd_dkv"]) = phase_flash_backward()
+    measured["flash_attention_fwd_dropout"] = phase_flash_dropout()
     # the backward's path: counts set to 0 just before it and read just after
     stage_launches = phase_stage_backward(hcfg)[0]
     measured["dwi_normalize"] = phase_dwi_norm()
@@ -5881,6 +6138,10 @@ def main():
                             "dmf_tpu/ops/conv3x3_pallas.py:217"),
         "flash_attention_fwd": ("cuda", "dmf_tpu_torch/csrc/flash_attention.cu",
                                 "dmf_tpu/ops/flash_attention.py:43"),
+        # no Pallas kernel: XLA lowers the MC attention's materialized
+        # weights, flax's Dropout on them and the value product
+        "flash_attention_fwd_dropout": ("cuda", "dmf_tpu_torch/csrc/flash_attention.cu",
+                                        "dmf_tpu/models/transformer.py:45"),
         "flash_attention_bwd_dq": ("cuda", "dmf_tpu_torch/csrc/flash_attention.cu",
                                    "dmf_tpu/ops/flash_attention.py:114"),
         "flash_attention_bwd_dkv": ("cuda", "dmf_tpu_torch/csrc/flash_attention.cu",

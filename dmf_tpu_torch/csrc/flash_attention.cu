@@ -165,6 +165,18 @@
 // everything in fp32 from the input-dtype operands and rounds the output
 // once.
 //
+// Attention-weight dropout (flash_fwd_dropout_launch: the DROP instances of
+// both forward kernels) replaces what XLA lowers for JAX's MC attention, the
+// materialized weights, flax's dropout and the value product
+// (dmf_tpu/models/transformer.py:45-49); no Pallas kernel is behind it.
+// Each consumer thread draws the keep bits of its own accumulator fragment
+// in registers (philox::keep1, kernel 1's keep test) and no mask is written:
+// P V takes P * keep / (1 - p), while the online softmax's m and l, and so
+// the normalisation, are the undropped P's, as softmax-then-dropout.  One
+// Philox call a score element: at H = 4 (base a multiple of 4) a call's four
+// words are the four heads' bits of one (row, q, k), of which a block (one
+// head) uses one.
+//
 // Deliberately not carried over from the TPU: the (N, 1) column layout of
 // lse/delta (here (BH, N) fp32 rows), the whole-sequence-in-VMEM K/V blocks
 // and the 256/512 block sizes.  D is 64 or 128 and N a multiple of 64, so a
@@ -188,6 +200,7 @@
 #include <stdint.h>
 
 #include "hopper.cuh"
+#include "philox.cuh"
 
 namespace {
 
@@ -195,6 +208,57 @@ constexpr int SMEM_MAX = 232448; // bytes of shared memory a block may use on sm
 constexpr int BAD_ARGUMENT = -1; // a head width, type, length or kernel the library does not take
 
 using bf16 = __nv_bfloat16;
+
+// The forward's attention-weight dropout (the DROP instances of both forward
+// kernels): the seed route's mask of the (B, H, N_q, N_k) weights of one MC
+// site, whose seed order is (B, N_q, N_k, H) with H the whole head count.
+// Grid row bh is row b = bh / local_heads of the call (rows pass-major,
+// `rows` a pass) and head h = h0 + bh % local_heads of the H; weight (b, h,
+// q, k) is element e = (((b mod rows) N_q + q) N_k + k) H + h of its pass
+// (pass word pass0 + b / rows), kept by philox::keep1 at counter base + e.
+// A model-axis shard (h0 > 0, local_heads < H) so draws its slice of the
+// whole mask.
+struct Dropout {
+  const long long* seed;    // the request seed: one int64 on the device
+  unsigned long long base;  // the site's counter of element 0 of each pass
+  unsigned pass0;           // the pass word of the call's first pass
+  int rows;                 // rows of a pass
+  int heads;                // H, the whole head count
+  int h0;                   // the call's first head among the H
+  int local_heads;          // the call's heads a row: BH = B x local_heads
+  float keep_prob;          // float32(1 - p)
+  float drop_scale;         // float32(1 / (1 - p)): a kept weight's factor
+};
+
+// A consumer thread's share of the mask: its two accumulator rows, q and q +
+// 8, as the counters of their key 0, and the step from one key to the next.
+struct DropRows {
+  uint2 key;
+  unsigned pass;
+  unsigned long long at[2];
+  unsigned step;  // H: the counter distance of neighbouring keys (N_k H < 2^32)
+  float keep_prob, drop_scale;
+
+  DropRows() = default;
+  __device__ __forceinline__ DropRows(const Dropout& d, int bh, int q, int nq, int nk) {
+    const int b = bh / d.local_heads, h = d.h0 + bh % d.local_heads;
+    key = philox::seed_key(d.seed);
+    pass = d.pass0 + static_cast<unsigned>(b / d.rows);
+    step = static_cast<unsigned>(d.heads);
+    const unsigned long long row = static_cast<unsigned long long>(b % d.rows) * nq + q;
+#pragma unroll
+    for (int r = 0; r < 2; ++r) at[r] = d.base + ((row + 8 * r) * nk) * step + h;
+    keep_prob = d.keep_prob;
+    drop_scale = d.drop_scale;
+  }
+
+  // p_ * keep / (1 - p) for the weight of row r (0: q, 1: q + 8) and key k
+  __device__ __forceinline__ float drop(float p_, int r, int k) const {
+    return philox::keep1(key, at[r] + static_cast<unsigned>(k) * step, pass, keep_prob)
+               ? p_ * drop_scale
+               : 0.0f;
+  }
+};
 
 // ------------------------------------------------------- bf16 (wgmma)
 namespace wg {
@@ -235,11 +299,14 @@ __device__ __forceinline__ void rs_product<128>(float (&o)[64], const uint32_t (
   hopper::wgmma_m64n128k16_rs_tb(o, a, b, 1);
 }
 
-template <int D>
+// DROP: the dropout variant (Dropout above); P enters O += P V dropped and
+// scaled, while m, l and so lse stay those of the undropped P (lse is not
+// written).
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
-                float* __restrict__ lse, int Nq, int Nk, float scale) {
+                float* __restrict__ lse, int Nq, int Nk, float scale, const Dropout dropout) {
   using namespace hopper;
   using L = Smem<D>;
   constexpr int PANELS = D / 64;
@@ -296,6 +363,9 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
     const unsigned char* qs = smem + wgi * 64 * 128;  // this warpgroup's rows of each panel
+    [[maybe_unused]] const DropRows drows = DROP ? DropRows(dropout, bh, q0 + wgi * 64 +
+                                                            (t / 32) * 16 + lane / 4, Nq, Nk)
+                                                 : DropRows();
     mbar_wait(q_full, 0);
     for (int kt = 0; kt < nkt; ++kt) {
       const int s = kt % STAGES;
@@ -341,12 +411,19 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       uint32_t pa[BN / 16][4];  // P in bf16 as wgmma's register operand, 16 keys each
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const float p0 = exp2f(fmaf(sacc[4 * j], c, -mc[0]));
-        const float p1 = exp2f(fmaf(sacc[4 * j + 1], c, -mc[0]));
-        const float p2 = exp2f(fmaf(sacc[4 * j + 2], c, -mc[1]));
-        const float p3 = exp2f(fmaf(sacc[4 * j + 3], c, -mc[1]));
+        float p0 = exp2f(fmaf(sacc[4 * j], c, -mc[0]));
+        float p1 = exp2f(fmaf(sacc[4 * j + 1], c, -mc[0]));
+        float p2 = exp2f(fmaf(sacc[4 * j + 2], c, -mc[1]));
+        float p3 = exp2f(fmaf(sacc[4 * j + 3], c, -mc[1]));
         sum[0] += p0 + p1;
         sum[1] += p2 + p3;
+        if constexpr (DROP) {  // keys k, k + 1 of rows q, q + 8
+          const int k = kt * BN + 8 * j + 2 * quad;
+          p0 = drows.drop(p0, 0, k);
+          p1 = drows.drop(p1, 0, k + 1);
+          p2 = drows.drop(p2, 1, k);
+          p3 = drows.drop(p3, 1, k + 1);
+        }
         pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
         pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
       }
@@ -383,7 +460,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       const int row = row0 + 8 * h;
       if (row >= Nq) continue;  // the ragged half of the last query block
       const int at = bh * Nq + row;
-      if (quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      if (!DROP && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
       bf16* orow = out + at * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -923,11 +1000,14 @@ __device__ __forceinline__ void a_halves(float x0, float x1, float x2, float x3,
 }
 
 // Each tile's P V goes into an accumulator of its own, added into the fp32 O
-// after the rescale (the JAX kernel's acc * alpha + P V).
-template <int D>
+// after the rescale (the JAX kernel's acc * alpha + P V).  DROP: the dropout
+// variant, as the bf16 kernel's (P dropped and scaled before its split; m, l
+// undropped; lse not written).
+template <int D, bool DROP>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* __restrict__ img,
-                 float* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, float scale) {
+                 float* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, float scale,
+                 const Dropout dropout) {
   using namespace hopper;
   using L = Layout<D>;
   constexpr int BN = L::BN, PANELS = L::PANELS;
@@ -1001,6 +1081,9 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
     float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
+    [[maybe_unused]] const DropRows drows = DROP ? DropRows(dropout, bh, q0 + wgi * 64 +
+                                                            (t / 32) * 16 + lane / 4, Nq, Nk)
+                                                 : DropRows();
     for (int kt = 0; kt < nkt; ++kt) {
       const int ik = 2 * kt, iv = ik + 1;  // ring items of this tile's K and V^T
       const unsigned char* ks = ring + (ik % SLOTS) * SLOT;
@@ -1042,11 +1125,17 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
       uint32_t ph[BN / 8][4], pl[BN / 8][4];
 #pragma unroll
       for (int j = 0; j < BN / 8; ++j) {
-        const float p[4] = {exp2f(fmaf(s[4 * j], c, -mc[0])), exp2f(fmaf(s[4 * j + 1], c, -mc[0])),
-                            exp2f(fmaf(s[4 * j + 2], c, -mc[1])),
-                            exp2f(fmaf(s[4 * j + 3], c, -mc[1]))};
+        float p[4] = {exp2f(fmaf(s[4 * j], c, -mc[0])), exp2f(fmaf(s[4 * j + 1], c, -mc[0])),
+                      exp2f(fmaf(s[4 * j + 2], c, -mc[1])), exp2f(fmaf(s[4 * j + 3], c, -mc[1]))};
         sum[0] += p[0] + p[1];
         sum[1] += p[2] + p[3];
+        if constexpr (DROP) {  // keys k, k + 1 of rows q, q + 8
+          const int k = kt * BN + 8 * j + 2 * quad;
+          p[0] = drows.drop(p[0], 0, k);
+          p[1] = drows.drop(p[1], 0, k + 1);
+          p[2] = drows.drop(p[2], 1, k);
+          p[3] = drows.drop(p[3], 1, k + 1);
+        }
         a_halves(p[0], p[1], p[2], p[3], ph[j], pl[j]);
       }
 #pragma unroll
@@ -1088,7 +1177,7 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
       const int row = row0 + 8 * h;
       if (row >= Nq) continue;
       const int at = bh * Nq + row;
-      if (quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      if (!DROP && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
       float* orow = out + at * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -1490,10 +1579,10 @@ cudaError_t split_images(const void* x, unsigned char* rows, unsigned char* cols
 }
 
 // The fp32 forward: the K/V pre-pass into `img` (4 x BH x N_k x D floats, the
-// caller's scratch), then the 3xTF32 kernel.
-template <int D>
+// caller's scratch), then the 3xTF32 kernel (DROP: its dropout variant).
+template <int D, bool DROP = false>
 int fwd_tf32x3(const void* q, const void* k, const void* v, void* out, void* lse, void* img,
-               int bh, int nq, int nk, float scale, cudaStream_t s) {
+               int bh, int nq, int nk, float scale, cudaStream_t s, const Dropout& drop = {}) {
   using L = tf::Layout<D>;
   if (nk % L::BN) return BAD_ARGUMENT;
   // each key tile's K then V^T image, the order the kernel streams them
@@ -1505,17 +1594,18 @@ int fwd_tf32x3(const void* q, const void* k, const void* v, void* out, void* lse
   CUtensorMap qmap;
   e = head_map<D, float>(&qmap, q, nq, bh, tf::BM);
   if (e != cudaSuccess) return static_cast<int>(e);
-  e = allow_smem(tf::flash_fwd_tf32x3<D>, L::BYTES);
+  e = allow_smem(tf::flash_fwd_tf32x3<D, DROP>, L::BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  tf::flash_fwd_tf32x3<D><<<dim3((nq + tf::BM - 1) / tf::BM, bh), wg::THREADS, L::BYTES, s>>>(
-      qmap, static_cast<const unsigned char*>(img), static_cast<float*>(out),
-      static_cast<float*>(lse), nq, nk, scale);
+  tf::flash_fwd_tf32x3<D, DROP><<<dim3((nq + tf::BM - 1) / tf::BM, bh), wg::THREADS, L::BYTES,
+                                    s>>>(qmap, static_cast<const unsigned char*>(img),
+                                         static_cast<float*>(out), static_cast<float*>(lse), nq,
+                                         nk, scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool DROP = false>
 int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int nq,
-              int nk, float scale, cudaStream_t s) {
+              int nk, float scale, cudaStream_t s, const Dropout& drop = {}) {
   CUtensorMap maps[3];
   const void* ptrs[3] = {q, k, v};
   const int rows[3] = {nq, nk, nk};
@@ -1524,10 +1614,11 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
     if (e != cudaSuccess) return static_cast<int>(e);
   }
   constexpr int bytes = wg::Smem<D>::BYTES;
-  cudaError_t e = allow_smem(wg::flash_fwd_wgmma<D>, bytes);
+  cudaError_t e = allow_smem(wg::flash_fwd_wgmma<D, DROP>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  wg::flash_fwd_wgmma<D><<<dim3((nq + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes, s>>>(
-      maps[0], maps[1], maps[2], static_cast<bf16*>(out), static_cast<float*>(lse), nq, nk, scale);
+  wg::flash_fwd_wgmma<D, DROP><<<dim3((nq + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes, s>>>(
+      maps[0], maps[1], maps[2], static_cast<bf16*>(out), static_cast<float*>(lse), nq, nk, scale,
+      drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1644,6 +1735,37 @@ extern "C" int flash_fwd_launch(int is_bf16, int d, const void* q, const void* k
     return fwd_tf32x3<128>(q, k, v, out, lse, scratch, bh, nq, nk, scale, s);
   if (!is_bf16 && d == 64)
     return fwd_tf32x3<64>(q, k, v, out, lse, scratch, bh, nq, nk, scale, s);
+  return BAD_ARGUMENT;
+}
+
+// The forward with attention-weight dropout (the DROP kernels; Dropout
+// above): out only, no lse.  seed: one int64 on the device; base >= 0; the
+// BH = B x local_heads rows hold B / rows passes from pass0, pass-major;
+// heads h0 .. h0 + local_heads - 1 of `heads`.  keep_prob = float32(1 - p),
+// drop_scale = float32(1 / (1 - p)).  fp32 takes `scratch` as the forward.
+extern "C" int flash_fwd_dropout_launch(int is_bf16, int d, const void* q, const void* k,
+                                        const void* v, void* out, void* scratch, int bh, int nq,
+                                        int nk, float scale, const void* seed, long long base,
+                                        long long pass0, int rows, int heads, int h0,
+                                        int local_heads, float keep_prob, float drop_scale,
+                                        void* stream) {
+  if (base < 0 || rows < 1 || local_heads < 1 || h0 < 0 || h0 + local_heads > heads ||
+      static_cast<long long>(nk) * heads >= (1LL << 32) || bh % local_heads ||
+      (bh / local_heads) % rows || pass0 < 0 ||
+      pass0 + (bh / local_heads) / rows > (1LL << 32))
+    return BAD_ARGUMENT;
+  const Dropout drop{static_cast<const long long*>(seed), static_cast<unsigned long long>(base),
+                     static_cast<unsigned>(pass0), rows, heads, h0, local_heads, keep_prob,
+                     drop_scale};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_bf16 && d == 128)
+    return fwd_wgmma<128, true>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
+  if (is_bf16 && d == 64)
+    return fwd_wgmma<64, true>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
+  if (!is_bf16 && d == 128)
+    return fwd_tf32x3<128, true>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s, drop);
+  if (!is_bf16 && d == 64)
+    return fwd_tf32x3<64, true>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s, drop);
   return BAD_ARGUMENT;
 }
 

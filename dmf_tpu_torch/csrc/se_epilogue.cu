@@ -50,59 +50,28 @@
 // vector paths' C of 4 or 8), a seed stream's dropout sites each take their
 // own range of counters, and a pass draws the same bits whatever other
 // passes share the call: the MC ensemble does not depend on its chunking.
-// keep = (bits >> 8) * 2^-24 < 1 - p, exact in fp32.  `keep4` is the one
-// keep test: the epilogue and the keep-mask entry point (the seed route's
-// dropout outside the epilogue) both call it.  Every offset is 64-bit.
+// keep = (bits >> 8) * 2^-24 < 1 - p, exact in fp32.  `keep4` (philox.cuh)
+// is the one keep test: the epilogue, the keep-mask entry point (the seed
+// route's dropout outside the epilogue) and the flash forward's dropout
+// variant (flash_attention.cu) all call it.  Every offset is 64-bit.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
 
+#include "philox.cuh"
 #include "se_mlp.cuh"
 
 struct se_epilogue_mlp;  // names this kernel's instance of se_mlp::epi_mlp
 
 namespace {
 
+using namespace philox;
 using namespace se_mlp;
 
 constexpr int kThreads = 256;     // a block of phases 1 and 3 while C/VEC <= 256
 constexpr int kRedFloats = 2048;  // phase 1's row sums: rows x C <= threads x VEC
-
-// Philox4x32-10 (Salmon et al., SC'11; Random123's philox4x32_R with R = 10)
-__device__ __forceinline__ uint4 philox4x32_10(uint4 c, uint2 k) {
-#pragma unroll
-  for (int r = 0; r < 10; ++r) {
-    if (r > 0) {
-      k.x += 0x9E3779B9u;
-      k.y += 0xBB67AE85u;
-    }
-    const unsigned lo0 = 0xD2511F53u * c.x, hi0 = __umulhi(0xD2511F53u, c.x);
-    const unsigned lo1 = 0xCD9E8D57u * c.z, hi1 = __umulhi(0xCD9E8D57u, c.z);
-    c = make_uint4(hi1 ^ c.y ^ k.x, lo1, hi0 ^ c.w ^ k.y, lo0);
-  }
-  return c;
-}
-
-__device__ __forceinline__ uint2 seed_key(const long long* seed) {
-  const unsigned long long s = static_cast<unsigned long long>(*seed);
-  return make_uint2(static_cast<unsigned>(s), static_cast<unsigned>(s >> 32));
-}
-
-__device__ __forceinline__ unsigned keep_bit(unsigned bits, float keep_prob) {
-  return static_cast<float>(bits >> 8) * 5.9604644775390625e-08f < keep_prob;  // 2^-24
-}
-
-// The keep test of elements 4q .. 4q+3 of pass `pass`: bit k of the result
-// keeps element 4q+k.
-__device__ __forceinline__ unsigned keep4(uint2 key, unsigned long long q, unsigned pass,
-                                          float keep_prob) {
-  const uint4 r = philox4x32_10(
-      make_uint4(static_cast<unsigned>(q), static_cast<unsigned>(q >> 32), pass, 0u), key);
-  return keep_bit(r.x, keep_prob) | keep_bit(r.y, keep_prob) << 1 |
-         keep_bit(r.z, keep_prob) << 2 | keep_bit(r.w, keep_prob) << 3;
-}
 
 // bit k keeps element e + k of pass `pass`, k < VEC
 template <int VEC>

@@ -11,11 +11,21 @@ attn.proj, norm2, mlp.fc1, mlp.fc2, gamma1, gamma2}``.
 Modes are explicit arguments, as in the JAX modules: ``mc=True`` turns every
 dropout on, drawing its masks from an explicit ``torch.Generator`` (or from a
 :class:`~..ops.dropout.SeedStream`, the seed route of every MC predictor and
-of the serving program, passed in its place), and then
-attention takes the weights route (dropout on the materialized weights, then
-the value product, transformer.py:45-49); otherwise attention goes through
-:func:`~dmf_tpu_torch.ops.attention.scaled_dot_product_attention`, which
-takes the flash kernels on the card at the hybrid stage's 4096 tokens.
+of the serving program, passed in its place); otherwise attention goes
+through :func:`~dmf_tpu_torch.ops.attention.scaled_dot_product_attention`,
+which takes the flash kernels on the card at the hybrid stage's 4096 tokens.
+Attention-weight dropout takes one of two routes, chosen alike on both
+devices:
+
+* the fused route, on a ``SeedStream`` at the shapes where JAX's rule takes
+  flash attention (``ops/attention.py::use_flash``: N >= 512, N a multiple of
+  512): :func:`~dmf_tpu_torch.ops.flash_attention.flash_attention_dropout`,
+  the flash forward kernels with the seed route's keep mask drawn inside (its
+  plain version on the CPU), the same mask and counters as the weights route;
+* otherwise the weights route (dropout on the materialized weights, then the
+  value product, JAX's transformer.py:45-49): with a ``torch.Generator``
+  (training, or a direct ``mc=True`` call) and below the flash shapes.
+
 Over a mesh's model axis (``parallel/tensor.py``) ``qkv`` and ``fc1`` are
 column-parallel and ``proj`` and ``fc2`` row-parallel: attention runs on
 this rank's heads, and a dropout on a shard keeps that shard of the mask
@@ -30,7 +40,9 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from ..ops.attention import scaled_dot_product_attention
+from ..ops.attention import scaled_dot_product_attention, use_flash
+from ..ops.dropout import SeedStream
+from ..ops.flash_attention import attention_weights, flash_attention_dropout
 from ..parallel.tensor import local_heads, model_mesh
 from .layers import dropout
 
@@ -66,13 +78,17 @@ class MultiHeadSelfAttention(nn.Module):
         # (B, N, 3, H, D) -> (3, B, H, N, D), as transformer.py:41-43; the
         # flash route copies q, k and v into contiguous tensors
         q, k, v = self.qkv(x).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
-        if mc and self.attn_drop > 0.0:
-            # attention-weight dropout needs the materialized weights
-            _, w = scaled_dot_product_attention(q, k, v, return_weights=True)
+        if not (mc and self.attn_drop > 0.0):
+            out = scaled_dot_product_attention(q, k, v)
+        elif isinstance(generator, SeedStream) and use_flash(N, N, False):
+            mesh = model_mesh(self.qkv)
+            out = flash_attention_dropout(q, k, v, self.attn_drop, generator, self.num_heads,
+                                          0 if mesh is None else mesh.model_rank * H)
+        else:
+            # the weights route: dropout on the materialized weights
+            w = attention_weights(q, k, D ** -0.5)
             w = _dropout_of(self.qkv, w, self.attn_drop, generator, dim=1)
             out = torch.einsum("bhqk,bhkd->bhqd", w, v)
-        else:
-            out = scaled_dot_product_attention(q, k, v)
         out = self.proj(out.transpose(1, 2).reshape(B, N, H * D))
         return dropout(out, self.proj_drop if mc else 0.0, generator)
 

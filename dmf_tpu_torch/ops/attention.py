@@ -16,7 +16,7 @@ from typing import Optional
 
 import torch
 
-from .flash_attention import flash_attention
+from .flash_attention import attention_weights, flash_attention
 
 # the JAX kernel's default blocks (flash_attention.py:38-39); N must be a
 # multiple of both, clamped to N, for the JAX package to dispatch it
@@ -32,8 +32,7 @@ def use_flash(n_q: int, n_k: int, return_weights: bool) -> bool:
 def plain_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     scale: float):
     """``(out, weights)`` with the (N_q, N_k) weights materialized."""
-    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
-    weights = torch.softmax(logits.float(), dim=-1).to(q.dtype)
+    weights = attention_weights(q, k, scale)
     out = torch.einsum("bhqk,bhkd->bhqd", weights, v)
     return out, weights
 

@@ -20,8 +20,10 @@ channels-last (NHWC) for a 4-D tensor, row-major otherwise.  A forward of
 rows``), so a pass's masks are the same bits whether it runs alone or in a
 chunk of any size: the counterpart of JAX's one key per pass
 (``dmf_tpu/evals/predict.py:349``).  Kernel 1 (``csrc/se_epilogue.cu``)
-computes exactly these bits for the epilogue's dropout, and its keep-mask
-kernel for the other sites; on the CPU :func:`keep_mask_plain` computes them
+computes exactly these bits for the epilogue's dropout, its keep-mask
+kernel for the other sites, and the flash forward's dropout variant
+(``csrc/flash_attention.cu``, the same keep test from ``csrc/philox.cuh``)
+for the MC attention's weights, whose mask it never writes; on the CPU :func:`keep_mask_plain` computes them
 with torch integer ops, so one seed gives the same masks on the CPU and on
 the card whatever the maps' memory format (the CPU's maps are
 NCHW-contiguous, the card's channels_last).  A site keeps an element when

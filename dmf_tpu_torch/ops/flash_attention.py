@@ -27,6 +27,15 @@ dK/dV (``flash_bwd_dkv_tf32x3``, 8 x q).
 Numerics: the plain version computes the scores, the softmax and the value
 product in fp32 from the input-dtype operands and rounds the output once;
 ``lse`` is fp32.  The kernels' rounding points are stated in their source.
+
+The forward with attention-weight dropout (:func:`flash_attention_dropout`,
+the MC route of ``models/transformer.py`` on a seed stream) replaces what XLA
+lowers for JAX's materialized-weights route (``dmf_tpu/models/transformer.py``
+:45-49): softmax(Q K^T scale), dropped with the seed route's keep mask
+(``ops/dropout.py``) and scaled by 1/(1-p), times V, in the dropout variants
+of both forward kernels, which draw each weight's keep bit in registers and
+write no mask.  Its plain version, :func:`flash_attention_dropout_ref`, is
+that weights route as one function, bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +47,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from . import dropout
 from .cuda_build import load_library
 
 _SOURCES = ("flash_attention.cu",)
@@ -63,6 +73,33 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return out, lse
 
 
+def attention_weights(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """The (B, H, N_q, N_k) softmax weights of the plain route (JAX's
+    ``_xla_attention``, ``dmf_tpu/ops/attention.py:20-26``): the softmax in
+    fp32, cast back to q's dtype."""
+    logits = torch.einsum("bhqd,bhkd->bhqk", q, k) * scale
+    return torch.softmax(logits.float(), dim=-1).to(q.dtype)
+
+
+def flash_attention_dropout_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                scale: float, p: float, seed: torch.Tensor, base: int,
+                                first_pass: int = 0, passes: int = 1,
+                                heads: Optional[int] = None, h0: int = 0) -> torch.Tensor:
+    """Plain version of the forward with dropout over (B, H_local, N, D)
+    tensors: the weights route as one function.  :func:`attention_weights`,
+    times the seed route's keep mask of the whole (B, ``heads``, N_q, N_k)
+    weights (``dropout.keep_mask_plain`` at counter ``base``, ``passes``
+    passes from ``first_pass`` pass-major along B) narrowed to heads ``h0
+    ..`` of this call, / (1 - p), times V; returns ``out``."""
+    B, H, nq, _ = q.shape
+    heads = H if heads is None else heads
+    w = attention_weights(q, k, scale)
+    keep = dropout.keep_mask_plain((B, heads, nq, k.shape[2]), p, seed, base, first_pass,
+                                   passes).narrow(1, h0, H)
+    w = torch.where(keep, w / (1.0 - p), 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", w, v)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention", _SOURCES)
@@ -70,7 +107,11 @@ def _library() -> ctypes.CDLL:
     lib.flash_fwd_launch.argtypes = [i, i] + [p] * 6 + [i, i, i, f, p]
     lib.flash_bwd_dq_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
     lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 9 + [i, i, i, f, p]
-    for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch):
+    ll = ctypes.c_longlong
+    lib.flash_fwd_dropout_launch.argtypes = ([i, i] + [p] * 5 + [i, i, i, f, p, ll, ll]
+                                             + [i] * 4 + [f, f, p])
+    for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch,
+               lib.flash_fwd_dropout_launch):
         fn.restype = ctypes.c_int
     lib.flash_wgmma_smem.argtypes = [i, i]
     lib.flash_wgmma_smem.restype = i
@@ -141,6 +182,79 @@ def launch_flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
             out.data_ptr(), lse.data_ptr(), scratch.data_ptr(), nq=q.shape[1], nk=k.shape[1],
             scale=scale)
     return out, lse
+
+
+def _check_dropout(q: torch.Tensor, p: float, seed: torch.Tensor, first_pass: int, passes: int,
+                   heads: int, h0: int) -> None:
+    if not 0.0 < p < 1.0:
+        raise ValueError(f"flash_attention_dropout: p {p} outside (0, 1)")
+    if seed.device != q.device or seed.dtype != torch.int64 or seed.numel() != 1:
+        raise ValueError("flash_attention_dropout: need one int64 seed on q's device")
+    B, H = q.shape[:2]
+    if passes < 1 or B % passes or first_pass < 0 or first_pass + passes > 2 ** 32:
+        raise ValueError(f"flash_attention_dropout: {B} rows do not hold passes "
+                         f"{first_pass}..{first_pass + passes - 1}")
+    if h0 < 0 or h0 + H > heads:
+        raise ValueError(f"flash_attention_dropout: heads {h0}..{h0 + H - 1} outside {heads}")
+
+
+def launch_flash_forward_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                                 scale: float, p: float, seed: torch.Tensor, base: int,
+                                 first_pass: int, passes: int, heads: int,
+                                 h0: int) -> torch.Tensor:
+    """Launch the forward's dropout variant on contiguous (B, H_local, N, D)
+    CUDA tensors: ``out`` (no lse).  fp32 takes the forward's scratch."""
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("flash_attention_dropout: need (B, H, N, D) tensors")
+    if any(not t.is_contiguous() for t in (q, k, v)):
+        raise ValueError("flash_attention_dropout: q, k and v must be contiguous (B, H, N, D)")
+    _check_dropout(q, p, seed, first_pass, passes, heads, h0)
+    if base < 0:
+        raise ValueError(f"flash_attention_dropout: negative counter base {base}")
+    B, H, nq, d = q.shape
+    q3, k3, v3 = (t.view(B * H, t.shape[2], d) for t in (q, k, v))
+    _check_operands(q3, k3, v3)
+    out = torch.empty_like(q)
+    scratch = _scratch(k3, 4)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = _library().flash_fwd_dropout_launch(
+            int(q.dtype == torch.bfloat16), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
+            out.data_ptr(), scratch.data_ptr(), B * H, nq, k.shape[2], scale, seed.data_ptr(),
+            base, first_pass, B // passes, heads, h0, H, 1.0 - p, 1.0 / (1.0 - p), stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_dropout: launch failed (CUDA error {rc})")
+    return out
+
+
+def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: float,
+                            stream: "dropout.SeedStream", heads: Optional[int] = None,
+                            h0: int = 0) -> torch.Tensor:
+    """Attention over (B, H_local, N, D) tensors (scale D^-0.5) with dropout
+    on its weights, the next site of the seed ``stream``: it takes the counters of the whole
+    (B, ``heads``, N, N) weights, as ``stream.take`` on the materialized
+    weights would, and this call's heads are ``h0 ..`` of the ``heads`` (a
+    model-axis shard).  Through the ``flash_forward_dropout`` operator
+    (``ops/library.py``): the dropout kernels for CUDA tensors (counted in
+    ``flash_attention_dropout.launches``; they raise on what they do not
+    take), :func:`flash_attention_dropout_ref` for CPU ones.  The kernels
+    have no backward, so on the card a call that autograd would record
+    raises; on the CPU such a call takes the plain version directly."""
+    from .prepared import check_no_grad, records_grad
+
+    heads = q.shape[1] if heads is None else heads
+    base = stream.take(q.shape[0] * heads * q.shape[2] * k.shape[2])
+    args = (q.shape[-1] ** -0.5, p, stream.seed, base, stream.first_pass, stream.passes, heads, h0)
+    if q.device.type == "cpu" and records_grad(q, k, v):
+        return flash_attention_dropout_ref(q, k, v, *args)
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_dropout: unsupported device {q.device}")
+    check_no_grad("flash_attention_dropout", q, k, v)
+    return torch.ops.dmf.flash_forward_dropout(q.contiguous(), k.contiguous(), v.contiguous(),
+                                               *args)
+
+
+flash_attention_dropout.launches = 0
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,26 +6,31 @@ registered here as an operator in the ``dmf`` namespace, so that a traced
 program holds one node per kernel call and runs the kernel when the program
 runs, in a process that holds none of the model code:
 
-====================  ==================================================  =============
-operator              CUDA implementation                                 kernel
-====================  ==================================================  =============
-``se_epilogue``       ``epilogue_cuda.launch_se_epilogue``                1
-``keep_mask``         ``epilogue_cuda.keep_mask`` (kernel 1's keep test)  1
-``conv3x3_bn_gelu``   ``conv3x3.launch_conv3x3_bn_gelu``                  2
-``se_scale``          ``se_cuda.launch_se_scale``                         6
-``flash_forward``     ``flash_attention.launch_flash_forward``            3
-``int8_conv``         ``quant_cuda.launch_int8_conv``                     int8 conv
-``quantize``          ``quant_cuda.launch_quantize``                      int8 quantize
-``dynamic_quantize``  ``quant_cuda.launch_dynamic_quantize``              int8 quantize
-====================  ==================================================  =============
+=========================  ==================================================  =============
+operator                   CUDA implementation                                 kernel
+=========================  ==================================================  =============
+``se_epilogue``            ``epilogue_cuda.launch_se_epilogue``                1
+``keep_mask``              ``epilogue_cuda.keep_mask`` (kernel 1's keep test)  1
+``conv3x3_bn_gelu``        ``conv3x3.launch_conv3x3_bn_gelu``                  2
+``se_scale``               ``se_cuda.launch_se_scale``                         6
+``flash_forward``          ``flash_attention.launch_flash_forward``            3
+``flash_forward_dropout``  ``flash_attention.launch_flash_forward_dropout``    3 (dropout)
+``int8_conv``              ``quant_cuda.launch_int8_conv``                     int8 conv
+``quantize``               ``quant_cuda.launch_quantize``                      int8 quantize
+``dynamic_quantize``       ``quant_cuda.launch_dynamic_quantize``              int8 quantize
+=========================  ==================================================  =============
 
 The last three are the int8 serving path's kernels (``ops/quant.py``),
 which replace no Pallas kernel: XLA lowers JAX's int8 conv and quantize.
+``flash_forward_dropout`` (the forward kernels' dropout variants, the MC
+attention of the seed route) replaces none either: XLA lowers JAX's
+materialized-weights route.
 
 The products among them carry FLOP formulas for
 ``torch.utils.flop_counter.FlopCounterMode`` (registered on the operator
 packets here, so a count over a call that reaches the kernels sees them):
-``conv3x3_bn_gelu`` 2 N H W Cout 9 Cin, ``flash_forward`` 4 BH Nq Nk D,
+``conv3x3_bn_gelu`` 2 N H W Cout 9 Cin, ``flash_forward`` 4 BH Nq Nk D (and
+``flash_forward_dropout`` 4 B H Nq Nk D),
 ``int8_conv`` twice its multiply-adds.  The others do elementwise work,
 which the counter leaves out everywhere.
 
@@ -64,7 +69,7 @@ from . import (conv3x3, dropout, epilogue, epilogue_cuda, flash_attention, quant
 
 NAMESPACE = "dmf"
 OPERATORS = ("se_epilogue", "keep_mask", "conv3x3_bn_gelu", "se_scale", "flash_forward",
-             "int8_conv", "quantize", "dynamic_quantize")
+             "flash_forward_dropout", "int8_conv", "quantize", "dynamic_quantize")
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("se_epilogue(Tensor x, Tensor identity, Tensor w1, Tensor b1, Tensor w2, "
@@ -79,6 +84,8 @@ _LIB.define("conv3x3_bn_gelu(Tensor x, Tensor weight, Tensor? conv_bias, Tensor 
 _LIB.define("se_scale(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "
             "-> (Tensor, Tensor)")
 _LIB.define("flash_forward(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)")
+_LIB.define("flash_forward_dropout(Tensor q, Tensor k, Tensor v, float scale, float p, "
+            "Tensor seed, int base, int first_pass, int passes, int heads, int h0) -> Tensor")
 _LIB.define("int8_conv(Tensor x, Tensor weight, Tensor w_scale, Tensor? x_scale, Tensor? bias, "
             "int[] stride, int[] padding, int[] dilation, ScalarType out_dtype) -> Tensor")
 _LIB.define("quantize(Tensor x, Tensor scale, bool divide) -> Tensor")
@@ -92,6 +99,7 @@ def launch_counts() -> dict:
             "conv3x3_bn_gelu": conv3x3.conv3x3_bn_gelu.launches,
             "se_scale": se.se_scale.launches,
             "flash_forward": flash_attention.flash_attention.launches,
+            "flash_forward_dropout": flash_attention.flash_attention_dropout.launches,
             "int8_conv": quant.int8_conv.launches,
             "quantize": quant.quantize.launches,
             "dynamic_quantize": quant.dynamic_quantize.launches}
@@ -100,7 +108,8 @@ def launch_counts() -> dict:
 def reset_launch_counts() -> None:
     """Set every count of :func:`launch_counts` to 0."""
     for fn in (epilogue.se_epilogue, dropout.keep_mask, conv3x3.conv3x3_bn_gelu,
-               se.se_scale, flash_attention.flash_attention, quant.int8_conv, quant.quantize,
+               se.se_scale, flash_attention.flash_attention,
+               flash_attention.flash_attention_dropout, quant.int8_conv, quant.quantize,
                quant.dynamic_quantize):
         fn.launches = 0
 
@@ -220,6 +229,27 @@ def _flash_fake(q, k, v, scale):
             q.new_empty(q.shape[:-1], dtype=torch.float32))
 
 
+# ------------------------------------------------- flash_forward_dropout
+def _flash_dropout_cuda(q, k, v, scale: float, p: float, seed, base: int, first_pass: int,
+                        passes: int, heads: int, h0: int):
+    out = flash_attention.launch_flash_forward_dropout(q, k, v, scale, p, seed, base,
+                                                       first_pass, passes, heads, h0)
+    flash_attention.flash_attention_dropout.launches += 1
+    return out
+
+
+def _flash_dropout_cpu(q, k, v, scale: float, p: float, seed, base: int, first_pass: int,
+                       passes: int, heads: int, h0: int):
+    flash_attention._check_dropout(q, p, seed, first_pass, passes, heads, h0)
+    return flash_attention.flash_attention_dropout_ref(q, k, v, scale, p, seed, base,
+                                                       first_pass, passes, heads,
+                                                       h0).contiguous()
+
+
+def _flash_dropout_fake(q, k, v, scale, p, seed, base, first_pass, passes, heads, h0):
+    return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
 # ------------------------------------------------------------- int8_conv
 def _int8_conv_cuda(x, weight, w_scale, x_scale, bias, stride, padding, dilation, out_dtype):
     out = quant_cuda.launch_int8_conv(x, weight, w_scale, x_scale, bias, stride, padding,
@@ -287,6 +317,7 @@ for _name, _cuda, _cpu, _fake in (
         ("conv3x3_bn_gelu", _conv_cuda, _conv_cpu, _conv_fake),
         ("se_scale", _se_scale_cuda, _se_scale_cpu, _se_scale_fake),
         ("flash_forward", _flash_cuda, _flash_cpu, _flash_fake),
+        ("flash_forward_dropout", _flash_dropout_cuda, _flash_dropout_cpu, _flash_dropout_fake),
         ("int8_conv", _int8_conv_cuda, _int8_conv_cpu, _int8_conv_fake),
         ("quantize", _quantize_cuda, _quantize_cpu, _quantize_fake),
         ("dynamic_quantize", _dynamic_quantize_cuda, _dynamic_quantize_cpu,
@@ -307,6 +338,12 @@ def _conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
 def _flash_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     bh, nq, d = q_shape
     return 4 * bh * nq * k_shape[1] * d
+
+
+@register_flop_formula(torch.ops.dmf.flash_forward_dropout)
+def _flash_dropout_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+    b, h, nq, d = q_shape
+    return 4 * b * h * nq * k_shape[2] * d
 
 
 @register_flop_formula(torch.ops.dmf.int8_conv)

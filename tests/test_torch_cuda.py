@@ -282,6 +282,80 @@ def test_flash_attention_wrapper_raises(dev):
         fa.flash_attention(r, r, r)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("n,rows,first,passes,base,local,h0", [
+    (256, 2, 0, 1, 0, 4, 0), (192, 1, 3, 3, 2 ** 32 - 6, 4, 0), (320, 2, 7, 2, 1000, 2, 2),
+    (1024, 1, 0, 2, 4, 2, 0)])
+def test_flash_dropout_kernels(dev, dtype, d, n, rows, first, passes, base, local, h0):
+    """The forward's dropout variant against its plain version on the card
+    (on the operands in fp32: in bf16 the plain version is the weights
+    route, which rounds the logits to bf16, where the kernel keeps S in
+    fp32): N % 128 = 64 (a half-full query block and key tile), several
+    pass words, counter bases past 2^32 and not a multiple of 4, a head
+    shard (``h0 = 2`` of 4 heads); two calls the same bits, one launch a
+    call through the operator."""
+    g = torch.Generator(device=dev).manual_seed(5)
+    q, k, v = (torch.randn(rows * passes, local, n, d, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    seed = torch.tensor([(0x5EED << 32) | 3], device=dev)
+    args = (d ** -0.5, 0.1, seed, base, first, passes, 4, h0)
+    fa.flash_attention_dropout.launches = 0
+    out = torch.ops.dmf.flash_forward_dropout(q, k, v, *args)
+    assert fa.flash_attention_dropout.launches == 1
+    assert torch.equal(out, fa.launch_flash_forward_dropout(q, k, v, *args))
+    _close(out, fa.flash_attention_dropout_ref(q.float(), k.float(), v.float(), *args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dropout_keep_bits(dev, dtype):
+    """q = 0 (uniform P) and V one-hot over keys w .. w + 127: out != 0 is
+    the kernel's mask of that window, bit-equal to the keep-mask kernel's
+    mask of the whole (B, H, N, N) weights, heads h0 .. of a shard."""
+    from dmf_tpu_torch.ops import epilogue_cuda
+
+    n, d, passes, first, base, h0 = 512, 128, 2, 1, 2 ** 33 + 2, 2
+    seed = torch.tensor([77], device=dev)
+    q = torch.zeros(2 * passes, 2, n, d, device=dev, dtype=dtype)
+    keep = epilogue_cuda.keep_mask(q.new_empty(()).expand(2 * passes, 4, n, n), 0.1, seed,
+                                   base, first, passes)
+    for w in (0, n - d):
+        v = torch.zeros_like(q)
+        v[:, :, w:w + d] = torch.eye(d, device=dev, dtype=dtype)
+        out = fa.launch_flash_forward_dropout(q, q, v, d ** -0.5, 0.1, seed, base, first,
+                                              passes, 4, h0)
+        assert torch.equal(out != 0, keep[:, h0:h0 + 2, :, w:w + d])
+
+
+def test_flash_dropout_route_raises(dev):
+    """A CUDA call the fused route takes launches or raises: non-contiguous
+    operands, an fp16 or unaligned one, p outside (0, 1), a CPU seed."""
+    q = torch.randn(2, 2, 128, 64, device=dev)
+    seed = torch.tensor([1], device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        fa.launch_flash_forward_dropout(q.transpose(2, 3).contiguous().transpose(2, 3), q, q,
+                                        0.125, 0.1, seed, 0, 0, 1, 2, 0)
+    with pytest.raises(ValueError, match="fp32 or bf16"):
+        fa.launch_flash_forward_dropout(q.half(), q.half(), q.half(), 0.125, 0.1, seed, 0, 0, 1,
+                                        2, 0)
+    with pytest.raises(ValueError, match="multiple of 64"):
+        r = torch.randn(2, 2, 100, 64, device=dev)
+        fa.launch_flash_forward_dropout(r, r, r, 0.125, 0.1, seed, 0, 0, 1, 2, 0)
+    with pytest.raises(ValueError, match="outside"):
+        fa.launch_flash_forward_dropout(q, q, q, 0.125, 1.0, seed, 0, 0, 1, 2, 0)
+    with pytest.raises(ValueError, match="seed"):
+        fa.launch_flash_forward_dropout(q, q, q, 0.125, 0.1, seed.cpu(), 0, 0, 1, 2, 0)
+    with pytest.raises(RuntimeError, match="no backward"):
+        leaf = q.clone().requires_grad_()
+        fa.flash_attention_dropout(leaf, q, q, 0.1, dropout_stream(seed))
+
+
+def dropout_stream(seed):
+    from dmf_tpu_torch.ops.dropout import SeedStream
+
+    return SeedStream(seed)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16, torch.float16])
 @pytest.mark.parametrize("flags", [(True, True), (True, False), (False, False)])
 @pytest.mark.parametrize("shape", [(3, 37, 29, 13), (2, 64, 64, 14),

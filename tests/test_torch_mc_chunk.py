@@ -19,7 +19,9 @@ own key (``dmf_tpu/evals/predict.py:349``).  Held here:
   forwards and the exported artifact against the eager predictor;
 * the model axis: a shard's mask is the slice of the whole mask; over 2x1
   and 1x2 gloo meshes (``tests/torch_mesh_workers.py``) chunk 1 equals the
-  unchunked ensemble, and on the model axis each rank equals one process;
+  unchunked ensemble, and on the model axis each rank equals one process,
+  on the weights route (``hybrid``) and with the attention on the fused
+  route (``hybrid-nb``, each rank's sites at its shard's first head);
 * the dropout-off ensemble at chunks 1 and None against the JAX package's
   chunked predictor at rel 1e-4.
 """
@@ -32,7 +34,7 @@ import torch
 
 from test_torch_helpers import (assert_close, fusion_stack, hybrid_cfg, port_config, tiny_cfg,
                                 volumes)
-from torch_mesh_workers import recorded_masks, spawn
+from torch_mesh_workers import mc_fused, recorded_masks, spawn
 
 from dmf_tpu.evals.predict import make_fusion_predictor as jax_predictor
 from dmf_tpu_torch.evals.predict import make_fusion_predictor, make_single_predictor
@@ -233,6 +235,27 @@ def test_model_mesh_matches_one_process(stacks, tmp_path):
         _held(rank)
         for c in (None, 1):
             _held({"one process": one[c], "rank": rank[c]})
+
+
+def test_model_mesh_fused_attention_matches_one_process(stacks, tmp_path):
+    """1x2 model mesh, ``hybrid-nb`` ``tta_mc`` with every MC attention site
+    on the fused route (``use_flash`` patched in ``mc_fused`` alone): each
+    rank's fused sites take one process's counters and passes with the whole
+    head count and their shard's first head, and the rank's masks and
+    ensemble at chunk 1 and unchunked equal one process's."""
+    pcfg, models = stacks["hybrid-nb"]
+    request = _request()
+    one, calls = mc_fused(None, pcfg, models, request, (None, 1))
+    heads = pcfg.dwi_model.transformer_heads
+    assert calls[None] and all(c[4:] == (heads, 0, heads) for c in calls[None])
+    out = spawn(tmp_path, 2, "mc_fused", n_model=2, cfg=pcfg, models=models,
+                request=request, chunks=(None, 1))
+    for rank, (runs, rank_calls) in enumerate(out):
+        _held(runs)
+        for c in (None, 1):
+            _held({"one process": one[c], "rank": runs[c]})
+            assert [s[:5] for s in rank_calls[c]] == [s[:5] for s in calls[c]], c
+            assert all(s[5:] == (rank * heads // 2, heads // 2) for s in rank_calls[c]), c
 
 
 # ------------------------------------------------------------ against JAX

@@ -243,6 +243,8 @@ def _operator_cases():
         "se_scale": (x, *se_w),
         "se_scale_cl": (x.contiguous(memory_format=cl), *se_w),
         "flash_forward": (r(3, 64, 16), r(3, 128, 16), r(3, 128, 16), 0.25),
+        "flash_forward_dropout": (r(2, 2, 64, 16), r(2, 2, 128, 16), r(2, 2, 128, 16), 0.25,
+                                  0.1, torch.tensor(9), 4, 1, 2, 4, 2),
     }
 
 

@@ -164,6 +164,34 @@ def mc_chunks(mesh, cfg, models, request, chunks, seed=5):
     return out
 
 
+def mc_fused(mesh, cfg, models, request, chunks, seed=5):
+    """:func:`mc_chunks` with every MC attention site on the fused route
+    (``use_flash`` patched to hold at the toy token count): ``(runs,
+    calls)``, ``calls[chunk]`` each fused site's ``(p, base, first_pass,
+    passes, heads, h0, local heads)`` in the order the sites run."""
+    from dmf_tpu_torch.models import transformer
+    from dmf_tpu_torch.ops import flash_attention
+
+    ref, rule = flash_attention.flash_attention_dropout_ref, transformer.use_flash
+    calls = []
+
+    def recorded(q, k, v, scale, p, seed_, base, first_pass=0, passes=1, heads=None, h0=0):
+        calls.append((p, base, first_pass, passes, heads, h0, q.shape[1]))
+        return ref(q, k, v, scale, p, seed_, base, first_pass, passes, heads, h0)
+
+    flash_attention.flash_attention_dropout_ref = recorded
+    transformer.use_flash = lambda *a: True
+    try:
+        runs, by_chunk = {}, {}
+        for c in chunks:
+            calls.clear()
+            runs.update(mc_chunks(mesh, cfg, models, request, (c,), seed))
+            by_chunk[c] = list(calls)
+    finally:
+        flash_attention.flash_attention_dropout_ref, transformer.use_flash = ref, rule
+    return runs, by_chunk
+
+
 # ---------------------------------------------------------------- the fold axis
 def multifold(mesh, cfg, models, batches, hp, train_labels):
     """``make_multifold_step(mesh=)`` of the DWI step over K fold models and
@@ -472,4 +500,5 @@ def several(mesh, jobs):
 JOBS = {"steps": steps, "predict": predict, "multifold": multifold, "fit": fit,
         "multifold_fit": multifold_fit, "tp_forward": tp_forward, "tp_steps": tp_steps,
         "tp_test_fusion": tp_test_fusion, "tp_neck": tp_neck, "tp_int8_conv": tp_int8_conv,
-        "tp_int8_predict": tp_int8_predict, "several": several, "mc_chunks": mc_chunks}
+        "tp_int8_predict": tp_int8_predict, "several": several, "mc_chunks": mc_chunks,
+        "mc_fused": mc_fused}
