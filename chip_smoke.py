@@ -28,12 +28,17 @@ Phases, each printing its own lines:
      float64 backward at (32, 4096, 128)), 3i the flash forward with
      attention dropout (the MC attention of ``hybrid-nb`` on the seed route,
      bf16 and fp32 at a ``tta_mc`` B=2 suffix's (8, 4, 4096, 128) at
-     mc_chunk 1, D=64, and mc_chunk 3's (24, ...) with 3 pass words) against
-     its plain version, beside the same kernel at p = 0 and SDPA with
-     ``dropout_p`` (never on the path), and 3i(b) its keep bits (q = 0 and V
+     mc_chunk 1, D=64, and mc_chunk 3's (24, ...) with 3 pass words): its
+     head-shared instance (a pre-pass makes one Philox call for 4 heads)
+     bit-equal to its per-element one and against the plain version, both
+     timed in turns beside the same kernel at p = 0, SDPA with
+     ``dropout_p`` (never on the path), the tensor bound and the integer
+     floor of the Philox calls the keep bits need (``ops/sass.py``; each
+     instance's SASS instructions a call from ``cuobjdump -sass`` beside
+     it), and 3i(b) its keep bits (q = 0 and V
      one-hot over the first and the last 128-key window: ``out != 0`` is the
      mask) bit-equal to the keep-mask kernel's at pass words, counter bases
-     and a head shard's h0, with, for the wgmma kernels (3b,
+     and a head shard's h0, on each instance, with, for the wgmma kernels (3b,
      3c, 3d, 3i), the kernel's own device
      time per call (profiler; fp32 flash: its pre-pass included), its TFLOP/s
      and share of the bound, and the kernel timed in turns with its library
@@ -336,10 +341,11 @@ from dmf_tpu_torch.ops import epilogue_cuda  # noqa: E402
 from dmf_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from dmf_tpu_torch.ops import library  # noqa: E402
 from dmf_tpu_torch.ops import histogram as hist  # noqa: E402
+from dmf_tpu_torch.ops import sass  # noqa: E402
 from dmf_tpu_torch.ops import se as sek  # noqa: E402
 from dmf_tpu_torch.ops import quant as int8q  # noqa: E402
 from dmf_tpu_torch.ops import quant_cuda as int8_cuda  # noqa: E402
-from dmf_tpu_torch.ops.cuda_build import BUILD_DIR  # noqa: E402
+from dmf_tpu_torch.ops.cuda_build import BUILD_DIR, build_library  # noqa: E402
 from dmf_tpu_torch.data.modality import ModalityProcessor  # noqa: E402
 from dmf_tpu_torch.evals.predict import make_single_predictor, to_model  # noqa: E402
 from dmf_tpu_torch.losses import get_classification_loss_fn, get_mask_loss_fn  # noqa: E402
@@ -558,7 +564,14 @@ COUNTERS = {"se_epilogue": (k1, "se_epilogue", "launches"),
             "histogram_percentiles": (hist, "histogram_percentiles", "launches"),
             "int8_conv": (int8q, "int8_conv", "launches"),
             "int8_quantize": (int8q, "quantize", "launches"),
-            "int8_dynamic_quantize": (int8q, "dynamic_quantize", "launches")}
+            "int8_dynamic_quantize": (int8q, "dynamic_quantize", "launches"),
+            # the dropout forward's launches by instance (in the kernel's entry)
+            "flash_attention_fwd_dropout_head_shared": (fa, "flash_attention_dropout",
+                                                        "launches_shared"),
+            "flash_attention_fwd_dropout_per_element": (fa, "flash_attention_dropout",
+                                                        "launches_each")}
+DROP_INSTANCES = {"head_shared": "flash_attention_fwd_dropout_head_shared",
+                  "per_element": "flash_attention_fwd_dropout_per_element"}
 
 
 def reset_counts():
@@ -625,7 +638,7 @@ def phase_build():
     log("  dynamic shared memory per block: " + "; ".join(
         f"{name} D=128 {flash_smem(i, 128)} B, D=64 {flash_smem(i, 64)} B" for i, name in
         enumerate(("flash_fwd_wgmma", "flash_bwd_dq_wgmma", "flash_bwd_dkv_wgmma",
-                   "flash_fwd_tf32x3")))
+                   "flash_fwd_tf32x3", "flash_bwd_tf32x3 (dQ, dK/dV)")))
         + f"; conv3x3_bn_gelu_wgmma 128x256 {conv_smem(1, 256)} B, 128x128 {conv_smem(1, 128)} B"
         + f"; conv3x3_bn_gelu_tf32x3 128x128 {conv_smem(0, 128)} B"
         + "; int8_conv_wgmma " + ", ".join(f"128x{t} {int8_smem(t)} B" for t in (64, 128, 256)))
@@ -1357,7 +1370,9 @@ def flash_dropout_mask_bits(seed):
     keep(q, w + d) / (N_k (1 - p)).  So ``out != 0`` is the kernel's mask of
     that window, held bit for bit against the keep-mask kernel's mask of the
     whole (B, H, N, N) weights, at the first and the last window, in bf16 and
-    fp32; the kept values against 1 / (N_k (1 - p)).  Returns the windows."""
+    fp32, on each instance a case allows (the per-element one always, the
+    head-shared one where ``fa.dropout_group`` gives G > 1); the kept values
+    against 1 / (N_k (1 - p)).  Returns the windows."""
     n = 0
     for dtype in (torch.bfloat16, torch.float32):
         for first, passes, base, local, h0 in MASK_CASES:
@@ -1366,64 +1381,107 @@ def flash_dropout_mask_bits(seed):
             k = torch.randn(b, local, SEQ, HEAD_DIM, device=DEV, generator=gen(31)).to(dtype)
             whole = q.new_empty(()).expand(b, HEADS, SEQ, SEQ)
             keep = epilogue_cuda.keep_mask(whole, ATTN_DROP, seed, base, first, passes)
-            for w in (0, SEQ - HEAD_DIM):
-                v = torch.zeros(b, local, SEQ, HEAD_DIM, device=DEV, dtype=dtype)
-                v[:, :, w:w + HEAD_DIM] = torch.eye(HEAD_DIM, device=DEV, dtype=dtype)
-                out = fa.launch_flash_forward_dropout(q, k, v, HEAD_DIM ** -0.5, ATTN_DROP,
-                                                      seed, base, first, passes, HEADS, h0)
-                want = keep[:, h0:h0 + local, :, w:w + HEAD_DIM]
-                tag = (f"3i(b) {str(dtype)[6:]} passes {first}..{first + passes - 1} base "
-                       f"{base} heads {h0}..{h0 + local - 1} of {HEADS}, keys {w}..{w + 127}")
-                if not torch.equal(out != 0, want):
-                    raise AssertionError(f"{tag}: {(out != 0).ne(want).sum().item()} keep "
-                                         f"bits differ from the keep-mask kernel's")
-                kept = out[want].float()
-                value = 1.0 / (SEQ * (1.0 - ATTN_DROP))
-                err = (kept - value).abs().max().item() / value
-                if not err <= TOL[dtype]:
-                    raise AssertionError(f"{tag}: kept values {err} off 1/(N(1-p))")
-                n += 1
+            group = fa.dropout_group(HEADS, h0, local, base)
+            for g in sorted({1, group}):
+                for w in (0, SEQ - HEAD_DIM):
+                    v = torch.zeros(b, local, SEQ, HEAD_DIM, device=DEV, dtype=dtype)
+                    v[:, :, w:w + HEAD_DIM] = torch.eye(HEAD_DIM, device=DEV, dtype=dtype)
+                    out = fa.launch_flash_forward_dropout(q, k, v, HEAD_DIM ** -0.5, ATTN_DROP,
+                                                          seed, base, first, passes, HEADS, h0,
+                                                          g)
+                    want = keep[:, h0:h0 + local, :, w:w + HEAD_DIM]
+                    tag = (f"3i(b) {str(dtype)[6:]} G={g} passes {first}..{first + passes - 1} "
+                           f"base {base} heads {h0}..{h0 + local - 1} of {HEADS}, keys "
+                           f"{w}..{w + 127}")
+                    if not torch.equal(out != 0, want):
+                        raise AssertionError(f"{tag}: {(out != 0).ne(want).sum().item()} keep "
+                                             f"bits differ from the keep-mask kernel's")
+                    kept = out[want].float()
+                    value = 1.0 / (SEQ * (1.0 - ATTN_DROP))
+                    err = (kept - value).abs().max().item() / value
+                    if not err <= TOL[dtype]:
+                        raise AssertionError(f"{tag}: kept values {err} off 1/(N(1-p))")
+                    n += 1
             del q, k, v, out, keep, want
     log(f"  3i(b): the kernels' keep bits equal the keep-mask kernel's in {n} windows of "
         f"{SEQ} queries x 128 keys x heads x rows (first and last window; pass words 0..6; "
         f"counter bases 0, 1000, 2^32 - 2, 2^33 + 4; whole heads and a 2-way shard's h0 = "
-        f"0, 2), bf16 and fp32; kept values within TOL of 1/(N_k (1-p))")
+        f"0, 2), bf16 and fp32, the per-element instance on every case and the head-shared "
+        f"one on G = 4 (bases 0, 2^33 + 4) and G = 2 (the shard at base 1000); kept values "
+        f"within TOL of 1/(N_k (1-p))")
     return n
 
 
+def drop_sass(smi_clock):
+    """SASS instructions a Philox call of each dropout instance (``ops/sass.py``
+    on ``cuobjdump -sass`` of the built library), by (dtype, D): a
+    diagnostic beside the function's integer floor; the forward instances'
+    and the pre-pass's SASS is kept beside the build log."""
+    lib = build_library("flash_attention", fa._SOURCES)
+    text = sass.dump(str(lib))
+    (lib.parent / "flash_fwd.sass").write_text(sass.select(text, ("flash_fwd_", "draw_bits")))
+    out = {}
+    for dtype, kernel in ((torch.bfloat16, "flash_fwd_wgmma"), (torch.float32, "flash_fwd_tf32x3")):
+        for d in (HEAD_DIM, 64):
+            out[(dtype, d)] = sass.per_call(text, kernel, d, fa.dropout_key_tile(dtype, d))
+            log(f"  3i SASS {kernel} D={d}: " + ", ".join(
+                f"{k} {v:.1f} instructions a call" for k, v in out[(dtype, d)].items())
+                + " (cuobjdump -sass; the head-shared one in its pre-pass draw_bits)")
+    log(f"  3i integer floor: {sass.PHILOX_CALL_INSTRUCTIONS} SASS instructions a Philox call "
+        f"(the rounds and keep tests a call needs at least, ops/sass.py) x the calls the keep "
+        f"bits need (one a counter group of 4) / (132 SMs x 128 a clock x the SM clock, "
+        f"{smi_clock} MHz), the same for both instances")
+    return out
+
+
+def sm_clock_mhz():
+    """The SM clock's maximum, as nvidia-smi reports it (MHz)."""
+    return float(subprocess.run(["nvidia-smi", "--query-gpu=clocks.max.sm",
+                                 "--format=csv,noheader,nounits"], capture_output=True,
+                                text=True, check=True, timeout=60).stdout.split()[0])
+
+
 def phase_flash_dropout():
-    """Phase 3i: the forward kernels' dropout variant (the MC attention of the
-    seed route) against its plain version at the served shapes, its time
-    beside the same kernel at p = 0, the plain version, SDPA with
-    ``dropout_p`` (a yardstick, never on the path; its own mask) and the
-    bound; then the keep bits (3i(b))."""
+    """Phase 3i: the forward kernels' dropout instances (the MC attention of
+    the seed route), the head-shared one (the served path's) and the
+    per-element one on the same inputs: bit-equal, against the plain version
+    at the served shapes, timed in turns beside the same kernel at p = 0,
+    the plain version, SDPA with ``dropout_p`` (a yardstick, never on the
+    path; its own mask) and both bounds (the tensor cores' and the integer
+    issue of the Philox calls the keep bits need, the same for both
+    instances); then the keep bits (3i(b))."""
     log(f"== phase 3i: flash forward with attention dropout {ATTN_DROP} (CUDA) vs plain, "
         f"(B, {HEADS}, {SEQ}, D): a hybrid-nb tta_mc B=2 suffix at mc_chunk 1 (B = 8) and 3 "
-        f"(B = 24, 3 pass words), bf16 and fp32 (3xTF32)")
+        f"(B = 24, 3 pass words), bf16 and fp32 (3xTF32), the head-shared instance "
+        f"(a pre-pass makes one Philox call for G heads) and the per-element one")
     seed = torch.tensor([(0x5EED << 32) | 39], device=DEV)
     r = torch.randn(2, 2, 128, 64, device=DEV)
     expect_value_error("p = 0", lambda: fa.launch_flash_forward_dropout(
-        r, r, r, 0.125, 0.0, seed, 0, 0, 1, 2, 0))
+        r, r, r, 0.125, 0.0, seed, 0, 0, 1, 2, 0, 1))
     expect_value_error("a head past the whole count", lambda: fa.launch_flash_forward_dropout(
-        r, r, r, 0.125, ATTN_DROP, seed, 0, 0, 1, 2, 1))
+        r, r, r, 0.125, ATTN_DROP, seed, 0, 0, 1, 2, 1, 1))
+    clock = sm_clock_mhz()
+    per_call = drop_sass(clock)
     g = gen(39)
     errs, res = [], {}
     for dtype, d, b, first, passes, base in DROP_CASES:
         scale = d ** -0.5
         q, k, v = (torch.randn(b, HEADS, SEQ, d, device=DEV, generator=g).to(dtype)
                    for _ in range(3))
+        group = fa.dropout_group(HEADS, 0, HEADS, base)
         tag = (f"{str(dtype)[6:]} B={b} (BH={b * HEADS}) D={d} passes {first}.."
                f"{first + passes - 1} base {base}")
         f32 = dtype == torch.float32
 
-        def kernel():
+        def kernel(grp=group):
             return fa.launch_flash_forward_dropout(q, k, v, scale, ATTN_DROP, seed, base, first,
-                                                   passes, HEADS, 0)
+                                                   passes, HEADS, 0, grp)
 
         out = kernel()
-        errs.append(check(f"3i {tag} out against the plain version on fp32 operands", out,
-                          flash_dropout_ref_by_pass(q.float(), k.float(), v.float(), scale,
-                                                    seed, base, first, passes), dtype))
+        errs.append(check(f"3i {tag} head-shared (G={group}) out against the plain version on "
+                          f"fp32 operands", out, flash_dropout_ref_by_pass(
+                              q.float(), k.float(), v.float(), scale, seed, base, first,
+                              passes), dtype))
         if not f32:
             gap = (out.float() - flash_dropout_ref_by_pass(q, k, v, scale, seed, base, first,
                                                            passes).float()).abs().max().item()
@@ -1431,37 +1489,67 @@ def phase_flash_dropout():
                 f"rounded to bf16) {gap:.3e}")
         if not torch.equal(out, kernel()):
             raise AssertionError(f"3i {tag}: two calls differ")
+        if not torch.equal(out, kernel(1)):
+            raise AssertionError(f"3i {tag}: the head-shared instance differs from the "
+                                 f"per-element one")
+        log(f"  3i {tag}: the head-shared and the per-element instance bit-equal, two calls "
+            f"bit-equal")
         del out
         q3, k3, v3 = (t.view(b * HEADS, SEQ, d) for t in (q, k, v))
-        t_k = cuda_time(kernel, reps=3, trials=3)
+        # in turns: shared, per-element, per-element, shared
+        t_s, t_e = in_turns(kernel, lambda: kernel(1), reps=3, trials=3)
         t_0 = cuda_time(lambda: fa.flash_forward(q3, k3, v3, scale), reps=3, trials=3)
         t_p = cuda_time(lambda: flash_dropout_ref_by_pass(q, k, v, scale, seed, base, first,
                                                           passes), reps=1, trials=3)
         t_l = cuda_time(lambda: F.scaled_dot_product_attention(q, k, v, dropout_p=ATTN_DROP),
                         reps=3, trials=3)
         flop = 4 * b * HEADS * SEQ * SEQ * d
-        bound = (3 * flop / TF32_FLOP_PER_S if f32 else flop / BF16_FLOP_PER_S) * 1e3
-        log(f"  3i {tag}: kernel {t_k:.4f} ms ({flop / t_k / 1e9:.1f} TFLOP/s, "
-            f"{100 * bound / t_k:.1f} % of the bound), the kernel at p = 0 {t_0:.4f} ms "
-            f"(x{t_k / t_0:.2f}), plain {t_p:.4f} ms, SDPA dropout_p={ATTN_DROP} {t_l:.4f} "
-            f"ms (median); bound {bound:.4f} ms (operations: "
-            + ("3x the products at 495 TFLOP/s" if f32 else "bf16 at 989 TFLOP/s")
-            + f"; {b * HEADS * SEQ * SEQ / 1e6:.0f}M keep bits, one Philox call each)")
-        dev, _ = device_rate(f"3i {tag}" + (" (pre-pass + 3xTF32 kernel)" if f32 else ""),
-                             kernel, F32_FWD_KERNELS if f32 else ("flash_fwd_wgmma",), bound,
-                             flop=flop)
-        res[(dtype, d, b)] = {"ms": t_k, "plain_ms": t_p, "bound_ms": bound, "library_ms": t_l,
-                              "p0_ms": t_0, "device_ms": dev}
+        tensor = (3 * flop / TF32_FLOP_PER_S if f32 else flop / BF16_FLOP_PER_S) * 1e3
+        # the integer floor: the Philox calls the keep bits need (one for the 4
+        # heads of a weight), the same for both instances
+        calls = sass.philox_calls(b // passes * HEADS * SEQ * SEQ, passes, base)
+        floor = sass.issue_floor_ms(calls, clock)
+        bound = max(tensor, floor)
+        entry = {"plain_ms": t_p, "library_ms": t_l, "p0_ms": t_0, "tensor_bound_ms": tensor,
+                 "integer_bound_ms": floor, "bound_ms": bound, "calls": calls,
+                 "sm_clock_mhz": clock}
+        log(f"  3i {tag}: the kernel at p = 0 {t_0:.4f} ms, plain {t_p:.4f} ms, SDPA "
+            f"dropout_p={ATTN_DROP} {t_l:.4f} ms (median); tensor bound {tensor:.4f} ms "
+            f"(operations: " + ("3x the products at 495 TFLOP/s" if f32 else
+                                "bf16 at 989 TFLOP/s") + f"); integer floor {floor:.4f} ms "
+            f"({calls / 1e6:.0f}M Philox calls x {sass.PHILOX_CALL_INSTRUCTIONS} instructions); "
+            f"bound {bound:.4f} ms, both instances")
+        forward = F32_FWD_KERNELS if f32 else ("flash_fwd_wgmma",)
+        for name, t_k, made, grp in (("head_shared", t_s, calls * 4 // group, group),
+                                     ("per_element", t_e, calls * 4, 1)):
+            dev, _ = device_rate(f"3i {tag} {name} (G={grp})", lambda: kernel(grp),
+                                 (("draw_bits",) if grp > 1 else ()) + forward, bound, flop=flop)
+            shares = (f"{100 * tensor / dev:.1f} % of the tensor bound, {100 * floor / dev:.1f} "
+                      f"% of the integer floor" if dev else "device time not measured")
+            ipc = per_call[(dtype, d)][name]
+            log(f"  3i {tag} {name} (G={grp}): kernel {t_k:.4f} ms (x{t_k / t_0:.2f} p = 0, "
+                f"x{t_k / t_l:.2f} SDPA with dropout_p), device "
+                + ("not measured" if dev is None else f"{dev:.4f} ms") + f" ({shares}); "
+                f"{made / 1e6:.0f}M Philox calls made, {ipc:.1f} SASS instructions a call")
+            entry[name] = {"ms": t_k, "device_ms": dev, "bound_ms": bound,
+                           "sass_per_call": ipc, "calls_made": made}
+        log(f"  3i {tag}: head-shared / per-element {t_s / t_e:.3f} in turns")
+        res[(dtype, d, b)] = entry
         del q, k, v, q3, k3, v3
         torch.cuda.empty_cache()
     windows = flash_dropout_mask_bits(seed)
     torch.cuda.empty_cache()
-    # the entry's times: bf16 at the served (8, 4, 4096, 128); "fp32" the 3xTF32 kernel's
+    # the entry's times: the head-shared instance (the served path's) in bf16
+    # at the served (8, 4, 4096, 128); "fp32" the 3xTF32 kernel's
     served = res[(torch.bfloat16, HEAD_DIM, 8)]
-    return {"max_abs_err": max(errs), **{k: served[k] for k in
-                                         ("ms", "plain_ms", "bound_ms", "library_ms")},
-            "bound_by": "operations", "p0_ms": served["p0_ms"], "mask_windows": windows,
-            "fp32": res[(torch.float32, HEAD_DIM, 8)]}
+    return {"max_abs_err": max(errs), "ms": served["head_shared"]["ms"],
+            "plain_ms": served["plain_ms"], "bound_ms": served["bound_ms"],
+            "bound_by": "operations", "library_ms": served["library_ms"],
+            "tensor_bound_ms": served["tensor_bound_ms"],
+            "integer_bound_ms": served["integer_bound_ms"],
+            "per_element_ms": served["per_element"]["ms"], "p0_ms": served["p0_ms"],
+            "mask_windows": windows, "fp32": res[(torch.float32, HEAD_DIM, 8)],
+            "d64": {str(dt)[6:]: res[(dt, 64, 8)] for dt in (torch.bfloat16, torch.float32)}}
 
 
 @contextlib.contextmanager
@@ -2251,13 +2339,13 @@ def recorded_masks(digest=False):
         return keep
 
     def launch_flash_forward_dropout(q, k, v, scale, p, seed, base, first_pass, passes, heads,
-                                     h0):
+                                     h0, group):
         if h0 != 0 or heads != q.shape[1]:
             raise AssertionError(f"a fused attention site of one process at heads {h0}.. of "
                                  f"{heads}, {q.shape[1]} a call")
         calls.append(("fused", (q.shape[0], heads, q.shape[2], k.shape[2]), q.dtype, p, base,
                       first_pass, passes))
-        return fused(q, k, v, scale, p, seed, base, first_pass, passes, heads, h0)
+        return fused(q, k, v, scale, p, seed, base, first_pass, passes, heads, h0, group)
 
     epilogue_cuda.keep_mask, epilogue_cuda.launch_se_epilogue = keep_mask, launch_se_epilogue
     seed_route.keep_mask_plain = keep_mask_plain
@@ -2292,8 +2380,9 @@ def mc_expect(models, chunk, passes, prefix, fused=True):
     once a bottleneck and three times a transformer block (the projection,
     the MLP's two), and its attention dropout once a block: the fused
     forward (``fused``: at the flash shapes, hybrid-nb's 4096 tokens), or
-    the weights route's keep-mask kernel; kernel 6 on the modality attention
-    twice and on fusion_se once a suffix; ``prefix`` the rest."""
+    the weights route's keep-mask kernel, its head-shared instance at
+    hybrid-nb's 4 heads; kernel 6 on the modality attention twice and on
+    fusion_se once a suffix; ``prefix`` the rest."""
     n_lean = passes - 1
     n_suffix = -(-n_lean // (n_lean if chunk is None else min(chunk, n_lean))) + 1
     n_epi = n_keep = n_attn = 0
@@ -2308,7 +2397,8 @@ def mc_expect(models, chunk, passes, prefix, fused=True):
         n_keep, n_attn = n_keep + n_attn, 0
     return dict.fromkeys(COUNTERS, 0) | prefix | {
         "se_epilogue": n_epi * n_suffix, "keep_mask": n_keep * n_suffix, "se_scale": 2 + n_suffix,
-        "flash_attention_fwd_dropout": n_attn * n_suffix}
+        "flash_attention_fwd_dropout": n_attn * n_suffix,
+        DROP_INSTANCES["head_shared"]: n_attn * n_suffix}
 
 
 def mc_inputs(cfg, b, seed):
@@ -2536,13 +2626,15 @@ def mc_fused_against_weights(hcfg, models, dx, cx, seed, fused, fused_sites):
 # ------------------------------------------------------------------ phase 6
 # the hand-written kernels as the profiler names them (regular expressions),
 # for phase 6: the forward kernels' p = 0 and dropout instances apart, by
-# their template's DROP argument
-FLASH_FWD_P0 = (r"flash_fwd_\w+<\d+, false>",)
-FLASH_FWD_DROP = (r"flash_fwd_\w+<\d+, true>",)
+# their template's DROP argument (0; 1 per-element, 2 head-shared)
+FLASH_FWD_P0 = (r"flash_fwd_\w+<\d+, 0>",)
+FLASH_FWD_DROP = (r"flash_fwd_\w+<\d+, [12]>",)
+DRAW_BITS = (r"draw_bits<\d+>",)  # the head-shared instance's pre-pass
 PROFILE_KERNELS = {"kernel 1 se_epilogue (3 kernels a call)": EPI_KERNELS,
                    "kernel 2 conv3x3_bn_gelu": ("conv3x3_bn_gelu",),
                    "kernel 3 flash forward (p = 0)": FLASH_FWD_P0,
-                   "flash forward with attention dropout": FLASH_FWD_DROP,
+                   "flash forward with attention dropout (and its pre-pass)":
+                       FLASH_FWD_DROP + DRAW_BITS,
                    "kernel 6 se_scale (3 kernels a call)": SE_KERNELS,
                    "kernel 7 dwi_normalize (3 kernels a call)": DWI_KERNELS}
 
@@ -5957,6 +6049,8 @@ def bench_gate(name, result, launched, calls):
         ok = (served and launched["flash_attention_fwd"] == 0 and launched["int8_conv"] == 0
               and launched["flash_attention_fwd_dropout"]
               == (BENCH_HYB_NB["flash_attention_fwd_dropout"] * calls if nb else 0)
+              and launched[DROP_INSTANCES["head_shared"]]
+              == launched["flash_attention_fwd_dropout"]
               and (not nb or launched["keep_mask"] == BENCH_HYB_NB["keep_mask"] * calls))
     elif name.startswith("int8-prefix"):
         ok = (served and launched["int8_conv"] > 0
@@ -6124,8 +6218,12 @@ def main():
         f"CLI, the ViT path, the fold-parallel run, the serving artifacts, the int8 "
         f"path, the data and model meshes and the bench: {launches}")
     for name in COUNTERS:
-        if launches[name] <= 0:
+        if launches[name] <= 0 and name not in DROP_INSTANCES.values():
             raise AssertionError(f"{name} was not launched on its path")
+    by_instance = {k: launches[v] for k, v in DROP_INSTANCES.items()}
+    if by_instance["head_shared"] != launches["flash_attention_fwd_dropout"]:
+        raise AssertionError(f"the served dropout forward left the head-shared instance: "
+                             f"{by_instance}")
     large()  # last: its maps take most of the card's memory
     log(f"== total {time.perf_counter() - t_start:.1f} s on {smi}")
     where = {
@@ -6159,6 +6257,7 @@ def main():
         "int8_dynamic_quantize": ("cuda", "dmf_tpu_torch/csrc/int8_quantize.cu",
                                   "dmf_tpu/ops/quant.py:76"),
     }
+    measured["flash_attention_fwd_dropout"]["launches_by_instance"] = by_instance
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **measured[name]}
                for name, (route, source, replaces) in where.items()]

@@ -194,9 +194,13 @@ def timed(fn: Callable, warmup: int, steps: int, device: torch.device,
 
 
 def count_flops(fn: Callable) -> int:
-    """The products of one call of ``fn`` (``FlopCounterMode``; importing
-    the package's ``ops`` registered the operators' formulas)."""
+    """The products of one call of ``fn`` (``FlopCounterMode``, with the
+    operators' formulas registered first)."""
     from torch.utils.flop_counter import FlopCounterMode
+
+    from .ops.library import register_flop_formulas
+
+    register_flop_formulas()
 
     with FlopCounterMode(display=False) as counter:
         fn()

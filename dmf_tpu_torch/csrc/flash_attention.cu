@@ -168,14 +168,24 @@
 // Attention-weight dropout (flash_fwd_dropout_launch: the DROP instances of
 // both forward kernels) replaces what XLA lowers for JAX's MC attention, the
 // materialized weights, flax's dropout and the value product
-// (dmf_tpu/models/transformer.py:45-49); no Pallas kernel is behind it.
-// Each consumer thread draws the keep bits of its own accumulator fragment
-// in registers (philox::keep1, kernel 1's keep test) and no mask is written:
-// P V takes P * keep / (1 - p), while the online softmax's m and l, and so
-// the normalisation, are the undropped P's, as softmax-then-dropout.  One
-// Philox call a score element: at H = 4 (base a multiple of 4) a call's four
-// words are the four heads' bits of one (row, q, k), of which a block (one
-// head) uses one.
+// (dmf_tpu/models/transformer.py:45-49); no Pallas kernel is behind it.  No
+// mask is written: P V takes P * keep / (1 - p), while the online softmax's m
+// and l, and so the normalisation, are the undropped P's, as
+// softmax-then-dropout.  The keep bit of a weight is one word of a
+// Philox4x32-10 call (kernel 1's keep test, philox.cuh), and at H = 4 with a
+// counter base that is a multiple of 4 a call's four words are the four
+// heads' bits of one (row, q, k).  Two instances, chosen by the shape:
+//   * DROP_SHARED (hs below; the served hybrid-nb sites): a pre-pass on
+//     every SM makes one call for the G = 4 heads (2 on a 2-way shard) of a
+//     weight and writes each head's bits in the order the consumers read
+//     them; the forward reads one word a row a key tile, a tile ahead.
+//   * DROP_EACH (every other shape, e.g. H = 2 or a base = 2 mod 4): each
+//     consumer thread draws its own weights' bits in registers
+//     (philox::keep1), one call a weight, three of its four words unused.
+// The draw is integer issue (a call is ~57 SASS instructions: ~18 wide
+// multiplies, the xors, the keep tests); inside the forward it only gets
+// the issue slots that the softmax leaves, so the head-shared instance draws
+// before the forward instead (PERF.md section 6 has the measurements).
 //
 // Deliberately not carried over from the TPU: the (N, 1) column layout of
 // lse/delta (here (BH, N) fp32 rows), the whole-sequence-in-VMEM K/V blocks
@@ -228,7 +238,16 @@ struct Dropout {
   int local_heads;          // the call's heads a row: BH = B x local_heads
   float keep_prob;          // float32(1 - p)
   float drop_scale;         // float32(1 / (1 - p)): a kept weight's factor
+  unsigned threshold;       // philox::keep_threshold(keep_prob): the head-shared keep test
+  int group;                // G, the heads a Philox call serves (DROP_SHARED)
+  const uint32_t* bits;     // DROP_SHARED: the pre-pass's keep bits of the call (hs::draw_bits)
 };
+
+// The forward kernels' instances: without dropout; with dropout, each
+// consumer thread drawing its own weights' bits, one Philox call a weight
+// (DROP_EACH, any shape); or reading the bits that a pre-pass drew, one
+// call for G heads (DROP_SHARED, namespace hs below).
+constexpr int DROP_NONE = 0, DROP_EACH = 1, DROP_SHARED = 2;
 
 // A consumer thread's share of the mask: its two accumulator rows, q and q +
 // 8, as the counters of their key 0, and the step from one key to the next.
@@ -259,6 +278,117 @@ struct DropRows {
                : 0.0f;
   }
 };
+
+// ------------------------------------------------------- the head-shared draw
+// DROP_SHARED, for H % 4 == 0 and a counter base % 4 == 0 (the served
+// hybrid-nb sites): the four words of the Philox call of counter (e/4, pass)
+// are the keep bits of heads 4m .. 4m + 3 of one (row, q, k), so one call
+// serves the G heads of a group (G = 4, or 2 on a 2-way head shard, words
+// 0-1 or 2-3) where DROP_EACH makes G.  A pre-pass (hs::draw_bits) makes
+// those calls on every SM and writes each head's bits to global memory as
+// the forward's consumers read them; the forward then reads one word a row
+// a key tile, a tile ahead, and tests bits.  The draw so runs on every SM's
+// integer pipes alone instead of in the issue slots that the forward's
+// softmax leaves (a draw inside the forward, by the producer warpgroups of
+// clusters of G blocks sharing each call over DSMEM, measured ~1.5x slower
+// at the served shape: PERF.md section 6).  The keep test is the integer
+// one (philox::keep_threshold), the same bits.
+namespace hs {
+
+constexpr int DRAW_THREADS = 128;  // threads a block of the pre-pass
+constexpr int DRAW_CHUNKS = 4;     // chunks of 8 calls a pre-pass thread
+
+// The bits of one (row, head): N_k rounded up to the key tile BN, BN / 32
+// words a tile; position quad (BN/4) + 2j + e of a tile holds key 8j + 2
+// quad + e, so consumer thread (lane l, quad = l % 4) reads the BN/4 bits of
+// its accumulator fragment of a row as one aligned piece.
+template <int BN>
+__host__ __device__ constexpr int row_words(int nk) {
+  return (nk + BN - 1) / BN * (BN / 32);
+}
+
+// The pre-pass: the keep bits of rows b0 .. b0 + gridDim.z / groups - 1 of
+// the call (grid (1, N_q, rows x local_heads / G), one block a (row, head
+// group, query)) into bits[((b - b0) local_heads + h) N_q + q][row_words].
+// Chunk i of a (row, head group, query) is 8 calls: bit positions 8 (i %
+// (BN/8)) .. + 7 of key tile i / (BN/8); byte g of x is head g's 8 bits of
+// it.  The 4 lanes of a word transpose their bytes (shuffles, byte_perm)
+// and lane g < G stores head g's word.  Each thread draws DRAW_CHUNKS chunks
+// of its row under the round keys it computes once.
+template <int BN>
+__global__ void __launch_bounds__(DRAW_THREADS)
+draw_bits(const Dropout d, uint32_t* __restrict__ bits, int b0, int nq, int nk) {
+  constexpr int CHUNKS_TILE = BN / 8;
+  const int group = d.group, groups = d.local_heads / group;
+  const int q = blockIdx.y, bg = blockIdx.z, gi = bg % groups, b = b0 + bg / groups;
+  const int h_first = d.h0 + gi * group;  // the group's first head among the H
+  const int words = row_words<BN>(nk), chunks = 4 * words;
+  const philox::RoundKeys keys = philox::round_keys(philox::seed_key(d.seed));
+  const unsigned pass = d.pass0 + static_cast<unsigned>(b / d.rows);
+  const unsigned hq = static_cast<unsigned>(d.heads / 4);  // calls from one key to the next
+  const unsigned long long at =
+      d.base / 4 + (static_cast<unsigned long long>(b % d.rows) * nq + q) * nk * hq + h_first / 4;
+  const int lane = threadIdx.x % 32, l4 = lane % 4, quad4 = lane & ~3;
+  const int sel = (h_first % 4 + l4) & 3;
+  const unsigned pick = static_cast<unsigned>(sel | (sel + 4) << 4);
+  uint32_t* out = bits + (static_cast<size_t>(bg / groups * d.local_heads + gi * group +
+                                                min(l4, group - 1)) * nq +
+                          q) * words;
+  // every lane of a warp runs each chunk (the shuffles); past `chunks` none stores
+  for (int i0 = blockIdx.x * DRAW_THREADS * DRAW_CHUNKS; i0 < chunks;
+       i0 += gridDim.x * DRAW_THREADS * DRAW_CHUNKS) {
+#pragma unroll
+    for (int u = 0; u < DRAW_CHUNKS; ++u) {
+      const int i = i0 + u * DRAW_THREADS + threadIdx.x;
+      const int kt = i / CHUNKS_TILE, c = i % CHUNKS_TILE;
+      const int quad = c / (CHUNKS_TILE / 4), j0 = 4 * (c % (CHUNKS_TILE / 4));
+      const unsigned long long call = at + static_cast<unsigned>(kt * BN + 8 * j0 + 2 * quad) * hq;
+      uint4 w[8];  // keys 8 (j0 + bit/2) + 2 quad + bit % 2, bit = 0 .. 7
+#pragma unroll
+      for (int bit = 0; bit < 8; ++bit) {
+        const unsigned long long n = call + static_cast<unsigned>(8 * (bit / 2) + bit % 2) * hq;
+        w[bit] = make_uint4(static_cast<unsigned>(n), static_cast<unsigned>(n >> 32), pass, 0u);
+      }
+      philox::philox4x32_10(w, keys);
+      uint32_t x = 0;
+#pragma unroll
+      for (int bit = 0; bit < 8; ++bit)
+        x |= (w[bit].x <= d.threshold ? 1u : 0u) << bit |
+             (w[bit].y <= d.threshold ? 1u : 0u) << (8 + bit) |
+             (w[bit].z <= d.threshold ? 1u : 0u) << (16 + bit) |
+             (w[bit].w <= d.threshold ? 1u : 0u) << (24 + bit);
+      const uint32_t x0 = __shfl_sync(0xffffffffu, x, quad4),
+                     x1 = __shfl_sync(0xffffffffu, x, quad4 + 1),
+                     x2 = __shfl_sync(0xffffffffu, x, quad4 + 2),
+                     x3 = __shfl_sync(0xffffffffu, x, quad4 + 3);
+      if (l4 < group && i < chunks)
+        out[i / 4] =
+            __byte_perm(__byte_perm(x0, x1, pick), __byte_perm(x2, x3, pick), 0x5410);
+    }
+  }
+}
+
+// A consumer thread's bits of block row `row` (clamped to the call's rows:
+// a ragged block's rows past N_q are not written) in the pre-pass's output:
+// word kt (BN/32) of the returned pointer, shifted right by bits_shift<BN>,
+// holds its BN/4 bits of key tile kt.
+template <int BN>
+__device__ __forceinline__ const uint32_t* bits_row(const Dropout& d, int bh, int row, int quad,
+                                                    int nq, int nk) {
+  return d.bits + (static_cast<size_t>(bh) * nq + min(row, nq - 1)) * row_words<BN>(nk) +
+         quad * (BN / 4) / 32;
+}
+template <int BN>
+__device__ __forceinline__ int bits_shift(int quad) {
+  return quad * (BN / 4) % 32;
+}
+
+// p_ / (1 - p) if bit `bit` of `bits` keeps, else 0: DropRows::drop's value.
+__device__ __forceinline__ float drop_bit(float p_, uint32_t bits, int bit, float drop_scale) {
+  return (bits >> bit) & 1u ? p_ * drop_scale : 0.0f;
+}
+
+}  // namespace hs
 
 // ------------------------------------------------------- bf16 (wgmma)
 namespace wg {
@@ -299,10 +429,10 @@ __device__ __forceinline__ void rs_product<128>(float (&o)[64], const uint32_t (
   hopper::wgmma_m64n128k16_rs_tb(o, a, b, 1);
 }
 
-// DROP: the dropout variant (Dropout above); P enters O += P V dropped and
-// scaled, while m, l and so lse stay those of the undropped P (lse is not
-// written).
-template <int D, bool DROP>
+// DROP (DROP_EACH, DROP_SHARED): the dropout instances (Dropout above); P
+// enters O += P V dropped and scaled, while m, l and so lse stay those of the
+// undropped P (lse is not written).  DROP_SHARED reads the pre-pass's bits (hs).
+template <int D, int DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
                 const __grid_constant__ CUtensorMap vmap, bf16* __restrict__ out,
@@ -310,6 +440,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
   using namespace hopper;
   using L = Smem<D>;
   constexpr int PANELS = D / 64;
+  constexpr bool SHARED = DROP == DROP_SHARED;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(smem + L::BAR_OFF);
@@ -363,9 +494,20 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
     for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
     float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
     const unsigned char* qs = smem + wgi * 64 * 128;  // this warpgroup's rows of each panel
-    [[maybe_unused]] const DropRows drows = DROP ? DropRows(dropout, bh, q0 + wgi * 64 +
-                                                            (t / 32) * 16 + lane / 4, Nq, Nk)
-                                                 : DropRows();
+    const int brow = wgi * 64 + (t / 32) * 16 + lane / 4;  // this thread's first block row
+    [[maybe_unused]] const DropRows drows =
+        DROP == DROP_EACH ? DropRows(dropout, bh, q0 + brow, Nq, Nk) : DropRows();
+    // DROP_SHARED: rows brow and brow + 8 of the pre-pass's bits, each key
+    // tile's words loaded a tile ahead
+    [[maybe_unused]] const uint32_t* brows[2] = {};
+    [[maybe_unused]] uint32_t next[2] = {};
+    if constexpr (SHARED) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        brows[r] = hs::bits_row<BN>(dropout, bh, q0 + brow + 8 * r, quad, Nq, Nk);
+        next[r] = __ldg(brows[r]);
+      }
+    }
     mbar_wait(q_full, 0);
     for (int kt = 0; kt < nkt; ++kt) {
       const int s = kt % STAGES;
@@ -382,6 +524,14 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
                             desc_sw128(ks + (kk / 4) * BN * 128 + off, 16, 1024), kk > 0);
       }
       wgmma_commit();
+      [[maybe_unused]] uint32_t bits[2];  // DROP_SHARED: this tile's, the next one's loading
+      if constexpr (SHARED) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bits[r] = next[r] >> hs::bits_shift<BN>(quad);
+          if (kt + 1 < nkt) next[r] = __ldg(brows[r] + (kt + 1) * (BN / 32));
+        }
+      }
       wgmma_wait<0>();
       fence_regs(sacc);
       if ((kt + 1) * BN > Nk) {  // the last tile: keys past N_k drop out
@@ -417,12 +567,17 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
         float p3 = exp2f(fmaf(sacc[4 * j + 3], c, -mc[1]));
         sum[0] += p0 + p1;
         sum[1] += p2 + p3;
-        if constexpr (DROP) {  // keys k, k + 1 of rows q, q + 8
+        if constexpr (DROP == DROP_EACH) {  // keys k, k + 1 of rows q, q + 8
           const int k = kt * BN + 8 * j + 2 * quad;
           p0 = drows.drop(p0, 0, k);
           p1 = drows.drop(p1, 0, k + 1);
           p2 = drows.drop(p2, 1, k);
           p3 = drows.drop(p3, 1, k + 1);
+        } else if constexpr (SHARED) {
+          p0 = hs::drop_bit(p0, bits[0], 2 * j, dropout.drop_scale);
+          p1 = hs::drop_bit(p1, bits[0], 2 * j + 1, dropout.drop_scale);
+          p2 = hs::drop_bit(p2, bits[1], 2 * j, dropout.drop_scale);
+          p3 = hs::drop_bit(p3, bits[1], 2 * j + 1, dropout.drop_scale);
         }
         pa[j / 2][(j % 2) * 2] = pack_bf16(p0, p1);
         pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p2, p3);
@@ -454,13 +609,13 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       mbar_arrive(&empty[s]);
     }
     // epilogue: out = O / l rounded once, lse = m * scale + log(l)
-    const int row0 = q0 + wgi * 64 + (t / 32) * 16 + lane / 4;
+    const int row0 = q0 + brow;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= Nq) continue;  // the ragged half of the last query block
       const int at = bh * Nq + row;
-      if (!DROP && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      if (DROP == DROP_NONE && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
       bf16* orow = out + at * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -1001,9 +1156,9 @@ __device__ __forceinline__ void a_halves(float x0, float x1, float x2, float x3,
 
 // Each tile's P V goes into an accumulator of its own, added into the fp32 O
 // after the rescale (the JAX kernel's acc * alpha + P V).  DROP: the dropout
-// variant, as the bf16 kernel's (P dropped and scaled before its split; m, l
-// undropped; lse not written).
-template <int D, bool DROP>
+// instances, as the bf16 kernel's (P dropped and scaled before its split; m,
+// l undropped; lse not written; DROP_SHARED on the pre-pass's bits).
+template <int D, int DROP>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* __restrict__ img,
                  float* __restrict__ out, float* __restrict__ lse, int Nq, int Nk, float scale,
@@ -1011,6 +1166,7 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
   using namespace hopper;
   using L = Layout<D>;
   constexpr int BN = L::BN, PANELS = L::PANELS;
+  constexpr bool SHARED = DROP == DROP_SHARED;
   extern __shared__ unsigned char smem_raw[];
   unsigned char* smem = align1024(smem_raw);
   unsigned char* ring = smem + L::RING_OFF;
@@ -1081,9 +1237,20 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) part[i] = 0.f;
     float m[2] = {-1e30f, -1e30f}, l[2] = {0.f, 0.f};
-    [[maybe_unused]] const DropRows drows = DROP ? DropRows(dropout, bh, q0 + wgi * 64 +
-                                                            (t / 32) * 16 + lane / 4, Nq, Nk)
-                                                 : DropRows();
+    const int brow = wgi * 64 + (t / 32) * 16 + lane / 4;  // this thread's first block row
+    [[maybe_unused]] const DropRows drows =
+        DROP == DROP_EACH ? DropRows(dropout, bh, q0 + brow, Nq, Nk) : DropRows();
+    // DROP_SHARED: rows brow and brow + 8 of the pre-pass's bits, each key
+    // tile's words loaded a tile ahead
+    [[maybe_unused]] const uint32_t* brows[2] = {};
+    [[maybe_unused]] uint32_t next[2] = {};
+    if constexpr (SHARED) {
+#pragma unroll
+      for (int r = 0; r < 2; ++r) {
+        brows[r] = hs::bits_row<BN>(dropout, bh, q0 + brow + 8 * r, quad, Nq, Nk);
+        next[r] = __ldg(brows[r]);
+      }
+    }
     for (int kt = 0; kt < nkt; ++kt) {
       const int ik = 2 * kt, iv = ik + 1;  // ring items of this tile's K and V^T
       const unsigned char* ks = ring + (ik % SLOTS) * SLOT;
@@ -1098,6 +1265,14 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
       score_tile<D, BN, BM>(sa, sb, qh, ql, ks);
       wgmma_commit();
       if (wgi == 0 || kt + 1 < nkt) named_barrier_arrive(4 - wgi, 256);  // the other's turn
+      [[maybe_unused]] uint32_t bits[2];  // DROP_SHARED: this tile's, the next one's loading
+      if constexpr (SHARED) {
+#pragma unroll
+        for (int r = 0; r < 2; ++r) {
+          bits[r] = next[r] >> hs::bits_shift<BN>(quad);
+          if (kt + 1 < nkt) next[r] = __ldg(brows[r] + (kt + 1) * (BN / 32));
+        }
+      }
       wgmma_wait<0>();
       fence_regs(sa);
       fence_regs(sb);
@@ -1129,12 +1304,17 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
                       exp2f(fmaf(s[4 * j + 2], c, -mc[1])), exp2f(fmaf(s[4 * j + 3], c, -mc[1]))};
         sum[0] += p[0] + p[1];
         sum[1] += p[2] + p[3];
-        if constexpr (DROP) {  // keys k, k + 1 of rows q, q + 8
+        if constexpr (DROP == DROP_EACH) {  // keys k, k + 1 of rows q, q + 8
           const int k = kt * BN + 8 * j + 2 * quad;
           p[0] = drows.drop(p[0], 0, k);
           p[1] = drows.drop(p[1], 0, k + 1);
           p[2] = drows.drop(p[2], 1, k);
           p[3] = drows.drop(p[3], 1, k + 1);
+        } else if constexpr (SHARED) {
+          p[0] = hs::drop_bit(p[0], bits[0], 2 * j, dropout.drop_scale);
+          p[1] = hs::drop_bit(p[1], bits[0], 2 * j + 1, dropout.drop_scale);
+          p[2] = hs::drop_bit(p[2], bits[1], 2 * j, dropout.drop_scale);
+          p[3] = hs::drop_bit(p[3], bits[1], 2 * j + 1, dropout.drop_scale);
         }
         a_halves(p[0], p[1], p[2], p[3], ph[j], pl[j]);
       }
@@ -1171,13 +1351,13 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
       }
     }
     // epilogue: out = O / l, lse = m * scale + log(l); rows past N_q not written
-    const int row0 = q0 + wgi * 64 + (t / 32) * 16 + lane / 4;
+    const int row0 = q0 + brow;
 #pragma unroll
     for (int h = 0; h < 2; ++h) {
       const int row = row0 + 8 * h;
       if (row >= Nq) continue;
       const int at = bh * Nq + row;
-      if (!DROP && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      if (DROP == DROP_NONE && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
       float* orow = out + at * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -1579,8 +1759,8 @@ cudaError_t split_images(const void* x, unsigned char* rows, unsigned char* cols
 }
 
 // The fp32 forward: the K/V pre-pass into `img` (4 x BH x N_k x D floats, the
-// caller's scratch), then the 3xTF32 kernel (DROP: its dropout variant).
-template <int D, bool DROP = false>
+// caller's scratch), then the 3xTF32 kernel (DROP: its dropout instances).
+template <int D, int DROP = DROP_NONE>
 int fwd_tf32x3(const void* q, const void* k, const void* v, void* out, void* lse, void* img,
                int bh, int nq, int nk, float scale, cudaStream_t s, const Dropout& drop = {}) {
   using L = tf::Layout<D>;
@@ -1603,7 +1783,7 @@ int fwd_tf32x3(const void* q, const void* k, const void* v, void* out, void* lse
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D, bool DROP = false>
+template <int D, int DROP = DROP_NONE>
 int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse, int bh, int nq,
               int nk, float scale, cudaStream_t s, const Dropout& drop = {}) {
   CUtensorMap maps[3];
@@ -1620,6 +1800,32 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
       maps[0], maps[1], maps[2], static_cast<bf16*>(out), static_cast<float*>(lse), nq, nk, scale,
       drop);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The head-shared dropout forward (DROP_SHARED) at key tile BN: for each slab
+// of `slab` rows (of B = bh / local_heads), the pre-pass draws the slab's
+// keep bits into `bits`, then the forward runs on the slab's rows (its
+// operands' rows b0 .., element size `elem`); `forward(q, k, v, out, bh,
+// drop)` launches one.
+template <int BN, typename Forward>
+int fwd_shared(Dropout drop, uint32_t* bits, int slab, const char* q, const char* k,
+               const char* v, char* out, int elem, int d, int bh, int nq, int nk, cudaStream_t s,
+               Forward&& forward) {
+  const int rows = bh / drop.local_heads, groups = drop.local_heads / drop.group;
+  const int chunks = 4 * hs::row_words<BN>(nk), per_block = hs::DRAW_THREADS * hs::DRAW_CHUNKS;
+  drop.bits = bits;
+  for (int b0 = 0; b0 < rows; b0 += slab) {
+    const int nb = rows - b0 < slab ? rows - b0 : slab;
+    hs::draw_bits<BN><<<dim3((chunks + per_block - 1) / per_block, nq, nb * groups),
+                        hs::DRAW_THREADS, 0, s>>>(drop, bits, b0, nq, nk);
+    const cudaError_t e = cudaGetLastError();
+    if (e != cudaSuccess) return static_cast<int>(e);
+    const size_t at = static_cast<size_t>(b0) * drop.local_heads * d * elem;
+    const int rc = forward(q + at * nq, k + at * nk, v + at * nk, out + at * nq,
+                           nb * drop.local_heads, drop);
+    if (rc != 0) return rc;
+  }
+  return 0;
 }
 
 // The four operand maps of a bf16 backward kernel: q, k, v, dout, each with
@@ -1738,35 +1944,78 @@ extern "C" int flash_fwd_launch(int is_bf16, int d, const void* q, const void* k
   return BAD_ARGUMENT;
 }
 
-// The forward with attention-weight dropout (the DROP kernels; Dropout
+// The forward with attention-weight dropout (the DROP instances; Dropout
 // above): out only, no lse.  seed: one int64 on the device; base >= 0; the
 // BH = B x local_heads rows hold B / rows passes from pass0, pass-major;
 // heads h0 .. h0 + local_heads - 1 of `heads`.  keep_prob = float32(1 - p),
-// drop_scale = float32(1 / (1 - p)).  fp32 takes `scratch` as the forward.
+// drop_scale = float32(1 / (1 - p)).  group 1: DROP_EACH; 2 or 4: DROP_SHARED
+// (one Philox call for `group` heads), which needs heads and base multiples
+// of 4 and h0, local_heads multiples of the group, and takes `bits`
+// (bits_words uint32 words: the pre-pass's output for as many rows b at a
+// time as it holds, one at least).  fp32 takes `scratch` as the forward.
 extern "C" int flash_fwd_dropout_launch(int is_bf16, int d, const void* q, const void* k,
-                                        const void* v, void* out, void* scratch, int bh, int nq,
-                                        int nk, float scale, const void* seed, long long base,
+                                        const void* v, void* out, void* scratch, void* bits,
+                                        long long bits_words, int bh, int nq, int nk,
+                                        float scale, const void* seed, long long base,
                                         long long pass0, int rows, int heads, int h0,
                                         int local_heads, float keep_prob, float drop_scale,
-                                        void* stream) {
+                                        int group, void* stream) {
   if (base < 0 || rows < 1 || local_heads < 1 || h0 < 0 || h0 + local_heads > heads ||
       static_cast<long long>(nk) * heads >= (1LL << 32) || bh % local_heads ||
       (bh / local_heads) % rows || pass0 < 0 ||
-      pass0 + (bh / local_heads) / rows > (1LL << 32))
+      pass0 + (bh / local_heads) / rows > (1LL << 32) || !(keep_prob > 0.0f) ||
+      (d != 64 && d != 128))
+    return BAD_ARGUMENT;
+  if (group != 1 && ((group != 2 && group != 4) || heads % 4 || base % 4 || h0 % group ||
+                     local_heads % group))
     return BAD_ARGUMENT;
   const Dropout drop{static_cast<const long long*>(seed), static_cast<unsigned long long>(base),
                      static_cast<unsigned>(pass0), rows, heads, h0, local_heads, keep_prob,
-                     drop_scale};
+                     drop_scale, philox::keep_threshold(keep_prob), group, nullptr};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (is_bf16 && d == 128)
-    return fwd_wgmma<128, true>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
-  if (is_bf16 && d == 64)
-    return fwd_wgmma<64, true>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
-  if (!is_bf16 && d == 128)
-    return fwd_tf32x3<128, true>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s, drop);
-  if (!is_bf16 && d == 64)
-    return fwd_tf32x3<64, true>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s, drop);
-  return BAD_ARGUMENT;
+  if (group == 1) {
+    if (is_bf16 && d == 128)
+      return fwd_wgmma<128, DROP_EACH>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
+    if (is_bf16 && d == 64)
+      return fwd_wgmma<64, DROP_EACH>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
+    if (!is_bf16 && d == 128)
+      return fwd_tf32x3<128, DROP_EACH>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s,
+                                        drop);
+    return fwd_tf32x3<64, DROP_EACH>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s, drop);
+  }
+  const int bn = is_bf16 ? wg::BN : (d == 128 ? tf::Layout<128>::BN : tf::Layout<64>::BN);
+  const long long row_bits = static_cast<long long>(local_heads) * nq * ((nk + bn - 1) / bn) *
+                             (bn / 32);
+  const long long slab = bits_words / row_bits;
+  if (slab < 1) return BAD_ARGUMENT;
+  const int slab_rows = static_cast<int>(slab < bh / local_heads ? slab : bh / local_heads);
+  uint32_t* words = static_cast<uint32_t*>(bits);
+  const char *qc = static_cast<const char*>(q), *kc = static_cast<const char*>(k),
+             *vc = static_cast<const char*>(v);
+  char* oc = static_cast<char*>(out);
+  if (is_bf16) {
+    const auto fwd = [&](const char* qs, const char* ks, const char* vs, char* os, int sbh,
+                         const Dropout& dr) {
+      return d == 128 ? fwd_wgmma<128, DROP_SHARED>(qs, ks, vs, os, nullptr, sbh, nq, nk, scale,
+                                                    s, dr)
+                      : fwd_wgmma<64, DROP_SHARED>(qs, ks, vs, os, nullptr, sbh, nq, nk, scale,
+                                                   s, dr);
+    };
+    return fwd_shared<wg::BN>(drop, words, slab_rows, qc, kc, vc, oc, 2, d, bh, nq, nk, s, fwd);
+  }
+  if (d == 128)
+    return fwd_shared<tf::Layout<128>::BN>(
+        drop, words, slab_rows, qc, kc, vc, oc, 4, d, bh, nq, nk, s,
+        [&](const char* qs, const char* ks, const char* vs, char* os, int sbh, const Dropout& dr) {
+          return fwd_tf32x3<128, DROP_SHARED>(qs, ks, vs, os, nullptr, scratch, sbh, nq, nk,
+                                              scale, s, dr);
+        });
+  return fwd_shared<tf::Layout<64>::BN>(
+      drop, words, slab_rows, qc, kc, vc, oc, 4, d, bh, nq, nk, s,
+      [&](const char* qs, const char* ks, const char* vs, char* os, int sbh, const Dropout& dr) {
+        return fwd_tf32x3<64, DROP_SHARED>(qs, ks, vs, os, nullptr, scratch, sbh, nq, nk, scale,
+                                           s, dr);
+      });
 }
 
 // Dynamic shared memory of a wgmma kernel (0 bf16 forward, 1 dQ, 2 dK/dV, 3

@@ -32,10 +32,16 @@ The forward with attention-weight dropout (:func:`flash_attention_dropout`,
 the MC route of ``models/transformer.py`` on a seed stream) replaces what XLA
 lowers for JAX's materialized-weights route (``dmf_tpu/models/transformer.py``
 :45-49): softmax(Q K^T scale), dropped with the seed route's keep mask
-(``ops/dropout.py``) and scaled by 1/(1-p), times V, in the dropout variants
-of both forward kernels, which draw each weight's keep bit in registers and
-write no mask.  Its plain version, :func:`flash_attention_dropout_ref`, is
-that weights route as one function, bit for bit.
+(``ops/dropout.py``) and scaled by 1/(1-p), times V, in the dropout instances
+of both forward kernels, which write no mask.  Where one Philox call holds
+the bits of several heads (:func:`dropout_group`: H and the counter base
+multiples of 4, the served ``hybrid-nb`` sites) the head-shared instance
+runs: a pre-pass makes one call for the G heads and writes their keep bits
+(1/8 byte a weight, a slab of rows at a time into a scratch tensor of at
+most ``DROP_BITS_BYTES``) and the forward reads them; every other shape
+takes the per-element instance, which draws one call a weight inside the
+forward.  Its plain version, :func:`flash_attention_dropout_ref`, is that
+weights route as one function, bit for bit.
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ _SOURCES = ("flash_attention.cu",)
 # the kernels' tile (rows of queries or keys); N must be a multiple of it
 TILE = 64
 HEAD_DIMS = (64, 128)
+# the head-shared dropout instance's scratch of keep bits: at most this many
+# bytes (a slab of rows b at a time), one row b at least
+DROP_BITS_BYTES = 32 << 20
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -108,8 +117,8 @@ def _library() -> ctypes.CDLL:
     lib.flash_bwd_dq_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
     lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 9 + [i, i, i, f, p]
     ll = ctypes.c_longlong
-    lib.flash_fwd_dropout_launch.argtypes = ([i, i] + [p] * 5 + [i, i, i, f, p, ll, ll]
-                                             + [i] * 4 + [f, f, p])
+    lib.flash_fwd_dropout_launch.argtypes = ([i, i] + [p] * 6 + [ll, i, i, i, f, p, ll, ll]
+                                             + [i] * 4 + [f, f, i, p])
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch,
                lib.flash_fwd_dropout_launch):
         fn.restype = ctypes.c_int
@@ -198,12 +207,46 @@ def _check_dropout(q: torch.Tensor, p: float, seed: torch.Tensor, first_pass: in
         raise ValueError(f"flash_attention_dropout: heads {h0}..{h0 + H - 1} outside {heads}")
 
 
+def dropout_group(heads: int, h0: int, local_heads: int, base: int) -> int:
+    """The heads G whose keep bits one Philox call of the forward's dropout
+    holds, for a call of heads ``h0 .. h0 + local_heads - 1`` of ``heads``
+    at counter ``base``: the call's four words are heads 4m .. 4m + 3 of one
+    weight when ``heads`` and ``base`` are multiples of 4, so one call
+    serves 4 of the call's heads (or 2, on a 2-way head shard): the
+    head-shared instance.  1 (the per-element instance) for every other
+    shape."""
+    if heads % 4 or base % 4:
+        return 1
+    for g in (4, 2):
+        if h0 % g == 0 and local_heads % g == 0:
+            return g
+    return 1
+
+
+def dropout_key_tile(dtype: torch.dtype, d: int) -> int:
+    """Keys a tile of the forward kernel that runs ``dtype`` at head width
+    ``d`` (bf16 128; 3xTF32 32 at D=128, 64 at D=64): the head-shared
+    instance's bits of a row are N_k rounded up to it, BN / 32 words a tile."""
+    return 128 if dtype == torch.bfloat16 else 32768 // (8 * d)
+
+
+def dropout_bits_words(dtype: torch.dtype, d: int, local_heads: int, nq: int, nk: int) -> int:
+    """32-bit words of the head-shared instance's keep bits of one row b:
+    ``local_heads`` x N_q rows of N_k bits rounded up to the key tile."""
+    bn = dropout_key_tile(dtype, d)
+    return local_heads * nq * -(-nk // bn) * (bn // 32)
+
+
 def launch_flash_forward_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  scale: float, p: float, seed: torch.Tensor, base: int,
                                  first_pass: int, passes: int, heads: int,
-                                 h0: int) -> torch.Tensor:
-    """Launch the forward's dropout variant on contiguous (B, H_local, N, D)
-    CUDA tensors: ``out`` (no lse).  fp32 takes the forward's scratch."""
+                                 h0: int, group: int) -> torch.Tensor:
+    """Launch the forward's dropout instance ``group`` on contiguous (B,
+    H_local, N, D) CUDA tensors: ``out`` (no lse).  ``group``: 1 the
+    per-element instance, 2 or 4 the head-shared one (:func:`dropout_group`
+    gives the served choice; the library raises on a group the shape does
+    not allow).  fp32 takes the forward's scratch; the head-shared instance
+    its keep bits, at most ``DROP_BITS_BYTES`` a slab of rows."""
     if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
         raise ValueError("flash_attention_dropout: need (B, H, N, D) tensors")
     if any(not t.is_contiguous() for t in (q, k, v)):
@@ -216,12 +259,18 @@ def launch_flash_forward_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tens
     _check_operands(q3, k3, v3)
     out = torch.empty_like(q)
     scratch = _scratch(k3, 4)
+    words = 0
+    if group > 1:
+        row = dropout_bits_words(q.dtype, d, H, nq, k.shape[2])
+        words = row * max(1, min(B, DROP_BITS_BYTES // (4 * row)))
+    bits = torch.empty(words, device=q.device, dtype=torch.int32)
     with torch.cuda.device(q.device):
         stream = torch.cuda.current_stream(q.device).cuda_stream
         rc = _library().flash_fwd_dropout_launch(
             int(q.dtype == torch.bfloat16), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), B * H, nq, k.shape[2], scale, seed.data_ptr(),
-            base, first_pass, B // passes, heads, h0, H, 1.0 - p, 1.0 / (1.0 - p), stream)
+            out.data_ptr(), scratch.data_ptr(), bits.data_ptr(), words, B * H, nq, k.shape[2],
+            scale, seed.data_ptr(), base, first_pass, B // passes, heads, h0, H, 1.0 - p,
+            1.0 / (1.0 - p), group, stream)
     if rc != 0:
         raise RuntimeError(f"flash_attention_dropout: launch failed (CUDA error {rc})")
     return out
@@ -236,8 +285,9 @@ def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p
     weights would, and this call's heads are ``h0 ..`` of the ``heads`` (a
     model-axis shard).  Through the ``flash_forward_dropout`` operator
     (``ops/library.py``): the dropout kernels for CUDA tensors (counted in
-    ``flash_attention_dropout.launches``; they raise on what they do not
-    take), :func:`flash_attention_dropout_ref` for CPU ones.  The kernels
+    ``flash_attention_dropout.launches``, and by instance in
+    ``launches_shared`` and ``launches_each``; they raise on what they do
+    not take), :func:`flash_attention_dropout_ref` for CPU ones.  The kernels
     have no backward, so on the card a call that autograd would record
     raises; on the CPU such a call takes the plain version directly."""
     from .prepared import check_no_grad, records_grad
@@ -255,6 +305,8 @@ def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p
 
 
 flash_attention_dropout.launches = 0
+flash_attention_dropout.launches_shared = 0  # the head-shared instance
+flash_attention_dropout.launches_each = 0  # the per-element instance
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -20,6 +20,12 @@ operator                   CUDA implementation                                 k
 ``dynamic_quantize``       ``quant_cuda.launch_dynamic_quantize``              int8 quantize
 =========================  ==================================================  =============
 
+``flash_forward_dropout`` has two instances, chosen by the shape
+(``flash_attention.dropout_group``, once a call): the head-shared one (a
+pre-pass makes one Philox call for the heads whose bits it holds, counted
+in ``flash_attention_dropout.launches_shared``) and the per-element one
+(``launches_each``); ``launches`` counts both.
+
 The last three are the int8 serving path's kernels (``ops/quant.py``),
 which replace no Pallas kernel: XLA lowers JAX's int8 conv and quantize.
 ``flash_forward_dropout`` (the forward kernels' dropout variants, the MC
@@ -27,8 +33,11 @@ attention of the seed route) replaces none either: XLA lowers JAX's
 materialized-weights route.
 
 The products among them carry FLOP formulas for
-``torch.utils.flop_counter.FlopCounterMode`` (registered on the operator
-packets here, so a count over a call that reaches the kernels sees them):
+``torch.utils.flop_counter.FlopCounterMode``, registered on the operator
+packets by :func:`register_flop_formulas` (once, on the first count: on a
+card's machine ``torch.utils.flop_counter`` imports ``triton``, which the
+operators themselves never need), so a count over a call that reaches the
+kernels sees them:
 ``conv3x3_bn_gelu`` 2 N H W Cout 9 Cin, ``flash_forward`` 4 BH Nq Nk D (and
 ``flash_forward_dropout`` 4 B H Nq Nk D),
 ``int8_conv`` twice its multiply-adds.  The others do elementwise work,
@@ -62,7 +71,6 @@ from __future__ import annotations
 from typing import Optional
 
 import torch
-from torch.utils.flop_counter import register_flop_formula
 
 from . import (conv3x3, dropout, epilogue, epilogue_cuda, flash_attention, quant, quant_cuda,
                se, se_cuda)
@@ -93,7 +101,9 @@ _LIB.define("dynamic_quantize(Tensor x) -> (Tensor, Tensor)")
 
 
 def launch_counts() -> dict:
-    """The kernel launches counted so far, by operator."""
+    """The kernel launches counted so far, by operator (the dropout
+    forward's by instance: ``flash_attention_dropout.launches_shared`` and
+    ``launches_each``)."""
     return {"se_epilogue": epilogue.se_epilogue.launches,
             "keep_mask": dropout.keep_mask.launches,
             "conv3x3_bn_gelu": conv3x3.conv3x3_bn_gelu.launches,
@@ -112,6 +122,8 @@ def reset_launch_counts() -> None:
                flash_attention.flash_attention_dropout, quant.int8_conv, quant.quantize,
                quant.dynamic_quantize):
         fn.launches = 0
+    flash_attention.flash_attention_dropout.launches_shared = 0
+    flash_attention.flash_attention_dropout.launches_each = 0
 
 
 def _map_format(x: torch.Tensor) -> torch.memory_format:
@@ -232,9 +244,15 @@ def _flash_fake(q, k, v, scale):
 # ------------------------------------------------- flash_forward_dropout
 def _flash_dropout_cuda(q, k, v, scale: float, p: float, seed, base: int, first_pass: int,
                         passes: int, heads: int, h0: int):
+    group = flash_attention.dropout_group(heads, h0, q.shape[1], base)
     out = flash_attention.launch_flash_forward_dropout(q, k, v, scale, p, seed, base,
-                                                       first_pass, passes, heads, h0)
-    flash_attention.flash_attention_dropout.launches += 1
+                                                       first_pass, passes, heads, h0, group)
+    fn = flash_attention.flash_attention_dropout
+    fn.launches += 1
+    if group > 1:
+        fn.launches_shared += 1
+    else:
+        fn.launches_each += 1
     return out
 
 
@@ -328,25 +346,41 @@ for _name, _cuda, _cpu, _fake in (
 
 
 # ------------------------------------------------------------ FLOP formulas
-@register_flop_formula(torch.ops.dmf.conv3x3_bn_gelu)
 def _conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
     n, cout, h, w = out_shape
     return 2 * n * h * w * cout * w_shape[1] * w_shape[2] * w_shape[3]
 
 
-@register_flop_formula(torch.ops.dmf.flash_forward)
 def _flash_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     bh, nq, d = q_shape
     return 4 * bh * nq * k_shape[1] * d
 
 
-@register_flop_formula(torch.ops.dmf.flash_forward_dropout)
 def _flash_dropout_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
     b, h, nq, d = q_shape
     return 4 * b * h * nq * k_shape[2] * d
 
 
-@register_flop_formula(torch.ops.dmf.int8_conv)
 def _int8_conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
     _, kh, kw, cin = w_shape  # OHWI
     return 2 * out_shape[0] * out_shape[1] * out_shape[2] * out_shape[3] * kh * kw * cin
+
+
+_FLOP_FORMULAS = (("conv3x3_bn_gelu", _conv_flop), ("flash_forward", _flash_flop),
+                  ("flash_forward_dropout", _flash_dropout_flop),
+                  ("int8_conv", _int8_conv_flop))
+_flop_formulas_registered = False
+
+
+def register_flop_formulas() -> None:
+    """Register the products' FLOP formulas with ``FlopCounterMode``, once
+    (imported here and not at module import: ``torch.utils.flop_counter``
+    imports ``triton`` where it is installed)."""
+    global _flop_formulas_registered
+    if _flop_formulas_registered:
+        return
+    from torch.utils.flop_counter import register_flop_formula
+
+    for name, formula in _FLOP_FORMULAS:
+        register_flop_formula(getattr(torch.ops.dmf, name))(formula)
+    _flop_formulas_registered = True

@@ -303,7 +303,8 @@ def test_flash_dropout_kernels(dev, dtype, d, n, rows, first, passes, base, loca
     fa.flash_attention_dropout.launches = 0
     out = torch.ops.dmf.flash_forward_dropout(q, k, v, *args)
     assert fa.flash_attention_dropout.launches == 1
-    assert torch.equal(out, fa.launch_flash_forward_dropout(q, k, v, *args))
+    assert torch.equal(out, fa.launch_flash_forward_dropout(
+        q, k, v, *args, fa.dropout_group(4, h0, local, base)))
     _close(out, fa.flash_attention_dropout_ref(q.float(), k.float(), v.float(), *args), dtype)
 
 
@@ -323,8 +324,96 @@ def test_flash_dropout_keep_bits(dev, dtype):
         v = torch.zeros_like(q)
         v[:, :, w:w + d] = torch.eye(d, device=dev, dtype=dtype)
         out = fa.launch_flash_forward_dropout(q, q, v, d ** -0.5, 0.1, seed, base, first,
-                                              passes, 4, h0)
+                                              passes, 4, h0, fa.dropout_group(4, h0, 2, base))
         assert torch.equal(out != 0, keep[:, h0:h0 + 2, :, w:w + d])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("heads,local,h0,rows,first,passes,base", [
+    (4, 4, 0, 2, 0, 1, 0), (4, 4, 0, 1, 5, 2, 2 ** 33 + 4), (4, 2, 2, 2, 3, 1, 1000),
+    (4, 2, 0, 1, 0, 3, 8), (8, 8, 0, 1, 1, 2, 16), (8, 4, 4, 2, 0, 1, 4)])
+def test_flash_dropout_head_shared_is_per_element(dev, dtype, d, heads, local, h0, rows, first,
+                                                  passes, base):
+    """The head-shared instance (one Philox call for G = 4 heads, or 2 on a
+    2-way shard) bit-equal to the per-element instance on the same inputs
+    and counter base and to the operator's route, and within tolerance of
+    the plain version, on a ragged N_q (192: a half-full query block) and N_k
+    (320: a half-full bf16 key tile)."""
+    group = fa.dropout_group(heads, h0, local, base)
+    assert group in (2, 4)
+    g = torch.Generator(device=dev).manual_seed(7)
+    b = rows * passes
+    q = torch.randn(b, local, 192, d, device=dev, generator=g).to(dtype)
+    k, v = (torch.randn(b, local, 320, d, device=dev, generator=g).to(dtype) for _ in range(2))
+    seed = torch.tensor([(0x5EED << 32) | 11], device=dev)
+    args = (d ** -0.5, 0.1, seed, base, first, passes, heads, h0)
+    shared = fa.launch_flash_forward_dropout(q, k, v, *args, group)
+    assert torch.equal(shared, fa.launch_flash_forward_dropout(q, k, v, *args, 1))
+    assert torch.equal(shared, torch.ops.dmf.flash_forward_dropout(q, k, v, *args))
+    _close(shared, fa.flash_attention_dropout_ref(q.float(), k.float(), v.float(), *args), dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dropout_head_shared_slabs(dev, dtype, monkeypatch):
+    """The head-shared instance over rows b in slabs (its keep bits' scratch
+    capped at two rows here: slabs of 2, 2 and 1 of 5 rows, a pass each)
+    bit-equal to the per-element instance."""
+    d, n, passes = 64, 192, 5
+    g = torch.Generator(device=dev).manual_seed(9)
+    q, k, v = (torch.randn(passes, 4, n, d, device=dev, generator=g).to(dtype)
+               for _ in range(3))
+    seed = torch.tensor([(0x5EED << 32) | 13], device=dev)
+    args = (d ** -0.5, 0.1, seed, 8, 2, passes, 4, 0)
+    monkeypatch.setattr(fa, "DROP_BITS_BYTES",
+                        8 * fa.dropout_bits_words(dtype, d, 4, n, n))
+    assert torch.equal(fa.launch_flash_forward_dropout(q, k, v, *args, 4),
+                       fa.launch_flash_forward_dropout(q, k, v, *args, 1))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("local,h0,base", [(4, 0, 0), (4, 0, 2 ** 33 + 4), (2, 2, 1000),
+                                          (2, 0, 12)])
+def test_flash_dropout_head_shared_keep_bits(dev, dtype, local, h0, base):
+    """q = 0 and V one-hot over keys w .. w + 127 (phase 3i(b)'s windows):
+    the head-shared instance's mask, ``out != 0``, bit-equal to the
+    keep-mask kernel's mask of the whole (B, 4, N, N) weights, heads h0 .."""
+    from dmf_tpu_torch.ops import epilogue_cuda
+
+    n, d, passes, first = 512, 128, 2, 1
+    assert fa.dropout_group(4, h0, local, base) == (4 if local == 4 else 2)
+    seed = torch.tensor([78], device=dev)
+    q = torch.zeros(2 * passes, local, n, d, device=dev, dtype=dtype)
+    keep = epilogue_cuda.keep_mask(q.new_empty(()).expand(2 * passes, 4, n, n), 0.1, seed,
+                                   base, first, passes)
+    for w in (0, n - d):
+        v = torch.zeros_like(q)
+        v[:, :, w:w + d] = torch.eye(d, device=dev, dtype=dtype)
+        out = fa.launch_flash_forward_dropout(q, q, v, d ** -0.5, 0.1, seed, base, first,
+                                              passes, 4, h0, fa.dropout_group(4, h0, local, base))
+        assert torch.equal(out != 0, keep[:, h0:h0 + local, :, w:w + d])
+
+
+def test_flash_dropout_launches_by_instance(dev):
+    """The operator counts each launch in ``launches`` and in its instance's
+    count: the served shape (4 heads, base % 4 == 0) the head-shared one, a
+    base = 2 mod 4 the per-element one; a group the shape does not allow
+    raises."""
+    from dmf_tpu_torch.ops import library
+
+    q = torch.randn(2, 4, 128, 64, device=dev)
+    seed = torch.tensor([1], device=dev)
+    fn = fa.flash_attention_dropout
+    library.reset_launch_counts()
+    torch.ops.dmf.flash_forward_dropout(q, q, q, 0.125, 0.1, seed, 8, 0, 1, 4, 0)
+    torch.ops.dmf.flash_forward_dropout(q, q, q, 0.125, 0.1, seed, 8, 0, 1, 4, 0)
+    torch.ops.dmf.flash_forward_dropout(q, q, q, 0.125, 0.1, seed, 6, 0, 1, 4, 0)
+    torch.cuda.synchronize()
+    assert (fn.launches, fn.launches_shared, fn.launches_each) == (3, 2, 1)
+    library.reset_launch_counts()
+    assert (fn.launches, fn.launches_shared, fn.launches_each) == (0, 0, 0)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        fa.launch_flash_forward_dropout(q, q, q, 0.125, 0.1, seed, 6, 0, 1, 4, 0, 4)
 
 
 def test_flash_dropout_route_raises(dev):
@@ -334,17 +423,17 @@ def test_flash_dropout_route_raises(dev):
     seed = torch.tensor([1], device=dev)
     with pytest.raises(ValueError, match="contiguous"):
         fa.launch_flash_forward_dropout(q.transpose(2, 3).contiguous().transpose(2, 3), q, q,
-                                        0.125, 0.1, seed, 0, 0, 1, 2, 0)
+                                        0.125, 0.1, seed, 0, 0, 1, 2, 0, 1)
     with pytest.raises(ValueError, match="fp32 or bf16"):
         fa.launch_flash_forward_dropout(q.half(), q.half(), q.half(), 0.125, 0.1, seed, 0, 0, 1,
-                                        2, 0)
+                                        2, 0, 1)
     with pytest.raises(ValueError, match="multiple of 64"):
         r = torch.randn(2, 2, 100, 64, device=dev)
-        fa.launch_flash_forward_dropout(r, r, r, 0.125, 0.1, seed, 0, 0, 1, 2, 0)
+        fa.launch_flash_forward_dropout(r, r, r, 0.125, 0.1, seed, 0, 0, 1, 2, 0, 1)
     with pytest.raises(ValueError, match="outside"):
-        fa.launch_flash_forward_dropout(q, q, q, 0.125, 1.0, seed, 0, 0, 1, 2, 0)
+        fa.launch_flash_forward_dropout(q, q, q, 0.125, 1.0, seed, 0, 0, 1, 2, 0, 1)
     with pytest.raises(ValueError, match="seed"):
-        fa.launch_flash_forward_dropout(q, q, q, 0.125, 0.1, seed.cpu(), 0, 0, 1, 2, 0)
+        fa.launch_flash_forward_dropout(q, q, q, 0.125, 0.1, seed.cpu(), 0, 0, 1, 2, 0, 1)
     with pytest.raises(RuntimeError, match="no backward"):
         leaf = q.clone().requires_grad_()
         fa.flash_attention_dropout(leaf, q, q, 0.1, dropout_stream(seed))

@@ -247,3 +247,111 @@ def test_export_holds_the_operator():
              and "flash_forward_dropout" in str(n.target)]
     assert len(nodes) == 1
     assert torch.equal(got, want)
+
+
+# ------------------------------------------------ the head-shared instance
+@pytest.mark.parametrize("heads,h0,local_heads,base,group", [
+    (4, 0, 4, 0, 4),            # served: four heads, base 0
+    (4, 0, 4, 2 ** 33 + 4, 4),  # served: a base past 2^33
+    (4, 0, 2, 0, 2),            # a 2-way head shard, rank 0
+    (4, 2, 2, 0, 2),            # a 2-way head shard, rank 1
+    (4, 0, 4, 1000, 4),         # base 1000, a multiple of 4
+    (4, 0, 4, 2 ** 32 - 2, 1),  # base = 2 mod 4: the per-element instance
+    (4, 2, 2, 2 ** 32 - 2, 1),
+    (2, 0, 2, 0, 1),            # H = 2: a call holds two keys of two heads
+    (8, 0, 8, 0, 4),            # H = 8: two calls a weight's (q, k)
+    (8, 4, 4, 16, 4),           # the second half of 8 heads
+    (12, 2, 2, 8, 2),           # 12 heads, a 2-head shard at h0 = 2
+    (4, 1, 2, 0, 1)])           # a shard that splits a call's heads unevenly
+def test_instance_rule(heads, h0, local_heads, base, group):
+    """Which instance the dropout forward takes: the head-shared one (G = 4,
+    or 2 on a 2-way head shard) where H and the counter base are multiples of
+    4 and the call's heads are whole groups of G, the per-element one (G = 1)
+    for every other shape."""
+    assert flash_attention.dropout_group(heads, h0, local_heads, base) == group
+
+
+@pytest.mark.parametrize("dtype,d,nk,tile,words", [
+    (torch.bfloat16, 128, 4096, 128, 128),  # the served rows: 4 words a tile of 128 keys
+    (torch.bfloat16, 64, 320, 128, 12),     # a half-full last tile counts whole
+    (torch.float32, 128, 4096, 32, 128),    # 3xTF32 at D=128: one word a 32-key tile
+    (torch.float32, 64, 192, 64, 6)])       # 3xTF32 at D=64: two words a 64-key tile
+def test_bits_rows_follow_the_key_tile(dtype, d, nk, tile, words):
+    """The head-shared instance's keep bits of a row b: heads x N_q rows of
+    N_k bits rounded up to the forward's key tile."""
+    assert flash_attention.dropout_key_tile(dtype, d) == tile
+    assert flash_attention.dropout_bits_words(dtype, d, 4, 192, nk) == 4 * 192 * words
+
+
+def _head_shared_replay(q_shape, nk, heads, h0, base, first_pass, passes, seed, bn, group):
+    """The head-shared instance's keep bits as its consumer threads read them,
+    replayed on the CPU: the pre-pass, for each row b, group of ``group``
+    heads and query q, draws the Philox calls of each key tile of ``bn``
+    keys in chunks of 8 calls (the kernel's counters, byte g of a chunk head
+    g's 8 bits), four chunks make a word of each head's bits, N_k rounded up
+    to the tile; the consumer of quad ``quad`` reads its ``bn / 4`` bits of a
+    tile at ``quad * bn / 4`` and keeps key ``8 j + 2 quad + e`` on bit ``2 j
+    + e``.  Returns the (B, H_local, N_q, N_k) mask."""
+    B, local, nq = q_shape
+    rows, hq, words_tile, chunks_tile = B // passes, heads // 4, bn // 32, bn // 8
+    nkt = -(-nk // bn)
+    thr = dropout.keep_threshold(P) * 256 - 1
+    s = int(seed)
+    keys = (torch.tensor(s & 0xFFFFFFFF), torch.tensor((s >> 32) & 0xFFFFFFFF))
+    keep = torch.zeros(B, local, nq, nk, dtype=torch.bool)
+    # the pre-pass's chunks of one query row: (key tile, chunk) -> counter offset
+    i = torch.arange(nkt * chunks_tile)
+    kt, c = i // chunks_tile, i % chunks_tile
+    cq, j0 = c // (chunks_tile // 4), 4 * (c % (chunks_tile // 4))
+    # the consumers' fragment: (key tile, quad, j, e) -> bit position and key
+    tq, quad, j, e = torch.meshgrid(torch.arange(nkt), torch.arange(4),
+                                    torch.arange(bn // 8), torch.arange(2), indexing="ij")
+    first = quad * (bn // 4)  # the thread's first bit position in its tile
+    key = tq * bn + 8 * j + 2 * quad + e
+    ok = key < nk
+    qs = torch.arange(nq)[:, None]
+    for b in range(B):
+        pass_word = torch.tensor(first_pass + b // rows)
+        for gi in range(local // group):
+            h_first = h0 + gi * group
+            at = base // 4 + ((b % rows) * nq + qs) * nk * hq + h_first // 4
+            call = at + (kt * bn + 8 * j0 + 2 * cq) * hq  # (N_q, chunks)
+            x = torch.zeros(nq, len(i), 4, dtype=torch.int64)
+            for bit in range(8):
+                n = call + (8 * (bit // 2) + bit % 2) * hq
+                words = dropout.philox4x32(n & 0xFFFFFFFF, n >> 32, pass_word.expand_as(n),
+                                           torch.zeros_like(n), *keys)
+                for g in range(4):
+                    x[..., g] |= (words[g] <= thr).long() << bit
+            for g in range(group):
+                sel = (h_first % 4 + g) & 3
+                row = torch.zeros(nq, nkt * words_tile, dtype=torch.int64)
+                row.index_add_(1, i // 4, x[..., sel] << (8 * (i % 4)))
+                bits = row[:, tq * words_tile + first // 32] >> (first % 32)
+                kept = ((bits >> (2 * j + e)) & 1).bool()
+                keep[b, gi * group + g][:, key[ok]] = kept[:, ok]
+    return keep
+
+
+@pytest.mark.parametrize("heads,h0,local_heads,base,first_pass,passes,bn", [
+    (4, 0, 4, 0, 0, 1, 128),            # bf16's key tile, the served call
+    (4, 0, 4, 2 ** 33 + 4, 5, 2, 32),   # fp32 D=128's tile, pass words 5, 6
+    (4, 2, 2, 1000, 3, 1, 64),          # fp32 D=64's tile, a shard at h0 = 2
+    (8, 4, 4, 16, 0, 2, 128)])          # 8 heads, the second group
+def test_head_shared_layout_gives_the_seed_route_bits(heads, h0, local_heads, base,
+                                                      first_pass, passes, bn):
+    """The head-shared instance's counters, word transposition and bit
+    layout (its pre-pass's and its consumers'), replayed, give each consumer
+    thread the keep bits of the seed route's mask of the whole (B, H, N_q,
+    N_k) weights (``keep_mask_plain``, heads ``h0 ..``), on a ragged N_q and
+    N_k (a half-full query block and key tile): the bits the per-element
+    instance draws one call a weight."""
+    group = flash_attention.dropout_group(heads, h0, local_heads, base)
+    assert group > 1
+    B, nq, nk = 2 * passes, 192, 2 * bn + 64 if bn == 128 else 3 * bn
+    seed = torch.tensor(SEED)
+    got = _head_shared_replay((B, local_heads, nq), nk, heads, h0, base, first_pass, passes,
+                              SEED, bn, group)
+    want = dropout.keep_mask_plain((B, heads, nq, nk), P, seed, base, first_pass,
+                                   passes).narrow(1, h0, local_heads)
+    assert torch.equal(got, want)
