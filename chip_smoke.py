@@ -38,8 +38,19 @@ Phases, each printing its own lines:
      it), and 3i(b) its keep bits (q = 0 and V
      one-hot over the first and the last 128-key window: ``out != 0`` is the
      mask) bit-equal to the keep-mask kernel's at pass words, counter bases
-     and a head shard's h0, on each instance, with, for the wgmma kernels (3b,
-     3c, 3d, 3i), the kernel's own device
+     and a head shard's h0, on each instance, 3j the dQ and dK/dV kernels'
+     dropout instances (the training route's attention dropout; their
+     pre-pass redraws the keep bits, query-major for dQ, key-major for
+     dK/dV) on the dropout forward's out and lse at (8, 4, 4096, 128 | 64),
+     bf16 against their plain versions, fp32 against a float64 backward of
+     the weights route on the keep-mask kernel's mask, two calls bit-equal,
+     3j(b) their keep bits
+     (q = 0, delta = 0: dQ with K one-hot over a 128-key window, dV with dO
+     one-hot over a 128-query window) bit-equal to the keep-mask kernel's on
+     both pre-passes, and timed at the training shape (32, 4, 4096, 128)
+     beside the p = 0 pair in turns, SDPA's backward with ``dropout_p``, the
+     tensor bound and each pre-pass's integer floor, with, for the wgmma
+     kernels (3b, 3c, 3d, 3i, 3j), the kernel's own device
      time per call (profiler; fp32 flash: its pre-pass included), its TFLOP/s
      and share of the bound, and the kernel timed in turns with its library
      yardstick (SDPA in fp32 with TF32 off for the fp32 flash kernels) and
@@ -61,7 +72,11 @@ Phases, each printing its own lines:
      and in fp32 (the backward kernels' path: 6 launches of dQ and of dK/dV
      a backward), its gradients against an fp32 copy on the plain route at
      B=2 and its backward timed at B=8 (CUDA events, peak memory, one
-     profiled backward with the flash backward kernels' share);
+     profiled backward with the flash backward kernels' share), then in
+     train mode (attention dropout on, the projection and MLP dropouts off,
+     one fixed seed a site on both devices) at B=1 in bf16 and fp32 against
+     the CPU's plain versions (each site's keep mask from the keep-mask
+     kernel), 6 launches each of the dropout forward, dQ and dK/dV;
   4. end-to-end parity, card (kernels) vs CPU (plain versions), fp32,
      seeded random weights at full width: 4 the default ResNet-50 models in
      ``tta`` at B=2, 4b the hybrid-transformer no-backbone models
@@ -170,8 +185,8 @@ Phases, each printing its own lines:
      the profiler's kernel names); then one fresh process that imports
      ``torch`` and ``dmf_tpu_torch.ops.library`` and nothing else of the
      package serves each artifact and phase 8's CLI artifact (the fold's
-     weights read from its ``best.pt`` with torch alone) 5 requests (seeds
-     7, 7, 8, 9, 10): load seconds, CUDA-event ms, launches equal to 5x the
+     weights read from its ``best.pt`` with torch alone) 3 requests (seeds
+     7, 7, 8): load seconds, CUDA-event ms, launches equal to 3x the
      nodes, probabilities finite and summing to 1, ``tta_mc`` bit-equal for
      one seed and not for two with std > 0, the deterministic artifacts
      within 1e-6 (fp32) or 2^-7 (bf16) of the eager seed-route predictor;
@@ -198,7 +213,7 @@ Phases, each printing its own lines:
      the profiler, and the static route a request (quantize + conv) against
      cuDNN's bf16 convs; 12c int8 (static scales), int8 with dynamic scales,
      fp and int8-prefix hybrid ``tta_mc`` requests of B=8 raw volumes in
-     turns on the same inputs and masks (5 each): median latency, argmax
+     turns on the same inputs and masks (3 each): median latency, argmax
      agreement, mean and std errors against fp, launches per request; 12d
      int8 ``tta`` at B=1 in fp32 with dynamic scales, card vs CPU; 12e ``test_fusion_model(int8=True,
      calibration_data=val)`` on phase 8's trained fold; 12f the int8
@@ -207,7 +222,7 @@ Phases, each printing its own lines:
   13. the data mesh (``parallel/mesh.py``, ``parallel/sharding.py``): two
      ranks pinned to the one card with gloo, each a process of its own
      (``python -m torch.distributed.run --nproc-per-node 2 chip_smoke.py
-     --mesh-rank OUT`` runs one rank): 13a three full-width fusion train
+     --mesh-rank OUT`` runs one rank): 13a two full-width fusion train
      steps at global B=32 (16 a rank), fp32, dropout 0, through
      ``make_spmd_step``, their losses and parameters against one process's
      steps at phase 7c's bound (over the larger of two floors: one process
@@ -287,6 +302,15 @@ Phases, each printing its own lines:
      sites taking the fused request's shapes, counter bases and passes in
      order, its mean and std within 3x the two attention routes'
      dropout-off floor of the fused route's;
+  17 (run after 7d) ``hybrid-nb`` training at full width on the training
+     route's dropout kernels (6 dropout forwards, dQ and dK/dV an encoder a
+     step, exactly): 17a ``bench --train --encoder hybrid-nb --batch 32`` in
+     process (bf16 compute on fp32 parameters), 17b ``run_single_model``
+     of a ``hybrid-nb`` DWI fold's stage at B=32 in fp32 (4 train steps,
+     validation, the ``tta_mc`` test at mc_chunk 1), 17c an fp32 fusion
+     train step at B=16 (B=32 does not fit the card), 17d the DWI train
+     step at B=4 on the flash route and on the weights route in turns:
+     steps/s or step ms and peak GiB;
   5c (run last) one default ``tta_mc`` request at bench.py's default B=128
      (all lean passes in one batch: kernel 1's maps pass 2^31 elements),
      with its peak memory.
@@ -301,7 +325,9 @@ import copy
 import dataclasses
 import functools
 import io
+import itertools
 import json
+import math
 import os
 import re
 import statistics
@@ -497,10 +523,10 @@ def device_rate(tag, fn, kernels, bound, flop=0, nbytes=0):
     with its TFLOP/s (``flop``) or GB/s (``nbytes``) and its share of the
     bound, and its host ms per call to enqueue them: ``(device, host)``.  A profiler session
     at times records only some of the kernels' launches, or none: it is taken
-    again, up to three sessions, and the time is None ("not measured") if
-    none records every one of ``kernels``; a device time of 0 is never
+    again, up to two sessions, and the time is None ("not measured") if
+    neither records every one of ``kernels``; a device time of 0 is never
     printed."""
-    for _ in range(3):
+    for _ in range(2):
         dev, host, each = launch_costs(fn, kernels)
         if all(t > 0 for t in each.values()):
             rate = (f"{flop / dev / 1e9:.1f} TFLOP/s" if flop
@@ -511,7 +537,7 @@ def device_rate(tag, fn, kernels, bound, flop=0, nbytes=0):
                 f"{100 * bound / dev:.1f} % of the bound; host {host:.4f} ms per call "
                 f"to enqueue")
             return dev, host
-    log(f"  {tag}: device time not measured (no profiler session of three recorded "
+    log(f"  {tag}: device time not measured (no profiler session of two recorded "
         f"every one of {'/'.join(kernels)}); host {host:.4f} ms per call to enqueue")
     return None, host
 
@@ -559,6 +585,9 @@ COUNTERS = {"se_epilogue": (k1, "se_epilogue", "launches"),
             "flash_attention_fwd_dropout": (fa, "flash_attention_dropout", "launches"),
             "flash_attention_bwd_dq": (fa, "flash_attention", "launches_dq"),
             "flash_attention_bwd_dkv": (fa, "flash_attention", "launches_dkv"),
+            # the backward's dropout instances (the training route's attention dropout)
+            "flash_attention_bwd_dq_dropout": (fa, "flash_attention_dropout", "launches_dq"),
+            "flash_attention_bwd_dkv_dropout": (fa, "flash_attention_dropout", "launches_dkv"),
             "se_scale": (sek, "se_scale", "launches"),
             "dwi_normalize": (dwi_norm, "dwi_normalize", "launches"),
             "histogram_percentiles": (hist, "histogram_percentiles", "launches"),
@@ -1388,7 +1417,7 @@ def flash_dropout_mask_bits(seed):
                     v[:, :, w:w + HEAD_DIM] = torch.eye(HEAD_DIM, device=DEV, dtype=dtype)
                     out = fa.launch_flash_forward_dropout(q, k, v, HEAD_DIM ** -0.5, ATTN_DROP,
                                                           seed, base, first, passes, HEADS, h0,
-                                                          g)
+                                                          g)[0]
                     want = keep[:, h0:h0 + local, :, w:w + HEAD_DIM]
                     tag = (f"3i(b) {str(dtype)[6:]} G={g} passes {first}..{first + passes - 1} "
                            f"base {base} heads {h0}..{h0 + local - 1} of {HEADS}, keys "
@@ -1475,7 +1504,7 @@ def phase_flash_dropout():
 
         def kernel(grp=group):
             return fa.launch_flash_forward_dropout(q, k, v, scale, ATTN_DROP, seed, base, first,
-                                                   passes, HEADS, 0, grp)
+                                                   passes, HEADS, 0, grp)[0]
 
         out = kernel()
         errs.append(check(f"3i {tag} head-shared (G={group}) out against the plain version on "
@@ -1550,6 +1579,229 @@ def phase_flash_dropout():
             "per_element_ms": served["per_element"]["ms"], "p0_ms": served["p0_ms"],
             "mask_windows": windows, "fp32": res[(torch.float32, HEAD_DIM, 8)],
             "d64": {str(dt)[6:]: res[(dt, 64, 8)] for dt in (torch.bfloat16, torch.float32)}}
+
+
+# ------------------------------------------------------------------ phase 3j
+# the backward's dropout instances: (dtype, D) held at (B_DROP_BWD, 4, 4096, D)
+# against a float64 backward, timed at (B_DROP_BWD_TIMED, 4, 4096, 128), the
+# training route's shape at the config's batch (32 volumes, 4 heads)
+B_DROP_BWD, B_DROP_BWD_TIMED = 8, 32
+DROP_BWD_CASES = ((torch.bfloat16, HEAD_DIM, 2 ** 33), (torch.float32, HEAD_DIM, 2 ** 33),
+                  (torch.bfloat16, 64, 0), (torch.float32, 64, 0))
+# the backward's dropout kernels as the profiler names them (the pre-pass
+# draw_bits, twice a step, and, fp32, the image pre-pass flash_split)
+DQ_DROP_KERNELS = {torch.bfloat16: ("draw_bits", "flash_bwd_dq_wgmma"),
+                   torch.float32: ("draw_bits", "flash_split", "flash_bwd_dq_tf32x3")}
+DKV_DROP_KERNELS = {torch.bfloat16: ("draw_bits", "flash_bwd_dkv_wgmma"),
+                    torch.float32: ("draw_bits", "flash_split", "flash_bwd_dkv_tf32x3")}
+
+
+def dropout_grads_f64(q, k, v, dout, keep, scale, pairs=4):
+    """``(dq, dk, dv)`` in float64 of softmax(Q K^T scale) * keep / (1 - p)
+    times V over (B, H, N, D), ``pairs`` (b, h) at a time (autograd through
+    the materialized weights); ``keep`` the (B, H, N, N) mask."""
+    B, H = q.shape[:2]
+    flat = [t.reshape(B * H, *t.shape[2:]) for t in (q, k, v, dout)]
+    keep = keep.reshape(B * H, *keep.shape[2:])
+    grads = [torch.empty(t.shape, device=DEV, dtype=torch.float64) for t in flat[:3]]
+    for i in range(0, B * H, pairs):
+        sl = slice(i, i + pairs)
+        leaves = [t[sl].double().requires_grad_() for t in flat[:3]]
+        w = torch.softmax(torch.einsum("bqd,bkd->bqk", leaves[0], leaves[1]) * scale, -1)
+        out = torch.where(keep[sl], w / (1.0 - ATTN_DROP), 0.0) @ leaves[2]
+        for r, gr in zip(grads, torch.autograd.grad(out, leaves, flat[3][sl].double())):
+            r[sl] = gr
+        del leaves, w, out
+    return [g.view(q.shape[0], H, *g.shape[1:]) for g in grads]
+
+
+def dropout_bwd_mask_bits(seed):
+    """3j(b): the backward kernels' keep bits against the keep-mask kernel's.
+    With q = 0, P = 1/N_k and lse = log N_k; with delta = 0, dS = P dP~ keep
+    / (1 - p).  dQ: K one-hot over a window of 128 keys (K[k, d] = 1 for k =
+    w + d) and dO, V both e_0 rows (dP~ = 1), so dQ[q, d] = scale keep(q, w +
+    d) / (N_k (1 - p)): ``dq != 0`` is the mask of the window.  dV: dO one-hot
+    over a window of 128 queries, so dV[k, d] = P~[w + d, k]: ``dv != 0`` is
+    the window's mask transposed (the dK/dV kernel's key-major bits).  First
+    and last window, bf16 and fp32, both pre-passes where the case allows
+    (G = 4 or 2, and one Philox call a weight).  Returns the windows."""
+    n = 0
+    for dtype in (torch.bfloat16, torch.float32):
+        for first, passes, base, local, h0 in MASK_CASES:
+            b = 2 * passes
+            zeros = torch.zeros(b, local, SEQ, HEAD_DIM, device=DEV, dtype=dtype)
+            e0 = zeros.clone()
+            e0[..., 0] = 1.0
+            rnd = torch.randn(b, local, SEQ, HEAD_DIM, device=DEV, generator=gen(33)).to(dtype)
+            lse = torch.full((b, local, SEQ), math.log(SEQ), device=DEV)
+            delta = torch.zeros_like(lse)
+            whole = zeros.new_empty(()).expand(b, HEADS, SEQ, SEQ)
+            keep = epilogue_cuda.keep_mask(whole, ATTN_DROP, seed, base, first, passes)
+            keep = keep[:, h0:h0 + local]
+            args = (HEAD_DIM ** -0.5, ATTN_DROP, seed, base, first, passes, HEADS, h0)
+            group = fa.dropout_group(HEADS, h0, local, base)
+            for g in sorted({1, group}):
+                for w in (0, SEQ - HEAD_DIM):
+                    hot = zeros.clone()
+                    hot[:, :, w:w + HEAD_DIM] = torch.eye(HEAD_DIM, device=DEV, dtype=dtype)
+                    dq = fa.launch_flash_bwd_dq_dropout(zeros, hot, e0, e0, lse, delta, *args, g)
+                    dv = fa.launch_flash_bwd_dkv_dropout(zeros, rnd, rnd, hot, lse, delta, *args,
+                                                         g)[1]
+                    tag = (f"3j(b) {str(dtype)[6:]} G={g} passes {first}..{first + passes - 1} "
+                           f"base {base} heads {h0}..{h0 + local - 1} of {HEADS}, window "
+                           f"{w}..{w + 127}")
+                    for name, got, want in (
+                            ("dQ", dq != 0, keep[..., w:w + HEAD_DIM]),
+                            ("dK/dV", dv != 0, keep[:, :, w:w + HEAD_DIM].transpose(2, 3))):
+                        if not torch.equal(got, want):
+                            raise AssertionError(f"{tag}: {name} kernel's keep bits differ from "
+                                                 f"the keep-mask kernel's in "
+                                                 f"{got.ne(want).sum().item()} places")
+                    n += 1
+            del zeros, e0, rnd, keep, hot, dq, dv
+    log(f"  3j(b): the dQ and dK/dV kernels' keep bits equal the keep-mask kernel's in {n} "
+        f"windows of {SEQ} x 128 weights x heads x rows each (first and last; pass words "
+        f"0..6; counter bases 0, 1000, 2^32 - 2, 2^33 + 4; whole heads and a 2-way shard), "
+        f"bf16 and fp32, the one-call-a-weight pre-pass on every case and the head-shared "
+        f"one on G = 4 and G = 2")
+    return n
+
+
+def phase_flash_dropout_backward():
+    """Phase 3j: the dQ and dK/dV kernels' dropout instances (the training
+    route's attention dropout) on the dropout forward's out and lse: bf16
+    against their plain versions on fp32 operands, fp32 against a float64
+    backward of the weights route on the same keep mask (the plain
+    versions' own error beside it), two calls bit-equal, their keep bits
+    (3j(b)); then timed at the training shape
+    beside the same kernels at p = 0, the plain version, SDPA's backward
+    with ``dropout_p`` (a yardstick, its own mask), the tensor bound and the
+    integer floor of the Philox calls each pre-pass makes."""
+    log(f"== phase 3j: flash backward with attention dropout {ATTN_DROP} (CUDA dQ, dK/dV "
+        f"dropout instances) at ({B_DROP_BWD}, {HEADS}, {SEQ}, {HEAD_DIM} | 64), bf16 vs "
+        f"the plain version and fp32 (3xTF32) vs a float64 backward; timed at "
+        f"({B_DROP_BWD_TIMED}, {HEADS}, {SEQ}, {HEAD_DIM})")
+    seed = torch.tensor([(0x5EED << 32) | 41], device=DEV)
+    g = gen(45)
+    errs = []
+    for dtype, d, base in DROP_BWD_CASES:
+        scale = d ** -0.5
+        b = B_DROP_BWD
+        q, k, v, dout = (torch.randn(b, HEADS, SEQ, d, device=DEV, generator=g).to(dtype)
+                         for _ in range(4))
+        args = (scale, ATTN_DROP, seed, base, 0, 1, HEADS, 0)
+        out, lse = fa.launch_flash_forward_dropout(q, k, v, *args, 4)
+        delta = fa.backward_delta(out, dout)
+
+        def kernels():
+            return (fa.launch_flash_bwd_dq_dropout(q, k, v, dout, lse, delta, *args, 4),
+                    *fa.launch_flash_bwd_dkv_dropout(q, k, v, dout, lse, delta, *args, 4))
+
+        got = kernels()
+        if not all(torch.equal(a, c) for a, c in zip(got, kernels())):
+            raise AssertionError(f"3j {dtype} D={d}: two calls differ")
+        whole = q.new_empty(()).expand(b, HEADS, SEQ, SEQ)
+        keep = epilogue_cuda.keep_mask(whole, ATTN_DROP, seed, base)
+        ref = dropout_grads_f64(q, k, v, dout, keep, scale)
+        # the plain versions on the same lse and delta, fp32 operands
+        qf, kf, vf, dof = (t.float() for t in (q, k, v, dout))
+        plain = (fa.flash_bwd_dq_dropout_ref(qf, kf, vf, dof, lse, delta, *args),
+                 *fa.flash_bwd_dkv_dropout_ref(qf, kf, vf, dof, lse, delta, *args))
+        tag = f"3j {str(dtype)[6:]} (B, H, N, D) = ({b}, {HEADS}, {SEQ}, {d}) base {base}"
+        for name, a, p_, r in zip(("dq", "dk", "dv"), got, plain, ref):
+            if dtype == torch.float32:  # fp32 against float64, as 3c-3d
+                errs.append(check_rel(f"{tag} kernel {name} against float64", a, r, dtype))
+                log(f"  {tag} plain version {name} against float64: max_abs_err "
+                    f"{(p_.double() - r).abs().max().item():.3e}")
+            else:
+                errs.append(check_rel(f"{tag} kernel {name} against the plain version", a, p_,
+                                      dtype))
+        log(f"  {tag}: two calls of each kernel give the same bits")
+        del q, k, v, dout, out, lse, delta, got, keep, ref, qf, kf, vf, dof, plain
+        torch.cuda.empty_cache()
+    windows = dropout_bwd_mask_bits(seed)
+    torch.cuda.empty_cache()
+    clock = sm_clock_mhz()
+    res = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        b, d = B_DROP_BWD_TIMED, HEAD_DIM
+        f32 = dtype == torch.float32
+        q, k, v, dout = (torch.randn(b, HEADS, SEQ, d, device=DEV, generator=g).to(dtype)
+                         for _ in range(4))
+        args = (d ** -0.5, ATTN_DROP, seed, 0, 0, 1, HEADS, 0)
+        out, lse = fa.launch_flash_forward_dropout(q, k, v, *args, 4)
+        delta = fa.backward_delta(out, dout)
+        q3, k3, v3, do3 = (t.view(b * HEADS, SEQ, d) for t in (q, k, v, dout))
+        out0, lse0 = fa.flash_forward(q3, k3, v3, args[0])
+        delta0 = fa.backward_delta(out0, do3)
+
+        def dq_call():
+            return fa.launch_flash_bwd_dq_dropout(q, k, v, dout, lse, delta, *args, 4)
+
+        def dkv_call():
+            return fa.launch_flash_bwd_dkv_dropout(q, k, v, dout, lse, delta, *args, 4)
+
+        def p0_pair():
+            return (fa.flash_bwd_dq(q3, k3, v3, do3, lse0.view(-1, SEQ), delta0, args[0]),
+                    fa.flash_bwd_dkv(q3, k3, v3, do3, lse0.view(-1, SEQ), delta0, args[0]))
+
+        t_dq = cuda_time(dq_call, reps=3, trials=3)
+        t_dkv = cuda_time(dkv_call, reps=3, trials=3)
+        t_pair, t_p0 = in_turns(lambda: (dq_call(), dkv_call()), p0_pair, reps=2, trials=3)
+        lib_leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+        lib_out = F.scaled_dot_product_attention(*lib_leaves, dropout_p=ATTN_DROP)
+
+        def sdpa_bwd():
+            return torch.autograd.grad(lib_out, lib_leaves, dout, retain_graph=True)
+
+        t_l = cuda_time(sdpa_bwd, reps=2, trials=3)
+        del lib_leaves, lib_out
+        (b_dq, f_dq), (b_dkv, f_dkv) = bwd_bounds(b * HEADS, d, q.element_size())
+        calls = sass.philox_calls(b * HEADS * SEQ * SEQ, 1, 0)
+        floor = sass.issue_floor_ms(calls, clock)
+        tag = f"{str(dtype)[6:]} ({b}, {HEADS}, {SEQ}, {d})"
+        log(f"  3j {tag}: dQ dropout {t_dq:.4f} ms ({f_dq / t_dq / 1e9:.1f} TFLOP/s), dK/dV "
+            f"dropout {t_dkv:.4f} ms ({f_dkv / t_dkv / 1e9:.1f} TFLOP/s) (median, pre-passes "
+            f"included); in turns the pair {t_pair:.4f} ms against the p = 0 pair "
+            f"{t_p0:.4f} ms (x{t_pair / t_p0:.3f}); SDPA backward with dropout_p={ATTN_DROP} "
+            f"(dq, dk, dv in one call, " + ("fp32, TF32 off" if f32 else "bf16") +
+            f") {t_l:.4f} ms; tensor bounds dQ {b_dq:.4f} / dK/dV {b_dkv:.4f} ms; integer "
+            f"floor of each pre-pass {floor:.4f} ms ({calls / 1e6:.0f}M Philox calls x "
+            f"{sass.PHILOX_CALL_INSTRUCTIONS} instructions at {clock:.0f} MHz)")
+        entry = {}
+        for name, fn, t_k, tensor, flop, names in (
+                ("dq", dq_call, t_dq, b_dq, f_dq, DQ_DROP_KERNELS[dtype]),
+                ("dkv", dkv_call, t_dkv, b_dkv, f_dkv, DKV_DROP_KERNELS[dtype])):
+            bound = max(tensor, floor)
+            dev, _ = device_rate(f"3j {tag} {name} dropout (pre-pass + kernel)", fn, names,
+                                 bound, flop=flop)
+            entry[name] = {"ms": t_k, "device_ms": dev, "bound_ms": bound,
+                           "bound_by": "operations", "tensor_bound_ms": tensor,
+                           "integer_bound_ms": floor, "library_ms": t_l,
+                           "p0_pair_ms": t_p0, "pair_ms": t_pair}
+        del q, k, v, dout, out, lse, delta, q3, k3, v3, do3, out0, lse0, delta0
+        torch.cuda.empty_cache()
+        # the plain version (fp32 formulas on the seed route's mask) at B_DROP_BWD
+        b = B_DROP_BWD
+        q, k, v, dout = (torch.randn(b, HEADS, SEQ, d, device=DEV, generator=g).to(dtype)
+                         for _ in range(4))
+        lse = fa.attention_lse(q, k, args[0])
+        delta = torch.zeros_like(lse)
+        entry["dq"]["plain_ms"] = cuda_time(lambda: fa.flash_bwd_dq_dropout_ref(
+            q, k, v, dout, lse, delta, *args), reps=1, trials=3)
+        entry["dkv"]["plain_ms"] = cuda_time(lambda: fa.flash_bwd_dkv_dropout_ref(
+            q, k, v, dout, lse, delta, *args), reps=1, trials=3)
+        for name in ("dq", "dkv"):
+            entry[name]["plain_shape"] = [b, HEADS, SEQ, d]
+        log(f"  3j {str(dtype)[6:]} plain version at ({b}, {HEADS}, {SEQ}, {d}): dQ "
+            f"{entry['dq']['plain_ms']:.3f} ms, dK/dV {entry['dkv']['plain_ms']:.3f} ms")
+        res[dtype] = entry
+        del q, k, v, dout, lse, delta
+        torch.cuda.empty_cache()
+    # the entries: bf16 at the training shape; "fp32" the 3xTF32 kernels'
+    return tuple(dict(res[torch.bfloat16][name], max_abs_err=max(errs),
+                      mask_windows=windows, fp32=res[torch.float32][name])
+                 for name in ("dq", "dkv"))
 
 
 @contextlib.contextmanager
@@ -1746,6 +1998,126 @@ def phase_stage_backward(hcfg, dtypes=(torch.bfloat16, torch.float32)):
     del stages, ref32, x, cot
     torch.cuda.empty_cache()
     return total, times
+
+
+# 3h in train mode: B_STAGE_TRAIN volumes through the full-width stage with its
+# attention dropout on, card against the CPU, the training route's seeds fixed
+# (STAGE_TRAIN_SEED, + 1, ... a site) on both devices
+B_STAGE_TRAIN = 1
+STAGE_TRAIN_SEED = (0x5EED << 32) | 51
+
+
+@contextlib.contextmanager
+def fixed_seeds(first):
+    """The training route's seed draws (``models/transformer.py::draw_seed``,
+    one a fused attention site) as ``first``, ``first + 1``, ... on the
+    caller's device: the same seeds on the card and on the CPU, whose
+    generators draw different numbers."""
+    bound = transformer_mod.draw_seed
+    seeds = itertools.count(first)
+    transformer_mod.draw_seed = lambda generator, device: torch.tensor(
+        [next(seeds)], device=device, dtype=torch.int64)
+    try:
+        yield
+    finally:
+        transformer_mod.draw_seed = bound
+
+
+@contextlib.contextmanager
+def card_masks():
+    """The CPU plain versions' keep masks (``ops/dropout.py::keep_mask_plain``,
+    which the plain forward and both plain backward kernels call for each
+    site) taken from the keep-mask kernel on the card, once a site: phases
+    3a and 16a hold that kernel bit-equal to ``keep_mask_plain``, whose
+    integer Philox takes ~15 s a full-width site on the host."""
+    bound = seed_route.keep_mask_plain
+    cache = {}
+
+    def keep_mask_plain(shape, drop_rate, seed, base=0, first_pass=0, passes=1):
+        key = (tuple(shape), drop_rate, int(seed), base, first_pass, passes)
+        if key not in cache:
+            whole = torch.empty((), device=DEV).expand(*shape)
+            cache[key] = epilogue_cuda.keep_mask(whole, drop_rate, seed.to(DEV), base,
+                                                 first_pass, passes).cpu()
+        return cache[key]
+
+    seed_route.keep_mask_plain = keep_mask_plain
+    try:
+        yield cache
+    finally:
+        seed_route.keep_mask_plain = bound
+
+
+def phase_stage_train(hcfg):
+    """Phase 3h in train mode: the full-width hybrid-nb stage with its
+    attention dropout on (``mc=True`` with a generator: the training route,
+    one seed a site), forward and backward on the card in bf16 and in fp32
+    (the dropout forward, dQ and dK/dV kernels, 6 launches each) against the
+    CPU's plain versions on the same seeds, at phase 3h's tolerances; the
+    projection and MLP dropouts off in every copy (their ``uniform_`` masks
+    differ between the devices).  Returns the card runs' launches, summed."""
+    mc = hcfg.dwi_model
+    depth = mc.transformer_depth
+    log(f"== phase 3h (train mode): autograd through the hybrid-nb transformer stage at full "
+        f"width ({depth} blocks, {HEADS} heads, {SEQ} tokens), attention dropout "
+        f"{ATTN_DROP} on (the training route's fused sites, one fixed seed a site), "
+        f"B={B_STAGE_TRAIN}, bf16 and fp32 on the card against fp32 on the CPU")
+    enc = build_fusion_models(hcfg, DEV, torch.float32, gen(SEED))[0]
+    stage = enc.transformer
+    for block in stage.transformer.layers:
+        block.attn.proj_drop, block.mlp.drop = 0.0, 0.0
+    side = enc.feature_size * mc.transformer_patch_size
+    cin, embed = stage.patch_embed.proj.in_channels, mc.transformer_embed_dim
+    del enc
+    g = gen(47)
+    x = cl(torch.randn(B_STAGE_TRAIN, cin, side, side, device=DEV, generator=g))
+    cot = torch.randn(B_STAGE_TRAIN, embed, side // mc.transformer_patch_size,
+                      side // mc.transformer_patch_size, device=DEV, generator=g)
+
+    def train_grads(st, x_, cot_):
+        st.zero_grad(set_to_none=True)
+        leaf = x_.detach().clone().requires_grad_()
+        with fixed_seeds(STAGE_TRAIN_SEED):
+            out = st(leaf, mc=True, generator=torch.Generator(x_.device))
+        out.backward(cot_)
+        return out.detach(), {"x": leaf.grad, **{n: p.grad for n, p in st.named_parameters()}}
+
+    t0 = time.perf_counter()
+    with card_masks() as sites:
+        out_r, grads_r = train_grads(copy.deepcopy(stage).cpu(), x.cpu(), cot.cpu())
+    log(f"  CPU fp32 forward + backward: {time.perf_counter() - t0:.1f} s, {len(sites)} "
+        f"dropout sites")
+    if len(sites) != depth:
+        raise AssertionError(f"the CPU stage drew {len(sites)} masks, expected {depth}")
+    expect = dict.fromkeys(COUNTERS, 0) | {
+        "flash_attention_fwd_dropout": depth, DROP_INSTANCES["head_shared"]: depth,
+        "flash_attention_bwd_dq_dropout": depth, "flash_attention_bwd_dkv_dropout": depth}
+    total = dict.fromkeys(COUNTERS, 0)
+    for dtype in (torch.bfloat16, torch.float32):
+        st = copy.deepcopy(stage).to(dtype)
+        reset_counts()
+        out, grads = train_grads(st, x.to(dtype), cot.to(dtype))
+        torch.cuda.synchronize()
+        launched = counts()
+        if launched != expect:
+            raise AssertionError(f"3h train {dtype}: launched {launched}, expected {expect}")
+        errs = {"out": rel_l2(out.cpu(), out_r)} | {n: rel_l2(grads[n].cpu(), grads_r[n])
+                                                     for n in grads}
+        tol = STAGE_TOL[dtype]
+        worst = sorted(errs.items(), key=lambda kv: -kv[1])
+        qkv = max(errs[n] for n in errs if n.endswith("attn.qkv.weight"))
+        log(f"  {str(dtype)[6:]} card vs CPU: launches "
+            f"{', '.join(f'{k} {v}' for k, v in launched.items() if v)}; relative L2 error, "
+            f"tolerance {tol:.4g}: out {errs['out']:.3e}, x {errs['x']:.3e}, "
+            f"qkv weights at most {qkv:.3e}, worst {worst[0][0]} {worst[0][1]:.3e}")
+        if not all(e <= tol for e in errs.values()):
+            raise AssertionError(f"3h train {dtype}: {worst[0][0]} off by {worst[0][1]:.3e}, "
+                                 f"above {tol}")
+        total = {k: total[k] + launched[k] for k in COUNTERS}
+        del st, out, grads
+    del stage, x, cot, out_r, grads_r
+    torch.cuda.empty_cache()
+    return total
 
 
 def phase_dwi_norm():
@@ -4167,8 +4539,8 @@ def phase_parallel_folds(cfg, tmp, smi):
 
 # ------------------------------------------------------------------ phase 11
 # the serving artifacts: (name, config, mode, dtype, B)
-ARTIFACT_REQUESTS = 5
-ARTIFACT_SEEDS = (7, 7, 8, 9, 10)  # requests 0 and 1 share a seed
+ARTIFACT_REQUESTS = 3
+ARTIFACT_SEEDS = (7, 7, 8)  # requests 0 and 1 share a seed
 # an artifact request's kernels as the profiler names them (regular
 # expressions), by operator
 OPERATOR_KERNELS = {"se_epilogue": EPI_KERNELS, "keep_mask": ("keep_mask_kernel",),
@@ -4509,7 +4881,7 @@ def phase_serving(cfg, hcfg, tmp, smi):
 
 
 # ------------------------------------------------------------------ phase 12
-INT8_REQUESTS = 5
+INT8_REQUESTS = 3
 INT8_CALIB = 4  # preprocessed volumes of a draw apart from the requests' (bench.py:641-652)
 INT8_TOP_S = 1979e12  # H100 SXM dense int8 tensor-core rate
 INT8_CPU_TOL = 5e-3   # 12d: card vs CPU probabilities, fp32, dynamic scales
@@ -5035,7 +5407,7 @@ def phase_int8(cfg, tmp):
 # with gloo (NCCL refuses two ranks on one card), each a process of its own
 # started by torch.distributed.run, running this file with --mesh-rank
 MESH_RANKS = 2
-MESH_B, MESH_STEPS = 32, 3  # 13a: global B=32, 16 a rank
+MESH_B, MESH_STEPS = 32, 2  # 13a: global B=32, 16 a rank
 MESH_FOLD_B, MESH_FOLD_STEPS = 2, 2  # 13c: the DWI encoder, one fold a rank
 MESH_STEP_SEED, MESH_DROP_SEED = 61, 62
 MESH_SERVE_SEEDS = (81, 82, 83)
@@ -5993,6 +6365,212 @@ def phase_tp(cfg, tmp, smi):
     return launched, err14a, sums14a, one["sums"]
 
 
+# ------------------------------------------------------------------ phase 17
+# hybrid-nb training at full width on the flash route (the training route's
+# attention dropout in the dropout forward, dQ and dK/dV kernels): (a) the
+# bench's fusion train step (bf16 compute on fp32 parameters) at the config's
+# B=32; (b) a hybrid-nb DWI fold's first stage, run_single_model at B=32 in
+# fp32 (HYB_RUN_TRAIN + HYB_RUN_TEST volumes, one epoch, the tta_mc test at
+# mc_chunk 1); (c) one fp32 fusion train step at B_FUSION_F32; (d) the DWI
+# train step at B_ROUTES on the flash route and on the weights route in turns
+HYB_BENCH_ARGV = ["--train", "--encoder", "hybrid-nb", "--batch", "32", "--warmup", "1",
+                  "--steps", "3"]
+HYB_RUN_TRAIN, HYB_RUN_TEST = 120, 32
+# the fp32 fusion step at the largest power of two that fits the 80 GB
+# card: at B=16 it peaked at 44.81 GiB on the H100, and B=32 ran out of
+# memory at 76.45 GiB allocated (two hybrid-nb encoders' activations, ~2.8
+# GB a block at 16 volumes; ROADMAP 2b.24)
+B_FUSION_F32 = 16
+B_ROUTES, ROUTE_STEPS = 4, 2
+
+
+def flash_train_expect(depth, steps, encoders):
+    """The training route's launches over ``steps`` train steps of
+    ``encoders`` hybrid-nb encoders: each fused attention site one dropout
+    forward (head-shared), one dQ and one dK/dV dropout instance."""
+    n = depth * encoders * steps
+    return {"flash_attention_fwd_dropout": n, DROP_INSTANCES["head_shared"]: n,
+            "flash_attention_bwd_dq_dropout": n, "flash_attention_bwd_dkv_dropout": n}
+
+
+def hybrid_bench_train(depth):
+    """17(a): ``bench --train --encoder hybrid-nb --batch 32`` in-process."""
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    out = io.StringIO()
+    reset_counts()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out):
+        result = bench.main(HYB_BENCH_ARGV)
+    dt = time.perf_counter() - t0
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    args = bench.parse_args(HYB_BENCH_ARGV)
+    line = bench_line("17a hybrid-nb train", out.getvalue(), result)
+    calls = 1 + args.warmup + args.steps  # the FLOP count's step, warm-up, timed
+    expect = dict.fromkeys(COUNTERS, 0) | flash_train_expect(depth, calls, 2)
+    log(f"  17a bench {' '.join(HYB_BENCH_ARGV)}: {dt:.1f} s, peak {peak:.2f} GiB: {line}")
+    if result["metric"] != "fusion_training_throughput" or launched != expect:
+        raise AssertionError(f"17a: launched {launched}, expected {expect}; line {line}")
+    step_ms = 1e3 / result["value"]
+    log(f"  17a: {result['value']:.3f} steps/s, {step_ms:.1f} ms a step (host clock over "
+        f"{args.steps} steps), launches per encoder per step 6 / 6 / 6 (dropout forward, dQ, "
+        f"dK/dV)")
+    return launched, {"steps_per_s": result["value"], "step_ms": step_ms, "peak_gib": peak,
+                      "batch": args.batch}
+
+
+def hybrid_run_single(hcfg, raw, tmp, depth):
+    """17(b): ``run_single_model(hcfg, "dwi")`` at B=32 in fp32, one epoch
+    of a few steps, its validation and its tta_mc test (mc_chunk 1)."""
+    B = hcfg.batch_size
+    store = {"imgs": raw["dwi"][:HYB_RUN_TRAIN], "test_imgs": raw["dwi_test"][:HYB_RUN_TEST],
+             "labels": raw["labels"][:HYB_RUN_TRAIN],
+             "test_labels": raw["labels_test"][:HYB_RUN_TEST],
+             "masks": raw["masks"][:HYB_RUN_TRAIN]}
+    rcfg0 = hcfg.replace(mc_chunk=1, base_path=os.path.join(tmp, "hybrid_data"))
+    data = prepare_single_data(rcfg0, "dwi", 0, raw=store, device=DEV)
+    n_tr, n_va = len(data.splits["train"]["labels"]), len(data.splits["val"]["labels"])
+    model, rcfg = build_single_model(rcfg0, "dwi", device=DEV, generator=gen(SEED))
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out, t_run = synced(lambda: run_single_model(
+        rcfg, "dwi", 0, data=data, state=TrainState.create(model), num_epochs=1, min_epochs=1,
+        base_dir=os.path.join(tmp, "hybrid_results"), device=DEV))
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    n_steps, n_val, n_test = -(-n_tr // B), -(-n_va // B), -(-HYB_RUN_TEST // B)
+    # the train steps' sites, then the test's: 10 suffix forwards a batch at mc_chunk 1
+    want = flash_train_expect(depth, n_steps, 1)
+    mc = depth * rcfg.mc_passes * n_test
+    want["flash_attention_fwd_dropout"] += mc
+    want[DROP_INSTANCES["head_shared"]] += mc
+    want["flash_attention_fwd"] = depth * (n_val + drawn(1))  # validation and its triptych
+    got = {k: launched[k] for k in want}
+    hist = out["history"][0]
+    step_ms = [t for _, t in out["step_ms"]]
+    # full batches after the first (a short tail batch ends the epoch)
+    full = [t for i, t in enumerate(step_ms) if i and (i < n_steps - 1 or n_tr % B == 0)]
+    log(f"  17b run_single_model('dwi'), hybrid-nb, B={B}, fp32: train {n_tr} ({n_steps} steps), "
+        f"validation {n_va}, test {HYB_RUN_TEST}; run {t_run:.2f} s; epoch train "
+        f"{hist['train_time']:.3f} s, validation {hist['epoch_time'] - hist['train_time']:.3f} "
+        f"s; train loss {hist['train_loss']:.5f}, val loss {hist['val_loss']:.5f}; steps by "
+        f"CUDA events (ms) {', '.join(f'{t:.1f}' for t in step_ms)}; peak {peak:.2f} GiB; "
+        f"launches {', '.join(f'{k} {v}' for k, v in launched.items() if v)}")
+    if got != want:
+        raise AssertionError(f"17b: launched {got}, expected {want}")
+    if not all_finite(hist) or not all_finite(out["test_metrics"]):
+        raise AssertionError("17b: a metric is not finite")
+    del out, model, data
+    torch.cuda.empty_cache()
+    log(f"  17b: median of the {len(full)} full batches after the first "
+        f"{statistics.median(full):.1f} ms a step")
+    return launched, {"step_ms": statistics.median(full), "peak_gib": peak, "steps": n_steps,
+                      "batch": B}
+
+
+def hybrid_fusion_step(hcfg, depth, b):
+    """17(c): fp32 fusion train steps of the hybrid-nb models at batch ``b``
+    (one warm, one timed by CUDA events), the peak memory."""
+    torch.cuda.empty_cache()
+    net = FusionNetwork(*build_fusion_models(hcfg, DEV, torch.float32, gen(SEED)))
+    state = TrainState.create(net, num_groups=4)
+    spec = build_fusion_group_spec([n for n, _ in net.named_parameters()], hcfg)
+    clf = get_classification_loss_fn(hcfg, np.arange(hcfg.class_num), "fusion")
+    step = make_fusion_train_step(hcfg, clf, get_mask_loss_fn(hcfg, "fusion"), spec)
+    hp = FusionOptController(hcfg).hyperparams()
+    batch = dict(fusion_batches(hcfg, 1, b, 53)[0], aux_w=1.0)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    step(state, batch, gen(54), hp)
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    ev[0].record()
+    metrics = step(state, batch, gen(55), hp)
+    ev[1].record()
+    torch.cuda.synchronize()
+    launched = counts()
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    ms = ev[0].elapsed_time(ev[1])
+    log(f"  17c fp32 fusion train step, hybrid-nb encoders, B={b}: {ms:.1f} ms (CUDA events, "
+        f"the second step), peak {peak:.2f} GiB, loss {float(metrics['loss']):.5f}")
+    if launched != dict.fromkeys(COUNTERS, 0) | flash_train_expect(depth, 2, 2):
+        raise AssertionError(f"17c: launched {launched}")
+    if not torch.isfinite(metrics["loss"]).all():
+        raise AssertionError("17c: loss not finite")
+    del net, state, step, batch
+    torch.cuda.empty_cache()
+    return launched, {"step_ms": ms, "peak_gib": peak, "batch": b}
+
+
+def hybrid_routes(hcfg, depth):
+    """17(d): the hybrid-nb DWI train step (fp32) at B_ROUTES on the flash
+    route and on the weights route (the materialized weights, the
+    generator's ``uniform_`` mask; the script's ``weights_route()``) in turns
+    (flash, weights, weights, flash), each turn one warm step and
+    ROUTE_STEPS timed by CUDA events, with its peak memory."""
+    model, rcfg = build_single_model(hcfg, "dwi", device=DEV, generator=gen(SEED))
+    state = TrainState.create(model)
+    spec = build_group_spec([n for n, _ in model.named_parameters()], True,
+                            rcfg.reference_compat)
+    clf = get_classification_loss_fn(rcfg, np.arange(rcfg.class_num), "dwi")
+    step = make_single_train_step(rcfg, "dwi", clf, get_mask_loss_fn(rcfg, "dwi"), spec)
+    hp = SingleModelOptController(rcfg, "dwi").hyperparams()
+    batch = dict(dwi_batches(rcfg, 1, B_ROUTES, 57)[0], aux_w=1.0)
+    turns = {"flash": [], "weights": []}
+    launched = dict.fromkeys(COUNTERS, 0)
+    for route in ("flash", "weights", "weights", "flash"):
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        with (weights_route() if route == "weights" else contextlib.nullcontext()):
+            step(state, batch, gen(58), hp)
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+            ev[0].record()
+            for _ in range(ROUTE_STEPS):
+                step(state, batch, gen(59), hp)
+            ev[1].record()
+            torch.cuda.synchronize()
+        got = counts()
+        want = flash_train_expect(depth, (1 + ROUTE_STEPS) * (route == "flash"), 1)
+        if {k: got[k] for k in want} != want:
+            raise AssertionError(f"17d {route} route: launched {got}, expected {want}")
+        if route == "flash":
+            launched = {k: launched[k] + got[k] for k in COUNTERS}
+        turns[route].append((ev[0].elapsed_time(ev[1]) / ROUTE_STEPS,
+                             torch.cuda.max_memory_allocated() / 2 ** 30))
+    res = {r: {"step_ms": statistics.mean(t for t, _ in v), "peak_gib": max(p for _, p in v)}
+           for r, v in turns.items()}
+    log(f"  17d DWI train step, hybrid-nb, fp32, B={B_ROUTES}, in turns (flash, weights, "
+        f"weights, flash; {ROUTE_STEPS} steps a turn after a warm one): flash route "
+        f"{res['flash']['step_ms']:.1f} ms, peak {res['flash']['peak_gib']:.2f} GiB; weights "
+        f"route {res['weights']['step_ms']:.1f} ms, peak {res['weights']['peak_gib']:.2f} GiB "
+        f"(x{res['weights']['step_ms'] / res['flash']['step_ms']:.2f} the time)")
+    del model, state, step, batch
+    torch.cuda.empty_cache()
+    return launched, res
+
+
+def phase_hybrid_train(hcfg, raw, tmp, smi):
+    """Phase 17: hybrid-nb training on the card through the training route's
+    dropout kernels; returns the launches of (a)-(d)'s flash runs, summed,
+    and their numbers."""
+    depth = hcfg.dwi_model.transformer_depth
+    log(f"== phase 17: hybrid-nb training at full width ({depth} blocks, {HEADS} heads, "
+        f"{SEQ} tokens) on the flash route with attention dropout {ATTN_DROP} on {smi}")
+    t0 = time.perf_counter()
+    total = dict.fromkeys(COUNTERS, 0)
+    res = {}
+    for name, run in (("bench_train", lambda: hybrid_bench_train(depth)),
+                      ("run_single", lambda: hybrid_run_single(hcfg, raw, tmp, depth)),
+                      ("fusion_fp32", lambda: hybrid_fusion_step(hcfg, depth, B_FUSION_F32)),
+                      ("routes_b4", lambda: hybrid_routes(hcfg, depth))):
+        launched, res[name] = run()
+        total = {k: total[k] + launched[k] for k in COUNTERS}
+    log(f"  phase 17: {time.perf_counter() - t0:.1f} s")
+    return total, res
+
+
 # ------------------------------------------------------------------ phase 15
 # the port's bench (dmf_tpu_torch/bench.py) on the card: its argv beside
 # bench.py's defaults (B=128, 20 steps after 3 warm-up calls, 256^2); the
@@ -6141,10 +6719,14 @@ def main():
     (measured["flash_attention_bwd_dq"],
      measured["flash_attention_bwd_dkv"]) = phase_flash_backward()
     measured["flash_attention_fwd_dropout"] = phase_flash_dropout()
+    drop_bwd = phase_flash_dropout_backward()
+    mark("3a-3d, 3i, 3j")
     # the backward's path: counts set to 0 just before it and read just after
     stage_launches = phase_stage_backward(hcfg)[0]
+    stage_train_launches = phase_stage_train(hcfg)
+    mark("3h")
     measured["dwi_normalize"] = phase_dwi_norm()
-    mark("3a-3e")
+    mark("3e")
     t0 = time.perf_counter()
     raw = make_synthetic_arrays(n_train=N_TRAIN, n_test=N_TEST, image_size=IMAGE,
                                 mask_size=IMAGE, seed=SEED)
@@ -6179,6 +6761,9 @@ def main():
         fold_launches = phase_fold(cfg, raw, tmp, dwi_out, rcfg0)
         del dwi_out
         mark("7b, 7d")
+        # hybrid-nb training: each run's counts set to 0 just before, read just after
+        hyb_launches, hyb_train = phase_hybrid_train(hcfg, raw, tmp, smi)
+        mark("17")
         cli_launches = phase_cli(cfg, raw, tmp, smi)
         del raw
         mark("8")
@@ -6210,13 +6795,15 @@ def main():
                 + prep_launches[k] + stage_launches[k] + run_launches[k] + fold_launches[k]
                 + val_launches[k] + cli_launches[k] + vit_launches[k] + pf_launches[k]
                 + serving_launches[k] + int8_launches.get(k, 0) + mesh_launches[k]
-                + tp_launches[k] + bench_launches[k] for k in COUNTERS}
+                + tp_launches[k] + bench_launches[k] + stage_train_launches[k]
+                + hyb_launches[k] for k in COUNTERS}
     launches["histogram_percentiles"] = hist_launches  # no served path: phase 3f
     log(f"  launches on the served paths, the chunked MC requests, the data preparation, the "
         f"stage backward, the "
         f"single-modality runs, the fusion run, the hybrid-nb validation batch, the "
         f"CLI, the ViT path, the fold-parallel run, the serving artifacts, the int8 "
-        f"path, the data and model meshes and the bench: {launches}")
+        f"path, the data and model meshes, the bench, the stage in train mode and the "
+        f"hybrid-nb training runs: {launches}")
     for name in COUNTERS:
         if launches[name] <= 0 and name not in DROP_INSTANCES.values():
             raise AssertionError(f"{name} was not launched on its path")
@@ -6258,6 +6845,11 @@ def main():
                                   "dmf_tpu/ops/quant.py:76"),
     }
     measured["flash_attention_fwd_dropout"]["launches_by_instance"] = by_instance
+    # the backward's dropout instances: phase 3j's numbers, their launches on
+    # the training paths (3h in train mode, 17), phase 17's steps
+    for name, entry in zip(("flash_attention_bwd_dq", "flash_attention_bwd_dkv"), drop_bwd):
+        measured[name]["dropout"] = dict(entry, launches=launches[f"{name}_dropout"])
+    measured["flash_attention_bwd_dq"]["dropout"]["hybrid_nb_training"] = hyb_train
     kernels = [{"name": name, "route": route, "source": source, "replaces": replaces,
                 "launches": launches[name], **measured[name]}
                for name, (route, source, replaces) in where.items()]

@@ -186,6 +186,22 @@
 // multiplies, the xors, the keep tests); inside the forward it only gets
 // the issue slots that the softmax leaves, so the head-shared instance draws
 // before the forward instead (PERF.md section 6 has the measurements).
+// Both dropout instances write lse, the undropped P's.
+//
+// The backward of that dropout (JAX's training route, the same weights
+// route; flash_bwd_dq_dropout_launch, flash_bwd_dkv_dropout_launch): with
+// P~ = P keep / (1 - p) the forward's dropped weights and dP~ = dO V^T,
+// dV = P~^T dO and dS = P (dP~ keep / (1 - p) - delta), delta = rowsum(dO
+// O) as without dropout (sum_k P_k dP_k = sum_k P~_k dP~_k = dO . O); dQ and
+// dK as without dropout from dS.  The DROP instances of the four backward
+// kernels read the keep bits that a pre-pass writes a slab of rows at a
+// time: hs::draw_bits (one call for G heads) where the forward's rule gives
+// G > 1, else hs::draw_each (one call a weight: the backward has no
+// per-element instance), in the forward's layout for dQ (query rows, key
+// tiles of the forward's BN = 2 BT) and transposed for dK/dV (key rows,
+// query tiles), so that a thread reads one word a row every BN / BT tiles.
+// No mask is kept between the forward and the backward: the backward draws
+// the bits again (twice: once a layout).
 //
 // Deliberately not carried over from the TPU: the (N, 1) column layout of
 // lse/delta (here (BH, N) fp32 rows), the whole-sequence-in-VMEM K/V blocks
@@ -308,32 +324,38 @@ __host__ __device__ constexpr int row_words(int nk) {
 }
 
 // The pre-pass: the keep bits of rows b0 .. b0 + gridDim.z / groups - 1 of
-// the call (grid (1, N_q, rows x local_heads / G), one block a (row, head
-// group, query)) into bits[((b - b0) local_heads + h) N_q + q][row_words].
-// Chunk i of a (row, head group, query) is 8 calls: bit positions 8 (i %
-// (BN/8)) .. + 7 of key tile i / (BN/8); byte g of x is head g's 8 bits of
-// it.  The 4 lanes of a word transpose their bytes (shuffles, byte_perm)
-// and lane g < G stores head g's word.  Each thread draws DRAW_CHUNKS chunks
-// of its row under the round keys it computes once.
+// the call (grid (1, R, rows x local_heads / G), one block a (row, head
+// group, r)) into bits[((b - b0) local_heads + h) R + r][row_words] as rows
+// r of columns c: the weights (q, k) = (r, c), R = N_q (the forward's and
+// dQ's layout, query-major) or, `transposed`, (c, r), R = N_k (dK/dV's,
+// key-major).  Chunk i of a (row, head group, r) is 8 calls: bit positions
+// 8 (i % (BN/8)) .. + 7 of column tile i / (BN/8); byte g of x is head g's
+// 8 bits of it.  The 4 lanes of a word transpose their bytes (shuffles,
+// byte_perm) and lane g < G stores head g's word.  Each thread draws
+// DRAW_CHUNKS chunks of its row under the round keys it computes once.
+// Transposed, the call offsets need N_q N_k H / 4 < 2^32.
 template <int BN>
 __global__ void __launch_bounds__(DRAW_THREADS)
-draw_bits(const Dropout d, uint32_t* __restrict__ bits, int b0, int nq, int nk) {
+draw_bits(const Dropout d, uint32_t* __restrict__ bits, int b0, int nq, int nk, int transposed) {
   constexpr int CHUNKS_TILE = BN / 8;
   const int group = d.group, groups = d.local_heads / group;
-  const int q = blockIdx.y, bg = blockIdx.z, gi = bg % groups, b = b0 + bg / groups;
+  const int r = blockIdx.y, bg = blockIdx.z, gi = bg % groups, b = b0 + bg / groups;
   const int h_first = d.h0 + gi * group;  // the group's first head among the H
-  const int words = row_words<BN>(nk), chunks = 4 * words;
+  const int words = row_words<BN>(transposed ? nq : nk), chunks = 4 * words;
   const philox::RoundKeys keys = philox::round_keys(philox::seed_key(d.seed));
   const unsigned pass = d.pass0 + static_cast<unsigned>(b / d.rows);
   const unsigned hq = static_cast<unsigned>(d.heads / 4);  // calls from one key to the next
+  const unsigned col_step = transposed ? static_cast<unsigned>(nk) * hq : hq;  // a column's calls
+  const unsigned long long row = transposed ? r : static_cast<unsigned long long>(r) * nk;
   const unsigned long long at =
-      d.base / 4 + (static_cast<unsigned long long>(b % d.rows) * nq + q) * nk * hq + h_first / 4;
+      d.base / 4 + (static_cast<unsigned long long>(b % d.rows) * nq * nk + row) * hq +
+      h_first / 4;
   const int lane = threadIdx.x % 32, l4 = lane % 4, quad4 = lane & ~3;
   const int sel = (h_first % 4 + l4) & 3;
   const unsigned pick = static_cast<unsigned>(sel | (sel + 4) << 4);
   uint32_t* out = bits + (static_cast<size_t>(bg / groups * d.local_heads + gi * group +
-                                                min(l4, group - 1)) * nq +
-                          q) * words;
+                                                min(l4, group - 1)) * gridDim.y +
+                          r) * words;
   // every lane of a warp runs each chunk (the shuffles); past `chunks` none stores
   for (int i0 = blockIdx.x * DRAW_THREADS * DRAW_CHUNKS; i0 < chunks;
        i0 += gridDim.x * DRAW_THREADS * DRAW_CHUNKS) {
@@ -342,11 +364,13 @@ draw_bits(const Dropout d, uint32_t* __restrict__ bits, int b0, int nq, int nk) 
       const int i = i0 + u * DRAW_THREADS + threadIdx.x;
       const int kt = i / CHUNKS_TILE, c = i % CHUNKS_TILE;
       const int quad = c / (CHUNKS_TILE / 4), j0 = 4 * (c % (CHUNKS_TILE / 4));
-      const unsigned long long call = at + static_cast<unsigned>(kt * BN + 8 * j0 + 2 * quad) * hq;
-      uint4 w[8];  // keys 8 (j0 + bit/2) + 2 quad + bit % 2, bit = 0 .. 7
+      const unsigned long long call =
+          at + static_cast<unsigned>(kt * BN + 8 * j0 + 2 * quad) * col_step;
+      uint4 w[8];  // columns 8 (j0 + bit/2) + 2 quad + bit % 2, bit = 0 .. 7
 #pragma unroll
       for (int bit = 0; bit < 8; ++bit) {
-        const unsigned long long n = call + static_cast<unsigned>(8 * (bit / 2) + bit % 2) * hq;
+        const unsigned long long n =
+            call + static_cast<unsigned>(8 * (bit / 2) + bit % 2) * col_step;
         w[bit] = make_uint4(static_cast<unsigned>(n), static_cast<unsigned>(n >> 32), pass, 0u);
       }
       philox::philox4x32_10(w, keys);
@@ -368,14 +392,43 @@ draw_bits(const Dropout d, uint32_t* __restrict__ bits, int b0, int nq, int nk) 
   }
 }
 
-// A consumer thread's bits of block row `row` (clamped to the call's rows:
-// a ragged block's rows past N_q are not written) in the pre-pass's output:
-// word kt (BN/32) of the returned pointer, shifted right by bits_shift<BN>,
-// holds its BN/4 bits of key tile kt.
+// The pre-pass of the other shapes (G = 1, which the backward needs: its
+// kernels only read bits): draw_bits's output, one thread a word, each
+// weight's bit by its own Philox call (philox::keep1; grid (words, R,
+// rows x local_heads)).
+template <int BN>
+__global__ void __launch_bounds__(DRAW_THREADS)
+draw_each(const Dropout d, uint32_t* __restrict__ bits, int b0, int nq, int nk, int transposed) {
+  const int r = blockIdx.y, bl = blockIdx.z;
+  const int b = b0 + bl / d.local_heads, h = d.h0 + bl % d.local_heads;
+  const int ncols = transposed ? nq : nk, words = row_words<BN>(ncols);
+  const int w = blockIdx.x * DRAW_THREADS + threadIdx.x;
+  if (w >= words) return;
+  const uint2 key = philox::seed_key(d.seed);
+  const unsigned pass = d.pass0 + static_cast<unsigned>(b / d.rows);
+  const unsigned long long e0 =
+      d.base + static_cast<unsigned long long>(b % d.rows) * nq * nk * d.heads + h;
+  const int tile = w / (BN / 32), first = 32 * (w % (BN / 32));  // the word's bit positions
+  uint32_t x = 0;
+  for (int i = 0; i < 32; ++i) {
+    const int pos = first + i, quad = pos / (BN / 4), jj = pos % (BN / 4);
+    const int col = tile * BN + 8 * (jj / 2) + 2 * quad + jj % 2;
+    if (col >= ncols) continue;
+    const unsigned long long qk = transposed ? static_cast<unsigned long long>(col) * nk + r
+                                             : static_cast<unsigned long long>(r) * nk + col;
+    x |= (philox::keep1(key, e0 + qk * d.heads, pass, d.keep_prob) ? 1u : 0u) << i;
+  }
+  bits[(static_cast<size_t>(bl) * gridDim.y + r) * words + w] = x;
+}
+
+// A consumer thread's bits of block row `row` (clamped to the R rows: a
+// ragged block's rows past them are not written) in the pre-pass's output
+// of rows of `ncols` bits: word kt (BN/32) of the returned pointer, shifted
+// right by bits_shift<BN>, holds its BN/4 bits of column tile kt.
 template <int BN>
 __device__ __forceinline__ const uint32_t* bits_row(const Dropout& d, int bh, int row, int quad,
-                                                    int nq, int nk) {
-  return d.bits + (static_cast<size_t>(bh) * nq + min(row, nq - 1)) * row_words<BN>(nk) +
+                                                    int nrows, int ncols) {
+  return d.bits + (static_cast<size_t>(bh) * nrows + min(row, nrows - 1)) * row_words<BN>(ncols) +
          quad * (BN / 4) / 32;
 }
 template <int BN>
@@ -387,6 +440,37 @@ __device__ __forceinline__ int bits_shift(int quad) {
 __device__ __forceinline__ float drop_bit(float p_, uint32_t bits, int bit, float drop_scale) {
   return (bits >> bit) & 1u ? p_ * drop_scale : 0.0f;
 }
+
+// A backward consumer thread's keep bits: its accumulator rows row0 and
+// row0 + 8 of the pre-pass's output (layout of tile BN), in column tiles of
+// BT (BN a multiple of BT, BT >= 8).  Bit 2j + e of a word that `take`
+// returns keeps column 8j + 2 quad + e of tile t, j < BT / 8; each word is
+// loaded a take ahead (__ldg, as the forward reads them).
+template <int BN, int BT>
+struct TileBits {
+  const uint32_t* at[2];
+  uint32_t next[2];
+  int shift;
+
+  __device__ __forceinline__ void init(const Dropout& d, int bh, int row0, int quad, int nrows,
+                                       int ncols, int t0) {
+    shift = bits_shift<BN>(quad);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      at[r] = bits_row<BN>(d, bh, row0 + 8 * r, quad, nrows, ncols);
+      next[r] = __ldg(at[r] + t0 / (BN / BT) * (BN / 32));
+    }
+  }
+
+  // tile t's bits into `bits` (t the tile of the last load); loads tile t_next's
+  __device__ __forceinline__ void take(int t, int t_next, int tiles, uint32_t (&bits)[2]) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      bits[r] = next[r] >> (shift + t % (BN / BT) * (BT / 4));
+      if (t_next < tiles) next[r] = __ldg(at[r] + t_next / (BN / BT) * (BN / 32));
+    }
+  }
+};
 
 }  // namespace hs
 
@@ -431,7 +515,8 @@ __device__ __forceinline__ void rs_product<128>(float (&o)[64], const uint32_t (
 
 // DROP (DROP_EACH, DROP_SHARED): the dropout instances (Dropout above); P
 // enters O += P V dropped and scaled, while m, l and so lse stay those of the
-// undropped P (lse is not written).  DROP_SHARED reads the pre-pass's bits (hs).
+// undropped P (the lse the backward's dropout instances take).  DROP_SHARED
+// reads the pre-pass's bits (hs).
 template <int D, int DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant__ CUtensorMap kmap,
@@ -615,7 +700,7 @@ flash_fwd_wgmma(const __grid_constant__ CUtensorMap qmap, const __grid_constant_
       const int row = row0 + 8 * h;
       if (row >= Nq) continue;  // the ragged half of the last query block
       const int at = bh * Nq + row;
-      if (DROP == DROP_NONE && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      if (quad == 0) lse[at] = m[h] * scale + logf(l[h]);
       bf16* orow = out + at * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -674,14 +759,18 @@ struct DqSmem {
 };
 static_assert(DqSmem<128>::BYTES <= SMEM_MAX, "wgmma dQ shared memory");
 
-template <int D>
+// DROP: the dropout instance (the training route's attention-weight
+// dropout): dS = P (dP~ keep / (1 - p) - delta) scale, dP~ = dO V^T the
+// gradient of the dropped weights, on the pre-pass's keep bits (hs, the
+// forward's layout: query rows, key tiles of BN = 2 BT).
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap,
                    const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
                    const float* __restrict__ delta, bf16* __restrict__ dq, int Nq, int Nk,
-                   float scale) {
+                   float scale, const Dropout dropout) {
   using namespace hopper;
   using L = DqSmem<D>;
   constexpr int PANELS = D / 64;
@@ -747,6 +836,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < D / 2; ++i) acc[i] = 0.f;
     const unsigned char* qs = smem + wgi * 64 * 128;  // this warpgroup's rows of each panel
     const unsigned char* dos = smem + L::DO_OFF + wgi * 64 * 128;
+    [[maybe_unused]] hs::TileBits<BN, BT> tb;
+    if constexpr (DROP) tb.init(dropout, bh, row0, quad, Nq, Nk, 0);
     mbar_wait(qdo_full, 0);
     for (int kt = 0; kt < nkt; ++kt) {
       const int st = kt % STAGES;
@@ -761,6 +852,8 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(&v_full[st], parity);
       score_tile<D>(dp, dos, vs);
       wgmma_commit();
+      [[maybe_unused]] uint32_t bits[2];  // DROP: this tile's keep bits, the next one's loading
+      if constexpr (DROP) tb.take(kt, kt + 1, nkt, bits);
       // P = exp(S scale - lse) while dP is in flight
       wgmma_wait<1>();
       fence_regs(s);
@@ -779,10 +872,16 @@ flash_bwd_dq_wgmma(const __grid_constant__ CUtensorMap qmap,
       uint32_t da[BT / 16][4];
 #pragma unroll
       for (int j = 0; j < BT / 8; ++j) {
-        const float d0 = s[4 * j] * (dp[4 * j] - dl[0]) * scale;
-        const float d1 = s[4 * j + 1] * (dp[4 * j + 1] - dl[0]) * scale;
-        const float d2 = s[4 * j + 2] * (dp[4 * j + 2] - dl[1]) * scale;
-        const float d3 = s[4 * j + 3] * (dp[4 * j + 3] - dl[1]) * scale;
+        float g[4] = {dp[4 * j], dp[4 * j + 1], dp[4 * j + 2], dp[4 * j + 3]};
+        if constexpr (DROP) {  // keys 8j + 2 quad + e of rows q (bits[0]) and q + 8 (bits[1])
+#pragma unroll
+          for (int e = 0; e < 4; ++e)
+            g[e] = hs::drop_bit(g[e], bits[e / 2], 2 * j + e % 2, dropout.drop_scale);
+        }
+        const float d0 = s[4 * j] * (g[0] - dl[0]) * scale;
+        const float d1 = s[4 * j + 1] * (g[1] - dl[0]) * scale;
+        const float d2 = s[4 * j + 2] * (g[2] - dl[1]) * scale;
+        const float d3 = s[4 * j + 3] * (g[3] - dl[1]) * scale;
         da[j / 2][(j % 2) * 2] = pack_bf16(d0, d1);
         da[j / 2][(j % 2) * 2 + 1] = pack_bf16(d2, d3);
       }
@@ -822,14 +921,17 @@ struct DkvSmem {
 };
 static_assert(DkvSmem<128>::BYTES <= SMEM_MAX, "wgmma dK/dV shared memory");
 
-template <int D>
+// DROP: the dropout instance: dV += P~^T dO with P~ = P keep / (1 - p), and
+// dS^T = P^T (dP~^T keep / (1 - p) - delta) scale, on the pre-pass's keep
+// bits in the transposed layout (key rows, query tiles of BN = 2 BT).
+template <int D, bool DROP>
 __global__ void __launch_bounds__(THREADS, 1)
 flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap kmap,
                     const __grid_constant__ CUtensorMap vmap,
                     const __grid_constant__ CUtensorMap domap, const float* __restrict__ lse,
                     const float* __restrict__ delta, bf16* __restrict__ dk,
-                    bf16* __restrict__ dv, int Nq, int Nk, float scale) {
+                    bf16* __restrict__ dv, int Nq, int Nk, float scale, const Dropout dropout) {
   using namespace hopper;
   using L = DkvSmem<D>;
   constexpr int PANELS = D / 64;
@@ -893,6 +995,9 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < D / 2; ++i) acc_k[i] = acc_v[i] = 0.f;
     const unsigned char* ks = smem + wgi * 64 * 128;  // this warpgroup's keys of each panel
     const unsigned char* vs = smem + L::V_OFF + wgi * 64 * 128;
+    const int row0 = k0 + wgi * 64 + acc_row(t);
+    [[maybe_unused]] hs::TileBits<BN, BT> tb;
+    if constexpr (DROP) tb.init(dropout, bh, row0, quad, Nk, Nq, 0);
     mbar_wait(kv_full, 0);
     for (int qt = 0; qt < nqt; ++qt) {
       const int st = qt % STAGES;
@@ -909,6 +1014,8 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(&do_full[st], parity);
       score_tile<D>(dp, vs, dos);
       wgmma_commit();
+      [[maybe_unused]] uint32_t bits[2];  // DROP: this tile's keep bits, the next one's loading
+      if constexpr (DROP) tb.take(qt, qt + 1, nqt, bits);
       wgmma_wait<0>();
       fence_regs(s);
       fence_regs(dp);
@@ -930,12 +1037,23 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
           for (int e = 0; e < 4; ++e)
             if (qt * BT + col + (e % 2) >= Nq) p[e] = 0.f;
         }
-        pa[j / 2][(j % 2) * 2] = pack_bf16(p[0], p[1]);
-        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
-        da[j / 2][(j % 2) * 2] = pack_bf16(p[0] * (dp[4 * j] - d2.x) * scale,
-                                           p[1] * (dp[4 * j + 1] - d2.y) * scale);
-        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2] * (dp[4 * j + 2] - d2.x) * scale,
-                                               p[3] * (dp[4 * j + 3] - d2.y) * scale);
+        // DROP: the dropped P^T and dP~^T keep / (1 - p), queries col + e % 2
+        // of keys row0 (bits[0]) and row0 + 8 (bits[1])
+        float pt[4] = {p[0], p[1], p[2], p[3]};
+        float g[4] = {dp[4 * j], dp[4 * j + 1], dp[4 * j + 2], dp[4 * j + 3]};
+        if constexpr (DROP) {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            pt[e] = hs::drop_bit(pt[e], bits[e / 2], 2 * j + e % 2, dropout.drop_scale);
+            g[e] = hs::drop_bit(g[e], bits[e / 2], 2 * j + e % 2, dropout.drop_scale);
+          }
+        }
+        pa[j / 2][(j % 2) * 2] = pack_bf16(pt[0], pt[1]);
+        pa[j / 2][(j % 2) * 2 + 1] = pack_bf16(pt[2], pt[3]);
+        da[j / 2][(j % 2) * 2] = pack_bf16(p[0] * (g[0] - d2.x) * scale,
+                                           p[1] * (g[1] - d2.y) * scale);
+        da[j / 2][(j % 2) * 2 + 1] = pack_bf16(p[2] * (g[2] - d2.x) * scale,
+                                               p[3] * (g[3] - d2.y) * scale);
       }
       // dV += P^T dO and dK += dS^T Q, dO and Q MN-major (16 queries: 2048 bytes)
 #pragma unroll
@@ -961,7 +1079,6 @@ flash_bwd_dkv_wgmma(const __grid_constant__ CUtensorMap qmap,
       }
       mbar_arrive(&empty[st]);
     }
-    const int row0 = k0 + wgi * 64 + acc_row(t);
     store_rows<D>(dk + bh * Nk * D, acc_k, row0, Nk, quad);
     store_rows<D>(dv + bh * Nk * D, acc_v, row0, Nk, quad);
   }
@@ -1157,7 +1274,7 @@ __device__ __forceinline__ void a_halves(float x0, float x1, float x2, float x3,
 // Each tile's P V goes into an accumulator of its own, added into the fp32 O
 // after the rescale (the JAX kernel's acc * alpha + P V).  DROP: the dropout
 // instances, as the bf16 kernel's (P dropped and scaled before its split; m,
-// l undropped; lse not written; DROP_SHARED on the pre-pass's bits).
+// l and lse undropped; DROP_SHARED on the pre-pass's bits).
 template <int D, int DROP>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* __restrict__ img,
@@ -1357,7 +1474,7 @@ flash_fwd_tf32x3(const __grid_constant__ CUtensorMap qmap, const unsigned char* 
       const int row = row0 + 8 * h;
       if (row >= Nq) continue;
       const int at = bh * Nq + row;
-      if (DROP == DROP_NONE && quad == 0) lse[at] = m[h] * scale + logf(l[h]);
+      if (quad == 0) lse[at] = m[h] * scale + logf(l[h]);
       float* orow = out + at * D + 2 * quad;
 #pragma unroll
       for (int j = 0; j < D / 8; ++j)
@@ -1421,14 +1538,15 @@ __device__ __forceinline__ void store_acc(float* __restrict__ dst, const float (
 // V's (dP = dO V^T), K's transposed image (dQ += dS K).  Each warpgroup adds
 // each tile's dS K into its fp32 sum; at the end warpgroup 0 adds warpgroup
 // 1's sum into its own.  img: the planes of K rows, V rows and K^T, each
-// BH x N_k/BT tiles.
-template <int D>
+// BH x N_k/BT tiles.  DROP: the dropout instance, as the bf16 kernel's (the
+// keep bits in the forward's layout, key tiles of the forward's BN = 2 BT).
+template <int D, bool DROP>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap qmap,
                     const __grid_constant__ CUtensorMap domap,
                     const unsigned char* __restrict__ img, const float* __restrict__ lse,
                     const float* __restrict__ delta, float* __restrict__ dq, int Nq, int Nk,
-                    float scale) {
+                    float scale, const Dropout dropout) {
   using namespace hopper;
   using L = BwdLayout<D>;
   constexpr int BT = L::BT, SPW = L::SPW, PANELS = D / 32;
@@ -1503,6 +1621,8 @@ flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap qmap,
     for (int i = 0; i < BT / 2; ++i) sb[i] = pb[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = part[i] = 0.f;
+    [[maybe_unused]] hs::TileBits<Layout<D>::BN, BT> tb;  // DROP: this warpgroup's tiles' bits
+    if constexpr (DROP) tb.init(dropout, bh, row0, quad, Nq, Nk, w);
     for (int j = 0; j < nkt / 2; ++j) {
       const int ik = 3 * j, iv = ik + 1, it = ik + 2;  // ring items: K rows, V rows, K^T
       // S = Q K^T and dP = dO V^T, both in flight
@@ -1513,6 +1633,8 @@ flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap qmap,
       mbar_wait(&wfull[iv % SPW], (iv / SPW) & 1);
       score_tile<D, BT, BWD_ROWS>(pa, pb, dos, dos + L::HALF, ring + (iv % SPW) * ITEM);
       wgmma_commit();
+      [[maybe_unused]] uint32_t bits[2];  // DROP: key tile 2j + w's keep bits
+      if constexpr (DROP) tb.take(2 * j + w, 2 * j + w + 2, nkt, bits);
       // P = exp(S scale - lse) while dP is in flight
       wgmma_wait<1>();
       fence_regs(sa);
@@ -1534,7 +1656,9 @@ flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap qmap,
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
           const int i = 4 * k + e;
-          ds[e] = p[i] * (pa[i] + pa[i + BT / 2] + pb[i] - dl[e / 2]) * scale;
+          float g = pa[i] + pa[i + BT / 2] + pb[i];  // dP, or DROP dP~ keep / (1 - p)
+          if constexpr (DROP) g = hs::drop_bit(g, bits[e / 2], 2 * k + e % 2, dropout.drop_scale);
+          ds[e] = p[i] * (g - dl[e / 2]) * scale;
         }
         a_halves(ds[0], ds[1], ds[2], ds[3], dh[k], dlo[k]);
       }
@@ -1581,14 +1705,18 @@ flash_bwd_dq_tf32x3(const __grid_constant__ CUtensorMap qmap,
 // Q tile it came from (warpgroup 1 frees that slot).  Ring items: warpgroup
 // 0 Q rows, dO^T; warpgroup 1 dO rows, Q^T.  lse and delta are indexed by
 // column (query) and read from global memory.  img: the planes of Q rows,
-// dO rows, Q^T and dO^T, each BH x N_q/BT tiles.
-template <int D>
+// dO rows, Q^T and dO^T, each BH x N_q/BT tiles.  DROP: the dropout
+// instance, as the bf16 kernel's: warpgroup 0 hands over the undropped P^T
+// and multiplies the dropped one into dV; both warpgroups read the keep bits
+// (the transposed layout).
+template <int D, bool DROP>
 __global__ void __launch_bounds__(wg::THREADS, 1)
 flash_bwd_dkv_tf32x3(const __grid_constant__ CUtensorMap kmap,
                      const __grid_constant__ CUtensorMap vmap,
                      const unsigned char* __restrict__ img, const float* __restrict__ lse,
                      const float* __restrict__ delta, float* __restrict__ dk,
-                     float* __restrict__ dv, int Nq, int Nk, float scale) {
+                     float* __restrict__ dv, int Nq, int Nk, float scale,
+                     const Dropout dropout) {
   using namespace hopper;
   using L = BwdLayout<D>;
   constexpr int BT = L::BT, SPW = L::SPW, PANELS = D / 32;
@@ -1660,6 +1788,8 @@ flash_bwd_dkv_tf32x3(const __grid_constant__ CUtensorMap kmap,
     for (int i = 0; i < BT / 2; ++i) sb[i] = 0.f;
 #pragma unroll
     for (int i = 0; i < D / 2; ++i) acc[i] = part[i] = 0.f;
+    [[maybe_unused]] hs::TileBits<Layout<D>::BN, BT> tb;  // DROP: the keys' bits
+    if constexpr (DROP) tb.init(dropout, bh, k0 + wg::acc_row(t), quad, Nk, Nq, 0);
     for (int qt = 0; qt < nqt; ++qt) {
       const int ia = 2 * qt, ib = ia + 1;  // ring items: Q | dO rows, then dO^T | Q^T
       // this thread's columns are the queries qt BT + 8k + 2(l%4) + {0, 1}
@@ -1672,10 +1802,13 @@ flash_bwd_dkv_tf32x3(const __grid_constant__ CUtensorMap kmap,
       wgmma_fence();
       score_tile<D, BT, BWD_ROWS>(sa, sb, res, res + L::HALF, ring + (ia % SPW) * ITEM);
       wgmma_commit();
+      [[maybe_unused]] uint32_t bits[2];  // DROP: query tile qt's keep bits
+      if constexpr (DROP) tb.take(qt, qt + 1, nqt, bits);
       wgmma_wait<0>();
       fence_regs(sa);
       fence_regs(sb);
-      float x[BT / 2];  // P^T (warpgroup 0) or dS^T (warpgroup 1)
+      // P^T (warpgroup 0; DROP: dropped after the handover) or dS^T (warpgroup 1)
+      float x[BT / 2];
       float* handed = reinterpret_cast<float*>(ring0 + (ia % SPW) * ITEM);  // Q tile's slot
       if (w == 0) {
 #pragma unroll
@@ -1684,6 +1817,8 @@ flash_bwd_dkv_tf32x3(const __grid_constant__ CUtensorMap kmap,
           x[i] = exp2f(fmaf(sa[i] + sa[i + BT / 2] + sb[i], c,
                             -(i % 2 ? l2.y : l2.x) * wg::kLog2e));
           handed[i * 128 + t] = x[i];
+          if constexpr (DROP)
+            x[i] = hs::drop_bit(x[i], bits[(i / 2) % 2], 2 * (i / 4) + i % 2, dropout.drop_scale);
         }
         fence_proxy_async();  // the slot goes back to TMA after warpgroup 1 has read it
         mbar_arrive(&p_full[ia % SPW]);
@@ -1692,8 +1827,10 @@ flash_bwd_dkv_tf32x3(const __grid_constant__ CUtensorMap kmap,
 #pragma unroll
         for (int i = 0; i < BT / 2; ++i) {
           const float2 d2 = st[i / 4];
-          x[i] = handed[i * 128 + t] * (sa[i] + sa[i + BT / 2] + sb[i] - (i % 2 ? d2.y : d2.x)) *
-                 scale;
+          float g = sa[i] + sa[i + BT / 2] + sb[i];  // dP^T, or DROP dP~^T keep / (1 - p)
+          if constexpr (DROP)
+            g = hs::drop_bit(g, bits[(i / 2) % 2], 2 * (i / 4) + i % 2, dropout.drop_scale);
+          x[i] = handed[i * 128 + t] * (g - (i % 2 ? d2.y : d2.x)) * scale;
         }
         fence_proxy_async();
         mbar_arrive(&empty[ia % SPW]);   // warpgroup 0's Q slot
@@ -1802,27 +1939,38 @@ int fwd_wgmma(const void* q, const void* k, const void* v, void* out, void* lse,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The head-shared dropout forward (DROP_SHARED) at key tile BN: for each slab
-// of `slab` rows (of B = bh / local_heads), the pre-pass draws the slab's
-// keep bits into `bits`, then the forward runs on the slab's rows (its
-// operands' rows b0 .., element size `elem`); `forward(q, k, v, out, bh,
-// drop)` launches one.
-template <int BN, typename Forward>
-int fwd_shared(Dropout drop, uint32_t* bits, int slab, const char* q, const char* k,
-               const char* v, char* out, int elem, int d, int bh, int nq, int nk, cudaStream_t s,
-               Forward&& forward) {
-  const int rows = bh / drop.local_heads, groups = drop.local_heads / drop.group;
-  const int chunks = 4 * hs::row_words<BN>(nk), per_block = hs::DRAW_THREADS * hs::DRAW_CHUNKS;
+// A call's dropout on the pre-pass's keep bits, a slab of rows b at a time
+// (as many as `bits_words` words of bits hold, one at least): for each
+// slab the pre-pass (hs::draw_bits where G > 1, else hs::draw_each) writes
+// the slab's bits, in the layout of column tile BN over query rows (the
+// forward's and dQ's) or, `transposed`, key rows (dK/dV's), then
+// `run(first, n, drop)` launches the kernel on grid rows first .. first + n
+// - 1 of the call's BH, drop.bits the slab's bits.
+template <int BN, typename Run>
+int per_slab(Dropout drop, uint32_t* bits, long long bits_words, int bh, int nq, int nk,
+             bool transposed, cudaStream_t s, Run&& run) {
+  const int rows = bh / drop.local_heads, nrows = transposed ? nk : nq;
+  const int words = hs::row_words<BN>(transposed ? nq : nk);
+  const long long row_bits = static_cast<long long>(drop.local_heads) * nrows * words;
+  const long long fit = bits_words / row_bits;
+  if (fit < 1) return BAD_ARGUMENT;
+  const int slab = static_cast<int>(fit < rows ? fit : rows);
   drop.bits = bits;
   for (int b0 = 0; b0 < rows; b0 += slab) {
     const int nb = rows - b0 < slab ? rows - b0 : slab;
-    hs::draw_bits<BN><<<dim3((chunks + per_block - 1) / per_block, nq, nb * groups),
-                        hs::DRAW_THREADS, 0, s>>>(drop, bits, b0, nq, nk);
+    if (drop.group > 1) {
+      const int chunks = 4 * words, per_block = hs::DRAW_THREADS * hs::DRAW_CHUNKS;
+      hs::draw_bits<BN><<<dim3((chunks + per_block - 1) / per_block, nrows,
+                               nb * (drop.local_heads / drop.group)),
+                          hs::DRAW_THREADS, 0, s>>>(drop, bits, b0, nq, nk, transposed);
+    } else {
+      hs::draw_each<BN><<<dim3((words + hs::DRAW_THREADS - 1) / hs::DRAW_THREADS, nrows,
+                               nb * drop.local_heads),
+                          hs::DRAW_THREADS, 0, s>>>(drop, bits, b0, nq, nk, transposed);
+    }
     const cudaError_t e = cudaGetLastError();
     if (e != cudaSuccess) return static_cast<int>(e);
-    const size_t at = static_cast<size_t>(b0) * drop.local_heads * d * elem;
-    const int rc = forward(q + at * nq, k + at * nk, v + at * nk, out + at * nq,
-                           nb * drop.local_heads, drop);
+    const int rc = run(b0 * drop.local_heads, nb * drop.local_heads, drop);
     if (rc != 0) return rc;
   }
   return 0;
@@ -1844,36 +1992,38 @@ cudaError_t bwd_maps(CUtensorMap (&maps)[4], const void* q, const void* k, const
   return cudaSuccess;
 }
 
-template <int D>
+template <int D, bool DROP = false>
 int dq_wgmma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
              const void* delta, void* dq_out, int bh, int nq, int nk, float scale,
-             cudaStream_t s) {
+             cudaStream_t s, const Dropout& drop = {}) {
   CUtensorMap maps[4];
   cudaError_t e = bwd_maps<D>(maps, q, k, v, dout, bh, nq, nk, true);
   if (e != cudaSuccess) return static_cast<int>(e);
   constexpr int bytes = wg::DqSmem<D>::BYTES;
-  e = allow_smem(wg::flash_bwd_dq_wgmma<D>, bytes);
+  e = allow_smem(wg::flash_bwd_dq_wgmma<D, DROP>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  wg::flash_bwd_dq_wgmma<D><<<dim3((nq + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes, s>>>(
+  wg::flash_bwd_dq_wgmma<D, DROP><<<dim3((nq + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes,
+                                    s>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
-      static_cast<const float*>(delta), static_cast<bf16*>(dq_out), nq, nk, scale);
+      static_cast<const float*>(delta), static_cast<bf16*>(dq_out), nq, nk, scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int D>
+template <int D, bool DROP = false>
 int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dk, void* dv, int bh, int nq, int nk, float scale,
-              cudaStream_t s) {
+              cudaStream_t s, const Dropout& drop = {}) {
   CUtensorMap maps[4];
   cudaError_t e = bwd_maps<D>(maps, q, k, v, dout, bh, nq, nk, false);
   if (e != cudaSuccess) return static_cast<int>(e);
   constexpr int bytes = wg::DkvSmem<D>::BYTES;
-  e = allow_smem(wg::flash_bwd_dkv_wgmma<D>, bytes);
+  e = allow_smem(wg::flash_bwd_dkv_wgmma<D, DROP>, bytes);
   if (e != cudaSuccess) return static_cast<int>(e);
-  wg::flash_bwd_dkv_wgmma<D><<<dim3((nk + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes, s>>>(
+  wg::flash_bwd_dkv_wgmma<D, DROP><<<dim3((nk + wg::BM - 1) / wg::BM, bh), wg::THREADS, bytes,
+                                     s>>>(
       maps[0], maps[1], maps[2], maps[3], static_cast<const float*>(lse),
       static_cast<const float*>(delta), static_cast<bf16*>(dk), static_cast<bf16*>(dv), nq, nk,
-      scale);
+      scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1881,10 +2031,10 @@ int dkv_wgmma(const void* q, const void* k, const void* v, const void* dout, con
 // The fp32 dQ: the pre-pass writes K's row and transposed images and V's row
 // images into `img` (planes K rows, V rows, K^T: 6 x BH x N_k x D floats),
 // then the 3xTF32 kernel.
-template <int D>
+template <int D, bool DROP = false>
 int dq_tf32x3(const void* q, const void* k, const void* v, const void* dout, const void* lse,
               const void* delta, void* dq_out, void* img, int bh, int nq, int nk, float scale,
-              cudaStream_t s) {
+              cudaStream_t s, const Dropout& drop = {}) {
   using L = tf::BwdLayout<D>;
   if (nq % tf::BWD_ROWS || nk % (2 * L::BT)) return BAD_ARGUMENT;
   unsigned char* im = static_cast<unsigned char*>(img);
@@ -1894,21 +2044,21 @@ int dq_tf32x3(const void* q, const void* k, const void* v, const void* dout, con
   if (e == cudaSuccess) e = split_images<D, L::BT>(v, im + plane, nullptr, bh, nk, tf::ITEM, s);
   if (e == cudaSuccess) e = head_map<D, float>(&maps[0], q, nq, bh, tf::BWD_ROWS);
   if (e == cudaSuccess) e = head_map<D, float>(&maps[1], dout, nq, bh, tf::BWD_ROWS);
-  if (e == cudaSuccess) e = allow_smem(tf::flash_bwd_dq_tf32x3<D>, L::BYTES);
+  if (e == cudaSuccess) e = allow_smem(tf::flash_bwd_dq_tf32x3<D, DROP>, L::BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  tf::flash_bwd_dq_tf32x3<D><<<dim3(nq / tf::BWD_ROWS, bh), wg::THREADS, L::BYTES, s>>>(
+  tf::flash_bwd_dq_tf32x3<D, DROP><<<dim3(nq / tf::BWD_ROWS, bh), wg::THREADS, L::BYTES, s>>>(
       maps[0], maps[1], im, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dq_out), nq, nk, scale);
+      static_cast<float*>(dq_out), nq, nk, scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
 // The fp32 dK/dV: the pre-pass writes Q's and dO's row and transposed images
 // into `img` (planes Q rows, dO rows, Q^T, dO^T: 8 x BH x N_q x D floats),
 // then the 3xTF32 kernel.
-template <int D>
+template <int D, bool DROP = false>
 int dkv_tf32x3(const void* q, const void* k, const void* v, const void* dout, const void* lse,
                const void* delta, void* dk, void* dv, void* img, int bh, int nq, int nk,
-               float scale, cudaStream_t s) {
+               float scale, cudaStream_t s, const Dropout& drop = {}) {
   using L = tf::BwdLayout<D>;
   if (nk % tf::BWD_ROWS || nq % (2 * L::BT)) return BAD_ARGUMENT;
   unsigned char* im = static_cast<unsigned char*>(img);
@@ -1919,11 +2069,11 @@ int dkv_tf32x3(const void* q, const void* k, const void* v, const void* dout, co
     e = split_images<D, L::BT>(dout, im + plane, im + 3 * plane, bh, nq, tf::ITEM, s);
   if (e == cudaSuccess) e = head_map<D, float>(&maps[0], k, nk, bh, tf::BWD_ROWS);
   if (e == cudaSuccess) e = head_map<D, float>(&maps[1], v, nk, bh, tf::BWD_ROWS);
-  if (e == cudaSuccess) e = allow_smem(tf::flash_bwd_dkv_tf32x3<D>, L::BYTES);
+  if (e == cudaSuccess) e = allow_smem(tf::flash_bwd_dkv_tf32x3<D, DROP>, L::BYTES);
   if (e != cudaSuccess) return static_cast<int>(e);
-  tf::flash_bwd_dkv_tf32x3<D><<<dim3(nk / tf::BWD_ROWS, bh), wg::THREADS, L::BYTES, s>>>(
+  tf::flash_bwd_dkv_tf32x3<D, DROP><<<dim3(nk / tf::BWD_ROWS, bh), wg::THREADS, L::BYTES, s>>>(
       maps[0], maps[1], im, static_cast<const float*>(lse), static_cast<const float*>(delta),
-      static_cast<float*>(dk), static_cast<float*>(dv), nq, nk, scale);
+      static_cast<float*>(dk), static_cast<float*>(dv), nq, nk, scale, drop);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1944,22 +2094,10 @@ extern "C" int flash_fwd_launch(int is_bf16, int d, const void* q, const void* k
   return BAD_ARGUMENT;
 }
 
-// The forward with attention-weight dropout (the DROP instances; Dropout
-// above): out only, no lse.  seed: one int64 on the device; base >= 0; the
-// BH = B x local_heads rows hold B / rows passes from pass0, pass-major;
-// heads h0 .. h0 + local_heads - 1 of `heads`.  keep_prob = float32(1 - p),
-// drop_scale = float32(1 / (1 - p)).  group 1: DROP_EACH; 2 or 4: DROP_SHARED
-// (one Philox call for `group` heads), which needs heads and base multiples
-// of 4 and h0, local_heads multiples of the group, and takes `bits`
-// (bits_words uint32 words: the pre-pass's output for as many rows b at a
-// time as it holds, one at least).  fp32 takes `scratch` as the forward.
-extern "C" int flash_fwd_dropout_launch(int is_bf16, int d, const void* q, const void* k,
-                                        const void* v, void* out, void* scratch, void* bits,
-                                        long long bits_words, int bh, int nq, int nk,
-                                        float scale, const void* seed, long long base,
-                                        long long pass0, int rows, int heads, int h0,
-                                        int local_heads, float keep_prob, float drop_scale,
-                                        int group, void* stream) {
+// The Dropout of a dropout launch, or BAD_ARGUMENT (below).
+static int dropout_of(Dropout* drop, int bh, int nq, int nk, int d, const void* seed,
+                      long long base, long long pass0, int rows, int heads, int h0,
+                      int local_heads, float keep_prob, float drop_scale, int group) {
   if (base < 0 || rows < 1 || local_heads < 1 || h0 < 0 || h0 + local_heads > heads ||
       static_cast<long long>(nk) * heads >= (1LL << 32) || bh % local_heads ||
       (bh / local_heads) % rows || pass0 < 0 ||
@@ -1969,53 +2107,81 @@ extern "C" int flash_fwd_dropout_launch(int is_bf16, int d, const void* q, const
   if (group != 1 && ((group != 2 && group != 4) || heads % 4 || base % 4 || h0 % group ||
                      local_heads % group))
     return BAD_ARGUMENT;
-  const Dropout drop{static_cast<const long long*>(seed), static_cast<unsigned long long>(base),
-                     static_cast<unsigned>(pass0), rows, heads, h0, local_heads, keep_prob,
-                     drop_scale, philox::keep_threshold(keep_prob), group, nullptr};
+  *drop = Dropout{static_cast<const long long*>(seed), static_cast<unsigned long long>(base),
+                  static_cast<unsigned>(pass0), rows, heads, h0, local_heads, keep_prob,
+                  drop_scale, philox::keep_threshold(keep_prob), group, nullptr};
+  return 0;
+}
+
+// per_slab for the kernels of one type and head width, at their bits' column
+// tile: the forward's key tile (bf16 wg::BN; fp32 tf::Layout's BN), twice the
+// backward's BT.
+template <typename Run>
+static int per_slab_for(int is_bf16, int d, const Dropout& drop, void* bits,
+                        long long bits_words, int bh, int nq, int nk, bool transposed,
+                        cudaStream_t s, Run&& run) {
+  uint32_t* words = static_cast<uint32_t*>(bits);
+  if (is_bf16) return per_slab<wg::BN>(drop, words, bits_words, bh, nq, nk, transposed, s, run);
+  if (d == 128)
+    return per_slab<tf::Layout<128>::BN>(drop, words, bits_words, bh, nq, nk, transposed, s,
+                                         run);
+  return per_slab<tf::Layout<64>::BN>(drop, words, bits_words, bh, nq, nk, transposed, s, run);
+}
+
+// Grid rows `first` .. of a (BH, n, d) operand of element size `elem`.
+static const void* rows_at(const void* p, int first, int n, int d, int elem) {
+  return static_cast<const char*>(p) + static_cast<size_t>(first) * n * d * elem;
+}
+static void* rows_at(void* p, int first, int n, int d, int elem) {
+  return static_cast<char*>(p) + static_cast<size_t>(first) * n * d * elem;
+}
+
+// The forward with attention-weight dropout (the DROP instances; Dropout
+// above): out and lse (the undropped P's, as the forward's; the MC path
+// drops it).  seed: one int64 on the device; base >= 0; the BH = B x
+// local_heads rows hold B / rows passes from pass0, pass-major; heads h0 ..
+// h0 + local_heads - 1 of `heads`.  keep_prob = float32(1 - p), drop_scale =
+// float32(1 / (1 - p)).  group 1: DROP_EACH; 2 or 4: DROP_SHARED (one
+// Philox call for `group` heads), which needs heads and base multiples of 4
+// and h0, local_heads multiples of the group, and takes `bits` (bits_words
+// uint32 words: the pre-pass's output for as many rows b at a time as it
+// holds, one at least).  fp32 takes `scratch` as the forward.
+extern "C" int flash_fwd_dropout_launch(int is_bf16, int d, const void* q, const void* k,
+                                        const void* v, void* out, void* lse, void* scratch,
+                                        void* bits, long long bits_words, int bh, int nq, int nk,
+                                        float scale, const void* seed, long long base,
+                                        long long pass0, int rows, int heads, int h0,
+                                        int local_heads, float keep_prob, float drop_scale,
+                                        int group, void* stream) {
+  Dropout drop;
+  if (dropout_of(&drop, bh, nq, nk, d, seed, base, pass0, rows, heads, h0, local_heads,
+                 keep_prob, drop_scale, group))
+    return BAD_ARGUMENT;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (group == 1) {
     if (is_bf16 && d == 128)
-      return fwd_wgmma<128, DROP_EACH>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
+      return fwd_wgmma<128, DROP_EACH>(q, k, v, out, lse, bh, nq, nk, scale, s, drop);
     if (is_bf16 && d == 64)
-      return fwd_wgmma<64, DROP_EACH>(q, k, v, out, nullptr, bh, nq, nk, scale, s, drop);
+      return fwd_wgmma<64, DROP_EACH>(q, k, v, out, lse, bh, nq, nk, scale, s, drop);
     if (!is_bf16 && d == 128)
-      return fwd_tf32x3<128, DROP_EACH>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s,
-                                        drop);
-    return fwd_tf32x3<64, DROP_EACH>(q, k, v, out, nullptr, scratch, bh, nq, nk, scale, s, drop);
+      return fwd_tf32x3<128, DROP_EACH>(q, k, v, out, lse, scratch, bh, nq, nk, scale, s, drop);
+    return fwd_tf32x3<64, DROP_EACH>(q, k, v, out, lse, scratch, bh, nq, nk, scale, s, drop);
   }
-  const int bn = is_bf16 ? wg::BN : (d == 128 ? tf::Layout<128>::BN : tf::Layout<64>::BN);
-  const long long row_bits = static_cast<long long>(local_heads) * nq * ((nk + bn - 1) / bn) *
-                             (bn / 32);
-  const long long slab = bits_words / row_bits;
-  if (slab < 1) return BAD_ARGUMENT;
-  const int slab_rows = static_cast<int>(slab < bh / local_heads ? slab : bh / local_heads);
-  uint32_t* words = static_cast<uint32_t*>(bits);
-  const char *qc = static_cast<const char*>(q), *kc = static_cast<const char*>(k),
-             *vc = static_cast<const char*>(v);
-  char* oc = static_cast<char*>(out);
-  if (is_bf16) {
-    const auto fwd = [&](const char* qs, const char* ks, const char* vs, char* os, int sbh,
-                         const Dropout& dr) {
-      return d == 128 ? fwd_wgmma<128, DROP_SHARED>(qs, ks, vs, os, nullptr, sbh, nq, nk, scale,
-                                                    s, dr)
-                      : fwd_wgmma<64, DROP_SHARED>(qs, ks, vs, os, nullptr, sbh, nq, nk, scale,
-                                                   s, dr);
-    };
-    return fwd_shared<wg::BN>(drop, words, slab_rows, qc, kc, vc, oc, 2, d, bh, nq, nk, s, fwd);
-  }
-  if (d == 128)
-    return fwd_shared<tf::Layout<128>::BN>(
-        drop, words, slab_rows, qc, kc, vc, oc, 4, d, bh, nq, nk, s,
-        [&](const char* qs, const char* ks, const char* vs, char* os, int sbh, const Dropout& dr) {
-          return fwd_tf32x3<128, DROP_SHARED>(qs, ks, vs, os, nullptr, scratch, sbh, nq, nk,
-                                              scale, s, dr);
-        });
-  return fwd_shared<tf::Layout<64>::BN>(
-      drop, words, slab_rows, qc, kc, vc, oc, 4, d, bh, nq, nk, s,
-      [&](const char* qs, const char* ks, const char* vs, char* os, int sbh, const Dropout& dr) {
-        return fwd_tf32x3<64, DROP_SHARED>(qs, ks, vs, os, nullptr, scratch, sbh, nq, nk, scale,
-                                           s, dr);
-      });
+  const int el = is_bf16 ? 2 : 4;
+  const auto run = [&](int first, int n, const Dropout& dr) {
+    const void *qs = rows_at(q, first, nq, d, el), *ks = rows_at(k, first, nk, d, el),
+               *vs = rows_at(v, first, nk, d, el);
+    void* os = rows_at(out, first, nq, d, el);
+    float* ls = static_cast<float*>(lse) + static_cast<size_t>(first) * nq;
+    if (is_bf16)
+      return d == 128 ? fwd_wgmma<128, DROP_SHARED>(qs, ks, vs, os, ls, n, nq, nk, scale, s, dr)
+                      : fwd_wgmma<64, DROP_SHARED>(qs, ks, vs, os, ls, n, nq, nk, scale, s, dr);
+    return d == 128 ? fwd_tf32x3<128, DROP_SHARED>(qs, ks, vs, os, ls, scratch, n, nq, nk, scale,
+                                                   s, dr)
+                    : fwd_tf32x3<64, DROP_SHARED>(qs, ks, vs, os, ls, scratch, n, nq, nk, scale,
+                                                  s, dr);
+  };
+  return per_slab_for(is_bf16, d, drop, bits, bits_words, bh, nq, nk, false, s, run);
 }
 
 // Dynamic shared memory of a wgmma kernel (0 bf16 forward, 1 dQ, 2 dK/dV, 3
@@ -2066,4 +2232,85 @@ extern "C" int flash_bwd_dkv_launch(int is_bf16, int d, const void* q, const voi
   if (!is_bf16 && d == 64)
     return dkv_tf32x3<64>(q, k, v, dout, lse, delta, dk, dv, scratch, bh, nq, nk, scale, s);
   return BAD_ARGUMENT;
+}
+
+// The backward's dropout instances (the training route's attention-weight
+// dropout; the arguments as flash_fwd_dropout_launch's, lse the forward's):
+// for each slab of rows b, the pre-pass writes the slab's keep bits (the
+// head-shared draw where group > 1, one Philox call a weight where group is
+// 1: the kernels only read bits) into `bits` (bits_words uint32 words, at
+// least one row b's: local_heads x N x N bits, N rounded up to the forward's
+// key tile), query-major for dQ, key-major for dK/dV, then the kernel runs on
+// the slab's rows.  Needs N_q N_k heads < 2^32.  fp32 takes `scratch` as the
+// kernels without dropout.
+static int bwd_dropout_args(Dropout* drop, int bh, int nq, int nk, int d, const void* seed,
+                            long long base, long long pass0, int rows, int heads, int h0,
+                            int local_heads, float keep_prob, float drop_scale, int group) {
+  if (static_cast<long long>(nq) * nk * heads >= (1LL << 32)) return BAD_ARGUMENT;
+  return dropout_of(drop, bh, nq, nk, d, seed, base, pass0, rows, heads, h0, local_heads,
+                    keep_prob, drop_scale, group);
+}
+
+extern "C" int flash_bwd_dq_dropout_launch(int is_bf16, int d, const void* q, const void* k,
+                                           const void* v, const void* dout, const void* lse,
+                                           const void* delta, void* dq_out, void* scratch,
+                                           void* bits, long long bits_words, int bh, int nq,
+                                           int nk, float scale, const void* seed, long long base,
+                                           long long pass0, int rows, int heads, int h0,
+                                           int local_heads, float keep_prob, float drop_scale,
+                                           int group, void* stream) {
+  Dropout drop;
+  if (bwd_dropout_args(&drop, bh, nq, nk, d, seed, base, pass0, rows, heads, h0, local_heads,
+                       keep_prob, drop_scale, group))
+    return BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int el = is_bf16 ? 2 : 4;
+  const auto run = [&](int first, int n, const Dropout& dr) {
+    const void *qs = rows_at(q, first, nq, d, el), *ks = rows_at(k, first, nk, d, el),
+               *vs = rows_at(v, first, nk, d, el), *dos = rows_at(dout, first, nq, d, el);
+    const float* ls = static_cast<const float*>(lse) + static_cast<size_t>(first) * nq;
+    const float* dls = static_cast<const float*>(delta) + static_cast<size_t>(first) * nq;
+    void* dqs = rows_at(dq_out, first, nq, d, el);
+    if (is_bf16)
+      return d == 128 ? dq_wgmma<128, true>(qs, ks, vs, dos, ls, dls, dqs, n, nq, nk, scale, s, dr)
+                      : dq_wgmma<64, true>(qs, ks, vs, dos, ls, dls, dqs, n, nq, nk, scale, s, dr);
+    return d == 128 ? dq_tf32x3<128, true>(qs, ks, vs, dos, ls, dls, dqs, scratch, n, nq, nk,
+                                           scale, s, dr)
+                    : dq_tf32x3<64, true>(qs, ks, vs, dos, ls, dls, dqs, scratch, n, nq, nk,
+                                          scale, s, dr);
+  };
+  return per_slab_for(is_bf16, d, drop, bits, bits_words, bh, nq, nk, false, s, run);
+}
+
+extern "C" int flash_bwd_dkv_dropout_launch(int is_bf16, int d, const void* q, const void* k,
+                                            const void* v, const void* dout, const void* lse,
+                                            const void* delta, void* dk, void* dv, void* scratch,
+                                            void* bits, long long bits_words, int bh, int nq,
+                                            int nk, float scale, const void* seed,
+                                            long long base, long long pass0, int rows, int heads,
+                                            int h0, int local_heads, float keep_prob,
+                                            float drop_scale, int group, void* stream) {
+  Dropout drop;
+  if (bwd_dropout_args(&drop, bh, nq, nk, d, seed, base, pass0, rows, heads, h0, local_heads,
+                       keep_prob, drop_scale, group))
+    return BAD_ARGUMENT;
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int el = is_bf16 ? 2 : 4;
+  const auto run = [&](int first, int n, const Dropout& dr) {
+    const void *qs = rows_at(q, first, nq, d, el), *ks = rows_at(k, first, nk, d, el),
+               *vs = rows_at(v, first, nk, d, el), *dos = rows_at(dout, first, nq, d, el);
+    const float* ls = static_cast<const float*>(lse) + static_cast<size_t>(first) * nq;
+    const float* dls = static_cast<const float*>(delta) + static_cast<size_t>(first) * nq;
+    void *dks = rows_at(dk, first, nk, d, el), *dvs = rows_at(dv, first, nk, d, el);
+    if (is_bf16)
+      return d == 128 ? dkv_wgmma<128, true>(qs, ks, vs, dos, ls, dls, dks, dvs, n, nq, nk, scale,
+                                             s, dr)
+                      : dkv_wgmma<64, true>(qs, ks, vs, dos, ls, dls, dks, dvs, n, nq, nk, scale,
+                                            s, dr);
+    return d == 128 ? dkv_tf32x3<128, true>(qs, ks, vs, dos, ls, dls, dks, dvs, scratch, n, nq,
+                                            nk, scale, s, dr)
+                    : dkv_tf32x3<64, true>(qs, ks, vs, dos, ls, dls, dks, dvs, scratch, n, nq,
+                                           nk, scale, s, dr);
+  };
+  return per_slab_for(is_bf16, d, drop, bits, bits_words, bh, nq, nk, true, s, run);
 }

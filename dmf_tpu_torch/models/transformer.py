@@ -17,14 +17,20 @@ which takes the flash kernels on the card at the hybrid stage's 4096 tokens.
 Attention-weight dropout takes one of two routes, chosen alike on both
 devices:
 
-* the fused route, on a ``SeedStream`` at the shapes where JAX's rule takes
-  flash attention (``ops/attention.py::use_flash``: N >= 512, N a multiple of
-  512): :func:`~dmf_tpu_torch.ops.flash_attention.flash_attention_dropout`,
-  the flash forward kernels with the seed route's keep mask drawn inside (its
-  plain version on the CPU), the same mask and counters as the weights route;
-* otherwise the weights route (dropout on the materialized weights, then the
-  value product, JAX's transformer.py:45-49): with a ``torch.Generator``
-  (training, or a direct ``mc=True`` call) and below the flash shapes.
+* the fused route, at the shapes where JAX's rule takes flash attention
+  (``ops/attention.py::use_flash``: N >= 512, N a multiple of 512):
+  :func:`~dmf_tpu_torch.ops.flash_attention.flash_attention_dropout`, the
+  flash kernels with the seed route's keep mask drawn inside (their plain
+  versions on the CPU), the same function as the weights route on that mask.
+  On a ``SeedStream`` (the MC predictors) it takes the stream's next site;
+  with a ``torch.Generator`` (training, or a direct ``mc=True`` call) each
+  call draws one int64 seed from the generator on the model's device and
+  takes the counters of the whole batch's weights from 0 (under a data
+  mesh's step this rank's rows of them), and autograd runs the backward
+  kernels' dropout instances on the same keep bits;
+* below the flash shapes the weights route (dropout on the materialized
+  weights, then the value product, JAX's transformer.py:45-49), its mask
+  the generator's ``uniform_`` draw or the stream's.
 
 Over a mesh's model axis (``parallel/tensor.py``) ``qkv`` and ``fc1`` are
 column-parallel and ``proj`` and ``fc2`` row-parallel: attention runs on
@@ -42,9 +48,23 @@ import torch.nn.functional as F
 
 from ..ops.attention import scaled_dot_product_attention, use_flash
 from ..ops.dropout import SeedStream
+from ..ops.epilogue_cuda import draw_seed
 from ..ops.flash_attention import attention_weights, flash_attention_dropout
+from ..parallel.mesh import active_shard
 from ..parallel.tensor import local_heads, model_mesh
 from .layers import dropout
+
+
+def _train_stream(generator: torch.Generator, device, heads: int, n: int) -> SeedStream:
+    """The seed stream of one fused attention site on the generator route:
+    one int64 seed drawn from ``generator`` on ``device`` (no host sync),
+    the counters of the whole batch's (B, ``heads``, N, N) weights from 0.
+    Every model rank draws the same seed (the generators stay in step); under
+    a data mesh's step every rank does too, and this rank's rows take their
+    counters of the global batch's weights."""
+    shard = active_shard()
+    first_row = 0 if shard is None else shard.start
+    return SeedStream(draw_seed(generator, device), counter=first_row * heads * n * n)
 
 
 def _dropout_of(layer: nn.Module, x: torch.Tensor, p: float, generator, dim: int):
@@ -80,9 +100,11 @@ class MultiHeadSelfAttention(nn.Module):
         q, k, v = self.qkv(x).reshape(B, N, 3, H, D).permute(2, 0, 3, 1, 4)
         if not (mc and self.attn_drop > 0.0):
             out = scaled_dot_product_attention(q, k, v)
-        elif isinstance(generator, SeedStream) and use_flash(N, N, False):
+        elif generator is not None and use_flash(N, N, False):
+            stream = (generator if isinstance(generator, SeedStream)
+                      else _train_stream(generator, x.device, self.num_heads, N))
             mesh = model_mesh(self.qkv)
-            out = flash_attention_dropout(q, k, v, self.attn_drop, generator, self.num_heads,
+            out = flash_attention_dropout(q, k, v, self.attn_drop, stream, self.num_heads,
                                           0 if mesh is None else mesh.model_rank * H)
         else:
             # the weights route: dropout on the materialized weights

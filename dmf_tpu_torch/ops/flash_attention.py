@@ -42,6 +42,18 @@ most ``DROP_BITS_BYTES``) and the forward reads them; every other shape
 takes the per-element instance, which draws one call a weight inside the
 forward.  Its plain version, :func:`flash_attention_dropout_ref`, is that
 weights route as one function, bit for bit.
+
+Its backward (:class:`_FlashAttentionDropout`, the training route of
+``models/transformer.py`` at the flash shapes: JAX's training route is the
+same weights route, differentiated by XLA) runs the dropout instances of
+the dQ and dK/dV kernels on the forward's lse: with P~ = P keep / (1 - p),
+dV = P~^T dO and dS = P (dO V^T keep / (1 - p) - delta), delta =
+rowsum(dO * O) as without dropout.  A pre-pass draws the keep bits again, a
+slab of rows at a time (at most ``DROP_BITS_BYTES``), in dQ's layout and
+then in dK/dV's; nothing of the mask is kept from the forward.  Their plain
+versions, :func:`flash_bwd_dq_dropout_ref` and
+:func:`flash_bwd_dkv_dropout_ref`, apply those formulas to the seed route's
+keep mask.
 """
 
 from __future__ import annotations
@@ -65,6 +77,17 @@ HEAD_DIMS = (64, 128)
 DROP_BITS_BYTES = 32 << 20
 
 
+def _scores(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """The fp32 scores S = Q K^T scale of the plain versions."""
+    return torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
+
+
+def attention_lse(q: torch.Tensor, k: torch.Tensor, scale: float) -> torch.Tensor:
+    """The fp32 (..., N_q) log-sum-exp of the scores, the lse every forward
+    returns (with or without dropout: the undropped softmax's)."""
+    return torch.logsumexp(_scores(q, k, scale), dim=-1)
+
+
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         scale: Optional[float] = None
                         ) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -75,8 +98,8 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """
     if scale is None:
         scale = q.shape[-1] ** -0.5
-    s = torch.einsum("...qd,...kd->...qk", q.float(), k.float()) * scale
-    lse = torch.logsumexp(s, dim=-1)
+    s = _scores(q, k, scale)
+    lse = torch.logsumexp(s, dim=-1)  # attention_lse's
     p = torch.exp(s - lse[..., None])
     out = torch.einsum("...qk,...kd->...qd", p, v.float()).to(q.dtype)
     return out, lse
@@ -109,6 +132,49 @@ def flash_attention_dropout_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tenso
     return torch.einsum("bhqk,bhkd->bhqd", w, v)
 
 
+def _dropout_bwd_ref(q, k, v, dout, lse, delta, scale: float, p: float, seed: torch.Tensor,
+                     base: int, first_pass: int, passes: int, heads: Optional[int], h0: int):
+    """The backward's shared terms in fp32 over (B, H_local, N, D) tensors:
+    ``(P, P~, dS)`` from the forward's ``lse`` (B, H_local, N_q), the
+    caller's ``delta`` and the seed route's keep mask of the whole (B,
+    ``heads``, N_q, N_k) weights narrowed to heads ``h0 ..``, as
+    :func:`flash_attention_dropout_ref` draws it."""
+    B, H, nq, _ = q.shape
+    heads = H if heads is None else heads
+    prob = torch.exp(_scores(q, k, scale) - lse[..., None])
+    keep = dropout.keep_mask_plain((B, heads, nq, k.shape[2]), p, seed, base, first_pass,
+                                   passes).narrow(1, h0, H)
+    dropped = torch.where(keep, prob / (1.0 - p), 0.0)
+    dpt = torch.einsum("bhqd,bhkd->bhqk", dout.float(), v.float())
+    ds = prob * (torch.where(keep, dpt / (1.0 - p), 0.0) - delta[..., None])
+    return prob, dropped, ds
+
+
+def flash_bwd_dq_dropout_ref(q, k, v, dout, lse, delta, scale: float, p: float,
+                             seed: torch.Tensor, base: int, first_pass: int = 0,
+                             passes: int = 1, heads: Optional[int] = None,
+                             h0: int = 0) -> torch.Tensor:
+    """Plain version of the dQ kernel's dropout instance: dQ = scale dS K
+    with dS = P (dO V^T keep / (1 - p) - delta), P = exp(S - lse), in fp32,
+    rounded once to q's dtype (the arguments as the forward's)."""
+    _, _, ds = _dropout_bwd_ref(q, k, v, dout, lse, delta, scale, p, seed, base, first_pass,
+                                passes, heads, h0)
+    return (torch.einsum("bhqk,bhkd->bhqd", ds, k.float()) * scale).to(q.dtype)
+
+
+def flash_bwd_dkv_dropout_ref(q, k, v, dout, lse, delta, scale: float, p: float,
+                              seed: torch.Tensor, base: int, first_pass: int = 0,
+                              passes: int = 1, heads: Optional[int] = None,
+                              h0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Plain version of the dK/dV kernel's dropout instance: ``(dK, dV)``,
+    dK = scale dS^T Q, dV = P~^T dO with P~ = P keep / (1 - p)."""
+    _, dropped, ds = _dropout_bwd_ref(q, k, v, dout, lse, delta, scale, p, seed, base,
+                                      first_pass, passes, heads, h0)
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dv = torch.einsum("bhqk,bhqd->bhkd", dropped, dout.float())
+    return dk.to(k.dtype), dv.to(v.dtype)
+
+
 @functools.lru_cache(maxsize=None)
 def _library() -> ctypes.CDLL:
     lib = load_library("flash_attention", _SOURCES)
@@ -117,10 +183,15 @@ def _library() -> ctypes.CDLL:
     lib.flash_bwd_dq_launch.argtypes = [i, i] + [p] * 8 + [i, i, i, f, p]
     lib.flash_bwd_dkv_launch.argtypes = [i, i] + [p] * 9 + [i, i, i, f, p]
     ll = ctypes.c_longlong
-    lib.flash_fwd_dropout_launch.argtypes = ([i, i] + [p] * 6 + [ll, i, i, i, f, p, ll, ll]
-                                             + [i] * 4 + [f, f, i, p])
+    # the dropout launches: their tensors, scratch and bits, then the bits'
+    # words, the shape, scale and the dropout's arguments
+    tail = [ll, i, i, i, f, p, ll, ll] + [i] * 4 + [f, f, i, p]
+    lib.flash_fwd_dropout_launch.argtypes = [i, i] + [p] * 7 + tail
+    lib.flash_bwd_dq_dropout_launch.argtypes = [i, i] + [p] * 9 + tail
+    lib.flash_bwd_dkv_dropout_launch.argtypes = [i, i] + [p] * 10 + tail
     for fn in (lib.flash_fwd_launch, lib.flash_bwd_dq_launch, lib.flash_bwd_dkv_launch,
-               lib.flash_fwd_dropout_launch):
+               lib.flash_fwd_dropout_launch, lib.flash_bwd_dq_dropout_launch,
+               lib.flash_bwd_dkv_dropout_launch):
         fn.restype = ctypes.c_int
     lib.flash_wgmma_smem.argtypes = [i, i]
     lib.flash_wgmma_smem.restype = i
@@ -231,49 +302,112 @@ def dropout_key_tile(dtype: torch.dtype, d: int) -> int:
 
 
 def dropout_bits_words(dtype: torch.dtype, d: int, local_heads: int, nq: int, nk: int) -> int:
-    """32-bit words of the head-shared instance's keep bits of one row b:
-    ``local_heads`` x N_q rows of N_k bits rounded up to the key tile."""
+    """32-bit words of the pre-pass's keep bits of one row b: ``local_heads``
+    x N_q rows of N_k bits rounded up to the key tile (the forward's and
+    dQ's layout; dK/dV's is the transposed one, N_q and N_k swapped)."""
     bn = dropout_key_tile(dtype, d)
     return local_heads * nq * -(-nk // bn) * (bn // 32)
+
+
+def _check_4d(q: torch.Tensor, *others: torch.Tensor) -> None:
+    if any(t.dim() != 4 for t in (q, *others)):
+        raise ValueError("flash_attention_dropout: need (B, H, N, D) tensors")
+    if any(not t.is_contiguous() for t in (q, *others)):
+        raise ValueError("flash_attention_dropout: the operands must be contiguous "
+                         "(B, H, N, D)")
+
+
+def _launch_dropout(fn, q: torch.Tensor, k: torch.Tensor, tensors, scratch: torch.Tensor,
+                    scale: float, p: float, seed: torch.Tensor, base: int, first_pass: int,
+                    passes: int, heads: int, h0: int, group: int, bits_rows: int,
+                    bits_cols: int) -> None:
+    """One dropout launch ``fn`` on ``tensors`` (the entry point's pointers
+    up to its scratch) with a bits scratch of at most ``DROP_BITS_BYTES`` (a
+    slab of rows b of ``bits_rows`` x ``bits_cols`` bits a head; none where
+    ``bits_rows`` is 0: the forward's per-element instance reads no bits)."""
+    _check_dropout(q, p, seed, first_pass, passes, heads, h0)
+    if base < 0:
+        raise ValueError(f"flash_attention_dropout: negative counter base {base}")
+    B, H, nq, d = q.shape
+    words = 0
+    if bits_rows:
+        row = dropout_bits_words(q.dtype, d, H, bits_rows, bits_cols)
+        words = row * max(1, min(B, DROP_BITS_BYTES // (4 * row)))
+    bits = torch.empty(words, device=q.device, dtype=torch.int32)
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        rc = fn(int(q.dtype == torch.bfloat16), d, *(t.data_ptr() for t in tensors),
+                scratch.data_ptr(), bits.data_ptr(), words, B * H, nq, k.shape[2], scale,
+                seed.data_ptr(), base, first_pass, B // passes, heads, h0, H, 1.0 - p,
+                1.0 / (1.0 - p), group, stream)
+    if rc != 0:
+        raise RuntimeError(f"flash_attention_dropout: {fn.__name__} failed (CUDA error {rc})")
 
 
 def launch_flash_forward_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                  scale: float, p: float, seed: torch.Tensor, base: int,
                                  first_pass: int, passes: int, heads: int,
-                                 h0: int, group: int) -> torch.Tensor:
+                                 h0: int, group: int) -> Tuple[torch.Tensor, torch.Tensor]:
     """Launch the forward's dropout instance ``group`` on contiguous (B,
-    H_local, N, D) CUDA tensors: ``out`` (no lse).  ``group``: 1 the
+    H_local, N, D) CUDA tensors: ``(out, lse)``, lse fp32 (B, H_local, N_q)
+    (the undropped softmax's, as the forward's).  ``group``: 1 the
     per-element instance, 2 or 4 the head-shared one (:func:`dropout_group`
     gives the served choice; the library raises on a group the shape does
     not allow).  fp32 takes the forward's scratch; the head-shared instance
     its keep bits, at most ``DROP_BITS_BYTES`` a slab of rows."""
-    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
-        raise ValueError("flash_attention_dropout: need (B, H, N, D) tensors")
-    if any(not t.is_contiguous() for t in (q, k, v)):
-        raise ValueError("flash_attention_dropout: q, k and v must be contiguous (B, H, N, D)")
-    _check_dropout(q, p, seed, first_pass, passes, heads, h0)
-    if base < 0:
-        raise ValueError(f"flash_attention_dropout: negative counter base {base}")
+    _check_4d(q, k, v)
     B, H, nq, d = q.shape
     q3, k3, v3 = (t.view(B * H, t.shape[2], d) for t in (q, k, v))
     _check_operands(q3, k3, v3)
     out = torch.empty_like(q)
-    scratch = _scratch(k3, 4)
-    words = 0
-    if group > 1:
-        row = dropout_bits_words(q.dtype, d, H, nq, k.shape[2])
-        words = row * max(1, min(B, DROP_BITS_BYTES // (4 * row)))
-    bits = torch.empty(words, device=q.device, dtype=torch.int32)
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        rc = _library().flash_fwd_dropout_launch(
-            int(q.dtype == torch.bfloat16), d, q.data_ptr(), k.data_ptr(), v.data_ptr(),
-            out.data_ptr(), scratch.data_ptr(), bits.data_ptr(), words, B * H, nq, k.shape[2],
-            scale, seed.data_ptr(), base, first_pass, B // passes, heads, h0, H, 1.0 - p,
-            1.0 / (1.0 - p), group, stream)
-    if rc != 0:
-        raise RuntimeError(f"flash_attention_dropout: launch failed (CUDA error {rc})")
-    return out
+    lse = torch.empty(q.shape[:3], device=q.device, dtype=torch.float32)
+    if B:
+        _launch_dropout(_library().flash_fwd_dropout_launch, q, k, (q, k, v, out, lse),
+                        _scratch(k3, 4), scale, p, seed, base, first_pass, passes, heads, h0,
+                        group, nq if group > 1 else 0, k.shape[2])
+    return out, lse
+
+
+def _check_dropout_backward(q, k, v, dout, lse, delta) -> None:
+    _check_4d(q, k, v, dout)
+    B, H, nq, d = q.shape
+    for name, t in (("lse", lse), ("delta", delta)):
+        if t.shape != q.shape[:3] or not t.is_contiguous():
+            raise ValueError(f"flash_attention_dropout: {name} must be contiguous (B, H, N_q)")
+    _check_backward(*(t.view(B * H, t.shape[2], d) for t in (q, k, v, dout)),
+                    lse.view(B * H, nq), delta.view(B * H, nq))
+
+
+def launch_flash_bwd_dq_dropout(q, k, v, dout, lse, delta, scale: float, p: float,
+                                seed: torch.Tensor, base: int, first_pass: int, passes: int,
+                                heads: int, h0: int, group: int) -> torch.Tensor:
+    """Launch the dQ kernel's dropout instance on contiguous (B, H_local, N,
+    D) CUDA tensors, ``lse`` and ``delta`` fp32 (B, H_local, N_q), the
+    arguments as the forward's: ``dq``.  The pre-pass redraws the keep bits
+    (query-major), one Philox call for ``group`` heads (1: one a weight),
+    a slab of rows at a time; fp32 takes the dQ kernel's scratch."""
+    _check_dropout_backward(q, k, v, dout, lse, delta)
+    dq = torch.empty_like(q)
+    if q.shape[0]:
+        _launch_dropout(_library().flash_bwd_dq_dropout_launch, q, k,
+                        (q, k, v, dout, lse, delta, dq), _scratch(k, 6), scale, p, seed, base,
+                        first_pass, passes, heads, h0, group, q.shape[2], k.shape[2])
+    return dq
+
+
+def launch_flash_bwd_dkv_dropout(q, k, v, dout, lse, delta, scale: float, p: float,
+                                 seed: torch.Tensor, base: int, first_pass: int, passes: int,
+                                 heads: int, h0: int,
+                                 group: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Launch the dK/dV kernel's dropout instance (as
+    :func:`launch_flash_bwd_dq_dropout`; its keep bits key-major): ``(dk, dv)``."""
+    _check_dropout_backward(q, k, v, dout, lse, delta)
+    dk, dv = torch.empty_like(k), torch.empty_like(v)
+    if q.shape[0]:
+        _launch_dropout(_library().flash_bwd_dkv_dropout_launch, q, k,
+                        (q, k, v, dout, lse, delta, dk, dv), _scratch(q, 8), scale, p, seed,
+                        base, first_pass, passes, heads, h0, group, k.shape[2], q.shape[2])
+    return dk, dv
 
 
 def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p: float,
@@ -287,26 +421,29 @@ def flash_attention_dropout(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, p
     (``ops/library.py``): the dropout kernels for CUDA tensors (counted in
     ``flash_attention_dropout.launches``, and by instance in
     ``launches_shared`` and ``launches_each``; they raise on what they do
-    not take), :func:`flash_attention_dropout_ref` for CPU ones.  The kernels
-    have no backward, so on the card a call that autograd would record
-    raises; on the CPU such a call takes the plain version directly."""
-    from .prepared import check_no_grad, records_grad
+    not take), :func:`flash_attention_dropout_ref` for CPU ones.  Where
+    autograd records the call, :class:`_FlashAttentionDropout`, whose
+    backward runs the ``flash_backward_dq_dropout`` and
+    ``flash_backward_dkv_dropout`` operators (their kernels counted in
+    ``launches_dq`` and ``launches_dkv``; on the CPU their plain versions)."""
+    from .prepared import records_grad
 
+    if q.device.type not in ("cpu", "cuda"):
+        raise ValueError(f"flash_attention_dropout: unsupported device {q.device}")
     heads = q.shape[1] if heads is None else heads
     base = stream.take(q.shape[0] * heads * q.shape[2] * k.shape[2])
     args = (q.shape[-1] ** -0.5, p, stream.seed, base, stream.first_pass, stream.passes, heads, h0)
-    if q.device.type == "cpu" and records_grad(q, k, v):
-        return flash_attention_dropout_ref(q, k, v, *args)
-    if q.device.type not in ("cpu", "cuda"):
-        raise ValueError(f"flash_attention_dropout: unsupported device {q.device}")
-    check_no_grad("flash_attention_dropout", q, k, v)
-    return torch.ops.dmf.flash_forward_dropout(q.contiguous(), k.contiguous(), v.contiguous(),
-                                               *args)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if records_grad(q, k, v):
+        return _FlashAttentionDropout.apply(q, k, v, *args)
+    return torch.ops.dmf.flash_forward_dropout(q, k, v, *args)[0]
 
 
 flash_attention_dropout.launches = 0
 flash_attention_dropout.launches_shared = 0  # the head-shared instance
 flash_attention_dropout.launches_each = 0  # the per-element instance
+flash_attention_dropout.launches_dq = 0  # the backward's dropout instances
+flash_attention_dropout.launches_dkv = 0
 
 
 def flash_forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -384,6 +521,33 @@ class _FlashAttention(torch.autograd.Function):
         dq = flash_bwd_dq(q, k, v, dout, lse, delta, ctx.scale)
         dk, dv = flash_bwd_dkv(q, k, v, dout, lse, delta, ctx.scale)
         return dq, dk, dv, None
+
+
+class _FlashAttentionDropout(torch.autograd.Function):
+    """Attention with weight dropout over (B, H_local, N, D) tensors,
+    differentiable: the dropout forward saves its lse; the backward computes
+    delta and runs the dropout instances of dQ and dK/dV (the operators of
+    ``ops/library.py``), which redraw the same keep bits from the seed."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale: float, p: float, seed, base: int, first_pass: int,
+                passes: int, heads: int, h0: int):
+        out, lse = torch.ops.dmf.flash_forward_dropout(q, k, v, scale, p, seed, base,
+                                                       first_pass, passes, heads, h0)
+        ctx.save_for_backward(q, k, v, out, lse, seed)
+        ctx.args = (scale, p, base, first_pass, passes, heads, h0)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, seed = ctx.saved_tensors
+        scale, p, base, first_pass, passes, heads, h0 = ctx.args
+        dout = dout.contiguous()
+        delta = backward_delta(out, dout)
+        args = (scale, p, seed, base, first_pass, passes, heads, h0)
+        dq = torch.ops.dmf.flash_backward_dq_dropout(q, k, v, dout, lse, delta, *args)
+        dk, dv = torch.ops.dmf.flash_backward_dkv_dropout(q, k, v, dout, lse, delta, *args)
+        return (dq, dk, dv) + (None,) * 8
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -6,31 +6,37 @@ registered here as an operator in the ``dmf`` namespace, so that a traced
 program holds one node per kernel call and runs the kernel when the program
 runs, in a process that holds none of the model code:
 
-=========================  ==================================================  =============
-operator                   CUDA implementation                                 kernel
-=========================  ==================================================  =============
-``se_epilogue``            ``epilogue_cuda.launch_se_epilogue``                1
-``keep_mask``              ``epilogue_cuda.keep_mask`` (kernel 1's keep test)  1
-``conv3x3_bn_gelu``        ``conv3x3.launch_conv3x3_bn_gelu``                  2
-``se_scale``               ``se_cuda.launch_se_scale``                         6
-``flash_forward``          ``flash_attention.launch_flash_forward``            3
-``flash_forward_dropout``  ``flash_attention.launch_flash_forward_dropout``    3 (dropout)
-``int8_conv``              ``quant_cuda.launch_int8_conv``                     int8 conv
-``quantize``               ``quant_cuda.launch_quantize``                      int8 quantize
-``dynamic_quantize``       ``quant_cuda.launch_dynamic_quantize``              int8 quantize
-=========================  ==================================================  =============
+==============================  ==================================================  =============
+operator                        CUDA implementation                                 kernel
+==============================  ==================================================  =============
+``se_epilogue``                 ``epilogue_cuda.launch_se_epilogue``                1
+``keep_mask``                   ``epilogue_cuda.keep_mask`` (kernel 1's keep test)  1
+``conv3x3_bn_gelu``             ``conv3x3.launch_conv3x3_bn_gelu``                  2
+``se_scale``                    ``se_cuda.launch_se_scale``                         6
+``flash_forward``               ``flash_attention.launch_flash_forward``            3
+``flash_forward_dropout``       ``flash_attention.launch_flash_forward_dropout``    3 (dropout)
+``flash_backward_dq_dropout``   ``flash_attention.launch_flash_bwd_dq_dropout``     4 (dropout)
+``flash_backward_dkv_dropout``  ``flash_attention.launch_flash_bwd_dkv_dropout``    5 (dropout)
+``int8_conv``                   ``quant_cuda.launch_int8_conv``                     int8 conv
+``quantize``                    ``quant_cuda.launch_quantize``                      int8 quantize
+``dynamic_quantize``            ``quant_cuda.launch_dynamic_quantize``              int8 quantize
+==============================  ==================================================  =============
 
 ``flash_forward_dropout`` has two instances, chosen by the shape
 (``flash_attention.dropout_group``, once a call): the head-shared one (a
 pre-pass makes one Philox call for the heads whose bits it holds, counted
 in ``flash_attention_dropout.launches_shared``) and the per-element one
-(``launches_each``); ``launches`` counts both.
+(``launches_each``); ``launches`` counts both.  It returns the undropped
+softmax's lse beside the output, which the backward's two dropout
+operators take (``flash_attention._FlashAttentionDropout``; counted in
+``flash_attention_dropout.launches_dq`` and ``launches_dkv``).
 
 The last three are the int8 serving path's kernels (``ops/quant.py``),
 which replace no Pallas kernel: XLA lowers JAX's int8 conv and quantize.
 ``flash_forward_dropout`` (the forward kernels' dropout variants, the MC
-attention of the seed route) replaces none either: XLA lowers JAX's
-materialized-weights route.
+attention of the seed route and the training route at the flash shapes)
+replaces none either: XLA lowers JAX's materialized-weights route; its
+backward operators are the dropout instances of kernels 4 and 5.
 
 The products among them carry FLOP formulas for
 ``torch.utils.flop_counter.FlopCounterMode``, registered on the operator
@@ -39,7 +45,9 @@ card's machine ``torch.utils.flop_counter`` imports ``triton``, which the
 operators themselves never need), so a count over a call that reaches the
 kernels sees them:
 ``conv3x3_bn_gelu`` 2 N H W Cout 9 Cin, ``flash_forward`` 4 BH Nq Nk D (and
-``flash_forward_dropout`` 4 B H Nq Nk D),
+``flash_forward_dropout`` 4 B H Nq Nk D, the backward's dropout operators
+the products their kernels run, S and dP recomputed in each: 6 and 8 B H
+Nq Nk D),
 ``int8_conv`` twice its multiply-adds.  The others do elementwise work,
 which the counter leaves out everywhere.
 
@@ -61,7 +69,9 @@ The operators have no autograd formula: the wrappers call them only where
 autograd would not record the call (on the CPU they take the plain version
 directly otherwise, on the card they raise); ``flash_forward`` sits inside
 ``flash_attention._FlashAttention``, whose backward launches the backward
-kernels.  Importing this module registers the operators: a serving process
+kernels, and ``flash_forward_dropout`` inside
+``flash_attention._FlashAttentionDropout``, whose backward runs the two
+backward dropout operators.  Importing this module registers the operators: a serving process
 imports it (with ``torch``) and nothing else of the package.  It imports no
 model code.
 """
@@ -77,7 +87,8 @@ from . import (conv3x3, dropout, epilogue, epilogue_cuda, flash_attention, quant
 
 NAMESPACE = "dmf"
 OPERATORS = ("se_epilogue", "keep_mask", "conv3x3_bn_gelu", "se_scale", "flash_forward",
-             "flash_forward_dropout", "int8_conv", "quantize", "dynamic_quantize")
+             "flash_forward_dropout", "flash_backward_dq_dropout", "flash_backward_dkv_dropout",
+             "int8_conv", "quantize", "dynamic_quantize")
 
 _LIB = torch.library.Library(NAMESPACE, "DEF")
 _LIB.define("se_epilogue(Tensor x, Tensor identity, Tensor w1, Tensor b1, Tensor w2, "
@@ -93,7 +104,13 @@ _LIB.define("se_scale(Tensor x, Tensor w1, Tensor b1, Tensor w2, Tensor b2) "
             "-> (Tensor, Tensor)")
 _LIB.define("flash_forward(Tensor q, Tensor k, Tensor v, float scale) -> (Tensor, Tensor)")
 _LIB.define("flash_forward_dropout(Tensor q, Tensor k, Tensor v, float scale, float p, "
-            "Tensor seed, int base, int first_pass, int passes, int heads, int h0) -> Tensor")
+            "Tensor seed, int base, int first_pass, int passes, int heads, int h0) "
+            "-> (Tensor, Tensor)")
+_DROPOUT_BWD_ARGS = ("(Tensor q, Tensor k, Tensor v, Tensor dout, Tensor lse, Tensor delta, "
+                     "float scale, float p, Tensor seed, int base, int first_pass, int passes, "
+                     "int heads, int h0)")
+_LIB.define(f"flash_backward_dq_dropout{_DROPOUT_BWD_ARGS} -> Tensor")
+_LIB.define(f"flash_backward_dkv_dropout{_DROPOUT_BWD_ARGS} -> (Tensor, Tensor)")
 _LIB.define("int8_conv(Tensor x, Tensor weight, Tensor w_scale, Tensor? x_scale, Tensor? bias, "
             "int[] stride, int[] padding, int[] dilation, ScalarType out_dtype) -> Tensor")
 _LIB.define("quantize(Tensor x, Tensor scale, bool divide) -> Tensor")
@@ -110,6 +127,8 @@ def launch_counts() -> dict:
             "se_scale": se.se_scale.launches,
             "flash_forward": flash_attention.flash_attention.launches,
             "flash_forward_dropout": flash_attention.flash_attention_dropout.launches,
+            "flash_backward_dq_dropout": flash_attention.flash_attention_dropout.launches_dq,
+            "flash_backward_dkv_dropout": flash_attention.flash_attention_dropout.launches_dkv,
             "int8_conv": quant.int8_conv.launches,
             "quantize": quant.quantize.launches,
             "dynamic_quantize": quant.dynamic_quantize.launches}
@@ -122,8 +141,8 @@ def reset_launch_counts() -> None:
                flash_attention.flash_attention_dropout, quant.int8_conv, quant.quantize,
                quant.dynamic_quantize):
         fn.launches = 0
-    flash_attention.flash_attention_dropout.launches_shared = 0
-    flash_attention.flash_attention_dropout.launches_each = 0
+    for counter in ("launches_shared", "launches_each", "launches_dq", "launches_dkv"):
+        setattr(flash_attention.flash_attention_dropout, counter, 0)
 
 
 def _map_format(x: torch.Tensor) -> torch.memory_format:
@@ -259,13 +278,46 @@ def _flash_dropout_cuda(q, k, v, scale: float, p: float, seed, base: int, first_
 def _flash_dropout_cpu(q, k, v, scale: float, p: float, seed, base: int, first_pass: int,
                        passes: int, heads: int, h0: int):
     flash_attention._check_dropout(q, p, seed, first_pass, passes, heads, h0)
-    return flash_attention.flash_attention_dropout_ref(q, k, v, scale, p, seed, base,
-                                                       first_pass, passes, heads,
-                                                       h0).contiguous()
+    out = flash_attention.flash_attention_dropout_ref(q, k, v, scale, p, seed, base, first_pass,
+                                                      passes, heads, h0)
+    return out.contiguous(), flash_attention.attention_lse(q, k, scale).contiguous()
 
 
 def _flash_dropout_fake(q, k, v, scale, p, seed, base, first_pass, passes, heads, h0):
+    return _flash_fake(q, k, v, scale)
+
+
+# ------------------------------- flash_backward_dq_dropout, _dkv_dropout
+def _flash_bwd_dropout_cuda(launch, counter):
+    def impl(q, k, v, dout, lse, delta, scale: float, p: float, seed, base: int,
+             first_pass: int, passes: int, heads: int, h0: int):
+        group = flash_attention.dropout_group(heads, h0, q.shape[1], base)
+        out = launch(q, k, v, dout, lse, delta, scale, p, seed, base, first_pass, passes,
+                     heads, h0, group)
+        fn = flash_attention.flash_attention_dropout
+        setattr(fn, counter, getattr(fn, counter) + 1)
+        return out
+    return impl
+
+
+def _flash_bwd_dropout_cpu(ref):
+    def impl(q, k, v, dout, lse, delta, scale: float, p: float, seed, base: int,
+             first_pass: int, passes: int, heads: int, h0: int):
+        flash_attention._check_dropout(q, p, seed, first_pass, passes, heads, h0)
+        out = ref(q, k, v, dout, lse, delta, scale, p, seed, base, first_pass, passes, heads, h0)
+        return tuple(t.contiguous() for t in out) if isinstance(out, tuple) else out.contiguous()
+    return impl
+
+
+def _flash_bwd_dq_dropout_fake(q, k, v, dout, lse, delta, scale, p, seed, base, first_pass,
+                               passes, heads, h0):
     return torch.empty_like(q, memory_format=torch.contiguous_format)
+
+
+def _flash_bwd_dkv_dropout_fake(q, k, v, dout, lse, delta, scale, p, seed, base, first_pass,
+                                passes, heads, h0):
+    return (torch.empty_like(k, memory_format=torch.contiguous_format),
+            torch.empty_like(v, memory_format=torch.contiguous_format))
 
 
 # ------------------------------------------------------------- int8_conv
@@ -336,6 +388,14 @@ for _name, _cuda, _cpu, _fake in (
         ("se_scale", _se_scale_cuda, _se_scale_cpu, _se_scale_fake),
         ("flash_forward", _flash_cuda, _flash_cpu, _flash_fake),
         ("flash_forward_dropout", _flash_dropout_cuda, _flash_dropout_cpu, _flash_dropout_fake),
+        ("flash_backward_dq_dropout",
+         _flash_bwd_dropout_cuda(flash_attention.launch_flash_bwd_dq_dropout, "launches_dq"),
+         _flash_bwd_dropout_cpu(flash_attention.flash_bwd_dq_dropout_ref),
+         _flash_bwd_dq_dropout_fake),
+        ("flash_backward_dkv_dropout",
+         _flash_bwd_dropout_cuda(flash_attention.launch_flash_bwd_dkv_dropout, "launches_dkv"),
+         _flash_bwd_dropout_cpu(flash_attention.flash_bwd_dkv_dropout_ref),
+         _flash_bwd_dkv_dropout_fake),
         ("int8_conv", _int8_conv_cuda, _int8_conv_cpu, _int8_conv_fake),
         ("quantize", _quantize_cuda, _quantize_cpu, _quantize_fake),
         ("dynamic_quantize", _dynamic_quantize_cuda, _dynamic_quantize_cpu,
@@ -361,6 +421,13 @@ def _flash_dropout_flop(q_shape, k_shape, *args, out_shape=None, **kwargs) -> in
     return 4 * b * h * nq * k_shape[2] * d
 
 
+def _flash_bwd_dropout_flop(mult: int):
+    def formula(q_shape, k_shape, *args, out_shape=None, **kwargs) -> int:
+        b, h, nq, d = q_shape
+        return mult * b * h * nq * k_shape[2] * d
+    return formula
+
+
 def _int8_conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
     _, kh, kw, cin = w_shape  # OHWI
     return 2 * out_shape[0] * out_shape[1] * out_shape[2] * out_shape[3] * kh * kw * cin
@@ -368,6 +435,8 @@ def _int8_conv_flop(x_shape, w_shape, *args, out_shape=None, **kwargs) -> int:
 
 _FLOP_FORMULAS = (("conv3x3_bn_gelu", _conv_flop), ("flash_forward", _flash_flop),
                   ("flash_forward_dropout", _flash_dropout_flop),
+                  ("flash_backward_dq_dropout", _flash_bwd_dropout_flop(6)),
+                  ("flash_backward_dkv_dropout", _flash_bwd_dropout_flop(8)),
                   ("int8_conv", _int8_conv_flop))
 _flop_formulas_registered = False
 

@@ -301,11 +301,12 @@ def test_flash_dropout_kernels(dev, dtype, d, n, rows, first, passes, base, loca
     seed = torch.tensor([(0x5EED << 32) | 3], device=dev)
     args = (d ** -0.5, 0.1, seed, base, first, passes, 4, h0)
     fa.flash_attention_dropout.launches = 0
-    out = torch.ops.dmf.flash_forward_dropout(q, k, v, *args)
+    out, lse = torch.ops.dmf.flash_forward_dropout(q, k, v, *args)
     assert fa.flash_attention_dropout.launches == 1
-    assert torch.equal(out, fa.launch_flash_forward_dropout(
-        q, k, v, *args, fa.dropout_group(4, h0, local, base)))
+    again = fa.launch_flash_forward_dropout(q, k, v, *args, fa.dropout_group(4, h0, local, base))
+    assert torch.equal(out, again[0]) and torch.equal(lse, again[1])
     _close(out, fa.flash_attention_dropout_ref(q.float(), k.float(), v.float(), *args), dtype)
+    _close(lse, fa.attention_lse(q, k, d ** -0.5), torch.float32)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -324,7 +325,7 @@ def test_flash_dropout_keep_bits(dev, dtype):
         v = torch.zeros_like(q)
         v[:, :, w:w + d] = torch.eye(d, device=dev, dtype=dtype)
         out = fa.launch_flash_forward_dropout(q, q, v, d ** -0.5, 0.1, seed, base, first,
-                                              passes, 4, h0, fa.dropout_group(4, h0, 2, base))
+                                              passes, 4, h0, fa.dropout_group(4, h0, 2, base))[0]
         assert torch.equal(out != 0, keep[:, h0:h0 + 2, :, w:w + d])
 
 
@@ -349,9 +350,11 @@ def test_flash_dropout_head_shared_is_per_element(dev, dtype, d, heads, local, h
     seed = torch.tensor([(0x5EED << 32) | 11], device=dev)
     args = (d ** -0.5, 0.1, seed, base, first, passes, heads, h0)
     shared = fa.launch_flash_forward_dropout(q, k, v, *args, group)
-    assert torch.equal(shared, fa.launch_flash_forward_dropout(q, k, v, *args, 1))
-    assert torch.equal(shared, torch.ops.dmf.flash_forward_dropout(q, k, v, *args))
-    _close(shared, fa.flash_attention_dropout_ref(q.float(), k.float(), v.float(), *args), dtype)
+    for other in (fa.launch_flash_forward_dropout(q, k, v, *args, 1),
+                  torch.ops.dmf.flash_forward_dropout(q, k, v, *args)):
+        assert all(torch.equal(a, b) for a, b in zip(shared, other))
+    _close(shared[0], fa.flash_attention_dropout_ref(q.float(), k.float(), v.float(), *args),
+           dtype)
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -367,8 +370,9 @@ def test_flash_dropout_head_shared_slabs(dev, dtype, monkeypatch):
     args = (d ** -0.5, 0.1, seed, 8, 2, passes, 4, 0)
     monkeypatch.setattr(fa, "DROP_BITS_BYTES",
                         8 * fa.dropout_bits_words(dtype, d, 4, n, n))
-    assert torch.equal(fa.launch_flash_forward_dropout(q, k, v, *args, 4),
-                       fa.launch_flash_forward_dropout(q, k, v, *args, 1))
+    shared = fa.launch_flash_forward_dropout(q, k, v, *args, 4)
+    assert all(torch.equal(a, b)
+               for a, b in zip(shared, fa.launch_flash_forward_dropout(q, k, v, *args, 1)))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -390,7 +394,8 @@ def test_flash_dropout_head_shared_keep_bits(dev, dtype, local, h0, base):
         v = torch.zeros_like(q)
         v[:, :, w:w + d] = torch.eye(d, device=dev, dtype=dtype)
         out = fa.launch_flash_forward_dropout(q, q, v, d ** -0.5, 0.1, seed, base, first,
-                                              passes, 4, h0, fa.dropout_group(4, h0, local, base))
+                                              passes, 4, h0,
+                                              fa.dropout_group(4, h0, local, base))[0]
         assert torch.equal(out != 0, keep[:, h0:h0 + local, :, w:w + d])
 
 
@@ -418,7 +423,8 @@ def test_flash_dropout_launches_by_instance(dev):
 
 def test_flash_dropout_route_raises(dev):
     """A CUDA call the fused route takes launches or raises: non-contiguous
-    operands, an fp16 or unaligned one, p outside (0, 1), a CPU seed."""
+    operands, an fp16 or unaligned one, p outside (0, 1), a CPU seed; a call
+    that autograd records takes the differentiable route (no raise)."""
     q = torch.randn(2, 2, 128, 64, device=dev)
     seed = torch.tensor([1], device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -434,9 +440,13 @@ def test_flash_dropout_route_raises(dev):
         fa.launch_flash_forward_dropout(q, q, q, 0.125, 1.0, seed, 0, 0, 1, 2, 0, 1)
     with pytest.raises(ValueError, match="seed"):
         fa.launch_flash_forward_dropout(q, q, q, 0.125, 0.1, seed.cpu(), 0, 0, 1, 2, 0, 1)
-    with pytest.raises(RuntimeError, match="no backward"):
-        leaf = q.clone().requires_grad_()
-        fa.flash_attention_dropout(leaf, q, q, 0.1, dropout_stream(seed))
+    leaf = q.clone().requires_grad_()
+    out = fa.flash_attention_dropout(leaf, q, q, 0.1, dropout_stream(seed))
+    assert "FlashAttentionDropout" in type(out.grad_fn).__name__
+    with pytest.raises(ValueError, match="lse"):
+        fa.launch_flash_bwd_dq_dropout(q, q, q, q, torch.zeros(2, 2, 64, device=dev),
+                                       torch.zeros(2, 2, 128, device=dev), 0.125, 0.1, seed, 0, 0,
+                                       1, 2, 0, 1)
 
 
 def dropout_stream(seed):
@@ -1042,3 +1052,96 @@ def test_int8_copy_launches_the_int8_kernels(dev):
     assert quant.int8_conv.launches == quant.quantize.launches == len(calls) > 20
     assert quant.dynamic_quantize.launches == 0 and k2.conv3x3_bn_gelu.launches == 0
     assert (got.cpu() - ref).abs().max() <= 1e-2 * max(1.0, ref.abs().max().item())
+
+
+def _bwd_reference(q, k, v, dout, args):
+    """The plain forward on fp32 operands, its lse and delta, and the plain
+    backward: ``(lse, delta, (dq, dk, dv))``, fp32."""
+    q, k, v, dout = (t.float() for t in (q, k, v, dout))
+    lse = fa.attention_lse(q, k, args[0])
+    delta = fa.backward_delta(fa.flash_attention_dropout_ref(q, k, v, *args), dout)
+    dq = fa.flash_bwd_dq_dropout_ref(q, k, v, dout, lse, delta, *args)
+    return lse, delta, (dq, *fa.flash_bwd_dkv_dropout_ref(q, k, v, dout, lse, delta, *args))
+
+
+def _close_rel(got, ref, dtype):
+    """Within TOL of max|plain| (gradients far below 1 in magnitude)."""
+    bound = TOL[dtype] * ref.float().abs().max().item()
+    assert (got.float() - ref.float()).abs().max().item() <= bound
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 128])
+@pytest.mark.parametrize("heads,local,h0,rows,first,passes,base", [
+    (4, 4, 0, 2, 0, 1, 0), (4, 2, 2, 1, 3, 2, 2 ** 33 + 4), (4, 4, 0, 1, 1, 2, 6),
+    (2, 2, 0, 2, 0, 1, 8)])
+def test_flash_dropout_backward_kernels(dev, dtype, d, heads, local, h0, rows, first, passes,
+                                        base):
+    """The dQ and dK/dV kernels' dropout instances against their plain
+    versions (on fp32 operands, the same lse and delta) at N_q = 192 and N_k
+    = 320 (a half-full block or tile on each side), G = 4, a 2-way shard (G =
+    2), a base = 2 mod 4 and 2 heads (G = 1, one Philox call a weight in the
+    pre-pass); two calls the same bits, and the head-shared pre-pass the
+    same bits as the per-weight one."""
+    g = torch.Generator(device=dev).manual_seed(17)
+    b = rows * passes
+    q, dout = (torch.randn(b, local, 192, d, device=dev, generator=g).to(dtype)
+               for _ in range(2))
+    k, v = (torch.randn(b, local, 320, d, device=dev, generator=g).to(dtype) for _ in range(2))
+    seed = torch.tensor([(0x5EED << 32) | 19], device=dev)
+    args = (d ** -0.5, 0.1, seed, base, first, passes, heads, h0)
+    lse, delta, ref = _bwd_reference(q, k, v, dout, args)
+    group = fa.dropout_group(heads, h0, local, base)
+
+    def kernels(grp):
+        return (fa.launch_flash_bwd_dq_dropout(q, k, v, dout, lse, delta, *args, grp),
+                *fa.launch_flash_bwd_dkv_dropout(q, k, v, dout, lse, delta, *args, grp))
+
+    got = kernels(group)
+    for a, r in zip(got, ref):
+        _close_rel(a, r, dtype)
+    for other in (kernels(group), kernels(1)):
+        assert all(torch.equal(a, b_) for a, b_ in zip(got, other))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dropout_backward_slabs(dev, dtype, monkeypatch):
+    """The backward's pre-pass over rows b in slabs (its bits' scratch capped
+    at two rows: slabs of 2, 2 and 1 of 5) bit-equal to one slab."""
+    d, n, passes = 64, 192, 5
+    g = torch.Generator(device=dev).manual_seed(21)
+    q, k, v, dout = (torch.randn(passes, 4, n, d, device=dev, generator=g).to(dtype)
+                     for _ in range(4))
+    seed = torch.tensor([(0x5EED << 32) | 23], device=dev)
+    args = (d ** -0.5, 0.1, seed, 8, 2, passes, 4, 0)
+    lse, delta, _ = _bwd_reference(q, k, v, dout, args)
+
+    def kernels():
+        return (fa.launch_flash_bwd_dq_dropout(q, k, v, dout, lse, delta, *args, 4),
+                *fa.launch_flash_bwd_dkv_dropout(q, k, v, dout, lse, delta, *args, 4))
+
+    whole = kernels()
+    monkeypatch.setattr(fa, "DROP_BITS_BYTES", 8 * fa.dropout_bits_words(dtype, d, 4, n, n))
+    assert all(torch.equal(a, b) for a, b in zip(whole, kernels()))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_dropout_autograd(dev, dtype):
+    """``flash_attention_dropout`` under autograd on the card: one forward,
+    one dQ and one dK/dV launch of the dropout instances, the gradients
+    within tolerance of the plain backward on fp32 operands."""
+    from dmf_tpu_torch.ops import library
+
+    g = torch.Generator(device=dev).manual_seed(25)
+    q, k, v, dout = (torch.randn(2, 4, 512, 128, device=dev, generator=g).to(dtype)
+                     for _ in range(4))
+    seed = torch.tensor([(0x5EED << 32) | 27], device=dev)
+    leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+    library.reset_launch_counts()
+    out = fa.flash_attention_dropout(*leaves, 0.1, dropout_stream(seed))
+    grads = torch.autograd.grad(out, leaves, dout)
+    fn = fa.flash_attention_dropout
+    assert (fn.launches, fn.launches_dq, fn.launches_dkv) == (1, 1, 1)
+    _, _, ref = _bwd_reference(q, k, v, dout, (128 ** -0.5, 0.1, seed, 0, 0, 1, 4, 0))
+    for a, r in zip(grads, ref):
+        _close_rel(a, r, dtype)

@@ -181,17 +181,27 @@ def test_module_without_dropout_matches_jax():
 
 
 def test_generator_keeps_the_weights_route():
-    """A ``torch.Generator`` (training, a direct ``mc=True`` call) takes the
-    weights route: its mask is the generator's draw."""
-    x, _, _, pm = _jax_mhsa(P)
-    with torch.no_grad():
-        out = pm(torch.from_numpy(x), mc=True, generator=torch.Generator().manual_seed(9))
-        B, N, C, H = 2, 512, 32, 2
-        q, k, v = pm.qkv(torch.from_numpy(x)).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1, 4)
-        keep = torch.empty(B, H, N, N).uniform_(generator=torch.Generator().manual_seed(9)) < 1 - P
-        w = torch.where(keep, attention_weights(q, k, (C // H) ** -0.5) / (1 - P), 0.0)
-        want = pm.proj(torch.einsum("bhqk,bhkd->bhqd", w, v).transpose(1, 2).reshape(B, N, C))
-    assert torch.equal(out, want)
+    """A ``torch.Generator`` (training, a direct ``mc=True`` call) keeps the
+    weights route below the flash shapes (256 tokens: its mask the
+    generator's ``uniform_`` draw); at 512 tokens it takes the fused route
+    on one seed drawn from the generator, the counters from 0: the weights
+    route's function on that seed's keep mask."""
+    for n in (256, 512):
+        x, _, _, pm = _jax_mhsa(P, n=n)
+        B, N, C, H = 2, n, 32, 2
+        with torch.no_grad():
+            out = pm(torch.from_numpy(x), mc=True, generator=torch.Generator().manual_seed(9))
+            q, k, v = pm.qkv(torch.from_numpy(x)).reshape(B, N, 3, H, C // H).permute(2, 0, 3, 1,
+                                                                                     4)
+            g = torch.Generator().manual_seed(9)
+            if n == 256:
+                keep = torch.empty(B, H, N, N).uniform_(generator=g) < 1 - P
+            else:
+                seed = torch.randint(0, 2 ** 63 - 1, (1,), generator=g, dtype=torch.int64)
+                keep = dropout.keep_mask_plain((B, H, N, N), P, seed, 0)
+            w = torch.where(keep, attention_weights(q, k, (C // H) ** -0.5) / (1 - P), 0.0)
+            want = pm.proj(torch.einsum("bhqk,bhkd->bhqd", w, v).transpose(1, 2).reshape(B, N, C))
+        assert torch.equal(out, want), n
 
 
 @pytest.fixture(scope="module")

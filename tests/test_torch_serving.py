@@ -245,6 +245,9 @@ def _operator_cases():
         "flash_forward": (r(3, 64, 16), r(3, 128, 16), r(3, 128, 16), 0.25),
         "flash_forward_dropout": (r(2, 2, 64, 16), r(2, 2, 128, 16), r(2, 2, 128, 16), 0.25,
                                   0.1, torch.tensor(9), 4, 1, 2, 4, 2),
+        **{f"flash_backward_{g}_dropout": (r(2, 2, 64, 16), r(2, 2, 128, 16), r(2, 2, 128, 16),
+                                           r(2, 2, 64, 16), r(2, 2, 64), r(2, 2, 64), 0.25, 0.1,
+                                           torch.tensor(9), 4, 1, 2, 4, 2) for g in ("dq", "dkv")},
     }
 
 
